@@ -1,0 +1,205 @@
+"""Evaluation harness: the per-window protocol with per-file results.
+
+Counterpart of event_flow_tpu/eval/harness.py::Evaluator on its
+per-window path (``_window_step`` :164-205, ``_compute_fwl_rsat``,
+``process_batch`` :378-438, ``_accumulate``/``_drain``/``results``
+:637-710, ``run`` :712-731) for the events-mode metrics FWL and RSAT.
+
+Per window: augment -> encode (one scatter) -> hot-pixel filter ->
+model forward with the carried recurrent state -> per-event flow
+gather. Every K = window_eval / window windows, FWL and RSAT are computed
+on the accumulated events (two scatters each). Any reset in a batch
+resets the model state of every slot, as in JAX. Metric values stay on
+the device until :meth:`Evaluator.results` reads them all at once.
+
+Not ported: the chunked fast path, single-put packing and mesh placement
+(TPU dispatch workarounds with the same results), AEE, and the
+visualization renders (the display IWE is skipped when vis is off, as the
+chunked path does).
+"""
+
+import torch
+
+from ..data.augment import augment_events
+from ..loss.metrics import fwl as fwl_fn
+from ..loss.metrics import rsat as rsat_fn
+from ..ops.encodings import encode_window
+from ..ops.hot_filter import apply_hot_filter, init_hot_state
+from ..ops.iwe import gather_event_flow
+
+__all__ = ["Evaluator"]
+
+
+class Evaluator:
+    def __init__(self, config, model, device):
+        self.model = model
+        self.device = device
+        self.res = tuple(config["loader"]["resolution"])
+        self.num_bins = config["model"]["num_bins"]
+        self.round_ts = config["model"].get("round_encoding", False)
+        metrics_cfg = config.get("metrics", {})
+        self.flow_scaling = metrics_cfg.get("flow_scaling", 128)
+        self.metrics = list(metrics_cfg.get("name", []))
+        unsupported = set(self.metrics) - {"FWL", "RSAT"}
+        if unsupported:
+            raise NotImplementedError(
+                f"metrics {sorted(unsupported)} are not ported (see "
+                "ROADMAP.md)")
+        # off by default: reproduces the reference CLI's crediting of each
+        # file's first window to the last metric's bucket (see the JAX
+        # harness for the full story)
+        self.reference_accounting = bool(
+            metrics_cfg.get("reference_accounting", False))
+        if config["data"]["mode"] != "events":
+            raise NotImplementedError(
+                "only events mode is ported (see ROADMAP.md)")
+        if config.get("loss", {}).get("overwrite_intermediate", False):
+            raise NotImplementedError(
+                "loss.overwrite_intermediate is not ported (see ROADMAP.md)")
+        vis = config.get("vis", {})
+        if vis.get("enabled") or vis.get("store"):
+            raise NotImplementedError(
+                "visualization is not ported (see ROADMAP.md)")
+        window = config["data"]["window"]
+        window_eval = config["data"].get("window_eval", window)
+        self.k_windows = max(1, int(round(window_eval / window)))
+        self.hot_cfg = config.get("hot_filter", {"enabled": False})
+        self._results = {}
+        self._buffers = []
+        self._pending = []
+        self.windows = 0
+        self.metric_groups = 0
+        self.model_state = None  # the carried state after run()
+
+    # -- per-window step --------------------------------------------------
+
+    def _window_step(self, model_state, hot_state, events, valid, aug,
+                     reset, new_seq):
+        events = augment_events(events, aug, self.res)
+        enc = encode_window(events, self.res, self.num_bins, valid=valid,
+                            round_ts=self.round_ts)
+        if self.hot_cfg.get("enabled"):
+            enc, hot_state = apply_hot_filter(
+                enc, hot_state, reset=reset,
+                max_px=self.hot_cfg.get("max_px", 100),
+                min_obvs=self.hot_cfg.get("min_obvs", 5),
+                max_rate=self.hot_cfg.get("max_rate", 0.8),
+            )
+        if new_seq:  # any reset clears every slot's model state
+            model_state = tuple(tuple(torch.zeros_like(t) for t in s)
+                                for s in model_state)
+        out, model_state = self.model(enc["event_voxel"], enc["event_cnt"],
+                                      model_state)
+        flow_last = out["flow"][-1]
+        win = {
+            "event_list": enc["event_list"],
+            "pol_mask": enc["pol_mask"],
+            "event_flow": gather_event_flow(flow_last, enc["event_list"],
+                                            self.res),
+        }
+        return model_state, hot_state, win
+
+    def _compute_fwl_rsat(self, buffers):
+        """FWL / RSAT over K buffered windows, with per-pass timestamp
+        offsets."""
+        ev = torch.stack([w["event_list"] for w in buffers], dim=1)
+        flow = torch.stack([w["event_flow"] for w in buffers], dim=1)
+        pol = torch.stack([w["pol_mask"] for w in buffers], dim=1)
+        b, k, n, _ = ev.shape
+        offs = torch.arange(k, dtype=ev.dtype, device=ev.device)
+        ts = ev[..., 0] + offs[None, :, None]
+        ev = torch.cat([ts[..., None], ev[..., 1:]], dim=-1).reshape(
+            b, k * n, 4)
+        flow = flow.reshape(b, k * n, 2)
+        pol = pol.reshape(b, k * n, 2)
+        out = {}
+        if "FWL" in self.metrics:
+            out["FWL"] = fwl_fn(ev, flow, self.k_windows, self.res,
+                                self.flow_scaling)
+        if "RSAT" in self.metrics:
+            out["RSAT"] = rsat_fn(ev, flow, pol, self.k_windows, self.res,
+                                  self.flow_scaling)
+        return out
+
+    # -- host protocol ----------------------------------------------------
+
+    def process_batch(self, stream, model_state, hot_state, batch):
+        """Consume one stream batch; returns (model_state, hot_state)."""
+        dev = self.device
+        b = len(batch["events"])
+        new_seq = bool(batch["new_seq"])
+        reset = torch.full((b,), 1.0 if new_seq else 0.0, device=dev)
+        if new_seq:
+            self._buffers = []
+        model_state, hot_state, win = self._window_step(
+            model_state, hot_state,
+            torch.as_tensor(batch["events"], device=dev),
+            torch.as_tensor(batch["valid"], device=dev),
+            torch.as_tensor(batch["aug_flags"], device=dev),
+            reset, new_seq)
+        self._buffers.append(win)
+        self.windows += 1
+        if len(self._buffers) >= self.k_windows:
+            filenames = [stream.slot_filename(s) for s in range(b)]
+            vals = self._compute_fwl_rsat(self._buffers)
+            self.metric_groups += 1
+            for name in self.metrics:
+                self._pending.append((name, vals[name], filenames))
+            self._buffers = []
+        return model_state, hot_state
+
+    def _drain(self):
+        """Read every queued metric value in one device-to-host copy and
+        fold it into the per-file running sums."""
+        if not self._pending:
+            return
+        values = torch.stack([v for _, v, _ in self._pending]).cpu().numpy()
+        ref_acct = self.reference_accounting and len(self.metrics) > 1
+        for (metric, _, filenames), row in zip(self._pending, values):
+            credit = metric
+            for slot, fname in enumerate(filenames):
+                fentry = self._results.get(fname)
+                if fentry is None:
+                    fentry = self._results[fname] = {}
+                    if ref_acct:
+                        for m in self.metrics:
+                            fentry[m] = {"metric": 0.0, "it": 0}
+                        credit = self.metrics[-1]
+                entry = fentry.setdefault(credit, {"metric": 0.0, "it": 0})
+                entry["metric"] += float(row[slot])
+                entry["it"] += 1
+        self._pending = []
+
+    def results(self):
+        """Per-file means: {metric: {filename: value}}."""
+        self._drain()
+        out = {}
+        for metric in self.metrics:
+            out[metric] = {}
+            for fname, entry in self._results.items():
+                if metric in entry:
+                    e = entry[metric]
+                    out[metric][fname] = e["metric"] / max(e["it"], 1)
+        return out
+
+    def run(self, stream):
+        """Iterate the stream until every file has been visited once."""
+        b = stream.batch_size
+        h, w = self.res
+        model_state = self.model.zero_state(b, h, w, self.device)
+        hot_state = init_hot_state(b, self.res, self.device)
+        while stream.seq_num < len(stream.files):
+            batch = stream.next_batch()
+            if stream.seq_num >= len(stream.files):
+                break
+            model_state, hot_state = self.process_batch(
+                stream, model_state, hot_state, batch)
+        self.model_state = model_state
+        return self.results()
+
+
+def spike_rates(model_state, names):
+    """Mean spike rate of each cell in its last window, from the carried
+    state's z."""
+    return {name: float(s[1].mean()) for name, s in zip(names, model_state)}
+

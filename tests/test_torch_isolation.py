@@ -1,0 +1,147 @@
+"""The port stands alone: no JAX, flax, optax, yaml or h5py on its
+serving path, no CUDA launch for CPU tensors, no silent device fallback.
+"""
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from event_flow_tpu_torch.device import get_device
+from event_flow_tpu_torch.ops import native
+from event_flow_tpu_torch.ops.conv import conv2d_same
+from event_flow_tpu_torch.ops.fused_lif import (fused_conv_lif,
+                                                fused_conv_lif_rec)
+from event_flow_tpu_torch.ops.scatter import scatter_add
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "h5py")
+
+
+def test_evaluate_runs_with_jax_yaml_h5py_blocked():
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import copy, math
+        import event_flow_tpu_torch
+        from event_flow_tpu_torch.config import ECD_LIFFIRENET
+        from event_flow_tpu_torch.eval_flow import evaluate
+        cfg = copy.deepcopy(ECD_LIFFIRENET)
+        cfg["loader"]["resolution"] = [16, 24]
+        cfg["data"]["window"] = cfg["data"]["window_eval"] = 2000
+        cfg["model"]["base_num_channels"] = 4
+        rep = evaluate(cfg, "cpu", seed=0)
+        vals = [v for d in rep["results"].values() for v in d.values()]
+        assert len(vals) == 4 and all(math.isfinite(v) for v in vals), vals
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {BLOCKED!r})
+        assert not loaded, loaded
+        print("OK", rep["windows"])
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK 20")
+
+
+def _top_level_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def _all_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_no_blocked_imports_in_the_port():
+    files = sorted((ROOT / "event_flow_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for path in files:
+        for name in _top_level_imports(path):
+            assert name.split(".")[0] not in BLOCKED, (path, name)
+        for name in _all_imports(path):
+            # yaml only inside the CLI's config loading; never JAX
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax",
+                                              "optax", "h5py"), (path, name)
+            # of the JAX package only its framework-free numpy generators
+            if name.startswith("event_flow_tpu."):
+                assert name == "event_flow_tpu.data.synthetic", (path, name)
+
+
+def test_cpu_tensors_take_the_plain_path():
+    native.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1, 6, 7, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(4, 3, 3, 3)).astype(np.float32))
+    v = torch.zeros(1, 6, 7, 4)
+    leak, thresh = torch.full((4,), 0.5), torch.full((4,), 0.2)
+    assert conv2d_same(x, w).shape == (1, 6, 7, 4)
+    wr = torch.from_numpy(rng.normal(size=(4, 4, 3, 3)).astype(np.float32))
+    with torch.no_grad():
+        vo, zo = fused_conv_lif(x, w, v, v, leak, thresh, 3)
+        fused_conv_lif_rec(x, w, wr, v, zo, zo, leak, thresh, 3)
+    idx = torch.tensor([[0, 2, 2]])
+    assert scatter_add(idx, torch.ones(1, 3, 2), 4)[0, 2, 0] == 2.0
+    assert all(n == 0 for n in native.LAUNCHES.values()), native.LAUNCHES
+
+
+def test_fused_lif_has_no_backward_yet():
+    x = torch.zeros(1, 4, 4, 2, requires_grad=True)
+    w = torch.zeros(3, 2, 3, 3)
+    v = torch.zeros(1, 4, 4, 3)
+    with pytest.raises(NotImplementedError, match="training"):
+        fused_conv_lif(x, w, v, v, torch.ones(3), torch.ones(3), 3)
+
+
+def test_get_device_never_falls_back():
+    assert get_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert get_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            get_device("cuda")
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without nvcc the build raises; nothing falls back."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("this machine has nvcc in /usr/local/cuda")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        native.find_nvcc()
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
