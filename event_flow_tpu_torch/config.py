@@ -7,12 +7,15 @@ same recursive merge and the same re-nesting of ``spiking_neuron`` under
 :data:`ECD_LIFFIRENET` is the serving recipe of the slice written out:
 ``configs/eval_ECD.yml`` merged over the model block of
 ``configs/train_SNN.yml`` (tests/test_torch_eval.py checks the two agree).
+:data:`TRAIN_SNN` is the training recipe: ``configs/train_SNN.yml`` over
+the defaults (tests/test_torch_train.py checks the two agree).
 """
 
 import copy
 
 __all__ = ["default_config", "merge_dicts", "combine_entries",
-           "load_yaml_config", "merge_run_params", "ECD_LIFFIRENET"]
+           "load_yaml_config", "merge_run_params", "ECD_LIFFIRENET",
+           "TRAIN_SNN"]
 
 
 def default_config():
@@ -98,4 +101,31 @@ ECD_LIFFIRENET = {
     "metrics": {"name": ["FWL", "RSAT"], "flow_scaling": 128},
     "vis": {"bars": False, "enabled": False, "px": 400, "activity": False,
             "store": False},
+}
+
+
+TRAIN_SNN = {
+    "experiment": "Default",
+    "data": {"path": "datasets/data/training/", "mode": "events",
+             "window": 1000, "window_loss": 10000},
+    "loader": {"resolution": [128, 128], "batch_size": 8,
+               "augment": ["Horizontal", "Vertical", "Polarity"],
+               "augment_prob": [0.5, 0.5, 0.5], "gpu": 0, "seed": 0,
+               "n_epochs": 100},
+    "hot_filter": {"enabled": False, "max_px": 100, "min_obvs": 5,
+                   "max_rate": 0.8},
+    "model": {
+        "name": "LIFFireNet", "encoding": "cnt", "round_encoding": False,
+        "norm_input": False, "num_bins": 2, "base_num_channels": 32,
+        "kernel_size": 3, "activations": ["arctanspike", "arctanspike"],
+        "mask_output": True,
+        "spiking_neuron": {"leak": [-4.0, 0.1], "thresh": [0.8, 0.1],
+                           "learn_leak": True, "learn_thresh": True,
+                           "hard_reset": True},
+    },
+    "loss": {"flow_regul_weight": 0.001, "clip_grad": 100.0,
+             "overwrite_intermediate": False},
+    "optimizer": {"name": "Adam", "lr": 0.0002},
+    "vis": {"bars": False, "verbose": True, "enabled": False, "px": 400,
+            "store_grads": False},
 }

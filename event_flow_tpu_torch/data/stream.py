@@ -10,15 +10,21 @@ at most 10 events emptied, and padding at (-1, -1) with a validity mask.
 :func:`synthetic_sequences` builds exactly the sequences that
 ``event_flow_tpu.data.synthetic.ensure_synthetic_dataset`` writes to disk
 for an ``events``-mode config, without writing them.
+
+:class:`SyntheticWindowStream` is the training stream of
+``train_flow.py --synthetic``: constant-velocity windows straight from
+``event_flow_tpu.data.synthetic.synthetic_window_stream``.
 """
 
 import numpy as np
 
-from event_flow_tpu.data.synthetic import constant_flow_window
+from event_flow_tpu.data.synthetic import (constant_flow_window,
+                                          synthetic_window_stream)
 
 from .augment import draw_augment_flags
 
-__all__ = ["EventSequence", "ArrayEventStream", "synthetic_sequences"]
+__all__ = ["EventSequence", "ArrayEventStream", "SyntheticWindowStream",
+           "synthetic_sequences"]
 
 
 class EventSequence:
@@ -144,3 +150,38 @@ class ArrayEventStream:
         batch["aug_flags"] = self.aug_flags.copy()
         batch["new_seq"] = self.new_seq
         return batch
+
+
+class SyntheticWindowStream:
+    """The datasetless training stream of the JAX CLI
+    (train_flow.py:153-203, ``_SyntheticStream`` in its ``const`` style):
+    per-slot constant-velocity windows of ``data.window`` events from
+    ``synthetic_window_stream`` with the config's seed, every window
+    valid, augmentation flags zero, and a sequence change flagged on the
+    first batch of every ``ROLLOVER`` batches after the first."""
+
+    ROLLOVER = 64
+
+    def __init__(self, config):
+        self.batch_size = config["loader"]["batch_size"]
+        self.files = ["synthetic"]
+        self.seq_num = 0
+        self.samples = 0
+        self._gen = synthetic_window_stream(
+            config["loader"].get("seed", 0), self.batch_size,
+            int(config["data"]["window"]),
+            tuple(config["loader"]["resolution"]), 1)
+        self._count = 0
+
+    def next_batch(self):
+        ev = next(self._gen)[:, 0]
+        self._count += 1
+        new_seq = self._count > 1 and (self._count - 1) % self.ROLLOVER == 0
+        if new_seq:
+            self.seq_num += 1
+        return {
+            "events": ev,
+            "valid": np.ones(ev.shape[:2], np.float32),
+            "aug_flags": np.zeros((self.batch_size, 3), np.float32),
+            "new_seq": new_seq,
+        }

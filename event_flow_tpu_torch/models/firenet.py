@@ -24,9 +24,9 @@ _LAYER_NAMES = ("head", "G1", "R1a", "R1b", "G2", "R2a", "R2b")
 
 def _select_encoding(encoding, num_bins, event_voxel, event_cnt):
     if encoding == "voxel":
-        return event_voxel
+        return event_voxel.contiguous()
     if encoding == "cnt" and num_bins == 2:
-        return event_cnt
+        return event_cnt.contiguous()
     raise ValueError(f"Incorrect input encoding {encoding!r}/{num_bins}")
 
 
@@ -89,8 +89,6 @@ def make_liffirenet(name, model_cfg, generator=None):
     if model_cfg.get("norm_input", False):
         raise NotImplementedError("norm_input is not ported (see ROADMAP.md)")
     neuron = dict(model_cfg.get("spiking_neuron") or {})
-    for key in ("learn_leak", "learn_thresh"):
-        neuron.pop(key, None)  # training-only switches
     neuron = {k: tuple(v) if isinstance(v, list) else v
               for k, v in neuron.items()}
     return FireNet(

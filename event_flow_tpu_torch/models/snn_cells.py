@@ -4,9 +4,11 @@ Counterpart of event_flow_tpu/models/snn_cells.py::ConvLIF (:136-208) and
 ::ConvLIFRecurrent (:390-470) with detach and no norm, the configuration
 the FireNet family uses. Per-channel leak and threshold are drawn
 N(mu, sigma) and stored (C, 1, 1) as in the reference torch modules; the
-leak is squashed by a sigmoid and the threshold clamped at >= 0.01. Both
-cells go through ops/fused_lif.py on every device: the CUDA kernel on
-the GPU, its plain version on the CPU.
+leak is squashed by a sigmoid and the threshold clamped at >= 0.01.
+``learn_leak`` / ``learn_thresh`` False freeze them (``requires_grad``
+off, the JAX cells' ``stop_gradient``). Both cells go through
+ops/fused_lif.py on every device: the CUDA kernels on the GPU, their
+plain versions on the CPU.
 
 Cell contract: ``cell(x, state) -> (spikes, new_state)``, NHWC tensors,
 state ``(v, z)``.
@@ -45,7 +47,8 @@ def _normal_(t, mu, sigma, generator):
 class _LIFBase(nn.Module):
     def __init__(self, cin, features, kernel_size, activation="arctanspike",
                  act_width=10.0, leak=(-4.0, 0.1), thresh=(0.8, 0.0),
-                 hard_reset=True, generator=None, rec=False):
+                 learn_leak=True, learn_thresh=True, hard_reset=True,
+                 generator=None, rec=False):
         super().__init__()
         self.features = features
         self.kernel_size = kernel_size
@@ -63,6 +66,8 @@ class _LIFBase(nn.Module):
         self.thresh = nn.Parameter(torch.empty(features, 1, 1))
         _normal_(self.leak, *leak, generator)
         _normal_(self.thresh, *thresh, generator)
+        self.leak.requires_grad_(bool(learn_leak))
+        self.thresh.requires_grad_(bool(learn_thresh))
 
     def _neuron(self):
         return (torch.sigmoid(self.leak).reshape(-1),

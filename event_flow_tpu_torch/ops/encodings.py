@@ -4,7 +4,8 @@ Counterpart of event_flow_tpu/ops/encodings.py. The raw window
 [B, N, 4] = (ts, y, x, p) with p in {-1, +1} and a [B, N] validity mask
 become NHWC count / voxel / mask images through ONE channelled
 scatter-add (C = 2 + num_bins): pos count, neg count, then the voxel
-bins.
+bins. :func:`encode_windows` does the same for the T windows of a
+training update, all B*T windows in one scatter.
 """
 
 import torch
@@ -12,7 +13,7 @@ import torch
 from .scatter import scatter_add
 
 __all__ = ["linear_idx", "normalize_timestamps", "format_events",
-           "polarity_mask", "encode_window"]
+           "polarity_mask", "encode_window", "encode_windows"]
 
 
 def linear_idx(ys, xs, res):
@@ -93,3 +94,17 @@ def encode_window(events, res, num_bins, valid=None, round_ts=False):
         "event_mask": ((cnt[..., 0] + cnt[..., 1]) > 0).to(cnt.dtype)[..., None],
         "pol_mask": polarity_mask(ps, valid=valid),
     }
+
+
+def encode_windows(events, res, num_bins, valid=None, round_ts=False):
+    """The encodings of T windows at once (ops/encodings.py:202-254).
+
+    events [B, T, N, 4] raw; valid [B, T, N]. Returns event_list
+    [B,T,N,4], event_cnt [B,T,H,W,2], event_voxel [B,T,H,W,num_bins],
+    event_mask [B,T,H,W,1] and pol_mask [B,T,N,2]; one scatter-add over a
+    [B*T] batch axis."""
+    b, t, n, _ = events.shape
+    flat_valid = None if valid is None else valid.reshape(b * t, n)
+    enc = encode_window(events.reshape(b * t, n, 4), res, num_bins,
+                        valid=flat_valid, round_ts=round_ts)
+    return {key: val.reshape(b, t, *val.shape[1:]) for key, val in enc.items()}

@@ -1,7 +1,9 @@
-"""Fused convolution + LIF update: kernel K2 and its plain versions.
+"""Fused convolution + LIF update with its backward: kernels K2 and B4 and
+their plain versions.
 
-Counterpart of event_flow_tpu/ops/fused_lif_pallas.py (B3, ``_fused_fwd``,
-forward only). The cell update, with ``leak`` and ``thresh`` post-squash:
+Counterpart of event_flow_tpu/ops/fused_lif_pallas.py (B3 ``_fused_fwd``,
+B4 ``_fused_bwd_elem``, the custom VJPs ``_ff_bwd`` / ``_rec_bwd``). The
+cell update, with ``leak`` and ``thresh`` post-squash:
 
     hard reset:  v' = v*l*(1-z) + (1-l)*cur
     soft reset:  v' = v*l + (1-l)*cur - z*th
@@ -9,6 +11,15 @@ forward only). The cell update, with ``leak`` and ``thresh`` post-squash:
 
 with ``cur = conv(x, w)`` for the feedforward cell and
 ``cur = conv(x, w) + conv(z_rec, w_rec)`` for the recurrent one.
+:func:`fused_conv_lif` and :func:`fused_conv_lif_rec` are
+``torch.autograd.Function``s on both devices: forward K2 on the card and
+the plain version on the CPU; backward B4 (the plain
+:func:`fused_lif_bwd_plain` on the CPU) for the cotangent of the current
+and of v and the per-channel leak and threshold gradients, then
+ops/conv.py's gradient pieces (K1 for dx and dz_rec, B2 for dw and
+dw_rec). ``z`` enters only through the reset, which is detached as in
+the JAX cells (``stop_gradient``), so its gradient is 0; the recurrent
+input ``z_rec`` keeps its conv gradient.
 
 K2 source note: replaces the Pallas kernel ``_fused_fwd``
 (fused_lif_pallas.py:119-195), one strip matmul per row block with the
@@ -22,31 +33,32 @@ reaches a small fraction of that roof; times in PERF.md); tensor cores
 are the next step, after which bytes bound it and keeping the current
 out of device memory pays.
 
-The backward passes (the Pallas ``_fused_bwd_elem``, B4) come with the
-training port; calling these with gradients enabled raises.
+B4 source note: see ``csrc/fused_lif_bwd.cu``: elementwise, bound by
+device memory (five maps read, two written), the two per-channel sums
+taken per block into a scratch and added in a fixed order by a second
+launch, so they are bitwise repeatable.
 """
 
 import torch
 
 from . import native
-from .conv import _check_shapes, conv2d_same_plain, flatten_kernel
-from .spike import get_spike_fn
+from .conv import (_check_shapes, conv2d_same_plain, conv_same_grads,
+                   flatten_kernel)
+from .spike import get_spike_fn, surrogate
 
 __all__ = ["fused_conv_lif", "fused_conv_lif_rec", "fused_conv_lif_plain",
-           "fused_conv_lif_rec_plain"]
+           "fused_conv_lif_rec_plain", "fused_lif_bwd", "fused_lif_bwd_plain",
+           "fused_lif_bwd_kernel"]
 
-
-def _no_grad_only(name, *tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} has no backward yet: the LIF backward kernel comes "
-            "with the training port (ROADMAP.md, PyTorch port slice 2); "
-            "call it under torch.no_grad()")
+# the surrogate codes of csrc/fused_lif_bwd.cu
+_SURROGATE_CODE = {"arctanspike": 0, "superspike": 1, "trianglespike": 2,
+                   "mgspike": 3}
 
 
 def _lif_update(cur, v, z, leak, thresh, hard_reset, activation, width):
     leak = leak.reshape(-1)
     thresh = thresh.reshape(-1)
+    z = z.detach()  # the reset is detached (snn_cells.py:194-195, 458-459)
     if hard_reset:
         v_out = v * leak * (1.0 - z) + (1.0 - leak) * cur
     else:
@@ -56,7 +68,8 @@ def _lif_update(cur, v, z, leak, thresh, hard_reset, activation, width):
 
 def fused_conv_lif_plain(x, w, v, z, leak, thresh, k, hard_reset=True,
                          activation="arctanspike", width=10.0):
-    """Plain version: conv (TF32 off), then the LIF update."""
+    """Plain version: conv (TF32 off), then the LIF update; autograd
+    through it gives the same gradients as the cell's backward."""
     cur = conv2d_same_plain(x, w)
     return _lif_update(cur, v, z, leak, thresh, hard_reset, activation,
                        width)
@@ -72,6 +85,80 @@ def fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh, k,
                             torch.cat([w, w_rec], dim=1))
     return _lif_update(cur, v, z, leak, thresh, hard_reset, activation,
                        width)
+
+
+def fused_lif_bwd_plain(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
+                        activation, width):
+    """Plain version of B4, line by line after
+    fused_lif_pallas.py::_bwd_kernel (:198-247): from the saved v, z, v'
+    and the cotangents of (v', z'), returns (g_cur, g_vin, g_leak [C],
+    g_thresh [C]), recovering (1-l)*cur from the saved states and clamping
+    the divisor (1-l) at 1e-6."""
+    leak = leak.reshape(-1)
+    thr = thresh.reshape(-1)
+    sg = surrogate(activation, v_out - thr, width)
+    vbar = g_v + g_z * sg
+    tbar = -g_z * sg
+    one_m_l = 1.0 - leak
+    cur_scaled = (v_out - v * leak * (1.0 - z)) if hard_reset else (
+        v_out - v * leak + z * thr)
+    g_cur = vbar * one_m_l
+    one_m_l = one_m_l.clamp(min=1e-6)
+    if hard_reset:
+        g_vin = vbar * leak * (1.0 - z)
+        lbar = vbar * (v * (1.0 - z) - cur_scaled / one_m_l)
+    else:
+        g_vin = vbar * leak
+        lbar = vbar * (v - cur_scaled / one_m_l)
+        tbar = tbar - vbar * z
+    dims = tuple(range(v.dim() - 1))
+    return g_cur, g_vin, lbar.sum(dims), tbar.sum(dims)
+
+
+def fused_lif_bwd_kernel(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
+                         activation, width):
+    """Launch B4 on contiguous float32 [..., C] maps on one CUDA device;
+    returns what :func:`fused_lif_bwd_plain` returns."""
+    c = v.shape[-1]
+    if not 1 <= c <= 256:
+        raise ValueError(f"fused_lif_bwd: 1 to 256 channels, got {c}")
+    for t in (z, v_out, g_v, g_z):
+        if t.shape != v.shape:
+            raise ValueError(f"fused_lif_bwd: shapes {tuple(t.shape)} and "
+                             f"{tuple(v.shape)} differ")
+    leak = leak.reshape(-1).contiguous()
+    thresh = thresh.reshape(-1).contiguous()
+    if leak.numel() != c or thresh.numel() != c:
+        raise ValueError(f"fused_lif_bwd: leak and thresh need {c} channels")
+    native.require_cuda_f32("fused_lif_bwd", v, z, v_out, leak, thresh, g_v,
+                            g_z)
+    npix = v.numel() // c
+    lib = native.library()
+    blocks = lib.evf_fused_lif_bwd_blocks(npix, c)
+    part = torch.empty((blocks, 2 * c), device=v.device, dtype=torch.float32)
+    g_cur = torch.empty_like(v)
+    g_vin = torch.empty_like(v)
+    g_lt = torch.empty((2 * c,), device=v.device, dtype=torch.float32)
+    err = lib.evf_fused_lif_bwd(
+        v.data_ptr(), z.data_ptr(), v_out.data_ptr(), leak.data_ptr(),
+        thresh.data_ptr(), g_v.data_ptr(), g_z.data_ptr(), g_cur.data_ptr(),
+        g_vin.data_ptr(), part.data_ptr(), g_lt.data_ptr(), npix, c,
+        int(bool(hard_reset)), _SURROGATE_CODE[activation], float(width),
+        native.stream_handle(v.device))
+    native.check(err, "fused_lif_bwd")
+    native.LAUNCHES["fused_lif_bwd"] += 1
+    return g_cur, g_vin, g_lt[:c], g_lt[c:]
+
+
+def fused_lif_bwd(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
+                  activation, width):
+    """B4 on a CUDA tensor, its plain version on a CPU tensor."""
+    if v.device.type == "cpu":
+        return fused_lif_bwd_plain(v, z, v_out, leak, thresh, g_v, g_z,
+                                   hard_reset, activation, width)
+    return fused_lif_bwd_kernel(v, z, v_out, leak, thresh, g_v.contiguous(),
+                                g_z.contiguous(), hard_reset, activation,
+                                width)
 
 
 def _launch(name, x, w, v, z, leak, thresh, k, hard_reset, z_rec=None,
@@ -110,18 +197,83 @@ def _launch(name, x, w, v, z, leak, thresh, k, hard_reset, z_rec=None,
     return v_out, z_out
 
 
+def _forward_plain_or_kernel(name, x, w, v, z, leak, thresh, k, hard_reset,
+                             activation, width, z_rec=None, w_rec=None):
+    if x.device.type != "cpu":
+        return _launch(name, x, w, v, z, leak, thresh, k, hard_reset,
+                       z_rec=z_rec, w_rec=w_rec)
+    if z_rec is None:
+        return fused_conv_lif_plain(x, w, v, z, leak, thresh, k, hard_reset,
+                                    activation, width)
+    return fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh,
+                                    k, hard_reset, activation, width)
+
+
+class _FusedConvLIF(torch.autograd.Function):
+    """Inputs (x, w, v, z, leak, thresh, k, hard_reset, activation, width);
+    saves (x, w, v, z, leak, thresh, v') by reference."""
+
+    @staticmethod
+    def forward(ctx, x, w, v, z, leak, thresh, k, hard_reset, activation,
+                width):
+        v_out, z_out = _forward_plain_or_kernel(
+            "fused_conv_lif", x, w, v, z, leak, thresh, k, hard_reset,
+            activation, width)
+        ctx.save_for_backward(x, w, v, z, leak, thresh, v_out)
+        ctx.cfg = (hard_reset, activation, width)
+        return v_out, z_out
+
+    @staticmethod
+    def backward(ctx, g_v, g_z):
+        x, w, v, z, leak, thresh, v_out = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g_cur, g_vin, g_l, g_t = fused_lif_bwd(v, z, v_out, leak, thresh,
+                                               g_v, g_z, *ctx.cfg)
+        dx, dw = conv_same_grads(x, w, g_cur, need[0], need[1])
+        return (dx, dw, g_vin if need[2] else None, None,
+                g_l.reshape(leak.shape) if need[4] else None,
+                g_t.reshape(thresh.shape) if need[5] else None,
+                None, None, None, None)
+
+
+class _FusedConvLIFRec(torch.autograd.Function):
+    """Inputs (x, w, w_rec, v, z, z_rec, leak, thresh, k, hard_reset,
+    activation, width); saves (x, w, z_rec, w_rec, v, z, leak, thresh, v')
+    by reference."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_rec, v, z, z_rec, leak, thresh, k, hard_reset,
+                activation, width):
+        v_out, z_out = _forward_plain_or_kernel(
+            "fused_conv_lif_rec", x, w, v, z, leak, thresh, k, hard_reset,
+            activation, width, z_rec=z_rec, w_rec=w_rec)
+        ctx.save_for_backward(x, w, z_rec, w_rec, v, z, leak, thresh, v_out)
+        ctx.cfg = (hard_reset, activation, width)
+        return v_out, z_out
+
+    @staticmethod
+    def backward(ctx, g_v, g_z):
+        x, w, z_rec, w_rec, v, z, leak, thresh, v_out = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g_cur, g_vin, g_l, g_t = fused_lif_bwd(v, z, v_out, leak, thresh,
+                                               g_v, g_z, *ctx.cfg)
+        dx, dw = conv_same_grads(x, w, g_cur, need[0], need[1])
+        dz_rec, dw_rec = conv_same_grads(z_rec, w_rec, g_cur, need[5],
+                                         need[2])
+        return (dx, dw, dw_rec, g_vin if need[3] else None, None, dz_rec,
+                g_l.reshape(leak.shape) if need[6] else None,
+                g_t.reshape(thresh.shape) if need[7] else None,
+                None, None, None, None)
+
+
 def fused_conv_lif(x, w, v, z, leak, thresh, k, hard_reset=True,
                    activation="arctanspike", width=10.0):
     """Feedforward cell. x [B,H,W,Cin]; w [Cout,Cin,k,k]; v, z
     [B,H,W,Cout]; leak, thresh [Cout] post-squash. Returns (v', z').
-    ``activation`` and ``width`` name the surrogate gradient, which only
-    the plain version's autograd reads."""
-    _no_grad_only("fused_conv_lif", x, w, v, z, leak, thresh)
-    if x.device.type == "cpu":
-        return fused_conv_lif_plain(x, w, v, z, leak, thresh, k, hard_reset,
-                                    activation, width)
-    return _launch("fused_conv_lif", x, w, v, z, leak, thresh, k,
-                   hard_reset)
+    ``activation`` and ``width`` name the surrogate gradient of the
+    backward."""
+    return _FusedConvLIF.apply(x, w, v, z, leak, thresh, k, hard_reset,
+                               activation, float(width))
 
 
 def fused_conv_lif_rec(x, w, w_rec, v, z, z_rec, leak, thresh, k,
@@ -130,11 +282,5 @@ def fused_conv_lif_rec(x, w, w_rec, v, z, z_rec, leak, thresh, k,
     """Recurrent cell: cur = conv(x, w) + conv(z_rec, w_rec). ``z_rec`` is
     the previous spike map before any detach (for ConvLIFRecurrent it is
     ``z`` itself). Returns (v', z')."""
-    _no_grad_only("fused_conv_lif_rec", x, w, w_rec, v, z, z_rec, leak,
-                  thresh)
-    if x.device.type == "cpu":
-        return fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak,
-                                        thresh, k, hard_reset, activation,
-                                        width)
-    return _launch("fused_conv_lif_rec", x, w, v, z, leak, thresh, k,
-                   hard_reset, z_rec=z_rec, w_rec=w_rec)
+    return _FusedConvLIFRec.apply(x, w, w_rec, v, z, z_rec, leak, thresh, k,
+                                  hard_reset, activation, float(width))

@@ -2,7 +2,11 @@
 
 Counterpart of event_flow_tpu/ops/iwe.py. Event lists are [B, N, 4] =
 (ts, y, x, p); per-event flow vectors are (y, x); flow maps are NHWC with
-channels (x, y).
+channels (x, y). The training loss uses the compact bilinear warp
+(:func:`get_interpolation_compact`, :func:`interpolate_compact`): one
+index per event into a grid padded by one pixel on every side and four
+neighbour weights, so that one channelled scatter-add makes the whole
+image stack.
 """
 
 import torch
@@ -10,7 +14,8 @@ import torch
 from .scatter import scatter_add
 
 __all__ = ["purge_unfeasible", "get_interpolation", "interpolate_multi",
-           "gather_event_flow", "compute_pol_iwe"]
+           "gather_event_flow", "compute_pol_iwe",
+           "get_interpolation_compact", "interpolate_compact"]
 
 
 def purge_unfeasible(coords, res):
@@ -86,3 +91,44 @@ def compute_pol_iwe(flow_map, event_list, res, pos_mask, neg_mask,
         neg_mask = torch.cat([neg_mask] * 4, dim=1)
     stack = torch.cat([weights * pos_mask, weights * neg_mask], dim=-1)
     return interpolate_multi(idx, stack, res)
+
+
+def get_interpolation_compact(ts, ys, xs, fy, fx, tref, res, flow_scaling):
+    """Compact bilinear warp of scalar event planes [B, M] (ts, y, x and
+    the per-event flow (fy, fx)): ``y' = y + (tref - ts) * fy *
+    flow_scaling``, likewise x'. Returns (idx_pad [B, M] int32, the
+    top-left neighbour's index in the (H+2) x (W+2) padded grid, and w4
+    [B, M, 4], the neighbour weights in the order top-left, top-right,
+    bottom-left, bottom-right, zero for a neighbour off the sensor).
+
+    The math of ops/iwe.py::get_interpolation_compact_cf (:158-188), with
+    the neighbour axis last."""
+    h, w = res
+    wy = ys + (tref - ts) * fy * flow_scaling
+    wx = xs + (tref - ts) * fx * flow_scaling
+    top_y = torch.floor(wy)
+    left_x = torch.floor(wx)
+    dy = wy - top_y
+    dx = wx - left_x
+    w4 = torch.stack([(1.0 - dy) * (1.0 - dx), (1.0 - dy) * dx,
+                      dy * (1.0 - dx), dy * dx], dim=-1)
+    yn = torch.stack([top_y, top_y, top_y + 1, top_y + 1], dim=-1)
+    xn = torch.stack([left_x, left_x + 1, left_x, left_x + 1], dim=-1)
+    feas = ((yn >= 0) & (yn < h) & (xn >= 0) & (xn < w)).to(w4.dtype)
+    py = torch.clamp(top_y + 1, 0, h).to(torch.int32)
+    px = torch.clamp(left_x + 1, 0, w).to(torch.int32)
+    return py * (w + 2) + px, w4 * feas
+
+
+def interpolate_compact(idx_pad, weight_stack, res, num_channels):
+    """One channelled scatter of weight_stack [B, M, 4*C], laid out
+    neighbour-major (the four neighbour weights, each times the C payload
+    channels), at idx_pad [B, M] -> [B, H, W, C]: the four shifted
+    neighbour images of the padded grid added up
+    (ops/iwe.py::interpolate_compact_cf, :191-205)."""
+    h, w = res
+    b = idx_pad.shape[0]
+    img = scatter_add(idx_pad, weight_stack.contiguous(), (h + 2) * (w + 2))
+    img = img.reshape(b, h + 2, w + 2, 4, num_channels)
+    return (img[:, 1:h + 1, 1:w + 1, 0] + img[:, 1:h + 1, 0:w, 1]
+            + img[:, 0:h, 1:w + 1, 2] + img[:, 0:h, 0:w, 3])

@@ -33,15 +33,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"conv2d_same": 0, "fused_conv_lif": 0, "fused_conv_lif_rec": 0,
-            "scatter_add": 0}
+            "scatter_add": 0, "conv2d_dw": 0, "fused_lif_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "evf_conv2d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "evf_fused_conv_lif": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _P],
-    "evf_scatter_add": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "evf_scatter_add": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "evf_conv_dw_chunks": [_I, _I, _I],
+    "evf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "evf_fused_lif_bwd_blocks": [_L, _I],
+    "evf_fused_lif_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                          _I, _I, _I, _F, _P],
 }
 
 _lib = None

@@ -1,25 +1,31 @@
-"""Batched channelled scatter-add: kernel K3 and its plain version.
+"""Batched channelled scatter-add (kernel K3) and the gather whose
+backward it is, with their plain versions.
 
 Counterpart of event_flow_tpu/ops/scatter.py (``scatter_add`` with its
-gather backward) and ops/scatter_pallas.py (B5). A CUDA tensor goes to
+gather backward, and the gather ``jnp.take_along_axis`` whose transpose
+is a scatter-add) and ops/scatter_pallas.py (B5). A CUDA tensor goes to
 the hand-written kernel in ``csrc/scatter.cu``; a CPU tensor goes to
 :func:`scatter_add_plain`.
 
 K3 source note: replaces ``scatter_add_pallas`` (scatter_pallas.py:32-64),
-which walks the events serially over a VMEM-resident image. On the H100
-it is one thread per (event, channel) with ``atomicAdd(float)`` into the
-zeroed output; the image (at most 43 200 x 4 floats on the slice) stays
-in L2, so launch overhead and contention on hot cells bound it, not
-device memory. Sums of count channels are exact; sums of timestamp
-channels depend on the order the atomics land in (not bitwise
-repeatable; a deterministic mode is still to come, see ROADMAP.md).
+which walks the events serially over a VMEM-resident image and so is
+deterministic. On the H100 one thread per (event, channel) adds into an
+int64 fixed-point accumulator with 64-bit integer atomics, at a scale
+taken from the call's largest |value| so that no cell can overflow, then
+converts each cell back to float: the result is bitwise the same on
+every run (integer addition does not depend on the order the atomics
+land in), counts stay exact, and the rounding is some 1e-14 of the
+largest value. The image (at most 130 x 130 x 16 cells per batch row on
+the training path) stays in L2, so launch overhead and contention on hot
+cells bound it, not device memory.
 """
 
 import torch
 
 from . import native
 
-__all__ = ["scatter_add", "scatter_add_plain", "scatter_add_kernel"]
+__all__ = ["scatter_add", "scatter_add_plain", "scatter_add_kernel",
+           "gather_events"]
 
 
 def _check(idx, vals, size):
@@ -54,12 +60,14 @@ def scatter_add_kernel(idx, vals, size):
     if idx32.device != vals.device:
         raise ValueError("scatter_add: idx and vals on different devices")
     b, m, c = vals.shape
-    out = torch.zeros((b, size, c), device=vals.device, dtype=vals.dtype)
     if b * m * c == 0:
-        return out
+        return torch.zeros((b, size, c), device=vals.device, dtype=vals.dtype)
+    out = torch.empty((b, size, c), device=vals.device, dtype=vals.dtype)
+    acc = torch.zeros((b, size, c), device=vals.device, dtype=torch.int64)
+    amax = torch.zeros((1,), device=vals.device, dtype=torch.int32)
     err = native.library().evf_scatter_add(
-        idx32.data_ptr(), vals.data_ptr(), out.data_ptr(), b, m, c, size,
-        native.stream_handle(vals.device))
+        idx32.data_ptr(), vals.data_ptr(), acc.data_ptr(), amax.data_ptr(),
+        out.data_ptr(), b, m, c, size, native.stream_handle(vals.device))
     native.check(err, "scatter_add")
     native.LAUNCHES["scatter_add"] += 1
     return out
@@ -92,3 +100,35 @@ def scatter_add(idx, vals, size):
     Callers clamp indices into [0, size) and give out-of-bounds events zero
     value, as in the JAX package; an index outside that range is dropped."""
     return _ScatterAdd.apply(idx, vals, size)
+
+
+def _gather_plain(planes, idx):
+    return torch.gather(planes, 1, idx.long()[..., None].expand(
+        -1, -1, planes.shape[2]))
+
+
+class _GatherEvents(torch.autograd.Function):
+    """Gather forward; the gradient of a gather is the scatter-add of the
+    cotangent at the same indices (K3 on the card)."""
+
+    @staticmethod
+    def forward(ctx, planes, idx):
+        ctx.save_for_backward(idx)
+        ctx.size = planes.shape[1]
+        return _gather_plain(planes, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        return scatter_add(idx, g.contiguous(), ctx.size), None
+
+
+def gather_events(planes, idx):
+    """planes [B, S, C], idx [B, M] in [0, S) -> [B, M, C] with
+    ``out[b, m] = planes[b, idx[b, m]]``; differentiable in ``planes``."""
+    if planes.dim() != 3 or idx.dim() != 2 or idx.shape[0] != planes.shape[0]:
+        raise ValueError(f"need planes [B,S,C] and idx [B,M], got "
+                         f"{tuple(planes.shape)} and {tuple(idx.shape)}")
+    return _GatherEvents.apply(planes, idx)

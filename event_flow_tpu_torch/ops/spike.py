@@ -17,7 +17,7 @@ import math
 import torch
 
 __all__ = ["superspike", "mgspike", "trianglespike", "arctanspike",
-           "get_spike_fn", "SPIKE_FNS"]
+           "get_spike_fn", "surrogate", "SPIKE_FNS"]
 
 
 def _gaussian(x, mu, sigma):
@@ -33,6 +33,11 @@ _SURROGATES = {
     "trianglespike": lambda d, w: torch.relu(1.0 - w * d.abs()),
     "arctanspike": lambda d, w: 1.0 / (1.0 + w * d * d),
 }
+
+
+def surrogate(name, d, width):
+    """The surrogate derivative of ``name`` at ``d = x - thresh``."""
+    return _SURROGATES[name](d, width)
 
 
 class _Spike(torch.autograd.Function):

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX, flax, optax, yaml or h5py on its
-serving path, no CUDA launch for CPU tensors, no silent device fallback.
+serving and training paths, no CUDA launch for CPU tensors (forward or
+backward), no silent device fallback.
 """
 
 import ast
@@ -34,7 +35,7 @@ def test_evaluate_runs_with_jax_yaml_h5py_blocked():
                 return None
 
         sys.meta_path.insert(0, Block())
-        import copy, math
+        import contextlib, copy, io, math
         import event_flow_tpu_torch
         from event_flow_tpu_torch.config import ECD_LIFFIRENET
         from event_flow_tpu_torch.eval_flow import evaluate
@@ -45,6 +46,15 @@ def test_evaluate_runs_with_jax_yaml_h5py_blocked():
         rep = evaluate(cfg, "cpu", seed=0)
         vals = [v for d in rep["results"].values() for v in d.values()]
         assert len(vals) == 4 and all(math.isfinite(v) for v in vals), vals
+        from event_flow_tpu_torch.config import TRAIN_SNN
+        from event_flow_tpu_torch.train_flow import train
+        tcfg = copy.deepcopy(TRAIN_SNN)
+        tcfg["loader"].update(batch_size=2, resolution=[16, 16])
+        tcfg["data"].update(window=100, window_loss=200)
+        tcfg["model"]["base_num_channels"] = 4
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, hist = train(tcfg, "cpu", max_updates=2)
+        assert len(hist) == 2 and all(math.isfinite(l) for l, _ in hist)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in {BLOCKED!r})
         assert not loaded, loaded
@@ -111,12 +121,26 @@ def test_cpu_tensors_take_the_plain_path():
     assert all(n == 0 for n in native.LAUNCHES.values()), native.LAUNCHES
 
 
-def test_fused_lif_has_no_backward_yet():
-    x = torch.zeros(1, 4, 4, 2, requires_grad=True)
-    w = torch.zeros(3, 2, 3, 3)
-    v = torch.zeros(1, 4, 4, 3)
-    with pytest.raises(NotImplementedError, match="training"):
-        fused_conv_lif(x, w, v, v, torch.ones(3), torch.ones(3), 3)
+def test_backward_on_cpu_takes_the_plain_path():
+    native.reset_launch_counts()
+    rng = np.random.default_rng(1)
+
+    def param(*shape):
+        return torch.from_numpy(rng.normal(
+            size=shape).astype(np.float32)).requires_grad_()
+
+    x, w, wr = param(1, 6, 7, 3), param(4, 3, 3, 3), param(4, 4, 3, 3)
+    v = param(1, 6, 7, 4)
+    leak, thresh = torch.full((4,), 0.5), torch.full((4,), 0.2)
+    leak.requires_grad_()
+    vo, zo = fused_conv_lif(x, w, v, v.detach(), leak, thresh, 3)
+    vr, zr = fused_conv_lif_rec(zo, wr, wr, vo, zo, zo, leak, thresh, 3)
+    idx = torch.tensor([[0, 2, 2]])
+    s = scatter_add(idx, zr.reshape(1, -1, 4)[:, :3], 4)
+    (conv2d_same(vr, wr).sum() + s.sum() + zr.sum()).backward()
+    for t in (x, w, wr, v, leak):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    assert all(n == 0 for n in native.LAUNCHES.values()), native.LAUNCHES
 
 
 def test_get_device_never_falls_back():
