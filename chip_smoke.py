@@ -9,8 +9,11 @@ exits non-zero without the final ``ok`` line:
   2. build    the CUDA kernels from event_flow_tpu_torch/csrc (nvcc, sm_90a)
   3. kernels  each kernel against its plain PyTorch version (TF32 off) at
               the serving and the training shapes, with the median time of
-              20 runs of each; B2, B4 and K3 also run twice and must be
-              bitwise equal
+              20 runs of each (K1 and K2 also in device time per call
+              from torch.profiler, or from CUDA events around 20
+              back-to-back calls when the profiler sees no device
+              events, with GB/s and TFLOP/s); every kernel also runs
+              twice and must be bitwise equal
   4. slice    the LIFFireNet serving path (configs/eval_ECD.yml with the
               model block of configs/train_SNN.yml, seeded init, the
               in-memory synthetic stream) on the card, its launch counts,
@@ -99,6 +102,48 @@ def timed(fn, reps=REPS):
     return statistics.median(times)
 
 
+def events_ms(fn, n=REPS):
+    """Milliseconds per call of ``n`` back-to-back calls of ``fn()``
+    between two CUDA events, after a warm-up run: device time plus any
+    launch gaps the host leaves between the calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_ms(fn, kernel=None, n=REPS, tries=2):
+    """Device milliseconds per call of ``fn()`` over ``n`` calls and where
+    they come from. From torch.profiler: the mean of the events whose name
+    contains ``kernel`` (one per call), or every device event of the calls
+    (copies and fills included) over ``n`` when it is None. A profiler
+    session can come back without device events; after ``tries`` such
+    sessions the time is ``events_ms`` instead, an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (kernel is None or kernel in e.name)]
+        if times and sum(times) > 0:
+            return (sum(times) / 1e3 / (n if kernel is None else len(times)),
+                    "profiler")
+    return events_ms(fn, n), "events"
+
+
 def check_spikes(z, z_ref, v_ref, thresh, label):
     flips = z != z_ref
     near = (v_ref - thresh.reshape(1, 1, 1, -1)).abs() < NEAR
@@ -156,33 +201,55 @@ class _Inputs:
         return leak, thresh
 
 
+def _rates(nbytes, flop, ms):
+    """'GB/s, TFLOP/s' of a call that must move nbytes and do flop."""
+    return (f"{nbytes / ms / 1e6:.1f} GB/s, {flop / ms / 1e9:.2f} TFLOP/s "
+            f"({nbytes / 1e6:.1f} MB, {flop / 1e9:.3f} GFLOP)")
+
+
 def kernels_forward(inp, out):
     """K1 and K2 at the serving slice's shape (1 x 180 x 240) and the
-    training recipe's (8 x 128 x 128)."""
+    training recipe's (8 x 128 x 128), each run twice and bitwise equal,
+    with the bytes each call must move and its FLOP over its time."""
     from event_flow_tpu_torch.ops.conv import conv2d_same, conv2d_same_plain
     from event_flow_tpu_torch.ops.fused_lif import (
         fused_conv_lif, fused_conv_lif_plain, fused_conv_lif_rec,
         fused_conv_lif_rec_plain)
 
     c = 32
-    # K1: the prediction head (32 -> 2, k = 1) and a 3x3 32 -> 32 conv
-    # (the training path's dx)
+    # K1: the prediction head (32 -> 2, k = 1), a 3x3 32 -> 32 conv (the
+    # training path's dx) and the head's dx (2 -> 32, k = 1, a dense
+    # cotangent)
     for shape, cout, k, bound in (((1, 180, 240, c), 2, 1, 0.01),
                                   ((1, 180, 240, c), 32, 3, (1 / c) ** 0.5),
                                   ((8, 128, 128, c), 2, 1, 0.01),
-                                  ((8, 128, 128, c), 32, 3, (1 / c) ** 0.5)):
-        x = inp.spikes(shape)
-        wt = inp.uniform((cout, c, k, k), bound)
-        err = float((conv2d_same(x, wt) - conv2d_same_plain(x, wt)).abs().max())
+                                  ((8, 128, 128, c), 32, 3, (1 / c) ** 0.5),
+                                  ((8, 128, 128, 2), 32, 1, (1 / c) ** 0.5)):
+        cin = shape[3]
+        x = inp.spikes(shape) if cin == c else inp.normal(shape)
+        wt = inp.uniform((cout, cin, k, k), bound)
+        y = conv2d_same(x, wt)
+        err = float((y - conv2d_same_plain(x, wt)).abs().max())
+        label = (f"K1 conv2d_same {'x'.join(map(str, shape[:3]))} "
+                 f"{cin}->{cout} k={k}")
         if not err <= ATOL:
-            fail(f"K1 {c}->{cout} k={k}: max |err| {err} > {ATOL}")
+            fail(f"{label}: max |err| {err} > {ATOL}")
+        if not torch.equal(y, conv2d_same(x, wt)):
+            fail(f"{label}: two runs differ")
         t_k = timed(lambda: conv2d_same(x, wt))
         t_p = timed(lambda: conv2d_same_plain(x, wt))
-        print(f"[kernels] K1 conv2d_same {'x'.join(map(str, shape[:3]))} "
-              f"{c}->{cout} k={k}: max|err| {err:.3g}, kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms")
+        d_k, src_k = device_ms(lambda: conv2d_same(x, wt),
+                               "conv2d_same_kernel")
+        d_p, src_p = device_ms(lambda: conv2d_same_plain(x, wt))
+        npix = shape[0] * shape[1] * shape[2]
+        rates = _rates(4 * (npix * (cin + cout) + wt.numel()),
+                       2 * npix * cout * k * k * cin, d_k)
+        print(f"[kernels] {label}: max|err| {err:.3g}, repeatable; kernel "
+              f"{t_k:.4f} ms one call, device {d_k:.4f} ms/call [{src_k}] "
+              f"({rates}); plain {t_p:.4f} ms one call, device {d_p:.4f} "
+              f"[{src_p}]")
         # the training shape the backward runs most (dx, 32 -> 32, k 3)
-        train_dx = shape[0] == 8 and cout == 32
+        train_dx = shape[0] == 8 and cin == cout == 32
         _record(out, "conv2d_same", err, *((t_k, t_p) if train_dx else ()))
 
     # K2: head (Cin 2, event counts), ff cell (Cin 32) and recurrent cell
@@ -217,10 +284,22 @@ def kernels_forward(inp, out):
                 if not err <= ATOL:
                     fail(f"{label}: max |err| of v' {err} > {ATOL}")
                 flips = check_spikes(zk, zp, vp, thresh, label)
+                if not all(map(torch.equal, (vk, zk), run_k())):
+                    fail(f"{label}: two runs differ")
                 t_k, t_p = timed(run_k), timed(run_p)
+                d_k, src_k = device_ms(run_k, "fused_conv_lif_kernel")
+                d_p, src_p = device_ms(run_p)
+                npix = shape[0] * shape[1] * shape[2]
+                # x [+ z_rec] and v, z in; v', z' out; the weights
+                nbytes = 4 * (npix * (cin + (5 if rec else 4) * c)
+                              + wt.numel() + (wr.numel() if rec else 0))
+                flop = 2 * npix * c * 9 * (cin + (c if rec else 0))
                 print(f"[kernels] {label} x{c}: max|err| {err:.3g}, flips "
-                      f"{flips}, spike rate {float(zp.mean()):.4f}, kernel "
-                      f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+                      f"{flips}, spike rate {float(zp.mean()):.4f}, "
+                      f"repeatable; kernel {t_k:.4f} ms one call, device "
+                      f"{d_k:.4f} ms/call [{src_k}] "
+                      f"({_rates(nbytes, flop, d_k)}); plain {t_p:.4f} ms "
+                      f"one call, device {d_p:.4f} [{src_p}]")
                 timing = shape[0] == 8 and hard and cin == c
                 _record(out, name, err, *((t_k, t_p) if timing else ()))
 

@@ -1,11 +1,19 @@
-// K1: same-padded stride-1 NHWC convolution, FP32, for sm_90a.
+// K1: same-padded stride-1 NHWC convolution, FP32 in and out, for sm_90a.
 //
 // Replaces event_flow_tpu/ops/conv_pallas.py::_conv_fwd, the Pallas
-// im2col strip matmul [th*W, k*k*Cin] @ [k*k*Cin, Cout]. Here it is a
-// direct conv over shared-memory tiles (mainloop in conv_tile.cuh) with
-// no im2col matrix in device memory. On the slice it runs the 1x1
-// prediction head (32 -> 2 channels at 1 x 180 x 240): about 6 MB of
-// traffic and 5.5 MFLOP, so it is bound by launch overhead and bytes.
+// im2col strip matmul [th*W, k*k*Cin] @ [k*k*Cin, Cout]. Here it is an
+// implicit GEMM on the tensor cores in 3xTF32 over shared-memory halo
+// tiles staged with cp.async (mainloop in conv_tile.cuh), with no im2col
+// matrix anywhere, and y written from the MMA fragments as float2, 32
+// contiguous bytes per quad of lanes.
+//
+// What bounds it on the H100: it runs the 1x1 prediction head (32 -> 2)
+// and, in training, every dx (32 -> 32 at k = 3, and 2 -> 32 at k = 1 for
+// the head's). At 8 x 128 x 128 the dx conv moves about 34 MB and does
+// 2.4 GFLOP (7.2 in 3xTF32), so at 3.35 TB/s and the tensor cores' rate
+// it is bound by bytes; the design reads and writes whole 32-byte sectors
+// and keeps 16-byte copies in flight. The 1x1 calls move a few MB and are
+// bound by bytes and launch latency.
 
 #include "conv_tile.cuh"
 
@@ -14,37 +22,53 @@ namespace {
 using namespace evf;
 
 template <int K, int CO>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
     conv2d_same_kernel(const float* __restrict__ x,
                        const float* __restrict__ w2, float* __restrict__ y,
-                       int H, int W, int Cin, int Cout) {
-  __shared__ Tile<K, CO> s;
+                       int H, int W, int Cin, int Cout, int cpad_max,
+                       int flags) {
+  extern __shared__ __align__(16) float smem[];
   int y0, x0;
   tile_origin(W, &y0, &x0);
   const int b = blockIdx.z;
   const int co0 = blockIdx.y * CO;
-  float acc[CO];
-#pragma unroll
-  for (int o = 0; o < CO; ++o) acc[o] = 0.f;
-  accumulate<K, CO>(s, acc, x, Cin, w2, Cout, b, H, W, y0, x0, co0);
-  const int gy = y0 + threadIdx.x / TW;
-  const int gx = x0 + threadIdx.x % TW;
-  if (gy >= H || gx >= W) return;
-  float* out = y + (((size_t)b * H + gy) * W + gx) * Cout;
-#pragma unroll
-  for (int o = 0; o < CO; ++o)
-    if (co0 + o < Cout) out[co0 + o] = acc[o];
+  float acc[MT][CO / 8][4] = {};
+  accumulate<K, CO>(smem, acc, x, Cin, w2, Cout, b, H, W, y0, x0, co0,
+                    cpad_max, flags & kVecX, flags & kVecW);
+  const bool vec2 = flags & kVec2;
+  for_each_pair<CO>(acc, H, W, Cout, b, y0, x0, co0,
+                    [&](size_t i, int co, float a0, float a1) {
+                      if (vec2) {
+                        *reinterpret_cast<float2*>(y + i) =
+                            make_float2(a0, a1);
+                      } else {
+                        y[i] = a0;
+                        if (co + 1 < Cout) y[i + 1] = a1;
+                      }
+                    });
+}
+
+template <int K, int CO>
+cudaError_t launch_co(const float* x, const float* w2, float* y, int B,
+                      int H, int W, int Cin, int Cout, cudaStream_t st) {
+  const cudaError_t e =
+      allow_smem(conv2d_same_kernel<K, CO>, smem_bytes<K, CO>(CCH));
+  if (e != cudaSuccess) return e;
+  const int cpad = pass_pad(Cin, 0);
+  const int flags = (Cin % 4 == 0 && aligned(x, 16) ? kVecX : 0) |
+                    (Cout % 4 == 0 && aligned(w2, 16) ? kVecW : 0) |
+                    (Cout % 2 == 0 && aligned(y, 8) ? kVec2 : 0);
+  conv2d_same_kernel<K, CO>
+      <<<grid_for(B, H, W, Cout, CO), NT, smem_bytes<K, CO>(cpad), st>>>(
+          x, w2, y, H, W, Cin, Cout, cpad, flags);
+  return cudaSuccess;
 }
 
 template <int K>
-void launch(const float* x, const float* w2, float* y, int B, int H, int W,
-            int Cin, int Cout, cudaStream_t st) {
-  if (Cout <= 8)
-    conv2d_same_kernel<K, 8><<<grid_for(B, H, W, Cout, 8), NT, 0, st>>>(
-        x, w2, y, H, W, Cin, Cout);
-  else
-    conv2d_same_kernel<K, 32><<<grid_for(B, H, W, Cout, 32), NT, 0, st>>>(
-        x, w2, y, H, W, Cin, Cout);
+cudaError_t launch(const float* x, const float* w2, float* y, int B, int H,
+                   int W, int Cin, int Cout, cudaStream_t st) {
+  if (Cout <= 8) return launch_co<K, 8>(x, w2, y, B, H, W, Cin, Cout, st);
+  return launch_co<K, 32>(x, w2, y, B, H, W, Cin, Cout, st);
 }
 
 }  // namespace
@@ -52,16 +76,19 @@ void launch(const float* x, const float* w2, float* y, int B, int H, int W,
 extern "C" {
 
 // y [B,H,W,Cout] = conv of x [B,H,W,Cin] with w2 [K*K*Cin, Cout].
-// Returns cudaGetLastError() after the launch.
+// Returns the error of the shared-memory attribute, or cudaGetLastError()
+// after the launch.
 int evf_conv2d_same(const float* x, const float* w2, float* y, int B, int H,
                     int W, int Cin, int Cout, int K, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   switch (K) {
-    case 1: launch<1>(x, w2, y, B, H, W, Cin, Cout, st); break;
-    case 3: launch<3>(x, w2, y, B, H, W, Cin, Cout, st); break;
-    case 5: launch<5>(x, w2, y, B, H, W, Cin, Cout, st); break;
+    case 1: e = launch<1>(x, w2, y, B, H, W, Cin, Cout, st); break;
+    case 3: e = launch<3>(x, w2, y, B, H, W, Cin, Cout, st); break;
+    case 5: e = launch<5>(x, w2, y, B, H, W, Cin, Cout, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,15 +14,19 @@ hand-written kernels in ``csrc/``, a CPU tensor to the plain versions.
 Each gradient is computed only where autograd asks for it.
 
 K1 source note: replaces the Pallas im2col strip matmul ``_conv_fwd``
-(conv_pallas.py:113-136). On the H100 it is a direct NHWC conv in FP32
-on CUDA cores: one block per 8 x 32 output tile, the input tile and its
-halo staged in shared memory in passes of 8 channels, the weights read
-as float4 broadcasts. On the serving slice it runs the 1x1 prediction
-head (32 -> 2 channels at 1 x 180 x 240), a few MB of traffic, so launch
-overhead and bytes bound it rather than arithmetic; the design keeps it
-to one pass over x with no im2col matrix in device memory. In training
-it also computes every dx, 32 -> 32 at k = 3, which is bound by
-arithmetic.
+(conv_pallas.py:113-136). On the H100 it is an implicit GEMM on the
+tensor cores (``mma.sync`` m16n8k8, TF32 operands split hi + lo, three
+products into an FP32 accumulator: "3xTF32", within f32's 1e-5 where one
+TF32 pass is not; tests/test_torch_precision.py): one block per 8 x 32
+output tile and up to 32 output channels, the halo tile and the weights
+of up to 32 input channels staged at once with ``cp.async`` into
+pixel-major, bank-padded shared memory, no im2col matrix anywhere, and y
+written from the MMA fragments as 32 contiguous bytes per quad of lanes.
+It runs the 1x1 prediction head (32 -> 2) and, in training, every dx
+(32 -> 32 at k = 3; 2 -> 32 at k = 1 for the head's), about 34 MB and
+2.4 GFLOP per dx call at 8 x 128 x 128: bound by bytes, which the
+coalesced epilogue and the asynchronous 16-byte staging address.
+Deterministic: every output is a fixed sequence of MMAs.
 
 B2 source note: see ``csrc/conv_dw.cu``: the sum over the B*H*W pixels
 is split into chunks of 4 tiles, one block per chunk and group of 8 input

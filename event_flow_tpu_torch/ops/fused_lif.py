@@ -24,14 +24,14 @@ input ``z_rec`` keeps its conv gradient.
 K2 source note: replaces the Pallas kernel ``_fused_fwd``
 (fused_lif_pallas.py:119-195), one strip matmul per row block with the
 LIF update on the accumulator. On the H100 it shares K1's mainloop
-(``csrc/fused_lif.cu`` with ``csrc/conv_tile.cuh``): FP32 FMA on CUDA cores over shared-memory tiles,
-the recurrent segment as a second pass into the same accumulator, the LIF
-epilogue in registers, only v' and z' written. At 1 x 180 x 240 x 32 a
-cell does 0.8 GFLOP (1.6 recurrent) against about 28 MB, about 30 FLOP
-per byte, so in FP32 it is bound by arithmetic (this first version
-reaches a small fraction of that roof; times in PERF.md); tensor cores
-are the next step, after which bytes bound it and keeping the current
-out of device memory pays.
+(``csrc/fused_lif.cu`` with ``csrc/conv_tile.cuh``): an implicit GEMM on
+the tensor cores in 3xTF32 over halo tiles staged with ``cp.async``, the
+recurrent segment as a second pass into the same accumulator, the LIF
+epilogue on the MMA fragments, reading v and z and writing only v' and z'
+as 32 contiguous bytes per quad of lanes. At the training recipe (8 x
+128 x 128 x 32) a cell does 2.4 GFLOP (4.8 recurrent) against about
+84 MB (101 MB), so on the tensor cores it is bound by bytes, and keeping
+the current out of device memory pays. Bitwise repeatable.
 
 B4 source note: see ``csrc/fused_lif_bwd.cu``: elementwise, bound by
 device memory (five maps read, two written), the two per-channel sums
