@@ -18,13 +18,24 @@ exits non-zero without the final ``ok`` line:
               model block of configs/train_SNN.yml, seeded init, the
               in-memory synthetic stream) on the card, its launch counts,
               and its per-file FWL/RSAT against the same run on the CPU
-  5. train    the LIFFireNet training update at configs/train_SNN.yml
+  5. unet     the SpikingRecEVFlowNet serving path (configs/eval_ECD.yml
+              with the model block of configs/train_SNNrec_rich.yml,
+              base 32, seeded init, the in-memory synthetic stream: 16
+              windows) on the card, its launch counts per window, the
+              spike rate of each of its 16 cells in the last window,
+              windows/s, a torch.profiler breakdown of one window, and its
+              per-file FWL/RSAT against the same run on the CPU
+  6. train    the LIFFireNet training update at configs/train_SNN.yml
               (B 8, 128 x 128, T 10, width 32, the synthetic stream) on the
               card: one warm-up update and 3 timed ones, their launch
               counts, the device busy share of one update, and update 1
               run twice from the same state, bitwise equal
-  6. parity   3 updates at B 2, 64 x 64, T 3, full width on the card and
+  7. parity   3 updates at B 2, 64 x 64, T 3, full width on the card and
               on the CPU: losses and the gradients of update 1
+
+Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
+four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
+with spike and dense randn inputs.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -304,6 +315,133 @@ def kernels_forward(inp, out):
                 _record(out, name, err, *((t_k, t_p) if timing else ()))
 
 
+# SpikingRecEVFlowNet at the ECD recipe (1 x 180 x 240, base 32): every K2
+# call of a window as (H, W, Cin, Cout, recurrent), in launch order, and
+# every K1 head as (H, W, Cin); Cin 1026, 514, 258 and 130 leave a last
+# 32-channel pass of 2 and take the 4-byte staging, widths 15 and 30 are
+# under one 32-pixel tile
+UNET_K2 = ((90, 120, 64, 64, True), (45, 60, 128, 128, True),
+           (23, 30, 256, 256, True), (12, 15, 512, 512, True),
+           (12, 15, 512, 512, False), (12, 15, 512, 512, False),
+           (12, 15, 512, 512, False), (12, 15, 512, 512, False),
+           (24, 30, 1024, 256, False), (46, 60, 514, 128, False),
+           (90, 120, 258, 64, False), (180, 240, 130, 32, False))
+UNET_K1 = ((24, 30, 256), (46, 60, 128), (90, 120, 64), (180, 240, 32))
+
+
+def _unet_x(inp, shape, inputs):
+    """Spikes at 10 %, or dense randn at 0.15: against snn-init weights a
+    current of about 0.5 or 0.25, as in the model. The randn low TF32
+    bits are nonzero, so one TF32 pass fails ATOL (by about 1e-4 at 1026
+    input channels), while the f32 rounding of a sum of up to 9234
+    products, on either side, stays under it."""
+    return inp.spikes(shape) if inputs == "spikes" else inp.normal(shape,
+                                                                   0.15)
+
+
+def kernels_unet(inp, out):
+    """K2 at every cell shape of the U-Net and K1 at its four heads, spike
+    and dense randn inputs, each run twice and bitwise equal; one-call and
+    device times of the kernel and the plain version at spike inputs."""
+    from event_flow_tpu_torch.ops.conv import conv2d_same, conv2d_same_plain
+    from event_flow_tpu_torch.ops.fused_lif import (
+        fused_conv_lif, fused_conv_lif_plain, fused_conv_lif_rec,
+        fused_conv_lif_rec_plain)
+
+    for h, w, cin, c, rec in sorted(set(UNET_K2)):
+        name = "fused_conv_lif_rec" if rec else "fused_conv_lif"
+        for inputs in ("spikes", "randn"):
+            x = _unet_x(inp, (1, h, w, cin), inputs)
+            wt = inp.uniform((c, cin, 3, 3), (1 / cin) ** 0.5)
+            leak, thresh = inp.neuron(c)
+            v = thresh + 0.3 * inp.normal((1, h, w, c))
+            z = inp.spikes((1, h, w, c))
+            if rec:
+                wr = inp.uniform((c, c, 3, 3), (1 / c) ** 0.5)
+                run_k = lambda: fused_conv_lif_rec(x, wt, wr, v, z, z, leak,
+                                                   thresh, 3, True)
+                run_p = lambda: fused_conv_lif_rec_plain(
+                    x, wt, wr, v, z, z, leak, thresh, 3, True)
+            else:
+                run_k = lambda: fused_conv_lif(x, wt, v, z, leak, thresh, 3,
+                                               True)
+                run_p = lambda: fused_conv_lif_plain(x, wt, v, z, leak,
+                                                     thresh, 3, True)
+            (vk, zk), (vp, zp) = run_k(), run_p()
+            err = float((vk - vp).abs().max())
+            label = (f"K2 U-Net {name} {h}x{w} {cin}->{c} {inputs}")
+            # both against the same update in float64
+            d = [t.double() for t in (x, wt, v, z, leak, thresh)]
+            if rec:
+                v64, _ = fused_conv_lif_rec_plain(
+                    d[0], d[1], wr.double(), *d[2:4], d[3], *d[4:], 3, True)
+            else:
+                v64, _ = fused_conv_lif_plain(*d, 3, True)
+            e64 = (float((vk - v64).abs().max()),
+                   float((vp - v64).abs().max()))
+            if inputs == "randn":  # what one TF32 pass (cuDNN's) would do
+                xs = torch.cat([x, z], -1) if rec else x
+                ws = torch.cat([wt, wr], 1) if rec else wt
+                with torch.backends.cudnn.flags(enabled=True,
+                                                allow_tf32=True):
+                    c32 = torch.nn.functional.conv2d(
+                        xs.permute(0, 3, 1, 2), ws, padding=1)
+                c64 = torch.nn.functional.conv2d(
+                    xs.double().permute(0, 3, 1, 2), ws.double(), padding=1)
+                e64 += (float(((c32 - c64) * (1 - leak.reshape(-1, 1, 1)))
+                              .abs().max()),)
+            if not err <= ATOL:
+                fail(f"{label}: max |err| of v' {err} > {ATOL}")
+            flips = check_spikes(zk, zp, vp, thresh, label)
+            if not all(map(torch.equal, (vk, zk), run_k())):
+                fail(f"{label}: two runs differ")
+            _record(out, name, err)
+            line = (f"[kernels] {label}: max|err| {err:.3g} (against "
+                    f"float64: kernel {e64[0]:.3g}, plain {e64[1]:.3g}"
+                    + (f", one TF32 pass {e64[2]:.3g}" if len(e64) > 2
+                       else "") + "), "
+                    f"flips {flips}, spike rate {float(zp.mean()):.4f}, "
+                    "repeatable")
+            if inputs == "spikes":
+                t_k, t_p = timed(run_k), timed(run_p)
+                d_k, src_k = device_ms(run_k, "fused_conv_lif_kernel")
+                d_p, src_p = device_ms(run_p)
+                npix = h * w
+                nbytes = 4 * (npix * (cin + (5 if rec else 4) * c)
+                              + wt.numel() + (wr.numel() if rec else 0))
+                flop = 2 * npix * c * 9 * (cin + (c if rec else 0))
+                line += (f"; kernel {t_k:.4f} ms one call, device {d_k:.4f} "
+                         f"ms/call [{src_k}] ({_rates(nbytes, flop, d_k)}); "
+                         f"plain {t_p:.4f} ms one call, device {d_p:.4f} "
+                         f"[{src_p}]" + (" SLOWER than plain" if d_k > d_p
+                                         else ""))
+            print(line)
+    for h, w, cin in UNET_K1:
+        for inputs in ("spikes", "randn"):
+            x = _unet_x(inp, (1, h, w, cin), inputs)
+            wt = inp.uniform((2, cin, 1, 1), 0.01)
+            y = conv2d_same(x, wt)
+            err = float((y - conv2d_same_plain(x, wt)).abs().max())
+            label = f"K1 U-Net head {h}x{w} {cin}->2 k=1 {inputs}"
+            if not err <= ATOL:
+                fail(f"{label}: max |err| {err} > {ATOL}")
+            if not torch.equal(y, conv2d_same(x, wt)):
+                fail(f"{label}: two runs differ")
+            _record(out, "conv2d_same", err)
+            line = f"[kernels] {label}: max|err| {err:.3g}, repeatable"
+            if inputs == "spikes":
+                t_k = timed(lambda: conv2d_same(x, wt))
+                t_p = timed(lambda: conv2d_same_plain(x, wt))
+                d_k, src_k = device_ms(lambda: conv2d_same(x, wt),
+                                       "conv2d_same_kernel")
+                d_p, src_p = device_ms(lambda: conv2d_same_plain(x, wt))
+                line += (f"; kernel {t_k:.4f} ms one call, device {d_k:.4f} "
+                         f"ms/call [{src_k}]; plain {t_p:.4f} ms one call, "
+                         f"device {d_p:.4f} [{src_p}]"
+                         + (" SLOWER than plain" if d_k > d_p else ""))
+            print(line)
+
+
 def kernels_backward(inp, out):
     """B2 at the training recipe's three weight shapes, B4 after a
     feedforward and a recurrent K2 forward at the recipe's shape, and B4
@@ -422,6 +560,7 @@ def phase_kernels():
     inp = _Inputs(torch.device("cuda"))
     out = {}
     kernels_forward(inp, out)
+    kernels_unet(inp, out)
     kernels_backward(inp, out)
     kernels_scatter(inp, out)
     return out
@@ -447,7 +586,7 @@ def phase_slice():
         fail(f"launch counts {counts} != expected {expected}")
     print(f"[slice] {n} windows ({groups} metric groups) at "
           f"{config['loader']['resolution']}, launches {counts}")
-    rates = spike_rates(ev.model_state, gpu["model"].layer_names())
+    rates = spike_rates(gpu["model"], ev.model_state)
     print("[slice] spike rate of the last window: "
           + ", ".join(f"{k} {v:.4f}" for k, v in rates.items()))
 
@@ -489,23 +628,33 @@ def _grads(model):
             if p.grad is not None}
 
 
-def _busy_share(trainer, stream):
-    """torch.profiler over one update: device time of every kernel, copy
-    and fill (one stream, so they do not overlap) over the wall time, and
-    the device time by kernel name."""
+def _device_events(fn):
+    """torch.profiler over ``fn()``: its wall time (us, profiler on) and
+    every device event (kernel, copy, fill) as (name, start us, us), in
+    start order."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _feed_update(trainer, stream)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    events = [(e.name, e.time_range.start, e.time_range.elapsed_us())
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall_us, sorted(events, key=lambda e: e[1])
+
+
+def _busy_share(trainer, stream):
+    """torch.profiler over one update: device time of every kernel, copy
+    and fill (one stream, so they do not overlap) over the wall time, and
+    the device time by kernel name."""
+    wall_us, events = _device_events(lambda: _feed_update(trainer, stream))
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for name, _, us in events:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
     return wall_us, by_name
 
 
@@ -634,6 +783,136 @@ def phase_parity():
           f"||g_gpu - g_cpu|| / ||g_cpu|| {worst[1]:.3g} ({worst[0]})")
 
 
+def _window_breakdown(config, model):
+    """torch.profiler over one steady window of the serving path (its
+    metric group included): device ms by part, the K2 calls labelled by
+    shape in launch order, and the busy share."""
+    from event_flow_tpu_torch.data.stream import (ArrayEventStream,
+                                                  synthetic_sequences)
+    from event_flow_tpu_torch.eval.harness import Evaluator
+    from event_flow_tpu_torch.ops.hot_filter import init_hot_state
+
+    dev = next(model.parameters()).device
+    ev = Evaluator(config, model, dev)
+    stream = ArrayEventStream(config, synthetic_sequences(config))
+    h, w = config["loader"]["resolution"]
+    state = [model.zero_state(1, h, w, dev), init_hot_state(1, (h, w), dev)]
+
+    def window():
+        state[:] = ev.process_batch(stream, *state, stream.next_batch())
+
+    for _ in range(3):
+        window()
+    wall_us, events = _device_events(window)
+    if not events:
+        print("[unet] breakdown: not measured (the profiler saw no device "
+              "events)")
+        return
+    parts, others = {}, set()
+    k2 = [e for e in events if "fused_conv_lif_kernel" in e[0]]
+    if len(k2) != len(UNET_K2):
+        fail(f"{len(k2)} K2 launches in one window, expected {len(UNET_K2)}")
+    for (hh, ww, cin, c, rec), (_, _, us) in zip(UNET_K2, k2):
+        key = f"K2 {'rec' if rec else 'ff'} {cin}->{c} @{hh}x{ww}"
+        parts[key] = parts.get(key, 0.0) + us
+    for name, _, us in events:
+        low = name.lower()
+        if "fused_conv_lif_kernel" in name:
+            continue
+        key = ("K1 heads" if "conv2d_same_kernel" in name else
+               "K3 scatter" if any(k in name for k in (
+                   "scatter_fixed", "abs_max", "fixed_to_float")) else
+               "interpolate" if "upsample" in low else
+               "concat" if "cat" in low and "array" in low else
+               "strided conv (cuDNN)" if any(k in low for k in (
+                   "conv", "gemm", "xmma", "cudnn")) else
+               "other (elementwise, copies, fills)")
+        if key.startswith("other"):
+            others.add(name)
+        parts[key] = parts.get(key, 0.0) + us
+    busy = sum(us for _, _, us in events)
+    print(f"[unet] torch.profiler over one window: device busy "
+          f"{busy / 1e3:.4f} ms of {wall_us / 1e3:.4f} ms wall, busy share "
+          f"{busy / wall_us:.3f} ({len(events)} device events, profiler on)")
+    for key, us in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"[unet]   {us / 1e3:9.4f} ms  {100 * us / busy:5.1f} %  {key}")
+    other = {}
+    for name, _, us in events:
+        if name in others:
+            total, n = other.get(name, (0.0, 0))
+            other[name] = (total + us, n + 1)
+    for name, (us, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[unet]     other: {us / 1e3:8.4f} ms {n:4d}x  {name[:80]}")
+
+
+def phase_unet():
+    from event_flow_tpu_torch.config import ECD_SPIKING_RECEVFLOWNET
+    from event_flow_tpu_torch.eval.harness import spike_rates
+    from event_flow_tpu_torch.eval_flow import evaluate
+    from event_flow_tpu_torch.ops import native
+
+    config = copy.deepcopy(ECD_SPIKING_RECEVFLOWNET)
+    evaluate(config, "cuda", seed=0)  # warm-up: first-call costs
+    native.reset_launch_counts()
+    gpu = evaluate(config, "cuda", seed=0)
+    counts = dict(native.LAUNCHES)
+    ev = gpu["evaluator"]
+    n, groups = gpu["windows"], ev.metric_groups
+    # per window: K2 8 feedforward (4 residual-block cells, 4 decoders) +
+    # 4 recurrent (the encoders' recurrent blocks), K1 the 4 heads, K3 the
+    # encoding; 4 per metric group (FWL and RSAT warp twice each)
+    expected = {"fused_conv_lif": 8 * n, "fused_conv_lif_rec": 4 * n,
+                "conv2d_same": 4 * n, "scatter_add": n + 4 * groups,
+                "conv2d_dw": 0, "fused_lif_bwd": 0}
+    if counts != expected or n == 0:
+        fail(f"U-Net launch counts {counts} != expected {expected}")
+    print(f"[unet] SpikingRecEVFlowNet base "
+          f"{config['model']['base_num_channels']}: {n} windows ({groups} "
+          f"metric groups) at {config['loader']['resolution']}, launches "
+          f"{counts}")
+    rates = spike_rates(gpu["model"], ev.model_state)
+    print("[unet] spike rate of the last window: "
+          + ", ".join(f"{k.split('multires_unetrec.')[-1]} {v:.4f}"
+                      for k, v in rates.items()))
+    flow = ev.last_flow
+    if not torch.isfinite(flow).all() or not flow.any():
+        fail("the last window's flow is all zeros or not finite")
+    if not any(v > 0 for k, v in rates.items() if ".decoders." in k):
+        fail("no decoder cell spiked in the last window")
+    print(f"[unet] last flow {tuple(flow.shape)}: max |flow| "
+          f"{float(flow.abs().max()):.4g}, share nonzero "
+          f"{float((flow != 0).float().mean()):.4f}")
+    print(f"[unet] gpu {n / gpu['seconds']:.2f} windows/s, "
+          f"{1e3 * gpu['seconds'] / n:.3f} ms/window")
+    _window_breakdown(config, gpu["model"])
+
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    cpu = evaluate(config, "cpu", seed=0)
+    if any(native.LAUNCHES.values()):
+        fail("the CPU run launched CUDA kernels")
+    gaps = []
+    for metric, per_file in gpu["results"].items():
+        if set(per_file) != set(cpu["results"][metric]) or not per_file:
+            fail(f"{metric}: files differ between GPU and CPU runs")
+        for fname, val in sorted(per_file.items()):
+            ref = cpu["results"][metric][fname]
+            if not (torch.isfinite(torch.tensor(val))
+                    and torch.isfinite(torch.tensor(ref))):
+                fail(f"{metric} {fname}: not finite ({val}, {ref})")
+            gap = abs(val - ref) / abs(ref)
+            print(f"[unet] {metric} {fname}: gpu {val!r} cpu {ref!r} rel gap "
+                  f"{gap:.3g}")
+            if gap > SLICE_RTOL:
+                fail(f"{metric} {fname}: GPU {val} vs CPU {ref}, rel gap "
+                     f"{gap:.3g} > {SLICE_RTOL}")
+            gaps.append(gap)
+    print(f"[unet] cpu plain {n / cpu['seconds']:.3f} windows/s "
+          f"({time.perf_counter() - t0:.1f} s with the model's build); max "
+          f"rel gap GPU vs CPU {max(gaps):.3g}")
+    return counts
+
+
 KERNELS = (
     ("conv2d_same", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/ops/conv_pallas.py:121"),
@@ -658,6 +937,7 @@ def main():
     phase_build()
     measured = phase_kernels()
     phase_slice()
+    phase_unet()
     counts = phase_train()
     phase_parity()
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

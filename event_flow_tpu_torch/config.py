@@ -7,6 +7,9 @@ same recursive merge and the same re-nesting of ``spiking_neuron`` under
 :data:`ECD_LIFFIRENET` is the serving recipe of the slice written out:
 ``configs/eval_ECD.yml`` merged over the model block of
 ``configs/train_SNN.yml`` (tests/test_torch_eval.py checks the two agree).
+:data:`ECD_SPIKING_RECEVFLOWNET` is the same over the model block of
+``configs/train_SNNrec_rich.yml``, which differs from train_SNN.yml's in
+the model's name only (tests/test_torch_unet.py checks it).
 :data:`TRAIN_SNN` is the training recipe: ``configs/train_SNN.yml`` over
 the defaults (tests/test_torch_train.py checks the two agree).
 """
@@ -15,7 +18,7 @@ import copy
 
 __all__ = ["default_config", "merge_dicts", "combine_entries",
            "load_yaml_config", "merge_run_params", "ECD_LIFFIRENET",
-           "TRAIN_SNN"]
+           "ECD_SPIKING_RECEVFLOWNET", "TRAIN_SNN"]
 
 
 def default_config():
@@ -102,6 +105,9 @@ ECD_LIFFIRENET = {
     "vis": {"bars": False, "enabled": False, "px": 400, "activity": False,
             "store": False},
 }
+
+ECD_SPIKING_RECEVFLOWNET = merge_dicts(
+    {"model": {"name": "SpikingRecEVFlowNet"}}, copy.deepcopy(ECD_LIFFIRENET))
 
 
 TRAIN_SNN = {

@@ -23,11 +23,28 @@ import torch
 from ..data.augment import augment_events
 from ..loss.metrics import fwl as fwl_fn
 from ..loss.metrics import rsat as rsat_fn
+from ..models.snn_cells import lif_cell_names
 from ..ops.encodings import encode_window
 from ..ops.hot_filter import apply_hot_filter, init_hot_state
 from ..ops.iwe import gather_event_flow
 
-__all__ = ["Evaluator"]
+__all__ = ["Evaluator", "zeros_like_state", "cell_states", "spike_rates"]
+
+
+def zeros_like_state(state):
+    """Zeros in the shape of a model state: tuples nested to any depth
+    (the U-Net's encoders hold ``((v, z), (v, z))``), as ``tree_map``
+    zeroes the JAX state (event_flow_tpu/eval/harness.py:178)."""
+    if isinstance(state, torch.Tensor):
+        return torch.zeros_like(state)
+    return tuple(zeros_like_state(s) for s in state)
+
+
+def cell_states(state):
+    """The (v, z) pairs of a nested model state, depth first."""
+    if all(isinstance(s, torch.Tensor) for s in state):
+        return [state]
+    return [pair for s in state for pair in cell_states(s)]
 
 
 class Evaluator:
@@ -70,6 +87,7 @@ class Evaluator:
         self.windows = 0
         self.metric_groups = 0
         self.model_state = None  # the carried state after run()
+        self.last_flow = None  # the last window's flow [B,H,W,2]
 
     # -- per-window step --------------------------------------------------
 
@@ -86,11 +104,11 @@ class Evaluator:
                 max_rate=self.hot_cfg.get("max_rate", 0.8),
             )
         if new_seq:  # any reset clears every slot's model state
-            model_state = tuple(tuple(torch.zeros_like(t) for t in s)
-                                for s in model_state)
+            model_state = zeros_like_state(model_state)
         out, model_state = self.model(enc["event_voxel"], enc["event_cnt"],
                                       model_state)
         flow_last = out["flow"][-1]
+        self.last_flow = flow_last
         win = {
             "event_list": enc["event_list"],
             "pol_mask": enc["pol_mask"],
@@ -198,8 +216,13 @@ class Evaluator:
         return self.results()
 
 
-def spike_rates(model_state, names):
-    """Mean spike rate of each cell in its last window, from the carried
-    state's z."""
-    return {name: float(s[1].mean()) for name, s in zip(names, model_state)}
+def spike_rates(model, model_state):
+    """Mean spike rate of each of the model's LIF cells in its last
+    window, from the carried state's z, by the cell's module name."""
+    names = lif_cell_names(model)
+    pairs = cell_states(model_state)
+    if len(pairs) != len(names):
+        raise ValueError(f"{len(names)} cell names for {len(pairs)} cell "
+                         "states")
+    return {name: float(s[1].mean()) for name, s in zip(names, pairs)}
 

@@ -1,7 +1,7 @@
 """Evaluation entry point of the PyTorch port.
 
 Counterpart of eval_flow.py (the JAX CLI) for events-mode FWL/RSAT
-evaluation of LIFFireNet:
+evaluation of LIFFireNet and SpikingRecEVFlowNet:
 
   python -m event_flow_tpu_torch.eval_flow <runid> --config configs/eval_ECD.yml \
       --synthetic --debug --device cuda

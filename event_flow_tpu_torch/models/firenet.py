@@ -17,12 +17,12 @@ from torch import nn
 from .cells import ConvLayer
 from .snn_cells import ConvLIF, ConvLIFRecurrent
 
-__all__ = ["FireNet", "make_liffirenet"]
+__all__ = ["FireNet", "make_liffirenet", "select_encoding"]
 
 _LAYER_NAMES = ("head", "G1", "R1a", "R1b", "G2", "R2a", "R2b")
 
 
-def _select_encoding(encoding, num_bins, event_voxel, event_cnt):
+def select_encoding(encoding, num_bins, event_voxel, event_cnt):
     if encoding == "voxel":
         return event_voxel.contiguous()
     if encoding == "cnt" and num_bins == 2:
@@ -58,7 +58,7 @@ class FireNet(nn.Module):
                               generator=generator)
 
     def forward(self, event_voxel, event_cnt, state, log=False):
-        x = _select_encoding(self.encoding, self.num_bins, event_voxel,
+        x = select_encoding(self.encoding, self.num_bins, event_voxel,
                              event_cnt)
         s = list(state)
         acts = [x]

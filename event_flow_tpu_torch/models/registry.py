@@ -1,12 +1,14 @@
-"""Model registry of the port: the JAX registry's names, with only the
-LIFFireNet row built so far (event_flow_tpu/models/registry.py)."""
+"""Model registry of the port: the JAX registry's names, with the
+LIFFireNet and SpikingRecEVFlowNet rows built so far
+(event_flow_tpu/models/registry.py)."""
 
+from .evflownet import make_unet_model
 from .firenet import make_liffirenet
 
 __all__ = ["get_model", "available_models", "KNOWN_MODELS"]
 
-# every name the JAX registry builds; all but LIFFireNet wait for a later
-# slice of the port
+# every name the JAX registry builds; all but the rows of _FACTORIES wait
+# for a later slice of the port
 KNOWN_MODELS = (
     "ALIFFireNet", "FireFlowNet", "FireNet", "LIFFireFlowNet", "LIFFireNet",
     "LeakyFireFlowNet", "LeakyFireNet", "PLIFFireNet", "RNNFireNet",
@@ -15,7 +17,8 @@ KNOWN_MODELS = (
     "RecEVFlowNet", "SpikingRecEVFlowNet", "XLIFRecEVFlowNet",
 )
 
-_FACTORIES = {"LIFFireNet": make_liffirenet}
+_FACTORIES = {"LIFFireNet": make_liffirenet,
+              "SpikingRecEVFlowNet": make_unet_model}
 
 
 def available_models():
@@ -30,5 +33,5 @@ def get_model(name, model_cfg, generator=None):
     if name in KNOWN_MODELS:
         raise NotImplementedError(
             f"{name} is not ported to PyTorch yet; only "
-            f"{available_models()} is (see ROADMAP.md)")
+            f"{available_models()} are (see ROADMAP.md)")
     raise KeyError(f"Unknown model {name!r}")

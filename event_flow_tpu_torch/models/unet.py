@@ -1,0 +1,104 @@
+"""The all-spiking EV-FlowNet U-Net.
+
+Counterpart of event_flow_tpu/models/unet.py: the channel schedule of
+``_UNetBase`` (:50-101) and ``SpikingMultiResUNetRecurrent`` (:213-318).
+Four stride-2 spiking recurrent encoders at ``base * 2^(i+1)`` channels,
+residual blocks at the widest, decoders at ``base * 2^i`` in reverse that
+upsample x2 bilinearly into a LIF cell, and after each decoder a 1x1 tanh
+prediction (w_scale 0.01). Decoder i's input is the previous output fitted
+to encoder (3 - i)'s size and concatenated with it, and for i > 0 the
+previous prediction fitted and put first: ``[pred, x, block]``, the order
+the weight layout follows.
+
+State: a tuple of encoders ``((v, z), (v, z))``, residual blocks
+``((v, z), (v, z))`` and decoders ``(v, z)``, in that order.
+"""
+
+from torch import nn
+
+from .cells import ConvLayer
+from .model_util import get_skip_fn
+from .snn_cells import (SpikingRecurrentConvLayer, SpikingResidualBlock,
+                        SpikingTransposedConvLayer, SpikingUpsampleConvLayer)
+
+__all__ = ["SpikingMultiResUNetRecurrent"]
+
+FLOW_CHANNELS = 2
+
+
+class SpikingMultiResUNetRecurrent(nn.Module):
+    """Spiking recurrent encoders, spiking residual blocks, spiking
+    upsample decoders and per-scale predictions, low to high resolution.
+    ``forward(x, state) -> (predictions, state)``."""
+
+    def __init__(self, cin, base_num_channels, num_encoders,
+                 num_residual_blocks, skip_type, use_upsample_conv,
+                 kernel_size=3, ff_act="arctanspike", rec_act="arctanspike",
+                 neuron_kwargs=None, generator=None):
+        super().__init__()
+        self.num_encoders = num_encoders
+        self.num_residual_blocks = num_residual_blocks
+        self.skip_fn = get_skip_fn(skip_type)
+        enc = [base_num_channels * 2 ** (i + 1) for i in range(num_encoders)]
+        dec = [base_num_channels * 2 ** i
+               for i in reversed(range(num_encoders))]
+        kw = dict(neuron_kwargs or {})
+        kw["generator"] = generator
+        k = kernel_size
+        # construction order fixes the draw order of the seeded init
+        self.encoders = nn.ModuleList()
+        for feats in enc:
+            self.encoders.append(SpikingRecurrentConvLayer(
+                cin, feats, k, stride=2, activation_ff=ff_act,
+                activation_rec=rec_act, **kw))
+            cin = feats
+        self.resblocks = nn.ModuleList(
+            SpikingResidualBlock(enc[-1], activation=ff_act, **kw)
+            for _ in range(num_residual_blocks))
+        self.decoders = nn.ModuleList()
+        x_ch, pred_ch = enc[-1], 0
+        for i, feats in enumerate(dec):
+            dec_in = pred_ch + x_ch + enc[num_encoders - 1 - i]
+            if use_upsample_conv:
+                self.decoders.append(SpikingUpsampleConvLayer(
+                    dec_in, feats, k, activation=ff_act, **kw))
+            else:
+                self.decoders.append(SpikingTransposedConvLayer(dec_in, feats,
+                                                                k))
+            x_ch, pred_ch = feats, FLOW_CHANNELS
+        self.preds = nn.ModuleList(
+            ConvLayer(feats, FLOW_CHANNELS, 1, w_scale=0.01,
+                      generator=generator) for feats in dec)
+
+    def forward(self, x, state):
+        state = list(state)
+        ne, nr = self.num_encoders, self.num_residual_blocks
+        blocks = []
+        for i, enc in enumerate(self.encoders):
+            x, state[i] = enc(x, state[i])
+            blocks.append(x)
+        for i, res in enumerate(self.resblocks):
+            x, state[ne + i] = res(x, state[ne + i])
+        predictions = []
+        off = ne + nr
+        for i, (dec, pred) in enumerate(zip(self.decoders, self.preds)):
+            x = self.skip_fn(x, blocks[ne - i - 1])
+            if i > 0:
+                x = self.skip_fn(predictions[-1], x)
+            x, state[off + i] = dec(x, state[off + i])
+            predictions.append(pred(x))
+        return predictions, tuple(state)
+
+    def zero_state(self, batch, h, w, device):
+        states, dims = [], []
+        for enc in self.encoders:
+            s = enc.zero_state(batch, h, w, device)
+            h, w = s[0][0].shape[1:3]
+            states.append(s)
+            dims.append((h, w))
+        for res in self.resblocks:
+            states.append(res.zero_state(batch, h, w, device))
+        for i in range(self.num_encoders):
+            dh, dw = dims[self.num_encoders - 1 - i]
+            states.append(self.decoders[i].zero_state(batch, dh, dw, device))
+        return tuple(states)

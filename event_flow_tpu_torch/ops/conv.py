@@ -1,5 +1,6 @@
 """Same-padded stride-1 NHWC convolution with its gradients: kernels K1
-and B2 and their plain versions.
+and B2 and their plain versions; and the strided conv of the U-Net
+encoders, which is no kernel's (:func:`conv2d_strided`).
 
 Counterpart of event_flow_tpu/ops/conv_pallas.py: ``conv2d_pallas`` with
 its custom VJP ``_cp_bwd`` (B1 ``_conv_fwd`` for the forward and for dx,
@@ -22,8 +23,9 @@ output tile and up to 32 output channels, the halo tile and the weights
 of up to 32 input channels staged at once with ``cp.async`` into
 pixel-major, bank-padded shared memory, no im2col matrix anywhere, and y
 written from the MMA fragments as 32 contiguous bytes per quad of lanes.
-It runs the 1x1 prediction head (32 -> 2) and, in training, every dx
-(32 -> 32 at k = 3; 2 -> 32 at k = 1 for the head's), about 34 MB and
+It runs the 1x1 prediction heads (32 -> 2; the U-Net's 256, 128, 64 and
+32 -> 2) and, in training, every dx (32 -> 32 at k = 3; 2 -> 32 at
+k = 1 for the head's), about 34 MB and
 2.4 GFLOP per dx call at 8 x 128 x 128: bound by bytes, which the
 coalesced epilogue and the asynchronous 16-byte staging address.
 Deterministic: every output is a fixed sequence of MMAs.
@@ -40,8 +42,9 @@ import torch.nn.functional as F
 
 from . import native
 
-__all__ = ["conv2d_same", "conv2d_same_plain", "conv2d_dw_plain",
-           "conv2d_dw_kernel", "conv_same_grads", "flatten_kernel"]
+__all__ = ["conv2d_same", "conv2d_same_plain", "conv2d_strided",
+           "conv2d_dw_plain", "conv2d_dw_kernel", "conv_same_grads",
+           "flatten_kernel"]
 
 
 def _check_shapes(x, w):
@@ -71,6 +74,21 @@ def conv2d_same_plain(x, w):
     k = _check_shapes(x, w)
     with _no_tf32():
         y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=k // 2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_strided(x, w, stride):
+    """y [B, ceil(H/s), ceil(W/s), Cout] = the conv of x [B,H,W,Cin] with
+    w [Cout,Cin,k,k] at ``stride``, padding k // 2: the U-Net encoders'
+    feedforward conv. ``F.conv2d`` in NCHW with TF32 off on every device.
+    In JAX a strided conv never reaches Pallas either: it is ``lax.conv``
+    (event_flow_tpu/models/conv.py:142-150, :229-238)."""
+    if x.dim() != 4 or w.dim() != 4 or w.shape[1] != x.shape[3]:
+        raise ValueError(f"x {tuple(x.shape)} must be NHWC and w "
+                         f"{tuple(w.shape)} OIHW with its input channels")
+    with _no_tf32():
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                     padding=w.shape[2] // 2)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -31,7 +31,11 @@ epilogue on the MMA fragments, reading v and z and writing only v' and z'
 as 32 contiguous bytes per quad of lanes. At the training recipe (8 x
 128 x 128 x 32) a cell does 2.4 GFLOP (4.8 recurrent) against about
 84 MB (101 MB), so on the tensor cores it is bound by bytes, and keeping
-the current out of device memory pays. Bitwise repeatable.
+the current out of device memory pays. Bitwise repeatable. The spiking
+U-Net's cells run 64 to 1026 input channels at 12 x 15 to 180 x 240:
+there the deep calls launch few blocks (32 at 512 channels, 12 x 15, for
+132 SMs), each walking 16 to 32 serial passes of 32 channels, and are
+slower than cuDNN's f32 conv (PERF.md section 6).
 
 B4 source note: see ``csrc/fused_lif_bwd.cu``: elementwise, bound by
 device memory (five maps read, two written), the two per-channel sums
@@ -48,14 +52,17 @@ from .spike import get_spike_fn, surrogate
 
 __all__ = ["fused_conv_lif", "fused_conv_lif_rec", "fused_conv_lif_plain",
            "fused_conv_lif_rec_plain", "fused_lif_bwd", "fused_lif_bwd_plain",
-           "fused_lif_bwd_kernel"]
+           "fused_lif_bwd_kernel", "lif_update"]
 
 # the surrogate codes of csrc/fused_lif_bwd.cu
 _SURROGATE_CODE = {"arctanspike": 0, "superspike": 1, "trianglespike": 2,
                    "mgspike": 3}
 
 
-def _lif_update(cur, v, z, leak, thresh, hard_reset, activation, width):
+def lif_update(cur, v, z, leak, thresh, hard_reset, activation, width):
+    """(v', z') of the LIF update driven by the current ``cur``, plain
+    torch: the epilogue of the plain versions, and the whole update of the
+    strided cells, whose conv is no kernel's (models/snn_cells.py)."""
     leak = leak.reshape(-1)
     thresh = thresh.reshape(-1)
     z = z.detach()  # the reset is detached (snn_cells.py:194-195, 458-459)
@@ -71,8 +78,8 @@ def fused_conv_lif_plain(x, w, v, z, leak, thresh, k, hard_reset=True,
     """Plain version: conv (TF32 off), then the LIF update; autograd
     through it gives the same gradients as the cell's backward."""
     cur = conv2d_same_plain(x, w)
-    return _lif_update(cur, v, z, leak, thresh, hard_reset, activation,
-                       width)
+    return lif_update(cur, v, z, leak, thresh, hard_reset, activation,
+                      width)
 
 
 def fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh, k,
@@ -83,8 +90,8 @@ def fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh, k,
     channels, then the LIF update."""
     cur = conv2d_same_plain(torch.cat([x, z_rec], dim=-1),
                             torch.cat([w, w_rec], dim=1))
-    return _lif_update(cur, v, z, leak, thresh, hard_reset, activation,
-                       width)
+    return lif_update(cur, v, z, leak, thresh, hard_reset, activation,
+                      width)
 
 
 def fused_lif_bwd_plain(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,

@@ -2,10 +2,19 @@
 
 Counterpart of tools/import_torch.py and tools/export_torch.py for the
 port: the port's modules carry the reference torch ``state_dict`` names
-and shapes, so the flax params of a JAX model map onto them by the same
-name-canonical rule (``kernel`` -> ``weight`` with HWIO -> OIHW,
-per-channel neuron vectors (C,) -> (C, 1, 1), ``pred/conv`` ->
-``pred.conv2d``).
+and shapes, and the flax params of a JAX model map onto them by the
+importer's canonical rule (tools/import_torch.py:50-92, the part the
+port's modules need): the U-Net container attributes
+(``multires_unetrec``, ...) become ``unet``, ``conv2d`` becomes ``conv``,
+``encoders.0`` becomes ``encoders_0`` and ``weight`` becomes ``kernel``.
+Values go HWIO -> OIHW and per-channel neuron vectors (C,) -> the
+template's (C, 1, 1).
+
+One fixed rename of the flax names cannot give the torch names: the
+U-Net's ``encoders_i/conv`` (a strided LIF cell) keeps ``conv`` in torch,
+while ``preds_i/conv`` (a ConvLayer's conv) becomes ``preds.i.conv2d``,
+and the container prefix depends on the model class. So the torch names
+come from a template, the target model's own ``state_dict()``.
 """
 
 import numpy as np
@@ -15,7 +24,25 @@ __all__ = ["state_dict_from_jax"]
 
 _CHANNEL_VECS = {"leak", "thresh", "leak_v", "leak_t", "leak_pt", "add_pt",
                  "t0", "t1"}
-_TORCH_SEGMENT = {"conv": "conv2d"}
+_UNET_PREFIXES = {"multires_unetrec", "multires_unet", "unetrecurrent"}
+
+
+def _canon_segment(seg):
+    if seg in _UNET_PREFIXES:
+        return "unet"
+    return "conv" if seg == "conv2d" else seg
+
+
+def _canon_torch_key(key):
+    """Canonical path of a torch ``state_dict`` key."""
+    *mods, leaf = key.split(".")
+    segs = []
+    for p in mods:
+        if p.isdigit() and segs:
+            segs[-1] = f"{segs[-1]}_{p}"
+        else:
+            segs.append(_canon_segment(p))
+    return tuple(segs + ["kernel" if leaf == "weight" else leaf])
 
 
 def _walk(tree, prefix=()):
@@ -26,20 +53,51 @@ def _walk(tree, prefix=()):
             yield prefix + (key,), val
 
 
-def state_dict_from_jax(params):
+def _fixed_names(paths):
+    """The torch names of a FireNet-family tree, which has no list of
+    layers and no U-Net container: each flax ``conv`` is a ConvLayer's
+    ``conv2d``."""
+    names = {}
+    for path in paths:
+        if path[0] == "unet":
+            raise ValueError("a U-Net's torch names depend on its model "
+                             "class: pass the model's state_dict() as "
+                             "template")
+        *mods, leaf = path
+        mods = ["conv2d" if m == "conv" else m for m in mods]
+        names[".".join(mods + ["weight" if leaf == "kernel" else leaf])] = None
+    return names
+
+
+def state_dict_from_jax(params, template=None):
     """Flax params (nested dicts of numpy arrays, with or without the
-    top-level ``params`` collection) -> the port's ``state_dict``."""
+    top-level ``params`` collection) -> a ``state_dict`` with the keys of
+    ``template`` (the target model's ``state_dict()``). Every flax leaf
+    must meet one template key and every template key one flax leaf, at
+    the template's shape. Without a template, the FireNet family's
+    names."""
     if set(params) == {"params"}:
         params = params["params"]
-    out = {}
-    for path, leaf in _walk(params):
-        *mods, name = path
-        mods = [_TORCH_SEGMENT.get(m, m) for m in mods]
-        v = np.asarray(leaf, dtype=np.float32)
-        if name == "kernel":
-            name = "weight"
+    flat = {tuple(_canon_segment(s) for s in path): leaf
+            for path, leaf in _walk(params)}
+    if template is None:
+        template = _fixed_names(flat)
+    out, missing = {}, []
+    for key, ref in template.items():
+        cpath = _canon_torch_key(key)
+        if cpath not in flat:
+            missing.append(key)
+            continue
+        v = np.asarray(flat.pop(cpath), dtype=np.float32)
+        if v.ndim == 4:
             v = np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
-        elif name in _CHANNEL_VECS:
+        elif cpath[-1] in _CHANNEL_VECS:
             v = v.reshape(-1, 1, 1)
-        out[".".join(mods + [name])] = torch.from_numpy(np.array(v))
+        if ref is not None and tuple(v.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: flax {v.shape} vs torch "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.from_numpy(np.array(v))
+    if missing or flat:
+        raise KeyError(f"unmatched: torch {missing}, flax "
+                       f"{['/'.join(p) for p in flat]}")
     return out

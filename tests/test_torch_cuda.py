@@ -153,6 +153,103 @@ def test_conv_and_cell_kernels_bitwise_repeatable(dev):
             assert torch.equal(v1, v2) and torch.equal(z1, z2)
 
 
+# SpikingRecEVFlowNet at the ECD recipe (1 x 180 x 240, base 32): every K2
+# call of a window as (H, W, Cin, Cout, recurrent) and every K1 head as
+# (H, W, Cin); Cin 1026, 514, 258 and 130 leave a last pass of 2 channels
+# and take the 4-byte staging, widths 15 and 30 are under one pixel tile
+UNET_K2 = [(90, 120, 64, 64, True), (45, 60, 128, 128, True),
+           (23, 30, 256, 256, True), (12, 15, 512, 512, True),
+           (12, 15, 512, 512, False), (24, 30, 1024, 256, False),
+           (46, 60, 514, 128, False), (90, 120, 258, 64, False),
+           (180, 240, 130, 32, False)]
+UNET_K1 = [(24, 30, 256), (46, 60, 128), (90, 120, 64), (180, 240, 32)]
+
+
+def _unet_x(shape, inputs, g):
+    """Spikes at 10 %, or dense randn at 0.15: against snn-init weights a
+    current of about 0.5 or 0.25, as in the model. The randn low TF32 bits
+    are nonzero, so one TF32 pass fails ATOL, while the f32 rounding of a
+    sum of up to 9234 products, on either side, stays under it."""
+    if inputs == "spikes":
+        return (torch.rand(shape, generator=g) < 0.1).float()
+    return 0.15 * torch.randn(shape, generator=g)
+
+
+@pytest.mark.parametrize("inputs", ["spikes", "randn"])
+@pytest.mark.parametrize("h,w,cin,c,rec", UNET_K2)
+def test_fused_lif_kernel_at_unet_shapes(dev, h, w, cin, c, rec, inputs):
+    g = _gen()
+    x = _unet_x((1, h, w, cin), inputs, g).to(dev)
+    wt = ((torch.rand((c, cin, 3, 3), generator=g) * 2 - 1)
+          * cin ** -0.5).to(dev)
+    wr = ((torch.rand((c, c, 3, 3), generator=g) * 2 - 1) * c ** -0.5).to(dev)
+    thresh = (0.8 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    leak = torch.sigmoid(-4 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    v = thresh + 0.3 * torch.randn((1, h, w, c), generator=g).to(dev)
+    z = (torch.rand((1, h, w, c), generator=g) < 0.1).float().to(dev)
+    with torch.no_grad():
+        if rec:
+            run = lambda: fused_conv_lif_rec(x, wt, wr, v, z, z, leak,
+                                             thresh, 3, True)
+            vp, zp = fused_conv_lif_rec_plain(x, wt, wr, v, z, z, leak,
+                                              thresh, 3, True)
+        else:
+            run = lambda: fused_conv_lif(x, wt, v, z, leak, thresh, 3, True)
+            vp, zp = fused_conv_lif_plain(x, wt, v, z, leak, thresh, 3, True)
+        vk, zk = run()
+        v2, z2 = run()
+    torch.testing.assert_close(vk, vp, atol=ATOL, rtol=0)
+    flips = zk != zp
+    assert not (flips & ~((vp - thresh).abs() < NEAR)).any()
+    assert float(flips.float().mean()) <= 1e-3
+    assert torch.equal(vk, v2) and torch.equal(zk, z2)
+
+
+@pytest.mark.parametrize("inputs", ["spikes", "randn"])
+@pytest.mark.parametrize("h,w,cin", UNET_K1)
+def test_conv_kernel_at_unet_heads(dev, h, w, cin, inputs):
+    g = _gen()
+    x = _unet_x((1, h, w, cin), inputs, g).to(dev)
+    wt = ((torch.rand((2, cin, 1, 1), generator=g) * 2 - 1) * 0.01).to(dev)
+    y = conv2d_same(x, wt)
+    torch.testing.assert_close(y, conv2d_same_plain(x, wt), atol=ATOL,
+                               rtol=1e-5)
+    assert torch.equal(y, conv2d_same(x, wt))
+
+
+def test_unet_window_card_vs_cpu(dev):
+    """One window of SpikingRecEVFlowNet at the ECD recipe from the same
+    seeded init on the card and on the CPU. A near-threshold spike flip
+    moves the cells after it by a weight, so past the first cell the
+    comparison is by share: at most 0.1 % of each cell's spikes flip, and
+    the full-resolution flow stays within 1e-4 on average."""
+    from event_flow_tpu_torch.config import ECD_SPIKING_RECEVFLOWNET
+    from event_flow_tpu_torch.eval.harness import cell_states
+    from event_flow_tpu_torch.eval_flow import build_model
+
+    cfg = copy.deepcopy(ECD_SPIKING_RECEVFLOWNET)
+    g = _gen()
+    cnt = torch.poisson(torch.full((1, 180, 240, 2), 0.2), generator=g)
+    outs = {}
+    for d in (torch.device("cpu"), dev):
+        model = build_model(cfg, d, seed=0)
+        native.reset_launch_counts()
+        with torch.no_grad():
+            out, state = model(cnt.to(d), cnt.to(d),
+                               model.zero_state(1, 180, 240, d))
+        want = ({"fused_conv_lif": 8, "fused_conv_lif_rec": 4,
+                 "conv2d_same": 4} if d.type == "cuda" else {})
+        assert {k: n for k, n in native.LAUNCHES.items() if n} == want
+        outs[d.type] = ([f.cpu() for f in out["flow"]],
+                        [tuple(t.cpu() for t in s) for s in
+                         cell_states(state)])
+    (fk, sk), (fc, sc) = outs["cuda"], outs["cpu"]
+    for (_, zk), (_, zc) in zip(sk, sc):
+        assert float((zk != zc).float().mean()) <= 1e-3
+    assert all(torch.isfinite(f).all() for f in fk)
+    assert float((fk[-1] - fc[-1]).abs().mean()) <= 1e-4
+
+
 def test_scatter_kernel_matches_plain(dev):
     g = _gen()
     size = 500

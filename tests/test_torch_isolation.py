@@ -66,6 +66,43 @@ def test_evaluate_runs_with_jax_yaml_h5py_blocked():
     assert proc.stdout.startswith("OK 20")
 
 
+def test_unet_evaluate_runs_with_jax_blocked():
+    """The SpikingRecEVFlowNet serving path at a tiny size, with its
+    modules (resize, model_util, unet, evflownet) loaded and no JAX."""
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import copy, math
+        from event_flow_tpu_torch.config import ECD_SPIKING_RECEVFLOWNET
+        from event_flow_tpu_torch.eval_flow import evaluate
+        cfg = copy.deepcopy(ECD_SPIKING_RECEVFLOWNET)
+        cfg["loader"]["resolution"] = [20, 28]
+        cfg["data"]["window"] = cfg["data"]["window_eval"] = 2000
+        cfg["model"]["base_num_channels"] = 4
+        rep = evaluate(cfg, "cpu", seed=0)
+        vals = [v for d in rep["results"].values() for v in d.values()]
+        assert len(vals) == 4 and all(math.isfinite(v) for v in vals), vals
+        for mod in ("ops.resize", "models.model_util", "models.unet",
+                    "models.evflownet"):
+            assert "event_flow_tpu_torch." + mod in sys.modules, mod
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {BLOCKED!r})
+        assert not loaded, loaded
+        print("OK", rep["windows"])
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK 20")
+
+
 def _top_level_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     names = []

@@ -17,7 +17,8 @@ import torch
 
 from event_flow_tpu.models.registry import get_model as jax_get_model
 from event_flow_tpu_torch.config import ECD_LIFFIRENET
-from event_flow_tpu_torch.models.registry import KNOWN_MODELS, get_model
+from event_flow_tpu_torch.models.registry import (KNOWN_MODELS,
+                                                 available_models, get_model)
 from event_flow_tpu_torch.utils.weights import state_dict_from_jax
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -85,8 +86,9 @@ def test_seeded_init_distributions():
 
 
 def test_unported_models_raise():
+    assert available_models() == ["LIFFireNet", "SpikingRecEVFlowNet"]
     for name in KNOWN_MODELS:
-        if name != "LIFFireNet":
+        if name not in available_models():
             with pytest.raises(NotImplementedError, match="ROADMAP.md"):
                 get_model(name, _model_cfg(8))
 
