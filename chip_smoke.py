@@ -9,10 +9,10 @@ exits non-zero without the final ``ok`` line:
   2. build    the CUDA kernels from event_flow_tpu_torch/csrc (nvcc, sm_90a)
   3. kernels  each kernel against its plain PyTorch version (TF32 off) at
               the serving and the training shapes, with the median time of
-              20 runs of each (K1 and K2 also in device time per call
-              from torch.profiler, or from CUDA events around 20
-              back-to-back calls when the profiler sees no device
-              events, with GB/s and TFLOP/s); every kernel also runs
+              20 runs of each and its device time per call at the training
+              shape (torch.profiler, or CUDA events around 20 back-to-back
+              calls when the profiler sees no device events, with GB/s,
+              TFLOP/s and the share of its bound); every kernel also runs
               twice and must be bitwise equal
   4. slice    the LIFFireNet serving path (configs/eval_ECD.yml with the
               model block of configs/train_SNN.yml, seeded init, the
@@ -35,7 +35,12 @@ exits non-zero without the final ``ok`` line:
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
-with spike and dense randn inputs.
+with spike and dense randn inputs; B2 at every weight shape of the
+FireNet and U-Net training updates, against float64 as well, with its
+device time beside cuDNN's weight gradient; and gives each kernel's
+bound (bytes at 3.35 TB/s or operations at the TF32 peak) and, where one
+PyTorch call computes the same function, that call's time (K1: cuDNN's
+conv; B2: cuDNN's weight gradient; K3: index_add_).
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -66,6 +71,10 @@ TRAIN_LOSS_RTOL = 1e-3  # GPU vs CPU training loss and, per tensor,
 TRAIN_GRAD_RTOL = 1e-3  # ||g_gpu - g_cpu|| / ||g_cpu||: the same, through
                         # 3 windows of BPTT and Adam
 REPS = 20
+# the H100 SXM's published peaks (700 W): device memory, and the dense
+# TF32 tensor-core rate the kernels' f32 products run at (3xTF32)
+HBM_BPS = 3.35e12
+TF32_FLOPS = 495e12
 
 
 def fail(msg):
@@ -171,17 +180,29 @@ def check_spikes(z, z_ref, v_ref, thresh, label):
 def check_sum(got, ref, label):
     """|got - ref| <= SUM_RTOL * max|ref|; returns the max |error|."""
     err = float((got - ref).abs().max())
-    bound = SUM_RTOL * float(ref.abs().max())
-    if not err <= bound:
-        fail(f"{label}: max |err| {err} > {bound}")
+    limit = SUM_RTOL * float(ref.abs().max())
+    if not err <= limit:
+        fail(f"{label}: max |err| {err} > {limit}")
     return err
 
 
-def _record(out, name, err, ms=None, plain_ms=None):
+def least_ms(nbytes, flop):
+    """(ms, what sets it): the least time the card could take to move
+    nbytes at HBM_BPS and do flop at TF32_FLOPS, whichever is larger."""
+    t_bytes, t_flop = 1e3 * nbytes / HBM_BPS, 1e3 * flop / TF32_FLOPS
+    return (t_bytes, "bytes") if t_bytes >= t_flop else (t_flop, "operations")
+
+
+def _record(out, name, err, timing=None):
+    """Keep the largest error of a kernel and, for the one shape its JSON
+    entry reports, ``timing`` = (ms, plain_ms, library_ms, nbytes, flop)."""
     entry = out.setdefault(name, {"max_abs_err": 0.0})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    if ms is not None:
-        entry.update(ms=ms, plain_ms=plain_ms)
+    if timing:
+        ms, plain_ms, library_ms, nbytes, flop = timing
+        bound_ms, bound_by = least_ms(nbytes, flop)
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
 
 
 class _Inputs:
@@ -249,19 +270,24 @@ def kernels_forward(inp, out):
             fail(f"{label}: two runs differ")
         t_k = timed(lambda: conv2d_same(x, wt))
         t_p = timed(lambda: conv2d_same_plain(x, wt))
+        t_l = timed(lambda: conv2d_library(x, wt))
         d_k, src_k = device_ms(lambda: conv2d_same(x, wt),
                                "conv2d_same_kernel")
         d_p, src_p = device_ms(lambda: conv2d_same_plain(x, wt))
+        d_l, src_l = device_ms(lambda: conv2d_library(x, wt))
         npix = shape[0] * shape[1] * shape[2]
-        rates = _rates(4 * (npix * (cin + cout) + wt.numel()),
-                       2 * npix * cout * k * k * cin, d_k)
+        nbytes = 4 * (npix * (cin + cout) + wt.numel())
+        flop = 2 * npix * cout * k * k * cin
         print(f"[kernels] {label}: max|err| {err:.3g}, repeatable; kernel "
               f"{t_k:.4f} ms one call, device {d_k:.4f} ms/call [{src_k}] "
-              f"({rates}); plain {t_p:.4f} ms one call, device {d_p:.4f} "
-              f"[{src_p}]")
+              f"({_rates(nbytes, flop, d_k)}, "
+              f"{least_ms(nbytes, flop)[0] / d_k:.3f} of its bound); plain "
+              f"{t_p:.4f} ms one call, device {d_p:.4f} [{src_p}]; cuDNN "
+              f"conv {t_l:.4f} ms one call, device {d_l:.4f} [{src_l}]")
         # the training shape the backward runs most (dx, 32 -> 32, k 3)
         train_dx = shape[0] == 8 and cin == cout == 32
-        _record(out, "conv2d_same", err, *((t_k, t_p) if train_dx else ()))
+        _record(out, "conv2d_same", err,
+                train_dx and (t_k, t_p, t_l, nbytes, flop))
 
     # K2: head (Cin 2, event counts), ff cell (Cin 32) and recurrent cell
     # (32 + 32), hard and soft reset; v spread around the threshold and
@@ -312,7 +338,9 @@ def kernels_forward(inp, out):
                       f"({_rates(nbytes, flop, d_k)}); plain {t_p:.4f} ms "
                       f"one call, device {d_p:.4f} [{src_p}]")
                 timing = shape[0] == 8 and hard and cin == c
-                _record(out, name, err, *((t_k, t_p) if timing else ()))
+                # no one PyTorch call computes a conv and the LIF update
+                _record(out, name, err,
+                        timing and (t_k, t_p, None, nbytes, flop))
 
 
 # SpikingRecEVFlowNet at the ECD recipe (1 x 180 x 240, base 32): every K2
@@ -442,32 +470,128 @@ def kernels_unet(inp, out):
             print(line)
 
 
-def kernels_backward(inp, out):
-    """B2 at the training recipe's three weight shapes, B4 after a
-    feedforward and a recurrent K2 forward at the recipe's shape, and B4
-    for every surrogate and reset at a small shape."""
+def conv2d_library(x, w):
+    """cuDNN's conv in one call, K1's yardstick (never used by the port):
+    the NHWC x seen as channels-last NCHW; TF32 off."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        return torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w,
+                                          padding=w.shape[2] // 2)
+
+
+def conv2d_dw_library(x, g, k):
+    """cuDNN's weight gradient in one call, B2's yardstick (never used by
+    the port): weight-only ``aten.convolution_backward`` of the NHWC x and
+    g seen as channels-last NCHW, OIHW [Cout, Cin, k, k]; TF32 off."""
+    w = torch.empty((g.shape[3], x.shape[3], k, k), device=x.device)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        return torch.ops.aten.convolution_backward(
+            g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None, [1, 1],
+            [k // 2, k // 2], [1, 1], False, [0, 0], 1,
+            [False, True, False])[1]
+
+
+def scatter_add_library(idx, vals, size):
+    """One index_add_, K3's yardstick (never used by the port), with what
+    the function needs around it: the batch-flattened indices and a fresh
+    zeroed output; float atomics, so not repeatable. idx [B,M] in
+    [0, size), vals [B,M,C] -> [B,size,C]."""
+    b, m, c = vals.shape
+    flat = (idx + size * torch.arange(b, device=idx.device)[:, None]
+            ).reshape(-1)
+    out = torch.zeros((b * size, c), device=vals.device, dtype=vals.dtype)
+    return out.index_add_(0, flat, vals.reshape(b * m, c)).reshape(b, size,
+                                                                   c)
+
+
+# B2 at the weight shapes of the training updates, as (B, H, W, Cin, Cout,
+# k, x): LIFFireNet at configs/train_SNN.yml (head 2 -> 32 on event counts,
+# cells 32 -> 32 and the prediction 32 -> 2 on spikes), and the same-conv
+# weights of the SpikingRecEVFlowNet update at B 8, 128 x 128 (recurrent
+# 64@64x64 .. 512@8x8, where 512@8x8 is also the residual blocks'
+# feedforward shape; the decoders 1024 -> 256 .. 130 -> 32, whose last 2
+# input channels are the upsampled flow, dense; the k 1 heads)
+B2_FIRENET = ((8, 128, 128, 2, 32, 3, "counts"),
+              (8, 128, 128, 32, 32, 3, "spikes"),
+              (8, 128, 128, 32, 2, 1, "spikes"))
+B2_UNET = ((8, 64, 64, 64, 64, 3, "spikes"),
+           (8, 32, 32, 128, 128, 3, "spikes"),
+           (8, 16, 16, 256, 256, 3, "spikes"),
+           (8, 8, 8, 512, 512, 3, "spikes"),
+           (8, 16, 16, 1024, 256, 3, "spikes"),
+           (8, 32, 32, 514, 128, 3, "flow"),
+           (8, 64, 64, 258, 64, 3, "flow"),
+           (8, 128, 128, 130, 32, 3, "flow"),
+           (8, 16, 16, 256, 2, 1, "spikes"),
+           (8, 32, 32, 128, 2, 1, "spikes"),
+           (8, 64, 64, 64, 2, 1, "spikes"))
+
+
+def _b2_x(inp, shape, kind):
+    if kind == "counts":
+        return inp.counts(shape)
+    if kind == "randn":
+        return inp.normal(shape)
+    x = inp.spikes(shape)
+    if kind == "flow":  # a decoder's input: spikes and 2 flow channels
+        x[..., -2:] = inp.normal(shape[:3] + (2,), 0.5)
+    return x
+
+
+def kernels_dw(inp, out):
+    """B2 at the FireNet and U-Net training shapes and at one dense randn
+    FireNet shape: within SUM_RTOL of its plain version, run twice and
+    bitwise equal, and no further from the float64 sum than the plain
+    version at the randn shape; device ms per call of the kernel and of
+    cuDNN's wgrad (TF32 off), the plain version's one-call time, rates and
+    share of the bound."""
     from event_flow_tpu_torch.ops.conv import conv2d_dw_kernel, conv2d_dw_plain
+
+    for b, h, w, cin, cout, k, kind in (B2_FIRENET
+                                        + ((8, 128, 128, 32, 32, 3, "randn"),)
+                                        + B2_UNET):
+        x = _b2_x(inp, (b, h, w, cin), kind)
+        g = inp.normal((b, h, w, cout), 1e-3)
+        got = conv2d_dw_kernel(x, g, k)
+        ref = conv2d_dw_plain(x, g, k)
+        label = f"B2 conv2d_dw {b}x{h}x{w} {cin}->{cout} k={k} {kind}"
+        err = check_sum(got, ref, label)
+        if not torch.equal(got, conv2d_dw_kernel(x, g, k)):
+            fail(f"{label}: two runs differ")
+        r64 = conv2d_dw_plain(x.double(), g.double(), k)
+        e64 = (float((got - r64).abs().max()), float((ref - r64).abs().max()))
+        if kind == "randn" and not e64[0] <= e64[1]:
+            fail(f"{label}: {e64[0]} from float64, plain {e64[1]}")
+        d_k, src_k = device_ms(lambda: conv2d_dw_kernel(x, g, k))
+        d_l, src_l = device_ms(lambda: conv2d_dw_library(x, g, k))
+        t_p = timed(lambda: conv2d_dw_plain(x, g, k), reps=5)
+        npix = b * h * w
+        nbytes = 4 * (npix * (cin + cout) + cout * cin * k * k)
+        flop = 2 * npix * cout * cin * k * k
+        b_ms, b_by = least_ms(nbytes, flop)
+        print(f"[kernels] {label}: max|err| {err:.3g} (max|dw| "
+              f"{float(ref.abs().max()):.3g}; against float64: kernel "
+              f"{e64[0]:.3g}, plain {e64[1]:.3g}), repeatable; kernel device "
+              f"{d_k:.4f} ms/call [{src_k}] ({_rates(nbytes, flop, d_k)}, "
+              f"{b_ms / d_k:.3f} of its bound {b_ms:.4f} ms, {b_by}); cuDNN "
+              f"wgrad device {d_l:.4f} [{src_l}]"
+              + (" FASTER than B2" if d_l < d_k else "")
+              + f"; plain {t_p:.4f} ms one call")
+        timing = None
+        if (cin, cout, kind) == (32, 32, "spikes"):
+            timing = (timed(lambda: conv2d_dw_kernel(x, g, k)), t_p,
+                      timed(lambda: conv2d_dw_library(x, g, k)), nbytes, flop)
+        _record(out, "conv2d_dw", err, timing)
+
+
+def kernels_backward(inp, out):
+    """B4 after a feedforward and a recurrent K2 forward at the recipe's
+    shape (with its device time per call), and B4 for every surrogate and
+    reset at a small shape."""
     from event_flow_tpu_torch.ops.fused_lif import (
         fused_conv_lif, fused_conv_lif_rec, fused_lif_bwd_kernel,
         fused_lif_bwd_plain)
 
     c, shape = 32, (8, 128, 128)
-    # B2: head (Cin 2 -> 32, k 3), cells (32 -> 32, k 3), pred (32 -> 2, k 1)
-    for cin, cout, k in ((2, c, 3), (c, c, 3), (c, 2, 1)):
-        x = inp.counts(shape + (cin,)) if cin == 2 else inp.spikes(shape + (cin,))
-        g = inp.normal(shape + (cout,), 1e-3)
-        got = conv2d_dw_kernel(x, g, k)
-        ref = conv2d_dw_plain(x, g, k)
-        label = f"B2 conv2d_dw 8x128x128 {cin}->{cout} k={k}"
-        err = check_sum(got, ref, label)
-        if not torch.equal(got, conv2d_dw_kernel(x, g, k)):
-            fail(f"{label}: two runs differ")
-        t_k = timed(lambda: conv2d_dw_kernel(x, g, k))
-        t_p = timed(lambda: conv2d_dw_plain(x, g, k))
-        print(f"[kernels] {label}: max|err| {err:.3g} (max|dw| "
-              f"{float(ref.abs().max()):.3g}), repeatable, kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms")
-        _record(out, "conv2d_dw", err, *((t_k, t_p) if cin == cout else ()))
 
     def check_b4(args, label, time_it):
         got = fused_lif_bwd_kernel(*args)
@@ -485,11 +609,25 @@ def kernels_backward(inp, out):
         again = fused_lif_bwd_kernel(*args)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"{label}: two runs differ")
-        t = (timed(lambda: fused_lif_bwd_kernel(*args)),
-             timed(lambda: fused_lif_bwd_plain(*args))) if time_it else ()
-        print(f"[kernels] {label}: max|err| {err:.3g}, repeatable"
-              + (f", kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms" if t else ""))
-        _record(out, "fused_lif_bwd", err, *t)
+        line = f"[kernels] {label}: max|err| {err:.3g}, repeatable"
+        timing = None
+        if time_it:
+            t_k = timed(lambda: fused_lif_bwd_kernel(*args))
+            t_p = timed(lambda: fused_lif_bwd_plain(*args))
+            d_k, src_k = device_ms(lambda: fused_lif_bwd_kernel(*args))
+            # v, z, v', g_v, g_z read, g_cur, g_vin written; about 30
+            # operations per element (csrc/fused_lif_bwd.cu)
+            nbytes = 7 * 4 * args[0].numel()
+            flop = 30 * args[0].numel()
+            b_ms = least_ms(nbytes, flop)[0]
+            line += (f", kernel {t_k:.4f} ms one call, device {d_k:.4f} "
+                     f"ms/call [{src_k}] ({_rates(nbytes, flop, d_k)}, "
+                     f"{b_ms / d_k:.3f} of its bound {b_ms:.4f} ms), plain "
+                     f"{t_p:.4f} ms one call; no one PyTorch call computes it")
+            # no one PyTorch call computes the LIF backward
+            timing = (t_k, t_p, None, nbytes, flop)
+        print(line)
+        _record(out, "fused_lif_bwd", err, timing)
 
     for rec in (False, True):
         for hard in (True, False):
@@ -551,9 +689,23 @@ def kernels_scatter(inp, out):
             fail(f"{label}: float channels beyond rtol {SCATTER_RTOL}")
         t_k = timed(lambda: scatter_add_kernel(idx, vals, size))
         t_p = timed(lambda: scatter_add_plain(idx, vals, size))
+        t_l = timed(lambda: scatter_add_library(idx, vals, size))
+        # every device event of a call on both sides: K3's index
+        # conversion, zero fills and scale pass, the yardstick's index
+        # flattening, zero fill and index_add_
+        d_k, src_k = device_ms(lambda: scatter_add_kernel(idx, vals, size))
+        d_l, src_l = device_ms(lambda: scatter_add_library(idx, vals, size))
+        # int64 indices and the values read, the output written
+        nbytes = 8 * b * m + 4 * b * m * ch + 4 * b * size * ch
+        flop = b * m * ch
+        b_ms = least_ms(nbytes, flop)[0]
         print(f"[kernels] {label}: counts exact, repeatable, max|err| "
-              f"{err:.3g}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-        _record(out, "scatter_add", err, *((t_k, t_p) if ch == 16 else ()))
+              f"{err:.3g}, kernel {t_k:.4f} ms one call, device {d_k:.4f} "
+              f"ms/call [{src_k}] ({b_ms / d_k:.3f} of its bound "
+              f"{b_ms:.4f} ms), plain {t_p:.4f} ms; index_add_ {t_l:.4f} ms "
+              f"one call, device {d_l:.4f} [{src_l}]")
+        _record(out, "scatter_add", err,
+                ch == 16 and (t_k, t_p, t_l, nbytes, flop))
 
 
 def phase_kernels():
@@ -561,6 +713,7 @@ def phase_kernels():
     out = {}
     kernels_forward(inp, out)
     kernels_unet(inp, out)
+    kernels_dw(inp, out)
     kernels_backward(inp, out)
     kernels_scatter(inp, out)
     return out
@@ -943,7 +1096,8 @@ def main():
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[k],
                 "max_abs_err": measured[k]["max_abs_err"],
-                "ms": measured[k]["ms"], "plain_ms": measured[k]["plain_ms"]}
+                **{key: measured[k][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
                for k, src, rep in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

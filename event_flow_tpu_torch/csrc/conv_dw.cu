@@ -1,212 +1,511 @@
-// B2: weight gradient of the same-padded stride-1 NHWC convolution, FP32,
-// for sm_90a.
+// B2: weight gradient of the same-padded stride-1 NHWC convolution, FP32
+// results from Hopper's tensor cores in 3xTF32, for sm_90a.
 //
-//   dw2[(dy*K + dx)*Cin + ci, co] = sum_{b,i,j} x[b, i+dy-p, j+dx-p, ci]
-//                                               * g[b, i, j, co]
+//   dw[co, ci, dy, dx] = sum_{b,i,j} x[b, i+dy-p, j+dx-p, ci] * g[b, i, j, co]
 //
 // Replaces event_flow_tpu/ops/conv_pallas.py::_conv_dw (_dw_kernel), which
-// builds the im2col matrix of x in device memory and carries the sum over
-// M = B*H*W pixels from one grid step to the next in M-chunks of 4096. On
-// the H100 blocks run in no order and nothing carries between them, so the
-// sum over M is split: each block owns a chunk of TILES_PER_CHUNK output
-// tiles of 8 x 32 pixels, stages for each tile the x tile with its (K-1)
-// halo (CI = 8 input channels per block, zero outside the image) and the
-// matching g tile (up to CO output channels) in static shared memory, and
-// keeps its partial [K*K*CI, CO] sum in registers. The partials go to a
-// [chunks, K*K*Cin, Cout] scratch; a second launch sums them over the
-// chunks in a fixed order and a fixed tree. No float atomics: the result
-// is bitwise the same from run to run, as the Pallas kernel's is.
+// multiplies an im2col matrix of x by g and carries the sum over the B*H*W
+// pixels from one grid step to the next.
+//
+// GEMM view: M = rows r = (dy*K + dx)*cb + ci over a block's cb input
+// channels, N = output channels, K = pixels. No im2col matrix exists: row
+// r of the A operand at pixel p is the shared-memory halo tile of x read
+// at p shifted by (dy, dx), so each lane keeps the halo offset of its rows
+// in registers and the pixel only moves a base pointer. A block owns an
+// output tile of K*K*CB rows (CB = 32 input channels, 8 at K = 5) by 32
+// output channels (8 where Cout <= 8) and walks a chunk of pixel tiles of
+// 128 pixels (32 x 4, 16 x 8 or 8 x 16 after the image's width): for each
+// tile it stages the halo tile of its channels and the g tile with
+// cp.async (16 bytes where the channel count is a multiple of 4, 8 where
+// it is even, else 4; zero-filled outside the image and past Cin and
+// Cout) into one of two buffers, so that the next tile loads while this
+// one multiplies. Both tiles are pixel-major with channels innermost; the
+// pixel stride is 8 or 24 mod 32 floats, so the 4 pixels x 8 rows (or
+// columns) of a fragment load fall on 32 distinct banks. Eight consecutive
+// pixels of one tile row are one k8 step of mma.sync.m16n8k8. Warps split
+// the rows (3 m16 tiles each) and, where the rows are few (the head's 2
+// input channels, the 1 x 1 heads), the pixels of a tile as well.
+//
+// Precision, as K1 (conv_tile.cuh): operands split as hi = tf32(a), lo =
+// tf32(a - hi), each product taken as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
+// into a fresh fragment per k8 step that is added to the FP32 accumulator
+// on the CUDA cores (the tensor cores add by truncation). Where every x of
+// a staged tile is already a TF32 value (spikes, event counts: the
+// training cells' inputs), x's lo part is zero and its product is skipped,
+// so such a tile takes two MMAs per product; the test reads the tile once.
+//
+// Work split and the fixed-order sum. The pixels are split into chunks
+// only where the output tiles leave SMs idle, into enough chunks for about
+// two blocks per SM: at the FireNet shapes (one output tile) 256 chunks,
+// at the U-Net's 512 -> 512 on 8 x 8 (256 tiles) none. A block's warps that
+// split the pixels add their parts in shared memory in warp order, then
+// the block writes its tile in OIHW order, one contiguous run of K*K*cb
+// floats per output channel, to the result or, with several chunks, to its
+// chunk's slice of the scratch; a second launch adds the chunks in a fixed
+// order. No float atomics: the result is bitwise the same from run to run.
+// The scratch is chunks x the output: 9.4 MB at 32 -> 32 (a quarter of x
+// and g); at the U-Net's deep shapes the output alone outweighs x and g.
 //
 // What bounds it: at the training recipe (8 x 128 x 128, 32 -> 32, k = 3)
-// one dw is 2.4 GFLOP against about 34 MB read, so in FP32 on CUDA cores
-// it is bound by arithmetic; the inner loop does about one shared-memory
-// load per FMA (the x value is a broadcast across the warp, the g value is
-// reused for the thread's K*K*CI*CO/256 accumulators), which caps it at a
-// fraction of the FP32 peak. Tensor cores are later work.
+// one call must read x and g once, 33.6 MB, 10.0 us at 3.35 TB/s; its
+// 2.42 GFLOP take 4.9 us at the TF32 peak. On the card a call takes 7x
+// the bytes' bound (chip_smoke.py; PERF.md): each MMA pass costs time (a
+// dense x tile, three passes, takes about 14 us longer than a spike tile,
+// two), and so does the per-step path around it (fragment loads, splits,
+// FP32 adds) with only 12 warps per SM to hide its latency. A variant
+// with wgmma (g pre-split in shared memory as B) was no faster.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include <algorithm>
+
+#include "conv_tile.cuh"
 
 namespace {
 
-constexpr int TH = 8;        // tile rows
-constexpr int TW = 32;       // tile columns
-constexpr int NT = TH * TW;  // threads per block = pixels per tile
-constexpr int CI = 8;        // input channels per block
-constexpr int TILES_PER_CHUNK = 4;
+using evf::aligned;
+using evf::cp16;
+using evf::cp4;
+using evf::mma;
+using evf::split;
 
-template <int K, int CO>
-struct __align__(16) DwTile {
-  float in[CI][TH + K - 1][TW + K - 1];  // x tile with halo, channel-major
-  float g[NT][CO];                       // g tile, pixel-major
+constexpr int PIX = 128;      // pixels per tile
+constexpr int MW = 3;         // m16 tiles per warp
+constexpr int MAX_WARPS = 8;
+constexpr int SUM_THREADS = 256;
+
+// cp.async of 8 bytes, zero-filled where !ok
+__device__ __forceinline__ void cp8(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   evf::smem_addr(dst)),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+
+// one cp.async of `step` floats (4, 2 or 1)
+__device__ __forceinline__ void cp(float* dst, const float* src, bool ok,
+                                   int step) {
+  if (step == 4)
+    cp16(dst, src, ok);
+  else if (step == 2)
+    cp8(dst, src, ok);
+  else
+    cp4(dst, src, ok);
+}
+
+template <int K>
+__host__ __device__ constexpr int cblock() { return K == 5 ? 8 : 32; }
+
+// pixel stride of the halo tile for cb channels: an odd multiple of 8
+// floats (8 or 24 mod 32), so that 4 pixels x 8 channels of a fragment
+// load hit 32 banks
+__host__ __device__ inline int halo_stride(int cb) {
+  int cs = (cb + 7) & ~7;
+  if (cs % 32 == 0 || cs % 32 == 16) cs += 8;
+  return cs;
+}
+
+struct Geo {
+  int H, W, Cin, Cout;
+  int tw, tw_log, th;        // pixel tile: th rows of tw pixels
+  int tiles_x, tiles_y, ntiles;
+  int per_chunk;             // tiles per block
+  int wm, wk;                // warps along the rows, along the pixels
+  int vec_x, vec_g;          // floats per copy: 4, 2 or 1
 };
 
-// grid: (chunks, ceil(Cin / CI), ceil(Cout / CO))
-template <int K, int CO>
-__global__ void __launch_bounds__(NT)
-    conv_dw_partial_kernel(const float* __restrict__ x,
-                           const float* __restrict__ g,
-                           float* __restrict__ part, int B, int H, int W,
-                           int Cin, int Cout) {
+template <int K>
+__host__ __device__ inline int stage_floats(const Geo& geo, int cs, int gs) {
+  return (geo.th + K - 1) * (geo.tw + K - 1) * cs + geo.th * geo.tw * gs;
+}
+
+// floor(a / d) for 0 <= a < 2^20 and a small divisor d, from inv = 1.f / d:
+// a + 0.5 is at least 0.5 / d away from a multiple of d, far above the
+// float product's rounding
+__device__ __forceinline__ int div_small(int a, float inv) {
+  return __float2int_rz((a + 0.5f) * inv);
+}
+
+// Copy tile `tile`'s halo of channels [c0, c0 + cb) of x and its g tile of
+// columns [co0, co0 + BN) into the buffer at s; does not wait.
+template <int K, int BN>
+__device__ __forceinline__ void stage(float* s, const float* __restrict__ x,
+                                      const float* __restrict__ g,
+                                      const Geo& geo, int tile, int c0,
+                                      int cb, int cs, int co0) {
   constexpr int P = K / 2;
-  constexpr int SH = TH + K - 1;
-  constexpr int SW = TW + K - 1;
-  constexpr int R = K * K * CI;                   // rows of the block's sum
-  constexpr int NQ = (R * CO + NT - 1) / NT;      // accumulators per thread
-  constexpr int RSTEP = NT / CO;                  // row stride between them
-  __shared__ DwTile<K, CO> s;
-
-  const int tid = threadIdx.x;
-  const int ci0 = blockIdx.y * CI;
-  const int co0 = blockIdx.z * CO;
-  const int o = tid % CO;  // this thread's output channel within the group
-
-  // shared-memory offset of each accumulator's (dy, dx, ci) tap
-  int off[NQ];
-  float acc[NQ];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int r = tid / CO + q * RSTEP;
-    const int ci = r % CI;
-    const int t = r / CI;
-    off[q] = (r < R) ? (ci * SH + t / K) * SW + t % K : 0;
-    acc[q] = 0.f;
+  constexpr int GS = evf::wstride<BN>();
+  const int sw = geo.tw + K - 1;
+  const int sh = geo.th + K - 1;
+  const int per_img = geo.tiles_x * geo.tiles_y;
+  const int b = tile / per_img;
+  const int rem = tile - b * per_img;
+  const int y0 = (rem / geo.tiles_x) * geo.th;
+  const int x0 = (rem % geo.tiles_x) * geo.tw;
+  const int step_x = geo.vec_x;
+  const int per_px = cb / step_x;  // cb is a multiple of step_x
+  const float inv_px = 1.f / per_px;
+  const float inv_sw = 1.f / sw;
+  for (int i = threadIdx.x; i < sh * sw * per_px; i += blockDim.x) {
+    const int p = div_small(i, inv_px);
+    const int ci = (i - p * per_px) * step_x;
+    const int hy = div_small(p, inv_sw);
+    const int gy = y0 + hy - P;
+    const int gx = x0 + p - hy * sw - P;
+    const bool ok = gy >= 0 && gy < geo.H && gx >= 0 && gx < geo.W;
+    const float* src =
+        ok ? x + (((size_t)b * geo.H + gy) * geo.W + gx) * geo.Cin + c0 + ci
+           : x;
+    cp(s + p * cs + ci, src, ok, step_x);
   }
-
-  const int tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + TH - 1) / TH;
-  const int ntiles = B * tiles_x * tiles_y;
-  const int first = blockIdx.x * TILES_PER_CHUNK;
-  const int last = min(ntiles, first + TILES_PER_CHUNK);
-  const float* s_in = &s.in[0][0][0];
-
-  for (int tile = first; tile < last; ++tile) {
-    const int b = tile / (tiles_x * tiles_y);
-    const int rem = tile % (tiles_x * tiles_y);
-    const int y0 = (rem / tiles_x) * TH;
-    const int x0 = (rem % tiles_x) * TW;
-    __syncthreads();  // the previous tile has been read
-    for (int i = tid; i < SH * SW * CI; i += NT) {
-      const int ci = i % CI;
-      const int p = i / CI;
-      const int gy = y0 + p / SW - P;
-      const int gx = x0 + p % SW - P;
-      const int c = ci0 + ci;
-      float val = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin)
-        val = x[(((size_t)b * H + gy) * W + gx) * Cin + c];
-      s.in[ci][p / SW][p % SW] = val;
-    }
-    for (int i = tid; i < NT * CO; i += NT) {
-      const int oo = i % CO;
-      const int p = i / CO;
-      const int gy = y0 + p / TW;
-      const int gx = x0 + p % TW;
-      const int co = co0 + oo;
-      float val = 0.f;
-      if (gy < H && gx < W && co < Cout)
-        val = g[(((size_t)b * H + gy) * W + gx) * Cout + co];
-      s.g[p][oo] = val;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int py = 0; py < TH; ++py) {
-#pragma unroll 1
-      for (int px = 0; px < TW; ++px) {
-        const float gv = s.g[py * TW + px][o];
-        const int base = py * SW + px;
-#pragma unroll
-        for (int q = 0; q < NQ; ++q)
-          acc[q] = fmaf(s_in[off[q] + base], gv, acc[q]);
-      }
-    }
-  }
-
+  // g: per_pg divides the block's 32 * w threads, so each thread keeps
+  // its columns and walks the pixels
+  float* sg = s + sh * sw * cs;
+  const int step_g = geo.vec_g;
+  const int per_pg = BN / step_g;
+  const int o = (threadIdx.x % per_pg) * step_g;
   const int co = co0 + o;
-  const size_t rows = (size_t)K * K * Cin;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int r = tid / CO + q * RSTEP;
-    const int c = ci0 + r % CI;
-    if (r < R && c < Cin && co < Cout)
-      part[((size_t)blockIdx.x * rows + (size_t)(r / CI) * Cin + c) * Cout +
-           co] = acc[q];
+  for (int p = threadIdx.x / per_pg; p < geo.th * geo.tw;
+       p += blockDim.x / per_pg) {
+    const int gy = y0 + (p >> geo.tw_log);
+    const int gx = x0 + (p & (geo.tw - 1));
+    const bool ok = gy < geo.H && gx < geo.W && co < geo.Cout;
+    const float* src =
+        ok ? g + (((size_t)b * geo.H + gy) * geo.W + gx) * geo.Cout + co : g;
+    cp(sg + p * GS + o, src, ok, step_g);
   }
 }
 
-// out[e] = sum over chunks of part[chunk, e], e < n: one block per group of
-// 32 elements; each of the 8 warps sums a fixed stride of chunks, then the
-// 8 partials are added in warp order.
-__global__ void __launch_bounds__(NT)
+// acc += this warp's share of one staged tile: k8 steps wk, wk + nwk, ...
+// of its 8-pixel steps. EXACT: every x of the tile is a TF32 value (spikes,
+// event counts), so x's lo part is zero and its product, zero, is skipped.
+template <int K, int NT, bool EXACT>
+__device__ __forceinline__ void tile_mma(float (&acc)[MW][NT][4],
+                                         const float* sx, const float* sg,
+                                         const int (&roff)[MW][2], int mt,
+                                         int steps, int wk, int nwk,
+                                         int tw_log, int cs) {
+  constexpr int GS = evf::wstride<8 * NT>();
+  const int sw = (1 << tw_log) + K - 1;
+  const int gq = (threadIdx.x & 31) >> 2;  // fragment row / column
+  const int t = threadIdx.x & 3;           // fragment k
+  for (int s = wk; s < steps; s += nwk) {
+    const int p = 8 * s + t;  // k slot t; slot t + 4 is pixel p + 4
+    const int py = p >> tw_log;
+    const float* xa = sx + (py * sw + p - (py << tw_log)) * cs;
+    const float* gb = sg + p * GS + gq;
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      split(gb[8 * n], bh[n][0], bl[n][0]);           // k t,   col gq
+      split(gb[4 * GS + 8 * n], bh[n][1], bl[n][1]);  // k t+4, col gq
+    }
+#pragma unroll
+    for (int m = 0; m < MW; ++m) {
+      if (m >= mt) continue;
+      const float a[4] = {xa[roff[m][0]],            // row gq,   k t
+                          xa[roff[m][1]],            // row gq+8, k t
+                          xa[4 * cs + roff[m][0]],   // row gq,   k t+4
+                          xa[4 * cs + roff[m][1]]};  // row gq+8, k t+4
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (EXACT)
+          ah[e] = __float_as_uint(a[e]);
+        else
+          split(a[e], ah[e], al[e]);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float part[4] = {};
+        if (!EXACT) mma(part, al, bh[n]);
+        mma(part, ah, bl[n]);
+        mma(part, ah, bh[n]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] += part[e];
+      }
+    }
+  }
+}
+
+// grid: (chunks, ceil(Cin / CB), ceil(Cout / BN)); 32 * wm * wk threads.
+// dst: the OIHW result (one chunk) or the [chunks, Cout*Cin*K*K] scratch.
+template <int K, int NT>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
+    conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                   float* __restrict__ dst, Geo geo) {
+  constexpr int KK = K * K;
+  constexpr int CB = cblock<K>();
+  constexpr int BN = 8 * NT;
+  constexpr int GS = evf::wstride<BN>();
+  extern __shared__ __align__(16) float smem[];
+
+  const int c0 = blockIdx.y * CB;
+  const int cb = min(CB, geo.Cin - c0);
+  const int co0 = blockIdx.z * BN;
+  const int cs = halo_stride(cb);
+  const int sw = geo.tw + K - 1;
+  const int rows = KK * cb;
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp % geo.wm;
+  const int wk = warp / geo.wm;
+  const int gq = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  // m16 tiles of this warp that hold rows (warp-uniform)
+  const int mt = min(MW, (rows + 15) / 16 - wm * MW);
+
+  // halo offset of rows gq and gq + 8 of each m16 tile; a row past the
+  // block's reads row 0 and its sum is never written
+  int roff[MW][2];
+#pragma unroll
+  for (int m = 0; m < MW; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int r = (wm * MW + m) * 16 + gq + 8 * h;
+      if (r >= rows) r = 0;
+      const int tap = r / cb;
+      roff[m][h] = ((tap / K) * sw + tap % K) * cs + (r - tap * cb);
+    }
+
+  float acc[MW][NT][4];
+#pragma unroll
+  for (int m = 0; m < MW; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  const int sf = stage_floats<K>(geo, cs, GS);
+  const int halo = (geo.th + K - 1) * sw * cs;
+  const int steps = geo.th * geo.tw / 8;
+  const int first = blockIdx.x * geo.per_chunk;
+  const int last = min(geo.ntiles, first + geo.per_chunk);
+  // the halo's pad channels [cb, cs) are never copied: zero them once, so
+  // that the TF32 test below reads only values of x or zeros
+  for (int i = threadIdx.x; i < 2 * sf; i += blockDim.x) smem[i] = 0.f;
+  __syncthreads();
+  if (first < last) {
+    stage<K, BN>(smem, x, g, geo, first, c0, cb, cs, co0);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int tile = first; tile < last; ++tile) {
+    const int i = tile - first;
+    if (tile + 1 < last)
+      stage<K, BN>(smem + ((i + 1) & 1) * sf, x, g, geo, tile + 1, c0, cb,
+                   cs, co0);
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;\n" ::
+                     : "memory");
+    __syncthreads();  // tile i has landed for every thread
+    const float* sx = smem + (i & 1) * sf;
+    // is every staged x a TF32 value (its low 13 mantissa bits zero)?
+    uint32_t low = 0;
+    for (int j = threadIdx.x; j < halo; j += blockDim.x)
+      low |= __float_as_uint(sx[j]) & 0x1fffu;
+    const bool exact = !__syncthreads_or(low != 0);
+    if (mt > 0) {
+      if (exact)
+        tile_mma<K, NT, true>(acc, sx, sx + halo, roff, mt, steps, wk,
+                              geo.wk, geo.tw_log, cs);
+      else
+        tile_mma<K, NT, false>(acc, sx, sx + halo, roff, mt, steps, wk,
+                               geo.wk, geo.tw_log, cs);
+    }
+    __syncthreads();  // every thread is done with buffer i & 1
+  }
+
+  // The warps that split the pixels add their sums in warp order into
+  // s_out [column][ci * KK + tap] (row stride odd), then the block writes
+  // one contiguous OIHW run of rows floats per output channel.
+  float* s_out = smem;
+  const int rs = rows | 1;
+  for (int k = 0; k < geo.wk; ++k) {
+    if (wk == k) {
+#pragma unroll
+      for (int m = 0; m < MW; ++m) {
+        if (m >= mt) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (wm * MW + m) * 16 + gq + 8 * h;
+          if (r >= rows) continue;
+          const int tap = r / cb;
+          const int j = (r - tap * cb) * KK + tap;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float* d = s_out + (8 * n + 2 * t + e) * rs + j;
+              const float v = acc[m][n][2 * h + e];
+              *d = k == 0 ? v : *d + v;
+            }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int ncol = min(BN, geo.Cout - co0);
+  float* out = dst + (size_t)blockIdx.x * geo.Cout * geo.Cin * KK;
+  for (int i = threadIdx.x; i < ncol * rows; i += blockDim.x) {
+    const int col = i / rows;
+    const int j = i - col * rows;
+    out[((size_t)(co0 + col) * geo.Cin + c0) * KK + j] = s_out[col * rs + j];
+  }
+}
+
+// out[e] = sum over chunks of part[chunk, e], e < n, in a fixed order:
+// one block per group of 32 elements, each of the NW warps sums a fixed
+// stride of chunks, then the NW partials are added in warp order.
+__global__ void __launch_bounds__(SUM_THREADS)
     chunk_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
                      int chunks, int n) {
-  __shared__ float red[NT / 32][32];
+  constexpr int NW = SUM_THREADS / 32;
+  __shared__ float red[NW][32];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int e = blockIdx.x * 32 + lane;
   float sum = 0.f;
   if (e < n)
-    for (int c = warp; c < chunks; c += NT / 32)
-      sum += part[(size_t)c * n + e];
+    for (int c = warp; c < chunks; c += NW) sum += part[(size_t)c * n + e];
   red[warp][lane] = sum;
   __syncthreads();
   if (warp == 0 && e < n) {
     float total = 0.f;
 #pragma unroll
-    for (int w = 0; w < NT / 32; ++w) total += red[w][lane];
+    for (int w = 0; w < NW; ++w) total += red[w][lane];
     out[e] = total;
   }
 }
 
-inline int num_chunks(int B, int H, int W) {
-  const int tiles = B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-  return (tiles + TILES_PER_CHUNK - 1) / TILES_PER_CHUNK;
+struct Plan {
+  Geo geo;
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms <= 0)
+      sms = 132;
+  }
+  return sms;
 }
 
-template <int K, int CO>
-void launch(const float* x, const float* g, float* part, int B, int H, int W,
-            int Cin, int Cout, cudaStream_t st) {
-  const dim3 grid(num_chunks(B, H, W), (Cin + CI - 1) / CI,
-                  (Cout + CO - 1) / CO);
-  conv_dw_partial_kernel<K, CO><<<grid, NT, 0, st>>>(x, g, part, B, H, W,
-                                                      Cin, Cout);
+// The launch for a shape: the pixel tile after the width, the warps after
+// the rows, and the chunks of the pixel split (see the note at the top).
+template <int K, int NT>
+Plan make_plan(int B, int H, int W, int Cin, int Cout) {
+  constexpr int KK = K * K;
+  constexpr int CB = cblock<K>();
+  constexpr int BN = 8 * NT;
+  Plan pl{};
+  Geo& geo = pl.geo;
+  geo.H = H, geo.W = W, geo.Cin = Cin, geo.Cout = Cout;
+  geo.tw = W > 16 ? 32 : W > 8 ? 16 : 8;
+  geo.tw_log = geo.tw == 32 ? 5 : geo.tw == 16 ? 4 : 3;
+  geo.th = std::min(PIX / geo.tw, H);
+  geo.tiles_x = (W + geo.tw - 1) / geo.tw;
+  geo.tiles_y = (H + geo.th - 1) / geo.th;
+  geo.ntiles = B * geo.tiles_x * geo.tiles_y;
+  const int mtiles = (KK * std::min(CB, Cin) + 15) / 16;
+  geo.wm = (mtiles + MW - 1) / MW;
+  geo.wk = std::max(1, MAX_WARPS / geo.wm);
+  const int cblocks = (Cin + CB - 1) / CB;
+  const int coblocks = (Cout + BN - 1) / BN;
+  // split the pixels only where the output tiles leave SMs idle: then
+  // into enough chunks for about two blocks per SM
+  const long long out_tiles = (long long)cblocks * coblocks;
+  long long chunks = out_tiles >= num_sms()
+                         ? 1
+                         : (2LL * num_sms() + out_tiles - 1) / out_tiles;
+  if (chunks > geo.ntiles) chunks = geo.ntiles;
+  geo.per_chunk = (int)((geo.ntiles + chunks - 1) / chunks);
+  chunks = (geo.ntiles + geo.per_chunk - 1) / geo.per_chunk;
+  pl.grid = dim3((unsigned)chunks, cblocks, coblocks);
+  pl.threads = 32 * geo.wm * geo.wk;
+  const int cs = halo_stride(std::min(CB, Cin));
+  const size_t stages = 2 * (size_t)stage_floats<K>(geo, cs,
+                                                     evf::wstride<BN>());
+  const size_t out_tile = (size_t)BN * ((KK * std::min(CB, Cin)) | 1);
+  pl.smem = sizeof(float) * (stages > out_tile ? stages : out_tile);
+  return pl;
+}
+
+// floats per cp.async for rows of C floats from p
+int copy_step(const float* p, int C) {
+  if (C % 4 == 0 && aligned(p, 16)) return 4;
+  if (C % 2 == 0 && aligned(p, 8)) return 2;
+  return 1;
+}
+
+template <int K, int NT>
+int run(const float* x, const float* g, float* part, float* out, int B,
+        int H, int W, int Cin, int Cout, cudaStream_t st) {
+  Plan pl = make_plan<K, NT>(B, H, W, Cin, Cout);
+  pl.geo.vec_x = copy_step(x, Cin);
+  pl.geo.vec_g = copy_step(g, Cout);
+  const int chunks = (int)pl.grid.x;
+  auto* kernel = conv_dw_kernel<K, NT>;
+  cudaError_t err = evf::allow_smem(kernel, pl.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<pl.grid, pl.threads, pl.smem, st>>>(x, g, chunks > 1 ? part : out,
+                                               pl.geo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
+  const int n = K * K * Cin * Cout;
+  chunk_sum_kernel<<<(n + 31) / 32, SUM_THREADS, 0, st>>>(part, out, chunks,
+                                                          n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
-void launch_k(const float* x, const float* g, float* part, int B, int H,
-              int W, int Cin, int Cout, cudaStream_t st) {
-  if (Cout <= 8)
-    launch<K, 8>(x, g, part, B, H, W, Cin, Cout, st);
-  else
-    launch<K, 32>(x, g, part, B, H, W, Cin, Cout, st);
+int run_k(const float* x, const float* g, float* part, float* out, int B,
+          int H, int W, int Cin, int Cout, cudaStream_t st) {
+  if (Cout <= 8) return run<K, 1>(x, g, part, out, B, H, W, Cin, Cout, st);
+  return run<K, 4>(x, g, part, out, B, H, W, Cin, Cout, st);
+}
+
+template <int K>
+int chunks_k(int B, int H, int W, int Cin, int Cout) {
+  return (int)(Cout <= 8 ? make_plan<K, 1>(B, H, W, Cin, Cout)
+                         : make_plan<K, 4>(B, H, W, Cin, Cout)).grid.x;
+}
+
+bool valid(int B, int H, int W, int Cin, int Cout) {
+  return B > 0 && H > 0 && W > 0 && Cin > 0 && Cout > 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of chunks of the partial sums, so that the caller can allocate
-// the [chunks, K*K*Cin, Cout] scratch.
-int evf_conv_dw_chunks(int B, int H, int W) { return num_chunks(B, H, W); }
+// Chunks of the pixel split for this shape: 1 means no scratch; else the
+// caller passes a [chunks, Cout*Cin*K*K] float scratch. -1 for a shape or
+// K the kernel does not take.
+int evf_conv_dw_chunks(int B, int H, int W, int Cin, int Cout, int K) {
+  if (!valid(B, H, W, Cin, Cout)) return -1;
+  switch (K) {
+    case 1: return chunks_k<1>(B, H, W, Cin, Cout);
+    case 3: return chunks_k<3>(B, H, W, Cin, Cout);
+    case 5: return chunks_k<5>(B, H, W, Cin, Cout);
+    default: return -1;
+  }
+}
 
-// dw2 [K*K*Cin, Cout] = im2col(x)^T g for x [B,H,W,Cin], g [B,H,W,Cout];
-// part is the caller's [evf_conv_dw_chunks(B,H,W), K*K*Cin, Cout] scratch.
-// Returns the first cudaGetLastError() after the two launches.
-int evf_conv_dw(const float* x, const float* g, float* part, float* dw2,
+// dw [Cout, Cin, K, K] (OIHW) = the weight gradient of x [B,H,W,Cin] and
+// g [B,H,W,Cout]; part is the scratch of evf_conv_dw_chunks (unused where
+// it returns 1). Returns the first CUDA error of the launches, or 0.
+int evf_conv_dw(const float* x, const float* g, float* part, float* dw,
                 int B, int H, int W, int Cin, int Cout, int K, void* stream) {
+  if (!valid(B, H, W, Cin, Cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 1: launch_k<1>(x, g, part, B, H, W, Cin, Cout, st); break;
-    case 3: launch_k<3>(x, g, part, B, H, W, Cin, Cout, st); break;
-    case 5: launch_k<5>(x, g, part, B, H, W, Cin, Cout, st); break;
+    case 1: return run_k<1>(x, g, part, dw, B, H, W, Cin, Cout, st);
+    case 3: return run_k<3>(x, g, part, dw, B, H, W, Cin, Cout, st);
+    case 5: return run_k<5>(x, g, part, dw, B, H, W, Cin, Cout, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = K * K * Cin * Cout;
-  chunk_sum_kernel<<<(n + 31) / 32, NT, 0, st>>>(part, dw2,
-                                                 num_chunks(B, H, W), n);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -7,21 +7,19 @@ sequence when a slot's file runs short (``seq_num``, ``files``,
 ``new_seq``), augmentation flags redrawn per slot at rollover, windows of
 at most 10 events emptied, and padding at (-1, -1) with a validity mask.
 
-:func:`synthetic_sequences` builds exactly the sequences that
-``event_flow_tpu.data.synthetic.ensure_synthetic_dataset`` writes to disk
+:func:`synthetic_sequences` builds exactly the sequences that the JAX
+package's ``data/synthetic.py::ensure_synthetic_dataset`` writes to disk
 for an ``events``-mode config, without writing them.
 
 :class:`SyntheticWindowStream` is the training stream of
 ``train_flow.py --synthetic``: constant-velocity windows straight from
-``event_flow_tpu.data.synthetic.synthetic_window_stream``.
+:func:`.synthetic.synthetic_window_stream`.
 """
 
 import numpy as np
 
-from event_flow_tpu.data.synthetic import (constant_flow_window,
-                                          synthetic_window_stream)
-
 from .augment import draw_augment_flags
+from .synthetic import constant_flow_window, synthetic_window_stream
 
 __all__ = ["EventSequence", "ArrayEventStream", "SyntheticWindowStream",
            "synthetic_sequences"]

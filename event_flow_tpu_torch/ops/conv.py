@@ -30,11 +30,23 @@ k = 1 for the head's), about 34 MB and
 coalesced epilogue and the asynchronous 16-byte staging address.
 Deterministic: every output is a fixed sequence of MMAs.
 
-B2 source note: see ``csrc/conv_dw.cu``: the sum over the B*H*W pixels
-is split into chunks of 4 tiles, one block per chunk and group of 8 input
-channels, partial sums in a scratch from ``torch.empty``, then a second
-launch adds the chunks in a fixed order. Bound by arithmetic at the
-training recipe (2.4 GFLOP per call against about 34 MB).
+B2 source note (details in ``csrc/conv_dw.cu``): replaces the Pallas
+``_conv_dw`` (conv_pallas.py:139-185), an im2col(x)^T g matmul whose sum
+over the B*H*W pixels the TPU carries from one grid step to the next. On
+the H100 it is an implicit GEMM on the tensor cores in 3xTF32 as K1's:
+M = (tap, input channel) rows read straight from a halo tile of x, N =
+output channels, K = pixels, no im2col matrix; halo and g tiles staged
+with ``cp.async`` into two buffers, so the next tile loads while this
+one multiplies; a tile whose x is all TF32 values (spikes, event counts)
+skips the product of x's zero lo part. A block owns up to 288 x 32 of
+the output and a chunk of 128-pixel tiles; the pixels are split over
+chunks only as far as the card needs to be filled (the FireNet shapes),
+never where the output already gives enough blocks (the U-Net's), and a
+second launch adds the chunks' OIHW partials in a fixed order, so the
+result is OIHW with no copy and bitwise repeatable. Bound by bytes at
+the training recipe: 33.6 MB of x and g, 10.0 us at 3.35 TB/s (2.42
+GFLOP, 4.9 us at the TF32 peak); on the card the MMA passes set its pace
+(``PERF.md``).
 """
 
 import torch
@@ -133,18 +145,24 @@ def conv2d_dw_kernel(x, g, k):
     native.require_cuda_f32("conv2d_dw", x, g)
     b, h, wd, cin = x.shape
     cout = g.shape[3]
+    if min(b, h, wd, cin, cout) < 1 or max(x.numel(), g.numel()) >= 2 ** 31:
+        raise ValueError(f"conv2d_dw: x {tuple(x.shape)} and g "
+                         f"{tuple(g.shape)} must be nonempty and under 2^31 "
+                         "elements each")
     lib = native.library()
-    chunks = lib.evf_conv_dw_chunks(b, h, wd)
-    part = torch.empty((chunks, k * k * cin, cout), device=x.device,
-                       dtype=torch.float32)
-    dw2 = torch.empty((k * k * cin, cout), device=x.device,
-                      dtype=torch.float32)
+    chunks = lib.evf_conv_dw_chunks(b, h, wd, cin, cout, k)
+    if chunks < 1:
+        raise ValueError(f"conv2d_dw: no launch for x {tuple(x.shape)}, g "
+                         f"{tuple(g.shape)}, k {k}")
+    dw = torch.empty((cout, cin, k, k), device=x.device, dtype=torch.float32)
+    part = (torch.empty((chunks, dw.numel()), device=x.device,
+                        dtype=torch.float32) if chunks > 1 else dw)
     err = lib.evf_conv_dw(x.data_ptr(), g.data_ptr(), part.data_ptr(),
-                          dw2.data_ptr(), b, h, wd, cin, cout, k,
+                          dw.data_ptr(), b, h, wd, cin, cout, k,
                           native.stream_handle(x.device))
     native.check(err, "conv2d_dw")
     native.LAUNCHES["conv2d_dw"] += 1
-    return dw2.reshape(k, k, cin, cout).permute(3, 2, 0, 1).contiguous()
+    return dw
 
 
 def _conv(x, w):

@@ -1,4 +1,4 @@
-"""Why K1 and K2 multiply in 3xTF32 and not in one TF32 pass.
+"""Why K1, K2 and B2 multiply in 3xTF32 and not in one TF32 pass.
 
 The kernels' tensor cores take TF32 operands (10 mantissa bits). This
 file emulates on the CPU what they compute: TF32 round-to-nearest
@@ -11,16 +11,26 @@ event-count inputs times the snn-init weights U(+-sqrt(1/Cin)) for the
 cells' current, dense cotangents for K1's dx. The tolerances are those
 the card holds the kernels to: f32 atol 1e-5 on v' and y, and spikes
 that differ only where |v' - thresh| < 1e-4, at most 0.1 % of them.
+B2's weight gradient dw is emulated the same way with
+``conv2d_dw_plain`` and held to SUM_RTOL, 1e-4 of max|dw| (the card's
+tolerance for sums over all pixels, chip_smoke.py).
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from event_flow_tpu_torch.ops.conv import conv2d_same_plain
+from event_flow_tpu_torch.ops.conv import conv2d_dw_plain, conv2d_same_plain
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (needs the sys.path insert)
 
 ATOL = 1e-5
 NEAR = 1e-4
+SUM_RTOL = 1e-4
 
 
 def tf32(a):
@@ -141,3 +151,92 @@ def test_dx_of_dense_cotangents(conv, within):
     x, w = _operands("dense")
     err = float((conv(x, w).double() - conv_f64(x, w)).abs().max())
     assert (err <= ATOL) == within, err
+
+
+def dw_one_pass(x, g, k):
+    return conv2d_dw_plain(tf32(x), tf32(g), k)
+
+
+def dw_3xtf32(x, g, k):
+    (xh, xl), (gh, gl) = split(x), split(g)
+    small = conv2d_dw_plain(xl, gh, k) + conv2d_dw_plain(xh, gl, k)
+    return small + conv2d_dw_plain(xh, gh, k)
+
+
+def _dw_operands(kind, seed=0):
+    """(x, g) of B2 at the training distributions, small shapes: a cell's
+    spikes (Cin 32), the head's event counts (Cin 2), and dense randn (the
+    U-Net decoders' flow channels); g a dense cotangent of scale 1e-3."""
+    rng = np.random.default_rng(seed)
+    b, h, w = 2, 16, 16
+    if kind == "spikes":
+        x = rng.random((b, h, w, 32)) < 0.1
+    elif kind == "counts":
+        x = rng.poisson(0.3, (b, h, w, 2))
+    else:
+        x = rng.standard_normal((b, h, w, 32))
+    g = 1e-3 * rng.standard_normal((b, h, w, 32))
+    return (torch.from_numpy(x.astype(np.float32)),
+            torch.from_numpy(g.astype(np.float32)))
+
+
+def _dw_rel_err(kind, dw_fn):
+    x, g = _dw_operands(kind)
+    ref = conv2d_dw_plain(x.double(), g.double(), 3)
+    err = (dw_fn(x, g, 3).double() - ref).abs().max()
+    return float(err / ref.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["spikes", "counts", "dense"])
+def test_dw_3xtf32_within_sum_tolerance(kind):
+    """3xTF32 stays under 1e-6 of max|dw| here, as close to float64 as
+    a plain f32 sum."""
+    assert _dw_rel_err(kind, dw_3xtf32) <= SUM_RTOL
+
+
+@pytest.mark.parametrize("kind", ["spikes", "counts", "dense"])
+def test_dw_one_tf32_pass_breaks_the_sum_tolerance(kind):
+    """One pass misses by about 2e-4 to 3.3e-4 of max|dw| at all three
+    distributions, even where x is exact in TF32: g's 13 dropped bits
+    alone do it."""
+    assert _dw_rel_err(kind, dw_one_pass) > SUM_RTOL
+
+
+@pytest.mark.parametrize("kind", ["spikes", "counts"])
+def test_dw_exact_x_has_no_lo_part(kind):
+    """Spikes and event counts are TF32 values: x's lo part is zero, so
+    the kernel may skip its product and take two MMAs per product."""
+    x, _ = _dw_operands(kind)
+    assert torch.equal(split(x)[1], torch.zeros_like(x))
+    _, xd = _dw_operands("dense")
+    assert split(xd)[1].abs().max() > 0
+
+
+@pytest.mark.parametrize("k,cin,cout", [(3, 5, 7), (1, 4, 2), (5, 3, 3)])
+def test_dw_library_yardstick_is_the_same_function(k, cin, cout):
+    """chip_smoke.py times B2 against cuDNN's weight gradient (the
+    weight-only aten.convolution_backward of conv2d_dw_library); on the
+    CPU it computes what conv2d_dw_plain computes, OIHW."""
+    rng = np.random.default_rng(k)
+    x, g = (torch.from_numpy(rng.standard_normal((2, 9, 11, c))
+                             .astype(np.float32)) for c in (cin, cout))
+    got = chip_smoke.conv2d_dw_library(x, g, k)
+    assert got.shape == (cout, cin, k, k)
+    torch.testing.assert_close(got, conv2d_dw_plain(x, g, k), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,m,size,c", [(1, 50, 12, 1), (3, 40, 9, 4)])
+def test_scatter_library_yardstick_is_the_same_function(b, m, size, c):
+    """chip_smoke.py times K3 against one index_add_ with its index
+    flattening and fresh output (scatter_add_library); on the CPU it
+    computes what scatter_add_plain computes."""
+    from event_flow_tpu_torch.ops.scatter import scatter_add_plain
+
+    rng = np.random.default_rng(size)
+    idx = torch.from_numpy(rng.integers(0, size, (b, m)))
+    vals = torch.from_numpy(rng.standard_normal((b, m, c)).astype(np.float32))
+    got = chip_smoke.scatter_add_library(idx, vals, size)
+    assert got.shape == (b, size, c)
+    torch.testing.assert_close(got, scatter_add_plain(idx, vals, size),
+                               atol=1e-6, rtol=1e-6)
