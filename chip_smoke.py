@@ -37,10 +37,14 @@ Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
 with spike and dense randn inputs; B2 at every weight shape of the
 FireNet and U-Net training updates, against float64 as well, with its
-device time beside cuDNN's weight gradient; and gives each kernel's
-bound (bytes at 3.35 TB/s or operations at the TF32 peak) and, where one
-PyTorch call computes the same function, that call's time (K1: cuDNN's
-conv; B2: cuDNN's weight gradient; K3: index_add_).
+device time beside cuDNN's weight gradient; B4 at the U-Net residual
+blocks' 512 channels; K3 at its five main-path shapes, with its device
+time split by device operation (one per call) beside its yardstick's;
+and gives each kernel's bound (bytes at 3.35 TB/s or operations at the
+TF32 peak) and, where one PyTorch call computes the same function, that
+call's time (K1: cuDNN's conv; B2: cuDNN's weight gradient; K3:
+index_add_). The process's TF32 flags stay at PyTorch's defaults, as a
+user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -60,8 +64,8 @@ import torch
 ATOL = 1e-5          # f32 values: the summation order differs
 NEAR = 1e-4          # a spike may flip only where |v' - thresh| < NEAR
 MAX_FLIP_SHARE = 1e-3
-SCATTER_RTOL = 1e-5  # the float sum of the plain version vs K3's exact
-                     # fixed-point sum rounded once
+SCATTER_RTOL = 1e-5  # K3's exact fixed-point sum rounded once vs the
+                     # float64 sum
 SUM_RTOL = 1e-4      # sums over all B*H*W pixels (dw, leak/thresh
                      # gradients), relative to their largest magnitude:
                      # f32 sums of up to 131 072 products in another order
@@ -138,13 +142,12 @@ def events_ms(fn, n=REPS):
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, kernel=None, n=REPS, tries=2):
-    """Device milliseconds per call of ``fn()`` over ``n`` calls and where
-    they come from. From torch.profiler: the mean of the events whose name
-    contains ``kernel`` (one per call), or every device event of the calls
-    (copies and fills included) over ``n`` when it is None. A profiler
-    session can come back without device events; after ``tries`` such
-    sessions the time is ``events_ms`` instead, an upper bound."""
+def device_split(fn, n=REPS, tries=2):
+    """torch.profiler over ``n`` calls of ``fn()``: {device operation name:
+    (ms per call, operations per call)}, every kernel, copy and fill; None
+    when ``tries`` sessions see no device events. A session can miss a
+    few of its events, so each name's time per call is the mean of its
+    events times its operations per call, rounded from their count."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -155,12 +158,32 @@ def device_ms(fn, kernel=None, n=REPS, tries=2):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (kernel is None or kernel in e.name)]
-        if times and sum(times) > 0:
-            return (sum(times) / 1e3 / (n if kernel is None else len(times)),
-                    "profiler")
+        seen = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us, count = seen.get(e.name, (0.0, 0))
+                seen[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+        split = {}
+        for name, (us, count) in seen.items():
+            ops = max(1, round(count / n))
+            split[name] = (us / count / 1e3 * ops, ops)
+        if split and sum(ms for ms, _ in split.values()) > 0:
+            return split
+    return None
+
+
+def device_ms(fn, kernel=None, n=REPS, tries=2):
+    """Device milliseconds per call of ``fn()`` over ``n`` calls and where
+    they come from: from :func:`device_split`, the operations whose name
+    contains ``kernel``, or every device operation of the calls (copies
+    and fills included) when it is None; after ``tries`` profiler sessions
+    without device events, ``events_ms`` instead, an upper bound."""
+    split = device_split(fn, n, tries)
+    if split:
+        ms = sum(t for name, (t, _) in split.items()
+                 if kernel is None or kernel in name)
+        if ms > 0:
+            return ms, "profiler"
     return events_ms(fn, n), "events"
 
 
@@ -585,15 +608,16 @@ def kernels_dw(inp, out):
 
 def kernels_backward(inp, out):
     """B4 after a feedforward and a recurrent K2 forward at the recipe's
-    shape (with its device time per call), and B4 for every surrogate and
-    reset at a small shape."""
+    shape (with its device time per call), at the U-Net residual blocks'
+    512 channels (timed too), and for every surrogate and reset at a small
+    shape."""
     from event_flow_tpu_torch.ops.fused_lif import (
         fused_conv_lif, fused_conv_lif_rec, fused_lif_bwd_kernel,
         fused_lif_bwd_plain)
 
     c, shape = 32, (8, 128, 128)
 
-    def check_b4(args, label, time_it):
+    def check_b4(args, label, time_it, main=True):
         got = fused_lif_bwd_kernel(*args)
         ref = fused_lif_bwd_plain(*args)
         err = 0.0
@@ -627,7 +651,7 @@ def kernels_backward(inp, out):
             # no one PyTorch call computes the LIF backward
             timing = (t_k, t_p, None, nbytes, flop)
         print(line)
-        _record(out, "fused_lif_bwd", err, timing)
+        _record(out, "fused_lif_bwd", err, timing if main else None)
 
     for rec in (False, True):
         for hard in (True, False):
@@ -647,6 +671,17 @@ def kernels_backward(inp, out):
             check_b4(args, f"B4 fused_lif_bwd 8x128x128x{c} after "
                      f"{'rec' if rec else 'ff'} {'hard' if hard else 'soft'}",
                      time_it=hard)
+    # the U-Net's residual blocks: 512-channel stride-1 cells at 8 x 8
+    # (B 8, 128 x 128 input), above 256 channels
+    wide = (8, 8, 8, 512)
+    for hard in (True, False):
+        leak, thresh = inp.neuron(wide[-1])
+        args = (thresh + 0.3 * inp.normal(wide), inp.spikes(wide),
+                thresh + 0.3 * inp.normal(wide), leak, thresh,
+                inp.normal(wide, 1e-3), inp.normal(wide, 1e-3), hard,
+                "arctanspike", 10.0)
+        check_b4(args, f"B4 fused_lif_bwd 8x8x8x512 (residual block) "
+                 f"{'hard' if hard else 'soft'}", time_it=hard, main=False)
     small = (2, 32, 32, c)
     for activation, width in (("arctanspike", 10.0), ("superspike", 10.0),
                               ("trianglespike", 1.0), ("mgspike", 0.5)):
@@ -660,52 +695,131 @@ def kernels_backward(inp, out):
                      f"{'hard' if hard else 'soft'}", time_it=False)
 
 
+# K3 at every shape the main paths give it, as (B, M, size, C, count
+# channels): serving (the window's encoding and the metrics' warps, M 15000
+# into 180 x 240), and training (the loss's warps, M 10 000 into the
+# 130 x 130 padded grid, C 16; the per-event flow gather's backward, C 2,
+# and the encoding of all B*T windows, C 4, both M 1000 into 128 x 128)
+K3_SHAPES = ((1, 15000, 180 * 240, 1, 1), (1, 15000, 180 * 240, 4, 2),
+             (8, 10000, 130 * 130, 16, 4), (80, 1000, 128 * 128, 2, 0),
+             (80, 1000, 128 * 128, 4, 2))
+
+
+def _split_line(split):
+    return "; ".join(f"{name[:60]} {ms:.4f} ms x{ops}" for name, (ms, ops)
+                     in sorted(split.items(), key=lambda kv: -kv[1][0]))
+
+
+def k3_inputs(inp, b, m, size, ch, n_counts):
+    """idx [B,M] int32 (as the paths pass it) with 1000 events of each row
+    on five cells, vals [B,M,C]: n_counts channels of 0/1 counts, the rest
+    uniform [0, 1)."""
+    idx = torch.randint(0, size, (b, m), generator=inp.gen,
+                        dtype=torch.int32)
+    idx[:, :1000] = (torch.arange(1000) % 5).to(torch.int32)
+    counts = (torch.rand((b, m, n_counts), generator=inp.gen) < 0.5).float()
+    vals = torch.cat([counts, torch.rand((b, m, ch - n_counts),
+                                         generator=inp.gen)], -1)
+    return idx.to(inp.dev), vals.to(inp.dev)
+
+
+def k3_times(inp, shapes=K3_SHAPES):
+    """Device time of K3 and of its index_add_ yardstick at each shape,
+    split by device operation, with the byte bound; measures only (it also
+    runs on a K3 of another design). Returns {shape: (K3 ms, K3 operations
+    per call, yardstick ms, bound ms)}, None where not measured."""
+    from event_flow_tpu_torch.ops.scatter import scatter_add_kernel
+
+    out = {}
+    for b, m, size, ch, n_counts in shapes:
+        idx, vals = k3_inputs(inp, b, m, size, ch, n_counts)
+        label = f"K3 scatter_add B={b} M={m} C={ch} size={size}"
+        # int32 indices and the values read, the output written
+        b_ms = least_ms(4 * b * m + 4 * b * m * ch + 4 * b * size * ch,
+                        b * m * ch)[0]
+        res = []
+        for who, fn in (("K3", lambda: scatter_add_kernel(idx, vals, size)),
+                        ("index_add_", lambda: scatter_add_library(
+                            idx, vals, size))):
+            split = device_split(fn)
+            if split is None:
+                print(f"[kernels] {label} {who}: split not measured (the "
+                      f"profiler saw no device events); device "
+                      f"{events_ms(fn):.4f} ms/call [events]")
+                res += [None, None]
+                continue
+            ms = sum(t for t, _ in split.values())
+            ops = sum(n for _, n in split.values())
+            print(f"[kernels] {label} {who}: device {ms:.4f} ms/call "
+                  f"[profiler], {ops} device operations per call "
+                  f"({b_ms / ms:.3f} of the bound {b_ms:.4f} ms): "
+                  f"{_split_line(split)}")
+            res += [ms, ops]
+        out[(b, m, size, ch)] = (res[0], res[1], res[2], b_ms)
+    return out
+
+
 def kernels_scatter(inp, out):
-    """K3 at the serving shapes (M 15000 into 180 x 240, C 1 and 4) and at
-    the training loss's (B 8, M 10 000 into the 130 x 130 padded grid,
-    C 16); run twice, bitwise equal."""
+    """K3 at every main-path shape: count channels exact, run twice and
+    bitwise equal, the float channels within SCATTER_RTOL of the float64
+    sum; one device operation per call; its device time split by
+    operation beside the index_add_ yardstick's; and a NaN value, which
+    must come out NaN in its cell, and indices outside [0, size), which
+    must be dropped."""
     from event_flow_tpu_torch.ops.scatter import (scatter_add_kernel,
                                                   scatter_add_plain)
 
-    for b, m, size, ch, n_counts in ((1, 15000, 180 * 240, 1, 1),
-                                     (1, 15000, 180 * 240, 4, 2),
-                                     (8, 10000, 130 * 130, 16, 4)):
-        idx = torch.randint(0, size, (b, m), generator=inp.gen)
-        idx[:, :1000] = torch.arange(1000) % 5  # duplicates on five cells
-        counts = (torch.rand((b, m, n_counts), generator=inp.gen)
-                  < 0.5).float()
-        vals = torch.cat([counts, torch.rand((b, m, ch - n_counts),
-                                             generator=inp.gen)], -1)
-        idx, vals = idx.to(inp.dev), vals.to(inp.dev)
+    times = k3_times(inp)
+    for b, m, size, ch, n_counts in K3_SHAPES:
+        idx, vals = k3_inputs(inp, b, m, size, ch, n_counts)
         got = scatter_add_kernel(idx, vals, size)
         ref = scatter_add_plain(idx, vals, size)
+        ref64 = scatter_add_plain(idx, vals.double(), size)
         label = f"K3 scatter_add B={b} M={m} C={ch} size={size}"
         if not torch.equal(got[..., :n_counts], ref[..., :n_counts]):
             fail(f"{label}: count channels differ")
         if not torch.equal(got, scatter_add_kernel(idx, vals, size)):
             fail(f"{label}: two runs differ")
         err = float((got - ref).abs().max())
-        if not torch.allclose(got, ref, rtol=SCATTER_RTOL, atol=ATOL):
-            fail(f"{label}: float channels beyond rtol {SCATTER_RTOL}")
+        err64 = float((got.double() - ref64).abs().max())
+        if not torch.allclose(got.double(), ref64, rtol=SCATTER_RTOL,
+                              atol=ATOL):
+            fail(f"{label}: beyond rtol {SCATTER_RTOL} of the float64 sum")
+        d_k, ops, d_l, b_ms = times[(b, m, size, ch)]
+        if ops is not None and ops != 1:
+            fail(f"{label}: {ops} device operations per call, expected 1")
         t_k = timed(lambda: scatter_add_kernel(idx, vals, size))
         t_p = timed(lambda: scatter_add_plain(idx, vals, size))
         t_l = timed(lambda: scatter_add_library(idx, vals, size))
-        # every device event of a call on both sides: K3's index
-        # conversion, zero fills and scale pass, the yardstick's index
-        # flattening, zero fill and index_add_
-        d_k, src_k = device_ms(lambda: scatter_add_kernel(idx, vals, size))
-        d_l, src_l = device_ms(lambda: scatter_add_library(idx, vals, size))
-        # int64 indices and the values read, the output written
-        nbytes = 8 * b * m + 4 * b * m * ch + 4 * b * size * ch
-        flop = b * m * ch
-        b_ms = least_ms(nbytes, flop)[0]
         print(f"[kernels] {label}: counts exact, repeatable, max|err| "
-              f"{err:.3g}, kernel {t_k:.4f} ms one call, device {d_k:.4f} "
-              f"ms/call [{src_k}] ({b_ms / d_k:.3f} of its bound "
-              f"{b_ms:.4f} ms), plain {t_p:.4f} ms; index_add_ {t_l:.4f} ms "
-              f"one call, device {d_l:.4f} [{src_l}]")
+              f"{err:.3g} (float64: {err64:.3g}), kernel {t_k:.4f} ms one "
+              f"call, plain {t_p:.4f} ms; index_add_ {t_l:.4f} ms one call"
+              + (" SLOWER than index_add_ in device time"
+                 if d_k is not None and d_l is not None and d_k > d_l
+                 else ""))
         _record(out, "scatter_add", err,
-                ch == 16 and (t_k, t_p, t_l, nbytes, flop))
+                ch == 16 and (t_k, t_p, t_l, 4 * b * m * (1 + ch)
+                              + 4 * b * size * ch, b * m * ch))
+
+    # a NaN comes out NaN in its cell; out-of-range indices are dropped
+    b, m, size, ch, n_counts = K3_SHAPES[2]  # the training loss's
+    idx, vals = k3_inputs(inp, b, m, size, ch, n_counts)
+    vals[3, 17, 5] = float("nan")
+    got = scatter_add_kernel(idx, vals, size)
+    if not torch.isnan(got[3, int(idx[3, 17]), 5]):
+        fail("K3: a NaN value did not come out NaN in its cell")
+    nan_cells = int(torch.isnan(got).any(-1).sum())
+    bad = idx.clone()
+    bad[:, ::3] = torch.where(bad[:, ::3] % 2 == 0, -1 - bad[:, ::3],
+                              size + bad[:, ::3])
+    vals = vals.nan_to_num()
+    got = scatter_add_kernel(bad, vals, size)
+    ref = scatter_add_plain(bad, vals.double(), size)  # drops them too
+    if not torch.allclose(got.double(), ref, rtol=SCATTER_RTOL, atol=ATOL):
+        fail("K3: indices outside [0, size) were not dropped")
+    print(f"[kernels] K3 NaN in one value: NaN in its cell, {nan_cells} "
+          f"cells NaN in all (its tile); {bad[:, ::3].numel()} indices "
+          "outside [0, size) dropped")
 
 
 def phase_kernels():
@@ -765,6 +879,11 @@ def phase_slice():
     print(f"[slice] gpu {n / gpu['seconds']:.2f} windows/s, "
           f"{1e3 * gpu['seconds'] / n:.3f} ms/window; cpu plain "
           f"{n / cpu['seconds']:.2f} windows/s; max rel gap {max(gaps):.3g}")
+    wall_us, events = window_events(config, gpu["model"])
+    busy = sum(us for _, _, us in events)
+    print(f"[slice] torch.profiler over one window: {len(events)} device "
+          f"events, device busy {busy / 1e3:.4f} ms of {wall_us / 1e3:.4f} "
+          "ms wall (profiler on)")
     return counts
 
 
@@ -936,10 +1055,9 @@ def phase_parity():
           f"||g_gpu - g_cpu|| / ||g_cpu|| {worst[1]:.3g} ({worst[0]})")
 
 
-def _window_breakdown(config, model):
+def window_events(config, model):
     """torch.profiler over one steady window of the serving path (its
-    metric group included): device ms by part, the K2 calls labelled by
-    shape in launch order, and the busy share."""
+    metric group included), after three: (wall us, device events)."""
     from event_flow_tpu_torch.data.stream import (ArrayEventStream,
                                                   synthetic_sequences)
     from event_flow_tpu_torch.eval.harness import Evaluator
@@ -956,7 +1074,13 @@ def _window_breakdown(config, model):
 
     for _ in range(3):
         window()
-    wall_us, events = _device_events(window)
+    return _device_events(window)
+
+
+def _window_breakdown(config, model):
+    """One steady window of the U-Net serving path: device ms by part, the
+    K2 calls labelled by shape in launch order, and the busy share."""
+    wall_us, events = window_events(config, model)
     if not events:
         print("[unet] breakdown: not measured (the profiler saw no device "
               "events)")
@@ -973,8 +1097,7 @@ def _window_breakdown(config, model):
         if "fused_conv_lif_kernel" in name:
             continue
         key = ("K1 heads" if "conv2d_same_kernel" in name else
-               "K3 scatter" if any(k in name for k in (
-                   "scatter_fixed", "abs_max", "fixed_to_float")) else
+               "K3 scatter" if "scatter_tile_kernel" in name else
                "interpolate" if "upsample" in low else
                "concat" if "cat" in low and "array" in low else
                "strided conv (cuDNN)" if any(k in low for k in (
@@ -1084,8 +1207,6 @@ KERNELS = (
 
 def main():
     name, _ = phase_device()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_grad_enabled(False)
     phase_build()
     measured = phase_kernels()

@@ -16,13 +16,17 @@
 //   g_leak[c] = sum lbar, g_thresh[c] = sum tbar over all pixels
 //
 // The Pallas kernel carries the two per-channel sums in its output block
-// across the sequential grid. Here each block owns a chunk of pixels:
-// thread t handles channel t % C for pixels t / C, t / C + 256 / C, ...,
-// so the loads of a warp are contiguous, keeps its two sums in registers,
-// and the block adds the 256 / C per-thread sums of each channel in a
-// fixed order into a [blocks, C] scratch. A second launch adds the
-// chunks in a fixed order and a fixed tree. No float atomics: the sums
-// are bitwise the same from run to run.
+// across the sequential grid. Here each block owns a chunk of pixels and
+// writes its per-channel sums into a [blocks, 2C] scratch, in a fixed
+// order; a second launch adds the chunks in a fixed order and a fixed
+// tree. No float atomics: the sums are bitwise the same from run to run.
+// Up to 256 channels, thread t handles channel t % C for pixels t / C,
+// t / C + 256 / C, ..., so the loads of a warp are contiguous, keeps its
+// two sums in registers, and the block adds the 256 / C per-thread sums
+// of each channel in a fixed order. Above 256 channels (the U-Net's 512-
+// channel cells), a block owns WIDE_PIX pixels and thread t handles the
+// channels t, t + 256, ... of each of them in turn, one sum per channel
+// in registers, so no block reduction is needed. At most MAX_C channels.
 //
 // What bounds it: it reads five maps and writes two, about 118 MB at the
 // training recipe (8 x 128 x 128 x 32), for some 30 FLOP per element, so
@@ -37,7 +41,10 @@
 namespace {
 
 constexpr int NT = 256;
-constexpr int ITERS = 16;  // pixels per thread per block
+constexpr int ITERS = 16;    // pixels per thread per block, C <= NT
+constexpr int WIDE_PIX = 4;  // pixels per block, C > NT
+constexpr int MAX_C = 2048;
+constexpr int WIDE_K = MAX_C / NT;  // channels per thread, C > NT
 
 enum Surrogate { kArctan = 0, kSuper = 1, kTriangle = 2, kMG = 3 };
 
@@ -64,6 +71,39 @@ __device__ __forceinline__ float surrogate(float d, float w) {
   }
 }
 
+// One element of the backward: writes g_cur and g_vin at e and adds its
+// leak and threshold terms to sum_l and sum_t.
+template <int S, bool HARD>
+__device__ __forceinline__ void lif_bwd_elem(
+    size_t e, float l, float th, float one_m_l, float div, float width,
+    const float* __restrict__ v, const float* __restrict__ z,
+    const float* __restrict__ v_out, const float* __restrict__ g_v,
+    const float* __restrict__ g_z, float* __restrict__ g_cur,
+    float* __restrict__ g_vin, float& sum_l, float& sum_t) {
+  const float vv = v[e];
+  const float zz = z[e];
+  const float vo = v_out[e];
+  const float gz = g_z[e];
+  const float sg = surrogate<S>(vo - th, width);
+  const float vbar = g_v[e] + gz * sg;
+  float tbar = -gz * sg;
+  float lbar;
+  if constexpr (HARD) {
+    const float cur_scaled = vo - vv * l * (1.f - zz);
+    g_vin[e] = vbar * l * (1.f - zz);
+    lbar = vbar * (vv * (1.f - zz) - cur_scaled / div);
+  } else {
+    const float cur_scaled = vo - vv * l + zz * th;
+    g_vin[e] = vbar * l;
+    lbar = vbar * (vv - cur_scaled / div);
+    tbar = tbar - vbar * zz;
+  }
+  g_cur[e] = vbar * one_m_l;
+  sum_l += lbar;
+  sum_t += tbar;
+}
+
+// C <= NT
 template <int S, bool HARD>
 __global__ void __launch_bounds__(NT) lif_bwd_kernel(
     const float* __restrict__ v, const float* __restrict__ z,
@@ -88,28 +128,8 @@ __global__ void __launch_bounds__(NT) lif_bwd_kernel(
     for (int k = 0; k < ITERS; ++k) {
       const long long p = p0 + (long long)k * lanes;
       if (p >= npix) break;
-      const size_t e = (size_t)p * C + c;
-      const float vv = v[e];
-      const float zz = z[e];
-      const float vo = v_out[e];
-      const float gz = g_z[e];
-      const float sg = surrogate<S>(vo - th, width);
-      const float vbar = g_v[e] + gz * sg;
-      float tbar = -gz * sg;
-      float lbar;
-      if constexpr (HARD) {
-        const float cur_scaled = vo - vv * l * (1.f - zz);
-        g_vin[e] = vbar * l * (1.f - zz);
-        lbar = vbar * (vv * (1.f - zz) - cur_scaled / div);
-      } else {
-        const float cur_scaled = vo - vv * l + zz * th;
-        g_vin[e] = vbar * l;
-        lbar = vbar * (vv - cur_scaled / div);
-        tbar = tbar - vbar * zz;
-      }
-      g_cur[e] = vbar * one_m_l;
-      sum_l += lbar;
-      sum_t += tbar;
+      lif_bwd_elem<S, HARD>((size_t)p * C + c, l, th, one_m_l, div, width, v,
+                            z, v_out, g_v, g_z, g_cur, g_vin, sum_l, sum_t);
     }
   }
   red_l[tid] = sum_l;
@@ -123,6 +143,44 @@ __global__ void __launch_bounds__(NT) lif_bwd_kernel(
     }
     part[(size_t)blockIdx.x * 2 * C + tid] = bl;
     part[(size_t)blockIdx.x * 2 * C + C + tid] = bt;
+  }
+}
+
+// NT < C <= MAX_C
+template <int S, bool HARD>
+__global__ void __launch_bounds__(NT) lif_bwd_wide_kernel(
+    const float* __restrict__ v, const float* __restrict__ z,
+    const float* __restrict__ v_out, const float* __restrict__ leak,
+    const float* __restrict__ thresh, const float* __restrict__ g_v,
+    const float* __restrict__ g_z, float* __restrict__ g_cur,
+    float* __restrict__ g_vin, float* __restrict__ part, long long npix,
+    int C, float width) {
+  float sum_l[WIDE_K], sum_t[WIDE_K];
+#pragma unroll
+  for (int k = 0; k < WIDE_K; ++k) sum_l[k] = sum_t[k] = 0.f;
+  const long long p0 = (long long)blockIdx.x * WIDE_PIX;
+  for (int i = 0; i < WIDE_PIX; ++i) {
+    const long long p = p0 + i;
+    if (p >= npix) break;
+#pragma unroll
+    for (int k = 0; k < WIDE_K; ++k) {
+      const int c = threadIdx.x + k * NT;
+      if (c < C) {
+        const float l = leak[c];
+        const float one_m_l = 1.f - l;
+        lif_bwd_elem<S, HARD>((size_t)p * C + c, l, thresh[c], one_m_l,
+                              fmaxf(one_m_l, 1e-6f), width, v, z, v_out, g_v,
+                              g_z, g_cur, g_vin, sum_l[k], sum_t[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < WIDE_K; ++k) {
+    const int c = threadIdx.x + k * NT;
+    if (c < C) {
+      part[(size_t)blockIdx.x * 2 * C + c] = sum_l[k];
+      part[(size_t)blockIdx.x * 2 * C + C + c] = sum_t[k];
+    }
   }
 }
 
@@ -151,9 +209,14 @@ void launch(const float* v, const float* z, const float* v_out,
             const float* g_z, float* g_cur, float* g_vin, float* part,
             long long npix, int C, float width, int blocks,
             cudaStream_t st) {
-  lif_bwd_kernel<S, HARD><<<blocks, NT, 0, st>>>(
-      v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin, part, npix, C,
-      width);
+  if (C <= NT)
+    lif_bwd_kernel<S, HARD><<<blocks, NT, 0, st>>>(
+        v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin, part, npix, C,
+        width);
+  else
+    lif_bwd_wide_kernel<S, HARD><<<blocks, NT, 0, st>>>(
+        v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin, part, npix, C,
+        width);
 }
 
 template <int S>
@@ -175,9 +238,10 @@ void launch_s(bool hard, const float* v, const float* z, const float* v_out,
 extern "C" {
 
 // Number of blocks of the first launch, so that the caller can allocate
-// the [blocks, 2*C] scratch. C must be in [1, 256].
+// the [blocks, 2*C] scratch; 0 unless C is in [1, MAX_C].
 int evf_fused_lif_bwd_blocks(long long npix, int C) {
-  const long long per_block = (long long)(NT / C) * ITERS;
+  if (C < 1 || C > MAX_C) return 0;
+  const long long per_block = C <= NT ? (long long)(NT / C) * ITERS : WIDE_PIX;
   return (int)((npix + per_block - 1) / per_block);
 }
 
@@ -193,7 +257,7 @@ int evf_fused_lif_bwd(const float* v, const float* z, const float* v_out,
                       float* g_vin, float* part, float* g_lt, long long npix,
                       int C, int hard_reset, int surrogate, float width,
                       void* stream) {
-  if (C < 1 || C > NT || npix < 1)
+  if (C < 1 || C > MAX_C || npix < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool hard = hard_reset != 0;

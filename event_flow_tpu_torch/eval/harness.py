@@ -28,16 +28,30 @@ from ..ops.encodings import encode_window
 from ..ops.hot_filter import apply_hot_filter, init_hot_state
 from ..ops.iwe import gather_event_flow
 
-__all__ = ["Evaluator", "zeros_like_state", "cell_states", "spike_rates"]
+__all__ = ["Evaluator", "zeros_like_state", "detach_state", "cell_states",
+           "spike_rates"]
+
+
+def _map_state(fn, state):
+    """``fn`` applied to every tensor of a model state: tuples nested to
+    any depth (the U-Net's encoders and residual blocks hold
+    ``((v, z), (v, z))``), as ``jax.tree_util.tree_map`` maps the JAX
+    state."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    return tuple(_map_state(fn, s) for s in state)
 
 
 def zeros_like_state(state):
-    """Zeros in the shape of a model state: tuples nested to any depth
-    (the U-Net's encoders hold ``((v, z), (v, z))``), as ``tree_map``
-    zeroes the JAX state (event_flow_tpu/eval/harness.py:178)."""
-    if isinstance(state, torch.Tensor):
-        return torch.zeros_like(state)
-    return tuple(zeros_like_state(s) for s in state)
+    """Zeros in the shape of a model state (the reset of
+    event_flow_tpu/eval/harness.py:178 and train/step.py:313-316)."""
+    return _map_state(torch.zeros_like, state)
+
+
+def detach_state(state):
+    """A model state cut from the autograd graph (the truncated-BPTT
+    boundary, ``stop_gradient`` at event_flow_tpu/train/step.py:324)."""
+    return _map_state(torch.Tensor.detach, state)
 
 
 def cell_states(state):

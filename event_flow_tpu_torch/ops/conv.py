@@ -89,19 +89,46 @@ def conv2d_same_plain(x, w):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+class _ConvStrided(torch.autograd.Function):
+    """The strided conv with TF32 off in its forward and in both of its
+    gradients: autograd's own backward of ``F.conv2d`` would run under the
+    process's ``torch.backends.cudnn.allow_tf32``, True by default on the
+    card, and one TF32 pass misses f32 by up to 8e-4 of max|dw| at the
+    U-Net encoders' shapes."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with _no_tf32():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                         padding=w.shape[2] // 2)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_x, need_w, _ = ctx.needs_input_grad
+        p = w.shape[2] // 2
+        with _no_tf32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None,
+                [ctx.stride] * 2, [p, p], [1, 1], False, [0, 0], 1,
+                [need_x, need_w, False])
+        return dx.permute(0, 2, 3, 1) if need_x else None, dw, None
+
+
 def conv2d_strided(x, w, stride):
     """y [B, ceil(H/s), ceil(W/s), Cout] = the conv of x [B,H,W,Cin] with
     w [Cout,Cin,k,k] at ``stride``, padding k // 2: the U-Net encoders'
-    feedforward conv. ``F.conv2d`` in NCHW with TF32 off on every device.
-    In JAX a strided conv never reaches Pallas either: it is ``lax.conv``
+    feedforward conv. ``F.conv2d`` in NCHW with TF32 off on every device,
+    forward and backward, whatever the process's TF32 flags. In JAX a
+    strided conv never reaches Pallas either: it is ``lax.conv`` at f32
     (event_flow_tpu/models/conv.py:142-150, :229-238)."""
     if x.dim() != 4 or w.dim() != 4 or w.shape[1] != x.shape[3]:
         raise ValueError(f"x {tuple(x.shape)} must be NHWC and w "
                          f"{tuple(w.shape)} OIHW with its input channels")
-    with _no_tf32():
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
-                     padding=w.shape[2] // 2)
-    return y.permute(0, 2, 3, 1).contiguous()
+    return _ConvStrided.apply(x, w, stride)
 
 
 def conv2d_dw_plain(x, g, k):

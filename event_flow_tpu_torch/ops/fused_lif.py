@@ -40,7 +40,9 @@ slower than cuDNN's f32 conv (PERF.md section 6).
 B4 source note: see ``csrc/fused_lif_bwd.cu``: elementwise, bound by
 device memory (five maps read, two written), the two per-channel sums
 taken per block into a scratch and added in a fixed order by a second
-launch, so they are bitwise repeatable.
+launch, so they are bitwise repeatable; up to 256 channels a block
+spreads pixels and channels over its threads, above 256 (up to
+``BWD_MAX_CHANNELS``) each thread walks channels of one pixel at a time.
 """
 
 import torch
@@ -53,6 +55,10 @@ from .spike import get_spike_fn, surrogate
 __all__ = ["fused_conv_lif", "fused_conv_lif_rec", "fused_conv_lif_plain",
            "fused_conv_lif_rec_plain", "fused_lif_bwd", "fused_lif_bwd_plain",
            "fused_lif_bwd_kernel", "lif_update"]
+
+# B4 takes up to this many channels (csrc/fused_lif_bwd.cu, MAX_C); the
+# spiking U-Net's widest LIF cells have 512
+BWD_MAX_CHANNELS = 2048
 
 # the surrogate codes of csrc/fused_lif_bwd.cu
 _SURROGATE_CODE = {"arctanspike": 0, "superspike": 1, "trianglespike": 2,
@@ -127,8 +133,9 @@ def fused_lif_bwd_kernel(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
     """Launch B4 on contiguous float32 [..., C] maps on one CUDA device;
     returns what :func:`fused_lif_bwd_plain` returns."""
     c = v.shape[-1]
-    if not 1 <= c <= 256:
-        raise ValueError(f"fused_lif_bwd: 1 to 256 channels, got {c}")
+    if not 1 <= c <= BWD_MAX_CHANNELS:
+        raise ValueError(f"fused_lif_bwd: 1 to {BWD_MAX_CHANNELS} channels, "
+                         f"got {c}")
     for t in (z, v_out, g_v, g_z):
         if t.shape != v.shape:
             raise ValueError(f"fused_lif_bwd: shapes {tuple(t.shape)} and "

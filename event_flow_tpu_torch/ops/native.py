@@ -43,7 +43,7 @@ _SIGNATURES = {
     "evf_conv2d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "evf_fused_conv_lif": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _P],
-    "evf_scatter_add": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "evf_scatter_add": [_P, _P, _P, _I, _I, _I, _I, _P],
     "evf_conv_dw_chunks": [_I, _I, _I, _I, _I, _I],
     "evf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "evf_fused_lif_bwd_blocks": [_L, _I],

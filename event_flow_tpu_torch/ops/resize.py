@@ -11,6 +11,12 @@ Pallas in JAX, so both are plain PyTorch here:
   ``"nearest-exact"``. Torch's ``"nearest"`` picks ``floor(i * in / out)``
   and differs from it at non-integer ratios (the U-Net's 24 x 30 and
   46 x 60 flows brought to 180 x 240).
+
+Their backward (``upsample_bilinear2d_backward``,
+``_upsample_nearest_exact2d_backward``) multiplies by fixed interpolation
+weights and does no matrix product, so torch's TF32 flags do not reach
+it. On the card the bilinear one adds with float atomics, so it is not
+bitwise repeatable (ROADMAP.md).
 """
 
 import torch.nn.functional as F

@@ -9,15 +9,17 @@ the hand-written kernel in ``csrc/scatter.cu``; a CPU tensor goes to
 
 K3 source note: replaces ``scatter_add_pallas`` (scatter_pallas.py:32-64),
 which walks the events serially over a VMEM-resident image and so is
-deterministic. On the H100 one thread per (event, channel) adds into an
-int64 fixed-point accumulator with 64-bit integer atomics, at a scale
-taken from the call's largest |value| so that no cell can overflow, then
-converts each cell back to float: the result is bitwise the same on
-every run (integer addition does not depend on the order the atomics
-land in), counts stay exact, and the rounding is some 1e-14 of the
-largest value. The image (at most 130 x 130 x 16 cells per batch row on
-the training path) stays in L2, so launch overhead and contention on hot
-cells bound it, not device memory.
+deterministic. On the H100 it is one launch (details in
+``csrc/scatter.cu``): each block owns a tile of cells of one batch row
+and sums them in shared memory in int64 fixed point, at a scale taken
+from the largest |value| and the number of events of its tile, so that
+no cell can overflow; then it converts each cell back to float and
+writes it. The result is bitwise the same on every run (integer addition
+does not depend on the order the atomics land in), counts stay exact,
+and the rounding is some 1e-14 of the tile's largest value. Every output
+cell is written by its tile, so there is no zero fill and no int64 image
+in device memory. A NaN or infinite value makes its whole tile NaN.
+Bound by bytes: the values read and the output written.
 """
 
 import torch
@@ -51,23 +53,32 @@ def scatter_add_plain(idx, vals, size):
     return out.reshape(b, size, c)
 
 
+# a block puts one event's channels on consecutive threads, at most its
+# 512 (csrc/scatter.cu, NT); the port's scatters have at most 16
+MAX_CHANNELS = 512
+
+
 def scatter_add_kernel(idx, vals, size):
-    """Launch K3. idx [B,M] (any integer dtype, converted once to int32),
-    vals [B,M,C] float32, both on one CUDA device -> [B,size,C]."""
+    """Launch K3. idx [B,M] (any integer dtype; int32 is used as it is,
+    others are converted once), vals [B,M,C] float32, both on one CUDA
+    device -> [B,size,C]."""
     _check(idx, vals, size)
-    idx32 = idx.to(torch.int32).contiguous()
+    idx32 = idx if idx.dtype == torch.int32 else idx.to(torch.int32)
+    idx32 = idx32.contiguous()
     native.require_cuda_f32("scatter_add", vals)
     if idx32.device != vals.device:
         raise ValueError("scatter_add: idx and vals on different devices")
     b, m, c = vals.shape
+    if c > MAX_CHANNELS or b > 65535 or size >= 2 ** 31:
+        raise ValueError(f"scatter_add: at most {MAX_CHANNELS} channels, "
+                         f"65535 rows and 2^31 cells, got C {c}, B {b}, "
+                         f"size {size}")
     if b * m * c == 0:
         return torch.zeros((b, size, c), device=vals.device, dtype=vals.dtype)
     out = torch.empty((b, size, c), device=vals.device, dtype=vals.dtype)
-    acc = torch.zeros((b, size, c), device=vals.device, dtype=torch.int64)
-    amax = torch.zeros((1,), device=vals.device, dtype=torch.int32)
     err = native.library().evf_scatter_add(
-        idx32.data_ptr(), vals.data_ptr(), acc.data_ptr(), amax.data_ptr(),
-        out.data_ptr(), b, m, c, size, native.stream_handle(vals.device))
+        idx32.data_ptr(), vals.data_ptr(), out.data_ptr(), b, m, c, size,
+        native.stream_handle(vals.device))
     native.check(err, "scatter_add")
     native.LAUNCHES["scatter_add"] += 1
     return out

@@ -27,6 +27,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..data.augment import augment_events
+from ..eval.harness import detach_state, zeros_like_state
 from ..loss.warping import LossConfig, event_warping_loss
 from ..ops.encodings import encode_windows
 
@@ -66,14 +67,6 @@ def make_sequence_forward(model, res, num_bins, round_encoding=False):
     return sequence_forward
 
 
-def _zero_state(model_state):
-    return tuple(tuple(torch.zeros_like(t) for t in s) for s in model_state)
-
-
-def _detach_state(model_state):
-    return tuple(tuple(t.detach() for t in s) for s in model_state)
-
-
 class _TrainStep:
     """``step(state, events, valid, aug_flags, reset) -> (loss, state')``.
 
@@ -98,13 +91,13 @@ class _TrainStep:
     def __call__(self, state: TrainState, events, valid, aug_flags, reset):
         model_state = state.model_state
         if reset:
-            model_state = _zero_state(model_state)
+            model_state = zeros_like_state(model_state)
         state.optimizer.zero_grad()
         loss, new_state = self.loss(model_state, events, valid, aug_flags)
         loss.backward()
         state.optimizer.step()
         return loss.detach(), TrainState(state.model, state.optimizer,
-                                         _detach_state(new_state))
+                                         detach_state(new_state))
 
 
 def make_train_step(model, res, num_bins, loss_cfg: LossConfig,

@@ -6,7 +6,9 @@ elsewhere.
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerances as in tests/test_torch_kernels_plain.py: f32 atol 1e-5,
-spikes equal except where |v' - thresh| < 1e-4, counts bitwise equal.
+spikes equal except where |v' - thresh| < 1e-4, counts bitwise equal;
+K3's sums within rtol 1e-5 of the float64 sum (its fixed-point sum is
+exact but for some 1e-14 and is rounded once).
 Sums over all pixels (the weight gradient, the per-channel leak and
 threshold gradients) are held relative to their largest magnitude,
 1e-5: f32 sums of up to a few thousand products taken in another order.
@@ -22,7 +24,8 @@ import torch
 
 from event_flow_tpu_torch.ops import native
 from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel, conv2d_dw_plain,
-                                           conv2d_same, conv2d_same_plain)
+                                           conv2d_same, conv2d_same_plain,
+                                           conv2d_strided)
 from event_flow_tpu_torch.ops.fused_lif import (fused_conv_lif,
                                                 fused_conv_lif_plain,
                                                 fused_conv_lif_rec,
@@ -33,6 +36,7 @@ from event_flow_tpu_torch.ops.scatter import (scatter_add, scatter_add_kernel,
                                               scatter_add_plain)
 
 SUM_RTOL = 1e-5
+SCATTER_RTOL = 1e-5
 
 pytestmark = pytest.mark.cuda
 
@@ -42,10 +46,10 @@ NEAR = 1e-4
 
 @pytest.fixture
 def dev():
+    """The card, with PyTorch's TF32 flags left at their defaults, as a
+    user runs the port: every plain version sets its own."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -447,3 +451,131 @@ def test_train_update_bitwise_repeatable(dev):
     assert torch.equal(runs[0][0], runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
         assert torch.equal(a, b)
+
+
+# K3 at every shape the main paths give it, as (B, M, size, C, count
+# channels): the serving window's encoding and metric warps, the training
+# loss's warps, the per-event flow gather's backward and the encoding of
+# all B*T windows (chip_smoke.py::K3_SHAPES)
+K3_SHAPES = [(1, 15000, 180 * 240, 1, 1), (1, 15000, 180 * 240, 4, 2),
+             (8, 10000, 130 * 130, 16, 4), (80, 1000, 128 * 128, 2, 0),
+             (80, 1000, 128 * 128, 4, 2)]
+
+
+def _k3_inputs(b, m, size, ch, n_counts, dev):
+    """int32 indices (as the paths pass them) with 1000 events of each row
+    on five cells; n_counts channels of 0/1 counts, the rest randn."""
+    g = _gen()
+    idx = torch.randint(0, size, (b, m), generator=g, dtype=torch.int32)
+    idx[:, :1000] = (torch.arange(1000) % 5).to(torch.int32)
+    counts = (torch.rand((b, m, n_counts), generator=g) < 0.5).float()
+    vals = torch.cat([counts, torch.randn((b, m, ch - n_counts),
+                                          generator=g)], -1)
+    return idx.to(dev), vals.to(dev)
+
+
+@pytest.mark.parametrize("b,m,size,ch,n_counts", K3_SHAPES)
+def test_scatter_kernel_at_path_shapes(dev, b, m, size, ch, n_counts):
+    """Bitwise repeatable, counts exact, the rest within SCATTER_RTOL of
+    the float64 sum."""
+    idx, vals = _k3_inputs(b, m, size, ch, n_counts, dev)
+    before = native.LAUNCHES["scatter_add"]
+    got = scatter_add_kernel(idx, vals, size)
+    assert native.LAUNCHES["scatter_add"] == before + 1
+    assert torch.equal(got, scatter_add_kernel(idx, vals, size))
+    ref = scatter_add_plain(idx, vals.double(), size)
+    assert torch.equal(got[..., :n_counts], ref[..., :n_counts].float())
+    torch.testing.assert_close(got.double(), ref, atol=ATOL,
+                               rtol=SCATTER_RTOL)
+
+
+def test_scatter_kernel_nan_and_out_of_range(dev):
+    """A NaN value comes out NaN in its cell and leaves the other rows
+    finite; indices outside [0, size) are dropped."""
+    b, m, size, ch, n_counts = K3_SHAPES[2]
+    idx, vals = _k3_inputs(b, m, size, ch, n_counts, dev)
+    nan_vals = vals.clone()
+    nan_vals[3, 17, 5] = float("nan")
+    got = scatter_add_kernel(idx, nan_vals, size)
+    assert torch.isnan(got[3, int(idx[3, 17]), 5])
+    assert torch.isfinite(got[torch.arange(b, device=dev) != 3]).all()
+    bad = idx.clone()
+    bad[:, ::3] = torch.where(bad[:, ::3] % 2 == 0, -1 - bad[:, ::3],
+                              size + bad[:, ::3])
+    got = scatter_add_kernel(bad, vals, size)
+    ref = scatter_add_plain(bad, vals.double(), size)  # drops them too
+    torch.testing.assert_close(got.double(), ref, atol=ATOL,
+                               rtol=SCATTER_RTOL)
+
+
+def test_scatter_kernel_is_one_device_operation(dev):
+    """Every device operation of a K3 call is its one kernel: no zero
+    fill, no index conversion, no second pass (torch.profiler; a session
+    can miss events, so it counts at most one per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, m, size, ch, n_counts = K3_SHAPES[2]
+    idx, vals = _k3_inputs(b, m, size, ch, n_counts, dev)
+    scatter_add_kernel(idx, vals, size)
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                scatter_add_kernel(idx, vals, size)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert names, "the profiler saw no device events"
+    assert len(names) <= 10
+    assert all("scatter_tile_kernel" in n for n in names), set(names)
+
+
+@pytest.mark.parametrize("c", [384, 512, 1024])
+@pytest.mark.parametrize("hard", [True, False])
+def test_fused_lif_bwd_kernel_past_256_channels(dev, c, hard):
+    """B4 at the U-Net's 512-channel cells and around them: one channel
+    walk per thread and pixel above 256 channels."""
+    g = _gen()
+    shape = (2, 9, 13, c)
+    thresh = (0.8 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    leak = torch.sigmoid(torch.randn(c, generator=g)).to(dev)
+    v = thresh + 0.3 * torch.randn(shape, generator=g).to(dev)
+    z = (torch.rand(shape, generator=g) < 0.1).float().to(dev)
+    v_out = thresh + 0.3 * torch.randn(shape, generator=g).to(dev)
+    g_v = torch.randn(shape, generator=g).to(dev)
+    g_z = torch.randn(shape, generator=g).to(dev)
+    args = (v, z, v_out, leak, thresh, g_v, g_z, hard, "arctanspike", 10.0)
+    got = fused_lif_bwd_kernel(*args)
+    ref = fused_lif_bwd_plain(*args)
+    for a, r in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, r, atol=ATOL, rtol=1e-5)
+    for a, r in zip(got[2:], ref[2:]):
+        assert a.shape == (c,)
+        assert_close_to_max(a, r)
+    again = fused_lif_bwd_kernel(*args)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def test_strided_conv_grads_are_f32_under_default_tf32(dev):
+    """conv2d_strided's dx and dw at U-Net encoder 1's shape (64 -> 128,
+    stride 2, 8 x 64 x 64) with cuDNN's TF32 allowed, as it is by default:
+    within 1e-4 of max of the float64 gradients (one TF32 pass misses by
+    about 3e-4 to 8e-4 here)."""
+    g = _gen()
+    x = torch.randn((8, 64, 64, 64), generator=g).to(dev)
+    w = (0.05 * torch.randn((128, 64, 3, 3), generator=g)).to(dev)
+    gy = torch.randn((8, 32, 32, 128), generator=g).to(dev)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        grads = []
+        for dtype in (torch.float32, torch.float64):
+            xs = x.to(dtype).requires_grad_()
+            ws = w.to(dtype).requires_grad_()
+            y = conv2d_strided(xs, ws, 2)
+            grads.append(torch.autograd.grad(y, (xs, ws), gy.to(dtype)))
+    for got, ref in zip(*grads):
+        err = float((got.double() - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), err
