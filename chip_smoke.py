@@ -32,10 +32,23 @@ exits non-zero without the final ``ok`` line:
               run twice from the same state, bitwise equal
   7. parity   3 updates at B 2, 64 x 64, T 3, full width on the card and
               on the CPU: losses and the gradients of update 1
+  8. unet-train  the SpikingRecEVFlowNet training update at
+              configs/train_SNNrec_rich.yml (base 32, B 8, 128 x 128, T 10)
+              with the checks of phase 6 (update 1 twice bitwise equal, 3
+              timed updates, exact launch counts, peak memory, a profiled
+              update with K1 and B2 by shape on the path), then the parity
+              of phase 7 for it
+  9. annunet  RecEVFlowNet, the ANN U-Net: serving at configs/eval_ECD.yml
+              with the model block of configs/train_ANNrec_rich.yml (8
+              windows: launch counts, windows/s, a profiled window, FWL/RSAT
+              against the CPU), then its training update at
+              configs/train_ANNrec_rich.yml with the checks of phase 8
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
-with spike and dense randn inputs; B2 at every weight shape of the
+with spike and dense randn inputs; K1 and B2 at the ConvGRU's deepest
+shapes (1024 -> 1024 and 1024 -> 512, at 8 x 8 x 8 and 1 x 12 x 15) beside
+cuDNN's conv and weight gradient; B2 at every weight shape of the
 FireNet and U-Net training updates, against float64 as well, with its
 device time beside cuDNN's weight gradient; B4 at the U-Net residual
 blocks' 512 channels; K3 at its five main-path shapes, with its device
@@ -47,7 +60,9 @@ index_add_). The process's TF32 flags stay at PyTorch's defaults, as a
 user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
+sum over the counted runs of every path (phases 4-6, 8, 9). Imports
+nothing of JAX.
 """
 
 import copy
@@ -606,6 +621,60 @@ def kernels_dw(inp, out):
         _record(out, "conv2d_dw", err, timing)
 
 
+# K1 and B2 at the ConvGRU's deepest shapes (RecEVFlowNet's encoder 3, 512
+# features): the fused update and reset gates 1024 -> 1024 and the out
+# gate 1024 -> 512, k 3, at the training recipe's 8 x 8 x 8 (B 8, 128 x 128
+# input) and at serving's 1 x 12 x 15 (180 x 240 input)
+GRU_SHAPES = tuple((b, h, w, 1024, cout) for b, h, w in ((8, 8, 8),
+                                                         (1, 12, 15))
+                   for cout in (1024, 512))
+
+
+def kernels_gru(inp, out):
+    """K1 and B2 at GRU_SHAPES on dense inputs (the gates read relu
+    outputs and the state), each against its plain version, run twice and
+    bitwise equal, with its device time beside cuDNN's conv and wgrad."""
+    from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel,
+                                               conv2d_dw_plain, conv2d_same,
+                                               conv2d_same_plain)
+
+    for b, h, w, cin, cout in GRU_SHAPES:
+        x = inp.normal((b, h, w, cin), 0.5)
+        wt = inp.uniform((cout, cin, 3, 3), (1 / (9 * cin)) ** 0.5)
+        g = inp.normal((b, h, w, cout), 1e-3)
+        shape = f"{b}x{h}x{w} {cin}->{cout} k=3"
+        y = conv2d_same(x, wt)
+        err = float((y - conv2d_same_plain(x, wt)).abs().max())
+        if not err <= ATOL:
+            fail(f"K1 ConvGRU {shape}: max |err| {err} > {ATOL}")
+        if not torch.equal(y, conv2d_same(x, wt)):
+            fail(f"K1 ConvGRU {shape}: two runs differ")
+        _record(out, "conv2d_same", err)
+        dw = conv2d_dw_kernel(x, g, 3)
+        err_dw = check_sum(dw, conv2d_dw_plain(x, g, 3), f"B2 ConvGRU {shape}")
+        if not torch.equal(dw, conv2d_dw_kernel(x, g, 3)):
+            fail(f"B2 ConvGRU {shape}: two runs differ")
+        _record(out, "conv2d_dw", err_dw)
+        npix = b * h * w
+        flop = 2 * npix * cout * cin * 9
+        for label, run_k, run_l, what, nbytes, e in (
+                ("K1", lambda: conv2d_same(x, wt),
+                 lambda: conv2d_library(x, wt), "conv",
+                 4 * (npix * (cin + cout) + wt.numel()), err),
+                ("B2", lambda: conv2d_dw_kernel(x, g, 3),
+                 lambda: conv2d_dw_library(x, g, 3), "wgrad",
+                 4 * (npix * (cin + cout) + wt.numel()), err_dw)):
+            d_k, src_k = device_ms(run_k)
+            d_l, src_l = device_ms(run_l)
+            b_ms, b_by = least_ms(nbytes, flop)
+            print(f"[kernels] {label} ConvGRU {shape} randn: max|err| "
+                  f"{e:.3g}, repeatable; kernel device {d_k:.4f} ms/call "
+                  f"[{src_k}] ({_rates(nbytes, flop, d_k)}, "
+                  f"{b_ms / d_k:.3f} of its bound {b_ms:.4f} ms, {b_by}); "
+                  f"cuDNN {what} device {d_l:.4f} [{src_l}]"
+                  + (" SLOWER than cuDNN" if d_k > d_l else ""))
+
+
 def kernels_backward(inp, out):
     """B4 after a feedforward and a recurrent K2 forward at the recipe's
     shape (with its device time per call), at the U-Net residual blocks'
@@ -828,6 +897,7 @@ def phase_kernels():
     kernels_forward(inp, out)
     kernels_unet(inp, out)
     kernels_dw(inp, out)
+    kernels_gru(inp, out)
     kernels_backward(inp, out)
     kernels_scatter(inp, out)
     return out
@@ -860,22 +930,7 @@ def phase_slice():
     cpu = evaluate(config, "cpu", seed=0)
     if native.LAUNCHES != counts:
         fail("the CPU run launched CUDA kernels")
-    gaps = []
-    for metric, per_file in gpu["results"].items():
-        if set(per_file) != set(cpu["results"][metric]) or not per_file:
-            fail(f"{metric}: files differ between GPU and CPU runs")
-        for fname, val in sorted(per_file.items()):
-            ref = cpu["results"][metric][fname]
-            if not (torch.isfinite(torch.tensor(val))
-                    and torch.isfinite(torch.tensor(ref))):
-                fail(f"{metric} {fname}: not finite ({val}, {ref})")
-            gap = abs(val - ref) / abs(ref)
-            if gap > SLICE_RTOL:
-                fail(f"{metric} {fname}: GPU {val} vs CPU {ref}, rel gap "
-                     f"{gap:.3g} > {SLICE_RTOL}")
-            gaps.append(gap)
-            print(f"[slice] {metric} {fname}: gpu {val!r} cpu {ref!r} "
-                  f"rel gap {gap:.3g}")
+    gaps = compare_metrics("slice", gpu["results"], cpu["results"])
     print(f"[slice] gpu {n / gpu['seconds']:.2f} windows/s, "
           f"{1e3 * gpu['seconds'] / n:.3f} ms/window; cpu plain "
           f"{n / cpu['seconds']:.2f} windows/s; max rel gap {max(gaps):.3g}")
@@ -918,32 +973,98 @@ def _device_events(fn):
     return wall_us, sorted(events, key=lambda e: e[1])
 
 
-def _busy_share(trainer, stream):
-    """torch.profiler over one update: device time of every kernel, copy
-    and fill (one stream, so they do not overlap) over the wall time, and
-    the device time by kernel name."""
-    wall_us, events = _device_events(lambda: _feed_update(trainer, stream))
-    by_name = {}
-    for name, _, us in events:
-        total, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (total + us, n + 1)
-    return wall_us, by_name
+class ShapeLog:
+    """While active, records the shape of every K1 and B2 launch in launch
+    order, as (B, H, W, Cin, Cout, k), so that a profiled run can give each
+    shape its device time (:func:`on_path_by_shape`)."""
+
+    def __enter__(self):
+        from event_flow_tpu_torch.ops import conv
+
+        self.k1, self.b2 = [], []
+        self._saved = (conv._conv_kernel, conv.conv2d_dw_kernel)
+        k1, b2 = self._saved
+
+        def k1_logged(x, w):
+            self.k1.append((*x.shape, w.shape[0], w.shape[2]))
+            return k1(x, w)
+
+        def b2_logged(x, g, k):
+            self.b2.append((*x.shape, g.shape[3], k))
+            return b2(x, g, k)
+
+        conv._conv_kernel, conv.conv2d_dw_kernel = k1_logged, b2_logged
+        return self
+
+    def __exit__(self, *exc):
+        from event_flow_tpu_torch.ops import conv
+
+        conv._conv_kernel, conv.conv2d_dw_kernel = self._saved
 
 
-def phase_train():
-    from event_flow_tpu_torch.config import TRAIN_SNN
+def on_path_by_shape(events, log):
+    """{(kernel, shape): (calls, device ms)} of the K1 and B2 launches of a
+    profiled run, each launch matched to its logged shape in launch order
+    (a B2 call with a pixel split is its conv_dw kernel and then its chunk
+    sum); None for a kernel whose device events do not match its log (a
+    profiler session can miss events)."""
+    from event_flow_tpu_torch.ops import native
+
+    out = {}
+    k1 = [us for name, _, us in events if "conv2d_same_kernel" in name]
+    dw = [us for name, _, us in events if "conv_dw_kernel" in name]
+    sums = [us for name, _, us in events if "chunk_sum_kernel" in name]
+    split = [native.library().evf_conv_dw_chunks(*shape) > 1
+             for shape in log.b2]
+    if len(k1) == len(log.k1):
+        for shape, us in zip(log.k1, k1):
+            n, t = out.get(("K1", shape), (0, 0.0))
+            out[("K1", shape)] = (n + 1, t + us / 1e3)
+    else:
+        out["K1"] = None
+    if len(dw) == len(log.b2) and len(sums) == sum(split):
+        sums = iter(sums)
+        for shape, us, has_sum in zip(log.b2, dw, split):
+            us += next(sums) if has_sum else 0.0
+            n, t = out.get(("B2", shape), (0, 0.0))
+            out[("B2", shape)] = (n + 1, t + us / 1e3)
+    else:
+        out["B2"] = None
+    return out
+
+
+def _print_on_path(tag, by_shape):
+    for key in ("K1", "B2"):
+        if by_shape.get(key, 0) is None:
+            print(f"[{tag}] {key} by shape on the path: not measured (the "
+                  "profiler's events do not match the launch log)")
+    for (kname, (b, h, w, cin, cout, k)), (n, ms) in sorted(
+            (kv for kv in by_shape.items() if isinstance(kv[0], tuple)),
+            key=lambda kv: (kv[0][0], -kv[1][1])):
+        print(f"[{tag}]   on path {kname} {cin}->{cout} k {k} @{b}x{h}x{w}: "
+              f"{n} calls, {ms:.4f} ms, {ms / n:.4f} ms/call")
+
+
+def train_phase(tag, config, expected):
+    """The training update at ``config`` on the card: update 1 run twice
+    from the same init and batches, bitwise equal in the loss and every
+    gradient; then 3 timed updates with their launch counts, which must
+    equal ``expected(t, u)`` (T windows, u updates); their peak device
+    memory; and torch.profiler over one more update: device busy time,
+    operations, the top kernels and K1 and B2 by shape. Returns the launch
+    counts of the 3 updates."""
     from event_flow_tpu_torch.data.stream import SyntheticWindowStream
     from event_flow_tpu_torch.ops import native
     from event_flow_tpu_torch.train.loop import Trainer
 
-    config = copy.deepcopy(TRAIN_SNN)
+    config = copy.deepcopy(config)
     b = config["loader"]["batch_size"]
     res = config["loader"]["resolution"]
+    name = config["model"]["name"]
     with torch.enable_grad():
         trainer = Trainer(config, "cuda")
         stream = SyntheticWindowStream(config)
         t = trainer.t_windows
-        torch.cuda.reset_peak_memory_stats()
         first = _feed_update(trainer, stream)  # warm-up, update 1
         grads_1 = _grads(trainer.model)
 
@@ -953,11 +1074,14 @@ def phase_train():
         grads_again = _grads(again.model)
         if again_loss != first or set(grads_again) != set(grads_1) or not all(
                 torch.equal(grads_1[k], grads_again[k]) for k in grads_1):
-            fail("update 1 run twice on the card is not bitwise equal")
-        del again
-        print(f"[train] update 1 run twice from the same state: loss "
+            fail(f"{name}: update 1 run twice on the card is not bitwise "
+                 "equal")
+        del again, grads_again
+        print(f"[{tag}] update 1 run twice from the same state: loss "
               f"{first!r} and all {len(grads_1)} gradients bitwise equal")
 
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         native.reset_launch_counts()
         losses, seconds = [], []
         for _ in range(3):
@@ -966,98 +1090,178 @@ def phase_train():
             seconds.append(time.perf_counter() - t0)
         counts = dict(native.LAUNCHES)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        wall_us, by_name = _busy_share(trainer, stream)
+        with ShapeLog() as log:  # one more update, profiled
+            wall_us, events = _device_events(
+                lambda: _feed_update(trainer, stream))
 
     u = len(losses)
+    want = expected(t, u)
+    if counts != want:
+        fail(f"{name}: train launch counts {counts} != expected {want}")
+    if not all(torch.isfinite(torch.tensor(v)) for v in [first] + losses):
+        fail(f"{name}: non-finite training loss: {[first] + losses}")
+    ms = 1e3 * statistics.median(seconds)
+    print(f"[{tag}] {name} B {b}, {res[0]}x{res[1]}, T {t}, width "
+          f"{config['model']['base_num_channels']}: losses {first!r} "
+          f"(warm-up), " + ", ".join(repr(v) for v in losses))
+    print(f"[{tag}] launches over {u} updates {counts}")
+    print(f"[{tag}] {ms:.3f} ms/update (median of {u}: "
+          + ", ".join(f"{1e3 * s:.3f}" for s in seconds)
+          + f"), {b * t / (ms / 1e3):.2f} windows/s, peak device memory "
+          f"{peak_gb:.3f} GB over the {u} updates")
+    by_name = {}
+    for kname, _, us in events:
+        total, n = by_name.get(kname, (0.0, 0))
+        by_name[kname] = (total + us, n + 1)
+    busy_us = sum(us for us, _ in by_name.values())
+    if busy_us > 0:
+        print(f"[{tag}] torch.profiler over one update: device busy "
+              f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall, busy "
+              f"share {busy_us / wall_us:.3f} ({len(events)} device events, "
+              "profiler on)")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        for kname, (us, n) in top[:12]:
+            print(f"[{tag}]   {us / 1e3:9.3f} ms {n:5d}x  {kname[:90]}")
+        rest = sum(us for _, (us, _) in top[12:])
+        print(f"[{tag}]   {rest / 1e3:9.3f} ms in {len(top) - 12} other "
+              "kernels")
+        _print_on_path(tag, on_path_by_shape(events, log))
+    else:
+        print(f"[{tag}] device busy share: not measured (the profiler saw "
+              "no device events)")
+    return counts
+
+
+def phase_train():
+    from event_flow_tpu_torch.config import TRAIN_SNN
+
     # per update: forward K2 5T + 2T, K1 T (prediction head), K3 1
     # (encoding) + 2 (the two warps of the loss); backward B4 7T, B2 10T
     # (7 ff + 2 rec + 1 head weights), K1 7T for dx (every cell but the
     # head, whose input is the encoding, and the prediction head) +
     # 2(T-1) for dz_rec (window 0's recurrent input is the detached
     # carried state), K3 1 (the per-event flow gather of the loss)
-    expected = {"fused_conv_lif": 5 * t * u, "fused_conv_lif_rec": 2 * t * u,
-                "conv2d_same": (t + 7 * t + 2 * (t - 1)) * u,
-                "scatter_add": 4 * u, "fused_lif_bwd": 7 * t * u,
-                "conv2d_dw": 10 * t * u}
-    if counts != expected:
-        fail(f"train launch counts {counts} != expected {expected}")
-    if not all(torch.isfinite(torch.tensor(v)) for v in [first] + losses):
-        fail(f"non-finite training loss: {[first] + losses}")
-    ms = 1e3 * statistics.median(seconds)
-    print(f"[train] B {b}, {res[0]}x{res[1]}, T {t}, width "
-          f"{config['model']['base_num_channels']}: losses {first!r} "
-          f"(warm-up), " + ", ".join(repr(v) for v in losses))
-    print(f"[train] launches over {u} updates {counts}")
-    print(f"[train] {ms:.3f} ms/update (median of {u}: "
-          + ", ".join(f"{1e3 * s:.3f}" for s in seconds)
-          + f"), {b * t / (ms / 1e3):.2f} windows/s, peak device memory "
-          f"{peak_gb:.3f} GB")
-    busy_us = sum(us for us, _ in by_name.values())
-    if busy_us > 0:
-        print(f"[train] torch.profiler over one update: device busy "
-              f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall, busy "
-              f"share {busy_us / wall_us:.3f} "
-              f"({sum(n for _, n in by_name.values())} device events, "
-              f"profiler on)")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-        for kname, (us, n) in top[:12]:
-            print(f"[train]   {us / 1e3:9.3f} ms {n:5d}x  {kname[:90]}")
-        rest = sum(us for _, (us, _) in top[12:])
-        print(f"[train]   {rest / 1e3:9.3f} ms in {len(top) - 12} other "
-              "kernels")
-    else:
-        print("[train] device busy share: not measured (the profiler saw "
-              "no device events)")
-    return counts
+    return train_phase("train", TRAIN_SNN, lambda t, u: {
+        "fused_conv_lif": 5 * t * u, "fused_conv_lif_rec": 2 * t * u,
+        "conv2d_same": (t + 7 * t + 2 * (t - 1)) * u, "scatter_add": 4 * u,
+        "fused_lif_bwd": 7 * t * u, "conv2d_dw": 10 * t * u})
+
+
+def phase_unet_train():
+    from event_flow_tpu_torch.config import TRAIN_SNNREC
+
+    # SpikingRecEVFlowNet, per update: forward K2 8T feedforward (4
+    # residual-block cells, 4 decoders) + 4T recurrent (the encoders'
+    # recurrent cells; the 4 strided cells are cuDNN and plain torch), K1
+    # 4T (the heads); the loss K3 1 (encoding) + 4 scales x (2 warps + 1
+    # per-event flow gather's backward) = 13; backward B4 12T (every K2
+    # cell), B2 20T (12 ff + 4 rec + 4 head weights), K1 4T (the heads' dx)
+    # + 12T (every K2 cell's dx: each input comes after a strided cell's
+    # spikes) + 4(T-1) (dz_rec, none in window 0)
+    return train_phase("unet-train", TRAIN_SNNREC, lambda t, u: {
+        "fused_conv_lif": 8 * t * u, "fused_conv_lif_rec": 4 * t * u,
+        "conv2d_same": (20 * t + 4 * (t - 1)) * u, "scatter_add": 13 * u,
+        "fused_lif_bwd": 12 * t * u, "conv2d_dw": 20 * t * u})
+
+
+def phase_annunet_train():
+    from event_flow_tpu_torch.config import TRAIN_ANNREC
+
+    # RecEVFlowNet, per update: forward K1 20T (per window 2 per ConvGRU x
+    # 4 encoders, 2 per residual block x 2, 4 decoders, 4 heads; the 4
+    # strided encoder convs are cuDNN), backward K1 20T (every one's dx:
+    # each input comes after a strided conv) and B2 20T; K3 13 as in the
+    # spiking U-Net's
+    return train_phase("annunet", TRAIN_ANNREC, lambda t, u: {
+        "fused_conv_lif": 0, "fused_conv_lif_rec": 0,
+        "conv2d_same": 40 * t * u, "scatter_add": 13 * u,
+        "fused_lif_bwd": 0, "conv2d_dw": 20 * t * u})
+
+
+def parity_phase(tag, config, lockstep=False):
+    """3 updates at B 2, 64 x 64, T 3 of ``config``'s model at its full
+    width on the card and on the CPU, from the same seeded init and
+    stream: the losses within TRAIN_LOSS_RTOL and the gradients of update
+    1 within TRAIN_GRAD_RTOL; the CPU run launches no CUDA kernel. With
+    ``lockstep``, the CPU trainer takes the card's parameters, Adam state
+    and carried state before each update, so that each update's loss is
+    compared from one state. The relu U-Net needs it: its loss after Adam
+    steps is ill-conditioned (Adam's first step is lr * sign(g), and a
+    relu input within rounding of 0 takes its derivative from the
+    rounding). From one state its update-2 gradients still differ by
+    1.85e-3 in one block (encoder 2 and decoder 1, at 16 x 16) with the
+    losses within 2e-7 and cuDNN's strided gradients within 7e-7 of
+    float64 (on an NVIDIA H100 80GB HBM3, 700.00 W), a relu kink, so the
+    gradients are held at update 1, as for the other models."""
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.eval.harness import _map_state
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    config = copy.deepcopy(config)
+    config["loader"].update(batch_size=2, resolution=[64, 64])
+    config["data"].update(window=1000, window_loss=3000)
+    name = config["model"]["name"]
+    devs = ("cuda", "cpu")
+    losses, grads = {d: [] for d in devs}, {d: [] for d in devs}
+    with torch.enable_grad():
+        trainers = {d: Trainer(config, d) for d in devs}
+        streams = {d: SyntheticWindowStream(config) for d in devs}
+        for i in range(3):
+            for dev in devs:
+                native.reset_launch_counts()
+                losses[dev].append(_feed_update(trainers[dev], streams[dev]))
+                launched = sum(native.LAUNCHES.values())
+                if (launched > 0) != (dev == "cuda"):
+                    fail(f"{name}: the {dev} run launched {launched} CUDA "
+                         "kernels")
+                if i == 0:
+                    grads[dev].append({k: g.cpu() for k, g in
+                                       _grads(trainers[dev].model).items()})
+            if lockstep:
+                gpu, cpu = trainers["cuda"], trainers["cpu"]
+                cpu.model.load_state_dict(gpu.model.state_dict())
+                cpu.state.optimizer.optimizer.load_state_dict(
+                    gpu.state.optimizer.optimizer.state_dict())
+                cpu.state = cpu.state._replace(model_state=_map_state(
+                    lambda t: t.cpu(), gpu.state.model_state))
+    gl, cl = losses["cuda"], losses["cpu"]
+    for i, (a, r) in enumerate(zip(gl, cl)):
+        if not abs(a - r) <= TRAIN_LOSS_RTOL * abs(r):
+            fail(f"{name} update {i + 1}: GPU loss {a} vs CPU {r}")
+    (gg,), (cg,) = grads["cuda"], grads["cpu"]
+    if set(gg) != set(cg):
+        fail(f"{name}: GPU and CPU runs have gradients for different "
+             "parameters")
+    worst = ("", 0.0)
+    for pname, ref in cg.items():
+        rel = float((gg[pname] - ref).norm() / ref.norm().clamp(min=1e-30))
+        if not rel <= TRAIN_GRAD_RTOL:
+            fail(f"{name} update 1 gradient of {pname}: rel gap {rel} > "
+                 f"{TRAIN_GRAD_RTOL}")
+        worst = max(worst, (pname, rel), key=lambda kv: kv[1])
+    gaps = [abs(a - r) / abs(r) for a, r in zip(gl, cl)]
+    print(f"[{tag}] {name} B 2, 64x64, T 3, width "
+          f"{config['model']['base_num_channels']}"
+          + (", each update from the card's state" if lockstep else "")
+          + ": GPU losses " + ", ".join(repr(v) for v in gl) + "; CPU "
+          + ", ".join(repr(v) for v in cl)
+          + f"; rel gaps {', '.join(f'{g:.3g}' for g in gaps)}")
+    print(f"[{tag}] update 1 gradients, {len(grads['cpu'][0])} tensors: "
+          f"largest ||g_gpu - g_cpu|| / ||g_cpu|| {worst[1]:.3g} "
+          f"({worst[0]})")
 
 
 def phase_parity():
     from event_flow_tpu_torch.config import TRAIN_SNN
-    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
-    from event_flow_tpu_torch.ops import native
-    from event_flow_tpu_torch.train.loop import Trainer
 
-    config = copy.deepcopy(TRAIN_SNN)
-    config["loader"].update(batch_size=2, resolution=[64, 64])
-    config["data"].update(window=1000, window_loss=3000)
-    runs = {}
-    with torch.enable_grad():
-        for dev in ("cuda", "cpu"):
-            native.reset_launch_counts()
-            trainer = Trainer(config, dev)
-            stream = SyntheticWindowStream(config)
-            losses = [_feed_update(trainer, stream)]
-            grads = {k: g.cpu() for k, g in _grads(trainer.model).items()}
-            losses += [_feed_update(trainer, stream) for _ in range(2)]
-            runs[dev] = (losses, grads)
-            launched = sum(native.LAUNCHES.values())
-            if (launched > 0) != (dev == "cuda"):
-                fail(f"the {dev} run launched {launched} CUDA kernels")
-    (gl, gg), (cl, cg) = runs["cuda"], runs["cpu"]
-    for i, (a, r) in enumerate(zip(gl, cl)):
-        if not abs(a - r) <= TRAIN_LOSS_RTOL * abs(r):
-            fail(f"update {i + 1}: GPU loss {a} vs CPU {r}")
-    if set(gg) != set(cg):
-        fail("GPU and CPU runs have gradients for different parameters")
-    worst = ("", 0.0)
-    for name, ref in cg.items():
-        rel = float((gg[name] - ref).norm() / ref.norm().clamp(min=1e-30))
-        if not rel <= TRAIN_GRAD_RTOL:
-            fail(f"update 1 gradient of {name}: rel gap {rel} > "
-                 f"{TRAIN_GRAD_RTOL}")
-        worst = max(worst, (name, rel), key=lambda kv: kv[1])
-    gaps = [abs(a - r) / abs(r) for a, r in zip(gl, cl)]
-    print(f"[parity] B 2, 64x64, T 3, width 32: GPU losses "
-          + ", ".join(repr(v) for v in gl) + "; CPU "
-          + ", ".join(repr(v) for v in cl)
-          + f"; rel gaps {', '.join(f'{g:.3g}' for g in gaps)}")
-    print(f"[parity] update 1 gradients, {len(cg)} tensors: largest "
-          f"||g_gpu - g_cpu|| / ||g_cpu|| {worst[1]:.3g} ({worst[0]})")
+    parity_phase("parity", TRAIN_SNN)
 
 
-def window_events(config, model):
+def window_events(config, model, log=None):
     """torch.profiler over one steady window of the serving path (its
-    metric group included), after three: (wall us, device events)."""
+    metric group included), after three: (wall us, device events). A
+    ShapeLog ``log`` is emptied before the profiled window."""
     from event_flow_tpu_torch.data.stream import (ArrayEventStream,
                                                   synthetic_sequences)
     from event_flow_tpu_torch.eval.harness import Evaluator
@@ -1074,29 +1278,28 @@ def window_events(config, model):
 
     for _ in range(3):
         window()
+    if log is not None:
+        log.k1.clear()
+        log.b2.clear()
     return _device_events(window)
 
 
-def _window_breakdown(config, model):
-    """One steady window of the U-Net serving path: device ms by part, the
-    K2 calls labelled by shape in launch order, and the busy share."""
-    wall_us, events = window_events(config, model)
+def window_parts(tag, wall_us, events, labelled=()):
+    """Device ms of one profiled window by part: the (name, us) of
+    ``labelled`` as given, the other events by kind; and the busy share."""
     if not events:
-        print("[unet] breakdown: not measured (the profiler saw no device "
-              "events)")
+        print(f"[{tag}] window breakdown: not measured (the profiler saw no "
+              "device events)")
         return
-    parts, others = {}, set()
-    k2 = [e for e in events if "fused_conv_lif_kernel" in e[0]]
-    if len(k2) != len(UNET_K2):
-        fail(f"{len(k2)} K2 launches in one window, expected {len(UNET_K2)}")
-    for (hh, ww, cin, c, rec), (_, _, us) in zip(UNET_K2, k2):
-        key = f"K2 {'rec' if rec else 'ff'} {cin}->{c} @{hh}x{ww}"
+    parts, others = {}, {}
+    for key, us in labelled:
         parts[key] = parts.get(key, 0.0) + us
     for name, _, us in events:
         low = name.lower()
-        if "fused_conv_lif_kernel" in name:
+        if labelled and "fused_conv_lif_kernel" in name:
             continue
-        key = ("K1 heads" if "conv2d_same_kernel" in name else
+        key = ("K1 convs" if "conv2d_same_kernel" in name else
+               "K2 cells" if "fused_conv_lif_kernel" in name else
                "K3 scatter" if "scatter_tile_kernel" in name else
                "interpolate" if "upsample" in low else
                "concat" if "cat" in low and "array" in low else
@@ -1104,21 +1307,33 @@ def _window_breakdown(config, model):
                    "conv", "gemm", "xmma", "cudnn")) else
                "other (elementwise, copies, fills)")
         if key.startswith("other"):
-            others.add(name)
+            total, n = others.get(name, (0.0, 0))
+            others[name] = (total + us, n + 1)
         parts[key] = parts.get(key, 0.0) + us
     busy = sum(us for _, _, us in events)
-    print(f"[unet] torch.profiler over one window: device busy "
+    print(f"[{tag}] torch.profiler over one window: device busy "
           f"{busy / 1e3:.4f} ms of {wall_us / 1e3:.4f} ms wall, busy share "
           f"{busy / wall_us:.3f} ({len(events)} device events, profiler on)")
     for key, us in sorted(parts.items(), key=lambda kv: -kv[1]):
-        print(f"[unet]   {us / 1e3:9.4f} ms  {100 * us / busy:5.1f} %  {key}")
-    other = {}
-    for name, _, us in events:
-        if name in others:
-            total, n = other.get(name, (0.0, 0))
-            other[name] = (total + us, n + 1)
-    for name, (us, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"[unet]     other: {us / 1e3:8.4f} ms {n:4d}x  {name[:80]}")
+        print(f"[{tag}]   {us / 1e3:9.4f} ms  {100 * us / busy:5.1f} %  "
+              f"{key}")
+    for name, (us, n) in sorted(others.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[{tag}]     other: {us / 1e3:8.4f} ms {n:4d}x  {name[:80]}")
+
+
+def _window_breakdown(config, model):
+    """One steady window of the U-Net serving path: device ms by part, the
+    K2 calls labelled by shape in launch order, and the busy share."""
+    wall_us, events = window_events(config, model)
+    if not events:
+        window_parts("unet", wall_us, events)
+        return
+    k2 = [e for e in events if "fused_conv_lif_kernel" in e[0]]
+    if len(k2) != len(UNET_K2):
+        fail(f"{len(k2)} K2 launches in one window, expected {len(UNET_K2)}")
+    window_parts("unet", wall_us, events, [
+        (f"K2 {'rec' if rec else 'ff'} {cin}->{c} @{hh}x{ww}", us)
+        for (hh, ww, cin, c, rec), (_, _, us) in zip(UNET_K2, k2)])
 
 
 def phase_unet():
@@ -1167,26 +1382,88 @@ def phase_unet():
     cpu = evaluate(config, "cpu", seed=0)
     if any(native.LAUNCHES.values()):
         fail("the CPU run launched CUDA kernels")
-    gaps = []
-    for metric, per_file in gpu["results"].items():
-        if set(per_file) != set(cpu["results"][metric]) or not per_file:
-            fail(f"{metric}: files differ between GPU and CPU runs")
-        for fname, val in sorted(per_file.items()):
-            ref = cpu["results"][metric][fname]
-            if not (torch.isfinite(torch.tensor(val))
-                    and torch.isfinite(torch.tensor(ref))):
-                fail(f"{metric} {fname}: not finite ({val}, {ref})")
-            gap = abs(val - ref) / abs(ref)
-            print(f"[unet] {metric} {fname}: gpu {val!r} cpu {ref!r} rel gap "
-                  f"{gap:.3g}")
-            if gap > SLICE_RTOL:
-                fail(f"{metric} {fname}: GPU {val} vs CPU {ref}, rel gap "
-                     f"{gap:.3g} > {SLICE_RTOL}")
-            gaps.append(gap)
+    gaps = compare_metrics("unet", gpu["results"], cpu["results"])
     print(f"[unet] cpu plain {n / cpu['seconds']:.3f} windows/s "
           f"({time.perf_counter() - t0:.1f} s with the model's build); max "
           f"rel gap GPU vs CPU {max(gaps):.3g}")
     return counts
+
+
+def compare_metrics(tag, gpu, cpu):
+    """Per-file FWL/RSAT of a card run against the CPU run's: finite, the
+    same files, within SLICE_RTOL; returns the relative gaps."""
+    gaps = []
+    for metric, per_file in gpu.items():
+        if set(per_file) != set(cpu[metric]) or not per_file:
+            fail(f"{metric}: files differ between GPU and CPU runs")
+        for fname, val in sorted(per_file.items()):
+            ref = cpu[metric][fname]
+            if not (torch.isfinite(torch.tensor(val))
+                    and torch.isfinite(torch.tensor(ref))):
+                fail(f"{metric} {fname}: not finite ({val}, {ref})")
+            gap = abs(val - ref) / abs(ref)
+            print(f"[{tag}] {metric} {fname}: gpu {val!r} cpu {ref!r} rel "
+                  f"gap {gap:.3g}")
+            if gap > SLICE_RTOL:
+                fail(f"{metric} {fname}: GPU {val} vs CPU {ref}, rel gap "
+                     f"{gap:.3g} > {SLICE_RTOL}")
+            gaps.append(gap)
+    return gaps
+
+
+def phase_annunet():
+    """RecEVFlowNet (the ANN U-Net): serving at ECD_RECEVFLOWNET over 8
+    windows (two files of 4) on the card and on the CPU, then its training
+    update at TRAIN_ANNREC with the checks of the spiking U-Net's, then
+    GPU-vs-CPU parity at reduced size. Returns the launch counts of the
+    serving run and of the 3 timed updates."""
+    from event_flow_tpu_torch.config import ECD_RECEVFLOWNET, TRAIN_ANNREC
+    from event_flow_tpu_torch.data.stream import synthetic_sequences
+    from event_flow_tpu_torch.eval_flow import evaluate
+    from event_flow_tpu_torch.ops import native
+
+    config = copy.deepcopy(ECD_RECEVFLOWNET)
+    seqs = synthetic_sequences(config, n_windows=4.0)
+    evaluate(config, "cuda", seed=0, sequences=seqs)  # warm-up
+    native.reset_launch_counts()
+    gpu = evaluate(config, "cuda", seed=0, sequences=seqs)
+    counts = dict(native.LAUNCHES)
+    ev = gpu["evaluator"]
+    n, groups = gpu["windows"], ev.metric_groups
+    # per window K1 20: per encoder 2 ConvGRU convs (update and reset
+    # fused, then out) after its strided conv (cuDNN), 2 per residual
+    # block, 4 decoders, 4 heads; K3 the encoding, 4 per metric group
+    expected = {"fused_conv_lif": 0, "fused_conv_lif_rec": 0,
+                "conv2d_same": 20 * n, "scatter_add": n + 4 * groups,
+                "conv2d_dw": 0, "fused_lif_bwd": 0}
+    if counts != expected or n != 8:
+        fail(f"RecEVFlowNet launch counts {counts} != expected {expected} "
+             f"over {n} windows")
+    flow = ev.last_flow
+    if not torch.isfinite(flow).all() or not flow.any():
+        fail("RecEVFlowNet: the last window's flow is all zeros or not "
+             "finite")
+    print(f"[annunet] RecEVFlowNet base "
+          f"{config['model']['base_num_channels']}: {n} windows ({groups} "
+          f"metric groups) at {config['loader']['resolution']}, launches "
+          f"{counts}; last flow max |flow| {float(flow.abs().max()):.4g}")
+    print(f"[annunet] gpu {n / gpu['seconds']:.2f} windows/s, "
+          f"{1e3 * gpu['seconds'] / n:.3f} ms/window")
+    with ShapeLog() as log:
+        wall_us, events = window_events(config, gpu["model"], log)
+    window_parts("annunet", wall_us, events)
+    _print_on_path("annunet", on_path_by_shape(events, log))
+
+    native.reset_launch_counts()
+    cpu = evaluate(config, "cpu", seed=0, sequences=seqs)
+    if any(native.LAUNCHES.values()):
+        fail("the CPU run launched CUDA kernels")
+    gaps = compare_metrics("annunet", gpu["results"], cpu["results"])
+    print(f"[annunet] cpu plain {n / cpu['seconds']:.3f} windows/s; max rel "
+          f"gap GPU vs CPU {max(gaps):.3g}")
+    train_counts = phase_annunet_train()
+    parity_phase("annunet", TRAIN_ANNREC, lockstep=True)
+    return [counts, train_counts]
 
 
 KERNELS = (
@@ -1206,16 +1483,20 @@ KERNELS = (
 
 
 def main():
+    from event_flow_tpu_torch.config import TRAIN_SNNREC
+
     name, _ = phase_device()
     torch.set_grad_enabled(False)
     phase_build()
     measured = phase_kernels()
-    phase_slice()
-    phase_unet()
-    counts = phase_train()
+    # the launch counts of every path's counted run
+    paths = [phase_slice(), phase_unet(), phase_train()]
     phase_parity()
+    paths.append(phase_unet_train())
+    parity_phase("unet-train", TRAIN_SNNREC)
+    paths += phase_annunet()
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[k],
+                "launches": sum(c[k] for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],
                 **{key: measured[k][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}

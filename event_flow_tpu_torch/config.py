@@ -10,15 +10,26 @@ same recursive merge and the same re-nesting of ``spiking_neuron`` under
 :data:`ECD_SPIKING_RECEVFLOWNET` is the same over the model block of
 ``configs/train_SNNrec_rich.yml``, which differs from train_SNN.yml's in
 the model's name only (tests/test_torch_unet.py checks it).
+:data:`ECD_RECEVFLOWNET` is the same over the model block of
+``configs/train_ANNrec_rich.yml`` (relu, no spiking neuron, so the
+merged ``spiking_neuron`` is empty; tests/test_torch_ann_unet.py checks
+it).
 :data:`TRAIN_SNN` is the training recipe: ``configs/train_SNN.yml`` over
 the defaults (tests/test_torch_train.py checks the two agree).
+:data:`TRAIN_SNNREC` and :data:`TRAIN_ANNREC` are
+``configs/train_SNNrec_rich.yml`` and ``configs/train_ANNrec_rich.yml``
+over the defaults: the same recipe (B 8, 128 x 128, T 10 windows of 1000
+events, Adam 2e-4, clip 100) with the two U-Nets and the rich synthetic
+dataset's path (tests/test_torch_unet_grads.py and test_torch_ann_unet.py
+check them).
 """
 
 import copy
 
 __all__ = ["default_config", "merge_dicts", "combine_entries",
            "load_yaml_config", "merge_run_params", "ECD_LIFFIRENET",
-           "ECD_SPIKING_RECEVFLOWNET", "TRAIN_SNN"]
+           "ECD_SPIKING_RECEVFLOWNET", "ECD_RECEVFLOWNET", "TRAIN_SNN",
+           "TRAIN_SNNREC", "TRAIN_ANNREC"]
 
 
 def default_config():
@@ -109,6 +120,12 @@ ECD_LIFFIRENET = {
 ECD_SPIKING_RECEVFLOWNET = merge_dicts(
     {"model": {"name": "SpikingRecEVFlowNet"}}, copy.deepcopy(ECD_LIFFIRENET))
 
+_ANN_UNET = {"name": "RecEVFlowNet", "activations": ["relu", None]}
+
+ECD_RECEVFLOWNET = merge_dicts({"model": _ANN_UNET},
+                               copy.deepcopy(ECD_LIFFIRENET))
+ECD_RECEVFLOWNET["model"]["spiking_neuron"] = {}
+
 
 TRAIN_SNN = {
     "experiment": "Default",
@@ -135,3 +152,13 @@ TRAIN_SNN = {
     "vis": {"bars": False, "verbose": True, "enabled": False, "px": 400,
             "store_grads": False},
 }
+
+_RICH = {"data": {"path": "datasets/synth_rich/train/"}}
+
+TRAIN_SNNREC = merge_dicts(
+    dict(_RICH, model={"name": "SpikingRecEVFlowNet"}),
+    copy.deepcopy(TRAIN_SNN))
+
+TRAIN_ANNREC = merge_dicts(dict(_RICH, model=_ANN_UNET),
+                           copy.deepcopy(TRAIN_SNN))
+TRAIN_ANNREC["model"]["spiking_neuron"] = None

@@ -1,13 +1,15 @@
 """Evaluation entry point of the PyTorch port.
 
 Counterpart of eval_flow.py (the JAX CLI) for events-mode FWL/RSAT
-evaluation of LIFFireNet and SpikingRecEVFlowNet:
+evaluation of LIFFireNet, SpikingRecEVFlowNet and RecEVFlowNet:
 
   python -m event_flow_tpu_torch.eval_flow <runid> --config configs/eval_ECD.yml \
       --synthetic --debug --device cuda
 
 As in the JAX CLI, ``runs/<runid>/params.yml`` (the stored training
-config), when present, is the base under the eval config. Trained
+config), when present, is the base under the eval config: its model
+block picks the model (``configs/train_ANNrec_rich.yml`` copied there
+gives RecEVFlowNet, ``train_SNNrec_rich.yml`` SpikingRecEVFlowNet). Trained
 checkpoints are not loaded yet: the model is initialised from seed 0.
 Only the in-memory twin of ``--synthetic`` is ported as a data source.
 

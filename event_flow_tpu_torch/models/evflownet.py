@@ -1,4 +1,4 @@
-"""The U-Net flow models: SpikingRecEVFlowNet so far.
+"""The U-Net flow models: RecEVFlowNet and SpikingRecEVFlowNet so far.
 
 Counterpart of event_flow_tpu/models/evflownet.py:32-124: the input
 encoding, the U-Net, and every flow brought to the last (full-resolution)
@@ -17,14 +17,18 @@ from torch import nn
 
 from ..ops.resize import resize_nearest
 from .firenet import select_encoding
-from .unet import SpikingMultiResUNetRecurrent
+from .unet import MultiResUNetRecurrent, SpikingMultiResUNetRecurrent
 
 __all__ = ["UNetFlowModel", "UNET_VARIANTS", "make_unet_model"]
 
-# name -> (unet class, num_encoders, num_residual_blocks, skip_type); the
-# other rows of the JAX table wait for a later slice (see ROADMAP.md)
+# name -> (unet class, num_encoders, num_residual_blocks, skip_type,
+# recurrent block type of an ANN U-Net); the other rows of the JAX table
+# (EVFlowNet, RNNRecEVFlowNet, LeakyRecEVFlowNet, the PLIF/ALIF/XLIF
+# U-Nets, E2VID) wait for a later slice (see ROADMAP.md)
 UNET_VARIANTS = {
-    "SpikingRecEVFlowNet": (SpikingMultiResUNetRecurrent, 4, 2, "concat"),
+    "RecEVFlowNet": (MultiResUNetRecurrent, 4, 2, "concat", "convgru"),
+    "SpikingRecEVFlowNet": (SpikingMultiResUNetRecurrent, 4, 2, "concat",
+                            None),
 }
 
 
@@ -55,7 +59,9 @@ class UNetFlowModel(nn.Module):
 
 def make_unet_model(name, model_cfg, generator=None):
     """A U-Net flow model from a reference-schema model config (with
-    ``spiking_neuron`` nested), initialised from ``generator``."""
+    ``spiking_neuron`` nested, None for an ANN), initialised from
+    ``generator``. The activations default as in JAX: ``(relu, None)``
+    for the ANN U-Net, arctanspike for the spiking one."""
     if name not in UNET_VARIANTS:
         raise NotImplementedError(
             f"{name} is not ported to PyTorch yet (see ROADMAP.md)")
@@ -63,19 +69,25 @@ def make_unet_model(name, model_cfg, generator=None):
         raise NotImplementedError("norm_input is not ported (see ROADMAP.md)")
     if model_cfg.get("norm"):
         raise NotImplementedError("norm is not ported (see ROADMAP.md)")
-    unet_cls, n_enc, n_res, skip = UNET_VARIANTS[name]
-    neuron = {k: tuple(v) if isinstance(v, list) else v
-              for k, v in dict(model_cfg.get("spiking_neuron") or {}).items()}
-    ff_act, rec_act = model_cfg.get("activations",
-                                    ("arctanspike", "arctanspike"))
+    unet_cls, n_enc, n_res, skip, rec_type = UNET_VARIANTS[name]
     encoding = model_cfg.get("encoding", "cnt")
     num_bins = model_cfg["num_bins"]
-    unet = unet_cls(
+    common = dict(
         cin=num_bins if encoding == "voxel" else 2,
         base_num_channels=model_cfg.get("base_num_channels", 32),
         num_encoders=n_enc, num_residual_blocks=n_res, skip_type=skip,
         use_upsample_conv=model_cfg.get("use_upsample_conv", True),
-        kernel_size=model_cfg.get("kernel_size", 3),
-        ff_act=ff_act, rec_act=rec_act, neuron_kwargs=neuron,
-        generator=generator)
+        kernel_size=model_cfg.get("kernel_size", 3), generator=generator)
+    if rec_type is not None:
+        ff_act = tuple(model_cfg.get("activations", ("relu", None)))[0]
+        unet = unet_cls(ff_act=ff_act, recurrent_block_type=rec_type,
+                        **common)
+    else:
+        neuron = {k: tuple(v) if isinstance(v, list) else v
+                  for k, v in dict(model_cfg.get("spiking_neuron")
+                                   or {}).items()}
+        ff_act, rec_act = model_cfg.get("activations",
+                                        ("arctanspike", "arctanspike"))
+        unet = unet_cls(ff_act=ff_act, rec_act=rec_act, neuron_kwargs=neuron,
+                        **common)
     return UNetFlowModel(unet, encoding=encoding, num_bins=num_bins)

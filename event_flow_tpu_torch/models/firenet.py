@@ -54,8 +54,8 @@ class FireNet(nn.Module):
         self.G2 = ConvLIFRecurrent(c, c, k, activation=rec_act, **kw)
         self.R2a = ConvLIF(c, c, k, activation=ff_act, **kw)
         self.R2b = ConvLIF(c, c, k, activation=ff_act, **kw)
-        self.pred = ConvLayer(c, 2, 1, w_scale=w_scale_pred,
-                              generator=generator)
+        self.pred = ConvLayer(c, 2, 1, activation="tanh",
+                              w_scale=w_scale_pred, generator=generator)
 
     def forward(self, event_voxel, event_cnt, state, log=False):
         x = select_encoding(self.encoding, self.num_bins, event_voxel,

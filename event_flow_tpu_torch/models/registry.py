@@ -1,5 +1,5 @@
 """Model registry of the port: the JAX registry's names, with the
-LIFFireNet and SpikingRecEVFlowNet rows built so far
+LIFFireNet, RecEVFlowNet and SpikingRecEVFlowNet rows built so far
 (event_flow_tpu/models/registry.py)."""
 
 from .evflownet import make_unet_model
@@ -18,6 +18,7 @@ KNOWN_MODELS = (
 )
 
 _FACTORIES = {"LIFFireNet": make_liffirenet,
+              "RecEVFlowNet": make_unet_model,
               "SpikingRecEVFlowNet": make_unet_model}
 
 

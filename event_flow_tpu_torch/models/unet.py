@@ -1,29 +1,113 @@
-"""The all-spiking EV-FlowNet U-Net.
+"""The recurrent EV-FlowNet U-Nets: the ANN one and the all-spiking one.
 
 Counterpart of event_flow_tpu/models/unet.py: the channel schedule of
-``_UNetBase`` (:50-101) and ``SpikingMultiResUNetRecurrent`` (:213-318).
-Four stride-2 spiking recurrent encoders at ``base * 2^(i+1)`` channels,
-residual blocks at the widest, decoders at ``base * 2^i`` in reverse that
-upsample x2 bilinearly into a LIF cell, and after each decoder a 1x1 tanh
-prediction (w_scale 0.01). Decoder i's input is the previous output fitted
-to encoder (3 - i)'s size and concatenated with it, and for i > 0 the
-previous prediction fitted and put first: ``[pred, x, block]``, the order
-the weight layout follows.
+``_UNetBase`` (:50-101), ``MultiResUNetRecurrent`` (:152-210) and
+``SpikingMultiResUNetRecurrent`` (:213-318).
 
-State: a tuple of encoders ``((v, z), (v, z))``, residual blocks
+``MultiResUNetRecurrent`` (RecEVFlowNet): four stride-2 recurrent
+encoders (a strided conv + relu, then a ConvGRU) at ``base * 2^(i+1)``
+channels, stateless residual blocks at the widest, decoders at
+``base * 2^i`` that upsample x2 bilinearly into a conv + relu, and after
+each decoder a 1x1 tanh prediction with torch's default init (JAX's
+``make_unet_model`` passes no ``w_scale_pred``). State: a flat tuple of
+the four ConvGRU states.
+
+``SpikingMultiResUNetRecurrent`` (SpikingRecEVFlowNet): the same
+schedule with spiking recurrent encoders, spiking residual blocks,
+decoders that upsample into a LIF cell, and predictions with w_scale
+0.01. State: a tuple of encoders ``((v, z), (v, z))``, residual blocks
 ``((v, z), (v, z))`` and decoders ``(v, z)``, in that order.
+
+In both, decoder i's input is the previous output fitted to encoder
+(3 - i)'s size and concatenated with it, and for i > 0 the previous
+prediction fitted and put first: ``[pred, x, block]``, the order the
+weight layout follows.
 """
 
 from torch import nn
 
-from .cells import ConvLayer
+from .cells import (ConvLayer, RecurrentConvLayer, ResidualBlock,
+                    UpsampleConvLayer)
 from .model_util import get_skip_fn
 from .snn_cells import (SpikingRecurrentConvLayer, SpikingResidualBlock,
                         SpikingTransposedConvLayer, SpikingUpsampleConvLayer)
 
-__all__ = ["SpikingMultiResUNetRecurrent"]
+__all__ = ["MultiResUNetRecurrent", "SpikingMultiResUNetRecurrent"]
 
 FLOW_CHANNELS = 2
+
+
+def _schedule(base_num_channels, num_encoders):
+    """(encoder output channels, decoder output channels, decoder input
+    channels): decoder i reads the previous output, encoder (n - 1 - i)'s
+    and, for i > 0, the previous 2-channel prediction."""
+    enc = [base_num_channels * 2 ** (i + 1) for i in range(num_encoders)]
+    dec = [base_num_channels * 2 ** i for i in reversed(range(num_encoders))]
+    dec_in = [(FLOW_CHANNELS if i else 0) + (dec[i - 1] if i else enc[-1])
+              + enc[num_encoders - 1 - i] for i in range(num_encoders)]
+    return enc, dec, dec_in
+
+
+class MultiResUNetRecurrent(nn.Module):
+    """ANN recurrent encoders (strided conv, ConvGRU), residual blocks,
+    upsample-conv decoders and per-scale tanh predictions, low to high
+    resolution. ``forward(x, state) -> (predictions, state)``."""
+
+    def __init__(self, cin, base_num_channels, num_encoders,
+                 num_residual_blocks, skip_type, use_upsample_conv,
+                 kernel_size=3, ff_act="relu", recurrent_block_type="convgru",
+                 generator=None):
+        super().__init__()
+        if not use_upsample_conv:
+            raise NotImplementedError(
+                "the transposed-conv decoder is not ported to PyTorch yet "
+                "(see ROADMAP.md)")
+        self.num_encoders = num_encoders
+        self.skip_fn = get_skip_fn(skip_type)
+        enc, dec, dec_in = _schedule(base_num_channels, num_encoders)
+        k, gen = kernel_size, generator
+        # construction order fixes the draw order of the seeded init
+        self.encoders = nn.ModuleList()
+        for feats in enc:
+            self.encoders.append(RecurrentConvLayer(
+                cin, feats, k, stride=2,
+                recurrent_block_type=recurrent_block_type,
+                activation_ff=ff_act, generator=gen))
+            cin = feats
+        self.resblocks = nn.ModuleList(
+            ResidualBlock(enc[-1], activation=ff_act, generator=gen)
+            for _ in range(num_residual_blocks))
+        self.decoders = nn.ModuleList(
+            UpsampleConvLayer(c_in, feats, k, activation=ff_act,
+                              generator=gen)
+            for c_in, feats in zip(dec_in, dec))
+        self.preds = nn.ModuleList(
+            ConvLayer(feats, FLOW_CHANNELS, 1, activation="tanh",
+                      generator=gen) for feats in dec)
+
+    def forward(self, x, state):
+        state = list(state)
+        blocks = []
+        for i, enc in enumerate(self.encoders):
+            x, state[i] = enc(x, state[i])
+            blocks.append(x)
+        for res in self.resblocks:
+            x = res(x)
+        predictions = []
+        for i, (dec, pred) in enumerate(zip(self.decoders, self.preds)):
+            x = self.skip_fn(x, blocks[self.num_encoders - i - 1])
+            if i > 0:
+                x = self.skip_fn(predictions[-1], x)
+            x = dec(x)
+            predictions.append(pred(x))
+        return predictions, tuple(state)
+
+    def zero_state(self, batch, h, w, device):
+        states = []
+        for enc in self.encoders:
+            states.append(enc.zero_state(batch, h, w, device))
+            h, w = states[-1].shape[1:3]
+        return tuple(states)
 
 
 class SpikingMultiResUNetRecurrent(nn.Module):
@@ -39,9 +123,7 @@ class SpikingMultiResUNetRecurrent(nn.Module):
         self.num_encoders = num_encoders
         self.num_residual_blocks = num_residual_blocks
         self.skip_fn = get_skip_fn(skip_type)
-        enc = [base_num_channels * 2 ** (i + 1) for i in range(num_encoders)]
-        dec = [base_num_channels * 2 ** i
-               for i in reversed(range(num_encoders))]
+        enc, dec, dec_in = _schedule(base_num_channels, num_encoders)
         kw = dict(neuron_kwargs or {})
         kw["generator"] = generator
         k = kernel_size
@@ -56,19 +138,16 @@ class SpikingMultiResUNetRecurrent(nn.Module):
             SpikingResidualBlock(enc[-1], activation=ff_act, **kw)
             for _ in range(num_residual_blocks))
         self.decoders = nn.ModuleList()
-        x_ch, pred_ch = enc[-1], 0
-        for i, feats in enumerate(dec):
-            dec_in = pred_ch + x_ch + enc[num_encoders - 1 - i]
+        for c_in, feats in zip(dec_in, dec):
             if use_upsample_conv:
                 self.decoders.append(SpikingUpsampleConvLayer(
-                    dec_in, feats, k, activation=ff_act, **kw))
+                    c_in, feats, k, activation=ff_act, **kw))
             else:
-                self.decoders.append(SpikingTransposedConvLayer(dec_in, feats,
+                self.decoders.append(SpikingTransposedConvLayer(c_in, feats,
                                                                 k))
-            x_ch, pred_ch = feats, FLOW_CHANNELS
         self.preds = nn.ModuleList(
-            ConvLayer(feats, FLOW_CHANNELS, 1, w_scale=0.01,
-                      generator=generator) for feats in dec)
+            ConvLayer(feats, FLOW_CHANNELS, 1, activation="tanh",
+                      w_scale=0.01, generator=generator) for feats in dec)
 
     def forward(self, x, state):
         state = list(state)

@@ -24,10 +24,11 @@ of up to 32 input channels staged at once with ``cp.async`` into
 pixel-major, bank-padded shared memory, no im2col matrix anywhere, and y
 written from the MMA fragments as 32 contiguous bytes per quad of lanes.
 It runs the 1x1 prediction heads (32 -> 2; the U-Net's 256, 128, 64 and
-32 -> 2) and, in training, every dx (32 -> 32 at k = 3; 2 -> 32 at
-k = 1 for the head's), about 34 MB and
-2.4 GFLOP per dx call at 8 x 128 x 128: bound by bytes, which the
-coalesced epilogue and the asynchronous 16-byte staging address.
+32 -> 2), every stride-1 conv of RecEVFlowNet (the ConvGRU gates up to
+1024 -> 1024, where it is slower than cuDNN: PERF.md) and, in training,
+every dx (32 -> 32 at k = 3; 2 -> 32 at k = 1 for the head's), about
+34 MB and 2.4 GFLOP per dx call at 8 x 128 x 128: bound by bytes, which
+the coalesced epilogue and the asynchronous 16-byte staging address.
 Deterministic: every output is a fixed sequence of MMAs.
 
 B2 source note (details in ``csrc/conv_dw.cu``): replaces the Pallas
@@ -89,18 +90,29 @@ def conv2d_same_plain(x, w):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def _cudnn_f32_deterministic():
+    """cuDNN with TF32 off, a deterministic algorithm and no autotuning,
+    whatever the process's flags."""
+    return torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                      allow_tf32=False, deterministic=True,
+                                      benchmark=False)
+
+
 class _ConvStrided(torch.autograd.Function):
-    """The strided conv with TF32 off in its forward and in both of its
-    gradients: autograd's own backward of ``F.conv2d`` would run under the
-    process's ``torch.backends.cudnn.allow_tf32``, True by default on the
-    card, and one TF32 pass misses f32 by up to 8e-4 of max|dw| at the
-    U-Net encoders' shapes."""
+    """The strided conv under :func:`_cudnn_f32_deterministic` in its
+    forward and in both of its gradients. Autograd's own backward of
+    ``F.conv2d`` would run under the process's flags: with
+    ``torch.backends.cudnn.allow_tf32``, True by default on the card, one
+    TF32 pass misses f32 by up to 8e-4 of max|dw| at the U-Net encoders'
+    shapes; and without ``deterministic``, cuDNN may pick a wgrad or dgrad
+    algorithm that adds with atomics, which breaks the bitwise repeat of
+    an update."""
 
     @staticmethod
     def forward(ctx, x, w, stride):
         ctx.save_for_backward(x, w)
         ctx.stride = stride
-        with _no_tf32():
+        with _cudnn_f32_deterministic():
             y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
                          padding=w.shape[2] // 2)
         return y.permute(0, 2, 3, 1).contiguous()
@@ -110,7 +122,7 @@ class _ConvStrided(torch.autograd.Function):
         x, w = ctx.saved_tensors
         need_x, need_w, _ = ctx.needs_input_grad
         p = w.shape[2] // 2
-        with _no_tf32():
+        with _cudnn_f32_deterministic():
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None,
                 [ctx.stride] * 2, [p, p], [1, 1], False, [0, 0], 1,
@@ -121,8 +133,9 @@ class _ConvStrided(torch.autograd.Function):
 def conv2d_strided(x, w, stride):
     """y [B, ceil(H/s), ceil(W/s), Cout] = the conv of x [B,H,W,Cin] with
     w [Cout,Cin,k,k] at ``stride``, padding k // 2: the U-Net encoders'
-    feedforward conv. ``F.conv2d`` in NCHW with TF32 off on every device,
-    forward and backward, whatever the process's TF32 flags. In JAX a
+    feedforward conv. ``F.conv2d`` in NCHW with TF32 off and cuDNN's
+    deterministic algorithms on every device, forward and backward,
+    whatever the process's flags. In JAX a
     strided conv never reaches Pallas either: it is ``lax.conv`` at f32
     (event_flow_tpu/models/conv.py:142-150, :229-238)."""
     if x.dim() != 4 or w.dim() != 4 or w.shape[1] != x.shape[3]:

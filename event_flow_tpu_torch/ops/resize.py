@@ -12,16 +12,20 @@ Pallas in JAX, so both are plain PyTorch here:
   and differs from it at non-integer ratios (the U-Net's 24 x 30 and
   46 x 60 flows brought to 180 x 240).
 
-Their backward (``upsample_bilinear2d_backward``,
-``_upsample_nearest_exact2d_backward``) multiplies by fixed interpolation
-weights and does no matrix product, so torch's TF32 flags do not reach
-it. On the card the bilinear one adds with float atomics, so it is not
-bitwise repeatable (ROADMAP.md).
+Neither backward does a matrix product, so torch's TF32 flags do not
+reach them. The bilinear upsampling has its own backward
+(:class:`_Upsample2xBilinear`): torch's CUDA ``upsample_bilinear2d_backward``
+adds with float atomics, so it is not bitwise repeatable, and
+``torch.use_deterministic_algorithms(True)`` raises on it. The nearest
+resize keeps torch's backward, which on the card sums each input pixel's
+own window (a gather, no atomics), so it repeats and the flag allows it.
 """
 
+import torch
 import torch.nn.functional as F
 
-__all__ = ["upsample2x_bilinear", "resize_nearest"]
+__all__ = ["upsample2x_bilinear", "upsample2x_bilinear_grad",
+           "resize_nearest"]
 
 
 def _nchw(x):
@@ -32,11 +36,50 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def _grad_axis(g, dim):
+    """The transpose of the x2 half-pixel upsampling along ``dim`` of g
+    (size 2n -> n). Forward: out[2i] = 0.75 x[i] + 0.25 x[max(i-1, 0)],
+    out[2i+1] = 0.75 x[i] + 0.25 x[min(i+1, n-1)]; so gx[i] =
+    0.75 (g[2i] + g[2i+1]) + 0.25 (g[2i-1] + g[2i+2]), the edge terms
+    folded back into gx[0] and gx[n-1] by padding g with its own edges."""
+    n = g.shape[dim] // 2
+    gp = torch.cat([g.narrow(dim, 0, 1), g, g.narrow(dim, 2 * n - 1, 1)],
+                   dim=dim)  # gp[j] = g[j - 1], edges repeated
+
+    def every2(start):  # gp[start + 2i], i < n
+        idx = [slice(None)] * gp.dim()
+        idx[dim] = slice(start, start + 2 * n, 2)
+        return gp[tuple(idx)]
+
+    return 0.75 * (every2(1) + every2(2)) + 0.25 * (every2(0) + every2(3))
+
+
+def upsample2x_bilinear_grad(g):
+    """The cotangent of :func:`upsample2x_bilinear`'s input from its
+    output's, g [B, 2H, 2W, C] -> [B, H, W, C]: two separable passes of
+    slices and adds in a fixed order, the same on every device."""
+    return _grad_axis(_grad_axis(g, 2), 1).contiguous()
+
+
+class _Upsample2xBilinear(torch.autograd.Function):
+    """Forward: torch's bilinear interpolation (a gather). Backward: the
+    fixed-order stencil of :func:`upsample2x_bilinear_grad`."""
+
+    @staticmethod
+    def forward(ctx, x):
+        h, w = x.shape[1:3]
+        return _nhwc(F.interpolate(_nchw(x), size=(2 * h, 2 * w),
+                                   mode="bilinear", align_corners=False))
+
+    @staticmethod
+    def backward(ctx, g):
+        return upsample2x_bilinear_grad(g)
+
+
 def upsample2x_bilinear(x):
-    """[B, H, W, C] -> [B, 2H, 2W, C], bilinear, align_corners=False."""
-    h, w = x.shape[1:3]
-    return _nhwc(F.interpolate(_nchw(x), size=(2 * h, 2 * w),
-                               mode="bilinear", align_corners=False))
+    """[B, H, W, C] -> [B, 2H, 2W, C], bilinear, align_corners=False,
+    with a backward that repeats bitwise."""
+    return _Upsample2xBilinear.apply(x)
 
 
 def resize_nearest(x, out_hw):

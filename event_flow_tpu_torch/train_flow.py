@@ -6,6 +6,9 @@ events-mode training on the synthetic stream:
   python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
       --synthetic --max_updates 10 --device cuda
 
+``configs/train_SNNrec_rich.yml`` trains SpikingRecEVFlowNet and
+``configs/train_ANNrec_rich.yml`` RecEVFlowNet at the same recipe.
+
 Prints the loss of each update and its wall time. Checkpoints, the run
 tracker, ``--resume``, ``--prev_runid`` and the HDF5 and native loaders
 are not ported yet (ROADMAP.md). :func:`train` is what the CLI calls.

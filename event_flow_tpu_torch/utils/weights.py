@@ -11,10 +11,14 @@ Values go HWIO -> OIHW and per-channel neuron vectors (C,) -> the
 template's (C, 1, 1).
 
 One fixed rename of the flax names cannot give the torch names: the
-U-Net's ``encoders_i/conv`` (a strided LIF cell) keeps ``conv`` in torch,
-while ``preds_i/conv`` (a ConvLayer's conv) becomes ``preds.i.conv2d``,
-and the container prefix depends on the model class. So the torch names
-come from a template, the target model's own ``state_dict()``.
+spiking U-Net's ``encoders_i/conv`` (a strided LIF cell) keeps ``conv``
+in torch, while ``preds_i/conv`` (a ConvLayer's conv) becomes
+``preds.i.conv2d``; RecEVFlowNet's ``encoders_i/conv/conv`` (the
+ConvLayer of a recurrent layer and its conv) becomes
+``encoders.i.conv.conv2d``, its ConvGRU gates and residual convs keep
+their names (``recurrent_block.update_gate``, ``resblocks.i.conv1``); and
+the container prefix depends on the model class. So the torch names come
+from a template, the target model's own ``state_dict()``.
 """
 
 import numpy as np

@@ -579,3 +579,95 @@ def test_strided_conv_grads_are_f32_under_default_tf32(dev):
     for got, ref in zip(*grads):
         err = float((got.double() - ref).abs().max())
         assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+# the decoders' bilinear x2 inputs of the U-Net update at B 8, 128 x 128
+UPSAMPLE_SHAPES = [(8, 8, 8, 1024), (8, 16, 16, 514), (8, 32, 32, 258),
+                   (8, 64, 64, 130)]
+
+
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
+def test_bilinear_backward_repeats_and_matches_cpu(dev, shape):
+    """The fixed-order backward of upsample2x_bilinear (no atomics): twice
+    bitwise equal on the card and within 1e-6 of max|gx| of the same
+    stencil on the CPU (f32 products and sums, the card may contract them
+    into fused multiply-adds)."""
+    from event_flow_tpu_torch.ops.resize import (upsample2x_bilinear,
+                                                 upsample2x_bilinear_grad)
+
+    g = _gen()
+    b, h, w, c = shape
+    x = torch.randn(shape, generator=g).to(dev).requires_grad_()
+    gy = torch.randn((b, 2 * h, 2 * w, c), generator=g)
+    y = upsample2x_bilinear(x)
+    first = torch.autograd.grad(y, x, gy.to(dev))[0]
+    again = torch.autograd.grad(upsample2x_bilinear(x), x, gy.to(dev))[0]
+    assert torch.equal(first, again)
+    ref = upsample2x_bilinear_grad(gy)
+    err = float((first.cpu() - ref).abs().max())
+    assert err <= 1e-6 * float(ref.abs().max()), err
+
+
+# the U-Net encoders' strided convs at B 8, 128 x 128: (x shape, Cout)
+ENCODER_SHAPES = [((8, 128, 128, 2), 64), ((8, 64, 64, 64), 128),
+                  ((8, 32, 32, 128), 256), ((8, 16, 16, 256), 512)]
+
+
+@pytest.mark.parametrize("shape,cout", ENCODER_SHAPES)
+def test_strided_conv_backward_repeats_under_any_flags(dev, shape, cout):
+    """conv2d_strided's dx and dw twice bitwise equal with cuDNN's TF32
+    and autotuning switched on around the call: the conv sets its own
+    flags (TF32 off, deterministic algorithms, no autotuning)."""
+    g = _gen()
+    x = torch.randn(shape, generator=g).to(dev)
+    w = (0.05 * torch.randn((cout, shape[3], 3, 3), generator=g)).to(dev)
+    gy = torch.randn((shape[0], shape[1] // 2, shape[2] // 2, cout),
+                     generator=g).to(dev)
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True,
+                                    benchmark=True, deterministic=False):
+        for _ in range(2):
+            xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = conv2d_strided(xs, ws, 2)
+            runs.append((y.detach(),) + torch.autograd.grad(y, (xs, ws), gy))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _small_update(dev, recipe, base):
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    cfg = copy.deepcopy(recipe)
+    cfg["loader"].update(batch_size=2, resolution=[64, 64])
+    cfg["data"].update(window=500, window_loss=1000)
+    cfg["model"]["base_num_channels"] = base
+    trainer = Trainer(cfg, dev)
+    stream = SyntheticWindowStream(cfg)
+    loss = None
+    while loss is None:
+        loss = trainer.feed(stream.next_batch())
+    return loss
+
+
+@pytest.mark.parametrize("name", ["SpikingRecEVFlowNet", "RecEVFlowNet"])
+def test_unet_update_under_deterministic_algorithms(dev, name):
+    """One update of each U-Net with torch.use_deterministic_algorithms on:
+    an op with a nondeterministic CUDA backward would raise instead of
+    drifting (the bilinear and strided conv backward, the concat and crop
+    of the skips, the nearest resize of the flows, the gathers and
+    scatters of the loss)."""
+    from event_flow_tpu_torch.config import TRAIN_ANNREC, TRAIN_SNNREC
+    from event_flow_tpu_torch.ops.resize import resize_nearest
+
+    recipe = TRAIN_SNNREC if name == "SpikingRecEVFlowNet" else TRAIN_ANNREC
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.enable_grad():
+            loss = _small_update(dev, recipe, 8)
+            x = torch.randn((1, 12, 15, 2), device=dev, requires_grad=True)
+            gx = torch.autograd.grad(resize_nearest(x, (180, 240)).sum(), x)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.isfinite(torch.tensor(loss))
+    assert float(gx[0].min()) == float(gx[0].max()) == 15 * 16

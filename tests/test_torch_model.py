@@ -86,7 +86,8 @@ def test_seeded_init_distributions():
 
 
 def test_unported_models_raise():
-    assert available_models() == ["LIFFireNet", "SpikingRecEVFlowNet"]
+    assert available_models() == ["LIFFireNet", "RecEVFlowNet",
+                                  "SpikingRecEVFlowNet"]
     for name in KNOWN_MODELS:
         if name not in available_models():
             with pytest.raises(NotImplementedError, match="ROADMAP.md"):
