@@ -43,11 +43,26 @@ exits non-zero without the final ``ok`` line:
               windows: launch counts, windows/s, a profiled window, FWL/RSAT
               against the CPU), then its training update at
               configs/train_ANNrec_rich.yml with the checks of phase 8
+ 10. firenet  FireNet, the ANN model of configs/train_ANN.yml: serving at
+              configs/eval_ECD.yml with that model block (16 windows: launch
+              counts, windows/s, a profiled window, FWL/RSAT against the
+              CPU), then its training update at configs/train_ANN.yml with
+              the checks of phase 8
+ 11. models   RNNFireNet, FireFlowNet, LIFFireFlowNet, EVFlowNet (also with
+              the transposed decoder, BN and norm_input), RNNRecEVFlowNet
+              and E2VID at base 32: 2 serving windows each with launch
+              counts and FWL/RSAT against the CPU, one update at B 8,
+              128 x 128, T 10 run twice bitwise equal with its launch
+              counts, and at B 2, 64 x 64, T 3 the first update's loss
+              and the model's gradients under the CPU's cotangent of the
+              flows against the CPU (model_parity)
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
 with spike and dense randn inputs; K1 and B2 at the ConvGRU's deepest
-shapes (1024 -> 1024 and 1024 -> 512, at 8 x 8 x 8 and 1 x 12 x 15) beside
+shapes (1024 -> 1024 and 1024 -> 512, at 8 x 8 x 8 and 1 x 12 x 15), at
+FireNet's ConvGRU gates (64 -> 64 and 64 -> 32 at 8 x 128 x 128) and at
+E2VID's deepest ConvLSTM gates (512 -> 1024 at 8 x 16 x 16), beside
 cuDNN's conv and weight gradient; B2 at every weight shape of the
 FireNet and U-Net training updates, against float64 as well, with its
 device time beside cuDNN's weight gradient; B4 at the U-Net residual
@@ -61,7 +76,7 @@ user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8, 9). Imports
+sum over the counted runs of every path (phases 4-6, 8-11). Imports
 nothing of JAX.
 """
 
@@ -621,24 +636,30 @@ def kernels_dw(inp, out):
         _record(out, "conv2d_dw", err, timing)
 
 
-# K1 and B2 at the ConvGRU's deepest shapes (RecEVFlowNet's encoder 3, 512
-# features): the fused update and reset gates 1024 -> 1024 and the out
-# gate 1024 -> 512, k 3, at the training recipe's 8 x 8 x 8 (B 8, 128 x 128
-# input) and at serving's 1 x 12 x 15 (180 x 240 input)
-GRU_SHAPES = tuple((b, h, w, 1024, cout) for b, h, w in ((8, 8, 8),
-                                                         (1, 12, 15))
+# K1 and B2 at the recurrent gates' shapes, as (cell, B, H, W, Cin, Cout):
+# the ConvGRU's deepest (RecEVFlowNet's encoder 3, 512 features: the fused
+# update and reset gates 1024 -> 1024 and the out gate 1024 -> 512, k 3)
+# at the training recipe's 8 x 8 x 8 (B 8, 128 x 128 input) and at
+# serving's 1 x 12 x 15 (180 x 240 input); FireNet's ConvGRU (32
+# features: 64 -> 64 fused, 64 -> 32 out) and E2VID's deepest ConvLSTM
+# gates (encoder 2, 256 features: 512 -> 1024) at the training recipe
+GRU_SHAPES = tuple(("ConvGRU", b, h, w, 1024, cout)
+                   for b, h, w in ((8, 8, 8), (1, 12, 15))
                    for cout in (1024, 512))
+GATE_SHAPES = GRU_SHAPES + (("FireNet ConvGRU", 8, 128, 128, 64, 64),
+                            ("FireNet ConvGRU", 8, 128, 128, 64, 32),
+                            ("E2VID ConvLSTM", 8, 16, 16, 512, 1024))
 
 
 def kernels_gru(inp, out):
-    """K1 and B2 at GRU_SHAPES on dense inputs (the gates read relu
+    """K1 and B2 at GATE_SHAPES on dense inputs (the gates read relu
     outputs and the state), each against its plain version, run twice and
     bitwise equal, with its device time beside cuDNN's conv and wgrad."""
     from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel,
                                                conv2d_dw_plain, conv2d_same,
                                                conv2d_same_plain)
 
-    for b, h, w, cin, cout in GRU_SHAPES:
+    for cell, b, h, w, cin, cout in GATE_SHAPES:
         x = inp.normal((b, h, w, cin), 0.5)
         wt = inp.uniform((cout, cin, 3, 3), (1 / (9 * cin)) ** 0.5)
         g = inp.normal((b, h, w, cout), 1e-3)
@@ -646,14 +667,14 @@ def kernels_gru(inp, out):
         y = conv2d_same(x, wt)
         err = float((y - conv2d_same_plain(x, wt)).abs().max())
         if not err <= ATOL:
-            fail(f"K1 ConvGRU {shape}: max |err| {err} > {ATOL}")
+            fail(f"K1 {cell} {shape}: max |err| {err} > {ATOL}")
         if not torch.equal(y, conv2d_same(x, wt)):
-            fail(f"K1 ConvGRU {shape}: two runs differ")
+            fail(f"K1 {cell} {shape}: two runs differ")
         _record(out, "conv2d_same", err)
         dw = conv2d_dw_kernel(x, g, 3)
-        err_dw = check_sum(dw, conv2d_dw_plain(x, g, 3), f"B2 ConvGRU {shape}")
+        err_dw = check_sum(dw, conv2d_dw_plain(x, g, 3), f"B2 {cell} {shape}")
         if not torch.equal(dw, conv2d_dw_kernel(x, g, 3)):
-            fail(f"B2 ConvGRU {shape}: two runs differ")
+            fail(f"B2 {cell} {shape}: two runs differ")
         _record(out, "conv2d_dw", err_dw)
         npix = b * h * w
         flop = 2 * npix * cout * cin * 9
@@ -667,7 +688,7 @@ def kernels_gru(inp, out):
             d_k, src_k = device_ms(run_k)
             d_l, src_l = device_ms(run_l)
             b_ms, b_by = least_ms(nbytes, flop)
-            print(f"[kernels] {label} ConvGRU {shape} randn: max|err| "
+            print(f"[kernels] {label} {cell} {shape} randn: max|err| "
                   f"{e:.3g}, repeatable; kernel device {d_k:.4f} ms/call "
                   f"[{src_k}] ({_rates(nbytes, flop, d_k)}, "
                   f"{b_ms / d_k:.3f} of its bound {b_ms:.4f} ms, {b_by}); "
@@ -1045,6 +1066,36 @@ def _print_on_path(tag, by_shape):
               f"{n} calls, {ms:.4f} ms, {ms / n:.4f} ms/call")
 
 
+def update_twice(tag, config):
+    """Update 1 of ``config`` on the card from the seeded init, then again
+    from the same init and batches in a second trainer: the loss and every
+    gradient bitwise equal. Returns (the first trainer, its stream, the
+    loss, the launch counts of the second run)."""
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    name = config["model"]["name"]
+    with torch.enable_grad():
+        trainer = Trainer(config, "cuda")
+        stream = SyntheticWindowStream(config)
+        first = _feed_update(trainer, stream)
+        grads_1 = _grads(trainer.model)
+        native.reset_launch_counts()
+        again = Trainer(config, "cuda")
+        again_loss = _feed_update(again, SyntheticWindowStream(config))
+        counts = dict(native.LAUNCHES)
+        grads_again = _grads(again.model)
+    if again_loss != first or set(grads_again) != set(grads_1) or not all(
+            torch.equal(grads_1[k], grads_again[k]) for k in grads_1):
+        fail(f"{name}: update 1 run twice on the card is not bitwise equal")
+    if not torch.isfinite(torch.tensor(first)):
+        fail(f"{name}: non-finite training loss {first}")
+    print(f"[{tag}] {name} update 1 run twice from the same state: loss "
+          f"{first!r} and all {len(grads_1)} gradients bitwise equal")
+    return trainer, stream, first, counts
+
+
 def train_phase(tag, config, expected):
     """The training update at ``config`` on the card: update 1 run twice
     from the same init and batches, bitwise equal in the loss and every
@@ -1053,33 +1104,15 @@ def train_phase(tag, config, expected):
     memory; and torch.profiler over one more update: device busy time,
     operations, the top kernels and K1 and B2 by shape. Returns the launch
     counts of the 3 updates."""
-    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
     from event_flow_tpu_torch.ops import native
-    from event_flow_tpu_torch.train.loop import Trainer
 
     config = copy.deepcopy(config)
     b = config["loader"]["batch_size"]
     res = config["loader"]["resolution"]
     name = config["model"]["name"]
     with torch.enable_grad():
-        trainer = Trainer(config, "cuda")
-        stream = SyntheticWindowStream(config)
+        trainer, stream, first, _ = update_twice(tag, config)
         t = trainer.t_windows
-        first = _feed_update(trainer, stream)  # warm-up, update 1
-        grads_1 = _grads(trainer.model)
-
-        # update 1 again, from the same init and batches: bitwise equal
-        again = Trainer(config, "cuda")
-        again_loss = _feed_update(again, SyntheticWindowStream(config))
-        grads_again = _grads(again.model)
-        if again_loss != first or set(grads_again) != set(grads_1) or not all(
-                torch.equal(grads_1[k], grads_again[k]) for k in grads_1):
-            fail(f"{name}: update 1 run twice on the card is not bitwise "
-                 "equal")
-        del again, grads_again
-        print(f"[{tag}] update 1 run twice from the same state: loss "
-              f"{first!r} and all {len(grads_1)} gradients bitwise equal")
-
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         native.reset_launch_counts()
@@ -1178,11 +1211,23 @@ def phase_annunet_train():
         "fused_lif_bwd": 0, "conv2d_dw": 20 * t * u})
 
 
+def parity_config(config, seed=None):
+    """``config`` at the parity runs' size: B 2, 64 x 64, T 3, its model
+    at full width; ``seed``, where given, as ``loader.seed`` (the init and
+    the stream)."""
+    config = copy.deepcopy(config)
+    config["loader"].update(batch_size=2, resolution=[64, 64])
+    if seed is not None:
+        config["loader"]["seed"] = seed
+    config["data"].update(window=1000, window_loss=3000)
+    return config
+
+
 def parity_phase(tag, config, lockstep=False):
-    """3 updates at B 2, 64 x 64, T 3 of ``config``'s model at its full
-    width on the card and on the CPU, from the same seeded init and
-    stream: the losses within TRAIN_LOSS_RTOL and the gradients of update
-    1 within TRAIN_GRAD_RTOL; the CPU run launches no CUDA kernel. With
+    """3 updates at parity_config's size of ``config``'s model on the card
+    and on the CPU, from the same seeded init and stream: the losses
+    within TRAIN_LOSS_RTOL and the gradients of update 1 within
+    TRAIN_GRAD_RTOL; the CPU run launches no CUDA kernel. With
     ``lockstep``, the CPU trainer takes the card's parameters, Adam state
     and carried state before each update, so that each update's loss is
     compared from one state. The relu U-Net needs it: its loss after Adam
@@ -1198,12 +1243,10 @@ def parity_phase(tag, config, lockstep=False):
     from event_flow_tpu_torch.ops import native
     from event_flow_tpu_torch.train.loop import Trainer
 
-    config = copy.deepcopy(config)
-    config["loader"].update(batch_size=2, resolution=[64, 64])
-    config["data"].update(window=1000, window_loss=3000)
+    config = parity_config(config)
     name = config["model"]["name"]
     devs = ("cuda", "cpu")
-    losses, grads = {d: [] for d in devs}, {d: [] for d in devs}
+    losses, grads = {d: [] for d in devs}, {}
     with torch.enable_grad():
         trainers = {d: Trainer(config, d) for d in devs}
         streams = {d: SyntheticWindowStream(config) for d in devs}
@@ -1216,8 +1259,8 @@ def parity_phase(tag, config, lockstep=False):
                     fail(f"{name}: the {dev} run launched {launched} CUDA "
                          "kernels")
                 if i == 0:
-                    grads[dev].append({k: g.cpu() for k, g in
-                                       _grads(trainers[dev].model).items()})
+                    grads[dev] = {k: g.cpu() for k, g in
+                                  _grads(trainers[dev].model).items()}
             if lockstep:
                 gpu, cpu = trainers["cuda"], trainers["cpu"]
                 cpu.model.load_state_dict(gpu.model.state_dict())
@@ -1225,30 +1268,108 @@ def parity_phase(tag, config, lockstep=False):
                     gpu.state.optimizer.optimizer.state_dict())
                 cpu.state = cpu.state._replace(model_state=_map_state(
                     lambda t: t.cpu(), gpu.state.model_state))
-    gl, cl = losses["cuda"], losses["cpu"]
-    for i, (a, r) in enumerate(zip(gl, cl)):
+    worst = _hold_to_cpu(name, losses["cuda"], losses["cpu"], grads["cuda"],
+                         grads["cpu"])
+    print(f"[{tag}] {name} B 2, 64x64, T 3, width "
+          f"{config['model']['base_num_channels']}"
+          + (", each update from the card's state" if lockstep else "")
+          + ": GPU losses " + ", ".join(repr(v) for v in losses["cuda"])
+          + "; CPU " + ", ".join(repr(v) for v in losses["cpu"])
+          + "; rel gaps " + ", ".join(
+              f"{abs(a - r) / abs(r):.3g}"
+              for a, r in zip(losses["cuda"], losses["cpu"])))
+    print(f"[{tag}] update 1 gradients, {len(grads['cpu'])} tensors: "
+          f"largest ||g_gpu - g_cpu|| / ||g_cpu|| {worst[1]:.3g} "
+          f"({worst[0]})")
+
+
+def _hold_to_cpu(name, gpu_losses, cpu_losses, gpu_grads, cpu_grads):
+    """Fails unless every loss is within TRAIN_LOSS_RTOL and every
+    gradient within TRAIN_GRAD_RTOL (||g_gpu - g_cpu|| / ||g_cpu||) of
+    the CPU's; returns the largest gradient gap and its parameter."""
+    for i, (a, r) in enumerate(zip(gpu_losses, cpu_losses)):
         if not abs(a - r) <= TRAIN_LOSS_RTOL * abs(r):
             fail(f"{name} update {i + 1}: GPU loss {a} vs CPU {r}")
-    (gg,), (cg,) = grads["cuda"], grads["cpu"]
-    if set(gg) != set(cg):
+    if set(gpu_grads) != set(cpu_grads):
         fail(f"{name}: GPU and CPU runs have gradients for different "
              "parameters")
     worst = ("", 0.0)
-    for pname, ref in cg.items():
-        rel = float((gg[pname] - ref).norm() / ref.norm().clamp(min=1e-30))
+    for pname, ref in cpu_grads.items():
+        rel = float((gpu_grads[pname] - ref).norm()
+                    / ref.norm().clamp(min=1e-30))
         if not rel <= TRAIN_GRAD_RTOL:
             fail(f"{name} update 1 gradient of {pname}: rel gap {rel} > "
                  f"{TRAIN_GRAD_RTOL}")
         worst = max(worst, (pname, rel), key=lambda kv: kv[1])
-    gaps = [abs(a - r) / abs(r) for a, r in zip(gl, cl)]
+    return worst
+
+
+def first_update_inputs(trainer, config):
+    """(events, valid, aug_flags) on ``trainer``'s device of its first
+    update on the synthetic stream of ``config``; the update is not run."""
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+
+    inputs = []
+
+    def capture(state, events, valid, aug, reset):
+        inputs.extend((events, valid, aug))
+        return torch.zeros(()), state
+
+    step, trainer.step = trainer.step, capture
+    _feed_update(trainer, SyntheticWindowStream(config))
+    trainer.step = step
+    return inputs
+
+
+def model_parity(tag, config, seed):
+    """The first update at parity_config's size of ``config``'s model on
+    the card and on the CPU, from the same init and stream, seeded with
+    ``seed``: the loss within TRAIN_LOSS_RTOL and the model's
+    gradients under one cotangent of its flows, the CPU's dL/dflows,
+    within TRAIN_GRAD_RTOL per parameter; the CPU run launches no CUDA
+    kernel.
+
+    The loss's own backward is held by the timed paths' parity_phase (one
+    code for every model), not here: its gradient is discontinuous in the
+    flows. The contrast loss's iwe_ts / (iwe + 1e-9) and its count of
+    nonzero pixels take their value from events that land within rounding
+    of a pixel line, and at some states a change of one f32 rounding in
+    the flows moves the gradient far past 1e-3 (grad_conditioning.py: on
+    the CPU, a 1e-7 weight jitter moves EVFlowNet's at seed 0 by 17 times
+    its norm, and with BN by more than 0.06 at each of 40 seeds)."""
+    from event_flow_tpu_torch.loss.warping import event_warping_loss
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    config = parity_config(config, seed)
+    name = config["model"]["name"]
+    losses, grads, cot = {}, {}, None
+    with torch.enable_grad():
+        for dev in ("cpu", "cuda"):
+            trainer = Trainer(config, dev)
+            inputs = first_update_inputs(trainer, config)
+            native.reset_launch_counts()
+            _, flows, ev_list, pol, mask = trainer.step.seq_fwd(
+                trainer.state.model_state, *inputs)
+            loss = event_warping_loss(flows, ev_list, pol, mask,
+                                      trainer.step.loss_cfg)
+            if cot is None:
+                cot = torch.autograd.grad(loss, flows, retain_graph=True)
+            torch.autograd.backward(flows, [c.to(dev) for c in cot])
+            launched = sum(native.LAUNCHES.values())
+            if (launched > 0) != (dev == "cuda"):
+                fail(f"{name}: the {dev} run launched {launched} CUDA "
+                     "kernels")
+            losses[dev] = loss.item()
+            grads[dev] = {k: g.cpu() for k, g in
+                          _grads(trainer.model).items()}
+    worst = _hold_to_cpu(name, [losses["cuda"]], [losses["cpu"]],
+                         grads["cuda"], grads["cpu"])
     print(f"[{tag}] {name} B 2, 64x64, T 3, width "
-          f"{config['model']['base_num_channels']}"
-          + (", each update from the card's state" if lockstep else "")
-          + ": GPU losses " + ", ".join(repr(v) for v in gl) + "; CPU "
-          + ", ".join(repr(v) for v in cl)
-          + f"; rel gaps {', '.join(f'{g:.3g}' for g in gaps)}")
-    print(f"[{tag}] update 1 gradients, {len(grads['cpu'][0])} tensors: "
-          f"largest ||g_gpu - g_cpu|| / ||g_cpu|| {worst[1]:.3g} "
+          f"{config['model']['base_num_channels']}, seed {seed}: "
+          f"GPU loss {losses['cuda']!r}; CPU {losses['cpu']!r}; gradients "
+          f"under the CPU's cotangent of the flows, {len(grads['cpu'])} "
+          f"tensors: largest ||g_gpu - g_cpu|| / ||g_cpu|| {worst[1]:.3g} "
           f"({worst[0]})")
 
 
@@ -1416,54 +1537,172 @@ def phase_annunet():
     windows (two files of 4) on the card and on the CPU, then its training
     update at TRAIN_ANNREC with the checks of the spiking U-Net's, then
     GPU-vs-CPU parity at reduced size. Returns the launch counts of the
-    serving run and of the 3 timed updates."""
+    serving run and of the 3 updates."""
     from event_flow_tpu_torch.config import ECD_RECEVFLOWNET, TRAIN_ANNREC
     from event_flow_tpu_torch.data.stream import synthetic_sequences
-    from event_flow_tpu_torch.eval_flow import evaluate
-    from event_flow_tpu_torch.ops import native
 
     config = copy.deepcopy(ECD_RECEVFLOWNET)
-    seqs = synthetic_sequences(config, n_windows=4.0)
-    evaluate(config, "cuda", seed=0, sequences=seqs)  # warm-up
-    native.reset_launch_counts()
-    gpu = evaluate(config, "cuda", seed=0, sequences=seqs)
-    counts = dict(native.LAUNCHES)
-    ev = gpu["evaluator"]
-    n, groups = gpu["windows"], ev.metric_groups
     # per window K1 20: per encoder 2 ConvGRU convs (update and reset
     # fused, then out) after its strided conv (cuDNN), 2 per residual
     # block, 4 decoders, 4 heads; K3 the encoding, 4 per metric group
-    expected = {"fused_conv_lif": 0, "fused_conv_lif_rec": 0,
-                "conv2d_same": 20 * n, "scatter_add": n + 4 * groups,
-                "conv2d_dw": 0, "fused_lif_bwd": 0}
-    if counts != expected or n != 8:
-        fail(f"RecEVFlowNet launch counts {counts} != expected {expected} "
-             f"over {n} windows")
-    flow = ev.last_flow
-    if not torch.isfinite(flow).all() or not flow.any():
-        fail("RecEVFlowNet: the last window's flow is all zeros or not "
-             "finite")
-    print(f"[annunet] RecEVFlowNet base "
-          f"{config['model']['base_num_channels']}: {n} windows ({groups} "
-          f"metric groups) at {config['loader']['resolution']}, launches "
-          f"{counts}; last flow max |flow| {float(flow.abs().max()):.4g}")
-    print(f"[annunet] gpu {n / gpu['seconds']:.2f} windows/s, "
-          f"{1e3 * gpu['seconds'] / n:.3f} ms/window")
-    with ShapeLog() as log:
-        wall_us, events = window_events(config, gpu["model"], log)
-    window_parts("annunet", wall_us, events)
-    _print_on_path("annunet", on_path_by_shape(events, log))
-
-    native.reset_launch_counts()
-    cpu = evaluate(config, "cpu", seed=0, sequences=seqs)
-    if any(native.LAUNCHES.values()):
-        fail("the CPU run launched CUDA kernels")
-    gaps = compare_metrics("annunet", gpu["results"], cpu["results"])
-    print(f"[annunet] cpu plain {n / cpu['seconds']:.3f} windows/s; max rel "
-          f"gap GPU vs CPU {max(gaps):.3g}")
+    counts = serve_phase("annunet", config, k1=20, sequences=
+                         synthetic_sequences(config, n_windows=4.0))
     train_counts = phase_annunet_train()
     parity_phase("annunet", TRAIN_ANNREC, lockstep=True)
     return [counts, train_counts]
+
+
+def serve_phase(tag, config, k1, k2=0, sequences=None, warm_up=True,
+                profile=True):
+    """The serving path of ``config`` on the card (after a warm-up run
+    unless ``warm_up`` is False) and on the CPU over the same stream:
+    per window ``k1`` K1 launches, ``k2`` K2 feedforward launches and K3
+    the encoding, 4 K3 per metric group; the last flow finite and not all
+    zeros; per-file FWL/RSAT within SLICE_RTOL of the CPU's; with
+    ``profile``, one steady window profiled, K1 by shape. Returns the
+    launch counts of the counted card run."""
+    from event_flow_tpu_torch.eval_flow import evaluate
+    from event_flow_tpu_torch.ops import native
+
+    name = config["model"]["name"]
+    if warm_up:
+        evaluate(config, "cuda", seed=0, sequences=sequences)
+    native.reset_launch_counts()
+    gpu = evaluate(config, "cuda", seed=0, sequences=sequences)
+    counts = dict(native.LAUNCHES)
+    ev = gpu["evaluator"]
+    n, groups = gpu["windows"], ev.metric_groups
+    expected = {"fused_conv_lif": k2 * n, "fused_conv_lif_rec": 0,
+                "conv2d_same": k1 * n, "scatter_add": n + 4 * groups,
+                "conv2d_dw": 0, "fused_lif_bwd": 0}
+    if counts != expected or n == 0:
+        fail(f"{name} serving launch counts {counts} != expected "
+             f"{expected} over {n} windows")
+    flow = ev.last_flow
+    if not torch.isfinite(flow).all() or not flow.any():
+        fail(f"{name}: the last window's flow is all zeros or not finite")
+    print(f"[{tag}] {name} serving: {n} windows ({groups} metric groups) at "
+          f"{config['loader']['resolution']}, launches {counts}; last flow "
+          f"max |flow| {float(flow.abs().max()):.4g}")
+    if profile:
+        print(f"[{tag}] gpu {n / gpu['seconds']:.2f} windows/s, "
+              f"{1e3 * gpu['seconds'] / n:.3f} ms/window")
+        with ShapeLog() as log:
+            wall_us, events = window_events(config, gpu["model"], log)
+        window_parts(tag, wall_us, events)
+        _print_on_path(tag, on_path_by_shape(events, log))
+    native.reset_launch_counts()
+    cpu = evaluate(config, "cpu", seed=0, sequences=sequences)
+    if any(native.LAUNCHES.values()):
+        fail("the CPU run launched CUDA kernels")
+    gaps = compare_metrics(tag, gpu["results"], cpu["results"])
+    print(f"[{tag}] {name} max rel gap GPU vs CPU {max(gaps):.3g}")
+    return counts
+
+
+def firenet_update(t, u):
+    """FireNet's launches over u updates of T windows: forward K1 10T (the
+    head, 2 per ConvGRU, R1a, R1b, R2a, R2b, the prediction); backward K1
+    9T (every conv's dx but the head's, whose input is the encoding), B2
+    10T; K3 4 as LIFFireNet's (the encoding, the loss's two warps, the
+    flow gather's backward)."""
+    return {"fused_conv_lif": 0, "fused_conv_lif_rec": 0,
+            "conv2d_same": 19 * t * u, "scatter_add": 4 * u,
+            "fused_lif_bwd": 0, "conv2d_dw": 10 * t * u}
+
+
+def phase_firenet():
+    """FireNet, the model of the reference's default training configs:
+    serving at ECD_FIRENET over 16 windows on the card and on the CPU,
+    its training update at TRAIN_ANN with the checks of phase 8, then
+    GPU-vs-CPU parity from one state (a relu network, as RecEVFlowNet).
+    Returns the launch counts of the serving run and of the 3 updates."""
+    from event_flow_tpu_torch.config import ECD_FIRENET, TRAIN_ANN
+
+    # per window K1 10, K3 the encoding; 4 K3 per metric group
+    counts = serve_phase("firenet", copy.deepcopy(ECD_FIRENET), k1=10)
+    train_counts = train_phase("firenet", TRAIN_ANN, firenet_update)
+    parity_phase("firenet", TRAIN_ANN, lockstep=True)
+    return [counts, train_counts]
+
+
+# the other models at base 32, as (name, model options, K1 per serving
+# window, K2 per serving window, launches of one update of T windows, the
+# seed of model_parity). Launches: forward and dx K1, B2 per weight, K2
+# and B4 per LIF cell, K3 4 per update with one flow (1 encoding + 2 warps
+# + 1 gather backward) and 13 with the U-Nets' four; a dx is skipped where
+# a conv's input holds no gradient: the encoding (a stride-1 head), and
+# the recurrent conv of a ConvRecurrent in window 0, which reads the
+# zeroed or detached state. Seeds: from these, grad_conditioning.py finds
+# the CPU's float32 gradients under one cotangent within 1.2e-5 of
+# float64's and moved by at most 1.8e-4 by a 1e-6 weight jitter; from
+# others a relu input within rounding of 0 (with BN, within 1e-6 of it)
+# can move them past 1e-3
+def _update(k1_fwd, k1_dx, b2, k3, k2=0):
+    return lambda t: {"fused_conv_lif": k2 * t, "fused_conv_lif_rec": 0,
+                      "conv2d_same": k1_fwd * t + k1_dx(t),
+                      "scatter_add": k3, "fused_lif_bwd": k2 * t,
+                      "conv2d_dw": b2 * t}
+
+
+MODEL_CASES = (
+    # head, G1 ff/rec/out, R1a, R1b, G2 ff/rec/out, R2a, R2b, pred
+    ("RNNFireNet", {}, 12, 0, _update(12, lambda t: 9 * t + 2 * (t - 1),
+                                      12, 4), 39),
+    # 7 stateless conv layers and the prediction
+    ("FireFlowNet", {}, 8, 0, _update(8, lambda t: 7 * t, 8, 4), 39),
+    # 7 feedforward LIF cells (K2, B4), the prediction (K1); dx of 6 cells
+    # and the prediction
+    ("LIFFireFlowNet", {"activations": ["arctanspike", "arctanspike"],
+                        "spiking_neuron": {"leak": [-4.0, 0.1],
+                                           "thresh": [0.8, 0.1],
+                                           "learn_leak": True,
+                                           "learn_thresh": True,
+                                           "hard_reset": True}},
+     1, 7, _update(1, lambda t: 7 * t, 8, 4, k2=7), 39),
+    # 4 residual-block convs, 4 upsample decoders, 4 predictions (the 4
+    # strided encoders are cuDNN)
+    ("EVFlowNet", {}, 12, 0, _update(12, lambda t: 12 * t, 12, 13), 39),
+    # the transposed decoders are cuDNN too; BN after every conv
+    ("EVFlowNet", {"use_upsample_conv": False, "norm": "BN",
+                   "norm_input": True},
+     8, 0, _update(8, lambda t: 8 * t, 8, 13), 56),
+    # 3 per ConvRecurrent x 4 encoders, then as EVFlowNet
+    ("RNNRecEVFlowNet", {}, 24, 0,
+     _update(24, lambda t: 20 * t + 4 * (t - 1), 24, 13), 39),
+    # the head, 3 ConvLSTM gate convs, 4 residual-block convs, 3 decoders,
+    # the prediction; one flow
+    ("E2VID", {}, 12, 0, _update(12, lambda t: 11 * t, 12, 4), 39),
+)
+
+
+def phase_models():
+    """Each of MODEL_CASES at base 32: serving 2 windows (two files of
+    one) at the ECD recipe on the card and on the CPU; one training update
+    at TRAIN_ANNREC's B 8, 128 x 128, T 10 run twice, bitwise equal, with
+    its launch counts; and model_parity at B 2, 64 x 64, T 3 from the
+    row's seed. Returns the launch counts of every counted run."""
+    from event_flow_tpu_torch.config import ECD_RECEVFLOWNET, TRAIN_ANNREC
+    from event_flow_tpu_torch.data.stream import synthetic_sequences
+
+    paths = []
+    for name, extra, k1, k2, update, seed in MODEL_CASES:
+        serve = copy.deepcopy(ECD_RECEVFLOWNET)
+        serve["model"].update(name=name, **copy.deepcopy(extra))
+        seqs = synthetic_sequences(serve, n_windows=1.0)
+        paths.append(serve_phase("models", serve, k1, k2, sequences=seqs,
+                                 warm_up=False, profile=False))
+        train = copy.deepcopy(TRAIN_ANNREC)
+        train["model"].update(name=name, **copy.deepcopy(extra))
+        trainer, _, _, counts = update_twice("models", train)
+        want = update(trainer.t_windows)
+        if counts != want:
+            fail(f"{name}: train launch counts {counts} != expected {want}")
+        print(f"[models] {name} {extra or ''} B 8, 128x128, T "
+              f"{trainer.t_windows}: launches of one update {counts}")
+        paths.append(counts)
+        model_parity("models", train, seed)
+    return paths
 
 
 KERNELS = (
@@ -1495,6 +1734,8 @@ def main():
     paths.append(phase_unet_train())
     parity_phase("unet-train", TRAIN_SNNREC)
     paths += phase_annunet()
+    paths += phase_firenet()
+    paths += phase_models()
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c[k] for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],

@@ -13,6 +13,8 @@ the model's name only (tests/test_torch_unet.py checks it).
 :data:`ECD_RECEVFLOWNET` is the same over the model block of
 ``configs/train_ANNrec_rich.yml`` (relu, no spiking neuron, so the
 merged ``spiking_neuron`` is empty; tests/test_torch_ann_unet.py checks
+it). :data:`ECD_FIRENET` is the same over the model block of
+``configs/train_ANN.yml``, FireNet's (tests/test_torch_firenet.py checks
 it).
 :data:`TRAIN_SNN` is the training recipe: ``configs/train_SNN.yml`` over
 the defaults (tests/test_torch_train.py checks the two agree).
@@ -21,15 +23,17 @@ the defaults (tests/test_torch_train.py checks the two agree).
 over the defaults: the same recipe (B 8, 128 x 128, T 10 windows of 1000
 events, Adam 2e-4, clip 100) with the two U-Nets and the rich synthetic
 dataset's path (tests/test_torch_unet_grads.py and test_torch_ann_unet.py
-check them).
+check them). :data:`TRAIN_ANN` is ``configs/train_ANN.yml`` over the
+defaults: the same recipe with FireNet (relu, ConvGRU) on train_SNN.yml's
+data path (tests/test_torch_firenet.py checks it).
 """
 
 import copy
 
 __all__ = ["default_config", "merge_dicts", "combine_entries",
            "load_yaml_config", "merge_run_params", "ECD_LIFFIRENET",
-           "ECD_SPIKING_RECEVFLOWNET", "ECD_RECEVFLOWNET", "TRAIN_SNN",
-           "TRAIN_SNNREC", "TRAIN_ANNREC"]
+           "ECD_SPIKING_RECEVFLOWNET", "ECD_RECEVFLOWNET", "ECD_FIRENET",
+           "TRAIN_SNN", "TRAIN_SNNREC", "TRAIN_ANNREC", "TRAIN_ANN"]
 
 
 def default_config():
@@ -126,6 +130,9 @@ ECD_RECEVFLOWNET = merge_dicts({"model": _ANN_UNET},
                                copy.deepcopy(ECD_LIFFIRENET))
 ECD_RECEVFLOWNET["model"]["spiking_neuron"] = {}
 
+ECD_FIRENET = merge_dicts({"model": {"name": "FireNet"}},
+                          copy.deepcopy(ECD_RECEVFLOWNET))
+
 
 TRAIN_SNN = {
     "experiment": "Default",
@@ -162,3 +169,7 @@ TRAIN_SNNREC = merge_dicts(
 TRAIN_ANNREC = merge_dicts(dict(_RICH, model=_ANN_UNET),
                            copy.deepcopy(TRAIN_SNN))
 TRAIN_ANNREC["model"]["spiking_neuron"] = None
+
+TRAIN_ANN = merge_dicts({"model": dict(_ANN_UNET, name="FireNet")},
+                        copy.deepcopy(TRAIN_SNN))
+TRAIN_ANN["model"]["spiking_neuron"] = None

@@ -55,8 +55,18 @@ def detach_state(state):
 
 
 def cell_states(state):
-    """The (v, z) pairs of a nested model state, depth first."""
-    if all(isinstance(s, torch.Tensor) for s in state):
+    """The (v, z) pairs of a spiking model's nested state, depth first.
+    Raises on a group that is no pair of like-shaped tensors: the states
+    of the ANN models (a ConvGRU's h, a ConvLayerS's 0-dim placeholder,
+    EVFlowNet's ``()``) hold no spikes. A ConvLSTM's (hidden, cell) pairs
+    look like (v, z) pairs: :func:`spike_rates` checks the model too."""
+    leaves = isinstance(state, tuple) and all(isinstance(s, torch.Tensor)
+                                              for s in state)
+    if not isinstance(state, tuple) or not state or (leaves and (
+            len(state) != 2 or state[0].shape != state[1].shape)):
+        raise ValueError("cell_states takes a spiking model's state of "
+                         "(v, z) pairs, not an ANN model's")
+    if leaves:
         return [state]
     return [pair for s in state for pair in cell_states(s)]
 
@@ -234,6 +244,9 @@ def spike_rates(model, model_state):
     """Mean spike rate of each of the model's LIF cells in its last
     window, from the carried state's z, by the cell's module name."""
     names = lif_cell_names(model)
+    if not names:
+        raise ValueError(f"{type(model).__name__} has no LIF cells: spike "
+                         "rates are for the spiking models only")
     pairs = cell_states(model_state)
     if len(pairs) != len(names):
         raise ValueError(f"{len(names)} cell names for {len(pairs)} cell "

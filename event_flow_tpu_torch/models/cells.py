@@ -1,21 +1,29 @@
-"""ANN layers: the conv layer, the ConvGRU and the ANN U-Net's layers.
+"""ANN layers: the conv layers, the recurrent cells, the norms and the ANN
+U-Nets' layers.
 
-Counterpart of event_flow_tpu/models/cells.py: ``ConvLayer`` (:106-124),
-``UpsampleConvLayer`` (:174-190), ``ResidualBlock`` (:193-215),
-``ConvGRU`` (:264-305) and ``RecurrentConvLayer`` (:392-433) for its
-``convgru`` block, without norms. Stride-1 convs are ``conv2d_same``
-(kernel K1 forward and dx, B2 the weight gradient; their plain versions
-on the CPU), strided convs ``conv2d_strided`` (ops/conv.py); the bias add
-and the activations are plain torch, as they sit outside the Pallas
-kernels in JAX. Weights are OIHW under the reference's names
-(``conv2d.weight``, ``update_gate.bias``, ``conv1.weight``, ...).
+Counterpart of event_flow_tpu/models/cells.py: ``Norm2d`` (:63-96),
+``ConvLayer`` (:106-124), ``ConvLayerS`` (:127-153),
+``TransposedConvLayer`` (:156-171), ``UpsampleConvLayer`` (:174-190),
+``ResidualBlock`` (:193-215), ``ConvLSTM`` (:218-240), ``ConvGRU``
+(:264-305), ``ConvRecurrent`` (:308-325) and ``RecurrentConvLayer``
+(:392-431). Stride-1 convs are ``conv2d_same`` (kernel K1 forward and dx,
+B2 the weight gradient; their plain versions on the CPU), strided convs
+``conv2d_strided`` and the x2 transposed conv ``conv_transpose2x``
+(ops/conv.py); the bias add, the norms and the activations are plain
+torch, as they sit outside the Pallas kernels in JAX. Weights are OIHW
+(a transposed conv's [Cin, Cout, k, k]) under the reference's names
+(``conv2d.weight``, ``update_gate.bias``, ``Gates.weight``,
+``transposed_conv2d.weight``, ``norm_layer.weight``, ...). Under ``norm:
+BN`` a conv has no bias, as in JAX.
 
 Inits, drawn from ``generator`` in construction order:
   - ``torch_default`` (``w_scale=None``): weight and then bias
-    U(+-1/sqrt(Cin*k*k)), torch's ``nn.Conv2d`` default;
+    U(+-1/sqrt(Cin*k*k)), torch's ``nn.Conv2d`` default (a transposed
+    conv's Cin is its input's, as JAX draws it);
   - a float ``w_scale``: weight U(+-w_scale), bias 0 (one draw);
   - the ConvGRU gates: ``nn.init.orthogonal_`` on the weights in the
-    reference's order (reset, update, out), biases 0.
+    reference's order (reset, update, out), biases 0;
+  - a BN norm: weight 1, bias 0 (no draw).
 """
 
 import math
@@ -23,12 +31,13 @@ import math
 import torch
 from torch import nn
 
-from ..ops.conv import conv2d_same, conv2d_strided
+from ..ops.conv import conv2d_same, conv2d_strided, conv_transpose2x
 from ..ops.resize import upsample2x_bilinear
 from .snn_cells import ConvWeight
 
-__all__ = ["ConvLayer", "ConvGRU", "RecurrentConvLayer", "ResidualBlock",
-           "UpsampleConvLayer", "activation_fn"]
+__all__ = ["ConvLayer", "ConvLayerS", "ConvGRU", "ConvLSTM", "ConvRecurrent",
+           "Norm2d", "RecurrentConvLayer", "ResidualBlock",
+           "TransposedConvLayer", "UpsampleConvLayer", "activation_fn"]
 
 _ACTS = {"relu": torch.relu, "tanh": torch.tanh}
 
@@ -47,33 +56,93 @@ def _init_conv(conv, w_scale, generator):
         if w_scale is not None:
             conv.weight.uniform_(-w_scale, w_scale, generator=generator)
             return
-        cin, k = conv.weight.shape[1], conv.weight.shape[2]
+        cin = conv.weight.shape[0 if conv.transposed else 1]
+        k = conv.weight.shape[2]
         bound = 1.0 / math.sqrt(cin * k * k)
         conv.weight.uniform_(-bound, bound, generator=generator)
-        conv.bias.uniform_(-bound, bound, generator=generator)
+        if conv.bias is not None:
+            conv.bias.uniform_(-bound, bound, generator=generator)
 
 
 def _conv(x, conv, stride=1):
-    """conv(x) + bias: K1 at stride 1, the strided conv otherwise."""
+    """conv(x) [+ bias]: K1 at stride 1, the strided conv otherwise."""
     y = (conv2d_same(x, conv.weight) if stride == 1
          else conv2d_strided(x, conv.weight, stride))
-    return y + conv.bias
+    return y if conv.bias is None else y + conv.bias
+
+
+def _weights(cin, features, k, norm, w_scale, generator, transposed=False):
+    """The conv of a normed layer: no bias under BN; the init drawn."""
+    conv = ConvWeight(cin, features, k, bias=norm != "BN",
+                      transposed=transposed)
+    _init_conv(conv, w_scale, generator)
+    return conv
+
+
+class Norm2d(nn.Module):
+    """BN or IN over NHWC activations, always from the batch's statistics
+    (eps 1e-5, biased variance), as JAX's ``Norm2d``: BN per channel over
+    (N, H, W) with an affine ``weight`` and ``bias``; IN per sample and
+    channel over (H, W), no affine. No running statistics are kept."""
+
+    def __init__(self, kind, features):
+        super().__init__()
+        if kind not in ("BN", "IN"):
+            raise NotImplementedError(f"norm={kind!r} is not supported")
+        self.kind = kind
+        if kind == "BN":
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        dims = (0, 1, 2) if self.kind == "BN" else (1, 2)
+        mean = x.mean(dim=dims, keepdim=True)
+        var = x.var(dim=dims, unbiased=False, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + 1e-5)
+        return y * self.weight + self.bias if self.kind == "BN" else y
+
+
+def _norm_layer(norm, features):
+    """The reference's ``norm_layer``: None for no norm."""
+    return None if norm in (None, "none") else Norm2d(norm, features)
 
 
 class ConvLayer(nn.Module):
-    """Conv (stride 1 or 2) + bias + activation, stateless; the conv under
-    ``conv2d``."""
+    """Conv (stride 1 or 2) [+ bias] [+ norm] + activation, stateless; the
+    conv under ``conv2d``, the norm under ``norm_layer``."""
 
     def __init__(self, cin, features, kernel_size, stride=1,
-                 activation="relu", w_scale=None, generator=None):
+                 activation="relu", norm=None, w_scale=None, generator=None):
         super().__init__()
         self.stride = int(stride)
         self.act = activation_fn(activation)
-        self.conv2d = ConvWeight(cin, features, kernel_size, bias=True)
-        _init_conv(self.conv2d, w_scale, generator)
+        self.conv2d = _weights(cin, features, kernel_size, norm, w_scale,
+                               generator)
+        self.norm_layer = _norm_layer(norm, features)
+
+    def _pre_act(self, x):
+        y = _conv(x, self.conv2d, self.stride)
+        return y if self.norm_layer is None else self.norm_layer(y)
 
     def forward(self, x):
-        return self.act(_conv(x, self.conv2d, self.stride))
+        return self.act(self._pre_act(x))
+
+
+class ConvLayerS(ConvLayer):
+    """``ConvLayer`` with the cell signature ``(x, state, residual) ->
+    (y, state)``: the residual added after the norm and before the
+    activation; the state a 0-dim placeholder passed through (the
+    reference's ``ConvLayer_``)."""
+
+    def forward(self, x, state, residual=0.0):
+        return self.act(self._pre_act(x) + residual), state
+
+    def zero_state(self, batch, h, w, device):
+        return torch.zeros((), device=device)
+
+
+def _zeros(batch, h, w, features, device):
+    return torch.zeros((batch, h, w, features), device=device)
 
 
 class ConvGRU(nn.Module):
@@ -110,62 +179,141 @@ class ConvGRU(nn.Module):
         new_state = state * (1.0 - update) + out * update
         return new_state, new_state
 
+    def zero_state(self, batch, h, w, device):
+        return _zeros(batch, h, w, self.features, device)
+
+
+class ConvLSTM(nn.Module):
+    """Four-gate convolutional LSTM: one conv ``Gates`` of [x, hidden] to
+    4F channels, split (i, r, o, g); cell' = sigmoid(r) * cell +
+    sigmoid(i) * tanh(g), hidden' = sigmoid(o) * tanh(cell'). State
+    (hidden, cell); returns (hidden', (hidden', cell'))."""
+
+    def __init__(self, cin, features, kernel_size=3, generator=None):
+        super().__init__()
+        self.features = features
+        self.Gates = ConvWeight(cin + features, 4 * features, kernel_size,
+                                bias=True)
+        _init_conv(self.Gates, None, generator)
+
+    def forward(self, x, state):
+        hidden, cell = state
+        gates = _conv(torch.cat([x, hidden], dim=-1), self.Gates)
+        i, r, o, g = gates.chunk(4, dim=-1)
+        cell = torch.sigmoid(r) * cell + torch.sigmoid(i) * torch.tanh(g)
+        hidden = torch.sigmoid(o) * torch.tanh(cell)
+        return hidden, (hidden, cell)
+
+    def zero_state(self, batch, h, w, device):
+        s = _zeros(batch, h, w, self.features, device)
+        return (s, s)
+
+
+class ConvRecurrent(nn.Module):
+    """Vanilla conv RNN: state' = tanh(ff(x) + rec(state)), out =
+    relu(out(state')), three K1 calls. Returns (out, state')."""
+
+    def __init__(self, cin, features, kernel_size=3, generator=None):
+        super().__init__()
+        self.features = features
+        k = kernel_size
+        self.ff = _weights(cin, features, k, None, None, generator)
+        self.rec = _weights(features, features, k, None, None, generator)
+        self.out = _weights(features, features, k, None, None, generator)
+
+    def forward(self, x, state):
+        new_state = torch.tanh(_conv(x, self.ff) + _conv(state, self.rec))
+        return torch.relu(_conv(new_state, self.out)), new_state
+
+    def zero_state(self, batch, h, w, device):
+        return _zeros(batch, h, w, self.features, device)
+
+
+_RECURRENT_BLOCKS = {"convgru": ConvGRU, "convlstm": ConvLSTM,
+                     "convrnn": ConvRecurrent}
+
 
 class RecurrentConvLayer(nn.Module):
     """Strided ``ConvLayer`` ``conv``, then the recurrent block
-    ``recurrent_block`` (kernel 3, as in the reference). Only ``convgru``
-    is ported. State: the block's, at the strided size."""
+    ``recurrent_block`` (kernel 3, as in the reference): ``convgru``,
+    ``convlstm`` or ``convrnn``. State: the block's, at the strided
+    size."""
 
     def __init__(self, cin, features, kernel_size=3, stride=2,
                  recurrent_block_type="convgru", activation_ff="relu",
-                 generator=None):
+                 norm=None, generator=None):
         super().__init__()
-        if recurrent_block_type != "convgru":
-            raise NotImplementedError(
-                f"recurrent block {recurrent_block_type!r} is not ported to "
-                "PyTorch yet (see ROADMAP.md)")
+        if recurrent_block_type not in _RECURRENT_BLOCKS:
+            raise KeyError(
+                f"Unknown recurrent block {recurrent_block_type!r}")
         self.stride = int(stride)
-        self.features = features
         self.conv = ConvLayer(cin, features, kernel_size, stride,
-                              activation=activation_ff, generator=generator)
-        self.recurrent_block = ConvGRU(features, features, 3,
-                                       generator=generator)
+                              activation=activation_ff, norm=norm,
+                              generator=generator)
+        self.recurrent_block = _RECURRENT_BLOCKS[recurrent_block_type](
+            features, features, 3, generator=generator)
 
     def forward(self, x, state):
         return self.recurrent_block(self.conv(x), state)
 
     def zero_state(self, batch, h, w, device):
         s = self.stride
-        return torch.zeros((batch, -(-h // s), -(-w // s), self.features),
-                           device=device)
+        return self.recurrent_block.zero_state(batch, -(-h // s), -(-w // s),
+                                               device)
 
 
 class ResidualBlock(nn.Module):
-    """act(conv2(act(conv1(x))) + x), k 3, with biases and no norm."""
+    """act(norm2(conv2(act(norm1(conv1(x))))) + x), k 3; the convs have no
+    bias under BN."""
 
-    def __init__(self, features, activation="relu", generator=None):
-        super().__init__()
-        self.act = activation_fn(activation)
-        self.conv1 = ConvWeight(features, features, 3, bias=True)
-        _init_conv(self.conv1, None, generator)
-        self.conv2 = ConvWeight(features, features, 3, bias=True)
-        _init_conv(self.conv2, None, generator)
-
-    def forward(self, x):
-        out = self.act(_conv(x, self.conv1))
-        return self.act(_conv(out, self.conv2) + x)
-
-
-class UpsampleConvLayer(nn.Module):
-    """Bilinear x2 upsampling, then the stride-1 conv ``conv2d`` + bias +
-    activation."""
-
-    def __init__(self, cin, features, kernel_size, activation="relu",
+    def __init__(self, features, activation="relu", norm=None,
                  generator=None):
         super().__init__()
         self.act = activation_fn(activation)
-        self.conv2d = ConvWeight(cin, features, kernel_size, bias=True)
-        _init_conv(self.conv2d, None, generator)
+        self.conv1 = _weights(features, features, 3, norm, None, generator)
+        self.norm1 = _norm_layer(norm, features)
+        self.conv2 = _weights(features, features, 3, norm, None, generator)
+        self.norm2 = _norm_layer(norm, features)
 
     def forward(self, x):
-        return self.act(_conv(upsample2x_bilinear(x), self.conv2d))
+        out = _conv(x, self.conv1)
+        if self.norm1 is not None:
+            out = self.norm1(out)
+        out = _conv(self.act(out), self.conv2)
+        if self.norm2 is not None:
+            out = self.norm2(out)
+        return self.act(out + x)
+
+
+class UpsampleConvLayer(ConvLayer):
+    """Bilinear x2 upsampling, then the stride-1 ``ConvLayer``."""
+
+    def __init__(self, cin, features, kernel_size, activation="relu",
+                 norm=None, generator=None):
+        super().__init__(cin, features, kernel_size, 1, activation, norm,
+                         generator=generator)
+
+    def forward(self, x):
+        return super().forward(upsample2x_bilinear(x))
+
+
+class TransposedConvLayer(nn.Module):
+    """The x2 transposed conv ``transposed_conv2d`` (weight [Cin, Cout, k,
+    k]) [+ bias] [+ norm] + activation."""
+
+    def __init__(self, cin, features, kernel_size, activation="relu",
+                 norm=None, generator=None):
+        super().__init__()
+        self.act = activation_fn(activation)
+        self.transposed_conv2d = _weights(cin, features, kernel_size, norm,
+                                          None, generator, transposed=True)
+        self.norm_layer = _norm_layer(norm, features)
+
+    def forward(self, x):
+        conv = self.transposed_conv2d
+        y = conv_transpose2x(x, conv.weight)
+        if conv.bias is not None:
+            y = y + conv.bias
+        if self.norm_layer is not None:
+            y = self.norm_layer(y)
+        return self.act(y)

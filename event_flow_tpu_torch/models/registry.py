@@ -1,14 +1,14 @@
-"""Model registry of the port: the JAX registry's names, with the
-LIFFireNet, RecEVFlowNet and SpikingRecEVFlowNet rows built so far
+"""Model registry of the port: the JAX registry's names, with the rows of
+the FireNet family and the U-Nets built so far
 (event_flow_tpu/models/registry.py)."""
 
-from .evflownet import make_unet_model
-from .firenet import make_liffirenet
+from .evflownet import UNET_VARIANTS, make_unet_model
+from .firenet import FIRENET_VARIANTS, make_firenet
 
 __all__ = ["get_model", "available_models", "KNOWN_MODELS"]
 
-# every name the JAX registry builds; all but the rows of _FACTORIES wait
-# for a later slice of the port
+# every name the JAX registry builds; all but the rows of _FACTORIES (the
+# Leaky, PLIF, ALIF and XLIF models) wait for a later slice of the port
 KNOWN_MODELS = (
     "ALIFFireNet", "FireFlowNet", "FireNet", "LIFFireFlowNet", "LIFFireNet",
     "LeakyFireFlowNet", "LeakyFireNet", "PLIFFireNet", "RNNFireNet",
@@ -17,9 +17,8 @@ KNOWN_MODELS = (
     "RecEVFlowNet", "SpikingRecEVFlowNet", "XLIFRecEVFlowNet",
 )
 
-_FACTORIES = {"LIFFireNet": make_liffirenet,
-              "RecEVFlowNet": make_unet_model,
-              "SpikingRecEVFlowNet": make_unet_model}
+_FACTORIES = {**{name: make_firenet for name in FIRENET_VARIANTS},
+              **{name: make_unet_model for name in UNET_VARIANTS}}
 
 
 def available_models():

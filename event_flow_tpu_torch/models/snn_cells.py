@@ -35,12 +35,15 @@ __all__ = ["ConvWeight", "ConvLIF", "ConvLIFRecurrent",
 
 
 class ConvWeight(nn.Module):
-    """Holder of one OIHW conv weight (and optional bias) under the
-    reference's parameter names; the conv itself is run by the kernels."""
+    """Holder of one OIHW conv weight (a transposed conv's [Cin, Cout, k,
+    k]) and optional bias under the reference's parameter names; the conv
+    itself is run by the kernels."""
 
-    def __init__(self, cin, cout, k, bias=False):
+    def __init__(self, cin, cout, k, bias=False, transposed=False):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.transposed = transposed
+        shape = (cin, cout, k, k) if transposed else (cout, cin, k, k)
+        self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
 

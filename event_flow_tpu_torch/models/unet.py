@@ -1,16 +1,21 @@
-"""The recurrent EV-FlowNet U-Nets: the ANN one and the all-spiking one.
+"""The EV-FlowNet U-Nets and E2VID's.
 
 Counterpart of event_flow_tpu/models/unet.py: the channel schedule of
-``_UNetBase`` (:50-101), ``MultiResUNetRecurrent`` (:152-210) and
-``SpikingMultiResUNetRecurrent`` (:213-318).
+``_UNetBase`` (:50-101), ``MultiResUNet`` (:103-149),
+``MultiResUNetRecurrent`` (:152-210), ``SpikingMultiResUNetRecurrent``
+(:213-318) and ``UNetRecurrent`` (:392-451).
 
-``MultiResUNetRecurrent`` (RecEVFlowNet): four stride-2 recurrent
-encoders (a strided conv + relu, then a ConvGRU) at ``base * 2^(i+1)``
-channels, stateless residual blocks at the widest, decoders at
-``base * 2^i`` that upsample x2 bilinearly into a conv + relu, and after
-each decoder a 1x1 tanh prediction with torch's default init (JAX's
-``make_unet_model`` passes no ``w_scale_pred``). State: a flat tuple of
-the four ConvGRU states.
+``MultiResUNet`` (EVFlowNet, stateless) and ``MultiResUNetRecurrent``
+(RecEVFlowNet with ConvGRU encoders, RNNRecEVFlowNet with ConvRecurrent
+ones): four stride-2 encoders at ``base * 2^(i+1)`` channels (a strided
+``ConvLayer``, then the recurrent block in the recurrent U-Net),
+stateless residual blocks at the widest, decoders at ``base * 2^i`` that
+upsample x2 (bilinearly into a conv, or by a transposed conv where
+``use_upsample_conv`` is False) and after each decoder a 1x1 tanh
+prediction with torch's default init (JAX's ``make_unet_model`` passes no
+``w_scale_pred``). Every conv layer takes ``norm``, the predictions
+too, as in JAX. State of the recurrent U-Net: a flat tuple of the four
+blocks' states.
 
 ``SpikingMultiResUNetRecurrent`` (SpikingRecEVFlowNet): the same
 schedule with spiking recurrent encoders, spiking residual blocks,
@@ -18,79 +23,95 @@ decoders that upsample into a LIF cell, and predictions with w_scale
 0.01. State: a tuple of encoders ``((v, z), (v, z))``, residual blocks
 ``((v, z), (v, z))`` and decoders ``(v, z)``, in that order.
 
-In both, decoder i's input is the previous output fitted to encoder
+In these, decoder i's input is the previous output fitted to encoder
 (3 - i)'s size and concatenated with it, and for i > 0 the previous
 prediction fitted and put first: ``[pred, x, block]``, the order the
 weight layout follows.
+
+``UNetRecurrent`` (E2VID): a stride-1 head ``ConvLayer`` (relu, no
+norm), three ConvLSTM encoders, residual blocks, decoders whose input is
+the previous output summed with encoder (2 - i)'s, and one 1x1
+prediction without activation on the last decoder's output summed with
+the head's, then tanh. State: the three (hidden, cell) pairs.
 """
 
 from torch import nn
 
 from .cells import (ConvLayer, RecurrentConvLayer, ResidualBlock,
-                    UpsampleConvLayer)
+                    TransposedConvLayer, UpsampleConvLayer, activation_fn)
 from .model_util import get_skip_fn
 from .snn_cells import (SpikingRecurrentConvLayer, SpikingResidualBlock,
                         SpikingTransposedConvLayer, SpikingUpsampleConvLayer)
 
-__all__ = ["MultiResUNetRecurrent", "SpikingMultiResUNetRecurrent"]
+__all__ = ["MultiResUNet", "MultiResUNetRecurrent",
+           "SpikingMultiResUNetRecurrent", "UNetRecurrent"]
 
 FLOW_CHANNELS = 2
 
 
-def _schedule(base_num_channels, num_encoders):
+def _schedule(base_num_channels, num_encoders, skip_type="concat"):
     """(encoder output channels, decoder output channels, decoder input
-    channels): decoder i reads the previous output, encoder (n - 1 - i)'s
-    and, for i > 0, the previous 2-channel prediction."""
+    channels): decoder i reads the previous output and encoder (n - 1 -
+    i)'s, summed, or concatenated and, for i > 0, with the previous
+    2-channel prediction."""
     enc = [base_num_channels * 2 ** (i + 1) for i in range(num_encoders)]
     dec = [base_num_channels * 2 ** i for i in reversed(range(num_encoders))]
-    dec_in = [(FLOW_CHANNELS if i else 0) + (dec[i - 1] if i else enc[-1])
+    prev = [enc[-1]] + dec[:-1]
+    if skip_type == "sum":
+        return enc, dec, prev
+    dec_in = [(FLOW_CHANNELS if i else 0) + prev[i]
               + enc[num_encoders - 1 - i] for i in range(num_encoders)]
     return enc, dec, dec_in
 
 
-class MultiResUNetRecurrent(nn.Module):
-    """ANN recurrent encoders (strided conv, ConvGRU), residual blocks,
-    upsample-conv decoders and per-scale tanh predictions, low to high
-    resolution. ``forward(x, state) -> (predictions, state)``."""
+def _decoders(dec_in, dec, k, use_upsample_conv, act, norm, generator):
+    up = UpsampleConvLayer if use_upsample_conv else TransposedConvLayer
+    return nn.ModuleList(
+        up(c_in, feats, k, activation=act, norm=norm, generator=generator)
+        for c_in, feats in zip(dec_in, dec))
+
+
+class _ANNUNet(nn.Module):
+    """Encoders (built by the subclass), ANN residual blocks, decoders and
+    per-scale tanh predictions, low to high resolution; a subclass may put
+    layers ahead of the encoders (``_head``) and build other predictions
+    (``_predictions``)."""
 
     def __init__(self, cin, base_num_channels, num_encoders,
                  num_residual_blocks, skip_type, use_upsample_conv,
-                 kernel_size=3, ff_act="relu", recurrent_block_type="convgru",
-                 generator=None):
+                 kernel_size, ff_act, norm, generator):
         super().__init__()
-        if not use_upsample_conv:
-            raise NotImplementedError(
-                "the transposed-conv decoder is not ported to PyTorch yet "
-                "(see ROADMAP.md)")
         self.num_encoders = num_encoders
         self.skip_fn = get_skip_fn(skip_type)
-        enc, dec, dec_in = _schedule(base_num_channels, num_encoders)
+        enc, dec, dec_in = _schedule(base_num_channels, num_encoders,
+                                     skip_type)
         k, gen = kernel_size, generator
         # construction order fixes the draw order of the seeded init
+        cin = self._head(cin, base_num_channels, k, gen)
         self.encoders = nn.ModuleList()
         for feats in enc:
-            self.encoders.append(RecurrentConvLayer(
-                cin, feats, k, stride=2,
-                recurrent_block_type=recurrent_block_type,
-                activation_ff=ff_act, generator=gen))
+            self.encoders.append(self._encoder(cin, feats, k, ff_act, norm,
+                                               gen))
             cin = feats
         self.resblocks = nn.ModuleList(
-            ResidualBlock(enc[-1], activation=ff_act, generator=gen)
+            ResidualBlock(enc[-1], activation=ff_act, norm=norm,
+                          generator=gen)
             for _ in range(num_residual_blocks))
-        self.decoders = nn.ModuleList(
-            UpsampleConvLayer(c_in, feats, k, activation=ff_act,
-                              generator=gen)
-            for c_in, feats in zip(dec_in, dec))
+        self.decoders = _decoders(dec_in, dec, k, use_upsample_conv, ff_act,
+                                  norm, gen)
+        self._predictions(dec, norm, gen)
+
+    def _head(self, cin, base, k, gen):
+        """The layers ahead of the encoders (none); returns the channels
+        the first encoder reads."""
+        return cin
+
+    def _predictions(self, dec, norm, gen):
         self.preds = nn.ModuleList(
-            ConvLayer(feats, FLOW_CHANNELS, 1, activation="tanh",
+            ConvLayer(feats, FLOW_CHANNELS, 1, activation="tanh", norm=norm,
                       generator=gen) for feats in dec)
 
-    def forward(self, x, state):
-        state = list(state)
-        blocks = []
-        for i, enc in enumerate(self.encoders):
-            x, state[i] = enc(x, state[i])
-            blocks.append(x)
+    def _decode(self, x, blocks):
         for res in self.resblocks:
             x = res(x)
         predictions = []
@@ -100,14 +121,96 @@ class MultiResUNetRecurrent(nn.Module):
                 x = self.skip_fn(predictions[-1], x)
             x = dec(x)
             predictions.append(pred(x))
-        return predictions, tuple(state)
+        return predictions
+
+
+class MultiResUNet(_ANNUNet):
+    """Stateless EV-FlowNet: strided ``ConvLayer`` encoders.
+    ``forward(x) -> predictions``."""
+
+    @staticmethod
+    def _encoder(cin, feats, k, ff_act, norm, gen):
+        return ConvLayer(cin, feats, k, stride=2, activation=ff_act,
+                         norm=norm, generator=gen)
+
+    def forward(self, x):
+        blocks = []
+        for enc in self.encoders:
+            x = enc(x)
+            blocks.append(x)
+        return self._decode(x, blocks)
+
+
+class MultiResUNetRecurrent(_ANNUNet):
+    """Recurrent encoders (a strided conv + activation, then a ConvGRU,
+    ConvRecurrent or ConvLSTM). ``forward(x, state) -> (predictions,
+    state)``."""
+
+    def __init__(self, cin, base_num_channels, num_encoders,
+                 num_residual_blocks, skip_type, use_upsample_conv,
+                 kernel_size=3, ff_act="relu", recurrent_block_type="convgru",
+                 norm=None, generator=None):
+        self.recurrent_block_type = recurrent_block_type
+        super().__init__(cin, base_num_channels, num_encoders,
+                         num_residual_blocks, skip_type, use_upsample_conv,
+                         kernel_size, ff_act, norm, generator)
+
+    def _encoder(self, cin, feats, k, ff_act, norm, gen):
+        return RecurrentConvLayer(
+            cin, feats, k, stride=2,
+            recurrent_block_type=self.recurrent_block_type,
+            activation_ff=ff_act, norm=norm, generator=gen)
+
+    def _encode(self, x, state):
+        state = list(state)
+        blocks = []
+        for i, enc in enumerate(self.encoders):
+            x, state[i] = enc(x, state[i])
+            blocks.append(x)
+        return x, blocks, tuple(state)
+
+    def forward(self, x, state):
+        x, blocks, state = self._encode(x, state)
+        return self._decode(x, blocks), state
 
     def zero_state(self, batch, h, w, device):
         states = []
         for enc in self.encoders:
             states.append(enc.zero_state(batch, h, w, device))
-            h, w = states[-1].shape[1:3]
+            h, w = -(-h // enc.stride), -(-w // enc.stride)
         return tuple(states)
+
+
+class UNetRecurrent(MultiResUNetRecurrent):
+    """E2VID: a head, ConvLSTM encoders, residual blocks, sum-skip
+    decoders, one prediction. ``forward(x, state) -> ([image], state)``."""
+
+    def __init__(self, cin, base_num_channels, num_encoders,
+                 num_residual_blocks, skip_type, use_upsample_conv,
+                 kernel_size=3, ff_act="relu", recurrent_block_type="convlstm",
+                 norm=None, final_activation="tanh", generator=None):
+        self.final_act = activation_fn(final_activation)
+        super().__init__(cin, base_num_channels, num_encoders,
+                         num_residual_blocks, skip_type, use_upsample_conv,
+                         kernel_size, ff_act, recurrent_block_type, norm,
+                         generator)
+
+    def _head(self, cin, base, k, gen):
+        self.head = ConvLayer(cin, base, k, stride=1, generator=gen)
+        return base
+
+    def _predictions(self, dec, norm, gen):
+        self.pred = ConvLayer(dec[-1], FLOW_CHANNELS, 1, activation=None,
+                              norm=norm, generator=gen)
+
+    def forward(self, x, state):
+        head = self.head(x)
+        x, blocks, state = self._encode(head, state)
+        for res in self.resblocks:
+            x = res(x)
+        for i, dec in enumerate(self.decoders):
+            x = dec(self.skip_fn(x, blocks[self.num_encoders - i - 1]))
+        return [self.final_act(self.pred(self.skip_fn(x, head)))], state
 
 
 class SpikingMultiResUNetRecurrent(nn.Module):
@@ -118,7 +221,7 @@ class SpikingMultiResUNetRecurrent(nn.Module):
     def __init__(self, cin, base_num_channels, num_encoders,
                  num_residual_blocks, skip_type, use_upsample_conv,
                  kernel_size=3, ff_act="arctanspike", rec_act="arctanspike",
-                 neuron_kwargs=None, generator=None):
+                 neuron_kwargs=None, norm=None, generator=None):
         super().__init__()
         self.num_encoders = num_encoders
         self.num_residual_blocks = num_residual_blocks
@@ -146,7 +249,7 @@ class SpikingMultiResUNetRecurrent(nn.Module):
                 self.decoders.append(SpikingTransposedConvLayer(c_in, feats,
                                                                 k))
         self.preds = nn.ModuleList(
-            ConvLayer(feats, FLOW_CHANNELS, 1, activation="tanh",
+            ConvLayer(feats, FLOW_CHANNELS, 1, activation="tanh", norm=norm,
                       w_scale=0.01, generator=generator) for feats in dec)
 
     def forward(self, x, state):

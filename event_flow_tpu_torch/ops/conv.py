@@ -1,6 +1,7 @@
 """Same-padded stride-1 NHWC convolution with its gradients: kernels K1
 and B2 and their plain versions; and the strided conv of the U-Net
-encoders, which is no kernel's (:func:`conv2d_strided`).
+encoders and the x2 transposed conv of their decoders, which are no
+kernel's (:func:`conv2d_strided`, :func:`conv_transpose2x`).
 
 Counterpart of event_flow_tpu/ops/conv_pallas.py: ``conv2d_pallas`` with
 its custom VJP ``_cp_bwd`` (B1 ``_conv_fwd`` for the forward and for dx,
@@ -56,8 +57,8 @@ import torch.nn.functional as F
 from . import native
 
 __all__ = ["conv2d_same", "conv2d_same_plain", "conv2d_strided",
-           "conv2d_dw_plain", "conv2d_dw_kernel", "conv_same_grads",
-           "flatten_kernel"]
+           "conv_transpose2x", "conv2d_dw_plain", "conv2d_dw_kernel",
+           "conv_same_grads", "flatten_kernel"]
 
 
 def _check_shapes(x, w):
@@ -142,6 +143,49 @@ def conv2d_strided(x, w, stride):
         raise ValueError(f"x {tuple(x.shape)} must be NHWC and w "
                          f"{tuple(w.shape)} OIHW with its input channels")
     return _ConvStrided.apply(x, w, stride)
+
+
+class _ConvTranspose2x(torch.autograd.Function):
+    """The x2 transposed conv under :func:`_cudnn_f32_deterministic` in its
+    forward and in both of its gradients, for the reasons of
+    :class:`_ConvStrided`."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with _cudnn_f32_deterministic():
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=2,
+                                   padding=w.shape[2] // 2, output_padding=1)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad
+        p = w.shape[2] // 2
+        with _cudnn_f32_deterministic():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None,
+                [2, 2], [p, p], [1, 1], True, [1, 1], 1,
+                [need_x, need_w, False])
+        return dx.permute(0, 2, 3, 1) if need_x else None, dw
+
+
+def conv_transpose2x(x, w):
+    """y [B, 2H, 2W, Cout] = the x2 transposed conv of x [B,H,W,Cin] with
+    the torch ``ConvTranspose2d`` weight w [Cin, Cout, k, k], odd k,
+    padding k // 2 and output padding 1: the U-Net decoders'
+    ``TransposedConvLayer``. ``F.conv_transpose2d`` in NCHW with TF32 off
+    and cuDNN's deterministic algorithms on every device, forward and
+    backward. In JAX it is ``lax.conv_general_dilated`` over x dilated x2
+    (event_flow_tpu/models/conv.py:332-369), no Pallas kernel; its HWIO
+    kernel K is w flipped in space, ``w[ci, co, a, b] = K[k-1-a, k-1-b,
+    ci, co]`` (``utils/weights.py`` carries it across)."""
+    if (x.dim() != 4 or w.dim() != 4 or w.shape[0] != x.shape[3]
+            or w.shape[2] != w.shape[3] or w.shape[2] % 2 == 0):
+        raise ValueError(f"x {tuple(x.shape)} must be NHWC and w "
+                         f"{tuple(w.shape)} [Cin, Cout, k, k], k odd")
+    return _ConvTranspose2x.apply(x, w)
 
 
 def conv2d_dw_plain(x, g, k):

@@ -5,10 +5,14 @@ port: the port's modules carry the reference torch ``state_dict`` names
 and shapes, and the flax params of a JAX model map onto them by the
 importer's canonical rule (tools/import_torch.py:50-92, the part the
 port's modules need): the U-Net container attributes
-(``multires_unetrec``, ...) become ``unet``, ``conv2d`` becomes ``conv``,
-``encoders.0`` becomes ``encoders_0`` and ``weight`` becomes ``kernel``.
-Values go HWIO -> OIHW and per-channel neuron vectors (C,) -> the
-template's (C, 1, 1).
+(``multires_unetrec``, ...) become ``unet``; ``conv2d``,
+``transposed_conv2d`` and ``deconv`` become ``conv``, ``Gates``
+``gates`` and ``norm_layer`` ``norm``; ``encoders.0`` becomes
+``encoders_0``; ``weight`` becomes ``kernel``, and ``scale`` on a norm
+(``norm``, ``norm1``, ``norm2``). Values go HWIO -> OIHW, a transposed
+conv's HWIO kernel K -> [Cin, Cout, k, k] flipped in space (``w[ci, co,
+a, b] = K[k-1-a, k-1-b, ci, co]``, ops/conv.py::conv_transpose2x), and
+per-channel neuron vectors (C,) -> the template's (C, 1, 1).
 
 One fixed rename of the flax names cannot give the torch names: the
 spiking U-Net's ``encoders_i/conv`` (a strided LIF cell) keeps ``conv``
@@ -29,12 +33,15 @@ __all__ = ["state_dict_from_jax"]
 _CHANNEL_VECS = {"leak", "thresh", "leak_v", "leak_t", "leak_pt", "add_pt",
                  "t0", "t1"}
 _UNET_PREFIXES = {"multires_unetrec", "multires_unet", "unetrecurrent"}
+_RENAMES = {"conv2d": "conv", "transposed_conv2d": "conv", "deconv": "conv",
+            "Gates": "gates", "norm_layer": "norm"}
+_NORMS = {"norm", "norm1", "norm2"}
 
 
 def _canon_segment(seg):
     if seg in _UNET_PREFIXES:
         return "unet"
-    return "conv" if seg == "conv2d" else seg
+    return _RENAMES.get(seg, seg)
 
 
 def _canon_torch_key(key):
@@ -46,7 +53,9 @@ def _canon_torch_key(key):
             segs[-1] = f"{segs[-1]}_{p}"
         else:
             segs.append(_canon_segment(p))
-    return tuple(segs + ["kernel" if leaf == "weight" else leaf])
+    if leaf == "weight":
+        leaf = "scale" if segs and segs[-1] in _NORMS else "kernel"
+    return tuple(segs + [leaf])
 
 
 def _walk(tree, prefix=()):
@@ -93,7 +102,9 @@ def state_dict_from_jax(params, template=None):
             missing.append(key)
             continue
         v = np.asarray(flat.pop(cpath), dtype=np.float32)
-        if v.ndim == 4:
+        if v.ndim == 4 and key.endswith("transposed_conv2d.weight"):
+            v = np.transpose(v[::-1, ::-1], (2, 3, 0, 1))  # flipped HWIO
+        elif v.ndim == 4:
             v = np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
         elif cpath[-1] in _CHANNEL_VECS:
             v = v.reshape(-1, 1, 1)

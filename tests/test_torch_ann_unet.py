@@ -202,7 +202,9 @@ def test_conv_gru_matches_jax_over_steps():
 
 def test_recurrent_conv_layer_matches_jax():
     """The strided conv + relu, then the ConvGRU, on odd sizes over two
-    steps; the other block types raise."""
+    steps; the other block types build with their own states
+    (tests/test_torch_evflownet.py holds them to JAX) and an unknown one
+    raises."""
     rng = np.random.default_rng(4)
     b, h, w, cin, c = 2, 13, 17, 3, 8
     jlayer = jcells.RecurrentConvLayer(c, 3, stride=2,
@@ -221,9 +223,14 @@ def test_recurrent_conv_layer_matches_jax():
             tout, tstate = port(_t(x), tstate)
         _close(tout, jout, f"step {step}")
         _close(tstate, jstate, f"step {step}")
-    for kind in ("convlstm", "convrnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cells.RecurrentConvLayer(cin, c, recurrent_block_type=kind)
+    lstm = cells.RecurrentConvLayer(cin, c, recurrent_block_type="convlstm")
+    hidden, cell = lstm.zero_state(b, h, w, torch.device("cpu"))
+    assert tuple(hidden.shape) == tuple(cell.shape) == (b, 7, 9, c)
+    rnn = cells.RecurrentConvLayer(cin, c, recurrent_block_type="convrnn")
+    assert tuple(rnn.zero_state(b, h, w, torch.device("cpu")).shape) == (
+        b, 7, 9, c)
+    with pytest.raises(KeyError, match="convleaky"):
+        cells.RecurrentConvLayer(cin, c, recurrent_block_type="convleaky")
 
 
 def test_residual_block_matches_jax():
@@ -499,18 +506,27 @@ def test_recipes_equal_yaml_merges():
 
 
 def test_registry_builds_three_names():
-    assert available_models() == ["LIFFireNet", "RecEVFlowNet",
-                                  "SpikingRecEVFlowNet"]
+    """The registry builds the ten names of the FireNet family and the
+    U-Nets ported so far (the three of the earlier slices among them) and
+    raises, naming ROADMAP.md, for the nine Leaky, PLIF, ALIF and XLIF
+    models; RecEVFlowNet builds with the transposed-conv decoder too."""
+    assert available_models() == [
+        "E2VID", "EVFlowNet", "FireFlowNet", "FireNet", "LIFFireFlowNet",
+        "LIFFireNet", "RNNFireNet", "RNNRecEVFlowNet", "RecEVFlowNet",
+        "SpikingRecEVFlowNet"]
     for name in available_models():
-        cfg = (ECD_RECEVFLOWNET if name == NAME else TRAIN_ANNREC)["model"]
-        if name != NAME:
-            cfg = dict(cfg, name=name, activations=["arctanspike"] * 2,
+        cfg = dict(_model_cfg(), name=name, base_num_channels=4)
+        if name.startswith(("LIF", "Spiking")):
+            cfg.update(activations=["arctanspike"] * 2,
                        spiking_neuron={"leak": [-4.0, 0.1]})
-        assert get_model(name, dict(cfg, base_num_channels=4)) is not None
+        assert get_model(name, cfg) is not None
     others = [n for n in KNOWN_MODELS if n not in available_models()]
-    assert len(others) == 16
+    assert len(others) == 9
+    assert all(n.startswith(("Leaky", "PLIF", "ALIF", "XLIF"))
+               for n in others)
     for name in others:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name, _model_cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(NAME, dict(_model_cfg(), use_upsample_conv=False))
+    port = get_model(NAME, dict(_model_cfg(4), use_upsample_conv=False))
+    assert "multires_unetrec.decoders.0.transposed_conv2d.weight" in \
+        port.state_dict()

@@ -671,3 +671,135 @@ def test_unet_update_under_deterministic_algorithms(dev, name):
         torch.use_deterministic_algorithms(False)
     assert torch.isfinite(torch.tensor(loss))
     assert float(gx[0].min()) == float(gx[0].max()) == 15 * 16
+
+
+# the x2 transposed decoders of EVFlowNet (use_upsample_conv False) at
+# B 8, 128 x 128: (x shape, Cout)
+TRANSPOSED_SHAPES = [((8, 8, 8, 1024), 256), ((8, 16, 16, 514), 128),
+                     ((8, 32, 32, 258), 64), ((8, 64, 64, 130), 32)]
+
+
+@pytest.mark.parametrize("shape,cout", TRANSPOSED_SHAPES)
+def test_transposed_conv_backward_repeats_under_any_flags(dev, shape,
+                                                          cout):
+    """conv_transpose2x forward, dx and dw twice bitwise equal with cuDNN's
+    TF32 and autotuning switched on around the call, and again under
+    torch.use_deterministic_algorithms; within 1e-4 of max of the float64
+    result (one TF32 pass misses by about 1e-3)."""
+    from event_flow_tpu_torch.ops.conv import conv_transpose2x
+
+    g = _gen()
+    x = torch.randn(shape, generator=g).to(dev)
+    w = (0.05 * torch.randn((shape[3], cout, 3, 3), generator=g)).to(dev)
+    gy = torch.randn((shape[0], 2 * shape[1], 2 * shape[2], cout),
+                     generator=g).to(dev)
+
+    def run(dtype=torch.float32):
+        xs = x.to(dtype).requires_grad_()
+        ws = w.to(dtype).requires_grad_()
+        y = conv_transpose2x(xs, ws)
+        return (y.detach(),) + torch.autograd.grad(y, (xs, ws), gy.to(dtype))
+
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True,
+                                    benchmark=True, deterministic=False):
+        runs += [run(), run()]
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs.append(run())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    for got, ref in zip(runs[0], run(torch.float64)):
+        err = float((got.double() - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+def test_firenet_update_bitwise_repeatable(dev):
+    """One FireNet update at base 32 (B 2, 64 x 64, T 2) twice from the
+    seeded init: the loss and every gradient bitwise equal."""
+    from event_flow_tpu_torch.config import TRAIN_ANN
+
+    runs = []
+    for _ in range(2):
+        with torch.enable_grad():
+            trainer, loss = _small_trainer(dev, TRAIN_ANN, 32)
+        runs.append((loss, [p.grad.clone() for p in
+                            trainer.model.parameters()]))
+    assert torch.isfinite(torch.tensor(runs[0][0]))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+def _small_trainer(dev, recipe, base, **model):
+    """A Trainer of ``recipe``'s model at ``base`` channels (and the model
+    options ``model``) at B 2, 64 x 64, T 2, after its first update;
+    returns (trainer, loss)."""
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    cfg = copy.deepcopy(recipe)
+    cfg["loader"].update(batch_size=2, resolution=[64, 64])
+    cfg["data"].update(window=500, window_loss=1000)
+    cfg["model"].update(base_num_channels=base, **model)
+    trainer = Trainer(cfg, dev)
+    stream = SyntheticWindowStream(cfg)
+    loss = None
+    while loss is None:
+        loss = trainer.feed(stream.next_batch())
+    return trainer, loss
+
+
+@pytest.mark.parametrize("name,model", [
+    ("E2VID", {}),
+    ("EVFlowNet", {"use_upsample_conv": False, "norm": "BN",
+                   "norm_input": True})])
+def test_ann_update_under_deterministic_algorithms(dev, name, model):
+    """One update of E2VID (the ConvLSTM gates, the sum skips) and of
+    EVFlowNet with the transposed decoders, BN and norm_input, with
+    torch.use_deterministic_algorithms on: an op with a nondeterministic
+    CUDA backward would raise instead of drifting."""
+    from event_flow_tpu_torch.config import TRAIN_ANNREC
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.enable_grad():
+            trainer, loss = _small_trainer(dev, TRAIN_ANNREC, 8, name=name,
+                                           **model)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.isfinite(torch.tensor(loss))
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in trainer.model.parameters())
+
+
+def test_e2vid_window_card_vs_cpu(dev):
+    """One window of E2VID at base 32 at the ECD recipe's 180 x 240 from
+    the same seeded init on the card and on the CPU: K1 12 launches (the
+    head, 3 ConvLSTM gates, 4 residual-block convs, 3 decoders, the
+    prediction), the (hidden, cell) states and the flow within 1e-5 of
+    their max."""
+    from event_flow_tpu_torch.config import ECD_RECEVFLOWNET
+    from event_flow_tpu_torch.eval_flow import build_model
+
+    cfg = copy.deepcopy(ECD_RECEVFLOWNET)
+    cfg["model"]["name"] = "E2VID"
+    cnt = torch.poisson(torch.full((1, 180, 240, 2), 0.2), generator=_gen())
+    outs = {}
+    for d in (torch.device("cpu"), dev):
+        model = build_model(cfg, d, seed=0)
+        native.reset_launch_counts()
+        with torch.no_grad():
+            out, state = model(cnt.to(d), cnt.to(d),
+                               model.zero_state(1, 180, 240, d))
+        want = {"conv2d_same": 12} if d.type == "cuda" else {}
+        assert {k: n for k, n in native.LAUNCHES.items() if n} == want
+        outs[d.type] = [t.cpu() for t in [out["flow"][0]]
+                        + [t for pair in state for t in pair]]
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        assert torch.isfinite(got).all()
+        err = float((got - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), err
+    assert float(outs["cuda"][0].abs().max()) > 0

@@ -420,8 +420,22 @@ def test_recipe_equals_yaml_merge():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(NAME, dict(_model_cfg(4), norm_input=True))
+    """norm_input is ported: the model on x is the model without it on
+    norm_nonzero(x). The spiking transposed decoder raises as in the
+    reference, and so does activity logging."""
+    from event_flow_tpu_torch.models.firenet import norm_nonzero
+
+    normed = get_model(NAME, dict(_model_cfg(4), norm_input=True),
+                       generator=torch.Generator().manual_seed(0))
+    plain = get_model(NAME, _model_cfg(4),
+                      generator=torch.Generator().manual_seed(0))
+    x = torch.poisson(torch.full((1, 16, 16, 2), 0.7),
+                      generator=torch.Generator().manual_seed(1))
+    state = plain.zero_state(1, 16, 16, torch.device("cpu"))
+    with torch.no_grad():
+        got = normed(x, x, state)[0]["flow"][-1]
+        ref = plain(norm_nonzero(x), norm_nonzero(x), state)[0]["flow"][-1]
+    assert torch.equal(got, ref)
     model = get_model(NAME, dict(_model_cfg(4), use_upsample_conv=False))
     with pytest.raises(NotImplementedError, match="matches reference"):
         model.zero_state(1, 16, 16, torch.device("cpu"))
