@@ -48,9 +48,19 @@ exits non-zero without the final ``ok`` line:
               counts, windows/s, a profiled window, FWL/RSAT against the
               CPU), then its training update at configs/train_ANN.yml with
               the checks of phase 8
- 11. models   RNNFireNet, FireFlowNet, LIFFireFlowNet, EVFlowNet (also with
-              the transposed decoder, BN and norm_input), RNNRecEVFlowNet
-              and E2VID at base 32: 2 serving windows each with launch
+ 11. neurons  XLIFFireNet, the PLIF x ALIF cross (the adaptive threshold
+              driven by the presynaptic trace): serving at configs/eval_ECD.yml
+              with train_SNN.yml's model block, XLIF's name and neuron block
+              (16 windows: launch counts, the spike rate of its 7 cells,
+              windows/s, a profiled window, FWL/RSAT against the CPU), then
+              its training update at the train_SNN.yml recipe with the checks
+              of phase 8 and the device ms of its cells' elementwise work,
+              then the parity of phase 7 for it
+ 12. models   RNNFireNet, FireFlowNet, LIFFireFlowNet, EVFlowNet (also with
+              the transposed decoder, BN and norm_input), RNNRecEVFlowNet,
+              E2VID, PLIFFireNet, ALIFFireNet, LeakyFireNet,
+              LeakyFireFlowNet and the PLIF, ALIF, XLIF and Leaky
+              RecEVFlowNets at base 32: 2 serving windows each with launch
               counts and FWL/RSAT against the CPU, one update at B 8,
               128 x 128, T 10 run twice bitwise equal with its launch
               counts, and at B 2, 64 x 64, T 3 the first update's loss
@@ -76,7 +86,7 @@ user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8-11). Imports
+sum over the counted runs of every path (phases 4-6, 8-12). Imports
 nothing of JAX.
 """
 
@@ -1066,6 +1076,26 @@ def _print_on_path(tag, by_shape):
               f"{n} calls, {ms:.4f} ms, {ms / n:.4f} ms/call")
 
 
+def update_parts(events):
+    """Device ms of a profiled update by part: the port's kernels, cuDNN's
+    convs, concatenation, and the rest of PyTorch's elementwise ops,
+    reductions, copies and fills."""
+    parts = {}
+    for name, _, us in events:
+        low = name.lower()
+        key = ("K1" if "conv2d_same_kernel" in name else
+               "B2" if "conv_dw_kernel" in name or "chunk_sum" in name else
+               "K2" if "fused_conv_lif_kernel" in name else
+               "B4" if "lif_bwd" in name or "block_sum" in name else
+               "K3" if "scatter_tile_kernel" in name else
+               "concat" if "cat" in low and "array" in low else
+               "cuDNN conv" if any(k in low for k in (
+                   "conv", "gemm", "xmma", "cudnn")) else
+               "elementwise, reductions, copies")
+        parts[key] = parts.get(key, 0.0) + us / 1e3
+    return parts
+
+
 def update_twice(tag, config):
     """Update 1 of ``config`` on the card from the seeded init, then again
     from the same init and batches in a second trainer: the loss and every
@@ -1103,7 +1133,8 @@ def train_phase(tag, config, expected):
     equal ``expected(t, u)`` (T windows, u updates); their peak device
     memory; and torch.profiler over one more update: device busy time,
     operations, the top kernels and K1 and B2 by shape. Returns the launch
-    counts of the 3 updates."""
+    counts of the 3 updates and the profiled update's device ms by part
+    (:func:`update_parts`; None without device events)."""
     from event_flow_tpu_torch.ops import native
 
     config = copy.deepcopy(config)
@@ -1158,11 +1189,16 @@ def train_phase(tag, config, expected):
         rest = sum(us for _, (us, _) in top[12:])
         print(f"[{tag}]   {rest / 1e3:9.3f} ms in {len(top) - 12} other "
               "kernels")
+        parts = update_parts(events)
+        print(f"[{tag}] device ms by part: " + ", ".join(
+            f"{key} {ms:.3f}" for key, ms in sorted(
+                parts.items(), key=lambda kv: -kv[1])))
         _print_on_path(tag, on_path_by_shape(events, log))
     else:
+        parts = None
         print(f"[{tag}] device busy share: not measured (the profiler saw "
               "no device events)")
-    return counts
+    return counts, parts
 
 
 def phase_train():
@@ -1194,7 +1230,7 @@ def phase_unet_train():
     return train_phase("unet-train", TRAIN_SNNREC, lambda t, u: {
         "fused_conv_lif": 8 * t * u, "fused_conv_lif_rec": 4 * t * u,
         "conv2d_same": (20 * t + 4 * (t - 1)) * u, "scatter_add": 13 * u,
-        "fused_lif_bwd": 12 * t * u, "conv2d_dw": 20 * t * u})
+        "fused_lif_bwd": 12 * t * u, "conv2d_dw": 20 * t * u})[0]
 
 
 def phase_annunet_train():
@@ -1208,7 +1244,7 @@ def phase_annunet_train():
     return train_phase("annunet", TRAIN_ANNREC, lambda t, u: {
         "fused_conv_lif": 0, "fused_conv_lif_rec": 0,
         "conv2d_same": 40 * t * u, "scatter_add": 13 * u,
-        "fused_lif_bwd": 0, "conv2d_dw": 20 * t * u})
+        "fused_lif_bwd": 0, "conv2d_dw": 20 * t * u})[0]
 
 
 def parity_config(config, seed=None):
@@ -1510,6 +1546,77 @@ def phase_unet():
     return counts
 
 
+class CellLog:
+    """The seeded init of ``config``'s model on ``device`` with forward
+    hooks that record, in call order, each spiking cell's name, new v and
+    z, and the threshold its spike was taken against (t0 + t1 t' of an
+    ALIF cell, t0 + t1 pt' of an XLIF one, the per-channel thresh
+    otherwise), on the CPU. With ``force``, the CellLog of the same run
+    on the CPU: at each pixel where the CPU's v lies within NEAR of its
+    threshold, where rounding decides the spike, the cell takes the
+    CPU's spike (its output and state follow), and each spike so changed
+    is counted in ``forced`` by call, cell and |v - thresh|."""
+
+    def __init__(self, config, device, force=None):
+        from event_flow_tpu_torch.eval_flow import build_model
+        from event_flow_tpu_torch.models.snn_cells import lif_cell_names
+
+        self.model = build_model(config, torch.device(device), seed=0)
+        self.calls, self.force, self.forced = [], force, []
+        self.hooks = [self.model.get_submodule(name).register_forward_hook(
+            self._record(name)) for name in lif_cell_names(self.model)]
+
+    def _record(self, name):
+        def hook(cell, args, output):
+            out, (v, z, *trace) = output
+            if cell.ADAPTIVE:
+                thresh = cell._p("t0") + cell._p("t1") * trace[0]
+            else:
+                thresh = cell._p("thresh").expand_as(v)
+            if self.force is not None:
+                _, v_ref, z_ref, t_ref = self.force.calls[len(self.calls)]
+                dist = (v_ref - t_ref).abs().to(v.device)
+                z_new = torch.where(dist < NEAR, z_ref.to(v.device), z)
+                changed = z_new != z
+                if changed.any():
+                    self.forced.append((len(self.calls), name,
+                                        int(changed.sum()),
+                                        float(dist[changed].max())))
+                    out, z = out + (z_new - z), z_new
+            self.calls.append((name, v.cpu(), z.cpu(), thresh.cpu()))
+            return out, (v, z, *trace)
+        return hook
+
+    def remove(self):
+        for hook in self.hooks:
+            hook.remove()
+
+
+def check_forced(tag, gpu, cpu):
+    """The card's CellLog, forced by the CPU's, against the CPU's: every
+    spike of every cell equal, since only near-threshold decisions were
+    taken from the CPU. Prints each forced spike's cell and distance to
+    its threshold, and v's largest gap (relative above 1)."""
+    if len(gpu.calls) != len(cpu.calls):
+        fail(f"{tag}: {len(gpu.calls)} cell calls on the card, "
+             f"{len(cpu.calls)} on the CPU")
+    v_gap = 0.0
+    for (name, gv, gz, _), (_, v, z, thresh) in zip(gpu.calls, cpu.calls):
+        far = gz != z
+        if far.any():
+            fail(f"{tag} {name}: {int(far.sum())} spikes differ from the "
+                 f"CPU's {float((v - thresh).abs()[far].min())} or more "
+                 "from the threshold")
+        v_gap = max(v_gap, float((gv - v).abs().max())
+                    / max(1.0, float(v.abs().max())))
+    for call, name, n, dist in gpu.forced:
+        print(f"[{tag}] call {call} {name}: {n} spike(s) taken from the CPU, "
+              f"|v - thresh| at most {dist!r}")
+    print(f"[{tag}] {len(gpu.calls)} cell calls, spikes equal with "
+          f"{sum(n for _, _, n, _ in gpu.forced)} near-threshold spike(s) "
+          f"from the CPU; v within {v_gap!r} of the CPU's")
+
+
 def compare_metrics(tag, gpu, cpu):
     """Per-file FWL/RSAT of a card run against the CPU run's: finite, the
     same files, within SLICE_RTOL; returns the relative gaps."""
@@ -1553,22 +1660,48 @@ def phase_annunet():
 
 
 def serve_phase(tag, config, k1, k2=0, sequences=None, warm_up=True,
-                profile=True):
+                profile=True, rates=False, flips=False):
     """The serving path of ``config`` on the card (after a warm-up run
     unless ``warm_up`` is False) and on the CPU over the same stream:
     per window ``k1`` K1 launches, ``k2`` K2 feedforward launches and K3
     the encoding, 4 K3 per metric group; the last flow finite and not all
     zeros; per-file FWL/RSAT within SLICE_RTOL of the CPU's; with
-    ``profile``, one steady window profiled, K1 by shape. Returns the
-    launch counts of the counted card run."""
+    ``profile``, one steady window profiled, K1 by shape; with ``rates``,
+    the spike rate of each spiking cell in the last window, every one
+    above 0; with ``flips``, the CPU runs first and the card run takes
+    the CPU's spike wherever the CPU's v lies within NEAR of its
+    threshold (CellLog), and every spike of the two runs must then be
+    equal (check_forced). Returns the launch counts of the counted card
+    run."""
     from event_flow_tpu_torch.eval_flow import evaluate
     from event_flow_tpu_torch.ops import native
 
+    logs = {}
+
+    def run(device):
+        if not flips:
+            return evaluate(config, device, sequences=sequences)
+        log = logs[device] = CellLog(config, device, logs.get("cpu"))
+        try:
+            return evaluate(config, device, sequences=sequences,
+                            model=log.model)
+        finally:
+            log.remove()
+
+    def run_cpu():
+        native.reset_launch_counts()
+        report = run("cpu")
+        if any(native.LAUNCHES.values()):
+            fail("the CPU run launched CUDA kernels")
+        return report
+
     name = config["model"]["name"]
     if warm_up:
-        evaluate(config, "cuda", seed=0, sequences=sequences)
+        evaluate(config, "cuda", sequences=sequences)
+    if flips:
+        cpu = run_cpu()
     native.reset_launch_counts()
-    gpu = evaluate(config, "cuda", seed=0, sequences=sequences)
+    gpu = run("cuda")
     counts = dict(native.LAUNCHES)
     ev = gpu["evaluator"]
     n, groups = gpu["windows"], ev.metric_groups
@@ -1584,6 +1717,14 @@ def serve_phase(tag, config, k1, k2=0, sequences=None, warm_up=True,
     print(f"[{tag}] {name} serving: {n} windows ({groups} metric groups) at "
           f"{config['loader']['resolution']}, launches {counts}; last flow "
           f"max |flow| {float(flow.abs().max()):.4g}")
+    if rates:
+        from event_flow_tpu_torch.eval.harness import spike_rates
+
+        spiking = spike_rates(gpu["model"], ev.model_state)
+        print(f"[{tag}] spike rate of the last window: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in spiking.items()))
+        if not all(v > 0 for v in spiking.values()):
+            fail(f"{name}: a cell did not spike in the last window")
     if profile:
         print(f"[{tag}] gpu {n / gpu['seconds']:.2f} windows/s, "
               f"{1e3 * gpu['seconds'] / n:.3f} ms/window")
@@ -1591,10 +1732,10 @@ def serve_phase(tag, config, k1, k2=0, sequences=None, warm_up=True,
             wall_us, events = window_events(config, gpu["model"], log)
         window_parts(tag, wall_us, events)
         _print_on_path(tag, on_path_by_shape(events, log))
-    native.reset_launch_counts()
-    cpu = evaluate(config, "cpu", seed=0, sequences=sequences)
-    if any(native.LAUNCHES.values()):
-        fail("the CPU run launched CUDA kernels")
+    if flips:
+        check_forced(tag, logs["cuda"], logs["cpu"])
+    else:
+        cpu = run_cpu()
     gaps = compare_metrics(tag, gpu["results"], cpu["results"])
     print(f"[{tag}] {name} max rel gap GPU vs CPU {max(gaps):.3g}")
     return counts
@@ -1621,23 +1762,106 @@ def phase_firenet():
 
     # per window K1 10, K3 the encoding; 4 K3 per metric group
     counts = serve_phase("firenet", copy.deepcopy(ECD_FIRENET), k1=10)
-    train_counts = train_phase("firenet", TRAIN_ANN, firenet_update)
+    train_counts = train_phase("firenet", TRAIN_ANN, firenet_update)[0]
     parity_phase("firenet", TRAIN_ANN, lockstep=True)
     return [counts, train_counts]
 
 
-# the other models at base 32, as (name, model options, K1 per serving
-# window, K2 per serving window, launches of one update of T windows, the
-# seed of model_parity). Launches: forward and dx K1, B2 per weight, K2
-# and B4 per LIF cell, K3 4 per update with one flow (1 encoding + 2 warps
-# + 1 gather backward) and 13 with the U-Nets' four; a dx is skipped where
-# a conv's input holds no gradient: the encoding (a stride-1 head), and
-# the recurrent conv of a ConvRecurrent in window 0, which reads the
-# zeroed or detached state. Seeds: from these, grad_conditioning.py finds
-# the CPU's float32 gradients under one cotangent within 1.2e-5 of
-# float64's and moved by at most 1.8e-4 by a 1e-6 weight jitter; from
-# others a relu input within rounding of 0 (with BN, within 1e-6 of it)
-# can move them past 1e-3
+def xlif_update(t, u):
+    """XLIFFireNet's launches over u updates of T windows: forward K1 8T
+    (the head, R1a, R1b, R2a, R2b, one conv over [x, z_prev] per recurrent
+    cell G1 and G2, the prediction); backward K1 7T (every conv's dx but
+    the head's, whose input is the encoding; a recurrent cell's input
+    holds its feedforward part's gradient from window 0 on), B2 8T (the
+    recurrent cells' ff and rec kernels as one); K3 4 as LIFFireNet's."""
+    return {"fused_conv_lif": 0, "fused_conv_lif_rec": 0,
+            "conv2d_same": 15 * t * u, "scatter_add": 4 * u,
+            "fused_lif_bwd": 0, "conv2d_dw": 8 * t * u}
+
+
+def pool_layouts(tag):
+    """The trace's pooling (k 3, padding 1, stride 1 and 2) of a
+    one-channel map at TRAIN_XLIF's 8 x 128 x 128, on the card against
+    the CPU under a cotangent sliced from a wider map: avg_pool's value
+    and dx within ATOL; printed beside them, torch's avg_pool2d on the
+    permuted view of the map, whose strides also read as channels_last
+    (the reason avg_pool pools a copy in NCHW strides)."""
+    import torch.nn.functional as F
+
+    from event_flow_tpu_torch.ops.resize import avg_pool
+
+    def view(x, k, stride, padding):
+        return F.avg_pool2d(x.permute(0, 3, 1, 2), k, stride, padding,
+                            count_include_pad=True).permute(0, 2, 3, 1)
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand((8, 128, 128, 1), generator=gen)
+    for stride in (1, 2):
+        n = -(-128 // stride)
+        cot = torch.randn((8, n, n, 4), generator=gen)[..., :1]
+        errs = {}
+        for label, fn in (("avg_pool", avg_pool), ("the view", view)):
+            runs = []
+            for device in ("cpu", "cuda"):
+                xd = x.to(device).requires_grad_(True)
+                with torch.enable_grad():
+                    y = fn(xd, 3, stride, 1)
+                    gx, = torch.autograd.grad(y, xd, cot.to(device))
+                runs.append((y.detach().cpu(), gx.cpu()))
+            (y, gx), (gy, ggx) = runs
+            errs[label] = (float((gy - y).abs().max()),
+                           float((ggx - gx).abs().max()),
+                           float(gx.abs().max()))
+        print(f"[{tag}] trace pooling stride {stride}, card vs CPU: "
+              + "; ".join(f"{k} value {e[0]!r}, dx {e[1]!r} (max |dx| "
+                          f"{e[2]!r})" for k, e in errs.items()))
+        if not max(errs["avg_pool"][:2]) <= ATOL:
+            fail(f"avg_pool stride {stride}: card vs CPU {errs['avg_pool']}")
+
+
+def phase_neurons(lif_parts):
+    """XLIFFireNet, the PLIF x ALIF cross: serving at ECD_XLIFFIRENET over
+    16 windows on the card and on the CPU, with the spike rate of its 7
+    cells; its training update at TRAIN_XLIF with the checks of phase 8
+    and the device ms of the cells' elementwise work (against
+    ``lif_parts``, LIFFireNet's update by part from phase_train); then
+    GPU-vs-CPU parity. Returns the launch counts of the serving run and of
+    the 3 updates."""
+    from event_flow_tpu_torch.config import ECD_XLIFFIRENET, TRAIN_XLIF
+
+    pool_layouts("neurons")
+    # per window K1 8, K3 the encoding; 4 K3 per metric group
+    counts = serve_phase("neurons", copy.deepcopy(ECD_XLIFFIRENET), k1=8,
+                         rates=True)
+    train_counts, xlif = train_phase("neurons", TRAIN_XLIF, xlif_update)
+    plain = ("elementwise, reductions, copies", "concat")
+    if xlif and lif_parts:
+        ms = sum(xlif.get(k, 0.0) for k in plain)
+        base = sum(lif_parts.get(k, 0.0) for k in plain)
+        print(f"[neurons] the cells' elementwise work: {ms - base:.3f} ms "
+              f"per update (the update's PyTorch elementwise ops, "
+              f"reductions, copies and concat, {ms:.3f} ms, less "
+              f"LIFFireNet's {base:.3f} in [train], whose cell updates run "
+              "in K2 and B4); the convs K1 "
+              f"{xlif.get('K1', 0.0):.3f}, B2 {xlif.get('B2', 0.0):.3f} ms")
+    parity_phase("neurons", TRAIN_XLIF)
+    return [counts, train_counts]
+
+
+# the other models at base 32, as (name, model options over the family's
+# neuron block and activations, K1 per serving window, K2 per serving
+# window, launches of one update of T windows, the seed of model_parity).
+# Launches: forward and dx K1, B2 per weight (a recurrent spiking cell's ff
+# and rec kernels as one, its current one conv over [x, z_prev]), K2 and
+# B4 per LIF cell, K3 4 per update with one flow (1 encoding + 2 warps + 1
+# gather backward) and 13 with the U-Nets' four; a dx is skipped where a
+# conv's input holds no gradient: the encoding (a stride-1 head), and the
+# recurrent conv of a ConvRecurrent or ConvLeakyRecurrent in window 0,
+# which reads the zeroed or detached state. Seeds: from these,
+# grad_conditioning.py finds the CPU's float32 gradients under one
+# cotangent close to float64's and little moved by a weight jitter
+# (PERF.md section 6); from others a relu input within rounding of 0
+# (with BN, within 1e-6 of it) can move them past 1e-3
 def _update(k1_fwd, k1_dx, b2, k3, k2=0):
     return lambda t: {"fused_conv_lif": k2 * t, "fused_conv_lif_rec": 0,
                       "conv2d_same": k1_fwd * t + k1_dx(t),
@@ -1645,21 +1869,26 @@ def _update(k1_fwd, k1_dx, b2, k3, k2=0):
                       "conv2d_dw": b2 * t}
 
 
+# head, G1 ff/rec/out, R1a, R1b, G2 ff/rec/out, R2a, R2b, pred
+_RNN_FIRENET = (12, 0, _update(12, lambda t: 9 * t + 2 * (t - 1), 12, 4))
+# 7 stateless or feedforward conv cells and the prediction
+_FLOW_FIRENET = (8, 0, _update(8, lambda t: 7 * t, 8, 4))
+# a spiking FireNet of K1 cells: 5 feedforward, 2 recurrent, the prediction
+_SPIKING_FIRENET = _FLOW_FIRENET
+# 4 recurrent spiking cells (the 4 strided ones are cuDNN), 4 residual
+# block cells, 4 upsample decoders, 4 predictions
+_SPIKING_UNET = (16, 0, _update(16, lambda t: 16 * t, 16, 13))
+# 3 per ConvRecurrent (or ConvLeakyRecurrent) x 4 encoders, then as
+# EVFlowNet's 4 residual-block convs, 4 decoders, 4 predictions
+_RNN_UNET = (24, 0, _update(24, lambda t: 20 * t + 4 * (t - 1), 24, 13))
+
 MODEL_CASES = (
-    # head, G1 ff/rec/out, R1a, R1b, G2 ff/rec/out, R2a, R2b, pred
-    ("RNNFireNet", {}, 12, 0, _update(12, lambda t: 9 * t + 2 * (t - 1),
-                                      12, 4), 39),
-    # 7 stateless conv layers and the prediction
-    ("FireFlowNet", {}, 8, 0, _update(8, lambda t: 7 * t, 8, 4), 39),
+    ("RNNFireNet", {}, *_RNN_FIRENET, 39),
+    ("FireFlowNet", {}, *_FLOW_FIRENET, 39),
     # 7 feedforward LIF cells (K2, B4), the prediction (K1); dx of 6 cells
     # and the prediction
-    ("LIFFireFlowNet", {"activations": ["arctanspike", "arctanspike"],
-                        "spiking_neuron": {"leak": [-4.0, 0.1],
-                                           "thresh": [0.8, 0.1],
-                                           "learn_leak": True,
-                                           "learn_thresh": True,
-                                           "hard_reset": True}},
-     1, 7, _update(1, lambda t: 7 * t, 8, 4, k2=7), 39),
+    ("LIFFireFlowNet", {}, 1, 7, _update(1, lambda t: 7 * t, 8, 4, k2=7),
+     39),
     # 4 residual-block convs, 4 upsample decoders, 4 predictions (the 4
     # strided encoders are cuDNN)
     ("EVFlowNet", {}, 12, 0, _update(12, lambda t: 12 * t, 12, 13), 39),
@@ -1667,33 +1896,50 @@ MODEL_CASES = (
     ("EVFlowNet", {"use_upsample_conv": False, "norm": "BN",
                    "norm_input": True},
      8, 0, _update(8, lambda t: 8 * t, 8, 13), 56),
-    # 3 per ConvRecurrent x 4 encoders, then as EVFlowNet
-    ("RNNRecEVFlowNet", {}, 24, 0,
-     _update(24, lambda t: 20 * t + 4 * (t - 1), 24, 13), 39),
+    ("RNNRecEVFlowNet", {}, *_RNN_UNET, 39),
     # the head, 3 ConvLSTM gate convs, 4 residual-block convs, 3 decoders,
     # the prediction; one flow
     ("E2VID", {}, 12, 0, _update(12, lambda t: 11 * t, 12, 4), 39),
+    # at the block's thresh N(0.8, 0.1) the seeded init's activity dies
+    # out before R2b within a window, in JAX as here, and the last flow is
+    # all zeros; a lower threshold gives the serving check a flow to hold
+    ("PLIFFireNet", {"spiking_neuron": {
+        "leak_v": [-4.0, 0.1], "leak_pt": [-4.0, 0.1], "add_pt": [-2.0, 0.1],
+        "thresh": [0.4, 0.1], "learn_leak": True, "learn_thresh": True,
+        "hard_reset": True}}, *_SPIKING_FIRENET, 0),
+    ("ALIFFireNet", {}, *_SPIKING_FIRENET, 0),
+    ("LeakyFireNet", {}, *_RNN_FIRENET, 1),
+    ("LeakyFireFlowNet", {}, *_FLOW_FIRENET, 1),
+    ("PLIFRecEVFlowNet", {}, *_SPIKING_UNET, 0),
+    ("ALIFRecEVFlowNet", {}, *_SPIKING_UNET, 1),
+    ("XLIFRecEVFlowNet", {}, *_SPIKING_UNET, 1),
+    ("LeakyRecEVFlowNet", {}, *_RNN_UNET, 2),
 )
 
 
 def phase_models():
     """Each of MODEL_CASES at base 32: serving 2 windows (two files of
-    one) at the ECD recipe on the card and on the CPU; one training update
+    one) at the ECD recipe on the card and on the CPU, their spikes held
+    equal with near-threshold decisions taken from the CPU (serve_phase's
+    ``flips``: ALIF's threshold is t0 = 0.01 at every neuron in a file's
+    first window, and one spike within rounding of it flips on the card
+    and moves the cells after it); one training update
     at TRAIN_ANNREC's B 8, 128 x 128, T 10 run twice, bitwise equal, with
     its launch counts; and model_parity at B 2, 64 x 64, T 3 from the
     row's seed. Returns the launch counts of every counted run."""
-    from event_flow_tpu_torch.config import ECD_RECEVFLOWNET, TRAIN_ANNREC
+    from event_flow_tpu_torch.config import (ECD_RECEVFLOWNET, TRAIN_ANNREC,
+                                             with_model)
     from event_flow_tpu_torch.data.stream import synthetic_sequences
 
     paths = []
     for name, extra, k1, k2, update, seed in MODEL_CASES:
-        serve = copy.deepcopy(ECD_RECEVFLOWNET)
-        serve["model"].update(name=name, **copy.deepcopy(extra))
+        serve = with_model(ECD_RECEVFLOWNET, name)
+        serve["model"].update(copy.deepcopy(extra))
         seqs = synthetic_sequences(serve, n_windows=1.0)
         paths.append(serve_phase("models", serve, k1, k2, sequences=seqs,
-                                 warm_up=False, profile=False))
-        train = copy.deepcopy(TRAIN_ANNREC)
-        train["model"].update(name=name, **copy.deepcopy(extra))
+                                 warm_up=False, profile=False, flips=True))
+        train = with_model(TRAIN_ANNREC, name)
+        train["model"].update(copy.deepcopy(extra))
         trainer, _, _, counts = update_twice("models", train)
         want = update(trainer.t_windows)
         if counts != want:
@@ -1729,12 +1975,15 @@ def main():
     phase_build()
     measured = phase_kernels()
     # the launch counts of every path's counted run
-    paths = [phase_slice(), phase_unet(), phase_train()]
+    paths = [phase_slice(), phase_unet()]
+    train_counts, lif_parts = phase_train()
+    paths.append(train_counts)
     phase_parity()
     paths.append(phase_unet_train())
     parity_phase("unet-train", TRAIN_SNNREC)
     paths += phase_annunet()
     paths += phase_firenet()
+    paths += phase_neurons(lif_parts)
     paths += phase_models()
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c[k] for c in paths),

@@ -26,14 +26,28 @@ dataset's path (tests/test_torch_unet_grads.py and test_torch_ann_unet.py
 check them). :data:`TRAIN_ANN` is ``configs/train_ANN.yml`` over the
 defaults: the same recipe with FireNet (relu, ConvGRU) on train_SNN.yml's
 data path (tests/test_torch_firenet.py checks it).
+
+No YAML of the repo names a PLIF, ALIF, XLIF or Leaky model.
+:func:`neuron_block` gives each cell family its activations and neuron
+block: the cells' own defaults (event_flow_tpu/models/snn_cells.py:
+215-228, :278-291, :335-348) with train_SNN.yml's learn flags, the
+blocks tests/test_firenet.py:44-66 give them. :func:`with_model` puts a
+model and its family's block into a recipe, replacing ``spiking_neuron``
+whole: a merge would keep train_SNN.yml's ``leak`` and ``thresh``, which
+the ALIF and XLIF cells reject. :data:`ECD_XLIFFIRENET` and
+:data:`TRAIN_XLIF` are ECD_LIFFIRENET and TRAIN_SNN with XLIFFireNet
+(tests/test_torch_neuron_models.py checks them).
 """
 
 import copy
 
+from .models.registry import cell_family
+
 __all__ = ["default_config", "merge_dicts", "combine_entries",
            "load_yaml_config", "merge_run_params", "ECD_LIFFIRENET",
            "ECD_SPIKING_RECEVFLOWNET", "ECD_RECEVFLOWNET", "ECD_FIRENET",
-           "TRAIN_SNN", "TRAIN_SNNREC", "TRAIN_ANNREC", "TRAIN_ANN"]
+           "ECD_XLIFFIRENET", "TRAIN_SNN", "TRAIN_SNNREC", "TRAIN_ANNREC",
+           "TRAIN_ANN", "TRAIN_XLIF", "neuron_block", "with_model"]
 
 
 def default_config():
@@ -173,3 +187,42 @@ TRAIN_ANNREC["model"]["spiking_neuron"] = None
 TRAIN_ANN = merge_dicts({"model": dict(_ANN_UNET, name="FireNet")},
                         copy.deepcopy(TRAIN_SNN))
 TRAIN_ANN["model"]["spiking_neuron"] = None
+
+
+_SPIKING = ["arctanspike", "arctanspike"]
+# by cell family (models/registry.py::cell_family)
+_NEURON_BLOCKS = {
+    "PLIF": {"leak_v": [-4.0, 0.1], "leak_pt": [-4.0, 0.1],
+             "add_pt": [-2.0, 0.1], "thresh": [0.8, 0.1],
+             "learn_leak": True, "learn_thresh": True, "hard_reset": True},
+    "ALIF": {"leak_v": [-4.0, 0.1], "leak_t": [-4.0, 0.1],
+             "learn_leak": True, "learn_thresh": False, "hard_reset": False},
+    "XLIF": {"leak_v": [-4.0, 0.1], "leak_pt": [-4.0, 0.1],
+             "learn_leak": True, "learn_thresh": False, "hard_reset": False},
+    "LIF": TRAIN_SNN["model"]["spiking_neuron"],
+    "Leaky": {"leak": [-4.0, 0.1], "learn_leak": True},
+}
+
+
+def neuron_block(name):
+    """(activations, spiking_neuron) of model ``name``'s cell family:
+    arctanspike and the family's block for the spiking models,
+    ``(relu, None)`` and a leak for the Leaky ones, ``(relu, None)`` and
+    None for the other ANN models."""
+    family = cell_family(name)
+    acts = _SPIKING if family not in ("Leaky", None) else ["relu", None]
+    block = _NEURON_BLOCKS.get(family)
+    return list(acts), copy.deepcopy(block)
+
+
+def with_model(recipe, name):
+    """A copy of ``recipe`` with model ``name``, its family's activations
+    and its neuron block, which replaces the recipe's whole."""
+    recipe = copy.deepcopy(recipe)
+    acts, block = neuron_block(name)
+    recipe["model"].update(name=name, activations=acts, spiking_neuron=block)
+    return recipe
+
+
+ECD_XLIFFIRENET = with_model(ECD_LIFFIRENET, "XLIFFireNet")
+TRAIN_XLIF = with_model(TRAIN_SNN, "XLIFFireNet")

@@ -55,20 +55,24 @@ def detach_state(state):
 
 
 def cell_states(state):
-    """The (v, z) pairs of a spiking model's nested state, depth first.
-    Raises on a group that is no pair of like-shaped tensors: the states
-    of the ANN models (a ConvGRU's h, a ConvLayerS's 0-dim placeholder,
-    EVFlowNet's ``()``) hold no spikes. A ConvLSTM's (hidden, cell) pairs
-    look like (v, z) pairs: :func:`spike_rates` checks the model too."""
+    """The states of a spiking model's cells in its nested state, depth
+    first: ``(v, z)`` of a LIF cell, ``(v, z, pt)`` or ``(v, z, t)`` of a
+    PLIF, XLIF or ALIF cell. Raises on a group that is no such pair or
+    triple of like-shaped tensors: the states of the ANN models (a
+    ConvGRU's h, a ConvLayerS's 0-dim placeholder, EVFlowNet's ``()``)
+    hold no spikes. A ConvLSTM's (hidden, cell) pairs and a Leaky
+    residual block's two maps look like (v, z) pairs: :func:`spike_rates`
+    checks the model too."""
     leaves = isinstance(state, tuple) and all(isinstance(s, torch.Tensor)
                                               for s in state)
     if not isinstance(state, tuple) or not state or (leaves and (
-            len(state) != 2 or state[0].shape != state[1].shape)):
+            len(state) not in (2, 3)
+            or any(s.shape != state[0].shape for s in state))):
         raise ValueError("cell_states takes a spiking model's state of "
-                         "(v, z) pairs, not an ANN model's")
+                         "(v, z[, trace]) groups, not an ANN model's")
     if leaves:
         return [state]
-    return [pair for s in state for pair in cell_states(s)]
+    return [group for s in state for group in cell_states(s)]
 
 
 class Evaluator:
@@ -241,12 +245,12 @@ class Evaluator:
 
 
 def spike_rates(model, model_state):
-    """Mean spike rate of each of the model's LIF cells in its last
+    """Mean spike rate of each of the model's spiking cells in its last
     window, from the carried state's z, by the cell's module name."""
     names = lif_cell_names(model)
     if not names:
-        raise ValueError(f"{type(model).__name__} has no LIF cells: spike "
-                         "rates are for the spiking models only")
+        raise ValueError(f"{type(model).__name__} has no spiking cells: "
+                         "spike rates are for the spiking models only")
     pairs = cell_states(model_state)
     if len(pairs) != len(names):
         raise ValueError(f"{len(names)} cell names for {len(pairs)} cell "

@@ -5,8 +5,9 @@ Counterpart of event_flow_tpu/models/cells.py: ``Norm2d`` (:63-96),
 ``ConvLayer`` (:106-124), ``ConvLayerS`` (:127-153),
 ``TransposedConvLayer`` (:156-171), ``UpsampleConvLayer`` (:174-190),
 ``ResidualBlock`` (:193-215), ``ConvLSTM`` (:218-240), ``ConvGRU``
-(:264-305), ``ConvRecurrent`` (:308-325) and ``RecurrentConvLayer``
-(:392-431). Stride-1 convs are ``conv2d_same`` (kernel K1 forward and dx,
+(:264-305), ``ConvRecurrent`` (:308-325), ``ConvLeakyRecurrent``
+(:328-358), ``ConvLeaky`` (:361-389), ``RecurrentConvLayer`` (:392-431)
+and the Leaky U-Net's layers (:434-527). Stride-1 convs are ``conv2d_same`` (kernel K1 forward and dx,
 B2 the weight gradient; their plain versions on the CPU), strided convs
 ``conv2d_strided`` and the x2 transposed conv ``conv_transpose2x``
 (ops/conv.py); the bias add, the norms and the activations are plain
@@ -23,7 +24,9 @@ Inits, drawn from ``generator`` in construction order:
   - a float ``w_scale``: weight U(+-w_scale), bias 0 (one draw);
   - the ConvGRU gates: ``nn.init.orthogonal_`` on the weights in the
     reference's order (reset, update, out), biases 0;
-  - a BN norm: weight 1, bias 0 (no draw).
+  - a BN norm: weight 1, bias 0 (no draw);
+  - a Leaky cell's convs as ``torch_default``, then its per-channel
+    ``leak`` N(mu, sigma), stored (C, 1, 1) and squashed by a sigmoid.
 """
 
 import math
@@ -33,11 +36,14 @@ from torch import nn
 
 from ..ops.conv import conv2d_same, conv2d_strided, conv_transpose2x
 from ..ops.resize import upsample2x_bilinear
-from .snn_cells import ConvWeight
+from .snn_cells import ConvWeight, _normal_
 
 __all__ = ["ConvLayer", "ConvLayerS", "ConvGRU", "ConvLSTM", "ConvRecurrent",
-           "Norm2d", "RecurrentConvLayer", "ResidualBlock",
-           "TransposedConvLayer", "UpsampleConvLayer", "activation_fn"]
+           "ConvLeaky", "ConvLeakyRecurrent", "LeakyRecurrentConvLayer",
+           "LeakyResidualBlock", "LeakyTransposedConvLayer",
+           "LeakyUpsampleConvLayer", "Norm2d", "RecurrentConvLayer",
+           "ResidualBlock", "TransposedConvLayer", "UpsampleConvLayer",
+           "activation_fn"]
 
 _ACTS = {"relu": torch.relu, "tanh": torch.tanh}
 
@@ -317,3 +323,152 @@ class TransposedConvLayer(nn.Module):
         if self.norm_layer is not None:
             y = self.norm_layer(y)
         return self.act(y)
+
+
+class _Leak(nn.Module):
+    """The per-channel leak of a Leaky cell: ``leak`` N(mu, sigma), frozen
+    unless ``learn_leak``."""
+
+    FAMILY = "Leaky"
+
+    def _init_leak(self, features, leak, learn_leak, generator):
+        self.leak = nn.Parameter(torch.empty(features, 1, 1))
+        _normal_(self.leak, *leak, generator)
+        self.leak.requires_grad_(bool(learn_leak))
+
+    def _integrate(self, state, current):
+        """state * l + (1 - l) * current, l = sigmoid(leak) per channel."""
+        leak = torch.sigmoid(self.leak).reshape(-1)
+        return state * leak + (1.0 - leak) * current
+
+
+class ConvLeaky(_Leak):
+    """Feedforward leaky integrator: s' = s l + (1 - l) (ff(x) +
+    residual), out = act(s'); the residual enters before the activation.
+    ``ff`` (stride 1 or 2) has a bias. Returns (out, s')."""
+
+    def __init__(self, cin, features, kernel_size, stride=1,
+                 activation="relu", leak=(-4.0, 0.1), learn_leak=True,
+                 generator=None):
+        super().__init__()
+        self.features = features
+        self.stride = int(stride)
+        self.act = activation_fn(activation)
+        self.ff = _weights(cin, features, kernel_size, None, None, generator)
+        self._init_leak(features, leak, learn_leak, generator)
+
+    def forward(self, x, state, residual=None):
+        cur = _conv(x, self.ff, self.stride)
+        if residual is not None:
+            cur = cur + residual
+        new_state = self._integrate(state, cur)
+        return self.act(new_state), new_state
+
+    def zero_state(self, batch, h, w, device):
+        s = self.stride
+        return _zeros(batch, -(-h // s), -(-w // s), self.features, device)
+
+
+class ConvLeakyRecurrent(_Leak):
+    """Conv RNN with a per-channel leak: s' = tanh(s l + (1 - l) (ff(x) +
+    rec(s))), out = relu(out(s')); three K1 calls, each conv with a
+    bias. Its activation cannot be set (the reference asserts None).
+    Returns (out, s')."""
+
+    def __init__(self, cin, features, kernel_size=3, activation=None,
+                 leak=(-4.0, 0.1), learn_leak=True, generator=None):
+        super().__init__()
+        if activation is not None:
+            raise ValueError("ConvLeakyRecurrent's activation must be None")
+        self.features = features
+        k = kernel_size
+        self.ff = _weights(cin, features, k, None, None, generator)
+        self.rec = _weights(features, features, k, None, None, generator)
+        self.out = _weights(features, features, k, None, None, generator)
+        self._init_leak(features, leak, learn_leak, generator)
+
+    def forward(self, x, state):
+        new_state = torch.tanh(self._integrate(
+            state, _conv(x, self.ff) + _conv(state, self.rec)))
+        return torch.relu(_conv(new_state, self.out)), new_state
+
+    def zero_state(self, batch, h, w, device):
+        return _zeros(batch, h, w, self.features, device)
+
+
+class LeakyRecurrentConvLayer(nn.Module):
+    """Strided ``ConvLeaky`` ``conv``, then ``ConvLeakyRecurrent``
+    ``recurrent_block`` (activation None, as in JAX). State (s_conv,
+    s_recurrent_block), both at the strided size."""
+
+    def __init__(self, cin, features, kernel_size=3, stride=2,
+                 activation_ff="relu", leak=(-4.0, 0.1), learn_leak=True,
+                 generator=None):
+        super().__init__()
+        kw = dict(leak=leak, learn_leak=learn_leak, generator=generator)
+        self.conv = ConvLeaky(cin, features, kernel_size, stride,
+                              activation_ff, **kw)
+        self.recurrent_block = ConvLeakyRecurrent(features, features,
+                                                  kernel_size, **kw)
+
+    def forward(self, x, state):
+        s_ff, s_rec = state
+        x1, s_ff = self.conv(x, s_ff)
+        x2, s_rec = self.recurrent_block(x1, s_rec)
+        return x2, (s_ff, s_rec)
+
+    def zero_state(self, batch, h, w, device):
+        s_ff = self.conv.zero_state(batch, h, w, device)
+        return (s_ff, torch.zeros_like(s_ff))
+
+
+class LeakyResidualBlock(nn.Module):
+    """Two ``ConvLeaky`` (k 3), the block's input entering the second
+    one's current. State (s_conv1, s_conv2)."""
+
+    def __init__(self, features, activation="relu", **kw):
+        super().__init__()
+        self.conv1 = ConvLeaky(features, features, 3, activation=activation,
+                               **kw)
+        self.conv2 = ConvLeaky(features, features, 3, activation=activation,
+                               **kw)
+
+    def forward(self, x, state):
+        s1, s2 = state
+        x1, s1 = self.conv1(x, s1)
+        x2, s2 = self.conv2(x1, s2, residual=x)
+        return x2, (s1, s2)
+
+    def zero_state(self, batch, h, w, device):
+        s = _zeros(batch, h, w, self.conv1.features, device)
+        return (s, s)
+
+
+class LeakyUpsampleConvLayer(nn.Module):
+    """Bilinear x2 upsampling, then ``ConvLeaky`` ``conv2d``. State: one
+    map at twice the input's size."""
+
+    def __init__(self, cin, features, kernel_size, activation="relu", **kw):
+        super().__init__()
+        self.conv2d = ConvLeaky(cin, features, kernel_size,
+                                activation=activation, **kw)
+
+    def forward(self, x, state):
+        return self.conv2d(upsample2x_bilinear(x), state)
+
+    def zero_state(self, batch, h, w, device):
+        return self.conv2d.zero_state(batch, 2 * h, 2 * w, device)
+
+
+class LeakyTransposedConvLayer(nn.Module):
+    """Declared but unimplemented in the reference, as in JAX
+    (cells.py:483-494)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__()
+
+    def forward(self, *args, **kw):
+        raise NotImplementedError(
+            "LeakyTransposedConvLayer is unsupported (matches reference)")
+
+    zero_state = forward

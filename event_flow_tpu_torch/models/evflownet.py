@@ -1,5 +1,6 @@
 """The U-Net models: EVFlowNet, RecEVFlowNet, RNNRecEVFlowNet,
-SpikingRecEVFlowNet and E2VID.
+LeakyRecEVFlowNet, the spiking RecEVFlowNets (LIF, PLIF, ALIF, XLIF) and
+E2VID.
 
 Counterpart of event_flow_tpu/models/evflownet.py:28-124: the input
 encoding, ``norm_input``, the U-Net, and every flow brought to the last
@@ -21,23 +22,31 @@ from torch import nn
 
 from ..ops.resize import resize_nearest
 from .firenet import norm_nonzero, select_encoding
-from .unet import (MultiResUNet, MultiResUNetRecurrent,
-                   SpikingMultiResUNetRecurrent, UNetRecurrent)
+from .unet import (LeakyMultiResUNetRecurrent, MultiResUNet,
+                   MultiResUNetRecurrent, SpikingMultiResUNetRecurrent,
+                   UNetRecurrent)
 
 __all__ = ["UNetFlowModel", "UNET_VARIANTS", "make_unet_model"]
 
 # name -> (unet class, num_encoders, num_residual_blocks, skip_type,
-# recurrent block type of an ANN U-Net, the reference's container
-# attribute); the Leaky, PLIF, ALIF and XLIF rows of the JAX table wait
-# for a later slice (see ROADMAP.md)
+# recurrent block type (a spiking U-Net's cell family for every layer),
+# the reference's container attribute)
 UNET_VARIANTS = {
     "EVFlowNet": (MultiResUNet, 4, 2, "concat", None, "multires_unet"),
     "RecEVFlowNet": (MultiResUNetRecurrent, 4, 2, "concat", "convgru",
                      "multires_unetrec"),
     "RNNRecEVFlowNet": (MultiResUNetRecurrent, 4, 2, "concat", "convrnn",
                         "multires_unetrec"),
+    "LeakyRecEVFlowNet": (LeakyMultiResUNetRecurrent, 4, 2, "concat",
+                          None, "multires_unetrec"),
     "SpikingRecEVFlowNet": (SpikingMultiResUNetRecurrent, 4, 2, "concat",
-                            None, "multires_unetrec"),
+                            "lif", "multires_unetrec"),
+    "PLIFRecEVFlowNet": (SpikingMultiResUNetRecurrent, 4, 2, "concat",
+                         "plif", "multires_unetrec"),
+    "ALIFRecEVFlowNet": (SpikingMultiResUNetRecurrent, 4, 2, "concat",
+                         "alif", "multires_unetrec"),
+    "XLIFRecEVFlowNet": (SpikingMultiResUNetRecurrent, 4, 2, "concat",
+                         "xlif", "multires_unetrec"),
     "E2VID": (UNetRecurrent, 3, 2, "sum", "convlstm", "unetrecurrent"),
 }
 
@@ -87,11 +96,8 @@ class UNetFlowModel(nn.Module):
 def make_unet_model(name, model_cfg, generator=None):
     """A U-Net model from a reference-schema model config (with
     ``spiking_neuron`` nested, None for an ANN), initialised from
-    ``generator``. The activations default as in JAX: ``(relu, None)``
-    for the ANN U-Nets, arctanspike for the spiking one."""
-    if name not in UNET_VARIANTS:
-        raise NotImplementedError(
-            f"{name} is not ported to PyTorch yet (see ROADMAP.md)")
+    ``generator``. The activations default to ``(relu, None)``, as in
+    JAX, or to arctanspike for the spiking U-Nets."""
     unet_cls, n_enc, n_res, skip, rec_type, container = UNET_VARIANTS[name]
     encoding = model_cfg.get("encoding", "cnt")
     num_bins = model_cfg["num_bins"]
@@ -102,14 +108,18 @@ def make_unet_model(name, model_cfg, generator=None):
         use_upsample_conv=model_cfg.get("use_upsample_conv", True),
         kernel_size=model_cfg.get("kernel_size", 3),
         norm=model_cfg.get("norm"), generator=generator)
+    neuron = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in dict(model_cfg.get("spiking_neuron") or {}).items()}
     if unet_cls is SpikingMultiResUNetRecurrent:
-        neuron = {k: tuple(v) if isinstance(v, list) else v
-                  for k, v in dict(model_cfg.get("spiking_neuron")
-                                   or {}).items()}
         ff_act, rec_act = model_cfg.get("activations",
                                         ("arctanspike", "arctanspike"))
-        unet = unet_cls(ff_act=ff_act, rec_act=rec_act, neuron_kwargs=neuron,
-                        **common)
+        unet = unet_cls(ff_act=ff_act, rec_act=rec_act,
+                        recurrent_block_type=rec_type,
+                        spiking_feedforward_block_type=rec_type,
+                        neuron_kwargs=neuron, **common)
+    elif unet_cls is LeakyMultiResUNetRecurrent:
+        ff_act = tuple(model_cfg.get("activations", ("relu", None)))[0]
+        unet = unet_cls(ff_act=ff_act, neuron_kwargs=neuron, **common)
     else:
         ff_act = tuple(model_cfg.get("activations", ("relu", None)))[0]
         if rec_type is not None:

@@ -8,26 +8,37 @@ and recurrent cell classes and the prediction's w_scale (None: torch's
 default init); JAX's residual column is False in every row, so the port
 has none:
 
-  FireNet         ConvLayerS / ConvLayerS / ConvGRU
-  RNNFireNet      ConvLayerS / ConvLayerS / ConvRecurrent
-  FireFlowNet     ConvLayerS everywhere (G1, G2 with ``activations[1]``)
-  LIFFireNet      ConvLIF / ConvLIF / ConvLIFRecurrent, pred 0.01
-  LIFFireFlowNet  ConvLIF everywhere, pred 0.01
+  FireNet           ConvLayerS / ConvLayerS / ConvGRU
+  RNNFireNet        ConvLayerS / ConvLayerS / ConvRecurrent
+  LeakyFireNet      ConvLeaky / ConvLeaky / ConvLeakyRecurrent
+  FireFlowNet       ConvLayerS everywhere (G1, G2 with ``activations[1]``),
+                    pred 0.01
+  LeakyFireFlowNet  ConvLeaky everywhere
+  LIFFireNet        ConvLIF / ConvLIF / ConvLIFRecurrent, pred 0.01
+  PLIFFireNet       ConvPLIF / ConvPLIF / ConvPLIFRecurrent, pred 0.01
+  ALIFFireNet       ConvALIF / ConvALIF / ConvALIFRecurrent, pred 0.01
+  XLIFFireNet       ConvXLIF / ConvXLIF / ConvXLIFRecurrent, pred 0.01
+  LIFFireFlowNet    ConvLIF everywhere, pred 0.01
 
-The Leaky, PLIF, ALIF and XLIF rows wait for a later slice (ROADMAP.md).
+The neuron block (``spiking_neuron``) goes to every spiking and Leaky
+cell.
 
 Contract: ``out, new_state = model(event_voxel, event_cnt, state,
 log=False)`` with ``out = {"flow": [flow [B,H,W,2] (x, y)], "activity":
 dict | None}``; ``state`` is a 7-tuple of per-cell states from
 ``model.zero_state(B, H, W, device)``: ``(v, z)`` of a LIF cell, h of a
-ConvGRU or ConvRecurrent, a 0-dim placeholder of a ConvLayerS.
+ConvGRU, ConvRecurrent or Leaky cell, ``(v, z, pt)`` or ``(v, z, t)``
+of a PLIF, XLIF or ALIF cell, a 0-dim placeholder of a ConvLayerS.
 """
 
 import torch
 from torch import nn
 
-from .cells import ConvGRU, ConvLayer, ConvLayerS, ConvRecurrent
-from .snn_cells import ConvLIF, ConvLIFRecurrent
+from .cells import (ConvGRU, ConvLayer, ConvLayerS, ConvLeaky,
+                    ConvLeakyRecurrent, ConvRecurrent)
+from .snn_cells import (ConvALIF, ConvALIFRecurrent, ConvLIF,
+                        ConvLIFRecurrent, ConvPLIF, ConvPLIFRecurrent,
+                        ConvXLIF, ConvXLIFRecurrent, _SpikingBase)
 
 __all__ = ["FireNet", "FIRENET_VARIANTS", "make_firenet", "norm_nonzero",
            "select_encoding"]
@@ -38,12 +49,18 @@ _LAYER_NAMES = ("head", "G1", "R1a", "R1b", "G2", "R2a", "R2b")
 FIRENET_VARIANTS = {
     "FireNet": (ConvLayerS, ConvLayerS, ConvGRU, None),
     "RNNFireNet": (ConvLayerS, ConvLayerS, ConvRecurrent, None),
+    "LeakyFireNet": (ConvLeaky, ConvLeaky, ConvLeakyRecurrent, None),
     "FireFlowNet": (ConvLayerS, ConvLayerS, ConvLayerS, 0.01),
+    "LeakyFireFlowNet": (ConvLeaky, ConvLeaky, ConvLeaky, None),
     "LIFFireNet": (ConvLIF, ConvLIF, ConvLIFRecurrent, 0.01),
+    "PLIFFireNet": (ConvPLIF, ConvPLIF, ConvPLIFRecurrent, 0.01),
+    "ALIFFireNet": (ConvALIF, ConvALIF, ConvALIFRecurrent, 0.01),
+    "XLIFFireNet": (ConvXLIF, ConvXLIF, ConvXLIFRecurrent, 0.01),
     "LIFFireFlowNet": (ConvLIF, ConvLIF, ConvLIF, 0.01),
 }
 
-_LIF = (ConvLIF, ConvLIFRecurrent)
+# the cells that take the neuron block
+_NEURONS = (_SpikingBase, ConvLeaky, ConvLeakyRecurrent)
 
 
 def select_encoding(encoding, num_bins, event_voxel, event_cnt):
@@ -89,7 +106,7 @@ class FireNet(nn.Module):
             if cls in (ConvGRU, ConvRecurrent):  # they take no activation
                 return cls(cin, c, k, generator=generator)
             return cls(cin, c, k, activation=activation, generator=generator,
-                       **(kw if cls in _LIF else {}))
+                       **(kw if issubclass(cls, _NEURONS) else {}))
 
         cin = num_bins if encoding == "voxel" else 2
         # construction order fixes the draw order of the seeded init
@@ -137,8 +154,8 @@ def make_firenet(name, model_cfg, generator=None):
     ``generator``. The activations default to ``(relu, None)`` as in JAX,
     or to arctanspike for the spiking rows."""
     head, ff, rec, w_scale_pred = FIRENET_VARIANTS[name]
-    default_acts = (("arctanspike", "arctanspike") if head in _LIF
-                    else ("relu", None))
+    default_acts = (("arctanspike", "arctanspike")
+                    if issubclass(head, _SpikingBase) else ("relu", None))
     neuron = dict(model_cfg.get("spiking_neuron") or {})
     neuron = {k: tuple(v) if isinstance(v, list) else v
               for k, v in neuron.items()}

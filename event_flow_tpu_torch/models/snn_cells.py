@@ -1,21 +1,46 @@
-"""Spiking convolutional LIF cells and the spiking U-Net's layers.
+"""Spiking convolutional cells (LIF, PLIF, ALIF, XLIF; feedforward and
+recurrent) and the spiking U-Net's layers.
 
-Counterpart of event_flow_tpu/models/snn_cells.py::ConvLIF (:136-208),
-::ConvLIFRecurrent (:390-470) with detach and no norm, the configuration
-the FireNet family and SpikingRecEVFlowNet use, and of the layers built
-from them (:655-776). Per-channel leak and threshold are drawn
-N(mu, sigma) and stored (C, 1, 1) as in the reference torch modules; the
-leak is squashed by a sigmoid and the threshold clamped at >= 0.01.
+Counterpart of event_flow_tpu/models/snn_cells.py: ``ConvLIF``
+(:136-208), ``ConvPLIF`` (:211-271), ``ConvALIF`` (:274-327),
+``ConvXLIF`` (:330-387), their recurrent twins (:390-643) and the layers
+built from them (:646-776), without norms (none of the repo's configs
+sets one). Per-channel parameters are drawn N(mu, sigma) and stored (C,
+1, 1) under the reference's names; leaks (``leak``, ``leak_v``,
+``leak_pt``, ``leak_t``, ``add_pt``) go through a sigmoid, ``thresh``
+and ``t0`` are clamped at >= 0.01 and ``t1`` at >= 0 by
+``torch.maximum``, whose gradient at a tie is JAX's ``jnp.maximum``'s
+(0.5; ``clamp`` passes 1, and ``t0`` is drawn N(0.01, 0) onto the tie).
 ``learn_leak`` / ``learn_thresh`` False freeze them (``requires_grad``
-off, the JAX cells' ``stop_gradient``). Stride-1 cells go through
-ops/fused_lif.py on every device: the CUDA kernels on the GPU, their
-plain versions on the CPU. A strided ConvLIF (the U-Net encoders'
-feedforward cell) takes ``ops/conv.py::conv2d_strided`` and then the
-plain LIF update, as JAX keeps strided cells off its fused kernel
-(snn_cells.py:119).
+off, the JAX cells' ``stop_gradient``); they stay parameters for the
+weight mapping and checkpoints.
 
-Cell contract: ``cell(x, state) -> (spikes, new_state)``, NHWC tensors,
-state ``(v, z)``; a layer's state nests its cells' states.
+  LIF:  v' = v l (1 - z) + (1 - l) cur         | v l + (1 - l) cur - z th
+  PLIF: pt' = pt l_pt + (1 - l_pt) avgpool(mean_C |x|, k, stride, k // 2)
+        cur = ff - sig(add_pt) pt', then LIF's update
+  ALIF: t' = t l_t + (1 - l_t) z;  th = t0 + t1 t' per pixel; the soft
+        reset subtracts z (t0 + t1 t), the old t
+  XLIF: th = t0 + t1 pt' per pixel, PLIF's trace; the soft reset
+        subtracts z (t0 + t1 pt), the old pt
+
+z in the reset is detached with ``detach`` (the default); ALIF's t' and a
+recurrent cell's current take the previous z before the detach. A
+recurrent cell's current is ff(x) + rec(z_prev), one conv over ``concat([x,
+z_prev])`` with the kernels concatenated on Cin, as JAX's
+``_fused_current`` (:93-108). The trace's |x| is ``where(x >= 0, x,
+-x)``: slope 1 at 0, as ``jax.grad(jnp.abs)(0.)``, where torch's ``abs``
+gives 0; a cell's input (spikes, event counts) is 0 at most pixels.
+
+Kernels: the LIF cells at stride 1 go through ops/fused_lif.py (K2, B4;
+their plain versions on the CPU), as JAX's fused path; a strided ConvLIF
+takes ``ops/conv.py::conv2d_strided`` and the plain LIF update. The
+PLIF, ALIF and XLIF cells take K1 (``conv2d_same``, B2 its weight
+gradient) at stride 1 and ``conv2d_strided`` otherwise, with their
+update in plain torch: JAX routes them to no fused kernel either.
+
+Cell contract: ``cell(x, state[, residual]) -> (spikes [+ residual],
+new_state)``, NHWC tensors, state ``(v, z)`` for LIF and ``(v, z, pt)``
+or ``(v, z, t)`` for the others; a layer's state nests its cells'.
 ``zero_state(batch, h, w, device)`` takes the input's size.
 """
 
@@ -24,13 +49,16 @@ import math
 import torch
 from torch import nn
 
-from ..ops.conv import conv2d_strided
+from ..ops.conv import conv2d_same, conv2d_strided
 from ..ops.fused_lif import fused_conv_lif, fused_conv_lif_rec, lif_update
-from ..ops.resize import upsample2x_bilinear
+from ..ops.resize import avg_pool, upsample2x_bilinear
+from ..ops.spike import get_spike_fn
 
-__all__ = ["ConvWeight", "ConvLIF", "ConvLIFRecurrent",
-           "SpikingRecurrentConvLayer", "SpikingResidualBlock",
-           "SpikingUpsampleConvLayer", "SpikingTransposedConvLayer",
+__all__ = ["ConvWeight", "ConvLIF", "ConvLIFRecurrent", "ConvPLIF",
+           "ConvPLIFRecurrent", "ConvALIF", "ConvALIFRecurrent", "ConvXLIF",
+           "ConvXLIFRecurrent", "SpikingRecurrentConvLayer",
+           "SpikingResidualBlock", "SpikingUpsampleConvLayer",
+           "SpikingTransposedConvLayer", "FF_BLOCKS", "REC_BLOCKS",
            "lif_cell_names"]
 
 
@@ -57,50 +85,131 @@ def _normal_(t, mu, sigma, generator):
         t.normal_(mu, sigma, generator=generator)
 
 
-class _LIFBase(nn.Module):
-    def __init__(self, cin, features, kernel_size, activation="arctanspike",
-                 act_width=10.0, leak=(-4.0, 0.1), thresh=(0.8, 0.0),
-                 learn_leak=True, learn_thresh=True, hard_reset=True,
-                 generator=None, rec=False):
+_LEAKS = {"leak", "leak_v", "leak_pt", "leak_t", "add_pt"}
+_FLOORS = {"thresh": 0.01, "t0": 0.01, "t1": 0.0}
+
+
+def _abs_jax(x):
+    """|x| with slope 1 at 0, as JAX differentiates ``jnp.abs``."""
+    return torch.where(x >= 0, x, -x)
+
+
+class _SpikingBase(nn.Module):
+    """The ff (and, in a recurrent cell, rec) conv weight, snn init
+    U(+-sqrt(1/Cin)) with fan-in counting channels only
+    (event_flow_tpu/models/conv.py:255-259), then the per-channel
+    parameters of ``PARAMS`` (name, default N(mu, sigma)) drawn in that
+    order. ``ADAPTIVE`` cells (ALIF, XLIF) default to a soft reset and a
+    frozen threshold, the others to a hard reset and a learned one.
+    Unknown neuron arguments raise ``TypeError``, as the JAX cells'."""
+
+    FAMILY = None
+    PARAMS = ()
+    ADAPTIVE = False
+    RECURRENT = False
+    N_STATE = 3
+
+    def __init__(self, cin, features, kernel_size, stride=1,
+                 activation="arctanspike", act_width=10.0, learn_leak=True,
+                 learn_thresh=None, hard_reset=None, detach=True, norm=None,
+                 generator=None, **dists):
         super().__init__()
+        unknown = set(dists) - {name for name, _ in self.PARAMS}
+        if unknown:
+            raise TypeError(f"{type(self).__name__} got unexpected neuron "
+                            f"arguments {sorted(unknown)}")
+        if norm not in (None, "none"):
+            raise NotImplementedError(
+                f"norm={norm!r} in spiking cells is not ported (see "
+                "ROADMAP.md)")
+        if self.RECURRENT and stride != 1:
+            raise NotImplementedError(
+                "strided recurrent cells are not ported (see ROADMAP.md)")
         self.features = features
         self.kernel_size = kernel_size
+        self.stride = int(stride)
         self.activation = activation
         self.act_width = float(act_width)
-        self.hard_reset = bool(hard_reset)
+        self.hard_reset = (not self.ADAPTIVE if hard_reset is None
+                           else bool(hard_reset))
+        learn_thresh = (not self.ADAPTIVE if learn_thresh is None
+                        else bool(learn_thresh))
+        self.detach = bool(detach)
         self.ff = ConvWeight(cin, features, kernel_size)
-        # snn init U(+-sqrt(1/Cin)): fan-in counts channels only
-        # (event_flow_tpu/models/conv.py:255-259)
         _uniform_(self.ff.weight, math.sqrt(1.0 / cin), generator)
-        if rec:
+        if self.RECURRENT:
             self.rec = ConvWeight(features, features, kernel_size)
             _uniform_(self.rec.weight, math.sqrt(1.0 / features), generator)
-        self.leak = nn.Parameter(torch.empty(features, 1, 1))
-        self.thresh = nn.Parameter(torch.empty(features, 1, 1))
-        _normal_(self.leak, *leak, generator)
-        _normal_(self.thresh, *thresh, generator)
-        self.leak.requires_grad_(bool(learn_leak))
-        self.thresh.requires_grad_(bool(learn_thresh))
+        for name, default in self.PARAMS:
+            p = nn.Parameter(torch.empty(features, 1, 1))
+            _normal_(p, *dists.get(name, default), generator)
+            p.requires_grad_(learn_leak if name in _LEAKS else learn_thresh)
+            self.register_parameter(name, p)
 
-    def _neuron(self):
-        return (torch.sigmoid(self.leak).reshape(-1),
-                self.thresh.clamp(min=0.01).reshape(-1))
+    def _p(self, name):
+        """A per-channel parameter as [C], squashed or clamped."""
+        p = getattr(self, name)
+        if name in _LEAKS:
+            p = torch.sigmoid(p)
+        else:
+            p = torch.maximum(p, p.new_tensor(_FLOORS[name]))
+        return p.reshape(-1)
 
-    stride = 1  # a strided ConvLIF sets its own
+    def _current(self, x, z):
+        """ff(x) [+ rec(z)]: K1 at stride 1, the strided conv otherwise."""
+        if self.RECURRENT:
+            return conv2d_same(torch.cat([x, z], dim=-1), torch.cat(
+                [self.ff.weight, self.rec.weight], dim=1))
+        if self.stride == 1:
+            return conv2d_same(x, self.ff.weight)
+        return conv2d_strided(x, self.ff.weight, self.stride)
+
+    def _trace(self, x, pt):
+        """PLIF's presynaptic trace pt' from the cell's input x."""
+        leak_pt = self._p("leak_pt")
+        k = self.kernel_size
+        trace_in = avg_pool(_abs_jax(x).mean(dim=-1, keepdim=True), k,
+                            self.stride, k // 2)
+        return pt * leak_pt + (1.0 - leak_pt) * trace_in
+
+    def _fire(self, v, z, cur, reset_thresh, thresh):
+        """(v', z') of the update driven by ``cur``; the soft reset
+        subtracts z * ``reset_thresh``, the spike fires above
+        ``thresh``."""
+        leak = self._p("leak_v")
+        if self.detach:
+            z = z.detach()
+        if self.hard_reset:
+            v_out = v * leak * (1.0 - z) + (1.0 - leak) * cur
+        else:
+            v_out = v * leak + (1.0 - leak) * cur - z * reset_thresh
+        spike = get_spike_fn(self.activation)
+        return v_out, spike(v_out, thresh, self.act_width)
 
     def zero_state(self, batch, h, w, device):
         s = torch.zeros((batch, -(-h // self.stride), -(-w // self.stride),
                          self.features), device=device)
-        return (s, s)
+        return (s,) * self.N_STATE
 
 
-class ConvLIF(_LIFBase):
+class ConvLIF(_SpikingBase):
     """Feedforward conv LIF cell. State (v, z). The output is
-    ``z' + residual`` where a residual is given; the state keeps z'."""
+    ``z' + residual`` where a residual is given; the state keeps z'. Runs
+    only with ``detach`` (K2 and B4 take the reset as detached)."""
+
+    FAMILY = "LIF"
+    PARAMS = (("leak", (-4.0, 0.1)), ("thresh", (0.8, 0.0)))
+    N_STATE = 2
 
     def __init__(self, cin, features, kernel_size, stride=1, **kw):
-        super().__init__(cin, features, kernel_size, rec=False, **kw)
-        self.stride = int(stride)
+        if not kw.get("detach", True):
+            raise NotImplementedError(
+                "LIF cells with detach=False are not ported (see "
+                "ROADMAP.md)")
+        super().__init__(cin, features, kernel_size, stride, **kw)
+
+    def _neuron(self):
+        return self._p("leak"), self._p("thresh")
 
     def forward(self, x, state, residual=None):
         v, z = state
@@ -117,13 +226,12 @@ class ConvLIF(_LIFBase):
         return out, (v_out, z_out)
 
 
-class ConvLIFRecurrent(_LIFBase):
+class ConvLIFRecurrent(ConvLIF):
     """Recurrent conv LIF cell: current = ff(x) + rec(z_prev), the
     recurrent input being the previous spikes before any detach. State
     (v, z)."""
 
-    def __init__(self, cin, features, kernel_size, **kw):
-        super().__init__(cin, features, kernel_size, rec=True, **kw)
+    RECURRENT = True
 
     def forward(self, x, state):
         v, z = state
@@ -135,17 +243,103 @@ class ConvLIFRecurrent(_LIFBase):
         return z_out, (v_out, z_out)
 
 
+class ConvPLIF(_SpikingBase):
+    """LIF with presynaptic-trace adaptation: the current is reduced by
+    sig(add_pt) times a leaky trace of the input's mean |x|. State (v, z,
+    pt)."""
+
+    FAMILY = "PLIF"
+    PARAMS = (("leak_v", (-4.0, 0.1)), ("leak_pt", (-4.0, 0.1)),
+              ("add_pt", (-2.0, 0.1)), ("thresh", (0.8, 0.0)))
+
+    def forward(self, x, state, residual=None):
+        v, z, pt = state
+        ff = self._current(x, z)
+        thresh = self._p("thresh")
+        pt_out = self._trace(x, pt)
+        cur = ff - self._p("add_pt") * pt_out
+        v_out, z_out = self._fire(v, z, cur, thresh, thresh)
+        out = z_out if residual is None else z_out + residual
+        return out, (v_out, z_out, pt_out)
+
+
+class ConvALIF(_SpikingBase):
+    """Adaptive-threshold LIF: a per-pixel threshold t0 + t1 t' from a
+    leaky trace t of the cell's own spikes. State (v, z, t). Defaults:
+    soft reset, ``learn_thresh`` False."""
+
+    FAMILY = "ALIF"
+    PARAMS = (("leak_v", (-4.0, 0.1)), ("leak_t", (-4.0, 0.1)),
+              ("t0", (0.01, 0.0)), ("t1", (1.8, 0.0)))
+    ADAPTIVE = True
+
+    def forward(self, x, state, residual=None):
+        v, z, t = state
+        ff = self._current(x, z)
+        t0, t1, leak_t = self._p("t0"), self._p("t1"), self._p("leak_t")
+        t_out = t * leak_t + (1.0 - leak_t) * z
+        v_out, z_out = self._fire(v, z, ff, t0 + t1 * t, t0 + t1 * t_out)
+        out = z_out if residual is None else z_out + residual
+        return out, (v_out, z_out, t_out)
+
+
+class ConvXLIF(_SpikingBase):
+    """LIF with a per-pixel threshold t0 + t1 pt' driven by PLIF's
+    presynaptic trace (the PLIF x ALIF cross). State (v, z, pt).
+    Defaults: soft reset, ``learn_thresh`` False."""
+
+    FAMILY = "XLIF"
+    PARAMS = (("leak_v", (-4.0, 0.1)), ("leak_pt", (-4.0, 0.1)),
+              ("t0", (0.01, 0.0)), ("t1", (1.8, 0.0)))
+    ADAPTIVE = True
+
+    def forward(self, x, state, residual=None):
+        v, z, pt = state
+        ff = self._current(x, z)
+        t0, t1 = self._p("t0"), self._p("t1")
+        pt_out = self._trace(x, pt)
+        v_out, z_out = self._fire(v, z, ff, t0 + t1 * pt, t0 + t1 * pt_out)
+        out = z_out if residual is None else z_out + residual
+        return out, (v_out, z_out, pt_out)
+
+
+class ConvPLIFRecurrent(ConvPLIF):
+    """Recurrent PLIF: current ff(x) + rec(z_prev). State (v, z, pt)."""
+
+    RECURRENT = True
+
+
+class ConvALIFRecurrent(ConvALIF):
+    """Recurrent ALIF: current ff(x) + rec(z_prev). State (v, z, t)."""
+
+    RECURRENT = True
+
+
+class ConvXLIFRecurrent(ConvXLIF):
+    """Recurrent XLIF: current ff(x) + rec(z_prev). State (v, z, pt)."""
+
+    RECURRENT = True
+
+
+FF_BLOCKS = {"lif": ConvLIF, "plif": ConvPLIF, "alif": ConvALIF,
+             "xlif": ConvXLIF}
+REC_BLOCKS = {"lif": ConvLIFRecurrent, "plif": ConvPLIFRecurrent,
+              "alif": ConvALIFRecurrent, "xlif": ConvXLIFRecurrent}
+
+
 class SpikingRecurrentConvLayer(nn.Module):
-    """Strided feedforward LIF cell ``conv``, then the recurrent LIF cell
-    ``recurrent_block``. State (s_conv, s_recurrent_block)."""
+    """Strided feedforward cell ``conv``, then the recurrent cell
+    ``recurrent_block``, both of ``recurrent_block_type`` (lif, plif,
+    alif, xlif). State (s_conv, s_recurrent_block)."""
 
     def __init__(self, cin, features, kernel_size=3, stride=2,
-                 activation_ff="arctanspike", activation_rec="arctanspike",
-                 **kw):
+                 recurrent_block_type="lif", activation_ff="arctanspike",
+                 activation_rec="arctanspike", **kw):
         super().__init__()
-        self.conv = ConvLIF(cin, features, kernel_size, stride,
-                            activation=activation_ff, **kw)
-        self.recurrent_block = ConvLIFRecurrent(
+        self.conv = FF_BLOCKS[recurrent_block_type](
+            cin, features, kernel_size, stride, activation=activation_ff,
+            **kw)
+        self.recurrent_block = REC_BLOCKS[recurrent_block_type](
             features, features, kernel_size, activation=activation_rec, **kw)
 
     def forward(self, x, state):
@@ -161,15 +355,18 @@ class SpikingRecurrentConvLayer(nn.Module):
 
 
 class SpikingResidualBlock(nn.Module):
-    """Two feedforward LIF cells (k 3), the block's input added to the
-    second one's spikes. State (s_conv1, s_conv2)."""
+    """Two feedforward cells of ``spiking_feedforward_block_type`` (k 3),
+    the block's input added to the second one's spikes. State (s_conv1,
+    s_conv2)."""
 
-    def __init__(self, features, activation="arctanspike", **kw):
+    def __init__(self, features, spiking_feedforward_block_type="lif",
+                 activation="arctanspike", **kw):
         super().__init__()
-        self.conv1 = ConvLIF(features, features, 3, activation=activation,
-                             **kw)
-        self.conv2 = ConvLIF(features, features, 3, activation=activation,
-                             **kw)
+        block = FF_BLOCKS[spiking_feedforward_block_type]
+        self.conv1 = block(features, features, 3, activation=activation,
+                           **kw)
+        self.conv2 = block(features, features, 3, activation=activation,
+                           **kw)
 
     def forward(self, x, state):
         s1, s2 = state
@@ -183,14 +380,16 @@ class SpikingResidualBlock(nn.Module):
 
 
 class SpikingUpsampleConvLayer(nn.Module):
-    """Bilinear x2 upsampling, then the feedforward LIF cell ``conv2d``.
-    State (v, z) at twice the input's size."""
+    """Bilinear x2 upsampling, then the feedforward cell ``conv2d`` of
+    ``spiking_feedforward_block_type``. State: the cell's, at twice the
+    input's size."""
 
-    def __init__(self, cin, features, kernel_size, activation="arctanspike",
-                 **kw):
+    def __init__(self, cin, features, kernel_size,
+                 spiking_feedforward_block_type="lif",
+                 activation="arctanspike", **kw):
         super().__init__()
-        self.conv2d = ConvLIF(cin, features, kernel_size,
-                              activation=activation, **kw)
+        self.conv2d = FF_BLOCKS[spiking_feedforward_block_type](
+            cin, features, kernel_size, activation=activation, **kw)
 
     def forward(self, x, state):
         return self.conv2d(upsample2x_bilinear(x), state)
@@ -214,7 +413,7 @@ class SpikingTransposedConvLayer(nn.Module):
 
 
 def lif_cell_names(model):
-    """Names of the model's LIF cells in the order their states appear in
-    the model's (nested) state."""
+    """Names of the model's spiking cells (LIF, PLIF, ALIF, XLIF) in the
+    order their states appear in the model's (nested) state."""
     return [name for name, mod in model.named_modules()
-            if isinstance(mod, _LIFBase)]
+            if isinstance(mod, _SpikingBase)]

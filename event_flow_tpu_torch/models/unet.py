@@ -3,7 +3,8 @@
 Counterpart of event_flow_tpu/models/unet.py: the channel schedule of
 ``_UNetBase`` (:50-101), ``MultiResUNet`` (:103-149),
 ``MultiResUNetRecurrent`` (:152-210), ``SpikingMultiResUNetRecurrent``
-(:213-318) and ``UNetRecurrent`` (:392-451).
+(:213-318), ``LeakyMultiResUNetRecurrent`` (:321-389) and
+``UNetRecurrent`` (:392-451).
 
 ``MultiResUNet`` (EVFlowNet, stateless) and ``MultiResUNetRecurrent``
 (RecEVFlowNet with ConvGRU encoders, RNNRecEVFlowNet with ConvRecurrent
@@ -17,11 +18,16 @@ prediction with torch's default init (JAX's ``make_unet_model`` passes no
 too, as in JAX. State of the recurrent U-Net: a flat tuple of the four
 blocks' states.
 
-``SpikingMultiResUNetRecurrent`` (SpikingRecEVFlowNet): the same
-schedule with spiking recurrent encoders, spiking residual blocks,
-decoders that upsample into a LIF cell, and predictions with w_scale
-0.01. State: a tuple of encoders ``((v, z), (v, z))``, residual blocks
-``((v, z), (v, z))`` and decoders ``(v, z)``, in that order.
+``SpikingMultiResUNetRecurrent`` (SpikingRecEVFlowNet and the PLIF,
+ALIF and XLIF RecEVFlowNets): the same schedule with spiking recurrent
+encoders of ``recurrent_block_type``, residual blocks and decoders (that
+upsample into a cell) of ``spiking_feedforward_block_type``, and
+predictions with w_scale 0.01. State: a tuple of encoders ``(s_ff,
+s_rec)``, residual blocks ``(s_1, s_2)`` and decoders ``s``, in that
+order, each ``s`` a cell's ``(v, z)`` or ``(v, z, trace)``.
+``LeakyMultiResUNetRecurrent`` (LeakyRecEVFlowNet): the same with the
+Leaky layers; each of its cells' state is one map, so a decoder's state
+is one tensor.
 
 In these, decoder i's input is the previous output fitted to encoder
 (3 - i)'s size and concatenated with it, and for i > 0 the previous
@@ -35,16 +41,20 @@ prediction without activation on the last decoder's output summed with
 the head's, then tanh. State: the three (hidden, cell) pairs.
 """
 
+import torch
 from torch import nn
 
-from .cells import (ConvLayer, RecurrentConvLayer, ResidualBlock,
-                    TransposedConvLayer, UpsampleConvLayer, activation_fn)
+from .cells import (ConvLayer, LeakyRecurrentConvLayer, LeakyResidualBlock,
+                    LeakyTransposedConvLayer, LeakyUpsampleConvLayer,
+                    RecurrentConvLayer, ResidualBlock, TransposedConvLayer,
+                    UpsampleConvLayer, activation_fn)
 from .model_util import get_skip_fn
 from .snn_cells import (SpikingRecurrentConvLayer, SpikingResidualBlock,
                         SpikingTransposedConvLayer, SpikingUpsampleConvLayer)
 
 __all__ = ["MultiResUNet", "MultiResUNetRecurrent",
-           "SpikingMultiResUNetRecurrent", "UNetRecurrent"]
+           "SpikingMultiResUNetRecurrent", "LeakyMultiResUNetRecurrent",
+           "UNetRecurrent"]
 
 FLOW_CHANNELS = 2
 
@@ -213,6 +223,13 @@ class UNetRecurrent(MultiResUNetRecurrent):
         return [self.final_act(self.pred(self.skip_fn(x, head)))], state
 
 
+def _first_map(state):
+    """The first tensor of a (nested) state."""
+    while not isinstance(state, torch.Tensor):
+        state = state[0]
+    return state
+
+
 class SpikingMultiResUNetRecurrent(nn.Module):
     """Spiking recurrent encoders, spiking residual blocks, spiking
     upsample decoders and per-scale predictions, low to high resolution.
@@ -221,36 +238,52 @@ class SpikingMultiResUNetRecurrent(nn.Module):
     def __init__(self, cin, base_num_channels, num_encoders,
                  num_residual_blocks, skip_type, use_upsample_conv,
                  kernel_size=3, ff_act="arctanspike", rec_act="arctanspike",
-                 neuron_kwargs=None, norm=None, generator=None):
+                 recurrent_block_type="lif",
+                 spiking_feedforward_block_type="lif", neuron_kwargs=None,
+                 norm=None, generator=None):
         super().__init__()
         self.num_encoders = num_encoders
         self.num_residual_blocks = num_residual_blocks
         self.skip_fn = get_skip_fn(skip_type)
         enc, dec, dec_in = _schedule(base_num_channels, num_encoders)
-        kw = dict(neuron_kwargs or {})
-        kw["generator"] = generator
+        kw = dict(neuron_kwargs or {}, generator=generator)
+        self.block_types = (recurrent_block_type,
+                            spiking_feedforward_block_type)
         k = kernel_size
         # construction order fixes the draw order of the seeded init
         self.encoders = nn.ModuleList()
         for feats in enc:
-            self.encoders.append(SpikingRecurrentConvLayer(
-                cin, feats, k, stride=2, activation_ff=ff_act,
-                activation_rec=rec_act, **kw))
+            self.encoders.append(self._encoder(cin, feats, k, ff_act,
+                                               rec_act, kw))
             cin = feats
         self.resblocks = nn.ModuleList(
-            SpikingResidualBlock(enc[-1], activation=ff_act, **kw)
+            self._resblock(enc[-1], ff_act, kw)
             for _ in range(num_residual_blocks))
-        self.decoders = nn.ModuleList()
-        for c_in, feats in zip(dec_in, dec):
-            if use_upsample_conv:
-                self.decoders.append(SpikingUpsampleConvLayer(
-                    c_in, feats, k, activation=ff_act, **kw))
-            else:
-                self.decoders.append(SpikingTransposedConvLayer(c_in, feats,
-                                                                k))
+        self.decoders = nn.ModuleList(
+            self._upsample(c_in, feats, k, ff_act, kw) if use_upsample_conv
+            else self._transposed(c_in, feats, k)
+            for c_in, feats in zip(dec_in, dec))
         self.preds = nn.ModuleList(
             ConvLayer(feats, FLOW_CHANNELS, 1, activation="tanh", norm=norm,
                       w_scale=0.01, generator=generator) for feats in dec)
+
+    # the layers of the spiking U-Net; the Leaky one overrides them
+    def _encoder(self, cin, feats, k, ff_act, rec_act, kw):
+        return SpikingRecurrentConvLayer(
+            cin, feats, k, stride=2, recurrent_block_type=self.block_types[0],
+            activation_ff=ff_act, activation_rec=rec_act, **kw)
+
+    def _resblock(self, feats, act, kw):
+        return SpikingResidualBlock(
+            feats, spiking_feedforward_block_type=self.block_types[1],
+            activation=act, **kw)
+
+    def _upsample(self, cin, feats, k, act, kw):
+        return SpikingUpsampleConvLayer(
+            cin, feats, k, spiking_feedforward_block_type=self.block_types[1],
+            activation=act, **kw)
+
+    _transposed = SpikingTransposedConvLayer
 
     def forward(self, x, state):
         state = list(state)
@@ -275,7 +308,7 @@ class SpikingMultiResUNetRecurrent(nn.Module):
         states, dims = [], []
         for enc in self.encoders:
             s = enc.zero_state(batch, h, w, device)
-            h, w = s[0][0].shape[1:3]
+            h, w = _first_map(s).shape[1:3]
             states.append(s)
             dims.append((h, w))
         for res in self.resblocks:
@@ -284,3 +317,31 @@ class SpikingMultiResUNetRecurrent(nn.Module):
             dh, dw = dims[self.num_encoders - 1 - i]
             states.append(self.decoders[i].zero_state(batch, dh, dw, device))
         return tuple(states)
+
+
+class LeakyMultiResUNetRecurrent(SpikingMultiResUNetRecurrent):
+    """The spiking U-Net's topology with the Leaky layers: strided
+    ``ConvLeaky`` + ``ConvLeakyRecurrent`` encoders, ``LeakyResidualBlock``s
+    and ``LeakyUpsampleConvLayer`` decoders (``leak``/``learn_leak`` from
+    the neuron block), predictions with w_scale 0.01."""
+
+    def __init__(self, cin, base_num_channels, num_encoders,
+                 num_residual_blocks, skip_type, use_upsample_conv,
+                 kernel_size=3, ff_act="relu", neuron_kwargs=None, norm=None,
+                 generator=None):
+        super().__init__(cin, base_num_channels, num_encoders,
+                         num_residual_blocks, skip_type, use_upsample_conv,
+                         kernel_size, ff_act, None, None, None,
+                         neuron_kwargs, norm, generator)
+
+    def _encoder(self, cin, feats, k, ff_act, rec_act, kw):
+        return LeakyRecurrentConvLayer(cin, feats, k, stride=2,
+                                       activation_ff=ff_act, **kw)
+
+    def _resblock(self, feats, act, kw):
+        return LeakyResidualBlock(feats, activation=act, **kw)
+
+    def _upsample(self, cin, feats, k, act, kw):
+        return LeakyUpsampleConvLayer(cin, feats, k, activation=act, **kw)
+
+    _transposed = LeakyTransposedConvLayer

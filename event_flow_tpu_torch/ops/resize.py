@@ -1,7 +1,7 @@
 """Spatial resampling of NHWC maps, with the JAX package's semantics.
 
-Counterpart of event_flow_tpu/ops/resize.py:21-30, which sits outside
-Pallas in JAX, so both are plain PyTorch here:
+Counterpart of event_flow_tpu/ops/resize.py:21-45, which sits outside
+Pallas in JAX, so all three are plain PyTorch here:
 
 - :func:`upsample2x_bilinear` is ``jax.image.resize(method="linear")``
   to twice the size: half-pixel centers, torch's bilinear with
@@ -11,8 +11,16 @@ Pallas in JAX, so both are plain PyTorch here:
   ``"nearest-exact"``. Torch's ``"nearest"`` picks ``floor(i * in / out)``
   and differs from it at non-integer ratios (the U-Net's 24 x 30 and
   46 x 60 flows brought to 180 x 240).
+- :func:`avg_pool` is the box sum of ``lax.reduce_window`` over zero
+  padding divided by k * k: torch's ``avg_pool2d`` with
+  ``count_include_pad=True`` (the PLIF and XLIF cells' presynaptic
+  trace), on a copy of x in NCHW strides. The permuted view of the
+  trace's one-channel NHWC map has strides that also read as
+  channels_last, and on it torch's CUDA backward gave a wrong dx, more
+  than its largest entry off the CPU's, with the forward right
+  (ROADMAP.md section 3); on the copy it agrees with the CPU.
 
-Neither backward does a matrix product, so torch's TF32 flags do not
+No backward here does a matrix product, so torch's TF32 flags do not
 reach them. The bilinear upsampling has its own backward
 (:class:`_Upsample2xBilinear`): torch's CUDA ``upsample_bilinear2d_backward``
 adds with float atomics, so it is not bitwise repeatable, and
@@ -25,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["upsample2x_bilinear", "upsample2x_bilinear_grad",
-           "resize_nearest"]
+           "resize_nearest", "avg_pool"]
 
 
 def _nchw(x):
@@ -87,3 +95,11 @@ def resize_nearest(x, out_hw):
     half-pixel centers."""
     return _nhwc(F.interpolate(_nchw(x), size=tuple(out_hw),
                                mode="nearest-exact"))
+
+
+def avg_pool(x, kernel_size, stride, padding):
+    """[B, H, W, C] -> [B, H', W', C], H' = (H + 2 padding - k) // stride
+    + 1: the mean of each k x k window, padding counted as zeros."""
+    xc = _nchw(x).clone(memory_format=torch.contiguous_format)
+    return _nhwc(F.avg_pool2d(xc, kernel_size, stride, padding,
+                              count_include_pad=True))

@@ -8,6 +8,8 @@ events-mode training on the synthetic stream:
 
 ``configs/train_SNNrec_rich.yml`` trains SpikingRecEVFlowNet and
 ``configs/train_ANNrec_rich.yml`` RecEVFlowNet at the same recipe.
+``event_flow_tpu_torch/configs/train_XLIF.yml`` trains XLIFFireNet at
+that recipe (``config.py::TRAIN_XLIF``).
 
 Prints the loss of each update and its wall time. Checkpoints, the run
 tracker, ``--resume``, ``--prev_runid`` and the HDF5 and native loaders

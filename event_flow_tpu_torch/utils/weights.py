@@ -15,14 +15,17 @@ a, b] = K[k-1-a, k-1-b, ci, co]``, ops/conv.py::conv_transpose2x), and
 per-channel neuron vectors (C,) -> the template's (C, 1, 1).
 
 One fixed rename of the flax names cannot give the torch names: the
-spiking U-Net's ``encoders_i/conv`` (a strided LIF cell) keeps ``conv``
-in torch, while ``preds_i/conv`` (a ConvLayer's conv) becomes
+spiking and Leaky U-Nets' ``encoders_i/conv`` (a strided LIF, PLIF, ALIF,
+XLIF or Leaky cell) keeps ``conv`` in torch, while ``preds_i/conv`` (a ConvLayer's conv) becomes
 ``preds.i.conv2d``; RecEVFlowNet's ``encoders_i/conv/conv`` (the
 ConvLayer of a recurrent layer and its conv) becomes
 ``encoders.i.conv.conv2d``, its ConvGRU gates and residual convs keep
 their names (``recurrent_block.update_gate``, ``resblocks.i.conv1``); and
 the container prefix depends on the model class. So the torch names come
-from a template, the target model's own ``state_dict()``.
+from a template, the target model's own ``state_dict()``. A Leaky
+cell's convs (``ff``, ``rec``, ``out``) keep their names and carry a
+``bias``; the per-channel parameters of every neuron cell (``leak``,
+``leak_v``, ``add_pt``, ``t0``, ...) keep theirs.
 """
 
 import numpy as np

@@ -48,7 +48,7 @@ import sys
 import torch
 
 import chip_smoke
-from event_flow_tpu_torch.config import TRAIN_ANNREC
+from event_flow_tpu_torch.config import TRAIN_ANNREC, with_model
 from event_flow_tpu_torch.eval.harness import _map_state
 from event_flow_tpu_torch.models import cells
 from event_flow_tpu_torch.ops import conv
@@ -152,8 +152,8 @@ def flips(inputs, ref_inputs):
 
 
 def probe(name, extra, seed, cuda, jitters, jitter_size):
-    config = chip_smoke.parity_config(TRAIN_ANNREC, seed)
-    config["model"].update(name=name, **extra)
+    config = chip_smoke.parity_config(with_model(TRAIN_ANNREC, name), seed)
+    config["model"].update(**extra)
     f32 = torch.float32
     loss64, g64, x64, cot64 = first_update_grads(config, "cpu",
                                                  torch.float64)
@@ -215,7 +215,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", required=True)
     ap.add_argument("--extra", default="{}",
-                    help="JSON of model options over TRAIN_ANNREC's block")
+                    help="JSON of model options over TRAIN_ANNREC's block "
+                    "with the model's neuron block and activations")
     ap.add_argument("--seeds", default="0", help="e.g. 0-20 or 0,3,7")
     ap.add_argument("--cuda", action="store_true",
                     help="also the card, through the kernels and plain")

@@ -506,27 +506,22 @@ def test_recipes_equal_yaml_merges():
 
 
 def test_registry_builds_three_names():
-    """The registry builds the ten names of the FireNet family and the
-    U-Nets ported so far (the three of the earlier slices among them) and
-    raises, naming ROADMAP.md, for the nine Leaky, PLIF, ALIF and XLIF
-    models; RecEVFlowNet builds with the transposed-conv decoder too."""
-    assert available_models() == [
-        "E2VID", "EVFlowNet", "FireFlowNet", "FireNet", "LIFFireFlowNet",
-        "LIFFireNet", "RNNFireNet", "RNNRecEVFlowNet", "RecEVFlowNet",
-        "SpikingRecEVFlowNet"]
-    for name in available_models():
-        cfg = dict(_model_cfg(), name=name, base_num_channels=4)
-        if name.startswith(("LIF", "Spiking")):
-            cfg.update(activations=["arctanspike"] * 2,
-                       spiking_neuron={"leak": [-4.0, 0.1]})
+    """The registry builds all 19 names of the JAX registry (the three of
+    the earlier slices among them), each from its family's neuron block,
+    and raises KeyError for an unknown one; RecEVFlowNet builds with the
+    transposed-conv decoder too."""
+    from event_flow_tpu_torch.config import neuron_block
+
+    assert available_models() == sorted(KNOWN_MODELS)
+    assert len(KNOWN_MODELS) == len(set(KNOWN_MODELS)) == 19
+    assert {NAME, "SpikingRecEVFlowNet", "LIFFireNet"} <= set(KNOWN_MODELS)
+    for name in KNOWN_MODELS:
+        acts, block = neuron_block(name)
+        cfg = dict(_model_cfg(), name=name, base_num_channels=4,
+                   activations=acts, spiking_neuron=block)
         assert get_model(name, cfg) is not None
-    others = [n for n in KNOWN_MODELS if n not in available_models()]
-    assert len(others) == 9
-    assert all(n.startswith(("Leaky", "PLIF", "ALIF", "XLIF"))
-               for n in others)
-    for name in others:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(name, _model_cfg())
+    with pytest.raises(KeyError, match="Unknown model"):
+        get_model("NoSuchNet", _model_cfg())
     port = get_model(NAME, dict(_model_cfg(4), use_upsample_conv=False))
     assert "multires_unetrec.decoders.0.transposed_conv2d.weight" in \
         port.state_dict()

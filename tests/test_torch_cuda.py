@@ -803,3 +803,115 @@ def test_e2vid_window_card_vs_cpu(dev):
         err = float((got - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), err
     assert float(outs["cuda"][0].abs().max()) > 0
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_avg_pool_backward_card_vs_cpu(dev, stride, sliced):
+    """The trace's pooling of a one-channel NHWC map at 8 x 128 x 128 (k
+    3, padding 1), under a contiguous cotangent and one sliced from a
+    wider map: value and dx within 1e-6 of the CPU's, twice bitwise
+    equal. On the permuted view of the map (NCHW, with strides that also
+    read as channels_last) torch's CUDA avg_pool2d backward missed the
+    CPU's dx by more than its largest entry, so avg_pool pools a copy in
+    NCHW strides."""
+    from event_flow_tpu_torch.ops.resize import avg_pool
+
+    g = _gen()
+    x = torch.rand((8, 128, 128, 1), generator=g)
+    gy = torch.randn((8, -(-128 // stride), -(-128 // stride),
+                      4 if sliced else 1), generator=g)[..., :1]
+    outs = {}
+    for d in ("cpu", "cuda", "cuda"):
+        xd = x.to(d).requires_grad_(True)
+        with torch.enable_grad():
+            y = avg_pool(xd, 3, stride, 1)
+            gx, = torch.autograd.grad(y, xd, gy.to(d))
+        outs.setdefault(d, []).append((y.detach().cpu(), gx.cpu()))
+    (y, gx), = outs["cpu"]
+    (y1, gx1), (y2, gx2) = outs["cuda"]
+    assert torch.equal(y1, y2) and torch.equal(gx1, gx2)
+    assert float((y1 - y).abs().max()) <= 1e-6
+    assert float((gx1 - gx).abs().max()) <= 1e-6
+
+
+def test_xlif_update_bitwise_repeatable(dev):
+    """One XLIFFireNet update at base 32 (B 2, 64 x 64, T 2) twice from
+    the seeded init: the loss and every gradient bitwise equal; the
+    frozen t0 and t1 take none."""
+    from event_flow_tpu_torch.config import TRAIN_XLIF
+
+    runs = []
+    for _ in range(2):
+        with torch.enable_grad():
+            trainer, loss = _small_trainer(dev, TRAIN_XLIF, 32)
+        runs.append((loss, {n: p.grad.clone() for n, p in
+                            trainer.model.named_parameters()
+                            if p.grad is not None}))
+    assert torch.isfinite(torch.tensor(runs[0][0]))
+    assert runs[0][0] == runs[1][0]
+    assert len(runs[0][1]) == sum(1 for n, _ in trainer.model.named_parameters()
+                                  if not n.endswith((".t0", ".t1")))
+    for name, grad in runs[0][1].items():
+        assert torch.equal(grad, runs[1][1][name]), name
+
+
+@pytest.mark.parametrize("name", ["XLIFFireNet", "XLIFRecEVFlowNet",
+                                  "PLIFRecEVFlowNet", "LeakyRecEVFlowNet"])
+def test_neuron_update_under_deterministic_algorithms(dev, name):
+    """One update of the PLIF, XLIF and Leaky models with
+    torch.use_deterministic_algorithms on: the trace's avg_pool and its
+    backward, the channel mean, the per-pixel threshold's gradient and
+    the reductions into the per-channel parameters would raise instead of
+    drifting if any took a nondeterministic CUDA path."""
+    from event_flow_tpu_torch.config import TRAIN_ANNREC, with_model
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.enable_grad():
+            trainer, loss = _small_trainer(dev, with_model(TRAIN_ANNREC,
+                                                           name), 8)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.isfinite(torch.tensor(loss))
+    assert all(torch.isfinite(p.grad).all()
+               for p in trainer.model.parameters() if p.grad is not None)
+
+
+def test_xlif_window_card_vs_cpu(dev):
+    """One window of XLIFFireNet at base 32 at the ECD recipe's 180 x 240
+    from the same seeded init on the card and on the CPU: K1 8 launches;
+    the head cell's v and trace state within 1e-5 and its spikes equal but
+    where |v - thresh| < 1e-4 (the per-pixel t0 + t1 pt'). A near-threshold
+    flip moves the cells after it by a weight, so past the head the
+    comparison is by share, as the spiking U-Net's: at most 0.1 % of each
+    cell's spikes flip, and the flow stays within 1e-4 on average."""
+    from event_flow_tpu_torch.config import ECD_XLIFFIRENET
+    from event_flow_tpu_torch.eval_flow import build_model
+
+    cnt = torch.poisson(torch.full((1, 180, 240, 2), 0.2), generator=_gen())
+    outs = {}
+    for d in (torch.device("cpu"), dev):
+        model = build_model(ECD_XLIFFIRENET, d, seed=0)
+        native.reset_launch_counts()
+        with torch.no_grad():
+            out, state = model(cnt.to(d), cnt.to(d),
+                               model.zero_state(1, 180, 240, d))
+        want = {"conv2d_same": 8} if d.type == "cuda" else {}
+        assert {k: n for k, n in native.LAUNCHES.items() if n} == want
+        outs[d.type] = (out["flow"][0].cpu(),
+                        [[t.cpu() for t in s] for s in state], model)
+    flow, states, model = outs["cpu"]
+    gflow, gstates, _ = outs["cuda"]
+    (v, z, pt), (gv, gz, gpt) = states[0], gstates[0]
+    head = model.head
+    thresh = (torch.maximum(head.t0, torch.tensor(0.01)).reshape(-1)
+              + torch.maximum(head.t1, torch.tensor(0.0)).reshape(-1) * pt)
+    assert float((gv - v).abs().max()) <= ATOL
+    assert float((gpt - pt).abs().max()) <= ATOL
+    assert not ((gz != z) & ((v - thresh).abs() >= NEAR)).any()
+    for (_, z, _), (_, gz, _) in zip(states, gstates):
+        assert float((gz != z).float().mean()) <= 1e-3
+    assert all(bool(z.any()) for _, z, _ in states)
+    assert torch.isfinite(gflow).all()
+    assert float((gflow - flow).abs().mean()) <= 1e-4

@@ -86,20 +86,26 @@ def test_seeded_init_distributions():
 
 
 def test_unported_models_raise():
-    """The nine models of the Leaky, PLIF, ALIF and XLIF cells raise,
-    naming ROADMAP.md; the other ten build."""
-    assert len(available_models()) == 10
-    assert {"LIFFireNet", "FireNet", "LIFFireFlowNet"} <= set(
-        available_models())
-    unported = [n for n in KNOWN_MODELS if n not in available_models()]
-    assert sorted(unported) == sorted(
-        ["LeakyFireNet", "LeakyFireFlowNet", "PLIFFireNet", "ALIFFireNet",
-         "XLIFFireNet", "LeakyRecEVFlowNet", "PLIFRecEVFlowNet",
-         "ALIFRecEVFlowNet", "XLIFRecEVFlowNet"])
+    """No model of the JAX registry is left unported: all 19 names build,
+    the nine of the Leaky, PLIF, ALIF and XLIF cells among them, and an
+    unknown name raises KeyError."""
+    from event_flow_tpu_torch.config import neuron_block
+
+    assert available_models() == sorted(KNOWN_MODELS)
+    assert len(available_models()) == 19
+    assert {"LeakyFireNet", "LeakyFireFlowNet", "PLIFFireNet", "ALIFFireNet",
+            "XLIFFireNet", "LeakyRecEVFlowNet", "PLIFRecEVFlowNet",
+            "ALIFRecEVFlowNet", "XLIFRecEVFlowNet"} <= set(available_models())
     for name in KNOWN_MODELS:
-        if name not in available_models():
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                get_model(name, _model_cfg(8))
+        acts, block = neuron_block(name)
+        cfg = dict(_model_cfg(8), activations=acts, spiking_neuron=block)
+        model = get_model(name, cfg)
+        state = model.zero_state(1, 16, 16, torch.device("cpu"))
+        x = torch.zeros((1, 16, 16, 2))
+        with torch.no_grad():
+            assert model(x, x, state)[0]["flow"][-1].shape == (1, 16, 16, 2)
+    with pytest.raises(KeyError):
+        get_model("UnknownNet", _model_cfg(8))
 
 
 @pytest.mark.parametrize("channels,res", [(8, (32, 32)), (32, (16, 16))])
