@@ -66,6 +66,17 @@ exits non-zero without the final ``ok`` line:
               counts, and at B 2, 64 x 64, T 3 the first update's loss
               and the model's gradients under the CPU's cotangent of the
               flows against the CPU (model_parity)
+ 13. runs     the run lifecycle at configs/train_SNN.yml on one long
+              in-memory sequence: 4 updates straight against 2, a save and
+              a resume in a fresh Trainer for 2 more, bitwise equal
+              (losses, parameters, Adam state, carried state); a warm
+              start from the run's best; eval_flow's path on the run's
+              checkpoint at the ECD recipe, bitwise equal to the in-memory
+              model's and within SLICE_RTOL of the CPU's; a
+              SpikingRecEVFlowNet checkpoint (configs/train_SNNrec_rich.yml)
+              saved and restored between two updates, bitwise equal; AdamW,
+              SGD and RMSprop against the CPU; checkpoint sizes and
+              synchronous save and restore times
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
@@ -86,7 +97,7 @@ user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8-12). Imports
+sum over the counted runs of every path (phases 4-6, 8-13). Imports
 nothing of JAX.
 """
 
@@ -1201,36 +1212,45 @@ def train_phase(tag, config, expected):
     return counts, parts
 
 
+def lif_update(t, u):
+    """LIFFireNet's launches over u updates of T windows. Per update:
+    forward K2 5T + 2T, K1 T (prediction head), K3 1 (encoding) + 2 (the
+    two warps of the loss); backward B4 7T, B2 10T (7 ff + 2 rec + 1 head
+    weights), K1 7T for dx (every cell but the head, whose input is the
+    encoding, and the prediction head) + 2(T-1) for dz_rec (window 0's
+    recurrent input is the detached carried state), K3 1 (the per-event
+    flow gather of the loss)."""
+    return {"fused_conv_lif": 5 * t * u, "fused_conv_lif_rec": 2 * t * u,
+            "conv2d_same": (t + 7 * t + 2 * (t - 1)) * u,
+            "scatter_add": 4 * u, "fused_lif_bwd": 7 * t * u,
+            "conv2d_dw": 10 * t * u}
+
+
+def unet_update(t, u):
+    """SpikingRecEVFlowNet's launches over u updates of T windows. Per
+    update: forward K2 8T feedforward (4 residual-block cells, 4 decoders)
+    + 4T recurrent (the encoders' recurrent cells; the 4 strided cells
+    are cuDNN and plain torch), K1 4T (the heads); the loss K3 1
+    (encoding) + 4 scales x (2 warps + 1 per-event flow gather's
+    backward) = 13; backward B4 12T (every K2 cell), B2 20T (12 ff + 4
+    rec + 4 head weights), K1 4T (the heads' dx) + 12T (every K2 cell's
+    dx: each input comes after a strided cell's spikes) + 4(T-1) (dz_rec,
+    none in window 0)."""
+    return {"fused_conv_lif": 8 * t * u, "fused_conv_lif_rec": 4 * t * u,
+            "conv2d_same": (20 * t + 4 * (t - 1)) * u, "scatter_add": 13 * u,
+            "fused_lif_bwd": 12 * t * u, "conv2d_dw": 20 * t * u}
+
+
 def phase_train():
     from event_flow_tpu_torch.config import TRAIN_SNN
 
-    # per update: forward K2 5T + 2T, K1 T (prediction head), K3 1
-    # (encoding) + 2 (the two warps of the loss); backward B4 7T, B2 10T
-    # (7 ff + 2 rec + 1 head weights), K1 7T for dx (every cell but the
-    # head, whose input is the encoding, and the prediction head) +
-    # 2(T-1) for dz_rec (window 0's recurrent input is the detached
-    # carried state), K3 1 (the per-event flow gather of the loss)
-    return train_phase("train", TRAIN_SNN, lambda t, u: {
-        "fused_conv_lif": 5 * t * u, "fused_conv_lif_rec": 2 * t * u,
-        "conv2d_same": (t + 7 * t + 2 * (t - 1)) * u, "scatter_add": 4 * u,
-        "fused_lif_bwd": 7 * t * u, "conv2d_dw": 10 * t * u})
+    return train_phase("train", TRAIN_SNN, lif_update)
 
 
 def phase_unet_train():
     from event_flow_tpu_torch.config import TRAIN_SNNREC
 
-    # SpikingRecEVFlowNet, per update: forward K2 8T feedforward (4
-    # residual-block cells, 4 decoders) + 4T recurrent (the encoders'
-    # recurrent cells; the 4 strided cells are cuDNN and plain torch), K1
-    # 4T (the heads); the loss K3 1 (encoding) + 4 scales x (2 warps + 1
-    # per-event flow gather's backward) = 13; backward B4 12T (every K2
-    # cell), B2 20T (12 ff + 4 rec + 4 head weights), K1 4T (the heads' dx)
-    # + 12T (every K2 cell's dx: each input comes after a strided cell's
-    # spikes) + 4(T-1) (dz_rec, none in window 0)
-    return train_phase("unet-train", TRAIN_SNNREC, lambda t, u: {
-        "fused_conv_lif": 8 * t * u, "fused_conv_lif_rec": 4 * t * u,
-        "conv2d_same": (20 * t + 4 * (t - 1)) * u, "scatter_add": 13 * u,
-        "fused_lif_bwd": 12 * t * u, "conv2d_dw": 20 * t * u})[0]
+    return train_phase("unet-train", TRAIN_SNNREC, unet_update)[0]
 
 
 def phase_annunet_train():
@@ -1300,8 +1320,10 @@ def parity_phase(tag, config, lockstep=False):
             if lockstep:
                 gpu, cpu = trainers["cuda"], trainers["cpu"]
                 cpu.model.load_state_dict(gpu.model.state_dict())
-                cpu.state.optimizer.optimizer.load_state_dict(
-                    gpu.state.optimizer.optimizer.state_dict())
+                # a deep copy: load_state_dict keeps Adam's CPU step
+                # tensors, which both runs would then count up
+                cpu.state.optimizer.load_state_dict(copy.deepcopy(
+                    gpu.state.optimizer.state_dict()))
                 cpu.state = cpu.state._replace(model_state=_map_state(
                     lambda t: t.cpu(), gpu.state.model_state))
     worst = _hold_to_cpu(name, losses["cuda"], losses["cpu"], grads["cuda"],
@@ -1951,6 +1973,317 @@ def phase_models():
     return paths
 
 
+def _long_sequence(res, n_events, seed=0):
+    """One in-memory sequence of ``n_events`` constant-flow events at
+    ``res``, long enough that no slot of a run rolls over."""
+    import numpy as np
+
+    from event_flow_tpu_torch.data.stream import EventSequence
+    from event_flow_tpu_torch.data.synthetic import constant_flow_window
+
+    win = constant_flow_window(np.random.default_rng(seed), n_events, res,
+                               (8.0, -6.0), 24)
+    return EventSequence("long.h5", win[:, 2], win[:, 1],
+                         win[:, 0].astype(np.float64),
+                         np.where(win[:, 3] > 0, 1.0, -1.0))
+
+
+def _tensors(tree):
+    """The tensors of a state (nested tuples) or a state_dict, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in _tensors(tree[k])]
+    return [t for v in tree for t in _tensors(v)]
+
+
+def _run_tensors(trainer):
+    """Every tensor a resume must restore: parameters, optimizer state,
+    carried state."""
+    return (_tensors(trainer.model.state_dict())
+            + _tensors(trainer.state.optimizer.state_dict()["state"])
+            + _tensors(trainer.state.model_state))
+
+
+def _hold_bitwise(label, got, want):
+    if len(got) != len(want) or not all(
+            torch.equal(a, b.to(a.device)) for a, b in zip(got, want)):
+        fail(f"{label}: not bitwise equal")
+    return len(want)
+
+
+def _timed_save(trainer, cursor, tag):
+    """(bytes, save seconds, restore seconds) of ``trainer``'s full
+    checkpoint ``tag``: save_checkpoint after the device's queued work,
+    restore_checkpoint onto the CPU."""
+    import os
+
+    from event_flow_tpu_torch.utils import checkpoint as ckpt
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = trainer.save_full_checkpoint(cursor, 0, tag=tag)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(path)
+    restore_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    return size, save_s, restore_s
+
+
+def optimizer_parity(tag, config):
+    """3 updates of ``config``'s model and optimizer at parity_config's
+    size on the card and on the CPU, each from the card's state (weights,
+    optimizer state, carried state), as parity_phase(lockstep=True): the
+    losses within TRAIN_LOSS_RTOL; and each optimizer step held apart from
+    the loss: the CPU's optimizer, from the card's state before the
+    update, steps with the card's clipped gradients, and every parameter
+    lands within TRAIN_GRAD_RTOL (||p_gpu - p_cpu|| / ||p_cpu||) of the
+    card's. The same 3 updates free-running on each device are printed,
+    not held: the contrast loss's gradient is discontinuous in the flows
+    (model_parity), and once one update's gradients part, so do the
+    runs."""
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.eval.harness import _map_state
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    config = parity_config(config)
+    name = config["optimizer"]["name"]
+    gpu, cpu = Trainer(config, "cuda"), Trainer(config, "cpu")
+    free = [Trainer(config, "cuda"), Trainer(config, "cpu")]
+    streams = [SyntheticWindowStream(config) for _ in range(4)]
+    loss_gaps, param_gaps, free_gaps = [], [], []
+    with torch.enable_grad():
+        for _ in range(3):
+            cpu.model.load_state_dict(gpu.model.state_dict())
+            opt_state = copy.deepcopy(gpu.state.optimizer.state_dict())
+            cpu.state.optimizer.load_state_dict(copy.deepcopy(opt_state))
+            cpu.state = cpu.state._replace(model_state=_map_state(
+                lambda t: t.cpu(), gpu.state.model_state))
+            probe = Trainer(config, "cpu")
+            probe.model.load_state_dict(cpu.model.state_dict())
+            probe.state.optimizer.load_state_dict(opt_state)
+            losses = [_feed_update(gpu, streams[0]),
+                      _feed_update(cpu, streams[1])]
+            loss_gaps.append(abs(losses[0] - losses[1]) / abs(losses[1]))
+            if not loss_gaps[-1] <= TRAIN_LOSS_RTOL:
+                fail(f"{name}: GPU loss {losses[0]} vs CPU {losses[1]} "
+                     "from one state")
+            for p, q in zip(gpu.model.parameters(),
+                            probe.model.parameters()):
+                q.grad = None if p.grad is None else p.grad.cpu()
+            probe.state.optimizer.optimizer.step()
+            ref = probe.model.state_dict()
+            for pname, val in gpu.model.state_dict().items():
+                rel = float((val.cpu() - ref[pname]).norm()
+                            / ref[pname].norm().clamp(min=1e-30))
+                if not rel <= TRAIN_GRAD_RTOL:
+                    fail(f"{name}: parameter {pname} after the step on the "
+                         f"card vs the CPU, rel gap {rel}")
+                param_gaps.append(rel)
+            free_losses = [_feed_update(t, st)
+                           for t, st in zip(free, streams[2:])]
+            grads = [_grads(t.model) for t in free]
+            free_gaps.append((
+                abs(free_losses[0] - free_losses[1]) / abs(free_losses[1]),
+                max(float((g.cpu() - grads[1][k]).norm()
+                          / grads[1][k].norm().clamp(min=1e-30))
+                    for k, g in grads[0].items())))
+    print(f"[{tag}] {name}: 3 updates of {config['model']['name']} at B 2, "
+          "64x64, T 3, each from the card's state: loss rel gaps "
+          + ", ".join(f"{g:.3g}" for g in loss_gaps)
+          + "; the CPU's step with the card's gradients: largest "
+          f"||p_gpu - p_cpu|| / ||p_cpu|| {max(param_gaps):.3g}; "
+          "free-running (not held), per update the loss rel gap and the "
+          "largest gradient gap: "
+          + ", ".join(f"{a:.3g} / {b:.3g}" for a, b in free_gaps))
+
+
+def phase_runs():
+    """The run lifecycle on the card (everything under a temporary
+    directory): LIFFireNet at TRAIN_SNN on an ArrayEventStream over one
+    long sequence, 4 updates straight (A) against 2 (B) and a resume of B
+    in a fresh Trainer for 2 more (C), C's updates bitwise equal to A's
+    3-4 in the losses, every parameter, every Adam moment and the carried
+    state; a warm start from A's best (step 0, A's weights exactly); A's
+    run evaluated at ECD_LIFFIRENET through evaluate_run (the CLI's path),
+    its FWL/RSAT bitwise equal to A's in-memory model's, different from
+    the seed-0 init's, and within SLICE_RTOL of the same checkpoint on the
+    CPU; SpikingRecEVFlowNet at TRAIN_SNNREC saved after one update and
+    restored into a fresh Trainer, whose next update equals the
+    uninterrupted one bitwise; AdamW, SGD and RMSprop against the CPU
+    (optimizer_parity); checkpoint sizes and save/restore times. Returns the
+    launch counts of C's updates, the warm-start update, the evaluation
+    and the U-Net's restored update."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import tempfile
+    import types
+
+    from event_flow_tpu_torch.config import (ECD_LIFFIRENET, TRAIN_SNN,
+                                             TRAIN_SNNREC, merge_run_params)
+    from event_flow_tpu_torch.data.stream import ArrayEventStream
+    from event_flow_tpu_torch.eval_flow import evaluate, evaluate_run
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.train.loop import Trainer
+    from event_flow_tpu_torch.train_flow import train
+    from event_flow_tpu_torch.utils import checkpoint as ckpt
+    from event_flow_tpu_torch.utils.tracking import Tracker, read_params
+
+    paths = []
+
+    def quiet(fn, *args, **kw):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = fn(*args, **kw)
+        return result, out.getvalue()
+
+    config = copy.deepcopy(TRAIN_SNN)
+    config["vis"]["store_grads"] = True
+    res = tuple(config["loader"]["resolution"])
+    b = config["loader"]["batch_size"]
+    with tempfile.TemporaryDirectory() as root, torch.enable_grad():
+        seqs = [_long_sequence(res, 50000)]
+        run = dict(runs_root=root, sequences=seqs)
+        (rid_a, a, hist_a), _ = quiet(train, config, "cuda", 4, **run)
+        (rid_b, _, hist_b), _ = quiet(train, config, "cuda", 2, **run)
+        native.reset_launch_counts()
+        (_, c, hist_c), out = quiet(train, config, "cuda", 2, resume=rid_b,
+                                    **run)
+        counts = dict(native.LAUNCHES)
+        paths.append(counts)
+        t = a.t_windows
+        if f"resumed run {rid_b} at epoch 0" not in out:
+            fail(f"LIFFireNet: the resume did not report itself: {out}")
+        if counts != lif_update(t, 2):
+            fail(f"LIFFireNet resumed launches {counts} != "
+                 f"{lif_update(t, 2)}")
+        losses_a = [v for v, _ in hist_a]
+        if [v for v, _ in hist_b] != losses_a[:2] or \
+                [v for v, _ in hist_c] != losses_a[2:]:
+            fail(f"LIFFireNet: losses of A {losses_a}, B {hist_b}, "
+                 f"resumed C {hist_c}")
+        n = _hold_bitwise("LIFFireNet resumed updates 3-4",
+                          _run_tensors(c), _run_tensors(a))
+        rows = len(open(os.path.join(root, rid_a, "grads_w.csv")).readlines())
+        print(f"[runs] LIFFireNet B {b}, {res[0]}x{res[1]}, T {t}: A's 4 "
+              f"updates {losses_a}; C (B's 2, then a resume in a fresh "
+              f"Trainer) {[v for v, _ in hist_c]}: losses and all {n} "
+              "tensors (parameters, Adam state, carried state) bitwise "
+              f"equal to A's; C's launches {counts}; grads_w.csv of A "
+              f"{rows} rows")
+        cursor = types.SimpleNamespace(batch_idx=list(range(b)),
+                                       batch_row=[4 * t * 1000] * b,
+                                       files=["long.h5"])
+        lif_io = _timed_save(a, cursor, "timed")
+
+        # warm start: A's best weights, a fresh optimizer, one update
+        best = ckpt.restore_checkpoint(os.path.join(root, rid_a,
+                                                    "checkpoints", "best"))
+        warm = Trainer(config, "cuda")
+        warm.load_params(os.path.join(root, rid_a))
+        _hold_bitwise("warm start weights",
+                      _tensors(warm.model.state_dict()),
+                      _tensors(best["model"]))
+        _hold_bitwise("A's best", _tensors(best["model"]),
+                      _tensors(a.model.state_dict()))
+        if warm.state.optimizer.state_dict()["state"]:
+            fail("warm start: the optimizer is not fresh")
+        native.reset_launch_counts()
+        (_, w, hist_w), out = quiet(train, config, "cuda", 1,
+                                    prev_runid=rid_a, **run)
+        paths.append(dict(native.LAUNCHES))
+        steps = {float(st["step"]) for st in
+                 w.state.optimizer.state_dict()["state"].values()}
+        if "restored params from" not in out or steps != {1.0} or \
+                paths[-1] != lif_update(t, 1):
+            fail(f"warm start: steps {steps}, launches {paths[-1]}: {out}")
+        print(f"[runs] warm start from A's best: weights bitwise A's, "
+              f"optimizer step 0, one update loss {hist_w[0][0]!r}")
+
+        # evaluate A's run as eval_flow does, on the card and on the CPU
+        ecfg = merge_run_params(ECD_LIFFIRENET, read_params(
+            os.path.join(root, rid_a, "params.yml")))
+        evaluate(ecfg, "cuda", seed=0)  # warm-up: first-call costs
+        native.reset_launch_counts()
+        gpu, out = quiet(evaluate_run, rid_a, ecfg, "cuda", runs_root=root)
+        paths.append(dict(native.LAUNCHES))
+        windows, groups = gpu["windows"], gpu["evaluator"].metric_groups
+        want = {"fused_conv_lif": 5 * windows,
+                "fused_conv_lif_rec": 2 * windows, "conv2d_same": windows,
+                "scatter_add": windows + 4 * groups, "conv2d_dw": 0,
+                "fused_lif_bwd": 0}
+        if paths[-1] != want:
+            fail(f"eval_flow launches {paths[-1]} != {want}")
+        if "restored params from" not in out or "random init" in out:
+            fail(f"eval_flow did not restore A's checkpoint: {out}")
+        in_memory = evaluate(ecfg, "cuda", model=a.model.eval())
+        seed0 = evaluate(ecfg, "cuda", seed=0)
+        if gpu["results"] != in_memory["results"]:
+            fail(f"FWL/RSAT from the checkpoint {gpu['results']} != A's "
+                 f"in-memory model's {in_memory['results']}")
+        if gpu["results"] == seed0["results"]:
+            fail("FWL/RSAT from the checkpoint equal the seed-0 init's")
+        cpu, _ = quiet(evaluate_run, rid_a, ecfg, "cpu", runs_root=root)
+        gaps = compare_metrics("runs", gpu["results"], cpu["results"])
+        print(f"[runs] eval_flow on A's run, {gpu['windows']} windows: "
+              "restored its best checkpoint; FWL/RSAT bitwise equal to A's "
+              "in-memory model's, not the seed-0 init's "
+              f"({seed0['results']}); max rel gap to the CPU "
+              f"{max(gaps):.3g}; launches {paths[-1]}")
+
+        # SpikingRecEVFlowNet: save after one update, restore, one more
+        ucfg = copy.deepcopy(TRAIN_SNNREC)
+        useqs = [_long_sequence(res, 30000, seed=1)]
+        tracker = Tracker(runs_root=root)
+        first = Trainer(ucfg, "cuda", tracker=tracker)
+        stream = ArrayEventStream(ucfg, useqs)
+        _feed_update(first, stream)
+        unet_io = _timed_save(first, stream, "latest")
+        want_loss = _feed_update(first, stream)
+        again = Trainer(ucfg, "cuda")
+        again_stream = ArrayEventStream(ucfg, useqs)
+        again.resume(tracker.dir, again_stream)
+        native.reset_launch_counts()
+        got_loss = _feed_update(again, again_stream)
+        paths.append(dict(native.LAUNCHES))
+        if paths[-1] != unet_update(again.t_windows, 1):
+            fail(f"SpikingRecEVFlowNet restored launches {paths[-1]}")
+        if got_loss != want_loss:
+            fail(f"SpikingRecEVFlowNet: restored update's loss {got_loss} "
+                 f"!= {want_loss}")
+        n = _hold_bitwise("SpikingRecEVFlowNet restored update",
+                          _run_tensors(again), _run_tensors(first))
+        params = sum(p.numel() for p in first.model.parameters())
+        print(f"[runs] SpikingRecEVFlowNet ({params} parameters): update 2 "
+              f"after save and restore into a fresh Trainer, loss "
+              f"{got_loss!r}, all {n} tensors bitwise equal to the "
+              "uninterrupted run's")
+        for name, (size, save_s, restore_s) in (
+                ("LIFFireNet", lif_io), ("SpikingRecEVFlowNet", unet_io)):
+            print(f"[runs] {name} full checkpoint: {size} bytes, "
+                  f"save_checkpoint {save_s:.4f} s, restore_checkpoint "
+                  f"{restore_s:.4f} s (wall, synchronous)")
+        del first, again
+
+    for opt in ("AdamW", "SGD", "RMSprop"):
+        cfg = copy.deepcopy(TRAIN_SNN)
+        cfg["optimizer"]["name"] = opt
+        optimizer_parity("runs", cfg)
+
+    for name in ("yaml", "h5py"):
+        try:
+            importlib.import_module(name)
+            found = "imports"
+        except ImportError as exc:
+            found = f"does not import ({exc})"
+        print(f"[runs] {name} {found} on this machine")
+    return paths
+
+
 KERNELS = (
     ("conv2d_same", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/ops/conv_pallas.py:121"),
@@ -1985,6 +2318,7 @@ def main():
     paths += phase_firenet()
     paths += phase_neurons(lif_parts)
     paths += phase_models()
+    paths += phase_runs()
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c[k] for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],

@@ -1,8 +1,9 @@
 """event_flow_tpu_torch — the PyTorch and CUDA port of event_flow_tpu.
 
 The JAX package ``event_flow_tpu`` is the reference; this package runs the
-same serving path (LIFFireNet and SpikingRecEVFlowNet evaluation with
-FWL/RSAT metrics) and training update (10-window BPTT with the contrast-maximization loss) in
+same serving path (evaluation with FWL/RSAT metrics), training update
+(10-window BPTT with the contrast-maximization loss) and run lifecycle
+(checkpoints, exact resume, warm start) for the 19 models in
 PyTorch, with the TPU's Pallas kernels rewritten by hand in CUDA C++ for
 the H100 (``csrc/``). Layout mirrors the JAX package:
 
@@ -15,8 +16,9 @@ the H100 (``csrc/``). Layout mirrors the JAX package:
   loss/    FWL / RSAT metrics, the training loss
   data/    augmentation, the in-memory and synthetic event streams
   eval/    the per-window evaluation harness
-  train/   optimizer, update step, training loop
-  utils/   weight conversion from the JAX parameter tree
+  train/   optimizers, update step, training loop
+  utils/   weight conversion from the JAX parameter tree, checkpoints,
+           the run tracker, gradient statistics
 
 It imports torch and numpy, never jax.
 """

@@ -96,19 +96,10 @@ def load_yaml_config(path):
 
 def merge_run_params(config, stored):
     """Stored run params as the base, ``config`` winning on conflicts
-    (event_flow_tpu/config/parser.py::YAMLConfig.merge_configs). Stored
-    string values are parsed as YAML."""
-    import yaml
-
-    base = {}
-    for key, val in stored.items():
-        if isinstance(val, str):
-            try:
-                base[key] = yaml.safe_load(val)
-            except yaml.YAMLError:
-                base[key] = val
-        else:
-            base[key] = val
+    (event_flow_tpu/config/parser.py::YAMLConfig.merge_configs; the
+    parsing of stored string values is in utils/tracking.py::read_params,
+    so a merge needs no ``yaml``)."""
+    base = copy.deepcopy(stored)
     merge_dicts(copy.deepcopy(config), base)
     return combine_entries(base)
 

@@ -78,6 +78,12 @@ class ArrayEventStream:
     ``next_batch()`` returns numpy arrays: events [B, N, 4] (ts, y, x, p,
     un-augmented), valid [B, N], aug_flags [B, 3], dt_input and dt_gt [B],
     and ``new_seq`` (reports and clears the rollover flag).
+
+    Its cursor is the JAX stream's: ``batch_idx`` (each slot's index into
+    ``files``, the sequence names in play order), ``batch_row`` (each
+    slot's next event) and ``files``; a training checkpoint stores and
+    restores them (train/loop.py). ``samples`` counts the samples trained
+    on in the epoch.
     """
 
     def __init__(self, config, sequences, rng=None):
@@ -85,14 +91,18 @@ class ArrayEventStream:
             raise NotImplementedError(
                 "only events mode is ported (see ROADMAP.md)")
         self.window = int(config["data"]["window"])
+        sequences = list(sequences)
         if not any(s.num_events >= self.window for s in sequences):
             raise ValueError(f"no sequence holds a window of {self.window} "
                              "events")
         self.max_events = self.window
         self.batch_size = config["loader"]["batch_size"]
         self.rng = rng or np.random.default_rng(config["loader"].get("seed", 0))
-        self.sequences = list(sequences)
-        self.files = [s.name for s in self.sequences]
+        self._by_name = {s.name: s for s in sequences}
+        if len(self._by_name) != len(sequences):
+            raise ValueError("sequence names must be unique")
+        self.files = [s.name for s in sequences]
+        self.samples = 0
         self._mechanisms = config["loader"].get("augment", [])
         self._probs = config["loader"].get("augment_prob", [])
 
@@ -104,7 +114,8 @@ class ArrayEventStream:
             self.rng, self.batch_size, self._mechanisms, self._probs)
 
     def _sequence(self, slot):
-        return self.sequences[self.batch_idx[slot] % len(self.sequences)]
+        return self._by_name[self.files[self.batch_idx[slot]
+                                        % len(self.files)]]
 
     def slot_filename(self, slot):
         return self._sequence(slot).name

@@ -1,22 +1,31 @@
 """Evaluation entry point of the PyTorch port.
 
-Counterpart of eval_flow.py (the JAX CLI) for events-mode FWL/RSAT
-evaluation of LIFFireNet, SpikingRecEVFlowNet and RecEVFlowNet:
+Counterpart of eval_flow.py (the JAX CLI, :22-150) for events-mode
+FWL/RSAT evaluation of any model of the registry:
 
   python -m event_flow_tpu_torch.eval_flow <runid> --config configs/eval_ECD.yml \
-      --synthetic --debug --device cuda
+      --synthetic --device cuda
+  python -m event_flow_tpu_torch.eval_flow any --config <cfg with a model \
+      block> --synthetic --debug --torch_weights <model.pth | MLflow run dir>
 
 As in the JAX CLI, ``runs/<runid>/params.yml`` (the stored training
 config), when present, is the base under the eval config: its model
-block picks the model (``configs/train_ANNrec_rich.yml`` copied there
-gives RecEVFlowNet, ``train_SNNrec_rich.yml`` SpikingRecEVFlowNet). Trained
-checkpoints are not loaded yet: the model is initialised from seed 0.
-Only the in-memory twin of ``--synthetic`` is ported as a data source.
+block picks the model. The weights are ``--torch_weights`` (a reference
+``state_dict``, loaded straight into the port's modules, which carry the
+reference names) or else the run's latest checkpoint, ``best`` before
+``latest``; with neither, a seed-0 init, with a warning. Unless
+``--debug``, the eval config and the per-file results go to
+``<path_results>/<runid>/eval_N.yml`` and ``metrics_N.yml``. Only the
+in-memory twin of ``--synthetic`` is ported as a data source, and AEE is
+not ported yet (ROADMAP.md).
 
-:func:`evaluate` is what the CLI and ``chip_smoke.py`` call.
+:func:`evaluate_run` is what the CLI calls once it has the config;
+:func:`evaluate`, the serving path, is what it and ``chip_smoke.py``
+call.
 """
 
 import argparse
+import math
 import os
 import time
 
@@ -26,8 +35,13 @@ from .data.stream import ArrayEventStream, synthetic_sequences
 from .device import get_device
 from .eval.harness import Evaluator
 from .models.registry import get_model
+from .utils.checkpoint import (latest_checkpoint, load_torch_state_dict,
+                               restore_checkpoint)
+from .utils.tracking import (create_model_dir, log_eval_config,
+                             log_eval_results, read_params)
 
-__all__ = ["evaluate", "build_model"]
+__all__ = ["evaluate", "build_model", "load_weights", "evaluate_run",
+           "main"]
 
 
 def build_model(config, device, seed=0):
@@ -70,13 +84,69 @@ def _config_from_args(args):
     config = load_yaml_config(args.config)
     params_yml = os.path.join(args.runs_root, args.runid, "params.yml")
     if os.path.isfile(params_yml):
-        import yaml
-
-        with open(params_yml) as fid:
-            stored = yaml.safe_load(fid) or {}
+        stored = read_params(params_yml)
         if stored:
             config = merge_run_params(config, stored)
     return config
+
+
+def _check_aee_config(config):
+    """The JAX CLI's asserts on an AEE config (eval_flow.py:66-79)."""
+    if "AEE" not in config.get("metrics", {}).get("name", []):
+        return
+    data = config["data"]
+    if data["mode"] not in ("gtflow_dt1", "gtflow_dt4"):
+        raise SystemExit("AEE computation not possible without ground "
+                         "truth mode")
+    if data["window"] > 1:
+        raise SystemExit("AEE computation not compatible with window > 1")
+    if not math.isclose((1.0 / data["window"]) % 1.0, 0.0, abs_tol=1e-8):
+        raise SystemExit("AEE computation not compatible with windows whose "
+                         "inverse is not a round number")
+
+
+def load_weights(model, run_dir, torch_weights=None):
+    """Load ``torch_weights`` (a reference ``state_dict`` file, pickled
+    model or MLflow run directory) into ``model``, else the run's best (or
+    latest) checkpoint; returns what was loaded ("imported torch weights
+    from ..." / "restored params from ...") or None."""
+    if torch_weights:
+        model.load_state_dict(load_torch_state_dict(torch_weights))
+        return f"imported torch weights from {torch_weights}"
+    path = latest_checkpoint(run_dir)
+    if path is None:
+        return None
+    model.load_state_dict(restore_checkpoint(path)["model"])
+    return f"restored params from {path}"
+
+
+def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
+                 path_results=None):
+    """What the CLI does once it has the config: the model with the
+    weights of :func:`load_weights` (a warning where there are none),
+    :func:`evaluate` on the in-memory synthetic sequences, the per-file
+    results printed and, with ``path_results``, stored with the eval
+    config. Returns the report of :func:`evaluate`."""
+    _check_aee_config(config)
+    if path_results is not None:
+        path_results = create_model_dir(path_results, runid)
+        eval_id = log_eval_config(path_results, runid, config)
+    device = get_device(device) if not isinstance(device, torch.device) \
+        else device
+    model = build_model(config, device, seed=0)
+    loaded = load_weights(model, os.path.join(runs_root, runid),
+                          torch_weights)
+    print(loaded or "WARNING: no checkpoint found; evaluating random init")
+    report = evaluate(config, device, model=model)
+    for metric, vals in report["results"].items():
+        for fname, v in sorted(vals.items()):
+            print(f"{metric:12s} {fname:30s} {v:.6f}")
+    print(f"{report['windows']} windows in {report['seconds']:.3f} s on "
+          f"{device}")
+    if path_results is not None:
+        log_eval_results(path_results, eval_id, report["results"])
+        print(f"results stored under {path_results}/metrics_{eval_id}.yml")
+    return report
 
 
 def main(argv=None):
@@ -84,28 +154,29 @@ def main(argv=None):
     ap.add_argument("runid", help="training run id (under --runs_root)")
     ap.add_argument("--config", default="configs/eval_ECD.yml")
     ap.add_argument("--runs_root", default="runs")
+    ap.add_argument("--path_results", default="results_inference/")
     ap.add_argument("--debug", action="store_true",
-                    help="print results only (nothing is stored in any case)")
+                    help="print the results only; store nothing")
+    ap.add_argument("--torch_weights", default=None,
+                    help="reference torch checkpoint (model.pth, state_dict "
+                         "or MLflow run dir) to evaluate instead of the "
+                         "run's checkpoints")
     ap.add_argument("--synthetic", action="store_true",
                     help="evaluate on the in-memory synthetic sequences "
                          "matching the config (no dataset needed)")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
     if not args.synthetic:
-        raise SystemExit("only --synthetic data is ported so far "
+        raise SystemExit("only --synthetic data is ported to the CLI so far "
                          "(the HDF5 reader without jax is on ROADMAP.md)")
     config = _config_from_args(args)
     if "name" not in config.get("model", {}):
         raise SystemExit("the config has no model.name; give a run with "
                          "params.yml or an eval config with a model block")
-    report = evaluate(config, args.device, seed=0)
-    print("WARNING: no checkpoint loading yet; evaluated a random init "
-          "(seed 0)")
-    for metric, vals in report["results"].items():
-        for fname, v in sorted(vals.items()):
-            print(f"{metric:12s} {fname:30s} {v:.6f}")
-    print(f"{report['windows']} windows in {report['seconds']:.3f} s on "
-          f"{args.device}")
+    report = evaluate_run(
+        args.runid, config, args.device, runs_root=args.runs_root,
+        torch_weights=args.torch_weights,
+        path_results=None if args.debug else args.path_results)
     return report["results"]
 
 

@@ -1,22 +1,30 @@
-"""Optimizer with global-norm gradient clipping.
+"""Optimizers with global-norm gradient clipping, as optax defines them.
 
 Counterpart of event_flow_tpu/train/optim.py: ``optax.chain(
-clip_by_global_norm(clip_grad), adam(lr))``. Adam is ``torch.optim.Adam``
-with optax's defaults (b1 0.9, b2 0.999, eps 1e-8, eps outside the square
-root), and the clip is written as optax writes it: when the global norm
-is not below ``clip_grad``, every gradient is scaled by
-``clip_grad / norm`` (``(g / norm) * clip``; ``clip_grad_norm_`` adds
-1e-6 to the norm, which differs). The clip runs on the device, with no
-host read of the norm. Only Adam is ported: optax's and torch's defaults
-differ for AdamW (weight decay 1e-4 against 1e-2) and RMSprop (decay 0.9
-against alpha 0.99), so those need a port of their own (ROADMAP.md).
+clip_by_global_norm(clip_grad), OPTIMIZER(lr))`` with optax's defaults.
+The clip is written as optax writes it: when the global norm is not below
+``clip_grad``, every gradient is scaled by ``clip_grad / norm`` (``(g /
+norm) * clip``; ``clip_grad_norm_`` adds 1e-6 to the norm, which
+differs). It runs on the device, with no host read of the norm.
+
+- Adam: ``torch.optim.Adam`` with optax's defaults (b1 0.9, b2 0.999,
+  eps 1e-8 outside the square root), which are torch's.
+- AdamW, SGD and RMSprop are written out below, because torch's defaults
+  differ from optax's: AdamW's weight decay is 1e-4 and is added to the
+  Adam update before the learning rate scales it (torch: 1e-2, applied to
+  the parameter first); SGD has no momentum; RMSprop decays by 0.9, adds
+  eps 1e-8 inside the square root, starts its second moment at 0 and has
+  no bias correction (torch: alpha 0.99, eps outside).
+
+Each update is ``p += -lr * u`` with ``u`` computed in the order optax
+computes it (optax/_src/transform.py: scale_by_adam, add_decayed_weights,
+scale_by_rms, scale_by_learning_rate).
 """
 
 import torch
 
-__all__ = ["ClippedOptimizer", "make_optimizer", "clip_by_global_norm"]
-
-_NOT_PORTED = ("AdamW", "SGD", "RMSprop")
+__all__ = ["ClippedOptimizer", "make_optimizer", "clip_by_global_norm",
+           "AdamW", "SGD", "RMSprop", "OPTIMIZERS"]
 
 
 def clip_by_global_norm(grads, max_norm):
@@ -27,6 +35,83 @@ def clip_by_global_norm(grads, max_norm):
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, (g / norm) * max_norm))
     return norm
+
+
+class _OptaxStep(torch.optim.Optimizer):
+    """``step()`` applies ``p += -lr * self._update(p, g, state)`` to
+    every parameter with a gradient; ``state`` is the parameter's."""
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = self._update(p, p.grad, self.state[p], group)
+                p.add_(u * -group["lr"])
+
+    def _update(self, p, g, state, group):
+        raise NotImplementedError
+
+
+class AdamW(_OptaxStep):
+    """``optax.adamw(lr)``: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4.
+    Its state has torch Adam's keys (``step``, ``exp_avg``,
+    ``exp_avg_sq``)."""
+
+    def __init__(self, params, lr, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=1e-4):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay))
+
+    def _update(self, p, g, state, group):
+        b1, b2 = group["b1"], group["b2"]
+        if not state:
+            state["step"] = torch.zeros((), dtype=torch.float32)
+            state["exp_avg"] = torch.zeros_like(p)
+            state["exp_avg_sq"] = torch.zeros_like(p)
+        state["step"] += 1
+        mu, nu = state["exp_avg"], state["exp_avg_sq"]
+        mu.copy_((1 - b1) * g + b1 * mu)
+        nu.copy_((1 - b2) * (g * g) + b2 * nu)
+        count = float(state["step"])  # a CPU tensor, as torch Adam's
+        mu_hat = mu / (1 - b1 ** count)
+        nu_hat = nu / (1 - b2 ** count)
+        u = mu_hat / (torch.sqrt(nu_hat) + group["eps"])
+        return u + group["weight_decay"] * p
+
+
+class SGD(_OptaxStep):
+    """``optax.sgd(lr)``: no momentum, no state."""
+
+    def __init__(self, params, lr):
+        super().__init__(params, dict(lr=lr))
+
+    def _update(self, p, g, state, group):
+        return g
+
+
+class RMSprop(_OptaxStep):
+    """``optax.rmsprop(lr)``: decay 0.9, eps 1e-8 inside the square root,
+    second moment from 0 (``square_avg``), no bias correction."""
+
+    def __init__(self, params, lr, decay=0.9, eps=1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    def _update(self, p, g, state, group):
+        decay = group["decay"]
+        if not state:
+            state["square_avg"] = torch.zeros_like(p)
+        nu = state["square_avg"]
+        nu.copy_((1 - decay) * (g * g) + decay * nu)
+        return torch.rsqrt(nu + group["eps"]) * g
+
+
+def _adam(params, lr):
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+OPTIMIZERS = {"Adam": _adam, "AdamW": AdamW, "SGD": SGD, "RMSprop": RMSprop}
 
 
 class ClippedOptimizer:
@@ -51,17 +136,18 @@ class ClippedOptimizer:
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
 
+    def state_dict(self):
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state_dict):
+        self.optimizer.load_state_dict(state_dict)
+
 
 def make_optimizer(name, params, lr, clip_grad=None):
     """The config's optimizer over ``params`` (the trainable parameters),
     with the gradient clip of ``loss.clip_grad``."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: its optax defaults differ "
-            "from torch's (see ROADMAP.md)")
-    if name != "Adam":
+    if name not in OPTIMIZERS:
         raise KeyError(f"Unknown optimizer {name!r}; available: "
-                       f"{sorted(('Adam',) + _NOT_PORTED)}")
+                       f"{sorted(OPTIMIZERS)}")
     params = [p for p in params if p.requires_grad]
-    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    return ClippedOptimizer(opt, clip_grad)
+    return ClippedOptimizer(OPTIMIZERS[name](params, lr), clip_grad)

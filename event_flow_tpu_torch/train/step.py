@@ -15,11 +15,16 @@ Counterpart of event_flow_tpu/train/step.py (``make_sequence_forward``,
   7. detach the carried state: the truncated-BPTT boundary
      (train_flow.py:170 of the reference, ``stop_gradient`` in JAX).
 
+With ``with_grad_stats`` (on when the config sets ``vis.store_grads``,
+as event_flow_tpu/train/loop.py:81-93 sets it) the step also returns the
+per-tensor |grad| statistics of step.py:327, taken before the clip, and
+the global norm (utils/gradients.py).
+
 The JAX step's TPU workarounds are not ported (``_pack_state``, the
 ``EVFLOW_REMAT`` rematerialisation modes, ``micro_batch``,
 ``make_train_step_multi``): PyTorch keeps every saved activation, about
-3.5 GB at the training recipe, far below the card's memory. Nor are
-``with_grad_stats`` and ``with_vis`` (see ROADMAP.md).
+3.5 GB at the training recipe, far below the card's memory. ``with_vis``
+is not ported yet (ROADMAP.md).
 """
 
 from typing import Any, NamedTuple
@@ -30,6 +35,7 @@ from ..data.augment import augment_events
 from ..eval.harness import detach_state, zeros_like_state
 from ..loss.warping import LossConfig, event_warping_loss
 from ..ops.encodings import encode_windows
+from ..utils.gradients import get_grads, global_grad_norm
 
 __all__ = ["TrainState", "make_sequence_forward", "make_train_step"]
 
@@ -68,7 +74,10 @@ def make_sequence_forward(model, res, num_bins, round_encoding=False):
 
 
 class _TrainStep:
-    """``step(state, events, valid, aug_flags, reset) -> (loss, state')``.
+    """``step(state, events, valid, aug_flags, reset) -> (loss, state')``,
+    with ``with_grad_stats`` ``(loss, state', (rows, norm))``: ``rows``
+    from :func:`get_grads` under the model's parameter names, ``norm``
+    the global gradient norm, both before the clip.
 
     events [B,T,N,4] raw windows (ts, y, x, p in {-1, +1}); valid
     [B,T,N]; aug_flags [B,3]; reset a host bool. The model and the
@@ -76,8 +85,9 @@ class _TrainStep:
     (detached) recurrent state. ``loss`` is a 0-dim device tensor."""
 
     def __init__(self, model, res, num_bins, loss_cfg: LossConfig,
-                 round_encoding=False):
+                 round_encoding=False, with_grad_stats=False):
         self.loss_cfg = loss_cfg
+        self.with_grad_stats = with_grad_stats
         self.seq_fwd = make_sequence_forward(model, res, num_bins,
                                              round_encoding)
 
@@ -95,12 +105,20 @@ class _TrainStep:
         state.optimizer.zero_grad()
         loss, new_state = self.loss(model_state, events, valid, aug_flags)
         loss.backward()
+        stats = None
+        if self.with_grad_stats:
+            named = [(n, p.grad) for n, p in state.model.named_parameters()
+                     if p.grad is not None]
+            stats = (get_grads(named),
+                     global_grad_norm([g for _, g in named]))
         state.optimizer.step()
-        return loss.detach(), TrainState(state.model, state.optimizer,
-                                         detach_state(new_state))
+        out = (loss.detach(), TrainState(state.model, state.optimizer,
+                                         detach_state(new_state)))
+        return out if stats is None else out + (stats,)
 
 
 def make_train_step(model, res, num_bins, loss_cfg: LossConfig,
-                    round_encoding=False):
+                    round_encoding=False, with_grad_stats=False):
     """The update step of ``model`` (see :class:`_TrainStep`)."""
-    return _TrainStep(model, res, num_bins, loss_cfg, round_encoding)
+    return _TrainStep(model, res, num_bins, loss_cfg, round_encoding,
+                      with_grad_stats)

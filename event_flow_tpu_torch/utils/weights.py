@@ -26,12 +26,15 @@ from a template, the target model's own ``state_dict()``. A Leaky
 cell's convs (``ff``, ``rec``, ``out``) keep their names and carry a
 ``bias``; the per-channel parameters of every neuron cell (``leak``,
 ``leak_v``, ``add_pt``, ``t0``, ...) keep theirs.
+
+:func:`optimizer_state_from_jax` carries optax's Adam state across the
+same way (its ``mu`` and ``nu`` are trees of the params' shape).
 """
 
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "optimizer_state_from_jax"]
 
 _CHANNEL_VECS = {"leak", "thresh", "leak_v", "leak_t", "leak_pt", "add_pt",
                  "t0", "t1"}
@@ -119,3 +122,46 @@ def state_dict_from_jax(params, template=None):
         raise KeyError(f"unmatched: torch {missing}, flax "
                        f"{['/'.join(p) for p in flat]}")
     return out
+
+
+def _find_adam_state(tree):
+    """The node of an optax state holding ``count``, ``mu`` and ``nu``:
+    a live ``ScaleByAdamState`` or its restored form (dicts, lists)."""
+    if isinstance(tree, dict):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree["count"], tree["mu"], tree["nu"]
+        children = tree.values()
+    elif hasattr(tree, "_fields"):
+        if {"count", "mu", "nu"} <= set(tree._fields):
+            return tree.count, tree.mu, tree.nu
+        children = tuple(tree)
+    elif isinstance(tree, (list, tuple)):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def optimizer_state_from_jax(opt_state, model):
+    """optax's Adam state (``optax.adam`` or ``adamw``, alone or chained
+    after the clip) -> the ``state`` of a torch Adam (or this port's
+    AdamW) ``state_dict`` over ``model``'s trainable parameters, indexed
+    in the order of ``model.parameters()``: ``count`` -> ``step``, ``mu``
+    -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``, by the names of
+    :func:`state_dict_from_jax`. Load it with ``optimizer.load_state_dict(
+    {"state": ..., "param_groups": optimizer.state_dict()["param_groups"]})``."""
+    found = _find_adam_state(opt_state)
+    if found is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    count, mu, nu = found
+    template = model.state_dict()
+    mu = state_dict_from_jax(mu, template)
+    nu = state_dict_from_jax(nu, template)
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    return {i: {"step": step.clone(), "exp_avg": mu[name],
+                "exp_avg_sq": nu[name]} for i, name in enumerate(trainable)}

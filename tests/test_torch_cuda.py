@@ -915,3 +915,53 @@ def test_xlif_window_card_vs_cpu(dev):
     assert all(bool(z.any()) for _, z, _ in states)
     assert torch.isfinite(gflow).all()
     assert float((gflow - flow).abs().mean()) <= 1e-4
+
+
+@pytest.mark.parametrize("saved_on,restored_on", [("cuda", "cpu"),
+                                                  ("cpu", "cuda")])
+def test_checkpoint_moves_between_card_and_cpu(dev, tmp_path, saved_on,
+                                               restored_on):
+    """A full checkpoint of one update saved on one device resumes on the
+    other: the weights, the Adam state and the carried state bit for bit,
+    and the serving FWL/RSAT of the restored weights within 1e-3 of the
+    saving side's (near-threshold spike flips, as chip_smoke.py's
+    SLICE_RTOL)."""
+    from event_flow_tpu_torch.config import ECD_LIFFIRENET, TRAIN_SNN
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.eval_flow import evaluate
+    from event_flow_tpu_torch.train.loop import Trainer
+    from event_flow_tpu_torch.utils.tracking import Tracker
+
+    cfg = copy.deepcopy(TRAIN_SNN)
+    cfg["loader"].update(batch_size=2, resolution=[32, 32])
+    cfg["data"].update(window=200, window_loss=600)
+    cfg["model"]["base_num_channels"] = 8
+    devices = {"cuda": dev, "cpu": torch.device("cpu")}
+    tracker = Tracker(runs_root=str(tmp_path))
+    first = Trainer(cfg, devices[saved_on], tracker=tracker)
+    stream = SyntheticWindowStream(cfg)
+    while first.updates < 1:
+        first.feed(stream.next_batch())
+    first.save_full_checkpoint(stream, 0)
+    second = Trainer(cfg, devices[restored_on])
+    assert second.resume(tracker.dir, stream) == 0
+    assert not second._pending_reset
+
+    def tensors(tr):
+        opt = tr.state.optimizer.state_dict()["state"]
+        return ([p for _, p in sorted(tr.model.state_dict().items())]
+                + [opt[i][k] for i in sorted(opt) for k in sorted(opt[i])]
+                + [t for cell in tr.state.model_state for t in cell])
+
+    for a, b in zip(tensors(first), tensors(second)):
+        assert torch.equal(a.cpu(), b.cpu())
+    ecfg = copy.deepcopy(ECD_LIFFIRENET)
+    ecfg["loader"]["resolution"] = [32, 48]
+    ecfg["data"]["window"] = ecfg["data"]["window_eval"] = 500
+    ecfg["model"]["base_num_channels"] = 8
+    ref = evaluate(ecfg, devices[saved_on], model=first.model.eval())
+    got = evaluate(ecfg, devices[restored_on], model=second.model.eval())
+    for metric, vals in ref["results"].items():
+        for fname, val in vals.items():
+            assert got["results"][metric][fname] == pytest.approx(
+                val, rel=1e-3), (metric, fname)

@@ -54,7 +54,7 @@ def test_evaluate_runs_with_jax_yaml_h5py_blocked():
         tcfg["data"].update(window=100, window_loss=200)
         tcfg["model"]["base_num_channels"] = 4
         with contextlib.redirect_stdout(io.StringIO()):
-            _, hist = train(tcfg, "cpu", max_updates=2)
+            _, _, hist = train(tcfg, "cpu", max_updates=2, debug=True)
         assert len(hist) == 2 and all(math.isfinite(l) for l, _ in hist)
         jax_side = {BLOCKED!r} + ("event_flow_tpu",)
         loaded = sorted(m for m in sys.modules
@@ -103,6 +103,75 @@ def test_unet_evaluate_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK 20")
+
+
+def test_run_lifecycle_with_jax_yaml_h5py_blocked(tmp_path):
+    """Train with a tracker, checkpoint, resume and evaluate from the
+    checkpoint, with no JAX, yaml or h5py to import: a run directory is
+    written and read without yaml."""
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import contextlib, copy, io, math, os
+        import numpy as np
+        from event_flow_tpu_torch.config import (ECD_LIFFIRENET, TRAIN_SNN,
+                                                 merge_run_params)
+        from event_flow_tpu_torch.data.stream import EventSequence
+        from event_flow_tpu_torch.data.synthetic import constant_flow_window
+        from event_flow_tpu_torch.eval_flow import evaluate_run
+        from event_flow_tpu_torch.train_flow import train
+        from event_flow_tpu_torch.utils.tracking import read_params
+        root = {str(tmp_path / "runs")!r}
+        cfg = copy.deepcopy(TRAIN_SNN)
+        cfg["loader"].update(batch_size=2, resolution=[16, 16])
+        cfg["data"].update(window=100, window_loss=200)
+        cfg["model"]["base_num_channels"] = 4
+        cfg["vis"]["store_grads"] = True
+        win = constant_flow_window(np.random.default_rng(0), 3000, (16, 16),
+                                   (3.0, -2.0), 12)
+        seqs = [EventSequence("long.h5", win[:, 2], win[:, 1],
+                              win[:, 0].astype(np.float64),
+                              np.where(win[:, 3] > 0, 1.0, -1.0))]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rid, _, hist = train(cfg, "cpu", 2, runs_root=root,
+                                 sequences=seqs)
+            _, _, more = train(cfg, "cpu", 1, runs_root=root, resume=rid,
+                               sequences=seqs)
+            ecfg = copy.deepcopy(ECD_LIFFIRENET)
+            ecfg["loader"]["resolution"] = [16, 24]
+            ecfg["data"]["window"] = ecfg["data"]["window_eval"] = 2000
+            ecfg["model"]["base_num_channels"] = 4
+            ecfg = merge_run_params(ecfg, read_params(
+                os.path.join(root, rid, "params.yml")))
+            rep = evaluate_run(rid, ecfg, "cpu", runs_root=root,
+                               path_results=os.path.join(root, "results"))
+        assert len(hist) == 2 and len(more) == 1, (hist, more)
+        assert "restored params from" in out.getvalue(), out.getvalue()
+        vals = [v for d in rep["results"].values() for v in d.values()]
+        assert len(vals) == 4 and all(math.isfinite(v) for v in vals), vals
+        jax_side = {BLOCKED!r} + ("event_flow_tpu",)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in jax_side)
+        assert not loaded, loaded
+        print("OK", rep["windows"])
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK 20")
+    runs = [d for d in (tmp_path / "runs").iterdir() if d.name != "results"]
+    assert len(runs) == 2
+    assert all((d / "grads_w.csv").is_file() for d in runs)
+    assert all((d / "checkpoints" / "latest" / "train_state.pt").is_file()
+               for d in runs)
 
 
 def _top_level_imports(path):

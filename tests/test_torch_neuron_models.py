@@ -444,7 +444,8 @@ def test_xlif_config_file_is_train_xlif(tmp_path, capsys):
     small = tmp_path / "train.yml"
     small.write_text(yaml.safe_dump(cfg))
     history = train_main(["--config", str(small), "--synthetic",
-                          "--max_updates", "2", "--device", "cpu"])
+                          "--max_updates", "2", "--device", "cpu",
+                          "--runs_root", str(tmp_path / "runs")])
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("update")]
     assert len(history) == len(lines) == 2
