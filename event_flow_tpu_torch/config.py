@@ -27,6 +27,14 @@ check them). :data:`TRAIN_ANN` is ``configs/train_ANN.yml`` over the
 defaults: the same recipe with FireNet (relu, ConvGRU) on train_SNN.yml's
 data path (tests/test_torch_firenet.py checks it).
 
+:data:`MVSEC_LIFFIRENET` is the ground-truth serving recipe:
+``configs/eval_MVSEC.yml`` (gtflow_dt1, window 1, AEE at flow_scaling
+128, 256 x 256, a 65 536-event bucket, hot filter on) over the model block
+of ``configs/train_SNN.yml``; :data:`MVSEC_SPIKING_RECEVFLOWNET` the same
+with SpikingRecEVFlowNet; :data:`MVSEC_LIFFIRENET_DT4` its gtflow_dt4
+variant, window 0.25, as the YAML's comments give it
+(tests/test_torch_aee.py checks them).
+
 No YAML of the repo names a PLIF, ALIF, XLIF or Leaky model.
 :func:`neuron_block` gives each cell family its activations and neuron
 block: the cells' own defaults (event_flow_tpu/models/snn_cells.py:
@@ -47,7 +55,9 @@ __all__ = ["default_config", "merge_dicts", "combine_entries",
            "load_yaml_config", "merge_run_params", "ECD_LIFFIRENET",
            "ECD_SPIKING_RECEVFLOWNET", "ECD_RECEVFLOWNET", "ECD_FIRENET",
            "ECD_XLIFFIRENET", "TRAIN_SNN", "TRAIN_SNNREC", "TRAIN_ANNREC",
-           "TRAIN_ANN", "TRAIN_XLIF", "neuron_block", "with_model"]
+           "TRAIN_ANN", "TRAIN_XLIF", "MVSEC_LIFFIRENET",
+           "MVSEC_LIFFIRENET_DT4", "MVSEC_SPIKING_RECEVFLOWNET",
+           "neuron_block", "with_model"]
 
 
 def default_config():
@@ -137,6 +147,21 @@ ECD_RECEVFLOWNET["model"]["spiking_neuron"] = {}
 
 ECD_FIRENET = merge_dicts({"model": {"name": "FireNet"}},
                           copy.deepcopy(ECD_RECEVFLOWNET))
+
+MVSEC_LIFFIRENET = merge_dicts({
+    "data": {"path": "datasets/data/MVSEC/", "mode": "gtflow_dt1",
+             "window": 1, "window_eval": 15000, "max_events": 65536},
+    "loader": {"resolution": [256, 256]},
+    "metrics": {"name": ["AEE"]},
+}, copy.deepcopy(ECD_LIFFIRENET))
+
+MVSEC_LIFFIRENET_DT4 = merge_dicts(
+    {"data": {"mode": "gtflow_dt4", "window": 0.25}},
+    copy.deepcopy(MVSEC_LIFFIRENET))
+
+MVSEC_SPIKING_RECEVFLOWNET = merge_dicts(
+    {"model": {"name": "SpikingRecEVFlowNet"}},
+    copy.deepcopy(MVSEC_LIFFIRENET))
 
 
 TRAIN_SNN = {

@@ -2,25 +2,32 @@
 
 Counterpart of event_flow_tpu/eval/harness.py::Evaluator on its
 per-window path (``_window_step`` :164-205, ``_compute_fwl_rsat``,
-``process_batch`` :378-438, ``_accumulate``/``_drain``/``results``
-:637-710, ``run`` :712-731) for the events-mode metrics FWL and RSAT.
+``_compute_aee``, ``process_batch`` :378-438, ``_accumulate``/``_drain``/
+``results`` :637-710, ``run`` :712-731) for the metrics FWL, RSAT and
+AEE, in every window mode.
 
 Per window: augment -> encode (one scatter) -> hot-pixel filter ->
 model forward with the carried recurrent state -> per-event flow
-gather. Every K = window_eval / window windows, FWL and RSAT are computed
-on the accumulated events (two scatters each). Any reset in a batch
-resets the model state of every slot, as in JAX. Metric values stay on
-the device until :meth:`Evaluator.results` reads them all at once.
+gather. FWL and RSAT are computed on the events of K accumulated windows
+(two scatters each), K = window_eval / window in ``events`` mode and 1
+in the others. AEE runs in the gtflow modes against the window's
+ground-truth map, every round(1 / window) windows of a slot whose window
+has ground truth (``dt_gt`` > 0), so that a fractional window is scored
+once per GT interval. Any reset in a batch resets the model state of
+every slot, as in JAX. Metric values stay on the device until
+:meth:`Evaluator.results` reads them all at once.
 
 Not ported: the chunked fast path, single-put packing and mesh placement
-(TPU dispatch workarounds with the same results), AEE, and the
-visualization renders (the display IWE is skipped when vis is off, as the
-chunked path does).
+(TPU dispatch workarounds with the same results) and the visualization
+renders (the display IWE is skipped when vis is off, as the chunked path
+does).
 """
 
+import numpy as np
 import torch
 
 from ..data.augment import augment_events
+from ..loss.metrics import aee as aee_fn
 from ..loss.metrics import fwl as fwl_fn
 from ..loss.metrics import rsat as rsat_fn
 from ..models.snn_cells import lif_cell_names
@@ -85,7 +92,7 @@ class Evaluator:
         metrics_cfg = config.get("metrics", {})
         self.flow_scaling = metrics_cfg.get("flow_scaling", 128)
         self.metrics = list(metrics_cfg.get("name", []))
-        unsupported = set(self.metrics) - {"FWL", "RSAT"}
+        unsupported = set(self.metrics) - {"FWL", "RSAT", "AEE"}
         if unsupported:
             raise NotImplementedError(
                 f"metrics {sorted(unsupported)} are not ported (see "
@@ -95,9 +102,6 @@ class Evaluator:
         # harness for the full story)
         self.reference_accounting = bool(
             metrics_cfg.get("reference_accounting", False))
-        if config["data"]["mode"] != "events":
-            raise NotImplementedError(
-                "only events mode is ported (see ROADMAP.md)")
         if config.get("loss", {}).get("overwrite_intermediate", False):
             raise NotImplementedError(
                 "loss.overwrite_intermediate is not ported (see ROADMAP.md)")
@@ -105,15 +109,23 @@ class Evaluator:
         if vis.get("enabled") or vis.get("store"):
             raise NotImplementedError(
                 "visualization is not ported (see ROADMAP.md)")
+        self.mode = config["data"]["mode"]
         window = config["data"]["window"]
         window_eval = config["data"].get("window_eval", window)
-        self.k_windows = max(1, int(round(window_eval / window)))
+        if self.mode == "events":
+            self.k_windows = max(1, int(round(window_eval / window)))
+        else:
+            self.k_windows = 1  # AEE modes: one window per metric group
+        self.aee_every = (int(round(1.0 / window))
+                          if self.mode.startswith("gtflow") else 1)
+        self._idx_aee = None  # per-slot AEE cadence counters
         self.hot_cfg = config.get("hot_filter", {"enabled": False})
         self._results = {}
         self._buffers = []
         self._pending = []
         self.windows = 0
-        self.metric_groups = 0
+        self.metric_groups = 0  # FWL/RSAT groups computed
+        self.aee_windows = 0  # windows whose AEE was computed
         self.model_state = None  # the carried state after run()
         self.last_flow = None  # the last window's flow [B,H,W,2]
 
@@ -140,6 +152,8 @@ class Evaluator:
         win = {
             "event_list": enc["event_list"],
             "pol_mask": enc["pol_mask"],
+            "event_mask": enc["event_mask"],
+            "flow_last": flow_last,
             "event_flow": gather_event_flow(flow_last, enc["event_list"],
                                             self.res),
         }
@@ -187,45 +201,90 @@ class Evaluator:
         self.windows += 1
         if len(self._buffers) >= self.k_windows:
             filenames = [stream.slot_filename(s) for s in range(b)]
-            vals = self._compute_fwl_rsat(self._buffers)
-            self.metric_groups += 1
-            for name in self.metrics:
-                self._pending.append((name, vals[name], filenames))
+            if "FWL" in self.metrics or "RSAT" in self.metrics:
+                vals = self._compute_fwl_rsat(self._buffers)
+                self.metric_groups += 1
+                for name in self.metrics:
+                    if name in vals:
+                        self._pending.append((name, vals[name], filenames,
+                                              None, None))
+            if "AEE" in self.metrics and "gtflow" in batch:
+                self._aee_window(win, batch, filenames)
             self._buffers = []
         return model_state, hot_state
 
+    def _aee_window(self, win, batch, filenames):
+        """AEE of the window on each slot whose cadence counter fires: a
+        slot's counter advances on windows with ground truth and fires
+        every ``aee_every`` of them (harness.py:416-436)."""
+        if self._idx_aee is None:
+            self._idx_aee = np.zeros(len(filenames), np.int64)
+        ok = np.asarray(batch["dt_gt"]) > 0.0
+        self._idx_aee += ok
+        fire = ok & (self._idx_aee >= self.aee_every)
+        if fire.any():
+            dev = self.device
+            a, pct = aee_fn(
+                win["flow_last"], torch.as_tensor(batch["gtflow"], device=dev),
+                win["event_mask"],
+                torch.as_tensor(batch["dt_input"], device=dev),
+                torch.as_tensor(batch["dt_gt"], device=dev),
+                self.flow_scaling)
+            self.aee_windows += 1
+            self._pending.append(("AEE", a, filenames, pct, fire))
+        self._idx_aee[self._idx_aee >= self.aee_every] = 0
+
     def _drain(self):
         """Read every queued metric value in one device-to-host copy and
-        fold it into the per-file running sums."""
+        fold it into the per-file running sums (AEE's outlier share beside
+        it)."""
         if not self._pending:
             return
-        values = torch.stack([v for _, v, _ in self._pending]).cpu().numpy()
+        values = torch.stack([v for _, v, _, _, _ in self._pending])
+        percents = [p for _, _, _, p, _ in self._pending if p is not None]
+        values = values.cpu().numpy()
+        percents = iter(torch.stack(percents).cpu().numpy()
+                        if percents else ())
         ref_acct = self.reference_accounting and len(self.metrics) > 1
-        for (metric, _, filenames), row in zip(self._pending, values):
+        for (metric, _, filenames, pct, fire), row in zip(self._pending,
+                                                          values):
+            pct = next(percents) if pct is not None else None
             credit = metric
             for slot, fname in enumerate(filenames):
+                if fire is not None and not fire[slot]:
+                    continue
                 fentry = self._results.get(fname)
                 if fentry is None:
                     fentry = self._results[fname] = {}
                     if ref_acct:
                         for m in self.metrics:
-                            fentry[m] = {"metric": 0.0, "it": 0}
+                            fentry[m] = {"metric": 0.0, "it": 0,
+                                         "percent": 0.0}
                         credit = self.metrics[-1]
-                entry = fentry.setdefault(credit, {"metric": 0.0, "it": 0})
+                entry = fentry.setdefault(
+                    credit, {"metric": 0.0, "it": 0, "percent": 0.0})
                 entry["metric"] += float(row[slot])
                 entry["it"] += 1
+                if pct is not None:
+                    entry["percent"] += float(pct[slot])
         self._pending = []
 
     def results(self):
-        """Per-file means: {metric: {filename: value}}."""
+        """Per-file means: {metric: {filename: value}}, with AEE's mean
+        outlier share under ``AEE_percent``."""
         self._drain()
         out = {}
         for metric in self.metrics:
             out[metric] = {}
+            if metric == "AEE":
+                out["AEE_percent"] = {}
             for fname, entry in self._results.items():
                 if metric in entry:
                     e = entry[metric]
                     out[metric][fname] = e["metric"] / max(e["it"], 1)
+                    if metric == "AEE":
+                        out["AEE_percent"][fname] = (e["percent"]
+                                                     / max(e["it"], 1))
         return out
 
     def run(self, stream):

@@ -1,10 +1,13 @@
 """Evaluation entry point of the PyTorch port.
 
-Counterpart of eval_flow.py (the JAX CLI, :22-150) for events-mode
-FWL/RSAT evaluation of any model of the registry:
+Counterpart of eval_flow.py (the JAX CLI, :22-150): FWL/RSAT evaluation
+in ``events`` mode and AEE in the gtflow modes, of any model of the
+registry:
 
   python -m event_flow_tpu_torch.eval_flow <runid> --config configs/eval_ECD.yml \
       --synthetic --device cuda
+  python -m event_flow_tpu_torch.eval_flow <runid> --config configs/eval_MVSEC.yml \
+      --device cuda                  # the .h5 files under data.path
   python -m event_flow_tpu_torch.eval_flow any --config <cfg with a model \
       block> --synthetic --debug --torch_weights <model.pth | MLflow run dir>
 
@@ -15,9 +18,12 @@ block picks the model. The weights are ``--torch_weights`` (a reference
 reference names) or else the run's latest checkpoint, ``best`` before
 ``latest``; with neither, a seed-0 init, with a warning. Unless
 ``--debug``, the eval config and the per-file results go to
-``<path_results>/<runid>/eval_N.yml`` and ``metrics_N.yml``. Only the
-in-memory twin of ``--synthetic`` is ported as a data source, and AEE is
-not ported yet (ROADMAP.md).
+``<path_results>/<runid>/eval_N.yml`` and ``metrics_N.yml``. The data is
+the .h5 files under ``data.path`` (data/h5.py, the one module that
+imports h5py), or with ``--synthetic`` the in-memory twin of the JAX
+CLI's synthetic dataset for the config's mode
+(data/stream.py::synthetic_sequences: constant flow, with ground-truth
+maps in the gtflow modes).
 
 :func:`evaluate_run` is what the CLI calls once it has the config;
 :func:`evaluate`, the serving path, is what it and ``chip_smoke.py``
@@ -53,23 +59,26 @@ def build_model(config, device, seed=0):
     return model.to(device).eval()
 
 
-def evaluate(config, device, seed=0, sequences=None, model=None):
+def evaluate(config, device, seed=0, sequences=None, model=None,
+             stream=None):
     """Run the serving path over a stream and return a report dict:
     ``results`` ({metric: {file: mean}}), ``windows``, ``seconds`` (wall
     time of the window loop and the final metric read, which synchronises
     the device), ``evaluator`` and ``model``.
 
-    ``sequences`` defaults to the in-memory synthetic twin of the config
-    (``eval_flow.py --synthetic``); ``model`` defaults to
+    The stream is ``stream`` when given, else an ``ArrayEventStream`` over
+    ``sequences``, which default to the in-memory synthetic twin of the
+    config (``eval_flow.py --synthetic``); ``model`` defaults to
     :func:`build_model` with ``seed``."""
     device = get_device(device) if not isinstance(device, torch.device) \
         else device
     if model is None:
         model = build_model(config, device, seed)
     evaluator = Evaluator(config, model, device)
-    if sequences is None:
-        sequences = synthetic_sequences(config)
-    stream = ArrayEventStream(config, sequences)
+    if stream is None:
+        if sequences is None:
+            sequences = synthetic_sequences(config)
+        stream = ArrayEventStream(config, sequences)
     with torch.no_grad():
         t0 = time.perf_counter()
         results = evaluator.run(stream)
@@ -121,12 +130,13 @@ def load_weights(model, run_dir, torch_weights=None):
 
 
 def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
-                 path_results=None):
+                 path_results=None, synthetic=True):
     """What the CLI does once it has the config: the model with the
     weights of :func:`load_weights` (a warning where there are none),
-    :func:`evaluate` on the in-memory synthetic sequences, the per-file
-    results printed and, with ``path_results``, stored with the eval
-    config. Returns the report of :func:`evaluate`."""
+    :func:`evaluate` on the in-memory synthetic sequences (with
+    ``synthetic`` False, on the .h5 files under ``data.path``), the
+    per-file results printed and, with ``path_results``, stored with the
+    eval config. Returns the report of :func:`evaluate`."""
     _check_aee_config(config)
     if path_results is not None:
         path_results = create_model_dir(path_results, runid)
@@ -137,7 +147,16 @@ def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
     loaded = load_weights(model, os.path.join(runs_root, runid),
                           torch_weights)
     print(loaded or "WARNING: no checkpoint found; evaluating random init")
-    report = evaluate(config, device, model=model)
+    stream = None
+    if not synthetic:
+        from .data.h5 import H5EventStream  # the one module with h5py
+
+        stream = H5EventStream(config)
+    try:
+        report = evaluate(config, device, model=model, stream=stream)
+    finally:
+        if stream is not None:
+            stream.close()
     for metric, vals in report["results"].items():
         for fname, v in sorted(vals.items()):
             print(f"{metric:12s} {fname:30s} {v:.6f}")
@@ -163,20 +182,22 @@ def main(argv=None):
                          "run's checkpoints")
     ap.add_argument("--synthetic", action="store_true",
                     help="evaluate on the in-memory synthetic sequences "
-                         "matching the config (no dataset needed)")
+                         "matching the config (no dataset needed); without "
+                         "it, the .h5 files under data.path")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("only --synthetic data is ported to the CLI so far "
-                         "(the HDF5 reader without jax is on ROADMAP.md)")
     config = _config_from_args(args)
+    if not args.synthetic and not config["data"].get("path"):
+        raise SystemExit("the config has no data.path: give one, or "
+                         "evaluate on --synthetic")
     if "name" not in config.get("model", {}):
         raise SystemExit("the config has no model.name; give a run with "
                          "params.yml or an eval config with a model block")
     report = evaluate_run(
         args.runid, config, args.device, runs_root=args.runs_root,
         torch_weights=args.torch_weights,
-        path_results=None if args.debug else args.path_results)
+        path_results=None if args.debug else args.path_results,
+        synthetic=args.synthetic)
     return report["results"]
 
 

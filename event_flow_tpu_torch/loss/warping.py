@@ -21,8 +21,10 @@ spatial directions and the pass axis, applied to the SUM of the x and y
 differences, sqrt((du + dv)^2 + eps), as the reference does
 (flow.py:273-277), masked by the event mask with ``smoothing_mask``.
 
-Not ported: the ``t_live`` padded passes of the time and gtflow training
-modes, and the sharded form (``axes``); see ROADMAP.md.
+Not ported: the JAX loss's ``t_live`` (warping.py:87-102), which masks
+the padded passes of a static-shape scan; the port's updates hold only
+their live windows (train/step.py), which gives the same loss. Nor the
+sharded form (``axes``); see ROADMAP.md.
 """
 
 from dataclasses import dataclass

@@ -84,6 +84,10 @@ def encode_window(events, res, num_bins, valid=None, round_ts=False):
     vals = torch.cat([torch.stack([pos, neg], dim=-1), ps[..., None] * vox_w],
                      dim=-1) * mask[..., None].to(ps.dtype)
 
+    # masked events (padding, off the sensor) add nothing; an index out of
+    # range keeps them out of the scatter, where a clamped one would pile
+    # a padded bucket's zeros onto pixel 0
+    idx = torch.where(mask, idx, -1)
     img = scatter_add(idx, vals.contiguous(), h * w).reshape(
         b, h, w, 2 + num_bins)
     cnt = img[..., :2]

@@ -15,6 +15,13 @@ Counterpart of event_flow_tpu/train/step.py (``make_sequence_forward``,
   7. detach the carried state: the truncated-BPTT boundary
      (train_flow.py:170 of the reference, ``stop_gradient`` in JAX).
 
+In the time and gtflow modes an update covers a variable number of
+windows. JAX pads them to a static T for its scan and passes the live
+count ``t_live``: the padded windows keep the carried state
+(``jnp.where(live, new, old)``, step.py:113-115) and drop out of the
+loss. The port's step is given the live windows only (train/loop.py),
+which is the same update, so it takes no ``t_live``.
+
 With ``with_grad_stats`` (on when the config sets ``vis.store_grads``,
 as event_flow_tpu/train/loop.py:81-93 sets it) the step also returns the
 per-tensor |grad| statistics of step.py:327, taken before the clip, and

@@ -1,10 +1,13 @@
 """Training entry point of the PyTorch port.
 
-Counterpart of train_flow.py (the JAX CLI, :27-150 and :206-255) for
-events-mode training:
+Counterpart of train_flow.py (the JAX CLI, :27-150 and :206-255):
 
   python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
       --synthetic --max_updates 10 --device cuda
+  python -m event_flow_tpu_torch.train_flow --config configs/train_SNN_rich.yml \\
+      --synthetic rich --max_updates 10 --device cuda
+  python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
+      --max_updates 10 --device cuda            # reads data.path (.h5)
   python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
       --synthetic --max_updates 10 --resume <runid>     # exact resume
   python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
@@ -23,12 +26,18 @@ checkpoints, saved as the JAX CLI saves them: at each epoch's end and at
 run exactly (weights, optimizer state, carried state, epoch, and on an
 ``ArrayEventStream`` its cursor) in a new run directory;
 ``--prev_runid <runid>`` starts from its weights with a fresh optimizer.
-``--synthetic`` trains on the generator stream, which has no cursor: a
-resume there restores everything else, as the JAX CLI's
-``_SyntheticStream`` does. The HDF5 and native loaders are not ported
-yet (ROADMAP.md). :func:`train` is what the CLI calls; it also takes
-in-memory ``sequences`` (``data/stream.py::ArrayEventStream``, the
-counterpart of the JAX CLI's HDF5 ``EventStream``).
+Without ``--synthetic`` the run reads the .h5 files under ``data.path``
+(data/h5.py::H5EventStream, shuffled once as the JAX CLI does) in the
+config's window mode: ``events``, or ``time`` and the gtflow modes,
+whose updates gather windows until ``window_loss`` events
+(train/loop.py). ``--synthetic`` (``const``, constant-velocity points)
+and ``--synthetic rich`` (textured scenes with flow redrawn every 64
+batches) train on the generator streams, which have no cursor: a resume
+there restores everything else, as the JAX CLI's ``_SyntheticStream``
+does. The native loader is not ported yet (ROADMAP.md). :func:`train`
+is what the CLI calls; it also takes in-memory ``sequences``
+(``data/stream.py::ArrayEventStream``, the same cursor as the file
+stream's).
 
 Prints the loss of each update and its wall time.
 """
@@ -48,10 +57,12 @@ __all__ = ["train", "main"]
 
 
 def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
-          resume="", debug=False, sequences=None):
+          resume="", debug=False, sequences=None, synthetic="const"):
     """Train until ``max_updates`` updates (0: the config's
     ``loader.n_epochs`` epochs) on ``ArrayEventStream(config,
-    sequences)``, or on the synthetic stream when ``sequences`` is None.
+    sequences)``; when ``sequences`` is None, on the synthetic stream of
+    style ``synthetic`` (``const`` or ``rich``), or with ``synthetic``
+    None on the .h5 files under ``data.path``.
     Returns (the run id, None with ``debug``; the Trainer; the list of
     (loss, seconds) per update, the seconds spanning the update's window
     feed up to its loss read, which waits for the device)."""
@@ -68,10 +79,15 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
     if prev_runid:
         path = trainer.load_params(os.path.join(runs_root, prev_runid))
         print(f"restored params from {path}")
-    if sequences is None:
-        stream = SyntheticWindowStream(config)
-    else:
+    if sequences is not None:
         stream = ArrayEventStream(config, sequences)
+    elif synthetic:
+        stream = SyntheticWindowStream(config, synthetic)
+    else:
+        from .data.h5 import H5EventStream  # the one module with h5py
+
+        stream = H5EventStream(config)
+        stream.shuffle()
     n_epochs = config["loader"].get("n_epochs", 100)
     epoch = 0
     if resume:
@@ -109,9 +125,12 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="configs/train_SNN.yml")
-    ap.add_argument("--synthetic", action="store_true",
-                    help="train on the constant-flow synthetic stream (no "
-                         "dataset needed)")
+    ap.add_argument("--synthetic", nargs="?", const="const", default=None,
+                    choices=["const", "rich"],
+                    help="train on a synthetic stream, no dataset needed: "
+                         "'const' (the default) per-slot constant flow, "
+                         "'rich' textured scenes with varied flow; without "
+                         "it, the .h5 files under data.path")
     ap.add_argument("--max_updates", type=int, default=0)
     ap.add_argument("--runs_root", default="runs")
     ap.add_argument("--prev_runid", default="",
@@ -124,15 +143,16 @@ def main(argv=None):
                     help="no run directory, no checkpoints")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("only --synthetic data is ported to the CLI so far "
-                         "(the HDF5 reader without jax is on ROADMAP.md)")
     config = load_yaml_config(args.config)
-    if config["data"]["mode"] != "events":
-        raise SystemExit("only events-mode training is ported so far")
+    if config["data"]["mode"] == "frames":
+        raise SystemExit("training is not compatible with frames mode")
+    if not args.synthetic and not config["data"].get("path"):
+        raise SystemExit("the config has no data.path: give one, or train "
+                         "on --synthetic")
     _, _, history = train(
         config, args.device, args.max_updates, runs_root=args.runs_root,
-        prev_runid=args.prev_runid, resume=args.resume, debug=args.debug)
+        prev_runid=args.prev_runid, resume=args.resume, debug=args.debug,
+        synthetic=args.synthetic)
     return history
 
 

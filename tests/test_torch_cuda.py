@@ -965,3 +965,77 @@ def test_checkpoint_moves_between_card_and_cpu(dev, tmp_path, saved_on,
         for fname, val in vals.items():
             assert got["results"][metric][fname] == pytest.approx(
                 val, rel=1e-3), (metric, fname)
+
+
+def test_time_update_bitwise_under_deterministic_algorithms(dev):
+    """A time-mode LIFFireNet update at B 2, 64 x 64, width 8, of the
+    t_live < t_max_windows windows the Trainer gathered, run twice from
+    the same init under torch.use_deterministic_algorithms: the loss,
+    every gradient and the carried state bitwise equal."""
+    from event_flow_tpu_torch.config import TRAIN_SNN
+    from event_flow_tpu_torch.data.stream import (ArrayEventStream,
+                                                  synthetic_sequences)
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    cfg = copy.deepcopy(TRAIN_SNN)
+    cfg["loader"].update(batch_size=2, resolution=[64, 64])
+    cfg["data"].update(mode="time", window=0.05, window_loss=3000,
+                       max_events=2048, t_max_windows=6)
+    cfg["model"]["base_num_channels"] = 8
+    seen = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.enable_grad():
+            first = Trainer(cfg, dev)
+            step = first.step
+            first.step = lambda *args: seen.append(args[1:]) or step(*args)
+            stream = ArrayEventStream(cfg, synthetic_sequences(cfg))
+            loss = None
+            while loss is None:
+                loss = first.feed(stream.next_batch())
+            events, valid, aug, reset = seen[0]
+            assert first.t_live == events.shape[1] < 6
+            again = Trainer(cfg, dev)
+            loss_2, state_2 = again.step(again.state, events, valid, aug,
+                                         reset)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert loss_2.item() == loss
+    for (n1, p1), (n2, p2) in zip(first.model.named_parameters(),
+                                  again.model.named_parameters()):
+        assert torch.equal(p1.grad, p2.grad), n1
+    for (v1, z1), (v2, z2) in zip(first.state.model_state,
+                                  state_2.model_state):
+        assert torch.equal(v1, v2) and torch.equal(z1, z2)
+
+
+@pytest.mark.parametrize("mode,window", [("gtflow_dt1", 1),
+                                         ("gtflow_dt4", 0.25)])
+def test_aee_serving_card_vs_cpu(dev, mode, window):
+    """MVSEC-protocol AEE serving of LIFFireNet at 64 x 64, width 8, with
+    the 65 536-event bucket (mostly padding): per-file AEE and outlier
+    share within 1e-3 of the CPU's, and the ground truth as the
+    prediction scoring AEE < 1e-4 px on the card."""
+    from event_flow_tpu_torch.config import MVSEC_LIFFIRENET
+    from event_flow_tpu_torch.data.stream import synthetic_sequences
+    from event_flow_tpu_torch.eval_flow import evaluate
+    from event_flow_tpu_torch.loss.metrics import aee
+
+    cfg = copy.deepcopy(MVSEC_LIFFIRENET)
+    cfg["loader"]["resolution"] = [64, 64]
+    cfg["model"]["base_num_channels"] = 8
+    cfg["data"].update(mode=mode, window=window)
+    seqs = synthetic_sequences(cfg)
+    gpu = evaluate(cfg, dev, sequences=seqs)["results"]
+    cpu = evaluate(cfg, "cpu", sequences=seqs)["results"]
+    assert set(gpu) == set(cpu) == {"AEE", "AEE_percent"}
+    for metric, per_file in cpu.items():
+        for fname, ref in per_file.items():
+            assert gpu[metric][fname] == pytest.approx(ref, rel=1e-3,
+                                                       abs=1e-6)
+    gt = torch.randn((1, 64, 64, 2), device=dev)
+    mask = (torch.rand((1, 64, 64, 1), device=dev) < 0.3).float()
+    dt_in = torch.tensor([0.05], device=dev)
+    dt_gt = torch.tensor([0.2], device=dev)
+    a, pct = aee(gt / (128 * dt_gt / dt_in), gt, mask, dt_in, dt_gt)
+    assert float(a) < 1e-4 and float(pct) == 0.0

@@ -101,6 +101,45 @@ def test_slice_matches_jax_evaluator(tmp_path, reference_accounting):
     assert max(rates) > 0.0
 
 
+@pytest.mark.parametrize("hot_filter,reference_accounting",
+                         [(True, False), (False, True)])
+def test_accumulated_windows_match_jax_evaluator(tmp_path, hot_filter,
+                                                 reference_accounting):
+    """window_eval > window, as configs/eval_rich.yml and eval_varied.yml
+    (1000 / 3000) scaled down to 500 / 1500: FWL and RSAT of K = 3
+    accumulated windows per metric group, against JAX's Evaluator."""
+    cfg = _small_recipe(tmp_path)
+    cfg["data"]["window_eval"] = 1500
+    cfg["hot_filter"]["enabled"] = hot_filter
+    cfg["metrics"]["reference_accounting"] = reference_accounting
+    jmodel = jax_get_model("LIFFireNet", cfg["model"])
+    res = tuple(cfg["loader"]["resolution"])
+    x = jnp.zeros((1, *res, 2))
+    params = jmodel.init(jax.random.PRNGKey(0), x, x,
+                         jmodel.zero_state(1, *res))
+    stream = EventStream(cfg)
+    ref = JaxEvaluator(cfg, jmodel, params).run(stream)
+    stream.close()
+
+    port = get_model("LIFFireNet", cfg["model"])
+    port.load_state_dict(state_dict_from_jax(
+        jax.tree_util.tree_map(np.array, params)), strict=True)
+    report = evaluate(cfg, "cpu", model=port)
+    ev = report["evaluator"]
+    assert ev.k_windows == 3 and report["windows"] == 80
+    # 40 windows per file, 13 whole groups each; the partial one dropped
+    assert ev.metric_groups == 26
+    ours = report["results"]
+    assert set(ours) == set(ref) == {"FWL", "RSAT"}
+    for metric in ref:
+        assert set(ours[metric]) == set(ref[metric]) == {"seq_a.h5",
+                                                         "seq_b.h5"}
+        for fname, val in ref[metric].items():
+            assert ours[metric][fname] == pytest.approx(val, rel=SLICE_RTOL), \
+                (metric, fname)
+    assert any(abs(v - 1.0) > 1e-3 for v in ours["FWL"].values())
+
+
 def test_recipe_equals_yaml_merge():
     """ECD_LIFFIRENET is configs/eval_ECD.yml over the model block of
     configs/train_SNN.yml, merged as the JAX CLI merges a run's stored
@@ -119,7 +158,11 @@ def test_synthetic_sequences_sizes():
     seqs = synthetic_sequences(cfg)
     assert [s.name for s in seqs] == ["seq_a.h5", "seq_b.h5"]
     assert all(s.num_events == 120000 for s in seqs)
-    assert all(s.ts[0] == 0.0 and np.all(np.diff(s.ts) >= 0) for s in seqs)
+    # timestamps on the file's clock, from its t0 (10 s), as the JAX
+    # writer stores them; windows carry ts - t0
+    assert all(s.ts[0] == s.t0 > 0 and np.all(np.diff(s.ts) >= 0)
+               for s in seqs)
+    assert all(s.get_events(0, 1)[2][0] == 0.0 for s in seqs)
     assert set(np.unique(seqs[0].ps)) == {-1.0, 1.0}
     stream = ArrayEventStream(cfg, seqs)
     n = 0
@@ -134,7 +177,11 @@ def test_synthetic_sequences_sizes():
 
 def test_evaluate_rejects_unported_options():
     cfg = copy.deepcopy(ECD_LIFFIRENET)
-    cfg["metrics"]["name"] = ["AEE"]
+    cfg["loss"] = {"overwrite_intermediate": True}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        evaluate(cfg, torch.device("cpu"), sequences=[])
+    cfg = copy.deepcopy(ECD_LIFFIRENET)
+    cfg["metrics"]["name"] = ["AEE", "EPE"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         evaluate(cfg, torch.device("cpu"), sequences=[])
 

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, flax, optax, yaml or h5py on its
-serving and training paths, no module of the JAX package anywhere, no
-CUDA launch for CPU tensors (forward or backward), no silent device
-fallback.
+serving and training paths (h5py only in data/h5.py, the .h5 reader), no
+module of the JAX package anywhere, no CUDA launch for CPU tensors
+(forward or backward), no silent device fallback.
 """
 
 import ast
@@ -174,6 +174,63 @@ def test_run_lifecycle_with_jax_yaml_h5py_blocked(tmp_path):
                for d in runs)
 
 
+def test_gtflow_eval_and_time_training_with_jax_yaml_h5py_blocked():
+    """AEE evaluation in gtflow_dt1 and gtflow_dt4 and training in time
+    mode, on sequences in memory, with no JAX, yaml or h5py to import:
+    the .h5 reader is not loaded on these paths."""
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import contextlib, copy, io, math
+        from event_flow_tpu_torch.config import ECD_LIFFIRENET, TRAIN_SNN
+        from event_flow_tpu_torch.data.sequences import rich_sequence
+        from event_flow_tpu_torch.data.stream import synthetic_sequences
+        from event_flow_tpu_torch.eval_flow import evaluate
+        from event_flow_tpu_torch.train_flow import train
+        cfg = copy.deepcopy(ECD_LIFFIRENET)
+        cfg["loader"]["resolution"] = [16, 24]
+        cfg["model"]["base_num_channels"] = 4
+        cfg["metrics"]["name"] = ["AEE"]
+        cfg["data"].update(mode="gtflow_dt1", window=1, max_events=4096)
+        seqs = [rich_sequence(f"s{{i}}.h5", res=(16, 24), duration=0.5,
+                              event_rate=20000.0, seed=i, n_structures=20,
+                              velocity=(10.0, -20.0), gt_flow_hz=20.0)
+                for i in range(2)]
+        rep = evaluate(cfg, "cpu", sequences=seqs)
+        vals = list(rep["results"]["AEE"].values())
+        assert len(vals) == 2 and all(math.isfinite(v) for v in vals), vals
+        cfg["data"].update(mode="gtflow_dt4", window=0.25)
+        rep4 = evaluate(cfg, "cpu")
+        assert set(rep4["results"]) == {{"AEE", "AEE_percent"}}, rep4
+        tcfg = copy.deepcopy(TRAIN_SNN)
+        tcfg["loader"].update(batch_size=2, resolution=[16, 16])
+        tcfg["data"].update(mode="time", window=0.02, window_loss=600,
+                            max_events=1024, t_max_windows=4)
+        tcfg["model"]["base_num_channels"] = 4
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, trainer, hist = train(tcfg, "cpu", max_updates=2, debug=True,
+                                     sequences=synthetic_sequences(tcfg))
+        assert len(hist) == 2 and all(math.isfinite(l) for l, _ in hist)
+        jax_side = {BLOCKED!r} + ("event_flow_tpu",)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in jax_side
+                        or m == "event_flow_tpu_torch.data.h5")
+        assert not loaded, loaded
+        print("OK", rep["windows"], trainer.t_live)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK 20")
+
+
 def _top_level_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     names = []
@@ -202,11 +259,17 @@ def test_no_blocked_imports_in_the_port():
     assert len(files) > 20
     for path in files:
         for name in _top_level_imports(path):
+            if path == ROOT / "event_flow_tpu_torch" / "data" / "h5.py" \
+                    and name == "h5py":
+                continue
             assert name.split(".")[0] not in BLOCKED, (path, name)
+        reader = path == ROOT / "event_flow_tpu_torch" / "data" / "h5.py"
         for name in _all_imports(path):
-            # yaml only inside the CLI's config loading; never JAX
+            # yaml only inside the CLI's config loading; never JAX; h5py
+            # only in the .h5 reader
             assert name.split(".")[0] not in ("jax", "jaxlib", "flax",
-                                              "optax", "h5py"), (path, name)
+                                              "optax"), (path, name)
+            assert name.split(".")[0] != "h5py" or reader, (path, name)
             # nothing of the JAX package, not even a module without JAX
             assert name.split(".")[0] != "event_flow_tpu", (path, name)
 
