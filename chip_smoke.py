@@ -93,6 +93,18 @@ exits non-zero without the final ``ok`` line:
               saved and restored between two updates, bitwise equal; AdamW,
               SGD and RMSprop against the CPU; checkpoint sizes and
               synchronous save and restore times
+ 15. native   the C++ prefetching loader (data/native_loader.py, built
+              with g++) on packs written with write_pack, no h5py:
+              native batches against ArrayEventStream (seq_num equal,
+              every key bitwise but dt_input); LIFFireNet at
+              configs/train_SNN.yml, 1 + 3 updates through
+              train(native=True) with exact launch counts and losses
+              within 1e-5 of the in-memory run's; the update's wall and
+              busy time and host ms per next_batch with each stream; and
+              MVSEC_LIFFIRENET serving of one file on a gtflow_dt1
+              NativeEventStream, AEE within rel 1e-6 of the in-memory
+              run's, with host ms per next_batch at the 65 536-event
+              bucket
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
@@ -113,7 +125,7 @@ user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8-14). Imports
+sum over the counted runs of every path (phases 4-6, 8-15). Imports
 nothing of JAX.
 """
 
@@ -2652,6 +2664,247 @@ def phase_runs():
     return paths
 
 
+# the training packs of [native]: TRAIN_SNN's textured scenes at the
+# generator's 20 000 events/s, 2 s each, so that the 8 slots (10 000
+# events per update each) roll over within the run's 1 + 3 updates
+NATIVE_FILES = 10
+NATIVE_SECONDS = 2.0
+
+
+class _TimedStream:
+    """A stream whose next_batch is timed on the host clock (``ms``)."""
+
+    def __init__(self, stream):
+        self.stream = stream
+        self.ms = []
+
+    def next_batch(self):
+        t0 = time.perf_counter()
+        batch = self.stream.next_batch()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return batch
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+
+def hold_streams(tag, nat, mem, n):
+    """``n`` batches of the native stream against the in-memory one:
+    seq_num equal at every batch, every key bitwise equal but dt_input,
+    which the C++ loader takes as a float64 difference of the times
+    (rtol 1e-4). Returns (dt_input entries bitwise equal, entries)."""
+    import numpy as np
+
+    same = total = 0
+    for step in range(n):
+        got, want = nat.next_batch(), mem.next_batch()
+        if nat.seq_num != mem.seq_num or not set(got) <= set(want):
+            fail(f"{tag}: batch {step}: seq_num {nat.seq_num} against "
+                 f"{mem.seq_num}, keys {sorted(got)} against {sorted(want)}")
+        for key in got:
+            a, b = np.asarray(got[key]), np.asarray(want[key])
+            if key == "dt_input":
+                if not np.allclose(a, b, rtol=1e-4, atol=0.0):
+                    fail(f"{tag}: batch {step}: dt_input {a} against {b}")
+                same += int((a == b).sum())
+                total += a.size
+            elif a.dtype != b.dtype or not np.array_equal(a, b):
+                fail(f"{tag}: batch {step}: {key} differs")
+    return same, total
+
+
+def _native_update_times(config, stream, label, shape):
+    """LIFFireNet at ``config`` fed by ``stream``: a warm-up update, 3
+    timed ones (wall ms, each ending in the loss read) with the host ms of
+    every next_batch, and one profiled update (device busy ms)."""
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    timed = _TimedStream(stream)
+    try:
+        with torch.enable_grad():
+            trainer = Trainer(config, "cuda")
+            _feed_update(trainer, timed)
+            timed.ms.clear()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                _feed_update(trainer, timed)
+                walls.append(1e3 * (time.perf_counter() - t0))
+            host = list(timed.ms)
+            wall_us, events = _device_events(
+                lambda: _feed_update(trainer, timed))
+    finally:
+        stream.close()
+    busy = sum(us for _, _, us in events) / 1e3
+    print(f"[native] update fed by {label} ({shape}): ms/update {_spread(walls)}; "
+          f"device busy {busy:.4f} ms of {wall_us / 1e3:.4f} ms wall "
+          f"(profiler on); host ms per next_batch {_spread(host)}")
+
+
+def phase_native():
+    """The C++ prefetching loader (data/native_loader.py) on the card's
+    machine, which has no h5py: the loader built with g++; packs written
+    with write_pack from the port's generators (NATIVE_FILES textured
+    scenes at TRAIN_SNN's 128 x 128; [aee]'s first gtflow_dt1 sequence
+    with its flow_dt1 sidecar), their bytes and write seconds; native
+    batches against ArrayEventStream over the same sequences (seq_num
+    equal, every key bitwise but dt_input); LIFFireNet at TRAIN_SNN, 1 + 3
+    updates through train(native=True) with exact launches (lif_update)
+    and losses within 1e-5 of the in-memory run's; the update's wall and
+    busy time and host ms per next_batch with each stream; then
+    MVSEC_LIFFIRENET serving of that sequence through the Evaluator on a
+    gtflow_dt1 NativeEventStream, exact launches, per-file AEE and
+    outlier share within rel 1e-6 of the ArrayEventStream run's, host ms
+    per next_batch at the 65 536-event bucket with each stream. Returns
+    the launch counts of the native training run and the native serving
+    run."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from event_flow_tpu_torch.config import MVSEC_LIFFIRENET, TRAIN_SNN
+    from event_flow_tpu_torch.data import native_loader
+    from event_flow_tpu_torch.data.native_loader import (NativeEventStream,
+                                                         write_pack)
+    from event_flow_tpu_torch.data.sequences import rich_sequence
+    from event_flow_tpu_torch.data.stream import ArrayEventStream
+    from event_flow_tpu_torch.eval_flow import build_model, evaluate
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.train_flow import train
+
+    t0 = time.perf_counter()
+    lib = native_loader.build_library()
+    print(f"[native] loader {lib.parent.name}/{lib.name} built with g++ in "
+          f"{time.perf_counter() - t0:.3f} s")
+    paths = []
+    config = copy.deepcopy(TRAIN_SNN)
+    res = tuple(config["loader"]["resolution"])
+    shape = (f"B {config['loader']['batch_size']} x "
+             f"{config['data']['window']}")
+    with tempfile.TemporaryDirectory() as root:
+        seqs = [rich_sequence(f"seq_{i:02d}.h5", res=res,
+                              duration=NATIVE_SECONDS, seed=i,
+                              gt_flow_hz=None)
+                for i in range(NATIVE_FILES)]
+        config["data"]["path"] = os.path.join(root, "train")
+        os.makedirs(config["data"]["path"])
+        t0 = time.perf_counter()
+        packs = [write_pack(s, os.path.join(config["data"]["path"],
+                                            s.name[:-3] + ".evpack"))
+                 for s in seqs]
+        write_s = time.perf_counter() - t0
+        print(f"[native] {len(packs)} training packs, "
+              f"{sum(s.num_events for s in seqs)} events, "
+              f"{sum(os.path.getsize(p) for p in packs)} bytes, written in "
+              f"{write_s:.4f} s")
+        nat = NativeEventStream(copy.deepcopy(config))
+        try:
+            same, total = hold_streams("native", nat, ArrayEventStream(
+                copy.deepcopy(config), seqs), 60)
+            rolled = nat.seq_num
+        finally:
+            nat.close()
+        print(f"[native] 60 batches of {shape} against ArrayEventStream: "
+              f"seq_num equal ({rolled} rollovers), every key bitwise, "
+              f"dt_input bitwise in {same} of {total}")
+
+        out = io.StringIO()
+        with torch.enable_grad(), contextlib.redirect_stdout(out):
+            native.reset_launch_counts()
+            _, trainer, hist = train(config, "cuda", 4, debug=True,
+                                     native=True)
+            counts = dict(native.LAUNCHES)
+            _, _, hist_mem = train(config, "cuda", 4, debug=True,
+                                   sequences=seqs)
+        t = trainer.t_windows
+        if counts != lif_update(t, 4):
+            fail(f"[native] train(native=True) launches {counts} != "
+                 f"{lif_update(t, 4)}")
+        if "using native prefetching loader" not in out.getvalue():
+            fail("[native] train(native=True) did not use the loader")
+        paths.append(counts)
+        gaps = [abs(a - b) / abs(b) for (a, _), (b, _) in zip(hist,
+                                                              hist_mem)]
+        if len(hist) != 4 or len(hist_mem) != 4 or max(gaps) > 1e-5:
+            fail(f"[native] losses {hist} against the in-memory run's "
+                 f"{hist_mem}")
+        print(f"[native] LIFFireNet train(native=True), {shape}, "
+              f"{res[0]}x{res[1]}, T {t}: losses " + ", ".join(repr(v) for v, _ in hist)
+              + f"; the in-memory run's largest rel gap {max(gaps):.3g}; "
+              f"launches over 1 + 3 updates {counts}")
+        print("[native] train() wall ms/update, native: " + ", ".join(
+            f"{1e3 * s:.3f}" for _, s in hist) + "; in memory: " + ", ".join(
+            f"{1e3 * s:.3f}" for _, s in hist_mem))
+        _native_update_times(config, NativeEventStream(
+            copy.deepcopy(config)), "NativeEventStream", shape)
+        _native_update_times(config, ArrayEventStream(
+            copy.deepcopy(config), seqs), "ArrayEventStream", shape)
+
+        scfg = copy.deepcopy(MVSEC_LIFFIRENET)
+        seqs = aee_sequences(scfg)[:1]
+        os.makedirs(os.path.join(root, "serve"))
+        pack = os.path.join(root, "serve", "seq_a.evpack")
+        t0 = time.perf_counter()
+        write_pack(seqs[0], pack, "flow_dt1")
+        write_s = time.perf_counter() - t0
+        side = native_loader.sidecar_path(pack, "flow_dt1")
+        print(f"[native] serving pack, {seqs[0].num_events} events, "
+              f"{os.path.getsize(pack)} bytes + flow_dt1 sidecar "
+              f"{os.path.getsize(side)} bytes, written in {write_s:.4f} s")
+        nat = NativeEventStream(scfg, packs=[pack])
+        try:
+            same, total = hold_streams("native gtflow_dt1", nat,
+                                       ArrayEventStream(scfg, seqs), 20)
+        finally:
+            nat.close()
+        print(f"[native] its 20 windows against ArrayEventStream: seq_num "
+              f"equal, every key bitwise, dt_input bitwise in {same} of "
+              f"{total}")
+        model = build_model(scfg, "cuda")
+        reports, host = {}, {}
+        for label in ("native", "memory"):
+            stream = _TimedStream(
+                NativeEventStream(scfg, packs=[pack]) if label == "native"
+                else ArrayEventStream(scfg, seqs))
+            native.reset_launch_counts()
+            try:
+                reports[label] = evaluate(scfg, "cuda", model=model,
+                                          stream=stream)
+            finally:
+                stream.close()
+            if label == "native":
+                counts = dict(native.LAUNCHES)
+            host[label] = stream.ms
+        n = reports["native"]["windows"]
+        lif = {"fused_conv_lif": 5, "fused_conv_lif_rec": 2,
+               "conv2d_same": 1, "scatter_add": 1}
+        want = {k: lif.get(k, 0) * n for k in counts}
+        if counts != want or n != 20:
+            fail(f"[native] serving launches {counts} over {n} windows, "
+                 f"expected {want} over 20")
+        paths.append(counts)
+        got, ref = (reports[k]["results"] for k in ("native", "memory"))
+        worst = 0.0
+        for metric in ("AEE", "AEE_percent"):
+            a, b = got[metric]["seq_a.evpack"], ref[metric]["seq_a.h5"]
+            worst = max(worst, abs(a - b) / abs(b) if b else abs(a))
+            if not abs(a - b) <= 1e-6 * abs(b):
+                fail(f"[native] {metric} {a!r} on the native stream against "
+                     f"{b!r} on ArrayEventStream")
+        print(f"[native] MVSEC_LIFFIRENET serving on the native stream: "
+              f"AEE {got['AEE']['seq_a.evpack']!r}, outliers "
+              f"{got['AEE_percent']['seq_a.evpack']!r}; largest rel gap to "
+              f"ArrayEventStream {worst:.3g}; launches {counts}")
+        for label in ("native", "memory"):
+            rep = reports[label]
+            print(f"[native] {scfg['data']['max_events']}-event bucket, "
+                  f"{label} stream: "
+                  f"{rep['windows'] / rep['seconds']:.2f} windows/s, host ms "
+                  f"per next_batch {_spread(host[label])}")
+    return paths
+
+
 KERNELS = (
     ("conv2d_same", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/ops/conv_pallas.py:121"),
@@ -2688,6 +2941,7 @@ def main():
     paths += phase_models()
     paths += phase_aee()
     paths += phase_runs()
+    paths += phase_native()
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c[k] for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],

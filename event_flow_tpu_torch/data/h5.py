@@ -17,10 +17,12 @@ import os
 import h5py
 import numpy as np
 
+from ..parallel.distributed import process_file_shard
 from .sequences import GROUP_OF_MODE, TimestampedGroup
 from .stream import WindowStream
 
-__all__ = ["find_h5_files", "H5SequenceFile", "H5EventStream"]
+__all__ = ["find_h5_files", "H5SequenceFile", "H5EventStream",
+           "read_pack_arrays"]
 
 
 def find_h5_files(path):
@@ -44,6 +46,29 @@ def _timestamped_group(group):
 
     group.visititems(visit)
     return TimestampedGroup(names, ts)
+
+
+def read_pack_arrays(path, map_group=None):
+    """What data/native_loader.py's pack of a sequence holds, read whole:
+    ts float64, ys and xs uint16, ps uint8, the ``t0`` attribute, and
+    with ``map_group`` in the file its timestamps (float64) and, for a
+    flow group, its maps (float32 [n, 2, H, W]) in stored order."""
+    with h5py.File(path, "r") as f:
+        ev = f["events"]
+        out = {"ts": np.asarray(ev["ts"], np.float64),
+               "ys": np.asarray(ev["ys"], np.uint16),
+               "xs": np.asarray(ev["xs"], np.uint16),
+               "ps": np.asarray(ev["ps"], np.uint8),
+               "t0": float(f.attrs["t0"]),
+               "map_ts": np.empty(0, np.float64), "maps": None}
+        if map_group is not None and map_group in f:
+            group = _timestamped_group(f[map_group])
+            out["map_ts"] = np.asarray([float(t) for t in group.ts],
+                                       np.float64)
+            if map_group.startswith("flow"):
+                out["maps"] = np.stack([np.asarray(
+                    f[map_group][n], np.float32) for n in group.names])
+    return out
 
 
 class H5SequenceFile:
@@ -113,17 +138,18 @@ class H5SequenceFile:
 
 class H5EventStream(WindowStream):
     """The window cursor over the .h5 files under ``data.path`` (their
-    paths are ``files``, in sorted order until :meth:`shuffle`)."""
+    paths are ``files``, in sorted order until :meth:`shuffle`); with
+    ``loader.process_shard`` (i, n), over the i-th of n disjoint
+    round-robin shares of them (parallel/distributed.py)."""
 
     def __init__(self, config, rng=None):
-        if config["loader"].get("process_shard"):
-            raise NotImplementedError(
-                "loader.process_shard (multi-process data parallelism) is "
-                "not ported (see ROADMAP.md)")
         files = find_h5_files(config["data"]["path"])
         if not files:
             raise FileNotFoundError(
                 f"no .h5 files under {config['data']['path']!r}")
+        shard = config["loader"].get("process_shard")
+        if shard:
+            files = process_file_shard(files, int(shard[0]), int(shard[1]))
         super().__init__(config, files, rng)
 
     def _open(self, name):

@@ -287,8 +287,10 @@ class Evaluator:
                                                      / max(e["it"], 1))
         return out
 
-    def run(self, stream):
-        """Iterate the stream until every file has been visited once."""
+    def run(self, stream, progress=None):
+        """Iterate the stream until every file has been visited once;
+        ``progress`` (data/progress.py::ProgressPrinter) ticks once per
+        window with slot 0's file."""
         b = stream.batch_size
         h, w = self.res
         model_state = self.model.zero_state(b, h, w, self.device)
@@ -299,6 +301,10 @@ class Evaluator:
                 break
             model_state, hot_state = self.process_batch(
                 stream, model_state, hot_state, batch)
+            if progress is not None:
+                progress.tick(stream.slot_filename(0))
+        if progress is not None:
+            progress.finish()
         self.model_state = model_state
         return self.results()
 

@@ -23,7 +23,11 @@ the .h5 files under ``data.path`` (data/h5.py, the one module that
 imports h5py), or with ``--synthetic`` the in-memory twin of the JAX
 CLI's synthetic dataset for the config's mode
 (data/stream.py::synthetic_sequences: constant flow, with ground-truth
-maps in the gtflow modes).
+maps in the gtflow modes). ``--shard I/N`` evaluates only the I-th of N
+disjoint round-robin shares of the files (``loader.process_shard``): N
+processes, on one card or several, each take one, and their per-file
+results together are the unsharded run's. ``vis.bars`` in the config
+prints a progress line (data/progress.py).
 
 :func:`evaluate_run` is what the CLI calls once it has the config;
 :func:`evaluate`, the serving path, is what it and ``chip_smoke.py``
@@ -37,10 +41,12 @@ import time
 
 import torch
 
+from .data.progress import ProgressPrinter
 from .data.stream import ArrayEventStream, synthetic_sequences
 from .device import get_device
 from .eval.harness import Evaluator
 from .models.registry import get_model
+from .parallel.distributed import process_file_shard
 from .utils.checkpoint import (latest_checkpoint, load_torch_state_dict,
                                restore_checkpoint)
 from .utils.tracking import (create_model_dir, log_eval_config,
@@ -60,7 +66,7 @@ def build_model(config, device, seed=0):
 
 
 def evaluate(config, device, seed=0, sequences=None, model=None,
-             stream=None):
+             stream=None, progress=None):
     """Run the serving path over a stream and return a report dict:
     ``results`` ({metric: {file: mean}}), ``windows``, ``seconds`` (wall
     time of the window loop and the final metric read, which synchronises
@@ -68,8 +74,10 @@ def evaluate(config, device, seed=0, sequences=None, model=None,
 
     The stream is ``stream`` when given, else an ``ArrayEventStream`` over
     ``sequences``, which default to the in-memory synthetic twin of the
-    config (``eval_flow.py --synthetic``); ``model`` defaults to
-    :func:`build_model` with ``seed``."""
+    config (``eval_flow.py --synthetic``), sharded by
+    ``loader.process_shard`` where the config has it; ``model`` defaults
+    to :func:`build_model` with ``seed``. ``progress`` goes to
+    ``Evaluator.run``."""
     device = get_device(device) if not isinstance(device, torch.device) \
         else device
     if model is None:
@@ -78,10 +86,14 @@ def evaluate(config, device, seed=0, sequences=None, model=None,
     if stream is None:
         if sequences is None:
             sequences = synthetic_sequences(config)
+        shard = config["loader"].get("process_shard")
+        if shard:
+            sequences = process_file_shard(list(sequences), int(shard[0]),
+                                           int(shard[1]))
         stream = ArrayEventStream(config, sequences)
     with torch.no_grad():
         t0 = time.perf_counter()
-        results = evaluator.run(stream)
+        results = evaluator.run(stream, progress)
         seconds = time.perf_counter() - t0
     return {"results": results, "windows": evaluator.windows,
             "seconds": seconds, "evaluator": evaluator, "model": model}
@@ -152,8 +164,10 @@ def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
         from .data.h5 import H5EventStream  # the one module with h5py
 
         stream = H5EventStream(config)
+    bar = ProgressPrinter(enabled=config.get("vis", {}).get("bars", False))
     try:
-        report = evaluate(config, device, model=model, stream=stream)
+        report = evaluate(config, device, model=model, stream=stream,
+                          progress=bar)
     finally:
         if stream is not None:
             stream.close()
@@ -184,9 +198,21 @@ def main(argv=None):
                     help="evaluate on the in-memory synthetic sequences "
                          "matching the config (no dataset needed); without "
                          "it, the .h5 files under data.path")
+    ap.add_argument("--shard", default=None, metavar="I/N",
+                    help="evaluate only the I-th of N round-robin file "
+                         "shards (run N processes for a full sweep; "
+                         "per-file results merge trivially)")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
     config = _config_from_args(args)
+    if args.shard:
+        # files are independent: each process takes a disjoint
+        # round-robin share and the per-file results merge trivially
+        shard = tuple(int(v) for v in args.shard.split("/"))
+        if len(shard) != 2 or not 0 <= shard[0] < shard[1]:
+            raise SystemExit(f"--shard wants I/N with 0 <= I < N, got "
+                             f"{args.shard!r}")
+        config["loader"]["process_shard"] = shard
     if not args.synthetic and not config["data"].get("path"):
         raise SystemExit("the config has no data.path: give one, or "
                          "evaluate on --synthetic")

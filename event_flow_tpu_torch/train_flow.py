@@ -9,6 +9,8 @@ Counterpart of train_flow.py (the JAX CLI, :27-150 and :206-255):
   python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
       --max_updates 10 --device cuda            # reads data.path (.h5)
   python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
+      --native --max_updates 10 --device cuda   # packs under data.path
+  python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
       --synthetic --max_updates 10 --resume <runid>     # exact resume
   python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
       --synthetic --prev_runid <runid>                  # warm start
@@ -34,10 +36,14 @@ whose updates gather windows until ``window_loss`` events
 and ``--synthetic rich`` (textured scenes with flow redrawn every 64
 batches) train on the generator streams, which have no cursor: a resume
 there restores everything else, as the JAX CLI's ``_SyntheticStream``
-does. The native loader is not ported yet (ROADMAP.md). :func:`train`
-is what the CLI calls; it also takes in-memory ``sequences``
-(``data/stream.py::ArrayEventStream``, the same cursor as the file
-stream's).
+does. ``--native`` reads packs under ``data.path`` with the C++
+prefetching loader (data/native_loader.py::NativeEventStream, not
+shuffled, as in the JAX CLI): a directory of packs alone needs no h5py,
+and .h5 files there are converted to packs first. Its cursor lives in
+C++, so a resume there restores no cursor either. ``--synthetic`` wins
+over ``--native``. :func:`train` is what the CLI calls; it also takes
+in-memory ``sequences`` (``data/stream.py::ArrayEventStream``, the same
+cursor as the file stream's).
 
 Prints the loss of each update and its wall time.
 """
@@ -57,12 +63,14 @@ __all__ = ["train", "main"]
 
 
 def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
-          resume="", debug=False, sequences=None, synthetic="const"):
+          resume="", debug=False, sequences=None, synthetic="const",
+          native=False):
     """Train until ``max_updates`` updates (0: the config's
     ``loader.n_epochs`` epochs) on ``ArrayEventStream(config,
-    sequences)``; when ``sequences`` is None, on the synthetic stream of
-    style ``synthetic`` (``const`` or ``rich``), or with ``synthetic``
-    None on the .h5 files under ``data.path``.
+    sequences)``; when ``sequences`` is None, with ``native`` on the
+    packs under ``data.path`` (``NativeEventStream``), else on the
+    synthetic stream of style ``synthetic`` (``const`` or ``rich``), or
+    with ``synthetic`` None on the .h5 files under ``data.path``.
     Returns (the run id, None with ``debug``; the Trainer; the list of
     (loss, seconds) per update, the seconds spanning the update's window
     feed up to its loss read, which waits for the device)."""
@@ -81,6 +89,11 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
         print(f"restored params from {path}")
     if sequences is not None:
         stream = ArrayEventStream(config, sequences)
+    elif native:
+        from .data.native_loader import NativeEventStream
+
+        stream = NativeEventStream(config)
+        print("using native prefetching loader")
     elif synthetic:
         stream = SyntheticWindowStream(config, synthetic)
     else:
@@ -94,28 +107,32 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
         epoch = trainer.resume(os.path.join(runs_root, resume), stream)
         print(f"resumed run {resume} at epoch {epoch}")
     history = []
-    t0 = time.perf_counter()
-    while epoch < n_epochs:
-        batch = stream.next_batch()
-        loss = trainer.feed(batch)
-        if loss is not None:
-            seconds = time.perf_counter() - t0
-            history.append((loss, seconds))
-            stream.samples += trainer.batch_size
-            print(f"update {trainer.updates:5d} loss {loss:.6f} "
-                  f"{1e3 * seconds:.1f} ms")
-            if max_updates and trainer.updates >= max_updates:
-                print(f"stopping after {trainer.updates} updates")
-                trainer.end_epoch(stream, epoch)
+    try:
+        t0 = time.perf_counter()
+        while epoch < n_epochs:
+            batch = stream.next_batch()
+            loss = trainer.feed(batch)
+            if loss is not None:
+                seconds = time.perf_counter() - t0
+                history.append((loss, seconds))
+                stream.samples += trainer.batch_size
+                print(f"update {trainer.updates:5d} loss {loss:.6f} "
+                      f"{1e3 * seconds:.1f} ms")
+                if max_updates and trainer.updates >= max_updates:
+                    print(f"stopping after {trainer.updates} updates")
+                    trainer.end_epoch(stream, epoch)
+                    trainer.save_full_checkpoint(stream, epoch)
+                    break
+                t0 = time.perf_counter()
+            if stream.seq_num >= len(stream.files):
+                mean = trainer.end_epoch(stream, epoch)
                 trainer.save_full_checkpoint(stream, epoch)
-                break
-            t0 = time.perf_counter()
-        if stream.seq_num >= len(stream.files):
-            mean = trainer.end_epoch(stream, epoch)
-            trainer.save_full_checkpoint(stream, epoch)
-            print(f"epoch {epoch:04d} done, mean loss {mean:.6f}")
-            stream.seq_num = stream.seq_num % len(stream.files)
-            epoch += 1
+                print(f"epoch {epoch:04d} done, mean loss {mean:.6f}")
+                stream.seq_num = stream.seq_num % len(stream.files)
+                epoch += 1
+    finally:
+        if native:
+            stream.close()  # joins the loader's producer thread
     trainer.finalize()
     return (tracker.runid if tracker else None), trainer, history
 
@@ -131,6 +148,9 @@ def main(argv=None):
                          "'const' (the default) per-slot constant flow, "
                          "'rich' textured scenes with varied flow; without "
                          "it, the .h5 files under data.path")
+    ap.add_argument("--native", action="store_true",
+                    help="read data.path with the C++ prefetching loader "
+                         "(.evpack packs; .h5 files are converted first)")
     ap.add_argument("--max_updates", type=int, default=0)
     ap.add_argument("--runs_root", default="runs")
     ap.add_argument("--prev_runid", default="",
@@ -152,7 +172,7 @@ def main(argv=None):
     _, _, history = train(
         config, args.device, args.max_updates, runs_root=args.runs_root,
         prev_runid=args.prev_runid, resume=args.resume, debug=args.debug,
-        synthetic=args.synthetic)
+        synthetic=args.synthetic, native=args.native and not args.synthetic)
     return history
 
 

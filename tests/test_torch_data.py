@@ -150,9 +150,24 @@ def test_h5_reader_sampled_index_matches_eager(tmp_path, monkeypatch):
 
 
 def test_process_shard_is_refused(tmp_path):
+    """A shard that gets no file is refused, as JAX's is; the others
+    stream JAX's round-robin share of the files, batch for batch."""
     cfg = _stream_config(tmp_path, "events", 500)
-    cfg["loader"]["process_shard"] = (0, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for i in range(2):
+        cfg["loader"]["process_shard"] = (i, 2)
+        ref = EventStream(copy.deepcopy(cfg))
+        ours = H5EventStream(copy.deepcopy(cfg))
+        assert [Path(f).name for f in ours.files] == \
+            [Path(f).name for f in ref.files] == [f"seq_{'ab'[i]}.h5"]
+        for n in range(3):
+            _assert_batches_equal(ours.next_batch(), ref.next_batch(),
+                                  f"shard {i} batch {n}")
+        ref.close()
+        ours.close()
+    cfg["loader"]["process_shard"] = (2, 3)
+    with pytest.raises(ValueError, match="got no files"):
+        EventStream(copy.deepcopy(cfg))
+    with pytest.raises(ValueError, match="got no files"):
         H5EventStream(cfg)
 
 

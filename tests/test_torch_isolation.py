@@ -5,6 +5,8 @@ module of the JAX package anywhere, no CUDA launch for CPU tensors
 """
 
 import ast
+import copy
+import json
 import subprocess
 import sys
 import textwrap
@@ -229,6 +231,103 @@ def test_gtflow_eval_and_time_training_with_jax_yaml_h5py_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK 20")
+
+
+def test_native_training_from_packs_with_jax_yaml_h5py_blocked(tmp_path):
+    """Packs written from sequences in memory with numpy alone, the C++
+    loader built and train(native=True) run over them, with no JAX, yaml
+    or h5py to import: the losses equal a run on ArrayEventStream over
+    the same sequences within 1e-5, and the .h5 reader is not loaded."""
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import contextlib, copy, io, os
+        import numpy as np
+        from event_flow_tpu_torch.config import TRAIN_SNN
+        from event_flow_tpu_torch.data.native_loader import write_pack
+        from event_flow_tpu_torch.data.sequences import synthetic_sequence
+        from event_flow_tpu_torch.train_flow import train
+        root = {str(tmp_path)!r}
+        cfg = copy.deepcopy(TRAIN_SNN)
+        cfg["loader"].update(batch_size=2, resolution=[16, 16])
+        cfg["data"].update(window=100, window_loss=200, path=root)
+        cfg["model"]["base_num_channels"] = 4
+        seqs = [synthetic_sequence(f"s{{i}}.h5", res=(16, 16), n_events=700,
+                                   velocity=(3.0, -2.0 + i), seed=i)
+                for i in range(3)]
+        for s in seqs:
+            write_pack(s, os.path.join(root, s.name[:-3] + ".evpack"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, _, native = train(cfg, "cpu", max_updates=3, debug=True,
+                                 native=True)
+            _, _, memory = train(cfg, "cpu", max_updates=3, debug=True,
+                                 sequences=seqs)
+        np.testing.assert_allclose([l for l, _ in native],
+                                   [l for l, _ in memory], rtol=1e-5)
+        jax_side = {BLOCKED!r} + ("event_flow_tpu",)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in jax_side
+                        or m == "event_flow_tpu_torch.data.h5")
+        assert not loaded, loaded
+        print("OK", len(native), sorted(os.listdir(root)))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK 3 ['s0.evpack', 's1.evpack', "
+                                  "'s2.evpack']")
+
+
+def test_native_cli_trains_from_packs_alone_without_h5py(tmp_path):
+    """``python -m event_flow_tpu_torch.train_flow --native --device cpu
+    --max_updates 2`` over a directory that holds packs alone, with no
+    JAX or h5py to import (the card's machine has yaml)."""
+    from event_flow_tpu_torch.config import TRAIN_SNN
+    from event_flow_tpu_torch.data.native_loader import write_pack
+    from event_flow_tpu_torch.data.sequences import synthetic_sequence
+
+    data = tmp_path / "packs"
+    data.mkdir()
+    for i in range(2):
+        write_pack(synthetic_sequence(f"s{i}.h5", res=(16, 16),
+                                      n_events=700, seed=i),
+                   str(data / f"s{i}.evpack"))
+    cfg = copy.deepcopy(TRAIN_SNN)
+    cfg["loader"].update(batch_size=2, resolution=[16, 16])
+    cfg["data"].update(window=100, window_loss=200, path=str(data))
+    cfg["model"]["base_num_channels"] = 4
+    (tmp_path / "cfg.yml").write_text(json.dumps(cfg))
+    argv = ["train_flow", "--config", str(tmp_path / "cfg.yml"), "--native",
+            "--device", "cpu", "--max_updates", "2", "--runs_root",
+            str(tmp_path / "runs")]
+    code = textwrap.dedent(f"""
+        import runpy, sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "h5py"):
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.argv = {argv!r}
+        runpy.run_module("event_flow_tpu_torch.train_flow",
+                         run_name="__main__")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "using native prefetching loader" in proc.stdout
+    assert "stopping after 2 updates" in proc.stdout
+    assert sorted(f.name for f in data.iterdir()) == ["s0.evpack",
+                                                      "s1.evpack"]
 
 
 def _top_level_imports(path):
