@@ -105,6 +105,19 @@ exits non-zero without the final ``ok`` line:
               NativeEventStream, AEE within rel 1e-6 of the in-memory
               run's, with host ms per next_batch at the 65 536-event
               bucket
+ 16. engine   the streaming engine (eval/predict.py) and its exported
+              artifact (eval/serialized.py): LIFFireNet at ECD_LIFFIRENET
+              over 16 windows of one in-memory sequence and
+              SpikingRecEVFlowNet at ECD_SPIKING_RECEVFLOWNET (base 32)
+              over 4, TF32 flags at PyTorch's defaults: engine.step
+              bitwise equal to the Evaluator's window path, with_iwe
+              against the CPU (the CPU's near-threshold spikes taken),
+              step_many bitwise equal to the steps, exact launches per
+              window; an artifact exported on the CPU served on the card
+              within 1e-6 of the live engine with the same launches, a
+              padded short window and reset; windows/s and device busy
+              per window of each, the artifact's bytes, export and load
+              seconds
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
@@ -125,7 +138,7 @@ user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8-15). Imports
+sum over the counted runs of every path (phases 4-6, 8-16). Imports
 nothing of JAX.
 """
 
@@ -2905,6 +2918,268 @@ def phase_native():
     return paths
 
 
+# [engine]: windows of one in-memory sequence per model; the serialized
+# engine against the live one within SERIAL_TOL (tests/test_serialized.py)
+ENGINE_WINDOWS = 16
+ENGINE_UNET_WINDOWS = 4
+SERIAL_TOL = 1e-6
+TIMING_REPS = 3
+
+
+def engine_windows(config, n):
+    """The n windows of one in-memory synthetic sequence of ``config``:
+    events [n, 1, N, 4] and valid [n, 1, N] on the CPU."""
+    from event_flow_tpu_torch.data.stream import (ArrayEventStream,
+                                                  synthetic_sequences)
+
+    stream = ArrayEventStream(config, synthetic_sequences(
+        config, n_windows=float(n)))
+    batches = [stream.next_batch() for _ in range(n)]
+    if any(b["new_seq"] for b in batches):
+        fail(f"[engine] the first {n} windows are not one sequence")
+    return (torch.stack([torch.as_tensor(b["events"]) for b in batches]),
+            torch.stack([torch.as_tensor(b["valid"]) for b in batches]))
+
+
+def _gap(label, got, want, tol=None):
+    """Largest |got - want| over paired lists of tensors, and whether all
+    are bitwise equal; fails above ``tol`` where one is given."""
+    gap = max(float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(got,
+                                                                     want))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    if len(got) != len(want) or (tol is not None and not gap <= tol):
+        fail(f"{label}: {len(got)} against {len(want)} flows, largest gap "
+             f"{gap!r} > {tol}")
+    return gap, same
+
+
+def _windows_per_s(fn, n, reps=TIMING_REPS):
+    """Windows per second of ``fn()`` (n windows, synchronised), timed
+    ``reps`` times after a warm-up: median (min-max)."""
+    fn()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+    return (f"{statistics.median(rates):.2f} ({min(rates):.2f}-"
+            f"{max(rates):.2f})")
+
+
+def _busy_ms(fn, n):
+    """Device busy ms per window of ``fn()`` (n windows; torch.profiler),
+    or "not measured" where the profiler sees no device event."""
+    fn()
+    _, events = _device_events(fn)
+    if not events:
+        return "not measured"
+    return f"{sum(us for _, _, us in events) / 1e3 / n:.4f}"
+
+
+def engine_phase(tag, config, n, per_window):
+    """The streaming engine (eval/predict.py) and its artifact
+    (eval/serialized.py) for ``config`` at its full size over ``n`` windows
+    of one in-memory sequence, from the seed-0 init:
+    1. ``step`` on the card against the Evaluator's window path on the same
+       windows and model: bitwise;
+    2. ``step`` with ``with_iwe`` on the card against the CPU, the CPU's
+       near-threshold spikes taken (CellLog, check_forced), and each
+       window's IWE: the share of events warped to another pixel at most
+       MAX_FLIP_SHARE;
+    3. ``step_many(n)`` bitwise equal to n ``step``s;
+    4. exact launches per window: ``per_window``, and K3 once more with
+       ``with_iwe``;
+    5. export_engine on the CPU (s = n), SerializedEngine on the card:
+       flows within SERIAL_TOL of the live card engine's (and whether
+       bitwise), the same launches, step_many, a short window padded to
+       the capacity, and reset;
+    6. windows/s and device busy ms per window of the live step and
+       step_many and of the serialized step and step_many, the artifact's
+       bytes, export and load seconds.
+    Returns the launch counts of the live, with_iwe and serialized runs."""
+    import os
+    import tempfile
+
+    from event_flow_tpu_torch.eval.harness import Evaluator
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
+    from event_flow_tpu_torch.eval.serialized import (SerializedEngine,
+                                                      export_engine)
+    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.ops.hot_filter import init_hot_state
+
+    name = config["model"]["name"]
+    res = tuple(config["loader"]["resolution"])
+    dev = torch.device("cuda")
+    ev_cpu, va_cpu = engine_windows(config, n)
+    ev, va = ev_cpu.to(dev), va_cpu.to(dev)
+    n_events = ev.shape[2]
+    model = build_model(config, dev)
+
+    evaluator = Evaluator(config, model, dev)
+    state = model.zero_state(1, *res, dev)
+    hot = init_hot_state(1, res, dev)
+    aug = torch.zeros((1, 3), device=dev)
+    ref = []
+    for i in range(n):
+        reset = torch.full((1,), 1.0 if i == 0 else 0.0, device=dev)
+        state, hot, _ = evaluator._window_step(state, hot, ev[i], va[i], aug,
+                                               reset, i == 0)
+        ref.append(evaluator.last_flow.clone())
+    engine = InferenceEngine(config, model, "cuda")
+    native.reset_launch_counts()
+    flows = [engine.step(ev[i], va[i]).clone() for i in range(n)]
+    counts = dict(native.LAUNCHES)
+    want = {k: per_window.get(k, 0) * n for k in counts}
+    if counts != want:
+        fail(f"[{tag}] {name} engine launches {counts} != {want}")
+    top = max(float(f.abs().max()) for f in flows)
+    if not all(torch.isfinite(f).all() for f in flows) or top == 0.0:
+        fail(f"[{tag}] {name}: flows all zero or not finite")
+    gap, same = _gap(f"[{tag}] engine vs Evaluator", flows, ref)
+    if not same:
+        fail(f"[{tag}] {name}: engine.step differs from the Evaluator's "
+             f"window path by {gap!r}")
+    print(f"[{tag}] {name} at {res[0]}x{res[1]}, {n} windows of {n_events} "
+          f"events: engine.step bitwise equal to the Evaluator's last_flow "
+          f"(max |flow| {top!r}); launches {counts}")
+    many = InferenceEngine(config, model, "cuda").step_many(ev, va)
+    if not torch.equal(many, torch.stack(flows)):
+        fail(f"[{tag}] {name}: step_many({n}) differs from {n} steps")
+    print(f"[{tag}] step_many({n}) bitwise equal to {n} steps")
+
+    logs, iwes = {}, {}
+    for device in ("cpu", "cuda"):
+        log = logs[device] = CellLog(config, device, logs.get("cpu"))
+        try:
+            eng = InferenceEngine(config, log.model, device, with_iwe=True)
+            native.reset_launch_counts()
+            iwes[device] = []
+            for i in range(n):
+                eng.step(ev[i].to(device), va[i].to(device))
+                iwes[device].append(eng.last_iwe.cpu())
+            if device == "cuda":
+                iwe_counts = dict(native.LAUNCHES)
+        finally:
+            log.remove()
+    want_iwe = dict(want, scatter_add=want["scatter_add"] + n)
+    if iwe_counts != want_iwe:
+        fail(f"[{tag}] {name} with_iwe launches {iwe_counts} != {want_iwe}")
+    check_forced(tag, logs["cuda"], logs["cpu"])
+    moved = max(0.5 * float((g - c).abs().sum()) / float(c.sum())
+                for g, c in zip(iwes["cuda"], iwes["cpu"]))
+    iwe_gap, iwe_same = _gap(f"[{tag}] iwe", iwes["cuda"], iwes["cpu"])
+    print(f"[{tag}] with_iwe: launches {iwe_counts}; last_iwe against the "
+          f"CPU's: largest gap {iwe_gap!r}, bitwise {iwe_same}, largest "
+          f"share of events warped to another pixel {moved:.3g}")
+    if moved > MAX_FLIP_SHARE:
+        fail(f"[{tag}] {name}: {moved:.3g} of the events warped to another "
+             f"pixel than on the CPU, > {MAX_FLIP_SHARE}")
+
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "artifact")
+        cpu_engine = InferenceEngine(config, build_model(config, "cpu"),
+                                     "cpu")
+        t0 = time.perf_counter()
+        export_engine(cpu_engine, path, n_events=n_events, s=n)
+        export_s = time.perf_counter() - t0
+        sizes = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        t0 = time.perf_counter()
+        ser = SerializedEngine(path, device="cuda")
+        load_s = time.perf_counter() - t0
+    native.reset_launch_counts()
+    sflows = [ser.step(ev[i], va[i]).clone() for i in range(n)]
+    scounts = dict(native.LAUNCHES)
+    if scounts != counts:
+        fail(f"[{tag}] {name} serialized launches {scounts} != live "
+             f"{counts}")
+    sgap, ssame = _gap(f"[{tag}] serialized step", sflows, flows, SERIAL_TOL)
+    ser.reset()
+    smany = ser.step_many(ev, va)
+    mgap, msame = _gap(f"[{tag}] serialized step_many", list(smany), flows,
+                       SERIAL_TOL)
+    short = n_events * 2 // 3
+    padded = torch.zeros_like(ev[0])
+    padded[:, :short] = ev[0][:, :short]
+    valid = torch.zeros_like(va[0])
+    valid[:, :short] = 1.0
+    engine.reset()
+    ser.reset()
+    pgap, _ = _gap(f"[{tag}] short window", [ser.step(ev[0][:, :short])],
+                   [engine.step(padded, valid)], SERIAL_TOL)
+    ser.reset()
+    rgap, _ = _gap(f"[{tag}] after reset", [ser.step(ev[0], va[0])],
+                   [flows[0]], SERIAL_TOL)
+    print(f"[{tag}] exported on the CPU in {export_s:.3f} s (step and "
+          f"step_many({n})), loaded on the card in {load_s:.3f} s; "
+          f"artifact {sum(sizes.values())} bytes: "
+          + ", ".join(f"{f} {b}" for f, b in sizes.items()))
+    print(f"[{tag}] serialized on the card against the live engine: step "
+          f"gap {sgap!r} (bitwise {ssame}), step_many gap {mgap!r} "
+          f"(bitwise {msame}), a {short}-event window padded to "
+          f"{n_events} gap {pgap!r}, after reset gap {rgap!r}; launches "
+          f"{scounts}")
+
+    def live_steps():
+        engine.reset()
+        for i in range(n):
+            engine.step(ev[i], va[i])
+
+    def live_many():
+        engine.reset()
+        engine.step_many(ev, va)
+
+    def ser_steps():
+        ser.reset()
+        for i in range(n):
+            ser.step(ev[i], va[i])
+
+    def ser_many():
+        ser.reset()
+        ser.step_many(ev, va)
+
+    for label, fn in (("step", live_steps), ("step_many", live_many),
+                      ("serialized step", ser_steps),
+                      ("serialized step_many", ser_many)):
+        print(f"[{tag}] {label}: {_windows_per_s(fn, n)} windows/s, "
+              f"device busy {_busy_ms(fn, n)} ms per window (profiler on), "
+              f"{n} windows on the card")
+    # the loaded programs check every input against the exported specs
+    # before each call (torch.export's pre-hook): its host share
+    ser._step.validate_inputs = ser._step_many.validate_inputs = False
+    print(f"[{tag}] without the programs' input checks: serialized step "
+          f"{_windows_per_s(ser_steps, n)}, step_many "
+          f"{_windows_per_s(ser_many, n)} windows/s")
+    return [counts, iwe_counts, scounts]
+
+
+def phase_engine():
+    """[engine]: LIFFireNet at ECD_LIFFIRENET (16 windows) and
+    SpikingRecEVFlowNet at ECD_SPIKING_RECEVFLOWNET, base 32 (4 windows),
+    through engine_phase, TF32 flags at PyTorch's defaults. Returns the
+    launch counts of their counted runs."""
+    from event_flow_tpu_torch.config import (ECD_LIFFIRENET,
+                                             ECD_SPIKING_RECEVFLOWNET)
+
+    paths = engine_phase("engine", copy.deepcopy(ECD_LIFFIRENET),
+                         ENGINE_WINDOWS, {"fused_conv_lif": 5,
+                                          "fused_conv_lif_rec": 2,
+                                          "conv2d_same": 1,
+                                          "scatter_add": 1})
+    print(f"[engine] cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} "
+          "for the U-Net (PyTorch's default)")
+    paths += engine_phase("engine-unet",
+                          copy.deepcopy(ECD_SPIKING_RECEVFLOWNET),
+                          ENGINE_UNET_WINDOWS, {"fused_conv_lif": 8,
+                                                "fused_conv_lif_rec": 4,
+                                                "conv2d_same": 4,
+                                                "scatter_add": 1})
+    return paths
+
+
 KERNELS = (
     ("conv2d_same", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/ops/conv_pallas.py:121"),
@@ -2942,6 +3217,7 @@ def main():
     paths += phase_aee()
     paths += phase_runs()
     paths += phase_native()
+    paths += phase_engine()
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c[k] for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],

@@ -152,7 +152,7 @@ class _SpikingBase(nn.Module):
         if name in _LEAKS:
             p = torch.sigmoid(p)
         else:
-            p = torch.maximum(p, p.new_tensor(_FLOORS[name]))
+            p = torch.maximum(p, p.new_full((), _FLOORS[name]))
         return p.reshape(-1)
 
     def _current(self, x, z):

@@ -8,6 +8,13 @@ its custom VJP ``_cp_bwd`` (B1 ``_conv_fwd`` for the forward and for dx,
 B2 ``_conv_dw`` for dw). :func:`conv2d_same` is one
 ``torch.autograd.Function`` on both devices: a CUDA tensor goes to the
 hand-written kernels in ``csrc/``, a CPU tensor to the plain versions.
+Its forward and dx are the operator ``evflow::conv2d_same`` (K1 on the
+card, :func:`conv2d_same_plain` on the CPU; ops/native.py::define_op).
+The strided and transposed convs are operators too
+(``evflow::conv2d_strided``, ``evflow::conv_transpose2x``), whose bodies
+set their own cuDNN flags, so that the flags go with them into an
+exported graph, where a ``cudnn.flags`` block around a call would not be
+recorded.
 
   forward  y  = conv(x, w)                         K1
   backward dx = conv(g, w flipped in space, in/out channels swapped)   K1
@@ -99,9 +106,28 @@ def _cudnn_f32_deterministic():
                                       benchmark=False)
 
 
+def _strided_forward(x, w, stride):
+    with _cudnn_f32_deterministic():
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                     padding=w.shape[2] // 2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _strided_fake(x, w, stride):
+    b, h, wd, _ = x.shape
+    return x.new_empty((b, (h - 1) // stride + 1, (wd - 1) // stride + 1,
+                        w.shape[0]))
+
+
+_strided_op = native.define_op(
+    "conv2d_strided", "(Tensor x, Tensor w, int stride) -> Tensor",
+    _strided_forward, _strided_forward, _strided_fake)
+
+
 class _ConvStrided(torch.autograd.Function):
     """The strided conv under :func:`_cudnn_f32_deterministic` in its
-    forward and in both of its gradients. Autograd's own backward of
+    forward (the operator ``evflow::conv2d_strided``) and in both of its
+    gradients. Autograd's own backward of
     ``F.conv2d`` would run under the process's flags: with
     ``torch.backends.cudnn.allow_tf32``, True by default on the card, one
     TF32 pass misses f32 by up to 8e-4 of max|dw| at the U-Net encoders'
@@ -113,10 +139,7 @@ class _ConvStrided(torch.autograd.Function):
     def forward(ctx, x, w, stride):
         ctx.save_for_backward(x, w)
         ctx.stride = stride
-        with _cudnn_f32_deterministic():
-            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
-                         padding=w.shape[2] // 2)
-        return y.permute(0, 2, 3, 1).contiguous()
+        return _strided_op(x, w, stride)
 
     @staticmethod
     def backward(ctx, g):
@@ -145,18 +168,32 @@ def conv2d_strided(x, w, stride):
     return _ConvStrided.apply(x, w, stride)
 
 
+def _transpose_forward(x, w):
+    with _cudnn_f32_deterministic():
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=2,
+                               padding=w.shape[2] // 2, output_padding=1)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _transpose_fake(x, w):
+    b, h, wd, _ = x.shape
+    return x.new_empty((b, 2 * h, 2 * wd, w.shape[1]))
+
+
+_transpose_op = native.define_op(
+    "conv_transpose2x", "(Tensor x, Tensor w) -> Tensor",
+    _transpose_forward, _transpose_forward, _transpose_fake)
+
+
 class _ConvTranspose2x(torch.autograd.Function):
     """The x2 transposed conv under :func:`_cudnn_f32_deterministic` in its
-    forward and in both of its gradients, for the reasons of
-    :class:`_ConvStrided`."""
+    forward (the operator ``evflow::conv_transpose2x``) and in both of its
+    gradients, for the reasons of :class:`_ConvStrided`."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        with _cudnn_f32_deterministic():
-            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=2,
-                                   padding=w.shape[2] // 2, output_padding=1)
-        return y.permute(0, 2, 3, 1).contiguous()
+        return _transpose_op(x, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -249,10 +286,14 @@ def conv2d_dw_kernel(x, g, k):
     return dw
 
 
-def _conv(x, w):
-    if x.device.type == "cpu":
-        return conv2d_same_plain(x, w)
-    return _conv_kernel(x, w)
+def _conv_fake(x, w):
+    _check_shapes(x, w)
+    return x.new_empty((*x.shape[:3], w.shape[0]))
+
+
+# K1 on CUDA tensors, the plain version on CPU tensors
+_conv = native.define_op("conv2d_same", "(Tensor x, Tensor w) -> Tensor",
+                         conv2d_same_plain, _conv_kernel, _conv_fake)
 
 
 def _dw(x, g, k):

@@ -79,7 +79,9 @@ def encode_window(events, res, num_bins, valid=None, round_ts=False):
     tb = ts * (num_bins - 1)
     if round_ts:
         tb = torch.round(tb)
-    bins = torch.arange(num_bins, dtype=tb.dtype, device=tb.device)
+    # 0, 1, ..., num_bins - 1 made from tb (exact in float32): an arange
+    # on tb's device would pin an exported graph to that device
+    bins = tb.new_ones(num_bins).cumsum(0) - 1.0
     vox_w = (1.0 - (tb[..., None] - bins).abs()).clamp(min=0.0)
     vals = torch.cat([torch.stack([pos, neg], dim=-1), ps[..., None] * vox_w],
                      dim=-1) * mask[..., None].to(ps.dtype)

@@ -12,8 +12,10 @@ cell update, with ``leak`` and ``thresh`` post-squash:
 with ``cur = conv(x, w)`` for the feedforward cell and
 ``cur = conv(x, w) + conv(z_rec, w_rec)`` for the recurrent one.
 :func:`fused_conv_lif` and :func:`fused_conv_lif_rec` are
-``torch.autograd.Function``s on both devices: forward K2 on the card and
-the plain version on the CPU; backward B4 (the plain
+``torch.autograd.Function``s on both devices: forward the operators
+``evflow::fused_conv_lif`` and ``evflow::fused_conv_lif_rec``
+(ops/native.py::define_op), K2 on the card and the plain version on the
+CPU; backward B4 (the plain
 :func:`fused_lif_bwd_plain` on the CPU) for the cotangent of the current
 and of v and the per-channel leak and threshold gradients, then
 ops/conv.py's gradient pieces (K1 for dx and dz_rec, B2 for dw and
@@ -211,16 +213,33 @@ def _launch(name, x, w, v, z, leak, thresh, k, hard_reset, z_rec=None,
     return v_out, z_out
 
 
-def _forward_plain_or_kernel(name, x, w, v, z, leak, thresh, k, hard_reset,
-                             activation, width, z_rec=None, w_rec=None):
-    if x.device.type != "cpu":
-        return _launch(name, x, w, v, z, leak, thresh, k, hard_reset,
-                       z_rec=z_rec, w_rec=w_rec)
-    if z_rec is None:
-        return fused_conv_lif_plain(x, w, v, z, leak, thresh, k, hard_reset,
-                                    activation, width)
-    return fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh,
-                                    k, hard_reset, activation, width)
+def _ff_kernel(x, w, v, z, leak, thresh, k, hard_reset, activation, width):
+    return _launch("fused_conv_lif", x, w, v, z, leak, thresh, k, hard_reset)
+
+
+def _rec_kernel(x, w, w_rec, v, z, z_rec, leak, thresh, k, hard_reset,
+                activation, width):
+    return _launch("fused_conv_lif_rec", x, w, v, z, leak, thresh, k,
+                   hard_reset, z_rec=z_rec, w_rec=w_rec)
+
+
+def _ff_fake(x, w, v, *args):
+    return torch.empty_like(v), torch.empty_like(v)
+
+
+def _rec_fake(x, w, w_rec, v, *args):
+    return torch.empty_like(v), torch.empty_like(v)
+
+
+_CELL_ARGS = ("Tensor leak, Tensor thresh, int k, bool hard_reset, "
+              "str activation, float width) -> (Tensor, Tensor)")
+_ff_op = native.define_op(
+    "fused_conv_lif", "(Tensor x, Tensor w, Tensor v, Tensor z, " + _CELL_ARGS,
+    fused_conv_lif_plain, _ff_kernel, _ff_fake)
+_rec_op = native.define_op(
+    "fused_conv_lif_rec", "(Tensor x, Tensor w, Tensor w_rec, Tensor v, "
+    "Tensor z, Tensor z_rec, " + _CELL_ARGS,
+    fused_conv_lif_rec_plain, _rec_kernel, _rec_fake)
 
 
 class _FusedConvLIF(torch.autograd.Function):
@@ -230,9 +249,8 @@ class _FusedConvLIF(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, v, z, leak, thresh, k, hard_reset, activation,
                 width):
-        v_out, z_out = _forward_plain_or_kernel(
-            "fused_conv_lif", x, w, v, z, leak, thresh, k, hard_reset,
-            activation, width)
+        v_out, z_out = _ff_op(x, w, v, z, leak, thresh, k, hard_reset,
+                              activation, width)
         ctx.save_for_backward(x, w, v, z, leak, thresh, v_out)
         ctx.cfg = (hard_reset, activation, width)
         return v_out, z_out
@@ -258,9 +276,8 @@ class _FusedConvLIFRec(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, w_rec, v, z, z_rec, leak, thresh, k, hard_reset,
                 activation, width):
-        v_out, z_out = _forward_plain_or_kernel(
-            "fused_conv_lif_rec", x, w, v, z, leak, thresh, k, hard_reset,
-            activation, width, z_rec=z_rec, w_rec=w_rec)
+        v_out, z_out = _rec_op(x, w, w_rec, v, z, z_rec, leak, thresh, k,
+                               hard_reset, activation, width)
         ctx.save_for_backward(x, w, z_rec, w_rec, v, z, leak, thresh, v_out)
         ctx.cfg = (hard_reset, activation, width)
         return v_out, z_out

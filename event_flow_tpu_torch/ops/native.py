@@ -10,6 +10,13 @@ the module is imported.
 Every wrapper that launches a kernel adds one to its entry in
 :data:`LAUNCHES`, where it launches and nowhere else, so a run can show
 that its main path went through the kernels.
+
+The forward kernels of the serving path are torch operators in the
+``evflow`` namespace (:func:`define_op`): the dispatcher takes the plain
+version for CPU tensors and the kernel for CUDA tensors, and a graph
+that ``torch.export`` records holds the operator as one node, so an
+artifact exported on the CPU launches the kernels when it is served on
+the card.
 """
 
 import ctypes
@@ -24,7 +31,7 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "library", "build_library",
            "check", "stream_handle", "require_cuda_f32", "find_nvcc",
-           "CSRC"]
+           "CSRC", "define_op"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -53,6 +60,26 @@ _SIGNATURES = {
 
 _lib = None
 build_seconds = None  # wall time of the build (or of the cache hit)
+
+NAMESPACE = "evflow"
+# the operators' library: kept for the life of the process, since the
+# registrations go when it is collected
+_OPS = torch.library.Library(NAMESPACE, "DEF")
+
+
+def define_op(name, schema, cpu, cuda, fake):
+    """Define the operator ``evflow::<name><schema>`` with ``cpu`` for CPU
+    tensors, ``cuda`` for CUDA tensors and ``fake``, which gives the
+    outputs' shapes and dtypes without reading data (the tracing of
+    ``torch.export``). Registered with ``Library.impl``, which costs less
+    per call than the ``torch.library.custom_op`` decorator. The operator
+    has no autograd kernel: the ``torch.autograd.Function``s of the
+    wrappers call it in their forward. Returns its overload packet."""
+    _OPS.define(name + schema)
+    _OPS.impl(name, cpu, "CPU")
+    _OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_OPS)
+    return getattr(getattr(torch.ops, NAMESPACE), name)
 
 
 def reset_launch_counts():

@@ -3,9 +3,10 @@ backward it is, with their plain versions.
 
 Counterpart of event_flow_tpu/ops/scatter.py (``scatter_add`` with its
 gather backward, and the gather ``jnp.take_along_axis`` whose transpose
-is a scatter-add) and ops/scatter_pallas.py (B5). A CUDA tensor goes to
-the hand-written kernel in ``csrc/scatter.cu``; a CPU tensor goes to
-:func:`scatter_add_plain`.
+is a scatter-add) and ops/scatter_pallas.py (B5). The scatter's forward
+is the operator ``evflow::scatter_add`` (ops/native.py::define_op): a
+CUDA tensor goes to the hand-written kernel in ``csrc/scatter.cu``, a
+CPU tensor to :func:`scatter_add_plain`.
 
 K3 source note: replaces ``scatter_add_pallas`` (scatter_pallas.py:32-64),
 which walks the events serially over a VMEM-resident image and so is
@@ -84,6 +85,16 @@ def scatter_add_kernel(idx, vals, size):
     return out
 
 
+def _scatter_fake(idx, vals, size):
+    _check(idx, vals, size)
+    return vals.new_empty((vals.shape[0], size, vals.shape[2]))
+
+
+_scatter_op = native.define_op(
+    "scatter_add", "(Tensor idx, Tensor vals, int size) -> Tensor",
+    scatter_add_plain, scatter_add_kernel, _scatter_fake)
+
+
 class _ScatterAdd(torch.autograd.Function):
     """Scatter forward; the gradient of a scatter-add is a gather of the
     cotangent at the scatter indices (ops/scatter.py:125-129)."""
@@ -91,9 +102,7 @@ class _ScatterAdd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, idx, vals, size):
         ctx.save_for_backward(idx)
-        if vals.device.type == "cpu":
-            return scatter_add_plain(idx, vals, size)
-        return scatter_add_kernel(idx, vals, size)
+        return _scatter_op(idx, vals, size)
 
     @staticmethod
     def backward(ctx, g):

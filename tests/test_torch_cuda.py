@@ -1039,3 +1039,76 @@ def test_aee_serving_card_vs_cpu(dev, mode, window):
     dt_gt = torch.tensor([0.2], device=dev)
     a, pct = aee(gt / (128 * dt_gt / dt_in), gt, mask, dt_in, dt_gt)
     assert float(a) < 1e-4 and float(pct) == 0.0
+
+
+def _engine_windows(res, n, n_events, seed):
+    """[n, 1, N, 4] uniform windows (sorted ts, integer pixels, +-1)."""
+    g = torch.Generator().manual_seed(seed)
+    h, w = res
+    ts = torch.rand((n, 1, n_events), generator=g).sort(-1).values
+    ys = torch.randint(0, h, (n, 1, n_events), generator=g).float()
+    xs = torch.randint(0, w, (n, 1, n_events), generator=g).float()
+    ps = torch.randint(0, 2, (n, 1, n_events), generator=g).float() * 2 - 1
+    return torch.stack([ts, ys, xs, ps], -1)
+
+
+def _serve_cpu_artifact_on_card(dev, tmp_path, cfg, n, n_events):
+    """Export the engine of ``cfg`` (seed-0 init) on the CPU, serve it on
+    the card beside the live engine on the card: (live flows, served
+    flows, launches of the live run, launches of the served run)."""
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
+    from event_flow_tpu_torch.eval.serialized import (SerializedEngine,
+                                                      export_engine)
+    from event_flow_tpu_torch.eval_flow import build_model
+
+    res = tuple(cfg["loader"]["resolution"])
+    cpu = InferenceEngine(cfg, build_model(cfg, "cpu"), "cpu")
+    path = export_engine(cpu, str(tmp_path / "art"), n_events=n_events)
+    live = InferenceEngine(cfg, build_model(cfg, dev), dev)
+    ser = SerializedEngine(path, device=dev)
+    windows = _engine_windows(res, n, n_events, 0).to(dev)
+    out = []
+    for engine in (live, ser):
+        native.reset_launch_counts()
+        out.append([engine.step(w) for w in windows])
+        out.append(dict(native.LAUNCHES))
+    return out
+
+
+def test_cpu_artifact_launches_the_kernels_on_the_card(dev, tmp_path):
+    """LIFFireNet exported on the CPU and served on the card: per window
+    K2 5 + 2, K1 1, K3 1, as the live engine; flows within 1e-6."""
+    from event_flow_tpu_torch.config import ECD_LIFFIRENET
+
+    cfg = copy.deepcopy(ECD_LIFFIRENET)
+    cfg["loader"]["resolution"] = [32, 48]
+    cfg["model"]["base_num_channels"] = 32
+    live, live_counts, served, counts = _serve_cpu_artifact_on_card(
+        dev, tmp_path, cfg, 4, 3000)
+    want = {"conv2d_same": 4, "fused_conv_lif": 20, "fused_conv_lif_rec": 8,
+            "scatter_add": 4, "conv2d_dw": 0, "fused_lif_bwd": 0}
+    assert live_counts == want and counts == want
+    assert max(float(f.abs().max()) for f in live) > 0
+    for a, b in zip(served, live):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+
+
+def test_unet_artifact_matches_live_under_tf32(dev, tmp_path):
+    """SpikingRecEVFlowNet (base 8) exported on the CPU and served on the
+    card with cuDNN's TF32 on: the strided convs carry their own flags, so
+    the artifact matches the live engine within 1e-6."""
+    from event_flow_tpu_torch.config import ECD_SPIKING_RECEVFLOWNET
+
+    cfg = copy.deepcopy(ECD_SPIKING_RECEVFLOWNET)
+    cfg["loader"]["resolution"] = [36, 48]
+    cfg["model"]["base_num_channels"] = 8
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        live, _, served, counts = _serve_cpu_artifact_on_card(
+            dev, tmp_path, cfg, 3, 3000)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert counts["fused_conv_lif"] == 24 and counts["conv2d_same"] == 12
+    for a, b in zip(served, live):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)

@@ -330,6 +330,87 @@ def test_native_cli_trains_from_packs_alone_without_h5py(tmp_path):
                                                       "s1.evpack"]
 
 
+def test_engine_export_and_serving_with_jax_h5py_blocked(tmp_path):
+    """The engine, export_engine and the export CLI with no JAX, flax,
+    optax or h5py to import; then, in a second process, SerializedEngine
+    serving the CLI's artifact with the port's models and config never
+    imported: the artifact needs torch and the port's ops alone."""
+    art, run = str(tmp_path / "art"), tmp_path / "runs" / "r"
+    blocked = ("jax", "jaxlib", "flax", "optax", "h5py")
+    block = textwrap.dedent(f"""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {blocked!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+    """)
+    export = block + textwrap.dedent(f"""
+        import copy, json, os
+        import numpy as np
+        import torch
+        from event_flow_tpu_torch.config import ECD_LIFFIRENET
+        from event_flow_tpu_torch.eval.predict import InferenceEngine
+        from event_flow_tpu_torch.eval.serialized import export_engine
+        from event_flow_tpu_torch.eval_flow import build_model
+        from event_flow_tpu_torch.export_serving import main
+        from event_flow_tpu_torch.utils.checkpoint import save_checkpoint
+        cfg = copy.deepcopy(ECD_LIFFIRENET)
+        cfg["loader"]["resolution"] = [16, 24]
+        cfg["model"]["base_num_channels"] = 4
+        model = build_model(cfg, "cpu", seed=1)
+        engine = InferenceEngine(cfg, model, device="cpu", with_iwe=True)
+        rng = np.random.default_rng(0)
+        w = np.stack([np.sort(rng.uniform(0, 1, 500)),
+                      rng.integers(0, 16, 500), rng.integers(0, 24, 500),
+                      rng.choice([-1.0, 1.0], 500)], -1).astype(np.float32)
+        flow = engine.step(w)
+        assert flow.shape == (1, 16, 24, 2) and engine.last_iwe is not None
+        export_engine(engine, {str(tmp_path / "direct")!r}, n_events=500)
+        os.makedirs({str(run)!r})
+        save_checkpoint(os.path.join({str(run)!r}, "checkpoints", "best"),
+                        model.state_dict())
+        with open(os.path.join({str(run)!r}, "params.yml"), "w") as f:
+            json.dump(cfg, f)
+        np.save({str(tmp_path / "w.npy")!r}, w)
+        main([{str(run)!r}, "--config", os.path.join({str(run)!r},
+              "params.yml"), "--out", {art!r}, "--events", "500",
+              "--device", "cpu"])
+        engine.reset()
+        np.save({str(tmp_path / "flow.npy")!r}, engine.step(w).numpy())
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {blocked!r} + ("event_flow_tpu",))
+        assert not loaded, loaded
+        print("OK export")
+    """)
+    proc = subprocess.run([sys.executable, "-c", export], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "OK export" in proc.stdout and "exported LIFFireNet" in proc.stdout
+    serve = block + textwrap.dedent(f"""
+        import numpy as np
+        from event_flow_tpu_torch.eval.serialized import SerializedEngine
+        ser = SerializedEngine({art!r}, device="cpu")
+        flow = ser.step(np.load({str(tmp_path / "w.npy")!r}))
+        want = np.load({str(tmp_path / "flow.npy")!r})
+        np.testing.assert_allclose(flow.numpy(), want, rtol=1e-6, atol=1e-6)
+        assert np.abs(want).max() > 0
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {blocked!r} + ("event_flow_tpu",)
+                        or m.startswith("event_flow_tpu_torch.models")
+                        or m == "event_flow_tpu_torch.config")
+        assert not loaded, loaded
+        print("OK serve")
+    """)
+    proc = subprocess.run([sys.executable, "-c", serve], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "OK serve" in proc.stdout
+
+
 def _top_level_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     names = []
