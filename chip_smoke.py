@@ -118,6 +118,23 @@ exits non-zero without the final ``ok`` line:
               padded short window and reset; windows/s and device busy
               per window of each, the artifact's bytes, export and load
               seconds
+ 17. vis      the visualization outputs and the spiking cells' options:
+              LIFFireNet at ECD_LIFFIRENET with vis.store and vis.activity
+              (16 windows) on the CPU and the card (the CPU's
+              near-threshold spikes taken), exact launches (K3 one more
+              per window for the display IWE), counts and IWEs bitwise,
+              activity within 1e-4, both store trees (PNG or NPY, the
+              activity plot where matplotlib imports), windows/s with and
+              without the renders in turns; eval_rich.yml's cadence (K 3)
+              with loss.overwrite_intermediate: the window renders and
+              FWL/RSAT against the CPU; LIFFireNet under norm group, norm
+              weight and detach=False: 2 serving windows against the CPU,
+              the TRAIN_SNN update (run twice bitwise, 3 timed, exact
+              launches, its device ms beside the fused cells') and
+              model_parity; one --vis update at batch 1 (the display dict
+              bitwise the last window's, the vis/train tree, exact
+              launches); a strided ConvXLIFRecurrent and a
+              ConvLIFRecurrent with detach=False against the CPU
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
@@ -138,7 +155,7 @@ user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8-16). Imports
+sum over the counted runs of every path (phases 4-6, 8-17). Imports
 nothing of JAX.
 """
 
@@ -1422,7 +1439,7 @@ def first_update_inputs(trainer, config):
     return inputs
 
 
-def model_parity(tag, config, seed):
+def model_parity(tag, config, seed, flips=False):
     """The first update at parity_config's size of ``config``'s model on
     the card and on the CPU, from the same init and stream, seeded with
     ``seed``: the loss within TRAIN_LOSS_RTOL and the model's
@@ -1437,17 +1454,26 @@ def model_parity(tag, config, seed):
     of a pixel line, and at some states a change of one f32 rounding in
     the flows moves the gradient far past 1e-3 (grad_conditioning.py: on
     the CPU, a 1e-7 weight jitter moves EVFlowNet's at seed 0 by 17 times
-    its norm, and with BN by more than 0.06 at each of 40 seeds)."""
+    its norm, and with BN by more than 0.06 at each of 40 seeds).
+
+    With ``flips`` the card takes the CPU's spike wherever the CPU's v
+    lies within NEAR of its threshold (CellLog on the trainers' models,
+    checked by check_forced), as the serving phases do: a spiking
+    model's dense inputs (a group-normed input) put some v within
+    rounding of the threshold at most seeds."""
     from event_flow_tpu_torch.loss.warping import event_warping_loss
     from event_flow_tpu_torch.ops import native
     from event_flow_tpu_torch.train.loop import Trainer
 
     config = parity_config(config, seed)
     name = config["model"]["name"]
-    losses, grads, cot = {}, {}, None
+    losses, grads, cot, logs = {}, {}, None, {}
     with torch.enable_grad():
         for dev in ("cpu", "cuda"):
             trainer = Trainer(config, dev)
+            if flips:
+                logs[dev] = CellLog(config, dev, logs.get("cpu"),
+                                    model=trainer.model)
             inputs = first_update_inputs(trainer, config)
             native.reset_launch_counts()
             _, flows, ev_list, pol, mask = trainer.step.seq_fwd(
@@ -1464,6 +1490,10 @@ def model_parity(tag, config, seed):
             losses[dev] = loss.item()
             grads[dev] = {k: g.cpu() for k, g in
                           _grads(trainer.model).items()}
+            if flips:
+                logs[dev].remove()
+    if flips:
+        check_forced(tag, logs["cuda"], logs["cpu"])
     worst = _hold_to_cpu(name, [losses["cuda"]], [losses["cpu"]],
                          grads["cuda"], grads["cpu"])
     print(f"[{tag}] {name} B 2, 64x64, T 3, width "
@@ -1497,7 +1527,7 @@ def window_events(config, model, log=None, sequences=None):
     state = [model.zero_state(1, h, w, dev), init_hot_state(1, (h, w), dev)]
 
     def window():
-        state[:] = ev.process_batch(stream, *state, stream.next_batch())
+        state[:] = ev.process_batch(stream, *state, stream.next_batch())[:2]
 
     for _ in range(3):
         window()
@@ -1613,21 +1643,24 @@ def phase_unet():
 
 
 class CellLog:
-    """The init of ``config``'s model seeded with ``seed`` on ``device`` with forward
+    """The init of ``config``'s model seeded with ``seed`` on ``device``
+    (or ``model``, where given) with forward
     hooks that record, in call order, each spiking cell's name, new v and
     z, and the threshold its spike was taken against (t0 + t1 t' of an
     ALIF cell, t0 + t1 pt' of an XLIF one, the per-channel thresh
     otherwise), on the CPU. With ``force``, the CellLog of the same run
     on the CPU: at each pixel where the CPU's v lies within NEAR of its
     threshold, where rounding decides the spike, the cell takes the
-    CPU's spike (its output and state follow), and each spike so changed
-    is counted in ``forced`` by call, cell and |v - thresh|."""
+    CPU's spike (its output and state follow, their gradients kept), and
+    each spike so changed is counted in ``forced`` by call, cell and
+    |v - thresh|."""
 
-    def __init__(self, config, device, force=None, seed=0):
+    def __init__(self, config, device, force=None, seed=0, model=None):
         from event_flow_tpu_torch.eval_flow import build_model
         from event_flow_tpu_torch.models.snn_cells import lif_cell_names
 
-        self.model = build_model(config, torch.device(device), seed=seed)
+        self.model = model if model is not None else build_model(
+            config, torch.device(device), seed=seed)
         self.calls, self.force, self.forced, self.flows = [], force, [], []
         self.hooks = [self.model.get_submodule(name).register_forward_hook(
             self._record(name)) for name in lif_cell_names(self.model)]
@@ -1651,7 +1684,8 @@ class CellLog:
                     self.forced.append((len(self.calls), name,
                                         int(changed.sum()),
                                         float(dist[changed].max())))
-                    out, z = out + (z_new - z), z_new
+                    delta = (z_new - z).detach()
+                    out, z = out + delta, z + delta
             self.calls.append((name, v.cpu(), z.cpu(), thresh.cpu()))
             return out, (v, z, *trace)
         return hook
@@ -2235,7 +2269,7 @@ def window_times(config, model, sequences):
             if stream.seq_num >= len(stream.files):
                 break
             since_new = 0 if batch["new_seq"] else since_new + 1
-            state = ev.process_batch(stream, *state, batch)
+            state = ev.process_batch(stream, *state, batch)[:2]
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             if since_new >= 3:
@@ -3180,6 +3214,420 @@ def phase_engine():
     return paths
 
 
+# [vis]: the visualization outputs and the spiking cells' options
+VIS_OPTIONS = {"group": {"norm": "group"}, "weight": {"norm": "weight"},
+               "no_detach": {"detach": False}}
+ACTIVITY_TOL = 1e-4
+# the options' 2-window serving init: at seeds 0 and 1 the first window of
+# seq_a moves no event under weight norm and detach=False, as with the
+# defaults (FWL and RSAT exactly 1 on the CPU); at seed 2 every per-file
+# value leaves 1 under all three options
+VIS_SERVE_SEED = 2
+
+
+def _kept_outputs(config, path):
+    """eval_flow.py::WindowOutputs into ``path`` (eval id 0) that also
+    keeps each window's vis dict on the CPU."""
+    from event_flow_tpu_torch.eval_flow import WindowOutputs
+
+    class Kept(WindowOutputs):
+        def __init__(self):
+            super().__init__(config, path, 0)
+            self.kept = []
+
+        def __call__(self, stream, batch, vis):
+            self.kept.append({
+                k: ({n: float(t) for n, t in v.items()} if k == "activity"
+                    else v.cpu()) for k, v in vis.items() if v is not None})
+            super().__call__(stream, batch, vis)
+
+    return Kept()
+
+
+def _tree_files(root):
+    """{relative path: bytes} of every file under ``root``."""
+    import os
+
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def vis_serve(tag, config, sequences, per_window, per_group, root):
+    """The serving path of ``config`` with its vis outputs (the seed-0
+    init) on the CPU and then on the card, the card taking the CPU's
+    near-threshold spikes (CellLog), each storing its tree under
+    ``root``/0 or ``root``/1: exact launches on the card (per
+    window and per metric group), every spike equal and every flow
+    within FLOW_RTOL (check_forced), count images bitwise and the
+    activity within ACTIVITY_TOL; FWL/RSAT within SLICE_RTOL. Returns
+    (the card's launch counts, the kept vis dicts by device, the two
+    trees, the reports)."""
+    import os
+
+    from event_flow_tpu_torch.eval_flow import evaluate
+    from event_flow_tpu_torch.ops import native
+
+    logs, kept, trees, reports = {}, {}, {}, {}
+    for i, device in enumerate(("cpu", "cuda")):
+        path = os.path.join(root, str(i))
+        log = logs[device] = CellLog(config, device, logs.get("cpu"))
+        out = _kept_outputs(config, path)
+        native.reset_launch_counts()
+        try:
+            reports[device] = evaluate(config, device, sequences=sequences,
+                                       model=log.model, outputs=out)
+        finally:
+            log.remove()
+        counts = dict(native.LAUNCHES)
+        if device == "cpu" and any(counts.values()):
+            fail(f"[{tag}] the CPU run launched CUDA kernels")
+        kept[device] = out.kept
+        trees[device] = _tree_files(path)
+    rep = reports["cuda"]
+    n, groups = rep["windows"], rep["evaluator"].metric_groups
+    want = {k: per_window.get(k, 0) * n + per_group.get(k, 0) * groups
+            for k in counts}
+    if counts != want or n == 0:
+        fail(f"[{tag}] launches {counts} != {want} over {n} windows, "
+             f"{groups} groups")
+    check_forced(tag, logs["cuda"], logs["cpu"])
+    gaps = compare_metrics(tag, rep["results"], reports["cpu"]["results"])
+    act_gap = 0.0
+    for i, (g, c) in enumerate(zip(kept["cuda"], kept["cpu"])):
+        if set(g) != set(c):
+            fail(f"[{tag}] window {i}: vis keys {sorted(g)} != {sorted(c)}")
+        for key in ("event_cnt", "event_mask", "iwe", "events_window",
+                    "iwe_window"):
+            if key in c and not torch.equal(g[key], c[key]):
+                fail(f"[{tag}] window {i}: {key} differs from the CPU's")
+        for name, val in c.get("activity", {}).items():
+            act_gap = max(act_gap, abs(g["activity"][name] - val))
+    if not act_gap <= ACTIVITY_TOL:
+        fail(f"[{tag}] activity {act_gap} from the CPU's > {ACTIVITY_TOL}")
+    print(f"[{tag}] {n} windows, {groups} metric groups at "
+          f"{config['loader']['resolution']}: launches {counts}; counts, "
+          f"masks and IWEs bitwise equal to the CPU's; activity within "
+          f"{act_gap!r}; FWL/RSAT max rel gap {max(gaps):.3g}")
+    return counts, kept, trees, reports
+
+
+def _check_tree(tag, trees, per_seq, root_name="eval_0"):
+    """Both trees hold ``per_seq`` {sequence: {subdir: files}} and one
+    timestamps line per window; the count images' files are the same
+    bytes on the card and on the CPU. Returns the file format."""
+    import os
+
+    fmt = None
+    for device, tree in trees.items():
+        for seq, subs in per_seq.items():
+            for sub, n in subs.items():
+                files = [k for k in tree if k.startswith(
+                    os.path.join(root_name, seq, sub) + os.sep)]
+                exts = {os.path.splitext(f)[1] for f in files}
+                if len(files) != n or len(exts) != 1:
+                    fail(f"[{tag}] {device} tree {seq}/{sub}: {len(files)} "
+                         f"files {sorted(exts)}, want {n}")
+                fmt = exts.pop()
+            stamps = tree[os.path.join(root_name, seq, "timestamps.txt")]
+            if len(stamps.decode().splitlines()) != max(subs.values()):
+                fail(f"[{tag}] {device} {seq}/timestamps.txt: "
+                     f"{len(stamps.decode().splitlines())} lines")
+    for key, data in trees["cpu"].items():
+        sub = key.split(os.sep)[2] if key.count(os.sep) > 2 else ""
+        if sub in ("events", "iwe", "events_window", "iwe_window") and \
+                trees["cuda"].get(key) != data:
+            fail(f"[{tag}] {key} differs between the card and the CPU")
+    return fmt
+
+
+def vis_rates(tag, config, sequences, root):
+    """Windows/s of the serving path at ``config`` without any vis output,
+    with ``vis.store`` alone and with ``vis.store`` and ``vis.activity``
+    (a plot per window, as the JAX CLI draws it) into ``root`` (a fresh
+    directory per run), in turns (none, store, both, both, store, none);
+    each run synchronised by its final metric read. Prints the medians
+    and the host ms per window each output adds."""
+    import os
+
+    from event_flow_tpu_torch.eval_flow import (WindowOutputs, build_model,
+                                                evaluate)
+
+    kinds = {"none": copy.deepcopy(config), "store": copy.deepcopy(config),
+             "store+activity": config}
+    kinds["none"]["vis"].update(store=False, activity=False)
+    kinds["store"]["vis"]["activity"] = False
+    model = build_model(config, torch.device("cuda"))
+    evaluate(kinds["none"], "cuda", sequences=sequences, model=model)
+    rates = {k: [] for k in kinds}
+    order = list(kinds) + list(kinds)[::-1]
+    for run, kind in enumerate(order):
+        cfg = kinds[kind]
+        out = (WindowOutputs(cfg, os.path.join(root, str(run)), 0)
+               if kind != "none" else None)
+        rep = evaluate(cfg, "cuda", sequences=sequences, model=model,
+                       outputs=out)
+        rates[kind].append(rep["windows"] / rep["seconds"])
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    print(f"[{tag}] windows/s in turns ({', '.join(order)}): " + "; ".join(
+        f"{k} {med[k]:.2f} (" + ", ".join(f"{r:.2f}" for r in v) + ")"
+        for k, v in rates.items()) + "; host ms per window added: store "
+        f"{1e3 / med['store'] - 1e3 / med['none']:.3f}, store+activity "
+        f"{1e3 / med['store+activity'] - 1e3 / med['none']:.3f}")
+
+
+def option_update(t, u, group=False):
+    """LIFFireNet's launches over u updates of T windows with every cell
+    off the fused kernels (a norm, or detach=False): forward K1 8T (7
+    cells, the prediction); backward B2 8T (5 ff and 2 concatenated ff +
+    rec weights, the prediction), K1 dx 7T (every cell's input but the
+    head's, which is the encoding, and the prediction's), and with the
+    group norm 1 more per window (the head's normalized input carries
+    the norm's gradient); K3 4 as LIFFireNet's."""
+    return {"fused_conv_lif": 0, "fused_conv_lif_rec": 0,
+            "conv2d_same": (8 * t + (8 if group else 7) * t) * u,
+            "scatter_add": 4 * u, "fused_lif_bwd": 0,
+            "conv2d_dw": 8 * t * u}
+
+
+def vis_cells(tag):
+    """(e): a strided ConvXLIFRecurrent (32 -> 32, stride 2) and a
+    ConvLIFRecurrent with detach=False (32 -> 32) over three steps of B
+    8, 64 x 64 spike inputs on the card and on the CPU from one init:
+    spikes equal but near the threshold (check_spikes), v within NEAR,
+    the gradient of a weighted sum into the input and every parameter
+    within TRAIN_GRAD_RTOL (relative norm); the launches exact: per step
+    K1 1 forward and B2 1, K1 dx per step whose conv input carries a
+    gradient (the strided cell's rec conv from step 2, the concatenated
+    conv at every step). Returns the card's launch counts."""
+    from event_flow_tpu_torch.models import snn_cells
+    from event_flow_tpu_torch.ops import native
+
+    cases = (("ConvXLIFRecurrent", 2, {}, 3 + 2),
+             ("ConvLIFRecurrent", 1, {"detach": False}, 3 + 3))
+    totals = []
+    for cls, stride, kw, k1 in cases:
+        gen = torch.Generator().manual_seed(0)
+        x = (torch.rand((8, 64, 64, 32), generator=gen) < 0.2).float()
+        cots = torch.randn((3, 8, 64 // stride, 64 // stride, 32),
+                           generator=gen)
+        runs = {}
+        for device in ("cpu", "cuda"):
+            cell = getattr(snn_cells, cls)(
+                32, 32, 3, stride, generator=torch.Generator().manual_seed(1),
+                **kw).to(device)
+            xd = x.detach().to(device).requires_grad_(True)
+            state = cell.zero_state(8, 64, 64, device)
+            native.reset_launch_counts()
+            with torch.enable_grad():
+                total, steps = 0.0, []
+                for i in range(3):
+                    out, state = cell(xd, state)
+                    # v, z and the threshold the spike was taken against
+                    thresh = (cell._p("t0") + cell._p("t1") * state[2]
+                              if cell.ADAPTIVE else cell._p("thresh"))
+                    steps.append((state[0].detach().cpu(),
+                                  state[1].detach().cpu(),
+                                  thresh.detach().cpu()))
+                    total = total + (out * cots[i].to(device)).sum()
+                total.backward()
+            grads = {"x": xd.grad.cpu(), **{n: p.grad.cpu() for n, p in
+                                            cell.named_parameters()
+                                            if p.requires_grad}}
+            runs[device] = (steps, grads, dict(native.LAUNCHES))
+        (cs, cg, _), (ks, kg, counts) = runs["cpu"], runs["cuda"]
+        want = {"fused_conv_lif": 0, "fused_conv_lif_rec": 0,
+                "conv2d_same": k1, "scatter_add": 0, "fused_lif_bwd": 0,
+                "conv2d_dw": 3}
+        if counts != want:
+            fail(f"[{tag}] {cls} {kw} launches {counts} != {want}")
+        flips = 0
+        for i, ((cv, cz, ct), (kv, kz, _)) in enumerate(zip(cs, ks)):
+            flipped = kz != cz
+            far = flipped & ((cv - ct).abs() >= NEAR)
+            if far.any() or int(flipped.sum()) > MAX_FLIP_SHARE * cz.numel():
+                fail(f"[{tag}] {cls} step {i}: {int(flipped.sum())} spikes "
+                     f"differ, {int(far.sum())} away from the threshold")
+            flips += int(flipped.sum())
+            gap = float((kv - cv).abs().max())
+            if not gap < NEAR:
+                fail(f"[{tag}] {cls} step {i}: v {gap} from the CPU's")
+        worst = max((float((kg[n] - g).norm() / g.norm().clamp(min=1e-30)),
+                     n) for n, g in cg.items())
+        if not worst[0] <= TRAIN_GRAD_RTOL:
+            fail(f"[{tag}] {cls} gradient of {worst[1]}: rel gap "
+                 f"{worst[0]}")
+        print(f"[{tag}] {cls} {kw or ''} stride {stride}, 8x64x64x32, 3 "
+              f"steps: spikes equal ({flips} near-threshold flips), "
+              f"gradients of x and {len(cg) - 1} parameters within "
+              f"{worst[0]:.3g} ({worst[1]}); launches {counts}")
+        totals.append(counts)
+    return totals
+
+
+def vis_train(tag, root):
+    """(d): one --vis update at TRAIN_SNN with batch 1 through
+    train(..., vis=True): the display dict equals the update's own last
+    window (the flow and count map of its last model call, bitwise), the
+    run's vis/train/ tree holds one events and one flow render, and the
+    launches are lif_update(10, 1). Returns them."""
+    import os
+
+    from event_flow_tpu_torch.config import TRAIN_SNN
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.train_flow import train
+
+    config = copy.deepcopy(TRAIN_SNN)
+    config["loader"]["batch_size"] = 1
+    seen = {}
+
+    def hook(model, args, output):
+        seen["flow"] = output[0]["flow"][-1].detach()
+        seen["cnt"] = args[1]
+
+    from event_flow_tpu_torch.train import loop
+
+    build = loop.build_model
+
+    def hooked(*a, **k):
+        model = build(*a, **k)
+        model.register_forward_hook(hook)
+        return model
+
+    loop.build_model = hooked
+    native.reset_launch_counts()
+    try:
+        with torch.enable_grad():
+            rid, trainer, hist = train(config, "cuda", max_updates=1,
+                                       runs_root=root, vis=True)
+    finally:
+        loop.build_model = build
+    counts = dict(native.LAUNCHES)
+    want = lif_update(trainer.t_windows, 1)
+    if counts != want:
+        fail(f"[{tag}] --vis update launches {counts} != {want}")
+    vis = trainer.step.vis
+    mask = (seen["cnt"].sum(-1, keepdim=True) > 0).float()
+    if not (torch.equal(vis["flow"], seen["flow"])
+            and torch.equal(vis["event_cnt"], seen["cnt"])
+            and torch.equal(vis["event_mask"], mask)):
+        fail(f"[{tag}] the display dict is not the update's last window")
+    if not vis["flow"].abs().max() > 0:
+        fail(f"[{tag}] the --vis update's last flow is all zeros")
+    tree = os.path.join(root, rid, "vis", "train")
+    files = {sub: sorted(os.listdir(os.path.join(tree, sub)))
+             for sub in ("events", "flow")}
+    if any(len(f) != 1 for f in files.values()):
+        fail(f"[{tag}] vis/train tree {files}")
+    print(f"[{tag}] --vis update at TRAIN_SNN, batch 1, T "
+          f"{trainer.t_windows}: loss {hist[0][0]!r}, the display dict "
+          f"bitwise the last window's flow, counts and mask (max |flow| "
+          f"{float(vis['flow'].abs().max()):.4g}); vis/train/ {files}; "
+          f"launches {counts}")
+    return counts
+
+
+def phase_vis(lif_parts):
+    """[vis]: (a) LIFFireNet serving at ECD_LIFFIRENET with vis.store and
+    vis.activity (16 windows): vis_serve, the store trees, windows/s with
+    and without the renders in turns; (b) eval_rich.yml's cadence (window
+    1000, window_eval 3000, K = 3, 180 x 240) with
+    loss.overwrite_intermediate: the window renders and FWL/RSAT against
+    the CPU; (c) LIFFireNet under norm group, norm weight and
+    detach=False: 2 serving windows against the CPU, the TRAIN_SNN update
+    (train_phase: run twice bitwise, 3 timed, exact launches, profiled,
+    its device ms beside the fused cells' of [train]) and model_parity;
+    (d) one --vis update (vis_train); (e) the strided and no-detach
+    recurrent cells (vis_cells). Returns the launch counts of every
+    counted run."""
+    import importlib.util
+    import tempfile
+
+    from event_flow_tpu_torch.config import ECD_LIFFIRENET, TRAIN_SNN
+    from event_flow_tpu_torch.data.stream import synthetic_sequences
+
+    tag = "vis"
+    paths = []
+    print(f"[{tag}] cv2 imports: "
+          f"{importlib.util.find_spec('cv2') is not None}, matplotlib "
+          f"imports: {importlib.util.find_spec('matplotlib') is not None}")
+    with tempfile.TemporaryDirectory() as root:
+        config = copy.deepcopy(ECD_LIFFIRENET)
+        config["vis"].update(store=True, activity=True)
+        seqs = synthetic_sequences(config)
+        counts, kept, trees, _ = vis_serve(
+            tag, config, seqs,
+            {"fused_conv_lif": 5, "fused_conv_lif_rec": 2, "conv2d_same": 1,
+             "scatter_add": 2}, {"scatter_add": 4}, root + "/a")
+        paths.append(counts)
+        n_seq = len(kept["cuda"]) // 2
+        fmt = _check_tree(tag, trees, {
+            s: {"events": n_seq, "flow": n_seq, "iwe": n_seq}
+            for s in ("seq_a", "seq_b")})
+        card_tree = trees["cuda"]
+        plot = "activity.png" in card_tree
+        print(f"[{tag}] store trees written as {fmt} files, "
+              f"{len(card_tree)} files each; the events and IWE files "
+              f"the same bytes on the card and the CPU; activity plot "
+              f"written: {plot}")
+        vis_rates(tag, config, seqs, root + "/rates")
+
+        rich = copy.deepcopy(config)
+        rich["data"].update(window=1000, window_eval=3000)
+        rich["vis"]["activity"] = False
+        rich["loss"] = {"overwrite_intermediate": True}
+        rseqs = synthetic_sequences(rich, n_sequences=1)
+        counts, kept, trees, reps = vis_serve(
+            tag + "-window", rich, rseqs,
+            {"fused_conv_lif": 5, "fused_conv_lif_rec": 2, "conv2d_same": 1,
+             "scatter_add": 2}, {"scatter_add": 6}, root + "/b")
+        paths.append(counts)
+        groups = reps["cuda"]["evaluator"].metric_groups
+        top = max(float(k["flow_window"].abs().max()) for k in kept["cpu"]
+                  if "flow_window" in k)
+        gap = max(float((g["flow_window"] - c["flow_window"]).abs().max())
+                  for g, c in zip(kept["cuda"], kept["cpu"])
+                  if "flow_window" in c)
+        if not gap <= FLOW_RTOL * top or top == 0.0:
+            fail(f"[{tag}-window] flow_window {gap} from the CPU's (max "
+                 f"{top})")
+        _check_tree(tag + "-window", trees, {"seq_a": {
+            "events": len(kept["cuda"]), "flow": len(kept["cuda"]),
+            "iwe": len(kept["cuda"]), "events_window": groups,
+            "flow_window": groups, "iwe_window": groups}})
+        print(f"[{tag}-window] K 3, overwrite_intermediate: events_window "
+              f"and iwe_window bitwise equal to the CPU's, flow_window "
+              f"within {gap!r} (max {top!r}) over {groups} groups")
+
+        busy = {"fused": sum(lif_parts.values()) if lif_parts else None}
+        for option, neuron in VIS_OPTIONS.items():
+            serve = copy.deepcopy(ECD_LIFFIRENET)
+            serve["model"]["spiking_neuron"].update(neuron)
+            paths.append(serve_phase(
+                f"{tag}-{option}", serve, 8, 0,
+                sequences=synthetic_sequences(serve, n_windows=1.0),
+                warm_up=False, profile=False, flips=True,
+                seed=VIS_SERVE_SEED))
+            train_cfg = copy.deepcopy(TRAIN_SNN)
+            train_cfg["model"]["spiking_neuron"].update(neuron)
+            counts, parts = train_phase(
+                f"{tag}-{option}", train_cfg,
+                lambda t, u, g=option == "group": option_update(t, u, g))
+            paths.append(counts)
+            busy[option] = sum(parts.values()) if parts else None
+            model_parity(f"{tag}-{option}", train_cfg, 0, flips=True)
+        print(f"[{tag}] device ms of one TRAIN_SNN update (torch.profiler, "
+              "profiler on): " + ", ".join(
+                  f"{k} {'not measured' if v is None else f'{v:.3f}'}"
+                  for k, v in busy.items()))
+        paths.append(vis_train(tag, root + "/train"))
+    paths += vis_cells(tag)
+    return paths
+
+
 KERNELS = (
     ("conv2d_same", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/ops/conv_pallas.py:121"),
@@ -3218,6 +3666,7 @@ def main():
     paths += phase_runs()
     paths += phase_native()
     paths += phase_engine()
+    paths += phase_vis(lif_parts)
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c[k] for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],

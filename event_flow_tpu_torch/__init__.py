@@ -18,7 +18,8 @@ the H100 (``csrc/``). Layout mirrors the JAX package:
   eval/    the per-window evaluation harness
   train/   optimizers, update step, training loop
   utils/   weight conversion from the JAX parameter tree, checkpoints,
-           the run tracker, gradient statistics
+           the run tracker, gradient statistics, the visualization
+           renders and store trees
 
 It imports torch and numpy, never jax.
 """

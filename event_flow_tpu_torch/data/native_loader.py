@@ -289,6 +289,7 @@ class NativeEventStream:
         self._seq_offset = 0
         self.samples = 0
         self.new_seq = False
+        self.last_proc_timestamp = 0.0
         self._lib = _library()
         names = (ctypes.c_char_p * len(self.files))(
             *[p.encode() for p in self.files])
@@ -345,6 +346,11 @@ class NativeEventStream:
                 self.aug_flags[s] = draw_augment_flags(
                     self.rng, 1, self._mechanisms, self._probs)[0]
         self.new_seq = rolled != 0
+        n_live = self._valid.sum(axis=1).astype(int)
+        if n_live.max() > 0:  # as event_flow_tpu/data/native_loader.py
+            slot = int(np.argmax(n_live))
+            self.last_proc_timestamp = float(
+                self._events[slot, n_live[slot] - 1, 0])
         batch = {"events": self._events.copy(), "valid": self._valid.copy(),
                  "aug_flags": self.aug_flags.copy(),
                  "dt_input": self._dt.copy(), "new_seq": self.new_seq}

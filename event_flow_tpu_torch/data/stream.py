@@ -95,7 +95,9 @@ class WindowStream:
     uint8 (the frames at the window's two ends) and in the gtflow modes
     gtflow [B, H, W, 2] (x, y) (the map at the window's end), these two
     augmented; and ``new_seq`` (reports and clears the rollover flag).
-    ``samples`` counts the samples trained on in the epoch."""
+    ``samples`` counts the samples trained on in the epoch;
+    ``last_proc_timestamp`` is the last event's ts of the last slot
+    read (the store tree's ``timestamps.txt``, eval_flow.py)."""
 
     def __init__(self, config, files, rng=None):
         self.mode = config["data"]["mode"]
@@ -119,6 +121,7 @@ class WindowStream:
         self.seq_num = 0
         self.samples = 0
         self.new_seq = False
+        self.last_proc_timestamp = 0.0
         self.batch_idx = list(range(self.batch_size))
         self.batch_row = [0.0 for _ in range(self.batch_size)]
         self._open_seqs = [None] * self.batch_size
@@ -215,6 +218,8 @@ class WindowStream:
             if not restart:
                 xs, ys, ts, ps = seq.get_events(
                     *self._event_index_range(seq, row))
+                if ts.shape[0] > 0:
+                    self.last_proc_timestamp = ts[-1]
             if self.mode == "events" and xs.shape[0] < self.window:
                 restart = True
             if self.mode == "time" and row + self.window >= seq.last_ts:

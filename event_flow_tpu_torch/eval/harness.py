@@ -1,10 +1,11 @@
 """Evaluation harness: the per-window protocol with per-file results.
 
 Counterpart of event_flow_tpu/eval/harness.py::Evaluator on its
-per-window path (``_window_step`` :164-205, ``_compute_fwl_rsat``,
-``_compute_aee``, ``process_batch`` :378-438, ``_accumulate``/``_drain``/
-``results`` :637-710, ``run`` :712-731) for the metrics FWL, RSAT and
-AEE, in every window mode.
+per-window path (``_window_step`` :164-205, ``_compute_fwl_rsat`` and
+``_flatten_group`` :209-332, ``_window_vis`` :337-366,
+``_compute_aee``, ``process_batch`` :378-438, ``_accumulate``/
+``_drain``/``results`` :637-710, ``run`` :712-731) for the metrics FWL,
+RSAT and AEE, in every window mode.
 
 Per window: augment -> encode (one scatter) -> hot-pixel filter ->
 model forward with the carried recurrent state -> per-event flow
@@ -14,13 +15,23 @@ in the others. AEE runs in the gtflow modes against the window's
 ground-truth map, every round(1 / window) windows of a slot whose window
 has ground truth (``dt_gt`` > 0), so that a fractional window is scored
 once per GT interval. Any reset in a batch resets the model state of
-every slot, as in JAX. Metric values stay on the device until
+every slot, as in JAX. With ``loss.overwrite_intermediate`` every
+accumulated event's flow is gathered again from the last window's map
+before FWL/RSAT. Metric values stay on the device until
 :meth:`Evaluator.results` reads them all at once.
 
+``process_batch`` also returns JAX's vis dict, on the device: the
+window's ``flow``, ``event_mask``, ``event_cnt`` and, with
+``vis.activity``, the model's per-layer ``activity`` (the model runs
+with ``log=True``); with ``vis.enabled`` or ``vis.store`` the display
+IWE (``iwe``, one more K3 scatter per window; skipped otherwise, as the
+JAX chunked path skips it) and, where K > 1, at each metric group the
+accumulated renders ``events_window`` (one K3 scatter), ``iwe_window``
+(one more) and ``flow_window``, the event-mask-weighted mean of the K
+flows. eval_flow.py::WindowOutputs renders and stores them.
+
 Not ported: the chunked fast path, single-put packing and mesh placement
-(TPU dispatch workarounds with the same results) and the visualization
-renders (the display IWE is skipped when vis is off, as the chunked path
-does).
+(TPU dispatch workarounds with the same results).
 """
 
 import numpy as np
@@ -33,7 +44,9 @@ from ..loss.metrics import rsat as rsat_fn
 from ..models.snn_cells import lif_cell_names
 from ..ops.encodings import encode_window
 from ..ops.hot_filter import apply_hot_filter, init_hot_state
-from ..ops.iwe import gather_event_flow
+from ..ops.iwe import (compute_pol_iwe, gather_event_flow, get_interpolation,
+                       interpolate_multi)
+from ..ops.scatter import scatter_add
 
 __all__ = ["Evaluator", "zeros_like_state", "detach_state", "cell_states",
            "spike_rates"]
@@ -102,13 +115,11 @@ class Evaluator:
         # harness for the full story)
         self.reference_accounting = bool(
             metrics_cfg.get("reference_accounting", False))
-        if config.get("loss", {}).get("overwrite_intermediate", False):
-            raise NotImplementedError(
-                "loss.overwrite_intermediate is not ported (see ROADMAP.md)")
+        self.overwrite_intermediate = bool(
+            config.get("loss", {}).get("overwrite_intermediate", False))
         vis = config.get("vis", {})
-        if vis.get("enabled") or vis.get("store"):
-            raise NotImplementedError(
-                "visualization is not ported (see ROADMAP.md)")
+        self.want_vis = bool(vis.get("enabled") or vis.get("store"))
+        self.log_activity = bool(vis.get("activity", False))
         self.mode = config["data"]["mode"]
         window = config["data"]["window"]
         window_eval = config["data"].get("window_eval", window)
@@ -116,6 +127,7 @@ class Evaluator:
             self.k_windows = max(1, int(round(window_eval / window)))
         else:
             self.k_windows = 1  # AEE modes: one window per metric group
+        self.want_window_vis = self.want_vis and self.k_windows > 1
         self.aee_every = (int(round(1.0 / window))
                           if self.mode.startswith("gtflow") else 1)
         self._idx_aee = None  # per-slot AEE cadence counters
@@ -146,32 +158,70 @@ class Evaluator:
         if new_seq:  # any reset clears every slot's model state
             model_state = zeros_like_state(model_state)
         out, model_state = self.model(enc["event_voxel"], enc["event_cnt"],
-                                      model_state)
+                                      model_state, log=self.log_activity)
         flow_last = out["flow"][-1]
         self.last_flow = flow_last
         win = {
             "event_list": enc["event_list"],
             "pol_mask": enc["pol_mask"],
             "event_mask": enc["event_mask"],
+            "event_cnt": enc["event_cnt"],
             "flow_last": flow_last,
             "event_flow": gather_event_flow(flow_last, enc["event_list"],
                                             self.res),
+            "activity": out["activity"],
         }
+        if self.want_vis:
+            # the display IWE (harness.py:197-204)
+            win["iwe"] = compute_pol_iwe(
+                flow_last, enc["event_list"], self.res,
+                enc["pol_mask"][..., 0:1], enc["pol_mask"][..., 1:2],
+                flow_scaling=self.flow_scaling, round_idx=True)
         return model_state, hot_state, win
 
-    def _compute_fwl_rsat(self, buffers):
-        """FWL / RSAT over K buffered windows, with per-pass timestamp
-        offsets."""
+    def _flatten_windows(self, buffers):
+        """K buffered windows -> flat [B, K*N, ...] events with per-pass
+        timestamp offsets, their flows and polarity masks; under
+        ``overwrite_intermediate`` every event's flow from the last
+        window's map (harness.py:304-332)."""
         ev = torch.stack([w["event_list"] for w in buffers], dim=1)
-        flow = torch.stack([w["event_flow"] for w in buffers], dim=1)
         pol = torch.stack([w["pol_mask"] for w in buffers], dim=1)
         b, k, n, _ = ev.shape
         offs = torch.arange(k, dtype=ev.dtype, device=ev.device)
         ts = ev[..., 0] + offs[None, :, None]
-        ev = torch.cat([ts[..., None], ev[..., 1:]], dim=-1).reshape(
+        ev_off = torch.cat([ts[..., None], ev[..., 1:]], dim=-1).reshape(
             b, k * n, 4)
-        flow = flow.reshape(b, k * n, 2)
-        pol = pol.reshape(b, k * n, 2)
+        if self.overwrite_intermediate:
+            flow = gather_event_flow(buffers[-1]["flow_last"],
+                                     ev.reshape(b, k * n, 4), self.res)
+        else:
+            flow = torch.stack([w["event_flow"] for w in buffers],
+                               dim=1).reshape(b, k * n, 2)
+        return ev_off, flow, pol.reshape(b, k * n, 2)
+
+    def _window_vis(self, buffers):
+        """The accumulated renders of K windows (harness.py:337-366): the
+        unwarped event image, the IWE at tref = K and the per-pass
+        event-mask-weighted mean flow."""
+        ev, flow, pol = self._flatten_windows(buffers)
+        h, w = self.res
+        lin = (ev[..., 1].to(torch.int32) * w
+               + ev[..., 2].to(torch.int32)).clamp(0, h * w - 1)
+        events_img = scatter_add(lin, pol.contiguous(), h * w).reshape(
+            -1, h, w, 2)
+        idx, weights = get_interpolation(ev, flow, float(self.k_windows),
+                                         self.res, self.flow_scaling,
+                                         round_idx=True)
+        iwe = interpolate_multi(idx, weights * pol, self.res)
+        masks = torch.stack([b["event_mask"] for b in buffers], dim=1)
+        flows = torch.stack([b["flow_last"] for b in buffers], dim=1)
+        avg_flow = (flows * masks).sum(1) / (masks.sum(1) + 1e-9)
+        return {"events_window": events_img, "iwe_window": iwe,
+                "flow_window": avg_flow}
+
+    def _compute_fwl_rsat(self, buffers):
+        """FWL / RSAT over K buffered windows."""
+        ev, flow, pol = self._flatten_windows(buffers)
         out = {}
         if "FWL" in self.metrics:
             out["FWL"] = fwl_fn(ev, flow, self.k_windows, self.res,
@@ -184,7 +234,8 @@ class Evaluator:
     # -- host protocol ----------------------------------------------------
 
     def process_batch(self, stream, model_state, hot_state, batch):
-        """Consume one stream batch; returns (model_state, hot_state)."""
+        """Consume one stream batch; returns (model_state, hot_state, the
+        window's vis dict)."""
         dev = self.device
         b = len(batch["events"])
         new_seq = bool(batch["new_seq"])
@@ -199,6 +250,9 @@ class Evaluator:
             reset, new_seq)
         self._buffers.append(win)
         self.windows += 1
+        vis = {key: win[key] for key in ("event_mask", "event_cnt",
+                                         "activity", "iwe") if key in win}
+        vis["flow"] = win["flow_last"]
         if len(self._buffers) >= self.k_windows:
             filenames = [stream.slot_filename(s) for s in range(b)]
             if "FWL" in self.metrics or "RSAT" in self.metrics:
@@ -208,10 +262,12 @@ class Evaluator:
                     if name in vals:
                         self._pending.append((name, vals[name], filenames,
                                               None, None))
+            if self.want_window_vis:
+                vis.update(self._window_vis(self._buffers))
             if "AEE" in self.metrics and "gtflow" in batch:
                 self._aee_window(win, batch, filenames)
             self._buffers = []
-        return model_state, hot_state
+        return model_state, hot_state, vis
 
     def _aee_window(self, win, batch, filenames):
         """AEE of the window on each slot whose cadence counter fires: a
@@ -287,10 +343,11 @@ class Evaluator:
                                                      / max(e["it"], 1))
         return out
 
-    def run(self, stream, progress=None):
+    def run(self, stream, progress=None, outputs=None):
         """Iterate the stream until every file has been visited once;
         ``progress`` (data/progress.py::ProgressPrinter) ticks once per
-        window with slot 0's file."""
+        window with slot 0's file; ``outputs(stream, batch, vis)``, where
+        given, takes each window's vis dict."""
         b = stream.batch_size
         h, w = self.res
         model_state = self.model.zero_state(b, h, w, self.device)
@@ -299,8 +356,10 @@ class Evaluator:
             batch = stream.next_batch()
             if stream.seq_num >= len(stream.files):
                 break
-            model_state, hot_state = self.process_batch(
+            model_state, hot_state, vis = self.process_batch(
                 stream, model_state, hot_state, batch)
+            if outputs is not None:
+                outputs(stream, batch, vis)
             if progress is not None:
                 progress.tick(stream.slot_filename(0))
         if progress is not None:

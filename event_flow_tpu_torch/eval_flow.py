@@ -29,12 +29,26 @@ processes, on one card or several, each take one, and their per-file
 results together are the unsharded run's. ``vis.bars`` in the config
 prints a progress line (data/progress.py).
 
+The visualization outputs (JAX eval_flow.py:127-129, :158-197,
+:class:`WindowOutputs`): with ``vis.store`` each window's renders go to
+``<path_results>/<runid>/eval_N/<sequence>/`` (``events/``, ``flow/``,
+``iwe/``, in frames mode ``frames/``, with window_eval > window also
+``events_window/``, ``flow_window/``, ``iwe_window/``, one image per
+window, and ``timestamps.txt``), ``.png`` where cv2 imports and ``.npy``
+otherwise; ``vis.enabled`` shows them in live windows where ``DISPLAY``
+is set; ``vis.activity`` keeps each layer's share of nonzero outputs per
+window (reset at each new sequence) and plots it to
+``<path_results>/<runid>/activity.png``. As in JAX, a batch above 1
+turns ``vis.enabled`` and ``vis.store`` off, and ``--debug`` stores
+nothing.
+
 :func:`evaluate_run` is what the CLI calls once it has the config;
 :func:`evaluate`, the serving path, is what it and ``chip_smoke.py``
 call.
 """
 
 import argparse
+import importlib.util
 import math
 import os
 import time
@@ -51,9 +65,10 @@ from .utils.checkpoint import (latest_checkpoint, load_torch_state_dict,
                                restore_checkpoint)
 from .utils.tracking import (create_model_dir, log_eval_config,
                              log_eval_results, read_params)
+from .utils.visualization import Visualization, vis_activity
 
 __all__ = ["evaluate", "build_model", "load_weights", "evaluate_run",
-           "main"]
+           "WindowOutputs", "main"]
 
 
 def build_model(config, device, seed=0):
@@ -65,23 +80,97 @@ def build_model(config, device, seed=0):
     return model.to(device).eval()
 
 
+class WindowOutputs:
+    """The per-window visualization outputs of the JAX CLI
+    (eval_flow.py:127-129, :158-197), called with each window's vis dict
+    (eval/harness.py::Evaluator.process_batch):
+
+      - ``vis.activity``: the layers' activity appended to ``activity_log``
+        (utils/visualization.py::vis_activity), which a new sequence
+        resets, and plotted to ``<path_results>/activity.png`` at each
+        window where ``path_results`` is given and matplotlib imports
+        (without it the log is kept and a line says the plot is not
+        written);
+      - ``vis.enabled`` / ``vis.store``: the renders of slot 0 shown
+        (``Visualization.update``) or stored under
+        ``<path_results>/eval_<eval_id>/<sequence>/`` with the stream's
+        ``last_proc_timestamp`` (``Visualization.store``), the flow
+        multiplied by the event mask where ``model.mask_output`` (default
+        True, as JAX's models) is set, ``frames`` in frames mode.
+
+    Tensors come to the host once per window, only for what is
+    rendered."""
+
+    def __init__(self, config, path_results=None, eval_id=-1):
+        vis = config.get("vis", {})
+        self.enabled = bool(vis.get("enabled"))
+        self.store = bool(vis.get("store"))
+        self.activity = bool(vis.get("activity"))
+        self.mask_output = bool(config["model"].get("mask_output", True))
+        self.activity_png = None
+        if self.activity and path_results:
+            if importlib.util.find_spec("matplotlib") is None:
+                print("vis.activity: matplotlib does not import, the "
+                      "activity plot is not written")
+            else:
+                os.makedirs(path_results, exist_ok=True)
+                self.activity_png = os.path.join(path_results,
+                                                 "activity.png")
+        self.vis = None
+        if self.enabled or self.store:
+            self.vis = Visualization(config, eval_id=eval_id,
+                                     path_results=path_results)
+        self.activity_log = None
+
+    def __call__(self, stream, batch, vis):
+        if batch["new_seq"]:
+            self.activity_log = None
+        if self.activity and vis["activity"]:
+            act = {k: float(v) for k, v in vis["activity"].items()}
+            self.activity_log = vis_activity(act, self.activity_log,
+                                             path=self.activity_png)
+        if self.vis is None:
+            return
+        host = {k: v.cpu().numpy() for k, v in vis.items()
+                if isinstance(v, torch.Tensor)}
+        flow = host["flow"]
+        if self.mask_output:
+            flow = flow * host["event_mask"]
+        vis_batch = {"event_cnt": host["event_cnt"]}
+        if "frames" in batch:
+            vis_batch["frames"] = batch["frames"]
+        window = {"events_window": host.get("events_window"),
+                  "masked_window_flow": host.get("flow_window"),
+                  "iwe_window": host.get("iwe_window")}
+        if self.enabled:
+            self.vis.update(vis_batch, flow, host["iwe"], **window)
+        if self.store:
+            self.vis.store(stream.slot_filename(0).split(".")[0], vis_batch,
+                           flow, host["iwe"], ts=stream.last_proc_timestamp,
+                           **window)
+
+
 def evaluate(config, device, seed=0, sequences=None, model=None,
-             stream=None, progress=None):
+             stream=None, progress=None, outputs=None):
     """Run the serving path over a stream and return a report dict:
     ``results`` ({metric: {file: mean}}), ``windows``, ``seconds`` (wall
     time of the window loop and the final metric read, which synchronises
-    the device), ``evaluator`` and ``model``.
+    the device), ``evaluator``, ``model`` and ``outputs``.
 
     The stream is ``stream`` when given, else an ``ArrayEventStream`` over
     ``sequences``, which default to the in-memory synthetic twin of the
     config (``eval_flow.py --synthetic``), sharded by
     ``loader.process_shard`` where the config has it; ``model`` defaults
     to :func:`build_model` with ``seed``. ``progress`` goes to
-    ``Evaluator.run``."""
+    ``Evaluator.run``; ``outputs`` takes each window's vis dict, by
+    default a :class:`WindowOutputs` without a results directory (it
+    does nothing where the config asks for no visualization output)."""
     device = get_device(device) if not isinstance(device, torch.device) \
         else device
     if model is None:
         model = build_model(config, device, seed)
+    if outputs is None:
+        outputs = WindowOutputs(config)
     evaluator = Evaluator(config, model, device)
     if stream is None:
         if sequences is None:
@@ -93,10 +182,11 @@ def evaluate(config, device, seed=0, sequences=None, model=None,
         stream = ArrayEventStream(config, sequences)
     with torch.no_grad():
         t0 = time.perf_counter()
-        results = evaluator.run(stream, progress)
+        results = evaluator.run(stream, progress, outputs)
         seconds = time.perf_counter() - t0
     return {"results": results, "windows": evaluator.windows,
-            "seconds": seconds, "evaluator": evaluator, "model": model}
+            "seconds": seconds, "evaluator": evaluator, "model": model,
+            "outputs": outputs}
 
 
 def _config_from_args(args):
@@ -148,8 +238,13 @@ def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
     :func:`evaluate` on the in-memory synthetic sequences (with
     ``synthetic`` False, on the .h5 files under ``data.path``), the
     per-file results printed and, with ``path_results``, stored with the
-    eval config. Returns the report of :func:`evaluate`."""
+    eval config, and the visualization outputs of :class:`WindowOutputs`
+    under it. Returns the report of :func:`evaluate`."""
     _check_aee_config(config)
+    if config["loader"]["batch_size"] > 1:  # as the JAX CLI
+        config.setdefault("vis", {})["enabled"] = False
+        config["vis"]["store"] = False
+    eval_id = -1
     if path_results is not None:
         path_results = create_model_dir(path_results, runid)
         eval_id = log_eval_config(path_results, runid, config)
@@ -167,7 +262,8 @@ def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
     bar = ProgressPrinter(enabled=config.get("vis", {}).get("bars", False))
     try:
         report = evaluate(config, device, model=model, stream=stream,
-                          progress=bar)
+                          progress=bar, outputs=WindowOutputs(
+                              config, path_results, eval_id))
     finally:
         if stream is not None:
             stream.close()

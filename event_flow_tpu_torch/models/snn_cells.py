@@ -4,12 +4,11 @@ recurrent) and the spiking U-Net's layers.
 Counterpart of event_flow_tpu/models/snn_cells.py: ``ConvLIF``
 (:136-208), ``ConvPLIF`` (:211-271), ``ConvALIF`` (:274-327),
 ``ConvXLIF`` (:330-387), their recurrent twins (:390-643) and the layers
-built from them (:646-776), without norms (none of the repo's configs
-sets one). Per-channel parameters are drawn N(mu, sigma) and stored (C,
-1, 1) under the reference's names; leaks (``leak``, ``leak_v``,
-``leak_pt``, ``leak_t``, ``add_pt``) go through a sigmoid, ``thresh``
-and ``t0`` are clamped at >= 0.01 and ``t1`` at >= 0 by
-``torch.maximum``, whose gradient at a tie is JAX's ``jnp.maximum``'s
+built from them (:646-776). Per-channel parameters are drawn N(mu,
+sigma) and stored (C, 1, 1) under the reference's names; leaks
+(``leak``, ``leak_v``, ``leak_pt``, ``leak_t``, ``add_pt``) go through a
+sigmoid, ``thresh`` and ``t0`` are clamped at >= 0.01 and ``t1`` at >= 0
+by ``torch.maximum``, whose gradient at a tie is JAX's ``jnp.maximum``'s
 (0.5; ``clamp`` passes 1, and ``t0`` is drawn N(0.01, 0) onto the tie).
 ``learn_leak`` / ``learn_thresh`` False freeze them (``requires_grad``
 off, the JAX cells' ``stop_gradient``); they stay parameters for the
@@ -27,16 +26,29 @@ z in the reset is detached with ``detach`` (the default); ALIF's t' and a
 recurrent cell's current take the previous z before the detach. A
 recurrent cell's current is ff(x) + rec(z_prev), one conv over ``concat([x,
 z_prev])`` with the kernels concatenated on Cin, as JAX's
-``_fused_current`` (:93-108). The trace's |x| is ``where(x >= 0, x,
--x)``: slope 1 at 0, as ``jax.grad(jnp.abs)(0.)``, where torch's ``abs``
-gives 0; a cell's input (spikes, event counts) is 0 at most pixels.
+``_fused_current`` (:93-108); a strided recurrent cell (JAX's
+``ConvXLIFRecurrent``, :604-609) adds a strided ff conv and a stride-1
+rec conv. The trace's |x| is ``where(x >= 0, x, -x)``: slope 1 at 0, as
+``jax.grad(jnp.abs)(0.)``, where torch's ``abs`` gives 0; a cell's input
+(spikes, event counts) is 0 at most pixels.
 
-Kernels: the LIF cells at stride 1 go through ops/fused_lif.py (K2, B4;
-their plain versions on the CPU), as JAX's fused path; a strided ConvLIF
-takes ``ops/conv.py::conv2d_strided`` and the plain LIF update. The
-PLIF, ALIF and XLIF cells take K1 (``conv2d_same``, B2 its weight
-gradient) at stride 1 and ``conv2d_strided`` otherwise, with their
-update in plain torch: JAX routes them to no fused kernel either.
+``norm`` (the LIF cells only; JAX's PLIF, ALIF and XLIF cells take the
+argument and apply no norm, and so do these):
+  - ``"group"``: :class:`GroupNorm` (one group, eps 1e-5) on the input,
+    ``norm`` of a feedforward cell, ``norm_ff`` of a recurrent one, which
+    also normalizes z_prev with ``norm_rec``; the normalized z feeds the
+    reset too (JAX :154-162, :408-416, :438-445);
+  - ``"weight"``: each conv weight reparametrised as ``weight_g *
+    weight_v / ||weight_v||`` (:class:`WeightNormConv`, torch's
+    ``weight_norm`` with its names; JAX models/conv.py:283-311).
+
+Kernels: the LIF cells with the defaults (no norm, ``detach``) go
+through ops/fused_lif.py at stride 1 (K2, B4; their plain versions on
+the CPU), as JAX's fused path. Every other cell, and a LIF cell with a
+norm, ``detach=False`` or a stride (JAX's ``_use_fused``, :109-131,
+sends these to XLA), computes its current with K1 (``conv2d_same``, B2
+its weight gradient) at stride 1 and ``ops/conv.py::conv2d_strided``
+otherwise, and its update in plain torch under autograd.
 
 Cell contract: ``cell(x, state[, residual]) -> (spikes [+ residual],
 new_state)``, NHWC tensors, state ``(v, z)`` for LIF and ``(v, z, pt)``
@@ -50,16 +62,16 @@ import torch
 from torch import nn
 
 from ..ops.conv import conv2d_same, conv2d_strided
-from ..ops.fused_lif import fused_conv_lif, fused_conv_lif_rec, lif_update
+from ..ops.fused_lif import fused_conv_lif, fused_conv_lif_rec
 from ..ops.resize import avg_pool, upsample2x_bilinear
 from ..ops.spike import get_spike_fn
 
-__all__ = ["ConvWeight", "ConvLIF", "ConvLIFRecurrent", "ConvPLIF",
-           "ConvPLIFRecurrent", "ConvALIF", "ConvALIFRecurrent", "ConvXLIF",
-           "ConvXLIFRecurrent", "SpikingRecurrentConvLayer",
-           "SpikingResidualBlock", "SpikingUpsampleConvLayer",
-           "SpikingTransposedConvLayer", "FF_BLOCKS", "REC_BLOCKS",
-           "lif_cell_names"]
+__all__ = ["ConvWeight", "WeightNormConv", "GroupNorm", "ConvLIF",
+           "ConvLIFRecurrent", "ConvPLIF", "ConvPLIFRecurrent", "ConvALIF",
+           "ConvALIFRecurrent", "ConvXLIF", "ConvXLIFRecurrent",
+           "SpikingRecurrentConvLayer", "SpikingResidualBlock",
+           "SpikingUpsampleConvLayer", "SpikingTransposedConvLayer",
+           "FF_BLOCKS", "REC_BLOCKS", "lif_cell_names"]
 
 
 class ConvWeight(nn.Module):
@@ -73,6 +85,53 @@ class ConvWeight(nn.Module):
         shape = (cin, cout, k, k) if transposed else (cout, cin, k, k)
         self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+
+class WeightNormConv(nn.Module):
+    """A bias-free OIHW conv weight under torch's weight norm: ``weight``
+    = ``weight_g`` [Cout, 1, 1, 1] * ``weight_v`` / ||weight_v||, the norm
+    over each output channel's (Cin, k, k), as ``nn.utils.weight_norm``
+    computes and names it (JAX's ``Conv2d(weight_norm=True)``, g drawn as
+    ||v|| so that the initial weight is v)."""
+
+    bias = None
+    transposed = False
+
+    def __init__(self, cin, cout, k):
+        super().__init__()
+        self.weight_v = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.weight_g = nn.Parameter(torch.empty(cout, 1, 1, 1))
+
+    def _v_norm(self):
+        return self.weight_v.square().sum(dim=(1, 2, 3), keepdim=True).sqrt()
+
+    def reset_g(self):
+        """g = ||v||, after v is drawn."""
+        with torch.no_grad():
+            self.weight_g.copy_(self._v_norm())
+
+    @property
+    def weight(self):
+        return self.weight_v * (self.weight_g / self._v_norm())
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm with one group over an NHWC map, eps 1e-5: each sample
+    brought to zero mean and unit variance (biased) over (H, W, C), then
+    a per-channel ``weight`` (1) and ``bias`` (0), flax's
+    ``nn.GroupNorm(num_groups=1)`` under torch's ``nn.GroupNorm`` names."""
+
+    def __init__(self, features, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        mean = x.mean(dim=(1, 2, 3), keepdim=True)
+        var = (x - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
 
 
 def _uniform_(t, bound, generator):
@@ -101,12 +160,17 @@ class _SpikingBase(nn.Module):
     parameters of ``PARAMS`` (name, default N(mu, sigma)) drawn in that
     order. ``ADAPTIVE`` cells (ALIF, XLIF) default to a soft reset and a
     frozen threshold, the others to a hard reset and a learned one.
-    Unknown neuron arguments raise ``TypeError``, as the JAX cells'."""
+    ``NORMED`` cells (LIF) build the modules of ``norm``; the others take
+    it and apply none, as in JAX. Unknown neuron arguments raise
+    ``TypeError``, as the JAX cells', and an unknown norm
+    ``NotImplementedError``."""
 
     FAMILY = None
     PARAMS = ()
+    LEAK = "leak_v"
     ADAPTIVE = False
     RECURRENT = False
+    NORMED = False
     N_STATE = 3
 
     def __init__(self, cin, features, kernel_size, stride=1,
@@ -118,13 +182,9 @@ class _SpikingBase(nn.Module):
         if unknown:
             raise TypeError(f"{type(self).__name__} got unexpected neuron "
                             f"arguments {sorted(unknown)}")
-        if norm not in (None, "none"):
-            raise NotImplementedError(
-                f"norm={norm!r} in spiking cells is not ported (see "
-                "ROADMAP.md)")
-        if self.RECURRENT and stride != 1:
-            raise NotImplementedError(
-                "strided recurrent cells are not ported (see ROADMAP.md)")
+        if norm not in (None, "none", "group", "weight"):
+            raise NotImplementedError(f"norm={norm!r} is not supported")
+        self.norm_kind = norm if self.NORMED and norm != "none" else None
         self.features = features
         self.kernel_size = kernel_size
         self.stride = int(stride)
@@ -135,16 +195,31 @@ class _SpikingBase(nn.Module):
         learn_thresh = (not self.ADAPTIVE if learn_thresh is None
                         else bool(learn_thresh))
         self.detach = bool(detach)
-        self.ff = ConvWeight(cin, features, kernel_size)
-        _uniform_(self.ff.weight, math.sqrt(1.0 / cin), generator)
+        self.ff = self._conv_weight(cin, features, kernel_size, generator)
         if self.RECURRENT:
-            self.rec = ConvWeight(features, features, kernel_size)
-            _uniform_(self.rec.weight, math.sqrt(1.0 / features), generator)
+            self.rec = self._conv_weight(features, features, kernel_size,
+                                         generator)
+        if self.norm_kind == "group":
+            if self.RECURRENT:
+                self.norm_ff = GroupNorm(cin)
+                self.norm_rec = GroupNorm(features)
+            else:
+                self.norm = GroupNorm(cin)
         for name, default in self.PARAMS:
             p = nn.Parameter(torch.empty(features, 1, 1))
             _normal_(p, *dists.get(name, default), generator)
             p.requires_grad_(learn_leak if name in _LEAKS else learn_thresh)
             self.register_parameter(name, p)
+
+    def _conv_weight(self, cin, cout, k, generator):
+        if self.norm_kind == "weight":
+            conv = WeightNormConv(cin, cout, k)
+            _uniform_(conv.weight_v, math.sqrt(1.0 / cin), generator)
+            conv.reset_g()
+            return conv
+        conv = ConvWeight(cin, cout, k)
+        _uniform_(conv.weight, math.sqrt(1.0 / cin), generator)
+        return conv
 
     def _p(self, name):
         """A per-channel parameter as [C], squashed or clamped."""
@@ -155,14 +230,27 @@ class _SpikingBase(nn.Module):
             p = torch.maximum(p, p.new_full((), _FLOORS[name]))
         return p.reshape(-1)
 
-    def _current(self, x, z):
-        """ff(x) [+ rec(z)]: K1 at stride 1, the strided conv otherwise."""
+    def _normed(self, x, z):
+        """x and z_prev after the group norms: the input's, and in a
+        recurrent cell z_prev's, which then feeds the current and the
+        reset."""
+        if self.norm_kind != "group":
+            return x, z
         if self.RECURRENT:
+            return self.norm_ff(x), self.norm_rec(z)
+        return self.norm(x), z
+
+    def _current(self, x, z):
+        """ff(x) [+ rec(z)]: K1 at stride 1, the strided conv otherwise;
+        a strided recurrent cell adds rec(z) by K1 on the output's grid."""
+        if self.RECURRENT and self.stride == 1:
             return conv2d_same(torch.cat([x, z], dim=-1), torch.cat(
                 [self.ff.weight, self.rec.weight], dim=1))
         if self.stride == 1:
-            return conv2d_same(x, self.ff.weight)
-        return conv2d_strided(x, self.ff.weight, self.stride)
+            ff = conv2d_same(x, self.ff.weight)
+        else:
+            ff = conv2d_strided(x, self.ff.weight, self.stride)
+        return ff + conv2d_same(z, self.rec.weight) if self.RECURRENT else ff
 
     def _trace(self, x, pt):
         """PLIF's presynaptic trace pt' from the cell's input x."""
@@ -176,7 +264,7 @@ class _SpikingBase(nn.Module):
         """(v', z') of the update driven by ``cur``; the soft reset
         subtracts z * ``reset_thresh``, the spike fires above
         ``thresh``."""
-        leak = self._p("leak_v")
+        leak = self._p(self.LEAK)
         if self.detach:
             z = z.detach()
         if self.hard_reset:
@@ -194,34 +282,38 @@ class _SpikingBase(nn.Module):
 
 class ConvLIF(_SpikingBase):
     """Feedforward conv LIF cell. State (v, z). The output is
-    ``z' + residual`` where a residual is given; the state keeps z'. Runs
-    only with ``detach`` (K2 and B4 take the reset as detached)."""
+    ``z' + residual`` where a residual is given; the state keeps z'. With
+    the defaults at stride 1 the cell is one K2 launch (``fused``), else
+    K1 or the strided conv and the plain update."""
 
     FAMILY = "LIF"
     PARAMS = (("leak", (-4.0, 0.1)), ("thresh", (0.8, 0.0)))
+    LEAK = "leak"
+    NORMED = True
     N_STATE = 2
 
-    def __init__(self, cin, features, kernel_size, stride=1, **kw):
-        if not kw.get("detach", True):
-            raise NotImplementedError(
-                "LIF cells with detach=False are not ported (see "
-                "ROADMAP.md)")
-        super().__init__(cin, features, kernel_size, stride, **kw)
+    @property
+    def fused(self):
+        """K2 (and B4) take the cell: stride 1, no norm, the reset
+        detached (JAX's ``_use_fused``)."""
+        return self.stride == 1 and self.norm_kind is None and self.detach
 
     def _neuron(self):
         return self._p("leak"), self._p("thresh")
 
+    def _unfused(self, x, v, z, thresh):
+        x, z = self._normed(x, z)
+        return self._fire(v, z, self._current(x, z), thresh, thresh)
+
     def forward(self, x, state, residual=None):
         v, z = state
         leak, thresh = self._neuron()
-        if self.stride == 1:
+        if self.fused:
             v_out, z_out = fused_conv_lif(
                 x, self.ff.weight, v, z, leak, thresh, self.kernel_size,
                 self.hard_reset, self.activation, self.act_width)
         else:
-            v_out, z_out = lif_update(
-                conv2d_strided(x, self.ff.weight, self.stride), v, z, leak,
-                thresh, self.hard_reset, self.activation, self.act_width)
+            v_out, z_out = self._unfused(x, v, z, thresh)
         out = z_out if residual is None else z_out + residual
         return out, (v_out, z_out)
 
@@ -236,10 +328,13 @@ class ConvLIFRecurrent(ConvLIF):
     def forward(self, x, state):
         v, z = state
         leak, thresh = self._neuron()
-        v_out, z_out = fused_conv_lif_rec(
-            x, self.ff.weight, self.rec.weight, v, z, z, leak, thresh,
-            self.kernel_size, self.hard_reset, self.activation,
-            self.act_width)
+        if self.fused:
+            v_out, z_out = fused_conv_lif_rec(
+                x, self.ff.weight, self.rec.weight, v, z, z, leak, thresh,
+                self.kernel_size, self.hard_reset, self.activation,
+                self.act_width)
+        else:
+            v_out, z_out = self._unfused(x, v, z, thresh)
         return z_out, (v_out, z_out)
 
 

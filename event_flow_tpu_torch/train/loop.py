@@ -22,7 +22,13 @@ Counterpart of event_flow_tpu/train/loop.py::Trainer (:43-325), its
     ``save_full_checkpoint`` and ``resume`` (weights, optimizer state,
     carried state, epoch and stream cursor: the run continues exactly);
   - with ``vis.store_grads``, each update's |grad| statistics go to the
-    run's ``grads_w.csv``.
+    run's ``grads_w.csv``;
+  - with a ``vis`` (utils/visualization.py::Visualization; ``--vis`` of
+    train_flow.py) at batch 1, every ``vis.train_every``-th update shows
+    the last window's event counts and flow (masked by the event mask
+    where ``model.mask_output``, default True) and with ``vis.store``
+    stores them under the sequence name ``train`` (loop.py:83-95,
+    :246-257).
 
 Saves are synchronous (utils/checkpoint.py) and each update's loss is
 read back when it lands, so nothing is in flight between updates: the
@@ -44,12 +50,13 @@ __all__ = ["Trainer"]
 
 
 class Trainer:
-    """``Trainer(config, device, tracker=None)`` builds the config's model
-    from an init seeded with ``loader.seed``, the optimizer and the update
-    step. Checkpoints and metrics go to ``tracker`` (utils/tracking.py);
-    without one nothing is written."""
+    """``Trainer(config, device, tracker=None, vis=None)`` builds the
+    config's model from an init seeded with ``loader.seed``, the optimizer
+    and the update step. Checkpoints and metrics go to ``tracker``
+    (utils/tracking.py); without one nothing is written. ``vis``, a
+    Visualization, takes the updates' renders at batch 1."""
 
-    def __init__(self, config, device, tracker=None):
+    def __init__(self, config, device, tracker=None, vis=None):
         self.config = config
         self.device = torch.device(device)
         self.tracker = tracker
@@ -70,8 +77,11 @@ class Trainer:
             # slot reaches window_loss, or at t_max_windows windows
             self.window_loss = window_loss
             self.t_windows = int(config["data"].get("t_max_windows", 16))
-        self.store_grads = bool(config.get("vis", {}).get("store_grads",
-                                                          False))
+        vis_cfg = config.get("vis", {})
+        self.store_grads = bool(vis_cfg.get("store_grads", False))
+        self.vis = vis
+        self.vis_every = max(1, int(vis_cfg.get("train_every", 1)))
+        self.with_vis = vis is not None and self.batch_size == 1
         model = build_model(config, self.device,
                             config["loader"].get("seed", 0)).train()
         loss_cfg = config.get("loss", {})
@@ -87,7 +97,7 @@ class Trainer:
         self.step = make_train_step(
             model, self.res, self.num_bins, loss_cfg,
             round_encoding=config["model"].get("round_encoding", False),
-            with_grad_stats=self.store_grads)
+            with_grad_stats=self.store_grads, with_vis=self.with_vis)
         h, w = self.res
         self.model = model
         self.state = TrainState(
@@ -176,9 +186,23 @@ class Trainer:
         self.t_live = t_live
         self.updates += 1
         self.epoch_updates += 1
+        if self.with_vis and self.updates % self.vis_every == 0:
+            self._render(out[-1])
         loss = float(loss)
         self.train_loss += loss
         return loss
+
+    def _render(self, arrays):
+        """The update's display dict on the host: shown, and stored where
+        the config sets ``vis.store`` (loop.py:246-257)."""
+        host = {k: v.cpu().numpy() for k, v in arrays.items()}
+        flow = host["flow"]
+        if self.config["model"].get("mask_output", True):
+            flow = flow * host["event_mask"]
+        vis_batch = {"event_cnt": host["event_cnt"]}
+        self.vis.update(vis_batch, flow, None)
+        if self.config.get("vis", {}).get("store"):
+            self.vis.store("train", vis_batch, flow, None)
 
     def running_mean(self):
         """The epoch's summed loss over (its updates * batch + 1), the

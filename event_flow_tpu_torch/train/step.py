@@ -25,13 +25,15 @@ which is the same update, so it takes no ``t_live``.
 With ``with_grad_stats`` (on when the config sets ``vis.store_grads``,
 as event_flow_tpu/train/loop.py:81-93 sets it) the step also returns the
 per-tensor |grad| statistics of step.py:327, taken before the clip, and
-the global norm (utils/gradients.py).
+the global norm (utils/gradients.py). With ``with_vis`` (the Trainer's
+``vis`` at batch 1, step.py:198-250) it also returns the display dict of
+the last window, detached: ``flow`` [B,H,W,2] (x, y), ``event_cnt``
+[B,H,W,2] and ``event_mask`` [B,H,W,1].
 
 The JAX step's TPU workarounds are not ported (``_pack_state``, the
 ``EVFLOW_REMAT`` rematerialisation modes, ``micro_batch``,
 ``make_train_step_multi``): PyTorch keeps every saved activation, about
-3.5 GB at the training recipe, far below the card's memory. ``with_vis``
-is not ported yet (ROADMAP.md).
+3.5 GB at the training recipe, far below the card's memory.
 """
 
 from typing import Any, NamedTuple
@@ -53,10 +55,12 @@ class TrainState(NamedTuple):
     model_state: Any  # the carried per-cell recurrent state
 
 
-def make_sequence_forward(model, res, num_bins, round_encoding=False):
+def make_sequence_forward(model, res, num_bins, round_encoding=False,
+                          with_cnt=False):
     """f(model_state, events [B,T,N,4], valid [B,T,N], aug_flags [B,3]) ->
     (new_state, flows [per scale: [B,T,H,W,2] f32], event_list [B,T,N,4],
-    pol_mask [B,T,N,2], event_mask [B,T,H,W,1])."""
+    pol_mask [B,T,N,2], event_mask [B,T,H,W,1][, event_cnt
+    [B,T,H,W,2] with ``with_cnt``])."""
 
     def sequence_forward(model_state, events, valid, aug_flags):
         b, t, n, _ = events.shape
@@ -74,8 +78,9 @@ def make_sequence_forward(model, res, num_bins, round_encoding=False):
             for scale, f in zip(flows, out["flow"]):
                 scale.append(f.float())
         flows = [torch.stack(f, dim=1) for f in flows]
-        return (state, flows, enc["event_list"], enc["pol_mask"],
-                enc["event_mask"])
+        out = (state, flows, enc["event_list"], enc["pol_mask"],
+               enc["event_mask"])
+        return out + (enc["event_cnt"],) if with_cnt else out
 
     return sequence_forward
 
@@ -84,7 +89,8 @@ class _TrainStep:
     """``step(state, events, valid, aug_flags, reset) -> (loss, state')``,
     with ``with_grad_stats`` ``(loss, state', (rows, norm))``: ``rows``
     from :func:`get_grads` under the model's parameter names, ``norm``
-    the global gradient norm, both before the clip.
+    the global gradient norm, both before the clip; with ``with_vis``
+    the display dict last.
 
     events [B,T,N,4] raw windows (ts, y, x, p in {-1, +1}); valid
     [B,T,N]; aug_flags [B,3]; reset a host bool. The model and the
@@ -92,17 +98,26 @@ class _TrainStep:
     (detached) recurrent state. ``loss`` is a 0-dim device tensor."""
 
     def __init__(self, model, res, num_bins, loss_cfg: LossConfig,
-                 round_encoding=False, with_grad_stats=False):
+                 round_encoding=False, with_grad_stats=False,
+                 with_vis=False):
         self.loss_cfg = loss_cfg
         self.with_grad_stats = with_grad_stats
+        self.with_vis = with_vis
         self.seq_fwd = make_sequence_forward(model, res, num_bins,
-                                             round_encoding)
+                                             round_encoding, with_vis)
+        self.vis = None
 
     def loss(self, model_state, events, valid, aug_flags):
-        """(loss, new_state) with the autograd graph of the T windows."""
-        new_state, flows, ev_list, pol, mask = self.seq_fwd(
+        """(loss, new_state) with the autograd graph of the T windows;
+        with ``with_vis`` the last window's display dict goes to
+        ``self.vis``."""
+        new_state, flows, ev_list, pol, mask, *cnt = self.seq_fwd(
             model_state, events, valid, aug_flags)
         loss = event_warping_loss(flows, ev_list, pol, mask, self.loss_cfg)
+        if self.with_vis:
+            self.vis = {"flow": flows[-1][:, -1].detach(),
+                        "event_cnt": cnt[0][:, -1],
+                        "event_mask": mask[:, -1]}
         return loss, new_state
 
     def __call__(self, state: TrainState, events, valid, aug_flags, reset):
@@ -121,11 +136,14 @@ class _TrainStep:
         state.optimizer.step()
         out = (loss.detach(), TrainState(state.model, state.optimizer,
                                          detach_state(new_state)))
-        return out if stats is None else out + (stats,)
+        if stats is not None:
+            out += (stats,)
+        return out + (self.vis,) if self.with_vis else out
 
 
 def make_train_step(model, res, num_bins, loss_cfg: LossConfig,
-                    round_encoding=False, with_grad_stats=False):
+                    round_encoding=False, with_grad_stats=False,
+                    with_vis=False):
     """The update step of ``model`` (see :class:`_TrainStep`)."""
     return _TrainStep(model, res, num_bins, loss_cfg, round_encoding,
-                      with_grad_stats)
+                      with_grad_stats, with_vis)

@@ -14,6 +14,8 @@ Counterpart of train_flow.py (the JAX CLI, :27-150 and :206-255):
       --synthetic --max_updates 10 --resume <runid>     # exact resume
   python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \\
       --synthetic --prev_runid <runid>                  # warm start
+  python -m event_flow_tpu_torch.train_flow --config <a batch-1 config> \\
+      --synthetic --vis --max_updates 10    # renders: runs/<runid>/vis/train
 
 ``configs/train_SNNrec_rich.yml`` trains SpikingRecEVFlowNet and
 ``configs/train_ANNrec_rich.yml`` RecEVFlowNet at the same recipe.
@@ -45,6 +47,13 @@ over ``--native``. :func:`train` is what the CLI calls; it also takes
 in-memory ``sequences`` (``data/stream.py::ArrayEventStream``, the same
 cursor as the file stream's).
 
+``--vis`` (JAX train_flow.py:72-80) sets ``vis.enabled`` and, unless the
+config says otherwise, ``vis.store``: at batch 1 every
+``vis.train_every``-th update's event counts and flow are shown where
+``DISPLAY`` is set and stored under ``runs/<runid>/vis/train/``
+(``events/``, ``flow/``, PNG where cv2 imports, else .npy; train/loop.py).
+A config with ``vis.enabled`` does the same without the flag.
+
 Prints the loss of each update and its wall time.
 """
 
@@ -58,19 +67,21 @@ from .data.stream import ArrayEventStream, SyntheticWindowStream
 from .device import get_device
 from .train.loop import Trainer
 from .utils.tracking import Tracker
+from .utils.visualization import Visualization
 
 __all__ = ["train", "main"]
 
 
 def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
           resume="", debug=False, sequences=None, synthetic="const",
-          native=False):
+          native=False, vis=False):
     """Train until ``max_updates`` updates (0: the config's
     ``loader.n_epochs`` epochs) on ``ArrayEventStream(config,
     sequences)``; when ``sequences`` is None, with ``native`` on the
     packs under ``data.path`` (``NativeEventStream``), else on the
     synthetic stream of style ``synthetic`` (``const`` or ``rich``), or
-    with ``synthetic`` None on the .h5 files under ``data.path``.
+    with ``synthetic`` None on the .h5 files under ``data.path``. ``vis``
+    is ``--vis``: the renders into the run directory's ``vis/train/``.
     Returns (the run id, None with ``debug``; the Trainer; the list of
     (loss, seconds) per update, the seconds spanning the update's window
     feed up to its loss read, which waits for the device)."""
@@ -83,7 +94,14 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
         tracker.log_params(config)
         tracker.save_diff("train_diff.txt")
         print(f"run dir: {tracker.dir}")
-    trainer = Trainer(config, device, tracker=tracker)
+    if vis:
+        config.setdefault("vis", {})["enabled"] = True
+        config["vis"].setdefault("store", True)  # headless: keep the renders
+    renders = None
+    if config.get("vis", {}).get("enabled"):
+        renders = Visualization(config, eval_id=-1, path_results=(
+            tracker.dir if tracker else None))
+    trainer = Trainer(config, device, tracker=tracker, vis=renders)
     if prev_runid:
         path = trainer.load_params(os.path.join(runs_root, prev_runid))
         print(f"restored params from {path}")
@@ -161,6 +179,10 @@ def main(argv=None):
                          "checkpoint")
     ap.add_argument("--debug", action="store_true",
                     help="no run directory, no checkpoints")
+    ap.add_argument("--vis", action="store_true",
+                    help="render the input events and predicted flow of "
+                         "each update at batch 1 (live if DISPLAY, and "
+                         "stored under the run's vis/train/)")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
     config = load_yaml_config(args.config)
@@ -172,7 +194,8 @@ def main(argv=None):
     _, _, history = train(
         config, args.device, args.max_updates, runs_root=args.runs_root,
         prev_runid=args.prev_runid, resume=args.resume, debug=args.debug,
-        synthetic=args.synthetic, native=args.native and not args.synthetic)
+        synthetic=args.synthetic, native=args.native and not args.synthetic,
+        vis=args.vis)
     return history
 
 

@@ -34,14 +34,16 @@ same way (its ``mu`` and ``nu`` are trees of the params' shape).
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "optimizer_state_from_jax"]
+__all__ = ["state_dict_from_jax", "jax_params_from_state_dict",
+           "optimizer_state_from_jax"]
 
 _CHANNEL_VECS = {"leak", "thresh", "leak_v", "leak_t", "leak_pt", "add_pt",
                  "t0", "t1"}
 _UNET_PREFIXES = {"multires_unetrec", "multires_unet", "unetrecurrent"}
 _RENAMES = {"conv2d": "conv", "transposed_conv2d": "conv", "deconv": "conv",
             "Gates": "gates", "norm_layer": "norm"}
-_NORMS = {"norm", "norm1", "norm2"}
+_NORMS = {"norm", "norm1", "norm2", "norm_ff", "norm_rec"}
+_LEAVES = {"weight_v": "kernel", "weight_g": "g"}
 
 
 def _canon_segment(seg):
@@ -61,7 +63,7 @@ def _canon_torch_key(key):
             segs.append(_canon_segment(p))
     if leaf == "weight":
         leaf = "scale" if segs and segs[-1] in _NORMS else "kernel"
-    return tuple(segs + [leaf])
+    return tuple(segs + [_LEAVES.get(leaf, leaf)])
 
 
 def _walk(tree, prefix=()):
@@ -75,7 +77,8 @@ def _walk(tree, prefix=()):
 def _fixed_names(paths):
     """The torch names of a FireNet-family tree, which has no list of
     layers and no U-Net container: each flax ``conv`` is a ConvLayer's
-    ``conv2d``."""
+    ``conv2d``; a conv with a ``g`` is weight-normed."""
+    normed = {path[:-1] for path in paths if path[-1] == "g"}
     names = {}
     for path in paths:
         if path[0] == "unet":
@@ -83,8 +86,12 @@ def _fixed_names(paths):
                              "class: pass the model's state_dict() as "
                              "template")
         *mods, leaf = path
+        if path[:-1] in normed:
+            leaf = {"kernel": "weight_v", "g": "weight_g"}[leaf]
+        elif leaf in ("kernel", "scale"):
+            leaf = "weight"
         mods = ["conv2d" if m == "conv" else m for m in mods]
-        names[".".join(mods + ["weight" if leaf == "kernel" else leaf])] = None
+        names[".".join(mods + [leaf])] = None
     return names
 
 
@@ -114,6 +121,8 @@ def state_dict_from_jax(params, template=None):
             v = np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
         elif cpath[-1] in _CHANNEL_VECS:
             v = v.reshape(-1, 1, 1)
+        elif cpath[-1] == "g":
+            v = v.reshape(-1, 1, 1, 1)
         if ref is not None and tuple(v.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: flax {v.shape} vs torch "
                              f"{tuple(ref.shape)}")
@@ -122,6 +131,38 @@ def state_dict_from_jax(params, template=None):
         raise KeyError(f"unmatched: torch {missing}, flax "
                        f"{['/'.join(p) for p in flat]}")
     return out
+
+
+def jax_params_from_state_dict(state_dict, template):
+    """The reverse of :func:`state_dict_from_jax`: a port ``state_dict``
+    -> flax params (nested dicts of numpy arrays) with the paths and
+    shapes of ``template``, the JAX model's params (with or without the
+    top-level ``params`` collection, kept as given). Every template leaf
+    must meet one torch key and every torch key one leaf."""
+    wrapped = set(template) == {"params"}
+    tree = template["params"] if wrapped else template
+    by_canon = {_canon_torch_key(key): key for key in state_dict}
+    out, missing = {}, []
+    for path, ref in _walk(tree):
+        cpath = tuple(_canon_segment(s) for s in path)
+        key = by_canon.pop(cpath, None)
+        if key is None:
+            missing.append("/".join(path))
+            continue
+        v = state_dict[key].detach().cpu().numpy().astype(np.float32)
+        if v.ndim == 4 and key.endswith("transposed_conv2d.weight"):
+            v = np.transpose(v, (2, 3, 0, 1))[::-1, ::-1]
+        elif v.ndim == 4 and cpath[-1] == "kernel":
+            v = np.transpose(v, (2, 3, 1, 0))  # OIHW -> HWIO
+        v = np.ascontiguousarray(v).reshape(np.shape(ref))
+        node = out
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]] = v
+    if missing or by_canon:
+        raise KeyError(f"unmatched: flax {missing}, torch "
+                       f"{sorted(by_canon.values())}")
+    return {"params": out} if wrapped else out
 
 
 def _find_adam_state(tree):

@@ -1112,3 +1112,130 @@ def test_unet_artifact_matches_live_under_tf32(dev, tmp_path):
     assert counts["fused_conv_lif"] == 24 and counts["conv2d_same"] == 12
     for a, b in zip(served, live):
         torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("cls,kw,stride", [
+    ("ConvLIF", {"norm": "group"}, 1),
+    ("ConvLIFRecurrent", {"norm": "group"}, 1),
+    ("ConvLIF", {"norm": "weight"}, 1),
+    ("ConvLIFRecurrent", {"norm": "weight"}, 1),
+    ("ConvLIFRecurrent", {"detach": False}, 1),
+    ("ConvXLIFRecurrent", {}, 2)])
+def test_option_cells_card_vs_cpu(dev, cls, kw, stride):
+    """The cells of the norm, detach=False and strided-recurrent options
+    over two steps on the card and on the CPU: v within 1e-5, spikes
+    equal, and the gradient of a weighted sum into the input and every
+    parameter within 1e-4 of its largest magnitude; on the card K1 and
+    B2, never K2 or B4."""
+    from event_flow_tpu_torch.models import snn_cells
+
+    g = _gen()
+    x = 2.0 * (torch.rand((2, 12, 20, 5), generator=g) < 0.3).float()
+    runs = {}
+    for device in ("cpu", dev):
+        cell = getattr(snn_cells, cls)(5, 8, 3, stride, generator=_gen(),
+                                       **kw).to(device)
+        xd = x.detach().to(device).requires_grad_(True)
+        state = cell.zero_state(2, 12, 20, device)
+        native.reset_launch_counts()
+        total, steps = 0.0, []
+        for _ in range(2):
+            out, state = cell(xd, state)
+            steps.append((state[0].detach().cpu(), state[1].detach().cpu()))
+            total = total + (out * torch.linspace(
+                -1, 1, out.numel(), device=device).reshape(out.shape)).sum()
+        total = total + state[0].sum()
+        total.backward()
+        grads = [xd.grad.cpu()] + [p.grad.cpu() for p in cell.parameters()
+                                   if p.requires_grad]
+        runs[str(device)] = (steps, grads, dict(native.LAUNCHES))
+    (cs, cg, _), (ks, kg, counts) = runs["cpu"], runs[str(dev)]
+    for (cv, cz), (kv, kz) in zip(cs, ks):
+        torch.testing.assert_close(kv, cv, atol=ATOL, rtol=0)
+        assert torch.equal(kz, cz)
+    assert 0.0 < float(ks[-1][1].mean()) < 1.0
+    for a, r in zip(kg, cg):
+        assert_close_to_max(a, r, rtol=1e-4)
+    assert counts["fused_conv_lif"] == counts["fused_conv_lif_rec"] == 0
+    assert counts["fused_lif_bwd"] == 0
+    assert counts["conv2d_same"] > 0 and counts["conv2d_dw"] > 0
+
+
+def test_evaluator_vis_card_vs_cpu(dev):
+    """The Evaluator's vis dict (K = 3, vis.store, activity,
+    overwrite_intermediate) on the card against the CPU over 12 windows:
+    counts bitwise, flows within 1e-4 of max, the IWEs equal but for
+    events within rounding of a pixel line, activity within 1e-4; K3 once
+    per window for the encoding and once for the display IWE, 4 + 2 per
+    group."""
+    from event_flow_tpu_torch.config import ECD_LIFFIRENET
+    from event_flow_tpu_torch.data.stream import (ArrayEventStream,
+                                                  synthetic_sequences)
+    from event_flow_tpu_torch.eval.harness import Evaluator
+    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.ops.hot_filter import init_hot_state
+
+    cfg = copy.deepcopy(ECD_LIFFIRENET)
+    cfg["loader"]["resolution"] = [32, 48]
+    cfg["data"].update(window=500, window_eval=1500)
+    cfg["vis"].update(store=True, activity=True)
+    cfg["loss"] = {"overwrite_intermediate": True}
+    seqs = synthetic_sequences(cfg, n_sequences=1, n_windows=1.0)
+    out = {}
+    for device in ("cpu", dev):
+        ev = Evaluator(cfg, build_model(cfg, device), torch.device(device))
+        stream = ArrayEventStream(cfg, seqs)
+        state = (ev.model.zero_state(1, 32, 48, device),
+                 init_hot_state(1, (32, 48), device))
+        native.reset_launch_counts()
+        wins = []
+        with torch.no_grad():
+            for _ in range(12):
+                *state, vis = ev.process_batch(stream, *state,
+                                               stream.next_batch())
+                wins.append({k: ({n: float(t) for n, t in v.items()}
+                                 if k == "activity" else v.cpu())
+                             for k, v in vis.items()})
+        out[str(device)] = (wins, dict(native.LAUNCHES), ev.results())
+    (cw, _, cres), (kw_, counts, kres) = out["cpu"], out[str(dev)]
+    assert counts["scatter_add"] == 12 + 12 + 4 * 4 + 2 * 4
+    for c, k in zip(cw, kw_):
+        assert set(c) == set(k)
+        for key in ("event_cnt", "event_mask", "events_window"):
+            if key in c:
+                assert torch.equal(k[key], c[key]), key
+        for key in ("flow", "flow_window"):
+            if key in c:
+                assert_close_to_max(k[key], c[key], rtol=1e-4)
+        for key in ("iwe", "iwe_window"):
+            if key in c:
+                moved = 0.5 * float((k[key] - c[key]).abs().sum())
+                assert moved <= 1e-3 * float(c[key].sum()), key
+        for name, val in c["activity"].items():
+            assert abs(k["activity"][name] - val) <= 1e-4, name
+    for metric in ("FWL", "RSAT"):
+        for f, val in cres[metric].items():
+            assert kres[metric][f] == pytest.approx(val, rel=1e-3)
+
+
+def test_train_vis_update_on_the_card(dev, tmp_path):
+    """One --vis update at batch 1 on the card: the display dict of the
+    last window, finite and on the card, its tree written, K2, B4 and B2
+    launched."""
+    from event_flow_tpu_torch.config import TRAIN_SNN
+    from event_flow_tpu_torch.train_flow import train
+
+    cfg = copy.deepcopy(TRAIN_SNN)
+    cfg["loader"].update(batch_size=1, resolution=[32, 32])
+    cfg["data"].update(window=300, window_loss=900)
+    native.reset_launch_counts()
+    rid, trainer, hist = train(cfg, dev, max_updates=1,
+                               runs_root=str(tmp_path), vis=True)
+    counts = dict(native.LAUNCHES)
+    assert counts["fused_conv_lif"] > 0 and counts["fused_lif_bwd"] > 0
+    assert counts["conv2d_dw"] > 0
+    vis = trainer.step.vis
+    assert vis["flow"].shape == (1, 32, 32, 2) and vis["flow"].is_cuda
+    assert torch.isfinite(vis["flow"]).all()
+    files = list((tmp_path / rid / "vis" / "train" / "flow").iterdir())
+    assert len(files) == 1 and len(hist) == 1

@@ -411,6 +411,63 @@ def test_engine_export_and_serving_with_jax_h5py_blocked(tmp_path):
     assert "OK serve" in proc.stdout
 
 
+def test_vis_outputs_with_jax_yaml_h5py_blocked(tmp_path):
+    """The Evaluator's vis path (display IWE, K = 3 window renders,
+    activity, overwrite_intermediate) through evaluate_run into a store
+    tree, and a --vis training run, with no JAX, yaml or h5py to
+    import: utils/visualization.py needs numpy (cv2 and matplotlib
+    where they import)."""
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import contextlib, copy, io, math, os
+        from event_flow_tpu_torch.config import ECD_LIFFIRENET, TRAIN_SNN
+        from event_flow_tpu_torch.eval_flow import evaluate_run
+        from event_flow_tpu_torch.train_flow import train
+        root = {str(tmp_path)!r}
+        cfg = copy.deepcopy(ECD_LIFFIRENET)
+        cfg["loader"]["resolution"] = [16, 24]
+        cfg["data"].update(window=700, window_eval=2100)
+        cfg["model"]["base_num_channels"] = 4
+        cfg["vis"].update(store=True, activity=True)
+        cfg["loss"] = {{"overwrite_intermediate": True}}
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = evaluate_run("r", cfg, "cpu", runs_root=root,
+                               path_results=os.path.join(root, "res"))
+            tcfg = copy.deepcopy(TRAIN_SNN)
+            tcfg["loader"].update(batch_size=1, resolution=[16, 16])
+            tcfg["data"].update(window=100, window_loss=200)
+            tcfg["model"]["base_num_channels"] = 4
+            rid, _, hist = train(tcfg, "cpu", max_updates=2,
+                                 runs_root=root, vis=True)
+        vals = [v for d in rep["results"].values() for v in d.values()]
+        assert len(vals) == 4 and all(math.isfinite(v) for v in vals), vals
+        tree = os.path.join(root, "res", "r", "eval_0", "seq_a")
+        assert sorted(os.listdir(tree)) == [
+            "events", "events_window", "flow", "flow_window", "iwe",
+            "iwe_window", "timestamps.txt"], os.listdir(tree)
+        assert len(os.listdir(os.path.join(root, rid, "vis", "train",
+                                           "flow"))) == 2
+        assert "event_flow_tpu_torch.utils.visualization" in sys.modules
+        jax_side = {BLOCKED!r} + ("event_flow_tpu",)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in jax_side)
+        assert not loaded, loaded
+        print("OK", rep["windows"])
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def _top_level_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     names = []

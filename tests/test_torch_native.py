@@ -150,8 +150,9 @@ N_BATCHES = {"events": 18, "time": 24, "gtflow_dt1": 24, "gtflow_dt4": 40}
 def test_native_stream_matches_jax_native_loader(dataset, tmp_path, mode,
                                                  window):
     """Every key of every batch bitwise equal to JAX's native loader's
-    over the packs JAX converts, and the same slot files; seq_num is
-    left out (JAX's runs ahead, see below)."""
+    over the packs JAX converts, the same slot files and
+    last_proc_timestamp (the store tree's timestamps); seq_num is left
+    out (JAX's runs ahead, see below)."""
     root, twins = dataset
     group = GROUP[mode]
     cfg = _config(root, mode, window)
@@ -171,6 +172,7 @@ def test_native_stream_matches_jax_native_loader(dataset, tmp_path, mode,
                 np.testing.assert_array_equal(a, b, err_msg=f"{step} {key}")
             assert [nat.slot_filename(s) for s in range(2)] == \
                 [ref.slot_filename(s) for s in range(2)]
+            assert nat.last_proc_timestamp == ref.last_proc_timestamp
         assert nat.seq_num >= 4
 
 
@@ -179,7 +181,8 @@ def test_native_stream_matches_window_stream(dataset, tmp_path, mode,
                                              window):
     """Against the port's ArrayEventStream over the twins and JAX's
     EventStream over the files: seq_num equal at every batch, every key
-    bitwise but dt_input (rtol 1e-4), augmentation redrawn at rollovers."""
+    bitwise but dt_input (rtol 1e-4), augmentation redrawn at rollovers;
+    the in-memory stream's last_proc_timestamp equal to JAX's."""
     root, twins = dataset
     cfg = _config(root, mode, window)
     packs = _packs(tmp_path, twins, GROUP[mode])
@@ -200,6 +203,7 @@ def test_native_stream_matches_window_stream(dataset, tmp_path, mode,
                     np.testing.assert_array_equal(a, b,
                                                   err_msg=f"{step} {key}")
             np.testing.assert_array_equal(want["events"], jax_b["events"])
+            assert mem.last_proc_timestamp == ref.last_proc_timestamp, step
             assert [Path(nat.slot_filename(s)).stem for s in range(2)] == \
                 [Path(mem.slot_filename(s)).stem for s in range(2)]
         assert nat.seq_num >= 4 and nat.aug_flags.any()

@@ -295,22 +295,26 @@ def test_adaptive_cells_reject_lif_arguments(cls):
                                  snn_cells.ConvLIFRecurrent])
 def test_lif_cells_take_detach_and_norm(cls):
     """The LIF cells accept JAX's ``detach=True`` and ``norm=None`` (a
-    neuron block may name them) and build as without them; what they do
-    not run yet, ``detach=False`` and a norm, raises naming ROADMAP.md.
-    The new cells run ``detach=False`` (test_spiking_cell_matches_jax)."""
+    neuron block may name them) and build as without them, on the fused
+    kernels; ``detach=False`` and the group and weight norms build too
+    and leave the fused kernels (tests/test_torch_options.py holds them
+    against JAX); another norm raises, as in JAX. The PLIF, ALIF and XLIF
+    cells take a norm and build none, as JAX's."""
     gen = torch.Generator
     plain = cls(CIN, C, 3, generator=gen().manual_seed(0))
     named = cls(CIN, C, 3, detach=True, norm=None,
                 generator=gen().manual_seed(0))
-    assert named.detach and named.hard_reset
+    assert named.detach and named.hard_reset and named.fused
     for key, val in plain.state_dict().items():
         assert torch.equal(val, named.state_dict()[key]), key
-    assert cls(CIN, C, 3, norm="none") is not None
-    for bad in ({"detach": False}, {"norm": "group"}, {"norm": "weight"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cls(CIN, C, 3, **bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        snn_cells.ConvXLIF(CIN, C, 3, norm="group")
+    assert cls(CIN, C, 3, norm="none").fused
+    for opt in ({"detach": False}, {"norm": "group"}, {"norm": "weight"}):
+        assert not cls(CIN, C, 3, **opt).fused, opt
+    with pytest.raises(NotImplementedError, match="IN"):
+        cls(CIN, C, 3, norm="IN")
+    xlif = snn_cells.ConvXLIF(CIN, C, 3, norm="group")
+    assert set(xlif.state_dict()) == set(snn_cells.ConvXLIF(
+        CIN, C, 3).state_dict())
 
 
 # -- the Leaky cells ---------------------------------------------------------
