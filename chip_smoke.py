@@ -135,6 +135,22 @@ exits non-zero without the final ``ok`` line:
               bitwise the last window's, the vis/train tree, exact
               launches); a strided ConvXLIFRecurrent and a
               ConvLIFRecurrent with detach=False against the CPU
+ 18. dist     data parallelism and the event-sharded loss: LIFFireNet at
+              configs/train_SNN.yml through Trainer(mesh=make_mesh()) in
+              a world of one NCCL process, 3 updates bitwise equal to
+              the no-mesh Trainer's with exact launches, then ms/update
+              of both in turns; two processes on the one card under gloo
+              (parallel/launch.py runs dist_worker): make_mesh(2) and
+              make_mesh_2d(1, 2) at train_SNN.yml (3 updates each) and
+              make_mesh(2) at train_SNNrec_rich.yml (one update), each
+              update within 1e-3 of one process's on the card from the
+              same state (updates 2 and 3 from the world's checkpoints,
+              resumed in one process), the replicas bitwise equal, exact
+              launches per update and rank; eval --dp at ECD_LIFFIRENET,
+              batch 4 over two processes on five sequences of unequal
+              length, per-file FWL/RSAT within 1e-6
+              of one process; the gradient all-reduce's device and host
+              ms and the gradient buffers' bytes
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
@@ -155,7 +171,7 @@ user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8-17). Imports
+sum over the counted runs of every path (phases 4-6, 8-18). Imports
 nothing of JAX.
 """
 
@@ -1355,7 +1371,7 @@ def parity_phase(tag, config, lockstep=False):
     float64 (on an NVIDIA H100 80GB HBM3, 700.00 W), a relu kink, so the
     gradients are held at update 1, as for the other models."""
     from event_flow_tpu_torch.data.stream import SyntheticWindowStream
-    from event_flow_tpu_torch.eval.harness import _map_state
+    from event_flow_tpu_torch.models.state import map_state
     from event_flow_tpu_torch.ops import native
     from event_flow_tpu_torch.train.loop import Trainer
 
@@ -1384,7 +1400,7 @@ def parity_phase(tag, config, lockstep=False):
                 # tensors, which both runs would then count up
                 cpu.state.optimizer.load_state_dict(copy.deepcopy(
                     gpu.state.optimizer.state_dict()))
-                cpu.state = cpu.state._replace(model_state=_map_state(
+                cpu.state = cpu.state._replace(model_state=map_state(
                     lambda t: t.cpu(), gpu.state.model_state))
     worst = _hold_to_cpu(name, losses["cuda"], losses["cpu"], grads["cuda"],
                          grads["cpu"])
@@ -2159,7 +2175,7 @@ def optimizer_parity(tag, config):
     (model_parity), and once one update's gradients part, so do the
     runs."""
     from event_flow_tpu_torch.data.stream import SyntheticWindowStream
-    from event_flow_tpu_torch.eval.harness import _map_state
+    from event_flow_tpu_torch.models.state import map_state
     from event_flow_tpu_torch.train.loop import Trainer
 
     config = parity_config(config)
@@ -2173,7 +2189,7 @@ def optimizer_parity(tag, config):
             cpu.model.load_state_dict(gpu.model.state_dict())
             opt_state = copy.deepcopy(gpu.state.optimizer.state_dict())
             cpu.state.optimizer.load_state_dict(copy.deepcopy(opt_state))
-            cpu.state = cpu.state._replace(model_state=_map_state(
+            cpu.state = cpu.state._replace(model_state=map_state(
                 lambda t: t.cpu(), gpu.state.model_state))
             probe = Trainer(config, "cpu")
             probe.model.load_state_dict(cpu.model.state_dict())
@@ -3628,6 +3644,366 @@ def phase_vis(lif_parts):
     return paths
 
 
+# [dist]: the world-2 cases run in two processes on the one card under
+# gloo (NCCL refuses two ranks on one device), spawned by
+# event_flow_tpu_torch/parallel/launch.py with dist_worker below; the
+# kernel library is built by this process before they start
+DIST_TIMEOUT = 600.0
+DIST_CASES = (("dp", "TRAIN_SNN", (2, 1), 3), ("ep", "TRAIN_SNN", (1, 2), 3),
+              ("unet", "TRAIN_SNNREC", (2, 1), 1))
+
+
+def _param_digest(model):
+    """sha256 of the bytes of every parameter, in order: the replicas of
+    two processes compare by it."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grad_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters()
+               if p.requires_grad)
+
+
+def _allreduce_times(model, group, reps):
+    """(device ms of all_reduce_grads between CUDA events, median of
+    ``reps``; host ms of the same call synchronised on both sides, median
+    and spread) over ``group`` on ``model``'s gradients (random where it
+    has none)."""
+    from event_flow_tpu_torch.parallel.distributed import all_reduce_grads
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.randn_like(p)
+    dev_ms = timed(lambda: all_reduce_grads(params, group), reps)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_grads(params, group)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return dev_ms, walls
+
+
+def _dist_eval_case():
+    """ECD_LIFFIRENET at its full width and 180 x 240, batch 4, on five
+    in-memory sequences of unequal length (3 to 8 windows of 15000
+    events, each with its own flow: the slots roll over at different
+    windows, and a rollover resets every slot), with the seeded weights
+    made livelier (leak, thresh, 2 x ff, 30 x pred) so that the flows and
+    the per-file metrics differ by file: (config, sequences, weights)."""
+    import numpy as np
+
+    from event_flow_tpu_torch.config import ECD_LIFFIRENET
+    from event_flow_tpu_torch.data.sequences import synthetic_sequence
+    from event_flow_tpu_torch.eval_flow import build_model
+
+    config = copy.deepcopy(ECD_LIFFIRENET)
+    config["loader"]["batch_size"] = 4
+    res = tuple(config["loader"]["resolution"])
+    window = int(config["data"]["window"])
+    sequences = [synthetic_sequence(
+        f"seq_{i}.h5", res=res, n_events=k * window, duration=0.2 * k,
+        velocity=(20.0 + 15 * i, 60.0 - 20 * i), seed=i)
+        for i, k in enumerate((5, 8, 3, 6, 4))]
+    weights = build_model(config, "cpu", 0).state_dict()
+    rng = np.random.default_rng(0)
+    for k, v in weights.items():
+        if k.endswith("leak"):
+            v.copy_(torch.from_numpy(rng.normal(-0.5, 0.5, v.shape)))
+        elif k.endswith("thresh"):
+            v.copy_(torch.from_numpy(rng.normal(0.3, 0.1, v.shape)))
+        elif k.endswith("ff.weight"):
+            v.mul_(2.0)
+        elif k == "pred.conv2d.weight":
+            v.mul_(30.0)
+    return config, sequences, weights
+
+
+def _dist_evaluate(device, mesh=None):
+    """evaluate() of _dist_eval_case on ``device``, over ``mesh``."""
+    from event_flow_tpu_torch.eval_flow import build_model, evaluate
+
+    config, sequences, weights = _dist_eval_case()
+    model = build_model(config, device)
+    model.load_state_dict(weights)
+    return evaluate(config, device, model=model, sequences=sequences,
+                    mesh=mesh)
+
+
+def dist_worker(payload, device):
+    """One process of [dist]'s world 2 (gloo, the card shared): each case
+    of DIST_CASES through ``Trainer(mesh=...)`` on the synthetic stream of
+    its recipe (every process reads the whole batch and keeps its slots),
+    with per update its loss, launches, wall seconds, the digest of the
+    parameters and, on rank 0, every gradient; a checkpoint after every
+    update but the last (rank 0 writes); the all-reduce's times on
+    LIFFireNet's and the U-Net's gradients; and the ECD eval over the
+    two processes, 2 of its 4 slots each (_dist_evaluate)."""
+    import event_flow_tpu_torch.config as recipes
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from event_flow_tpu_torch.train.loop import Trainer
+    from event_flow_tpu_torch.utils.tracking import Tracker
+
+    out = {}
+    for case, recipe, dims, updates in DIST_CASES:
+        config = copy.deepcopy(getattr(recipes, recipe))
+        mesh = make_mesh_2d(*dims)
+        runs = []
+        with torch.enable_grad():
+            trainer = Trainer(config, device, mesh=mesh)
+            stream = SyntheticWindowStream(config)
+            for u in range(updates):
+                native.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = _feed_update(trainer, stream)
+                seconds = time.perf_counter() - t0
+                runs.append({
+                    "loss": loss, "launches": dict(native.LAUNCHES),
+                    "seconds": seconds,
+                    "digest": _param_digest(trainer.model),
+                    "grads": ({k: g.cpu() for k, g in
+                               _grads(trainer.model).items()}
+                              if mesh.rank == 0 else None)})
+                if u + 1 < updates:
+                    trainer.tracker = (Tracker(runs_root=payload["root"],
+                                               runid=f"{case}{u + 1}")
+                                       if mesh.rank == 0 else None)
+                    trainer.save_full_checkpoint(None, 0)
+        timing = None
+        if case != "ep":
+            timing = _allreduce_times(trainer.model, mesh.world, 5)
+        out[case] = {"runs": runs, "allreduce": timing,
+                     "bytes": _grad_bytes(trainer.model),
+                     "coords": (mesh.data_rank, mesh.event_rank)}
+    report = _dist_evaluate(device, make_mesh())
+    out["eval"] = {"results": report["results"],
+                   "windows": report["windows"]}
+    return out
+
+
+def _hold_update(label, loss, ref_loss, grads, ref_grads):
+    """The world's update within TRAIN_LOSS_RTOL (loss) and
+    TRAIN_GRAD_RTOL (every gradient, ||g - g_ref|| / ||g_ref||) of one
+    process's from the same state; returns the largest gradient gap."""
+    if not abs(loss - ref_loss) <= TRAIN_LOSS_RTOL * abs(ref_loss):
+        fail(f"{label}: loss {loss!r} vs one process {ref_loss!r}")
+    if set(grads) != set(ref_grads):
+        fail(f"{label}: gradients of different parameters")
+    worst = ("", 0.0)
+    for name, ref in ref_grads.items():
+        ref = ref.cpu()
+        rel = float((grads[name] - ref).norm() / ref.norm().clamp(min=1e-30))
+        if not rel <= TRAIN_GRAD_RTOL:
+            fail(f"{label}: gradient of {name} rel gap {rel}")
+        worst = max(worst, (name, rel), key=lambda kv: kv[1])
+    return worst
+
+
+def dist_world1(tag):
+    """World 1 under NCCL in this process: TRAIN_SNN's LIFFireNet through
+    Trainer(mesh=make_mesh()) for 3 updates, bitwise equal to the no-mesh
+    Trainer's in every loss and parameter, with exact launches; then
+    ms/update of both in turns (each 5 more updates, their losses still
+    equal), and the NCCL all-reduce's times on LIFFireNet's and the
+    U-Net's gradients. Returns the mesh run's launch counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from event_flow_tpu_torch.config import TRAIN_SNN, TRAIN_SNNREC
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.parallel.distributed import init_distributed
+    from event_flow_tpu_torch.parallel.mesh import make_mesh
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    config = copy.deepcopy(TRAIN_SNN)
+    with tempfile.TemporaryDirectory() as root:
+        init_distributed("cuda:0", "nccl", init_method=f"file://{root}/store",
+                         rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            with torch.enable_grad():
+                plain = Trainer(config, "cuda:0")
+                meshed = Trainer(config, "cuda:0", mesh=mesh)
+                streams = {"plain": SyntheticWindowStream(config),
+                           "mesh": SyntheticWindowStream(config)}
+                want = [_feed_update(plain, streams["plain"])
+                        for _ in range(3)]
+                native.reset_launch_counts()
+                got = [_feed_update(meshed, streams["mesh"])
+                       for _ in range(3)]
+                counts = dict(native.LAUNCHES)
+                if got != want:
+                    fail(f"[{tag}] world-1 NCCL losses {got} != no mesh "
+                         f"{want}")
+                n = _hold_bitwise(f"[{tag}] world-1 NCCL parameters",
+                                  list(meshed.model.parameters()),
+                                  list(plain.model.parameters()))
+                if counts != lif_update(meshed.t_windows, 3):
+                    fail(f"[{tag}] world-1 launches {counts} != "
+                         f"{lif_update(meshed.t_windows, 3)}")
+                walls = {"plain": [], "mesh": []}
+                for _ in range(5):
+                    turn = {}
+                    for label, tr in (("plain", plain), ("mesh", meshed)):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        turn[label] = _feed_update(tr, streams[label])
+                        walls[label].append(
+                            1e3 * (time.perf_counter() - t0))
+                    if turn["plain"] != turn["mesh"]:
+                        fail(f"[{tag}] world-1 NCCL timed update {turn}")
+            unet = build_model(TRAIN_SNNREC, "cuda:0")
+            times = {"LIFFireNet": (_allreduce_times(meshed.model, mesh.world,
+                                                     REPS),
+                                    _grad_bytes(meshed.model)),
+                     "SpikingRecEVFlowNet": (_allreduce_times(
+                         unet, mesh.world, REPS), _grad_bytes(unet))}
+        finally:
+            dist.destroy_process_group()
+    print(f"[{tag}] world 1, NCCL: LIFFireNet TRAIN_SNN 3 updates through "
+          f"Trainer(mesh=make_mesh()) bitwise equal to no mesh: losses "
+          f"{got}, all {n} parameters; launches {counts}")
+    print(f"[{tag}] world 1 ms/update in turns, 5 each: no mesh "
+          f"{_spread(walls['plain'])}, mesh {_spread(walls['mesh'])}")
+    for name, ((dev_ms, host), nbytes) in times.items():
+        print(f"[{tag}] world 1 NCCL all_reduce_grads of {name}'s "
+              f"{nbytes} gradient bytes: {dev_ms:.4f} ms between CUDA "
+              f"events (median of {REPS}), host {_spread(host)} ms")
+    return counts
+
+
+def dist_lockstep(tag, case, recipe, runs, root):
+    """Each update of a world-2 case against one process's update on the
+    card from the same state: update 1 from the seeded init, update k
+    from the world's checkpoint after update k - 1, resumed in a fresh
+    one-process Trainer (the stream advanced past the earlier updates'
+    batches). Returns the largest gradient gap."""
+    import os
+
+    import event_flow_tpu_torch.config as recipes
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    config = copy.deepcopy(getattr(recipes, recipe))
+    worst = ("", 0.0)
+    gaps = []
+    with torch.enable_grad():
+        for u, run in enumerate(runs):
+            trainer = Trainer(config, "cuda")
+            stream = SyntheticWindowStream(config)
+            if u:
+                trainer.resume(os.path.join(root, f"{case}{u}"), None)
+                for _ in range(u * trainer.t_windows):
+                    stream.next_batch()
+            ref = _feed_update(trainer, stream)
+            gap = _hold_update(f"[{tag}] {case} update {u + 1}", run["loss"],
+                               ref, run["grads"], _grads(trainer.model))
+            gaps.append(abs(run["loss"] - ref) / abs(ref))
+            worst = max(worst, gap, key=lambda kv: kv[1])
+    return worst, gaps
+
+
+def phase_dist():
+    """[dist]: data parallelism and the event-sharded loss. World 1 under
+    NCCL in this process (dist_world1); then two processes on the card
+    under gloo (dist_worker): make_mesh(2) and make_mesh_2d(1, 2) at
+    TRAIN_SNN (3 updates each) and make_mesh(2) at TRAIN_SNNREC (one
+    update), each update held to one process's on the card from the same
+    state (dist_lockstep: updates 2 and 3 resume the world's
+    checkpoints in one process), the replicas' parameters bitwise equal,
+    exact launches per update and rank (the event ranks' K3 too, on half
+    the events each); the ECD eval over two processes against one; the
+    all-reduce's times and the gradient buffers' bytes. Returns the
+    world-1 mesh run's launch counts."""
+    import os
+    import tempfile
+
+    from event_flow_tpu_torch.parallel.launch import run_world
+
+    tag = "dist"
+    counts = dist_world1(tag)
+    expected = {"TRAIN_SNN": lif_update, "TRAIN_SNNREC": unet_update}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ranks = run_world(f"{os.path.abspath(__file__)}:dist_worker", 2,
+                          {"root": root}, device="cuda:0", backend="gloo",
+                          timeout=DIST_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        for case, recipe, dims, updates in DIST_CASES:
+            runs = [r[case]["runs"] for r in ranks]
+            for u in range(updates):
+                digests = {rr[u]["digest"] for rr in runs}
+                if len(digests) != 1:
+                    fail(f"[{tag}] {case} update {u + 1}: the replicas' "
+                         "parameters differ")
+                for rank, rr in enumerate(runs):
+                    want = expected[recipe](10, 1)
+                    if rr[u]["launches"] != want:
+                        fail(f"[{tag}] {case} rank {rank} update {u + 1} "
+                             f"launches {rr[u]['launches']} != {want}")
+                if runs[0][u]["loss"] != runs[1][u]["loss"]:
+                    fail(f"[{tag}] {case} update {u + 1}: the ranks' losses "
+                         f"{runs[0][u]['loss']!r}, {runs[1][u]['loss']!r}")
+            worst, gaps = dist_lockstep(tag, case, recipe, runs[0], root)
+            print(f"[{tag}] world 2, gloo, one card, mesh {dims[0]} x "
+                  f"{dims[1]}, {recipe} ({case}): losses "
+                  + ", ".join(repr(rr["loss"]) for rr in runs[0])
+                  + "; against one process from the same state: loss rel "
+                  "gaps " + ", ".join(f"{g:.3g}" for g in gaps)
+                  + f", largest gradient gap {worst[1]:.3g} ({worst[0]}); "
+                  f"replicas bitwise equal; launches per update and rank "
+                  f"{runs[0][0]['launches']}; update wall s per rank "
+                  + "; ".join(", ".join(f"{rr[u]['seconds']:.3f}"
+                                        for u in range(updates))
+                              for rr in runs))
+            timing = ranks[0][case]["allreduce"]
+            if timing is not None:
+                print(f"[{tag}] world 2 gloo (one card) all_reduce_grads of "
+                      f"{ranks[0][case]['bytes']} gradient bytes ({recipe}): "
+                      f"{timing[0]:.3f} ms between CUDA events (median of 5),"
+                      f" host {_spread(timing[1])} ms")
+    one = _dist_evaluate("cuda")
+    gap = 0.0
+    for r in ranks:
+        got = r["eval"]
+        if got["windows"] != one["windows"]:
+            fail(f"[{tag}] eval --dp ran {got['windows']} windows, one "
+                 f"process {one['windows']}")
+        for metric, per_file in one["results"].items():
+            if list(got["results"][metric]) != list(per_file) \
+                    or len(per_file) != 5:
+                fail(f"[{tag}] eval --dp files {list(got['results'][metric])}"
+                     f" vs {list(per_file)}")
+            if len(set(per_file.values())) != 5:
+                fail(f"[{tag}] eval {metric}: files score alike {per_file}")
+            for fname, want in per_file.items():
+                value = got["results"][metric][fname]
+                rel = abs(value - want) / abs(want)
+                if not rel <= 1e-6:
+                    fail(f"[{tag}] eval --dp {metric} {fname}: {value!r} vs "
+                         f"one process {want!r}")
+                gap = max(gap, rel)
+    print(f"[{tag}] eval --dp, ECD_LIFFIRENET batch 4 (2 slots per process) "
+          f"over two processes on five sequences of 3 to 8 windows: "
+          f"{one['windows']} windows, per-file FWL/RSAT within {gap:.3g} of "
+          f"one process ({one['results']}); world-2 processes took "
+          f"{spawn_s:.1f} s wall, start to results")
+    return counts
+
+
 KERNELS = (
     ("conv2d_same", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/ops/conv_pallas.py:121"),
@@ -3667,6 +4043,7 @@ def main():
     paths += phase_native()
     paths += phase_engine()
     paths += phase_vis(lif_parts)
+    paths.append(phase_dist())
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c[k] for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],

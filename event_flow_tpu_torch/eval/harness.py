@@ -30,8 +30,18 @@ accumulated renders ``events_window`` (one K3 scatter), ``iwe_window``
 (one more) and ``flow_window``, the event-mask-weighted mean of the K
 flows. eval_flow.py::WindowOutputs renders and stores them.
 
-Not ported: the chunked fast path, single-put packing and mesh placement
-(TPU dispatch workarounds with the same results).
+With a data ``mesh`` (parallel/mesh.py; JAX's ``Evaluator(mesh=...)``,
+harness.py:44-58, and eval_flow.py ``--dp``) every process reads the
+whole batch's stream, as JAX's one SPMD program does, and runs its data
+rank's slots (``local_slots``): a rollover is the same flag on every
+process, so it resets every slot's state as in one process. Each
+process queues the metric values of its slots; :meth:`Evaluator.results`
+gathers every process's values and folds them in the one-process order
+(window, metric, slot), so that the per-file results are one process's.
+No window has a collective.
+
+Not ported: the chunked fast path and single-put packing (TPU dispatch
+workarounds with the same results).
 """
 
 import numpy as np
@@ -42,36 +52,18 @@ from ..loss.metrics import aee as aee_fn
 from ..loss.metrics import fwl as fwl_fn
 from ..loss.metrics import rsat as rsat_fn
 from ..models.snn_cells import lif_cell_names
+from ..models.state import detach_state, zeros_like_state
+# the name that earlier callers import from here
+from ..models.state import map_state as _map_state  # noqa: F401
 from ..ops.encodings import encode_window
 from ..ops.hot_filter import apply_hot_filter, init_hot_state
 from ..ops.iwe import (compute_pol_iwe, gather_event_flow, get_interpolation,
                        interpolate_multi)
 from ..ops.scatter import scatter_add
+from ..parallel.distributed import local_slots
 
-__all__ = ["Evaluator", "zeros_like_state", "detach_state", "cell_states",
-           "spike_rates"]
-
-
-def _map_state(fn, state):
-    """``fn`` applied to every tensor of a model state: tuples nested to
-    any depth (the U-Net's encoders and residual blocks hold
-    ``((v, z), (v, z))``), as ``jax.tree_util.tree_map`` maps the JAX
-    state."""
-    if isinstance(state, torch.Tensor):
-        return fn(state)
-    return tuple(_map_state(fn, s) for s in state)
-
-
-def zeros_like_state(state):
-    """Zeros in the shape of a model state (the reset of
-    event_flow_tpu/eval/harness.py:178 and train/step.py:313-316)."""
-    return _map_state(torch.zeros_like, state)
-
-
-def detach_state(state):
-    """A model state cut from the autograd graph (the truncated-BPTT
-    boundary, ``stop_gradient`` at event_flow_tpu/train/step.py:324)."""
-    return _map_state(torch.Tensor.detach, state)
+__all__ = ["Evaluator", "join_records", "zeros_like_state", "detach_state",
+           "cell_states", "spike_rates"]
 
 
 def cell_states(state):
@@ -96,7 +88,22 @@ def cell_states(state):
 
 
 class Evaluator:
-    def __init__(self, config, model, device):
+    """``Evaluator(config, model, device, mesh=None)``: the protocol of
+    ``config``; under a data ``mesh`` every process is fed the whole
+    batch's stream and runs its slots (see the module's docstring)."""
+
+    def __init__(self, config, model, device, mesh=None):
+        if mesh is not None:
+            b = config["loader"]["batch_size"]
+            if mesh.ep != 1:
+                raise ValueError("eval splits the batch's slots over a data "
+                                 f"mesh, not a {mesh.dp} x {mesh.ep} mesh")
+            if b % mesh.dp:
+                raise ValueError(
+                    f"batch_size {b} is not divisible by the {mesh.dp} "
+                    "processes of the mesh (raise loader.batch_size for "
+                    "data-parallel eval)")
+        self.mesh = mesh
         self.model = model
         self.device = device
         self.res = tuple(config["loader"]["resolution"])
@@ -132,7 +139,7 @@ class Evaluator:
                           if self.mode.startswith("gtflow") else 1)
         self._idx_aee = None  # per-slot AEE cadence counters
         self.hot_cfg = config.get("hot_filter", {"enabled": False})
-        self._results = {}
+        self._records = []  # drained metric values, in queue order
         self._buffers = []
         self._pending = []
         self.windows = 0
@@ -234,9 +241,15 @@ class Evaluator:
     # -- host protocol ----------------------------------------------------
 
     def process_batch(self, stream, model_state, hot_state, batch):
-        """Consume one stream batch; returns (model_state, hot_state, the
-        window's vis dict)."""
+        """Consume one stream batch (the whole batch's, under a mesh, of
+        which this process runs its slots); returns (model_state,
+        hot_state, the window's vis dict of those slots)."""
         dev = self.device
+        first = 0
+        if self.mesh is not None:
+            first = self.mesh.data_rank * (len(batch["events"])
+                                           // self.mesh.dp)
+            batch = local_slots(batch, self.mesh.data_rank, self.mesh.dp)
         b = len(batch["events"])
         new_seq = bool(batch["new_seq"])
         reset = torch.full((b,), 1.0 if new_seq else 0.0, device=dev)
@@ -254,20 +267,26 @@ class Evaluator:
                                          "activity", "iwe") if key in win}
         vis["flow"] = win["flow_last"]
         if len(self._buffers) >= self.k_windows:
-            filenames = [stream.slot_filename(s) for s in range(b)]
+            filenames = [stream.slot_filename(first + s) for s in range(b)]
             if "FWL" in self.metrics or "RSAT" in self.metrics:
                 vals = self._compute_fwl_rsat(self._buffers)
                 self.metric_groups += 1
                 for name in self.metrics:
                     if name in vals:
-                        self._pending.append((name, vals[name], filenames,
-                                              None, None))
+                        self._queue(name, vals[name], filenames)
             if self.want_window_vis:
                 vis.update(self._window_vis(self._buffers))
             if "AEE" in self.metrics and "gtflow" in batch:
                 self._aee_window(win, batch, filenames)
             self._buffers = []
         return model_state, hot_state, vis
+
+    def _queue(self, metric, value, filenames, pct=None, fire=None):
+        """Queue a metric's per-slot values under the key (window, AEE
+        last, metric's place) that orders them as one process folds
+        them."""
+        key = (self.windows, metric == "AEE", self.metrics.index(metric))
+        self._pending.append((key, metric, value, filenames, pct, fire))
 
     def _aee_window(self, win, batch, filenames):
         """AEE of the window on each slot whose cadence counter fires: a
@@ -287,31 +306,48 @@ class Evaluator:
                 torch.as_tensor(batch["dt_gt"], device=dev),
                 self.flow_scaling)
             self.aee_windows += 1
-            self._pending.append(("AEE", a, filenames, pct, fire))
+            self._queue("AEE", a, filenames, pct, fire)
         self._idx_aee[self._idx_aee >= self.aee_every] = 0
 
     def _drain(self):
-        """Read every queued metric value in one device-to-host copy and
-        fold it into the per-file running sums (AEE's outlier share beside
-        it)."""
+        """Read every queued metric value (and AEE's outlier share) in one
+        device-to-host copy into the records (key, metric, filenames,
+        values, shares or None, slots fired or None)."""
         if not self._pending:
             return
-        values = torch.stack([v for _, v, _, _, _ in self._pending])
-        percents = [p for _, _, _, p, _ in self._pending if p is not None]
+        values = torch.stack([rec[2] for rec in self._pending])
+        percents = [rec[4] for rec in self._pending if rec[4] is not None]
         values = values.cpu().numpy()
         percents = iter(torch.stack(percents).cpu().numpy()
                         if percents else ())
-        ref_acct = self.reference_accounting and len(self.metrics) > 1
-        for (metric, _, filenames, pct, fire), row in zip(self._pending,
-                                                          values):
+        for (key, metric, _, filenames, pct, fire), row in zip(
+                self._pending, values):
             pct = next(percents) if pct is not None else None
+            self._records.append((key, metric, filenames, row, pct, fire))
+        self._pending = []
+
+    def _gathered(self):
+        """The records of every process of the mesh joined into those of
+        the whole batch (:func:`join_records`), or this process's."""
+        if self.mesh is None or not self.mesh.distributed:
+            return self._records
+        parts = [None] * self.mesh.size
+        torch.distributed.all_gather_object(parts, self._records,
+                                            group=self.mesh.host_group)
+        return join_records(parts)
+
+    def _fold(self, records):
+        """The per-file running sums of ``records`` in their order."""
+        per_file = {}
+        ref_acct = self.reference_accounting and len(self.metrics) > 1
+        for _, metric, filenames, row, pct, fire in records:
             credit = metric
             for slot, fname in enumerate(filenames):
                 if fire is not None and not fire[slot]:
                     continue
-                fentry = self._results.get(fname)
+                fentry = per_file.get(fname)
                 if fentry is None:
-                    fentry = self._results[fname] = {}
+                    fentry = per_file[fname] = {}
                     if ref_acct:
                         for m in self.metrics:
                             fentry[m] = {"metric": 0.0, "it": 0,
@@ -323,18 +359,20 @@ class Evaluator:
                 entry["it"] += 1
                 if pct is not None:
                     entry["percent"] += float(pct[slot])
-        self._pending = []
+        return per_file
 
     def results(self):
         """Per-file means: {metric: {filename: value}}, with AEE's mean
-        outlier share under ``AEE_percent``."""
+        outlier share under ``AEE_percent``; under a mesh the whole
+        batch's (every process must call this)."""
         self._drain()
+        per_file = self._fold(self._gathered())
         out = {}
         for metric in self.metrics:
             out[metric] = {}
             if metric == "AEE":
                 out["AEE_percent"] = {}
-            for fname, entry in self._results.items():
+            for fname, entry in per_file.items():
                 if metric in entry:
                     e = entry[metric]
                     out[metric][fname] = e["metric"] / max(e["it"], 1)
@@ -347,8 +385,9 @@ class Evaluator:
         """Iterate the stream until every file has been visited once;
         ``progress`` (data/progress.py::ProgressPrinter) ticks once per
         window with slot 0's file; ``outputs(stream, batch, vis)``, where
-        given, takes each window's vis dict."""
-        b = stream.batch_size
+        given, takes each window's vis dict. Under a mesh ``stream`` is
+        the whole batch's and every process must call this."""
+        b = stream.batch_size // (1 if self.mesh is None else self.mesh.dp)
         h, w = self.res
         model_state = self.model.zero_state(b, h, w, self.device)
         hot_state = init_hot_state(b, self.res, self.device)
@@ -366,6 +405,34 @@ class Evaluator:
             progress.finish()
         self.model_state = model_state
         return self.results()
+
+
+def join_records(parts):
+    """The metric records of the whole batch from those of each process
+    (``parts`` in rank order, each process's slots a contiguous share):
+    per key, the processes' filenames, values, shares and fired slots
+    concatenated, in key order. An AEE that fired on no slot of a process
+    is queued there by no record, and fires on none of its slots here."""
+    by_key = {}
+    for rank, part in enumerate(parts):
+        for rec in part:
+            by_key.setdefault(rec[0], {})[rank] = rec
+    joined = []
+    for key in sorted(by_key):
+        got = by_key[key]
+        some = next(iter(got.values()))
+        n = len(some[2])
+        missing = ([""] * n, np.zeros(n, np.float32),
+                   np.zeros(n, np.float32), np.zeros(n, bool))
+        cols = [got[r][2:] if r in got else missing
+                for r in range(len(parts))]
+        joined.append((key, some[1], [f for c in cols for f in c[0]],
+                       np.concatenate([c[1] for c in cols]),
+                       None if some[4] is None
+                       else np.concatenate([c[2] for c in cols]),
+                       None if some[5] is None
+                       else np.concatenate([c[3] for c in cols])))
+    return joined
 
 
 def spike_rates(model, model_state):

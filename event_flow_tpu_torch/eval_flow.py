@@ -26,8 +26,18 @@ CLI's synthetic dataset for the config's mode
 maps in the gtflow modes). ``--shard I/N`` evaluates only the I-th of N
 disjoint round-robin shares of the files (``loader.process_shard``): N
 processes, on one card or several, each take one, and their per-file
-results together are the unsharded run's. ``vis.bars`` in the config
-prints a progress line (data/progress.py).
+results together are the unsharded run's. ``--dp`` (JAX
+eval_flow.py:131-144) runs one process per card under ``torchrun``:
+
+  torchrun --nproc_per_node 2 -m event_flow_tpu_torch.eval_flow <runid> \
+      --config configs/eval_ECD.yml --synthetic --dp
+
+each reading the whole batch's stream and running its share of
+``loader.batch_size`` slots (which must divide over the processes), so
+that a rollover resets every slot as in one process; the per-file
+results are gathered, one process's, and rank 0 alone prints and stores
+them.
+``vis.bars`` in the config prints a progress line (data/progress.py).
 
 The visualization outputs (JAX eval_flow.py:127-129, :158-197,
 :class:`WindowOutputs`): with ``vis.store`` each window's renders go to
@@ -48,9 +58,11 @@ call.
 """
 
 import argparse
+import contextlib
 import importlib.util
 import math
 import os
+import sys
 import time
 
 import torch
@@ -60,7 +72,9 @@ from .data.stream import ArrayEventStream, synthetic_sequences
 from .device import get_device
 from .eval.harness import Evaluator
 from .models.registry import get_model
-from .parallel.distributed import process_file_shard
+from .parallel.distributed import (init_distributed, is_distributed,
+                                   process_file_shard)
+from .parallel.mesh import make_mesh
 from .utils.checkpoint import (latest_checkpoint, load_torch_state_dict,
                                restore_checkpoint)
 from .utils.tracking import (create_model_dir, log_eval_config,
@@ -151,7 +165,7 @@ class WindowOutputs:
 
 
 def evaluate(config, device, seed=0, sequences=None, model=None,
-             stream=None, progress=None, outputs=None):
+             stream=None, progress=None, outputs=None, mesh=None):
     """Run the serving path over a stream and return a report dict:
     ``results`` ({metric: {file: mean}}), ``windows``, ``seconds`` (wall
     time of the window loop and the final metric read, which synchronises
@@ -164,14 +178,19 @@ def evaluate(config, device, seed=0, sequences=None, model=None,
     to :func:`build_model` with ``seed``. ``progress`` goes to
     ``Evaluator.run``; ``outputs`` takes each window's vis dict, by
     default a :class:`WindowOutputs` without a results directory (it
-    does nothing where the config asks for no visualization output)."""
+    does nothing where the config asks for no visualization output).
+    With a data ``mesh`` (parallel/mesh.py) every process calls this
+    with the same arguments, reads the whole batch's stream, runs its
+    slots (eval/harness.py) and gets the whole batch's per-file results,
+    one process's; the default ``outputs`` are rank 0's, whose slot 0 is
+    the batch's, and the other ranks have none."""
     device = get_device(device) if not isinstance(device, torch.device) \
         else device
     if model is None:
         model = build_model(config, device, seed)
-    if outputs is None:
+    if outputs is None and (mesh is None or mesh.rank == 0):
         outputs = WindowOutputs(config)
-    evaluator = Evaluator(config, model, device)
+    evaluator = Evaluator(config, model, device, mesh)
     if stream is None:
         if sequences is None:
             sequences = synthetic_sequences(config)
@@ -232,15 +251,18 @@ def load_weights(model, run_dir, torch_weights=None):
 
 
 def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
-                 path_results=None, synthetic=True):
+                 path_results=None, synthetic=True, mesh=None):
     """What the CLI does once it has the config: the model with the
     weights of :func:`load_weights` (a warning where there are none),
     :func:`evaluate` on the in-memory synthetic sequences (with
     ``synthetic`` False, on the .h5 files under ``data.path``), the
     per-file results printed and, with ``path_results``, stored with the
     eval config, and the visualization outputs of :class:`WindowOutputs`
-    under it. Returns the report of :func:`evaluate`."""
+    under it; with a ``mesh``, data-parallel (:func:`evaluate`), rank 0
+    alone storing. Returns the report of :func:`evaluate`."""
     _check_aee_config(config)
+    if mesh is not None and mesh.rank != 0:
+        path_results = None
     if config["loader"]["batch_size"] > 1:  # as the JAX CLI
         config.setdefault("vis", {})["enabled"] = False
         config["vis"]["store"] = False
@@ -261,9 +283,11 @@ def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
         stream = H5EventStream(config)
     bar = ProgressPrinter(enabled=config.get("vis", {}).get("bars", False))
     try:
+        outputs = None  # the other ranks' (evaluate)
+        if mesh is None or mesh.rank == 0:
+            outputs = WindowOutputs(config, path_results, eval_id)
         report = evaluate(config, device, model=model, stream=stream,
-                          progress=bar, outputs=WindowOutputs(
-                              config, path_results, eval_id))
+                          progress=bar, outputs=outputs, mesh=mesh)
     finally:
         if stream is not None:
             stream.close()
@@ -298,9 +322,16 @@ def main(argv=None):
                     help="evaluate only the I-th of N round-robin file "
                          "shards (run N processes for a full sweep; "
                          "per-file results merge trivially)")
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel eval over the processes of "
+                         "torchrun: each runs its share of the slots of "
+                         "loader.batch_size, which must divide")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
     config = _config_from_args(args)
+    if args.shard and args.dp:
+        raise SystemExit("--shard splits the files and --dp the slots: "
+                         "give one")
     if args.shard:
         # files are independent: each process takes a disjoint
         # round-robin share and the per-file results merge trivially
@@ -315,11 +346,22 @@ def main(argv=None):
     if "name" not in config.get("model", {}):
         raise SystemExit("the config has no model.name; give a run with "
                          "params.yml or an eval config with a model block")
-    report = evaluate_run(
-        args.runid, config, args.device, runs_root=args.runs_root,
-        torch_weights=args.torch_weights,
-        path_results=None if args.debug else args.path_results,
-        synthetic=args.synthetic)
+    device, mesh = args.device, None
+    if args.dp:
+        _, _, device = init_distributed(get_device(args.device))
+        mesh = make_mesh()
+    quiet = mesh is not None and mesh.rank != 0
+    try:
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink if quiet else sys.stdout):
+            report = evaluate_run(
+                args.runid, config, device, runs_root=args.runs_root,
+                torch_weights=args.torch_weights,
+                path_results=None if args.debug else args.path_results,
+                synthetic=args.synthetic, mesh=mesh)
+    finally:
+        if is_distributed():
+            torch.distributed.destroy_process_group()
     return report["results"]
 
 

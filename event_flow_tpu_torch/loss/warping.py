@@ -21,21 +21,33 @@ spatial directions and the pass axis, applied to the SUM of the x and y
 differences, sqrt((du + dv)^2 + eps), as the reference does
 (flow.py:273-277), masked by the event mask with ``smoothing_mask``.
 
+With ``event_group`` (JAX's ``axes=(data_axis, event_axis)``,
+:208-232) the events are this process's shard of every window's
+(parallel/shard_loss.py): each warp direction's ``[B, H, W, 4]`` image
+is summed over the group before ``iwe_ts / (iwe + 1e-9)``, one
+all-reduce per direction per scale (:146-147). Its backward is the
+identity: every process holds the same cotangent of the summed image and
+sends it into its own events, so the gradients summed over the group are
+the unsharded ones. The smoothness term, computed from the flow maps
+that every process of the group holds, keeps its gradient on the
+group's first process alone, else a sum over the group would count it
+``ep`` times.
+
 Not ported: the JAX loss's ``t_live`` (warping.py:87-102), which masks
 the padded passes of a static-shape scan; the port's updates hold only
-their live windows (train/step.py), which gives the same loss. Nor the
-sharded form (``axes``); see ROADMAP.md.
+their live windows (train/step.py), which gives the same loss.
 """
 
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops.iwe import get_interpolation_compact, interpolate_compact
 from ..ops.scatter import gather_events
 
-__all__ = ["LossConfig", "event_warping_loss"]
+__all__ = ["LossConfig", "event_warping_loss", "sum_over_group"]
 
 
 @dataclass(frozen=True)
@@ -45,6 +57,28 @@ class LossConfig:
     flow_regul_weight: float
     smoothing_mask: bool = False  # model.mask_output (flow.py:42)
     overwrite_intermediate: bool = False
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce SUM in the forward, the identity in the backward: the
+    cotangent of the sum is the same on every process, and each sends it
+    into its own summand."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over_group(x, group):
+    """``x`` summed over the processes of ``group`` (the identity where
+    ``group`` is None), with an identity backward."""
+    return x if group is None else _SumOverGroup.apply(x, group)
 
 
 def _per_event_flows(u, v, lin, overwrite):
@@ -63,9 +97,10 @@ def _per_event_flows(u, v, lin, overwrite):
 
 
 def _ts_image_loss(ts, ys, xs, fy, fx, pos, neg, backward, max_ts,
-                   cfg: LossConfig):
+                   cfg: LossConfig, event_group=None):
     """One warp direction's term (flow.py:196-259) on [B, M] planes: one
-    compact scatter makes the pos/neg count and timestamp images."""
+    compact scatter makes the pos/neg count and timestamp images, summed
+    over ``event_group`` where given."""
     tref = 0.0 if backward else max_ts
     ts_w = (max_ts - ts) if backward else ts
     payload = torch.stack([pos, neg, ts_w * pos, ts_w * neg], dim=-1)
@@ -74,6 +109,7 @@ def _ts_image_loss(ts, ys, xs, fy, fx, pos, neg, backward, max_ts,
     stack = (w4[..., :, None] * payload[..., None, :]).reshape(
         *payload.shape[:2], 16)
     img = interpolate_compact(idx, stack, cfg.resolution, 4)  # [B,H,W,4]
+    img = sum_over_group(img, event_group)
     iwe = img[..., 0:2]
     iwe_ts = img[..., 2:4]
     ts_img = iwe_ts / (iwe + 1e-9) / max_ts
@@ -117,10 +153,12 @@ def _smoothness(u, v, mask, cfg: LossConfig):
 
 
 def event_warping_loss(flow_maps: Sequence, event_list, pol_mask,
-                       event_mask, cfg: LossConfig):
+                       event_mask, cfg: LossConfig, event_group=None):
     """The loss over all flow scales (flow.py:176-301), summed over the
     batch like the reference. Padded events must have zero ``pol_mask``
-    and coordinates off the sensor."""
+    and coordinates off the sensor. With ``event_group`` the events are
+    this process's shard and the value is the whole loss on every
+    process of the group (see the module's docstring)."""
     b, t, n, _ = event_list.shape
     h, w = cfg.resolution
     max_ts = float(t)
@@ -137,15 +175,21 @@ def event_warping_loss(flow_maps: Sequence, event_list, pol_mask,
     if cfg.overwrite_intermediate:
         mask = (mask.sum(dim=1, keepdim=True) > 0).to(mask.dtype)
 
+    # the replicated term's gradient on the event group's first process
+    keep_sm = event_group is None or dist.get_rank(group=event_group) == 0
     total = 0.0
     for fmap in flow_maps:
         u, v = fmap[..., 0], fmap[..., 1]
         fy, fx = _per_event_flows(u, v, lin, cfg.overwrite_intermediate)
-        fw = _ts_image_loss(ts, ys, xs, fy, fx, pos, neg, False, max_ts, cfg)
-        bw = _ts_image_loss(ts, ys, xs, fy, fx, pos, neg, True, max_ts, cfg)
+        fw = _ts_image_loss(ts, ys, xs, fy, fx, pos, neg, False, max_ts, cfg,
+                            event_group)
+        bw = _ts_image_loss(ts, ys, xs, fy, fx, pos, neg, True, max_ts, cfg,
+                            event_group)
         if cfg.overwrite_intermediate:
             sm = _smoothness(u[:, -1:], v[:, -1:], mask, cfg)
         else:
             sm = _smoothness(u, v, mask, cfg)
+        if not keep_sm:
+            sm = sm.detach()
         total = total + fw + bw + cfg.flow_regul_weight * sm
     return total / len(flow_maps)

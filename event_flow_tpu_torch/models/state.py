@@ -1,0 +1,26 @@
+"""The carried recurrent state of a model: tuples of tensors nested to
+any depth (the U-Net's encoders and residual blocks hold ``((v, z), (v,
+z))``), mapped as ``jax.tree_util.tree_map`` maps the JAX state."""
+
+import torch
+
+__all__ = ["map_state", "zeros_like_state", "detach_state"]
+
+
+def map_state(fn, state):
+    """``fn`` applied to every tensor of a model state."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    return tuple(map_state(fn, s) for s in state)
+
+
+def zeros_like_state(state):
+    """Zeros in the shape of a model state (the reset of
+    event_flow_tpu/eval/harness.py:178 and train/step.py:313-316)."""
+    return map_state(torch.zeros_like, state)
+
+
+def detach_state(state):
+    """A model state cut from the autograd graph (the truncated-BPTT
+    boundary, ``stop_gradient`` at event_flow_tpu/train/step.py:324)."""
+    return map_state(torch.Tensor.detach, state)

@@ -20,6 +20,7 @@ the card.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -127,38 +128,46 @@ def _run(cmd):
 def build_library():
     """Compile the sources unless a build with the same hash exists; each
     source compiles in its own nvcc process, in parallel, then one link.
-    Returns the library's path."""
+    Processes started together (``torchrun``, chip_smoke.py's workers)
+    take a lock on the build directory: one builds, the others wait and
+    load its library. Returns the library's path."""
     global build_seconds
     t0 = time.perf_counter()
     out_dir = _BUILD_ROOT / _source_hash()
     lib_path = out_dir / _LIB_NAME
     if not lib_path.is_file():
         out_dir.mkdir(parents=True, exist_ok=True)
-        nvcc = find_nvcc()
-        tag = f"{os.getpid()}"
-        jobs = []
-        for src in _sources():
-            obj = out_dir / f"{src.stem}.{tag}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-            jobs.append((obj, cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-        for obj, cmd, proc in jobs:
-            out, err = proc.communicate()
-            if proc.returncode != 0:
-                for _, _, other in jobs:
-                    other.kill()
-                    other.wait()
-                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                                   f"{' '.join(cmd)}\n{out}\n{err}")
-        tmp = out_dir / f".{_LIB_NAME}.{tag}"
-        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-              *(str(obj) for obj, _, _ in jobs)])
-        for obj, _, _ in jobs:
-            obj.unlink()
-        os.replace(tmp, lib_path)  # atomic: readers never see half a file
+        with open(out_dir / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released if the holder dies
+            if not lib_path.is_file():
+                _compile(out_dir, lib_path)
     build_seconds = time.perf_counter() - t0
     return lib_path
+
+
+def _compile(out_dir, lib_path):
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for obj, cmd, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+    tmp = out_dir / f".{_LIB_NAME}.{tag}"
+    _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+          *(str(obj) for obj, _, _ in jobs)])
+    for obj, _, _ in jobs:
+        obj.unlink()
+    os.replace(tmp, lib_path)  # atomic: readers never see half a file
 
 
 def library():

@@ -30,6 +30,16 @@ the global norm (utils/gradients.py). With ``with_vis`` (the Trainer's
 the last window, detached: ``flow`` [B,H,W,2] (x, y), ``event_cnt``
 [B,H,W,2] and ``event_mask`` [B,H,W,1].
 
+With a mesh (parallel/mesh.py; JAX's ``shard_train_step``,
+parallel/mesh.py:115-165) the step runs on the process's slots: every
+event rank of a data rank runs the same forward, the loss goes through
+parallel/shard_loss.py (the events split over the event ranks, the
+value summed over the data ranks: the whole batch's loss), and after the
+backward one all-reduce sums the gradients over the world
+(parallel/distributed.py::all_reduce_grads). Only then come the grad
+statistics and the clip, whose global norm is then the whole batch's on
+every process, so the replicas stay equal.
+
 The JAX step's TPU workarounds are not ported (``_pack_state``, the
 ``EVFLOW_REMAT`` rematerialisation modes, ``micro_batch``,
 ``make_train_step_multi``): PyTorch keeps every saved activation, about
@@ -41,9 +51,11 @@ from typing import Any, NamedTuple
 import torch
 
 from ..data.augment import augment_events
-from ..eval.harness import detach_state, zeros_like_state
 from ..loss.warping import LossConfig, event_warping_loss
+from ..models.state import detach_state, zeros_like_state
 from ..ops.encodings import encode_windows
+from ..parallel.distributed import all_reduce_grads
+from ..parallel.shard_loss import make_sharded_loss
 from ..utils.gradients import get_grads, global_grad_norm
 
 __all__ = ["TrainState", "make_sequence_forward", "make_train_step"]
@@ -95,12 +107,17 @@ class _TrainStep:
     events [B,T,N,4] raw windows (ts, y, x, p in {-1, +1}); valid
     [B,T,N]; aug_flags [B,3]; reset a host bool. The model and the
     optimizer update in place; the returned state carries the new
-    (detached) recurrent state. ``loss`` is a 0-dim device tensor."""
+    (detached) recurrent state. ``loss`` is a 0-dim device tensor; with a
+    ``mesh`` the events, the state and the flags are the process's slots
+    and ``loss`` is the whole batch's."""
 
     def __init__(self, model, res, num_bins, loss_cfg: LossConfig,
                  round_encoding=False, with_grad_stats=False,
-                 with_vis=False):
+                 with_vis=False, mesh=None):
         self.loss_cfg = loss_cfg
+        self.mesh = mesh
+        self.loss_fn = (make_sharded_loss(mesh, loss_cfg) if mesh is not None
+                        else lambda *a: event_warping_loss(*a, loss_cfg))
         self.with_grad_stats = with_grad_stats
         self.with_vis = with_vis
         self.seq_fwd = make_sequence_forward(model, res, num_bins,
@@ -113,7 +130,7 @@ class _TrainStep:
         ``self.vis``."""
         new_state, flows, ev_list, pol, mask, *cnt = self.seq_fwd(
             model_state, events, valid, aug_flags)
-        loss = event_warping_loss(flows, ev_list, pol, mask, self.loss_cfg)
+        loss = self.loss_fn(flows, ev_list, pol, mask)
         if self.with_vis:
             self.vis = {"flow": flows[-1][:, -1].detach(),
                         "event_cnt": cnt[0][:, -1],
@@ -127,6 +144,8 @@ class _TrainStep:
         state.optimizer.zero_grad()
         loss, new_state = self.loss(model_state, events, valid, aug_flags)
         loss.backward()
+        if self.mesh is not None:
+            all_reduce_grads(state.model.parameters(), self.mesh.world)
         stats = None
         if self.with_grad_stats:
             named = [(n, p.grad) for n, p in state.model.named_parameters()
@@ -143,7 +162,8 @@ class _TrainStep:
 
 def make_train_step(model, res, num_bins, loss_cfg: LossConfig,
                     round_encoding=False, with_grad_stats=False,
-                    with_vis=False):
-    """The update step of ``model`` (see :class:`_TrainStep`)."""
+                    with_vis=False, mesh=None):
+    """The update step of ``model`` (see :class:`_TrainStep`), on the
+    process's slots of ``mesh`` where given."""
     return _TrainStep(model, res, num_bins, loss_cfg, round_encoding,
-                      with_grad_stats, with_vis)
+                      with_grad_stats, with_vis, mesh)

@@ -54,17 +54,34 @@ config says otherwise, ``vis.store``: at batch 1 every
 (``events/``, ``flow/``, PNG where cv2 imports, else .npy; train/loop.py).
 A config with ``vis.enabled`` does the same without the flag.
 
+``--dp`` (JAX train_flow.py:63-70, :228) trains data-parallel, one
+process per card, under ``torchrun``:
+
+  torchrun --nproc_per_node 4 -m event_flow_tpu_torch.train_flow \
+      --config configs/train_SNN.yml --synthetic --max_updates 10 --dp
+
+Every process reads the same stream and keeps its slots of each batch
+(``loader.batch_size`` must divide over the processes); the gradients
+are summed over the processes before the clip, so the update is one
+process's on the whole batch (train/step.py). Rank 0 alone prints and
+writes the run directory. Without ``torchrun`` ``--dp`` is one process
+and the run is the run without it.
+
 Prints the loss of each update and its wall time.
 """
 
 import argparse
+import contextlib
 import os
+import sys
 import time
 
 import torch
 
 from .data.stream import ArrayEventStream, SyntheticWindowStream
 from .device import get_device
+from .parallel.distributed import init_distributed, is_distributed
+from .parallel.mesh import make_mesh
 from .train.loop import Trainer
 from .utils.tracking import Tracker
 from .utils.visualization import Visualization
@@ -74,7 +91,7 @@ __all__ = ["train", "main"]
 
 def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
           resume="", debug=False, sequences=None, synthetic="const",
-          native=False, vis=False):
+          native=False, vis=False, mesh=None):
     """Train until ``max_updates`` updates (0: the config's
     ``loader.n_epochs`` epochs) on ``ArrayEventStream(config,
     sequences)``; when ``sequences`` is None, with ``native`` on the
@@ -82,13 +99,16 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
     synthetic stream of style ``synthetic`` (``const`` or ``rich``), or
     with ``synthetic`` None on the .h5 files under ``data.path``. ``vis``
     is ``--vis``: the renders into the run directory's ``vis/train/``.
-    Returns (the run id, None with ``debug``; the Trainer; the list of
-    (loss, seconds) per update, the seconds spanning the update's window
-    feed up to its loss read, which waits for the device)."""
+    ``mesh`` (parallel/mesh.py) splits each batch over processes: every
+    process calls this with the same arguments, and only rank 0 has a
+    run directory. Returns (the run id, None with ``debug`` and on the
+    other ranks; the Trainer; the list of (loss, seconds) per update, the
+    seconds spanning the update's window feed up to its loss read, which
+    waits for the device)."""
     device = get_device(device) if not isinstance(device, torch.device) \
         else device
     tracker = None
-    if not debug:
+    if not debug and (mesh is None or mesh.rank == 0):
         tracker = Tracker(config.get("experiment", "Default"),
                           runs_root=runs_root)
         tracker.log_params(config)
@@ -101,7 +121,8 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
     if config.get("vis", {}).get("enabled"):
         renders = Visualization(config, eval_id=-1, path_results=(
             tracker.dir if tracker else None))
-    trainer = Trainer(config, device, tracker=tracker, vis=renders)
+    trainer = Trainer(config, device, tracker=tracker, vis=renders,
+                      mesh=mesh)
     if prev_runid:
         path = trainer.load_params(os.path.join(runs_root, prev_runid))
         print(f"restored params from {path}")
@@ -136,13 +157,14 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
                 stream.samples += trainer.batch_size
                 print(f"update {trainer.updates:5d} loss {loss:.6f} "
                       f"{1e3 * seconds:.1f} ms")
-                if max_updates and trainer.updates >= max_updates:
+                if trainer.agree(max_updates
+                                 and trainer.updates >= max_updates):
                     print(f"stopping after {trainer.updates} updates")
                     trainer.end_epoch(stream, epoch)
                     trainer.save_full_checkpoint(stream, epoch)
                     break
                 t0 = time.perf_counter()
-            if stream.seq_num >= len(stream.files):
+            if trainer.agree(stream.seq_num >= len(stream.files)):
                 mean = trainer.end_epoch(stream, epoch)
                 trainer.save_full_checkpoint(stream, epoch)
                 print(f"epoch {epoch:04d} done, mean loss {mean:.6f}")
@@ -183,6 +205,10 @@ def main(argv=None):
                     help="render the input events and predicted flow of "
                          "each update at batch 1 (live if DISPLAY, and "
                          "stored under the run's vis/train/)")
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel over the processes of torchrun, "
+                         "one per card (loader.batch_size must divide "
+                         "over them); one process without torchrun")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
     config = load_yaml_config(args.config)
@@ -191,11 +217,26 @@ def main(argv=None):
     if not args.synthetic and not config["data"].get("path"):
         raise SystemExit("the config has no data.path: give one, or train "
                          "on --synthetic")
-    _, _, history = train(
-        config, args.device, args.max_updates, runs_root=args.runs_root,
-        prev_runid=args.prev_runid, resume=args.resume, debug=args.debug,
-        synthetic=args.synthetic, native=args.native and not args.synthetic,
-        vis=args.vis)
+    device, mesh = args.device, None
+    if args.dp:
+        _, world, device = init_distributed(get_device(args.device))
+        mesh = make_mesh()
+        if mesh.rank == 0:
+            print(f"data parallel over {world} process"
+                  + ("es" if world > 1 else ""))
+    quiet = mesh is not None and mesh.rank != 0
+    try:
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink if quiet else sys.stdout):
+            _, _, history = train(
+                config, device, args.max_updates, runs_root=args.runs_root,
+                prev_runid=args.prev_runid, resume=args.resume,
+                debug=args.debug, synthetic=args.synthetic,
+                native=args.native and not args.synthetic, vis=args.vis,
+                mesh=mesh)
+    finally:
+        if is_distributed():
+            torch.distributed.destroy_process_group()
     return history
 
 

@@ -1239,3 +1239,69 @@ def test_train_vis_update_on_the_card(dev, tmp_path):
     assert torch.isfinite(vis["flow"]).all()
     files = list((tmp_path / rid / "vis" / "train" / "flow").iterdir())
     assert len(files) == 1 and len(hist) == 1
+
+
+def _dist_config():
+    from event_flow_tpu_torch.config import TRAIN_SNN
+
+    cfg = copy.deepcopy(TRAIN_SNN)
+    cfg["loader"].update(batch_size=4, resolution=[32, 32])
+    cfg["data"].update(window=300, window_loss=600)
+    cfg["model"]["base_num_channels"] = 8
+    return cfg
+
+
+def _dist_feeds(cfg, n):
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+
+    stream = SyntheticWindowStream(cfg)
+    return [stream.next_batch() for _ in range(n)]
+
+
+WORKER = str(__import__("pathlib").Path(__file__).with_name(
+    "torch_parallel_worker.py")) + ":cases"
+
+
+def test_world1_nccl_update_bitwise_equal_to_no_mesh(dev):
+    """Trainer(mesh=make_mesh()) in a world of one NCCL process: its
+    collectives run (the gradient all-reduce, over one rank) and its
+    updates are bitwise the no-mesh Trainer's."""
+    from event_flow_tpu_torch.parallel.launch import run_world
+
+    cfg = _dist_config()
+    case = {"fn": "without_and_with_mesh", "cfg": cfg,
+            "feeds": _dist_feeds(cfg, 4)}
+    [out] = run_world(WORKER, 1, {"cases": [("w1", case)]}, device="cuda",
+                      backend="nccl", timeout=300)
+    plain, meshed = out["w1"]["plain"], out["w1"]["mesh"]
+    assert len(plain["losses"]) == 2
+    assert meshed["losses"] == plain["losses"]
+    for name, p in plain["params"].items():
+        assert torch.equal(meshed["params"][name], p), name
+
+
+def test_world2_gloo_on_one_card_matches_one_process(dev):
+    """Two processes on one card under gloo (NCCL refuses two ranks on
+    one device): the replicas bitwise equal, and within 1e-5 of one
+    process's updates on the card."""
+    from event_flow_tpu_torch.parallel.launch import run_world
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    cfg = _dist_config()
+    feeds = _dist_feeds(cfg, 4)
+    one = Trainer(cfg, dev)
+    sd = {k: v.cpu() for k, v in one.model.state_dict().items()}
+    losses = [v for v in (one.feed(b) for b in feeds) if v is not None]
+    case = {"fn": "train", "meshes": [(2, 1)],
+            "models": {"lif": (cfg, sd, feeds)}}
+    runs = [r["w2"][(2, 1, "lif")] for r in run_world(
+        WORKER, 2, {"cases": [("w2", case)]}, device="cuda:0",
+        backend="gloo", timeout=300)]
+    assert runs[0]["losses"] == runs[1]["losses"]
+    for name, p in runs[0]["params"].items():
+        assert torch.equal(runs[1]["params"][name], p), name
+    assert runs[0]["losses"] == pytest.approx(losses, rel=1e-5)
+    for name, p in one.model.named_parameters():
+        ref = p.detach().cpu()
+        gap = float((runs[0]["params"][name] - ref).norm() / ref.norm())
+        assert gap <= 1e-5, name

@@ -492,7 +492,8 @@ def _all_imports(path):
 
 def test_no_blocked_imports_in_the_port():
     files = sorted((ROOT / "event_flow_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    # and what the multi-process tests and chip_smoke.py run in workers
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_worker.py"]
     assert len(files) > 20
     for path in files:
         for name in _top_level_imports(path):
