@@ -151,6 +151,22 @@ exits non-zero without the final ``ok`` line:
               length, per-file FWL/RSAT within 1e-6
               of one process; the gradient all-reduce's device and host
               ms and the gradient buffers' bytes
+ 19. bf16     the bfloat16 mixed-precision policy: LIFFireNet at
+              configs/train_SNN.yml with precision="bfloat16" through the
+              checks of phase 6 (update 1 twice bitwise, 3 timed updates
+              with exact launches of the bfloat16 variants, peak memory, a
+              profiled update), the parameters, Adam's state and the
+              carried state float32 after it, device ms per update of bf16
+              and f32 in turns, the parity of phase 7 in bf16 (each update
+              from the card's state); one bf16 SpikingRecEVFlowNet update
+              at configs/train_SNNrec_rich.yml twice bitwise with exact
+              launches; InferenceEngine(precision="bfloat16") at
+              ECD_LIFFIRENET (8 windows) and ECD_SPIKING_RECEVFLOWNET (2):
+              exact launches, flows and spikes against the CPU port's bf16
+              engine, windows/s and device busy per window of bf16 and f32
+              in turns; train(precision="bfloat16", profile=True) for 3
+              updates (train_flow --bf16 --profile) and what its trace
+              shows: span, device busy, CUDA runtime calls, host operators
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
@@ -166,17 +182,23 @@ time split by device operation (one per call) beside its yardstick's;
 and gives each kernel's bound (bytes at 3.35 TB/s or operations at the
 TF32 peak) and, where one PyTorch call computes the same function, that
 call's time (K1: cuDNN's conv; B2: cuDNN's weight gradient; K3:
-index_add_). The process's TF32 flags stay at PyTorch's defaults, as a
+index_add_). The bfloat16 variants of K1, K2, B2 and B4 are held against
+their bfloat16 plain versions (one bf16 ulp plus the float32 sums'
+tolerance) at the training shapes and the U-Net's deepest (512 to 1026
+channels), twice bitwise, with the same timings at the training shape,
+their bound from bf16 bytes or the 989 TFLOP/s bf16 peak, and cuDNN's
+bf16 conv and wgrad. The process's TF32 flags stay at PyTorch's defaults, as a
 user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8-18). Imports
+sum over the counted runs of every path (phases 4-6, 8-19). Imports
 nothing of JAX.
 """
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -202,14 +224,26 @@ TRAIN_LOSS_RTOL = 1e-3  # GPU vs CPU training loss and, per tensor,
 TRAIN_GRAD_RTOL = 1e-3  # ||g_gpu - g_cpu|| / ||g_cpu||: the same, through
                         # 3 windows of BPTT and Adam
 REPS = 20
-# the H100 SXM's published peaks (700 W): device memory, and the dense
-# TF32 tensor-core rate the kernels' f32 products run at (3xTF32)
+# the H100 SXM's published peaks (700 W): device memory, the dense TF32
+# tensor-core rate the kernels' f32 products run at (3xTF32), and the
+# dense bf16 rate the bfloat16 variants' work is bound by
 HBM_BPS = 3.35e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+def launch_counts():
+    """The launches of every kernel since the last reset; a bfloat16
+    variant's only where it launched, so that the float32 paths'
+    expected counts need not name the variants."""
+    from event_flow_tpu_torch.ops import native
+
+    return {k: n for k, n in native.LAUNCHES.items()
+            if n or not k.endswith("_bf16")}
 
 
 def phase_device():
@@ -336,21 +370,23 @@ def check_sum(got, ref, label):
     return err
 
 
-def least_ms(nbytes, flop):
+def least_ms(nbytes, flop, peak=TF32_FLOPS):
     """(ms, what sets it): the least time the card could take to move
-    nbytes at HBM_BPS and do flop at TF32_FLOPS, whichever is larger."""
-    t_bytes, t_flop = 1e3 * nbytes / HBM_BPS, 1e3 * flop / TF32_FLOPS
+    nbytes at HBM_BPS and do flop at ``peak`` FLOP/s, whichever is
+    larger."""
+    t_bytes, t_flop = 1e3 * nbytes / HBM_BPS, 1e3 * flop / peak
     return (t_bytes, "bytes") if t_bytes >= t_flop else (t_flop, "operations")
 
 
-def _record(out, name, err, timing=None):
+def _record(out, name, err, timing=None, peak=TF32_FLOPS):
     """Keep the largest error of a kernel and, for the one shape its JSON
-    entry reports, ``timing`` = (ms, plain_ms, library_ms, nbytes, flop)."""
+    entry reports, ``timing`` = (ms, plain_ms, library_ms, nbytes, flop),
+    its operations bound at ``peak``."""
     entry = out.setdefault(name, {"max_abs_err": 0.0})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     if timing:
         ms, plain_ms, library_ms, nbytes, flop = timing
-        bound_ms, bound_by = least_ms(nbytes, flop)
+        bound_ms, bound_by = least_ms(nbytes, flop, peak)
         entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=bound_ms, bound_by=bound_by)
 
@@ -477,8 +513,8 @@ def kernels_forward(inp, out):
                 d_k, src_k = device_ms(run_k, "fused_conv_lif_kernel")
                 d_p, src_p = device_ms(run_p)
                 npix = shape[0] * shape[1] * shape[2]
-                # x [+ z_rec] and v, z in; v', z' out; the weights
-                nbytes = 4 * (npix * (cin + (5 if rec else 4) * c)
+                # x, v and z in (z_rec is z), v', z' out; the weights
+                nbytes = 4 * (npix * (cin + 4 * c)
                               + wt.numel() + (wr.numel() if rec else 0))
                 flop = 2 * npix * c * 9 * (cin + (c if rec else 0))
                 print(f"[kernels] {label} x{c}: max|err| {err:.3g}, flips "
@@ -585,7 +621,7 @@ def kernels_unet(inp, out):
                 d_k, src_k = device_ms(run_k, "fused_conv_lif_kernel")
                 d_p, src_p = device_ms(run_p)
                 npix = h * w
-                nbytes = 4 * (npix * (cin + (5 if rec else 4) * c)
+                nbytes = 4 * (npix * (cin + 4 * c)
                               + wt.numel() + (wr.numel() if rec else 0))
                 flop = 2 * npix * c * 9 * (cin + (c if rec else 0))
                 line += (f"; kernel {t_k:.4f} ms one call, device {d_k:.4f} "
@@ -632,7 +668,8 @@ def conv2d_dw_library(x, g, k):
     """cuDNN's weight gradient in one call, B2's yardstick (never used by
     the port): weight-only ``aten.convolution_backward`` of the NHWC x and
     g seen as channels-last NCHW, OIHW [Cout, Cin, k, k]; TF32 off."""
-    w = torch.empty((g.shape[3], x.shape[3], k, k), device=x.device)
+    w = torch.empty((g.shape[3], x.shape[3], k, k), device=x.device,
+                    dtype=x.dtype)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         return torch.ops.aten.convolution_backward(
             g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None, [1, 1],
@@ -1009,6 +1046,194 @@ def kernels_scatter(inp, out):
           "outside [0, size) dropped")
 
 
+def bf16_close(got, ref, label, atol):
+    """|got - ref| within one bfloat16 ulp of the larger magnitude plus
+    ``atol`` (the float32 sums' order) everywhere; both bfloat16. Returns
+    the largest |got - ref|."""
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+        fail(f"{label}: {got.dtype} and {ref.dtype}, expected bfloat16")
+    from event_flow_tpu_torch.ops.native import beyond_bf16_ulp
+
+    err = (got.float() - ref.float()).abs()
+    bad = int(beyond_bf16_ulp(got, ref, atol).sum())
+    if bad:
+        fail(f"{label}: {bad} values beyond one bf16 ulp + {atol:.3g} "
+             f"(max |err| {float(err.max())})")
+    return float(err.max())
+
+
+def _timings(run_k, run_p, run_l, kernel_name, nbytes, flop):
+    """One-call ms (CUDA events) of the kernel, its plain version and its
+    library call (None), and the kernel's device ms per call: its device
+    operations whose name holds ``kernel_name``, or all of the call's."""
+    t_k, t_p = timed(run_k), timed(run_p)
+    t_l = timed(run_l) if run_l else None
+    d_k, src = device_ms(run_k, kernel_name)
+    b_ms, b_by = least_ms(nbytes, flop, BF16_FLOPS)
+    line = (f"kernel {t_k:.4f} ms one call, device {d_k:.4f} ms/call [{src}] "
+            f"({_rates(nbytes, flop, d_k)}, {b_ms / d_k:.3f} of its bound "
+            f"{b_ms:.4f} ms, {b_by}); plain {t_p:.4f} ms one call"
+            + (f"; cuDNN bf16 {t_l:.4f} ms one call" if run_l else
+               "; no one PyTorch call computes it"))
+    return (t_k, t_p, t_l, nbytes, flop), line
+
+
+# bfloat16 K1 shapes (B, H, W, Cin, Cout, k, x): the LIFFireNet dx (timed
+# for the JSON line), the head at serving and its dx, a U-Net decoder's
+# input with 1026 channels (4-byte copies) and an E2VID-sized gate
+K1_BF16 = ((8, 128, 128, 32, 32, 3, "spikes"), (1, 180, 240, 32, 2, 1,
+                                                "spikes"),
+           (8, 128, 128, 2, 32, 1, "randn"), (1, 24, 30, 1026, 256, 3,
+                                              "flow"),
+           (8, 16, 16, 512, 1024, 3, "randn"), (2, 20, 21, 5, 7, 3, "randn"))
+# bfloat16 K2 shapes (B, H, W, Cin, Cout, recurrent): the training cells
+# (timed), the head on counts, and the U-Net's deepest and widest cells
+K2_BF16 = ((8, 128, 128, 32, 32, False), (8, 128, 128, 32, 32, True),
+           (8, 128, 128, 2, 32, False), (8, 8, 8, 512, 512, True),
+           (8, 16, 16, 1024, 256, False), (1, 46, 60, 514, 128, False),
+           (1, 180, 240, 130, 32, False))
+B2_BF16 = B2_FIRENET + ((8, 8, 8, 512, 512, 3, "spikes"),
+                        (8, 16, 16, 1024, 256, 3, "spikes"),
+                        (8, 64, 64, 258, 64, 3, "flow"),
+                        (2, 20, 21, 5, 7, 3, "randn"))
+
+
+def kernels_bf16(inp, out):
+    """The bfloat16 variants of K1, K2, B2 and B4 against their bfloat16
+    plain versions (float32 sums rounded once): within one bf16 ulp plus
+    the float32 sums' tolerance (ATOL; B2 and the B4 sums SUM_RTOL of the
+    largest magnitude), spikes equal away from the threshold, run twice
+    bitwise equal; at the training shape one call's time, device ms,
+    the bound (bf16 bytes at 3.35 TB/s or the FLOP at 989 TFLOP/s) and
+    cuDNN's bf16 conv or wgrad."""
+    from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel,
+                                               conv2d_dw_plain, conv2d_same,
+                                               conv2d_same_plain)
+    from event_flow_tpu_torch.ops.fused_lif import (
+        fused_conv_lif, fused_conv_lif_plain, fused_conv_lif_rec,
+        fused_conv_lif_rec_plain, fused_lif_bwd_kernel, fused_lif_bwd_plain)
+
+    bf = torch.bfloat16
+    for b, h, w, cin, cout, k, kind in K1_BF16:
+        x = _b2_x(inp, (b, h, w, cin), kind).to(bf)
+        wt = inp.uniform((cout, cin, k, k), (1 / (cin * k * k)) ** 0.5).to(bf)
+        label = f"K1 bf16 conv2d_same {b}x{h}x{w} {cin}->{cout} k={k} {kind}"
+        y = conv2d_same(x, wt)
+        err = bf16_close(y, conv2d_same_plain(x, wt), label, ATOL)
+        if not torch.equal(y, conv2d_same(x, wt)):
+            fail(f"{label}: two runs differ")
+        timing, line = None, "not timed"
+        if (b, cin, cout) == (8, 32, 32):
+            npix = b * h * w
+            timing, line = _timings(
+                lambda: conv2d_same(x, wt), lambda: conv2d_same_plain(x, wt),
+                lambda: conv2d_library(x, wt), "conv2d_same_kernel",
+                2 * (npix * (cin + cout) + wt.numel()),
+                2 * npix * cout * k * k * cin)
+        print(f"[kernels] {label}: max|err| {err:.3g}, repeatable; {line}")
+        _record(out, "conv2d_same_bf16", err, timing, BF16_FLOPS)
+
+    for b, h, w, cin, c, rec in K2_BF16:
+        shape = (b, h, w)
+        x = (inp.counts(shape + (cin,)) if cin == 2
+             else inp.spikes(shape + (cin,))).to(bf)
+        wt = inp.uniform((c, cin, 3, 3), (1 / cin) ** 0.5).to(bf)
+        wr = inp.uniform((c, c, 3, 3), (1 / c) ** 0.5).to(bf)
+        leak, thresh = inp.neuron(c)
+        v = (thresh + 0.3 * inp.normal(shape + (c,))).to(bf)
+        z = inp.spikes(shape + (c,)).to(bf)
+        for hard in (True, False):
+            def cell(fn, fn_rec, x, wt, wr, v, z):
+                if rec:
+                    return fn_rec(x, wt, wr, v, z, z, leak, thresh, 3, hard)
+                return fn(x, wt, v, z, leak, thresh, 3, hard)
+
+            def run_k():
+                return cell(fused_conv_lif, fused_conv_lif_rec, x, wt, wr, v,
+                            z)
+
+            def run_p():
+                return cell(fused_conv_lif_plain, fused_conv_lif_rec_plain,
+                            x, wt, wr, v, z)
+
+            # v' in float32, for the spikes' distance to the threshold
+            wide = cell(fused_conv_lif_plain, fused_conv_lif_rec_plain,
+                        *(t.float() for t in (x, wt, wr, v, z)))
+            name = "fused_conv_lif_rec_bf16" if rec else "fused_conv_lif_bf16"
+            label = (f"K2 bf16 {name[:-5]} {b}x{h}x{w} Cin {cin} x{c} "
+                     f"{'hard' if hard else 'soft'}")
+            (vk, zk), (vp, zp) = run_k(), run_p()
+            err = bf16_close(vk, vp, label, ATOL)
+            flips = check_spikes(zk.float(), zp.float(), wide[0], thresh,
+                                 label)
+            if not all(map(torch.equal, (vk, zk), run_k())):
+                fail(f"{label}: two runs differ")
+            timing, line = None, "not timed"
+            if (b, cin, hard) == (8, 32, True):
+                npix = b * h * w
+                timing, line = _timings(
+                    run_k, run_p, None, "fused_conv_lif_kernel",
+                    2 * (npix * (cin + 4 * c) + wt.numel()
+                         + (wr.numel() if rec else 0)),
+                    2 * npix * c * 9 * (cin + (c if rec else 0)))
+            print(f"[kernels] {label}: max|err| {err:.3g}, flips {flips}, "
+                  f"spike rate {float(zp.float().mean()):.4f}, repeatable; "
+                  f"{line}")
+            _record(out, name, err, timing, BF16_FLOPS)
+            if not rec and cin == 32 or (b, c) == (8, 512):
+                # B4 on this forward's saved maps and bf16 cotangents
+                args = (v, z, vk, leak, thresh,
+                        inp.normal(shape + (c,), 1e-3).to(bf),
+                        inp.normal(shape + (c,), 1e-3).to(bf), hard,
+                        "arctanspike", 10.0)
+                got = fused_lif_bwd_kernel(*args)
+                ref = fused_lif_bwd_plain(*args)
+                blabel = f"B4 bf16 fused_lif_bwd {b}x{h}x{w}x{c} " + (
+                    "hard" if hard else "soft")
+                err = max(bf16_close(a, r, blabel, 1e-7)
+                          for a, r in zip(got[:2], ref[:2]))
+                for a, r, what in zip(got[2:], ref[2:], ("g_leak",
+                                                         "g_thresh")):
+                    if a.dtype != torch.float32:
+                        fail(f"{blabel} {what}: {a.dtype}, expected float32")
+                    err = max(err, check_sum(a, r, f"{blabel} {what}"))
+                if not all(torch.equal(a, r) for a, r in zip(
+                        got, fused_lif_bwd_kernel(*args))):
+                    fail(f"{blabel}: two runs differ")
+                timing, line = None, "not timed"
+                if (b, c, hard) == (8, 32, True):
+                    n = v.numel()
+                    timing, line = _timings(
+                        lambda: fused_lif_bwd_kernel(*args),
+                        lambda: fused_lif_bwd_plain(*args), None, None,
+                        7 * 2 * n, 30 * n)
+                print(f"[kernels] {blabel}: max|err| {err:.3g}, repeatable; "
+                      f"{line}")
+                _record(out, "fused_lif_bwd_bf16", err, timing, BF16_FLOPS)
+
+    for b, h, w, cin, cout, k, kind in B2_BF16:
+        x = _b2_x(inp, (b, h, w, cin), kind).to(bf)
+        g = inp.normal((b, h, w, cout), 1e-3).to(bf)
+        label = f"B2 bf16 conv2d_dw {b}x{h}x{w} {cin}->{cout} k={k} {kind}"
+        got = conv2d_dw_kernel(x, g, k)
+        ref = conv2d_dw_plain(x, g, k)
+        err = bf16_close(got, ref, label,
+                         SUM_RTOL * float(ref.float().abs().max()))
+        if not torch.equal(got, conv2d_dw_kernel(x, g, k)):
+            fail(f"{label}: two runs differ")
+        timing, line = None, "not timed"
+        if (cin, cout, kind) == (32, 32, "spikes"):
+            npix = b * h * w
+            timing, line = _timings(
+                lambda: conv2d_dw_kernel(x, g, k),
+                lambda: conv2d_dw_plain(x, g, k),
+                lambda: conv2d_dw_library(x, g, k), None,
+                2 * (npix * (cin + cout) + cout * cin * k * k),
+                2 * npix * cout * cin * k * k)
+        print(f"[kernels] {label}: max|err| {err:.3g}, repeatable; {line}")
+        _record(out, "conv2d_dw_bf16", err, timing, BF16_FLOPS)
+
+
 def phase_kernels():
     inp = _Inputs(torch.device("cuda"))
     out = {}
@@ -1018,6 +1243,7 @@ def phase_kernels():
     kernels_gru(inp, out)
     kernels_backward(inp, out)
     kernels_scatter(inp, out)
+    kernels_bf16(inp, out)
     return out
 
 
@@ -1031,7 +1257,7 @@ def phase_slice():
     evaluate(config, "cuda", seed=0)  # warm-up: first-call costs
     native.reset_launch_counts()
     gpu = evaluate(config, "cuda", seed=0)
-    counts = dict(native.LAUNCHES)
+    counts = launch_counts()
     ev = gpu["evaluator"]
     n, groups = gpu["windows"], ev.metric_groups
     expected = {"fused_conv_lif": 5 * n, "fused_conv_lif_rec": 2 * n,
@@ -1046,7 +1272,7 @@ def phase_slice():
           + ", ".join(f"{k} {v:.4f}" for k, v in rates.items()))
 
     cpu = evaluate(config, "cpu", seed=0)
-    if native.LAUNCHES != counts:
+    if launch_counts() != counts:
         fail("the CPU run launched CUDA kernels")
     gaps = compare_metrics("slice", gpu["results"], cpu["results"])
     print(f"[slice] gpu {n / gpu['seconds']:.2f} windows/s, "
@@ -1183,7 +1409,7 @@ def update_parts(events):
     return parts
 
 
-def update_twice(tag, config):
+def update_twice(tag, config, precision="float32"):
     """Update 1 of ``config`` on the card from the seeded init, then again
     from the same init and batches in a second trainer: the loss and every
     gradient bitwise equal. Returns (the first trainer, its stream, the
@@ -1194,14 +1420,14 @@ def update_twice(tag, config):
 
     name = config["model"]["name"]
     with torch.enable_grad():
-        trainer = Trainer(config, "cuda")
+        trainer = Trainer(config, "cuda", precision=precision)
         stream = SyntheticWindowStream(config)
         first = _feed_update(trainer, stream)
         grads_1 = _grads(trainer.model)
         native.reset_launch_counts()
-        again = Trainer(config, "cuda")
+        again = Trainer(config, "cuda", precision=precision)
         again_loss = _feed_update(again, SyntheticWindowStream(config))
-        counts = dict(native.LAUNCHES)
+        counts = launch_counts()
         grads_again = _grads(again.model)
     if again_loss != first or set(grads_again) != set(grads_1) or not all(
             torch.equal(grads_1[k], grads_again[k]) for k in grads_1):
@@ -1213,8 +1439,9 @@ def update_twice(tag, config):
     return trainer, stream, first, counts
 
 
-def train_phase(tag, config, expected):
-    """The training update at ``config`` on the card: update 1 run twice
+def train_phase(tag, config, expected, precision="float32"):
+    """The training update at ``config`` on the card, in ``precision``:
+    update 1 run twice
     from the same init and batches, bitwise equal in the loss and every
     gradient; then 3 timed updates with their launch counts, which must
     equal ``expected(t, u)`` (T windows, u updates); their peak device
@@ -1229,7 +1456,7 @@ def train_phase(tag, config, expected):
     res = config["loader"]["resolution"]
     name = config["model"]["name"]
     with torch.enable_grad():
-        trainer, stream, first, _ = update_twice(tag, config)
+        trainer, stream, first, _ = update_twice(tag, config, precision)
         t = trainer.t_windows
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1239,7 +1466,7 @@ def train_phase(tag, config, expected):
             t0 = time.perf_counter()
             losses.append(_feed_update(trainer, stream))
             seconds.append(time.perf_counter() - t0)
-        counts = dict(native.LAUNCHES)
+        counts = launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with ShapeLog() as log:  # one more update, profiled
             wall_us, events = _device_events(
@@ -1355,7 +1582,8 @@ def parity_config(config, seed=None):
     return config
 
 
-def parity_phase(tag, config, lockstep=False):
+def parity_phase(tag, config, lockstep=False, precision="float32",
+                 rtol=(TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL)):
     """3 updates at parity_config's size of ``config``'s model on the card
     and on the CPU, from the same seeded init and stream: the losses
     within TRAIN_LOSS_RTOL and the gradients of update 1 within
@@ -1369,7 +1597,8 @@ def parity_phase(tag, config, lockstep=False):
     1.85e-3 in one block (encoder 2 and decoder 1, at 16 x 16) with the
     losses within 2e-7 and cuDNN's strided gradients within 7e-7 of
     float64 (on an NVIDIA H100 80GB HBM3, 700.00 W), a relu kink, so the
-    gradients are held at update 1, as for the other models."""
+    gradients are held at update 1, as for the other models. ``rtol``:
+    the losses' and the gradients' tolerances."""
     from event_flow_tpu_torch.data.stream import SyntheticWindowStream
     from event_flow_tpu_torch.models.state import map_state
     from event_flow_tpu_torch.ops import native
@@ -1380,7 +1609,7 @@ def parity_phase(tag, config, lockstep=False):
     devs = ("cuda", "cpu")
     losses, grads = {d: [] for d in devs}, {}
     with torch.enable_grad():
-        trainers = {d: Trainer(config, d) for d in devs}
+        trainers = {d: Trainer(config, d, precision=precision) for d in devs}
         streams = {d: SyntheticWindowStream(config) for d in devs}
         for i in range(3):
             for dev in devs:
@@ -1403,7 +1632,7 @@ def parity_phase(tag, config, lockstep=False):
                 cpu.state = cpu.state._replace(model_state=map_state(
                     lambda t: t.cpu(), gpu.state.model_state))
     worst = _hold_to_cpu(name, losses["cuda"], losses["cpu"], grads["cuda"],
-                         grads["cpu"])
+                         grads["cpu"], *rtol)
     print(f"[{tag}] {name} B 2, 64x64, T 3, width "
           f"{config['model']['base_num_channels']}"
           + (", each update from the card's state" if lockstep else "")
@@ -1417,12 +1646,13 @@ def parity_phase(tag, config, lockstep=False):
           f"({worst[0]})")
 
 
-def _hold_to_cpu(name, gpu_losses, cpu_losses, gpu_grads, cpu_grads):
-    """Fails unless every loss is within TRAIN_LOSS_RTOL and every
-    gradient within TRAIN_GRAD_RTOL (||g_gpu - g_cpu|| / ||g_cpu||) of
-    the CPU's; returns the largest gradient gap and its parameter."""
+def _hold_to_cpu(name, gpu_losses, cpu_losses, gpu_grads, cpu_grads,
+                 loss_rtol=TRAIN_LOSS_RTOL, grad_rtol=TRAIN_GRAD_RTOL):
+    """Fails unless every loss is within ``loss_rtol`` and every gradient
+    within ``grad_rtol`` (||g_gpu - g_cpu|| / ||g_cpu||) of the CPU's;
+    returns the largest gradient gap and its parameter."""
     for i, (a, r) in enumerate(zip(gpu_losses, cpu_losses)):
-        if not abs(a - r) <= TRAIN_LOSS_RTOL * abs(r):
+        if not abs(a - r) <= loss_rtol * abs(r):
             fail(f"{name} update {i + 1}: GPU loss {a} vs CPU {r}")
     if set(gpu_grads) != set(cpu_grads):
         fail(f"{name}: GPU and CPU runs have gradients for different "
@@ -1431,9 +1661,9 @@ def _hold_to_cpu(name, gpu_losses, cpu_losses, gpu_grads, cpu_grads):
     for pname, ref in cpu_grads.items():
         rel = float((gpu_grads[pname] - ref).norm()
                     / ref.norm().clamp(min=1e-30))
-        if not rel <= TRAIN_GRAD_RTOL:
+        if not rel <= grad_rtol:
             fail(f"{name} update 1 gradient of {pname}: rel gap {rel} > "
-                 f"{TRAIN_GRAD_RTOL}")
+                 f"{grad_rtol}")
         worst = max(worst, (pname, rel), key=lambda kv: kv[1])
     return worst
 
@@ -1615,7 +1845,7 @@ def phase_unet():
     evaluate(config, "cuda", seed=0)  # warm-up: first-call costs
     native.reset_launch_counts()
     gpu = evaluate(config, "cuda", seed=0)
-    counts = dict(native.LAUNCHES)
+    counts = launch_counts()
     ev = gpu["evaluator"]
     n, groups = gpu["windows"], ev.metric_groups
     # per window: K2 8 feedforward (4 residual-block cells, 4 decoders) +
@@ -1672,7 +1902,7 @@ class CellLog:
     |v - thresh|."""
 
     def __init__(self, config, device, force=None, seed=0, model=None):
-        from event_flow_tpu_torch.eval_flow import build_model
+        from event_flow_tpu_torch.models.registry import build_model
         from event_flow_tpu_torch.models.snn_cells import lif_cell_names
 
         self.model = model if model is not None else build_model(
@@ -1840,7 +2070,7 @@ def serve_phase(tag, config, k1, k2=0, sequences=None, warm_up=True,
         cpu = run_cpu()
     native.reset_launch_counts()
     gpu = run("cuda")
-    counts = dict(native.LAUNCHES)
+    counts = launch_counts()
     ev = gpu["evaluator"]
     n, groups = gpu["windows"], ev.metric_groups
     expected = {"fused_conv_lif": k2 * n, "fused_conv_lif_rec": 0,
@@ -2364,7 +2594,7 @@ def aee_serve(tag, config, per_window):
     torch.cuda.reset_peak_memory_stats()
     native.reset_launch_counts()
     gpu = evaluate(config, "cuda", sequences=seqs)
-    counts = dict(native.LAUNCHES)
+    counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ev = gpu["evaluator"]
     n = gpu["windows"]
@@ -2468,7 +2698,7 @@ def aee_train(tag):
             trainer = capturing(Trainer(config, "cuda"))
             native.reset_launch_counts()
             loss = _feed_update(trainer, ArrayEventStream(config, seqs))
-            counts = dict(native.LAUNCHES)
+            counts = launch_counts()
             events, valid, aug, reset = captured[0]
             again = Trainer(config, "cuda")
             loss_2, state_2 = again.step(again.state, events, valid, aug,
@@ -2596,7 +2826,7 @@ def phase_runs():
         native.reset_launch_counts()
         (_, c, hist_c), out = quiet(train, config, "cuda", 2, resume=rid_b,
                                     **run)
-        counts = dict(native.LAUNCHES)
+        counts = launch_counts()
         paths.append(counts)
         t = a.t_windows
         if f"resumed run {rid_b} at epoch 0" not in out:
@@ -2638,7 +2868,7 @@ def phase_runs():
         native.reset_launch_counts()
         (_, w, hist_w), out = quiet(train, config, "cuda", 1,
                                     prev_runid=rid_a, **run)
-        paths.append(dict(native.LAUNCHES))
+        paths.append(launch_counts())
         steps = {float(st["step"]) for st in
                  w.state.optimizer.state_dict()["state"].values()}
         if "restored params from" not in out or steps != {1.0} or \
@@ -2653,7 +2883,7 @@ def phase_runs():
         evaluate(ecfg, "cuda", seed=0)  # warm-up: first-call costs
         native.reset_launch_counts()
         gpu, out = quiet(evaluate_run, rid_a, ecfg, "cuda", runs_root=root)
-        paths.append(dict(native.LAUNCHES))
+        paths.append(launch_counts())
         windows, groups = gpu["windows"], gpu["evaluator"].metric_groups
         want = {"fused_conv_lif": 5 * windows,
                 "fused_conv_lif_rec": 2 * windows, "conv2d_same": windows,
@@ -2692,7 +2922,7 @@ def phase_runs():
         again.resume(tracker.dir, again_stream)
         native.reset_launch_counts()
         got_loss = _feed_update(again, again_stream)
-        paths.append(dict(native.LAUNCHES))
+        paths.append(launch_counts())
         if paths[-1] != unet_update(again.t_windows, 1):
             fail(f"SpikingRecEVFlowNet restored launches {paths[-1]}")
         if got_loss != want_loss:
@@ -2832,7 +3062,8 @@ def phase_native():
                                                          write_pack)
     from event_flow_tpu_torch.data.sequences import rich_sequence
     from event_flow_tpu_torch.data.stream import ArrayEventStream
-    from event_flow_tpu_torch.eval_flow import build_model, evaluate
+    from event_flow_tpu_torch.eval_flow import evaluate
+    from event_flow_tpu_torch.models.registry import build_model
     from event_flow_tpu_torch.ops import native
     from event_flow_tpu_torch.train_flow import train
 
@@ -2877,7 +3108,7 @@ def phase_native():
             native.reset_launch_counts()
             _, trainer, hist = train(config, "cuda", 4, debug=True,
                                      native=True)
-            counts = dict(native.LAUNCHES)
+            counts = launch_counts()
             _, _, hist_mem = train(config, "cuda", 4, debug=True,
                                    sequences=seqs)
         t = trainer.t_windows
@@ -2937,7 +3168,7 @@ def phase_native():
             finally:
                 stream.close()
             if label == "native":
-                counts = dict(native.LAUNCHES)
+                counts = launch_counts()
             host[label] = stream.ms
         n = reports["native"]["windows"]
         lif = {"fused_conv_lif": 5, "fused_conv_lif_rec": 2,
@@ -3056,7 +3287,7 @@ def engine_phase(tag, config, n, per_window):
     from event_flow_tpu_torch.eval.predict import InferenceEngine
     from event_flow_tpu_torch.eval.serialized import (SerializedEngine,
                                                       export_engine)
-    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.models.registry import build_model
     from event_flow_tpu_torch.ops import native
     from event_flow_tpu_torch.ops.hot_filter import init_hot_state
 
@@ -3081,7 +3312,7 @@ def engine_phase(tag, config, n, per_window):
     engine = InferenceEngine(config, model, "cuda")
     native.reset_launch_counts()
     flows = [engine.step(ev[i], va[i]).clone() for i in range(n)]
-    counts = dict(native.LAUNCHES)
+    counts = launch_counts()
     want = {k: per_window.get(k, 0) * n for k in counts}
     if counts != want:
         fail(f"[{tag}] {name} engine launches {counts} != {want}")
@@ -3111,7 +3342,7 @@ def engine_phase(tag, config, n, per_window):
                 eng.step(ev[i].to(device), va[i].to(device))
                 iwes[device].append(eng.last_iwe.cpu())
             if device == "cuda":
-                iwe_counts = dict(native.LAUNCHES)
+                iwe_counts = launch_counts()
         finally:
             log.remove()
     want_iwe = dict(want, scatter_add=want["scatter_add"] + n)
@@ -3142,7 +3373,7 @@ def engine_phase(tag, config, n, per_window):
         load_s = time.perf_counter() - t0
     native.reset_launch_counts()
     sflows = [ser.step(ev[i], va[i]).clone() for i in range(n)]
-    scounts = dict(native.LAUNCHES)
+    scounts = launch_counts()
     if scounts != counts:
         fail(f"[{tag}] {name} serialized launches {scounts} != live "
              f"{counts}")
@@ -3298,7 +3529,7 @@ def vis_serve(tag, config, sequences, per_window, per_group, root):
                                        model=log.model, outputs=out)
         finally:
             log.remove()
-        counts = dict(native.LAUNCHES)
+        counts = launch_counts()
         if device == "cpu" and any(counts.values()):
             fail(f"[{tag}] the CPU run launched CUDA kernels")
         kept[device] = out.kept
@@ -3369,8 +3600,8 @@ def vis_rates(tag, config, sequences, root):
     and the host ms per window each output adds."""
     import os
 
-    from event_flow_tpu_torch.eval_flow import (WindowOutputs, build_model,
-                                                evaluate)
+    from event_flow_tpu_torch.eval_flow import WindowOutputs, evaluate
+    from event_flow_tpu_torch.models.registry import build_model
 
     kinds = {"none": copy.deepcopy(config), "store": copy.deepcopy(config),
              "store+activity": config}
@@ -3453,7 +3684,7 @@ def vis_cells(tag):
             grads = {"x": xd.grad.cpu(), **{n: p.grad.cpu() for n, p in
                                             cell.named_parameters()
                                             if p.requires_grad}}
-            runs[device] = (steps, grads, dict(native.LAUNCHES))
+            runs[device] = (steps, grads, launch_counts())
         (cs, cg, _), (ks, kg, counts) = runs["cpu"], runs["cuda"]
         want = {"fused_conv_lif": 0, "fused_conv_lif_rec": 0,
                 "conv2d_same": k1, "scatter_add": 0, "fused_lif_bwd": 0,
@@ -3521,7 +3752,7 @@ def vis_train(tag, root):
                                        runs_root=root, vis=True)
     finally:
         loop.build_model = build
-    counts = dict(native.LAUNCHES)
+    counts = launch_counts()
     want = lif_update(trainer.t_windows, 1)
     if counts != want:
         fail(f"[{tag}] --vis update launches {counts} != {want}")
@@ -3702,7 +3933,7 @@ def _dist_eval_case():
 
     from event_flow_tpu_torch.config import ECD_LIFFIRENET
     from event_flow_tpu_torch.data.sequences import synthetic_sequence
-    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.models.registry import build_model
 
     config = copy.deepcopy(ECD_LIFFIRENET)
     config["loader"]["batch_size"] = 4
@@ -3728,7 +3959,8 @@ def _dist_eval_case():
 
 def _dist_evaluate(device, mesh=None):
     """evaluate() of _dist_eval_case on ``device``, over ``mesh``."""
-    from event_flow_tpu_torch.eval_flow import build_model, evaluate
+    from event_flow_tpu_torch.eval_flow import evaluate
+    from event_flow_tpu_torch.models.registry import build_model
 
     config, sequences, weights = _dist_eval_case()
     model = build_model(config, device)
@@ -3768,7 +4000,7 @@ def dist_worker(payload, device):
                 loss = _feed_update(trainer, stream)
                 seconds = time.perf_counter() - t0
                 runs.append({
-                    "loss": loss, "launches": dict(native.LAUNCHES),
+                    "loss": loss, "launches": launch_counts(),
                     "seconds": seconds,
                     "digest": _param_digest(trainer.model),
                     "grads": ({k: g.cpu() for k, g in
@@ -3822,7 +4054,7 @@ def dist_world1(tag):
 
     from event_flow_tpu_torch.config import TRAIN_SNN, TRAIN_SNNREC
     from event_flow_tpu_torch.data.stream import SyntheticWindowStream
-    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.models.registry import build_model
     from event_flow_tpu_torch.ops import native
     from event_flow_tpu_torch.parallel.distributed import init_distributed
     from event_flow_tpu_torch.parallel.mesh import make_mesh
@@ -3844,7 +4076,7 @@ def dist_world1(tag):
                 native.reset_launch_counts()
                 got = [_feed_update(meshed, streams["mesh"])
                        for _ in range(3)]
-                counts = dict(native.LAUNCHES)
+                counts = launch_counts()
                 if got != want:
                     fail(f"[{tag}] world-1 NCCL losses {got} != no mesh "
                          f"{want}")
@@ -4004,6 +4236,263 @@ def phase_dist():
     return counts
 
 
+# [bf16]: the mixed-precision policy. Card against the CPU port, both in
+# bfloat16: the same float32 sums in another order, each rounded once to
+# bfloat16, so a value may land one bf16 ulp (2^-8) apart and move the
+# next window; where that flips a spike the gap grows (tests/
+# test_torch_bf16.py holds the CPU port to JAX, whose sums and roundings
+# differ more, at 2e-3 on the U-Net's loss and 0.2 on its gradients).
+# Measured on an NVIDIA H100 80GB HBM3, 700.00 W: loss gaps at most
+# 1.7e-7, gradient gaps 4.1e-4, the served flows and spikes equal.
+BF16_LOSS_RTOL = 1e-4
+BF16_GRAD_RTOL = 1e-2
+BF16_FLOW_RTOL = 1e-3  # ||flow_gpu - flow_cpu|| / ||flow_cpu|| per window
+BF16_SPIKE_SHARE = MAX_FLIP_SHARE  # spikes of the last state that differ
+BF16_SERVE_WINDOWS = (8, 2)  # LIFFireNet, SpikingRecEVFlowNet
+
+
+def bf16_counts(counts):
+    """Launch counts of a float32 path as its bfloat16 run makes them: K1,
+    K2, B2 and B4 under their bfloat16 variants' names, K3 unchanged."""
+    out = {k: 0 for k in counts}
+    for k, n in counts.items():
+        if k == "scatter_add":
+            out[k] = n
+        elif n:
+            out[k + "_bf16"] = n
+    return out
+
+
+def _float32_everywhere(tag, trainer):
+    """Parameters, the optimizer's state and the carried state float32."""
+    opt = trainer.state.optimizer.state_dict()["state"]
+    tensors = (list(trainer.model.parameters())
+               + [t for s in opt.values() for t in s.values()
+                  if isinstance(t, torch.Tensor)]
+               + _tensors(trainer.state.model_state))
+    odd = {str(t.dtype) for t in tensors if t.is_floating_point()
+           and t.dtype != torch.float32}
+    if odd:
+        fail(f"[{tag}] after bf16 updates the train state holds {odd}")
+    return len(tensors)
+
+
+def bf16_busy_in_turns(tag, config):
+    """Device ms of one update (torch.profiler) of a bf16 and a float32
+    Trainer at ``config``, in turns bf16, f32, f32, bf16, each after a
+    warm-up update."""
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    runs = {}
+    with torch.enable_grad():
+        for precision in ("bfloat16", "float32"):
+            trainer = Trainer(config, "cuda", precision=precision)
+            stream = SyntheticWindowStream(config)
+            _feed_update(trainer, stream)
+            runs[precision] = (trainer, stream, [])
+        for precision in ("bfloat16", "float32", "float32", "bfloat16"):
+            trainer, stream, busy = runs[precision]
+            wall_us, events = _device_events(
+                lambda: _feed_update(trainer, stream))
+            if not events:
+                busy.append(None)
+                continue
+            busy.append((sum(us for _, _, us in events) / 1e3,
+                         wall_us / 1e3, len(events)))
+    for precision, (_, _, busy) in runs.items():
+        print(f"[{tag}] {precision} update, device busy ms (wall ms, device "
+              "operations; profiler on), in turns: " + ", ".join(
+                  "not measured" if b is None else
+                  f"{b[0]:.3f} ({b[1]:.3f}, {b[2]})" for b in busy))
+    return runs
+
+
+def bf16_serve(tag, config, n, per_window):
+    """``config``'s serving through InferenceEngine(precision="bfloat16")
+    over n windows of one in-memory sequence on the card and on the CPU:
+    exact launches per window of the bfloat16 variants, every window's
+    flow within BF16_FLOW_RTOL (relative L2) of the CPU's, the last
+    state's spikes equal but for BF16_SPIKE_SHARE; then windows/s and
+    device busy per window of the bf16 and the float32 engine on the
+    card, in turns. Returns the launch counts."""
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
+    from event_flow_tpu_torch.models.registry import build_model
+    from event_flow_tpu_torch.ops import native
+
+    name = config["model"]["name"]
+    ev, va = engine_windows(config, n)
+    flows, states = {}, {}
+    for device in ("cpu", "cuda"):
+        engine = InferenceEngine(config, build_model(config, device), device,
+                                 precision="bfloat16")
+        native.reset_launch_counts()
+        flows[device] = [engine.step(ev[i].to(device), va[i].to(device))
+                         .cpu() for i in range(n)]
+        states[device] = _tensors(engine._state)
+    counts = launch_counts()
+    want = bf16_counts({k: per_window.get(k, 0) * n for k in (
+        "conv2d_same", "fused_conv_lif", "fused_conv_lif_rec", "scatter_add",
+        "conv2d_dw", "fused_lif_bwd")})
+    if counts != want:
+        fail(f"[{tag}] {name} bf16 engine launches {counts} != {want}")
+    gaps = [float((g - c).norm() / c.norm().clamp(min=1e-30))
+            for g, c in zip(flows["cuda"], flows["cpu"])]
+    top = max(float(f.abs().max()) for f in flows["cpu"])
+    if any(f.dtype != torch.float32 or not torch.isfinite(f).all()
+           for f in flows["cuda"]) or top == 0.0:
+        fail(f"[{tag}] {name}: bf16 flows not float32, not finite or zero")
+    if max(gaps) > BF16_FLOW_RTOL:
+        fail(f"[{tag}] {name}: bf16 flow gaps to the CPU {gaps} > "
+             f"{BF16_FLOW_RTOL}")
+    spikes = [(g.cpu(), c) for g, c in zip(states["cuda"], states["cpu"])
+              if g.dtype == torch.bfloat16 and bool(((c == 0) | (c == 1))
+                                                     .all())]
+    differ = sum(int((g != c).sum()) for g, c in spikes)
+    total = sum(c.numel() for _, c in spikes)
+    if any(t.dtype != torch.bfloat16 for t in states["cuda"]) or \
+            differ > BF16_SPIKE_SHARE * total:
+        fail(f"[{tag}] {name}: bf16 state {[t.dtype for t in states['cuda']]}"
+             f", {differ} of {total} spikes differ from the CPU's")
+    print(f"[{tag}] {name} bf16 engine, {n} windows of {ev.shape[2]} events: "
+          f"launches {counts}; flows against the CPU port's bf16 engine: "
+          f"relative L2 gaps " + ", ".join(f"{g:.3g}" for g in gaps)
+          + f" (max |flow| {top:.4g}); last state: {differ} of {total} "
+          "spikes differ")
+
+    model = build_model(config, "cuda")
+    engines = {p: InferenceEngine(config, model, "cuda", precision=p)
+               for p in ("bfloat16", "float32")}
+    ev, va = ev.cuda(), va.cuda()
+
+    def steps(engine):
+        def run():
+            engine.reset()
+            for i in range(n):
+                engine.step(ev[i], va[i])
+        return run
+
+    for precision in ("bfloat16", "float32", "float32", "bfloat16"):
+        run = steps(engines[precision])
+        print(f"[{tag}] {name} {precision} engine.step: "
+              f"{_windows_per_s(run, n)} windows/s, device busy "
+              f"{_busy_ms(run, n)} ms per window (profiler on)")
+    return counts
+
+
+def profile_trace_summary(tag, path, updates):
+    """What a --profile trace shows: its span, the device's busy time and
+    operations, the host's CUDA runtime calls, and the host operators
+    with the most time (inclusive), per update."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    if not events:
+        fail(f"[{tag}] --profile trace {path} holds no events")
+    span = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events)) / 1e3
+    by_cat = {}
+    for e in events:
+        n, us = by_cat.get(e.get("cat"), (0, 0.0))
+        by_cat[e.get("cat")] = (n + 1, us + e["dur"])
+    device = [by_cat.get(c, (0, 0.0)) for c in ("kernel", "gpu_memcpy",
+                                                "gpu_memset")]
+    busy = sum(us for _, us in device) / 1e3
+    if busy == 0:
+        fail(f"[{tag}] --profile trace {path} holds no device events")
+    n_rt, rt_us = by_cat.get("cuda_runtime", (0, 0.0))
+    ops = {}
+    for e in events:
+        if e.get("cat") in ("cpu_op", "cuda_runtime"):
+            n, us = ops.get(e["name"], (0, 0.0))
+            ops[e["name"]] = (n + 1, us + e["dur"])
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"[{tag}] --profile trace ({os.path.getsize(path) / 1e6:.1f} MB) "
+          f"over {updates} updates: span {span / updates:.3f} ms per update, "
+          f"device busy {busy / updates:.3f} ms per update (share "
+          f"{busy / span:.3f}), {sum(n for n, _ in device) // updates} device "
+          f"operations and {n_rt // updates} CUDA runtime calls per update "
+          f"taking {rt_us / 1e3 / updates:.3f} ms of host time")
+    for name, (n, us) in top:
+        print(f"[{tag}]   host {us / 1e3 / updates:9.3f} ms {n // updates:6d}x "
+              f"per update (inclusive)  {name[:70]}")
+
+
+def phase_bf16():
+    """[bf16]: the mixed-precision policy on the card. LIFFireNet at
+    TRAIN_SNN in bf16 through train_phase (update 1 twice bitwise, 3
+    timed updates with exact launches of the bf16 variants, peak memory,
+    a profiled update), the train state float32 after it, device ms per
+    update of bf16 and f32 in turns, the parity at B 2, 64 x 64, T 3 with
+    the CPU port in bf16 (each update from the card's state); one bf16
+    update of SpikingRecEVFlowNet at TRAIN_SNNREC run twice bitwise with
+    exact launches; bf16 serving of ECD_LIFFIRENET and
+    ECD_SPIKING_RECEVFLOWNET (bf16_serve); and train(..., precision=
+    "bfloat16", profile=True), the CLI's --bf16 --profile, for 3 updates
+    with its trace summarised. Returns the launch counts of its paths."""
+    import glob
+    import tempfile
+
+    from event_flow_tpu_torch.config import (ECD_LIFFIRENET,
+                                             ECD_SPIKING_RECEVFLOWNET,
+                                             TRAIN_SNN, TRAIN_SNNREC)
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.train_flow import train
+
+    tag = "bf16"
+    paths = []
+    t0 = time.perf_counter()
+    counts, _ = train_phase(tag, TRAIN_SNN, lambda t, u: bf16_counts(
+        lif_update(t, u)), precision="bfloat16")
+    paths.append(counts)
+    runs = bf16_busy_in_turns(tag, TRAIN_SNN)
+    n = _float32_everywhere(tag, runs["bfloat16"][0])
+    print(f"[{tag}] after the bf16 updates all {n} tensors of the "
+          "parameters, Adam's state and the carried state are float32")
+    parity_phase(tag, TRAIN_SNN, lockstep=True, precision="bfloat16",
+                 rtol=(BF16_LOSS_RTOL, BF16_GRAD_RTOL))
+
+    with torch.enable_grad():
+        trainer, _, loss, counts = update_twice(f"{tag}-unet", TRAIN_SNNREC,
+                                                "bfloat16")
+    want = bf16_counts(unet_update(trainer.t_windows, 1))
+    if counts != want:
+        fail(f"[{tag}-unet] launches {counts} != {want}")
+    print(f"[{tag}-unet] SpikingRecEVFlowNet bf16 update at TRAIN_SNNREC: "
+          f"launches {counts}")
+    paths.append(counts)
+
+    paths.append(bf16_serve(tag, copy.deepcopy(ECD_LIFFIRENET),
+                            BF16_SERVE_WINDOWS[0],
+                            {"fused_conv_lif": 5, "fused_conv_lif_rec": 2,
+                             "conv2d_same": 1, "scatter_add": 1}))
+    paths.append(bf16_serve(f"{tag}-unet",
+                            copy.deepcopy(ECD_SPIKING_RECEVFLOWNET),
+                            BF16_SERVE_WINDOWS[1],
+                            {"fused_conv_lif": 8, "fused_conv_lif_rec": 4,
+                             "conv2d_same": 4, "scatter_add": 1}))
+
+    with tempfile.TemporaryDirectory() as root, torch.enable_grad():
+        native.reset_launch_counts()
+        runid, trainer, history = train(
+            copy.deepcopy(TRAIN_SNN), "cuda", max_updates=3, runs_root=root,
+            precision="bfloat16", profile=True)
+        counts = launch_counts()
+        if counts != bf16_counts(lif_update(trainer.t_windows, 3)):
+            fail(f"[{tag}] --profile run launches {counts}")
+        traces = glob.glob(os.path.join(root, runid, "profile", "*.json"))
+        if len(traces) != 1:
+            fail(f"[{tag}] --profile wrote {traces} under the run directory")
+        print(f"[{tag}] train(precision='bfloat16', profile=True), 3 "
+              f"updates: ms " + ", ".join(f"{1e3 * s:.1f}" for _, s in
+                                          history)
+              + f"; trace {os.path.relpath(traces[0], root)}")
+        profile_trace_summary(tag, traces[0], 3)
+    paths.append(counts)
+    print(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 KERNELS = (
     ("conv2d_same", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/ops/conv_pallas.py:121"),
@@ -4016,6 +4505,16 @@ KERNELS = (
     ("conv2d_dw", "event_flow_tpu_torch/csrc/conv_dw.cu",
      "event_flow_tpu/ops/conv_pallas.py:170"),
     ("fused_lif_bwd", "event_flow_tpu_torch/csrc/fused_lif_bwd.cu",
+     "event_flow_tpu/ops/fused_lif_pallas.py:258"),
+    ("conv2d_same_bf16", "event_flow_tpu_torch/csrc/conv.cu",
+     "event_flow_tpu/ops/conv_pallas.py:121"),
+    ("fused_conv_lif_bf16", "event_flow_tpu_torch/csrc/fused_lif.cu",
+     "event_flow_tpu/ops/fused_lif_pallas.py:185"),
+    ("fused_conv_lif_rec_bf16", "event_flow_tpu_torch/csrc/fused_lif.cu",
+     "event_flow_tpu/ops/fused_lif_pallas.py:185"),
+    ("conv2d_dw_bf16", "event_flow_tpu_torch/csrc/conv_dw.cu",
+     "event_flow_tpu/ops/conv_pallas.py:170"),
+    ("fused_lif_bwd_bf16", "event_flow_tpu_torch/csrc/fused_lif_bwd.cu",
      "event_flow_tpu/ops/fused_lif_pallas.py:258"),
 )
 
@@ -4044,8 +4543,9 @@ def main():
     paths += phase_engine()
     paths += phase_vis(lif_parts)
     paths.append(phase_dist())
+    paths += phase_bf16()
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": sum(c[k] for c in paths),
+                "launches": sum(c.get(k, 0) for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],
                 **{key: measured[k][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}

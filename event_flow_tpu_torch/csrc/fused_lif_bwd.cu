@@ -1,7 +1,11 @@
-// B4: backward of the LIF update, FP32, for sm_90a.
+// B4: backward of the LIF update, for sm_90a: FP32 maps, or bfloat16
+// maps computed in FP32 with bfloat16 g_cur and g_vin written.
 //
 // Replaces event_flow_tpu/ops/fused_lif_pallas.py::_fused_bwd_elem
-// (_bwd_kernel), line by line. With leak l and threshold th post-squash,
+// (_bwd_kernel), line by line; on bfloat16 maps it too widens every input
+// to float32, keeps leak, thresh and the two per-channel sums float32, and
+// rounds g_cur and g_vin once (fused_lif_pallas.py:231-245). With leak l
+// and threshold th post-squash,
 // the saved v, z, v' and the cotangents g_v, g_z of (v', z'):
 //
 //   sg    = surrogate(v' - th)
@@ -30,10 +34,11 @@
 //
 // What bounds it: it reads five maps and writes two, about 118 MB at the
 // training recipe (8 x 128 x 128 x 32), for some 30 FLOP per element, so
-// it is bound by device memory (about 35 us at 3.35 TB/s). The design
-// reads each map once, coalesced, with enough blocks in flight to cover
-// the latency.
+// it is bound by device memory (about 35 us at 3.35 TB/s; in bfloat16
+// half the bytes, 18 us). The design reads each map once, coalesced, with
+// enough blocks in flight to cover the latency.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -47,6 +52,15 @@ constexpr int MAX_C = 2048;
 constexpr int WIDE_K = MAX_C / NT;  // channels per thread, C > NT
 
 enum Surrogate { kArctan = 0, kSuper = 1, kTriangle = 2, kMG = 3 };
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float widen(float a) { return a; }
+__device__ __forceinline__ float widen(bf16 a) { return __bfloat162float(a); }
+__device__ __forceinline__ void put(float* p, float a) { *p = a; }
+__device__ __forceinline__ void put(bf16* p, float a) {
+  *p = __float2bfloat16_rn(a);
+}
 
 __device__ __forceinline__ float gauss(float x, float mu, float sigma) {
   const float d = x - mu;
@@ -73,44 +87,44 @@ __device__ __forceinline__ float surrogate(float d, float w) {
 
 // One element of the backward: writes g_cur and g_vin at e and adds its
 // leak and threshold terms to sum_l and sum_t.
-template <int S, bool HARD>
+template <int S, bool HARD, class T>
 __device__ __forceinline__ void lif_bwd_elem(
     size_t e, float l, float th, float one_m_l, float div, float width,
-    const float* __restrict__ v, const float* __restrict__ z,
-    const float* __restrict__ v_out, const float* __restrict__ g_v,
-    const float* __restrict__ g_z, float* __restrict__ g_cur,
-    float* __restrict__ g_vin, float& sum_l, float& sum_t) {
-  const float vv = v[e];
-  const float zz = z[e];
-  const float vo = v_out[e];
-  const float gz = g_z[e];
+    const T* __restrict__ v, const T* __restrict__ z,
+    const T* __restrict__ v_out, const T* __restrict__ g_v,
+    const T* __restrict__ g_z, T* __restrict__ g_cur,
+    T* __restrict__ g_vin, float& sum_l, float& sum_t) {
+  const float vv = widen(v[e]);
+  const float zz = widen(z[e]);
+  const float vo = widen(v_out[e]);
+  const float gz = widen(g_z[e]);
   const float sg = surrogate<S>(vo - th, width);
-  const float vbar = g_v[e] + gz * sg;
+  const float vbar = widen(g_v[e]) + gz * sg;
   float tbar = -gz * sg;
   float lbar;
   if constexpr (HARD) {
     const float cur_scaled = vo - vv * l * (1.f - zz);
-    g_vin[e] = vbar * l * (1.f - zz);
+    put(g_vin + e, vbar * l * (1.f - zz));
     lbar = vbar * (vv * (1.f - zz) - cur_scaled / div);
   } else {
     const float cur_scaled = vo - vv * l + zz * th;
-    g_vin[e] = vbar * l;
+    put(g_vin + e, vbar * l);
     lbar = vbar * (vv - cur_scaled / div);
     tbar = tbar - vbar * zz;
   }
-  g_cur[e] = vbar * one_m_l;
+  put(g_cur + e, vbar * one_m_l);
   sum_l += lbar;
   sum_t += tbar;
 }
 
 // C <= NT
-template <int S, bool HARD>
+template <int S, bool HARD, class T>
 __global__ void __launch_bounds__(NT) lif_bwd_kernel(
-    const float* __restrict__ v, const float* __restrict__ z,
-    const float* __restrict__ v_out, const float* __restrict__ leak,
-    const float* __restrict__ thresh, const float* __restrict__ g_v,
-    const float* __restrict__ g_z, float* __restrict__ g_cur,
-    float* __restrict__ g_vin, float* __restrict__ part, long long npix,
+    const T* __restrict__ v, const T* __restrict__ z,
+    const T* __restrict__ v_out, const float* __restrict__ leak,
+    const float* __restrict__ thresh, const T* __restrict__ g_v,
+    const T* __restrict__ g_z, T* __restrict__ g_cur,
+    T* __restrict__ g_vin, float* __restrict__ part, long long npix,
     int C, float width) {
   __shared__ float red_l[NT];
   __shared__ float red_t[NT];
@@ -128,7 +142,7 @@ __global__ void __launch_bounds__(NT) lif_bwd_kernel(
     for (int k = 0; k < ITERS; ++k) {
       const long long p = p0 + (long long)k * lanes;
       if (p >= npix) break;
-      lif_bwd_elem<S, HARD>((size_t)p * C + c, l, th, one_m_l, div, width, v,
+      lif_bwd_elem<S, HARD, T>((size_t)p * C + c, l, th, one_m_l, div, width, v,
                             z, v_out, g_v, g_z, g_cur, g_vin, sum_l, sum_t);
     }
   }
@@ -147,13 +161,13 @@ __global__ void __launch_bounds__(NT) lif_bwd_kernel(
 }
 
 // NT < C <= MAX_C
-template <int S, bool HARD>
+template <int S, bool HARD, class T>
 __global__ void __launch_bounds__(NT) lif_bwd_wide_kernel(
-    const float* __restrict__ v, const float* __restrict__ z,
-    const float* __restrict__ v_out, const float* __restrict__ leak,
-    const float* __restrict__ thresh, const float* __restrict__ g_v,
-    const float* __restrict__ g_z, float* __restrict__ g_cur,
-    float* __restrict__ g_vin, float* __restrict__ part, long long npix,
+    const T* __restrict__ v, const T* __restrict__ z,
+    const T* __restrict__ v_out, const float* __restrict__ leak,
+    const float* __restrict__ thresh, const T* __restrict__ g_v,
+    const T* __restrict__ g_z, T* __restrict__ g_cur,
+    T* __restrict__ g_vin, float* __restrict__ part, long long npix,
     int C, float width) {
   float sum_l[WIDE_K], sum_t[WIDE_K];
 #pragma unroll
@@ -168,7 +182,7 @@ __global__ void __launch_bounds__(NT) lif_bwd_wide_kernel(
       if (c < C) {
         const float l = leak[c];
         const float one_m_l = 1.f - l;
-        lif_bwd_elem<S, HARD>((size_t)p * C + c, l, thresh[c], one_m_l,
+        lif_bwd_elem<S, HARD, T>((size_t)p * C + c, l, thresh[c], one_m_l,
                               fmaxf(one_m_l, 1e-6f), width, v, z, v_out, g_v,
                               g_z, g_cur, g_vin, sum_l[k], sum_t[k]);
       }
@@ -203,34 +217,74 @@ __global__ void __launch_bounds__(NT)
   if (threadIdx.x == 0) out[j] = red[0];
 }
 
-template <int S, bool HARD>
-void launch(const float* v, const float* z, const float* v_out,
-            const float* leak, const float* thresh, const float* g_v,
-            const float* g_z, float* g_cur, float* g_vin, float* part,
-            long long npix, int C, float width, int blocks,
-            cudaStream_t st) {
+template <int S, bool HARD, class T>
+void launch(const T* v, const T* z, const T* v_out, const float* leak,
+            const float* thresh, const T* g_v, const T* g_z, T* g_cur,
+            T* g_vin, float* part, long long npix, int C, float width,
+            int blocks, cudaStream_t st) {
   if (C <= NT)
-    lif_bwd_kernel<S, HARD><<<blocks, NT, 0, st>>>(
+    lif_bwd_kernel<S, HARD, T><<<blocks, NT, 0, st>>>(
         v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin, part, npix, C,
         width);
   else
-    lif_bwd_wide_kernel<S, HARD><<<blocks, NT, 0, st>>>(
+    lif_bwd_wide_kernel<S, HARD, T><<<blocks, NT, 0, st>>>(
         v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin, part, npix, C,
         width);
 }
 
-template <int S>
-void launch_s(bool hard, const float* v, const float* z, const float* v_out,
-              const float* leak, const float* thresh, const float* g_v,
-              const float* g_z, float* g_cur, float* g_vin, float* part,
-              long long npix, int C, float width, int blocks,
-              cudaStream_t st) {
+template <int S, class T>
+void launch_s(bool hard, const T* v, const T* z, const T* v_out,
+              const float* leak, const float* thresh, const T* g_v,
+              const T* g_z, T* g_cur, T* g_vin, float* part, long long npix,
+              int C, float width, int blocks, cudaStream_t st) {
   if (hard)
-    launch<S, true>(v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin, part,
-                    npix, C, width, blocks, st);
+    launch<S, true, T>(v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin,
+                       part, npix, C, width, blocks, st);
   else
-    launch<S, false>(v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin, part,
-                     npix, C, width, blocks, st);
+    launch<S, false, T>(v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin,
+                        part, npix, C, width, blocks, st);
+}
+
+int blocks_for(long long npix, int C) {
+  if (C < 1 || C > MAX_C) return 0;
+  const long long per_block = C <= NT ? (long long)(NT / C) * ITERS : WIDE_PIX;
+  return (int)((npix + per_block - 1) / per_block);
+}
+
+template <class T>
+int fused_lif_bwd(const T* v, const T* z, const T* v_out, const float* leak,
+                  const float* thresh, const T* g_v, const T* g_z, T* g_cur,
+                  T* g_vin, float* part, float* g_lt, long long npix, int C,
+                  int hard_reset, int surrogate, float width, void* stream) {
+  if (C < 1 || C > MAX_C || npix < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool hard = hard_reset != 0;
+  const int blocks = blocks_for(npix, C);
+  switch (surrogate) {
+    case kArctan:
+      launch_s<kArctan, T>(hard, v, z, v_out, leak, thresh, g_v, g_z, g_cur,
+                           g_vin, part, npix, C, width, blocks, st);
+      break;
+    case kSuper:
+      launch_s<kSuper, T>(hard, v, z, v_out, leak, thresh, g_v, g_z, g_cur,
+                          g_vin, part, npix, C, width, blocks, st);
+      break;
+    case kTriangle:
+      launch_s<kTriangle, T>(hard, v, z, v_out, leak, thresh, g_v, g_z,
+                             g_cur, g_vin, part, npix, C, width, blocks, st);
+      break;
+    case kMG:
+      launch_s<kMG, T>(hard, v, z, v_out, leak, thresh, g_v, g_z, g_cur,
+                       g_vin, part, npix, C, width, blocks, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  block_sum_kernel<<<2 * C, NT, 0, st>>>(part, g_lt, blocks, 2 * C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -240,14 +294,12 @@ extern "C" {
 // Number of blocks of the first launch, so that the caller can allocate
 // the [blocks, 2*C] scratch; 0 unless C is in [1, MAX_C].
 int evf_fused_lif_bwd_blocks(long long npix, int C) {
-  if (C < 1 || C > MAX_C) return 0;
-  const long long per_block = C <= NT ? (long long)(NT / C) * ITERS : WIDE_PIX;
-  return (int)((npix + per_block - 1) / per_block);
+  return blocks_for(npix, C);
 }
 
 // (g_cur, g_vin) [npix, C] and g_lt [2*C] = (g_leak, g_thresh) from the
-// saved v, z, v_out and the cotangents g_v, g_z, all [npix, C]; leak and
-// thresh [C] post-squash. surrogate: 0 arctanspike, 1 superspike,
+// saved v, z, v_out and the cotangents g_v, g_z, all [npix, C] float32;
+// leak and thresh [C] post-squash. surrogate: 0 arctanspike, 1 superspike,
 // 2 trianglespike, 3 mgspike. part is the caller's
 // [evf_fused_lif_bwd_blocks(npix, C), 2*C] scratch. Returns the first
 // cudaGetLastError() after the two launches.
@@ -257,35 +309,22 @@ int evf_fused_lif_bwd(const float* v, const float* z, const float* v_out,
                       float* g_vin, float* part, float* g_lt, long long npix,
                       int C, int hard_reset, int surrogate, float width,
                       void* stream) {
-  if (C < 1 || C > MAX_C || npix < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool hard = hard_reset != 0;
-  const int blocks = evf_fused_lif_bwd_blocks(npix, C);
-  switch (surrogate) {
-    case kArctan:
-      launch_s<kArctan>(hard, v, z, v_out, leak, thresh, g_v, g_z, g_cur,
-                        g_vin, part, npix, C, width, blocks, st);
-      break;
-    case kSuper:
-      launch_s<kSuper>(hard, v, z, v_out, leak, thresh, g_v, g_z, g_cur,
-                       g_vin, part, npix, C, width, blocks, st);
-      break;
-    case kTriangle:
-      launch_s<kTriangle>(hard, v, z, v_out, leak, thresh, g_v, g_z, g_cur,
-                          g_vin, part, npix, C, width, blocks, st);
-      break;
-    case kMG:
-      launch_s<kMG>(hard, v, z, v_out, leak, thresh, g_v, g_z, g_cur, g_vin,
-                    part, npix, C, width, blocks, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  block_sum_kernel<<<2 * C, NT, 0, st>>>(part, g_lt, blocks, 2 * C);
-  return static_cast<int>(cudaGetLastError());
+  return fused_lif_bwd<float>(v, z, v_out, leak, thresh, g_v, g_z, g_cur,
+                              g_vin, part, g_lt, npix, C, hard_reset,
+                              surrogate, width, stream);
+}
+
+// The same with the maps v, z, v_out, g_v, g_z, g_cur and g_vin bfloat16;
+// leak, thresh, part and g_lt float32.
+int evf_fused_lif_bwd_bf16(const bf16* v, const bf16* z, const bf16* v_out,
+                           const float* leak, const float* thresh,
+                           const bf16* g_v, const bf16* g_z, bf16* g_cur,
+                           bf16* g_vin, float* part, float* g_lt,
+                           long long npix, int C, int hard_reset,
+                           int surrogate, float width, void* stream) {
+  return fused_lif_bwd<bf16>(v, z, v_out, leak, thresh, g_v, g_z, g_cur,
+                             g_vin, part, g_lt, npix, C, hard_reset,
+                             surrogate, width, stream);
 }
 
 }  // extern "C"

@@ -17,9 +17,8 @@ import os
 import h5py
 import numpy as np
 
-from ..parallel.distributed import process_file_shard
 from .sequences import GROUP_OF_MODE, TimestampedGroup
-from .stream import WindowStream
+from .stream import WindowStream, process_file_shard
 
 __all__ = ["find_h5_files", "H5SequenceFile", "H5EventStream",
            "read_pack_arrays"]
@@ -140,7 +139,7 @@ class H5EventStream(WindowStream):
     """The window cursor over the .h5 files under ``data.path`` (their
     paths are ``files``, in sorted order until :meth:`shuffle`); with
     ``loader.process_shard`` (i, n), over the i-th of n disjoint
-    round-robin shares of them (parallel/distributed.py)."""
+    round-robin shares of them (data/stream.py::process_file_shard)."""
 
     def __init__(self, config, rng=None):
         files = find_h5_files(config["data"]["path"])

@@ -29,6 +29,9 @@ config, in every mode, without writing them.
 ``train_flow.py --synthetic``: windows straight from the generators,
 constant-velocity points (``const``) or textured scenes with varied flow
 (``rich``).
+
+:func:`process_file_shard` is the disjoint round-robin share of a file
+list that ``loader.process_shard`` (``eval_flow --shard``) takes.
 """
 
 import os
@@ -39,10 +42,25 @@ from .augment import augment_flowmap_np, augment_frames_np, draw_augment_flags
 from .sequences import GROUP_OF_MODE, EventSequence, synthetic_sequence
 from .synthetic import rich_window_stream, synthetic_window_stream
 
+
 __all__ = ["EventSequence", "WindowStream", "ArrayEventStream",
-           "SyntheticWindowStream", "synthetic_sequences", "MODES"]
+           "SyntheticWindowStream", "synthetic_sequences", "MODES",
+           "process_file_shard"]
 
 MODES = ("events", "time", "frames", "gtflow_dt1", "gtflow_dt4")
+
+
+def process_file_shard(files, process_id, process_count):
+    """The disjoint round-robin share of ``files`` of process
+    ``process_id`` of ``process_count``. Every process must pass the same
+    (sorted) list."""
+    if not 0 <= process_id < process_count:
+        raise ValueError(f"process {process_id} of {process_count}")
+    shard = files[process_id::process_count]
+    if not shard:
+        raise ValueError(f"process {process_id}/{process_count} got no "
+                         f"files (have {len(files)})")
+    return shard
 
 
 def synthetic_sequences(config, n_sequences=2, n_windows=8.0):

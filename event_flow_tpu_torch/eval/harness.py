@@ -53,8 +53,6 @@ from ..loss.metrics import fwl as fwl_fn
 from ..loss.metrics import rsat as rsat_fn
 from ..models.snn_cells import lif_cell_names
 from ..models.state import detach_state, zeros_like_state
-# the name that earlier callers import from here
-from ..models.state import map_state as _map_state  # noqa: F401
 from ..ops.encodings import encode_window
 from ..ops.hot_filter import apply_hot_filter, init_hot_state
 from ..ops.iwe import (compute_pol_iwe, gather_event_flow, get_interpolation,

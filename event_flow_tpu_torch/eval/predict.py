@@ -12,6 +12,12 @@ carried from the previous call (K2, K1) -> the last flow map, and with
         flow = engine.step(window)         # [1, H, W, 2] on the device
     engine.reset()                         # at a sequence change
 
+``precision="bfloat16"`` serves under the JAX package's mixed-precision
+policy (event_flow_tpu/eval/predict.py:52-55, :84-93): the encodings
+enter the model and the state is carried in bfloat16, the model computes
+in it (the bfloat16 variants of K1 and K2), and the flow, with the IWE
+computed from it, leaves in float32.
+
 ``step_many`` serves S windows in one call, equal to S ``step`` calls.
 JAX scans them in one dispatch to save the TPU's round trips; here it is
 a loop. eval/serialized.py exports the window step as a ``torch.export``
@@ -21,6 +27,7 @@ artifact that serves without the model code.
 import torch
 
 from ..device import get_device
+from ..models.state import cast_state, compute_dtype
 from ..ops.encodings import encode_window
 from ..ops.hot_filter import apply_hot_filter, init_hot_state
 from ..ops.iwe import compute_pol_iwe
@@ -32,16 +39,19 @@ class InferenceEngine:
     """Serve ``model`` (the port's ``nn.Module``, its weights loaded, on
     ``device``) window by window at the config's resolution, encoding and
     hot filter, for ``batch`` streams at once. The state is carried in
+    ``precision``'s element type, float32 or bfloat16; the flow is
     float32. ``quantize="int8"`` (JAX's int8 serving convs) is not
     ported."""
 
     def __init__(self, config, model, device="cuda", batch=1, with_iwe=False,
-                 quantize=None):
+                 quantize=None, precision="float32"):
         if quantize not in (None, "none"):
             raise NotImplementedError(
                 f"quantize={quantize!r}: int8 serving is not ported (see "
                 "ROADMAP.md queue 1 item 4)")
         self.device = get_device(device)
+        self.precision = precision
+        self.dtype = compute_dtype(precision)
         self.res = tuple(config["loader"]["resolution"])
         self.num_bins = config["model"]["num_bins"]
         self.round_encoding = config["model"].get("round_encoding", False)
@@ -69,8 +79,14 @@ class InferenceEngine:
                 min_obvs=self.hot_cfg.get("min_obvs", 5),
                 max_rate=self.hot_cfg.get("max_rate", 0.8),
             )
-        out, state = model(enc["event_voxel"], enc["event_cnt"], state)
+        voxel, cnt = enc["event_voxel"], enc["event_cnt"]
+        narrow = self.dtype != torch.float32
+        if narrow:  # float32 casts nothing (nor does its artifact)
+            voxel, cnt = voxel.to(self.dtype), cnt.to(self.dtype)
+        out, state = model(voxel, cnt, state)
         flow = out["flow"][-1]
+        if narrow:
+            flow = flow.float()
         iwe = None
         if self.with_iwe:
             iwe = compute_pol_iwe(
@@ -114,5 +130,6 @@ class InferenceEngine:
         """Sequence boundary: zero the model state and the hot-pixel
         state (reference: eval_flow.py:123-126)."""
         h, w = self.res
-        self._state = self.model.zero_state(self.batch, h, w, self.device)
+        self._state = cast_state(
+            self.model.zero_state(self.batch, h, w, self.device), self.dtype)
         self._hot = init_hot_state(self.batch, self.res, self.device)

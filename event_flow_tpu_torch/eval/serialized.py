@@ -115,7 +115,12 @@ def export_engine(engine, path, n_events, s=None):
     on the engine's device. ``n_events`` fixes the window's event capacity
     (shorter windows are padded and masked, as in live serving); ``s``
     also exports the S-window ``step_many`` form. The engine's current
-    state is the artifact's initial state. Returns ``path``."""
+    state is the artifact's initial state. Returns ``path``. A bfloat16
+    engine is refused: its artifacts are not ported yet."""
+    if engine.dtype != torch.float32:
+        raise NotImplementedError(
+            f"export_engine: a {engine.precision} engine; bfloat16 artifacts "
+            "are not ported (ROADMAP.md queue 1)")
     named = [*engine.model.named_parameters(), *engine.model.named_buffers()]
     names = [n for n, _ in named]
     params = [t.detach() for _, t in named]

@@ -68,12 +68,12 @@ import time
 import torch
 
 from .data.progress import ProgressPrinter
-from .data.stream import ArrayEventStream, synthetic_sequences
+from .data.stream import (ArrayEventStream, process_file_shard,
+                          synthetic_sequences)
 from .device import get_device
 from .eval.harness import Evaluator
-from .models.registry import get_model
-from .parallel.distributed import (init_distributed, is_distributed,
-                                   process_file_shard)
+from .models.registry import build_model
+from .parallel.distributed import init_distributed, is_distributed
 from .parallel.mesh import make_mesh
 from .utils.checkpoint import (latest_checkpoint, load_torch_state_dict,
                                restore_checkpoint)
@@ -81,17 +81,8 @@ from .utils.tracking import (create_model_dir, log_eval_config,
                              log_eval_results, read_params)
 from .utils.visualization import Visualization, vis_activity
 
-__all__ = ["evaluate", "build_model", "load_weights", "evaluate_run",
+__all__ = ["evaluate", "load_weights", "evaluate_run",
            "WindowOutputs", "main"]
-
-
-def build_model(config, device, seed=0):
-    """The config's model with its init drawn from a CPU generator seeded
-    with ``seed`` (the same weights on every device), moved to
-    ``device``."""
-    gen = torch.Generator().manual_seed(seed)
-    model = get_model(config["model"]["name"], config["model"], generator=gen)
-    return model.to(device).eval()
 
 
 class WindowOutputs:

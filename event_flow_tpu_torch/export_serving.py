@@ -24,7 +24,8 @@ from .config import load_yaml_config, merge_run_params
 from .device import get_device
 from .eval.predict import InferenceEngine
 from .eval.serialized import export_engine
-from .eval_flow import build_model, load_weights
+from .eval_flow import load_weights
+from .models.registry import build_model
 from .utils.tracking import read_params
 
 __all__ = ["export_run", "main"]

@@ -11,7 +11,11 @@ and the Leaky U-Net's layers (:434-527). Stride-1 convs are ``conv2d_same`` (ker
 B2 the weight gradient; their plain versions on the CPU), strided convs
 ``conv2d_strided`` and the x2 transposed conv ``conv_transpose2x``
 (ops/conv.py); the bias add, the norms and the activations are plain
-torch, as they sit outside the Pallas kernels in JAX. Weights are OIHW
+torch, as they sit outside the Pallas kernels in JAX. Biases and leaks
+are rounded to the conv output's element type, as in JAX (cells.py:351,
+:382; models/conv.py:244), so bfloat16 activations stay bfloat16; the
+norms' float32 affine parameters promote their output to float32 in
+both. Weights are OIHW
 (a transposed conv's [Cin, Cout, k, k]) under the reference's names
 (``conv2d.weight``, ``update_gate.bias``, ``Gates.weight``,
 ``transposed_conv2d.weight``, ``norm_layer.weight``, ...). Under ``norm:
@@ -74,7 +78,7 @@ def _conv(x, conv, stride=1):
     """conv(x) [+ bias]: K1 at stride 1, the strided conv otherwise."""
     y = (conv2d_same(x, conv.weight) if stride == 1
          else conv2d_strided(x, conv.weight, stride))
-    return y if conv.bias is None else y + conv.bias
+    return y if conv.bias is None else y + conv.bias.to(y.dtype)
 
 
 def _weights(cin, features, k, norm, w_scale, generator, transposed=False):
@@ -175,9 +179,9 @@ class ConvGRU(nn.Module):
     def forward(self, x, state):
         f = self.features
         u, r = self.update_gate, self.reset_gate
-        ur = (conv2d_same(torch.cat([x, state], dim=-1),
-                          torch.cat([u.weight, r.weight], dim=0))
-              + torch.cat([u.bias, r.bias]))
+        ur = conv2d_same(torch.cat([x, state], dim=-1),
+                         torch.cat([u.weight, r.weight], dim=0))
+        ur = ur + torch.cat([u.bias, r.bias]).to(ur.dtype)
         update = torch.sigmoid(ur[..., :f])
         reset = torch.sigmoid(ur[..., f:])
         out = torch.tanh(_conv(torch.cat([x, state * reset], dim=-1),
@@ -319,7 +323,7 @@ class TransposedConvLayer(nn.Module):
         conv = self.transposed_conv2d
         y = conv_transpose2x(x, conv.weight)
         if conv.bias is not None:
-            y = y + conv.bias
+            y = y + conv.bias.to(y.dtype)
         if self.norm_layer is not None:
             y = self.norm_layer(y)
         return self.act(y)
@@ -337,8 +341,9 @@ class _Leak(nn.Module):
         self.leak.requires_grad_(bool(learn_leak))
 
     def _integrate(self, state, current):
-        """state * l + (1 - l) * current, l = sigmoid(leak) per channel."""
-        leak = torch.sigmoid(self.leak).reshape(-1)
+        """state * l + (1 - l) * current, l = sigmoid(leak) per channel,
+        rounded to the current's type."""
+        leak = torch.sigmoid(self.leak).reshape(-1).to(current.dtype)
         return state * leak + (1.0 - leak) * current
 
 

@@ -1,5 +1,9 @@
 """Model registry of the port: the JAX registry's 19 names, the rows of
-the FireNet family and the U-Nets (event_flow_tpu/models/registry.py)."""
+the FireNet family and the U-Nets (event_flow_tpu/models/registry.py),
+and :func:`build_model`, a config's model from a seeded init on a
+device."""
+
+import torch
 
 from .cells import ConvLeaky
 from .evflownet import UNET_VARIANTS, make_unet_model
@@ -7,7 +11,8 @@ from .firenet import FIRENET_VARIANTS, make_firenet
 from .snn_cells import FF_BLOCKS
 from .unet import LeakyMultiResUNetRecurrent, SpikingMultiResUNetRecurrent
 
-__all__ = ["get_model", "available_models", "cell_family", "KNOWN_MODELS"]
+__all__ = ["get_model", "build_model", "available_models", "cell_family",
+           "KNOWN_MODELS"]
 
 # every name the JAX registry builds
 KNOWN_MODELS = (
@@ -46,3 +51,12 @@ def get_model(name, model_cfg, generator=None):
         raise KeyError(f"Unknown model {name!r}; available: "
                        f"{available_models()}")
     return _FACTORIES[name](name, model_cfg, generator=generator)
+
+
+def build_model(config, device, seed=0):
+    """The config's model with its init drawn from a CPU generator seeded
+    with ``seed`` (the same weights on every device), moved to
+    ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    model = get_model(config["model"]["name"], config["model"], generator=gen)
+    return model.to(device).eval()

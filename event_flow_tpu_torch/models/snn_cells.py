@@ -22,6 +22,15 @@ weight mapping and checkpoints.
   XLIF: th = t0 + t1 pt' per pixel, PLIF's trace; the soft reset
         subtracts z (t0 + t1 pt), the old pt
 
+Element types follow the input's (the JAX package's mixed-precision
+policy, event_flow_tpu/models/policy.py): the convs cast their float32
+weights to x's type, and the per-channel parameters are squashed or
+clamped in float32 and rounded once to the current's type (JAX's
+``_like``, snn_cells.py:59-64), so a bfloat16 cell updates in bfloat16.
+The fused LIF cells instead pass ``leak`` and ``thresh`` to K2 and B4 in
+float32, which update in float32 and round v' and z' once, as the Pallas
+kernel does (fused_lif_pallas.py:127-141).
+
 z in the reset is detached with ``detach`` (the default); ALIF's t' and a
 recurrent cell's current take the previous z before the detach. A
 recurrent cell's current is ff(x) + rec(z_prev), one conv over ``concat([x,
@@ -221,14 +230,17 @@ class _SpikingBase(nn.Module):
         _uniform_(conv.weight, math.sqrt(1.0 / cin), generator)
         return conv
 
-    def _p(self, name):
-        """A per-channel parameter as [C], squashed or clamped."""
+    def _p(self, name, dtype=None):
+        """A per-channel parameter as [C], squashed or clamped in its own
+        type, then rounded once to ``dtype`` (the current's) where
+        given."""
         p = getattr(self, name)
         if name in _LEAKS:
             p = torch.sigmoid(p)
         else:
             p = torch.maximum(p, p.new_full((), _FLOORS[name]))
-        return p.reshape(-1)
+        p = p.reshape(-1)
+        return p if dtype is None else p.to(dtype)
 
     def _normed(self, x, z):
         """x and z_prev after the group norms: the input's, and in a
@@ -254,7 +266,7 @@ class _SpikingBase(nn.Module):
 
     def _trace(self, x, pt):
         """PLIF's presynaptic trace pt' from the cell's input x."""
-        leak_pt = self._p("leak_pt")
+        leak_pt = self._p("leak_pt", x.dtype)
         k = self.kernel_size
         trace_in = avg_pool(_abs_jax(x).mean(dim=-1, keepdim=True), k,
                             self.stride, k // 2)
@@ -264,7 +276,7 @@ class _SpikingBase(nn.Module):
         """(v', z') of the update driven by ``cur``; the soft reset
         subtracts z * ``reset_thresh``, the spike fires above
         ``thresh``."""
-        leak = self._p(self.LEAK)
+        leak = self._p(self.LEAK, cur.dtype)
         if self.detach:
             z = z.detach()
         if self.hard_reset:
@@ -301,19 +313,21 @@ class ConvLIF(_SpikingBase):
     def _neuron(self):
         return self._p("leak"), self._p("thresh")
 
-    def _unfused(self, x, v, z, thresh):
+    def _unfused(self, x, v, z):
         x, z = self._normed(x, z)
-        return self._fire(v, z, self._current(x, z), thresh, thresh)
+        cur = self._current(x, z)
+        thresh = self._p("thresh", cur.dtype)
+        return self._fire(v, z, cur, thresh, thresh)
 
     def forward(self, x, state, residual=None):
         v, z = state
-        leak, thresh = self._neuron()
         if self.fused:
+            leak, thresh = self._neuron()
             v_out, z_out = fused_conv_lif(
                 x, self.ff.weight, v, z, leak, thresh, self.kernel_size,
                 self.hard_reset, self.activation, self.act_width)
         else:
-            v_out, z_out = self._unfused(x, v, z, thresh)
+            v_out, z_out = self._unfused(x, v, z)
         out = z_out if residual is None else z_out + residual
         return out, (v_out, z_out)
 
@@ -327,14 +341,14 @@ class ConvLIFRecurrent(ConvLIF):
 
     def forward(self, x, state):
         v, z = state
-        leak, thresh = self._neuron()
         if self.fused:
+            leak, thresh = self._neuron()
             v_out, z_out = fused_conv_lif_rec(
                 x, self.ff.weight, self.rec.weight, v, z, z, leak, thresh,
                 self.kernel_size, self.hard_reset, self.activation,
                 self.act_width)
         else:
-            v_out, z_out = self._unfused(x, v, z, thresh)
+            v_out, z_out = self._unfused(x, v, z)
         return z_out, (v_out, z_out)
 
 
@@ -350,9 +364,9 @@ class ConvPLIF(_SpikingBase):
     def forward(self, x, state, residual=None):
         v, z, pt = state
         ff = self._current(x, z)
-        thresh = self._p("thresh")
+        thresh = self._p("thresh", ff.dtype)
         pt_out = self._trace(x, pt)
-        cur = ff - self._p("add_pt") * pt_out
+        cur = ff - self._p("add_pt", ff.dtype) * pt_out
         v_out, z_out = self._fire(v, z, cur, thresh, thresh)
         out = z_out if residual is None else z_out + residual
         return out, (v_out, z_out, pt_out)
@@ -371,7 +385,8 @@ class ConvALIF(_SpikingBase):
     def forward(self, x, state, residual=None):
         v, z, t = state
         ff = self._current(x, z)
-        t0, t1, leak_t = self._p("t0"), self._p("t1"), self._p("leak_t")
+        t0, t1, leak_t = (self._p(n, ff.dtype) for n in ("t0", "t1",
+                                                          "leak_t"))
         t_out = t * leak_t + (1.0 - leak_t) * z
         v_out, z_out = self._fire(v, z, ff, t0 + t1 * t, t0 + t1 * t_out)
         out = z_out if residual is None else z_out + residual
@@ -391,7 +406,7 @@ class ConvXLIF(_SpikingBase):
     def forward(self, x, state, residual=None):
         v, z, pt = state
         ff = self._current(x, z)
-        t0, t1 = self._p("t0"), self._p("t1")
+        t0, t1 = self._p("t0", ff.dtype), self._p("t1", ff.dtype)
         pt_out = self._trace(x, pt)
         v_out, z_out = self._fire(v, z, ff, t0 + t1 * pt, t0 + t1 * pt_out)
         out = z_out if residual is None else z_out + residual

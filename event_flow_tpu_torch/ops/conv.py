@@ -22,6 +22,19 @@ recorded.
 
 Each gradient is computed only where autograd asks for it.
 
+Element types. K1 and B2 take float32 or bfloat16 operands (the JAX
+package's mixed-precision policy, event_flow_tpu/models/policy.py and
+models/conv.py:31-45): the public functions cast the float32 weight to
+x's element type, as JAX's ``conv2d_fn`` does, so a bfloat16 x launches
+the bfloat16 variant, which accumulates in float32 and rounds its output
+once to bfloat16 (conv_pallas.py:82-110); dx takes g in x's type and dw
+is rounded to bfloat16 (conv_grads.py:42-71, conv_pallas.py:185) before
+autograd widens it to the float32 parameter's gradient. Each plain
+version on bfloat16 widens the operands, computes in float32 with TF32
+off and rounds once: exactly the function. The strided and transposed
+convs take bfloat16 through cuDNN on the card and, on the CPU, through
+that float32 form.
+
 K1 source note: replaces the Pallas im2col strip matmul ``_conv_fwd``
 (conv_pallas.py:113-136). On the H100 it is an implicit GEMM on the
 tensor cores (``mma.sync`` m16n8k8, TF32 operands split hi + lo, three
@@ -63,6 +76,7 @@ import torch.nn.functional as F
 
 from . import native
 
+
 __all__ = ["conv2d_same", "conv2d_same_plain", "conv2d_strided",
            "conv_transpose2x", "conv2d_dw_plain", "conv2d_dw_kernel",
            "conv_same_grads", "flatten_kernel"]
@@ -90,8 +104,25 @@ def _no_tf32():
                                       allow_tf32=False)
 
 
+def _widened(fn, x, *args, rounded=None):
+    """``fn(x, *args)`` on bfloat16 tensors as float32 computation: the
+    tensor arguments widened, each tensor result (the first ``rounded``
+    of a tuple where given; the rest stay float32) rounded once to
+    bfloat16."""
+    out = fn(x.float(), *(a.float() if isinstance(a, torch.Tensor) else a
+                          for a in args))
+    if isinstance(out, torch.Tensor):
+        return out.to(x.dtype)
+    n = len(out) if rounded is None else rounded
+    return tuple(o.to(x.dtype) if i < n and isinstance(o, torch.Tensor)
+                 else o for i, o in enumerate(out))
+
+
 def conv2d_same_plain(x, w):
-    """Plain PyTorch version: ``F.conv2d`` in NCHW with TF32 off."""
+    """Plain PyTorch version: ``F.conv2d`` in NCHW with TF32 off; on
+    bfloat16 x and w in float32, y rounded once."""
+    if x.dtype == torch.bfloat16:
+        return _widened(conv2d_same_plain, x, w)
     k = _check_shapes(x, w)
     with _no_tf32():
         y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=k // 2)
@@ -107,6 +138,8 @@ def _cudnn_f32_deterministic():
 
 
 def _strided_forward(x, w, stride):
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return _widened(_strided_forward, x, w, stride)
     with _cudnn_f32_deterministic():
         y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
                      padding=w.shape[2] // 2)
@@ -145,13 +178,24 @@ class _ConvStrided(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         need_x, need_w, _ = ctx.needs_input_grad
-        p = w.shape[2] // 2
-        with _cudnn_f32_deterministic():
-            dx, dw, _ = torch.ops.aten.convolution_backward(
-                g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None,
-                [ctx.stride] * 2, [p, p], [1, 1], False, [0, 0], 1,
-                [need_x, need_w, False])
-        return dx.permute(0, 2, 3, 1) if need_x else None, dw, None
+        dx, dw = _conv_backward(g, x, w, ctx.stride, False, need_x, need_w)
+        return dx, dw, None
+
+
+def _conv_backward(g, x, w, stride, transposed, need_x, need_w):
+    """(dx NHWC, dw) of the strided (or, with ``transposed``, the x2
+    transposed) conv under :func:`_cudnn_f32_deterministic`, each None
+    where not needed; bfloat16 on the CPU through float32."""
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return _widened(_conv_backward, g.to(x.dtype), x, w, stride,
+                        transposed, need_x, need_w)
+    p = w.shape[2] // 2
+    with _cudnn_f32_deterministic():
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            g.to(x.dtype).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w,
+            None, [stride] * 2, [p, p], [1, 1], transposed,
+            [1, 1] if transposed else [0, 0], 1, [need_x, need_w, False])
+    return dx.permute(0, 2, 3, 1) if need_x else None, dw
 
 
 def conv2d_strided(x, w, stride):
@@ -159,16 +203,18 @@ def conv2d_strided(x, w, stride):
     w [Cout,Cin,k,k] at ``stride``, padding k // 2: the U-Net encoders'
     feedforward conv. ``F.conv2d`` in NCHW with TF32 off and cuDNN's
     deterministic algorithms on every device, forward and backward,
-    whatever the process's flags. In JAX a
-    strided conv never reaches Pallas either: it is ``lax.conv`` at f32
-    (event_flow_tpu/models/conv.py:142-150, :229-238)."""
+    whatever the process's flags; w is cast to x's element type. In JAX
+    a strided conv never reaches Pallas either: it is ``lax.conv`` in the
+    policy's type (event_flow_tpu/models/conv.py:142-150, :229-238)."""
     if x.dim() != 4 or w.dim() != 4 or w.shape[1] != x.shape[3]:
         raise ValueError(f"x {tuple(x.shape)} must be NHWC and w "
                          f"{tuple(w.shape)} OIHW with its input channels")
-    return _ConvStrided.apply(x, w, stride)
+    return _ConvStrided.apply(x, w.to(x.dtype), stride)
 
 
 def _transpose_forward(x, w):
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return _widened(_transpose_forward, x, w)
     with _cudnn_f32_deterministic():
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=2,
                                padding=w.shape[2] // 2, output_padding=1)
@@ -198,14 +244,7 @@ class _ConvTranspose2x(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        need_x, need_w = ctx.needs_input_grad
-        p = w.shape[2] // 2
-        with _cudnn_f32_deterministic():
-            dx, dw, _ = torch.ops.aten.convolution_backward(
-                g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None,
-                [2, 2], [p, p], [1, 1], True, [1, 1], 1,
-                [need_x, need_w, False])
-        return dx.permute(0, 2, 3, 1) if need_x else None, dw
+        return _conv_backward(g, x, w, 2, True, *ctx.needs_input_grad)
 
 
 def conv_transpose2x(x, w):
@@ -222,7 +261,7 @@ def conv_transpose2x(x, w):
             or w.shape[2] != w.shape[3] or w.shape[2] % 2 == 0):
         raise ValueError(f"x {tuple(x.shape)} must be NHWC and w "
                          f"{tuple(w.shape)} [Cin, Cout, k, k], k odd")
-    return _ConvTranspose2x.apply(x, w)
+    return _ConvTranspose2x.apply(x, w.to(x.dtype))
 
 
 def conv2d_dw_plain(x, g, k):
@@ -231,7 +270,10 @@ def conv2d_dw_plain(x, g, k):
 
     The algebra of event_flow_tpu/ops/conv_grads.py:51-70: a conv of x
     with g in which the batch axis is contracted, x's channels act as the
-    batch and g as the kernel; TF32 off."""
+    batch and g as the kernel; TF32 off. On bfloat16 x and g in float32,
+    dw rounded once to bfloat16."""
+    if x.dtype == torch.bfloat16:
+        return _widened(conv2d_dw_plain, x, g, k)
     with _no_tf32():
         dw = F.conv2d(x.permute(3, 0, 1, 2), g.permute(3, 0, 1, 2),
                       padding=k // 2)  # [Cin, Cout, k, k]
@@ -239,31 +281,35 @@ def conv2d_dw_plain(x, g, k):
 
 
 def _conv_kernel(x, w):
-    """Launch K1: y [B,H,W,Cout] = conv of x with the OIHW w."""
+    """Launch K1, its float32 or bfloat16 variant after x's element type:
+    y [B,H,W,Cout] = conv of x with the OIHW w of the same type."""
     k = _check_shapes(x, w)
+    name = native.variant("conv2d_same", x.dtype)
     w2 = flatten_kernel(w)
-    native.require_cuda_f32("conv2d_same", x, w2)
+    native.require_cuda(name, x.dtype, x, w2)
     b, h, wd, _ = x.shape
     cout = w.shape[0]
     y = torch.empty((b, h, wd, cout), device=x.device, dtype=x.dtype)
-    err = native.library().evf_conv2d_same(
+    err = getattr(native.library(), "evf_" + name)(
         x.data_ptr(), w2.data_ptr(), y.data_ptr(), b, h, wd, x.shape[3],
         cout, k, native.stream_handle(x.device))
-    native.check(err, "conv2d_same")
-    native.LAUNCHES["conv2d_same"] += 1
+    native.check(err, name)
+    native.LAUNCHES[name] += 1
     return y
 
 
 def conv2d_dw_kernel(x, g, k):
-    """Launch B2: the weight gradient, OIHW [Cout, Cin, k, k], of x
-    [B,H,W,Cin] and g [B,H,W,Cout], both contiguous float32 on one CUDA
-    device."""
+    """Launch B2, its float32 or bfloat16 variant after x's element type:
+    the weight gradient, OIHW [Cout, Cin, k, k] in that type, of x
+    [B,H,W,Cin] and g [B,H,W,Cout], both contiguous, of one type, on one
+    CUDA device."""
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(f"conv2d_dw: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} must be NHWC of one image size")
     if k not in (1, 3, 5):
         raise ValueError(f"conv2d_dw: k must be 1, 3 or 5, got {k}")
-    native.require_cuda_f32("conv2d_dw", x, g)
+    name = native.variant("conv2d_dw", x.dtype)
+    native.require_cuda(name, x.dtype, x, g)
     b, h, wd, cin = x.shape
     cout = g.shape[3]
     if min(b, h, wd, cin, cout) < 1 or max(x.numel(), g.numel()) >= 2 ** 31:
@@ -275,14 +321,15 @@ def conv2d_dw_kernel(x, g, k):
     if chunks < 1:
         raise ValueError(f"conv2d_dw: no launch for x {tuple(x.shape)}, g "
                          f"{tuple(g.shape)}, k {k}")
-    dw = torch.empty((cout, cin, k, k), device=x.device, dtype=torch.float32)
+    dw = torch.empty((cout, cin, k, k), device=x.device, dtype=x.dtype)
+    # the chunks' float32 partial sums; unused where one chunk
     part = (torch.empty((chunks, dw.numel()), device=x.device,
                         dtype=torch.float32) if chunks > 1 else dw)
-    err = lib.evf_conv_dw(x.data_ptr(), g.data_ptr(), part.data_ptr(),
-                          dw.data_ptr(), b, h, wd, cin, cout, k,
-                          native.stream_handle(x.device))
-    native.check(err, "conv2d_dw")
-    native.LAUNCHES["conv2d_dw"] += 1
+    err = getattr(lib, native.variant("evf_conv_dw", x.dtype))(
+        x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd,
+        cin, cout, k, native.stream_handle(x.device))
+    native.check(err, name)
+    native.LAUNCHES[name] += 1
     return dw
 
 
@@ -306,8 +353,10 @@ def conv_same_grads(x, w, g, need_dx=True, need_dw=True):
     """(dx, dw) of ``conv2d_same(x, w)`` for the output cotangent g, each
     None where not needed: dx is the conv of g with the spatially flipped,
     in/out-swapped kernel (conv_pallas.py::_cp_bwd), dw the weight
-    gradient. Shared with the fused LIF cells' backward."""
-    g = g.contiguous()
+    gradient, both in x's element type (g cast to it, as
+    conv_grads.py:42 casts it). Shared with the fused LIF cells'
+    backward."""
+    g = g.to(x.dtype).contiguous()
     dx = _conv(g, w.flip(2, 3).transpose(0, 1)) if need_dx else None
     dw = _dw(x, g, w.shape[2]) if need_dw else None
     return dx, dw
@@ -327,5 +376,6 @@ class _ConvSame(torch.autograd.Function):
 
 def conv2d_same(x, w):
     """y [B,H,W,Cout] = same-padded stride-1 conv of x [B,H,W,Cin] with
-    w [Cout,Cin,k,k], odd k <= 5, differentiable in x and w."""
-    return _ConvSame.apply(x, w)
+    w [Cout,Cin,k,k], odd k <= 5, differentiable in x and w; w is cast to
+    x's element type, so y is in it."""
+    return _ConvSame.apply(x, w.to(x.dtype))

@@ -45,13 +45,25 @@ taken per block into a scratch and added in a fixed order by a second
 launch, so they are bitwise repeatable; up to 256 channels a block
 spreads pixels and channels over its threads, above 256 (up to
 ``BWD_MAX_CHANNELS``) each thread walks channels of one pixel at a time.
+
+Element types, as the Pallas kernels take them under the JAX package's
+mixed-precision policy (fused_lif_pallas.py:127-141, :231-245): x, w, v,
+z (and z_rec, w_rec) float32, or all bfloat16 with ``leak`` and
+``thresh`` float32 either way. The bfloat16 variants of K2 and B4
+accumulate the current and do the update and its backward in float32,
+write bfloat16 v', z', g_cur and g_vin, each rounded once (z' from the
+float32 v'), and float32 per-channel sums; they count under
+``fused_conv_lif_bf16``, ``fused_conv_lif_rec_bf16`` and
+``fused_lif_bwd_bf16``. The plain versions compute the same in float32
+and round the same outputs once. The public functions cast the float32
+weights to x's type, as JAX's cells do (snn_cells.py:176, :432).
 """
 
 import torch
 
 from . import native
-from .conv import (_check_shapes, conv2d_same_plain, conv_same_grads,
-                   flatten_kernel)
+from .conv import (_check_shapes, _widened, conv2d_same_plain,
+                   conv_same_grads, flatten_kernel)
 from .spike import get_spike_fn, surrogate
 
 __all__ = ["fused_conv_lif", "fused_conv_lif_rec", "fused_conv_lif_plain",
@@ -83,11 +95,15 @@ def lif_update(cur, v, z, leak, thresh, hard_reset, activation, width):
 
 def fused_conv_lif_plain(x, w, v, z, leak, thresh, k, hard_reset=True,
                          activation="arctanspike", width=10.0):
-    """Plain version: conv (TF32 off), then the LIF update; autograd
-    through it gives the same gradients as the cell's backward."""
-    cur = conv2d_same_plain(x, w)
-    return lif_update(cur, v, z, leak, thresh, hard_reset, activation,
-                      width)
+    """Plain version: conv (TF32 off), then the LIF update; bfloat16
+    operands widened to float32, v' and z' rounded once to bfloat16;
+    autograd through it gives the same gradients as the cell's
+    backward."""
+    if x.dtype == torch.bfloat16:
+        return _widened(fused_conv_lif_plain, x, w, v, z, leak, thresh, k,
+                        hard_reset, activation, width)
+    return lif_update(conv2d_same_plain(x, w), v, z, leak, thresh,
+                      hard_reset, activation, width)
 
 
 def fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh, k,
@@ -95,11 +111,14 @@ def fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh, k,
                              width=10.0):
     """Plain version of the recurrent cell: one conv over
     concat([x, z_rec]) with the two kernels concatenated along the input
-    channels, then the LIF update."""
+    channels, then the LIF update; bfloat16 as in
+    :func:`fused_conv_lif_plain`."""
+    if x.dtype == torch.bfloat16:
+        return _widened(fused_conv_lif_rec_plain, x, w, w_rec, v, z, z_rec,
+                        leak, thresh, k, hard_reset, activation, width)
     cur = conv2d_same_plain(torch.cat([x, z_rec], dim=-1),
                             torch.cat([w, w_rec], dim=1))
-    return lif_update(cur, v, z, leak, thresh, hard_reset, activation,
-                      width)
+    return lif_update(cur, v, z, leak, thresh, hard_reset, activation, width)
 
 
 def fused_lif_bwd_plain(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
@@ -108,7 +127,11 @@ def fused_lif_bwd_plain(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
     fused_lif_pallas.py::_bwd_kernel (:198-247): from the saved v, z, v'
     and the cotangents of (v', z'), returns (g_cur, g_vin, g_leak [C],
     g_thresh [C]), recovering (1-l)*cur from the saved states and clamping
-    the divisor (1-l) at 1e-6."""
+    the divisor (1-l) at 1e-6. bfloat16 maps widened to float32, g_cur
+    and g_vin rounded once to bfloat16, the sums float32."""
+    if v.dtype == torch.bfloat16:
+        return _widened(fused_lif_bwd_plain, v, z, v_out, leak, thresh, g_v,
+                        g_z, hard_reset, activation, width, rounded=2)
     leak = leak.reshape(-1)
     thr = thresh.reshape(-1)
     sg = surrogate(activation, v_out - thr, width)
@@ -132,8 +155,10 @@ def fused_lif_bwd_plain(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
 
 def fused_lif_bwd_kernel(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
                          activation, width):
-    """Launch B4 on contiguous float32 [..., C] maps on one CUDA device;
-    returns what :func:`fused_lif_bwd_plain` returns."""
+    """Launch B4, its float32 or bfloat16 variant after v's element type,
+    on contiguous [..., C] maps of that type and float32 leak and thresh
+    on one CUDA device; returns what :func:`fused_lif_bwd_plain`
+    returns."""
     c = v.shape[-1]
     if not 1 <= c <= BWD_MAX_CHANNELS:
         raise ValueError(f"fused_lif_bwd: 1 to {BWD_MAX_CHANNELS} channels, "
@@ -146,8 +171,10 @@ def fused_lif_bwd_kernel(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
     thresh = thresh.reshape(-1).contiguous()
     if leak.numel() != c or thresh.numel() != c:
         raise ValueError(f"fused_lif_bwd: leak and thresh need {c} channels")
-    native.require_cuda_f32("fused_lif_bwd", v, z, v_out, leak, thresh, g_v,
-                            g_z)
+    name = native.variant("fused_lif_bwd", v.dtype)
+    native.require_cuda(name, v.dtype, v, z, v_out, g_v, g_z)
+    native.require_cuda(name, torch.float32, leak, thresh,
+                        device=v.device)
     npix = v.numel() // c
     lib = native.library()
     blocks = lib.evf_fused_lif_bwd_blocks(npix, c)
@@ -155,14 +182,14 @@ def fused_lif_bwd_kernel(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
     g_cur = torch.empty_like(v)
     g_vin = torch.empty_like(v)
     g_lt = torch.empty((2 * c,), device=v.device, dtype=torch.float32)
-    err = lib.evf_fused_lif_bwd(
+    err = getattr(lib, "evf_" + name)(
         v.data_ptr(), z.data_ptr(), v_out.data_ptr(), leak.data_ptr(),
         thresh.data_ptr(), g_v.data_ptr(), g_z.data_ptr(), g_cur.data_ptr(),
         g_vin.data_ptr(), part.data_ptr(), g_lt.data_ptr(), npix, c,
         int(bool(hard_reset)), _SURROGATE_CODE[activation], float(width),
         native.stream_handle(v.device))
-    native.check(err, "fused_lif_bwd")
-    native.LAUNCHES["fused_lif_bwd"] += 1
+    native.check(err, name)
+    native.LAUNCHES[name] += 1
     return g_cur, g_vin, g_lt[:c], g_lt[c:]
 
 
@@ -191,19 +218,24 @@ def _launch(name, x, w, v, z, leak, thresh, k, hard_reset, z_rec=None,
     thresh = thresh.reshape(-1).contiguous()
     if leak.numel() != cout or thresh.numel() != cout:
         raise ValueError(f"{name}: leak and thresh need {cout} channels")
-    tensors = [x, w2, v, z, leak, thresh]
-    zr_ptr = wr_ptr = None
+    tensors = [x, w2, v, z]
+    rec = ()
     if z_rec is not None:
         if z_rec.shape != state_shape or tuple(w_rec.shape) != (cout, cout, k, k):
             raise ValueError(f"{name}: z_rec must be {state_shape} and "
                              f"w_rec ({cout}, {cout}, {k}, {k})")
-        wr2 = flatten_kernel(w_rec)
-        tensors += [z_rec, wr2]
-        zr_ptr, wr_ptr = z_rec.data_ptr(), wr2.data_ptr()
-    native.require_cuda_f32(name, *tensors)
+        rec = (z_rec, flatten_kernel(w_rec))
+        tensors += rec
+    name = native.variant(name, x.dtype)
+    native.require_cuda(name, x.dtype, *tensors)
+    native.require_cuda(name, torch.float32, leak, thresh,
+                        device=x.device)
     v_out = torch.empty_like(v)
     z_out = torch.empty_like(v)
-    err = native.library().evf_fused_conv_lif(
+    entry = getattr(native.library(), native.variant("evf_fused_conv_lif",
+                                                     x.dtype))
+    zr_ptr, wr_ptr = (t.data_ptr() for t in rec) if rec else (None, None)
+    err = entry(
         x.data_ptr(), w2.data_ptr(), zr_ptr, wr_ptr, v.data_ptr(),
         z.data_ptr(), leak.data_ptr(), thresh.data_ptr(), v_out.data_ptr(),
         z_out.data_ptr(), b, h, wd, cin, cout, k, int(bool(hard_reset)),
@@ -299,12 +331,12 @@ class _FusedConvLIFRec(torch.autograd.Function):
 
 def fused_conv_lif(x, w, v, z, leak, thresh, k, hard_reset=True,
                    activation="arctanspike", width=10.0):
-    """Feedforward cell. x [B,H,W,Cin]; w [Cout,Cin,k,k]; v, z
-    [B,H,W,Cout]; leak, thresh [Cout] post-squash. Returns (v', z').
-    ``activation`` and ``width`` name the surrogate gradient of the
-    backward."""
-    return _FusedConvLIF.apply(x, w, v, z, leak, thresh, k, hard_reset,
-                               activation, float(width))
+    """Feedforward cell. x [B,H,W,Cin]; w [Cout,Cin,k,k], cast to x's
+    element type; v, z [B,H,W,Cout] in x's type; leak, thresh [Cout]
+    post-squash, float32. Returns (v', z') in x's type. ``activation``
+    and ``width`` name the surrogate gradient of the backward."""
+    return _FusedConvLIF.apply(x, w.to(x.dtype), v, z, leak, thresh, k,
+                               hard_reset, activation, float(width))
 
 
 def fused_conv_lif_rec(x, w, w_rec, v, z, z_rec, leak, thresh, k,
@@ -313,5 +345,6 @@ def fused_conv_lif_rec(x, w, w_rec, v, z, z_rec, leak, thresh, k,
     """Recurrent cell: cur = conv(x, w) + conv(z_rec, w_rec). ``z_rec`` is
     the previous spike map before any detach (for ConvLIFRecurrent it is
     ``z`` itself). Returns (v', z')."""
-    return _FusedConvLIFRec.apply(x, w, w_rec, v, z, z_rec, leak, thresh, k,
-                                  hard_reset, activation, float(width))
+    return _FusedConvLIFRec.apply(x, w.to(x.dtype), w_rec.to(x.dtype), v, z,
+                                  z_rec, leak, thresh, k, hard_reset,
+                                  activation, float(width))

@@ -9,7 +9,11 @@ the module is imported.
 
 Every wrapper that launches a kernel adds one to its entry in
 :data:`LAUNCHES`, where it launches and nowhere else, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. The bfloat16 variants of K1,
+K2, B2 and B4 count under their own names (``conv2d_same_bf16``, ...).
+A wrapper takes the element types :func:`require_cuda` allows it and
+raises on any other: a bfloat16 tensor launches a bfloat16 kernel, never
+a float32 one.
 
 The forward kernels of the serving path are torch operators in the
 ``evflow`` namespace (:func:`define_op`): the dispatcher takes the plain
@@ -31,7 +35,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "library", "build_library",
-           "check", "stream_handle", "require_cuda_f32", "find_nvcc",
+           "check", "stream_handle", "require_cuda", "variant", "find_nvcc",
            "CSRC", "define_op"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -41,7 +45,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"conv2d_same": 0, "fused_conv_lif": 0, "fused_conv_lif_rec": 0,
-            "scatter_add": 0, "conv2d_dw": 0, "fused_lif_bwd": 0}
+            "scatter_add": 0, "conv2d_dw": 0, "fused_lif_bwd": 0,
+            "conv2d_same_bf16": 0, "fused_conv_lif_bf16": 0,
+            "fused_conv_lif_rec_bf16": 0, "conv2d_dw_bf16": 0,
+            "fused_lif_bwd_bf16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +65,10 @@ _SIGNATURES = {
     "evf_fused_lif_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                           _I, _I, _I, _F, _P],
 }
+# the bfloat16 entries take the float32 ones' arguments
+for _name in ("evf_conv2d_same", "evf_fused_conv_lif", "evf_conv_dw",
+              "evf_fused_lif_bwd"):
+    _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
 
 _lib = None
 build_seconds = None  # wall time of the build (or of the cache hit)
@@ -193,15 +204,39 @@ def check(err, name):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def require_cuda_f32(name, *tensors):
-    """Wrapper precondition: every tensor is a contiguous float32 tensor
-    on the same CUDA device."""
-    dev = tensors[0].device
+# the element types of the kernels' variants, and the suffix of each
+# variant's C entry and launch count
+DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def variant(name, dtype):
+    """The name of the ``dtype`` variant of kernel ``name``
+    (``conv2d_same`` -> ``conv2d_same_bf16``); raises for an element type
+    no variant takes."""
+    if dtype not in DTYPES:
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {dtype}")
+    return name + DTYPES[dtype]
+
+
+def beyond_bf16_ulp(got, ref, atol=0.0):
+    """Where |got - ref| exceeds one bfloat16 ulp of the larger magnitude
+    plus ``atol``: the bound of a bfloat16 result against the same
+    function computed in another order and rounded once."""
+    got, ref = got.float(), ref.float()
+    big = torch.maximum(got.abs(), ref.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return (got - ref).abs() > ulp + atol
+
+
+def require_cuda(name, dtype, *tensors, device=None):
+    """Wrapper precondition: every tensor is a contiguous tensor of
+    ``dtype`` on the same CUDA device (``device`` where given)."""
+    dev = tensors[0].device if device is None else device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA "
                              f"device, got {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

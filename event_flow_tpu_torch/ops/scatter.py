@@ -66,7 +66,7 @@ def scatter_add_kernel(idx, vals, size):
     _check(idx, vals, size)
     idx32 = idx if idx.dtype == torch.int32 else idx.to(torch.int32)
     idx32 = idx32.contiguous()
-    native.require_cuda_f32("scatter_add", vals)
+    native.require_cuda("scatter_add", torch.float32, vals)
     if idx32.device != vals.device:
         raise ValueError("scatter_add: idx and vals on different devices")
     b, m, c = vals.shape

@@ -24,9 +24,7 @@ its slots and the collectives are written out:
     recurrent state between the processes' ``[B/dp, ...]`` slices and
     the global ``[B, ...]`` tree, the counterpart of ``global_state``
     (:127-156), so that a checkpoint holds the state of a one-process
-    run and moves between world sizes;
-  - :func:`process_file_shard`, the disjoint round-robin share of a file
-    list (``eval_flow --shard``, eval ``--dp``).
+    run and moves between world sizes.
 
 The collectives take a group of parallel/mesh.py::Mesh; with no process
 group they are the identity, so a mesh of one process without
@@ -43,7 +41,7 @@ from ..models.state import map_state
 
 __all__ = ["init_distributed", "agree", "local_slots", "broadcast_module",
            "all_reduce_grads", "gather_state", "scatter_state",
-           "process_file_shard", "is_distributed"]
+           "is_distributed"]
 
 
 def is_distributed():
@@ -177,16 +175,3 @@ def scatter_state(state, mesh):
     (every process holds the whole tree, as read from a checkpoint)."""
     return map_state(lambda t: local_slots(t, mesh.data_rank, mesh.dp),
                       state)
-
-
-def process_file_shard(files, process_id, process_count):
-    """The disjoint round-robin share of ``files`` of process
-    ``process_id`` of ``process_count``. Every process must pass the same
-    (sorted) list."""
-    if not 0 <= process_id < process_count:
-        raise ValueError(f"process {process_id} of {process_count}")
-    shard = files[process_id::process_count]
-    if not shard:
-        raise ValueError(f"process {process_id}/{process_count} got no "
-                         f"files (have {len(files)})")
-    return shard

@@ -40,6 +40,14 @@ backward one all-reduce sums the gradients over the world
 statistics and the clip, whose global norm is then the whole batch's on
 every process, so the replicas stay equal.
 
+``precision="bfloat16"`` is the JAX package's mixed-precision policy at
+its boundary (step.py:159-180): the encodings and the carried state
+enter the T-window loop in bfloat16, the model's convs and cells compute
+in it (their float32 weights cast per call, the kernels' bfloat16
+variants launched), each window's flows leave it in float32 for the
+loss, and the state is cast back to float32 after the last window, so
+the ``TrainState`` (parameters, optimizer, carried state) stays float32.
+
 The JAX step's TPU workarounds are not ported (``_pack_state``, the
 ``EVFLOW_REMAT`` rematerialisation modes, ``micro_batch``,
 ``make_train_step_multi``): PyTorch keeps every saved activation, about
@@ -52,7 +60,8 @@ import torch
 
 from ..data.augment import augment_events
 from ..loss.warping import LossConfig, event_warping_loss
-from ..models.state import detach_state, zeros_like_state
+from ..models.state import (cast_state, compute_dtype, detach_state,
+                            zeros_like_state)
 from ..ops.encodings import encode_windows
 from ..parallel.distributed import all_reduce_grads
 from ..parallel.shard_loss import make_sharded_loss
@@ -68,11 +77,15 @@ class TrainState(NamedTuple):
 
 
 def make_sequence_forward(model, res, num_bins, round_encoding=False,
-                          with_cnt=False):
+                          with_cnt=False, precision="float32"):
     """f(model_state, events [B,T,N,4], valid [B,T,N], aug_flags [B,3]) ->
     (new_state, flows [per scale: [B,T,H,W,2] f32], event_list [B,T,N,4],
     pol_mask [B,T,N,2], event_mask [B,T,H,W,1][, event_cnt
-    [B,T,H,W,2] with ``with_cnt``])."""
+    [B,T,H,W,2] with ``with_cnt``]). Under ``precision="bfloat16"`` the
+    model runs in bfloat16 and new_state comes back float32; "float32"
+    casts nothing."""
+    dtype = compute_dtype(precision)
+    narrow = dtype != torch.float32
 
     def sequence_forward(model_state, events, valid, aug_flags):
         b, t, n, _ = events.shape
@@ -80,16 +93,20 @@ def make_sequence_forward(model, res, num_bins, round_encoding=False,
                                 res).reshape(b, t, n, 4)
         enc = encode_windows(events, res, num_bins, valid=valid,
                              round_ts=round_encoding)
-        state = model_state
+        voxel, cnt, state = enc["event_voxel"], enc["event_cnt"], model_state
+        if narrow:  # float32 casts nothing: a float64 model stays float64
+            voxel, cnt = voxel.to(dtype), cnt.to(dtype)
+            state = cast_state(state, dtype)
         flows = None
         for i in range(t):
-            out, state = model(enc["event_voxel"][:, i],
-                               enc["event_cnt"][:, i], state)
+            out, state = model(voxel[:, i], cnt[:, i], state)
             if flows is None:
                 flows = [[] for _ in out["flow"]]
             for scale, f in zip(flows, out["flow"]):
                 scale.append(f.float())
         flows = [torch.stack(f, dim=1) for f in flows]
+        if narrow:
+            state = cast_state(state, torch.float32)
         out = (state, flows, enc["event_list"], enc["pol_mask"],
                enc["event_mask"])
         return out + (enc["event_cnt"],) if with_cnt else out
@@ -109,11 +126,12 @@ class _TrainStep:
     optimizer update in place; the returned state carries the new
     (detached) recurrent state. ``loss`` is a 0-dim device tensor; with a
     ``mesh`` the events, the state and the flags are the process's slots
-    and ``loss`` is the whole batch's."""
+    and ``loss`` is the whole batch's. ``precision`` is the model's
+    compute type inside the window loop (see the module's docstring)."""
 
     def __init__(self, model, res, num_bins, loss_cfg: LossConfig,
                  round_encoding=False, with_grad_stats=False,
-                 with_vis=False, mesh=None):
+                 with_vis=False, mesh=None, precision="float32"):
         self.loss_cfg = loss_cfg
         self.mesh = mesh
         self.loss_fn = (make_sharded_loss(mesh, loss_cfg) if mesh is not None
@@ -121,7 +139,8 @@ class _TrainStep:
         self.with_grad_stats = with_grad_stats
         self.with_vis = with_vis
         self.seq_fwd = make_sequence_forward(model, res, num_bins,
-                                             round_encoding, with_vis)
+                                             round_encoding, with_vis,
+                                             precision)
         self.vis = None
 
     def loss(self, model_state, events, valid, aug_flags):
@@ -162,8 +181,8 @@ class _TrainStep:
 
 def make_train_step(model, res, num_bins, loss_cfg: LossConfig,
                     round_encoding=False, with_grad_stats=False,
-                    with_vis=False, mesh=None):
+                    with_vis=False, mesh=None, precision="float32"):
     """The update step of ``model`` (see :class:`_TrainStep`), on the
-    process's slots of ``mesh`` where given."""
+    process's slots of ``mesh`` where given, in ``precision``."""
     return _TrainStep(model, res, num_bins, loss_cfg, round_encoding,
-                      with_grad_stats, with_vis, mesh)
+                      with_grad_stats, with_vis, mesh, precision)

@@ -54,6 +54,20 @@ config says otherwise, ``vis.store``: at batch 1 every
 (``events/``, ``flow/``, PNG where cv2 imports, else .npy; train/loop.py).
 A config with ``vis.enabled`` does the same without the flag.
 
+``--bf16`` (JAX train_flow.py:230, :246-250) trains under the JAX
+package's mixed-precision policy: convs and cells in bfloat16 (the
+bfloat16 variants of K1, K2, B2 and B4), parameters, Adam, the loss and
+the carried state in float32 (train/step.py). A config without a spiking
+neuron block prints JAX's warning about bfloat16 ANN training first.
+``--profile`` (JAX train_flow.py:111-140, :221) records a
+``torch.profiler`` trace, CPU and (on the card) CUDA activities, of the
+updates from the loop's start to ``--max_updates`` or the run's end, into
+``runs/<runid>/profile/`` (``<runs_root>/profile/`` with ``--debug``), a
+Chrome trace that TensorBoard and ``chrome://tracing`` read.
+
+  python -m event_flow_tpu_torch.train_flow --config configs/train_SNN.yml \
+      --synthetic --max_updates 3 --bf16 --profile --device cuda
+
 ``--dp`` (JAX train_flow.py:63-70, :228) trains data-parallel, one
 process per card, under ``torchrun``:
 
@@ -86,12 +100,22 @@ from .train.loop import Trainer
 from .utils.tracking import Tracker
 from .utils.visualization import Visualization
 
-__all__ = ["train", "main"]
+__all__ = ["train", "main", "BF16_ANN_WARNING"]
+
+# the JAX CLI's warning (train_flow.py:47-55), word for word
+BF16_ANN_WARNING = (
+    "WARNING: bf16 long-horizon TRAINING is validated for the "
+    "spiking families (state bounded by the neuron dynamics). A "
+    "100-epoch ANN RecEVFlowNet run collapsed into tanh-head "
+    "saturation at ~200 updates under bf16 and trained cleanly "
+    "in f32 (STATUS.md round-4 findings) — prefer f32 for ANN "
+    "training; bf16 inference/serving is unaffected.")
 
 
 def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
           resume="", debug=False, sequences=None, synthetic="const",
-          native=False, vis=False, mesh=None):
+          native=False, vis=False, mesh=None, precision="float32",
+          profile=False):
     """Train until ``max_updates`` updates (0: the config's
     ``loader.n_epochs`` epochs) on ``ArrayEventStream(config,
     sequences)``; when ``sequences`` is None, with ``native`` on the
@@ -101,12 +125,17 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
     is ``--vis``: the renders into the run directory's ``vis/train/``.
     ``mesh`` (parallel/mesh.py) splits each batch over processes: every
     process calls this with the same arguments, and only rank 0 has a
-    run directory. Returns (the run id, None with ``debug`` and on the
+    run directory. ``precision`` is ``--bf16``'s ("bfloat16") or
+    "float32"; ``profile`` is ``--profile``: the trace goes to the run
+    directory's ``profile/`` (``<runs_root>/profile/`` without one).
+    Returns (the run id, None with ``debug`` and on the
     other ranks; the Trainer; the list of (loss, seconds) per update, the
     seconds spanning the update's window feed up to its loss read, which
     waits for the device)."""
     device = get_device(device) if not isinstance(device, torch.device) \
         else device
+    if precision == "bfloat16" and not config["model"].get("spiking_neuron"):
+        print(BF16_ANN_WARNING)
     tracker = None
     if not debug and (mesh is None or mesh.rank == 0):
         tracker = Tracker(config.get("experiment", "Default"),
@@ -122,7 +151,7 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
         renders = Visualization(config, eval_id=-1, path_results=(
             tracker.dir if tracker else None))
     trainer = Trainer(config, device, tracker=tracker, vis=renders,
-                      mesh=mesh)
+                      mesh=mesh, precision=precision)
     if prev_runid:
         path = trainer.load_params(os.path.join(runs_root, prev_runid))
         print(f"restored params from {path}")
@@ -146,6 +175,17 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
         epoch = trainer.resume(os.path.join(runs_root, resume), stream)
         print(f"resumed run {resume} at epoch {epoch}")
     history = []
+    prof = None
+    if profile:  # the CPU's and, on a card, the card's activities
+        from torch.profiler import ProfilerActivity, tensorboard_trace_handler
+
+        profile_dir = os.path.join(tracker.dir if tracker else runs_root,
+                                   "profile")
+        prof = torch.profiler.profile(
+            activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device.type == "cuda" else []),
+            on_trace_ready=tensorboard_trace_handler(profile_dir))
+        prof.start()
     try:
         t0 = time.perf_counter()
         while epoch < n_epochs:
@@ -173,6 +213,9 @@ def train(config, device, max_updates=0, runs_root="runs", prev_runid="",
     finally:
         if native:
             stream.close()  # joins the loader's producer thread
+        if prof is not None:  # at --max_updates and at the run's end
+            prof.stop()
+            print(f"profile trace in {profile_dir}")
     trainer.finalize()
     return (tracker.runid if tracker else None), trainer, history
 
@@ -209,6 +252,12 @@ def main(argv=None):
                     help="data-parallel over the processes of torchrun, "
                          "one per card (loader.batch_size must divide "
                          "over them); one process without torchrun")
+    ap.add_argument("--bf16", action="store_true",
+                    help="mixed precision: bf16 convs and cells, f32 "
+                         "params, optimizer, loss and carried state")
+    ap.add_argument("--profile", action="store_true",
+                    help="record a torch.profiler trace of the updates "
+                         "into the run directory's profile/")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
     config = load_yaml_config(args.config)
@@ -233,7 +282,8 @@ def main(argv=None):
                 prev_runid=args.prev_runid, resume=args.resume,
                 debug=args.debug, synthetic=args.synthetic,
                 native=args.native and not args.synthetic, vis=args.vis,
-                mesh=mesh)
+                mesh=mesh, precision="bfloat16" if args.bf16 else "float32",
+                profile=args.profile)
     finally:
         if is_distributed():
             torch.distributed.destroy_process_group()

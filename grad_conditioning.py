@@ -49,8 +49,8 @@ import torch
 
 import chip_smoke
 from event_flow_tpu_torch.config import TRAIN_ANNREC, with_model
-from event_flow_tpu_torch.eval.harness import _map_state
 from event_flow_tpu_torch.models import cells
+from event_flow_tpu_torch.models.state import map_state
 from event_flow_tpu_torch.ops import conv
 from event_flow_tpu_torch.train import step as step_module
 from event_flow_tpu_torch.train.loop import Trainer
@@ -111,7 +111,7 @@ def first_update_grads(config, device, dtype, replay=None, plain=False,
         inputs = chip_smoke.first_update_inputs(trainer, config)
         step = trainer.step
         model = trainer.model.to(dtype)
-        state = _map_state(lambda t: t.to(dtype), trainer.state.model_state)
+        state = map_state(lambda t: t.to(dtype), trainer.state.model_state)
         with torch.enable_grad():
             _, flows, ev_list, pol, mask = step.seq_fwd(
                 state, *(t.to(dtype) for t in inputs))

@@ -229,7 +229,7 @@ def test_unet_window_card_vs_cpu(dev):
     the full-resolution flow stays within 1e-4 on average."""
     from event_flow_tpu_torch.config import ECD_SPIKING_RECEVFLOWNET
     from event_flow_tpu_torch.eval.harness import cell_states
-    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.models.registry import build_model
 
     cfg = copy.deepcopy(ECD_SPIKING_RECEVFLOWNET)
     g = _gen()
@@ -782,7 +782,7 @@ def test_e2vid_window_card_vs_cpu(dev):
     prediction), the (hidden, cell) states and the flow within 1e-5 of
     their max."""
     from event_flow_tpu_torch.config import ECD_RECEVFLOWNET
-    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.models.registry import build_model
 
     cfg = copy.deepcopy(ECD_RECEVFLOWNET)
     cfg["model"]["name"] = "E2VID"
@@ -887,7 +887,7 @@ def test_xlif_window_card_vs_cpu(dev):
     comparison is by share, as the spiking U-Net's: at most 0.1 % of each
     cell's spikes flip, and the flow stays within 1e-4 on average."""
     from event_flow_tpu_torch.config import ECD_XLIFFIRENET
-    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.models.registry import build_model
 
     cnt = torch.poisson(torch.full((1, 180, 240, 2), 0.2), generator=_gen())
     outs = {}
@@ -1059,7 +1059,7 @@ def _serve_cpu_artifact_on_card(dev, tmp_path, cfg, n, n_events):
     from event_flow_tpu_torch.eval.predict import InferenceEngine
     from event_flow_tpu_torch.eval.serialized import (SerializedEngine,
                                                       export_engine)
-    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.models.registry import build_model
 
     res = tuple(cfg["loader"]["resolution"])
     cpu = InferenceEngine(cfg, build_model(cfg, "cpu"), "cpu")
@@ -1085,8 +1085,8 @@ def test_cpu_artifact_launches_the_kernels_on_the_card(dev, tmp_path):
     cfg["model"]["base_num_channels"] = 32
     live, live_counts, served, counts = _serve_cpu_artifact_on_card(
         dev, tmp_path, cfg, 4, 3000)
-    want = {"conv2d_same": 4, "fused_conv_lif": 20, "fused_conv_lif_rec": 8,
-            "scatter_add": 4, "conv2d_dw": 0, "fused_lif_bwd": 0}
+    want = {**dict.fromkeys(native.LAUNCHES, 0), "conv2d_same": 4,
+            "fused_conv_lif": 20, "fused_conv_lif_rec": 8, "scatter_add": 4}
     assert live_counts == want and counts == want
     assert max(float(f.abs().max()) for f in live) > 0
     for a, b in zip(served, live):
@@ -1172,7 +1172,7 @@ def test_evaluator_vis_card_vs_cpu(dev):
     from event_flow_tpu_torch.data.stream import (ArrayEventStream,
                                                   synthetic_sequences)
     from event_flow_tpu_torch.eval.harness import Evaluator
-    from event_flow_tpu_torch.eval_flow import build_model
+    from event_flow_tpu_torch.models.registry import build_model
     from event_flow_tpu_torch.ops.hot_filter import init_hot_state
 
     cfg = copy.deepcopy(ECD_LIFFIRENET)
@@ -1305,3 +1305,227 @@ def test_world2_gloo_on_one_card_matches_one_process(dev):
         ref = p.detach().cpu()
         gap = float((runs[0]["params"][name] - ref).norm() / ref.norm())
         assert gap <= 1e-5, name
+
+
+# the bfloat16 variants of K1, B2, K2 and B4 (the mixed-precision policy):
+# each against its bfloat16 plain version, both summing in float32 and
+# rounding once, so within one bfloat16 ulp plus the float32 sums' order
+# (ATOL; the pixel sums SUM_RTOL of their largest magnitude), spikes
+# equal away from the threshold; the training shapes and the U-Net's
+# deepest, with 1026 and 514 channels (4-byte copies) and a ragged case
+BF16_CONV = [((8, 128, 128, 32), 32, 3, "spikes"),
+             ((8, 128, 128, 2), 32, 1, "randn"),
+             ((8, 128, 128, 32), 2, 1, "spikes"),
+             ((1, 24, 30, 1026), 256, 3, "randn"),
+             ((8, 16, 16, 1024), 256, 3, "spikes"),
+             ((2, 18, 30, 5), 3, 3, "randn")]
+BF16_CELLS = [(8, 128, 128, 32, 32, False), (8, 128, 128, 32, 32, True),
+              (8, 128, 128, 2, 32, False), (8, 8, 8, 512, 512, True),
+              (1, 46, 60, 514, 128, False)]
+
+
+def _bf16_close(got, ref, atol):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert not native.beyond_bf16_ulp(got, ref, atol).any()
+
+
+@pytest.mark.parametrize("shape,cout,k,inputs", BF16_CONV)
+def test_bf16_conv_kernels_match_plain(dev, shape, cout, k, inputs):
+    """K1 and B2 on bfloat16 x, w and g: their bfloat16 variants launch
+    (their own counts, the float32 ones' unchanged), within one ulp of
+    the plain versions, twice bitwise equal."""
+    g = _gen()
+    if inputs == "spikes":
+        x = (torch.rand(shape, generator=g) < 0.1).float()
+    else:
+        x = 0.3 * torch.randn(shape, generator=g)
+    w = (torch.rand((cout, shape[-1], k, k), generator=g) * 2 - 1) * (
+        1 / (shape[-1] * k * k)) ** 0.5
+    gy = 1e-2 * torch.randn(shape[:3] + (cout,), generator=g)
+    x, w, gy = (t.to(dev, torch.bfloat16) for t in (x, w, gy))
+    before = dict(native.LAUNCHES)
+    y = conv2d_same(x, w)
+    dw = conv2d_dw_kernel(x, gy, k)
+    assert native.LAUNCHES["conv2d_same_bf16"] == before[
+        "conv2d_same_bf16"] + 1
+    assert native.LAUNCHES["conv2d_dw_bf16"] == before["conv2d_dw_bf16"] + 1
+    assert native.LAUNCHES["conv2d_same"] == before["conv2d_same"]
+    assert native.LAUNCHES["conv2d_dw"] == before["conv2d_dw"]
+    _bf16_close(y, conv2d_same_plain(x, w), ATOL)
+    ref = conv2d_dw_plain(x, gy, k)
+    _bf16_close(dw, ref, SUM_RTOL * float(ref.float().abs().max()))
+    assert torch.equal(y, conv2d_same(x, w))
+    assert torch.equal(dw, conv2d_dw_kernel(x, gy, k))
+
+
+@pytest.mark.parametrize("hard", [True, False])
+@pytest.mark.parametrize("b,h,w,cin,c,rec", BF16_CELLS)
+def test_bf16_cell_kernels_match_plain(dev, b, h, w, cin, c, rec, hard):
+    """K2 on bfloat16 x, w, v, z (and z_rec, w_rec) with float32 leak and
+    thresh, then B4 on its saved maps and bfloat16 cotangents: their
+    bfloat16 variants launch, v', g_cur and g_vin within one ulp of the
+    plain versions, spikes equal away from the threshold of the float32
+    v', the leak and threshold sums float32 within SUM_RTOL, twice
+    bitwise equal."""
+    g = _gen()
+    bf = torch.bfloat16
+    if cin == 2:
+        x = torch.poisson(torch.full((b, h, w, cin), 0.3), generator=g)
+    else:
+        x = (torch.rand((b, h, w, cin), generator=g) < 0.1).float()
+    wt = (torch.rand((c, cin, 3, 3), generator=g) * 2 - 1) * (1 / cin) ** 0.5
+    wr = (torch.rand((c, c, 3, 3), generator=g) * 2 - 1) * (1 / c) ** 0.5
+    thresh = (0.8 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    leak = torch.sigmoid(-4 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    v = thresh.cpu() + 0.3 * torch.randn((b, h, w, c), generator=g)
+    z = (torch.rand((b, h, w, c), generator=g) < 0.1).float()
+    x, wt, wr, v, z = (t.to(dev, bf) for t in (x, wt, wr, v, z))
+
+    def cell(fn, fn_rec, *ts):
+        if rec:
+            return fn_rec(*ts[:3], ts[3], ts[4], ts[4], leak, thresh, 3, hard)
+        return fn(ts[0], ts[1], ts[3], ts[4], leak, thresh, 3, hard)
+
+    name = "fused_conv_lif_rec_bf16" if rec else "fused_conv_lif_bf16"
+    before = native.LAUNCHES[name]
+    vo, zo = cell(fused_conv_lif, fused_conv_lif_rec, x, wt, wr, v, z)
+    assert native.LAUNCHES[name] == before + 1
+    vp, zp = cell(fused_conv_lif_plain, fused_conv_lif_rec_plain, x, wt, wr,
+                  v, z)
+    v32, _ = cell(fused_conv_lif_plain, fused_conv_lif_rec_plain,
+                  *(t.float() for t in (x, wt, wr, v, z)))
+    _bf16_close(vo, vp, ATOL)
+    assert zo.dtype == torch.bfloat16
+    flips = zo != zp
+    near = (v32 - thresh).abs() < NEAR
+    assert not (flips & ~near).any() and 0.0 < float(zp.float().mean()) < 1.0
+    assert all(map(torch.equal, (vo, zo), cell(
+        fused_conv_lif, fused_conv_lif_rec, x, wt, wr, v, z)))
+
+    args = (v, z, vo, leak, thresh, (1e-2 * torch.randn(
+        v.shape, generator=g)).to(dev, bf), (1e-2 * torch.randn(
+            v.shape, generator=g)).to(dev, bf), hard, "arctanspike", 10.0)
+    before = native.LAUNCHES["fused_lif_bwd_bf16"]
+    got = fused_lif_bwd_kernel(*args)
+    assert native.LAUNCHES["fused_lif_bwd_bf16"] == before + 1
+    ref = fused_lif_bwd_plain(*args)
+    for a, r in zip(got[:2], ref[:2]):
+        _bf16_close(a, r, 1e-7)
+    for a, r in zip(got[2:], ref[2:]):
+        assert a.dtype == torch.float32
+        assert float((a - r).abs().max()) <= SUM_RTOL * float(r.abs().max())
+    assert all(torch.equal(a, r) for a, r in zip(
+        got, fused_lif_bwd_kernel(*args)))
+
+
+def test_bf16_update_bitwise_repeatable_with_f32_state(dev):
+    """One bfloat16 LIFFireNet update, run twice from one state: bitwise
+    equal loss and gradients, only the bfloat16 variants (and K3)
+    launched, the parameters, Adam's state and the carried state
+    float32."""
+    from event_flow_tpu_torch.config import TRAIN_SNN
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    cfg = copy.deepcopy(TRAIN_SNN)
+    cfg["loader"].update(batch_size=2, resolution=[64, 64])
+    cfg["data"].update(window=300, window_loss=900)
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(cfg, dev, precision="bfloat16")
+        stream = SyntheticWindowStream(cfg)
+        native.reset_launch_counts()
+        loss = None
+        while loss is None:
+            loss = trainer.feed(stream.next_batch())
+        runs.append((loss, [p.grad.clone() for p in
+                            trainer.model.parameters()]))
+        launched = {k for k, n in native.LAUNCHES.items() if n}
+        assert launched == {"scatter_add", "conv2d_same_bf16",
+                            "fused_conv_lif_bf16", "fused_conv_lif_rec_bf16",
+                            "conv2d_dw_bf16", "fused_lif_bwd_bf16"}
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    opt = trainer.state.optimizer.state_dict()["state"]
+    tensors = (list(trainer.model.parameters())
+               + [t for s in opt.values() for t in s.values()
+                  if isinstance(t, torch.Tensor)]
+               + [t for s in trainer.state.model_state for t in s])
+    assert all(t.dtype == torch.float32 for t in tensors
+               if t.is_floating_point())
+
+
+@pytest.mark.parametrize("kind", ["strided", "transposed"])
+def test_bf16_cudnn_convs_under_deterministic_algorithms(dev, kind):
+    """conv2d_strided and conv_transpose2x on bfloat16 (cuDNN's bfloat16
+    conv, outside any kernel of the port as in JAX): forward, dx and dw
+    bfloat16, twice bitwise equal under torch.use_deterministic_algorithms,
+    within 1e-2 of max of the CPU's (float32 sums rounded once; a bfloat16
+    ulp is 2^-8 of a value)."""
+    from event_flow_tpu_torch.ops.conv import conv_transpose2x
+
+    g = _gen()
+    if kind == "strided":
+        shape, cout = ENCODER_SHAPES[1]
+        wshape = (cout, shape[3], 3, 3)
+        oshape = (shape[0], shape[1] // 2, shape[2] // 2, cout)
+        conv = lambda x, w: conv2d_strided(x, w, 2)
+    else:
+        shape, cout = TRANSPOSED_SHAPES[1]
+        wshape = (shape[3], cout, 3, 3)
+        oshape = (shape[0], 2 * shape[1], 2 * shape[2], cout)
+        conv = conv_transpose2x
+    x = torch.randn(shape, generator=g).to(torch.bfloat16)
+    w = (0.05 * torch.randn(wshape, generator=g)).to(torch.bfloat16)
+    gy = torch.randn(oshape, generator=g).to(torch.bfloat16)
+
+    def run(d):
+        xs = x.to(d).requires_grad_()
+        ws = w.to(d).requires_grad_()
+        with torch.enable_grad():
+            y = conv(xs, ws)
+            return (y.detach(),) + torch.autograd.grad(y, (xs, ws),
+                                                       gy.to(d))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = [run(dev), run(dev)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    for got, ref in zip(runs[0], run("cpu")):
+        assert got.dtype == ref.dtype == torch.bfloat16
+        err = float((got.cpu().float() - ref.float()).abs().max())
+        assert err <= 1e-2 * float(ref.float().abs().max()), err
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_avg_pool_and_upsample_card_vs_cpu(dev, stride):
+    """The PLIF/XLIF trace's avg_pool on a bfloat16 one-channel NHWC map
+    (the permuted case whose float32 CUDA backward was wrong, PR 9) and
+    the decoders' bilinear x2 upsampling, forward and backward in
+    bfloat16: within 1e-2 of max of the CPU's, twice bitwise equal."""
+    from event_flow_tpu_torch.ops.resize import avg_pool, upsample2x_bilinear
+
+    g = _gen()
+    cases = [(lambda t: avg_pool(t, 3, stride, 1),
+              torch.rand((8, 128, 128, 1), generator=g)),
+             (upsample2x_bilinear, torch.randn((8, 16, 16, 514),
+                                               generator=g))]
+    for fn, x in cases:
+        x = x.to(torch.bfloat16)
+        outs = {}
+        for d in ("cpu", dev, dev):
+            xd = x.to(d).requires_grad_()
+            with torch.enable_grad():
+                y = fn(xd)
+                gy = torch.ones_like(y).cumsum(1) / y.shape[1]
+                gx, = torch.autograd.grad(y, xd, gy)
+            outs.setdefault(str(d), []).append((y.detach().cpu(), gx.cpu()))
+        (y, gx), = outs["cpu"]
+        (y1, gx1), (y2, gx2) = outs[str(dev)]
+        assert y1.dtype == gx1.dtype == torch.bfloat16
+        assert torch.equal(y1, y2) and torch.equal(gx1, gx2)
+        for a, r in ((y1, y), (gx1, gx)):
+            err = float((a.float() - r.float()).abs().max())
+            assert err <= 1e-2 * float(r.float().abs().max()), err

@@ -355,7 +355,7 @@ def test_engine_export_and_serving_with_jax_h5py_blocked(tmp_path):
         from event_flow_tpu_torch.config import ECD_LIFFIRENET
         from event_flow_tpu_torch.eval.predict import InferenceEngine
         from event_flow_tpu_torch.eval.serialized import export_engine
-        from event_flow_tpu_torch.eval_flow import build_model
+        from event_flow_tpu_torch.models.registry import build_model
         from event_flow_tpu_torch.export_serving import main
         from event_flow_tpu_torch.utils.checkpoint import save_checkpoint
         cfg = copy.deepcopy(ECD_LIFFIRENET)

@@ -44,10 +44,10 @@ from event_flow_tpu_torch.data.native_loader import (NativeEventStream,
 from event_flow_tpu_torch.data.progress import ProgressPrinter
 from event_flow_tpu_torch.data.sequences import (rich_sequence,
                                                  synthetic_sequence)
-from event_flow_tpu_torch.data.stream import ArrayEventStream
-from event_flow_tpu_torch.eval_flow import build_model
+from event_flow_tpu_torch.data.stream import (ArrayEventStream,
+                                              process_file_shard)
 from event_flow_tpu_torch.eval_flow import main as eval_main
-from event_flow_tpu_torch.parallel.distributed import process_file_shard
+from event_flow_tpu_torch.models.registry import build_model
 from event_flow_tpu_torch.train_flow import train
 
 RES = (32, 32)

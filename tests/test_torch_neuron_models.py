@@ -40,11 +40,12 @@ from event_flow_tpu_torch.config import (ECD_LIFFIRENET, ECD_XLIFFIRENET,
                                          TRAIN_SNN, TRAIN_XLIF,
                                          load_yaml_config, neuron_block,
                                          with_model)
-from event_flow_tpu_torch.eval.harness import _map_state, spike_rates
+from event_flow_tpu_torch.eval.harness import spike_rates
 from event_flow_tpu_torch.eval_flow import evaluate
 from event_flow_tpu_torch.loss.warping import LossConfig
 from event_flow_tpu_torch.models.registry import (KNOWN_MODELS,
                                                   cell_family, get_model)
+from event_flow_tpu_torch.models.state import map_state
 from event_flow_tpu_torch.train.step import make_train_step
 from event_flow_tpu_torch.train_flow import main as train_main
 from event_flow_tpu_torch.utils.weights import state_dict_from_jax
@@ -353,7 +354,7 @@ def test_one_update_loss_and_grads_match_jax(name, seed):
     model64 = _load(get_model(name, cfg), params).to(f64)
     step64 = make_train_step(model64, RES, 2, LossConfig(
         RES, float(max(RES)), **kw))
-    state64 = _map_state(lambda t: t.to(f64), model64.zero_state(
+    state64 = map_state(lambda t: t.to(f64), model64.zero_state(
         B, *RES, torch.device("cpu")))
     step64.loss(state64, *(_t(a).to(f64) for a in (ev, valid, aug)))[
         0].backward()

@@ -58,12 +58,13 @@ from event_flow_tpu.train.step import make_train_step as jax_make_train_step
 from event_flow_tpu_torch.config import (ECD_LIFFIRENET, MVSEC_LIFFIRENET_DT4,
                                          TRAIN_ANN, TRAIN_SNN)
 from event_flow_tpu_torch.data.sequences import synthetic_sequence
+from event_flow_tpu_torch.data.stream import process_file_shard
 from event_flow_tpu_torch.eval.harness import Evaluator, join_records
-from event_flow_tpu_torch.eval_flow import build_model, evaluate
+from event_flow_tpu_torch.eval_flow import evaluate
 from event_flow_tpu_torch.eval_flow import main as eval_main
 from event_flow_tpu_torch.loss.warping import LossConfig, event_warping_loss
-from event_flow_tpu_torch.parallel.distributed import (agree, local_slots,
-                                                       process_file_shard)
+from event_flow_tpu_torch.models.registry import build_model
+from event_flow_tpu_torch.parallel.distributed import agree, local_slots
 from event_flow_tpu_torch.parallel.launch import run_world
 from event_flow_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d
 from event_flow_tpu_torch.parallel.shard_loss import event_shard

@@ -36,7 +36,8 @@ from event_flow_tpu.utils.gradients import get_grads as jax_get_grads
 from event_flow_tpu_torch.config import TRAIN_SNN
 from event_flow_tpu_torch.data.stream import EventSequence
 from event_flow_tpu_torch.data.synthetic import constant_flow_window
-from event_flow_tpu_torch.eval_flow import build_model, evaluate
+from event_flow_tpu_torch.eval_flow import evaluate
+from event_flow_tpu_torch.models.registry import build_model
 from event_flow_tpu_torch.eval_flow import main as eval_main
 from event_flow_tpu_torch.train.loop import Trainer
 from event_flow_tpu_torch.train_flow import main as train_main

@@ -11,7 +11,8 @@ result}``.
 
 import torch
 
-from event_flow_tpu_torch.eval_flow import build_model, evaluate
+from event_flow_tpu_torch.eval_flow import evaluate
+from event_flow_tpu_torch.models.registry import build_model
 from event_flow_tpu_torch.loss.warping import LossConfig
 from event_flow_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 from event_flow_tpu_torch.parallel.shard_loss import make_sharded_loss
