@@ -6,7 +6,10 @@ Phases, each printing lines of results; any failure raises and the run
 exits non-zero without the final ``ok`` line:
 
   1. device   the card's name and its nvidia-smi name and power limit
-  2. build    the CUDA kernels from event_flow_tpu_torch/csrc (nvcc, sm_90a)
+  2. build    the CUDA kernels from event_flow_tpu_torch/csrc (nvcc, sm_90a),
+              and the tensor-core instructions of the conv kernels in the
+              library's SASS (cuobjdump): HMMA.16816.F32.BF16 alone in the
+              bfloat16 instantiations, TF32 HMMA alone in the float32 ones
   3. kernels  each kernel against its plain PyTorch version (TF32 off) at
               the serving and the training shapes, with the median time of
               20 runs of each and its device time per call at the training
@@ -185,9 +188,10 @@ call's time (K1: cuDNN's conv; B2: cuDNN's weight gradient; K3:
 index_add_). The bfloat16 variants of K1, K2, B2 and B4 are held against
 their bfloat16 plain versions (one bf16 ulp plus the float32 sums'
 tolerance) at the training shapes and the U-Net's deepest (512 to 1026
-channels), twice bitwise, with the same timings at the training shape,
-their bound from bf16 bytes or the 989 TFLOP/s bf16 peak, and cuDNN's
-bf16 conv and wgrad. The process's TF32 flags stay at PyTorch's defaults, as a
+channels), twice bitwise, with the same timings at the training shape
+(B2 also at 512 -> 512 on 8 x 8), their bound from bf16 bytes or the 989
+TFLOP/s bf16 peak, and cuDNN's bf16 conv and wgrad, one call and device
+time. The process's TF32 flags stay at PyTorch's defaults, as a
 user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
@@ -203,6 +207,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import torch
 
@@ -268,6 +273,53 @@ def phase_build():
     seconds = native.build_seconds
     native.library()
     print(f"[build] {seconds:.3f} s -> {path.relative_to(path.parents[3])}")
+    sass_check(path)
+
+
+# the kernels on the conv mainloops: their bfloat16 instantiations multiply
+# with the bf16 MMA, their float32 ones in TF32 (3xTF32)
+MMA_KERNELS = ("conv2d_same_kernel", "fused_conv_lif_kernel",
+               "conv_dw_kernel")
+BF16_MMA = "HMMA.16816.F32.BF16"
+
+
+def sass_check(lib_path):
+    """The tensor-core instructions in the built library's SASS
+    (``cuobjdump -sass``, beside nvcc): every bfloat16 instantiation of
+    MMA_KERNELS holds BF16_MMA and no TF32 HMMA, every float32 one TF32
+    HMMA and no bf16 one; prints the count of each per kernel and type."""
+    from event_flow_tpu_torch.ops import native
+
+    tool = os.path.join(os.path.dirname(native.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    functions, ops = [], None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1]
+            kernel = next((k for k in MMA_KERNELS if k in name), None)
+            ops = Counter() if kernel else None
+            if kernel:
+                kind = "bf16" if "__nv_bfloat16" in name else "f32"
+                functions.append(((kernel, kind), ops))
+        elif ops is not None and "HMMA." in line:
+            ops["HMMA." + line.split("HMMA.", 1)[1].split()[0]] += 1
+    totals = {}
+    for (kernel, kind), ops in functions:
+        tf32 = sum(n for op, n in ops.items() if "TF32" in op)
+        if (ops[BF16_MMA] > 0, tf32 > 0) != (kind == "bf16", kind == "f32"):
+            fail(f"[sass] a {kind} {kernel} holds {dict(ops)}: expected "
+                 + (f"{BF16_MMA} only" if kind == "bf16" else "TF32 only"))
+        n, acc = totals.get((kernel, kind), (0, Counter()))
+        totals[(kernel, kind)] = (n + 1, acc + ops)
+    for kernel in MMA_KERNELS:
+        for kind in ("bf16", "f32"):
+            if (kernel, kind) not in totals:
+                fail(f"[sass] no {kind} instantiation of {kernel} in "
+                     f"{lib_path}")
+            n, acc = totals[(kernel, kind)]
+            print(f"[sass] {kernel} {kind}: {n} instantiations, "
+                  + ", ".join(f"{op} {c}" for op, c in sorted(acc.items())))
 
 
 def timed(fn, reps=REPS):
@@ -1064,17 +1116,24 @@ def bf16_close(got, ref, label, atol):
 
 def _timings(run_k, run_p, run_l, kernel_name, nbytes, flop):
     """One-call ms (CUDA events) of the kernel, its plain version and its
-    library call (None), and the kernel's device ms per call: its device
-    operations whose name holds ``kernel_name``, or all of the call's."""
+    library call (None), and the device ms per call of the kernel (its
+    device operations whose name holds ``kernel_name``, or all of the
+    call's) and of the library call (all of its operations)."""
     t_k, t_p = timed(run_k), timed(run_p)
     t_l = timed(run_l) if run_l else None
     d_k, src = device_ms(run_k, kernel_name)
     b_ms, b_by = least_ms(nbytes, flop, BF16_FLOPS)
     line = (f"kernel {t_k:.4f} ms one call, device {d_k:.4f} ms/call [{src}] "
             f"({_rates(nbytes, flop, d_k)}, {b_ms / d_k:.3f} of its bound "
-            f"{b_ms:.4f} ms, {b_by}); plain {t_p:.4f} ms one call"
-            + (f"; cuDNN bf16 {t_l:.4f} ms one call" if run_l else
-               "; no one PyTorch call computes it"))
+            f"{b_ms:.4f} ms, {b_by}); plain {t_p:.4f} ms one call")
+    if run_l:
+        d_l, src_l = device_ms(run_l)
+        line += (f"; cuDNN bf16 {t_l:.4f} ms one call, device {d_l:.4f} "
+                 f"ms/call [{src_l}]"
+                 + (f", kernel SLOWER by {d_k / d_l:.2f}x" if d_k > d_l
+                    else f", kernel faster by {d_l / d_k:.2f}x"))
+    else:
+        line += "; no one PyTorch call computes it"
     return (t_k, t_p, t_l, nbytes, flop), line
 
 
@@ -1103,9 +1162,10 @@ def kernels_bf16(inp, out):
     plain versions (float32 sums rounded once): within one bf16 ulp plus
     the float32 sums' tolerance (ATOL; B2 and the B4 sums SUM_RTOL of the
     largest magnitude), spikes equal away from the threshold, run twice
-    bitwise equal; at the training shape one call's time, device ms,
-    the bound (bf16 bytes at 3.35 TB/s or the FLOP at 989 TFLOP/s) and
-    cuDNN's bf16 conv or wgrad."""
+    bitwise equal; at the training shape (B2 also at 512 -> 512 on 8 x
+    8) one call's time, device ms, the bound (bf16 bytes at 3.35 TB/s or
+    the FLOP at 989 TFLOP/s) and cuDNN's bf16 conv or wgrad, one call and
+    device ms."""
     from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel,
                                                conv2d_dw_plain, conv2d_same,
                                                conv2d_same_plain)
@@ -1222,7 +1282,7 @@ def kernels_bf16(inp, out):
         if not torch.equal(got, conv2d_dw_kernel(x, g, k)):
             fail(f"{label}: two runs differ")
         timing, line = None, "not timed"
-        if (cin, cout, kind) == (32, 32, "spikes"):
+        if (cin, cout) in ((32, 32), (512, 512)) and kind == "spikes":
             npix = b * h * w
             timing, line = _timings(
                 lambda: conv2d_dw_kernel(x, g, k),
@@ -1231,7 +1291,8 @@ def kernels_bf16(inp, out):
                 2 * (npix * (cin + cout) + cout * cin * k * k),
                 2 * npix * cout * cin * k * k)
         print(f"[kernels] {label}: max|err| {err:.3g}, repeatable; {line}")
-        _record(out, "conv2d_dw_bf16", err, timing, BF16_FLOPS)
+        _record(out, "conv2d_dw_bf16", err, timing if cin == 32 else None,
+                BF16_FLOPS)
 
 
 def phase_kernels():

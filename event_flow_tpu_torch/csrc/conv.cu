@@ -7,7 +7,7 @@
 // patches and weights, accumulates in float32 and rounds y to bfloat16
 // (conv_pallas.py:82-110). Here it is an implicit GEMM on the tensor cores
 // over shared-memory halo tiles staged with cp.async (mainloop in
-// conv_tile.cuh: 3xTF32 for float32, one exact TF32 pass for bfloat16),
+// conv_tile.cuh: 3xTF32 for float32, m16n8k16 bf16 MMAs for bfloat16),
 // with no im2col matrix anywhere, and y written from the MMA fragments as
 // element pairs, 32 (bfloat16: 16) contiguous bytes per quad of lanes.
 //

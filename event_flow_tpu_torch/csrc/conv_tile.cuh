@@ -1,6 +1,7 @@
 // Shared mainloop of K1 (conv.cu) and K2 (fused_lif.cu): an implicit-GEMM
 // NHWC convolution on Hopper's tensor cores, for sm_90a, over float32
-// operands in 3xTF32 or bfloat16 operands in one TF32 pass.
+// operands in 3xTF32 (mma.sync m16n8k8) or bfloat16 operands on the bf16
+// tensor cores (mma.sync m16n8k16, fragments from ldmatrix).
 //
 // GEMM view of one block: M = an 8 x 32 tile of output pixels (one warp
 // per output row, two m16 tiles per warp), N = CO output channels (8 or
@@ -9,40 +10,58 @@
 //
 // Staging. The input channels of a segment are walked in passes of up to
 // CCH = 32 (one pass for every cell of the model), each padded with zeros
-// to a multiple of 8, the MMA's k. A pass copies the halo tile
-// (TH + K - 1) x (TW + K - 1) and the pass's weight rows into dynamic
-// shared memory with cp.async, in the operands' own element type: 16-byte
-// cp.async.cg where the channel count is a multiple of 16 bytes' worth
-// and the pointer is 16-byte aligned, else an 8- or 4-byte cp.async.ca,
-// the widest the count and pointer allow (float32 pairs: the head's 2
-// input channels and the U-Net's 130 to 1026; bfloat16 pairs for those
-// counts), a synchronous 2-byte store for an odd bfloat16 channel count, the
-// zero-fill form (source size 0) for halo pixels outside the image and
-// padded channels. The halo tile is pixel-major with channels innermost.
-// Its pixel stride is cpad + 4 floats (an odd multiple of 4 words), so the
-// 8 pixels x 4 channels of a float32 A fragment load fall on 32 distinct
-// banks, or cpad | 8 bfloat16 values (4 words times an odd number), so the
-// 8 pixels x 2 words of a bfloat16 one fall on 16 distinct banks and the
-// rows stay 16-byte aligned; weight rows are padded to CO + 8 elements (8
-// at CO = 8), so the 4 k x 8 n of a B fragment load do not conflict
-// either. At K = 3, CO = 32 a float32 pass takes 95 KB, two blocks per SM
-// (passes of 16 channels, for more blocks per SM, measured 5-8 % slower
-// on the 32-channel cells); a bfloat16 pass half of it.
+// to a multiple of 8. A pass copies the halo tile (TH + K - 1) x
+// (TW + K - 1) and the pass's weight rows into dynamic shared memory with
+// cp.async, in the operands' own element type: 16-byte cp.async.cg where
+// the channel count is a multiple of 16 bytes' worth and the pointer is
+// 16-byte aligned, else an 8- or 4-byte cp.async.ca, the widest the count
+// and pointer allow (float32 pairs: the head's 2 input channels and the
+// U-Net's 130 to 1026; bfloat16 pairs for those counts), a synchronous
+// 2-byte store for an odd bfloat16 channel count, the zero-fill form
+// (source size 0) for halo pixels outside the image and padded channels.
+// The halo tile is pixel-major with channels innermost; weight rows are
+// k-major with the output channels contiguous, padded to CO + 8 elements
+// (8 at CO = 8). In float32 the pixel stride is cpad + 4 floats (an odd
+// multiple of 4 words), so the 8 pixels x 4 channels of an A fragment
+// load fall on 32 distinct banks, and the 4 k x 8 n of a B fragment load
+// do not conflict either. In bfloat16 the pixel stride is cpad | 8 values
+// and the weight row CO + 8 (or 8), odd multiples of 8 values: every 8
+// channels of a pixel or 8 output channels of a weight row are one
+// 16-byte row, aligned, and the 8 rows that one ldmatrix matrix reads fall
+// on 8 distinct groups of 4 banks. At K = 3, CO = 32 a float32 pass takes
+// 95 KB, two blocks per SM (passes of 16 channels, for more blocks per SM,
+// measured 5-8 % slower on the 32-channel cells); a bfloat16 pass half.
 //
 // Precision. mma.sync.m16n8k8 with TF32 operands keeps 10 mantissa bits,
 // about 1e-4 of error on the cells' current, beyond the f32 tolerance the
 // kernels are held to (tests/test_torch_precision.py). Each float32
 // operand is split as hi = tf32(a), lo = tf32(a - hi), and each product is
 // taken as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, small terms first
-// ("3xTF32"); the dropped lo*lo term is below 2^-21 of the product. A
-// bfloat16 value (8 mantissa bits) widened to float32 is a TF32 value, so
-// a bfloat16 operand's lo part is zero and its product is the one
-// hi*hi MMA, exact. The tensor cores add with truncation, so over a whole
-// tap loop their running sum drifts by more than 1e-5 at dense inputs of
-// magnitude 3 (measured on the H100): each k8 step's MMAs go into a fresh
-// fragment that is added to the FP32 accumulator on the CUDA cores,
-// rounded to nearest. Every output is a fixed sequence of operations, so
-// results are bitwise repeatable (no split-K, no atomics).
+// ("3xTF32"); the dropped lo*lo term is below 2^-21 of the product. The
+// tensor cores add with truncation, so over a whole tap loop their
+// running sum drifts by more than 1e-5 at dense inputs of magnitude 3
+// (measured on the H100): each k8 step's MMAs go into a fresh fragment
+// that is added to the FP32 accumulator on the CUDA cores, rounded to
+// nearest. Every output is a fixed sequence of operations, so results are
+// bitwise repeatable (no split-K, no atomics).
+//
+// A bfloat16 step (taps_bf16) is 16 channels of one tap: ldmatrix.x4
+// loads each m16 tile of A (16 pixels x 16 channels) straight from the
+// halo tile, ldmatrix.x4.trans two n8 tiles of B from the k-major weight
+// rows, and one mma.sync.m16n8k16.f32.bf16 per m16 x n8 tile multiplies
+// them. Products of bfloat16 values are exact in FP32, so nothing asks
+// for TF32; each step goes into a fresh fragment added to the FP32
+// accumulator, as above. A pass of 8 mod 16 channels ends in a step of 8,
+// whose upper half is zeroed in both operands. Per 16 channels a warp
+// runs 4 ldmatrix and 8 MMAs, where the TF32 route took 32 scalar loads,
+// 32 conversions and 16 MMAs. What bounds it: at the LIFFireNet
+// dx (8 x 128 x 128, 32 -> 32, k 3) one call must move 16.8 MB, 5.0 us at
+// 3.35 TB/s; it takes 0.02 ms on the H100, about a quarter of that bound,
+// level with cuDNN's bf16 conv (chip_smoke.py; PERF.md). Builds that
+// dropped the staging or the MMAs showed the two taking similar times, one
+// after the other: a block stages, then multiplies. Staging a pass in two
+// cp.async groups, more blocks per SM and accumulating inside the MMA
+// were tried on the card and not kept: none moved the time by much.
 //
 // Epilogue. The accumulator stays in the MMA's fragment layout: the quad
 // of lanes 4g..4g+3 holds 8 consecutive channels of one pixel, so K1 and
@@ -182,11 +201,6 @@ __device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
   lo = tf32(a - __uint_as_float(hi));
 }
 
-// the TF32 operand of a bfloat16 value: its float32 bits, exact
-__device__ __forceinline__ uint32_t exact(bf16 a) {
-  return __float_as_uint(__bfloat162float(a));
-}
-
 // d += a * b, m16n8k8, TF32 operands, FP32 accumulator
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     const uint32_t (&b)[2]) {
@@ -195,6 +209,43 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b, m16n8k16, bfloat16 operands (two per register, the lower k
+// in the low half), FP32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix: 8 x 8 matrices of 16-bit values, lanes 8j .. 8j + 7 giving
+// the shared-memory addresses of matrix j's 8 rows of 16 bytes (x2: lanes
+// 0 .. 15 only). Lane 4g + t receives row g, values 2t and 2t + 1 of each;
+// with .trans, value g of rows 2t and 2t + 1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
 }
 
 // Copy the halo tile of channels [c0, c0 + cpad) of src and the matching
@@ -242,6 +293,71 @@ __device__ __forceinline__ void stage(T* s_in, T* s_w,
   __syncthreads();
 }
 
+// acc += every tap of a staged bfloat16 pass of cpad channels, m16n8k16
+// on fragments that ldmatrix loads: A from the halo tile (pixel
+// (warp + dy, dx) of the tile on), B from the tap's weight rows. Lane l gives the address of row l % 16 (A: pixel, B: k) at
+// channels 8 (l / 16) on (A: k, B: n), so the four matrices of A are
+// pixels 0-7 and 8-15 at k 0-7, then at k 8-15, and .trans turns the
+// k-major weight rows into B's column fragments, two n8 tiles per load.
+// Every 16-byte row is aligned, and 8 rows of one matrix fall on 8
+// distinct bank groups (pixel stride cs and row stride WS are odd
+// multiples of 8 values). Each k16 step goes into a fresh fragment added
+// to acc in FP32, as in the float32 path.
+template <int K, int CO>
+__device__ __forceinline__ void taps_bf16(float (&acc)[MT][CO / 8][4],
+                                          const bf16* s_in, const bf16* s_w,
+                                          int cpad, int cs) {
+  constexpr int SW = TW + K - 1;
+  constexpr int WS = wstride<CO>();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = lane & 15;
+  const int col = 8 * (lane >> 4);
+#pragma unroll 1
+  for (int tap = 0; tap < K * K; ++tap) {
+    const int dy = tap / K;
+    const bf16* a_px = s_in + ((warp + dy) * SW + tap - dy * K) * cs;
+    const bf16* b_k = s_w + tap * cpad * WS;
+    for (int kk = 0; kk < cpad; kk += 16) {
+      // a pass of 8 mod 16 channels ends in a k16 step holding 8: its
+      // upper k half reads the lower half's rows again and is zeroed in A
+      // and B
+      const bool half = cpad - kk == 8;
+      const bf16* a = a_px + row * cs + kk + (half ? 0 : col);
+      const bf16* b = b_k + (kk + (half ? row & 7 : row)) * WS + col;
+      uint32_t af[MT][4], bfr[CO / 8][2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        ldsm_x4(af[m], a + m * 16 * cs);
+        if (half) af[m][2] = af[m][3] = 0u;
+      }
+      if constexpr (CO == 8) {
+        ldsm_x2_t(bfr[0], b);
+        if (half) bfr[0][1] = 0u;
+      } else {
+#pragma unroll
+        for (int n = 0; n < CO / 8; n += 2) {
+          uint32_t q[4];
+          ldsm_x4_t(q, b + 8 * n);
+          bfr[n][0] = q[0];
+          bfr[n][1] = half ? 0u : q[1];
+          bfr[n + 1][0] = q[2];
+          bfr[n + 1][1] = half ? 0u : q[3];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < CO / 8; ++n)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          float part[4] = {};
+          mma_bf16(part, af[m], bfr[n]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[m][n][r] += part[r];
+        }
+    }
+  }
+}
+
 // acc += the conv of src [B,H,W,C] with w2 [K*K*C, Cout] ((dy, dx, c) row
 // order) over this block's tile, output channels co0 .. co0 + CO. smem
 // holds passes of up to cpad_max channels. Every thread must call it.
@@ -254,10 +370,6 @@ __device__ __forceinline__ void accumulate(
     int co0, int cpad_max, int step_x, int step_w) {
   constexpr int SW = TW + K - 1;
   constexpr int WS = wstride<CO>();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;  // fragment row (pixel) / column (channel)
-  const int t = lane & 3;   // fragment k
   T* s_in = smem;
   T* s_w = smem + (TH + K - 1) * SW * halo_stride<T>(cpad_max);
   for (int c0 = 0; c0 < C; c0 += CCH) {
@@ -266,14 +378,20 @@ __device__ __forceinline__ void accumulate(
     __syncthreads();  // the previous pass has finished reading the tiles
     stage<K, CO, T>(s_in, s_w, src, C, w2, Cout, b, H, W, y0, x0, co0, c0,
                     cpad, step_x, step_w);
+    if constexpr (sizeof(T) == 2) {
+      taps_bf16<K, CO>(acc, s_in, s_w, cpad, cs);
+    } else {
+      const int lane = threadIdx.x & 31;
+      const int warp = threadIdx.x >> 5;
+      const int g = lane >> 2;  // fragment row (pixel) / column (channel)
+      const int t = lane & 3;   // fragment k
 #pragma unroll 1
-    for (int tap = 0; tap < K * K; ++tap) {
-      const int dy = tap / K;
-      const int dx = tap - dy * K;
-      const T* a_tap = s_in + ((warp + dy) * SW + dx + g) * cs + t;
-      const T* b_tap = s_w + (tap * cpad + t) * WS + g;
-      for (int kk = 0; kk < cpad; kk += 8) {
-        if constexpr (sizeof(T) == 4) {
+      for (int tap = 0; tap < K * K; ++tap) {
+        const int dy = tap / K;
+        const int dx = tap - dy * K;
+        const T* a_tap = s_in + ((warp + dy) * SW + dx + g) * cs + t;
+        const T* b_tap = s_w + (tap * cpad + t) * WS + g;
+        for (int kk = 0; kk < cpad; kk += 8) {
           uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
@@ -294,28 +412,6 @@ __device__ __forceinline__ void accumulate(
               float part[4] = {};
               mma(part, al[m], bh);
               mma(part, ah[m], bl);
-              mma(part, ah[m], bh);
-#pragma unroll
-              for (int r = 0; r < 4; ++r) acc[m][n][r] += part[r];
-            }
-          }
-        } else {
-          uint32_t ah[MT][4];
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const T* a = a_tap + m * 16 * cs + kk;
-            ah[m][0] = exact(a[0]);
-            ah[m][1] = exact(a[8 * cs]);
-            ah[m][2] = exact(a[4]);
-            ah[m][3] = exact(a[8 * cs + 4]);
-          }
-#pragma unroll
-          for (int n = 0; n < CO / 8; ++n) {
-            const T* bp = b_tap + kk * WS + 8 * n;
-            const uint32_t bh[2] = {exact(bp[0]), exact(bp[4 * WS])};
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              float part[4] = {};
               mma(part, ah[m], bh);
 #pragma unroll
               for (int r = 0; r < 4; ++r) acc[m][n][r] += part[r];

@@ -7,8 +7,8 @@
 // on bfloat16 operands it accumulates in float32, does the update in
 // float32 with leak and thresh kept float32, and writes bfloat16 v' and z'
 // (fused_lif_pallas.py:119-141). Here the mainloop is K1's
-// (conv_tile.cuh): an implicit GEMM on the tensor cores (3xTF32, or one
-// exact TF32 pass on bfloat16) over halo tiles staged with cp.async. The
+// (conv_tile.cuh): an implicit GEMM on the tensor cores (3xTF32, or
+// m16n8k16 bf16 MMAs on bfloat16) over halo tiles staged with cp.async. The
 // recurrent cell's current conv(x, w) + conv(z_rec, w_rec) is one
 // accumulator fed by two K segments (the concat trick of
 // event_flow_tpu/models/snn_cells.py::_fused_current), so no current

@@ -29,11 +29,16 @@ x's element type, as JAX's ``conv2d_fn`` does, so a bfloat16 x launches
 the bfloat16 variant, which accumulates in float32 and rounds its output
 once to bfloat16 (conv_pallas.py:82-110); dx takes g in x's type and dw
 is rounded to bfloat16 (conv_grads.py:42-71, conv_pallas.py:185) before
-autograd widens it to the float32 parameter's gradient. Each plain
-version on bfloat16 widens the operands, computes in float32 with TF32
-off and rounds once: exactly the function. The strided and transposed
-convs take bfloat16 through cuDNN on the card and, on the CPU, through
-that float32 form.
+autograd widens it to the float32 parameter's gradient. The bfloat16
+variants of K1 and B2 multiply on Hopper's bf16 tensor cores
+(``mma.sync`` m16n8k16 on fragments that ``ldmatrix`` loads from the
+same staged tiles, 16 channels or pixels per step): each product is
+exact, and each step's sum goes into a fresh fragment that is added to
+the float32 accumulator, so only the order of the float32 sums differs
+from the plain version's. Each plain version on bfloat16 widens the
+operands, computes in float32 with TF32 off and rounds once: exactly the
+function. The strided and transposed convs take bfloat16 through cuDNN
+on the card and, on the CPU, through that float32 form.
 
 K1 source note: replaces the Pallas im2col strip matmul ``_conv_fwd``
 (conv_pallas.py:113-136). On the H100 it is an implicit GEMM on the

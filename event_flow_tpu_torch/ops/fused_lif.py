@@ -50,9 +50,11 @@ Element types, as the Pallas kernels take them under the JAX package's
 mixed-precision policy (fused_lif_pallas.py:127-141, :231-245): x, w, v,
 z (and z_rec, w_rec) float32, or all bfloat16 with ``leak`` and
 ``thresh`` float32 either way. The bfloat16 variants of K2 and B4
-accumulate the current and do the update and its backward in float32,
-write bfloat16 v', z', g_cur and g_vin, each rounded once (z' from the
-float32 v'), and float32 per-channel sums; they count under
+accumulate the current (K2 on K1's bfloat16 mainloop: ``mma.sync``
+m16n8k16 on ``ldmatrix`` fragments, exact products, float32 sums) and
+do the update and its backward in float32, write bfloat16 v', z', g_cur
+and g_vin, each rounded once (z' from the float32 v'), and float32
+per-channel sums; they count under
 ``fused_conv_lif_bf16``, ``fused_conv_lif_rec_bf16`` and
 ``fused_lif_bwd_bf16``. The plain versions compute the same in float32
 and round the same outputs once. The public functions cast the float32

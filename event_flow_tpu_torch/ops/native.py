@@ -218,14 +218,18 @@ def variant(name, dtype):
     return name + DTYPES[dtype]
 
 
+def bf16_ulp(got, ref):
+    """One bfloat16 ulp of the larger magnitude of ``got`` and ``ref``,
+    elementwise, in float32."""
+    big = torch.maximum(got.float().abs(), ref.float().abs()).clamp(min=1e-30)
+    return torch.exp2(torch.floor(torch.log2(big)) - 7)
+
+
 def beyond_bf16_ulp(got, ref, atol=0.0):
     """Where |got - ref| exceeds one bfloat16 ulp of the larger magnitude
     plus ``atol``: the bound of a bfloat16 result against the same
     function computed in another order and rounded once."""
-    got, ref = got.float(), ref.float()
-    big = torch.maximum(got.abs(), ref.abs()).clamp(min=1e-30)
-    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
-    return (got - ref).abs() > ulp + atol
+    return (got.float() - ref.float()).abs() > bf16_ulp(got, ref) + atol
 
 
 def require_cuda(name, dtype, *tensors, device=None):

@@ -132,10 +132,18 @@ def _oihw(w_hwio):
     return np.ascontiguousarray(np.transpose(w_hwio, (3, 2, 0, 1)))
 
 
+# the last five: channel counts that take the card's other bf16 fragment
+# paths (Cin 5, 8, 16, 24, 130: 2-byte stores, 16-byte rows, one or one and
+# a half k16 steps, a pass of 2 past 128; Cout 2 and 7)
 @pytest.mark.parametrize("shape,k,cout", [((2, 16, 16, 8), 3, 8),
                                           ((1, 12, 20, 2), 3, 8),
                                           ((2, 8, 8, 5), 1, 3),
-                                          ((1, 16, 16, 4), 5, 6)])
+                                          ((1, 16, 16, 4), 5, 6),
+                                          ((2, 9, 11, 5), 3, 7),
+                                          ((1, 8, 12, 8), 5, 2),
+                                          ((2, 10, 10, 16), 1, 7),
+                                          ((1, 12, 9, 24), 3, 2),
+                                          ((1, 8, 8, 130), 3, 7)])
 def test_conv_and_dw_plain_bf16_match_pallas(interpret_mode, shape, k, cout):
     """K1 (y = conv(x, w)) and B2 (dw of x and g) in bfloat16: the plain
     versions within one ulp of conv_pallas.py::_conv_fwd and _conv_dw."""
@@ -167,17 +175,36 @@ def _cell(rng, b, h, w, cin, cout, k):
     return x, wk, v, z, leak, thresh
 
 
-@pytest.mark.parametrize("rec", [False, True])
-@pytest.mark.parametrize("hard", [True, False])
-def test_fused_lif_plain_bf16_matches_pallas(interpret_mode, rec, hard):
+# (hard, rec, Cin, Cout): the first four at 8 channels; then channel counts
+# that take the card's other bf16 fragment paths (Cin 5, 16, 24, 130;
+# Cout 2 and 7), with the weights scaled by sqrt(8 / channels) so that
+# the currents stay as large as at 8
+FUSED_BF16_CASES = [
+    pytest.param(True, False, 8, 8, id="True-False"),
+    pytest.param(True, True, 8, 8, id="True-True"),
+    pytest.param(False, False, 8, 8, id="False-False"),
+    pytest.param(False, True, 8, 8, id="False-True"),
+    pytest.param(True, False, 5, 7, id="True-False-5-7"),
+    pytest.param(False, True, 16, 2, id="False-True-16-2"),
+    pytest.param(True, True, 24, 7, id="True-True-24-7"),
+    pytest.param(False, False, 130, 2, id="False-False-130-2"),
+    pytest.param(True, True, 130, 7, id="True-True-130-7"),
+]
+
+
+@pytest.mark.parametrize("hard,rec,cin,c", FUSED_BF16_CASES)
+def test_fused_lif_plain_bf16_matches_pallas(interpret_mode, hard, rec, cin,
+                                             c):
     """K2 on bfloat16 x, w, v, z (and z_rec, w_rec) with float32 leak and
     thresh: v' within one ulp of _fused_fwd's, z' equal away from the
     threshold; then B4 on the bfloat16 saved maps and cotangents: g_cur
     and g_vin within one ulp of _fused_bwd_elem's, the leak and threshold
     sums within SUM_RTOL of their largest magnitude."""
-    rng = np.random.default_rng(3 + 2 * rec + hard)
-    b, h, w, c, k = 2, 16, 16, 8, 3
-    x, wk, v, z, leak, thresh = _cell(rng, b, h, w, c, c, k)
+    seed = 3 + 2 * rec + hard
+    rng = np.random.default_rng(seed if cin == c == 8 else [seed, cin, c])
+    b, h, w, k = 2, 16, 16, 3
+    x, wk, v, z, leak, thresh = _cell(rng, b, h, w, cin, c, k)
+    wk = wk * np.float32(np.sqrt(8 / cin))
     tx, jx = _bf16(x)
     tv, jv = _bf16(v)
     tz, jz = _bf16(z)
@@ -187,6 +214,7 @@ def test_fused_lif_plain_bf16_matches_pallas(interpret_mode, rec, hard):
     jl, jt = jnp.asarray(leak), jnp.asarray(thresh)
     if rec:
         wr = (rng.normal(size=(k, k, c, c)) * 0.3).astype(np.float32)
+        wr = wr * np.float32(np.sqrt(8 / c))
         twr, _ = _bf16(_oihw(wr))
         jwr = jnp.asarray(wr).astype(jnp.bfloat16)
         vo, zo = t_lif.fused_conv_lif_rec_plain(tx, tw, twr, tv, tz, tz, tl,

@@ -1529,3 +1529,132 @@ def test_bf16_avg_pool_and_upsample_card_vs_cpu(dev, stride):
         for a, r in ((y1, y), (gx1, gx)):
             err = float((a.float() - r.float()).abs().max())
             assert err <= 1e-2 * float(r.float().abs().max()), err
+
+
+# The bf16 mainloops' fragment loads (ldmatrix on the halo tile and the
+# weight or g tile, mma.sync m16n8k16) at every staging path they meet:
+# input channels 1 to 1026 (16-, 8-, 4-byte copies and 2-byte stores;
+# passes of 8 mod 16 channels end in a half k16 step; B2 pads a tap's rows
+# to 8 channels), output channels 2 to 256 (n8 tiles of 8 and 32
+# columns), k 1, 3 and 5, on dense randn inputs, on a ragged map (partial
+# 8 x 32 tiles, B2 tiles of 32 x 4) and on an 8-wide map with an odd
+# number of rows (B2's 8 x 7 tile ends in a half k16 step). Bounds as
+# above, one bf16 ulp plus ATOL, or plus SUM_RTOL of the largest |dw|;
+# each test prints its largest error beyond the ulp in units of that
+# term, and its docstring gives the largest over its cases on an NVIDIA
+# H100 80GB HBM3 at 700 W.
+BF16_CIN = [1, 2, 3, 5, 8, 16, 24, 32, 130, 514, 1026]
+BF16_COUT = [2, 7, 8, 32, 256]
+BF16_MAPS = [(2, 10, 37), (1, 7, 5)]
+
+
+def _bf16_err(got, ref, atol):
+    """_bf16_close, and the largest |got - ref| beyond one ulp in units of
+    atol (0 when every value is within one ulp)."""
+    _bf16_close(got, ref, atol)
+    excess = (got.float() - ref.float()).abs() - native.bf16_ulp(got, ref)
+    return float(excess.clamp(min=0).max()) / atol
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("cin", BF16_CIN)
+def test_bf16_conv_fragment_paths(dev, cin, k):
+    """K1 and B2 in bfloat16 at every output channel count and map above:
+    within the bounds of their bf16 plain versions, twice bitwise equal.
+    Largest error beyond one ulp measured: K1 0.131 ATOL (Cin 1026, k 5),
+    B2 0.0122 SUM_RTOL (Cin 1026, k 5)."""
+    g = _gen()
+    worst = [0.0, 0.0]
+    for cout in BF16_COUT:
+        for b, h, w in BF16_MAPS:
+            x = torch.randn((b, h, w, cin), generator=g)
+            wt = (torch.rand((cout, cin, k, k), generator=g) * 2 - 1) * (
+                1 / (cin * k * k)) ** 0.5
+            gy = 1e-2 * torch.randn((b, h, w, cout), generator=g)
+            x, wt, gy = (t.to(dev, torch.bfloat16) for t in (x, wt, gy))
+            y = conv2d_same(x, wt)
+            worst[0] = max(worst[0], _bf16_err(
+                y, conv2d_same_plain(x, wt), ATOL))
+            assert torch.equal(y, conv2d_same(x, wt))
+            dw = conv2d_dw_kernel(x, gy, k)
+            ref = conv2d_dw_plain(x, gy, k)
+            atol = SUM_RTOL * float(ref.float().abs().max())
+            worst[1] = max(worst[1], _bf16_err(dw, ref, atol))
+            assert torch.equal(dw, conv2d_dw_kernel(x, gy, k))
+    print(f"[bf16 fragments] Cin {cin} k {k}: beyond one ulp K1 "
+          f"{worst[0]:.3g} ATOL, B2 {worst[1]:.3g} SUM_RTOL")
+
+
+@pytest.mark.parametrize("rec", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("cin", BF16_CIN)
+def test_bf16_cell_fragment_paths(dev, cin, k, rec):
+    """K2 in bfloat16, feedforward or recurrent, hard and soft reset, at
+    every output channel count and map above: v' within one ulp plus ATOL
+    of the bf16 plain version, spikes equal away from the threshold of the
+    float32 v', twice bitwise equal. Largest error beyond one ulp
+    measured: 0.0954 ATOL (Cin 514 and 1026, k 5)."""
+    g = _gen()
+    worst = 0.0
+    for cout in BF16_COUT:
+        for b, h, w in BF16_MAPS:
+            x = torch.randn((b, h, w, cin), generator=g)
+            wt = (torch.rand((cout, cin, k, k), generator=g) * 2 - 1) * (
+                1 / (cin * k * k)) ** 0.5
+            wr = (torch.rand((cout, cout, k, k), generator=g) * 2 - 1) * (
+                1 / (cout * k * k)) ** 0.5
+            thresh = (0.8 + 0.1 * torch.randn(cout, generator=g)).to(dev)
+            leak = torch.sigmoid(torch.randn(cout, generator=g)).to(dev)
+            v = thresh.cpu() + 0.3 * torch.randn((b, h, w, cout), generator=g)
+            z = (torch.rand((b, h, w, cout), generator=g) < 0.2).float()
+            x, wt, wr, v, z = (t.to(dev, torch.bfloat16)
+                               for t in (x, wt, wr, v, z))
+            for hard in (True, False):
+                def cell(fn, fn_rec, x, wt, wr, v, z):
+                    if rec:
+                        return fn_rec(x, wt, wr, v, z, z, leak, thresh, k,
+                                      hard)
+                    return fn(x, wt, v, z, leak, thresh, k, hard)
+
+                vo, zo = cell(fused_conv_lif, fused_conv_lif_rec, x, wt, wr,
+                              v, z)
+                vp, zp = cell(fused_conv_lif_plain, fused_conv_lif_rec_plain,
+                              x, wt, wr, v, z)
+                v32, _ = cell(fused_conv_lif_plain, fused_conv_lif_rec_plain,
+                              *(t.float() for t in (x, wt, wr, v, z)))
+                worst = max(worst, _bf16_err(vo, vp, ATOL))
+                flips = zo != zp
+                near = (v32 - thresh).abs() < NEAR
+                assert not (flips & ~near).any()
+                assert all(map(torch.equal, (vo, zo), cell(
+                    fused_conv_lif, fused_conv_lif_rec, x, wt, wr, v, z)))
+    print(f"[bf16 fragments] K2 Cin {cin} k {k} rec {rec}: beyond one ulp "
+          f"{worst:.3g} ATOL")
+
+
+@pytest.mark.parametrize("shape,chunked", [((8, 128, 128, 32, 32), True),
+                                           ((8, 8, 8, 512, 512), False)])
+@pytest.mark.parametrize("inputs", ["spikes", "randn"])
+def test_bf16_conv_dw_split_and_unsplit(dev, shape, chunked, inputs):
+    """B2 in bfloat16 at k 3 where the pixels are split into chunks
+    (FireNet's 32 -> 32 on 128 x 128: one output tile) and where they are
+    not (the U-Net's 512 -> 512 on 8 x 8: 256 output tiles): within one
+    ulp plus SUM_RTOL of the largest |dw| of the bf16 plain version, twice
+    bitwise equal. Largest error beyond one ulp measured: 0.0157 SUM_RTOL
+    (32 -> 32, randn), 0.00672 (512 -> 512, randn), 0 on spikes."""
+    b, h, w, cin, cout = shape
+    chunks = native.library().evf_conv_dw_chunks(b, h, w, cin, cout, 3)
+    assert (chunks > 1) == chunked
+    g = _gen()
+    if inputs == "spikes":
+        x = (torch.rand((b, h, w, cin), generator=g) < 0.1).float()
+    else:
+        x = torch.randn((b, h, w, cin), generator=g)
+    gy = 1e-3 * torch.randn((b, h, w, cout), generator=g)
+    x, gy = (t.to(dev, torch.bfloat16) for t in (x, gy))
+    dw = conv2d_dw_kernel(x, gy, 3)
+    ref = conv2d_dw_plain(x, gy, 3)
+    atol = SUM_RTOL * float(ref.float().abs().max())
+    print(f"[bf16 fragments] B2 {shape} {inputs}, {chunks} chunks: beyond "
+          f"one ulp {_bf16_err(dw, ref, atol):.3g} SUM_RTOL")
+    assert torch.equal(dw, conv2d_dw_kernel(x, gy, 3))
