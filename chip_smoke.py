@@ -9,7 +9,10 @@ exits non-zero without the final ``ok`` line:
   2. build    the CUDA kernels from event_flow_tpu_torch/csrc (nvcc, sm_90a),
               and the tensor-core instructions of the conv kernels in the
               library's SASS (cuobjdump): HMMA.16816.F32.BF16 alone in the
-              bfloat16 instantiations, TF32 HMMA alone in the float32 ones
+              bfloat16 instantiations, TF32 HMMA alone in the float32 ones;
+              B4's 128-bit loads (LDG.E.128) in both types, and the bulk
+              copies (UBLKCP) and mbarrier operations (SYNCS) of the ring
+              in its float32 instantiations
   3. kernels  each kernel against its plain PyTorch version (TF32 off) at
               the serving and the training shapes, with the median time of
               20 runs of each and its device time per call at the training
@@ -39,7 +42,7 @@ exits non-zero without the final ``ok`` line:
               configs/train_SNNrec_rich.yml (base 32, B 8, 128 x 128, T 10)
               with the checks of phase 6 (update 1 twice bitwise equal, 3
               timed updates, exact launch counts, peak memory, a profiled
-              update with K1 and B2 by shape on the path), then the parity
+              update with K1, B2 and B4 by shape on the path), then the parity
               of phase 7 for it
   9. annunet  RecEVFlowNet, the ANN U-Net: serving at configs/eval_ECD.yml
               with the model block of configs/train_ANNrec_rich.yml (8
@@ -179,8 +182,10 @@ FireNet's ConvGRU gates (64 -> 64 and 64 -> 32 at 8 x 128 x 128) and at
 E2VID's deepest ConvLSTM gates (512 -> 1024 at 8 x 16 x 16), beside
 cuDNN's conv and weight gradient; B2 at every weight shape of the
 FireNet and U-Net training updates, against float64 as well, with its
-device time beside cuDNN's weight gradient; B4 at the U-Net residual
-blocks' 512 channels; K3 at its five main-path shapes, with its device
+device time beside cuDNN's weight gradient; B4 at the five shapes of the
+U-Net's cells (32 to 512 channels), in both types, with L2 flushed
+before each call, its device time per call and its share of the bound;
+K3 at its five main-path shapes, with its device
 time split by device operation (one per call) beside its yardstick's;
 and gives each kernel's bound (bytes at 3.35 TB/s or operations at the
 TF32 peak) and, where one PyTorch call computes the same function, that
@@ -230,11 +235,13 @@ TRAIN_GRAD_RTOL = 1e-3  # ||g_gpu - g_cpu|| / ||g_cpu||: the same, through
                         # 3 windows of BPTT and Adam
 REPS = 20
 # the H100 SXM's published peaks (700 W): device memory, the dense TF32
-# tensor-core rate the kernels' f32 products run at (3xTF32), and the
-# dense bf16 rate the bfloat16 variants' work is bound by
+# tensor-core rate the kernels' f32 products run at (3xTF32), the dense
+# bf16 rate the bfloat16 variants' products are bound by, and the float32
+# rate outside the tensor cores, where B4 computes in both types
 HBM_BPS = 3.35e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 
 def fail(msg):
@@ -281,18 +288,64 @@ def phase_build():
 MMA_KERNELS = ("conv2d_same_kernel", "fused_conv_lif_kernel",
                "conv_dw_kernel")
 BF16_MMA = "HMMA.16816.F32.BF16"
+# B4's instantiations: the bulk copies into its ring and the mbarrier
+# operations they complete on, 128-bit loads from device memory, and its
+# 128-bit shared-memory loads and device-memory stores; what each type's
+# instantiations must hold (the ring stages float32 rows only)
+B4_KERNEL = "lif_bwd_kernel"
+B4_OPS = ("UBLKCP", "SYNCS", "LDG.E.128", "LDS.128", "STG.E.128")
+B4_NEED = {"f32": ("UBLKCP", "SYNCS", "LDG.E.128"), "bf16": ("LDG.E.128",)}
+
+
+def _opcode(line):
+    """The opcode of a line of ``cuobjdump -sass`` ('' for none)."""
+    if "*/" not in line:
+        return ""
+    words = [w for w in line.split("*/", 1)[1].split() if w[0] != "@"]
+    return words[0] if words else ""
+
+
+def _sass(lib_path):
+    from event_flow_tpu_torch.ops import native
+
+    tool = os.path.join(os.path.dirname(native.find_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+
+
+def b4_sass_check(sass):
+    """B4's instantiations of each type in ``sass`` hold the instructions
+    of B4_NEED; prints B4_OPS' counts per type."""
+    b4, ops = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1]
+            ops = None
+            if B4_KERNEL in name:
+                kind = "bf16" if "__nv_bfloat16" in name else "f32"
+                n, ops = b4.get(kind, (0, Counter()))
+                b4[kind] = (n + 1, ops)
+        elif ops is not None:
+            op = _opcode(line)
+            for name in B4_OPS:
+                if op.startswith(name):
+                    ops[name] += 1
+    for kind, need in B4_NEED.items():
+        n, acc = b4.get(kind, (0, Counter()))
+        print(f"[sass] {B4_KERNEL} {kind}: {n} instantiations, "
+              + ", ".join(f"{op} {acc[op]}" for op in B4_OPS))
+        if not all(acc[op] for op in need):
+            fail(f"[sass] the {kind} instantiations of {B4_KERNEL} hold "
+                 f"{dict(acc)}: expected {' and '.join(need)}")
 
 
 def sass_check(lib_path):
     """The tensor-core instructions in the built library's SASS
     (``cuobjdump -sass``, beside nvcc): every bfloat16 instantiation of
     MMA_KERNELS holds BF16_MMA and no TF32 HMMA, every float32 one TF32
-    HMMA and no bf16 one; prints the count of each per kernel and type."""
-    from event_flow_tpu_torch.ops import native
-
-    tool = os.path.join(os.path.dirname(native.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=600).stdout
+    HMMA and no bf16 one; prints the count of each per kernel and type.
+    Then B4's (b4_sass_check)."""
+    sass = _sass(lib_path)
     functions, ops = [], None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -320,6 +373,7 @@ def sass_check(lib_path):
             n, acc = totals[(kernel, kind)]
             print(f"[sass] {kernel} {kind}: {n} instantiations, "
                   + ", ".join(f"{op} {c}" for op, c in sorted(acc.items())))
+    b4_sass_check(sass)
 
 
 def timed(fn, reps=REPS):
@@ -882,11 +936,62 @@ def kernels_gru(inp, out):
                   + (" SLOWER than cuDNN" if d_k > d_l else ""))
 
 
+# device memory written between calls so that the next finds L2 (50 MB)
+# cold
+L2_FLUSH_BYTES = 128 << 20
+
+# B4 at the shapes of the spiking U-Net's cells in its update at B 8,
+# 128 x 128 (per window 12 cells: the decoders' 32@128x128 to 256@16x16,
+# the recurrent encoders' 64@64x64 to 512@8x8, the residual blocks'
+# 512@8x8); LIFFireNet's seven cells are the first shape
+B4_SHAPES = ((8, 128, 128, 32), (8, 64, 64, 64), (8, 32, 32, 128),
+             (8, 16, 16, 256), (8, 8, 8, 512))
+
+
+def _b4_args(inp, shape, dtype, hard=True):
+    leak, thresh = inp.neuron(shape[-1])
+    return ((thresh + 0.3 * inp.normal(shape)).to(dtype),
+            inp.spikes(shape).to(dtype),
+            (thresh + 0.3 * inp.normal(shape)).to(dtype), leak, thresh,
+            inp.normal(shape, 1e-3).to(dtype),
+            inp.normal(shape, 1e-3).to(dtype), hard, "arctanspike", 10.0)
+
+
+def b4_bound(v):
+    """(bytes, FLOP) B4 must move and do on maps like v: five read, two
+    written; about 30 float32 operations per element
+    (csrc/fused_lif_bwd.cu), bound at FP32_FLOPS."""
+    return 7 * v.element_size() * v.numel(), 30 * v.numel()
+
+
+def b4_path_times(inp):
+    """B4 at B4_SHAPES in float32 and bfloat16, hard reset, with L2
+    flushed before each call (on the path its inputs come from device
+    memory): device ms per call and its share of the bound."""
+    from event_flow_tpu_torch.ops.fused_lif import fused_lif_bwd_kernel
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda", dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in B4_SHAPES:
+            args = _b4_args(inp, shape, dtype)
+
+            def cold():
+                flush.zero_()
+                return fused_lif_bwd_kernel(*args)
+
+            ms, src = device_ms(cold, B4_KERNEL)
+            b_ms, b_by = least_ms(*b4_bound(args[0]), FP32_FLOPS)
+            print(f"[kernels] B4 cold {str(dtype)[6:]} "
+                  f"{'x'.join(map(str, shape))}: device {ms:.4f} ms/call "
+                  f"[{src}] ({b_ms / ms:.3f} of its bound); bound "
+                  f"{b_ms:.4f} ms, {b_by}")
+
+
 def kernels_backward(inp, out):
     """B4 after a feedforward and a recurrent K2 forward at the recipe's
-    shape (with its device time per call), at the U-Net residual blocks'
-    512 channels (timed too), and for every surrogate and reset at a small
-    shape."""
+    shape (with its device time per call), at the other shapes of
+    B4_SHAPES (512 channels timed too), and for every surrogate and reset
+    at a small shape."""
     from event_flow_tpu_torch.ops.fused_lif import (
         fused_conv_lif, fused_conv_lif_rec, fused_lif_bwd_kernel,
         fused_lif_bwd_plain)
@@ -915,11 +1020,8 @@ def kernels_backward(inp, out):
             t_k = timed(lambda: fused_lif_bwd_kernel(*args))
             t_p = timed(lambda: fused_lif_bwd_plain(*args))
             d_k, src_k = device_ms(lambda: fused_lif_bwd_kernel(*args))
-            # v, z, v', g_v, g_z read, g_cur, g_vin written; about 30
-            # operations per element (csrc/fused_lif_bwd.cu)
-            nbytes = 7 * 4 * args[0].numel()
-            flop = 30 * args[0].numel()
-            b_ms = least_ms(nbytes, flop)[0]
+            nbytes, flop = b4_bound(args[0])
+            b_ms = least_ms(nbytes, flop, FP32_FLOPS)[0]
             line += (f", kernel {t_k:.4f} ms one call, device {d_k:.4f} "
                      f"ms/call [{src_k}] ({_rates(nbytes, flop, d_k)}, "
                      f"{b_ms / d_k:.3f} of its bound {b_ms:.4f} ms), plain "
@@ -927,7 +1029,8 @@ def kernels_backward(inp, out):
             # no one PyTorch call computes the LIF backward
             timing = (t_k, t_p, None, nbytes, flop)
         print(line)
-        _record(out, "fused_lif_bwd", err, timing if main else None)
+        _record(out, "fused_lif_bwd", err, timing if main else None,
+                FP32_FLOPS)
 
     for rec in (False, True):
         for hard in (True, False):
@@ -947,17 +1050,14 @@ def kernels_backward(inp, out):
             check_b4(args, f"B4 fused_lif_bwd 8x128x128x{c} after "
                      f"{'rec' if rec else 'ff'} {'hard' if hard else 'soft'}",
                      time_it=hard)
-    # the U-Net's residual blocks: 512-channel stride-1 cells at 8 x 8
-    # (B 8, 128 x 128 input), above 256 channels
-    wide = (8, 8, 8, 512)
-    for hard in (True, False):
-        leak, thresh = inp.neuron(wide[-1])
-        args = (thresh + 0.3 * inp.normal(wide), inp.spikes(wide),
-                thresh + 0.3 * inp.normal(wide), leak, thresh,
-                inp.normal(wide, 1e-3), inp.normal(wide, 1e-3), hard,
-                "arctanspike", 10.0)
-        check_b4(args, f"B4 fused_lif_bwd 8x8x8x512 (residual block) "
-                 f"{'hard' if hard else 'soft'}", time_it=hard, main=False)
+    # the U-Net's other cells, down to the residual blocks' 512-channel
+    # stride-1 cells at 8 x 8, above 256 channels
+    for shape in B4_SHAPES[1:]:
+        for hard in (True, False):
+            check_b4(_b4_args(inp, shape, torch.float32, hard),
+                     f"B4 fused_lif_bwd {'x'.join(map(str, shape))} "
+                     f"{'hard' if hard else 'soft'}",
+                     time_it=hard and shape[-1] == 512, main=False)
     small = (2, 32, 32, c)
     for activation, width in (("arctanspike", 10.0), ("superspike", 10.0),
                               ("trianglespike", 1.0), ("mgspike", 0.5)):
@@ -1114,15 +1214,17 @@ def bf16_close(got, ref, label, atol):
     return float(err.max())
 
 
-def _timings(run_k, run_p, run_l, kernel_name, nbytes, flop):
+def _timings(run_k, run_p, run_l, kernel_name, nbytes, flop,
+             peak=BF16_FLOPS):
     """One-call ms (CUDA events) of the kernel, its plain version and its
     library call (None), and the device ms per call of the kernel (its
     device operations whose name holds ``kernel_name``, or all of the
-    call's) and of the library call (all of its operations)."""
+    call's) and of the library call (all of its operations); the bound
+    from ``nbytes`` and ``flop`` at ``peak``."""
     t_k, t_p = timed(run_k), timed(run_p)
     t_l = timed(run_l) if run_l else None
     d_k, src = device_ms(run_k, kernel_name)
-    b_ms, b_by = least_ms(nbytes, flop, BF16_FLOPS)
+    b_ms, b_by = least_ms(nbytes, flop, peak)
     line = (f"kernel {t_k:.4f} ms one call, device {d_k:.4f} ms/call [{src}] "
             f"({_rates(nbytes, flop, d_k)}, {b_ms / d_k:.3f} of its bound "
             f"{b_ms:.4f} ms, {b_by}); plain {t_p:.4f} ms one call")
@@ -1261,15 +1363,15 @@ def kernels_bf16(inp, out):
                         got, fused_lif_bwd_kernel(*args))):
                     fail(f"{blabel}: two runs differ")
                 timing, line = None, "not timed"
-                if (b, c, hard) == (8, 32, True):
-                    n = v.numel()
+                if (b, hard) == (8, True) and c in (32, 512):
                     timing, line = _timings(
                         lambda: fused_lif_bwd_kernel(*args),
-                        lambda: fused_lif_bwd_plain(*args), None, None,
-                        7 * 2 * n, 30 * n)
+                        lambda: fused_lif_bwd_plain(*args), None, B4_KERNEL,
+                        *b4_bound(v), FP32_FLOPS)
                 print(f"[kernels] {blabel}: max|err| {err:.3g}, repeatable; "
                       f"{line}")
-                _record(out, "fused_lif_bwd_bf16", err, timing, BF16_FLOPS)
+                _record(out, "fused_lif_bwd_bf16", err,
+                        timing if c == 32 else None, FP32_FLOPS)
 
     for b, h, w, cin, cout, k, kind in B2_BF16:
         x = _b2_x(inp, (b, h, w, cin), kind).to(bf)
@@ -1305,6 +1407,7 @@ def phase_kernels():
     kernels_backward(inp, out)
     kernels_scatter(inp, out)
     kernels_bf16(inp, out)
+    b4_path_times(inp)
     return out
 
 
@@ -1379,16 +1482,18 @@ def _device_events(fn):
 
 
 class ShapeLog:
-    """While active, records the shape of every K1 and B2 launch in launch
-    order, as (B, H, W, Cin, Cout, k), so that a profiled run can give each
-    shape its device time (:func:`on_path_by_shape`)."""
+    """While active, records the shape of every K1, B2 and B4 launch in
+    launch order, K1 and B2 as (B, H, W, Cin, Cout, k), B4 as (B, H, W, C,
+    element type), so that a profiled run can give each shape its device
+    time (:func:`on_path_by_shape`)."""
 
     def __enter__(self):
-        from event_flow_tpu_torch.ops import conv
+        from event_flow_tpu_torch.ops import conv, fused_lif
 
-        self.k1, self.b2 = [], []
-        self._saved = (conv._conv_kernel, conv.conv2d_dw_kernel)
-        k1, b2 = self._saved
+        self.k1, self.b2, self.b4 = [], [], []
+        self._saved = (conv._conv_kernel, conv.conv2d_dw_kernel,
+                       fused_lif.fused_lif_bwd_kernel)
+        k1, b2, b4 = self._saved
 
         def k1_logged(x, w):
             self.k1.append((*x.shape, w.shape[0], w.shape[2]))
@@ -1398,24 +1503,37 @@ class ShapeLog:
             self.b2.append((*x.shape, g.shape[3], k))
             return b2(x, g, k)
 
+        def b4_logged(v, *args):
+            self.b4.append((*v.shape, str(v.dtype).replace("torch.", "")))
+            return b4(v, *args)
+
         conv._conv_kernel, conv.conv2d_dw_kernel = k1_logged, b2_logged
+        fused_lif.fused_lif_bwd_kernel = b4_logged
         return self
 
     def __exit__(self, *exc):
-        from event_flow_tpu_torch.ops import conv
+        from event_flow_tpu_torch.ops import conv, fused_lif
 
-        conv._conv_kernel, conv.conv2d_dw_kernel = self._saved
+        (conv._conv_kernel, conv.conv2d_dw_kernel,
+         fused_lif.fused_lif_bwd_kernel) = self._saved
 
 
 def on_path_by_shape(events, log):
-    """{(kernel, shape): (calls, device ms)} of the K1 and B2 launches of a
-    profiled run, each launch matched to its logged shape in launch order
-    (a B2 call with a pixel split is its conv_dw kernel and then its chunk
-    sum); None for a kernel whose device events do not match its log (a
-    profiler session can miss events)."""
+    """{(kernel, shape): (calls, device ms)} of the K1, B2 and B4 launches
+    of a profiled run, each launch matched to its logged shape in launch
+    order (a B2 call with a pixel split is its conv_dw kernel and then its
+    chunk sum; a B4 call is one kernel); None for a kernel whose device
+    events do not match its log (a profiler session can miss events)."""
     from event_flow_tpu_torch.ops import native
 
     out = {}
+    b4 = [us for name, _, us in events if B4_KERNEL in name]
+    if len(b4) == len(log.b4):
+        for shape, us in zip(log.b4, b4):
+            n, t = out.get(("B4", shape), (0, 0.0))
+            out[("B4", shape)] = (n + 1, t + us / 1e3)
+    else:
+        out["B4"] = None
     k1 = [us for name, _, us in events if "conv2d_same_kernel" in name]
     dw = [us for name, _, us in events if "conv_dw_kernel" in name]
     sums = [us for name, _, us in events if "chunk_sum_kernel" in name]
@@ -1439,15 +1557,21 @@ def on_path_by_shape(events, log):
 
 
 def _print_on_path(tag, by_shape):
-    for key in ("K1", "B2"):
+    for key in ("K1", "B2", "B4"):
         if by_shape.get(key, 0) is None:
             print(f"[{tag}] {key} by shape on the path: not measured (the "
                   "profiler's events do not match the launch log)")
-    for (kname, (b, h, w, cin, cout, k)), (n, ms) in sorted(
+    for (kname, shape), (n, ms) in sorted(
             (kv for kv in by_shape.items() if isinstance(kv[0], tuple)),
             key=lambda kv: (kv[0][0], -kv[1][1])):
-        print(f"[{tag}]   on path {kname} {cin}->{cout} k {k} @{b}x{h}x{w}: "
-              f"{n} calls, {ms:.4f} ms, {ms / n:.4f} ms/call")
+        if kname == "B4":
+            b, h, w, c, dtype = shape
+            what = f"B4 {c} channels {dtype} @{b}x{h}x{w}"
+        else:
+            b, h, w, cin, cout, k = shape
+            what = f"{kname} {cin}->{cout} k {k} @{b}x{h}x{w}"
+        print(f"[{tag}]   on path {what}: {n} calls, {ms:.4f} ms, "
+              f"{ms / n:.4f} ms/call")
 
 
 def update_parts(events):
@@ -1460,7 +1584,7 @@ def update_parts(events):
         key = ("K1" if "conv2d_same_kernel" in name else
                "B2" if "conv_dw_kernel" in name or "chunk_sum" in name else
                "K2" if "fused_conv_lif_kernel" in name else
-               "B4" if "lif_bwd" in name or "block_sum" in name else
+               "B4" if B4_KERNEL in name else
                "K3" if "scatter_tile_kernel" in name else
                "concat" if "cat" in low and "array" in low else
                "cuDNN conv" if any(k in low for k in (
@@ -1507,7 +1631,7 @@ def train_phase(tag, config, expected, precision="float32"):
     gradient; then 3 timed updates with their launch counts, which must
     equal ``expected(t, u)`` (T windows, u updates); their peak device
     memory; and torch.profiler over one more update: device busy time,
-    operations, the top kernels and K1 and B2 by shape. Returns the launch
+    operations, the top kernels and K1, B2 and B4 by shape. Returns the launch
     counts of the 3 updates and the profiled update's device ms by part
     (:func:`update_parts`; None without device events)."""
     from event_flow_tpu_torch.ops import native

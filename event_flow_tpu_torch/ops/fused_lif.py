@@ -40,11 +40,24 @@ there the deep calls launch few blocks (32 at 512 channels, 12 x 15, for
 slower than cuDNN's f32 conv (PERF.md section 6).
 
 B4 source note: see ``csrc/fused_lif_bwd.cu``: elementwise, bound by
-device memory (five maps read, two written), the two per-channel sums
-taken per block into a scratch and added in a fixed order by a second
-launch, so they are bitwise repeatable; up to 256 channels a block
-spreads pixels and channels over its threads, above 256 (up to
-``BWD_MAX_CHANNELS``) each thread walks channels of one pixel at a time.
+device memory (five maps read, two written), one cooperative launch. A
+persistent grid walks units of work fixed by the shape: a slice of
+pixels (chunks of at most 8 KB a map, at most 256 slices) of one
+segment of each pixel's row, rows of 512 bytes or more being cut into
+128-byte segments so that the U-Net's deep, small maps give enough units
+with few partial sums each. Whole float32 rows are copied into a
+shared-memory ring by bulk copies (``cp.async.bulk`` on an ``mbarrier``)
+chunks ahead of the threads; segments and bfloat16 rows are loaded as
+16-byte vectors straight from device memory (in bfloat16 the ring gained
+nothing on the H100, PERF.md); threads store 16-byte vectors, own fixed
+channels and sum
+their leak and threshold terms in registers; a block writes one partial
+per slice into a [2C, slices] scratch and, after a grid-wide barrier, a
+warp's lanes add a channel's partials, every sum in a fixed order, so
+the result is bitwise repeatable and independent of the SM count. Maps
+whose addresses or rows (C times the element size) are not multiples of
+16 bytes take the kernel's scalar path (the wrapper checks and passes
+the flag). Up to ``BWD_MAX_CHANNELS`` channels.
 
 Element types, as the Pallas kernels take them under the JAX package's
 mixed-precision policy (fused_lif_pallas.py:127-141, :231-245): x, w, v,
@@ -179,17 +192,22 @@ def fused_lif_bwd_kernel(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
                         device=v.device)
     npix = v.numel() // c
     lib = native.library()
-    blocks = lib.evf_fused_lif_bwd_blocks(npix, c)
-    part = torch.empty((blocks, 2 * c), device=v.device, dtype=torch.float32)
+    slices = lib.evf_fused_lif_bwd_slices(npix, c, v.element_size())
+    part = torch.empty((2 * c, slices), device=v.device, dtype=torch.float32)
     g_cur = torch.empty_like(v)
     g_vin = torch.empty_like(v)
     g_lt = torch.empty((2 * c,), device=v.device, dtype=torch.float32)
-    err = getattr(lib, "evf_" + name)(
+    entry = getattr(lib, "evf_" + name)
+    # the vector path's 16-byte loads, stores and bulk copies need every
+    # map and every pixel's row 16-byte aligned; else the scalar path
+    vec = c * v.element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (v, z, v_out, g_v, g_z, g_cur, g_vin))
+    err = entry(
         v.data_ptr(), z.data_ptr(), v_out.data_ptr(), leak.data_ptr(),
         thresh.data_ptr(), g_v.data_ptr(), g_z.data_ptr(), g_cur.data_ptr(),
         g_vin.data_ptr(), part.data_ptr(), g_lt.data_ptr(), npix, c,
         int(bool(hard_reset)), _SURROGATE_CODE[activation], float(width),
-        native.stream_handle(v.device))
+        int(vec), native.stream_handle(v.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1
     return g_cur, g_vin, g_lt[:c], g_lt[c:]

@@ -61,9 +61,9 @@ _SIGNATURES = {
     "evf_scatter_add": [_P, _P, _P, _I, _I, _I, _I, _P],
     "evf_conv_dw_chunks": [_I, _I, _I, _I, _I, _I],
     "evf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "evf_fused_lif_bwd_blocks": [_L, _I],
+    "evf_fused_lif_bwd_slices": [_L, _I, _I],
     "evf_fused_lif_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
-                          _I, _I, _I, _F, _P],
+                          _I, _I, _I, _F, _I, _P],
 }
 # the bfloat16 entries take the float32 ones' arguments
 for _name in ("evf_conv2d_same", "evf_fused_conv_lif", "evf_conv_dw",

@@ -540,7 +540,7 @@ class _NoCard:
     def evf_conv_dw_chunks(self, *args):
         return 1
 
-    def evf_fused_lif_bwd_blocks(self, *args):
+    def evf_fused_lif_bwd_slices(self, *args):
         return 1
 
     def __getattr__(self, name):

@@ -317,31 +317,130 @@ def test_conv_dw_kernel_matches_plain(dev, shape, k, cout, inputs):
     assert torch.equal(dw, conv2d_dw_kernel(x, gy, k))  # repeatable
 
 
-@pytest.mark.parametrize("activation", ["arctanspike", "superspike",
-                                        "trianglespike", "mgspike"])
-@pytest.mark.parametrize("hard", [True, False])
-def test_fused_lif_bwd_kernel_matches_plain(dev, activation, hard):
+def _b4_args(dev, shape, dtype=torch.float32, activation="arctanspike",
+             hard=True, offset=0):
+    """B4's arguments on the card: maps of ``dtype``, each a contiguous
+    view ``offset`` elements into its storage, and float32 leak and
+    thresh, all from one seeded generator."""
     g = _gen()
-    b, h, w, c = 2, 9, 13, 12
+    c = shape[-1]
     width = {"mgspike": 0.5, "trianglespike": 1.0}.get(activation, 10.0)
-    thresh = (0.8 + 0.1 * torch.randn(c, generator=g)).to(dev)
-    leak = torch.sigmoid(torch.randn(c, generator=g)).to(dev)
-    v = thresh + 0.3 * torch.randn((b, h, w, c), generator=g).to(dev)
-    z = (torch.rand((b, h, w, c), generator=g) < 0.1).float().to(dev)
-    v_out = thresh + 0.3 * torch.randn((b, h, w, c), generator=g).to(dev)
-    g_v = torch.randn((b, h, w, c), generator=g).to(dev)
-    g_z = torch.randn((b, h, w, c), generator=g).to(dev)
-    args = (v, z, v_out, leak, thresh, g_v, g_z, hard, activation, width)
-    before = native.LAUNCHES["fused_lif_bwd"]
+    thresh = 0.8 + 0.1 * torch.randn(c, generator=g)
+    leak = torch.sigmoid(torch.randn(c, generator=g))
+
+    def card(t):
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device=dev)
+        buf[offset:] = t.reshape(-1).to(dev, dtype)
+        return buf[offset:].view(shape)
+
+    v = card(thresh + 0.3 * torch.randn(shape, generator=g))
+    z = card((torch.rand(shape, generator=g) < 0.1).float())
+    v_out = card(thresh + 0.3 * torch.randn(shape, generator=g))
+    g_v = card(torch.randn(shape, generator=g))
+    g_z = card(torch.randn(shape, generator=g))
+    return (v, z, v_out, leak.to(dev), thresh.to(dev), g_v, g_z, hard,
+            activation, width)
+
+
+def _hold_b4(args):
+    """B4 against its plain version: one launch of the variant of the
+    maps' type; g_cur and g_vin within ATOL (bfloat16: one ulp), the
+    float32 sums within SUM_RTOL of their largest magnitude; twice
+    bitwise equal."""
+    name = native.variant("fused_lif_bwd", args[0].dtype)
+    before = native.LAUNCHES[name]
     got = fused_lif_bwd_kernel(*args)
-    assert native.LAUNCHES["fused_lif_bwd"] == before + 1
+    assert native.LAUNCHES[name] == before + 1
     ref = fused_lif_bwd_plain(*args)
     for a, r in zip(got[:2], ref[:2]):
-        torch.testing.assert_close(a, r, atol=ATOL, rtol=1e-5)
+        if a.dtype == torch.bfloat16:
+            _bf16_close(a, r, 1e-7)
+        else:
+            torch.testing.assert_close(a, r, atol=ATOL, rtol=1e-5)
     for a, r in zip(got[2:], ref[2:]):
+        assert a.dtype == torch.float32 and a.shape == (args[0].shape[-1],)
         assert_close_to_max(a, r)
     again = fused_lif_bwd_kernel(*args)
     assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["arctanspike", "superspike",
+                                        "trianglespike", "mgspike"])
+@pytest.mark.parametrize("hard", [True, False])
+def test_fused_lif_bwd_kernel_matches_plain(dev, activation, hard, dtype):
+    _hold_b4(_b4_args(dev, (2, 9, 13, 12), dtype, activation, hard))
+
+
+# B4's chunks (csrc/fused_lif_bwd.cu): whole pixels of a row segment (the
+# row, or 128 bytes of it where the row holds 512 bytes or more), 8 KB a
+# map at most, fewer pixels where that leaves under 256 chunks. At C = 32
+# a chunk is 64 float32 or 128 bfloat16 pixels from 256 chunks on, so 256
+# chunks less or more one pixel end in a chunk one pixel short or one
+# pixel long; at C = 2048 (64 or 32 segments) 256 or 512 pixels less or
+# more one end the same way in 64-pixel chunks
+def _b4_edge_shape(case, c, dtype):
+    if case == "npix 1":
+        return (1, 1, 1, c)
+    if case == "small":
+        return (2, 3, 5, c)
+    chunk = 8192 // (c * torch.empty((), dtype=dtype).element_size())
+    return (1, 1, 256 * chunk + (1 if case == "chunk + 1" else -1), c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,c", [
+    (case, c) for case in ("npix 1", "small")
+    for c in (1, 3, 12, 24, 2048)] + [
+    (case, c) for case in ("chunk - 1", "chunk + 1") for c in (32, 2048)])
+def test_fused_lif_bwd_kernel_edges(dev, case, c, dtype):
+    """B4 at its edges in both types: one pixel; C 1 and 3 (rows under 16
+    bytes: the scalar path), 12 (three float32 vectors; 24 bytes of
+    bfloat16, not a multiple of 16: the scalar path in bfloat16), 24 (six
+    float32 vectors, three bfloat16 ones) and 2048 (MAX_C, in row
+    segments); and chunk boundaries less or more one pixel (a last chunk
+    one pixel short, or of one pixel; at C = 32 257 chunks in 256
+    slices of one or two)."""
+    _hold_b4(_b4_args(dev, _b4_edge_shape(case, c, dtype), dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 9, 13, 32), (8, 8, 8, 512),
+                                   (1, 4, 4, 3)])
+def test_fused_lif_bwd_kernel_scalar_path(dev, shape, dtype):
+    """Maps that are contiguous views one element (4 or 2 bytes) into
+    their storage are not 16-byte aligned: B4 takes its scalar path, one
+    element a load, and holds to the plain version as the vector path
+    does."""
+    args = _b4_args(dev, shape, dtype, offset=1)
+    assert all(t.data_ptr() % 16 for t in args[:3] + args[5:7])
+    _hold_b4(args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_lif_bwd_kernel_is_one_device_operation(dev, dtype):
+    """A B4 call is one device operation, its one cooperative kernel: no
+    second pass over the partial sums, no fill (torch.profiler; a session
+    can miss events, so it counts at most one per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _b4_args(dev, (8, 8, 8, 512), dtype)
+    fused_lif_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fused_lif_bwd_kernel(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert names, "the profiler saw no device events"
+    assert len(names) <= 10
+    assert all("lif_bwd_kernel" in n for n in names), set(names)
 
 
 def test_conv2d_same_has_grad_fn_on_cuda(dev):
@@ -534,30 +633,16 @@ def test_scatter_kernel_is_one_device_operation(dev):
     assert all("scatter_tile_kernel" in n for n in names), set(names)
 
 
-@pytest.mark.parametrize("c", [384, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 9, 13, 384), (2, 9, 13, 512),
+                                   (2, 9, 13, 1024), (8, 8, 8, 512)])
 @pytest.mark.parametrize("hard", [True, False])
-def test_fused_lif_bwd_kernel_past_256_channels(dev, c, hard):
-    """B4 at the U-Net's 512-channel cells and around them: one channel
-    walk per thread and pixel above 256 channels."""
-    g = _gen()
-    shape = (2, 9, 13, c)
-    thresh = (0.8 + 0.1 * torch.randn(c, generator=g)).to(dev)
-    leak = torch.sigmoid(torch.randn(c, generator=g)).to(dev)
-    v = thresh + 0.3 * torch.randn(shape, generator=g).to(dev)
-    z = (torch.rand(shape, generator=g) < 0.1).float().to(dev)
-    v_out = thresh + 0.3 * torch.randn(shape, generator=g).to(dev)
-    g_v = torch.randn(shape, generator=g).to(dev)
-    g_z = torch.randn(shape, generator=g).to(dev)
-    args = (v, z, v_out, leak, thresh, g_v, g_z, hard, "arctanspike", 10.0)
-    got = fused_lif_bwd_kernel(*args)
-    ref = fused_lif_bwd_plain(*args)
-    for a, r in zip(got[:2], ref[:2]):
-        torch.testing.assert_close(a, r, atol=ATOL, rtol=1e-5)
-    for a, r in zip(got[2:], ref[2:]):
-        assert a.shape == (c,)
-        assert_close_to_max(a, r)
-    again = fused_lif_bwd_kernel(*args)
-    assert all(torch.equal(a, r) for a, r in zip(got, again))
+def test_fused_lif_bwd_kernel_past_256_channels(dev, shape, hard, dtype):
+    """B4 at the U-Net's 512-channel cells (the residual blocks' and the
+    deepest encoder's 8 x 8 x 8 x 512 at B 8, 128 x 128) and around
+    them, in both types: rows of 512 bytes or more are cut into 128-byte
+    segments, each a unit of work of its own."""
+    _hold_b4(_b4_args(dev, shape, dtype, hard=hard))
 
 
 def test_strided_conv_grads_are_f32_under_default_tf32(dev):

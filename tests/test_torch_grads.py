@@ -128,11 +128,16 @@ def _bwd_inputs(rng, b=2, h=8, w=12, c=6):
     return v, z, v_out, leak, thresh, g_v, g_z
 
 
+@pytest.mark.parametrize("c", [6, 256, 512])
 @pytest.mark.parametrize("activation,width", SURROGATES)
 @pytest.mark.parametrize("hard_reset", [True, False])
-def test_fused_lif_bwd_plain_matches_pallas(activation, width, hard_reset):
+def test_fused_lif_bwd_plain_matches_pallas(activation, width, hard_reset, c):
+    """B4's plain version, which the card holds B4 against, against JAX's
+    _fused_bwd_elem: at 6 channels on a 2 x 8 x 12 map, and at the U-Net's
+    256 and 512 (where B4 cuts rows into segments) on a 2 x 4 x 4 one."""
     rng = np.random.default_rng(len(activation) + hard_reset)
-    v, z, v_out, leak, thresh, g_v, g_z = _bwd_inputs(rng)
+    hw = (8, 12) if c == 6 else (4, 4)
+    v, z, v_out, leak, thresh, g_v, g_z = _bwd_inputs(rng, 2, *hw, c)
     if activation == "arctanspike":
         leak[0] = 1.0  # sigmoid of a large leak: the (1 - l) clamp
     args = (v, z, v_out, leak, thresh, g_v, g_z)
