@@ -12,7 +12,8 @@ exits non-zero without the final ``ok`` line:
               bfloat16 instantiations, TF32 HMMA alone in the float32 ones;
               B4's 128-bit loads (LDG.E.128) in both types, and the bulk
               copies (UBLKCP) and mbarrier operations (SYNCS) of the ring
-              in its float32 instantiations
+              in its float32 instantiations; the int8 MMA (IMMA) alone in
+              K1-s8 and K2-s8
   3. kernels  each kernel against its plain PyTorch version (TF32 off) at
               the serving and the training shapes, with the median time of
               20 runs of each and its device time per call at the training
@@ -173,6 +174,22 @@ exits non-zero without the final ``ok`` line:
               in turns; train(precision="bfloat16", profile=True) for 3
               updates (train_flow --bf16 --profile) and what its trace
               shows: span, device busy, CUDA runtime calls, host operators
+ 20. int8     int8 serving (InferenceEngine(quantize="int8")): K1-s8
+              bitwise its plain version at LIFFireNet's ECD convs (2 -> 32
+              k 3, the head 32 -> 2 k 1), the U-Net's 512 -> 512 on 12 x 15
+              and 258 input channels, and odd shapes; K2-s8 ff and rec
+              against theirs (v' within 1e-6, spikes but near the
+              threshold), each twice bitwise; at the ECD shapes one call's
+              and device ms, the bound (bytes at 3.35 TB/s or 1979 TOPS
+              int8), the f32 and bf16 K1/K2 beside and the activation
+              quantization's passes; ECD_LIFFIRENET (8 windows) and
+              ECD_SPIKING_RECEVFLOWNET (2) through the int8 engine against
+              the CPU port's (the CPU's near-threshold spikes taken) with
+              exact launches of the int8 variants; int8 and bf16 artifacts
+              exported on the CPU bitwise their live engines on the card;
+              int8, f32 and bf16 serving in turns: windows/s, host ms
+              per window until step returns, device busy per window, the
+              int8 and bf16 flows' deviation from f32
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
@@ -201,7 +218,7 @@ user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8-19). Imports
+sum over the counted runs of every path (phases 4-6, 8-20). Imports
 nothing of JAX.
 """
 
@@ -242,6 +259,7 @@ HBM_BPS = 3.35e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+INT8_OPS = 1979e12  # dense int8 tensor-core operations per second
 
 
 def fail(msg):
@@ -249,13 +267,13 @@ def fail(msg):
 
 
 def launch_counts():
-    """The launches of every kernel since the last reset; a bfloat16
-    variant's only where it launched, so that the float32 paths'
+    """The launches of every kernel since the last reset; a bfloat16 or
+    int8 variant's only where it launched, so that the float32 paths'
     expected counts need not name the variants."""
     from event_flow_tpu_torch.ops import native
 
     return {k: n for k, n in native.LAUNCHES.items()
-            if n or not k.endswith("_bf16")}
+            if n or not k.endswith(("_bf16", "_s8"))}
 
 
 def phase_device():
@@ -283,11 +301,20 @@ def phase_build():
     sass_check(path)
 
 
-# the kernels on the conv mainloops: their bfloat16 instantiations multiply
-# with the bf16 MMA, their float32 ones in TF32 (3xTF32)
-MMA_KERNELS = ("conv2d_same_kernel", "fused_conv_lif_kernel",
-               "conv_dw_kernel")
+# the kernels on the conv mainloops and the tensor-core instructions of
+# each element type: an opcode that every instantiation must hold and the
+# substrings that none of its MMA opcodes may hold. Their bfloat16
+# instantiations multiply with the bf16 MMA, their float32 ones in TF32
+# (3xTF32), the int8 variants of K1 and K2 on the int8 tensor cores only
 BF16_MMA = "HMMA.16816.F32.BF16"
+MMA_RULES = {
+    **{k: {"bf16": (BF16_MMA, ("TF32", "IMMA")),
+           "f32": ("TF32", ("BF16", "IMMA"))}
+       for k in ("conv2d_same_kernel", "fused_conv_lif_kernel",
+                 "conv_dw_kernel")},
+    **{k: {"s8": ("IMMA", ("HMMA",))}
+       for k in ("conv2d_same_s8_kernel", "fused_conv_lif_s8_kernel")},
+}
 # B4's instantiations: the bulk copies into its ring and the mbarrier
 # operations they complete on, 128-bit loads from device memory, and its
 # 128-bit shared-memory loads and device-memory stores; what each type's
@@ -339,34 +366,42 @@ def b4_sass_check(sass):
                  f"{dict(acc)}: expected {' and '.join(need)}")
 
 
+def _mma_kind(kernel, name):
+    """The element type of instantiation ``name`` of ``kernel``."""
+    kinds = MMA_RULES[kernel]
+    if len(kinds) == 1:
+        return next(iter(kinds))
+    return "bf16" if "__nv_bfloat16" in name else "f32"
+
+
 def sass_check(lib_path):
     """The tensor-core instructions in the built library's SASS
-    (``cuobjdump -sass``, beside nvcc): every bfloat16 instantiation of
-    MMA_KERNELS holds BF16_MMA and no TF32 HMMA, every float32 one TF32
-    HMMA and no bf16 one; prints the count of each per kernel and type.
-    Then B4's (b4_sass_check)."""
+    (``cuobjdump -sass``, beside nvcc): every instantiation of a kernel of
+    MMA_RULES holds its type's MMA and none that the rule forbids; prints
+    the count of each MMA opcode per kernel and type. Then B4's
+    (b4_sass_check)."""
     sass = _sass(lib_path)
     functions, ops = [], None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1]
-            kernel = next((k for k in MMA_KERNELS if k in name), None)
+            kernel = next((k for k in MMA_RULES if k in name), None)
             ops = Counter() if kernel else None
             if kernel:
-                kind = "bf16" if "__nv_bfloat16" in name else "f32"
-                functions.append(((kernel, kind), ops))
-        elif ops is not None and "HMMA." in line:
-            ops["HMMA." + line.split("HMMA.", 1)[1].split()[0]] += 1
+                functions.append(((kernel, _mma_kind(kernel, name)), ops))
+        elif ops is not None and _opcode(line).startswith(("HMMA", "IMMA")):
+            ops[_opcode(line)] += 1
     totals = {}
     for (kernel, kind), ops in functions:
-        tf32 = sum(n for op, n in ops.items() if "TF32" in op)
-        if (ops[BF16_MMA] > 0, tf32 > 0) != (kind == "bf16", kind == "f32"):
+        need, forbid = MMA_RULES[kernel][kind]
+        if (not any(need in op for op in ops)
+                or any(f in op for op in ops for f in forbid)):
             fail(f"[sass] a {kind} {kernel} holds {dict(ops)}: expected "
-                 + (f"{BF16_MMA} only" if kind == "bf16" else "TF32 only"))
+                 f"{need} and no {' or '.join(forbid)}")
         n, acc = totals.get((kernel, kind), (0, Counter()))
         totals[(kernel, kind)] = (n + 1, acc + ops)
-    for kernel in MMA_KERNELS:
-        for kind in ("bf16", "f32"):
+    for kernel, kinds in MMA_RULES.items():
+        for kind in kinds:
             if (kernel, kind) not in totals:
                 fail(f"[sass] no {kind} instantiation of {kernel} in "
                      f"{lib_path}")
@@ -1982,7 +2017,8 @@ def window_parts(tag, wall_us, events, labelled=()):
         low = name.lower()
         if labelled and "fused_conv_lif_kernel" in name:
             continue
-        key = ("K1 convs" if "conv2d_same_kernel" in name else
+        key = ("int8 convs (K1-s8, K2-s8)" if "_s8_kernel" in name else
+               "K1 convs" if "conv2d_same_kernel" in name else
                "K2 cells" if "fused_conv_lif_kernel" in name else
                "K3 scatter" if "scatter_tile_kernel" in name else
                "interpolate" if "upsample" in low else
@@ -3434,6 +3470,23 @@ def _windows_per_s(fn, n, reps=TIMING_REPS):
             f"{max(rates):.2f})")
 
 
+def _host_ms(fn, n, reps=TIMING_REPS):
+    """Host ms per window of ``fn()`` (n windows): the time until it
+    returns, before the synchronise, timed ``reps`` times after a warm-up:
+    median (min-max). Where it is as long as the window's wall time the
+    host sets the pace and the card waits for its launches."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0) / n)
+        torch.cuda.synchronize()
+    return (f"{statistics.median(times):.4f} ({min(times):.4f}-"
+            f"{max(times):.4f})")
+
+
 def _busy_ms(fn, n):
     """Device busy ms per window of ``fn()`` (n windows; torch.profiler),
     or "not measured" where the profiler sees no device event."""
@@ -4678,6 +4731,339 @@ def phase_bf16():
     return paths
 
 
+# [int8]: K1-s8 shapes (B, H, W, Cin, Cout, k, x): LIFFireNet's convs at
+# ECD serving (the first cell's 2 counts channels at k 3, the 1x1 head
+# 32 -> 2), the U-Net's deepest and its decoders' 258 channels (2-byte
+# copies), odd shapes (1-byte copies, k 5)
+K1_S8 = ((1, 180, 240, 2, 32, 3, "counts"), (1, 180, 240, 32, 2, 1, "spikes"),
+         (1, 12, 15, 512, 512, 3, "spikes"), (1, 46, 60, 258, 64, 3, "flow"),
+         (2, 20, 21, 5, 7, 3, "randn"), (1, 33, 37, 33, 9, 5, "randn"))
+# K2-s8 shapes (B, H, W, Cin, Cout, recurrent): LIFFireNet's cells at ECD
+# serving, the U-Net's deepest recurrent cell, an odd one
+K2_S8 = ((1, 180, 240, 2, 32, False), (1, 180, 240, 32, 32, False),
+         (1, 180, 240, 32, 32, True), (1, 12, 15, 512, 512, True),
+         (2, 20, 21, 5, 7, True))
+INT8_SERVE_WINDOWS = (8, 2)  # LIFFireNet, SpikingRecEVFlowNet
+
+
+def _beside(label, runs):
+    """Device ms per call (profiler, or events) and one call's ms of each
+    (name, fn, kernel name) in ``runs``, as one line."""
+    parts = []
+    for name, fn, kernel in runs:
+        d, src = device_ms(fn, kernel)
+        parts.append(f"{name} {d:.4f} ms/call [{src}] ({timed(fn):.4f} one "
+                     "call)")
+    return f"[int8] {label} beside: " + "; ".join(parts)
+
+
+def quant_pass_line(x):
+    """The per-tensor activation quantization of x as the path runs it
+    (amax, divide, round, clip, cast): its device ms per call, device
+    operations per call, and the bytes its passes move (x read twice as
+    float32, int8 written once)."""
+    from event_flow_tpu_torch.ops.quant import quantize_sym
+
+    split = device_split(lambda: quantize_sym(x))
+    n = x.numel()
+    nbytes = 2 * 4 * n + n
+    if not split:
+        return f"quantize {tuple(x.shape)}: not measured ({nbytes} bytes)"
+    ms = sum(t for t, _ in split.values())
+    ops = sum(k for _, k in split.values())
+    return (f"quantize {tuple(x.shape)}: {ms:.4f} device ms/call, {ops} "
+            f"device operations, {nbytes / 1e6:.2f} MB moved ("
+            f"{1e3 * nbytes / HBM_BPS:.4f} ms at 3.35 TB/s)")
+
+
+def kernels_int8(inp, out):
+    """K1-s8 against its plain version bitwise at K1_S8, K2-s8 ff and rec
+    against theirs at K2_S8 (v' within 1e-6, spikes equal but within NEAR
+    of the threshold), each run twice bitwise; at the ECD serving shapes
+    (K1-s8 the head 32 -> 2 k 1, K2-s8 32 -> 32) one call's ms, device ms,
+    the bound (bytes at 3.35 TB/s or operations at 1979 TOPS int8) and the
+    plain version, the float32 and bfloat16 K1/K2 at the same shape beside
+    and the activation quantization's passes. No one PyTorch call computes
+    an int8 conv."""
+    from event_flow_tpu_torch.ops.conv import (_conv_kernel,
+                                               conv2d_same_s8_kernel,
+                                               conv2d_same_s8_plain)
+    from event_flow_tpu_torch.ops.fused_lif import (
+        _ff_kernel, _ff_s8_kernel, _rec_kernel, _rec_s8_kernel,
+        fused_conv_lif_rec_s8_plain, fused_conv_lif_s8_plain)
+    from event_flow_tpu_torch.ops.quant import int8_operands
+
+    bf = torch.bfloat16
+    for b, h, w, cin, cout, k, kind in K1_S8:
+        x = _b2_x(inp, (b, h, w, cin), kind)
+        wt = inp.uniform((cout, cin, k, k), (1 / (cin * k * k)) ** 0.5)
+        (xq,), (wq,), scale = int8_operands("K1-s8", (x,), (wt,))
+        label = f"K1-s8 conv2d_same_s8 {b}x{h}x{w} {cin}->{cout} k={k} {kind}"
+        y = conv2d_same_s8_kernel(xq, wq, scale)
+        ref = conv2d_same_s8_plain(xq, wq, scale)
+        if not torch.equal(y, ref):
+            fail(f"{label}: not bitwise its plain version, max |err| "
+                 f"{float((y - ref).abs().max())}")
+        if not torch.equal(y, conv2d_same_s8_kernel(xq, wq, scale)):
+            fail(f"{label}: two runs differ")
+        timing, line = None, "not timed"
+        if (b, h, cin, cout) == (1, 180, 32, 2):
+            npix = b * h * w
+            timing, line = _timings(
+                lambda: conv2d_same_s8_kernel(xq, wq, scale),
+                lambda: conv2d_same_s8_plain(xq, wq, scale), None,
+                "conv2d_same_s8_kernel",
+                npix * cin + wq.numel() + 4 * cout + 4 * npix * cout,
+                2 * npix * cout * k * k * cin, INT8_OPS)
+            wbf, xbf = wt.to(bf), x.to(bf)
+            print(_beside(label, (
+                ("f32 K1", lambda: _conv_kernel(x, wt), "conv2d_same_kernel"),
+                ("bf16 K1", lambda: _conv_kernel(xbf, wbf),
+                 "conv2d_same_kernel"))))
+            print(f"[int8] {quant_pass_line(x)}")
+        print(f"[int8] {label}: bitwise its plain version, repeatable; {line}")
+        _record(out, "conv2d_same_s8", 0.0, timing, INT8_OPS)
+
+    for b, h, w, cin, c, rec in K2_S8:
+        shape = (b, h, w)
+        x = (inp.counts(shape + (cin,)) if cin == 2
+             else inp.spikes(shape + (cin,)))
+        wt = inp.uniform((c, cin, 3, 3), (1 / cin) ** 0.5)
+        wr = inp.uniform((c, c, 3, 3), (1 / c) ** 0.5)
+        leak, thresh = inp.neuron(c)
+        v = thresh + 0.3 * inp.normal(shape + (c,))
+        z = inp.spikes(shape + (c,))
+        if rec:
+            (xq, zq), (wq, wrq), scale = int8_operands("K2-s8", (x, z),
+                                                       (wt, wr))
+        else:
+            (xq,), (wq,), scale = int8_operands("K2-s8", (x,), (wt,))
+        name = "fused_conv_lif_rec_s8" if rec else "fused_conv_lif_s8"
+        for hard in (True, False):
+            def run_k():
+                if rec:
+                    return _rec_s8_kernel(xq, wq, wrq, scale, v, z, zq, leak,
+                                          thresh, 3, hard, "arctanspike",
+                                          10.0)
+                return _ff_s8_kernel(xq, wq, scale, v, z, leak, thresh, 3,
+                                     hard, "arctanspike", 10.0)
+
+            def run_p():
+                if rec:
+                    return fused_conv_lif_rec_s8_plain(
+                        xq, wq, wrq, scale, v, z, zq, leak, thresh, 3, hard)
+                return fused_conv_lif_s8_plain(xq, wq, scale, v, z, leak,
+                                               thresh, 3, hard)
+
+            label = (f"K2-s8 {name} {b}x{h}x{w} Cin {cin} x{c} "
+                     f"{'hard' if hard else 'soft'}")
+            (vk, zk), (vp, zp) = run_k(), run_p()
+            err = float((vk - vp).abs().max())
+            if not err <= 1e-6:
+                fail(f"{label}: v' {err} from its plain version, > 1e-6")
+            flips = check_spikes(zk, zp, vp, thresh, label)
+            if not all(map(torch.equal, (vk, zk), run_k())):
+                fail(f"{label}: two runs differ")
+            timing, line = None, "not timed"
+            if (h, cin, hard) == (180, 32, True):
+                npix = b * h * w
+                timing, line = _timings(
+                    run_k, run_p, None, "fused_conv_lif_s8_kernel",
+                    npix * (cin + (c if rec else 0) + 16 * c) + wq.numel()
+                    + (wrq.numel() if rec else 0) + 12 * c,
+                    2 * npix * c * 9 * (cin + (c if rec else 0)), INT8_OPS)
+                xbf, vbf, zbf = x.to(bf), v.to(bf), z.to(bf)
+                wbf, wrbf = wt.to(bf), wr.to(bf)
+                if rec:
+                    runs = (("f32 K2", lambda: _rec_kernel(
+                        x, wt, wr, v, z, z, leak, thresh, 3, True, "", 1.0)),
+                        ("bf16 K2", lambda: _rec_kernel(
+                            xbf, wbf, wrbf, vbf, zbf, zbf, leak, thresh, 3,
+                            True, "", 1.0)))
+                else:
+                    runs = (("f32 K2", lambda: _ff_kernel(
+                        x, wt, v, z, leak, thresh, 3, True, "", 1.0)),
+                        ("bf16 K2", lambda: _ff_kernel(
+                            xbf, wbf, vbf, zbf, leak, thresh, 3, True, "",
+                            1.0)))
+                print(_beside(label, [(n, fn, "fused_conv_lif_kernel")
+                                      for n, fn in runs]))
+            print(f"[int8] {label}: v' max|err| {err:.3g} (bitwise "
+                  f"{torch.equal(vk, vp)}), flips {flips}, spike rate "
+                  f"{float(zp.mean()):.4f}, repeatable; {line}")
+            _record(out, name, err, timing, INT8_OPS)
+
+
+def s8_counts(counts):
+    """Launch counts of a float32 serving path as its int8 run makes them:
+    K1 and K2 under their int8 variants' names, K3 unchanged."""
+    out = {k: 0 for k in counts}
+    for k, n in counts.items():
+        if k == "scatter_add":
+            out[k] = n
+        elif n:
+            out[k + "_s8"] = n
+    return out
+
+
+def int8_serve(tag, config, n, per_window):
+    """``config``'s serving through InferenceEngine(quantize="int8") over
+    n windows of one in-memory sequence on the CPU, then on the card
+    taking the CPU's near-threshold spikes (CellLog, check_forced: spikes
+    equal, v within NEAR, every window's flow within FLOW_RTOL); exact
+    launches per window of the int8 variants. Returns the launch
+    counts."""
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
+    from event_flow_tpu_torch.ops import native
+
+    name = config["model"]["name"]
+    ev, va = engine_windows(config, n)
+    logs = {}
+    for device in ("cpu", "cuda"):
+        log = logs[device] = CellLog(config, device, logs.get("cpu"))
+        try:
+            eng = InferenceEngine(config, log.model, device, quantize="int8")
+            native.reset_launch_counts()
+            for i in range(n):
+                eng.step(ev[i].to(device), va[i].to(device))
+            counts = launch_counts()
+        finally:
+            log.remove()
+        if device == "cpu" and any(counts.values()):
+            fail(f"[{tag}] the CPU int8 engine launched {counts}")
+    want = s8_counts({k: per_window.get(k, 0) * n for k in (
+        "conv2d_same", "fused_conv_lif", "fused_conv_lif_rec", "scatter_add",
+        "conv2d_dw", "fused_lif_bwd")})
+    if counts != want:
+        fail(f"[{tag}] {name} int8 engine launches {counts} != {want}")
+    print(f"[{tag}] {name} int8 engine, {n} windows of {ev.shape[2]} events "
+          f"on the card and the CPU: launches {counts}")
+    check_forced(tag, logs["cuda"], logs["cpu"])
+    return counts
+
+
+def int8_artifacts(tag, config, n):
+    """An int8 and a bfloat16 engine of ``config`` exported on the CPU and
+    served on the card: every flow bitwise the live card engine's of the
+    same kind, with its launches. Returns the int8 artifact's counts."""
+    import tempfile
+
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
+    from event_flow_tpu_torch.eval.serialized import (SerializedEngine,
+                                                      export_engine)
+    from event_flow_tpu_torch.models.registry import build_model
+    from event_flow_tpu_torch.ops import native
+
+    ev, va = engine_windows(config, n)
+    ev, va = ev.cuda(), va.cuda()
+    paths = []
+    for quantize, precision in (("int8", "float32"), (None, "bfloat16")):
+        kind = quantize or precision
+        with tempfile.TemporaryDirectory() as root:
+            path = os.path.join(root, "artifact")
+            export_engine(InferenceEngine(
+                config, build_model(config, "cpu"), "cpu", quantize=quantize,
+                precision=precision), path, n_events=ev.shape[2])
+            ser = SerializedEngine(path, device="cuda")
+        live = InferenceEngine(config, build_model(config, "cuda"), "cuda",
+                               quantize=quantize, precision=precision)
+        native.reset_launch_counts()
+        flows = [live.step(ev[i], va[i]) for i in range(n)]
+        counts = launch_counts()
+        native.reset_launch_counts()
+        sflows = [ser.step(ev[i], va[i]) for i in range(n)]
+        scounts = launch_counts()
+        gap, same = _gap(f"[{tag}] {kind} artifact", sflows, flows)
+        if not same or scounts != counts:
+            fail(f"[{tag}] the CPU-exported {kind} artifact on the card: gap "
+                 f"{gap!r} to the live engine, launches {scounts} against "
+                 f"{counts}")
+        print(f"[{tag}] {kind} artifact exported on the CPU, served on the "
+              f"card: {n} windows bitwise the live {kind} engine's, launches "
+              f"{scounts}")
+        if quantize:
+            paths.append(scounts)
+    return paths
+
+
+def int8_in_turns(tag, config, n):
+    """An int8, a float32 and a bfloat16 engine of one model on the card:
+    the int8 and bf16 flows' largest deviation from the float32 flows
+    (relative to max |flow|), then windows/s, host ms per window until
+    step returns and device busy per window in turns int8, f32, bf16,
+    bf16, f32, int8."""
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
+    from event_flow_tpu_torch.models.registry import build_model
+
+    name = config["model"]["name"]
+    ev, va = engine_windows(config, n)
+    ev, va = ev.cuda(), va.cuda()
+    model = build_model(config, "cuda")
+    engines = {"int8": InferenceEngine(config, model, "cuda",
+                                       quantize="int8"),
+               "float32": InferenceEngine(config, model, "cuda"),
+               "bfloat16": InferenceEngine(config, model, "cuda",
+                                           precision="bfloat16")}
+    flows = {k: [e.step(ev[i], va[i]) for i in range(n)]
+             for k, e in engines.items()}
+    top = max(float(f.abs().max()) for f in flows["float32"])
+    dev = {k: max(float((a - b).abs().max()) for a, b in zip(
+        flows[k], flows["float32"])) / top for k in ("int8", "bfloat16")}
+    print(f"[{tag}] {name}, {n} windows: largest |flow - f32 flow| / max "
+          f"|f32 flow| ({top:.4g}): int8 {dev['int8']:.4g}, bf16 "
+          f"{dev['bfloat16']:.4g}")
+    for kind in ("int8", "float32"):  # one steady window by part
+        engine = engines[kind]
+        wall_us, events = _device_events(lambda: engine.step(ev[0], va[0]))
+        window_parts(f"{tag} {kind}", wall_us, events)
+
+    def steps(engine):
+        def run():
+            engine.reset()
+            for i in range(n):
+                engine.step(ev[i], va[i])
+        return run
+
+    for kind in ("int8", "float32", "bfloat16", "bfloat16", "float32",
+                 "int8"):
+        run = steps(engines[kind])
+        print(f"[{tag}] {name} {kind} engine.step: {_windows_per_s(run, n)} "
+              f"windows/s, host {_host_ms(run, n)} ms per window until "
+              f"step returns, device busy {_busy_ms(run, n)} ms per window "
+              "(profiler on)")
+
+
+def phase_int8():
+    """[int8]: int8 serving on the card. K1-s8 and K2-s8 against their
+    plain versions and timed (kernels_int8); ECD_LIFFIRENET (8 windows)
+    and ECD_SPIKING_RECEVFLOWNET (2) through InferenceEngine(quantize=
+    "int8") against the CPU port's int8 engine (int8_serve); CPU-exported
+    int8 and bf16 artifacts bitwise their live engines on the card
+    (int8_artifacts); int8, f32 and bf16 serving in turns
+    (int8_in_turns). Returns (the launch counts of its paths, the kernels'
+    measurements)."""
+    from event_flow_tpu_torch.config import (ECD_LIFFIRENET,
+                                             ECD_SPIKING_RECEVFLOWNET)
+
+    tag = "int8"
+    t0 = time.perf_counter()
+    measured = {}
+    kernels_int8(_Inputs(torch.device("cuda")), measured)
+    lif, unet = (copy.deepcopy(c) for c in (ECD_LIFFIRENET,
+                                            ECD_SPIKING_RECEVFLOWNET))
+    paths = [int8_serve(tag, lif, INT8_SERVE_WINDOWS[0],
+                        {"fused_conv_lif": 5, "fused_conv_lif_rec": 2,
+                         "conv2d_same": 1, "scatter_add": 1}),
+             int8_serve(f"{tag}-unet", unet, INT8_SERVE_WINDOWS[1],
+                        {"fused_conv_lif": 8, "fused_conv_lif_rec": 4,
+                         "conv2d_same": 4, "scatter_add": 1})]
+    paths += int8_artifacts(tag, lif, INT8_SERVE_WINDOWS[0])
+    int8_in_turns(tag, lif, INT8_SERVE_WINDOWS[0])
+    int8_in_turns(f"{tag}-unet", unet, INT8_SERVE_WINDOWS[1])
+    print(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
+    return paths, measured
+
+
 KERNELS = (
     ("conv2d_same", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/ops/conv_pallas.py:121"),
@@ -4701,6 +5087,13 @@ KERNELS = (
      "event_flow_tpu/ops/conv_pallas.py:170"),
     ("fused_lif_bwd_bf16", "event_flow_tpu_torch/csrc/fused_lif_bwd.cu",
      "event_flow_tpu/ops/fused_lif_pallas.py:258"),
+    # no Pallas kernel: JAX's int8 conv is XLA's (models/conv.py:93-141)
+    ("conv2d_same_s8", "event_flow_tpu_torch/csrc/conv.cu",
+     "event_flow_tpu/models/conv.py:93"),
+    ("fused_conv_lif_s8", "event_flow_tpu_torch/csrc/fused_lif.cu",
+     "event_flow_tpu/models/conv.py:93"),
+    ("fused_conv_lif_rec_s8", "event_flow_tpu_torch/csrc/fused_lif.cu",
+     "event_flow_tpu/models/conv.py:93"),
 )
 
 
@@ -4729,6 +5122,9 @@ def main():
     paths += phase_vis(lif_parts)
     paths.append(phase_dist())
     paths += phase_bf16()
+    int8_paths, int8_measured = phase_int8()
+    paths += int8_paths
+    measured.update(int8_measured)
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c.get(k, 0) for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],

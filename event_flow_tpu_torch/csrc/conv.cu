@@ -18,6 +18,20 @@
 // tensor cores' rate it is bound by bytes; the design reads and writes
 // whole 32-byte sectors and keeps 16-byte copies in flight. The 1x1 calls
 // move a few MB and are bound by bytes and launch latency.
+//
+// K1-s8 (evf_conv2d_same_s8): the int8 variant for int8 serving. It
+// replaces no Pallas kernel: JAX's stride-1 int8 conv is XLA's int8 dot
+// (TPU) or conv (CPU) into int32 (event_flow_tpu/models/conv.py:93-141).
+// Int8 x and OHWI weights are staged by cp.async into 32-channel passes,
+// multiplied on the int8 tensor cores (mma.sync m16n8k32, conv_tile.cuh::
+// accumulate_s8) into exact int32 sums, and y = float(sum) * scale[co] is
+// written in float32, each conversion and product rounded on its own
+// (__int2float_rn, __fmul_rn) as JAX and the plain version round them; the
+// bias stays outside, as in JAX. On the path it runs the 1x1 heads (32 ->
+// 2 at 1 x 180 x 240: 1.7 MB, bound by bytes and by its launch) and the
+// U-Net's heads; the activation's quantization (amax, round) runs before
+// it as torch operations (ops/quant.py), which move more bytes than the
+// conv (PERF.md).
 
 #include "conv_tile.cuh"
 
@@ -65,22 +79,70 @@ cudaError_t launch_co(const T* x, const T* w2, T* y, int B, int H, int W,
   return cudaSuccess;
 }
 
-template <int K, class T>
-cudaError_t launch(const T* x, const T* w2, T* y, int B, int H, int W,
-                   int Cin, int Cout, cudaStream_t st) {
-  if (Cout <= 8) return launch_co<K, 8, T>(x, w2, y, B, H, W, Cin, Cout, st);
-  return launch_co<K, 32, T>(x, w2, y, B, H, W, Cin, Cout, st);
+// K1-s8: y = float(int32 conv of xq with wq) * scale[co], rounded once
+// (__fmul_rn, so no contraction with anything after it), in float32
+template <int K, int CO>
+__global__ void __launch_bounds__(NT, 2)
+    conv2d_same_s8_kernel(const int8_t* __restrict__ x,
+                          const int8_t* __restrict__ wq,
+                          const float* __restrict__ scale,
+                          float* __restrict__ y, int H, int W, int Cin,
+                          int Cout, Steps steps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
+  int y0, x0;
+  tile_origin(W, &y0, &x0);
+  const int b = blockIdx.z;
+  const int co0 = blockIdx.y * CO;
+  int acc[MT][CO / 8][4] = {};
+  accumulate_s8<K, CO>(smem, acc, x, Cin, wq, Cout, b, H, W, y0, x0, co0,
+                       steps.x, steps.w);
+  for_each_pair<CO>(acc, H, W, Cout, b, y0, x0, co0,
+                    [&](size_t i, int co, int a0, int a1) {
+                      const float y_a = __fmul_rn(__int2float_rn(a0),
+                                                  scale[co]);
+                      if (steps.out2) {
+                        put2(y + i, y_a,
+                             __fmul_rn(__int2float_rn(a1), scale[co + 1]));
+                      } else {
+                        y[i] = y_a;
+                        if (co + 1 < Cout)
+                          y[i + 1] = __fmul_rn(__int2float_rn(a1),
+                                               scale[co + 1]);
+                      }
+                    });
 }
 
-template <class T>
-int conv2d_same(const T* x, const T* w2, T* y, int B, int H, int W, int Cin,
-                int Cout, int K, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <int K, int CO>
+cudaError_t launch_co(const int8_t* x, const int8_t* wq, const float* scale,
+                      float* y, int B, int H, int W, int Cin, int Cout,
+                      cudaStream_t st) {
+  const size_t smem = smem_bytes_s8<K, CO>();
+  const cudaError_t e = allow_smem(conv2d_same_s8_kernel<K, CO>, smem);
+  if (e != cudaSuccess) return e;
+  const Steps steps{copy_step<int8_t>(x, Cin), copy_step<int8_t>(wq, Cin),
+                    0, 0, Cout % 2 == 0 && aligned(y, 8)};
+  conv2d_same_s8_kernel<K, CO>
+      <<<grid_for(B, H, W, Cout, CO), NT, smem, st>>>(x, wq, scale, y, H, W,
+                                                      Cin, Cout, steps);
+  return cudaSuccess;
+}
+
+// launch_co<K, CO>(args...) of either type, CO 8 where Cout <= 8, else 32
+template <int K, class... A>
+cudaError_t launch(int Cout, A... args) {
+  if (Cout <= 8) return launch_co<K, 8>(args...);
+  return launch_co<K, 32>(args...);
+}
+
+// launch<K> at the kernel size K (1, 3 or 5); the launch's error
+template <class... A>
+int conv2d_same(int K, int Cout, A... args) {
   cudaError_t e;
   switch (K) {
-    case 1: e = launch<1, T>(x, w2, y, B, H, W, Cin, Cout, st); break;
-    case 3: e = launch<3, T>(x, w2, y, B, H, W, Cin, Cout, st); break;
-    case 5: e = launch<5, T>(x, w2, y, B, H, W, Cin, Cout, st); break;
+    case 1: e = launch<1>(Cout, args...); break;
+    case 3: e = launch<3>(Cout, args...); break;
+    case 5: e = launch<5>(Cout, args...); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -96,7 +158,8 @@ extern "C" {
 // after the launch.
 int evf_conv2d_same(const float* x, const float* w2, float* y, int B, int H,
                     int W, int Cin, int Cout, int K, void* stream) {
-  return conv2d_same<float>(x, w2, y, B, H, W, Cin, Cout, K, stream);
+  return conv2d_same(K, Cout, x, w2, y, B, H, W, Cin, Cout,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // The same in bfloat16: x, w2 and y bfloat16, the sum in float32 rounded
@@ -104,7 +167,19 @@ int evf_conv2d_same(const float* x, const float* w2, float* y, int B, int H,
 int evf_conv2d_same_bf16(const bf16* x, const bf16* w2, bf16* y, int B,
                          int H, int W, int Cin, int Cout, int K,
                          void* stream) {
-  return conv2d_same<bf16>(x, w2, y, B, H, W, Cin, Cout, K, stream);
+  return conv2d_same(K, Cout, x, w2, y, B, H, W, Cin, Cout,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// K1-s8: y [B,H,W,Cout] float32 = float(sum of int8 products) * scale[co]
+// of xq [B,H,W,Cin] int8 and wq [Cout][K][K][Cin] int8 (OHWI), the sum in
+// int32 (exact: K*K*Cin*127^2 < 2^31 for K*K*Cin < 133 000), scale
+// [Cout] float32.
+int evf_conv2d_same_s8(const int8_t* x, const int8_t* wq, const float* scale,
+                       float* y, int B, int H, int W, int Cin, int Cout,
+                       int K, void* stream) {
+  return conv2d_same(K, Cout, x, wq, scale, y, B, H, W, Cin, Cout,
+                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -27,6 +27,19 @@
 // contiguous bytes of v, z, v' and z' (element pairs per lane, whole
 // sectors), the halo and weights arrive by cp.async in one pass of all
 // 32 channels, and the arithmetic runs on the tensor cores.
+//
+// K2-s8 (evf_fused_conv_lif_s8): the int8 variant for int8 serving,
+// JAX's XLA cell route under set_conv_quant("int8") (an int8 conv, then
+// the update in float32; no Pallas kernel: models/conv.py:93-141,
+// snn_cells.py:99-107). K1-s8's int8 mainloop feeds the same epilogue; the
+// recurrent segment adds into the one int32 accumulator, which is JAX's
+// int8 conv over concat([x, z]) under one activation scale. State and
+// update stay float32, every operation of the update rounded on its own in
+// the plain version's order, so v' and z' are bitwise the plain
+// version's. Bound by bytes: at 1 x 180 x 240 x 32 a cell moves 23.5 MB
+// (int8 x; v, z in and v', z' out in float32), 7.0 us at 3.35 TB/s,
+// against 27.6 MB for the float32 K2; the activation's quantization
+// before it (ops/quant.py) reads the float32 x twice more.
 
 #include "conv_tile.cuh"
 
@@ -120,31 +133,104 @@ cudaError_t launch_inst(const Args<T>& a, cudaStream_t st) {
   return cudaSuccess;
 }
 
-template <int K, int CO, class T>
-cudaError_t launch_co(const Args<T>& a, bool hard, cudaStream_t st) {
+// K2-s8: the LIF update of K2 driven by the int8 current
+// cur = float(int32 conv of xq with wq [+ zq with wrq]) * scale[co], the
+// recurrent segment summed into the same int32 accumulator (JAX's one
+// int8 conv over concat([x, z]) under one activation scale, whose sum is
+// the same integer); v, z, v', z' float32.
+template <int K, int CO, bool HARD, bool REC>
+__global__ void __launch_bounds__(NT, 2) fused_conv_lif_s8_kernel(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
+    const int8_t* __restrict__ zr, const int8_t* __restrict__ wrq,
+    const float* __restrict__ scale, const float* __restrict__ v,
+    const float* __restrict__ z, const float* __restrict__ leak,
+    const float* __restrict__ thresh, float* __restrict__ v_out,
+    float* __restrict__ z_out, int H, int W, int Cin, int Cout,
+    Steps steps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
+  int y0, x0;
+  tile_origin(W, &y0, &x0);
+  const int b = blockIdx.z;
+  const int co0 = blockIdx.y * CO;
+  int acc[MT][CO / 8][4] = {};
+  accumulate_s8<K, CO>(smem, acc, x, Cin, wq, Cout, b, H, W, y0, x0, co0,
+                       steps.x, steps.w);
+  if constexpr (REC)
+    accumulate_s8<K, CO>(smem, acc, zr, Cout, wrq, Cout, b, H, W, y0, x0,
+                         co0, steps.r, steps.wr);
+  // every operation rounded on its own, in the plain form's order (torch
+  // evaluates each elementwise op separately): no contraction into FMAs,
+  // so v' and z' are bitwise the plain form's
+  auto lif = [&](size_t i, int co, int a) {
+    const float cur = __fmul_rn(__int2float_rn(a), scale[co]);
+    const float vv = v[i], zz = z[i], l = leak[co], th = thresh[co];
+    const float drive = __fmul_rn(__fsub_rn(1.f, l), cur);
+    const float vn =
+        HARD ? __fadd_rn(__fmul_rn(__fmul_rn(vv, l), __fsub_rn(1.f, zz)),
+                         drive)
+             : __fsub_rn(__fadd_rn(__fmul_rn(vv, l), drive),
+                         __fmul_rn(zz, th));
+    v_out[i] = vn;
+    z_out[i] = (__fsub_rn(vn, th) > 0.f) ? 1.f : 0.f;
+  };
+  for_each_pair<CO>(acc, H, W, Cout, b, y0, x0, co0,
+                    [&](size_t i, int co, int a0, int a1) {
+                      lif(i, co, a0);
+                      if (co + 1 < Cout) lif(i + 1, co + 1, a1);
+                    });
+}
+
+struct ArgsS8 {
+  const int8_t *x, *wq, *zr, *wrq;
+  const float *scale, *v, *z, *leak, *thresh;
+  float *v_out, *z_out;
+  int B, H, W, Cin, Cout;
+};
+
+template <int K, int CO, bool HARD, bool REC>
+cudaError_t launch_inst(const ArgsS8& a, cudaStream_t st) {
+  auto kernel = fused_conv_lif_s8_kernel<K, CO, HARD, REC>;
+  const size_t smem = smem_bytes_s8<K, CO>();
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const Steps steps{copy_step<int8_t>(a.x, a.Cin),
+                    copy_step<int8_t>(a.wq, a.Cin),
+                    REC ? copy_step<int8_t>(a.zr, a.Cout) : 0,
+                    REC ? copy_step<int8_t>(a.wrq, a.Cout) : 0, false};
+  kernel<<<grid_for(a.B, a.H, a.W, a.Cout, CO), NT, smem, st>>>(
+      a.x, a.wq, a.zr, a.wrq, a.scale, a.v, a.z, a.leak, a.thresh, a.v_out,
+      a.z_out, a.H, a.W, a.Cin, a.Cout, steps);
+  return cudaSuccess;
+}
+
+// launch_inst of the arguments' kind (Args<T> or ArgsS8) at K, the CO of
+// Cout (8 where Cout <= 8, else 32), the reset and whether recurrent
+template <int K, int CO, class A>
+cudaError_t launch_co(const A& a, bool hard, cudaStream_t st) {
   const bool rec = a.zr != nullptr;
   if (hard)
-    return rec ? launch_inst<K, CO, true, true, T>(a, st)
-               : launch_inst<K, CO, true, false, T>(a, st);
-  return rec ? launch_inst<K, CO, false, true, T>(a, st)
-             : launch_inst<K, CO, false, false, T>(a, st);
+    return rec ? launch_inst<K, CO, true, true>(a, st)
+               : launch_inst<K, CO, true, false>(a, st);
+  return rec ? launch_inst<K, CO, false, true>(a, st)
+             : launch_inst<K, CO, false, false>(a, st);
 }
 
-template <int K, class T>
-cudaError_t launch(const Args<T>& a, bool hard, cudaStream_t st) {
-  if (a.Cout <= 8) return launch_co<K, 8, T>(a, hard, st);
-  return launch_co<K, 32, T>(a, hard, st);
+template <int K, class A>
+cudaError_t launch(const A& a, bool hard, cudaStream_t st) {
+  if (a.Cout <= 8) return launch_co<K, 8>(a, hard, st);
+  return launch_co<K, 32>(a, hard, st);
 }
 
-template <class T>
-int fused_conv_lif(const Args<T>& a, int K, int hard_reset, void* stream) {
+template <class A>
+int fused_conv_lif(const A& a, int K, int hard_reset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool hard = hard_reset != 0;
   cudaError_t e;
   switch (K) {
-    case 1: e = launch<1, T>(a, hard, st); break;
-    case 3: e = launch<3, T>(a, hard, st); break;
-    case 5: e = launch<5, T>(a, hard, st); break;
+    case 1: e = launch<1>(a, hard, st); break;
+    case 3: e = launch<3>(a, hard, st); break;
+    case 5: e = launch<5>(a, hard, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -166,7 +252,7 @@ int evf_fused_conv_lif(const float* x, const float* w2, const float* zr,
                        int K, int hard_reset, void* stream) {
   const Args<float> a{x, w2, zr, wr2, v, z, leak, thresh, v_out, z_out,
                       B, H, W, Cin, Cout};
-  return fused_conv_lif<float>(a, K, hard_reset, stream);
+  return fused_conv_lif(a, K, hard_reset, stream);
 }
 
 // The same with x, w2, zr, wr2, v, z, v_out and z_out bfloat16; leak and
@@ -179,7 +265,23 @@ int evf_fused_conv_lif_bf16(const bf16* x, const bf16* w2, const bf16* zr,
                             void* stream) {
   const Args<bf16> a{x, w2, zr, wr2, v, z, leak, thresh, v_out, z_out,
                      B, H, W, Cin, Cout};
-  return fused_conv_lif<bf16>(a, K, hard_reset, stream);
+  return fused_conv_lif(a, K, hard_reset, stream);
+}
+
+// K2-s8: (v_out, z_out) [B,H,W,Cout] float32 = LIF update of (v, z)
+// driven by float(int32 conv of xq [B,H,W,Cin] with wq [Cout][K][K][Cin]
+// [+ zq [B,H,W,Cout] with wrq [Cout][K][K][Cout] when zq is not null]) *
+// scale[co]; xq, wq, zq, wrq int8, scale, v, z, leak and thresh float32.
+int evf_fused_conv_lif_s8(const int8_t* x, const int8_t* wq,
+                          const int8_t* zr, const int8_t* wrq,
+                          const float* scale, const float* v, const float* z,
+                          const float* leak, const float* thresh,
+                          float* v_out, float* z_out, int B, int H, int W,
+                          int Cin, int Cout, int K, int hard_reset,
+                          void* stream) {
+  const ArgsS8 a{x, wq, zr, wrq, scale, v, z, leak, thresh, v_out, z_out,
+                 B, H, W, Cin, Cout};
+  return fused_conv_lif(a, K, hard_reset, stream);
 }
 
 }  // extern "C"

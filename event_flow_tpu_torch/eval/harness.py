@@ -38,11 +38,21 @@ process, so it resets every slot's state as in one process. Each
 process queues the metric values of its slots; :meth:`Evaluator.results`
 gathers every process's values and folds them in the one-process order
 (window, metric, slot), so that the per-file results are one process's.
-No window has a collective.
+No window has a collective, except under int8 (below).
+
+``Evaluator(quantize="int8")`` runs the model under int8 serving
+convs (ops/quant.py; JAX's ``set_conv_quant("int8")``, which
+eval_flow.py ``--quantize`` sets for the whole process): each window's
+model call enters the policy and ``torch.no_grad()`` itself. Under a
+data mesh each quantized conv reduces its activation amax (MAX) over the
+data group, so that one scale covers every slot of the batch, as in
+JAX's one SPMD program, and the per-file results stay one process's.
 
 Not ported: the chunked fast path and single-put packing (TPU dispatch
 workarounds with the same results).
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -57,6 +67,7 @@ from ..ops.encodings import encode_window
 from ..ops.hot_filter import apply_hot_filter, init_hot_state
 from ..ops.iwe import (compute_pol_iwe, gather_event_flow, get_interpolation,
                        interpolate_multi)
+from ..ops.quant import quant_mode, quantized
 from ..ops.scatter import scatter_add
 from ..parallel.distributed import local_slots
 
@@ -86,11 +97,14 @@ def cell_states(state):
 
 
 class Evaluator:
-    """``Evaluator(config, model, device, mesh=None)``: the protocol of
-    ``config``; under a data ``mesh`` every process is fed the whole
-    batch's stream and runs its slots (see the module's docstring)."""
+    """``Evaluator(config, model, device, mesh=None, quantize=None)``:
+    the protocol of ``config``; under a data ``mesh`` every process is
+    fed the whole batch's stream and runs its slots; with ``quantize=
+    "int8"`` the model serves int8 convs (see the module's
+    docstring)."""
 
-    def __init__(self, config, model, device, mesh=None):
+    def __init__(self, config, model, device, mesh=None, quantize=None):
+        self.quantize = quant_mode(quantize)
         if mesh is not None:
             b = config["loader"]["batch_size"]
             if mesh.ep != 1:
@@ -162,8 +176,12 @@ class Evaluator:
             )
         if new_seq:  # any reset clears every slot's model state
             model_state = zeros_like_state(model_state)
-        out, model_state = self.model(enc["event_voxel"], enc["event_cnt"],
-                                      model_state, log=self.log_activity)
+        group = self.mesh.data_group if self.mesh is not None else None
+        grad = torch.no_grad() if self.quantize else contextlib.nullcontext()
+        with quantized(self.quantize, group), grad:
+            out, model_state = self.model(enc["event_voxel"],
+                                          enc["event_cnt"], model_state,
+                                          log=self.log_activity)
         flow_last = out["flow"][-1]
         self.last_flow = flow_last
         win = {

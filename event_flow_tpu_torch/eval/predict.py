@@ -18,6 +18,14 @@ enter the model and the state is carried in bfloat16, the model computes
 in it (the bfloat16 variants of K1 and K2), and the flow, with the IWE
 computed from it, leaves in float32.
 
+``quantize="int8"`` serves with int8 convs (event_flow_tpu/eval/
+predict.py:33-92, models/conv.py:69-141): ``window_step`` enters
+``ops/quant.py::quantized`` around the model call only, so the policy
+is scoped to this engine's windows (and traced into its artifact), and
+every stride-1 conv runs K1-s8 or K2-s8 on per-channel weight scales and
+one activation scale per tensor. It takes float32 only: int8 with
+bfloat16 is refused.
+
 ``step_many`` serves S windows in one call, equal to S ``step`` calls.
 JAX scans them in one dispatch to save the TPU's round trips; here it is
 a loop. eval/serialized.py exports the window step as a ``torch.export``
@@ -31,6 +39,7 @@ from ..models.state import cast_state, compute_dtype
 from ..ops.encodings import encode_window
 from ..ops.hot_filter import apply_hot_filter, init_hot_state
 from ..ops.iwe import compute_pol_iwe
+from ..ops.quant import quant_mode, quantized
 
 __all__ = ["InferenceEngine"]
 
@@ -40,15 +49,17 @@ class InferenceEngine:
     ``device``) window by window at the config's resolution, encoding and
     hot filter, for ``batch`` streams at once. The state is carried in
     ``precision``'s element type, float32 or bfloat16; the flow is
-    float32. ``quantize="int8"`` (JAX's int8 serving convs) is not
-    ported."""
+    float32. ``quantize="int8"`` serves with int8 convs (float32
+    only)."""
 
     def __init__(self, config, model, device="cuda", batch=1, with_iwe=False,
                  quantize=None, precision="float32"):
-        if quantize not in (None, "none"):
+        self.quantize = quant_mode(quantize)
+        if self.quantize and precision != "float32":
             raise NotImplementedError(
-                f"quantize={quantize!r}: int8 serving is not ported (see "
-                "ROADMAP.md queue 1 item 4)")
+                f"quantize={quantize!r} with precision={precision!r}: int8 "
+                "serving takes float32 (int8 with bfloat16 is not ported; "
+                "ROADMAP.md queue 1)")
         self.device = get_device(device)
         self.precision = precision
         self.dtype = compute_dtype(precision)
@@ -83,7 +94,8 @@ class InferenceEngine:
         narrow = self.dtype != torch.float32
         if narrow:  # float32 casts nothing (nor does its artifact)
             voxel, cnt = voxel.to(self.dtype), cnt.to(self.dtype)
-        out, state = model(voxel, cnt, state)
+        with quantized(self.quantize):
+            out, state = model(voxel, cnt, state)
         flow = out["flow"][-1]
         if narrow:
             flow = flow.float()

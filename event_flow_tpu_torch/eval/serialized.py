@@ -8,7 +8,7 @@ exports an :class:`~.predict.InferenceEngine`'s window step (and, with
     step.pt2 / step_many.pt2   ``torch.export.save`` programs
     leaves.pt                  parameters, initial model and hot state
     meta.json                  leaf counts and shapes, batch, n_events,
-                               resolution, s
+                               resolution, s, precision, quantize
 
 :class:`SerializedEngine` serves the artifact with the live engine's
 ``step`` / ``step_many`` / ``reset``. It needs torch and the port's
@@ -16,8 +16,12 @@ exports an :class:`~.predict.InferenceEngine`'s window step (and, with
 modules must be imported before a program is loaded, because they
 register the operators its graph calls (``evflow::conv2d_same`` K1,
 ``evflow::fused_conv_lif`` and ``fused_conv_lif_rec`` K2,
-``evflow::scatter_add`` K3, and the cuDNN convs ``conv2d_strided`` and
-``conv_transpose2x`` with their own flags): JAX compiles its Pallas
+``evflow::scatter_add`` K3, the int8 engine's ``evflow::conv2d_same_s8``
+K1-s8 and ``fused_conv_lif_s8`` / ``fused_conv_lif_rec_s8`` K2-s8 (its
+quantization traced as torch ops beside them), and the cuDNN convs
+``conv2d_strided`` and ``conv_transpose2x`` with their own flags): a
+bfloat16 engine's graph holds the same operators on bfloat16 tensors and
+its state leaves are bfloat16. JAX compiles its Pallas
 kernels into the artifact, but a CUDA kernel loaded with ``ctypes`` cannot
 be serialized, so the graph names the operator and the serving process
 builds the kernels.
@@ -115,12 +119,8 @@ def export_engine(engine, path, n_events, s=None):
     on the engine's device. ``n_events`` fixes the window's event capacity
     (shorter windows are padded and masked, as in live serving); ``s``
     also exports the S-window ``step_many`` form. The engine's current
-    state is the artifact's initial state. Returns ``path``. A bfloat16
-    engine is refused: its artifacts are not ported yet."""
-    if engine.dtype != torch.float32:
-        raise NotImplementedError(
-            f"export_engine: a {engine.precision} engine; bfloat16 artifacts "
-            "are not ported (ROADMAP.md queue 1)")
+    state is the artifact's initial state; its precision and quantization
+    go into the graph. Returns ``path``."""
     named = [*engine.model.named_parameters(), *engine.model.named_buffers()]
     names = [n for n, _ in named]
     params = [t.detach() for _, t in named]
@@ -152,6 +152,7 @@ def export_engine(engine, path, n_events, s=None):
     meta = {"n_params": len(params), "n_state": len(state),
             "n_hot": len(hot), "batch": b, "n_events": n_events,
             "resolution": list(engine.res), "s": s,
+            "precision": engine.precision, "quantize": engine.quantize,
             "shapes": {"params": shapes(params), "state": shapes(state),
                        "hot": shapes(hot)}}
     with open(os.path.join(path, "meta.json"), "w") as f:

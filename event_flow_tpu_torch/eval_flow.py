@@ -38,6 +38,9 @@ that a rollover resets every slot as in one process; the per-file
 results are gathered, one process's, and rank 0 alone prints and stores
 them.
 ``vis.bars`` in the config prints a progress line (data/progress.py).
+``--quantize int8`` (JAX eval_flow.py:119-125, :224-226) evaluates with
+int8 serving convs (ops/quant.py, the int8 kernels K1-s8 and K2-s8), the
+metric-level accuracy check of a quantized deployment.
 
 The visualization outputs (JAX eval_flow.py:127-129, :158-197,
 :class:`WindowOutputs`): with ``vis.store`` each window's renders go to
@@ -156,7 +159,8 @@ class WindowOutputs:
 
 
 def evaluate(config, device, seed=0, sequences=None, model=None,
-             stream=None, progress=None, outputs=None, mesh=None):
+             stream=None, progress=None, outputs=None, mesh=None,
+             quantize=None):
     """Run the serving path over a stream and return a report dict:
     ``results`` ({metric: {file: mean}}), ``windows``, ``seconds`` (wall
     time of the window loop and the final metric read, which synchronises
@@ -174,14 +178,15 @@ def evaluate(config, device, seed=0, sequences=None, model=None,
     with the same arguments, reads the whole batch's stream, runs its
     slots (eval/harness.py) and gets the whole batch's per-file results,
     one process's; the default ``outputs`` are rank 0's, whose slot 0 is
-    the batch's, and the other ranks have none."""
+    the batch's, and the other ranks have none. ``quantize="int8"``
+    serves the model's convs in int8 (eval/harness.py::Evaluator)."""
     device = get_device(device) if not isinstance(device, torch.device) \
         else device
     if model is None:
         model = build_model(config, device, seed)
     if outputs is None and (mesh is None or mesh.rank == 0):
         outputs = WindowOutputs(config)
-    evaluator = Evaluator(config, model, device, mesh)
+    evaluator = Evaluator(config, model, device, mesh, quantize)
     if stream is None:
         if sequences is None:
             sequences = synthetic_sequences(config)
@@ -242,7 +247,8 @@ def load_weights(model, run_dir, torch_weights=None):
 
 
 def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
-                 path_results=None, synthetic=True, mesh=None):
+                 path_results=None, synthetic=True, mesh=None,
+                 quantize=None):
     """What the CLI does once it has the config: the model with the
     weights of :func:`load_weights` (a warning where there are none),
     :func:`evaluate` on the in-memory synthetic sequences (with
@@ -250,7 +256,8 @@ def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
     per-file results printed and, with ``path_results``, stored with the
     eval config, and the visualization outputs of :class:`WindowOutputs`
     under it; with a ``mesh``, data-parallel (:func:`evaluate`), rank 0
-    alone storing. Returns the report of :func:`evaluate`."""
+    alone storing; with ``quantize="int8"``, int8 serving convs (printed
+    as JAX's CLI prints it). Returns the report of :func:`evaluate`."""
     _check_aee_config(config)
     if mesh is not None and mesh.rank != 0:
         path_results = None
@@ -267,6 +274,8 @@ def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
     loaded = load_weights(model, os.path.join(runs_root, runid),
                           torch_weights)
     print(loaded or "WARNING: no checkpoint found; evaluating random init")
+    if quantize:
+        print(f"conv quantization: {quantize}")
     stream = None
     if not synthetic:
         from .data.h5 import H5EventStream  # the one module with h5py
@@ -278,7 +287,8 @@ def evaluate_run(runid, config, device, runs_root="runs", torch_weights=None,
         if mesh is None or mesh.rank == 0:
             outputs = WindowOutputs(config, path_results, eval_id)
         report = evaluate(config, device, model=model, stream=stream,
-                          progress=bar, outputs=outputs, mesh=mesh)
+                          progress=bar, outputs=outputs, mesh=mesh,
+                          quantize=quantize)
     finally:
         if stream is not None:
             stream.close()
@@ -317,6 +327,9 @@ def main(argv=None):
                     help="data-parallel eval over the processes of "
                          "torchrun: each runs its share of the slots of "
                          "loader.batch_size, which must divide")
+    ap.add_argument("--quantize", default=None, choices=["int8"],
+                    help="evaluate with int8 serving convs (metric-level "
+                         "accuracy check for quantized deployment)")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
     config = _config_from_args(args)
@@ -349,7 +362,8 @@ def main(argv=None):
                 args.runid, config, device, runs_root=args.runs_root,
                 torch_weights=args.torch_weights,
                 path_results=None if args.debug else args.path_results,
-                synthetic=args.synthetic, mesh=mesh)
+                synthetic=args.synthetic, mesh=mesh,
+                quantize=args.quantize)
     finally:
         if is_distributed():
             torch.distributed.destroy_process_group()

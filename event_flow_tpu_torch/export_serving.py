@@ -14,7 +14,9 @@ As in the JAX tool, the run's stored ``params.yml`` is the base under the
 config (its model block picks the model) unless ``--torch_weights`` is
 given; the weights are ``--torch_weights`` or else the run's best (or
 latest) checkpoint. ``--device`` is the device the export traces on; an
-artifact serves on either device (eval/serialized.py).
+artifact serves on either device (eval/serialized.py). ``--quantize
+int8`` exports the int8 engine (JAX tools/export_serving.py:36, :93):
+the graph holds the int8 operators and the quantization before them.
 """
 
 import argparse
@@ -32,11 +34,12 @@ __all__ = ["export_run", "main"]
 
 
 def export_run(run_dir, config, out, n_events, s=None, batch=1,
-               torch_weights=None, device="cuda"):
+               torch_weights=None, device="cuda", quantize=None):
     """Export the model of ``config`` with the weights of ``torch_weights``
-    or of the run's checkpoint (eval_flow.py::load_weights) to ``out``;
-    returns {file name: bytes}. Raises SystemExit where the config has no
-    model or the run no checkpoint."""
+    or of the run's checkpoint (eval_flow.py::load_weights) to ``out``,
+    its convs in int8 with ``quantize="int8"``; returns {file name:
+    bytes}. Raises SystemExit where the config has no model or the run no
+    checkpoint."""
     if not config.get("model", {}).get("name"):
         raise SystemExit("no model block: give a config with model.name or "
                          "a run dir with stored params")
@@ -46,7 +49,8 @@ def export_run(run_dir, config, out, n_events, s=None, batch=1,
     if loaded is None:
         raise SystemExit(f"no checkpoint under {run_dir}")
     print(loaded)
-    engine = InferenceEngine(config, model, device, batch=batch)
+    engine = InferenceEngine(config, model, device, batch=batch,
+                             quantize=quantize)
     export_engine(engine, out, n_events=n_events, s=s)
     return {f: os.path.getsize(os.path.join(out, f))
             for f in sorted(os.listdir(out))}
@@ -66,15 +70,12 @@ def main(argv=None):
                     help="also export the S-window step_many form")
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--quantize", default=None, choices=["int8"],
-                    help="int8 serving convs: not ported, refused")
+                    help="export with int8 serving convs")
     ap.add_argument("--torch_weights", default=None,
                     help="reference torch checkpoint instead of the run's")
     ap.add_argument("--device", default="cuda",
                     help="device the export traces on (cuda or cpu)")
     args = ap.parse_args(argv)
-    if args.quantize:
-        raise SystemExit(f"--quantize {args.quantize}: int8 serving is not "
-                         "ported (see ROADMAP.md queue 1 item 4)")
 
     config = load_yaml_config(args.config)
     params_yml = os.path.join(args.run, "params.yml")
@@ -84,7 +85,7 @@ def main(argv=None):
             config = merge_run_params(config, stored)
     sizes = export_run(args.run, config, args.out, args.events, s=args.s,
                        batch=args.batch, torch_weights=args.torch_weights,
-                       device=args.device)
+                       device=args.device, quantize=args.quantize)
     total = sum(sizes.values())
     print(f"exported {config['model']['name']} -> {args.out} "
           f"({total / 1e6:.2f} MB: "

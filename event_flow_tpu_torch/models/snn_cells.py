@@ -57,7 +57,11 @@ the CPU), as JAX's fused path. Every other cell, and a LIF cell with a
 norm, ``detach=False`` or a stride (JAX's ``_use_fused``, :109-131,
 sends these to XLA), computes its current with K1 (``conv2d_same``, B2
 its weight gradient) at stride 1 and ``ops/conv.py::conv2d_strided``
-otherwise, and its update in plain torch under autograd.
+otherwise, and its update in plain torch under autograd. Under int8
+serving (ops/quant.py) the same calls take K2-s8 and K1-s8, each
+quantizing its own input as the JAX call it mirrors: JAX's default XLA
+cell route quantizes every LIF cell's conv (its fused Pallas cells,
+under ``EVFLOW_CELL_IMPL=pallas|auto`` on a TPU only, would not).
 
 Cell contract: ``cell(x, state[, residual]) -> (spikes [+ residual],
 new_state)``, NHWC tensors, state ``(v, z)`` for LIF and ``(v, z, pt)``
@@ -72,6 +76,7 @@ from torch import nn
 
 from ..ops.conv import conv2d_same, conv2d_strided
 from ..ops.fused_lif import fused_conv_lif, fused_conv_lif_rec
+from ..ops.quant import conv_quant
 from ..ops.resize import avg_pool, upsample2x_bilinear
 from ..ops.spike import get_spike_fn
 
@@ -254,8 +259,12 @@ class _SpikingBase(nn.Module):
 
     def _current(self, x, z):
         """ff(x) [+ rec(z)]: K1 at stride 1, the strided conv otherwise;
-        a strided recurrent cell adds rec(z) by K1 on the output's grid."""
-        if self.RECURRENT and self.stride == 1:
+        a strided recurrent cell adds rec(z) by K1 on the output's grid.
+        A recurrent cell at stride 1 takes one conv over concat([x, z]),
+        but under int8 a weight-normed one takes two, as JAX's does
+        (snn_cells.py:440-448): each quantizes its own input."""
+        split = self.norm_kind == "weight" and conv_quant() == "int8"
+        if self.RECURRENT and self.stride == 1 and not split:
             return conv2d_same(torch.cat([x, z], dim=-1), torch.cat(
                 [self.ff.weight, self.rec.weight], dim=1))
         if self.stride == 1:

@@ -40,6 +40,15 @@ operands, computes in float32 with TF32 off and rounds once: exactly the
 function. The strided and transposed convs take bfloat16 through cuDNN
 on the card and, on the CPU, through that float32 form.
 
+int8 serving (ops/quant.py): under ``quantized("int8")``
+:func:`conv2d_same` quantizes x (one scale) and w (per output channel)
+and calls the operator ``evflow::conv2d_same_s8`` (K1-s8 on the card,
+:func:`conv2d_same_s8_plain` on the CPU; csrc/conv.cu), float32 out;
+:func:`conv2d_strided` convolves the dequantized values in float32, as
+JAX does on the TPU (event_flow_tpu/models/conv.py:115-130);
+:func:`conv_transpose2x` is not quantized (conv.py:332-372). An int8
+CUDA tensor launches K1-s8 or raises; the float K1 refuses it.
+
 K1 source note: replaces the Pallas im2col strip matmul ``_conv_fwd``
 (conv_pallas.py:113-136). On the H100 it is an implicit GEMM on the
 tensor cores (``mma.sync`` m16n8k8, TF32 operands split hi + lo, three
@@ -80,11 +89,16 @@ import torch
 import torch.nn.functional as F
 
 from . import native
+from .quant import conv_quant, int8_operands, quantize_operands
 
 
 __all__ = ["conv2d_same", "conv2d_same_plain", "conv2d_strided",
            "conv_transpose2x", "conv2d_dw_plain", "conv2d_dw_kernel",
-           "conv_same_grads", "flatten_kernel"]
+           "conv_same_grads", "flatten_kernel", "conv2d_same_s8_plain",
+           "conv2d_same_s8_kernel", "S8_MAX_TERMS"]
+
+# K*K*Cin of an int8 conv whose int32 sum cannot overflow: 127^2 per term
+S8_MAX_TERMS = (2 ** 31 - 1) // (127 * 127)
 
 
 def _check_shapes(x, w):
@@ -214,6 +228,13 @@ def conv2d_strided(x, w, stride):
     if x.dim() != 4 or w.dim() != 4 or w.shape[1] != x.shape[3]:
         raise ValueError(f"x {tuple(x.shape)} must be NHWC and w "
                          f"{tuple(w.shape)} OIHW with its input channels")
+    if conv_quant() == "int8":
+        # JAX's TPU route for a strided int8 conv (conv.py:115-130): the
+        # float32 conv of the dequantized int8 values
+        ((xq,), a_scale), ((wq,), w_scale) = quantize_operands(
+            "conv2d_strided", (x,), (w,))
+        return _strided_op(xq.float() * a_scale, wq.float() * w_scale,
+                           stride)
     return _ConvStrided.apply(x, w.to(x.dtype), stride)
 
 
@@ -382,5 +403,81 @@ class _ConvSame(torch.autograd.Function):
 def conv2d_same(x, w):
     """y [B,H,W,Cout] = same-padded stride-1 conv of x [B,H,W,Cin] with
     w [Cout,Cin,k,k], odd k <= 5, differentiable in x and w; w is cast to
-    x's element type, so y is in it."""
+    x's element type, so y is in it. Under ``quantized("int8")``
+    (ops/quant.py) x and w are quantized and the conv is
+    ``evflow::conv2d_same_s8``, float32 out, not differentiable."""
+    if conv_quant() == "int8":
+        (xq,), (wq,), scale = int8_operands("conv2d_same", (x,), (w,))
+        return _conv_s8(xq, wq, scale)
     return _ConvSame.apply(x, w.to(x.dtype))
+
+
+# int8 convs (K1-s8): counterpart of event_flow_tpu/models/conv.py
+# ::_conv2d_int8 at stride 1 (:93-114, :131-141), which is no Pallas kernel
+# but XLA's int8 dot (TPU) or conv (CPU) with int32 accumulation.
+
+
+def ohwi(wq):
+    """OIHW -> [Cout, k*k*Cin] in (dy, dx, cin) column order: the int8
+    kernels' weight rows, input channels contiguous."""
+    return wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
+
+
+def _check_s8(name, xq, wq, scale):
+    k = _check_shapes(xq, wq)
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError(f"{name}: xq and wq must be int8, got {xq.dtype} "
+                        f"and {wq.dtype}")
+    if scale.dtype != torch.float32 or scale.numel() != wq.shape[0]:
+        raise ValueError(f"{name}: scale must be {wq.shape[0]} float32 "
+                         f"values, got {scale.dtype} {tuple(scale.shape)}")
+    if k * k * xq.shape[3] > S8_MAX_TERMS:
+        raise ValueError(f"{name}: k*k*Cin {k * k * xq.shape[3]} could "
+                         "overflow the int32 sum")
+    return k
+
+
+def conv2d_same_s8_plain(xq, wq, scale):
+    """Plain version of K1-s8: y [B,H,W,Cout] float32 of int8 xq
+    [B,H,W,Cin] and int8 wq [Cout,Cin,k,k]: ``F.conv2d`` on the integer
+    values in float64 (every product and partial sum an integer below
+    2^53: exact in any order; cuDNN off, whose algorithms may transform
+    the operands), then to int32, to float32 (rounded to nearest), times
+    ``scale`` [Cout]."""
+    k = _check_s8("conv2d_same_s8", xq, wq, scale)
+    with torch.backends.cudnn.flags(enabled=False):
+        acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), wq.double(),
+                       padding=k // 2)
+    y = acc.permute(0, 2, 3, 1).to(torch.int32).to(torch.float32)
+    return (y * scale.reshape(-1)).contiguous()
+
+
+def conv2d_same_s8_kernel(xq, wq, scale):
+    """Launch K1-s8 on int8 xq [B,H,W,Cin] and wq [Cout,Cin,k,k] and
+    float32 scale [Cout] on one CUDA device; returns y float32."""
+    k = _check_s8("conv2d_same_s8", xq, wq, scale)
+    name = "conv2d_same_s8"
+    wq2 = ohwi(wq)
+    scale = scale.reshape(-1).contiguous()
+    native.require_cuda(name, torch.int8, xq, wq2)
+    native.require_cuda(name, torch.float32, scale, device=xq.device)
+    b, h, wd, cin = xq.shape
+    cout = wq.shape[0]
+    y = torch.empty((b, h, wd, cout), device=xq.device, dtype=torch.float32)
+    err = native.library().evf_conv2d_same_s8(
+        xq.data_ptr(), wq2.data_ptr(), scale.data_ptr(), y.data_ptr(), b, h,
+        wd, cin, cout, k, native.stream_handle(xq.device))
+    native.check(err, name)
+    native.LAUNCHES[name] += 1
+    return y
+
+
+def _conv_s8_fake(xq, wq, scale):
+    _check_s8("conv2d_same_s8", xq, wq, scale)
+    return xq.new_empty((*xq.shape[:3], wq.shape[0]), dtype=torch.float32)
+
+
+# K1-s8 on CUDA tensors, its plain version on CPU tensors
+_conv_s8 = native.define_op(
+    "conv2d_same_s8", "(Tensor xq, Tensor wq, Tensor scale) -> Tensor",
+    conv2d_same_s8_plain, conv2d_same_s8_kernel, _conv_s8_fake)

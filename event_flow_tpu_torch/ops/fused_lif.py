@@ -39,6 +39,15 @@ there the deep calls launch few blocks (32 at 512 channels, 12 x 15, for
 132 SMs), each walking 16 to 32 serial passes of 32 channels, and are
 slower than cuDNN's f32 conv (PERF.md section 6).
 
+int8 serving (ops/quant.py): under ``quantized("int8")`` the public
+cells quantize x (with z_rec, under one scale, in the recurrent cell)
+and w (with w_rec, per output channel over both) and call
+``evflow::fused_conv_lif_s8`` / ``fused_conv_lif_rec_s8``: K2-s8 on the
+card (csrc/fused_lif.cu, on the int8 mainloop of K1-s8), on the CPU
+:func:`fused_conv_lif_s8_plain` / :func:`fused_conv_lif_rec_s8_plain`
+(the plain int8 conv, then :func:`lif_update`), bitwise equal. No
+backward: int8 serves only.
+
 B4 source note: see ``csrc/fused_lif_bwd.cu``: elementwise, bound by
 device memory (five maps read, two written), one cooperative launch. A
 persistent grid walks units of work fixed by the shape: a slice of
@@ -77,13 +86,16 @@ weights to x's type, as JAX's cells do (snn_cells.py:176, :432).
 import torch
 
 from . import native
-from .conv import (_check_shapes, _widened, conv2d_same_plain,
-                   conv_same_grads, flatten_kernel)
+from .conv import (S8_MAX_TERMS, _check_s8, _check_shapes, _widened,
+                   conv2d_same_plain, conv2d_same_s8_plain, conv_same_grads,
+                   flatten_kernel, ohwi)
+from .quant import conv_quant, int8_operands
 from .spike import get_spike_fn, surrogate
 
 __all__ = ["fused_conv_lif", "fused_conv_lif_rec", "fused_conv_lif_plain",
            "fused_conv_lif_rec_plain", "fused_lif_bwd", "fused_lif_bwd_plain",
-           "fused_lif_bwd_kernel", "lif_update"]
+           "fused_lif_bwd_kernel", "lif_update", "fused_conv_lif_s8_plain",
+           "fused_conv_lif_rec_s8_plain"]
 
 # B4 takes up to this many channels (csrc/fused_lif_bwd.cu, MAX_C); the
 # spiking U-Net's widest LIF cells have 512
@@ -133,6 +145,27 @@ def fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh, k,
                         leak, thresh, k, hard_reset, activation, width)
     cur = conv2d_same_plain(torch.cat([x, z_rec], dim=-1),
                             torch.cat([w, w_rec], dim=1))
+    return lif_update(cur, v, z, leak, thresh, hard_reset, activation, width)
+
+
+def fused_conv_lif_s8_plain(xq, wq, scale, v, z, leak, thresh, k,
+                            hard_reset=True, activation="arctanspike",
+                            width=10.0):
+    """Plain version of K2-s8: the plain int8 conv (float32 current
+    float(int32 sum) * scale), then the LIF update; v, z float32."""
+    return lif_update(conv2d_same_s8_plain(xq, wq, scale), v, z, leak,
+                      thresh, hard_reset, activation, width)
+
+
+def fused_conv_lif_rec_s8_plain(xq, wq, wrq, scale, v, z, zq, leak, thresh,
+                                k, hard_reset=True, activation="arctanspike",
+                                width=10.0):
+    """Plain version of the recurrent K2-s8: one int8 conv over
+    concat([xq, zq]) with the kernels concatenated along the input
+    channels (JAX's ``_fused_current`` under int8: one sum, one scale),
+    then the LIF update."""
+    cur = conv2d_same_s8_plain(torch.cat([xq, zq], dim=-1),
+                               torch.cat([wq, wrq], dim=1), scale)
     return lif_update(cur, v, z, leak, thresh, hard_reset, activation, width)
 
 
@@ -275,6 +308,61 @@ def _rec_kernel(x, w, w_rec, v, z, z_rec, leak, thresh, k, hard_reset,
                    hard_reset, z_rec=z_rec, w_rec=w_rec)
 
 
+def _launch_s8(name, xq, wq, scale, v, z, leak, thresh, k, hard_reset,
+               zq=None, wrq=None):
+    """Launch K2-s8 (recurrent where zq is given): int8 xq, wq (OIHW),
+    zq, wrq; float32 scale, v, z, leak, thresh on one CUDA device."""
+    if _check_s8(name, xq, wq, scale) != k:
+        raise ValueError(f"{name}: k={k} but the kernel is {tuple(wq.shape)}")
+    b, h, wd, cin = xq.shape
+    cout = wq.shape[0]
+    state_shape = (b, h, wd, cout)
+    if v.shape != state_shape or z.shape != state_shape:
+        raise ValueError(f"{name}: v and z must be {state_shape}")
+    leak = leak.reshape(-1).contiguous()
+    thresh = thresh.reshape(-1).contiguous()
+    scale = scale.reshape(-1).contiguous()
+    if leak.numel() != cout or thresh.numel() != cout:
+        raise ValueError(f"{name}: leak and thresh need {cout} channels")
+    ints = [xq, ohwi(wq)]
+    if zq is not None:
+        if zq.shape != state_shape or tuple(wrq.shape) != (cout, cout, k, k):
+            raise ValueError(f"{name}: zq must be {state_shape} and wrq "
+                             f"({cout}, {cout}, {k}, {k})")
+        if k * k * (cin + cout) > S8_MAX_TERMS:
+            raise ValueError(f"{name}: k*k*(Cin+Cout) could overflow the "
+                             "int32 sum")
+        ints += [zq, ohwi(wrq)]
+    native.require_cuda(name, torch.int8, *ints)
+    native.require_cuda(name, torch.float32, scale, v, z, leak, thresh,
+                        device=xq.device)
+    entry = native.library().evf_fused_conv_lif_s8
+    v_out = torch.empty_like(v)
+    z_out = torch.empty_like(v)
+    ptrs = [t.data_ptr() for t in ints]
+    zr_ptr, wr_ptr = ptrs[2:] if zq is not None else (None, None)
+    err = entry(
+        ptrs[0], ptrs[1], zr_ptr, wr_ptr, scale.data_ptr(), v.data_ptr(),
+        z.data_ptr(), leak.data_ptr(), thresh.data_ptr(), v_out.data_ptr(),
+        z_out.data_ptr(), b, h, wd, cin, cout, k, int(bool(hard_reset)),
+        native.stream_handle(xq.device))
+    native.check(err, name)
+    native.LAUNCHES[name] += 1
+    return v_out, z_out
+
+
+def _ff_s8_kernel(xq, wq, scale, v, z, leak, thresh, k, hard_reset,
+                  activation, width):
+    return _launch_s8("fused_conv_lif_s8", xq, wq, scale, v, z, leak, thresh,
+                      k, hard_reset)
+
+
+def _rec_s8_kernel(xq, wq, wrq, scale, v, z, zq, leak, thresh, k,
+                   hard_reset, activation, width):
+    return _launch_s8("fused_conv_lif_rec_s8", xq, wq, scale, v, z, leak,
+                      thresh, k, hard_reset, zq=zq, wrq=wrq)
+
+
 def _ff_fake(x, w, v, *args):
     return torch.empty_like(v), torch.empty_like(v)
 
@@ -292,6 +380,17 @@ _rec_op = native.define_op(
     "fused_conv_lif_rec", "(Tensor x, Tensor w, Tensor w_rec, Tensor v, "
     "Tensor z, Tensor z_rec, " + _CELL_ARGS,
     fused_conv_lif_rec_plain, _rec_kernel, _rec_fake)
+# K2-s8: the int8 operands and the [Cout] scale a_scale * w_scale
+_ff_s8_op = native.define_op(
+    "fused_conv_lif_s8", "(Tensor xq, Tensor wq, Tensor scale, Tensor v, "
+    "Tensor z, " + _CELL_ARGS,
+    fused_conv_lif_s8_plain, _ff_s8_kernel,
+    lambda xq, wq, scale, v, *args: _ff_fake(xq, wq, v))
+_rec_s8_op = native.define_op(
+    "fused_conv_lif_rec_s8", "(Tensor xq, Tensor wq, Tensor wrq, "
+    "Tensor scale, Tensor v, Tensor z, Tensor zq, " + _CELL_ARGS,
+    fused_conv_lif_rec_s8_plain, _rec_s8_kernel,
+    lambda xq, wq, wrq, scale, v, *args: _ff_fake(xq, wq, v))
 
 
 class _FusedConvLIF(torch.autograd.Function):
@@ -354,7 +453,13 @@ def fused_conv_lif(x, w, v, z, leak, thresh, k, hard_reset=True,
     """Feedforward cell. x [B,H,W,Cin]; w [Cout,Cin,k,k], cast to x's
     element type; v, z [B,H,W,Cout] in x's type; leak, thresh [Cout]
     post-squash, float32. Returns (v', z') in x's type. ``activation``
-    and ``width`` name the surrogate gradient of the backward."""
+    and ``width`` name the surrogate gradient of the backward. Under
+    ``quantized("int8")`` (ops/quant.py) x and w are quantized and the
+    cell is ``evflow::fused_conv_lif_s8``, not differentiable."""
+    if conv_quant() == "int8":
+        (xq,), (wq,), scale = int8_operands("fused_conv_lif", (x,), (w,), v)
+        return _ff_s8_op(xq, wq, scale, v, z, leak, thresh, k, hard_reset,
+                         activation, float(width))
     return _FusedConvLIF.apply(x, w.to(x.dtype), v, z, leak, thresh, k,
                                hard_reset, activation, float(width))
 
@@ -364,7 +469,15 @@ def fused_conv_lif_rec(x, w, w_rec, v, z, z_rec, leak, thresh, k,
                        width=10.0):
     """Recurrent cell: cur = conv(x, w) + conv(z_rec, w_rec). ``z_rec`` is
     the previous spike map before any detach (for ConvLIFRecurrent it is
-    ``z`` itself). Returns (v', z')."""
+    ``z`` itself). Returns (v', z'). Under ``quantized("int8")`` x and
+    z_rec are quantized under one scale, w and w_rec under per-channel
+    scales over both (JAX's int8 conv of concat([x, z])), and the cell is
+    ``evflow::fused_conv_lif_rec_s8``."""
+    if conv_quant() == "int8":
+        (xq, zq), (wq, wrq), scale = int8_operands(
+            "fused_conv_lif_rec", (x, z_rec), (w, w_rec), v)
+        return _rec_s8_op(xq, wq, wrq, scale, v, z, zq, leak, thresh, k,
+                          hard_reset, activation, float(width))
     return _FusedConvLIFRec.apply(x, w.to(x.dtype), w_rec.to(x.dtype), v, z,
                                   z_rec, leak, thresh, k, hard_reset,
                                   activation, float(width))

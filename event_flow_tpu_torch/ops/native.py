@@ -10,10 +10,12 @@ the module is imported.
 Every wrapper that launches a kernel adds one to its entry in
 :data:`LAUNCHES`, where it launches and nowhere else, so a run can show
 that its main path went through the kernels. The bfloat16 variants of K1,
-K2, B2 and B4 count under their own names (``conv2d_same_bf16``, ...).
-A wrapper takes the element types :func:`require_cuda` allows it and
-raises on any other: a bfloat16 tensor launches a bfloat16 kernel, never
-a float32 one.
+K2, B2 and B4 count under their own names (``conv2d_same_bf16``, ...),
+and so do the int8 variants of K1 and K2 (``conv2d_same_s8``,
+``fused_conv_lif_s8``, ``fused_conv_lif_rec_s8``). A wrapper takes the
+element types :func:`require_cuda` allows it and raises on any other: a
+bfloat16 tensor launches a bfloat16 kernel, never a float32 one, and an
+int8 tensor only an int8 one.
 
 The forward kernels of the serving path are torch operators in the
 ``evflow`` namespace (:func:`define_op`): the dispatcher takes the plain
@@ -48,7 +50,8 @@ LAUNCHES = {"conv2d_same": 0, "fused_conv_lif": 0, "fused_conv_lif_rec": 0,
             "scatter_add": 0, "conv2d_dw": 0, "fused_lif_bwd": 0,
             "conv2d_same_bf16": 0, "fused_conv_lif_bf16": 0,
             "fused_conv_lif_rec_bf16": 0, "conv2d_dw_bf16": 0,
-            "fused_lif_bwd_bf16": 0}
+            "fused_lif_bwd_bf16": 0, "conv2d_same_s8": 0,
+            "fused_conv_lif_s8": 0, "fused_conv_lif_rec_s8": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +67,9 @@ _SIGNATURES = {
     "evf_fused_lif_bwd_slices": [_L, _I, _I],
     "evf_fused_lif_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                           _I, _I, _I, _F, _I, _P],
+    "evf_conv2d_same_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "evf_fused_conv_lif_s8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _P],
 }
 # the bfloat16 entries take the float32 ones' arguments
 for _name in ("evf_conv2d_same", "evf_fused_conv_lif", "evf_conv_dw",

@@ -69,7 +69,8 @@ from event_flow_tpu_torch.config import (ECD_LIFFIRENET, TRAIN_ANN,
                                          TRAIN_SNN, TRAIN_SNNREC, with_model)
 from event_flow_tpu_torch.data.stream import SyntheticWindowStream
 from event_flow_tpu_torch.eval.predict import InferenceEngine
-from event_flow_tpu_torch.eval.serialized import export_engine
+from event_flow_tpu_torch.eval.serialized import (SerializedEngine,
+                                                  export_engine)
 from event_flow_tpu_torch.loss.warping import LossConfig
 from event_flow_tpu_torch.models.registry import get_model
 from event_flow_tpu_torch.ops import conv as t_conv
@@ -484,13 +485,14 @@ def test_train_bf16_profile_writes_a_trace(tmp_path, capsys):
     assert BF16_ANN_WARNING in capsys.readouterr().out
 
 
-def test_engine_serves_bf16_as_jax(interpret_mode):
+def test_engine_serves_bf16_as_jax(interpret_mode, tmp_path):
     """InferenceEngine(precision="bfloat16") against JAX's engine under
     both bfloat16 levers and the fused cells (eval/predict.py:52-55,
     :84-93), LIFFireNet at the ECD recipe shrunk to 32 x 32, width 8, four
     windows: the state carried in bfloat16, the flow float32 and within
     FLOW_RTOL of max |flow| of JAX's, and every spike state equal to
-    JAX's; a bfloat16 engine's artifact is refused."""
+    JAX's; a bfloat16 engine's artifact serves its next window bitwise
+    as the live engine, its state bfloat16."""
     cfg = copy.deepcopy(ECD_LIFFIRENET)
     cfg["loader"]["resolution"] = list(RES)
     cfg["model"]["base_num_channels"] = 8
@@ -525,8 +527,10 @@ def test_engine_serves_bf16_as_jax(interpret_mode):
         jax_policy.set_cell_impl("xla")
     assert np.abs(ref).max() > 0
     assert all(float(_np(z).mean()) > 0 for _, z in engine._state)
-    with pytest.raises(NotImplementedError):
-        export_engine(engine, "unused", n_events=100)
+    path = export_engine(engine, str(tmp_path / "bf16"), n_events=800)
+    ser = SerializedEngine(path, "cpu")
+    assert all(t.dtype == BF16 for t in ser._state)
+    assert torch.equal(ser.step(windows[0]), engine.step(windows[0]))
 
 
 class _NoCard:

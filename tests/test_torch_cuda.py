@@ -1743,3 +1743,113 @@ def test_bf16_conv_dw_split_and_unsplit(dev, shape, chunked, inputs):
     print(f"[bf16 fragments] B2 {shape} {inputs}, {chunks} chunks: beyond "
           f"one ulp {_bf16_err(dw, ref, atol):.3g} SUM_RTOL")
     assert torch.equal(dw, conv2d_dw_kernel(x, gy, 3))
+
+
+# int8 serving: K1-s8 and K2-s8 (csrc/conv.cu, csrc/fused_lif.cu) against
+# their plain versions. Integer sums are exact and both round each later
+# operation alike, so K1-s8 and K2-s8 are bitwise their plain versions.
+S8_CIN = (1, 2, 5, 8, 16, 24, 32, 33, 48, 64, 130, 258)
+
+
+def _s8_args(g, dev, b, h, w, cin, cout, k, rec=False):
+    from event_flow_tpu_torch.ops.quant import int8_operands
+
+    x = torch.randn((b, h, w, cin), generator=g)
+    wt = 0.3 * torch.randn((cout, cin, k, k), generator=g)
+    acts, weights = (x,), (wt,)
+    if rec:
+        acts += ((torch.rand((b, h, w, cout), generator=g) < 0.2).float(),)
+        weights += (0.3 * torch.randn((cout, cout, k, k), generator=g),)
+    with torch.no_grad():
+        qa, qw, scale = int8_operands("s8 test", acts, weights)
+    ints = (qa[0], qw[0], qw[1], qa[1]) if rec else (qa[0], qw[0])
+    return tuple(t.to(dev) for t in ints), scale.to(dev)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("cin", S8_CIN)
+def test_s8_conv_kernel_matches_plain_bitwise(dev, cin, k):
+    """K1-s8 at every copy width (Cin 1 to 258: 1-, 2-, 4-, 8- and
+    16-byte staging), one and several passes, Cout 2, 9 and 40, ragged
+    maps: bitwise its plain version, twice."""
+    from event_flow_tpu_torch.ops.conv import (conv2d_same_s8_kernel,
+                                               conv2d_same_s8_plain)
+
+    g = _gen()
+    for b, h, w, cout in ((1, 9, 35, 2), (2, 18, 30, 9), (1, 17, 33, 40)):
+        (xq, wq), scale = _s8_args(g, dev, b, h, w, cin, cout, k)
+        y = conv2d_same_s8_kernel(xq, wq, scale)
+        assert y.dtype == torch.float32
+        assert torch.equal(y, conv2d_same_s8_plain(xq, wq, scale))
+        assert torch.equal(y, conv2d_same_s8_kernel(xq, wq, scale))
+
+
+@pytest.mark.parametrize("hard", [True, False])
+@pytest.mark.parametrize("rec", [False, True])
+@pytest.mark.parametrize("cin,cout", [(2, 32), (32, 32), (5, 7), (33, 9),
+                                      (130, 64), (512, 512)])
+def test_s8_cell_kernels_match_plain_bitwise(dev, cin, cout, rec, hard):
+    """K2-s8 ff and rec against their plain versions: v' and z' bitwise,
+    twice."""
+    from event_flow_tpu_torch.ops.fused_lif import (
+        _ff_s8_kernel, _rec_s8_kernel, fused_conv_lif_rec_s8_plain,
+        fused_conv_lif_s8_plain)
+
+    g = _gen()
+    b, h, w = (1, 12, 15) if cin == 512 else (2, 20, 37)
+    ints, scale = _s8_args(g, dev, b, h, w, cin, cout, 3, rec)
+    v = (0.3 * torch.randn((b, h, w, cout), generator=g)).to(dev)
+    z = (torch.rand((b, h, w, cout), generator=g) < 0.2).float().to(dev)
+    leak = torch.sigmoid(torch.randn(cout, generator=g)).to(dev)
+    thresh = (0.2 + 0.1 * torch.rand(cout, generator=g)).to(dev)
+    if rec:
+        xq, wq, wrq, zq = ints
+
+        def run(fn):
+            return fn(xq, wq, wrq, scale, v, z, zq, leak, thresh, 3, hard,
+                      "arctanspike", 10.0)
+        got, ref = run(_rec_s8_kernel), run(fused_conv_lif_rec_s8_plain)
+        again = run(_rec_s8_kernel)
+    else:
+        xq, wq = ints
+
+        def run(fn):
+            return fn(xq, wq, scale, v, z, leak, thresh, 3, hard,
+                      "arctanspike", 10.0)
+        got, ref = run(_ff_s8_kernel), run(fused_conv_lif_s8_plain)
+        again = run(_ff_s8_kernel)
+    for a, r, a2 in zip(got, ref, again):
+        assert torch.equal(a, r) and torch.equal(a, a2)
+    assert 0 < float(ref[1].mean()) < 1
+
+
+def test_int8_window_twice_bitwise(dev):
+    """One int8 LIFFireNet engine window at the ECD recipe, from the same
+    state twice: bitwise, with the s8 kernels' launches and no float
+    K1/K2."""
+    from event_flow_tpu_torch.config import ECD_LIFFIRENET
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
+    from event_flow_tpu_torch.models.registry import build_model
+
+    cfg = copy.deepcopy(ECD_LIFFIRENET)
+    h, w = cfg["loader"]["resolution"]
+    g = _gen()
+    ev = torch.stack([torch.sort(torch.rand(15000, generator=g)).values,
+                      torch.randint(0, h, (15000,), generator=g).float(),
+                      torch.randint(0, w, (15000,), generator=g).float(),
+                      torch.randint(0, 2, (15000,), generator=g).float() * 2
+                      - 1], -1)
+    engine = InferenceEngine(cfg, build_model(cfg, dev), dev,
+                             quantize="int8")
+    flows = []
+    for _ in range(2):
+        engine.reset()
+        native.reset_launch_counts()
+        flows.append(engine.step(ev.to(dev)))
+        assert native.LAUNCHES["fused_conv_lif_s8"] == 5
+        assert native.LAUNCHES["fused_conv_lif_rec_s8"] == 2
+        assert native.LAUNCHES["conv2d_same_s8"] == 1
+        assert native.LAUNCHES["conv2d_same"] == 0
+        assert native.LAUNCHES["fused_conv_lif"] == 0
+    assert torch.equal(flows[0], flows[1])
+    assert torch.isfinite(flows[0]).all() and flows[0].abs().max() > 0

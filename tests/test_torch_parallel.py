@@ -20,7 +20,8 @@ Tolerances:
   - the sharded loss against JAX's ``make_sharded_loss``: value rtol
     2e-5, gradients atol 1e-5 (tests/test_parallel.py:215-256);
   - eval ``--dp`` per-file FWL, RSAT and AEE against one process: rtol
-    1e-6 (each process runs 2 of the 4 slots: the same per-slot sums).
+    1e-6 (each process runs 2 of the 4 slots: the same per-slot sums),
+    in float32 and under int8 (one activation scale over the 4 slots).
 
 The CLIs run under ``torchrun`` (``python -m torch.distributed.run
 --standalone``, gloo on the CPU) as users start them, held to the same
@@ -426,7 +427,7 @@ def test_checkpoint_moves_between_world_sizes(setup, world2, direction):
 
 
 EVAL_RES = (16, 24)
-EVAL_KINDS = ("events", "gtflow")
+EVAL_KINDS = ("events", "gtflow", "events_int8")
 
 
 def _eval_config(batch, kind="events"):
@@ -482,21 +483,28 @@ def _lively_eval_weights(cfg, pred_scale):
 
 
 def _eval_case(kind):
-    cfg = _eval_config(4, kind)
+    """(config, sequences, weights, quantization) of ``kind``: events or
+    gtflow, in float32 or, with ``_int8``, under int8 serving convs."""
+    base = kind.removesuffix("_int8")
+    cfg = _eval_config(4, base)
     seqs = [synthetic_sequence(name, **kw)
-            for name, kw in _eval_sequence_args(kind)]
+            for name, kw in _eval_sequence_args(base)]
     return cfg, seqs, _lively_eval_weights(
-        cfg, 30.0 if kind == "events" else 3.0)
+        cfg, 30.0 if base == "events" else 3.0), (
+            "int8" if kind.endswith("_int8") else None)
 
 
 @pytest.mark.parametrize("kind", EVAL_KINDS)
 def test_eval_dp_matches_one_process(world2, kind):
     """Per-file results of the five unequal sequences: each process runs
-    2 of the 4 slots of the whole batch's stream, one process all 4."""
-    cfg, seqs, sd = _eval_case(kind)
+    2 of the 4 slots of the whole batch's stream, one process all 4.
+    Under int8 each activation scale is the whole batch's, as in one
+    process, which the ranks agree on through the data group."""
+    cfg, seqs, sd, quantize = _eval_case(kind)
     model = build_model(cfg, "cpu")
     model.load_state_dict(sd)
-    one = evaluate(cfg, "cpu", model=model, sequences=seqs)
+    one = evaluate(cfg, "cpu", model=model, sequences=seqs,
+                   quantize=quantize)
     runs = [r["eval"][kind] for r in world2["results"]]
     for got in runs:
         assert got["windows"] == one["windows"]

@@ -252,11 +252,36 @@ def test_export_serving_cli_requires_model(tiny_run, tmp_path):
                              str(tmp_path / "a2"), "--device", "cpu"])
 
 
-def test_export_serving_cli_refuses_int8(tiny_run, tmp_path):
+def test_export_serving_cli_refuses_int8(tiny_run, tmp_path, capsys):
+    """``--quantize int8`` exports the int8 engine: its graph holds the
+    int8 operators and no float conv operator, and it serves the live
+    int8 engine's flows bitwise. Only another mode is refused (argparse's
+    choices)."""
     from event_flow_tpu_torch import export_serving
 
-    run, eval_yml, _ = tiny_run
-    with pytest.raises(SystemExit, match="item 4"):
+    run, eval_yml, model = tiny_run
+    out = str(tmp_path / "a3")
+    export_serving.main([run, "--config", eval_yml, "--out", out,
+                         "--events", "200", "--quantize", "int8",
+                         "--device", "cpu"])
+    assert f"exported LIFFireNet -> {out}" in capsys.readouterr().out
+    assert json.load(open(os.path.join(out, "meta.json")))["quantize"] == \
+        "int8"
+    targets = {str(n.target) for n in torch.export.load(os.path.join(
+        out, "step.pt2")).graph.nodes}
+    assert {"evflow.fused_conv_lif_s8.default",
+            "evflow.fused_conv_lif_rec_s8.default",
+            "evflow.conv2d_same_s8.default"} <= targets
+    assert not targets & {"evflow.fused_conv_lif.default",
+                          "evflow.fused_conv_lif_rec.default",
+                          "evflow.conv2d_same.default"}
+    live = InferenceEngine(json.loads(open(os.path.join(
+        run, "params.yml")).read()) | {"hot_filter": {"enabled": False}},
+        model.eval(), device="cpu", quantize="int8")
+    ser = SerializedEngine(out, device="cpu")
+    for w in random_windows(6, 2, 1, 200, (16, 16))[:, 0]:
+        assert torch.equal(ser.step(w), live.step(w))
+    with pytest.raises(SystemExit):
         export_serving.main([run, "--config", eval_yml, "--out",
-                             str(tmp_path / "a3"), "--quantize", "int8",
+                             str(tmp_path / "a4"), "--quantize", "int4",
                              "--device", "cpu"])

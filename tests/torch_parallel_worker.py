@@ -122,14 +122,14 @@ def checkpoint(args, device):
 
 def eval_dp(args, device):
     """``evaluate`` over a data mesh of every process, for each kind of
-    ``args["kinds"]``: its config, sequences and weights."""
+    ``args["kinds"]``: its config, sequences, weights and quantization."""
     mesh = make_mesh()
     out = {}
-    for kind, (cfg, sequences, state_dict) in args["kinds"].items():
+    for kind, (cfg, sequences, state_dict, quantize) in args["kinds"].items():
         model = build_model(cfg, device)
         model.load_state_dict(state_dict)
         report = evaluate(cfg, device, model=model, sequences=sequences,
-                          mesh=mesh)
+                          mesh=mesh, quantize=quantize)
         out[kind] = {"results": report["results"],
                      "windows": report["windows"],
                      "aee_windows": report["evaluator"].aee_windows}
