@@ -190,6 +190,31 @@ exits non-zero without the final ``ok`` line:
               int8, f32 and bf16 serving in turns: windows/s, host ms
               per window until step returns, device busy per window, the
               int8 and bf16 flows' deviation from f32
+ 21. tp       tensor parallelism over channels (make_mesh_3d's model
+              axis): K2 rec with Crec != Cout (Cout 16 of 32, the
+              recurrent input over all 32, LIFFireNet's mp-2 shape) against
+              its plain version in f32 and bf16, twice bitwise, timed
+              beside the whole cell; two processes on the card under gloo
+              at make_mesh_3d(1, 1, 2): LIFFireNet at configs/train_SNN.yml
+              2 updates (the second a new sequence, held from the world's
+              checkpoint in one process) and SpikingRecEVFlowNet at
+              configs/train_SNNrec_rich.yml one, each again in bf16, at
+              full width: the loss within 1e-5 and every parameter within
+              1e-4 (bf16 1e-3) of one process's update on the card from the
+              same state, the gathered parameters bitwise equal on both
+              ranks and the whole ones (the flow heads) too, exact launches
+              per update and rank, the model-group traffic; LIFFireNet's
+              ms/update at (1, 1, 2) against no mesh in turns and the busy
+              ms of each
+ 22. tp-nccl  only where the machine has 2 or more cards (else it says it
+              skipped): under NCCL, one card a process, the data meshes of
+              2 and 4 cards (B 8 per card) and the model axis at (1, 1, 2),
+              (1, 1, 4) and (2, 1, 2), LIFFireNet 2 updates and the spiking
+              U-Net one on the model meshes, each held to one process's as
+              in phase 21; ms/update and windows/s per card
+
+``python3 chip_smoke.py --phase tp[,tp-nccl]`` runs the device and build
+phases and those alone, without the summary lines.
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
@@ -218,7 +243,8 @@ user runs the port: every plain version sets its own.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there is the
-sum over the counted runs of every path (phases 4-6, 8-20). Imports
+sum over the counted runs of every path (phases 4-6, 8-21; the two
+Crec != Cout entries phase 21's sharded updates alone). Imports
 nothing of JAX.
 """
 
@@ -5064,6 +5090,445 @@ def phase_int8():
     return paths, measured
 
 
+# [tp]: tensor parallelism over channels, the model axis of the 3-D mesh
+# (parallel/tensor.py). Two processes on the one card under gloo at
+# make_mesh_3d(1, 1, 2), each update held to one process's on the card
+# from the same state: a rank's convs sum its own output channels in the
+# order one process does, its partial input gradients are added over the
+# model group, so the loss is held at rtol 1e-5 and every parameter at
+# 1e-4 of its norm. In bfloat16 each rank's partial dx is rounded to
+# bfloat16 before the sum (one process rounds the whole sum once), a
+# gradient one ulp (2^-8) off; Adam's first step moves an element by
+# about lr * sign(g), so each element whose gradient sign that flips
+# moves by 2 lr: bfloat16 parameters are held at 1e-3.
+TP_TIMEOUT = 900.0
+TP_LOSS_RTOL = 1e-5
+TP_PARAM_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# (case, recipe, precision, updates); LIFFireNet's second update starts a
+# new sequence, and resumes the world's checkpoint in one process
+TP_CASES = (("lif", "TRAIN_SNN", "float32", 2),
+            ("unet", "TRAIN_SNNREC", "float32", 1),
+            ("lif-bf16", "TRAIN_SNN", "bfloat16", 1),
+            ("unet-bf16", "TRAIN_SNNREC", "bfloat16", 1))
+TP_TURNS = 2
+# LIFFireNet's recurrent cells at mp 2: B, H, W, Cin, Cout, Crec
+TP_K2_SHAPE = (8, 128, 128, 32, 16, 32)
+TP_K2 = {torch.float32: "fused_conv_lif_rec@Cout16,Crec32",
+         torch.bfloat16: "fused_conv_lif_rec_bf16@Cout16,Crec32"}
+
+
+class _ResetAt:
+    """A stream whose batch number ``at`` (from 0) starts a new
+    sequence."""
+
+    def __init__(self, stream, at):
+        self.stream, self.at, self.n = stream, at, 0
+
+    def next_batch(self):
+        batch = self.stream.next_batch()
+        if self.n == self.at:
+            batch = dict(batch, new_seq=True)
+        self.n += 1
+        return batch
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _tp_config(recipe, batch=None):
+    import event_flow_tpu_torch.config as recipes
+
+    config = copy.deepcopy(getattr(recipes, recipe))
+    if batch:
+        config["loader"]["batch_size"] = batch
+    return config
+
+
+def tp_worker(payload, device):
+    """One process of a [tp] world: for each (label, dims, cases) of
+    ``payload["meshes"]`` the mesh make_mesh_3d(*dims) and each case
+    (name, recipe, precision, updates[, batch]) through
+    ``Trainer(mesh=...)`` on the synthetic stream of its recipe (batch 1
+    of update 2 a new sequence): per update its loss, launches, the
+    model-group traffic (parallel/tensor.py::TRAFFIC), wall seconds, the
+    digests of the whole parameters (gathered) and of this rank's whole
+    (unsplit) ones, on rank 0 the whole parameters; a full checkpoint
+    after every update but the last (rank 0 writes under
+    ``payload["root"]``). With ``turns``, LIFFireNet at TRAIN_SNN on
+    the first mesh against no mesh on rank 0, in turns (the other ranks
+    wait), wall ms of each and the device busy ms of one profiled update
+    of each on rank 0; with ``timed``, that many more updates of each
+    case, wall ms each."""
+    import torch.distributed as dist
+
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.parallel import tensor
+    from event_flow_tpu_torch.parallel.mesh import make_mesh_3d
+    from event_flow_tpu_torch.train.loop import Trainer
+    from event_flow_tpu_torch.utils.tracking import Tracker
+
+    out = {}
+    for label, dims, cases in payload["meshes"]:
+        mesh = make_mesh_3d(*dims)
+        for name, recipe, precision, updates, *batch in cases:
+            config = _tp_config(recipe, *batch)
+            runs, walls = [], []
+            with torch.enable_grad():
+                trainer = Trainer(config, device, mesh=mesh,
+                                  precision=precision)
+                stream = _ResetAt(SyntheticWindowStream(config),
+                                  trainer.t_windows)
+                names = [n for n, _ in trainer.model.named_parameters()]
+                for u in range(updates):
+                    native.reset_launch_counts()
+                    tensor.TRAFFIC.clear()
+                    torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    loss = _feed_update(trainer, stream)
+                    seconds = time.perf_counter() - t0
+                    counts = launch_counts()
+                    traffic = dict(tensor.TRAFFIC)
+                    whole = trainer.model_state_dict()
+                    params = [whole[n] for n in names]
+                    local = [p for p, w in zip(trainer.model.parameters(),
+                                               params)
+                             if p.shape == w.shape]
+                    runs.append({
+                        "loss": loss, "launches": counts,
+                        "traffic": traffic, "seconds": seconds,
+                        "digest": _digest(params),
+                        "whole_digest": _digest(local),
+                        "params": ({n: whole[n].cpu().clone() for n in names}
+                                   if mesh.rank == 0 else None)})
+                    if u + 1 < updates:
+                        trainer.tracker = (
+                            Tracker(runs_root=payload["root"],
+                                    runid=f"{label}-{name}{u + 1}")
+                            if mesh.rank == 0 else None)
+                        trainer.save_full_checkpoint(None, 0)
+                        trainer.tracker = None
+                        dist.barrier()
+                for _ in range(payload.get("timed", 0)):
+                    torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    _feed_update(trainer, stream)
+                    walls.append(1e3 * (time.perf_counter() - t0))
+            out[(label, name)] = {"runs": runs, "walls": walls,
+                                  "coords": (mesh.data_rank, mesh.event_rank,
+                                             mesh.model_rank)}
+        if payload.get("turns") and label == payload["meshes"][0][0]:
+            out[(label, "turns")] = _tp_turns(mesh, device, payload["turns"])
+    return out
+
+
+def _tp_turns(mesh, device, turns):
+    """LIFFireNet at TRAIN_SNN on ``mesh`` against no mesh (rank 0
+    alone), in turns: wall ms per update of each, then device busy ms of
+    one profiled update of each on rank 0."""
+    import torch.distributed as dist
+
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    config = _tp_config("TRAIN_SNN")
+    rank0 = mesh.rank == 0
+    walls = {"mesh": [], "none": []}
+    busy = {}
+    with torch.enable_grad():
+        meshed = Trainer(config, device, mesh=mesh)
+        plain = Trainer(config, device) if rank0 else None
+        streams = {"mesh": SyntheticWindowStream(config),
+                   "none": SyntheticWindowStream(config)}
+        _feed_update(meshed, streams["mesh"])
+        if rank0:
+            _feed_update(plain, streams["none"])
+        for _ in range(turns):
+            for label, trainer in (("none", plain), ("mesh", meshed)):
+                dist.barrier()
+                if label == "none" and not rank0:
+                    continue
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                _feed_update(trainer, streams[label])
+                walls[label].append(1e3 * (time.perf_counter() - t0))
+        for label, trainer in (("none", plain), ("mesh", meshed)):
+            dist.barrier()
+            if rank0:
+                _, events = _device_events(
+                    lambda: _feed_update(trainer, streams[label]))
+                busy[label] = sum(us for _, _, us in events) / 1e3
+            elif label == "mesh":
+                _feed_update(trainer, streams[label])
+    return {"walls": walls, "busy": busy}
+
+
+def tp_k2_check(out):
+    """K2 rec with Crec != Cout at LIFFireNet's mp-2 shape (Cout 16 of 32,
+    the recurrent input over all 32) in float32 and bfloat16 against its
+    plain version, twice bitwise; its device ms beside Cout 32's."""
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.ops.fused_lif import (fused_conv_lif_rec,
+                                                    fused_conv_lif_rec_plain)
+
+    inp = _Inputs("cuda")
+    b, h, w, cin, cout, crec = TP_K2_SHAPE
+    shape = (b, h, w)
+    x = inp.spikes(shape + (cin,))
+    zr = inp.spikes(shape + (crec,))
+    wt = inp.uniform((crec, cin, 3, 3), (1 / cin) ** 0.5)
+    wr = inp.uniform((crec, crec, 3, 3), (1 / crec) ** 0.5)
+    leak, thresh = inp.neuron(crec)
+    v = thresh + 0.3 * inp.normal(shape + (crec,))
+    part = slice(0, cout)
+    for dtype, key in TP_K2.items():
+        args = [t.to(dtype).contiguous() for t in (
+            x, wt[part], wr[part], v[..., part], zr[..., part], zr)]
+        full = [t.to(dtype) for t in (x, wt, wr, v, zr, zr)]
+        run_k = lambda: fused_conv_lif_rec(*args, leak[part], thresh[part],
+                                           3, True)
+        run_p = lambda: fused_conv_lif_rec_plain(
+            *args, leak[part], thresh[part], 3, True)
+        run_full = lambda: fused_conv_lif_rec(*full, leak, thresh, 3, True)
+        (vk, zk), (vp, zp) = run_k(), run_p()
+        label = (f"K2 rec {native.variant('fused_conv_lif_rec', dtype)} "
+                 f"{b}x{h}x{w} Cin {cin}, Cout {cout}, Crec {crec}")
+        if dtype == torch.float32:
+            err = float((vk - vp).abs().max())
+            if not err <= ATOL:
+                fail(f"[tp] {label}: max |err| of v' {err} > {ATOL}")
+            flips = check_spikes(zk, zp, vp, thresh[part], label)
+        else:
+            err = float(bf16_close(vk, vp, label, ATOL))
+            flips = int((zk != zp).sum())
+        if not all(map(torch.equal, (vk, zk), run_k())):
+            fail(f"[tp] {label}: two runs differ")
+        t_k, t_p = timed(run_k), timed(run_p)
+        d_k, src_k = device_ms(run_k, "fused_conv_lif_kernel")
+        d_f, src_f = device_ms(run_full, "fused_conv_lif_kernel")
+        npix = b * h * w
+        size = 4 if dtype == torch.float32 else 2
+        nbytes = size * (npix * (cin + crec + 4 * cout)
+                         + cout * 9 * (cin + crec))
+        flop = 2 * npix * cout * 9 * (cin + crec)
+        peak = TF32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        bound, by = least_ms(nbytes, flop, peak)
+        print(f"[tp] {label}: max|err| {err:.3g}, flips {flips}, "
+              f"repeatable; kernel {t_k:.4f} ms one call, device "
+              f"{d_k:.4f} ms/call [{src_k}] ({_rates(nbytes, flop, d_k)}, "
+              f"{bound / d_k:.3f} of its bound, {by}); plain {t_p:.4f} ms; "
+              f"the whole cell (Cout {crec}) device {d_f:.4f} ms/call "
+              f"[{src_f}]")
+        _record(out, key, err, (t_k, t_p, None, nbytes, flop), peak)
+
+
+def _tp_hold(tag, label, config, precision, run, u, root, reset_at):
+    """One process's update u + 1 on the card from the state the world's
+    update u started from (the seeded init, or the world's checkpoint
+    after update u, resumed), against the world's: (loss gap, largest
+    parameter gap and its name)."""
+    import os
+
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    with torch.enable_grad():
+        trainer = Trainer(config, "cuda:0", precision=precision)
+        stream = _ResetAt(SyntheticWindowStream(config), reset_at)
+        if u:
+            trainer.resume(os.path.join(root, f"{label}{u}"), None)
+            for _ in range(u * trainer.t_windows):
+                stream.next_batch()
+        ref = _feed_update(trainer, stream)
+    gap = abs(run["loss"] - ref) / abs(ref)
+    if not gap <= TP_LOSS_RTOL:
+        fail(f"[{tag}] {label} update {u + 1}: loss {run['loss']!r} vs one "
+             f"process {ref!r}")
+    worst = ("", 0.0)
+    for name, p in trainer.model.named_parameters():
+        p = p.detach().cpu()
+        rel = float((run["params"][name] - p).norm()
+                    / p.norm().clamp(min=1e-30))
+        if not rel <= TP_PARAM_RTOL[precision]:
+            fail(f"[{tag}] {label} update {u + 1}: {name} rel gap {rel}")
+        worst = max(worst, (name, rel), key=lambda kv: kv[1])
+    return gap, worst
+
+
+def _tp_check_runs(tag, label, dims, name, recipe, precision, ranks, root,
+                   batch=None):
+    """The replicas, launches and lockstep of one case of a [tp] world:
+    every rank's loss equal and its gathered parameters bitwise equal,
+    the whole (unsplit) parameters bitwise equal on every model rank,
+    exact launches per update and rank (those of one process: a rank
+    runs every conv once, on its channels), each update held to one
+    process's. Returns the launch counts of rank 0's updates."""
+    recipes = {"TRAIN_SNN": lif_update, "TRAIN_SNNREC": unet_update}
+    config = _tp_config(recipe, batch)
+    mp = dims[2]
+    runs = [r[(label, name)]["runs"] for r in ranks]
+    paths = []
+    for u in range(len(runs[0])):
+        if len({rr[u]["digest"] for rr in runs}) != 1:
+            fail(f"[{tag}] {label} {name} update {u + 1}: the gathered "
+                 "parameters differ between ranks")
+        by_model = {}
+        for r, rr in zip(ranks, runs):
+            by_model.setdefault(r[(label, name)]["coords"][:2], set()).add(
+                rr[u]["whole_digest"])
+        if any(len(d) != 1 for d in by_model.values()):
+            fail(f"[{tag}] {label} {name} update {u + 1}: a whole parameter "
+                 "differs between model ranks")
+        want = recipes[recipe](10, 1)
+        if precision == "bfloat16":
+            want = bf16_counts(want)
+        for rank, rr in enumerate(runs):
+            if rr[u]["launches"] != want:
+                fail(f"[{tag}] {label} {name} rank {rank} update {u + 1} "
+                     f"launches {rr[u]['launches']} != {want}")
+        if len({rr[u]["loss"] for rr in runs}) != 1:
+            fail(f"[{tag}] {label} {name} update {u + 1}: the ranks' losses "
+                 "differ")
+        paths.append(runs[0][u]["launches"])
+    gaps = [_tp_hold(tag, f"{label}-{name}", config, precision, runs[0][u], u,
+                     root, 10) for u in range(len(runs[0]))]
+    traffic = runs[0][0]["traffic"]
+    print(f"[{tag}] mesh {dims} ({label}), {name}: {recipe} "
+          f"{precision}, B {config['loader']['batch_size']}, losses "
+          + ", ".join(repr(rr["loss"]) for rr in runs[0])
+          + "; against one process on the card from the same state: loss "
+          "rel gaps " + ", ".join(f"{g:.3g}" for g, _ in gaps)
+          + ", largest parameter gaps " + ", ".join(
+              f"{w[1]:.3g} ({w[0]})" for _, w in gaps)
+          + f"; replicas bitwise equal; launches per update and rank "
+          f"{runs[0][0]['launches']}; model-group traffic per update and "
+          f"rank: {traffic.get('gathers', 0)} gathers "
+          f"{traffic.get('gather_bytes', 0) / 1e6:.1f} MB, "
+          f"{traffic.get('reduces', 0)} all-reduces "
+          f"{traffic.get('reduce_bytes', 0) / 1e6:.1f} MB (whole tensors); "
+          f"update wall s per rank " + "; ".join(
+              ", ".join(f"{rr[u]['seconds']:.3f}" for u in range(len(rr)))
+              for rr in runs) + f" (mp {mp})")
+    return paths
+
+
+def phase_tp():
+    """[tp]: tensor parallelism over channels. K2 rec with Crec != Cout
+    against its plain version (f32, bf16); then two processes on the card
+    under gloo (tp_worker) at make_mesh_3d(1, 1, 2): TRAIN_SNN's
+    LIFFireNet 2 updates (the second a new sequence, from the world's
+    checkpoint in one process), TRAIN_SNNREC's SpikingRecEVFlowNet one,
+    each again in bf16, at full width, with the checks of
+    _tp_check_runs; LIFFireNet's wall ms per update at (1, 1, 2) against
+    no mesh in turns and the busy ms of each. Returns (launch counts of
+    the sharded updates, with those of the Crec != Cout entries; the
+    kernel entries)."""
+    import os
+    import tempfile
+
+    from event_flow_tpu_torch.parallel.launch import run_world
+
+    tag = "tp"
+    t0 = time.perf_counter()
+    measured = {}
+    tp_k2_check(measured)
+    dims = (1, 1, 2)
+    with tempfile.TemporaryDirectory() as root:
+        t1 = time.perf_counter()
+        ranks = run_world(f"{os.path.abspath(__file__)}:tp_worker", 2,
+                          {"root": root, "turns": TP_TURNS,
+                           "meshes": [("tp", dims, TP_CASES)]},
+                          device="cuda:0", backend="gloo", timeout=TP_TIMEOUT)
+        spawn_s = time.perf_counter() - t1
+        paths = []
+        for name, recipe, precision, _ in TP_CASES:
+            paths += _tp_check_runs(tag, "tp", dims, name, recipe, precision,
+                                    ranks, root)
+    turns = ranks[0][("tp", "turns")]
+    print(f"[{tag}] LIFFireNet TRAIN_SNN ms/update in turns, "
+          f"{TP_TURNS} each: no mesh {_spread(turns['walls']['none'])}, "
+          f"(1, 1, 2) under gloo on the one card "
+          f"{_spread(turns['walls']['mesh'])}; device busy ms of one "
+          f"profiled update on rank 0: no mesh "
+          f"{turns['busy'].get('none', float('nan')):.3f}, (1, 1, 2) "
+          f"{turns['busy'].get('mesh', float('nan')):.3f}")
+    crec = {TP_K2[torch.float32]: sum(c.get("fused_conv_lif_rec", 0)
+                                      for c in paths),
+            TP_K2[torch.bfloat16]: sum(c.get("fused_conv_lif_rec_bf16", 0)
+                                       for c in paths)}
+    if not all(crec.values()):
+        fail(f"[{tag}] K2 rec with Crec != Cout never launched: {crec}")
+    print(f"[{tag}] world-2 processes took {spawn_s:.1f} s wall, start to "
+          f"results; phase took {time.perf_counter() - t0:.1f} s")
+    return paths + [crec], measured
+
+
+# [tp-nccl]: the meshes under NCCL across cards, on a machine with more
+# than one (four cards of one host): data meshes of 2 and 4 and the
+# model axis at (1, 1, 2), (1, 1, 4) and (2, 1, 2), LIFFireNet at B 8 per
+# data rank (and the U-Net one update on the model meshes), each update
+# held to one process's on card 0 from the same state; ms/update and
+# windows/s per card.
+NCCL_MESHES = {2: (("dp2", (2, 1, 1)), ("tp2", (1, 1, 2))),
+               4: (("dp4", (4, 1, 1)), ("tp4", (1, 1, 4)),
+                   ("tp22", (2, 1, 2)))}
+NCCL_TIMED = 3
+
+
+def phase_tp_nccl():
+    """[tp-nccl]: NCCL_MESHES on as many cards as each world has, through
+    tp_worker (NCCL, one card per process), with the checks of
+    _tp_check_runs; each mesh's ms/update (median of NCCL_TIMED more
+    updates) and windows/s per card. Skipped, saying why, on one card."""
+    import os
+    import tempfile
+
+    from event_flow_tpu_torch.parallel.launch import run_world
+
+    tag = "tp-nccl"
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[{tag}] skipped: {cards} CUDA card here; the NCCL meshes "
+              "need 2 or 4 cards of one host")
+        return
+    t0 = time.perf_counter()
+    for world, meshes in NCCL_MESHES.items():
+        if world > cards:
+            print(f"[{tag}] world {world} skipped: {cards} cards")
+            continue
+        spec = []
+        for label, dims in meshes:
+            batch = 8 * dims[0]
+            cases = [("lif", "TRAIN_SNN", "float32", 2, batch)]
+            if dims[2] > 1:
+                cases.append(("unet", "TRAIN_SNNREC", "float32", 1, batch))
+            spec.append((label, dims, cases))
+        with tempfile.TemporaryDirectory() as root:
+            ranks = run_world(f"{os.path.abspath(__file__)}:tp_worker", world,
+                              {"root": root, "meshes": spec,
+                               "timed": NCCL_TIMED},
+                              device="cuda", backend="nccl",
+                              timeout=TP_TIMEOUT)
+            for label, dims, cases in spec:
+                for name, recipe, precision, _, batch in cases:
+                    _tp_check_runs(tag, label, dims, name, recipe, precision,
+                                   ranks, root, batch)
+                    walls = ranks[0][(label, name)]["walls"]
+                    ms = statistics.median(walls)
+                    print(f"[{tag}] mesh {dims}, {name} B {batch}: "
+                          f"{_spread(walls)} ms/update over {len(walls)}, "
+                          f"{batch * 10 / (ms / 1e3) / world:.2f} windows/s "
+                          f"per card ({world} cards)")
+    print(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
+
+
 KERNELS = (
     ("conv2d_same", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/ops/conv_pallas.py:121"),
@@ -5094,15 +5559,35 @@ KERNELS = (
      "event_flow_tpu/models/conv.py:93"),
     ("fused_conv_lif_rec_s8", "event_flow_tpu_torch/csrc/fused_lif.cu",
      "event_flow_tpu/models/conv.py:93"),
+    # K2 rec under the model axis: the recurrent input over every channel
+    (TP_K2[torch.float32], "event_flow_tpu_torch/csrc/fused_lif.cu",
+     "event_flow_tpu/ops/fused_lif_pallas.py:185"),
+    (TP_K2[torch.bfloat16], "event_flow_tpu_torch/csrc/fused_lif.cu",
+     "event_flow_tpu/ops/fused_lif_pallas.py:185"),
 )
 
 
-def main():
+PARTS = {"tp": phase_tp, "tp-nccl": phase_tp_nccl}
+
+
+def main(argv=None):
+    """Every phase; with ``--phase NAME[,NAME]`` (names of PARTS) the
+    device, the build and those phases only, and no summary lines."""
+    import argparse
+
     from event_flow_tpu_torch.config import TRAIN_SNNREC
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", default="")
+    only = [p for p in ap.parse_args(argv).phase.split(",") if p]
     name, _ = phase_device()
     torch.set_grad_enabled(False)
     phase_build()
+    if only:
+        for part in only:
+            PARTS[part]()
+        print(f"[partial] ran {only} only: no summary")
+        return 0
     measured = phase_kernels()
     # the launch counts of every path's counted run
     paths = [phase_slice(), phase_unet()]
@@ -5125,6 +5610,10 @@ def main():
     int8_paths, int8_measured = phase_int8()
     paths += int8_paths
     measured.update(int8_measured)
+    tp_paths, tp_measured = phase_tp()
+    paths += tp_paths
+    measured.update(tp_measured)
+    phase_tp_nccl()
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c.get(k, 0) for c in paths),
                 "max_abs_err": measured[k]["max_abs_err"],

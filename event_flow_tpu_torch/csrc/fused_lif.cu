@@ -12,7 +12,10 @@
 // recurrent cell's current conv(x, w) + conv(z_rec, w_rec) is one
 // accumulator fed by two K segments (the concat trick of
 // event_flow_tpu/models/snn_cells.py::_fused_current), so no current
-// tensor is ever written. The LIF epilogue runs on the accumulator in the
+// tensor is ever written. The recurrent segment reads z_rec with its own
+// channel count Crec: Cout on one process, every channel of the cell
+// where a mesh's model axis splits Cout (JAX's GSPMD gathers z for the
+// recurrent conv there, event_flow_tpu/parallel/mesh.py:45-58). The LIF epilogue runs on the accumulator in the
 // MMA's fragment layout and writes only v' and z':
 //
 //   hard reset:  v' = v*l*(1-z) + (1-l)*cur
@@ -54,7 +57,7 @@ __global__ void __launch_bounds__(NT, 2) fused_conv_lif_kernel(
     const T* __restrict__ v, const T* __restrict__ z,
     const float* __restrict__ leak, const float* __restrict__ thresh,
     T* __restrict__ v_out, T* __restrict__ z_out, int H, int W, int Cin,
-    int Cout, int cpad_max, Steps steps) {
+    int Cout, int Crec, int cpad_max, Steps steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   int y0, x0;
@@ -65,7 +68,7 @@ __global__ void __launch_bounds__(NT, 2) fused_conv_lif_kernel(
   accumulate<K, CO, T>(smem, acc, x, Cin, w2, Cout, b, H, W, y0, x0, co0,
                        cpad_max, steps.x, steps.w);
   if constexpr (REC)
-    accumulate<K, CO, T>(smem, acc, zr, Cout, wr2, Cout, b, H, W, y0, x0,
+    accumulate<K, CO, T>(smem, acc, zr, Crec, wr2, Cout, b, H, W, y0, x0,
                          co0, cpad_max, steps.r, steps.wr);
   // same expression order as the JAX cells
   auto lif = [](float vv, float zz, float l, float th, float cur, float& vn,
@@ -107,7 +110,7 @@ struct Args {
   const T *x, *w2, *zr, *wr2, *v, *z;
   const float *leak, *thresh;
   T *v_out, *z_out;
-  int B, H, W, Cin, Cout;
+  int B, H, W, Cin, Cout, Crec;
 };
 
 template <int K, int CO, bool HARD, bool REC, class T>
@@ -116,7 +119,7 @@ cudaError_t launch_inst(const Args<T>& a, cudaStream_t st) {
   const cudaError_t e = allow_smem(kernel, smem_bytes<K, CO, T>(CCH));
   if (e != cudaSuccess) return e;
   int cpad = pass_pad(a.Cin, 0);
-  if (REC && pass_pad(a.Cout, 0) > cpad) cpad = pass_pad(a.Cout, 0);
+  if (REC && pass_pad(a.Crec, 0) > cpad) cpad = pass_pad(a.Crec, 0);
   const size_t pair = 2 * sizeof(T);
   const bool out2 = a.Cout % 2 == 0 && aligned(a.v, pair) &&
                     aligned(a.z, pair) && aligned(a.leak, 8) &&
@@ -124,12 +127,12 @@ cudaError_t launch_inst(const Args<T>& a, cudaStream_t st) {
                     aligned(a.z_out, pair);
   const Steps steps{copy_step<T>(a.x, a.Cin),
                     copy_step<T>(a.w2, a.Cout),
-                    REC ? copy_step<T>(a.zr, a.Cout) : 0,
+                    REC ? copy_step<T>(a.zr, a.Crec) : 0,
                     REC ? copy_step<T>(a.wr2, a.Cout) : 0, out2};
   kernel<<<grid_for(a.B, a.H, a.W, a.Cout, CO), NT,
            smem_bytes<K, CO, T>(cpad), st>>>(
       a.x, a.w2, a.zr, a.wr2, a.v, a.z, a.leak, a.thresh, a.v_out, a.z_out,
-      a.H, a.W, a.Cin, a.Cout, cpad, steps);
+      a.H, a.W, a.Cin, a.Cout, a.Crec, cpad, steps);
   return cudaSuccess;
 }
 
@@ -242,16 +245,19 @@ int fused_conv_lif(const A& a, int K, int hard_reset, void* stream) {
 extern "C" {
 
 // (v_out, z_out) [B,H,W,Cout] = LIF update of (v, z) driven by
-// conv(x, w2) [+ conv(zr, wr2) when zr is not null], float32. leak and
-// thresh are [Cout], post-squash. Returns the error of the shared-memory
+// conv(x [B,H,W,Cin], w2 [K*K*Cin, Cout]) [+ conv(zr [B,H,W,Crec], wr2
+// [K*K*Crec, Cout]) when zr is not null], float32. leak and thresh are
+// [Cout], post-squash. Crec is Cout for a recurrent cell on one process;
+// under the model axis of a mesh zr is the spike map of every channel
+// and Cout this process's share. Returns the error of the shared-memory
 // attribute, or cudaGetLastError() after the launch.
 int evf_fused_conv_lif(const float* x, const float* w2, const float* zr,
                        const float* wr2, const float* v, const float* z,
                        const float* leak, const float* thresh, float* v_out,
                        float* z_out, int B, int H, int W, int Cin, int Cout,
-                       int K, int hard_reset, void* stream) {
+                       int Crec, int K, int hard_reset, void* stream) {
   const Args<float> a{x, w2, zr, wr2, v, z, leak, thresh, v_out, z_out,
-                      B, H, W, Cin, Cout};
+                      B, H, W, Cin, Cout, Crec};
   return fused_conv_lif(a, K, hard_reset, stream);
 }
 
@@ -261,10 +267,10 @@ int evf_fused_conv_lif_bf16(const bf16* x, const bf16* w2, const bf16* zr,
                             const bf16* wr2, const bf16* v, const bf16* z,
                             const float* leak, const float* thresh,
                             bf16* v_out, bf16* z_out, int B, int H, int W,
-                            int Cin, int Cout, int K, int hard_reset,
-                            void* stream) {
+                            int Cin, int Cout, int Crec, int K,
+                            int hard_reset, void* stream) {
   const Args<bf16> a{x, w2, zr, wr2, v, z, leak, thresh, v_out, z_out,
-                     B, H, W, Cin, Cout};
+                     B, H, W, Cin, Cout, Crec};
   return fused_conv_lif(a, K, hard_reset, stream);
 }
 

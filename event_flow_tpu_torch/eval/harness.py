@@ -107,6 +107,10 @@ class Evaluator:
         self.quantize = quant_mode(quantize)
         if mesh is not None:
             b = config["loader"]["batch_size"]
+            if mesh.mp != 1:
+                raise NotImplementedError(
+                    "eval over a mesh's model axis is not ported (ROADMAP "
+                    "queue 1): the model axis trains only")
             if mesh.ep != 1:
                 raise ValueError("eval splits the batch's slots over a data "
                                  f"mesh, not a {mesh.dp} x {mesh.ep} mesh")

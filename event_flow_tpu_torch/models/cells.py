@@ -40,6 +40,7 @@ from torch import nn
 
 from ..ops.conv import conv2d_same, conv2d_strided, conv_transpose2x
 from ..ops.resize import upsample2x_bilinear
+from ..parallel.tensor import layer_input, whole
 from .snn_cells import ConvWeight, _normal_
 
 __all__ = ["ConvLayer", "ConvLayerS", "ConvGRU", "ConvLSTM", "ConvRecurrent",
@@ -74,8 +75,11 @@ def _init_conv(conv, w_scale, generator):
             conv.bias.uniform_(-bound, bound, generator=generator)
 
 
-def _conv(x, conv, stride=1):
-    """conv(x) [+ bias]: K1 at stride 1, the strided conv otherwise."""
+def _conv(x, conv, stride=1, tp=None):
+    """conv(x) [+ bias]: K1 at stride 1, the strided conv otherwise; under
+    the model axis of ``tp`` x as the conv's input
+    (parallel/tensor.py::layer_input)."""
+    x = layer_input(x, conv, tp)
     y = (conv2d_same(x, conv.weight) if stride == 1
          else conv2d_strided(x, conv.weight, stride))
     return y if conv.bias is None else y + conv.bias.to(y.dtype)
@@ -121,6 +125,8 @@ class ConvLayer(nn.Module):
     """Conv (stride 1 or 2) [+ bias] [+ norm] + activation, stateless; the
     conv under ``conv2d``, the norm under ``norm_layer``."""
 
+    tp = None  # the mesh of a model axis (parallel/tensor.py::shard_model)
+
     def __init__(self, cin, features, kernel_size, stride=1,
                  activation="relu", norm=None, w_scale=None, generator=None):
         super().__init__()
@@ -131,7 +137,7 @@ class ConvLayer(nn.Module):
         self.norm_layer = _norm_layer(norm, features)
 
     def _pre_act(self, x):
-        y = _conv(x, self.conv2d, self.stride)
+        y = _conv(x, self.conv2d, self.stride, self.tp)
         return y if self.norm_layer is None else self.norm_layer(y)
 
     def forward(self, x):
@@ -164,7 +170,11 @@ class ConvGRU(nn.Module):
 
     The update and reset kernels are concatenated along the output
     channels into one conv, as JAX does (cells.py:290-294). Returns
-    (h', h')."""
+    (h', h'). Under a model axis each gate's kernel holds this rank's
+    output channels, so do h and the gates; x, h and h * reset are
+    gathered over every channel for the convs."""
+
+    tp = None
 
     def __init__(self, cin, features, kernel_size=3, generator=None):
         super().__init__()
@@ -177,15 +187,19 @@ class ConvGRU(nn.Module):
             nn.init.orthogonal_(gate.weight, generator=generator)
 
     def forward(self, x, state):
-        f = self.features
+        tp, features = self.tp, self.features
         u, r = self.update_gate, self.reset_gate
-        ur = conv2d_same(torch.cat([x, state], dim=-1),
-                         torch.cat([u.weight, r.weight], dim=0))
+        f = u.weight.shape[0]  # this rank's channels
+        x = whole(x, u.cin - features, tp)
+        stacked = layer_input(torch.cat([x, whole(state, features, tp)],
+                                        dim=-1), u, tp)
+        ur = conv2d_same(stacked, torch.cat([u.weight, r.weight], dim=0))
         ur = ur + torch.cat([u.bias, r.bias]).to(ur.dtype)
         update = torch.sigmoid(ur[..., :f])
         reset = torch.sigmoid(ur[..., f:])
-        out = torch.tanh(_conv(torch.cat([x, state * reset], dim=-1),
-                               self.out_gate))
+        out = torch.tanh(_conv(torch.cat(
+            [x, whole(state * reset, features, tp)], dim=-1), self.out_gate,
+            tp=tp))
         new_state = state * (1.0 - update) + out * update
         return new_state, new_state
 
@@ -276,6 +290,8 @@ class ResidualBlock(nn.Module):
     """act(norm2(conv2(act(norm1(conv1(x))))) + x), k 3; the convs have no
     bias under BN."""
 
+    tp = None
+
     def __init__(self, features, activation="relu", norm=None,
                  generator=None):
         super().__init__()
@@ -286,10 +302,10 @@ class ResidualBlock(nn.Module):
         self.norm2 = _norm_layer(norm, features)
 
     def forward(self, x):
-        out = _conv(x, self.conv1)
+        out = _conv(x, self.conv1, tp=self.tp)
         if self.norm1 is not None:
             out = self.norm1(out)
-        out = _conv(self.act(out), self.conv2)
+        out = _conv(self.act(out), self.conv2, tp=self.tp)
         if self.norm2 is not None:
             out = self.norm2(out)
         return self.act(out + x)
@@ -311,6 +327,8 @@ class TransposedConvLayer(nn.Module):
     """The x2 transposed conv ``transposed_conv2d`` (weight [Cin, Cout, k,
     k]) [+ bias] [+ norm] + activation."""
 
+    tp = None
+
     def __init__(self, cin, features, kernel_size, activation="relu",
                  norm=None, generator=None):
         super().__init__()
@@ -321,7 +339,7 @@ class TransposedConvLayer(nn.Module):
 
     def forward(self, x):
         conv = self.transposed_conv2d
-        y = conv_transpose2x(x, conv.weight)
+        y = conv_transpose2x(layer_input(x, conv, self.tp), conv.weight)
         if conv.bias is not None:
             y = y + conv.bias.to(y.dtype)
         if self.norm_layer is not None:

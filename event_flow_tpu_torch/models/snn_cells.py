@@ -79,6 +79,7 @@ from ..ops.fused_lif import fused_conv_lif, fused_conv_lif_rec
 from ..ops.quant import conv_quant
 from ..ops.resize import avg_pool, upsample2x_bilinear
 from ..ops.spike import get_spike_fn
+from ..parallel.tensor import layer_input
 
 __all__ = ["ConvWeight", "WeightNormConv", "GroupNorm", "ConvLIF",
            "ConvLIFRecurrent", "ConvPLIF", "ConvPLIFRecurrent", "ConvALIF",
@@ -96,6 +97,7 @@ class ConvWeight(nn.Module):
     def __init__(self, cin, cout, k, bias=False, transposed=False):
         super().__init__()
         self.transposed = transposed
+        self.cin, self.cout = cin, cout  # whole, under a mesh too
         shape = (cin, cout, k, k) if transposed else (cout, cin, k, k)
         self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
@@ -186,6 +188,7 @@ class _SpikingBase(nn.Module):
     RECURRENT = False
     NORMED = False
     N_STATE = 3
+    tp = None  # the mesh of a model axis (parallel/tensor.py::shard_model)
 
     def __init__(self, cin, features, kernel_size, stride=1,
                  activation="arctanspike", act_width=10.0, learn_leak=True,
@@ -330,6 +333,7 @@ class ConvLIF(_SpikingBase):
 
     def forward(self, x, state, residual=None):
         v, z = state
+        x = layer_input(x, self.ff, self.tp)
         if self.fused:
             leak, thresh = self._neuron()
             v_out, z_out = fused_conv_lif(
@@ -344,16 +348,19 @@ class ConvLIF(_SpikingBase):
 class ConvLIFRecurrent(ConvLIF):
     """Recurrent conv LIF cell: current = ff(x) + rec(z_prev), the
     recurrent input being the previous spikes before any detach. State
-    (v, z)."""
+    (v, z). Under a model axis z is this rank's channels and the
+    recurrent input z_prev is gathered over every channel."""
 
     RECURRENT = True
 
     def forward(self, x, state):
         v, z = state
+        x = layer_input(x, self.ff, self.tp)
         if self.fused:
             leak, thresh = self._neuron()
             v_out, z_out = fused_conv_lif_rec(
-                x, self.ff.weight, self.rec.weight, v, z, z, leak, thresh,
+                x, self.ff.weight, self.rec.weight, v, z,
+                layer_input(z, self.rec, self.tp), leak, thresh,
                 self.kernel_size, self.hard_reset, self.activation,
                 self.act_width)
         else:

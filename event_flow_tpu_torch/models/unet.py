@@ -44,6 +44,7 @@ the head's, then tanh. State: the three (hidden, cell) pairs.
 import torch
 from torch import nn
 
+from ..parallel.tensor import whole
 from .cells import (ConvLayer, LeakyRecurrentConvLayer, LeakyResidualBlock,
                     LeakyTransposedConvLayer, LeakyUpsampleConvLayer,
                     RecurrentConvLayer, ResidualBlock, TransposedConvLayer,
@@ -81,11 +82,40 @@ def _decoders(dec_in, dec, k, use_upsample_conv, act, norm, generator):
         for c_in, feats in zip(dec_in, dec))
 
 
+def _run_decoders(unet, x, blocks, run):
+    """(predictions, decoder states) of a U-Net's decoders and heads, low
+    to high resolution, from the residual blocks' output x and the
+    encoders' outputs ``blocks``; ``run(dec, x, i) -> (y, state)`` runs
+    decoder i. Under a model axis x and each block are gathered over every
+    channel first (``[pred, x, block]`` is the decoders' whole input), and
+    each decoder's output is gathered once, for its prediction and the
+    next decoder."""
+    enc, dec_channels = unet.channels
+    n = unet.num_encoders
+    x = whole(x, enc[-1], unet.tp)
+    predictions, states = [], []
+    for i, (dec, pred) in enumerate(zip(unet.decoders, unet.preds)):
+        x = unet.skip_fn(x, whole(blocks[n - i - 1], enc[n - i - 1],
+                                  unet.tp))
+        if i > 0:
+            x = unet.skip_fn(predictions[-1], x)
+        x, state = run(dec, x, i)
+        x = whole(x, dec_channels[i], unet.tp)
+        predictions.append(pred(x))
+        states.append(state)
+    return predictions, states
+
+
 class _ANNUNet(nn.Module):
     """Encoders (built by the subclass), ANN residual blocks, decoders and
     per-scale tanh predictions, low to high resolution; a subclass may put
     layers ahead of the encoders (``_head``) and build other predictions
-    (``_predictions``)."""
+    (``_predictions``). Under a model axis (parallel/tensor.py) the
+    decoders read ``[pred, x, block]`` with x and block gathered over every
+    channel, and each decoder's output is gathered once, for its
+    prediction and the next decoder."""
+
+    tp = None
 
     def __init__(self, cin, base_num_channels, num_encoders,
                  num_residual_blocks, skip_type, use_upsample_conv,
@@ -95,6 +125,7 @@ class _ANNUNet(nn.Module):
         self.skip_fn = get_skip_fn(skip_type)
         enc, dec, dec_in = _schedule(base_num_channels, num_encoders,
                                      skip_type)
+        self.channels = (enc, dec)
         k, gen = kernel_size, generator
         # construction order fixes the draw order of the seeded init
         cin = self._head(cin, base_num_channels, k, gen)
@@ -124,14 +155,8 @@ class _ANNUNet(nn.Module):
     def _decode(self, x, blocks):
         for res in self.resblocks:
             x = res(x)
-        predictions = []
-        for i, (dec, pred) in enumerate(zip(self.decoders, self.preds)):
-            x = self.skip_fn(x, blocks[self.num_encoders - i - 1])
-            if i > 0:
-                x = self.skip_fn(predictions[-1], x)
-            x = dec(x)
-            predictions.append(pred(x))
-        return predictions
+        return _run_decoders(self, x, blocks,
+                             lambda dec, x, i: (dec(x), None))[0]
 
 
 class MultiResUNet(_ANNUNet):
@@ -233,7 +258,11 @@ def _first_map(state):
 class SpikingMultiResUNetRecurrent(nn.Module):
     """Spiking recurrent encoders, spiking residual blocks, spiking
     upsample decoders and per-scale predictions, low to high resolution.
-    ``forward(x, state) -> (predictions, state)``."""
+    ``forward(x, state) -> (predictions, state)``. Under a model axis the
+    decoders read whole inputs as the ANN U-Nets' do
+    (:func:`_run_decoders`)."""
+
+    tp = None
 
     def __init__(self, cin, base_num_channels, num_encoders,
                  num_residual_blocks, skip_type, use_upsample_conv,
@@ -246,6 +275,7 @@ class SpikingMultiResUNetRecurrent(nn.Module):
         self.num_residual_blocks = num_residual_blocks
         self.skip_fn = get_skip_fn(skip_type)
         enc, dec, dec_in = _schedule(base_num_channels, num_encoders)
+        self.channels = (enc, dec)
         kw = dict(neuron_kwargs or {}, generator=generator)
         self.block_types = (recurrent_block_type,
                             spiking_feedforward_block_type)
@@ -294,14 +324,9 @@ class SpikingMultiResUNetRecurrent(nn.Module):
             blocks.append(x)
         for i, res in enumerate(self.resblocks):
             x, state[ne + i] = res(x, state[ne + i])
-        predictions = []
         off = ne + nr
-        for i, (dec, pred) in enumerate(zip(self.decoders, self.preds)):
-            x = self.skip_fn(x, blocks[ne - i - 1])
-            if i > 0:
-                x = self.skip_fn(predictions[-1], x)
-            x, state[off + i] = dec(x, state[off + i])
-            predictions.append(pred(x))
+        predictions, state[off:] = _run_decoders(
+            self, x, blocks, lambda dec, x, i: dec(x, state[off + i]))
         return predictions, tuple(state)
 
     def zero_state(self, batch, h, w, device):

@@ -139,7 +139,10 @@ def fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh, k,
     """Plain version of the recurrent cell: one conv over
     concat([x, z_rec]) with the two kernels concatenated along the input
     channels, then the LIF update; bfloat16 as in
-    :func:`fused_conv_lif_plain`."""
+    :func:`fused_conv_lif_plain`. z_rec [B,H,W,Crec] and w_rec [Cout,
+    Crec, k, k] may have Crec != Cout (a cell's share of the output
+    channels under a mesh's model axis, whose recurrent input is the
+    spike map of every channel)."""
     if x.dtype == torch.bfloat16:
         return _widened(fused_conv_lif_rec_plain, x, w, w_rec, v, z, z_rec,
                         leak, thresh, k, hard_reset, activation, width)
@@ -273,10 +276,15 @@ def _launch(name, x, w, v, z, leak, thresh, k, hard_reset, z_rec=None,
         raise ValueError(f"{name}: leak and thresh need {cout} channels")
     tensors = [x, w2, v, z]
     rec = ()
+    crec = cout
     if z_rec is not None:
-        if z_rec.shape != state_shape or tuple(w_rec.shape) != (cout, cout, k, k):
-            raise ValueError(f"{name}: z_rec must be {state_shape} and "
-                             f"w_rec ({cout}, {cout}, {k}, {k})")
+        crec = z_rec.shape[-1]
+        if (z_rec.shape != (b, h, wd, crec)
+                or tuple(w_rec.shape) != (cout, crec, k, k)):
+            raise ValueError(f"{name}: z_rec must be ({b}, {h}, {wd}, C) "
+                             f"and w_rec ({cout}, C, {k}, {k}), got "
+                             f"{tuple(z_rec.shape)} and "
+                             f"{tuple(w_rec.shape)}")
         rec = (z_rec, flatten_kernel(w_rec))
         tensors += rec
     name = native.variant(name, x.dtype)
@@ -291,8 +299,8 @@ def _launch(name, x, w, v, z, leak, thresh, k, hard_reset, z_rec=None,
     err = entry(
         x.data_ptr(), w2.data_ptr(), zr_ptr, wr_ptr, v.data_ptr(),
         z.data_ptr(), leak.data_ptr(), thresh.data_ptr(), v_out.data_ptr(),
-        z_out.data_ptr(), b, h, wd, cin, cout, k, int(bool(hard_reset)),
-        native.stream_handle(x.device))
+        z_out.data_ptr(), b, h, wd, cin, cout, crec, k,
+        int(bool(hard_reset)), native.stream_handle(x.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1
     return v_out, z_out
@@ -469,7 +477,9 @@ def fused_conv_lif_rec(x, w, w_rec, v, z, z_rec, leak, thresh, k,
                        width=10.0):
     """Recurrent cell: cur = conv(x, w) + conv(z_rec, w_rec). ``z_rec`` is
     the previous spike map before any detach (for ConvLIFRecurrent it is
-    ``z`` itself). Returns (v', z'). Under ``quantized("int8")`` x and
+    ``z`` itself, or under a mesh's model axis ``z`` gathered over every
+    channel: z_rec [B,H,W,Crec], w_rec [Cout,Crec,k,k] with Crec !=
+    Cout). Returns (v', z'). Under ``quantized("int8")`` x and
     z_rec are quantized under one scale, w and w_rec under per-channel
     scales over both (JAX's int8 conv of concat([x, z])), and the cell is
     ``evflow::fused_conv_lif_rec_s8``."""

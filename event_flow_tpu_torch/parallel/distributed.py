@@ -21,10 +21,10 @@ its slots and the collectives are written out:
     buffer (a SUM: the loss sums over the batch, so the update equals one
     process's on the whole batch; DDP's mean would halve it at world 2);
   - :func:`gather_state` / :func:`scatter_state` move the carried
-    recurrent state between the processes' ``[B/dp, ...]`` slices and
-    the global ``[B, ...]`` tree, the counterpart of ``global_state``
-    (:127-156), so that a checkpoint holds the state of a one-process
-    run and moves between world sizes.
+    recurrent state between the processes' ``[B/dp, ...]`` slices (and,
+    under a model axis, channel shares) and the global ``[B, ...]`` tree,
+    the counterpart of ``global_state`` (:127-156), so that a checkpoint
+    holds the state of a one-process run and moves between meshes.
 
 The collectives take a group of parallel/mesh.py::Mesh; with no process
 group they are the identity, so a mesh of one process without
@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.state import map_state
+from .tensor import shard_state, unshard_state
 
 __all__ = ["init_distributed", "agree", "local_slots", "broadcast_module",
            "all_reduce_grads", "gather_state", "scatter_state",
@@ -148,12 +149,17 @@ def all_reduce_grads(params, group=None):
     return flat.numel() * flat.element_size()
 
 
-def gather_state(state, mesh):
+def gather_state(state, mesh, template=None):
     """The global ``[B, ...]`` model state from every data rank's
     ``[B/dp, ...]`` slices, on every process: the slices of the data
     group, concatenated in data-rank order, one broadcast per slice and
-    tensor (exact on every backend). 0-dim leaves are kept. The identity
-    on a mesh without a process group or with dp 1."""
+    tensor (exact on every backend). Under a model axis the channels are
+    gathered first, over the model group, where a tensor has fewer than
+    ``template``'s (a state of the whole model: ``zero_state`` of any
+    batch). 0-dim leaves are kept. The identity on a mesh without a
+    process group, or with dp 1 and no model axis."""
+    if mesh.mp > 1:
+        state = unshard_state(state, template, mesh)
     if mesh.data_group is None or not is_distributed():
         return state
 
@@ -171,7 +177,9 @@ def gather_state(state, mesh):
 
 
 def scatter_state(state, mesh):
-    """This data rank's ``[B/dp, ...]`` slice of the global model state
-    (every process holds the whole tree, as read from a checkpoint)."""
-    return map_state(lambda t: local_slots(t, mesh.data_rank, mesh.dp),
+    """This process's share of the global model state (every process
+    holds the whole tree, as read from a checkpoint): its data rank's
+    ``[B/dp, ...]`` slice, and under a model axis its channels."""
+    state = map_state(lambda t: local_slots(t, mesh.data_rank, mesh.dp),
                       state)
+    return shard_state(state, mesh) if mesh.mp > 1 else state

@@ -55,7 +55,8 @@ def run_world(target, world, payload=None, device="cpu", backend=None,
               timeout=120.0):
     """``[fn(payload, device)`` of rank 0, ..., of rank ``world - 1]``,
     each run in its own process under ``init_distributed`` (``backend``
-    defaults as there), with the host's cores over 2 * ``world`` as
+    defaults as there; ``device`` "cuda" is card ``rank`` of each, an
+    indexed one is shared), with the host's cores over 2 * ``world`` as
     torch's CPU threads. Raises with the workers' output where one
     fails, and kills them all after ``timeout`` seconds."""
     threads = max(1, (os.cpu_count() or 1) // (2 * world))
@@ -106,6 +107,9 @@ def run_world(target, world, payload=None, device="cpu", backend=None,
 def _worker(target, rank, world, tmp, device, backend):
     from .distributed import init_distributed
 
+    # the processes share one host: a "cuda" device without an index is
+    # card ``rank`` (init_distributed reads LOCAL_RANK, as under torchrun)
+    os.environ.setdefault("LOCAL_RANK", str(rank))
     _, _, device = init_distributed(
         device, backend or None, init_method=f"file://{tmp}/store",
         rank=rank, world_size=world)

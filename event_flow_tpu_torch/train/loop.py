@@ -45,8 +45,18 @@ the update fires when the largest slot of the whole batch reaches
 given a tracker writes (rank 0); ``save_full_checkpoint`` gathers the
 carried state of every data rank first (a collective: every process
 calls it), so that a checkpoint is a one-process run's and moves
-between world sizes; ``resume`` reads it on every process and keeps the
+between meshes; ``resume`` reads it on every process and keeps the
 slots. ``vis`` is off under a mesh, as in JAX (loop.py:88).
+
+Under a mesh with a model axis (``make_mesh_3d(dp, ep, mp)``, JAX's
+``shard_train_step`` on its 3-D mesh) the model ranks of one data rank
+keep the same slots, and each holds its share of the channels
+(parallel/tensor.py): ``Trainer`` splits the seeded weights, the
+optimizer's moments and the carried state; checkpoints stay whole
+(``model_state_dict`` and the moments gathered over the model group, a
+collective), so ``resume`` and ``load_params`` take a checkpoint of any
+mesh and split it, and ``load_weights`` takes whole weights. An unported
+model, cell or option raises NotImplementedError.
 
 ``precision="bfloat16"`` runs the update's model in bfloat16 (the JAX
 package's mixed-precision policy; train/step.py): parameters, the
@@ -67,7 +77,9 @@ from ..models.state import map_state
 from ..parallel.distributed import (agree, broadcast_module, gather_state,
                                     is_distributed, local_slots,
                                     scatter_state)
+from ..parallel.tensor import shard_model, shard_state
 from ..utils import checkpoint as ckpt
+from ..utils.weights import shard_state_dict, unshard_state_dict
 from .optim import make_optimizer
 from .step import TrainState, make_train_step
 
@@ -81,9 +93,9 @@ class Trainer:
     ``precision``. Checkpoints and metrics go to
     ``tracker`` (utils/tracking.py); without one nothing is written.
     ``vis``, a Visualization, takes the updates' renders at batch 1.
-    ``mesh`` splits the batch over processes (see the module's
-    docstring); ``batch_size`` stays the whole batch's, ``local_batch``
-    is a process's."""
+    ``mesh`` splits the batch over processes, and over its model axis
+    the channels (see the module's docstring); ``batch_size`` stays the
+    whole batch's, ``local_batch`` is a process's."""
 
     def __init__(self, config, device, tracker=None, vis=None, mesh=None,
                  precision="float32"):
@@ -126,6 +138,12 @@ class Trainer:
                             config["loader"].get("seed", 0)).train()
         if mesh is not None:
             broadcast_module(model, mesh.world)
+        # the whole tensors' shapes, by name (checkpoints are whole)
+        self._shapes = {n: tuple(t.shape)
+                        for n, t in model.state_dict().items()}
+        self._tp = mesh is not None and mesh.mp > 1
+        if self._tp:
+            shard_model(model, mesh, config["model"]["name"])
         loss_cfg = config.get("loss", {})
         self._clip_grad = loss_cfg.get("clip_grad")
         loss_cfg = LossConfig(
@@ -143,9 +161,10 @@ class Trainer:
             mesh=mesh, precision=precision)
         h, w = self.res
         self.model = model
+        state = model.zero_state(self.local_batch, h, w, self.device)
         self.state = TrainState(
             model, self._fresh_optimizer(),
-            model.zero_state(self.local_batch, h, w, self.device))
+            shard_state(state, mesh) if self._tp else state)
         self._events = []
         self._valid = []
         self._aug = None
@@ -159,7 +178,51 @@ class Trainer:
     def _fresh_optimizer(self):
         opt = self.config["optimizer"]
         return make_optimizer(opt["name"], self.model.parameters(),
-                              opt["lr"], clip_grad=self._clip_grad)
+                              opt["lr"], clip_grad=self._clip_grad,
+                              mesh=self.mesh)
+
+    def model_state_dict(self):
+        """The model's whole weights under the reference names: under a
+        model axis gathered over the model group (a collective: every
+        process calls it)."""
+        sd = self.model.state_dict()
+        return (unshard_state_dict(sd, self.mesh, self._shapes) if self._tp
+                else sd)
+
+    def load_weights(self, state_dict):
+        """Whole weights into the model: this rank's share of each under a
+        model axis."""
+        if self._tp:
+            state_dict = shard_state_dict(state_dict, self.mesh)
+        self.model.load_state_dict(state_dict)
+
+    def _moments(self, optimizer_state, whole):
+        """The optimizer's ``state_dict`` with every moment (a tensor of a
+        parameter's shape) whole (gathered, a collective) or, with
+        ``whole`` False, this model rank's share; the identity without a
+        model axis."""
+        if not self._tp:
+            return optimizer_state
+        names = [n for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+
+        def fix(name, t):
+            if not isinstance(t, torch.Tensor) or t.dim() == 0:
+                return t
+            if whole:
+                return unshard_state_dict({name: t}, self.mesh,
+                                          self._shapes)[name]
+            return shard_state_dict({name: t}, self.mesh)[name]
+
+        return {"state": {i: {k: fix(names[i], v) for k, v in entry.items()}
+                          for i, entry in optimizer_state["state"].items()},
+                "param_groups": optimizer_state["param_groups"]}
+
+    def _state_template(self):
+        """A carried state of the whole model (batch 1, on the CPU): the
+        channel counts that :func:`gather_state` restores."""
+        h, w = self.res
+        return self.model.zero_state(1, h, w, "cpu")
 
     def load_params(self, run_dir):
         """Warm start from a previous run (``--prev_runid``): the weights of
@@ -167,7 +230,7 @@ class Trainer:
         path = ckpt.latest_checkpoint(run_dir)
         if path is None:
             raise FileNotFoundError(f"no checkpoints under {run_dir}")
-        self.model.load_state_dict(ckpt.restore_checkpoint(path)["model"])
+        self.load_weights(ckpt.restore_checkpoint(path)["model"])
         self.state = self.state._replace(optimizer=self._fresh_optimizer())
         return path
 
@@ -180,8 +243,9 @@ class Trainer:
         if path is None:
             raise FileNotFoundError(f"no checkpoints under {run_dir}")
         restored = ckpt.restore_checkpoint(path)
-        self.model.load_state_dict(restored["model"])
-        self.state.optimizer.load_state_dict(restored["optimizer"])
+        self.load_weights(restored["model"])
+        self.state.optimizer.load_state_dict(
+            self._moments(restored["optimizer"], whole=False))
         if "model_state" in restored:
             state = restored["model_state"]
             if self.mesh is not None:
@@ -278,9 +342,10 @@ class Trainer:
             self.tracker.log_metric("loss", mean_loss, step=epoch)
         if mean_loss < self.best_loss:
             self.best_loss = mean_loss
+            weights = self.model_state_dict()  # every process: a collective
             if self.tracker:
                 ckpt.save_checkpoint(self.tracker.checkpoint_dir("best"),
-                                     self.model.state_dict())
+                                     weights)
         stream.samples = 0
         self.train_loss = 0.0
         self.epoch_updates = 0
@@ -293,18 +358,21 @@ class Trainer:
         carried state is gathered first, on every process."""
         model_state = self.state.model_state
         if self.mesh is not None:
-            model_state = gather_state(model_state, self.mesh)
+            model_state = gather_state(model_state, self.mesh,
+                                       self._state_template())
+        weights = self.model_state_dict()
+        optimizer = self._moments(self.state.optimizer.state_dict(),
+                                  whole=True)
         if not self.tracker:
             return None
-        train_state = {"optimizer": self.state.optimizer.state_dict(),
-                       "model_state": model_state,
+        train_state = {"optimizer": optimizer, "model_state": model_state,
                        "epoch": int(epoch)}
         if hasattr(stream, "batch_row"):
             train_state.update(batch_idx=list(stream.batch_idx),
                                batch_row=list(stream.batch_row),
                                files=list(stream.files))
         return ckpt.save_checkpoint(self.tracker.checkpoint_dir(tag),
-                                    self.model.state_dict(), train_state)
+                                    weights, train_state)
 
     def finalize(self):
         """Training-exit barrier: waits for the device's queued work and,

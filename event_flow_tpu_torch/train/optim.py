@@ -23,15 +23,27 @@ scale_by_rms, scale_by_learning_rate).
 
 import torch
 
+from ..parallel.tensor import all_reduce, is_split
+
 __all__ = ["ClippedOptimizer", "make_optimizer", "clip_by_global_norm",
            "AdamW", "SGD", "RMSprop", "OPTIMIZERS"]
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, split=None, mesh=None):
     """Scale ``grads`` (a list of tensors) in place as
-    ``optax.clip_by_global_norm(max_norm)`` does; returns the norm."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    ``optax.clip_by_global_norm(max_norm)`` does; returns the norm. Where
+    ``split`` (one flag per gradient) marks a model rank's share of a
+    tensor split over ``mesh``'s model axis, that tensor's squared norm is
+    summed over the model group, so the norm is the whole tensors' on
+    every rank."""
+    norms = [torch.linalg.vector_norm(g) for g in grads]
+    if split is not None and any(split):
+        idx = [i for i, s in enumerate(split) if s]
+        squares = all_reduce(torch.stack([norms[i] for i in idx]).square(),
+                             mesh)
+        for j, i in enumerate(idx):
+            norms[i] = squares[j].sqrt()
+    norm = torch.linalg.vector_norm(torch.stack(norms))
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, (g / norm) * max_norm))
     return norm
@@ -116,21 +128,25 @@ OPTIMIZERS = {"Adam": _adam, "AdamW": AdamW, "SGD": SGD, "RMSprop": RMSprop}
 
 class ClippedOptimizer:
     """``step()`` clips the gradients of the parameters that have one, then
-    takes the optimizer's step; ``zero_grad()`` drops the gradients."""
+    takes the optimizer's step; ``zero_grad()`` drops the gradients. Under
+    a ``mesh`` with a model axis the clip's norm sums the split
+    parameters' squares over the model group; Adam runs on the shares
+    unchanged."""
 
-    def __init__(self, optimizer, clip_grad=None):
+    def __init__(self, optimizer, clip_grad=None, mesh=None):
         self.optimizer = optimizer
         self.clip_grad = None if clip_grad is None else float(clip_grad)
-
-    def _grads(self):
-        return [p.grad for group in self.optimizer.param_groups
-                for p in group["params"] if p.grad is not None]
+        self.mesh = mesh if mesh is not None and mesh.mp > 1 else None
 
     def step(self):
         if self.clip_grad is not None:
-            grads = self._grads()
-            if grads:
-                clip_by_global_norm(grads, self.clip_grad)
+            params = [p for group in self.optimizer.param_groups
+                      for p in group["params"] if p.grad is not None]
+            if params:
+                split = ([is_split(p) for p in params] if self.mesh
+                         else None)
+                clip_by_global_norm([p.grad for p in params],
+                                    self.clip_grad, split, self.mesh)
         self.optimizer.step()
 
     def zero_grad(self):
@@ -143,11 +159,12 @@ class ClippedOptimizer:
         self.optimizer.load_state_dict(state_dict)
 
 
-def make_optimizer(name, params, lr, clip_grad=None):
+def make_optimizer(name, params, lr, clip_grad=None, mesh=None):
     """The config's optimizer over ``params`` (the trainable parameters),
-    with the gradient clip of ``loss.clip_grad``."""
+    with the gradient clip of ``loss.clip_grad`` (over ``mesh``'s model
+    axis where it has one)."""
     if name not in OPTIMIZERS:
         raise KeyError(f"Unknown optimizer {name!r}; available: "
                        f"{sorted(OPTIMIZERS)}")
     params = [p for p in params if p.requires_grad]
-    return ClippedOptimizer(OPTIMIZERS[name](params, lr), clip_grad)
+    return ClippedOptimizer(OPTIMIZERS[name](params, lr), clip_grad, mesh)

@@ -35,10 +35,17 @@ parallel/mesh.py:115-165) the step runs on the process's slots: every
 event rank of a data rank runs the same forward, the loss goes through
 parallel/shard_loss.py (the events split over the event ranks, the
 value summed over the data ranks: the whole batch's loss), and after the
-backward one all-reduce sums the gradients over the world
-(parallel/distributed.py::all_reduce_grads). Only then come the grad
-statistics and the clip, whose global norm is then the whole batch's on
-every process, so the replicas stay equal.
+backward one all-reduce sums the gradients over the ranks that hold the
+same parameters (the mesh's ``replica_group``: the world where the mesh
+has no model axis; parallel/distributed.py::all_reduce_grads). Only then
+come the grad statistics and the clip, whose global norm is then the
+whole batch's on every process, so the replicas stay equal. Under a
+model axis (``make_mesh_3d``, parallel/tensor.py) the model holds this
+rank's channels of every split layer and gathers the activations it
+needs; the split parameters' squared norms are summed over the model
+group in the clip and the statistics, and the replicated ones (the flow
+heads) get the same gradient on every model rank, so a sum over the
+world would count them ``mp`` times.
 
 ``precision="bfloat16"`` is the JAX package's mixed-precision policy at
 its boundary (step.py:159-180): the encodings and the carried state
@@ -65,6 +72,7 @@ from ..models.state import (cast_state, compute_dtype, detach_state,
 from ..ops.encodings import encode_windows
 from ..parallel.distributed import all_reduce_grads
 from ..parallel.shard_loss import make_sharded_loss
+from ..parallel.tensor import is_split
 from ..utils.gradients import get_grads, global_grad_norm
 
 __all__ = ["TrainState", "make_sequence_forward", "make_train_step"]
@@ -163,14 +171,18 @@ class _TrainStep:
         state.optimizer.zero_grad()
         loss, new_state = self.loss(model_state, events, valid, aug_flags)
         loss.backward()
-        if self.mesh is not None:
-            all_reduce_grads(state.model.parameters(), self.mesh.world)
+        mesh = self.mesh
+        if mesh is not None and mesh.replica_group is not None:
+            all_reduce_grads(state.model.parameters(), mesh.replica_group)
         stats = None
         if self.with_grad_stats:
-            named = [(n, p.grad) for n, p in state.model.named_parameters()
+            named = [(n, p) for n, p in state.model.named_parameters()
                      if p.grad is not None]
-            stats = (get_grads(named),
-                     global_grad_norm([g for _, g in named]))
+            split = (None if mesh is None or mesh.mp == 1
+                     else [is_split(p) for _, p in named])
+            named = [(n, p.grad) for n, p in named]
+            stats = (get_grads(named, split, mesh),
+                     global_grad_norm([g for _, g in named], split, mesh))
         state.optimizer.step()
         out = (loss.detach(), TrainState(state.model, state.optimizer,
                                          detach_state(new_state)))

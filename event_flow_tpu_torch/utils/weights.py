@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "jax_params_from_state_dict",
-           "optimizer_state_from_jax"]
+           "optimizer_state_from_jax", "split_axis", "shard_state_dict",
+           "unshard_state_dict"]
 
 _CHANNEL_VECS = {"leak", "thresh", "leak_v", "leak_t", "leak_pt", "add_pt",
                  "t0", "t1"}
@@ -206,3 +207,54 @@ def optimizer_state_from_jax(opt_state, model):
     trainable = [n for n, p in model.named_parameters() if p.requires_grad]
     return {i: {"step": step.clone(), "exp_avg": mu[name],
                 "exp_avg_sq": nu[name]} for i, name in enumerate(trainable)}
+
+
+def split_axis(name, shape, mesh):
+    """The axis of the tensor ``name`` (a reference ``state_dict`` name)
+    of ``shape`` that ``mesh``'s model axis splits, or None: JAX's rule
+    (event_flow_tpu/parallel/mesh.py:71-99) on the axis JAX keeps minor,
+    the output channels: axis 0 of an OIHW conv weight, axis 1 of a
+    transposed conv's [Cin, Cout, k, k], the channel axis of a bias or a
+    (C, 1, 1) neuron parameter; split where it is a multiple of ``mp``
+    and at least 8 (never a 2-channel flow head). Adam's moments take
+    their parameter's name and shape, as JAX's rule applies by shape."""
+    if len(shape) == 0:
+        return None
+    axis = 1 if name.endswith("transposed_conv2d.weight") else 0
+    return axis if mesh.splits(shape[axis]) else None
+
+
+def shard_state_dict(sd, mesh):
+    """This model rank's share of ``sd`` (whole tensors under their
+    reference names): each tensor sliced on :func:`split_axis`, the rest
+    kept (the same tensor objects). A ConvGRU's update and reset gates are
+    two weights, each split on its own, so a rank holds the same channels
+    of both."""
+    out = {}
+    for name, t in sd.items():
+        axis = split_axis(name, tuple(t.shape), mesh)
+        if axis is None:
+            out[name] = t
+            continue
+        n = t.shape[axis] // mesh.mp
+        out[name] = t.narrow(axis, mesh.model_rank * n, n).contiguous()
+    return out
+
+
+def unshard_state_dict(sd, mesh, shapes):
+    """The whole ``state_dict`` of the model ranks' shares ``sd``: every
+    tensor whose shape differs from its whole shape in ``shapes`` (name
+    -> shape) gathered over ``mesh``'s model group on its
+    :func:`split_axis` (a collective: every model rank calls it, with the
+    same names in the same order). ``unshard_state_dict(shard_state_dict(
+    sd, mesh), mesh, shapes)`` is ``sd``, bitwise."""
+    from ..parallel.tensor import gather_axis
+
+    out = {}
+    for name, t in sd.items():
+        full = tuple(shapes[name])
+        if tuple(t.shape) == full:
+            out[name] = t
+            continue
+        out[name] = gather_axis(t, split_axis(name, full, mesh), mesh)
+    return out

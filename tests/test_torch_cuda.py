@@ -135,6 +135,44 @@ def test_fused_lif_kernel_matches_plain(dev, rec, hard, k, case):
     assert 0.0 < float(zp.mean()) < 1.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout,crec,k", [(16, 32, 3), (12, 5, 3), (4, 8, 1),
+                                         (8, 40, 5)])
+def test_fused_lif_rec_kernel_with_crec(dev, cout, crec, k, dtype):
+    """K2 rec with a recurrent input of Crec channels and Cout outputs, a
+    cell's share under a mesh's model axis (LIFFireNet's 16 of 32 at mp
+    2), against its plain version: v' within ATOL (bfloat16: one ulp of
+    it), spikes equal but near the threshold, twice bitwise."""
+    g = _gen()
+    b, h, w, cin = 2, 18, 30, 6
+    x = (torch.rand((b, h, w, cin), generator=g) < 0.3).float()
+    zr = (torch.rand((b, h, w, crec), generator=g) < 0.2).float()
+    wt = (torch.rand((cout, cin, k, k), generator=g) * 2 - 1) * cin ** -0.5
+    wr = (torch.rand((cout, crec, k, k), generator=g) * 2 - 1) * crec ** -0.5
+    thresh = 0.5 + 0.1 * torch.randn(cout, generator=g)
+    leak = torch.sigmoid(torch.randn(cout, generator=g))
+    v = thresh + 0.3 * torch.randn((b, h, w, cout), generator=g)
+    z = (torch.rand((b, h, w, cout), generator=g) < 0.1).float()
+    x, zr, wt, wr, v, z = (t.to(dev, dtype) for t in (x, zr, wt, wr, v, z))
+    leak, thresh = leak.to(dev), thresh.to(dev)
+    with torch.no_grad():
+        run = lambda: fused_conv_lif_rec(x, wt, wr, v, z, zr, leak, thresh,
+                                         k, True)
+        vk, zk = run()
+        vp, zp = fused_conv_lif_rec_plain(x, wt, wr, v, z, zr, leak, thresh,
+                                          k, True)
+        assert all(map(torch.equal, (vk, zk), run()))
+    name = native.variant("fused_conv_lif_rec", dtype)
+    if dtype == torch.bfloat16:
+        assert not native.beyond_bf16_ulp(vk, vp, ATOL).any()
+    else:
+        torch.testing.assert_close(vk, vp, atol=ATOL, rtol=0)
+    flips = zk != zp
+    near = (vp.float() - thresh).abs() < NEAR + 1e-2 * (dtype != torch.float32)
+    assert not (flips & ~near).any(), name
+    assert 0.0 < float(zp.float().mean()) < 1.0
+
+
 def test_conv_and_cell_kernels_bitwise_repeatable(dev):
     """K1 and K2 (feedforward and recurrent) run twice on the same inputs
     give the same bits: no split-K, no atomics."""

@@ -14,7 +14,8 @@ import torch
 from event_flow_tpu_torch.eval_flow import evaluate
 from event_flow_tpu_torch.models.registry import build_model
 from event_flow_tpu_torch.loss.warping import LossConfig
-from event_flow_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+from event_flow_tpu_torch.parallel.mesh import (make_mesh, make_mesh_2d,
+                                                make_mesh_3d)
 from event_flow_tpu_torch.parallel.shard_loss import make_sharded_loss
 from event_flow_tpu_torch.train.loop import Trainer
 from event_flow_tpu_torch.utils.tracking import Tracker
@@ -136,11 +137,159 @@ def eval_dp(args, device):
     return out
 
 
+def _tp_trainer(cfg, device, state_dict, mesh, precision="float32",
+                tracker=None):
+    trainer = Trainer(cfg, device, tracker=tracker, mesh=mesh,
+                      precision=precision)
+    trainer.load_weights(state_dict)
+    return trainer
+
+
+def _tp_result(trainer, losses):
+    """The losses, the whole parameters (gathered over the model group)
+    and this rank's own share of each."""
+    whole = trainer.model_state_dict()
+    return {"losses": [v for v in losses if v is not None],
+            "params": {n: whole[n].detach().cpu().clone()
+                       for n, _ in trainer.model.named_parameters()},
+            "local": _params(trainer.model)}
+
+
+def tp_train(args, device):
+    """Each (dp, ep, mp) mesh of ``args["meshes"]`` and each model: the
+    global ``feeds`` through ``Trainer(mesh=make_mesh_3d(...))`` in
+    ``args["precision"]``, the losses and parameters (_tp_result); with
+    ``layout`` also the names and local shapes of the rank's parameters
+    and carried state."""
+    out = {}
+    for dims in args["meshes"]:
+        mesh = make_mesh_3d(*dims)
+        for name, (cfg, state_dict, feeds) in args["models"].items():
+            trainer = _tp_trainer(cfg, device, state_dict, mesh,
+                                  args.get("precision", "float32"))
+            losses, _ = _feed(trainer, feeds)
+            out[(*dims, name)] = _tp_result(trainer, losses)
+            out[(*dims, name)]["coords"] = (mesh.data_rank, mesh.event_rank,
+                                            mesh.model_rank)
+    return out
+
+
+def tp_checkpoint(args, device):
+    """Two updates at (1, 1, mp) (the second after a sequence change),
+    the full checkpoint written by rank 0 under ``save_root``, then that
+    checkpoint resumed in a fresh Trainer on the same mesh for the rest
+    of ``feeds``."""
+    mesh = make_mesh_3d(1, 1, args["mp"])
+    cfg, state_dict, feeds = args["cfg"], args["state_dict"], args["feeds"]
+    tracker = (Tracker(runs_root=args["save_root"], runid="tp")
+               if mesh.rank == 0 else None)
+    trainer = _tp_trainer(cfg, device, state_dict, mesh, tracker=tracker)
+    first, _ = _feed(trainer, feeds[:args["split"]])
+    trainer.save_full_checkpoint(None, 0)
+    torch.distributed.barrier()
+    resumed = _tp_trainer(cfg, device, state_dict, mesh)
+    resumed.resume(str(args["save_root"]) + "/tp", None)
+    second, _ = _feed(resumed, feeds[args["split"]:])
+    return {"saved": _tp_result(trainer, first),
+            "resumed": _tp_result(resumed, second)}
+
+
+def mesh_layout(args, device):
+    """For each (dp, ep, mp) of ``args["meshes"]``: this process's
+    coordinates and the ranks of its data, event, model and replica
+    groups (None where the mesh has none)."""
+    import torch.distributed as dist
+
+    out = {}
+    for dims in args["meshes"]:
+        mesh = make_mesh_3d(*dims)
+        groups = {}
+        for key in ("data_group", "event_group", "model_group",
+                    "replica_group"):
+            g = getattr(mesh, key)
+            groups[key] = (None if g is None
+                           else dist.get_process_group_ranks(g))
+        out[dims] = {"rank": mesh.rank, "coords": (mesh.data_rank,
+                                                   mesh.event_rank,
+                                                   mesh.model_rank),
+                     "groups": groups}
+    return out
+
+
+def tp_round_trip(args, device):
+    """``unshard_state_dict(shard_state_dict(sd))`` of ``args["sd"]`` on
+    a (1, 1, mp) mesh, and this rank's shares."""
+    from event_flow_tpu_torch.utils.weights import (shard_state_dict,
+                                                    unshard_state_dict)
+
+    mesh = make_mesh_3d(1, 1, args["mp"])
+    local = shard_state_dict(args["sd"], mesh)
+    shapes = {k: tuple(v.shape) for k, v in args["sd"].items()}
+    return {"local": {k: tuple(v.shape) for k, v in local.items()},
+            "whole": unshard_state_dict(local, mesh, shapes)}
+
+
+def model_grads_f64(args, device, mesh=None):
+    """The float64 gradients of ``sum(flow * cot)`` over the windows of
+    ``args["x"]`` [B,T,H,W,2] (the encoding both inputs take) for each
+    model of ``args["models"]`` (config, whole float64 state_dict), the
+    state carried; on a (1, 1, mp) mesh where ``mp`` is given, gathered
+    whole. Returns {name: (value, gradients)}."""
+    from event_flow_tpu_torch.models.state import map_state
+    from event_flow_tpu_torch.parallel.tensor import shard_model, shard_state
+    from event_flow_tpu_torch.utils.weights import unshard_state_dict
+
+    if "mp" in args:
+        mesh = make_mesh_3d(1, 1, args["mp"])
+    out = {}
+    x = args["x"]
+    for name, (cfg, sd) in args["models"].items():
+        model = build_model(cfg, device, 0).double().train()
+        model.load_state_dict(sd)
+        b, t, h, w, _ = x.shape
+        state = map_state(torch.Tensor.double,
+                          model.zero_state(b, h, w, device))
+        if mesh is not None:
+            shard_model(model, mesh, cfg["model"]["name"])
+            state = shard_state(state, mesh)
+        with torch.enable_grad():
+            value = torch.zeros((), dtype=torch.float64)
+            for i in range(t):
+                flows, state = model(x[:, i], x[:, i], state)
+                for f, c in zip(flows["flow"], args["cot"][i]):
+                    value = value + (f * c).sum()
+            value.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if mesh is not None:
+            shapes = {n: tuple(v.shape) for n, v in sd.items()}
+            grads = unshard_state_dict(grads, mesh, shapes)
+        out[name] = (value.detach().item(), grads)
+    return out
+
+
+def tp_grad_stats(args, device):
+    """The step's gradient statistics (``vis.store_grads``: per tensor
+    mean, min and max of |g|, and the global norm) of one update of
+    ``args["model"]`` on a (1, 1, mp) mesh."""
+    mesh = make_mesh_3d(1, 1, args["mp"])
+    cfg, state_dict, (ev, valid, aug) = args["model"]
+    trainer = _tp_trainer(cfg, device, state_dict, mesh)
+    step = trainer.step
+    step.with_grad_stats = True
+    with torch.enable_grad():
+        _, _, (rows, norm) = step(trainer.state, ev, valid, aug, True)
+    return {"rows": rows, "norm": norm}
+
+
 def cases(payload, device):
     fns = {"train": train, "without_and_with_mesh": without_and_with_mesh,
            "sharded_loss": sharded_loss,
            "local_feeds": local_feeds, "checkpoint": checkpoint,
-           "eval": eval_dp}
+           "eval": eval_dp, "tp_train": tp_train,
+           "tp_checkpoint": tp_checkpoint, "mesh_layout": mesh_layout,
+           "tp_round_trip": tp_round_trip,
+           "model_grads_f64": model_grads_f64,
+           "tp_grad_stats": tp_grad_stats}
     out = {}
     for name, args in payload["cases"]:
         with torch.enable_grad():
