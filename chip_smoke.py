@@ -189,7 +189,15 @@ exits non-zero without the final ``ok`` line:
               exported on the CPU bitwise their live engines on the card;
               int8, f32 and bf16 serving in turns: windows/s, host ms
               per window until step returns, device busy per window, the
-              int8 and bf16 flows' deviation from f32
+              int8 and bf16 flows' deviation from f32. int8 under the
+              bfloat16 policy (quantize="int8", precision="bfloat16"):
+              K1-s8 bf16 and K2-s8 bf16 (ff, rec) bitwise their plain
+              forms at the same shapes, each twice bitwise, timed at the
+              ECD shapes; the int8-bf16 engine at ECD_LIFFIRENET (8
+              windows) and ECD_SPIKING_RECEVFLOWNET (2) against the CPU
+              port's with exact launches of the bf16 s8 variants; its
+              CPU-exported artifact bitwise its live engine on the card;
+              int8-bf16 served in turns with the others
  21. tp       tensor parallelism over channels (make_mesh_3d's model
               axis): K2 rec with Crec != Cout (Cout 16 of 32, the
               recurrent input over all 32, LIFFireNet's mp-2 shape) against
@@ -203,18 +211,23 @@ exits non-zero without the final ``ok`` line:
               1e-4 (bf16 1e-3) of one process's update on the card from the
               same state, the gathered parameters bitwise equal on both
               ranks and the whole ones (the flow heads) too, exact launches
-              per update and rank, the model-group traffic; LIFFireNet's
-              ms/update at (1, 1, 2) against no mesh in turns and the busy
-              ms of each
+              per update and rank, the model-group traffic; one f32 update
+              each of XLIFFireNet at TRAIN_XLIF (the unfused neurons),
+              E2VID at TRAIN_ANNREC's recipe (ConvLSTM) and LIFFireNet at
+              configs/train_SNN.yml under norm: group, with the same
+              checks; LIFFireNet's ms/update at (1, 1, 2) against no mesh
+              in turns and the busy ms of each
  22. tp-nccl  only where the machine has 2 or more cards (else it says it
               skipped): under NCCL, one card a process, the data meshes of
               2 and 4 cards (B 8 per card) and the model axis at (1, 1, 2),
               (1, 1, 4) and (2, 1, 2), LIFFireNet 2 updates and the spiking
-              U-Net one on the model meshes, each held to one process's as
-              in phase 21; ms/update and windows/s per card
+              U-Net one on the model meshes (and at (1, 1, 2) phase 21's
+              XLIFFireNet, E2VID and norm: group updates), each held to
+              one process's as in phase 21; ms/update and windows/s per
+              card
 
-``python3 chip_smoke.py --phase tp[,tp-nccl]`` runs the device and build
-phases and those alone, without the summary lines.
+``python3 chip_smoke.py --phase int8[,tp,tp-nccl]`` runs the device and
+build phases and those alone, without the summary lines.
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
@@ -4572,14 +4585,17 @@ def bf16_busy_in_turns(tag, config):
     return runs
 
 
-def bf16_serve(tag, config, n, per_window):
+def bf16_serve(tag, config, n, per_window, quantize=None):
     """``config``'s serving through InferenceEngine(precision="bfloat16")
+    (with ``quantize="int8"``: the int8 engine under the bfloat16 policy)
     over n windows of one in-memory sequence on the card and on the CPU:
-    exact launches per window of the bfloat16 variants, every window's
-    flow within BF16_FLOW_RTOL (relative L2) of the CPU's, the last
-    state's spikes equal but for BF16_SPIKE_SHARE; then windows/s and
-    device busy per window of the bf16 and the float32 engine on the
-    card, in turns. Returns the launch counts."""
+    exact launches per window of the bfloat16 variants (the int8 ones'),
+    every window's flow within BF16_FLOW_RTOL (relative L2) of the CPU's,
+    the last state's spikes equal but for BF16_SPIKE_SHARE, and how many
+    windows' flows are bitwise the CPU's; then, without ``quantize``,
+    windows/s and device busy per window of the bf16 and the float32
+    engine on the card, in turns (int8_in_turns times the int8 ones).
+    Returns the launch counts."""
     from event_flow_tpu_torch.eval.predict import InferenceEngine
     from event_flow_tpu_torch.models.registry import build_model
     from event_flow_tpu_torch.ops import native
@@ -4587,19 +4603,23 @@ def bf16_serve(tag, config, n, per_window):
     name = config["model"]["name"]
     ev, va = engine_windows(config, n)
     flows, states = {}, {}
+    kind = "int8-bf16" if quantize else "bf16"
     for device in ("cpu", "cuda"):
         engine = InferenceEngine(config, build_model(config, device), device,
-                                 precision="bfloat16")
+                                 precision="bfloat16", quantize=quantize)
         native.reset_launch_counts()
         flows[device] = [engine.step(ev[i].to(device), va[i].to(device))
                          .cpu() for i in range(n)]
         states[device] = _tensors(engine._state)
+        if device == "cpu" and any(launch_counts().values()):
+            fail(f"[{tag}] the CPU {kind} engine launched {launch_counts()}")
     counts = launch_counts()
-    want = bf16_counts({k: per_window.get(k, 0) * n for k in (
+    want = {k: per_window.get(k, 0) * n for k in (
         "conv2d_same", "fused_conv_lif", "fused_conv_lif_rec", "scatter_add",
-        "conv2d_dw", "fused_lif_bwd")})
+        "conv2d_dw", "fused_lif_bwd")}
+    want = s8_counts(want, "_s8_bf16") if quantize else bf16_counts(want)
     if counts != want:
-        fail(f"[{tag}] {name} bf16 engine launches {counts} != {want}")
+        fail(f"[{tag}] {name} {kind} engine launches {counts} != {want}")
     gaps = [float((g - c).norm() / c.norm().clamp(min=1e-30))
             for g, c in zip(flows["cuda"], flows["cpu"])]
     top = max(float(f.abs().max()) for f in flows["cpu"])
@@ -4618,11 +4638,14 @@ def bf16_serve(tag, config, n, per_window):
             differ > BF16_SPIKE_SHARE * total:
         fail(f"[{tag}] {name}: bf16 state {[t.dtype for t in states['cuda']]}"
              f", {differ} of {total} spikes differ from the CPU's")
-    print(f"[{tag}] {name} bf16 engine, {n} windows of {ev.shape[2]} events: "
-          f"launches {counts}; flows against the CPU port's bf16 engine: "
-          f"relative L2 gaps " + ", ".join(f"{g:.3g}" for g in gaps)
-          + f" (max |flow| {top:.4g}); last state: {differ} of {total} "
-          "spikes differ")
+    same = sum(map(torch.equal, flows["cuda"], flows["cpu"]))
+    print(f"[{tag}] {name} {kind} engine, {n} windows of {ev.shape[2]} "
+          f"events: launches {counts}; flows against the CPU port's {kind} "
+          f"engine: relative L2 gaps " + ", ".join(f"{g:.3g}" for g in gaps)
+          + f" (max |flow| {top:.4g}), {same} of {n} windows bitwise; last "
+          f"state: {differ} of {total} spikes differ")
+    if quantize:
+        return counts
 
     model = build_model(config, "cuda")
     engines = {p: InferenceEngine(config, model, "cuda", precision=p)
@@ -4920,15 +4943,118 @@ def kernels_int8(inp, out):
             _record(out, name, err, timing, INT8_OPS)
 
 
-def s8_counts(counts):
+def kernels_int8_bf16(inp, out):
+    """The bfloat16 variants of K1-s8 and K2-s8 (int8 serving under the
+    bfloat16 policy) against their plain forms at K1_S8 and K2_S8 (the
+    ECD serving shapes of LIFFireNet, the U-Net's 512 -> 512 on 12 x 15,
+    odd shapes), bitwise, each run twice and bitwise equal: K1-s8 bf16
+    rounds the float32 y once, K2-s8 bf16 rounds every operation of the
+    update to bfloat16 in the plain form's order, so both are the plain
+    forms' bits. At the serving shapes (the head 32 -> 2 k 1; the cells
+    32 -> 32, hard reset) one call's ms, device ms, the bound (bytes at
+    3.35 TB/s, bfloat16 y, v, z, v', z', or operations at 1979 TOPS
+    int8) and the plain form. No one PyTorch call computes an int8
+    conv."""
+    from event_flow_tpu_torch.ops.conv import (conv2d_same_s8_bf16_plain,
+                                               conv2d_same_s8_kernel)
+    from event_flow_tpu_torch.ops.fused_lif import (
+        _ff_s8_kernel, _rec_s8_kernel, fused_conv_lif_rec_s8_plain,
+        fused_conv_lif_s8_plain)
+    from event_flow_tpu_torch.ops.quant import int8_operands
+
+    bf = torch.bfloat16
+    for b, h, w, cin, cout, k, kind in K1_S8:
+        x = _b2_x(inp, (b, h, w, cin), kind).to(bf)
+        wt = inp.uniform((cout, cin, k, k), (1 / (cin * k * k)) ** 0.5)
+        (xq,), (wq,), scale = int8_operands("K1-s8 bf16", (x,), (wt,))
+        label = (f"K1-s8 conv2d_same_s8_bf16 {b}x{h}x{w} {cin}->{cout} "
+                 f"k={k} {kind}")
+
+        def run_k():
+            return conv2d_same_s8_kernel(xq, wq, scale, bf)
+
+        y, ref = run_k(), conv2d_same_s8_bf16_plain(xq, wq, scale)
+        if y.dtype != bf or not torch.equal(y, ref):
+            fail(f"{label}: not bitwise its plain form ({y.dtype}), max "
+                 f"|err| {float((y.float() - ref.float()).abs().max())}")
+        if not torch.equal(y, run_k()):
+            fail(f"{label}: two runs differ")
+        timing, line = None, "not timed"
+        if (b, h, cin, cout) == (1, 180, 32, 2):
+            npix = b * h * w
+            timing, line = _timings(
+                run_k, lambda: conv2d_same_s8_bf16_plain(xq, wq, scale),
+                None, "conv2d_same_s8_kernel",
+                npix * cin + wq.numel() + 4 * cout + 2 * npix * cout,
+                2 * npix * cout * k * k * cin, INT8_OPS)
+        print(f"[int8] {label}: bitwise its plain form, repeatable; {line}")
+        _record(out, "conv2d_same_s8_bf16", 0.0, timing, INT8_OPS)
+
+    for b, h, w, cin, c, rec in K2_S8:
+        shape = (b, h, w)
+        x = (inp.counts(shape + (cin,)) if cin == 2
+             else inp.spikes(shape + (cin,))).to(bf)
+        wt = inp.uniform((c, cin, 3, 3), (1 / cin) ** 0.5)
+        wr = inp.uniform((c, c, 3, 3), (1 / c) ** 0.5)
+        leak, thresh = inp.neuron(c)
+        v = (thresh + 0.3 * inp.normal(shape + (c,))).to(bf)
+        z = inp.spikes(shape + (c,)).to(bf)
+        if rec:  # the kernels rounded to bfloat16 first, as JAX's
+            (xq, zq), (wq, wrq), scale = int8_operands(
+                "K2-s8 bf16", (x, z), (wt.to(bf), wr.to(bf)))
+        else:
+            (xq,), (wq,), scale = int8_operands("K2-s8 bf16", (x,), (wt,))
+        name = ("fused_conv_lif_rec_s8_bf16" if rec
+                else "fused_conv_lif_s8_bf16")
+        for hard in (True, False):
+            def run_k():
+                if rec:
+                    return _rec_s8_kernel(xq, wq, wrq, scale, v, z, zq, leak,
+                                          thresh, 3, hard, "arctanspike",
+                                          10.0, dtype=bf)
+                return _ff_s8_kernel(xq, wq, scale, v, z, leak, thresh, 3,
+                                     hard, "arctanspike", 10.0, dtype=bf)
+
+            def run_p():
+                if rec:
+                    return fused_conv_lif_rec_s8_plain(
+                        xq, wq, wrq, scale, v, z, zq, leak, thresh, 3, hard)
+                return fused_conv_lif_s8_plain(xq, wq, scale, v, z, leak,
+                                               thresh, 3, hard)
+
+            label = (f"K2-s8 {name} {b}x{h}x{w} Cin {cin} x{c} "
+                     f"{'hard' if hard else 'soft'}")
+            (vk, zk), (vp, zp) = run_k(), run_p()
+            if vk.dtype != bf or not (torch.equal(vk, vp)
+                                      and torch.equal(zk, zp)):
+                fail(f"{label}: not bitwise its plain form ({vk.dtype}): v' "
+                     f"max |err| {float((vk.float() - vp.float()).abs().max())}"
+                     f", {int((zk != zp).sum())} spikes differ")
+            if not all(map(torch.equal, (vk, zk), run_k())):
+                fail(f"{label}: two runs differ")
+            timing, line = None, "not timed"
+            if (h, cin, hard) == (180, 32, True):
+                npix = b * h * w
+                timing, line = _timings(
+                    run_k, run_p, None, "fused_conv_lif_s8_kernel",
+                    npix * (cin + (c if rec else 0) + 8 * c) + wq.numel()
+                    + (wrq.numel() if rec else 0) + 12 * c,
+                    2 * npix * c * 9 * (cin + (c if rec else 0)), INT8_OPS)
+            print(f"[int8] {label}: bitwise its plain form, spike rate "
+                  f"{float(zp.float().mean()):.4f}, repeatable; {line}")
+            _record(out, name, 0.0, timing, INT8_OPS)
+
+
+def s8_counts(counts, suffix="_s8"):
     """Launch counts of a float32 serving path as its int8 run makes them:
-    K1 and K2 under their int8 variants' names, K3 unchanged."""
+    K1 and K2 under their int8 variants' names (``suffix`` "_s8_bf16":
+    those of the int8 bfloat16 variants), K3 unchanged."""
     out = {k: 0 for k in counts}
     for k, n in counts.items():
         if k == "scatter_add":
             out[k] = n
         elif n:
-            out[k + "_s8"] = n
+            out[k + suffix] = n
     return out
 
 
@@ -4969,9 +5095,10 @@ def int8_serve(tag, config, n, per_window):
 
 
 def int8_artifacts(tag, config, n):
-    """An int8 and a bfloat16 engine of ``config`` exported on the CPU and
-    served on the card: every flow bitwise the live card engine's of the
-    same kind, with its launches. Returns the int8 artifact's counts."""
+    """An int8, a bfloat16 and an int8-bf16 engine of ``config`` exported
+    on the CPU and served on the card: every flow bitwise the live card
+    engine's of the same kind, with its launches. Returns the int8
+    artifacts' counts."""
     import tempfile
 
     from event_flow_tpu_torch.eval.predict import InferenceEngine
@@ -4983,8 +5110,10 @@ def int8_artifacts(tag, config, n):
     ev, va = engine_windows(config, n)
     ev, va = ev.cuda(), va.cuda()
     paths = []
-    for quantize, precision in (("int8", "float32"), (None, "bfloat16")):
-        kind = quantize or precision
+    for quantize, precision in (("int8", "float32"), (None, "bfloat16"),
+                                ("int8", "bfloat16")):
+        kind = "-".join(k for k in (quantize, precision)
+                        if k not in (None, "float32"))
         with tempfile.TemporaryDirectory() as root:
             path = os.path.join(root, "artifact")
             export_engine(InferenceEngine(
@@ -5013,11 +5142,12 @@ def int8_artifacts(tag, config, n):
 
 
 def int8_in_turns(tag, config, n):
-    """An int8, a float32 and a bfloat16 engine of one model on the card:
-    the int8 and bf16 flows' largest deviation from the float32 flows
-    (relative to max |flow|), then windows/s, host ms per window until
-    step returns and device busy per window in turns int8, f32, bf16,
-    bf16, f32, int8."""
+    """An int8, an int8-bf16 (int8 convs under the bfloat16 policy), a
+    float32 and a bfloat16 engine of one model on the card: the others'
+    flows' largest deviation from the float32 flows (relative to max
+    |flow|), then windows/s, host ms per window until step returns and
+    device busy per window in turns int8, int8-bf16, f32, bf16, bf16,
+    f32, int8-bf16, int8."""
     from event_flow_tpu_torch.eval.predict import InferenceEngine
     from event_flow_tpu_torch.models.registry import build_model
 
@@ -5027,6 +5157,9 @@ def int8_in_turns(tag, config, n):
     model = build_model(config, "cuda")
     engines = {"int8": InferenceEngine(config, model, "cuda",
                                        quantize="int8"),
+               "int8-bf16": InferenceEngine(config, model, "cuda",
+                                            quantize="int8",
+                                            precision="bfloat16"),
                "float32": InferenceEngine(config, model, "cuda"),
                "bfloat16": InferenceEngine(config, model, "cuda",
                                            precision="bfloat16")}
@@ -5034,11 +5167,11 @@ def int8_in_turns(tag, config, n):
              for k, e in engines.items()}
     top = max(float(f.abs().max()) for f in flows["float32"])
     dev = {k: max(float((a - b).abs().max()) for a, b in zip(
-        flows[k], flows["float32"])) / top for k in ("int8", "bfloat16")}
+        flows[k], flows["float32"])) / top for k in engines if k != "float32"}
     print(f"[{tag}] {name}, {n} windows: largest |flow - f32 flow| / max "
-          f"|f32 flow| ({top:.4g}): int8 {dev['int8']:.4g}, bf16 "
-          f"{dev['bfloat16']:.4g}")
-    for kind in ("int8", "float32"):  # one steady window by part
+          f"|f32 flow| ({top:.4g}): " + ", ".join(
+              f"{k} {d:.4g}" for k, d in dev.items()))
+    for kind in ("int8", "int8-bf16", "float32"):  # one steady window
         engine = engines[kind]
         wall_us, events = _device_events(lambda: engine.step(ev[0], va[0]))
         window_parts(f"{tag} {kind}", wall_us, events)
@@ -5050,8 +5183,8 @@ def int8_in_turns(tag, config, n):
                 engine.step(ev[i], va[i])
         return run
 
-    for kind in ("int8", "float32", "bfloat16", "bfloat16", "float32",
-                 "int8"):
+    for kind in ("int8", "int8-bf16", "float32", "bfloat16", "bfloat16",
+                 "float32", "int8-bf16", "int8"):
         run = steps(engines[kind])
         print(f"[{tag}] {name} {kind} engine.step: {_windows_per_s(run, n)} "
               f"windows/s, host {_host_ms(run, n)} ms per window until "
@@ -5061,12 +5194,15 @@ def int8_in_turns(tag, config, n):
 
 def phase_int8():
     """[int8]: int8 serving on the card. K1-s8 and K2-s8 against their
-    plain versions and timed (kernels_int8); ECD_LIFFIRENET (8 windows)
-    and ECD_SPIKING_RECEVFLOWNET (2) through InferenceEngine(quantize=
-    "int8") against the CPU port's int8 engine (int8_serve); CPU-exported
-    int8 and bf16 artifacts bitwise their live engines on the card
-    (int8_artifacts); int8, f32 and bf16 serving in turns
-    (int8_in_turns). Returns (the launch counts of its paths, the kernels'
+    plain versions and timed (kernels_int8), their bfloat16 variants
+    (kernels_int8_bf16); ECD_LIFFIRENET (8 windows) and
+    ECD_SPIKING_RECEVFLOWNET (2) through InferenceEngine(quantize="int8")
+    against the CPU port's int8 engine (int8_serve), and through the
+    int8-bf16 engine (quantize="int8", precision="bfloat16") against the
+    CPU port's (bf16_serve); CPU-exported int8, bf16 and int8-bf16
+    artifacts bitwise their live engines on the card (int8_artifacts);
+    int8, int8-bf16, f32 and bf16 serving in turns (int8_in_turns).
+    Returns (the launch counts of its paths, the kernels'
     measurements)."""
     from event_flow_tpu_torch.config import (ECD_LIFFIRENET,
                                              ECD_SPIKING_RECEVFLOWNET)
@@ -5075,14 +5211,20 @@ def phase_int8():
     t0 = time.perf_counter()
     measured = {}
     kernels_int8(_Inputs(torch.device("cuda")), measured)
+    kernels_int8_bf16(_Inputs(torch.device("cuda")), measured)
     lif, unet = (copy.deepcopy(c) for c in (ECD_LIFFIRENET,
                                             ECD_SPIKING_RECEVFLOWNET))
-    paths = [int8_serve(tag, lif, INT8_SERVE_WINDOWS[0],
-                        {"fused_conv_lif": 5, "fused_conv_lif_rec": 2,
-                         "conv2d_same": 1, "scatter_add": 1}),
+    per_window = ({"fused_conv_lif": 5, "fused_conv_lif_rec": 2,
+                   "conv2d_same": 1, "scatter_add": 1},
+                  {"fused_conv_lif": 8, "fused_conv_lif_rec": 4,
+                   "conv2d_same": 4, "scatter_add": 1})
+    paths = [int8_serve(tag, lif, INT8_SERVE_WINDOWS[0], per_window[0]),
              int8_serve(f"{tag}-unet", unet, INT8_SERVE_WINDOWS[1],
-                        {"fused_conv_lif": 8, "fused_conv_lif_rec": 4,
-                         "conv2d_same": 4, "scatter_add": 1})]
+                        per_window[1]),
+             bf16_serve(tag, lif, INT8_SERVE_WINDOWS[0], per_window[0],
+                        quantize="int8"),
+             bf16_serve(f"{tag}-unet", unet, INT8_SERVE_WINDOWS[1],
+                        per_window[1], quantize="int8")]
     paths += int8_artifacts(tag, lif, INT8_SERVE_WINDOWS[0])
     int8_in_turns(tag, lif, INT8_SERVE_WINDOWS[0])
     int8_in_turns(f"{tag}-unet", unet, INT8_SERVE_WINDOWS[1])
@@ -5106,10 +5248,19 @@ TP_LOSS_RTOL = 1e-5
 TP_PARAM_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # (case, recipe, precision, updates); LIFFireNet's second update starts a
 # new sequence, and resumes the world's checkpoint in one process
+# the unfused neurons, ConvLSTM's gate quarters and a norm over the
+# gathered map, one f32 update each (TP_MORE, also under NCCL)
+TP_MORE = (("xlif", "TRAIN_XLIF", "float32", 1),
+           ("e2vid", "TRAIN_E2VID", "float32", 1),
+           ("lif-group", "TRAIN_SNN_GROUP", "float32", 1))
 TP_CASES = (("lif", "TRAIN_SNN", "float32", 2),
             ("unet", "TRAIN_SNNREC", "float32", 1),
             ("lif-bf16", "TRAIN_SNN", "bfloat16", 1),
-            ("unet-bf16", "TRAIN_SNNREC", "bfloat16", 1))
+            ("unet-bf16", "TRAIN_SNNREC", "bfloat16", 1)) + TP_MORE
+# [tp]'s recipes that config.py does not name: (its recipe, the model,
+# additions to the neuron block)
+TP_RECIPES = {"TRAIN_E2VID": ("TRAIN_ANNREC", "E2VID", None),
+              "TRAIN_SNN_GROUP": ("TRAIN_SNN", None, {"norm": "group"})}
 TP_TURNS = 2
 # LIFFireNet's recurrent cells at mp 2: B, H, W, Cin, Cout, Crec
 TP_K2_SHAPE = (8, 128, 128, 32, 16, 32)
@@ -5145,7 +5296,13 @@ def _digest(tensors):
 def _tp_config(recipe, batch=None):
     import event_flow_tpu_torch.config as recipes
 
-    config = copy.deepcopy(getattr(recipes, recipe))
+    base, model, neuron = TP_RECIPES.get(recipe, (recipe, None, None))
+    config = copy.deepcopy(getattr(recipes, base))
+    if model:
+        config = recipes.with_model(config, model)
+    if neuron:
+        config["model"]["spiking_neuron"] = {
+            **(config["model"].get("spiking_neuron") or {}), **neuron}
     if batch:
         config["loader"]["batch_size"] = batch
     return config
@@ -5370,7 +5527,12 @@ def _tp_check_runs(tag, label, dims, name, recipe, precision, ranks, root,
     exact launches per update and rank (those of one process: a rank
     runs every conv once, on its channels), each update held to one
     process's. Returns the launch counts of rank 0's updates."""
-    recipes = {"TRAIN_SNN": lif_update, "TRAIN_SNNREC": unet_update}
+    recipes = {"TRAIN_SNN": lif_update, "TRAIN_SNNREC": unet_update,
+               "TRAIN_XLIF": xlif_update,
+               "TRAIN_E2VID": lambda t, u: {  # MODEL_CASES' E2VID row
+                   k: u * n for k, n in _update(12, lambda t: 11 * t, 12,
+                                                4)(t).items()},
+               "TRAIN_SNN_GROUP": lambda t, u: option_update(t, u, True)}
     config = _tp_config(recipe, batch)
     mp = dims[2]
     runs = [r[(label, name)]["runs"] for r in ranks]
@@ -5425,11 +5587,12 @@ def phase_tp():
     under gloo (tp_worker) at make_mesh_3d(1, 1, 2): TRAIN_SNN's
     LIFFireNet 2 updates (the second a new sequence, from the world's
     checkpoint in one process), TRAIN_SNNREC's SpikingRecEVFlowNet one,
-    each again in bf16, at full width, with the checks of
-    _tp_check_runs; LIFFireNet's wall ms per update at (1, 1, 2) against
-    no mesh in turns and the busy ms of each. Returns (launch counts of
-    the sharded updates, with those of the Crec != Cout entries; the
-    kernel entries)."""
+    each again in bf16, and TP_MORE's XLIFFireNet, E2VID and LIFFireNet
+    under norm: group one f32 update each, at full width, with the checks
+    of _tp_check_runs; LIFFireNet's wall ms per update at (1, 1, 2)
+    against no mesh in turns and the busy ms of each. Returns (launch
+    counts of the sharded updates, with those of the Crec != Cout
+    entries; the kernel entries)."""
     import os
     import tempfile
 
@@ -5509,6 +5672,8 @@ def phase_tp_nccl():
             cases = [("lif", "TRAIN_SNN", "float32", 2, batch)]
             if dims[2] > 1:
                 cases.append(("unet", "TRAIN_SNNREC", "float32", 1, batch))
+            if dims == (1, 1, 2):
+                cases += [(*case, batch) for case in TP_MORE]
             spec.append((label, dims, cases))
         with tempfile.TemporaryDirectory() as root:
             ranks = run_world(f"{os.path.abspath(__file__)}:tp_worker", world,
@@ -5559,6 +5724,14 @@ KERNELS = (
      "event_flow_tpu/models/conv.py:93"),
     ("fused_conv_lif_rec_s8", "event_flow_tpu_torch/csrc/fused_lif.cu",
      "event_flow_tpu/models/conv.py:93"),
+    # their bfloat16 variants: JAX's int8 conv rounded to the bfloat16
+    # input's type (models/conv.py:218), the XLA cells' bfloat16 update
+    ("conv2d_same_s8_bf16", "event_flow_tpu_torch/csrc/conv.cu",
+     "event_flow_tpu/models/conv.py:93"),
+    ("fused_conv_lif_s8_bf16", "event_flow_tpu_torch/csrc/fused_lif.cu",
+     "event_flow_tpu/models/conv.py:93"),
+    ("fused_conv_lif_rec_s8_bf16", "event_flow_tpu_torch/csrc/fused_lif.cu",
+     "event_flow_tpu/models/conv.py:93"),
     # K2 rec under the model axis: the recurrent input over every channel
     (TP_K2[torch.float32], "event_flow_tpu_torch/csrc/fused_lif.cu",
      "event_flow_tpu/ops/fused_lif_pallas.py:185"),
@@ -5567,7 +5740,7 @@ KERNELS = (
 )
 
 
-PARTS = {"tp": phase_tp, "tp-nccl": phase_tp_nccl}
+PARTS = {"int8": phase_int8, "tp": phase_tp, "tp-nccl": phase_tp_nccl}
 
 
 def main(argv=None):
@@ -5620,6 +5793,9 @@ def main(argv=None):
                 **{key: measured[k][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
                for k, src, rep in KERNELS]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        fail(f"kernels never launched on their paths: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

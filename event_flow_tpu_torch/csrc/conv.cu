@@ -27,7 +27,11 @@
 // accumulate_s8) into exact int32 sums, and y = float(sum) * scale[co] is
 // written in float32, each conversion and product rounded on its own
 // (__int2float_rn, __fmul_rn) as JAX and the plain version round them; the
-// bias stays outside, as in JAX. On the path it runs the 1x1 heads (32 ->
+// bias stays outside, as in JAX. Its bfloat16 variant
+// (evf_conv2d_same_s8_bf16, int8 serving under the bfloat16 policy) rounds
+// that float32 y once to bfloat16 (__float2bfloat16_rn), JAX's
+// .astype(x.dtype) after the int8 conv (models/conv.py:218), and writes
+// half the bytes. On the path it runs the 1x1 heads (32 ->
 // 2 at 1 x 180 x 240: 1.7 MB, bound by bytes and by its launch) and the
 // U-Net's heads; the activation's quantization (amax, round) runs before
 // it as torch operations (ops/quant.py), which move more bytes than the
@@ -80,13 +84,14 @@ cudaError_t launch_co(const T* x, const T* w2, T* y, int B, int H, int W,
 }
 
 // K1-s8: y = float(int32 conv of xq with wq) * scale[co], rounded once
-// (__fmul_rn, so no contraction with anything after it), in float32
-template <int K, int CO>
+// (__fmul_rn, so no contraction with anything after it), in float32, or
+// that float32 value rounded once more to a bfloat16 y (TO = bf16)
+template <int K, int CO, class TO>
 __global__ void __launch_bounds__(NT, 2)
     conv2d_same_s8_kernel(const int8_t* __restrict__ x,
                           const int8_t* __restrict__ wq,
                           const float* __restrict__ scale,
-                          float* __restrict__ y, int H, int W, int Cin,
+                          TO* __restrict__ y, int H, int W, int Cin,
                           int Cout, Steps steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
@@ -105,24 +110,24 @@ __global__ void __launch_bounds__(NT, 2)
                         put2(y + i, y_a,
                              __fmul_rn(__int2float_rn(a1), scale[co + 1]));
                       } else {
-                        y[i] = y_a;
+                        put(y + i, y_a);
                         if (co + 1 < Cout)
-                          y[i + 1] = __fmul_rn(__int2float_rn(a1),
-                                               scale[co + 1]);
+                          put(y + i + 1,
+                              __fmul_rn(__int2float_rn(a1), scale[co + 1]));
                       }
                     });
 }
 
-template <int K, int CO>
+template <int K, int CO, class TO>
 cudaError_t launch_co(const int8_t* x, const int8_t* wq, const float* scale,
-                      float* y, int B, int H, int W, int Cin, int Cout,
+                      TO* y, int B, int H, int W, int Cin, int Cout,
                       cudaStream_t st) {
   const size_t smem = smem_bytes_s8<K, CO>();
-  const cudaError_t e = allow_smem(conv2d_same_s8_kernel<K, CO>, smem);
+  const cudaError_t e = allow_smem(conv2d_same_s8_kernel<K, CO, TO>, smem);
   if (e != cudaSuccess) return e;
   const Steps steps{copy_step<int8_t>(x, Cin), copy_step<int8_t>(wq, Cin),
-                    0, 0, Cout % 2 == 0 && aligned(y, 8)};
-  conv2d_same_s8_kernel<K, CO>
+                    0, 0, Cout % 2 == 0 && aligned(y, 2 * sizeof(TO))};
+  conv2d_same_s8_kernel<K, CO, TO>
       <<<grid_for(B, H, W, Cout, CO), NT, smem, st>>>(x, wq, scale, y, H, W,
                                                       Cin, Cout, steps);
   return cudaSuccess;
@@ -178,6 +183,15 @@ int evf_conv2d_same_bf16(const bf16* x, const bf16* w2, bf16* y, int B,
 int evf_conv2d_same_s8(const int8_t* x, const int8_t* wq, const float* scale,
                        float* y, int B, int H, int W, int Cin, int Cout,
                        int K, void* stream) {
+  return conv2d_same(K, Cout, x, wq, scale, y, B, H, W, Cin, Cout,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same with y bfloat16: the float32 y above rounded once to nearest
+// even, JAX's int8 conv under the bfloat16 policy.
+int evf_conv2d_same_s8_bf16(const int8_t* x, const int8_t* wq,
+                            const float* scale, bf16* y, int B, int H, int W,
+                            int Cin, int Cout, int K, void* stream) {
   return conv2d_same(K, Cout, x, wq, scale, y, B, H, W, Cin, Cout,
                      static_cast<cudaStream_t>(stream));
 }

@@ -195,6 +195,18 @@ __device__ __forceinline__ void put2(float* p, float a, float b) {
 __device__ __forceinline__ void put2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+// a float rounded to T's precision (to nearest even), as a float: one
+// operation of T done in float32 and rounded back
+template <class T>
+__device__ __forceinline__ float round_as(float a);
+template <>
+__device__ __forceinline__ float round_as<float>(float a) {
+  return a;
+}
+template <>
+__device__ __forceinline__ float round_as<bf16>(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
+}
 
 __device__ __forceinline__ uint32_t tf32(float a) {
   uint32_t r;

@@ -43,6 +43,16 @@
 // (int8 x; v, z in and v', z' out in float32), 7.0 us at 3.35 TB/s,
 // against 27.6 MB for the float32 K2; the activation's quantization
 // before it (ops/quant.py) reads the float32 x twice more.
+//
+// K2-s8 bf16 (evf_fused_conv_lif_s8_bf16): int8 serving under the bfloat16
+// policy, where JAX's cells run XLA's bfloat16 chain (snn_cells.py:59-64,
+// :181-206), not the Pallas kernel's float32 update: the current is the
+// float32 int8 current rounded to bfloat16 (conv.py:218), leak and thresh
+// are rounded to bfloat16 (_like), and each multiply, add and subtract of
+// the update is done in float32 (__fmul_rn, __fadd_rn, __fsub_rn: no FMA
+// contraction) and rounded to bfloat16 before the next, as XLA's CPU code
+// and torch's bfloat16 operations do; v, z, v' and z' are bfloat16, so
+// the state moves half the bytes. v' and z' are bitwise the plain form's.
 
 #include "conv_tile.cuh"
 
@@ -140,15 +150,16 @@ cudaError_t launch_inst(const Args<T>& a, cudaStream_t st) {
 // cur = float(int32 conv of xq with wq [+ zq with wrq]) * scale[co], the
 // recurrent segment summed into the same int32 accumulator (JAX's one
 // int8 conv over concat([x, z]) under one activation scale, whose sum is
-// the same integer); v, z, v', z' float32.
-template <int K, int CO, bool HARD, bool REC>
+// the same integer); v, z, v', z' float32, or (T = bf16) bfloat16 with
+// every value of the update rounded to bfloat16.
+template <int K, int CO, bool HARD, bool REC, class T>
 __global__ void __launch_bounds__(NT, 2) fused_conv_lif_s8_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
     const int8_t* __restrict__ zr, const int8_t* __restrict__ wrq,
-    const float* __restrict__ scale, const float* __restrict__ v,
-    const float* __restrict__ z, const float* __restrict__ leak,
-    const float* __restrict__ thresh, float* __restrict__ v_out,
-    float* __restrict__ z_out, int H, int W, int Cin, int Cout,
+    const float* __restrict__ scale, const T* __restrict__ v,
+    const T* __restrict__ z, const float* __restrict__ leak,
+    const float* __restrict__ thresh, T* __restrict__ v_out,
+    T* __restrict__ z_out, int H, int W, int Cin, int Cout,
     Steps steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
@@ -164,18 +175,23 @@ __global__ void __launch_bounds__(NT, 2) fused_conv_lif_s8_kernel(
                          co0, steps.r, steps.wr);
   // every operation rounded on its own, in the plain form's order (torch
   // evaluates each elementwise op separately): no contraction into FMAs,
-  // so v' and z' are bitwise the plain form's
+  // and in bfloat16 each result rounded to bfloat16 (r), so v' and z' are
+  // bitwise the plain form's
+  auto r = [](float a) { return round_as<T>(a); };
   auto lif = [&](size_t i, int co, int a) {
-    const float cur = __fmul_rn(__int2float_rn(a), scale[co]);
-    const float vv = v[i], zz = z[i], l = leak[co], th = thresh[co];
-    const float drive = __fmul_rn(__fsub_rn(1.f, l), cur);
+    const float cur = r(__fmul_rn(__int2float_rn(a), scale[co]));
+    const float vv = widen(v[i]), zz = widen(z[i]);
+    const float l = r(leak[co]), th = r(thresh[co]);
+    const float drive = r(__fmul_rn(r(__fsub_rn(1.f, l)), cur));
     const float vn =
-        HARD ? __fadd_rn(__fmul_rn(__fmul_rn(vv, l), __fsub_rn(1.f, zz)),
-                         drive)
-             : __fsub_rn(__fadd_rn(__fmul_rn(vv, l), drive),
-                         __fmul_rn(zz, th));
-    v_out[i] = vn;
-    z_out[i] = (__fsub_rn(vn, th) > 0.f) ? 1.f : 0.f;
+        HARD ? r(__fadd_rn(r(__fmul_rn(r(__fmul_rn(vv, l)),
+                                       r(__fsub_rn(1.f, zz)))),
+                           drive))
+             : r(__fsub_rn(r(__fadd_rn(r(__fmul_rn(vv, l)), drive)),
+                           r(__fmul_rn(zz, th))));
+    put(v_out + i, vn);
+    // the sign of v' - th, which rounding cannot change
+    put(z_out + i, (__fsub_rn(vn, th) > 0.f) ? 1.f : 0.f);
   };
   for_each_pair<CO>(acc, H, W, Cout, b, y0, x0, co0,
                     [&](size_t i, int co, int a0, int a1) {
@@ -184,16 +200,19 @@ __global__ void __launch_bounds__(NT, 2) fused_conv_lif_s8_kernel(
                     });
 }
 
+template <class T>
 struct ArgsS8 {
   const int8_t *x, *wq, *zr, *wrq;
-  const float *scale, *v, *z, *leak, *thresh;
-  float *v_out, *z_out;
+  const float* scale;
+  const T *v, *z;
+  const float *leak, *thresh;
+  T *v_out, *z_out;
   int B, H, W, Cin, Cout;
 };
 
-template <int K, int CO, bool HARD, bool REC>
-cudaError_t launch_inst(const ArgsS8& a, cudaStream_t st) {
-  auto kernel = fused_conv_lif_s8_kernel<K, CO, HARD, REC>;
+template <int K, int CO, bool HARD, bool REC, class T>
+cudaError_t launch_inst(const ArgsS8<T>& a, cudaStream_t st) {
+  auto kernel = fused_conv_lif_s8_kernel<K, CO, HARD, REC, T>;
   const size_t smem = smem_bytes_s8<K, CO>();
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -207,7 +226,7 @@ cudaError_t launch_inst(const ArgsS8& a, cudaStream_t st) {
   return cudaSuccess;
 }
 
-// launch_inst of the arguments' kind (Args<T> or ArgsS8) at K, the CO of
+// launch_inst of the arguments' kind (Args<T> or ArgsS8<T>) at K, the CO of
 // Cout (8 where Cout <= 8, else 32), the reset and whether recurrent
 template <int K, int CO, class A>
 cudaError_t launch_co(const A& a, bool hard, cudaStream_t st) {
@@ -285,8 +304,24 @@ int evf_fused_conv_lif_s8(const int8_t* x, const int8_t* wq,
                           float* v_out, float* z_out, int B, int H, int W,
                           int Cin, int Cout, int K, int hard_reset,
                           void* stream) {
-  const ArgsS8 a{x, wq, zr, wrq, scale, v, z, leak, thresh, v_out, z_out,
-                 B, H, W, Cin, Cout};
+  const ArgsS8<float> a{x,    wq,     zr,    wrq,   scale, v, z, leak,
+                        thresh, v_out, z_out, B, H, W, Cin, Cout};
+  return fused_conv_lif(a, K, hard_reset, stream);
+}
+
+// The same with v, z, v_out and z_out bfloat16 and the update in
+// bfloat16, each operation rounded on its own (leak and thresh float32,
+// rounded to bfloat16 first).
+int evf_fused_conv_lif_s8_bf16(const int8_t* x, const int8_t* wq,
+                               const int8_t* zr, const int8_t* wrq,
+                               const float* scale, const bf16* v,
+                               const bf16* z, const float* leak,
+                               const float* thresh, bf16* v_out,
+                               bf16* z_out, int B, int H, int W, int Cin,
+                               int Cout, int K, int hard_reset,
+                               void* stream) {
+  const ArgsS8<bf16> a{x,    wq,     zr,    wrq,   scale, v, z, leak,
+                       thresh, v_out, z_out, B, H, W, Cin, Cout};
   return fused_conv_lif(a, K, hard_reset, stream);
 }
 

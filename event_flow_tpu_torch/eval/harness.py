@@ -109,8 +109,9 @@ class Evaluator:
             b = config["loader"]["batch_size"]
             if mesh.mp != 1:
                 raise NotImplementedError(
-                    "eval over a mesh's model axis is not ported (ROADMAP "
-                    "queue 1): the model axis trains only")
+                    "eval splits the batch over a data mesh only, as JAX's "
+                    "Evaluator does (it takes a 1-D data mesh): the model "
+                    "axis trains only")
             if mesh.ep != 1:
                 raise ValueError("eval splits the batch's slots over a data "
                                  f"mesh, not a {mesh.dp} x {mesh.ep} mesh")

@@ -23,8 +23,11 @@ predict.py:33-92, models/conv.py:69-141): ``window_step`` enters
 ``ops/quant.py::quantized`` around the model call only, so the policy
 is scoped to this engine's windows (and traced into its artifact), and
 every stride-1 conv runs K1-s8 or K2-s8 on per-channel weight scales and
-one activation scale per tensor. It takes float32 only: int8 with
-bfloat16 is refused.
+one activation scale per tensor. With ``precision="bfloat16"`` too it
+serves as JAX's engine does under ``set_conv_quant("int8")`` and the
+bfloat16 levers: the encodings and the state in bfloat16, each int8
+conv's output rounded to bfloat16 (the ``_bf16`` variants of K1-s8 and
+K2-s8), the LIF updates in bfloat16 operations (ops/fused_lif.py).
 
 ``step_many`` serves S windows in one call, equal to S ``step`` calls.
 JAX scans them in one dispatch to save the TPU's round trips; here it is
@@ -49,17 +52,12 @@ class InferenceEngine:
     ``device``) window by window at the config's resolution, encoding and
     hot filter, for ``batch`` streams at once. The state is carried in
     ``precision``'s element type, float32 or bfloat16; the flow is
-    float32. ``quantize="int8"`` serves with int8 convs (float32
-    only)."""
+    float32. ``quantize="int8"`` serves with int8 convs, in either
+    precision."""
 
     def __init__(self, config, model, device="cuda", batch=1, with_iwe=False,
                  quantize=None, precision="float32"):
         self.quantize = quant_mode(quantize)
-        if self.quantize and precision != "float32":
-            raise NotImplementedError(
-                f"quantize={quantize!r} with precision={precision!r}: int8 "
-                "serving takes float32 (int8 with bfloat16 is not ported; "
-                "ROADMAP.md queue 1)")
         self.device = get_device(device)
         self.precision = precision
         self.dtype = compute_dtype(precision)

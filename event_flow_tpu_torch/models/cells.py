@@ -15,7 +15,9 @@ torch, as they sit outside the Pallas kernels in JAX. Biases and leaks
 are rounded to the conv output's element type, as in JAX (cells.py:351,
 :382; models/conv.py:244), so bfloat16 activations stay bfloat16; the
 norms' float32 affine parameters promote their output to float32 in
-both. Weights are OIHW
+both. A gate's sigmoid on a bfloat16 map is computed as XLA expands
+JAX's ``jax.nn.sigmoid`` there, 1 / (1 + exp(-x)) with each operation
+rounded to bfloat16 (:func:`_sigmoid`). Weights are OIHW
 (a transposed conv's [Cin, Cout, k, k]) under the reference's names
 (``conv2d.weight``, ``update_gate.bias``, ``Gates.weight``,
 ``transposed_conv2d.weight``, ``norm_layer.weight``, ...). Under ``norm:
@@ -51,6 +53,15 @@ __all__ = ["ConvLayer", "ConvLayerS", "ConvGRU", "ConvLSTM", "ConvRecurrent",
            "activation_fn"]
 
 _ACTS = {"relu": torch.relu, "tanh": torch.tanh}
+
+
+def _sigmoid(x):
+    """sigmoid(x); on bfloat16, 1 / (1 + exp(-x)) with each operation
+    rounded to bfloat16, as XLA expands JAX's logistic (torch's sigmoid
+    rounds once and differs from it by an ulp)."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def activation_fn(name):
@@ -195,8 +206,8 @@ class ConvGRU(nn.Module):
                                         dim=-1), u, tp)
         ur = conv2d_same(stacked, torch.cat([u.weight, r.weight], dim=0))
         ur = ur + torch.cat([u.bias, r.bias]).to(ur.dtype)
-        update = torch.sigmoid(ur[..., :f])
-        reset = torch.sigmoid(ur[..., f:])
+        update = _sigmoid(ur[..., :f])
+        reset = _sigmoid(ur[..., f:])
         out = torch.tanh(_conv(torch.cat(
             [x, whole(state * reset, features, tp)], dim=-1), self.out_gate,
             tp=tp))
@@ -211,21 +222,30 @@ class ConvLSTM(nn.Module):
     """Four-gate convolutional LSTM: one conv ``Gates`` of [x, hidden] to
     4F channels, split (i, r, o, g); cell' = sigmoid(r) * cell +
     sigmoid(i) * tanh(g), hidden' = sigmoid(o) * tanh(cell'). State
-    (hidden, cell); returns (hidden', (hidden', cell'))."""
+    (hidden, cell); returns (hidden', (hidden', cell')). Under a model
+    axis that splits the F state channels ``Gates`` holds this rank's
+    channels of each gate (utils/weights.py::gate_chunks), so do hidden
+    and cell; x and hidden are gathered over every channel for the conv.
+    Where F does not split, ``Gates``, hidden and cell stay whole."""
+
+    tp = None
 
     def __init__(self, cin, features, kernel_size=3, generator=None):
         super().__init__()
         self.features = features
         self.Gates = ConvWeight(cin + features, 4 * features, kernel_size,
-                                bias=True)
+                                bias=True, gates=4)
         _init_conv(self.Gates, None, generator)
 
     def forward(self, x, state):
         hidden, cell = state
-        gates = _conv(torch.cat([x, hidden], dim=-1), self.Gates)
+        tp, features = self.tp, self.features
+        stacked = torch.cat([whole(x, self.Gates.cin - features, tp),
+                             whole(hidden, features, tp)], dim=-1)
+        gates = _conv(stacked, self.Gates, tp=tp)
         i, r, o, g = gates.chunk(4, dim=-1)
-        cell = torch.sigmoid(r) * cell + torch.sigmoid(i) * torch.tanh(g)
-        hidden = torch.sigmoid(o) * torch.tanh(cell)
+        cell = _sigmoid(r) * cell + _sigmoid(i) * torch.tanh(g)
+        hidden = _sigmoid(o) * torch.tanh(cell)
         return hidden, (hidden, cell)
 
     def zero_state(self, batch, h, w, device):
@@ -237,6 +257,8 @@ class ConvRecurrent(nn.Module):
     """Vanilla conv RNN: state' = tanh(ff(x) + rec(state)), out =
     relu(out(state')), three K1 calls. Returns (out, state')."""
 
+    tp = None
+
     def __init__(self, cin, features, kernel_size=3, generator=None):
         super().__init__()
         self.features = features
@@ -246,8 +268,10 @@ class ConvRecurrent(nn.Module):
         self.out = _weights(features, features, k, None, None, generator)
 
     def forward(self, x, state):
-        new_state = torch.tanh(_conv(x, self.ff) + _conv(state, self.rec))
-        return torch.relu(_conv(new_state, self.out)), new_state
+        tp = self.tp
+        new_state = torch.tanh(_conv(x, self.ff, tp=tp)
+                               + _conv(state, self.rec, tp=tp))
+        return torch.relu(_conv(new_state, self.out, tp=tp)), new_state
 
     def zero_state(self, batch, h, w, device):
         return _zeros(batch, h, w, self.features, device)
@@ -352,6 +376,7 @@ class _Leak(nn.Module):
     unless ``learn_leak``."""
 
     FAMILY = "Leaky"
+    tp = None
 
     def _init_leak(self, features, leak, learn_leak, generator):
         self.leak = nn.Parameter(torch.empty(features, 1, 1))
@@ -381,7 +406,7 @@ class ConvLeaky(_Leak):
         self._init_leak(features, leak, learn_leak, generator)
 
     def forward(self, x, state, residual=None):
-        cur = _conv(x, self.ff, self.stride)
+        cur = _conv(x, self.ff, self.stride, self.tp)
         if residual is not None:
             cur = cur + residual
         new_state = self._integrate(state, cur)
@@ -411,9 +436,10 @@ class ConvLeakyRecurrent(_Leak):
         self._init_leak(features, leak, learn_leak, generator)
 
     def forward(self, x, state):
+        tp = self.tp
         new_state = torch.tanh(self._integrate(
-            state, _conv(x, self.ff) + _conv(state, self.rec)))
-        return torch.relu(_conv(new_state, self.out)), new_state
+            state, _conv(x, self.ff, tp=tp) + _conv(state, self.rec, tp=tp)))
+        return torch.relu(_conv(new_state, self.out, tp=tp)), new_state
 
     def zero_state(self, batch, h, w, device):
         return _zeros(batch, h, w, self.features, device)

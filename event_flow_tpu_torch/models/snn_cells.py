@@ -67,6 +67,13 @@ Cell contract: ``cell(x, state[, residual]) -> (spikes [+ residual],
 new_state)``, NHWC tensors, state ``(v, z)`` for LIF and ``(v, z, pt)``
 or ``(v, z, t)`` for the others; a layer's state nests its cells'.
 ``zero_state(batch, h, w, device)`` takes the input's size.
+
+Under a mesh's model axis (parallel/tensor.py) a cell holds its share of
+the output channels, of every per-channel vector and of its state; it
+reads x and z_prev whole (gathered; the group norms normalize the whole
+maps, :meth:`_SpikingBase._inputs`), so the presynaptic trace of PLIF
+and XLIF, mean |x| over the input's channels, is the whole input's on
+every rank, and its reset takes its own channels of z.
 """
 
 import math
@@ -79,7 +86,7 @@ from ..ops.fused_lif import fused_conv_lif, fused_conv_lif_rec
 from ..ops.quant import conv_quant
 from ..ops.resize import avg_pool, upsample2x_bilinear
 from ..ops.spike import get_spike_fn
-from ..parallel.tensor import layer_input
+from ..parallel.tensor import layer_input, local, whole_param
 
 __all__ = ["ConvWeight", "WeightNormConv", "GroupNorm", "ConvLIF",
            "ConvLIFRecurrent", "ConvPLIF", "ConvPLIFRecurrent", "ConvALIF",
@@ -94,10 +101,14 @@ class ConvWeight(nn.Module):
     k]) and optional bias under the reference's parameter names; the conv
     itself is run by the kernels."""
 
-    def __init__(self, cin, cout, k, bias=False, transposed=False):
+    def __init__(self, cin, cout, k, bias=False, transposed=False,
+                 gates=1):
         super().__init__()
         self.transposed = transposed
         self.cin, self.cout = cin, cout  # whole, under a mesh too
+        # the output channels hold ``gates`` gates of cout / gates each,
+        # split on their own (utils/weights.py::gate_chunks)
+        self.gates = gates
         shape = (cin, cout, k, k) if transposed else (cout, cin, k, k)
         self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
@@ -112,9 +123,11 @@ class WeightNormConv(nn.Module):
 
     bias = None
     transposed = False
+    gates = 1
 
     def __init__(self, cin, cout, k):
         super().__init__()
+        self.cin, self.cout = cin, cout  # whole, under a mesh too
         self.weight_v = nn.Parameter(torch.empty(cout, cin, k, k))
         self.weight_g = nn.Parameter(torch.empty(cout, 1, 1, 1))
 
@@ -135,19 +148,29 @@ class GroupNorm(nn.Module):
     """GroupNorm with one group over an NHWC map, eps 1e-5: each sample
     brought to zero mean and unit variance (biased) over (H, W, C), then
     a per-channel ``weight`` (1) and ``bias`` (0), flax's
-    ``nn.GroupNorm(num_groups=1)`` under torch's ``nn.GroupNorm`` names."""
+    ``nn.GroupNorm(num_groups=1)`` under torch's ``nn.GroupNorm`` names.
+    A bfloat16 map is normalized in float32, as flax computes its
+    statistics and the normalization (the float32 affine makes the
+    output float32 either way). Under a model axis it normalizes the
+    whole (gathered) map, its affine vectors gathered where they are
+    split (parallel/tensor.py)."""
+
+    tp = None
 
     def __init__(self, features, eps=1e-5):
         super().__init__()
+        self.features = features
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        x = x.float()
         mean = x.mean(dim=(1, 2, 3), keepdim=True)
         var = (x - mean).square().mean(dim=(1, 2, 3), keepdim=True)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
-            + self.bias
+        weight, bias = (whole_param(p, self.features, self.tp)
+                        for p in (self.weight, self.bias))
+        return (x - mean) * torch.rsqrt(var + self.eps) * weight + bias
 
 
 def _uniform_(t, bound, generator):
@@ -250,31 +273,42 @@ class _SpikingBase(nn.Module):
         p = p.reshape(-1)
         return p if dtype is None else p.to(dtype)
 
-    def _normed(self, x, z):
-        """x and z_prev after the group norms: the input's, and in a
-        recurrent cell z_prev's, which then feeds the current and the
-        reset."""
-        if self.norm_kind != "group":
-            return x, z
-        if self.RECURRENT:
-            return self.norm_ff(x), self.norm_rec(z)
-        return self.norm(x), z
+    def _inputs(self, x, z):
+        """(x, z_rec, z): the cell's input, its recurrent input (None in a
+        feedforward cell) and the z of its reset. Under the group norms x
+        and, in a recurrent cell, z_prev normalized, the normalized z then
+        feeding the current and the reset. Under a model axis x and z_rec
+        are whole (parallel/tensor.py::layer_input: gathered, normed, then
+        copied) and the reset takes this rank's channels of z."""
+        group = self.norm_kind == "group"
+        x = layer_input(x, self.ff, self.tp, (
+            self.norm_ff if self.RECURRENT else self.norm) if group else None)
+        if not self.RECURRENT:
+            return x, None, z
+        z_rec = layer_input(z, self.rec, self.tp,
+                            self.norm_rec if group else None)
+        return x, z_rec, local(z_rec, self.features, self.tp) if group else z
 
-    def _current(self, x, z):
-        """ff(x) [+ rec(z)]: K1 at stride 1, the strided conv otherwise;
-        a strided recurrent cell adds rec(z) by K1 on the output's grid.
-        A recurrent cell at stride 1 takes one conv over concat([x, z]),
-        but under int8 a weight-normed one takes two, as JAX's does
-        (snn_cells.py:440-448): each quantizes its own input."""
+    def _current(self, x, z_rec):
+        """ff(x) [+ rec(z_rec)]: K1 at stride 1, the strided conv
+        otherwise; a strided recurrent cell adds rec(z_rec) by K1 on the
+        output's grid. A recurrent cell at stride 1 takes one conv over
+        concat([x, z_rec]), but under int8 a weight-normed one takes two,
+        as JAX's does (snn_cells.py:440-448): each quantizes its own
+        input."""
         split = self.norm_kind == "weight" and conv_quant() == "int8"
         if self.RECURRENT and self.stride == 1 and not split:
-            return conv2d_same(torch.cat([x, z], dim=-1), torch.cat(
-                [self.ff.weight, self.rec.weight], dim=1))
+            # the kernels in x's type, as JAX's _fused_current casts them
+            # (what int8 quantizes; a float conv casts them anyway)
+            return conv2d_same(torch.cat([x, z_rec], dim=-1), torch.cat(
+                [self.ff.weight, self.rec.weight], dim=1).to(x.dtype))
         if self.stride == 1:
             ff = conv2d_same(x, self.ff.weight)
         else:
             ff = conv2d_strided(x, self.ff.weight, self.stride)
-        return ff + conv2d_same(z, self.rec.weight) if self.RECURRENT else ff
+        if self.RECURRENT:
+            return ff + conv2d_same(z_rec, self.rec.weight)
+        return ff
 
     def _trace(self, x, pt):
         """PLIF's presynaptic trace pt' from the cell's input x."""
@@ -326,15 +360,15 @@ class ConvLIF(_SpikingBase):
         return self._p("leak"), self._p("thresh")
 
     def _unfused(self, x, v, z):
-        x, z = self._normed(x, z)
-        cur = self._current(x, z)
+        x, z_rec, z = self._inputs(x, z)
+        cur = self._current(x, z_rec)
         thresh = self._p("thresh", cur.dtype)
         return self._fire(v, z, cur, thresh, thresh)
 
     def forward(self, x, state, residual=None):
         v, z = state
-        x = layer_input(x, self.ff, self.tp)
         if self.fused:
+            x, _, _ = self._inputs(x, z)
             leak, thresh = self._neuron()
             v_out, z_out = fused_conv_lif(
                 x, self.ff.weight, v, z, leak, thresh, self.kernel_size,
@@ -355,13 +389,12 @@ class ConvLIFRecurrent(ConvLIF):
 
     def forward(self, x, state):
         v, z = state
-        x = layer_input(x, self.ff, self.tp)
         if self.fused:
+            x, z_rec, _ = self._inputs(x, z)
             leak, thresh = self._neuron()
             v_out, z_out = fused_conv_lif_rec(
-                x, self.ff.weight, self.rec.weight, v, z,
-                layer_input(z, self.rec, self.tp), leak, thresh,
-                self.kernel_size, self.hard_reset, self.activation,
+                x, self.ff.weight, self.rec.weight, v, z, z_rec, leak,
+                thresh, self.kernel_size, self.hard_reset, self.activation,
                 self.act_width)
         else:
             v_out, z_out = self._unfused(x, v, z)
@@ -379,7 +412,8 @@ class ConvPLIF(_SpikingBase):
 
     def forward(self, x, state, residual=None):
         v, z, pt = state
-        ff = self._current(x, z)
+        x, z_rec, z = self._inputs(x, z)
+        ff = self._current(x, z_rec)
         thresh = self._p("thresh", ff.dtype)
         pt_out = self._trace(x, pt)
         cur = ff - self._p("add_pt", ff.dtype) * pt_out
@@ -400,7 +434,8 @@ class ConvALIF(_SpikingBase):
 
     def forward(self, x, state, residual=None):
         v, z, t = state
-        ff = self._current(x, z)
+        x, z_rec, z = self._inputs(x, z)
+        ff = self._current(x, z_rec)
         t0, t1, leak_t = (self._p(n, ff.dtype) for n in ("t0", "t1",
                                                           "leak_t"))
         t_out = t * leak_t + (1.0 - leak_t) * z
@@ -421,7 +456,8 @@ class ConvXLIF(_SpikingBase):
 
     def forward(self, x, state, residual=None):
         v, z, pt = state
-        ff = self._current(x, z)
+        x, z_rec, z = self._inputs(x, z)
+        ff = self._current(x, z_rec)
         t0, t1 = self._p("t0", ff.dtype), self._p("t1", ff.dtype)
         pt_out = self._trace(x, pt)
         v_out, z_out = self._fire(v, z, ff, t0 + t1 * pt, t0 + t1 * pt_out)

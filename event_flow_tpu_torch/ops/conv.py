@@ -43,11 +43,15 @@ on the card and, on the CPU, through that float32 form.
 int8 serving (ops/quant.py): under ``quantized("int8")``
 :func:`conv2d_same` quantizes x (one scale) and w (per output channel)
 and calls the operator ``evflow::conv2d_same_s8`` (K1-s8 on the card,
-:func:`conv2d_same_s8_plain` on the CPU; csrc/conv.cu), float32 out;
-:func:`conv2d_strided` convolves the dequantized values in float32, as
-JAX does on the TPU (event_flow_tpu/models/conv.py:115-130);
-:func:`conv_transpose2x` is not quantized (conv.py:332-372). An int8
-CUDA tensor launches K1-s8 or raises; the float K1 refuses it.
+:func:`conv2d_same_s8_plain` on the CPU; csrc/conv.cu), float32 out, or
+on a bfloat16 x ``evflow::conv2d_same_s8_bf16``, whose y is the float32
+y rounded once to bfloat16, as JAX's ``.astype(x.dtype)`` rounds it
+(event_flow_tpu/models/conv.py:218; the bias, where a layer has one, is
+added after the rounding, in bfloat16, :220); :func:`conv2d_strided`
+convolves the dequantized values in float32, as JAX does on the TPU
+(conv.py:115-130), and rounds y to x's type; :func:`conv_transpose2x`
+is not quantized (conv.py:332-372). An int8 CUDA tensor launches K1-s8
+or raises; the float K1 refuses it.
 
 K1 source note: replaces the Pallas im2col strip matmul ``_conv_fwd``
 (conv_pallas.py:113-136). On the H100 it is an implicit GEMM on the
@@ -85,6 +89,8 @@ GFLOP, 4.9 us at the TF32 peak); on the card the MMA passes set its pace
 (``PERF.md``).
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -95,7 +101,8 @@ from .quant import conv_quant, int8_operands, quantize_operands
 __all__ = ["conv2d_same", "conv2d_same_plain", "conv2d_strided",
            "conv_transpose2x", "conv2d_dw_plain", "conv2d_dw_kernel",
            "conv_same_grads", "flatten_kernel", "conv2d_same_s8_plain",
-           "conv2d_same_s8_kernel", "S8_MAX_TERMS"]
+           "conv2d_same_s8_kernel", "conv2d_same_s8_bf16_plain",
+           "S8_MAX_TERMS"]
 
 # K*K*Cin of an int8 conv whose int32 sum cannot overflow: 127^2 per term
 S8_MAX_TERMS = (2 ** 31 - 1) // (127 * 127)
@@ -234,7 +241,7 @@ def conv2d_strided(x, w, stride):
         ((xq,), a_scale), ((wq,), w_scale) = quantize_operands(
             "conv2d_strided", (x,), (w,))
         return _strided_op(xq.float() * a_scale, wq.float() * w_scale,
-                           stride)
+                           stride).to(x.dtype)
     return _ConvStrided.apply(x, w.to(x.dtype), stride)
 
 
@@ -405,10 +412,11 @@ def conv2d_same(x, w):
     w [Cout,Cin,k,k], odd k <= 5, differentiable in x and w; w is cast to
     x's element type, so y is in it. Under ``quantized("int8")``
     (ops/quant.py) x and w are quantized and the conv is
-    ``evflow::conv2d_same_s8``, float32 out, not differentiable."""
+    ``evflow::conv2d_same_s8`` (``_bf16`` on a bfloat16 x), y in x's
+    type, not differentiable."""
     if conv_quant() == "int8":
         (xq,), (wq,), scale = int8_operands("conv2d_same", (x,), (w,))
-        return _conv_s8(xq, wq, scale)
+        return _CONV_S8[x.dtype](xq, wq, scale)
     return _ConvSame.apply(x, w.to(x.dtype))
 
 
@@ -452,19 +460,26 @@ def conv2d_same_s8_plain(xq, wq, scale):
     return (y * scale.reshape(-1)).contiguous()
 
 
-def conv2d_same_s8_kernel(xq, wq, scale):
+def conv2d_same_s8_bf16_plain(xq, wq, scale):
+    """Plain version of K1-s8's bfloat16 variant: the float32 y of
+    :func:`conv2d_same_s8_plain` rounded once to bfloat16."""
+    return conv2d_same_s8_plain(xq, wq, scale).to(torch.bfloat16)
+
+
+def conv2d_same_s8_kernel(xq, wq, scale, dtype=torch.float32):
     """Launch K1-s8 on int8 xq [B,H,W,Cin] and wq [Cout,Cin,k,k] and
-    float32 scale [Cout] on one CUDA device; returns y float32."""
+    float32 scale [Cout] on one CUDA device; returns y in ``dtype``,
+    float32 or (the ``_bf16`` variant) bfloat16."""
     k = _check_s8("conv2d_same_s8", xq, wq, scale)
-    name = "conv2d_same_s8"
+    name = native.variant("conv2d_same_s8", dtype)
     wq2 = ohwi(wq)
     scale = scale.reshape(-1).contiguous()
     native.require_cuda(name, torch.int8, xq, wq2)
     native.require_cuda(name, torch.float32, scale, device=xq.device)
     b, h, wd, cin = xq.shape
     cout = wq.shape[0]
-    y = torch.empty((b, h, wd, cout), device=xq.device, dtype=torch.float32)
-    err = native.library().evf_conv2d_same_s8(
+    y = torch.empty((b, h, wd, cout), device=xq.device, dtype=dtype)
+    err = getattr(native.library(), "evf_" + name)(
         xq.data_ptr(), wq2.data_ptr(), scale.data_ptr(), y.data_ptr(), b, h,
         wd, cin, cout, k, native.stream_handle(xq.device))
     native.check(err, name)
@@ -472,12 +487,19 @@ def conv2d_same_s8_kernel(xq, wq, scale):
     return y
 
 
-def _conv_s8_fake(xq, wq, scale):
+def _conv_s8_fake(xq, wq, scale, dtype=torch.float32):
     _check_s8("conv2d_same_s8", xq, wq, scale)
-    return xq.new_empty((*xq.shape[:3], wq.shape[0]), dtype=torch.float32)
+    return xq.new_empty((*xq.shape[:3], wq.shape[0]), dtype=dtype)
 
 
-# K1-s8 on CUDA tensors, its plain version on CPU tensors
-_conv_s8 = native.define_op(
-    "conv2d_same_s8", "(Tensor xq, Tensor wq, Tensor scale) -> Tensor",
-    conv2d_same_s8_plain, conv2d_same_s8_kernel, _conv_s8_fake)
+# K1-s8 on CUDA tensors, its plain version on CPU tensors; the operator
+# of each output type (float32, and bfloat16 as ``_bf16``)
+_S8_SCHEMA = "(Tensor xq, Tensor wq, Tensor scale) -> Tensor"
+_S8_PLAIN = {torch.float32: conv2d_same_s8_plain,
+             torch.bfloat16: conv2d_same_s8_bf16_plain}
+_CONV_S8 = {}
+for _dtype, _suffix in native.DTYPES.items():
+    _CONV_S8[_dtype] = native.define_op(
+        "conv2d_same_s8" + _suffix, _S8_SCHEMA, _S8_PLAIN[_dtype],
+        functools.partial(conv2d_same_s8_kernel, dtype=_dtype),
+        functools.partial(_conv_s8_fake, dtype=_dtype))

@@ -46,7 +46,18 @@ and w (with w_rec, per output channel over both) and call
 card (csrc/fused_lif.cu, on the int8 mainloop of K1-s8), on the CPU
 :func:`fused_conv_lif_s8_plain` / :func:`fused_conv_lif_rec_s8_plain`
 (the plain int8 conv, then :func:`lif_update`), bitwise equal. No
-backward: int8 serves only.
+backward: int8 serves only. On bfloat16 x, v and z (int8 serving under
+the bfloat16 policy) the ``_s8_bf16`` operators follow JAX's XLA cell
+route, not the Pallas one: the current is the int8 conv's float32 y
+rounded to bfloat16 (conv.py:218), leak and thresh are rounded to
+bfloat16 (``_like``, snn_cells.py:59-64), and every operation of the
+update is a bfloat16 operation, rounded on its own, which is what XLA
+compiles on the CPU for that chain (each op computed in float32 and
+rounded back; tests/test_torch_quant.py holds the plain form to JAX's
+jitted cell bitwise). v' and z' are bfloat16. The recurrent cell rounds
+its two float32 weights to bfloat16 before quantizing them, as JAX's
+``_fused_current`` casts the concatenated kernel (snn_cells.py:105-108);
+the feedforward cell quantizes its float32 weight, as JAX's ``Conv2d``.
 
 B4 source note: see ``csrc/fused_lif_bwd.cu``: elementwise, bound by
 device memory (five maps read, two written), one cooperative launch. A
@@ -82,6 +93,8 @@ per-channel sums; they count under
 and round the same outputs once. The public functions cast the float32
 weights to x's type, as JAX's cells do (snn_cells.py:176, :432).
 """
+
+import functools
 
 import torch
 
@@ -151,12 +164,23 @@ def fused_conv_lif_rec_plain(x, w, w_rec, v, z, z_rec, leak, thresh, k,
     return lif_update(cur, v, z, leak, thresh, hard_reset, activation, width)
 
 
+def _s8_update(cur, v, z, leak, thresh, hard_reset, activation, width):
+    """The LIF update of K2-s8's plain forms after the float32 int8
+    current ``cur``, in v's element type: on bfloat16 the current, leak
+    and thresh rounded to it and every operation of the update a
+    bfloat16 one (JAX's XLA cell under int8 and the bfloat16 policy)."""
+    if v.dtype != torch.float32:
+        cur, leak, thresh = (t.to(v.dtype) for t in (cur, leak, thresh))
+    return lif_update(cur, v, z, leak, thresh, hard_reset, activation, width)
+
+
 def fused_conv_lif_s8_plain(xq, wq, scale, v, z, leak, thresh, k,
                             hard_reset=True, activation="arctanspike",
                             width=10.0):
     """Plain version of K2-s8: the plain int8 conv (float32 current
-    float(int32 sum) * scale), then the LIF update; v, z float32."""
-    return lif_update(conv2d_same_s8_plain(xq, wq, scale), v, z, leak,
+    float(int32 sum) * scale), then the LIF update; v, z and v', z'
+    float32, or bfloat16 (the ``_bf16`` variant: :func:`_s8_update`)."""
+    return _s8_update(conv2d_same_s8_plain(xq, wq, scale), v, z, leak,
                       thresh, hard_reset, activation, width)
 
 
@@ -166,10 +190,10 @@ def fused_conv_lif_rec_s8_plain(xq, wq, wrq, scale, v, z, zq, leak, thresh,
     """Plain version of the recurrent K2-s8: one int8 conv over
     concat([xq, zq]) with the kernels concatenated along the input
     channels (JAX's ``_fused_current`` under int8: one sum, one scale),
-    then the LIF update."""
+    then the LIF update, in v's type as :func:`fused_conv_lif_s8_plain`."""
     cur = conv2d_same_s8_plain(torch.cat([xq, zq], dim=-1),
                                torch.cat([wq, wrq], dim=1), scale)
-    return lif_update(cur, v, z, leak, thresh, hard_reset, activation, width)
+    return _s8_update(cur, v, z, leak, thresh, hard_reset, activation, width)
 
 
 def fused_lif_bwd_plain(v, z, v_out, leak, thresh, g_v, g_z, hard_reset,
@@ -316,10 +340,12 @@ def _rec_kernel(x, w, w_rec, v, z, z_rec, leak, thresh, k, hard_reset,
                    hard_reset, z_rec=z_rec, w_rec=w_rec)
 
 
-def _launch_s8(name, xq, wq, scale, v, z, leak, thresh, k, hard_reset,
-               zq=None, wrq=None):
-    """Launch K2-s8 (recurrent where zq is given): int8 xq, wq (OIHW),
-    zq, wrq; float32 scale, v, z, leak, thresh on one CUDA device."""
+def _launch_s8(name, dtype, xq, wq, scale, v, z, leak, thresh, k,
+               hard_reset, zq=None, wrq=None):
+    """Launch K2-s8 (recurrent where zq is given), its float32 or
+    bfloat16 variant after ``dtype``: int8 xq, wq (OIHW), zq, wrq;
+    float32 scale, leak, thresh; v, z in ``dtype``, on one CUDA
+    device."""
     if _check_s8(name, xq, wq, scale) != k:
         raise ValueError(f"{name}: k={k} but the kernel is {tuple(wq.shape)}")
     b, h, wd, cin = xq.shape
@@ -341,10 +367,13 @@ def _launch_s8(name, xq, wq, scale, v, z, leak, thresh, k, hard_reset,
             raise ValueError(f"{name}: k*k*(Cin+Cout) could overflow the "
                              "int32 sum")
         ints += [zq, ohwi(wrq)]
+    name = native.variant(name, dtype)
     native.require_cuda(name, torch.int8, *ints)
-    native.require_cuda(name, torch.float32, scale, v, z, leak, thresh,
+    native.require_cuda(name, torch.float32, scale, leak, thresh,
                         device=xq.device)
-    entry = native.library().evf_fused_conv_lif_s8
+    native.require_cuda(name, dtype, v, z, device=xq.device)
+    entry = getattr(native.library(),
+                    native.variant("evf_fused_conv_lif_s8", dtype))
     v_out = torch.empty_like(v)
     z_out = torch.empty_like(v)
     ptrs = [t.data_ptr() for t in ints]
@@ -360,15 +389,15 @@ def _launch_s8(name, xq, wq, scale, v, z, leak, thresh, k, hard_reset,
 
 
 def _ff_s8_kernel(xq, wq, scale, v, z, leak, thresh, k, hard_reset,
-                  activation, width):
-    return _launch_s8("fused_conv_lif_s8", xq, wq, scale, v, z, leak, thresh,
-                      k, hard_reset)
+                  activation, width, dtype=torch.float32):
+    return _launch_s8("fused_conv_lif_s8", dtype, xq, wq, scale, v, z, leak,
+                      thresh, k, hard_reset)
 
 
 def _rec_s8_kernel(xq, wq, wrq, scale, v, z, zq, leak, thresh, k,
-                   hard_reset, activation, width):
-    return _launch_s8("fused_conv_lif_rec_s8", xq, wq, scale, v, z, leak,
-                      thresh, k, hard_reset, zq=zq, wrq=wrq)
+                   hard_reset, activation, width, dtype=torch.float32):
+    return _launch_s8("fused_conv_lif_rec_s8", dtype, xq, wq, scale, v, z,
+                      leak, thresh, k, hard_reset, zq=zq, wrq=wrq)
 
 
 def _ff_fake(x, w, v, *args):
@@ -388,17 +417,23 @@ _rec_op = native.define_op(
     "fused_conv_lif_rec", "(Tensor x, Tensor w, Tensor w_rec, Tensor v, "
     "Tensor z, Tensor z_rec, " + _CELL_ARGS,
     fused_conv_lif_rec_plain, _rec_kernel, _rec_fake)
-# K2-s8: the int8 operands and the [Cout] scale a_scale * w_scale
-_ff_s8_op = native.define_op(
-    "fused_conv_lif_s8", "(Tensor xq, Tensor wq, Tensor scale, Tensor v, "
-    "Tensor z, " + _CELL_ARGS,
-    fused_conv_lif_s8_plain, _ff_s8_kernel,
-    lambda xq, wq, scale, v, *args: _ff_fake(xq, wq, v))
-_rec_s8_op = native.define_op(
-    "fused_conv_lif_rec_s8", "(Tensor xq, Tensor wq, Tensor wrq, "
-    "Tensor scale, Tensor v, Tensor z, Tensor zq, " + _CELL_ARGS,
-    fused_conv_lif_rec_s8_plain, _rec_s8_kernel,
-    lambda xq, wq, wrq, scale, v, *args: _ff_fake(xq, wq, v))
+# K2-s8: the int8 operands and the [Cout] scale a_scale * w_scale; the
+# operators of each state type (float32, and bfloat16 as ``_bf16``)
+_FF_S8, _REC_S8 = {}, {}
+for _dtype, _suffix in native.DTYPES.items():
+    _FF_S8[_dtype] = native.define_op(
+        "fused_conv_lif_s8" + _suffix, "(Tensor xq, Tensor wq, "
+        "Tensor scale, Tensor v, Tensor z, " + _CELL_ARGS,
+        fused_conv_lif_s8_plain,
+        functools.partial(_ff_s8_kernel, dtype=_dtype),
+        lambda xq, wq, scale, v, *args: _ff_fake(xq, wq, v))
+    _REC_S8[_dtype] = native.define_op(
+        "fused_conv_lif_rec_s8" + _suffix, "(Tensor xq, Tensor wq, "
+        "Tensor wrq, Tensor scale, Tensor v, Tensor z, Tensor zq, "
+        + _CELL_ARGS,
+        fused_conv_lif_rec_s8_plain,
+        functools.partial(_rec_s8_kernel, dtype=_dtype),
+        lambda xq, wq, wrq, scale, v, *args: _ff_fake(xq, wq, v))
 
 
 class _FusedConvLIF(torch.autograd.Function):
@@ -463,11 +498,12 @@ def fused_conv_lif(x, w, v, z, leak, thresh, k, hard_reset=True,
     post-squash, float32. Returns (v', z') in x's type. ``activation``
     and ``width`` name the surrogate gradient of the backward. Under
     ``quantized("int8")`` (ops/quant.py) x and w are quantized and the
-    cell is ``evflow::fused_conv_lif_s8``, not differentiable."""
+    cell is ``evflow::fused_conv_lif_s8`` (``_bf16`` on bfloat16 x),
+    not differentiable."""
     if conv_quant() == "int8":
         (xq,), (wq,), scale = int8_operands("fused_conv_lif", (x,), (w,), v)
-        return _ff_s8_op(xq, wq, scale, v, z, leak, thresh, k, hard_reset,
-                         activation, float(width))
+        return _FF_S8[x.dtype](xq, wq, scale, v, z, leak, thresh, k,
+                               hard_reset, activation, float(width))
     return _FusedConvLIF.apply(x, w.to(x.dtype), v, z, leak, thresh, k,
                                hard_reset, activation, float(width))
 
@@ -480,14 +516,17 @@ def fused_conv_lif_rec(x, w, w_rec, v, z, z_rec, leak, thresh, k,
     ``z`` itself, or under a mesh's model axis ``z`` gathered over every
     channel: z_rec [B,H,W,Crec], w_rec [Cout,Crec,k,k] with Crec !=
     Cout). Returns (v', z'). Under ``quantized("int8")`` x and
-    z_rec are quantized under one scale, w and w_rec under per-channel
-    scales over both (JAX's int8 conv of concat([x, z])), and the cell is
-    ``evflow::fused_conv_lif_rec_s8``."""
+    z_rec are quantized under one scale, w and w_rec, rounded to x's type
+    first, under per-channel scales over both (JAX's int8 conv of
+    concat([x, z]) with the concatenated kernel cast to x's type), and
+    the cell is ``evflow::fused_conv_lif_rec_s8`` (``_bf16`` on bfloat16
+    x)."""
     if conv_quant() == "int8":
         (xq, zq), (wq, wrq), scale = int8_operands(
-            "fused_conv_lif_rec", (x, z_rec), (w, w_rec), v)
-        return _rec_s8_op(xq, wq, wrq, scale, v, z, zq, leak, thresh, k,
-                          hard_reset, activation, float(width))
+            "fused_conv_lif_rec", (x, z_rec),
+            (w.to(x.dtype), w_rec.to(x.dtype)), v)
+        return _REC_S8[x.dtype](xq, wq, wrq, scale, v, z, zq, leak, thresh,
+                                k, hard_reset, activation, float(width))
     return _FusedConvLIFRec.apply(x, w.to(x.dtype), w_rec.to(x.dtype), v, z,
                                   z_rec, leak, thresh, k, hard_reset,
                                   activation, float(width))

@@ -12,7 +12,8 @@ Every wrapper that launches a kernel adds one to its entry in
 that its main path went through the kernels. The bfloat16 variants of K1,
 K2, B2 and B4 count under their own names (``conv2d_same_bf16``, ...),
 and so do the int8 variants of K1 and K2 (``conv2d_same_s8``,
-``fused_conv_lif_s8``, ``fused_conv_lif_rec_s8``). A wrapper takes the
+``fused_conv_lif_s8``, ``fused_conv_lif_rec_s8``) and their bfloat16
+variants (``conv2d_same_s8_bf16``, ...). A wrapper takes the
 element types :func:`require_cuda` allows it and raises on any other: a
 bfloat16 tensor launches a bfloat16 kernel, never a float32 one, and an
 int8 tensor only an int8 one.
@@ -51,7 +52,9 @@ LAUNCHES = {"conv2d_same": 0, "fused_conv_lif": 0, "fused_conv_lif_rec": 0,
             "conv2d_same_bf16": 0, "fused_conv_lif_bf16": 0,
             "fused_conv_lif_rec_bf16": 0, "conv2d_dw_bf16": 0,
             "fused_lif_bwd_bf16": 0, "conv2d_same_s8": 0,
-            "fused_conv_lif_s8": 0, "fused_conv_lif_rec_s8": 0}
+            "fused_conv_lif_s8": 0, "fused_conv_lif_rec_s8": 0,
+            "conv2d_same_s8_bf16": 0, "fused_conv_lif_s8_bf16": 0,
+            "fused_conv_lif_rec_s8_bf16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,7 +76,8 @@ _SIGNATURES = {
 }
 # the bfloat16 entries take the float32 ones' arguments
 for _name in ("evf_conv2d_same", "evf_fused_conv_lif", "evf_conv_dw",
-              "evf_fused_lif_bwd"):
+              "evf_fused_lif_bwd", "evf_conv2d_same_s8",
+              "evf_fused_conv_lif_s8"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
 
 _lib = None

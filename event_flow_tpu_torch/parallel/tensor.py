@@ -24,7 +24,16 @@ input without the copy: its input gradient is already whole on every
 rank. So the gradient of every whole activation is whole on every model
 rank, the replicated parameters get equal gradients on every model rank,
 and the gradients are summed over the ``replica_group`` only
-(train/step.py).
+(train/step.py). What a layer computes from its whole input before the
+split conv goes between the gather and the copy (``layer_input``'s
+``norm``): a LIF cell's one-group GroupNorm of x and of z_prev
+normalizes the gathered map, whose statistics are the whole map's on
+every rank, with its affine vectors gathered too (:func:`whole_param`),
+so its gradients are whole; a cell's trace of mean |x| (PLIF, XLIF) reads
+the copied whole x, so its gradient, partial on each rank like the
+conv's, is summed by the same copy. Statistics over a layer's own output
+channels (BN, IN, weight norm's per-channel norm over (Cin, k, k)) are
+local.
 
 JAX's layout rule decides what is split (:meth:`Mesh.splits`): a channel
 axis that is a multiple of ``mp`` and at least 8, so the flow heads stay
@@ -39,11 +48,17 @@ value plus zeros). Each collective adds to :data:`TRAFFIC` (count and the
 whole tensor's bytes), so a run can report the model-group traffic of an
 update.
 
-Ported: the LIF cells (fused and strided, no norm, the reset detached),
-ConvLayer(S), ConvGRU, the ANN residual blocks, the upsample and
-transposed decoders, LIFFireNet, FireNet, SpikingRecEVFlowNet and
-RecEVFlowNet. Every other model, cell or option raises
-``NotImplementedError`` under ``mp > 1`` (:func:`check_supported`).
+Every model of models/registry.py and every cell option trains under a
+model axis: the LIF, PLIF, ALIF and XLIF cells (fused or not, feedforward
+and recurrent, strided, with ``norm: group | weight`` and ``detach:
+False``), the Leaky cells, ConvGRU, ConvLSTM and ConvRecurrent, the ANN
+layers with BN or IN, and the U-Nets' decoders. ConvLSTM's ``Gates``
+conv of 4F outputs is chunked into its i, r, o and g gates after the
+conv, so each gate's quarter of the weight is split on its own
+(utils/weights.py::shard_state_dict) and a rank holds the same channels
+of all four; where F does not split, ``Gates`` stays whole as the state
+does (JAX's GSPMD splits the 4F outputs there too and moves the gates'
+channels after the conv: the same values, another layout).
 """
 
 from collections import Counter
@@ -52,17 +67,14 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-__all__ = ["TRAFFIC", "gather", "copy", "whole", "layer_input",
-           "gather_axis", "all_reduce", "is_split", "shard_model",
-           "check_supported", "shard_state", "unshard_state",
-           "SUPPORTED_MODELS"]
+__all__ = ["TRAFFIC", "gather", "copy", "whole", "whole_param", "local",
+           "layer_input", "gather_axis", "all_reduce", "is_split",
+           "shard_model", "shard_state",
+           "unshard_state"]
 
 # model-group collectives since the last reset: counts and whole-tensor
 # bytes of the activation gathers and of the gradient all-reduces
 TRAFFIC = Counter()
-
-SUPPORTED_MODELS = ("LIFFireNet", "SpikingRecEVFlowNet", "FireNet",
-                    "RecEVFlowNet")
 
 
 def _rows(t, mesh):
@@ -153,15 +165,38 @@ def whole(x, channels, mesh):
     return gather(x, mesh)
 
 
-def layer_input(x, conv, mesh):
-    """``x`` (split or whole) as the input of the conv weight holder
-    ``conv`` (models/snn_cells.py::ConvWeight, whole ``cin`` and ``cout``)
-    under ``mesh``: whole, and where ``cout`` is split, with its gradient
-    summed over the model group."""
-    if mesh is None:
+def whole_param(p, channels, mesh):
+    """The parameter ``p`` (a [C] vector) with all ``channels``: gathered
+    where this rank holds its share (a gather: the backward takes this
+    rank's slice of a gradient that is whole on every rank)."""
+    if mesh is None or p.shape[0] == channels:
+        return p
+    return gather(p, mesh)
+
+
+def local(x, channels, mesh):
+    """This rank's channels of an NHWC ``x`` holding all ``channels``
+    where ``mesh`` splits them (the slice's gradient covers those
+    channels), else ``x``."""
+    if mesh is None or not mesh.splits(channels):
         return x
+    n = channels // mesh.mp
+    return x[..., mesh.model_rank * n:(mesh.model_rank + 1) * n]
+
+
+def layer_input(x, conv, mesh, norm=None):
+    """``x`` (split or whole) as the input of the conv weight holder
+    ``conv`` (models/snn_cells.py::ConvWeight or WeightNormConv, whole
+    ``cin`` and ``cout``) under ``mesh``: whole, then ``norm`` where given
+    (a module over the whole map), then, where the output channels are
+    split (each of its ``gates`` gates' ``cout / gates``), with its
+    gradient summed over the model group."""
+    if mesh is None:
+        return x if norm is None else norm(x)
     x = whole(x, conv.cin, mesh)
-    return copy(x, mesh) if mesh.splits(conv.cout) else x
+    if norm is not None:
+        x = norm(x)
+    return copy(x, mesh) if mesh.splits(conv.cout // conv.gates) else x
 
 
 def shard_state(state, mesh):
@@ -200,65 +235,15 @@ def unshard_state(state, template, mesh):
     return map_state(full, state)
 
 
-def check_supported(model, mesh, name=None):
-    """Raise ``NotImplementedError`` naming the model, cell or option that
-    the model axis does not port (ROADMAP queue 1): any model but
-    :data:`SUPPORTED_MODELS`, PLIF/ALIF/XLIF, Leaky, ConvLSTM,
-    ConvRecurrent, a norm, ``detach: False``, a strided recurrent LIF
-    cell."""
-    from ..models import cells, snn_cells, unet
-    from ..models.evflownet import UNetFlowModel
-    from ..models.firenet import FireNet
 
-    if mesh.mp == 1:
-        return
-    where = f"under a model axis (mp {mesh.mp})"
-    if name is not None and name not in SUPPORTED_MODELS:
-        raise NotImplementedError(f"{name} {where} is not ported; ported: "
-                                  f"{', '.join(SUPPORTED_MODELS)}")
-    allowed = {FireNet, UNetFlowModel, nn.ModuleList, snn_cells.ConvWeight,
-               snn_cells.ConvLIF, snn_cells.ConvLIFRecurrent,
-               snn_cells.SpikingRecurrentConvLayer,
-               snn_cells.SpikingResidualBlock,
-               snn_cells.SpikingUpsampleConvLayer, cells.ConvLayer,
-               cells.ConvLayerS, cells.UpsampleConvLayer, cells.ConvGRU,
-               cells.RecurrentConvLayer, cells.ResidualBlock,
-               cells.TransposedConvLayer, unet.MultiResUNetRecurrent,
-               unet.SpikingMultiResUNetRecurrent}
-    for path, mod in model.named_modules():
-        label = f"{type(mod).__name__} ({path or 'model'})"
-        if type(mod) not in allowed:
-            raise NotImplementedError(f"cell {label} {where} is not ported")
-        if isinstance(mod, snn_cells._SpikingBase):
-            if mod.norm_kind is not None:
-                raise NotImplementedError(
-                    f"norm: {mod.norm_kind} of {label} {where} is not "
-                    "ported")
-            if not mod.detach:
-                raise NotImplementedError(
-                    f"detach: False of {label} {where} is not ported")
-            if mod.RECURRENT and mod.stride != 1:
-                raise NotImplementedError(
-                    f"a strided recurrent cell {label} {where} is not "
-                    "ported")
-        for attr in ("norm_layer", "norm1", "norm2"):
-            if getattr(mod, attr, None) is not None:
-                raise NotImplementedError(
-                    f"norm: {getattr(mod, attr).kind} of {label} {where} "
-                    "is not ported")
-
-
-def shard_model(model, mesh, name=None):
+def shard_model(model, mesh):
     """Split ``model``'s parameters over ``mesh``'s model axis in place,
     each tensor where JAX's rule splits it (utils/weights.py::
     shard_state_dict), and give every module the mesh (``module.tp``),
     which its forward reads; a split parameter carries its ``tp_axis``,
-    which the gradient clip and statistics read. ``name`` is the config's
-    model name; an unported model, cell or option raises first. Returns
-    the model."""
+    which the gradient clip and statistics read. Returns the model."""
     from ..utils.weights import shard_state_dict, split_axis
 
-    check_supported(model, mesh, name)
     with torch.no_grad():
         local = shard_state_dict(dict(model.named_parameters()), mesh)
     for pname, p in list(model.named_parameters()):

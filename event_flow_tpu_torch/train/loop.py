@@ -143,7 +143,7 @@ class Trainer:
                         for n, t in model.state_dict().items()}
         self._tp = mesh is not None and mesh.mp > 1
         if self._tp:
-            shard_model(model, mesh, config["model"]["name"])
+            shard_model(model, mesh)
         loss_cfg = config.get("loss", {})
         self._clip_grad = loss_cfg.get("clip_grad")
         loss_cfg = LossConfig(

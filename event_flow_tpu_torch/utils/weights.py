@@ -216,28 +216,42 @@ def split_axis(name, shape, mesh):
     the output channels: axis 0 of an OIHW conv weight, axis 1 of a
     transposed conv's [Cin, Cout, k, k], the channel axis of a bias or a
     (C, 1, 1) neuron parameter; split where it is a multiple of ``mp``
-    and at least 8 (never a 2-channel flow head). Adam's moments take
-    their parameter's name and shape, as JAX's rule applies by shape."""
+    and at least 8 (never a 2-channel flow head); a tensor of several
+    gates (:func:`gate_chunks`) where each gate's channels are. Adam's
+    moments take their parameter's name and shape, as JAX's rule applies
+    by shape."""
     if len(shape) == 0:
         return None
     axis = 1 if name.endswith("transposed_conv2d.weight") else 0
-    return axis if mesh.splits(shape[axis]) else None
+    return axis if mesh.splits(shape[axis] // gate_chunks(name)) else None
+
+
+def gate_chunks(name):
+    """How many gates a tensor's output channels hold, each split on its
+    own over a model axis: 4 for ConvLSTM's ``Gates`` conv (i, r, o, g,
+    chunked after the conv), else 1. A ConvGRU's update and reset gates
+    are two weights already."""
+    return 4 if name.endswith(("Gates.weight", "Gates.bias")) else 1
 
 
 def shard_state_dict(sd, mesh):
     """This model rank's share of ``sd`` (whole tensors under their
     reference names): each tensor sliced on :func:`split_axis`, the rest
-    kept (the same tensor objects). A ConvGRU's update and reset gates are
-    two weights, each split on its own, so a rank holds the same channels
-    of both."""
+    kept (the same tensor objects). Each gate of a tensor of several
+    (:func:`gate_chunks`) is split on its own, so that a rank holds the
+    same channels of all of them, as it does of a ConvGRU's two gate
+    weights."""
     out = {}
     for name, t in sd.items():
         axis = split_axis(name, tuple(t.shape), mesh)
         if axis is None:
             out[name] = t
             continue
-        n = t.shape[axis] // mesh.mp
-        out[name] = t.narrow(axis, mesh.model_rank * n, n).contiguous()
+        k = gate_chunks(name)
+        n = t.shape[axis] // (k * mesh.mp)
+        gates = t.unflatten(axis, (k, t.shape[axis] // k))
+        out[name] = gates.narrow(axis + 1, mesh.model_rank * n, n).flatten(
+            axis, axis + 1).contiguous()
     return out
 
 
@@ -256,5 +270,9 @@ def unshard_state_dict(sd, mesh, shapes):
         if tuple(t.shape) == full:
             out[name] = t
             continue
-        out[name] = gather_axis(t, split_axis(name, full, mesh), mesh)
+        axis, k = split_axis(name, full, mesh), gate_chunks(name)
+        # [mp, ...] of every rank's (k, n) gate shares -> (k, mp * n)
+        gates = gather_axis(t.unflatten(axis, (k, t.shape[axis] // k)),
+                            axis + 1, mesh)
+        out[name] = gates.flatten(axis, axis + 1).contiguous()
     return out

@@ -1861,6 +1861,136 @@ def test_s8_cell_kernels_match_plain_bitwise(dev, cin, cout, rec, hard):
     assert 0 < float(ref[1].mean()) < 1
 
 
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("cin", (1, 5, 32, 33, 258))
+def test_s8_bf16_conv_kernel_matches_plain_bitwise(dev, cin, k):
+    """K1-s8's bfloat16 variant (the float32 y rounded once) at odd
+    widths, one and several passes, Cout 2, 9 and 40, ragged maps: y
+    bfloat16, bitwise its plain form, twice, and one launch counted under
+    its own name."""
+    from event_flow_tpu_torch.ops.conv import (conv2d_same_s8_bf16_plain,
+                                               conv2d_same_s8_kernel)
+
+    g = _gen()
+    for b, h, w, cout in ((1, 9, 35, 2), (2, 18, 30, 9), (1, 17, 33, 40)):
+        (xq, wq), scale = _s8_args(g, dev, b, h, w, cin, cout, k)
+        native.reset_launch_counts()
+        y = conv2d_same_s8_kernel(xq, wq, scale, torch.bfloat16)
+        assert native.LAUNCHES["conv2d_same_s8_bf16"] == 1
+        assert native.LAUNCHES["conv2d_same_s8"] == 0
+        assert y.dtype == torch.bfloat16
+        assert torch.equal(y, conv2d_same_s8_bf16_plain(xq, wq, scale))
+        assert torch.equal(y, conv2d_same_s8_kernel(xq, wq, scale,
+                                                    torch.bfloat16))
+
+
+@pytest.mark.parametrize("hard", [True, False])
+@pytest.mark.parametrize("rec", [False, True])
+@pytest.mark.parametrize("cin,cout", [(2, 32), (5, 7), (33, 9), (130, 64),
+                                      (512, 512)])
+def test_s8_bf16_cell_kernels_match_plain_bitwise(dev, cin, cout, rec, hard):
+    """K2-s8's bfloat16 variants, ff and rec, on bfloat16 v and z (every
+    operation of the update rounded to bfloat16, JAX's XLA cell under
+    int8 and the bfloat16 policy) against their plain forms: v' and z'
+    bfloat16 and bitwise, twice."""
+    from event_flow_tpu_torch.ops.fused_lif import (
+        _ff_s8_kernel, _rec_s8_kernel, fused_conv_lif_rec_s8_plain,
+        fused_conv_lif_s8_plain)
+
+    bf = torch.bfloat16
+    g = _gen()
+    b, h, w = (1, 12, 15) if cin == 512 else (2, 20, 37)
+    ints, scale = _s8_args(g, dev, b, h, w, cin, cout, 3, rec)
+    v = (0.3 * torch.randn((b, h, w, cout), generator=g)).to(dev, bf)
+    z = (torch.rand((b, h, w, cout), generator=g) < 0.2).to(dev, bf)
+    leak = torch.sigmoid(torch.randn(cout, generator=g)).to(dev)
+    thresh = (0.2 + 0.1 * torch.rand(cout, generator=g)).to(dev)
+    if rec:
+        xq, wq, wrq, zq = ints
+
+        def run(fn, **kw):
+            return fn(xq, wq, wrq, scale, v, z, zq, leak, thresh, 3, hard,
+                      "arctanspike", 10.0, **kw)
+        got, ref = run(_rec_s8_kernel, dtype=bf), run(
+            fused_conv_lif_rec_s8_plain)
+        again = run(_rec_s8_kernel, dtype=bf)
+    else:
+        xq, wq = ints
+
+        def run(fn, **kw):
+            return fn(xq, wq, scale, v, z, leak, thresh, 3, hard,
+                      "arctanspike", 10.0, **kw)
+        got, ref = run(_ff_s8_kernel, dtype=bf), run(fused_conv_lif_s8_plain)
+        again = run(_ff_s8_kernel, dtype=bf)
+    for a, r, a2 in zip(got, ref, again):
+        assert a.dtype == bf
+        assert torch.equal(a, r) and torch.equal(a, a2)
+    assert 0 < float(ref[1].float().mean()) < 1
+
+
+def test_s8_bf16_cuda_tensors_launch_the_variant_or_raise(dev):
+    """Under quantized("int8") a bfloat16 CUDA tensor at the public conv
+    and cells launches the bfloat16 s8 variants (each counted once, no
+    other kernel), and a float32 state at the bfloat16 cell's kernel is
+    refused."""
+    from event_flow_tpu_torch.ops.fused_lif import _ff_s8_kernel
+    from event_flow_tpu_torch.ops.quant import int8_operands, quantized
+
+    bf = torch.bfloat16
+    g = _gen()
+    x = (torch.rand((1, 16, 20, 8), generator=g) < 0.3).to(dev, bf)
+    w = (0.3 * torch.randn((16, 8, 3, 3), generator=g)).to(dev)
+    wr = (0.3 * torch.randn((16, 16, 3, 3), generator=g)).to(dev)
+    v = torch.zeros((1, 16, 20, 16), device=dev, dtype=bf)
+    leak = torch.full((16,), 0.5, device=dev)
+    thresh = torch.full((16,), 0.3, device=dev)
+    native.reset_launch_counts()
+    with quantized("int8"), torch.no_grad():
+        y = conv2d_same(x, w)
+        vo, zo = fused_conv_lif(x, w, v, v, leak, thresh, 3)
+        vr, zr = fused_conv_lif_rec(x, w, wr, v, v, v, leak, thresh, 3)
+        (xq,), (wq,), scale = int8_operands("test", (x,), (w,))
+    assert y.dtype == vo.dtype == vr.dtype == bf
+    assert {k: n for k, n in native.LAUNCHES.items() if n} == {
+        "conv2d_same_s8_bf16": 1, "fused_conv_lif_s8_bf16": 1,
+        "fused_conv_lif_rec_s8_bf16": 1}
+    with pytest.raises(TypeError):
+        _ff_s8_kernel(xq, wq, scale, v.float(), v.float(), leak, thresh, 3,
+                      True, "arctanspike", 10.0, dtype=bf)
+
+
+def test_int8_bf16_window_twice_bitwise(dev):
+    """One int8-bf16 LIFFireNet engine window at the ECD recipe from the
+    same state twice: bitwise, the bfloat16 s8 kernels' launches only,
+    the state bfloat16."""
+    from event_flow_tpu_torch.config import ECD_LIFFIRENET
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
+    from event_flow_tpu_torch.models.registry import build_model
+
+    cfg = copy.deepcopy(ECD_LIFFIRENET)
+    h, w = cfg["loader"]["resolution"]
+    g = _gen()
+    ev = torch.stack([torch.sort(torch.rand(15000, generator=g)).values,
+                      torch.randint(0, h, (15000,), generator=g).float(),
+                      torch.randint(0, w, (15000,), generator=g).float(),
+                      torch.randint(0, 2, (15000,), generator=g).float() * 2
+                      - 1], -1)
+    engine = InferenceEngine(cfg, build_model(cfg, dev), dev,
+                             quantize="int8", precision="bfloat16")
+    flows = []
+    for _ in range(2):
+        engine.reset()
+        native.reset_launch_counts()
+        flows.append(engine.step(ev.to(dev)))
+        assert {k: n for k, n in native.LAUNCHES.items() if n} == {
+            "fused_conv_lif_s8_bf16": 5, "fused_conv_lif_rec_s8_bf16": 2,
+            "conv2d_same_s8_bf16": 1, "scatter_add": 1}
+        assert all(t.dtype == torch.bfloat16 for s in engine._state
+                   for t in s)
+    assert torch.equal(flows[0], flows[1]) and flows[0].dtype == torch.float32
+    assert torch.isfinite(flows[0]).all() and flows[0].abs().max() > 0
+
+
 def test_int8_window_twice_bitwise(dev):
     """One int8 LIFFireNet engine window at the ECD recipe, from the same
     state twice: bitwise, with the s8 kernels' launches and no float

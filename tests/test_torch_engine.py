@@ -173,19 +173,20 @@ def test_valid_mask_pads_like_a_short_window():
 
 
 def test_int8_is_refused():
-    """int8 serving runs (tests/test_torch_quant.py holds it against
-    JAX); the engine refuses it only with bfloat16 and refuses another
-    mode."""
+    """int8 serving runs, in float32 and in bfloat16
+    (tests/test_torch_quant.py holds both against JAX); the engine
+    refuses another mode."""
     cfg = engine_config()
     model = get_model("LIFFireNet", cfg["model"]).eval()
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        InferenceEngine(cfg, model, device="cpu", quantize="int8",
-                        precision="bfloat16")
     with pytest.raises(ValueError, match="int8"):
         InferenceEngine(cfg, model, device="cpu", quantize="int4")
-    engine = InferenceEngine(cfg, model, device="cpu", quantize="int8")
-    flow = engine.step(random_windows(1, 1, 1, 1500, (16, 16))[0])
-    assert flow.shape == (1, 16, 16, 2) and torch.isfinite(flow).all()
+    window = random_windows(1, 1, 1, 1500, (16, 16))[0]
+    for precision in ("float32", "bfloat16"):
+        engine = InferenceEngine(cfg, model, device="cpu", quantize="int8",
+                                 precision=precision)
+        flow = engine.step(window)
+        assert flow.shape == (1, 16, 16, 2) and torch.isfinite(flow).all()
+        assert flow.dtype == torch.float32
 
 
 def test_engine_defaults_to_the_card():

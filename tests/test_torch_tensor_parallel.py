@@ -58,12 +58,11 @@ from event_flow_tpu.train.optim import make_optimizer as jax_make_optimizer
 from event_flow_tpu.train.step import TrainState as JaxTrainState
 from event_flow_tpu.train.step import make_train_step as jax_make_train_step
 from event_flow_tpu_torch.config import (TRAIN_ANN, TRAIN_ANNREC, TRAIN_SNN,
-                                         TRAIN_SNNREC, with_model)
+                                         TRAIN_SNNREC)
 from event_flow_tpu_torch.models.registry import build_model
 from event_flow_tpu_torch.ops.fused_lif import fused_conv_lif_rec_plain
 from event_flow_tpu_torch.parallel.launch import run_world
 from event_flow_tpu_torch.parallel.mesh import Mesh, make_mesh_3d
-from event_flow_tpu_torch.parallel.tensor import check_supported
 from event_flow_tpu_torch.train.loop import Trainer
 from event_flow_tpu_torch.utils.weights import (shard_state_dict,
                                                 state_dict_from_jax)
@@ -558,49 +557,6 @@ def test_k2_rec_plain_with_crec_matches_jax_sliced(interpret_mode,
     flips = zo.numpy() != zr
     near = np.abs(vr - thresh[part].reshape(1, 1, 1, -1)) < 1e-4
     assert not (flips & ~near).any()
-
-
-UNPORTED = {
-    "PLIFFireNet": {}, "ALIFFireNet": {}, "XLIFFireNet": {},
-    "LeakyFireNet": {}, "RNNFireNet": {}, "FireFlowNet": {},
-    "LIFFireFlowNet": {}, "LeakyFireFlowNet": {}, "EVFlowNet": {},
-    "RNNRecEVFlowNet": {}, "LeakyRecEVFlowNet": {}, "PLIFRecEVFlowNet": {},
-    "ALIFRecEVFlowNet": {}, "XLIFRecEVFlowNet": {}, "E2VID": {},
-    "LIFFireNet-norm_group": {"spiking_neuron": {"norm": "group"}},
-    "LIFFireNet-norm_weight": {"spiking_neuron": {"norm": "weight"}},
-    "LIFFireNet-detach_false": {"spiking_neuron": {"detach": False}},
-    "SpikingRecEVFlowNet-norm_group": {"spiking_neuron": {"norm": "group"}},
-    "RecEVFlowNet-norm_BN": {"norm": "BN"},
-    "RecEVFlowNet-norm_IN": {"norm": "IN"},
-}
-
-
-@pytest.mark.parametrize("case", list(UNPORTED))
-def test_model_axis_refuses_unported_models_cells_and_options(case):
-    """Under mp 2 every model, cell and option outside the ported slice
-    raises NotImplementedError naming it, before any collective: by the
-    config's model name and, where the model's cells are not ported, by
-    the cell (or its option) alone."""
-    name, _, option = case.partition("-")
-    cfg = with_model(TRAIN_SNN, name)
-    cfg["model"]["base_num_channels"] = 8
-    for key, value in UNPORTED[case].items():
-        if isinstance(value, dict):
-            cfg["model"][key] = {**(cfg["model"].get(key) or {}), **value}
-        else:
-            cfg["model"][key] = value
-    model = build_model(cfg, "cpu")
-    mesh = Mesh(1, 1, 0, 0, 0, mp=2)
-    if option:
-        with pytest.raises(NotImplementedError, match=option.split("_")[0]):
-            check_supported(model, mesh, name)
-        return
-    with pytest.raises(NotImplementedError, match=name):
-        check_supported(model, mesh, name)
-    cells = name not in ("FireFlowNet", "LIFFireFlowNet", "EVFlowNet")
-    if cells:  # a cell of the model is not ported
-        with pytest.raises(NotImplementedError, match="cell"):
-            check_supported(model, mesh)
 
 
 def test_model_axis_needs_a_process_group():

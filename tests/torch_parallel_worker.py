@@ -160,14 +160,22 @@ def tp_train(args, device):
     global ``feeds`` through ``Trainer(mesh=make_mesh_3d(...))`` in
     ``args["precision"]``, the losses and parameters (_tp_result); with
     ``layout`` also the names and local shapes of the rank's parameters
-    and carried state."""
+    and carried state. With ``dtype`` "float64" the Trainer is built and
+    runs under torch's default dtype float64 (model and moments in
+    float64; the feeds' arrays are float64)."""
     out = {}
+    dtype = getattr(torch, args.get("dtype", "float32"))
     for dims in args["meshes"]:
         mesh = make_mesh_3d(*dims)
         for name, (cfg, state_dict, feeds) in args["models"].items():
-            trainer = _tp_trainer(cfg, device, state_dict, mesh,
-                                  args.get("precision", "float32"))
-            losses, _ = _feed(trainer, feeds)
+            prev = torch.get_default_dtype()
+            torch.set_default_dtype(dtype)
+            try:
+                trainer = _tp_trainer(cfg, device, state_dict, mesh,
+                                      args.get("precision", "float32"))
+                losses, _ = _feed(trainer, feeds)
+            finally:
+                torch.set_default_dtype(prev)
             out[(*dims, name)] = _tp_result(trainer, losses)
             out[(*dims, name)]["coords"] = (mesh.data_rank, mesh.event_rank,
                                             mesh.model_rank)
@@ -250,7 +258,7 @@ def model_grads_f64(args, device, mesh=None):
         state = map_state(torch.Tensor.double,
                           model.zero_state(b, h, w, device))
         if mesh is not None:
-            shard_model(model, mesh, cfg["model"]["name"])
+            shard_model(model, mesh)
             state = shard_state(state, mesh)
         with torch.enable_grad():
             value = torch.zeros((), dtype=torch.float64)
@@ -259,12 +267,66 @@ def model_grads_f64(args, device, mesh=None):
                 for f, c in zip(flows["flow"], args["cot"][i]):
                     value = value + (f * c).sum()
             value.backward()
-        grads = {n: p.grad for n, p in model.named_parameters()}
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.requires_grad}
         if mesh is not None:
             shapes = {n: tuple(v.shape) for n, v in sd.items()}
             grads = unshard_state_dict(grads, mesh, shapes)
         out[name] = (value.detach().item(), grads)
     return out
+
+
+def cell_f64(args, device):
+    """A recurrent cell ``args["cell"]`` = (class name in
+    models/snn_cells.py or models/cells.py, positional and keyword
+    arguments; the first two are cin and features) with
+    ``args["state_dict"]``, in float64 over the inputs ``args["xs"]``,
+    the state carried from zeros, and the gradients of sum_t <out_t,
+    cots_t> into the inputs and the parameters; on a (1, 1, mp) mesh
+    where ``mp`` is given, each rank summing its own channels' terms and
+    every tensor gathered whole."""
+    from event_flow_tpu_torch.models import cells, snn_cells
+    from event_flow_tpu_torch.parallel.tensor import (gather_axis, local,
+                                                      shard_model,
+                                                      shard_state)
+    from event_flow_tpu_torch.utils.weights import unshard_state_dict
+
+    name, pos, kw = args["cell"]
+    features = pos[1]
+    cls = getattr(snn_cells, name, None) or getattr(cells, name)
+    cell = cls(*pos, **kw).double()
+    cell.load_state_dict(args["state_dict"])
+    xs = [x.clone().requires_grad_(True) for x in args["xs"]]
+    state = cell.zero_state(xs[0].shape[0], *xs[0].shape[1:3], device)
+    state = tuple(t.double() for t in state)
+    mesh = None
+    if "mp" in args:
+        mesh = make_mesh_3d(1, 1, args["mp"])
+        shard_model(cell, mesh)
+        state = shard_state(state, mesh)
+
+    def whole(t):
+        t = t.detach()
+        if mesh is None or t.shape[-1] == features:
+            return t
+        return gather_axis(t, 3, mesh)
+
+    outs = []
+    with torch.enable_grad():
+        value = torch.zeros((), dtype=torch.float64)
+        for x, cot in zip(xs, args["cots"]):
+            out, state = cell(x, state)
+            value = value + (out * local(cot, features, mesh)).sum()
+            outs.append(whole(out))
+        value.backward()
+    grads = {"grad." + n: p.grad for n, p in cell.named_parameters()}
+    if mesh is not None:
+        shapes = {"grad." + n: tuple(v.shape)
+                  for n, v in args["state_dict"].items()}
+        grads = unshard_state_dict(grads, mesh, shapes)
+    return {"out": torch.stack(outs), "state0": whole(state[0]),
+            "state1": whole(state[1]),
+            **{f"grad.x{i}": x.grad for i, x in enumerate(xs)}, **grads}
 
 
 def tp_grad_stats(args, device):
@@ -289,7 +351,10 @@ def cases(payload, device):
            "tp_checkpoint": tp_checkpoint, "mesh_layout": mesh_layout,
            "tp_round_trip": tp_round_trip,
            "model_grads_f64": model_grads_f64,
-           "tp_grad_stats": tp_grad_stats}
+           "tp_grad_stats": tp_grad_stats,
+           "cell_f64": cell_f64}
+    if payload.get("threads"):  # torch's reductions in one fixed order
+        torch.set_num_threads(payload["threads"])
     out = {}
     for name, args in payload["cases"]:
         with torch.enable_grad():
