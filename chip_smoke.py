@@ -13,7 +13,9 @@ exits non-zero without the final ``ok`` line:
               B4's 128-bit loads (LDG.E.128) in both types, and the bulk
               copies (UBLKCP) and mbarrier operations (SYNCS) of the ring
               in its float32 instantiations; the int8 MMA (IMMA) alone in
-              K1-s8 and K2-s8
+              K1-s8 and K2-s8, and their persistent mainloop's TMA loads
+              and stores (UTMALDG, UTMASTG), cp.async copies (LDGSTS) and
+              mbarrier operations (SYNCS)
   3. kernels  each kernel against its plain PyTorch version (TF32 off) at
               the serving and the training shapes, with the median time of
               20 runs of each and its device time per call at the training
@@ -178,11 +180,16 @@ exits non-zero without the final ``ok`` line:
               bitwise its plain version at LIFFireNet's ECD convs (2 -> 32
               k 3, the head 32 -> 2 k 1), the U-Net's 512 -> 512 on 12 x 15
               and 258 input channels, and odd shapes; K2-s8 ff and rec
-              against theirs (v' within 1e-6, spikes but near the
-              threshold), each twice bitwise; at the ECD shapes one call's
-              and device ms, the bound (bytes at 3.35 TB/s or 1979 TOPS
-              int8), the f32 and bf16 K1/K2 beside and the activation
-              quantization's passes; ECD_LIFFIRENET (8 windows) and
+              bitwise theirs, each twice bitwise; at the ECD shapes one
+              call's and device ms, the bound (bytes at 3.35 TB/s or 1979
+              TOPS int8), the f32 and bf16 K1/K2 beside and the activation
+              quantization's passes; all four int8 kernels bitwise at the
+              plan's edges (S8_EDGES: a map under one tile, B 2 with odd H
+              and W, more tiles than resident blocks, Cout 2, 7 and 9) and
+              timed with L2 warm and flushed at the ECD shapes and 512 ->
+              512 on 12 x 15 beside the parent tree's times
+              (S8_PARENT_MS); K1-s8 and K2-s8 by shape in one profiled
+              window of each int8 engine of both models; ECD_LIFFIRENET (8 windows) and
               ECD_SPIKING_RECEVFLOWNET (2) through the int8 engine against
               the CPU port's (the CPU's near-threshold spikes taken) with
               exact launches of the int8 variants; int8 and bf16 artifacts
@@ -363,6 +370,16 @@ B4_OPS = ("UBLKCP", "SYNCS", "LDG.E.128", "LDS.128", "STG.E.128")
 B4_NEED = {"f32": ("UBLKCP", "SYNCS", "LDG.E.128"), "bf16": ("LDG.E.128",)}
 
 
+# the int8 kernels' persistent mainloop (csrc/conv_s8.cuh): its TMA loads
+# and stores (UTMALDG, UTMASTG), the cp.async copies of the maps TMA does
+# not take (LDGSTS), the mbarrier operations they complete on and the
+# ring waits on (SYNCS, ARRIVES), its ldmatrix fragments (LDSM); what
+# every one of its kernels must hold
+S8_KERNELS = ("conv2d_same_s8_kernel", "fused_conv_lif_s8_kernel")
+S8_OPS = ("UTMALDG", "UTMASTG", "LDGSTS", "SYNCS", "ARRIVES", "LDSM")
+S8_NEED = ("UTMALDG", "UTMASTG", "LDGSTS", "SYNCS")
+
+
 def _opcode(line):
     """The opcode of a line of ``cuobjdump -sass`` ('' for none)."""
     if "*/" not in line:
@@ -403,6 +420,32 @@ def b4_sass_check(sass):
         if not all(acc[op] for op in need):
             fail(f"[sass] the {kind} instantiations of {B4_KERNEL} hold "
                  f"{dict(acc)}: expected {' and '.join(need)}")
+
+
+def s8_sass_check(sass):
+    """K1-s8's and K2-s8's instantiations in ``sass`` hold the
+    instructions of S8_NEED; prints S8_OPS' counts per kernel."""
+    found, ops = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1]
+            kernel = next((k for k in S8_KERNELS if k in name), None)
+            ops = None
+            if kernel:
+                n, ops = found.get(kernel, (0, Counter()))
+                found[kernel] = (n + 1, ops)
+        elif ops is not None:
+            op = _opcode(line)
+            for name in S8_OPS:
+                if op.startswith(name):
+                    ops[name] += 1
+    for kernel in S8_KERNELS:
+        n, acc = found.get(kernel, (0, Counter()))
+        print(f"[sass] {kernel}: {n} instantiations, "
+              + ", ".join(f"{op} {acc[op]}" for op in S8_OPS))
+        if not n or not all(acc[op] for op in S8_NEED):
+            fail(f"[sass] {kernel} holds {dict(acc)}: expected "
+                 f"{' and '.join(S8_NEED)}")
 
 
 def _mma_kind(kernel, name):
@@ -448,6 +491,7 @@ def sass_check(lib_path):
             print(f"[sass] {kernel} {kind}: {n} instantiations, "
                   + ", ".join(f"{op} {c}" for op, c in sorted(acc.items())))
     b4_sass_check(sass)
+    s8_sass_check(sass)
 
 
 def timed(fn, reps=REPS):
@@ -1559,15 +1603,30 @@ class ShapeLog:
     """While active, records the shape of every K1, B2 and B4 launch in
     launch order, K1 and B2 as (B, H, W, Cin, Cout, k), B4 as (B, H, W, C,
     element type), so that a profiled run can give each shape its device
-    time (:func:`on_path_by_shape`)."""
+    time (:func:`on_path_by_shape`); and of every K1-s8 and K2-s8 launch,
+    as (B, H, W, Cin, Cout) and (B, H, W, Cin, Cout, recurrent), through
+    the int8 wrappers' call of the plan (ops/s8_plan.py), which the
+    operators reach (:func:`s8_by_shape`)."""
 
     def __enter__(self):
         from event_flow_tpu_torch.ops import conv, fused_lif
 
         self.k1, self.b2, self.b4 = [], [], []
+        self.k1s8, self.k2s8 = [], []
         self._saved = (conv._conv_kernel, conv.conv2d_dw_kernel,
                        fused_lif.fused_lif_bwd_kernel)
+        self._plans = (conv.s8_plan, fused_lif.s8_plan)
         k1, b2, b4 = self._saved
+
+        def k1s8_logged(b, h, w, cin, crec, cout, sms):
+            self.k1s8.append((b, h, w, cin, cout))
+            return self._plans[0](b, h, w, cin, crec, cout, sms)
+
+        def k2s8_logged(b, h, w, cin, crec, cout, sms):
+            self.k2s8.append((b, h, w, cin, cout, crec > 0))
+            return self._plans[1](b, h, w, cin, crec, cout, sms)
+
+        conv.s8_plan, fused_lif.s8_plan = k1s8_logged, k2s8_logged
 
         def k1_logged(x, w):
             self.k1.append((*x.shape, w.shape[0], w.shape[2]))
@@ -1590,6 +1649,58 @@ class ShapeLog:
 
         (conv._conv_kernel, conv.conv2d_dw_kernel,
          fused_lif.fused_lif_bwd_kernel) = self._saved
+        conv.s8_plan, fused_lif.s8_plan = self._plans
+
+
+def s8_by_shape(events, log):
+    """{(kernel, shape): (calls, device ms)} of the K1-s8 and K2-s8
+    launches of a profiled run, matched to ShapeLog's shapes in launch
+    order; a kernel's entry None where its events do not match its log."""
+    out = {}
+    for name, kname, shapes in (
+            ("K1-s8", "conv2d_same_s8_kernel", log.k1s8),
+            ("K2-s8", "fused_conv_lif_s8_kernel", log.k2s8)):
+        us = [t for n, _, t in events if kname in n]
+        if len(us) != len(shapes):
+            out[name] = None
+            continue
+        for shape, t in zip(shapes, us):
+            n, ms = out.get((name, shape), (0, 0.0))
+            out[(name, shape)] = (n + 1, ms + t / 1e3)
+    return out
+
+
+def int8_window_by_shape(tag, config, precision="float32"):
+    """One profiled window of ``config``'s int8 engine (of ``precision``)
+    on the card after a warm-up window: K1-s8 and K2-s8 by shape, calls
+    and device ms, with their sum."""
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
+    from event_flow_tpu_torch.models.registry import build_model
+
+    ev, va = engine_windows(config, 2)
+    ev, va = ev.cuda(), va.cuda()
+    engine = InferenceEngine(config, build_model(config, "cuda"), "cuda",
+                             quantize="int8", precision=precision)
+    engine.step(ev[0], va[0])
+    with ShapeLog() as log:
+        _, events = _device_events(lambda: engine.step(ev[1], va[1]))
+    by = s8_by_shape(events, log)
+    kind = "int8" if precision == "float32" else "int8-bf16"
+    for key in ("K1-s8", "K2-s8"):
+        if by.get(key, 0) is None:
+            print(f"[{tag}] {kind} window: {key} by shape not measured (the "
+                  "profiler's events do not match the launch log)")
+    total = 0.0
+    for (kname, shape), (n, ms) in sorted(
+            (kv for kv in by.items() if isinstance(kv[0], tuple)),
+            key=lambda kv: -kv[1][1]):
+        total += ms
+        b, h, w, cin, cout = shape[:5]
+        rec = " rec" if len(shape) > 5 and shape[5] else ""
+        print(f"[{tag}] {kind} window, {kname}{rec} {cin}->{cout} "
+              f"@{b}x{h}x{w}: {n} calls, {ms:.4f} device ms")
+    print(f"[{tag}] {kind} window: K1-s8 and K2-s8 {total:.4f} device ms "
+          f"in {len(log.k1s8)} + {len(log.k2s8)} launches")
 
 
 def on_path_by_shape(events, log):
@@ -4792,7 +4903,165 @@ K1_S8 = ((1, 180, 240, 2, 32, 3, "counts"), (1, 180, 240, 32, 2, 1, "spikes"),
 K2_S8 = ((1, 180, 240, 2, 32, False), (1, 180, 240, 32, 32, False),
          (1, 180, 240, 32, 32, True), (1, 12, 15, 512, 512, True),
          (2, 20, 21, 5, 7, True))
+# edge shapes of the int8 mainloop's plan (ops/s8_plan.py), (B, H, W,
+# Cin, Cout, k, recurrent), held for K1-s8 and K2-s8 in both types: a map
+# smaller than one tile, B 2 with odd H and W, more tiles than the card
+# holds blocks at once (the persistent walk wraps), Cout 2, 7 and 9
+S8_EDGES = ((1, 5, 6, 32, 32, 3, False), (2, 13, 27, 16, 32, 3, True),
+            (8, 128, 128, 32, 32, 3, False), (1, 37, 45, 32, 2, 1, False),
+            (2, 19, 23, 5, 7, 3, True), (1, 21, 50, 33, 9, 3, False))
+# K1-s8 and K2-s8 timed with L2 warm and flushed (s8_path_times), (kernel,
+# (B, H, W, Cin, Cout, k, x, recurrent)): the ECD serving shapes
+# (LIFFireNet's head and cells) and the U-Net's deepest cells
+S8_TIMED = (("K1-s8", (1, 180, 240, 32, 2, 1, "spikes", False)),
+            ("K2-s8", (1, 180, 240, 32, 32, 3, "spikes", False)),
+            ("K2-s8", (1, 180, 240, 32, 32, 3, "spikes", True)),
+            ("K1-s8", (1, 12, 15, 512, 512, 3, "spikes", False)),
+            ("K2-s8", (1, 12, 15, 512, 512, 3, "spikes", False)),
+            ("K2-s8", (1, 12, 15, 512, 512, 3, "spikes", True)))
+# the same calls on the tree before the persistent int8 mainloop
+# (int8_kernel_timing.py run on it; NVIDIA H100 80GB HBM3, 700.00 W):
+# device ms per call with L2 warm, with L2 flushed, and one call's ms, by
+# S8_TIMED's index and the output or state type
+S8_PARENT_MS = {
+    (0, "float32"): (0.0030, 0.0036, 0.0412),
+    (0, "bfloat16"): (0.0029, 0.0035, 0.0661),
+    (1, "float32"): (0.0185, 0.0200, 0.0856),
+    (1, "bfloat16"): (0.0183, 0.0187, 0.0795),
+    (2, "float32"): (0.0230, 0.0245, 0.1031),
+    (2, "bfloat16"): (0.0214, 0.0226, 0.1347),
+    (3, "float32"): (0.0462, 0.0462, 0.0925),
+    (3, "bfloat16"): (0.0462, 0.0464, 0.0910),
+    (4, "float32"): (0.0485, 0.0499, 0.0999),
+    (4, "bfloat16"): (0.0497, 0.0503, 0.1301),
+    (5, "float32"): (0.0922, 0.0911, 0.1675),
+    (5, "bfloat16"): (0.0929, 0.0935, 0.1980),
+}
 INT8_SERVE_WINDOWS = (8, 2)  # LIFFireNet, SpikingRecEVFlowNet
+
+
+def s8_call(kernel, shape, dtype, inp, hard=True):
+    """(run, plain, bytes, operations, kernel name in the profiler) of one
+    K1-s8 or K2-s8 call at ``shape`` = (B, H, W, Cin, Cout, k, x kind,
+    recurrent) with its output or state in ``dtype``, on inputs from
+    ``inp``: the kernel's wrapper and its plain form on the same int8
+    operands; the bytes it must move (int8 x, the weights, scale, and y or
+    v, z, v', z' in ``dtype``) and its int8 operations."""
+    from event_flow_tpu_torch.ops.conv import (conv2d_same_s8_bf16_plain,
+                                               conv2d_same_s8_kernel,
+                                               conv2d_same_s8_plain)
+    from event_flow_tpu_torch.ops.fused_lif import (
+        _ff_s8_kernel, _rec_s8_kernel, fused_conv_lif_rec_s8_plain,
+        fused_conv_lif_s8_plain)
+    from event_flow_tpu_torch.ops.quant import int8_operands
+
+    b, h, w, cin, cout, k, kind, rec = shape
+    x = _b2_x(inp, (b, h, w, cin), kind).to(dtype)
+    wt = inp.uniform((cout, cin, k, k), (1 / (cin * k * k)) ** 0.5)
+    npix = b * h * w
+    size = dtype.itemsize
+    if kernel == "K1-s8":
+        (xq,), (wq,), scale = int8_operands("K1-s8", (x,), (wt,))
+        plain = (conv2d_same_s8_plain if dtype == torch.float32
+                 else conv2d_same_s8_bf16_plain)
+        return ((lambda: conv2d_same_s8_kernel(xq, wq, scale, dtype)),
+                (lambda: plain(xq, wq, scale)),
+                npix * cin + wq.numel() + 4 * cout + size * npix * cout,
+                2 * npix * cout * k * k * cin, "conv2d_same_s8_kernel")
+    leak, thresh = inp.neuron(cout)
+    v = (thresh + 0.3 * inp.normal((b, h, w, cout))).to(dtype)
+    z = inp.spikes((b, h, w, cout)).to(dtype)
+    cin_all = cin + (cout if rec else 0)
+    if rec:
+        wr = inp.uniform((cout, cout, k, k), (1 / cout) ** 0.5)
+        (xq, zq), (wq, wrq), scale = int8_operands("K2-s8", (x, z), (wt, wr))
+        args = (xq, wq, wrq, scale, v, z, zq, leak, thresh, k, hard,
+                "arctanspike", 10.0)
+        kern, plain = _rec_s8_kernel, fused_conv_lif_rec_s8_plain
+    else:
+        (xq,), (wq,), scale = int8_operands("K2-s8", (x,), (wt,))
+        args = (xq, wq, scale, v, z, leak, thresh, k, hard, "arctanspike",
+                10.0)
+        kern, plain = _ff_s8_kernel, fused_conv_lif_s8_plain
+    # int8 x (and zq), the weights, scale, leak, thresh; v, z in, v', z'
+    # out
+    return ((lambda: kern(*args, dtype=dtype)), (lambda: plain(*args)),
+            npix * cin_all + cout * k * k * cin_all + 12 * cout
+            + 4 * size * npix * cout,
+            2 * npix * cout * k * k * cin_all, "fused_conv_lif_s8_kernel")
+
+
+def s8_hold(label, run, plain):
+    """The kernel's outputs bitwise its plain form's, in its type, twice;
+    returns them."""
+    got, ref = run(), plain()
+    got_t = got if isinstance(got, tuple) else (got,)
+    ref_t = ref if isinstance(ref, tuple) else (ref,)
+    for a, r in zip(got_t, ref_t):
+        if a.dtype != r.dtype or not torch.equal(a, r):
+            fail(f"{label}: not bitwise its plain form ({a.dtype} against "
+                 f"{r.dtype}), max |err| "
+                 f"{float((a.float() - r.float()).abs().max())}")
+    again = run()
+    if not all(map(torch.equal, got_t,
+                   again if isinstance(again, tuple) else (again,))):
+        fail(f"{label}: two runs differ")
+    return got
+
+
+def s8_edges(inp):
+    """K1-s8 and K2-s8 (ff or rec, both resets) in both types at
+    S8_EDGES, bitwise their plain forms, twice."""
+    for b, h, w, cin, cout, k, rec in S8_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            shape = (b, h, w, cin, cout, k, "randn", False)
+            run, plain, *_ = s8_call("K1-s8", shape, dtype, inp)
+            s8_hold(f"K1-s8 {dt} edge {shape[:6]}", run, plain)
+            for hard in (True, False):
+                shape = (b, h, w, cin, cout, k, "spikes", rec)
+                run, plain, *_ = s8_call("K2-s8", shape, dtype, inp, hard)
+                s8_hold(f"K2-s8{' rec' if rec else ''} {dt} edge "
+                        f"{shape[:6]} {'hard' if hard else 'soft'}", run,
+                        plain)
+        print(f"[int8] edge {b}x{h}x{w} {cin}->{cout} k {k}"
+              f"{' rec' if rec else ''}: K1-s8 and K2-s8 in f32 and bf16 "
+              "bitwise their plain forms, twice")
+
+
+def s8_times(run, name, flush):
+    """(device ms per call with L2 warm, with L2 flushed before each call,
+    one call's ms, the profiler's or the events' source of each)."""
+    def cold():
+        flush.zero_()
+        return run()
+
+    warm, src_w = device_ms(run, name)
+    flushed, src_f = device_ms(cold, name)
+    return warm, flushed, timed(run), (src_w, src_f)
+
+
+def s8_path_times(inp):
+    """K1-s8 and K2-s8 in both types at S8_TIMED: device ms per call with
+    L2 warm and flushed and one call's ms, the bound and its share, beside
+    the parent tree's (S8_PARENT_MS)."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda", dtype=torch.int32)
+    for i, (kernel, shape) in enumerate(S8_TIMED):
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            run, _, nbytes, ops, name = s8_call(kernel, shape, dtype, inp)
+            warm, flushed, one, src = s8_times(run, name, flush)
+            bound, by = least_ms(nbytes, ops, INT8_OPS)
+            pw, pf, po = S8_PARENT_MS[(i, dt)]
+            b, h, w, cin, cout, k, _, rec = shape
+            print(f"[int8] times {kernel}{' rec' if rec else ''} {dt} "
+                  f"{b}x{h}x{w} {cin}->{cout} k {k}: device {warm:.4f} "
+                  f"ms/call warm [{src[0]}], {flushed:.4f} flushed "
+                  f"[{src[1]}], one call {one:.4f}; parent {pw:.4f} warm, "
+                  f"{pf:.4f} flushed, {po:.4f} one call; bound "
+                  f"{bound:.5f} ms ({by}), share {bound / warm:.3f} warm, "
+                  f"{bound / flushed:.3f} flushed (parent {bound / pw:.3f}, "
+                  f"{bound / pf:.3f})")
 
 
 def _beside(label, runs):
@@ -4827,8 +5096,8 @@ def quant_pass_line(x):
 
 def kernels_int8(inp, out):
     """K1-s8 against its plain version bitwise at K1_S8, K2-s8 ff and rec
-    against theirs at K2_S8 (v' within 1e-6, spikes equal but within NEAR
-    of the threshold), each run twice bitwise; at the ECD serving shapes
+    against theirs bitwise at K2_S8, each run twice bitwise; at the ECD
+    serving shapes
     (K1-s8 the head 32 -> 2 k 1, K2-s8 32 -> 32) one call's ms, device ms,
     the bound (bytes at 3.35 TB/s or operations at 1979 TOPS int8) and the
     plain version, the float32 and bfloat16 K1/K2 at the same shape beside
@@ -4906,13 +5175,8 @@ def kernels_int8(inp, out):
 
             label = (f"K2-s8 {name} {b}x{h}x{w} Cin {cin} x{c} "
                      f"{'hard' if hard else 'soft'}")
-            (vk, zk), (vp, zp) = run_k(), run_p()
-            err = float((vk - vp).abs().max())
-            if not err <= 1e-6:
-                fail(f"{label}: v' {err} from its plain version, > 1e-6")
-            flips = check_spikes(zk, zp, vp, thresh, label)
-            if not all(map(torch.equal, (vk, zk), run_k())):
-                fail(f"{label}: two runs differ")
+            vk, zk = s8_hold(label, run_k, run_p)
+            zp = zk
             timing, line = None, "not timed"
             if (h, cin, hard) == (180, 32, True):
                 npix = b * h * w
@@ -4937,10 +5201,9 @@ def kernels_int8(inp, out):
                             1.0)))
                 print(_beside(label, [(n, fn, "fused_conv_lif_kernel")
                                       for n, fn in runs]))
-            print(f"[int8] {label}: v' max|err| {err:.3g} (bitwise "
-                  f"{torch.equal(vk, vp)}), flips {flips}, spike rate "
+            print(f"[int8] {label}: bitwise its plain version, spike rate "
                   f"{float(zp.mean()):.4f}, repeatable; {line}")
-            _record(out, name, err, timing, INT8_OPS)
+            _record(out, name, 0.0, timing, INT8_OPS)
 
 
 def kernels_int8_bf16(inp, out):
@@ -5195,7 +5458,10 @@ def int8_in_turns(tag, config, n):
 def phase_int8():
     """[int8]: int8 serving on the card. K1-s8 and K2-s8 against their
     plain versions and timed (kernels_int8), their bfloat16 variants
-    (kernels_int8_bf16); ECD_LIFFIRENET (8 windows) and
+    (kernels_int8_bf16), all four at the plan's edge shapes (s8_edges),
+    timed with L2 warm and flushed beside the parent tree's times
+    (s8_path_times), and by shape in one profiled window of each int8
+    engine (int8_window_by_shape); ECD_LIFFIRENET (8 windows) and
     ECD_SPIKING_RECEVFLOWNET (2) through InferenceEngine(quantize="int8")
     against the CPU port's int8 engine (int8_serve), and through the
     int8-bf16 engine (quantize="int8", precision="bfloat16") against the
@@ -5212,6 +5478,8 @@ def phase_int8():
     measured = {}
     kernels_int8(_Inputs(torch.device("cuda")), measured)
     kernels_int8_bf16(_Inputs(torch.device("cuda")), measured)
+    s8_edges(_Inputs(torch.device("cuda")))
+    s8_path_times(_Inputs(torch.device("cuda")))
     lif, unet = (copy.deepcopy(c) for c in (ECD_LIFFIRENET,
                                             ECD_SPIKING_RECEVFLOWNET))
     per_window = ({"fused_conv_lif": 5, "fused_conv_lif_rec": 2,
@@ -5228,6 +5496,9 @@ def phase_int8():
     paths += int8_artifacts(tag, lif, INT8_SERVE_WINDOWS[0])
     int8_in_turns(tag, lif, INT8_SERVE_WINDOWS[0])
     int8_in_turns(f"{tag}-unet", unet, INT8_SERVE_WINDOWS[1])
+    for precision in ("float32", "bfloat16"):
+        int8_window_by_shape(tag, lif, precision)
+        int8_window_by_shape(f"{tag}-unet", unet, precision)
     print(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
     return paths, measured
 

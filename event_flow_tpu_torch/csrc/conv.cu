@@ -22,22 +22,27 @@
 // K1-s8 (evf_conv2d_same_s8): the int8 variant for int8 serving. It
 // replaces no Pallas kernel: JAX's stride-1 int8 conv is XLA's int8 dot
 // (TPU) or conv (CPU) into int32 (event_flow_tpu/models/conv.py:93-141).
-// Int8 x and OHWI weights are staged by cp.async into 32-channel passes,
-// multiplied on the int8 tensor cores (mma.sync m16n8k32, conv_tile.cuh::
-// accumulate_s8) into exact int32 sums, and y = float(sum) * scale[co] is
-// written in float32, each conversion and product rounded on its own
-// (__int2float_rn, __fmul_rn) as JAX and the plain version round them; the
-// bias stays outside, as in JAX. Its bfloat16 variant
-// (evf_conv2d_same_s8_bf16, int8 serving under the bfloat16 policy) rounds
-// that float32 y once to bfloat16 (__float2bfloat16_rn), JAX's
+// It runs on the persistent int8 mainloop of conv_s8.cuh, shared with
+// K2-s8: tiles of 256 pixels shaped by the map, a cluster of blocks
+// splitting an item's input channels where the items are fewer than the
+// SMs, the next tile's int8 halo in flight on an mbarrier during the
+// current tile's MMAs (mma.sync m16n8k32 on the int8 tensor cores, exact
+// int32 sums), the weights of the block's channel group staged once. y =
+// float(sum) * scale[co] is computed in float32, each conversion and
+// product rounded on its own (__int2float_rn, __fmul_rn) as JAX and the
+// plain version round them; the bias stays outside, as in JAX. Its
+// bfloat16 variant (evf_conv2d_same_s8_bf16, int8 serving under the
+// bfloat16 policy) rounds that float32 y once to bfloat16, JAX's
 // .astype(x.dtype) after the int8 conv (models/conv.py:218), and writes
-// half the bytes. On the path it runs the 1x1 heads (32 ->
-// 2 at 1 x 180 x 240: 1.7 MB, bound by bytes and by its launch) and the
-// U-Net's heads; the activation's quantization (amax, round) runs before
-// it as torch operations (ops/quant.py), which move more bytes than the
-// conv (PERF.md).
+// half the bytes. y goes out through shared memory as 16-byte stores:
+// whole pixel rows of the channel group, or at the 2-channel heads whole
+// runs of a tile row. On the path it runs the 1x1 heads (32 -> 2 at 1 x
+// 180 x 240: 1.7 MB, bound by its launch, about 3 us) and the U-Net's
+// heads; the activation's quantization (amax, round) runs before it as
+// torch operations (ops/quant.py), which move more bytes than the conv
+// (PERF.md).
 
-#include "conv_tile.cuh"
+#include "conv_s8.cuh"
 
 namespace {
 
@@ -85,52 +90,30 @@ cudaError_t launch_co(const T* x, const T* w2, T* y, int B, int H, int W,
 
 // K1-s8: y = float(int32 conv of xq with wq) * scale[co], rounded once
 // (__fmul_rn, so no contraction with anything after it), in float32, or
-// that float32 value rounded once more to a bfloat16 y (TO = bf16)
+// that float32 value rounded once more to a bfloat16 y (TO = bf16); the
+// persistent int8 mainloop of conv_s8.cuh
 template <int K, int CO, class TO>
 __global__ void __launch_bounds__(NT, 2)
-    conv2d_same_s8_kernel(const int8_t* __restrict__ x,
-                          const int8_t* __restrict__ wq,
-                          const float* __restrict__ scale,
-                          TO* __restrict__ y, int H, int W, int Cin,
-                          int Cout, Steps steps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
-  int y0, x0;
-  tile_origin(W, &y0, &x0);
-  const int b = blockIdx.z;
-  const int co0 = blockIdx.y * CO;
-  int acc[MT][CO / 8][4] = {};
-  accumulate_s8<K, CO>(smem, acc, x, Cin, wq, Cout, b, H, W, y0, x0, co0,
-                       steps.x, steps.w);
-  for_each_pair<CO>(acc, H, W, Cout, b, y0, x0, co0,
-                    [&](size_t i, int co, int a0, int a1) {
-                      const float y_a = __fmul_rn(__int2float_rn(a0),
-                                                  scale[co]);
-                      if (steps.out2) {
-                        put2(y + i, y_a,
-                             __fmul_rn(__int2float_rn(a1), scale[co + 1]));
-                      } else {
-                        put(y + i, y_a);
-                        if (co + 1 < Cout)
-                          put(y + i + 1,
-                              __fmul_rn(__int2float_rn(a1), scale[co + 1]));
-                      }
-                    });
+    conv2d_same_s8_kernel(const __grid_constant__ s8::Params p) {
+  s8::run<K, CO, TO, false>(p);
 }
 
 template <int K, int CO, class TO>
 cudaError_t launch_co(const int8_t* x, const int8_t* wq, const float* scale,
-                      TO* y, int B, int H, int W, int Cin, int Cout,
-                      cudaStream_t st) {
-  const size_t smem = smem_bytes_s8<K, CO>();
-  const cudaError_t e = allow_smem(conv2d_same_s8_kernel<K, CO, TO>, smem);
-  if (e != cudaSuccess) return e;
-  const Steps steps{copy_step<int8_t>(x, Cin), copy_step<int8_t>(wq, Cin),
-                    0, 0, Cout % 2 == 0 && aligned(y, 2 * sizeof(TO))};
-  conv2d_same_s8_kernel<K, CO, TO>
-      <<<grid_for(B, H, W, Cout, CO), NT, smem, st>>>(x, wq, scale, y, H, W,
-                                                      Cin, Cout, steps);
-  return cudaSuccess;
+                      TO* y, int B, int H, int W, int Cin, int Cout, int tw,
+                      int slices, cudaStream_t st) {
+  s8::Params p = {};
+  p.x = x;
+  p.wx = wq;
+  p.scale = scale;
+  p.out0 = y;
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  return s8::launch<K, CO, TO, false>(conv2d_same_s8_kernel<K, CO, TO>, p,
+                                      tw, slices, st);
 }
 
 // launch_co<K, CO>(args...) of either type, CO 8 where Cout <= 8, else 32
@@ -182,18 +165,19 @@ int evf_conv2d_same_bf16(const bf16* x, const bf16* w2, bf16* y, int B,
 // [Cout] float32.
 int evf_conv2d_same_s8(const int8_t* x, const int8_t* wq, const float* scale,
                        float* y, int B, int H, int W, int Cin, int Cout,
-                       int K, void* stream) {
-  return conv2d_same(K, Cout, x, wq, scale, y, B, H, W, Cin, Cout,
-                     static_cast<cudaStream_t>(stream));
+                       int K, int tw, int slices, void* stream) {
+  return conv2d_same(K, Cout, x, wq, scale, y, B, H, W, Cin, Cout, tw,
+                     slices, static_cast<cudaStream_t>(stream));
 }
 
 // The same with y bfloat16: the float32 y above rounded once to nearest
 // even, JAX's int8 conv under the bfloat16 policy.
 int evf_conv2d_same_s8_bf16(const int8_t* x, const int8_t* wq,
                             const float* scale, bf16* y, int B, int H, int W,
-                            int Cin, int Cout, int K, void* stream) {
-  return conv2d_same(K, Cout, x, wq, scale, y, B, H, W, Cin, Cout,
-                     static_cast<cudaStream_t>(stream));
+                            int Cin, int Cout, int K, int tw, int slices,
+                            void* stream) {
+  return conv2d_same(K, Cout, x, wq, scale, y, B, H, W, Cin, Cout, tw,
+                     slices, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

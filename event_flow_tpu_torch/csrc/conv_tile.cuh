@@ -1,9 +1,9 @@
 // Shared mainloop of K1 (conv.cu) and K2 (fused_lif.cu): an implicit-GEMM
 // NHWC convolution on Hopper's tensor cores, for sm_90a, over float32
 // operands in 3xTF32 (mma.sync m16n8k8) or bfloat16 operands on the bf16
-// tensor cores (mma.sync m16n8k16, fragments from ldmatrix); and the int8
-// mainloop of K1-s8 and K2-s8 (accumulate_s8: mma.sync m16n8k32 on the
-// int8 tensor cores, int32 sums, described where it is defined).
+// tensor cores (mma.sync m16n8k16, fragments from ldmatrix). The int8
+// kernels K1-s8 and K2-s8 have their own, persistent mainloop
+// (conv_s8.cuh), built on the copies, ldmatrix and the int8 MMA below.
 //
 // GEMM view of one block: M = an 8 x 32 tile of output pixels (one warp
 // per output row, two m16 tiles per warp), N = CO output channels (8 or
@@ -156,8 +156,7 @@ __device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
 }
 
 // Copy `step` elements of T from src to shared dst, zeros where !ok: a
-// cp.async of 16, 8 or 4 bytes, or a synchronous store of 2 bytes (one
-// bfloat16, two int8) or of one int8.
+// cp.async of 16, 8 or 4 bytes, or a synchronous store of one bfloat16.
 template <class T>
 __device__ __forceinline__ void copy(T* dst, const T* src, bool ok,
                                      int step) {
@@ -168,12 +167,9 @@ __device__ __forceinline__ void copy(T* dst, const T* src, bool ok,
     cp8(dst, src, ok);
   else if (bytes == 4)
     cp4(dst, src, ok);
-  else if (bytes == 2)
+  else
     *reinterpret_cast<unsigned short*>(dst) =
         ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
-  else
-    *reinterpret_cast<unsigned char*>(dst) =
-        ok ? *reinterpret_cast<const unsigned char*>(src) : 0;
 }
 
 // element loads and stores through float
@@ -260,7 +256,7 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
 }
 
 // d += a * b, m16n8k32, int8 operands (four per register, the lowest k in
-// the lowest byte), int32 accumulator: exact
+// the lowest byte), int32 accumulator: exact (conv_s8.cuh)
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
   asm volatile(
@@ -459,142 +455,10 @@ __device__ __forceinline__ void accumulate(
   }
 }
 
-// The int8 mainloop (K1-s8 and K2-s8), for int8 serving: JAX computes
-// its int8 conv in XLA, no Pallas kernel (models/conv.py:93-141), and
-// PyTorch has no int8 convolution on CUDA. Block tiling, grid, warps and
-// the fragment layout of the accumulator are the float mainloop's; the
-// products are exact and their int32 sums too (K*K*C*127^2 < 2^31), so
-// the result does not depend on the order and the kernels are bitwise
-// their plain versions. A pass is always CCH = 32 input channels,
-// zero-padded past C: one k32 step of mma.sync m16n8k32 per tap. Copies
-// are 16 bytes where C and the pointer allow, else 8, 4, 2 (the head's 2
-// channels, the U-Net decoders' 258) or 1 byte (odd C). The halo tile is pixel-major, 32 channel bytes per pixel at a
-// stride of S8_STRIDE = 48 bytes; the weights are staged as rows of 32
-// input-channel bytes per (tap, output channel), at the same stride, from
-// wq [Cout][K*K][C] (OHWI): ldmatrix moves 16-bit values, so B's k (the
-// input channels) must be contiguous in a row, which rules out
-// flatten_kernel's [K*K*C, Cout] with .trans. 48 bytes is an odd multiple
-// of 16: the 8 rows of one ldmatrix matrix fall on 8 distinct bank groups.
-constexpr int S8_STRIDE = 48;
-
-template <int K, int CO>
-inline size_t smem_bytes_s8() {
-  return (size_t)S8_STRIDE * ((TH + K - 1) * (TW + K - 1) + K * K * CO);
-}
-
-// Copy the halo tile of channels [c0, c0 + 32) of src and the matching
-// weight rows of wq into shared memory, zero outside the image and past C
-// and Cout; returns when the whole block's copies have landed.
-template <int K, int CO>
-__device__ __forceinline__ void stage_s8(int8_t* s_in, int8_t* s_w,
-                                         const int8_t* __restrict__ src,
-                                         int C, const int8_t* __restrict__ wq,
-                                         int Cout, int b, int H, int W,
-                                         int y0, int x0, int co0, int c0,
-                                         int step_x, int step_w) {
-  constexpr int P = K / 2;
-  constexpr int SH = TH + K - 1;
-  constexpr int SW = TW + K - 1;
-  const int tid = threadIdx.x;
-  const int per_px = CCH / step_x;
-  for (int i = tid; i < SH * SW * per_px; i += NT) {
-    const int p = i / per_px;
-    const int ci = (i - p * per_px) * step_x;
-    const int gy = y0 + p / SW - P;
-    const int gx = x0 + p % SW - P;
-    const int c = c0 + ci;
-    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < C;
-    const int8_t* g =
-        ok ? src + (((size_t)b * H + gy) * W + gx) * C + c : src;
-    copy(s_in + p * S8_STRIDE + ci, g, ok, step_x);
-  }
-  // weights: rows (tap, output channel), 32 input channels from c0
-  const int per_row = CCH / step_w;
-  for (int i = tid; i < K * K * CO * per_row; i += NT) {
-    const int r = i / per_row;
-    const int ci = (i - r * per_row) * step_w;
-    const int t = r / CO;
-    const int co = co0 + r - t * CO;
-    const int c = c0 + ci;
-    const bool ok = c < C && co < Cout;
-    const int8_t* g = ok ? wq + ((size_t)co * K * K + t) * C + c : wq;
-    copy(s_w + r * S8_STRIDE + ci, g, ok, step_w);
-  }
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-  __syncthreads();
-}
-
-// acc += every tap of a staged int8 pass: per tap one k32 step. A: one
-// ldmatrix.x4 per m16 tile, lane l addressing pixel l % 16 at byte
-// 16 (l / 16), so the four matrices are pixels 0-7 and 8-15 at k 0-15,
-// then at k 16-31: the m16n8k32 A fragment (4 bytes of k per register).
-// B: one ldmatrix.x4 per two n8 tiles, lane l addressing output channel
-// l % 8 + 8 (l / 16) at byte 16 ((l / 8) % 2): matrices (n 0-7, k 0-15),
-// (n 0-7, k 16-31), (n 8-15, k 0-15), (n 8-15, k 16-31), the col-major B
-// fragments of both tiles. The MMA accumulates in int32 in place: integer
-// sums are exact, so no fresh fragment is needed.
-template <int K, int CO>
-__device__ __forceinline__ void taps_s8(int (&acc)[MT][CO / 8][4],
-                                        const int8_t* s_in,
-                                        const int8_t* s_w) {
-  constexpr int SW = TW + K - 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int a_off = (lane & 15) * S8_STRIDE + 16 * (lane >> 4);
-  const int b_off =
-      ((lane & 7) + 8 * (lane >> 4)) * S8_STRIDE + 16 * ((lane >> 3) & 1);
-#pragma unroll 1
-  for (int tap = 0; tap < K * K; ++tap) {
-    const int dy = tap / K;
-    const int8_t* a = s_in + ((warp + dy) * SW + tap - dy * K) * S8_STRIDE +
-                      a_off;
-    const int8_t* b = s_w + tap * CO * S8_STRIDE + b_off;
-    uint32_t af[MT][4], bfr[CO / 8][2];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) ldsm_x4(af[m], a + m * 16 * S8_STRIDE);
-    if constexpr (CO == 8) {
-      ldsm_x2(bfr[0], b);
-    } else {
-#pragma unroll
-      for (int n = 0; n < CO / 8; n += 2) {
-        uint32_t q[4];
-        ldsm_x4(q, b + 8 * n * S8_STRIDE);
-        bfr[n][0] = q[0];
-        bfr[n][1] = q[1];
-        bfr[n + 1][0] = q[2];
-        bfr[n + 1][1] = q[3];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < CO / 8; ++n)
-#pragma unroll
-      for (int m = 0; m < MT; ++m) mma_s8(acc[m][n], af[m], bfr[n]);
-  }
-}
-
-// acc += the int8 conv of src [B,H,W,C] with wq [Cout][K*K][C] over this
-// block's tile, output channels co0 .. co0 + CO, in int32; the fragment
-// layout of accumulate's. Every thread must call it.
-template <int K, int CO>
-__device__ __forceinline__ void accumulate_s8(
-    int8_t* smem, int (&acc)[MT][CO / 8][4], const int8_t* __restrict__ src,
-    int C, const int8_t* __restrict__ wq, int Cout, int b, int H, int W,
-    int y0, int x0, int co0, int step_x, int step_w) {
-  int8_t* s_in = smem;
-  int8_t* s_w = smem + (TH + K - 1) * (TW + K - 1) * S8_STRIDE;
-  for (int c0 = 0; c0 < C; c0 += CCH) {
-    __syncthreads();  // the previous pass has finished reading the tiles
-    stage_s8<K, CO>(s_in, s_w, src, C, wq, Cout, b, H, W, y0, x0, co0, c0,
-                    step_x, step_w);
-    taps_s8<K, CO>(acc, s_in, s_w);
-  }
-}
-
 // Calls f(i, co, a0, a1) for each pair of outputs this lane holds inside
 // the image and below Cout: NHWC index i of channel co (even), and the
 // accumulators of channels co and co + 1 (a1 unused where co + 1 ==
-// Cout), float or int32. For one (m, half, n) the warp's quads cover 8
+// Cout). For one (m, half, n) the warp's quads cover 8
 // pixels x 8 channels.
 template <int CO, class A, class F>
 __device__ __forceinline__ void for_each_pair(

@@ -34,15 +34,24 @@
 // K2-s8 (evf_fused_conv_lif_s8): the int8 variant for int8 serving,
 // JAX's XLA cell route under set_conv_quant("int8") (an int8 conv, then
 // the update in float32; no Pallas kernel: models/conv.py:93-141,
-// snn_cells.py:99-107). K1-s8's int8 mainloop feeds the same epilogue; the
-// recurrent segment adds into the one int32 accumulator, which is JAX's
-// int8 conv over concat([x, z]) under one activation scale. State and
-// update stay float32, every operation of the update rounded on its own in
-// the plain version's order, so v' and z' are bitwise the plain
-// version's. Bound by bytes: at 1 x 180 x 240 x 32 a cell moves 23.5 MB
-// (int8 x; v, z in and v', z' out in float32), 7.0 us at 3.35 TB/s,
-// against 27.6 MB for the float32 K2; the activation's quantization
-// before it (ops/quant.py) reads the float32 x twice more.
+// snn_cells.py:99-107). The recurrent segment adds into the one int32
+// accumulator, which is JAX's int8 conv over concat([x, z]) under one
+// activation scale. State and update stay float32, every operation of the
+// update rounded on its own in the plain version's order, so v' and z'
+// are bitwise the plain version's. Bound by bytes: at 1 x 180 x 240 x 32
+// a cell moves 23.5 MB (int8 x; v, z in and v', z' out in float32), 7.0
+// us at 3.35 TB/s, against 27.6 MB for the float32 K2; the activation's
+// quantization before it (ops/quant.py) reads the float32 x twice more.
+// It runs on the persistent int8 mainloop of conv_s8.cuh (shared with
+// K1-s8), which is built for those bytes: each block walks a run of
+// output tiles with the next tile's int8 halo and its v and z tiles
+// loading into a shared-memory ring on mbarriers while the current tile
+// multiplies and updates; the weights, scale, leak and threshold of the
+// block's channel group are staged once; the update reads v and z from
+// shared memory and writes v' and z' back there, and whole pixel rows go
+// out as 16-byte stores; at the deep, small maps (512 -> 512 on 12 x 15)
+// a cluster of blocks splits each tile's input channels and adds its
+// int32 sums in distributed shared memory, so the map fills the SMs.
 //
 // K2-s8 bf16 (evf_fused_conv_lif_s8_bf16): int8 serving under the bfloat16
 // policy, where JAX's cells run XLA's bfloat16 chain (snn_cells.py:59-64,
@@ -54,7 +63,7 @@
 // and torch's bfloat16 operations do; v, z, v' and z' are bfloat16, so
 // the state moves half the bytes. v' and z' are bitwise the plain form's.
 
-#include "conv_tile.cuh"
+#include "conv_s8.cuh"
 
 namespace {
 
@@ -151,53 +160,12 @@ cudaError_t launch_inst(const Args<T>& a, cudaStream_t st) {
 // recurrent segment summed into the same int32 accumulator (JAX's one
 // int8 conv over concat([x, z]) under one activation scale, whose sum is
 // the same integer); v, z, v', z' float32, or (T = bf16) bfloat16 with
-// every value of the update rounded to bfloat16.
-template <int K, int CO, bool HARD, bool REC, class T>
-__global__ void __launch_bounds__(NT, 2) fused_conv_lif_s8_kernel(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ wq,
-    const int8_t* __restrict__ zr, const int8_t* __restrict__ wrq,
-    const float* __restrict__ scale, const T* __restrict__ v,
-    const T* __restrict__ z, const float* __restrict__ leak,
-    const float* __restrict__ thresh, T* __restrict__ v_out,
-    T* __restrict__ z_out, int H, int W, int Cin, int Cout,
-    Steps steps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
-  int y0, x0;
-  tile_origin(W, &y0, &x0);
-  const int b = blockIdx.z;
-  const int co0 = blockIdx.y * CO;
-  int acc[MT][CO / 8][4] = {};
-  accumulate_s8<K, CO>(smem, acc, x, Cin, wq, Cout, b, H, W, y0, x0, co0,
-                       steps.x, steps.w);
-  if constexpr (REC)
-    accumulate_s8<K, CO>(smem, acc, zr, Cout, wrq, Cout, b, H, W, y0, x0,
-                         co0, steps.r, steps.wr);
-  // every operation rounded on its own, in the plain form's order (torch
-  // evaluates each elementwise op separately): no contraction into FMAs,
-  // and in bfloat16 each result rounded to bfloat16 (r), so v' and z' are
-  // bitwise the plain form's
-  auto r = [](float a) { return round_as<T>(a); };
-  auto lif = [&](size_t i, int co, int a) {
-    const float cur = r(__fmul_rn(__int2float_rn(a), scale[co]));
-    const float vv = widen(v[i]), zz = widen(z[i]);
-    const float l = r(leak[co]), th = r(thresh[co]);
-    const float drive = r(__fmul_rn(r(__fsub_rn(1.f, l)), cur));
-    const float vn =
-        HARD ? r(__fadd_rn(r(__fmul_rn(r(__fmul_rn(vv, l)),
-                                       r(__fsub_rn(1.f, zz)))),
-                           drive))
-             : r(__fsub_rn(r(__fadd_rn(r(__fmul_rn(vv, l)), drive)),
-                           r(__fmul_rn(zz, th))));
-    put(v_out + i, vn);
-    // the sign of v' - th, which rounding cannot change
-    put(z_out + i, (__fsub_rn(vn, th) > 0.f) ? 1.f : 0.f);
-  };
-  for_each_pair<CO>(acc, H, W, Cout, b, y0, x0, co0,
-                    [&](size_t i, int co, int a0, int a1) {
-                      lif(i, co, a0);
-                      if (co + 1 < Cout) lif(i + 1, co + 1, a1);
-                    });
+// every value of the update rounded to bfloat16; the persistent int8
+// mainloop and LIF epilogue of conv_s8.cuh
+template <int K, int CO, class T>
+__global__ void __launch_bounds__(NT, 2)
+    fused_conv_lif_s8_kernel(const __grid_constant__ s8::Params p) {
+  s8::run<K, CO, T, true>(p);
 }
 
 template <class T>
@@ -207,29 +175,39 @@ struct ArgsS8 {
   const T *v, *z;
   const float *leak, *thresh;
   T *v_out, *z_out;
-  int B, H, W, Cin, Cout;
+  int B, H, W, Cin, Cout, tw, slices;
 };
 
-template <int K, int CO, bool HARD, bool REC, class T>
-cudaError_t launch_inst(const ArgsS8<T>& a, cudaStream_t st) {
-  auto kernel = fused_conv_lif_s8_kernel<K, CO, HARD, REC, T>;
-  const size_t smem = smem_bytes_s8<K, CO>();
-  const cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const Steps steps{copy_step<int8_t>(a.x, a.Cin),
-                    copy_step<int8_t>(a.wq, a.Cin),
-                    REC ? copy_step<int8_t>(a.zr, a.Cout) : 0,
-                    REC ? copy_step<int8_t>(a.wrq, a.Cout) : 0, false};
-  kernel<<<grid_for(a.B, a.H, a.W, a.Cout, CO), NT, smem, st>>>(
-      a.x, a.wq, a.zr, a.wrq, a.scale, a.v, a.z, a.leak, a.thresh, a.v_out,
-      a.z_out, a.H, a.W, a.Cin, a.Cout, steps);
-  return cudaSuccess;
+// K2-s8 at K and CO; the reset and the recurrent segment are run-time
+// values of the one kernel
+template <int K, int CO, class T>
+cudaError_t launch_co(const ArgsS8<T>& a, bool hard, cudaStream_t st) {
+  s8::Params p = {};
+  p.x = a.x;
+  p.wx = a.wq;
+  p.zr = a.zr;
+  p.wr = a.wrq;
+  p.scale = a.scale;
+  p.leak = a.leak;
+  p.thresh = a.thresh;
+  p.v = a.v;
+  p.z = a.z;
+  p.out0 = a.v_out;
+  p.out1 = a.z_out;
+  p.B = a.B;
+  p.H = a.H;
+  p.W = a.W;
+  p.Cin = a.Cin;
+  p.Crec = a.zr ? a.Cout : 0;
+  p.Cout = a.Cout;
+  p.hard = hard;
+  return s8::launch<K, CO, T, true>(fused_conv_lif_s8_kernel<K, CO, T>, p,
+                                    a.tw, a.slices, st);
 }
 
-// launch_inst of the arguments' kind (Args<T> or ArgsS8<T>) at K, the CO of
-// Cout (8 where Cout <= 8, else 32), the reset and whether recurrent
-template <int K, int CO, class A>
-cudaError_t launch_co(const A& a, bool hard, cudaStream_t st) {
+// K2's launch_inst at K, CO, the reset and whether recurrent
+template <int K, int CO, class T>
+cudaError_t launch_co(const Args<T>& a, bool hard, cudaStream_t st) {
   const bool rec = a.zr != nullptr;
   if (hard)
     return rec ? launch_inst<K, CO, true, true>(a, st)
@@ -238,6 +216,8 @@ cudaError_t launch_co(const A& a, bool hard, cudaStream_t st) {
              : launch_inst<K, CO, false, false>(a, st);
 }
 
+// launch_co of the arguments' kind (Args<T> or ArgsS8<T>) at K and the CO
+// of Cout (8 where Cout <= 8, else 32)
 template <int K, class A>
 cudaError_t launch(const A& a, bool hard, cudaStream_t st) {
   if (a.Cout <= 8) return launch_co<K, 8>(a, hard, st);
@@ -302,10 +282,11 @@ int evf_fused_conv_lif_s8(const int8_t* x, const int8_t* wq,
                           const float* scale, const float* v, const float* z,
                           const float* leak, const float* thresh,
                           float* v_out, float* z_out, int B, int H, int W,
-                          int Cin, int Cout, int K, int hard_reset,
-                          void* stream) {
+                          int Cin, int Cout, int K, int hard_reset, int tw,
+                          int slices, void* stream) {
   const ArgsS8<float> a{x,    wq,     zr,    wrq,   scale, v, z, leak,
-                        thresh, v_out, z_out, B, H, W, Cin, Cout};
+                        thresh, v_out, z_out, B, H, W, Cin, Cout, tw,
+                        slices};
   return fused_conv_lif(a, K, hard_reset, stream);
 }
 
@@ -318,10 +299,11 @@ int evf_fused_conv_lif_s8_bf16(const int8_t* x, const int8_t* wq,
                                const bf16* z, const float* leak,
                                const float* thresh, bf16* v_out,
                                bf16* z_out, int B, int H, int W, int Cin,
-                               int Cout, int K, int hard_reset,
-                               void* stream) {
+                               int Cout, int K, int hard_reset, int tw,
+                               int slices, void* stream) {
   const ArgsS8<bf16> a{x,    wq,     zr,    wrq,   scale, v, z, leak,
-                       thresh, v_out, z_out, B, H, W, Cin, Cout};
+                       thresh, v_out, z_out, B, H, W, Cin, Cout, tw,
+                       slices};
   return fused_conv_lif(a, K, hard_reset, stream);
 }
 

@@ -43,7 +43,9 @@ on the card and, on the CPU, through that float32 form.
 int8 serving (ops/quant.py): under ``quantized("int8")``
 :func:`conv2d_same` quantizes x (one scale) and w (per output channel)
 and calls the operator ``evflow::conv2d_same_s8`` (K1-s8 on the card,
-:func:`conv2d_same_s8_plain` on the CPU; csrc/conv.cu), float32 out, or
+:func:`conv2d_same_s8_plain` on the CPU; csrc/conv.cu on the persistent
+int8 mainloop of csrc/conv_s8.cuh, its tiles and split from
+:func:`~.s8_plan.s8_plan`), float32 out, or
 on a bfloat16 x ``evflow::conv2d_same_s8_bf16``, whose y is the float32
 y rounded once to bfloat16, as JAX's ``.astype(x.dtype)`` rounds it
 (event_flow_tpu/models/conv.py:218; the bias, where a layer has one, is
@@ -96,6 +98,7 @@ import torch.nn.functional as F
 
 from . import native
 from .quant import conv_quant, int8_operands, quantize_operands
+from .s8_plan import s8_plan, sm_count
 
 
 __all__ = ["conv2d_same", "conv2d_same_plain", "conv2d_strided",
@@ -426,9 +429,14 @@ def conv2d_same(x, w):
 
 
 def ohwi(wq):
-    """OIHW -> [Cout, k*k*Cin] in (dy, dx, cin) column order: the int8
-    kernels' weight rows, input channels contiguous."""
-    return wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
+    """OIHW -> [Cout, k*k*Cpad] in (dy, dx, cin) column order, Cin
+    zero-padded to Cpad, a multiple of 16: the int8 kernels' weight rows,
+    input channels contiguous, every row of a tap 16-byte aligned (one
+    copy, as the permute alone would make)."""
+    w = wq.permute(0, 2, 3, 1)
+    pad = -wq.shape[1] % 16
+    w = F.pad(w, (0, pad)) if pad else w.contiguous()
+    return w.reshape(wq.shape[0], -1)
 
 
 def _check_s8(name, xq, wq, scale):
@@ -479,9 +487,11 @@ def conv2d_same_s8_kernel(xq, wq, scale, dtype=torch.float32):
     b, h, wd, cin = xq.shape
     cout = wq.shape[0]
     y = torch.empty((b, h, wd, cout), device=xq.device, dtype=dtype)
-    err = getattr(native.library(), "evf_" + name)(
-        xq.data_ptr(), wq2.data_ptr(), scale.data_ptr(), y.data_ptr(), b, h,
-        wd, cin, cout, k, native.stream_handle(xq.device))
+    entry = getattr(native.library(), "evf_" + name)
+    plan = s8_plan(b, h, wd, cin, 0, cout, sm_count(xq.device))
+    err = entry(xq.data_ptr(), wq2.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                b, h, wd, cin, cout, k, plan.tw, plan.slices,
+                native.stream_handle(xq.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1
     return y

@@ -43,7 +43,8 @@ int8 serving (ops/quant.py): under ``quantized("int8")`` the public
 cells quantize x (with z_rec, under one scale, in the recurrent cell)
 and w (with w_rec, per output channel over both) and call
 ``evflow::fused_conv_lif_s8`` / ``fused_conv_lif_rec_s8``: K2-s8 on the
-card (csrc/fused_lif.cu, on the int8 mainloop of K1-s8), on the CPU
+card (csrc/fused_lif.cu, on the persistent int8 mainloop that K1-s8
+shares, csrc/conv_s8.cuh), on the CPU
 :func:`fused_conv_lif_s8_plain` / :func:`fused_conv_lif_rec_s8_plain`
 (the plain int8 conv, then :func:`lif_update`), bitwise equal. No
 backward: int8 serves only. On bfloat16 x, v and z (int8 serving under
@@ -103,6 +104,7 @@ from .conv import (S8_MAX_TERMS, _check_s8, _check_shapes, _widened,
                    conv2d_same_plain, conv2d_same_s8_plain, conv_same_grads,
                    flatten_kernel, ohwi)
 from .quant import conv_quant, int8_operands
+from .s8_plan import s8_plan, sm_count
 from .spike import get_spike_fn, surrogate
 
 __all__ = ["fused_conv_lif", "fused_conv_lif_rec", "fused_conv_lif_plain",
@@ -374,6 +376,8 @@ def _launch_s8(name, dtype, xq, wq, scale, v, z, leak, thresh, k,
     native.require_cuda(name, dtype, v, z, device=xq.device)
     entry = getattr(native.library(),
                     native.variant("evf_fused_conv_lif_s8", dtype))
+    plan = s8_plan(b, h, wd, cin, 0 if zq is None else cout, cout,
+                   sm_count(xq.device))
     v_out = torch.empty_like(v)
     z_out = torch.empty_like(v)
     ptrs = [t.data_ptr() for t in ints]
@@ -382,7 +386,7 @@ def _launch_s8(name, dtype, xq, wq, scale, v, z, leak, thresh, k,
         ptrs[0], ptrs[1], zr_ptr, wr_ptr, scale.data_ptr(), v.data_ptr(),
         z.data_ptr(), leak.data_ptr(), thresh.data_ptr(), v_out.data_ptr(),
         z_out.data_ptr(), b, h, wd, cin, cout, k, int(bool(hard_reset)),
-        native.stream_handle(xq.device))
+        plan.tw, plan.slices, native.stream_handle(xq.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1
     return v_out, z_out

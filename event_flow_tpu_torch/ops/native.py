@@ -70,9 +70,10 @@ _SIGNATURES = {
     "evf_fused_lif_bwd_slices": [_L, _I, _I],
     "evf_fused_lif_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                           _I, _I, _I, _F, _I, _P],
-    "evf_conv2d_same_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "evf_conv2d_same_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     "evf_fused_conv_lif_s8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 # the bfloat16 entries take the float32 ones' arguments
 for _name in ("evf_conv2d_same", "evf_fused_conv_lif", "evf_conv_dw",

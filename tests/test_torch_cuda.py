@@ -2021,3 +2021,70 @@ def test_int8_window_twice_bitwise(dev):
         assert native.LAUNCHES["fused_conv_lif"] == 0
     assert torch.equal(flows[0], flows[1])
     assert torch.isfinite(flows[0]).all() and flows[0].abs().max() > 0
+
+
+# The persistent int8 mainloop (csrc/conv_s8.cuh; its plan ops/s8_plan.py)
+# at every shape chip_smoke.py holds it at: K1_S8, K2_S8 and the plan's
+# edges (a map smaller than one tile, B 2 with odd H and W, more tiles
+# than resident blocks, Cout 2, 7 and 9; split over a cluster where the
+# items are fewer than the SMs). K1-s8 and K2-s8 (both resets) in both
+# output and state types, bitwise their plain forms, twice.
+def _s8_shapes():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    k1 = [(b, h, w, cin, cout, k, False)
+          for b, h, w, cin, cout, k, _ in chip_smoke.K1_S8]
+    k2 = [(b, h, w, cin, cout, 3, rec)
+          for b, h, w, cin, cout, rec in chip_smoke.K2_S8]
+    edges = list(chip_smoke.S8_EDGES)
+    return ([("K1", s) for s in k1 + edges]
+            + [("K2", s) for s in k2 + edges])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,shape", _s8_shapes())
+def test_s8_mainloop_bitwise_at_path_and_edge_shapes(dev, kernel, shape,
+                                                     dtype):
+    from event_flow_tpu_torch.ops.conv import (conv2d_same_s8_bf16_plain,
+                                               conv2d_same_s8_kernel,
+                                               conv2d_same_s8_plain)
+    from event_flow_tpu_torch.ops.fused_lif import (
+        _ff_s8_kernel, _rec_s8_kernel, fused_conv_lif_rec_s8_plain,
+        fused_conv_lif_s8_plain)
+
+    b, h, w, cin, cout, k, rec = shape
+    g = _gen()
+    if kernel == "K1":
+        (xq, wq), scale = _s8_args(g, dev, b, h, w, cin, cout, k)
+        plain = (conv2d_same_s8_plain if dtype == torch.float32
+                 else conv2d_same_s8_bf16_plain)
+        ref = plain(xq, wq, scale)
+        for _ in range(2):
+            y = conv2d_same_s8_kernel(xq, wq, scale, dtype)
+            assert y.dtype == dtype and torch.equal(y, ref)
+        return
+    ints, scale = _s8_args(g, dev, b, h, w, cin, cout, k, rec)
+    v = (0.3 * torch.randn((b, h, w, cout), generator=g)).to(dev, dtype)
+    z = (torch.rand((b, h, w, cout), generator=g) < 0.2).to(dev, dtype)
+    leak = torch.sigmoid(torch.randn(cout, generator=g)).to(dev)
+    thresh = (0.2 + 0.1 * torch.rand(cout, generator=g)).to(dev)
+    for hard in (True, False):
+        if rec:
+            xq, wq, wrq, zq = ints
+            args = (xq, wq, wrq, scale, v, z, zq, leak, thresh, k, hard,
+                    "arctanspike", 10.0)
+            kern, plain = _rec_s8_kernel, fused_conv_lif_rec_s8_plain
+        else:
+            xq, wq = ints
+            args = (xq, wq, scale, v, z, leak, thresh, k, hard,
+                    "arctanspike", 10.0)
+            kern, plain = _ff_s8_kernel, fused_conv_lif_s8_plain
+        ref = plain(*args)
+        for _ in range(2):
+            got = kern(*args, dtype=dtype)
+            for a, r in zip(got, ref):
+                assert a.dtype == dtype and torch.equal(a, r)
