@@ -357,7 +357,7 @@ MMA_RULES = {
     **{k: {"bf16": (BF16_MMA, ("TF32", "IMMA")),
            "f32": ("TF32", ("BF16", "IMMA"))}
        for k in ("conv2d_same_kernel", "fused_conv_lif_kernel",
-                 "conv_dw_kernel")},
+                 "conv_dw_kernel", "fused_conv_lif_ring_kernel")},
     **{k: {"s8": ("IMMA", ("HMMA",))}
        for k in ("conv2d_same_s8_kernel", "fused_conv_lif_s8_kernel")},
 }
@@ -378,6 +378,13 @@ B4_NEED = {"f32": ("UBLKCP", "SYNCS", "LDG.E.128"), "bf16": ("LDG.E.128",)}
 S8_KERNELS = ("conv2d_same_s8_kernel", "fused_conv_lif_s8_kernel")
 S8_OPS = ("UTMALDG", "UTMASTG", "LDGSTS", "SYNCS", "ARRIVES", "LDSM")
 S8_NEED = ("UTMALDG", "UTMASTG", "LDGSTS", "SYNCS")
+# K2 rec with Crec != Cout on the float mainloop (csrc/conv_ring.cuh): its
+# TMA halo loads, the cp.async copies of the maps and weight rows TMA does
+# not take, the ring's mbarriers, its ldmatrix fragments; what every one
+# of its instantiations must hold (its MMAs are MMA_RULES')
+RING_KERNELS = ("fused_conv_lif_ring_kernel",)
+RING_OPS = ("UTMALDG", "LDGSTS", "SYNCS", "ARRIVES", "LDSM")
+RING_NEED = ("UTMALDG", "LDGSTS", "SYNCS", "LDSM")
 
 
 def _opcode(line):
@@ -422,30 +429,32 @@ def b4_sass_check(sass):
                  f"{dict(acc)}: expected {' and '.join(need)}")
 
 
-def s8_sass_check(sass):
-    """K1-s8's and K2-s8's instantiations in ``sass`` hold the
-    instructions of S8_NEED; prints S8_OPS' counts per kernel."""
+def ops_sass_check(sass, kernels, ops_seen, need):
+    """Every instantiation of each of ``kernels`` in ``sass`` holds the
+    instructions of ``need``; prints the counts of ``ops_seen`` per
+    kernel."""
     found, ops = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1]
-            kernel = next((k for k in S8_KERNELS if k in name), None)
+            kernel = next((k for k in kernels if k in name), None)
             ops = None
             if kernel:
-                n, ops = found.get(kernel, (0, Counter()))
-                found[kernel] = (n + 1, ops)
+                ops = Counter()
+                found.setdefault(kernel, []).append(ops)
         elif ops is not None:
             op = _opcode(line)
-            for name in S8_OPS:
+            for name in ops_seen:
                 if op.startswith(name):
                     ops[name] += 1
-    for kernel in S8_KERNELS:
-        n, acc = found.get(kernel, (0, Counter()))
-        print(f"[sass] {kernel}: {n} instantiations, "
-              + ", ".join(f"{op} {acc[op]}" for op in S8_OPS))
-        if not n or not all(acc[op] for op in S8_NEED):
-            fail(f"[sass] {kernel} holds {dict(acc)}: expected "
-                 f"{' and '.join(S8_NEED)}")
+    for kernel in kernels:
+        insts = found.get(kernel, [])
+        total = sum(insts, Counter())
+        print(f"[sass] {kernel}: {len(insts)} instantiations, "
+              + ", ".join(f"{op} {total[op]}" for op in ops_seen))
+        if not insts or not all(i[op] for i in insts for op in need):
+            fail(f"[sass] an instantiation of {kernel} lacks one of "
+                 f"{' and '.join(need)}: {[dict(i) for i in insts]}")
 
 
 def _mma_kind(kernel, name):
@@ -461,7 +470,8 @@ def sass_check(lib_path):
     (``cuobjdump -sass``, beside nvcc): every instantiation of a kernel of
     MMA_RULES holds its type's MMA and none that the rule forbids; prints
     the count of each MMA opcode per kernel and type. Then B4's
-    (b4_sass_check)."""
+    (b4_sass_check), and the copies and barriers of the int8 mainloop
+    (S8_NEED) and of K2 rec's float mainloop (RING_NEED)."""
     sass = _sass(lib_path)
     functions, ops = [], None
     for line in sass.splitlines():
@@ -491,7 +501,8 @@ def sass_check(lib_path):
             print(f"[sass] {kernel} {kind}: {n} instantiations, "
                   + ", ".join(f"{op} {c}" for op, c in sorted(acc.items())))
     b4_sass_check(sass)
-    s8_sass_check(sass)
+    ops_sass_check(sass, S8_KERNELS, S8_OPS, S8_NEED)
+    ops_sass_check(sass, RING_KERNELS, RING_OPS, RING_NEED)
 
 
 def timed(fn, reps=REPS):
@@ -1606,15 +1617,25 @@ class ShapeLog:
     time (:func:`on_path_by_shape`); and of every K1-s8 and K2-s8 launch,
     as (B, H, W, Cin, Cout) and (B, H, W, Cin, Cout, recurrent), through
     the int8 wrappers' call of the plan (ops/s8_plan.py), which the
-    operators reach (:func:`s8_by_shape`)."""
+    operators reach (:func:`s8_by_shape`); and of every K2 rec launch with
+    Crec != Cout, as (B, H, W, Cin, Cout, Crec)."""
 
     def __enter__(self):
         from event_flow_tpu_torch.ops import conv, fused_lif
 
         self.k1, self.b2, self.b4 = [], [], []
-        self.k1s8, self.k2s8 = [], []
+        self.k1s8, self.k2s8, self.k2rec = [], [], []
         self._saved = (conv._conv_kernel, conv.conv2d_dw_kernel,
                        fused_lif.fused_lif_bwd_kernel)
+        self._launch = fused_lif._launch
+        launch = self._launch
+
+        def k2_logged(name, x, w, v, z, *args, z_rec=None, w_rec=None):
+            if z_rec is not None and z_rec.shape[-1] != w.shape[0]:
+                self.k2rec.append((*x.shape, w.shape[0], z_rec.shape[-1]))
+            return launch(name, x, w, v, z, *args, z_rec=z_rec, w_rec=w_rec)
+
+        fused_lif._launch = k2_logged
         self._plans = (conv.s8_plan, fused_lif.s8_plan)
         k1, b2, b4 = self._saved
 
@@ -1650,6 +1671,7 @@ class ShapeLog:
         (conv._conv_kernel, conv.conv2d_dw_kernel,
          fused_lif.fused_lif_bwd_kernel) = self._saved
         conv.s8_plan, fused_lif.s8_plan = self._plans
+        fused_lif._launch = self._launch
 
 
 def s8_by_shape(events, log):
@@ -5537,6 +5559,57 @@ TP_TURNS = 2
 TP_K2_SHAPE = (8, 128, 128, 32, 16, 32)
 TP_K2 = {torch.float32: "fused_conv_lif_rec@Cout16,Crec32",
          torch.bfloat16: "fused_conv_lif_rec_bf16@Cout16,Crec32"}
+# K2's kernels: the one-process routes on conv_tile.cuh, and K2 rec with
+# Crec != Cout on the persistent float mainloop of csrc/conv_ring.cuh
+K2_KERNEL = "fused_conv_lif_kernel"
+TP_K2_KERNEL = "fused_conv_lif_ring_kernel"
+# K2 rec with Crec != Cout at every shape the model axis gives it, (B, H,
+# W, Cin, Cout, Crec): LIFFireNet's cells (TRAIN_SNN) at mp 2 and 4, and
+# the spiking U-Net's four recurrent encoder cells (TRAIN_SNNREC) at mp 2,
+# as ShapeLog logs them in [tp]'s sharded update (phase_tp holds the log
+# to TP_K2_UNET), and at mp 4, each with a quarter of the channels
+TP_K2_UNET = ((8, 64, 64, 64, 32, 64), (8, 32, 32, 128, 64, 128),
+              (8, 16, 16, 256, 128, 256), (8, 8, 8, 512, 256, 512))
+TP_K2_SHAPES = (
+    ("LIFFireNet mp 2", TP_K2_SHAPE),
+    ("LIFFireNet mp 4", (8, 128, 128, 32, 8, 32)),
+    *((f"U-Net enc{i} mp 2", s) for i, s in enumerate(TP_K2_UNET)),
+    *((f"U-Net enc{i} mp 4", s[:4] + (s[5] // 4, s[5]))
+      for i, s in enumerate(TP_K2_UNET)))
+# the parent tree's K2 rec with Crec != Cout (csrc/conv_tile.cuh's
+# mainloop) on the NVIDIA H100 80GB HBM3 at 700.00 W, from
+# rec_kernel_timing.py: (cell, type): (device ms warm, flushed, one call)
+TP_K2_PARENT_MS = {
+    ("LIFFireNet mp 2", "float32"): (0.1307, 0.1312, 0.2581),
+    ("LIFFireNet mp 2", "bfloat16"): (0.0445, 0.0476, 0.2207),
+    ("LIFFireNet mp 4", "float32"): (0.0712, 0.0721, 0.3499),
+    ("LIFFireNet mp 4", "bfloat16"): (0.0254, 0.0339, 0.1709),
+    ("U-Net enc0 mp 2", "float32"): (0.0772, 0.0814, 0.1776),
+    ("U-Net enc0 mp 2", "bfloat16"): (0.0304, 0.0317, 0.2316),
+    ("U-Net enc1 mp 2", "float32"): (0.1454, 0.1475, 0.3472),
+    ("U-Net enc1 mp 2", "bfloat16"): (0.0528, 0.0542, 0.1903),
+    ("U-Net enc2 mp 2", "float32"): (0.2818, 0.2830, 0.4523),
+    ("U-Net enc2 mp 2", "bfloat16"): (0.0948, 0.0993, 0.2049),
+    ("U-Net enc3 mp 2", "float32"): (0.5561, 0.5564, 0.8037),
+    ("U-Net enc3 mp 2", "bfloat16"): (0.1853, 0.1858, 0.3985),
+    ("U-Net enc0 mp 4", "float32"): (0.0739, 0.0768, 0.1798),
+    ("U-Net enc0 mp 4", "bfloat16"): (0.0297, 0.0315, 0.1628),
+    ("U-Net enc1 mp 4", "float32"): (0.1449, 0.1463, 0.2750),
+    ("U-Net enc1 mp 4", "bfloat16"): (0.0513, 0.0528, 0.1998),
+    ("U-Net enc2 mp 4", "float32"): (0.2815, 0.2823, 0.4363),
+    ("U-Net enc2 mp 4", "bfloat16"): (0.0959, 0.0967, 0.2874),
+    ("U-Net enc3 mp 4", "float32"): (0.5549, 0.5553, 0.7106),
+    ("U-Net enc3 mp 4", "bfloat16"): (0.1851, 0.1912, 0.3529),
+}
+# the ranks held bitwise to one process's cell, by mp
+TP_K2_RANKS = {2: (0, 1), 4: (3,)}
+# the mainloop's edges (B, H, W, Cin, Cout, Crec, k): odd H and W at B 2,
+# a map smaller than one tile, more items than resident blocks (the
+# persistent walk wraps), channel counts whose pixel rows are not whole
+# 16-byte rows (no TMA: Crec 5, Cout 12) at k 1
+TP_K2_EDGES = ((2, 37, 45, 32, 16, 32, 3), (1, 5, 6, 32, 16, 32, 3),
+               (8, 160, 192, 32, 16, 32, 3), (2, 13, 11, 5, 12, 5, 1),
+               (2, 9, 7, 8, 4, 8, 1), (2, 19, 23, 40, 24, 48, 3))
 
 
 class _ResetAt:
@@ -5620,7 +5693,8 @@ def tp_worker(payload, device):
                     tensor.TRAFFIC.clear()
                     torch.cuda.synchronize(device)
                     t0 = time.perf_counter()
-                    loss = _feed_update(trainer, stream)
+                    with ShapeLog() as log:
+                        loss = _feed_update(trainer, stream)
                     seconds = time.perf_counter() - t0
                     counts = launch_counts()
                     traffic = dict(tensor.TRAFFIC)
@@ -5631,6 +5705,7 @@ def tp_worker(payload, device):
                              if p.shape == w.shape]
                     runs.append({
                         "loss": loss, "launches": counts,
+                        "k2rec": sorted(set(log.k2rec)),
                         "traffic": traffic, "seconds": seconds,
                         "digest": _digest(params),
                         "whole_digest": _digest(local),
@@ -5698,63 +5773,145 @@ def _tp_turns(mesh, device, turns):
     return {"walls": walls, "busy": busy}
 
 
-def tp_k2_check(out):
-    """K2 rec with Crec != Cout at LIFFireNet's mp-2 shape (Cout 16 of 32,
-    the recurrent input over all 32) in float32 and bfloat16 against its
-    plain version, twice bitwise; its device ms beside Cout 32's."""
-    from event_flow_tpu_torch.ops import native
+def tp_k2_label(shape, k=3):
+    b, h, w, cin, cout, crec = shape
+    return f"{b}x{h}x{w} Cin {cin}, Cout {cout}, Crec {crec}, k {k}"
+
+
+def tp_k2_call(inp, shape, dtype, hard=True, k=3, rank=0):
+    """K2 rec with Crec != Cout at ``shape`` (B, H, W, Cin, Cout, Crec) in
+    ``dtype``: rank ``rank``'s Cout channels of a cell of Crec channels
+    (where Crec is a multiple of Cout; else a cell of Cout channels of its
+    own), its recurrent input over all Crec. Returns {"run": the kernel,
+    "plain": its plain form, "whole": one process's whole cell (None where
+    there is none), "part": the rank's channels, "thresh": theirs,
+    "bytes", "flop", "peak": what the call must move and do}."""
     from event_flow_tpu_torch.ops.fused_lif import (fused_conv_lif_rec,
                                                     fused_conv_lif_rec_plain)
 
+    b, h, w, cin, cout, crec = shape
+    whole = crec % cout == 0
+    cw = crec if whole else cout
+    x = inp.spikes((b, h, w, cin))
+    zr = inp.spikes((b, h, w, crec))
+    wt = inp.uniform((cw, cin, k, k), (1 / cin) ** 0.5)
+    wr = inp.uniform((cw, crec, k, k), (1 / crec) ** 0.5)
+    leak, thresh = inp.neuron(cw)
+    v = thresh + 0.3 * inp.normal((b, h, w, cw))
+    z = zr if whole else inp.spikes((b, h, w, cw))
+    part = slice(rank * cout, (rank + 1) * cout)
+    args = [t.to(dtype).contiguous() for t in (
+        x, wt[part], wr[part], v[..., part], z[..., part], zr)]
+    lt = (leak[part].contiguous(), thresh[part].contiguous())
+    full = [t.to(dtype) for t in (x, wt, wr, v, z, zr)]
+    npix = b * h * w
+    size = 4 if dtype == torch.float32 else 2
+    return {
+        "run": lambda: fused_conv_lif_rec(*args, *lt, k, hard),
+        "plain": lambda: fused_conv_lif_rec_plain(*args, *lt, k, hard),
+        "whole": ((lambda: fused_conv_lif_rec(*full, leak, thresh, k, hard))
+                  if whole else None),
+        "part": part, "thresh": lt[1],
+        "bytes": size * (npix * (cin + crec + 4 * cout)
+                         + cout * k * k * (cin + crec)),
+        "flop": 2 * npix * cout * k * k * (cin + crec),
+        "peak": TF32_FLOPS if dtype == torch.float32 else BF16_FLOPS}
+
+
+def tp_k2_hold(label, call, dtype, whole=True):
+    """The kernel against its plain form (float32: v' within ATOL, spikes
+    equal but near the threshold; bfloat16: one ulp), twice bitwise, and
+    bitwise one process's whole cell's channels where there is one.
+    Returns the largest |err| of v'."""
+    vk, zk = call["run"]()
+    vp, zp = call["plain"]()
+    if dtype == torch.float32:
+        err = float((vk - vp).abs().max())
+        if not err <= ATOL:
+            fail(f"[tp] {label}: max |err| of v' {err} > {ATOL}")
+        check_spikes(zk, zp, vp, call["thresh"], label)
+    else:
+        err = float(bf16_close(vk, vp, label, ATOL))
+    if not all(map(torch.equal, (vk, zk), call["run"]())):
+        fail(f"[tp] {label}: two runs differ")
+    if whole and call["whole"] is not None:
+        vw, zw = (t[..., call["part"]] for t in call["whole"]())
+        if not (torch.equal(vk, vw) and torch.equal(zk, zw)):
+            fail(f"[tp] {label}: not bitwise one process's cell's channels "
+                 f"{call['part'].start}..{call['part'].stop - 1} (max |dv'| "
+                 f"{float((vk.float() - vw.float()).abs().max())}, "
+                 f"{int((zk != zw).sum())} spikes differ)")
+    return err
+
+
+def tp_k2_check(out):
+    """K2 rec with Crec != Cout (csrc/conv_ring.cuh) in float32 and
+    bfloat16, both resets: at every shape of TP_K2_SHAPES against its plain
+    form, twice bitwise, and bitwise one process's whole cell sliced to
+    the rank's channels (TP_K2_RANKS: ranks 0 and 1 at mp 2, rank 3 at mp
+    4); at TP_K2_EDGES the same; then its device ms per call at every
+    shape, L2 warm and flushed, and one call's ms, beside the parent's
+    (TP_K2_PARENT_MS) and the whole cell's, with its bound and share."""
+    from event_flow_tpu_torch.ops import native
+
     inp = _Inputs("cuda")
-    b, h, w, cin, cout, crec = TP_K2_SHAPE
-    shape = (b, h, w)
-    x = inp.spikes(shape + (cin,))
-    zr = inp.spikes(shape + (crec,))
-    wt = inp.uniform((crec, cin, 3, 3), (1 / cin) ** 0.5)
-    wr = inp.uniform((crec, crec, 3, 3), (1 / crec) ** 0.5)
-    leak, thresh = inp.neuron(crec)
-    v = thresh + 0.3 * inp.normal(shape + (crec,))
-    part = slice(0, cout)
-    for dtype, key in TP_K2.items():
-        args = [t.to(dtype).contiguous() for t in (
-            x, wt[part], wr[part], v[..., part], zr[..., part], zr)]
-        full = [t.to(dtype) for t in (x, wt, wr, v, zr, zr)]
-        run_k = lambda: fused_conv_lif_rec(*args, leak[part], thresh[part],
-                                           3, True)
-        run_p = lambda: fused_conv_lif_rec_plain(
-            *args, leak[part], thresh[part], 3, True)
-        run_full = lambda: fused_conv_lif_rec(*full, leak, thresh, 3, True)
-        (vk, zk), (vp, zp) = run_k(), run_p()
-        label = (f"K2 rec {native.variant('fused_conv_lif_rec', dtype)} "
-                 f"{b}x{h}x{w} Cin {cin}, Cout {cout}, Crec {crec}")
-        if dtype == torch.float32:
-            err = float((vk - vp).abs().max())
-            if not err <= ATOL:
-                fail(f"[tp] {label}: max |err| of v' {err} > {ATOL}")
-            flips = check_spikes(zk, zp, vp, thresh[part], label)
-        else:
-            err = float(bf16_close(vk, vp, label, ATOL))
-            flips = int((zk != zp).sum())
-        if not all(map(torch.equal, (vk, zk), run_k())):
-            fail(f"[tp] {label}: two runs differ")
-        t_k, t_p = timed(run_k), timed(run_p)
-        d_k, src_k = device_ms(run_k, "fused_conv_lif_kernel")
-        d_f, src_f = device_ms(run_full, "fused_conv_lif_kernel")
-        npix = b * h * w
-        size = 4 if dtype == torch.float32 else 2
-        nbytes = size * (npix * (cin + crec + 4 * cout)
-                         + cout * 9 * (cin + crec))
-        flop = 2 * npix * cout * 9 * (cin + crec)
-        peak = TF32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-        bound, by = least_ms(nbytes, flop, peak)
-        print(f"[tp] {label}: max|err| {err:.3g}, flips {flips}, "
-              f"repeatable; kernel {t_k:.4f} ms one call, device "
-              f"{d_k:.4f} ms/call [{src_k}] ({_rates(nbytes, flop, d_k)}, "
-              f"{bound / d_k:.3f} of its bound, {by}); plain {t_p:.4f} ms; "
-              f"the whole cell (Cout {crec}) device {d_f:.4f} ms/call "
-              f"[{src_f}]")
-        _record(out, key, err, (t_k, t_p, None, nbytes, flop), peak)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = native.variant("fused_conv_lif_rec", dtype)
+        for cell, shape in TP_K2_SHAPES:
+            mp = shape[5] // shape[4]
+            for rank in TP_K2_RANKS[mp]:
+                for hard in (True, False):
+                    label = (f"K2 rec {name} {cell} rank {rank} "
+                             f"{'hard' if hard else 'soft'} "
+                             f"{tp_k2_label(shape)}")
+                    err = tp_k2_hold(label, tp_k2_call(inp, shape, dtype,
+                                                       hard, rank=rank),
+                                     dtype)
+                    _record(out, TP_K2[dtype], err)
+        for *shape, k in TP_K2_EDGES:
+            shape = tuple(shape)
+            ranks = ((0, shape[5] // shape[4] - 1)
+                     if shape[5] % shape[4] == 0 else (0,))
+            for rank in ranks:
+                for hard in (True, False):
+                    label = (f"K2 rec {name} edge rank {rank} "
+                             f"{'hard' if hard else 'soft'} "
+                             f"{tp_k2_label(shape, k)}")
+                    err = tp_k2_hold(label, tp_k2_call(
+                        inp, shape, dtype, hard, k, rank), dtype)
+                    _record(out, TP_K2[dtype], err)
+        print(f"[tp] K2 rec {name} with Crec != Cout at {len(TP_K2_SHAPES)} "
+              f"shapes and {len(TP_K2_EDGES)} edges, both resets: within "
+              "its plain form's tolerance, twice bitwise, and bitwise one "
+              "process's whole cell's channels (ranks "
+              + ", ".join(f"{r} at mp {mp}" for mp, rs in TP_K2_RANKS.items()
+                          for r in rs) + ")")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda", dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for cell, shape in TP_K2_SHAPES:
+            call = tp_k2_call(inp, shape, dtype)
+            warm, flushed, one, src = s8_times(call["run"], TP_K2_KERNEL,
+                                               flush)
+            whole_w, src_w = device_ms(call["whole"], K2_KERNEL)
+            bound, by = least_ms(call["bytes"], call["flop"], call["peak"])
+            parent = TP_K2_PARENT_MS.get((cell, dt))
+            was = ("; parent " + ", ".join(f"{t:.4f}" for t in parent)
+                   + " (warm, flushed, one call)" if parent else "")
+            print(f"[tp] K2 rec times {dt} {cell} {tp_k2_label(shape)}: "
+                  f"device {warm:.4f} ms/call warm [{src[0]}], {flushed:.4f} "
+                  f"flushed [{src[1]}], one call {one:.4f}{was}; whole cell "
+                  f"(Cout {shape[5]}) {whole_w:.4f} warm [{src_w}]; bound "
+                  f"{bound:.5f} ms ({by}), share {bound / warm:.3f} warm, "
+                  f"{bound / flushed:.3f} flushed")
+            if shape == TP_K2_SHAPE:
+                t_p = timed(call["plain"])
+                _record(out, TP_K2[dtype], 0.0,
+                        (one, t_p, None, call["bytes"], call["flop"]),
+                        call["peak"])
+                print(f"[tp] K2 rec {dt} {cell}: plain form {t_p:.4f} ms "
+                      f"one call, {_rates(call['bytes'], call['flop'], warm)}"
+                      " at the kernel's warm device time")
 
 
 def _tp_hold(tag, label, config, precision, run, u, root, reset_at):
@@ -5899,6 +6056,16 @@ def phase_tp():
                                        for c in paths)}
     if not all(crec.values()):
         fail(f"[{tag}] K2 rec with Crec != Cout never launched: {crec}")
+    for name, want in (("lif", {TP_K2_SHAPE}), ("unet", set(TP_K2_UNET))):
+        logged = {tuple(s) for r in ranks
+                  for u in r[("tp", name)]["runs"] for s in u["k2rec"]}
+        if logged != want:
+            fail(f"[{tag}] {name}: K2 rec with Crec != Cout ran at "
+                 f"{sorted(logged)}, not at the shapes [tp] times "
+                 f"{sorted(want)}")
+        print(f"[{tag}] {name} at {dims}: K2 rec with Crec != Cout at "
+              f"{sorted(logged)} (ShapeLog, every rank), the shapes of "
+              "TP_K2_SHAPES")
     print(f"[{tag}] world-2 processes took {spawn_s:.1f} s wall, start to "
           f"results; phase took {time.perf_counter() - t0:.1f} s")
     return paths + [crec], measured

@@ -15,8 +15,12 @@
 // tensor is ever written. The recurrent segment reads z_rec with its own
 // channel count Crec: Cout on one process, every channel of the cell
 // where a mesh's model axis splits Cout (JAX's GSPMD gathers z for the
-// recurrent conv there, event_flow_tpu/parallel/mesh.py:45-58). The LIF epilogue runs on the accumulator in the
-// MMA's fragment layout and writes only v' and z':
+// recurrent conv there, event_flow_tpu/parallel/mesh.py:45-58); that
+// route, Crec != Cout, runs on the persistent float mainloop of
+// conv_ring.cuh (fused_lif_ring.cu), whose next pass loads by TMA during
+// the current pass's MMAs, and is bitwise the one-process cell's channels.
+// The LIF epilogue runs on the accumulator in the MMA's fragment layout
+// and writes only v' and z':
 //
 //   hard reset:  v' = v*l*(1-z) + (1-l)*cur
 //   soft reset:  v' = v*l + (1-l)*cur - z*th
@@ -63,6 +67,7 @@
 // and torch's bfloat16 operations do; v, z, v' and z' are bfloat16, so
 // the state moves half the bytes. v' and z' are bitwise the plain form's.
 
+#include "conv_ring.cuh"
 #include "conv_s8.cuh"
 
 namespace {
@@ -224,16 +229,50 @@ cudaError_t launch(const A& a, bool hard, cudaStream_t st) {
   return launch_co<K, 32>(a, hard, st);
 }
 
+// K2 rec with Crec != Cout (a rank's share of a cell under a mesh's model
+// axis) on conv_ring.cuh's mainloop; K2-s8's recurrent input is always its
+// own Cout channels
+template <class T>
+ring::Call ring_call(const Args<T>& a, int K, bool hard) {
+  return {a.x,      a.w2,    a.zr,  a.wr2, a.v,    a.z,    a.leak,
+          a.thresh, a.v_out, a.z_out, a.B, a.H,    a.W,    a.Cin,
+          a.Cout,   a.Crec,  K,     hard};
+}
+template <class T>
+bool on_ring(const Args<T>& a) {
+  return a.zr != nullptr && a.Crec != a.Cout;
+}
+template <class T>
+bool on_ring(const ArgsS8<T>&) {
+  return false;
+}
+inline cudaError_t launch_ring(const Args<float>& a, int K, bool hard,
+                               cudaStream_t st) {
+  return ring::launch_f32(ring_call(a, K, hard), st);
+}
+inline cudaError_t launch_ring(const Args<bf16>& a, int K, bool hard,
+                               cudaStream_t st) {
+  return ring::launch_bf16(ring_call(a, K, hard), st);
+}
+template <class T>
+cudaError_t launch_ring(const ArgsS8<T>&, int, bool, cudaStream_t) {
+  return cudaErrorInvalidValue;
+}
+
 template <class A>
 int fused_conv_lif(const A& a, int K, int hard_reset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool hard = hard_reset != 0;
   cudaError_t e;
-  switch (K) {
-    case 1: e = launch<1>(a, hard, st); break;
-    case 3: e = launch<3>(a, hard, st); break;
-    case 5: e = launch<5>(a, hard, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (on_ring(a)) {
+    e = launch_ring(a, K, hard, st);
+  } else {
+    switch (K) {
+      case 1: e = launch<1>(a, hard, st); break;
+      case 3: e = launch<3>(a, hard, st); break;
+      case 5: e = launch<5>(a, hard, st); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

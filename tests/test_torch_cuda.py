@@ -173,6 +173,72 @@ def test_fused_lif_rec_kernel_with_crec(dev, cout, crec, k, dtype):
     assert 0.0 < float(zp.float().mean()) < 1.0
 
 
+# K2 rec with Crec != Cout on its persistent mainloop (csrc/conv_ring.cuh):
+# (B, H, W, Cin, Cout, Crec, k) of LIFFireNet's cells at mp 2 and 4, the
+# spiking U-Net's four recurrent encoder cells at mp 2 and 4, and the
+# mainloop's edges: odd H and W at B 2, a map smaller than one tile, more
+# items than resident blocks, pixel rows that are not whole 16-byte rows
+# (no TMA) at k 1, channel counts that are not multiples of 32
+_MODEL_AXIS_CELLS = [
+    (8, 128, 128, 32, 16, 32, 3), (8, 128, 128, 32, 8, 32, 3),
+    (8, 64, 64, 64, 32, 64, 3), (8, 32, 32, 128, 64, 128, 3),
+    (8, 16, 16, 256, 128, 256, 3), (8, 8, 8, 512, 256, 512, 3),
+    (8, 64, 64, 64, 16, 64, 3), (8, 32, 32, 128, 32, 128, 3),
+    (8, 16, 16, 256, 64, 256, 3), (8, 8, 8, 512, 128, 512, 3),
+    (2, 37, 45, 32, 16, 32, 3), (1, 5, 6, 32, 16, 32, 3),
+    (8, 160, 192, 32, 16, 32, 3), (2, 13, 11, 6, 12, 5, 1),
+    (2, 9, 7, 6, 4, 8, 1), (2, 19, 23, 40, 24, 48, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hard", [True, False])
+@pytest.mark.parametrize("shape", _MODEL_AXIS_CELLS)
+def test_fused_lif_rec_kernel_model_axis(dev, shape, hard, dtype):
+    """K2 rec with a rank's Cout of a cell's Crec channels (x and the
+    recurrent input over all of them) against its plain version (v' within
+    ATOL, bfloat16 one ulp of it; spikes equal but near the threshold),
+    twice bitwise, and bitwise one process's whole cell sliced to the
+    rank's channels, for the first and last rank; where Crec is not a
+    multiple of Cout, a cell of its own against its plain version."""
+    b, h, w, cin, cout, crec, k = shape
+    whole = crec % cout == 0
+    c = crec if whole else cout
+    g = _gen()
+    x = (torch.rand((b, h, w, cin), generator=g) < 0.1).float()
+    zr = (torch.rand((b, h, w, crec), generator=g) < 0.1).float()
+    wt = (torch.rand((c, cin, k, k), generator=g) * 2 - 1) * cin ** -0.5
+    wr = (torch.rand((c, crec, k, k), generator=g) * 2 - 1) * crec ** -0.5
+    thresh = 0.8 + 0.1 * torch.randn(c, generator=g)
+    leak = torch.sigmoid(-4 + 0.1 * torch.randn(c, generator=g))
+    v = thresh + 0.3 * torch.randn((b, h, w, c), generator=g)
+    z = zr if whole else (torch.rand((b, h, w, c), generator=g) < 0.1).float()
+    x, zr, wt, wr, v, z = (t.to(dev, dtype) for t in (x, zr, wt, wr, v, z))
+    leak, thresh = leak.to(dev), thresh.to(dev)
+    with torch.no_grad():
+        cell = (fused_conv_lif_rec(x, wt, wr, v, z, zr, leak, thresh, k, hard)
+                if whole else None)
+        for rank in ((0, crec // cout - 1) if whole else (0,)):
+            part = slice(rank * cout, (rank + 1) * cout)
+            args = [t.contiguous() for t in (wt[part], wr[part], v[..., part],
+                                             z[..., part])]
+            lt = (leak[part].contiguous(), thresh[part].contiguous())
+            run = lambda: fused_conv_lif_rec(x, *args, zr, *lt, k, hard)
+            vk, zk = run()
+            vp, zp = fused_conv_lif_rec_plain(x, *args, zr, *lt, k, hard)
+            assert all(map(torch.equal, (vk, zk), run()))
+            if whole:
+                assert torch.equal(vk, cell[0][..., part])
+                assert torch.equal(zk, cell[1][..., part])
+            if dtype == torch.bfloat16:
+                assert not native.beyond_bf16_ulp(vk, vp, ATOL).any()
+            else:
+                torch.testing.assert_close(vk, vp, atol=ATOL, rtol=0)
+            flips = zk != zp
+            near = ((vp.float() - lt[1]).abs()
+                    < NEAR + 1e-2 * (dtype != torch.float32))
+            assert not (flips & ~near).any()
+
+
 def test_conv_and_cell_kernels_bitwise_repeatable(dev):
     """K1 and K2 (feedforward and recurrent) run twice on the same inputs
     give the same bits: no split-K, no atomics."""
