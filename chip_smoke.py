@@ -356,8 +356,9 @@ BF16_MMA = "HMMA.16816.F32.BF16"
 MMA_RULES = {
     **{k: {"bf16": (BF16_MMA, ("TF32", "IMMA")),
            "f32": ("TF32", ("BF16", "IMMA"))}
-       for k in ("conv2d_same_kernel", "fused_conv_lif_kernel",
-                 "conv_dw_kernel", "fused_conv_lif_ring_kernel")},
+       for k in ("conv2d_same_kernel", "conv2d_same_tile_kernel",
+                 "fused_conv_lif_kernel", "conv_dw_kernel",
+                 "fused_conv_lif_ring_kernel")},
     **{k: {"s8": ("IMMA", ("HMMA",))}
        for k in ("conv2d_same_s8_kernel", "fused_conv_lif_s8_kernel")},
 }
@@ -378,13 +379,27 @@ B4_NEED = {"f32": ("UBLKCP", "SYNCS", "LDG.E.128"), "bf16": ("LDG.E.128",)}
 S8_KERNELS = ("conv2d_same_s8_kernel", "fused_conv_lif_s8_kernel")
 S8_OPS = ("UTMALDG", "UTMASTG", "LDGSTS", "SYNCS", "ARRIVES", "LDSM")
 S8_NEED = ("UTMALDG", "UTMASTG", "LDGSTS", "SYNCS")
-# K2 rec with Crec != Cout on the float mainloop (csrc/conv_ring.cuh): its
-# TMA halo loads, the cp.async copies of the maps and weight rows TMA does
-# not take, the ring's mbarriers, its ldmatrix fragments; what every one
-# of its instantiations must hold (its MMAs are MMA_RULES')
-RING_KERNELS = ("fused_conv_lif_ring_kernel",)
+# K2 rec with Crec != Cout and K1 on the persistent float mainloop
+# (csrc/conv_ring.cuh): its TMA halo loads, the cp.async copies of the
+# maps and weight rows TMA does not take, the ring's mbarriers, its
+# ldmatrix fragments; what every one of its instantiations must hold (its
+# MMAs are MMA_RULES')
+RING_KERNELS = ("fused_conv_lif_ring_kernel", "conv2d_same_kernel")
+# K1's kernels: on the ring, and on the one-image tile of conv_tile.cuh
+# where its plan keeps that (ops/conv_plan.py::k1_plan, ns 0)
+K1_KERNELS = ("conv2d_same_kernel", "conv2d_same_tile_kernel")
 RING_OPS = ("UTMALDG", "LDGSTS", "SYNCS", "ARRIVES", "LDSM")
 RING_NEED = ("UTMALDG", "LDGSTS", "SYNCS", "LDSM")
+# B2 (csrc/conv_dw.cu): its ring's TMA halo and g tiles, the cp.async
+# copies of the maps TMA does not take, the mbarriers both complete on
+DW_KERNELS = ("conv_dw_kernel",)
+DW_OPS = ("UTMALDG", "LDGSTS", "SYNCS", "ARRIVES")
+DW_NEED = ("UTMALDG", "LDGSTS", "SYNCS")
+
+
+def _is_k1(name):
+    """Whether a device operation's name is one of K1's kernels."""
+    return any(k in name for k in K1_KERNELS)
 
 
 def _opcode(line):
@@ -471,7 +486,8 @@ def sass_check(lib_path):
     MMA_RULES holds its type's MMA and none that the rule forbids; prints
     the count of each MMA opcode per kernel and type. Then B4's
     (b4_sass_check), and the copies and barriers of the int8 mainloop
-    (S8_NEED) and of K2 rec's float mainloop (RING_NEED)."""
+    (S8_NEED), of the float mainloop of K1 and K2 rec (RING_NEED) and of
+    B2's ring (DW_NEED)."""
     sass = _sass(lib_path)
     functions, ops = [], None
     for line in sass.splitlines():
@@ -503,6 +519,7 @@ def sass_check(lib_path):
     b4_sass_check(sass)
     ops_sass_check(sass, S8_KERNELS, S8_OPS, S8_NEED)
     ops_sass_check(sass, RING_KERNELS, RING_OPS, RING_NEED)
+    ops_sass_check(sass, DW_KERNELS, DW_OPS, DW_NEED)
 
 
 def timed(fn, reps=REPS):
@@ -571,13 +588,15 @@ def device_split(fn, n=REPS, tries=2):
 def device_ms(fn, kernel=None, n=REPS, tries=2):
     """Device milliseconds per call of ``fn()`` over ``n`` calls and where
     they come from: from :func:`device_split`, the operations whose name
-    contains ``kernel``, or every device operation of the calls (copies
+    contains ``kernel`` (or one of a tuple of names), or every device
+    operation of the calls (copies
     and fills included) when it is None; after ``tries`` profiler sessions
     without device events, ``events_ms`` instead, an upper bound."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     split = device_split(fn, n, tries)
     if split:
         ms = sum(t for name, (t, _) in split.items()
-                 if kernel is None or kernel in name)
+                 if names is None or any(k in name for k in names))
         if ms > 0:
             return ms, "profiler"
     return events_ms(fn, n), "events"
@@ -693,7 +712,7 @@ def kernels_forward(inp, out):
         t_p = timed(lambda: conv2d_same_plain(x, wt))
         t_l = timed(lambda: conv2d_library(x, wt))
         d_k, src_k = device_ms(lambda: conv2d_same(x, wt),
-                               "conv2d_same_kernel")
+                               K1_KERNELS)
         d_p, src_p = device_ms(lambda: conv2d_same_plain(x, wt))
         d_l, src_l = device_ms(lambda: conv2d_library(x, wt))
         npix = shape[0] * shape[1] * shape[2]
@@ -882,7 +901,7 @@ def kernels_unet(inp, out):
                 t_k = timed(lambda: conv2d_same(x, wt))
                 t_p = timed(lambda: conv2d_same_plain(x, wt))
                 d_k, src_k = device_ms(lambda: conv2d_same(x, wt),
-                                       "conv2d_same_kernel")
+                                       K1_KERNELS)
                 d_p, src_p = device_ms(lambda: conv2d_same_plain(x, wt))
                 line += (f"; kernel {t_k:.4f} ms one call, device {d_k:.4f} "
                          f"ms/call [{src_k}]; plain {t_p:.4f} ms one call, "
@@ -1022,47 +1041,69 @@ GATE_SHAPES = GRU_SHAPES + (("FireNet ConvGRU", 8, 128, 128, 64, 64),
 
 def kernels_gru(inp, out):
     """K1 and B2 at GATE_SHAPES on dense inputs (the gates read relu
-    outputs and the state), each against its plain version, run twice and
-    bitwise equal, with its device time beside cuDNN's conv and wgrad."""
+    outputs and the state), in float32 and in bfloat16, each against its
+    plain version (bfloat16: within one ulp plus ATOL, B2 plus SUM_RTOL of
+    the largest |dw|), run twice and bitwise equal, with its device time
+    beside cuDNN's conv and wgrad (float32 with TF32 off; bfloat16 cuDNN's
+    bfloat16 calls)."""
     from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel,
                                                conv2d_dw_plain, conv2d_same,
                                                conv2d_same_plain)
 
-    for cell, b, h, w, cin, cout in GATE_SHAPES:
-        x = inp.normal((b, h, w, cin), 0.5)
-        wt = inp.uniform((cout, cin, 3, 3), (1 / (9 * cin)) ** 0.5)
-        g = inp.normal((b, h, w, cout), 1e-3)
-        shape = f"{b}x{h}x{w} {cin}->{cout} k=3"
-        y = conv2d_same(x, wt)
-        err = float((y - conv2d_same_plain(x, wt)).abs().max())
-        if not err <= ATOL:
-            fail(f"K1 {cell} {shape}: max |err| {err} > {ATOL}")
-        if not torch.equal(y, conv2d_same(x, wt)):
-            fail(f"K1 {cell} {shape}: two runs differ")
-        _record(out, "conv2d_same", err)
-        dw = conv2d_dw_kernel(x, g, 3)
-        err_dw = check_sum(dw, conv2d_dw_plain(x, g, 3), f"B2 {cell} {shape}")
-        if not torch.equal(dw, conv2d_dw_kernel(x, g, 3)):
-            fail(f"B2 {cell} {shape}: two runs differ")
-        _record(out, "conv2d_dw", err_dw)
-        npix = b * h * w
-        flop = 2 * npix * cout * cin * 9
-        for label, run_k, run_l, what, nbytes, e in (
-                ("K1", lambda: conv2d_same(x, wt),
-                 lambda: conv2d_library(x, wt), "conv",
-                 4 * (npix * (cin + cout) + wt.numel()), err),
-                ("B2", lambda: conv2d_dw_kernel(x, g, 3),
-                 lambda: conv2d_dw_library(x, g, 3), "wgrad",
-                 4 * (npix * (cin + cout) + wt.numel()), err_dw)):
-            d_k, src_k = device_ms(run_k)
-            d_l, src_l = device_ms(run_l)
-            b_ms, b_by = least_ms(nbytes, flop)
-            print(f"[kernels] {label} {cell} {shape} randn: max|err| "
-                  f"{e:.3g}, repeatable; kernel device {d_k:.4f} ms/call "
-                  f"[{src_k}] ({_rates(nbytes, flop, d_k)}, "
-                  f"{b_ms / d_k:.3f} of its bound {b_ms:.4f} ms, {b_by}); "
-                  f"cuDNN {what} device {d_l:.4f} [{src_l}]"
-                  + (" SLOWER than cuDNN" if d_k > d_l else ""))
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        tag = " bf16" if bf else ""
+        for cell, b, h, w, cin, cout in GATE_SHAPES:
+            x = inp.normal((b, h, w, cin), 0.5).to(dtype)
+            wt = inp.uniform((cout, cin, 3, 3), (1 / (9 * cin)) ** 0.5).to(
+                dtype)
+            g = inp.normal((b, h, w, cout), 1e-3).to(dtype)
+            shape = f"{b}x{h}x{w} {cin}->{cout} k=3"
+            y = conv2d_same(x, wt)
+            y_ref = conv2d_same_plain(x, wt)
+            if bf:
+                err = bf16_close(y, y_ref, f"K1{tag} {cell} {shape}", ATOL)
+            else:
+                err = float((y - y_ref).abs().max())
+                if not err <= ATOL:
+                    fail(f"K1 {cell} {shape}: max |err| {err} > {ATOL}")
+            if not torch.equal(y, conv2d_same(x, wt)):
+                fail(f"K1{tag} {cell} {shape}: two runs differ")
+            _record(out, "conv2d_same" + tag.replace(" ", "_"), err)
+            dw = conv2d_dw_kernel(x, g, 3)
+            dw_ref = conv2d_dw_plain(x, g, 3)
+            if bf:
+                err_dw = bf16_close(dw, dw_ref, f"B2{tag} {cell} {shape}",
+                                    SUM_RTOL * float(dw_ref.float().abs()
+                                                     .max()))
+            else:
+                err_dw = check_sum(dw, dw_ref, f"B2 {cell} {shape}")
+            if not torch.equal(dw, conv2d_dw_kernel(x, g, 3)):
+                fail(f"B2{tag} {cell} {shape}: two runs differ")
+            _record(out, "conv2d_dw" + tag.replace(" ", "_"), err_dw)
+            npix = b * h * w
+            flop = 2 * npix * cout * cin * 9
+            esize = x.element_size()
+            nbytes = esize * (npix * (cin + cout) + wt.numel())
+            peak = BF16_FLOPS if bf else TF32_FLOPS
+            for label, run_k, run_l, what, kname, e in (
+                    ("K1", lambda: conv2d_same(x, wt),
+                     lambda: conv2d_library(x, wt), "conv",
+                     K1_KERNELS, err),
+                    ("B2", lambda: conv2d_dw_kernel(x, g, 3),
+                     lambda: conv2d_dw_library(x, g, 3), "wgrad", None,
+                     err_dw)):
+                d_k, src_k = device_ms(run_k, kname)
+                d_l, src_l = device_ms(run_l)
+                b_ms, b_by = least_ms(nbytes, flop, peak)
+                print(f"[kernels] {label}{tag} {cell} {shape} randn: max|err| "
+                      f"{e:.3g}, repeatable; kernel device {d_k:.4f} ms/call "
+                      f"[{src_k}] ({_rates(nbytes, flop, d_k)}, "
+                      f"{b_ms / d_k:.3f} of its bound {b_ms:.4f} ms, {b_by}); "
+                      f"cuDNN{tag} {what} device {d_l:.4f} [{src_l}]"
+                      + (f" SLOWER than cuDNN by {d_k / d_l:.2f}x"
+                         if d_k > d_l else
+                         f", kernel faster by {d_l / d_k:.2f}x"))
 
 
 # device memory written between calls so that the next finds L2 (50 MB)
@@ -1383,6 +1424,8 @@ K2_BF16 = ((8, 128, 128, 32, 32, False), (8, 128, 128, 32, 32, True),
            (8, 16, 16, 1024, 256, False), (1, 46, 60, 514, 128, False),
            (1, 180, 240, 130, 32, False))
 B2_BF16 = B2_FIRENET + ((8, 8, 8, 512, 512, 3, "spikes"),
+                        (8, 16, 16, 256, 256, 3, "spikes"),
+                        (8, 16, 16, 256, 2, 1, "spikes"),
                         (8, 16, 16, 1024, 256, 3, "spikes"),
                         (8, 64, 64, 258, 64, 3, "flow"),
                         (2, 20, 21, 5, 7, 3, "randn"))
@@ -1418,7 +1461,7 @@ def kernels_bf16(inp, out):
             npix = b * h * w
             timing, line = _timings(
                 lambda: conv2d_same(x, wt), lambda: conv2d_same_plain(x, wt),
-                lambda: conv2d_library(x, wt), "conv2d_same_kernel",
+                lambda: conv2d_library(x, wt), K1_KERNELS,
                 2 * (npix * (cin + cout) + wt.numel()),
                 2 * npix * cout * k * k * cin)
         print(f"[kernels] {label}: max|err| {err:.3g}, repeatable; {line}")
@@ -1513,7 +1556,10 @@ def kernels_bf16(inp, out):
         if not torch.equal(got, conv2d_dw_kernel(x, g, k)):
             fail(f"{label}: two runs differ")
         timing, line = None, "not timed"
-        if (cin, cout) in ((32, 32), (512, 512)) and kind == "spikes":
+        # the training shape and the U-Net's deep maps (16 x 16 or smaller,
+        # 256 input channels or more)
+        if (cin, cout) == (32, 32) and kind == "spikes" or (h <= 16
+                                                            and cin >= 256):
             npix = b * h * w
             timing, line = _timings(
                 lambda: conv2d_dw_kernel(x, g, k),
@@ -1612,9 +1658,12 @@ def _device_events(fn):
 
 class ShapeLog:
     """While active, records the shape of every K1, B2 and B4 launch in
-    launch order, K1 and B2 as (B, H, W, Cin, Cout, k), B4 as (B, H, W, C,
-    element type), so that a profiled run can give each shape its device
-    time (:func:`on_path_by_shape`); and of every K1-s8 and K2-s8 launch,
+    launch order, K1 as (B, H, W, Cin, Cout, k) through its wrapper's call
+    of the plan (ops/conv_plan.py::k1_plan, which the operator
+    evflow::conv2d_same reaches), B2 as that and its element size, B4 as
+    (B, H, W, C, element type), so that a profiled run can give each shape
+    its device time (:func:`on_path_by_shape`); and of every K1-s8 and
+    K2-s8 launch,
     as (B, H, W, Cin, Cout) and (B, H, W, Cin, Cout, recurrent), through
     the int8 wrappers' call of the plan (ops/s8_plan.py), which the
     operators reach (:func:`s8_by_shape`); and of every K2 rec launch with
@@ -1625,7 +1674,7 @@ class ShapeLog:
 
         self.k1, self.b2, self.b4 = [], [], []
         self.k1s8, self.k2s8, self.k2rec = [], [], []
-        self._saved = (conv._conv_kernel, conv.conv2d_dw_kernel,
+        self._saved = (conv.k1_plan, conv.conv2d_dw_kernel,
                        fused_lif.fused_lif_bwd_kernel)
         self._launch = fused_lif._launch
         launch = self._launch
@@ -1649,26 +1698,28 @@ class ShapeLog:
 
         conv.s8_plan, fused_lif.s8_plan = k1s8_logged, k2s8_logged
 
-        def k1_logged(x, w):
-            self.k1.append((*x.shape, w.shape[0], w.shape[2]))
-            return k1(x, w)
+        # K1 through its wrapper's call of the plan, as the s8 kernels:
+        # the operator evflow::conv2d_same holds the wrapper itself
+        def k1_logged(b, h, w, cin, cout, k, esize, sms):
+            self.k1.append((b, h, w, cin, cout, k))
+            return k1(b, h, w, cin, cout, k, esize, sms)
 
         def b2_logged(x, g, k):
-            self.b2.append((*x.shape, g.shape[3], k))
+            self.b2.append((*x.shape, g.shape[3], k, x.element_size()))
             return b2(x, g, k)
 
         def b4_logged(v, *args):
             self.b4.append((*v.shape, str(v.dtype).replace("torch.", "")))
             return b4(v, *args)
 
-        conv._conv_kernel, conv.conv2d_dw_kernel = k1_logged, b2_logged
+        conv.k1_plan, conv.conv2d_dw_kernel = k1_logged, b2_logged
         fused_lif.fused_lif_bwd_kernel = b4_logged
         return self
 
     def __exit__(self, *exc):
         from event_flow_tpu_torch.ops import conv, fused_lif
 
-        (conv._conv_kernel, conv.conv2d_dw_kernel,
+        (conv.k1_plan, conv.conv2d_dw_kernel,
          fused_lif.fused_lif_bwd_kernel) = self._saved
         conv.s8_plan, fused_lif.s8_plan = self._plans
         fused_lif._launch = self._launch
@@ -1728,10 +1779,12 @@ def int8_window_by_shape(tag, config, precision="float32"):
 def on_path_by_shape(events, log):
     """{(kernel, shape): (calls, device ms)} of the K1, B2 and B4 launches
     of a profiled run, each launch matched to its logged shape in launch
-    order (a B2 call with a pixel split is its conv_dw kernel and then its
-    chunk sum; a B4 call is one kernel); None for a kernel whose device
-    events do not match its log (a profiler session can miss events)."""
-    from event_flow_tpu_torch.ops import native
+    order (a B2 call with a pixel split, ops/conv_plan.py::b2_plan, is its
+    conv_dw kernel and then its chunk sum; a B4 call is one kernel); None
+    for a kernel whose device events do not match its log (a profiler
+    session can miss events)."""
+    from event_flow_tpu_torch.ops.conv_plan import b2_plan
+    from event_flow_tpu_torch.ops.s8_plan import sm_count
 
     out = {}
     b4 = [us for name, _, us in events if B4_KERNEL in name]
@@ -1741,11 +1794,11 @@ def on_path_by_shape(events, log):
             out[("B4", shape)] = (n + 1, t + us / 1e3)
     else:
         out["B4"] = None
-    k1 = [us for name, _, us in events if "conv2d_same_kernel" in name]
+    k1 = [us for name, _, us in events if _is_k1(name)]
     dw = [us for name, _, us in events if "conv_dw_kernel" in name]
-    sums = [us for name, _, us in events if "chunk_sum_kernel" in name]
-    split = [native.library().evf_conv_dw_chunks(*shape) > 1
-             for shape in log.b2]
+    sums = [us for name, _, us in events if "conv_dw_sum_kernel" in name]
+    split = [b2_plan(*shape, esize, sm_count("cuda")).chunks > 1
+             for *shape, esize in log.b2]
     if len(k1) == len(log.k1):
         for shape, us in zip(log.k1, k1):
             n, t = out.get(("K1", shape), (0, 0.0))
@@ -1754,10 +1807,10 @@ def on_path_by_shape(events, log):
         out["K1"] = None
     if len(dw) == len(log.b2) and len(sums) == sum(split):
         sums = iter(sums)
-        for shape, us, has_sum in zip(log.b2, dw, split):
+        for (*shape, _), us, has_sum in zip(log.b2, dw, split):
             us += next(sums) if has_sum else 0.0
-            n, t = out.get(("B2", shape), (0, 0.0))
-            out[("B2", shape)] = (n + 1, t + us / 1e3)
+            n, t = out.get(("B2", tuple(shape)), (0, 0.0))
+            out[("B2", tuple(shape))] = (n + 1, t + us / 1e3)
     else:
         out["B2"] = None
     return out
@@ -1788,8 +1841,8 @@ def update_parts(events):
     parts = {}
     for name, _, us in events:
         low = name.lower()
-        key = ("K1" if "conv2d_same_kernel" in name else
-               "B2" if "conv_dw_kernel" in name or "chunk_sum" in name else
+        key = ("K1" if _is_k1(name) else
+               "B2" if "conv_dw_" in name else
                "K2" if "fused_conv_lif_kernel" in name else
                "B4" if B4_KERNEL in name else
                "K3" if "scatter_tile_kernel" in name else
@@ -2190,7 +2243,7 @@ def window_parts(tag, wall_us, events, labelled=()):
         if labelled and "fused_conv_lif_kernel" in name:
             continue
         key = ("int8 convs (K1-s8, K2-s8)" if "_s8_kernel" in name else
-               "K1 convs" if "conv2d_same_kernel" in name else
+               "K1 convs" if _is_k1(name) else
                "K2 cells" if "fused_conv_lif_kernel" in name else
                "K3 scatter" if "scatter_tile_kernel" in name else
                "interpolate" if "upsample" in low else
@@ -4942,7 +4995,8 @@ S8_TIMED = (("K1-s8", (1, 180, 240, 32, 2, 1, "spikes", False)),
             ("K2-s8", (1, 12, 15, 512, 512, 3, "spikes", False)),
             ("K2-s8", (1, 12, 15, 512, 512, 3, "spikes", True)))
 # the same calls on the tree before the persistent int8 mainloop
-# (int8_kernel_timing.py run on it; NVIDIA H100 80GB HBM3, 700.00 W):
+# (int8_kernel_timing.py, now kernel_timing.py int8, run on it; NVIDIA
+# H100 80GB HBM3, 700.00 W):
 # device ms per call with L2 warm, with L2 flushed, and one call's ms, by
 # S8_TIMED's index and the output or state type
 S8_PARENT_MS = {
@@ -5157,9 +5211,8 @@ def kernels_int8(inp, out):
                 2 * npix * cout * k * k * cin, INT8_OPS)
             wbf, xbf = wt.to(bf), x.to(bf)
             print(_beside(label, (
-                ("f32 K1", lambda: _conv_kernel(x, wt), "conv2d_same_kernel"),
-                ("bf16 K1", lambda: _conv_kernel(xbf, wbf),
-                 "conv2d_same_kernel"))))
+                ("f32 K1", lambda: _conv_kernel(x, wt), K1_KERNELS),
+                ("bf16 K1", lambda: _conv_kernel(xbf, wbf), K1_KERNELS))))
             print(f"[int8] {quant_pass_line(x)}")
         print(f"[int8] {label}: bitwise its plain version, repeatable; {line}")
         _record(out, "conv2d_same_s8", 0.0, timing, INT8_OPS)
@@ -5578,7 +5631,8 @@ TP_K2_SHAPES = (
       for i, s in enumerate(TP_K2_UNET)))
 # the parent tree's K2 rec with Crec != Cout (csrc/conv_tile.cuh's
 # mainloop) on the NVIDIA H100 80GB HBM3 at 700.00 W, from
-# rec_kernel_timing.py: (cell, type): (device ms warm, flushed, one call)
+# rec_kernel_timing.py (now kernel_timing.py rec): (cell, type): (device
+# ms warm, flushed, one call)
 TP_K2_PARENT_MS = {
     ("LIFFireNet mp 2", "float32"): (0.1307, 0.1312, 0.2581),
     ("LIFFireNet mp 2", "bfloat16"): (0.0445, 0.0476, 0.2207),
@@ -6178,7 +6232,9 @@ KERNELS = (
 )
 
 
-PARTS = {"int8": phase_int8, "tp": phase_tp, "tp-nccl": phase_tp_nccl}
+PARTS = {"kernels": phase_kernels, "annunet": phase_annunet,
+         "unet-train": phase_unet_train, "int8": phase_int8, "tp": phase_tp,
+         "tp-nccl": phase_tp_nccl}
 
 
 def main(argv=None):

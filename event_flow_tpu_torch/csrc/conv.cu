@@ -5,19 +5,31 @@
 // im2col strip matmul [th*W, k*k*Cin] @ [k*k*Cin, Cout], whose bfloat16
 // form (the mixed-precision policy, models/policy.py) takes bfloat16
 // patches and weights, accumulates in float32 and rounds y to bfloat16
-// (conv_pallas.py:82-110). Here it is an implicit GEMM on the tensor cores
-// over shared-memory halo tiles staged with cp.async (mainloop in
-// conv_tile.cuh: 3xTF32 for float32, m16n8k16 bf16 MMAs for bfloat16),
-// with no im2col matrix anywhere, and y written from the MMA fragments as
-// element pairs, 32 (bfloat16: 16) contiguous bytes per quad of lanes.
+// (conv_pallas.py:82-110); the same kernel runs dx in _cp_bwd. Here it is
+// an implicit GEMM on the tensor cores on the persistent float mainloop
+// of conv_ring.cuh (3xTF32 for float32, m16n8k16 bf16 MMAs for bfloat16),
+// shared with K2 rec under the model axis: tiles of 256 pixels that span
+// images where the maps are small, the next pass's halo in flight by TMA
+// on an mbarrier ring during the current pass's MMAs, the weights of a
+// block's channel group staged once where they fit, each float32 value
+// split into TF32 hi and lo once, a cluster splitting K at serving's deep
+// maps whose items cannot fill the card; no im2col matrix anywhere, and y
+// written from the MMA fragments as element pairs. The tiles, channel
+// groups, split and ring come from ops/conv_plan.py::k1_plan, which keeps
+// the one-process mainloop's one-image tile (conv2d_same_tile_kernel)
+// where the ring measured slower: maps without 16-byte pixel rows and the
+// shallow 1 x 1 heads.
 //
-// What bounds it on the H100: it runs the 1x1 prediction head (32 -> 2)
-// and, in training, every dx (32 -> 32 at k = 3, and 2 -> 32 at k = 1 for
-// the head's). At 8 x 128 x 128 the dx conv moves about 34 MB (17 MB in
-// bfloat16) and does 2.4 GFLOP (7.2 in 3xTF32), so at 3.35 TB/s and the
-// tensor cores' rate it is bound by bytes; the design reads and writes
-// whole 32-byte sectors and keeps 16-byte copies in flight. The 1x1 calls
-// move a few MB and are bound by bytes and launch latency.
+// What bounds it on the H100: at the LIFFireNet dx (8 x 128 x 128, 32 ->
+// 32, k 3) a call moves about 34 MB (17 MB in bfloat16) for 2.4 GFLOP
+// (7.2 in 3xTF32): bytes, 10.0 us at 3.35 TB/s. At RecEVFlowNet's ConvGRU
+// gates (1024 -> 1024 on 8 x 8 x 8) the operations: 9.66 GFLOP, 19.5 us at
+// the TF32 peak (three times that in 3xTF32, which mma.sync's rate and
+// the shared-memory reads of its fragments set); there the one-process
+// mainloop's 8 x 32 tiles of one image held 64 pixels in 256, so four
+// images now share a tile. At serving's 1 x 12 x 15 the weights (37.7 MB,
+// 11.3 us) and the few tiles: groups of 8 channels and a split of K over a
+// cluster give the card its items.
 //
 // K1-s8 (evf_conv2d_same_s8): the int8 variant for int8 serving. It
 // replaces no Pallas kernel: JAX's stride-1 int8 conv is XLA's int8 dot
@@ -42,17 +54,37 @@
 // torch operations (ops/quant.py), which move more bytes than the conv
 // (PERF.md).
 
+#include "conv_ring.cuh"
 #include "conv_s8.cuh"
 
 namespace {
 
 using namespace evf;
 
+// K1 on the persistent float mainloop: conv_ring.cuh's walk with the
+// store epilogue; two blocks an SM in bfloat16 and at k 1 (the heads and
+// their dx, whose small items want the occupancy), one in float32 at k 3
+// and 5, whose planes take most of an SM's shared memory anyway
+template <int K, int CO, class T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 2 || K == 1 ? 2 : 1)
+    conv2d_same_kernel(const __grid_constant__ ring::Params p) {
+  ring::run<K, CO, false, T, false>(p);
+}
+
+// K1 on the one-process mainloop of conv_tile.cuh (K2's): one block per
+// 8 x 32 tile of one image and CO output channels, each pass staged by
+// cp.async, then multiplied. The plan takes it (ns 0) where the ring
+// loses: maps whose pixel rows are not whole 16-byte rows (the decoders'
+// 130, 258 and 514 channels, the heads' dx from 2), which TMA cannot
+// stage and the ring's thread copies staged more slowly, and the 1 x 1
+// heads of 64 input channels or fewer, one or two passes a tile behind
+// the ring's fixed costs. Same sum order as the ring's, so the same bits.
 template <int K, int CO, class T>
 __global__ void __launch_bounds__(NT, 2)
-    conv2d_same_kernel(const T* __restrict__ x, const T* __restrict__ w2,
-                       T* __restrict__ y, int H, int W, int Cin, int Cout,
-                       int cpad_max, Steps steps) {
+    conv2d_same_tile_kernel(const T* __restrict__ x,
+                            const T* __restrict__ w2, T* __restrict__ y,
+                            int H, int W, int Cin, int Cout, int cpad_max,
+                            Steps steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   int y0, x0;
@@ -74,18 +106,55 @@ __global__ void __launch_bounds__(NT, 2)
 }
 
 template <int K, int CO, class T>
-cudaError_t launch_co(const T* x, const T* w2, T* y, int B, int H, int W,
-                      int Cin, int Cout, cudaStream_t st) {
-  const cudaError_t e =
-      allow_smem(conv2d_same_kernel<K, CO, T>, smem_bytes<K, CO, T>(CCH));
+cudaError_t launch_tile(const ring::ConvCall& c, cudaStream_t st) {
+  const int cpad = pass_pad(c.Cin, 0);
+  const size_t smem = smem_bytes<K, CO, T>(cpad);
+  const cudaError_t e = allow_smem(conv2d_same_tile_kernel<K, CO, T>, smem);
   if (e != cudaSuccess) return e;
-  const int cpad = pass_pad(Cin, 0);
-  const Steps steps{copy_step<T>(x, Cin), copy_step<T>(w2, Cout),
-                    0, 0, Cout % 2 == 0 && aligned(y, 2 * sizeof(T))};
-  conv2d_same_kernel<K, CO, T>
-      <<<grid_for(B, H, W, Cout, CO), NT, smem_bytes<K, CO, T>(cpad), st>>>(
-          x, w2, y, H, W, Cin, Cout, cpad, steps);
+  const T* x = static_cast<const T*>(c.x);
+  const T* w2 = static_cast<const T*>(c.w2);
+  T* y = static_cast<T*>(c.y);
+  const Steps steps{copy_step<T>(x, c.Cin), copy_step<T>(w2, c.Cout), 0, 0,
+                    c.Cout % 2 == 0 && aligned(y, 2 * sizeof(T))};
+  conv2d_same_tile_kernel<K, CO, T>
+      <<<grid_for(c.B, c.H, c.W, c.Cout, CO), NT, smem, st>>>(
+          x, w2, y, c.H, c.W, c.Cin, c.Cout, cpad, steps);
   return cudaSuccess;
+}
+
+// K1 at K in the call's channel group (8, 16 or 32), on the ring, or on
+// the one-image tile where the plan has no ring stages (groups of 8 where
+// Cout <= 8, else 32)
+template <int K, class T>
+cudaError_t launch_k1(const ring::ConvCall& c, cudaStream_t st) {
+  if (c.ns == 0)
+    return c.co == 8 ? launch_tile<K, 8, T>(c, st)
+                     : c.co == 32 ? launch_tile<K, 32, T>(c, st)
+                                  : cudaErrorInvalidValue;
+  switch (c.co) {
+    case 8:
+      return ring::launch_conv<K, 8, T>(conv2d_same_kernel<K, 8, T>, c, st);
+    case 16:
+      return ring::launch_conv<K, 16, T>(conv2d_same_kernel<K, 16, T>, c,
+                                         st);
+    case 32:
+      return ring::launch_conv<K, 32, T>(conv2d_same_kernel<K, 32, T>, c,
+                                         st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class T>
+int conv2d_same_float(const ring::ConvCall& c, cudaStream_t st) {
+  cudaError_t e;
+  switch (c.K) {
+    case 1: e = launch_k1<1, T>(c, st); break;
+    case 3: e = launch_k1<3, T>(c, st); break;
+    case 5: e = launch_k1<5, T>(c, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K1-s8: y = float(int32 conv of xq with wq) * scale[co], rounded once
@@ -141,22 +210,28 @@ int conv2d_same(int K, int Cout, A... args) {
 
 extern "C" {
 
-// y [B,H,W,Cout] = conv of x [B,H,W,Cin] with w2 [K*K*Cin, Cout], float32.
-// Returns the error of the shared-memory attribute, or cudaGetLastError()
-// after the launch.
+// y [B,H,W,Cout] = conv of x [B,H,W,Cin] with w2 [K*K*Cin, Cout], float32,
+// on the plan of ops/conv_plan.py::k1_plan (tile width tw, imgs images a
+// tile, channel groups of co, slices blocks a cluster, ns ring stages or
+// 0 for the one-image tile, weights resident or not). Returns the error of the launch's setup, or
+// cudaGetLastError() after the launch.
 int evf_conv2d_same(const float* x, const float* w2, float* y, int B, int H,
-                    int W, int Cin, int Cout, int K, void* stream) {
-  return conv2d_same(K, Cout, x, w2, y, B, H, W, Cin, Cout,
-                     static_cast<cudaStream_t>(stream));
+                    int W, int Cin, int Cout, int K, int tw, int imgs,
+                    int co, int slices, int ns, int resident, void* stream) {
+  const ring::ConvCall c{x,  w2, y,    B,      H,  W,       Cin, Cout,
+                         K,  tw, imgs, co, slices, ns, resident};
+  return conv2d_same_float<float>(c, static_cast<cudaStream_t>(stream));
 }
 
 // The same in bfloat16: x, w2 and y bfloat16, the sum in float32 rounded
 // once to y.
 int evf_conv2d_same_bf16(const bf16* x, const bf16* w2, bf16* y, int B,
-                         int H, int W, int Cin, int Cout, int K,
+                         int H, int W, int Cin, int Cout, int K, int tw,
+                         int imgs, int co, int slices, int ns, int resident,
                          void* stream) {
-  return conv2d_same(K, Cout, x, w2, y, B, H, W, Cin, Cout,
-                     static_cast<cudaStream_t>(stream));
+  const ring::ConvCall c{x,  w2, y,    B,      H,  W,       Cin, Cout,
+                         K,  tw, imgs, co, slices, ns, resident};
+  return conv2d_same_float<bf16>(c, static_cast<cudaStream_t>(stream));
 }
 
 // K1-s8: y [B,H,W,Cout] float32 = float(sum of int8 products) * scale[co]

@@ -1,81 +1,102 @@
-// The float mainloop of K2 rec where a mesh's model axis splits the cell's
-// output channels (Crec != Cout: this rank's Cout of the cell's Crec, the
-// input x and the recurrent input z_rec over every channel), for sm_90a:
-// a persistent implicit GEMM on the tensor cores, float32 operands in
-// 3xTF32 (mma.sync m16n8k8) or bfloat16 operands (mma.sync m16n8k16),
-// whose next pass loads by TMA during the current pass's MMAs. Replaces,
-// as K2 does, event_flow_tpu/ops/fused_lif_pallas.py::_fused_fwd under
-// JAX's GSPMD split of the cell (event_flow_tpu/parallel/mesh.py:45-58).
+// The persistent float mainloop of K1 (conv.cu) and of K2 rec where a
+// mesh's model axis splits the cell's output channels (Crec != Cout: this
+// rank's Cout of the cell's Crec, the input x and the recurrent input
+// z_rec over every channel), for sm_90a: an implicit GEMM on the tensor
+// cores, float32 operands in 3xTF32 (mma.sync m16n8k8) or bfloat16
+// operands (mma.sync m16n8k16), whose next pass loads by TMA during the
+// current pass's MMAs. Replaces event_flow_tpu/ops/conv_pallas.py::
+// _conv_fwd (K1: the forward conv and, with the kernel flipped and its
+// channels swapped, dx in _cp_bwd) and, as K2 does,
+// event_flow_tpu/ops/fused_lif_pallas.py::_fused_fwd under JAX's GSPMD
+// split of the cell (event_flow_tpu/parallel/mesh.py:45-58).
 //
-// What bounds it on the H100: at LIFFireNet's cells at mp 2 (8 x 128 x
-// 128, Cin 32, Crec 32, Cout 16, k 3) a float32 call moves 67 MB (x and
-// z_rec in, v, z in and v', z' out), 20 us at 3.35 TB/s, and does 2.4
-// GFLOP (three times that in 3xTF32); bfloat16 half the bytes. One
-// process's mainloop (conv_tile.cuh) stages a pass, then multiplies, one
-// 8 x 32 tile a block, its weight rows restaged for every pass, with 32
-// output channels a block (half of them idle at Cout 16), and splits
-// every float32 operand into TF32 hi and lo at each of the 9 taps that
-// read it. This one keeps loads in flight and converts each value once:
+// What bounds it on the H100. K1 at the LIFFireNet dx (8 x 128 x 128, 32
+// -> 32, k 3) moves 34 MB, 10 us at 3.35 TB/s, for 2.4 GFLOP (three times
+// that in 3xTF32); at RecEVFlowNet's ConvGRU gate (8 x 8 x 8, 1024 ->
+// 1024) it does 9.66 GFLOP, 19.5 us at the TF32 peak (58.6 in 3xTF32), on
+// 512 output pixels, and at serving's 1 x 12 x 15 its 37.7 MB of weights
+// take 11.3 us. K2 rec at LIFFireNet's cells at mp 2 (Cin 32, Crec 32,
+// Cout 16) moves 67 MB (x and z_rec in, v, z in and v', z' out), 20 us,
+// for 2.4 GFLOP; bfloat16 half the bytes. One process's mainloop
+// (conv_tile.cuh, K2) stages a pass, then multiplies, one 8 x 32 tile of
+// one image a block, its weight rows restaged for every pass, with 32
+// output channels a block, and splits every float32 operand into TF32 hi
+// and lo at each of the 9 taps that read it; at an 8 x 8 map its tile is
+// a quarter full and 256 such tiles restage every weight. This one keeps
+// loads in flight, converts each value once and fills its tiles:
 //
-// - Work. The output is cut into tiles of TILE = 256 pixels of one image,
-//   th x tw with tw 32, 16 or 8 (the fewest tiles that fit in shared
-//   memory, the wider on a tie), and channel groups of CO output channels
-//   (8 where Cout <= 8, else 16: no n8 tile multiplies into a channel
-//   that is never stored at Cout 16; 8 where a group of 16 does not fit,
-//   float32 at k 5); an item is one tile of one group, group-major.
-// - A persistent grid: as many blocks as the occupancy API says fit (one
-//   per SM in float32, two in bfloat16), no more than the items, each
-//   walking a run of consecutive items, so its weights change rarely.
+// - Work. The output is cut into tiles of TILE = 256 pixels, imgs images
+//   of th x tw each (tw 32, 16 or 8; imgs 1, 2, 4 or 8), so that the
+//   U-Net's and the gates' 8 x 8 maps fill a tile with 4 images, and into
+//   channel groups of CO output channels (8, 16 or 32); an item is one
+//   tile of one group, group-major. K1's tiles, groups and split are
+//   ops/conv_plan.py's (the fewest tiles that fit, the smaller halo on a
+//   tie; the group of the least estimated time); K2 rec's are plan_rec's
+//   below (one image a tile, groups of 16, or 8).
+// - A persistent grid: as many blocks (or clusters) as the occupancy API
+//   says fit (one per SM in float32, two in bfloat16), no more than the
+//   items, each walking a run of consecutive items, so its weights change
+//   rarely.
+// - Split K at serving's deep shapes (one image, 256 input channels or
+//   more) whose items cannot fill the card (K1 at 1 x 12 x 15): the passes
+//   of an item are split over the `slices` blocks of a thread-block
+//   cluster, and the first block adds the others' float32 fragments from
+//   their shared memory in rank order (a fixed order: bitwise repeatable,
+//   but not one process's sum order).
 // - A ring of up to NS stages on mbarriers. A step is one pass of 32 input
 //   channels of one item, x's passes, then z_rec's. Thread 0 issues a
 //   step's halo tile as one TMA copy (cp.async.bulk.tensor over the NHWC
-//   map, 128-byte float32 or 64-byte bfloat16 pixel rows under TMA's
-//   swizzle of that width; the hardware zero-fills the border, which is
-//   the conv's padding, and the channels past C); where a map's pixel rows
-//   are not whole 16-byte rows (5, 6 channels) or a pointer is not 16-byte
-//   aligned, the threads copy the halo with cp.async into the same
-//   layout. Both complete on the stage's mbarrier.
+//   map, a 4-D box of 32 channels x (tw + k - 1) x (th + k - 1) x imgs
+//   whose origin sits at (-p, -p) of every image, 128-byte float32 or
+//   64-byte bfloat16 pixel rows under TMA's swizzle of that width; the
+//   hardware zero-fills the border, which is each image's padding, the
+//   images past B and the channels past C); where a map's pixel rows are
+//   not whole 16-byte rows (2, 5, 130 channels) or a pointer is not 16-byte
+//   aligned, the threads copy the halo with cp.async into the same layout.
+//   Both complete on the stage's mbarrier.
 // - Weights once per channel group: the group's rows of every pass stay in
 //   shared memory, reloaded where the group changes; where they do not
-//   fit (the U-Net's deep cells) each stage carries its pass's rows. Both
-//   arrive by cp.async, rows of the group's channels as w2 holds them.
+//   fit (the deep cells and gates) each stage carries its pass's rows.
+//   Both arrive by cp.async, rows of the group's channels as w2 holds them.
 // - 3xTF32 without re-splitting (float32). Once a stage has landed, the
 //   threads split each of its values once into a TF32 hi plane and lo
 //   plane of a work area (the resident weights are split once as they
 //   land), the stage is free, and the next step's TMA copy into it is
 //   issued before the taps: the taps read hi and lo fragments (A by
 //   ldmatrix, B by 32-bit loads) and convert nothing. The split rounds
-//   with integer operations, the same bits as the conversion instruction.
+//   with integer operations, the conversion instruction's bits for every
+//   finite value, and keeps a NaN a NaN (conv_tile.cuh::split_bits).
 //   Splitting A as the taps load it, as the one-process mainloop does,
 //   measured slower on the H100 although it halves A's shared-memory
 //   reads (PERF.md). bfloat16 taps read the landed stage itself.
-// - State in flight. At an item's first pass each lane loads its v, z,
-//   leak and threshold (4 channels of one pixel per n8 tile, 16 float32
-//   or 8 bfloat16 bytes) into registers; the epilogue swaps half of each
-//   accumulator fragment with the neighbouring lane so that each lane
-//   holds those 4 channels, and stores v' and z' as 16 (8) bytes a lane.
-//   Where Cout is not a multiple of 4 or a pointer not aligned, the
-//   epilogue reads and writes element by element.
-// - A warp whose rows lie below a map shorter than the tile (the U-Net's
-//   8 x 8 maps fill 8 of a tile's 32 rows) skips the taps.
+// - The epilogue. K1 stores y from the fragments, element pairs per lane
+//   (32 contiguous bytes a quad of lanes in float32). K2 rec: at an item's
+//   first pass each lane loads its v, z, leak and threshold (4 channels of
+//   one pixel per n8 tile, 16 float32 or 8 bfloat16 bytes) into
+//   registers; the epilogue swaps half of each accumulator fragment with
+//   the neighbouring lane so that each lane holds those 4 channels, and
+//   stores v' and z' as 16 (8) bytes a lane. Where Cout is not a multiple
+//   of 4 or a pointer not aligned, it reads and writes element by element.
+// - A warp whose pixels lie outside the map (below a map shorter than the
+//   tile, or in an image past B) skips the taps.
 //
 // What bounds it: at LIFFireNet's cells the float32 taps load A's hi and
 // lo planes and B's words, 24 shared-memory wavefronts per warp for 12
-// MMAs at Cout 16, so the shared-memory port and the mma.sync pipe set
-// their time; one block per SM (206 KB of shared memory) leaves the
-// split, the epilogue and the stores to overlap little with them; in
-// bfloat16 two blocks share an SM and the first weights and halos of
-// 264 blocks arrive together.
+// MMAs at a group of 16 (32 for 24 at 32), so the shared-memory port and
+// the mma.sync pipe set their time; one block per SM (about 200 KB of
+// shared memory) leaves the split, the epilogue and the stores to overlap
+// little with them; in bfloat16 two blocks share an SM.
 //
 // What it keeps: each output element's float operations and their order
-// are one process's K2 rec (conv_tile.cuh::accumulate): x's passes of up
-// to 32 channels padded to the MMA's k, then z_rec's; the taps in order;
-// each k8 step (bfloat16: k16; a pass of 8 mod 16 channels ends in a step
-// whose upper 8 channels are zero in both operands) into a fresh fragment,
-// in float32 the terms lo*hi, hi*lo, hi*hi in that order, added to the
-// FP32 accumulator on the CUDA cores; the LIF update's expression
-// (fused_lif.cu). So v' and z' are bitwise the one-process cell's
-// channels [r Cout, (r + 1) Cout): no split of K, no reordered sums.
+// are one process's (conv_tile.cuh::accumulate, the parent tree's K1 and
+// K2): x's passes of up to 32 channels padded to the MMA's k, then
+// z_rec's; the taps in order; each k8 step (bfloat16: k16; a pass of 8 mod
+// 16 channels ends in a step whose upper 8 channels are zero in both
+// operands) into a fresh fragment, in float32 the terms lo*hi, hi*lo,
+// hi*hi in that order, added to the FP32 accumulator on the CUDA cores;
+// the LIF update's expression (fused_lif.cu). So K1's y is bitwise the
+// one-process K1's wherever its plan does not split K, and K2 rec's v' and
+// z' bitwise the one-process cell's channels [r Cout, (r + 1) Cout).
 
 #pragma once
 
@@ -90,6 +111,7 @@ constexpr int ALIGN = 1024;      // a swizzle pattern's span
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory of one block
 // two blocks per SM: 228 KB less 1 KB reserved per block, halved
 constexpr int HALF_SMEM = 115712;
+constexpr int MAX_SLICES = 4;    // blocks of a cluster splitting K
 
 // how a map's halo tile arrives
 enum Halo { kTma = 0, kCopy = 1 };
@@ -106,22 +128,37 @@ struct Call {
 cudaError_t launch_f32(const Call& c, cudaStream_t st);
 cudaError_t launch_bf16(const Call& c, cudaStream_t st);
 
+// A call of K1 (conv.cu) with its plan (ops/conv_plan.py::k1_plan): tile
+// width tw and images imgs of a tile, channel group co, blocks per cluster
+// slices, ring stages ns, weights resident or streamed.
+struct ConvCall {
+  const void *x, *w2;
+  void* y;
+  int B, H, W, Cin, Cout, K;
+  int tw, imgs, co, slices, ns, resident;
+};
+
 struct Params {
   CUtensorMap map_x, map_zr;  // the halo of x and of z_rec (kTma)
   const void *x, *w2, *zr, *wr2, *v, *z;
   const float *leak, *thresh;
-  void *v_out, *z_out;
+  void *v_out, *z_out, *y;
   int B, H, W, Cin, Cout, Crec;
-  // the plan
-  int tw_shift, th, tiles_x, tiles_y, tiles, items, px, passes;
+  // the plan: a tile is imgs images of th x (1 << tw_shift) pixels,
+  // 1 << px_shift of them an image
+  int tw_shift, px_shift, th, imgs, tiles_x, tiles_y, tiles, items, px,
+      passes, slices;
   int halo_x, halo_zr;    // Halo of each map
   int step_x, step_zr;    // elements per copy of a kCopy halo
   int step_w, step_wr;    // elements per copy of streamed weight rows
-  int out4;               // the 4-channel epilogue
+  int out4;               // K2 rec: the 4-channel epilogue
+  int out2;               // K1: y stored as element pairs
+  int pads_zero;          // every step staged by the threads has the same
+                          // channels past C, zeroed once in every stage
   // the memory plan
   int ns, resident;
   int halo_bytes, stage_bytes, w_pass_bytes;
-  int off_stage, off_work, off_w;
+  int off_stage, off_work, off_w, off_red;
 };
 
 template <class T>
@@ -130,7 +167,7 @@ struct Lay {
   static constexpr int SWZ = sizeof(T) == 4 ? 0x70 : 0x30;  // TMA swizzle
 };
 
-// The tile's origin and channel group of item `item`.
+// The first image, the origin and the channel group of item `item`.
 struct Tile {
   int b, y0, x0, co0;
 };
@@ -140,10 +177,31 @@ __device__ __forceinline__ Tile tile_of(const Params& p, int item) {
   const int g = item / p.tiles;
   const int t = item - g * p.tiles;
   const int per_image = p.tiles_x * p.tiles_y;
-  const int b = t / per_image;
-  const int r = t - b * per_image;
+  const int bt = t / per_image;
+  const int r = t - bt * per_image;
   const int ty = r / p.tiles_x;
-  return {b, ty * p.th, (r - ty * p.tiles_x) << p.tw_shift, g * CO};
+  return {bt * p.imgs, ty * p.th, (r - ty * p.tiles_x) << p.tw_shift,
+          g * CO};
+}
+
+// Pixel q (0 .. TILE - 1) of a tile: its image, row and column in the
+// tile (q = (img * th + row) * tw + col)
+struct Pix {
+  int img, row, col;
+};
+
+__device__ __forceinline__ Pix pix_of(const Params& p, int q) {
+  const int r = q & ((1 << p.px_shift) - 1);
+  return {q >> p.px_shift, r >> p.tw_shift, r & ((1 << p.tw_shift) - 1)};
+}
+
+// the NHWC pixel index of pixel q of tile tl, or -1 outside the map
+__device__ __forceinline__ long long pixel_index(const Params& p,
+                                                 const Tile& tl, int q) {
+  const Pix x = pix_of(p, q);
+  const int b = tl.b + x.img, gy = tl.y0 + x.row, gx = tl.x0 + x.col;
+  if (b >= p.B || gy >= p.H || gx >= p.W) return -1;
+  return ((long long)b * p.H + gy) * p.W + gx;
 }
 
 // The halo's source of pass `pass`: x's or z_rec's channels [c0, c0 + 32).
@@ -164,9 +222,21 @@ __device__ __forceinline__ Segment<T> segment(const Params& p, int pass) {
           pass * CCH, p.halo_x, p.step_x, p.step_w, &p.map_x};
 }
 
+// Channels of a staged row that the taps of a pass of cpad channels read:
+// float32 k8 steps, bfloat16 k16 steps
+template <class T>
+__host__ __device__ __forceinline__ int read_channels(int cpad) {
+  return sizeof(T) == 4 ? cpad : (cpad + 15) & ~15;
+}
+
 // The halo tile of sg's pass for tile tl into dst by the threads' copies,
-// as TMA lays it out: pixel-major rows of 32 channels under the swizzle,
-// zero outside the image and past C.
+// as TMA lays it out: pixel-major rows of 32 channels, image after image,
+// under the swizzle, zero outside the image, past B and past C; only the
+// channels the taps read (a row's others are never read), and of those
+// past C none where p.pads_zero says they hold zeros already.
+// Consecutive threads take consecutive copies of a pixel, so a warp's
+// reads are runs of each pixel's channels; where a pixel's copies divide
+// the block, each thread keeps its channels and walks the pixels.
 template <int K, class T>
 __device__ __forceinline__ void copy_halo(const Params& p, unsigned char* dst,
                                           const Segment<T>& sg,
@@ -174,20 +244,31 @@ __device__ __forceinline__ void copy_halo(const Params& p, unsigned char* dst,
   constexpr int P = K / 2;
   const int SW = (1 << p.tw_shift) + K - 1;
   const int SH = p.th + K - 1;
-  const int per_px = CCH / sg.step;
-  for (int i = threadIdx.x; i < SH * SW * per_px; i += NT) {
-    const int px = i / per_px;
-    const int j = (i - px * per_px) * sg.step;
-    const int hy = px / SW;
+  const int data = min(sg.C - sg.c0, CCH);  // channels of the pass
+  const int n = (p.pads_zero ? data
+                             : read_channels<T>(pass_pad(sg.C, sg.c0))) /
+                sg.step;  // copies a pixel: a multiple of step either way
+  const float inv_img = 1.f / (SH * SW), inv_sw = 1.f / SW;
+  const bool fixed = NT % n == 0;
+  const int j0 = fixed ? (threadIdx.x % n) * sg.step : 0;
+  const int total = p.imgs * SH * SW * (fixed ? 1 : n);
+  for (int i = fixed ? threadIdx.x / n : threadIdx.x; i < total;
+       i += fixed ? NT / n : NT) {
+    const int q = fixed ? i : i / n;
+    const int j = fixed ? j0 : (i - q * n) * sg.step;
+    const int img = div_small(q, inv_img);
+    const int rem = q - img * SH * SW;
+    const int hy = div_small(rem, inv_sw);
+    const int b = tl.b + img;
     const int gy = tl.y0 + hy - P;
-    const int gx = tl.x0 + px - hy * SW - P;
-    const int c = sg.c0 + j;
-    const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W && c < sg.C;
+    const int gx = tl.x0 + rem - hy * SW - P;
+    const bool ok = b < p.B && gy >= 0 && gy < p.H && gx >= 0 &&
+                    gx < p.W && j < data;
     const T* g =
-        ok ? sg.src + (((size_t)tl.b * p.H + gy) * p.W + gx) * sg.C + c
+        ok ? sg.src + (((size_t)b * p.H + gy) * p.W + gx) * sg.C + sg.c0 + j
            : sg.src;
     copy(reinterpret_cast<T*>(
-             dst + s8::swizzle(px * Lay<T>::ROW + j * (int)sizeof(T),
+             dst + s8::swizzle(q * Lay<T>::ROW + j * (int)sizeof(T),
                                Lay<T>::SWZ)),
          g, ok, sg.step);
   }
@@ -195,14 +276,18 @@ __device__ __forceinline__ void copy_halo(const Params& p, unsigned char* dst,
 
 // A pass's weight rows for CO output channels, rows r = tap * 32 +
 // input channel: float32 rows of CO values (the B fragments' scalar
-// loads), at CO 16 the two 8-channel halves of a row swapped on every
-// other pair of rows so that a warp's loads fall on 32 distinct banks;
-// bfloat16 rows wstride<CO>() apart, the layout ldmatrix.trans reads
+// loads), the 8-channel blocks of a row permuted by the row so that a
+// warp's loads fall on 32 distinct banks (at CO 16 the two halves swapped
+// on every other pair of rows, at CO 32 block n stored at n XOR (r mod
+// 4)); bfloat16 rows wstride<CO>() apart, the layout ldmatrix.trans reads
 // (conv_tile.cuh::taps_bf16). w_at is the element index of (r, n).
 template <int CO, class T>
 __host__ __device__ constexpr int w_at(int r, int n) {
-  return sizeof(T) == 4 ? r * CO + (CO == 16 ? n ^ (((r >> 1) & 1) << 3) : n)
-                        : r * wstride<CO>() + n;
+  return sizeof(T) == 4
+             ? r * CO + (CO == 16   ? n ^ (((r >> 1) & 1) << 3)
+                         : CO == 32 ? n ^ ((r & 3) << 3)
+                                    : n)
+             : r * wstride<CO>() + n;
 }
 
 template <int K, int CO, class T>
@@ -229,23 +314,30 @@ __device__ __forceinline__ void copy_weights(const Params& p, T* dst,
   }
 }
 
-// Issue step `step` of the block's walk (items from it0) into ring stage
-// step % ns: the pass's halo tile, and its weight rows unless they are
-// resident; then arrive on the stage's barrier. Every thread calls it.
+// The block's view of the plan: its cluster's items from it0, its np
+// passes from pa0 (all of them where no cluster splits K).
+struct Walk {
+  int it0, pa0, np;
+};
+
+// Issue step `step` of the block's walk into ring stage step % ns: the
+// pass's halo tile, and its weight rows unless they are resident; then
+// arrive on the stage's barrier. Every thread calls it.
 template <int K, int CO, class T>
 __device__ __forceinline__ void issue(const Params& p, unsigned char* smem,
-                                      uint64_t* full, int it0, int step) {
+                                      uint64_t* full, const Walk& w,
+                                      int step) {
   constexpr int P = K / 2;
-  const int local = step / p.passes;
-  const int pass = step - local * p.passes;
-  const Tile tl = tile_of<CO>(p, it0 + local);
+  const int local = step / w.np;
+  const int pass = w.pa0 + step - local * w.np;
+  const Tile tl = tile_of<CO>(p, w.it0 + local);
   uint64_t* bar = &full[step % p.ns];
   unsigned char* dst = smem + p.off_stage + (step % p.ns) * p.stage_bytes;
   const Segment<T> sg = segment<T>(p, pass);
   if (sg.mode == kTma) {
     if (threadIdx.x == 0) {
       const int SW = (1 << p.tw_shift) + K - 1;
-      s8::mbar_expect(bar, (p.th + K - 1) * SW * Lay<T>::ROW);
+      s8::mbar_expect(bar, p.imgs * (p.th + K - 1) * SW * Lay<T>::ROW);
       s8::tma_load(dst, sg.map, sg.c0 * (int)sizeof(T), tl.x0 - P,
                    tl.y0 - P, tl.b, bar);
     }
@@ -264,21 +356,6 @@ __device__ __forceinline__ void copies_landed() {
   __syncthreads();
 }
 
-// conv_tile.cuh::split on the integer units: cvt.rna.tf32.f32 rounds to
-// the nearest TF32 value, ties away from zero, which is adding half of
-// the 13 dropped bits' unit to the magnitude and dropping them, the same
-// bits for every finite value (a NaN stays a NaN in the products); the
-// conversion's lower throughput set the time of a stage's split
-__device__ __forceinline__ uint32_t tf32_bits(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_bits(float a, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_bits(a);
-  lo = tf32_bits(a - __uint_as_float(hi));
-}
-
 // 16 bytes of float32 values into their TF32 hi and lo parts
 __device__ __forceinline__ void split4(const float4& a, uint4& hi, uint4& lo) {
   split_bits(a.x, hi.x, lo.x);
@@ -287,29 +364,47 @@ __device__ __forceinline__ void split4(const float4& a, uint4& hi, uint4& lo) {
   split_bits(a.w, hi.w, lo.w);
 }
 
-// Channel group co0's weight rows of every pass into shared memory, pass
-// after pass (once per group), all copies in flight together; float32
-// then split in place into the TF32 hi plane and a lo plane after it.
-// Every thread calls it between steps; it returns with the weights in
-// place.
+// Channel group co0's weight rows of the block's passes into shared
+// memory by cp.async, pass after pass, all copies in flight together; does
+// not wait.
 template <int K, int CO, class T>
-__device__ __forceinline__ void load_weights(const Params& p,
-                                             unsigned char* smem, int co0) {
+__device__ __forceinline__ void stage_weights(const Params& p,
+                                              unsigned char* smem,
+                                              const Walk& wk, int co0) {
   constexpr int PE = w_pass_elems<K, CO, T>();
   T* w = reinterpret_cast<T*>(smem + p.off_w);
-  for (int pass = 0; pass < p.passes; ++pass)
-    copy_weights<K, CO, T>(p, w + pass * PE, segment<T>(p, pass), co0);
+  for (int k = 0; k < wk.np; ++k)
+    copy_weights<K, CO, T>(p, w + k * PE, segment<T>(p, wk.pa0 + k), co0);
+}
+
+// Landed float32 resident weights, split in place into the TF32 hi plane
+// and a lo plane after it; the caller synchronizes before they are read.
+template <int K, int CO>
+__device__ __forceinline__ void split_weights(const Params& p,
+                                              unsigned char* smem,
+                                              const Walk& wk) {
+  constexpr int PE = w_pass_elems<K, CO, float>();
+  uint4* hi = reinterpret_cast<uint4*>(smem + p.off_w);
+  uint4* lo = hi + wk.np * PE / 4;
+  for (int i = threadIdx.x; i < wk.np * PE / 4; i += NT) {
+    const uint4 raw = hi[i];
+    uint4 h, l;
+    split4(*reinterpret_cast<const float4*>(&raw), h, l);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// Channel group co0's weights staged, landed and (float32) split. Every
+// thread calls it between steps; it returns with the weights in place.
+template <int K, int CO, class T>
+__device__ __forceinline__ void load_weights(const Params& p,
+                                             unsigned char* smem,
+                                             const Walk& wk, int co0) {
+  stage_weights<K, CO, T>(p, smem, wk, co0);
   copies_landed();
   if constexpr (sizeof(T) == 4) {
-    uint4* hi = reinterpret_cast<uint4*>(w);
-    uint4* lo = reinterpret_cast<uint4*>(w + p.passes * PE);
-    for (int i = threadIdx.x; i < p.passes * PE / 4; i += NT) {
-      const uint4 raw = hi[i];
-      uint4 h, l;
-      split4(*reinterpret_cast<const float4*>(&raw), h, l);
-      hi[i] = h;
-      lo[i] = l;
-    }
+    split_weights<K, CO>(p, smem, wk);
     __syncthreads();
   }
 }
@@ -320,12 +415,26 @@ __device__ __forceinline__ void load_weights(const Params& p,
 template <int K, int CO>
 __device__ __forceinline__ void split_stage(const Params& p,
                                             const unsigned char* src,
-                                            unsigned char* work) {
-  for (int i = threadIdx.x; i < p.halo_bytes / 16; i += NT) {
-    uint4 hi, lo;
-    split4(reinterpret_cast<const float4*>(src)[i], hi, lo);
-    reinterpret_cast<uint4*>(work)[i] = hi;
-    reinterpret_cast<uint4*>(work + p.halo_bytes)[i] = lo;
+                                            unsigned char* work, int cpad) {
+  if (cpad == CCH) {
+    for (int i = threadIdx.x; i < p.halo_bytes / 16; i += NT) {
+      uint4 hi, lo;
+      split4(reinterpret_cast<const float4*>(src)[i], hi, lo);
+      reinterpret_cast<uint4*>(work)[i] = hi;
+      reinterpret_cast<uint4*>(work + p.halo_bytes)[i] = lo;
+    }
+  } else {
+    // the 16-byte chunks of each halo pixel that the taps read
+    const int n = cpad / 4;
+    const int px = p.imgs * (p.th + K - 1) * ((1 << p.tw_shift) + K - 1);
+    for (int i = threadIdx.x; i < px * n; i += NT) {
+      const int q = i / n;
+      const int off = s8::swizzle(q * 128 + (i - q * n) * 16, 0x70);
+      uint4 hi, lo;
+      split4(*reinterpret_cast<const float4*>(src + off), hi, lo);
+      *reinterpret_cast<uint4*>(work + off) = hi;
+      *reinterpret_cast<uint4*>(work + p.halo_bytes + off) = lo;
+    }
   }
   if (p.resident) return;
   const float4* w = reinterpret_cast<const float4*>(src + p.halo_bytes);
@@ -356,8 +465,8 @@ __device__ __forceinline__ void taps_f32(float (&acc)[MT][CO / 8][4],
   const int lane = threadIdx.x & 31;
   const int ca = lane >> 4;
   const int t = lane & 3;
-  // the row pair's swap of the 8-channel halves (w_at)
-  const int s = CO == 16 ? (t >> 1) & 1 : 0;
+  // the row's permutation of the 8-channel blocks (w_at)
+  const int s = CO == 16 ? (t >> 1) & 1 : CO == 32 ? t : 0;
 #pragma unroll 1
   for (int tap = 0; tap < K * K; ++tap) {
     const int dy = tap / K;
@@ -398,7 +507,6 @@ __device__ __forceinline__ void taps_f32(float (&acc)[MT][CO / 8][4],
     }
   }
 }
-
 // acc += every tap of a bfloat16 pass of cpad channels: per k16 step one
 // ldmatrix.x4 per m16 tile from the swizzled halo (as taps_f32, chunk kk
 // / 8 + l / 16) and one ldmatrix.x4.trans per two n8 tiles from the
@@ -508,11 +616,10 @@ __device__ __forceinline__ long long quad_index(const Params& p,
   const int lane = threadIdx.x & 31;
   const int q = 32 * (threadIdx.x >> 5) + 16 * m + (lane >> 2) +
                 8 * (lane & 1);
-  const int gy = tl.y0 + (q >> p.tw_shift);
-  const int gx = tl.x0 + (q & ((1 << p.tw_shift) - 1));
   const int co = tl.co0 + 8 * n + 4 * ((lane & 3) >> 1);
-  if (gy >= p.H || gx >= p.W || co >= p.Cout) return -1;
-  return (((long long)tl.b * p.H + gy) * p.W + gx) * p.Cout + co;
+  const long long pix = pixel_index(p, tl, q);
+  if (pix < 0 || co >= p.Cout) return -1;
+  return pix * p.Cout + co;
 }
 
 // the lane's v, z, leak and threshold of the item, at its first pass
@@ -596,11 +703,9 @@ __device__ __forceinline__ void epilogue(const Params& p, const Tile& tl,
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int q = 32 * (threadIdx.x >> 5) + 16 * m + 8 * h + (lane >> 2);
-      const int gy = tl.y0 + (q >> p.tw_shift);
-      const int gx = tl.x0 + (q & ((1 << p.tw_shift) - 1));
-      if (gy >= p.H || gx >= p.W) continue;
-      const size_t pix = ((size_t)tl.b * p.H + gy) * p.W + gx;
+      const long long pix = pixel_index(
+          p, tl, 32 * (threadIdx.x >> 5) + 16 * m + 8 * h + (lane >> 2));
+      if (pix < 0) continue;
 #pragma unroll
       for (int n = 0; n < CO / 8; ++n)
 #pragma unroll
@@ -617,19 +722,60 @@ __device__ __forceinline__ void epilogue(const Params& p, const Tile& tl,
     }
 }
 
-// The whole kernel: this block's run of items, pass by pass through the
-// ring, the epilogue at each item's last pass.
-template <int K, int CO, bool HARD, class T>
+// K1's epilogue: y from the fragments, acc[m][n][e] being pixel 16 m +
+// lane / 4 + 8 (e / 2) of the warp's 32 and channel 8 n + 2 (lane % 4) +
+// e % 2 of the group; element pairs where p.out2, else one by one.
+template <int CO, class T>
+__device__ __forceinline__ void store(const Params& p, const Tile& tl,
+                                      const float (&acc)[MT][CO / 8][4]) {
+  T* y = static_cast<T*>(p.y);
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long pix = pixel_index(
+          p, tl, 32 * (threadIdx.x >> 5) + 16 * m + 8 * h + (lane >> 2));
+      if (pix < 0) continue;
+#pragma unroll
+      for (int n = 0; n < CO / 8; ++n) {
+        const int co = tl.co0 + 8 * n + 2 * (lane & 3);
+        if (co >= p.Cout) continue;
+        const float a0 = acc[m][n][2 * h], a1 = acc[m][n][2 * h + 1];
+        T* o = y + pix * p.Cout + co;
+        if (p.out2) {
+          put2(o, a0, a1);
+        } else {
+          put(o, a0);
+          if (co + 1 < p.Cout) put(o + 1, a1);
+        }
+      }
+    }
+}
+
+// The whole kernel: this block's walk over its cluster's items and its
+// passes, through the ring; at each item's last pass the cluster's sum
+// where the passes are split, then (in its first block) the epilogue: the
+// LIF update (K2 rec) or the store of y (K1).
+template <int K, int CO, bool HARD, class T, bool LIF>
 __device__ __forceinline__ void run(const Params& p) {
   extern __shared__ __align__(ALIGN) unsigned char smem[];
+  namespace cgr = cooperative_groups;
   constexpr bool F32 = sizeof(T) == 4;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int it0 = (int)((long long)blockIdx.x * p.items / gridDim.x);
-  const int it1 = (int)((long long)(blockIdx.x + 1) * p.items / gridDim.x);
-  const int nsteps = (it1 - it0) * p.passes;
+  const int S = p.slices;
+  const int rank = S > 1 ? (int)cgr::this_cluster().block_rank() : 0;
+  const int cid = blockIdx.x / S;
+  const int ncl = gridDim.x / S;
+  Walk wk;
+  wk.it0 = (int)((long long)cid * p.items / ncl);
+  const int it1 = (int)((long long)(cid + 1) * p.items / ncl);
+  wk.pa0 = rank * p.passes / S;
+  wk.np = (rank + 1) * p.passes / S - wk.pa0;
+  const int nsteps = (it1 - wk.it0) * wk.np;
 
   if (tid == 0) {
     for (int s = 0; s < NS; ++s) s8::mbar_init(&full[s], NT);
@@ -638,7 +784,7 @@ __device__ __forceinline__ void run(const Params& p) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&p.map_x))
                    : "memory");
-    if (p.halo_zr == kTma)
+    if (LIF && p.halo_zr == kTma)
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&p.map_zr))
                    : "memory");
@@ -647,57 +793,91 @@ __device__ __forceinline__ void run(const Params& p) {
 
   const int tw = 1 << p.tw_shift;
   const int SW = tw + K - 1;
+  const int SH = p.th + K - 1;
   int a_pix[MT];  // the halo pixel of the lane's A row of each m16 tile
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
-    const int q = 32 * warp + 16 * m + (lane & 15);
-    a_pix[m] = (q >> p.tw_shift) * SW + (q & (tw - 1));
+    const Pix x = pix_of(p, 32 * warp + 16 * m + (lane & 15));
+    a_pix[m] = (x.img * SH + x.row) * SW + x.col;
   }
+  // the warp's first pixel: its 32 pixels are rows of one image
+  const Pix first = pix_of(p, 32 * warp);
 
+  if (p.pads_zero) {
+    // the channels past C that the taps read in the stages the walk uses,
+    // which no copy writes: the 16-byte chunks of every halo pixel up to
+    // the taps' last
+    const Segment<T> sg = segment<T>(p, 0);
+    const int chunks =
+        read_channels<T>(pass_pad(sg.C, sg.c0)) * (int)sizeof(T) / 16;
+    const int px = p.imgs * (p.th + K - 1) * ((1 << p.tw_shift) + K - 1);
+    for (int s = 0; s < p.ns && s < nsteps; ++s)
+      for (int i = tid; i < px * chunks; i += NT) {
+        const int q = i / chunks;
+        *reinterpret_cast<uint4*>(
+            smem + p.off_stage + s * p.stage_bytes +
+            s8::swizzle(q * Lay<T>::ROW + (i - q * chunks) * 16,
+                        Lay<T>::SWZ)) = make_uint4(0, 0, 0, 0);
+      }
+    __syncthreads();
+  }
+  // the first group's resident weights: their copies complete on the first
+  // stage's barrier with its halo (float32 splits them once landed)
+  int w_co0 = -1;  // the channel group of the resident weights
+  bool w_raw = false;
+  if (p.resident && nsteps > 0) {
+    w_co0 = tile_of<CO>(p, wk.it0).co0;
+    stage_weights<K, CO, T>(p, smem, wk, w_co0);
+    w_raw = F32;
+  }
   for (int s = 0; s < p.ns && s < nsteps; ++s)
-    issue<K, CO, T>(p, smem, full, it0, s);
+    issue<K, CO, T>(p, smem, full, wk, s);
 
   // where one map's halo is copied by the threads and the other's by TMA,
   // a stage that the threads wrote is written by TMA later: the proxies'
   // writes are ordered by a fence (stages only read in between need none)
-  const bool mixed = p.halo_x != p.halo_zr;
-  int w_co0 = -1;  // the channel group of the resident weights
+  const bool mixed = LIF && p.halo_x != p.halo_zr;
   float acc[MT][CO / 8][4] = {};
   State<CO, T> state;
   for (int step = 0; step < nsteps; ++step) {
-    const int local = step / p.passes;
-    const int pass = step - local * p.passes;
-    const Tile tl = tile_of<CO>(p, it0 + local);
+    const int local = step / wk.np;
+    const int k = step - local * wk.np;
+    const Tile tl = tile_of<CO>(p, wk.it0 + local);
     if (p.resident && tl.co0 != w_co0) {
       // the previous step ended in __syncthreads: no one reads the
       // weights or the work area
-      load_weights<K, CO, T>(p, smem, tl.co0);
+      load_weights<K, CO, T>(p, smem, wk, tl.co0);
       w_co0 = tl.co0;
     }
     const int stage = step % p.ns;
     s8::mbar_wait(&full[stage], (step / p.ns) & 1);
     unsigned char* s_in = smem + p.off_stage + stage * p.stage_bytes;
-    const Segment<T> sg = segment<T>(p, pass);
+    const Segment<T> sg = segment<T>(p, wk.pa0 + k);
     const int cpad = pass_pad(sg.C, sg.c0);
-    const bool last = pass == p.passes - 1;
-    // a warp whose rows all lie below the map (a map shorter than the
-    // tile) multiplies nothing
-    const bool busy = tl.y0 + ((32 * warp) >> p.tw_shift) < p.H;
+    const bool last = k == wk.np - 1;
+    // a warp whose pixels all lie outside the map (below a map shorter
+    // than the tile, or in an image past B) multiplies nothing
+    const bool busy = tl.b + first.img < p.B && tl.y0 + first.row < p.H;
+    const bool load = LIF && k == 0 && p.out4;
     if constexpr (F32) {
       unsigned char* work = smem + p.off_work;
-      split_stage<K, CO>(p, s_in, work);
+      if (w_raw) {
+        split_weights<K, CO>(p, smem, wk);
+        w_raw = false;
+      }
+      split_stage<K, CO>(p, s_in, work, cpad);
       if (mixed) s8::fence_async_smem();  // TMA writes this stage next
       __syncthreads();
       if (step + p.ns < nsteps)
-        issue<K, CO, T>(p, smem, full, it0, step + p.ns);
-      if (pass == 0 && p.out4) load_state<CO, T>(p, tl, state);
+        issue<K, CO, T>(p, smem, full, wk, step + p.ns);
+      if (load) load_state<CO, T>(p, tl, state);
       constexpr int PE = w_pass_elems<K, CO, T>();
       const uint32_t* b_hi =
           p.resident ? reinterpret_cast<const uint32_t*>(smem + p.off_w) +
-                           pass * PE
+                           k * PE
                      : reinterpret_cast<const uint32_t*>(work +
                                                          2 * p.halo_bytes);
-      const uint32_t* b_lo = p.resident ? b_hi + p.passes * PE
+      const uint32_t* b_lo = p.resident ? b_hi + wk.np * PE
                                         : b_hi + p.w_pass_bytes / 4;
       if (busy && cpad == CCH)
         taps_f32<K, CO, true>(acc, work, work + p.halo_bytes, b_hi, b_lo,
@@ -706,10 +886,10 @@ __device__ __forceinline__ void run(const Params& p) {
         taps_f32<K, CO, false>(acc, work, work + p.halo_bytes, b_hi, b_lo,
                                a_pix, SW, cpad);
     } else {
-      if (pass == 0 && p.out4) load_state<CO, T>(p, tl, state);
+      if (load) load_state<CO, T>(p, tl, state);
       const bf16* s_w =
           p.resident ? reinterpret_cast<const bf16*>(smem + p.off_w) +
-                           pass * w_pass_elems<K, CO, T>()
+                           k * w_pass_elems<K, CO, T>()
                      : reinterpret_cast<const bf16*>(s_in + p.halo_bytes);
       if (busy && cpad == CCH)
         taps_bf16<K, CO, true>(acc, s_in, s_w, a_pix, SW, cpad);
@@ -717,7 +897,38 @@ __device__ __forceinline__ void run(const Params& p) {
         taps_bf16<K, CO, false>(acc, s_in, s_w, a_pix, SW, cpad);
     }
     if (last) {
-      epilogue<CO, HARD, T>(p, tl, acc, state);
+      if (S > 1) {
+        // the cluster's sum: every block's fragments into its shared
+        // memory, the first block adds the others' in rank order
+        float* red = reinterpret_cast<float*>(smem + p.off_red) + tid;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < CO / 8; ++n)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              red[((m * (CO / 8) + n) * 4 + r) * NT] = acc[m][n][r];
+        cgr::cluster_group cl = cgr::this_cluster();
+        cl.sync();
+        if (rank == 0)
+          for (int q = 1; q < S; ++q) {
+            const float* other = cl.map_shared_rank(red, q);
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+              for (int n = 0; n < CO / 8; ++n)
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                  acc[m][n][r] += other[((m * (CO / 8) + n) * 4 + r) * NT];
+          }
+        cl.sync();  // the others' fragments are read before they change
+      }
+      if (rank == 0) {
+        if constexpr (LIF)
+          epilogue<CO, HARD, T>(p, tl, acc, state);
+        else
+          store<CO, T>(p, tl, acc);
+      }
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -729,21 +940,39 @@ __device__ __forceinline__ void run(const Params& p) {
     __syncthreads();  // every thread is done with this step's buffers
     if constexpr (!F32)
       if (step + p.ns < nsteps)
-        issue<K, CO, T>(p, smem, full, it0, step + p.ns);
+        issue<K, CO, T>(p, smem, full, wk, step + p.ns);
   }
 }
 
 // ---- host side: the plan, the memory plan, the TMA maps, the launch ----
 
+// p's tile: imgs images of TILE / (tw * imgs) rows of tw pixels; its
+// tile and item counts at channel groups of co
+inline void set_tiles(Params& p, int tw, int imgs, int co) {
+  p.tw_shift = tw == 8 ? 3 : tw == 16 ? 4 : 5;
+  p.imgs = imgs;
+  p.th = TILE / (tw * imgs);
+  int ppi = p.th * tw, shift = 0;
+  while ((1 << shift) < ppi) ++shift;
+  p.px_shift = shift;
+  p.tiles_x = (p.W + tw - 1) / tw;
+  p.tiles_y = (p.H + p.th - 1) / p.th;
+  p.tiles = ((p.B + imgs - 1) / imgs) * p.tiles_x * p.tiles_y;
+  p.items = p.tiles * ((p.Cout + co - 1) / co);
+}
+
 // Lay out the dynamic shared memory of p's tiles with ns ring stages and
-// resident weights or not; returns its bytes.
+// resident weights or not (for the block's passes, at most ceil(passes /
+// slices)), and the cluster's sum where slices > 1; returns its bytes.
+// ops/conv_plan.py::ring_smem computes the same.
 template <int K, int CO, class T>
 int layout(Params& p, bool resident, int ns) {
   constexpr bool F32 = sizeof(T) == 4;
   const int sw = (1 << p.tw_shift) + K - 1, sh = p.th + K - 1;
+  const int np_max = (p.passes + p.slices - 1) / p.slices;
   p.ns = ns;
   p.resident = resident;
-  p.halo_bytes = s8::align_up(sh * sw * Lay<T>::ROW, ALIGN);
+  p.halo_bytes = s8::align_up(p.imgs * sh * sw * Lay<T>::ROW, ALIGN);
   const int w_bytes = w_pass_elems<K, CO, T>() * (int)sizeof(T);
   const int raw_w = s8::align_up(w_bytes, ALIGN);
   p.stage_bytes = p.halo_bytes + (resident ? 0 : raw_w);
@@ -754,17 +983,18 @@ int layout(Params& p, bool resident, int ns) {
   if (F32) off += 2 * p.halo_bytes + (resident ? 0 : 2 * raw_w);
   p.off_w = off;
   p.w_pass_bytes = resident || F32 ? raw_w : 0;
-  if (resident)
-    off += s8::align_up(p.passes * w_bytes * (F32 ? 2 : 1), ALIGN);
+  if (resident) off += s8::align_up(np_max * w_bytes * (F32 ? 2 : 1), ALIGN);
+  p.off_red = off;
+  if (p.slices > 1) off += NT * MT * (CO / 8) * 4 * 4;
   return off;
 }
 
-// The plan of p's shape at CO within `budget` bytes of shared memory: the
-// tile width with the fewest tiles (the wider on a tie) that fits,
-// resident weights before streamed ones, the deepest ring; returns its
-// shared memory, or -1 where nothing fits.
+// K2 rec's plan of p's shape at CO within `budget` bytes of shared memory:
+// one image a tile, the tile width with the fewest tiles (the wider on a
+// tie) that fits, resident weights before streamed ones, the deepest ring;
+// returns its shared memory, or -1 where nothing fits.
 template <int K, int CO, class T>
-int plan(Params& p, int budget) {
+int plan_rec(Params& p, int budget) {
   constexpr int NS_MAX = sizeof(T) == 4 ? 2 : NS;
   int widths[3] = {32, 16, 8};
   auto tiles = [&](int tw) {
@@ -776,13 +1006,9 @@ int plan(Params& p, int budget) {
       widths[j] = widths[j - 1];
       widths[j - 1] = t;
     }
+  p.slices = 1;
   for (int tw : widths) {
-    p.tw_shift = tw == 8 ? 3 : tw == 16 ? 4 : 5;
-    p.th = TILE / tw;
-    p.tiles_x = (p.W + tw - 1) / tw;
-    p.tiles_y = (p.H + p.th - 1) / p.th;
-    p.tiles = p.B * p.tiles_x * p.tiles_y;
-    p.items = p.tiles * ((p.Cout + CO - 1) / CO);
+    set_tiles(p, tw, 1, CO);
     for (bool resident : {true, false})
       for (int ns = NS_MAX; ns >= 1; --ns) {
         const int bytes = layout<K, CO, T>(p, resident, ns);
@@ -792,37 +1018,37 @@ int plan(Params& p, int budget) {
   return -1;
 }
 
-template <int K, int CO, bool HARD, class T>
-__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 1 : 2)
-    fused_conv_lif_ring_kernel(const __grid_constant__ Params p) {
-  run<K, CO, HARD, T>(p);
-}
-
 // the map of an NHWC tensor of C elements of T a pixel, boxes of 32
-// channels over a tile's halo, under TMA's swizzle of the row's width
+// channels over a tile's halo of imgs images, under TMA's swizzle of the
+// row's width
 template <class T>
 bool encode_halo(CUtensorMap* map, const void* base, const Params& p, int C,
                  int sw, int sh) {
   const cuuint64_t dims[4] = {(cuuint64_t)C * sizeof(T), (cuuint64_t)p.W,
                               (cuuint64_t)p.H, (cuuint64_t)p.B};
   const cuuint32_t box[4] = {(cuuint32_t)Lay<T>::ROW, (cuuint32_t)sw,
-                             (cuuint32_t)sh, 1};
+                             (cuuint32_t)sh, (cuuint32_t)p.imgs};
   return (C * sizeof(T)) % 16 == 0 &&
          s8::encode(map, base, 4, dims, box, Lay<T>::ROW);
 }
 
-// Launch the instance at K, CO on p (planned): encode the halo maps the
-// shapes and pointers allow, size the persistent grid from the occupancy
-// API. One launch.
-template <int K, int CO, bool HARD, class T>
-cudaError_t launch_inst(Params& p, int smem, cudaStream_t st) {
-  auto kernel = fused_conv_lif_ring_kernel<K, CO, HARD, T>;
+// Launch `kernel` on p (planned, laid out at smem bytes): size the
+// persistent grid from the occupancy API, clusters of p.slices blocks.
+// One launch.
+inline cudaError_t launch_grid(void (*kernel)(Params), Params& p, int smem,
+                               cudaStream_t st) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= s8::MAX_DEVICES) return cudaErrorInvalidDevice;
-  static bool ready[s8::MAX_DEVICES];  // per instantiation and device
-  if (!ready[dev]) {
+  // the kernels and devices whose attributes are set
+  static const void* ready[256];
+  static int ready_dev[256], n_ready = 0;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  bool set = false;
+  for (int i = 0; i < n_ready && !set; ++i)
+    set = ready[i] == key && ready_dev[i] == dev;
+  if (!set) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              MAX_SMEM);
@@ -831,14 +1057,35 @@ cudaError_t launch_inst(Params& p, int smem, cudaStream_t st) {
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
-    ready[dev] = true;
+    if (n_ready < 256) {
+      ready[n_ready] = key;
+      ready_dev[n_ready++] = dev;
+    }
   }
   int cap = 0;
-  e = s8::capacity(reinterpret_cast<const void*>(kernel), smem, 1, &cap);
+  e = s8::capacity(reinterpret_cast<const void*>(kernel), smem, p.slices,
+                   &cap);
   if (e != cudaSuccess) return e;
-  const int blocks = p.items < cap ? p.items : cap;
-  kernel<<<blocks, NT, smem, st>>>(p);
-  return cudaSuccess;
+  const int clusters = p.items < cap ? p.items : cap;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.slices;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(clusters * p.slices);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = p.slices > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, p);
+}
+
+template <int K, int CO, bool HARD, class T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 1 : 2)
+    fused_conv_lif_ring_kernel(const __grid_constant__ Params p) {
+  run<K, CO, HARD, T, true>(p);
 }
 
 // K2 rec with Crec != Cout at K and CO, where the plan fits; returns
@@ -865,8 +1112,8 @@ cudaError_t launch_co(const Call& c, cudaStream_t st) {
   p.px = (c.Cin + CCH - 1) / CCH;
   p.passes = p.px + (c.Crec + CCH - 1) / CCH;
   int smem = -1;
-  if (sizeof(T) == 2) smem = plan<K, CO, T>(p, HALF_SMEM);
-  if (smem < 0) smem = plan<K, CO, T>(p, MAX_SMEM);
+  if (sizeof(T) == 2) smem = plan_rec<K, CO, T>(p, HALF_SMEM);
+  if (smem < 0) smem = plan_rec<K, CO, T>(p, MAX_SMEM);
   if (smem < 0) return cudaErrorInvalidValue;
   const int sw = (1 << p.tw_shift) + K - 1, sh = p.th + K - 1;
   p.halo_x = encode_halo<T>(&p.map_x, c.x, p, c.Cin, sw, sh) ? kTma : kCopy;
@@ -880,8 +1127,9 @@ cudaError_t launch_co(const Call& c, cudaStream_t st) {
   p.out4 = c.Cout % 4 == 0 && aligned(c.v, quad) && aligned(c.z, quad) &&
            aligned(c.v_out, quad) && aligned(c.z_out, quad) &&
            aligned(c.leak, 16) && aligned(c.thresh, 16);
-  return c.hard ? launch_inst<K, CO, true, T>(p, smem, st)
-                : launch_inst<K, CO, false, T>(p, smem, st);
+  return launch_grid(c.hard ? fused_conv_lif_ring_kernel<K, CO, true, T>
+                            : fused_conv_lif_ring_kernel<K, CO, false, T>,
+                     p, smem, st);
 }
 
 // K2 rec with Crec != Cout at K: channel groups of 8 where Cout <= 8, else
@@ -903,6 +1151,44 @@ cudaError_t launch(const Call& c, cudaStream_t st) {
     case 5: return launch_k<5, T>(c, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K1 on p's tiles of the call's plan at K and CO (conv.cu's kernel);
+// cudaErrorInvalidValue where the plan is not one the kernel takes or its
+// shared memory does not fit.
+template <int K, int CO, class T>
+cudaError_t launch_conv(void (*kernel)(Params), const ConvCall& c,
+                        cudaStream_t st) {
+  if ((c.tw != 8 && c.tw != 16 && c.tw != 32) ||
+      (c.imgs != 1 && c.imgs != 2 && c.imgs != 4 && c.imgs != 8) ||
+      c.slices < 1 || c.slices > MAX_SLICES || c.ns < 1 || c.ns > NS)
+    return cudaErrorInvalidValue;
+  Params p = {};
+  p.x = c.x;
+  p.w2 = c.w2;
+  p.y = c.y;
+  p.B = c.B;
+  p.H = c.H;
+  p.W = c.W;
+  p.Cin = c.Cin;
+  p.Cout = c.Cout;
+  p.px = (c.Cin + CCH - 1) / CCH;
+  p.passes = p.px;
+  p.slices = c.slices;
+  if (c.slices > p.passes) return cudaErrorInvalidValue;
+  set_tiles(p, c.tw, c.imgs, CO);
+  if (p.th * c.tw < 32) return cudaErrorInvalidValue;  // a warp's 32 pixels
+  const int smem = layout<K, CO, T>(p, c.resident != 0, c.ns);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  const int sw = c.tw + K - 1, sh = p.th + K - 1;
+  p.halo_x = encode_halo<T>(&p.map_x, c.x, p, c.Cin, sw, sh) ? kTma : kCopy;
+  p.halo_zr = p.halo_x;
+  // the threads' copies meet the same channels past C at every step
+  p.pads_zero = p.halo_x == kCopy && (p.passes == 1 || c.Cin % CCH == 0);
+  p.step_x = copy_step<T>(c.x, c.Cin);
+  p.step_w = copy_step<T>(c.w2, c.Cout);
+  p.out2 = c.Cout % 2 == 0 && aligned(c.y, 2 * sizeof(T));
+  return launch_grid(kernel, p, smem, st);
 }
 
 }  // namespace ring

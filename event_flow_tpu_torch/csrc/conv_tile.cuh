@@ -1,9 +1,11 @@
-// Shared mainloop of K1 (conv.cu) and K2 (fused_lif.cu): an implicit-GEMM
-// NHWC convolution on Hopper's tensor cores, for sm_90a, over float32
-// operands in 3xTF32 (mma.sync m16n8k8) or bfloat16 operands on the bf16
-// tensor cores (mma.sync m16n8k16, fragments from ldmatrix). The int8
-// kernels K1-s8 and K2-s8 have their own, persistent mainloop
-// (conv_s8.cuh), built on the copies, ldmatrix and the int8 MMA below.
+// The one-process mainloop of K2 (fused_lif.cu, ff and rec with Crec ==
+// Cout): an implicit-GEMM NHWC convolution on Hopper's tensor cores, for
+// sm_90a, over float32 operands in 3xTF32 (mma.sync m16n8k8) or bfloat16
+// operands on the bf16 tensor cores (mma.sync m16n8k16, fragments from
+// ldmatrix). K1 and K2 rec with Crec != Cout run on the persistent float
+// mainloop of conv_ring.cuh, which keeps this one's sum order (accumulate
+// below) and so its bits; the int8 kernels K1-s8 and K2-s8 on their own
+// (conv_s8.cuh). All of them use the copies, ldmatrix and MMAs below.
 //
 // GEMM view of one block: M = an 8 x 32 tile of output pixels (one warp
 // per output row, two m16 tiles per warp), N = CO output channels (8 or
@@ -56,18 +58,18 @@
 // accumulator, as above. A pass of 8 mod 16 channels ends in a step of 8,
 // whose upper half is zeroed in both operands. Per 16 channels a warp
 // runs 4 ldmatrix and 8 MMAs, where the TF32 route took 32 scalar loads,
-// 32 conversions and 16 MMAs. What bounds it: at the LIFFireNet
-// dx (8 x 128 x 128, 32 -> 32, k 3) one call must move 16.8 MB, 5.0 us at
-// 3.35 TB/s; it takes 0.02 ms on the H100, about a quarter of that bound,
-// level with cuDNN's bf16 conv (chip_smoke.py; PERF.md). Builds that
-// dropped the staging or the MMAs showed the two taking similar times, one
-// after the other: a block stages, then multiplies. Staging a pass in two
-// cp.async groups, more blocks per SM and accumulating inside the MMA
-// were tried on the card and not kept: none moved the time by much.
+// 32 conversions and 16 MMAs. What bounds it: at LIFFireNet's cells (8 x
+// 128 x 128, 32 -> 32, k 3) a feedforward bfloat16 call must move 42 MB,
+// 12.5 us at 3.35 TB/s; it takes about 0.03 ms on the H100 (PERF.md).
+// Builds that dropped the staging or the MMAs showed the two taking
+// similar times, one after the other: a block stages, then multiplies.
+// Staging a pass in two cp.async groups, more blocks per SM and
+// accumulating inside the MMA were tried on the card and not kept: none
+// moved the time by much.
 //
 // Epilogue. The accumulator stays in the MMA's fragment layout: the quad
-// of lanes 4g..4g+3 holds 8 consecutive channels of one pixel, so K1 and
-// K2 read and write 32 (bfloat16: 16) contiguous bytes per quad as element
+// of lanes 4g..4g+3 holds 8 consecutive channels of one pixel, so K2
+// reads and writes 32 (bfloat16: 16) contiguous bytes per quad as element
 // pairs (scalar where Cout is odd or a pointer is not aligned to a pair).
 // No thread walks the channels of a pixel.
 
@@ -213,6 +215,37 @@ __device__ __forceinline__ uint32_t tf32(float a) {
 __device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
   hi = tf32(a);
   lo = tf32(a - __uint_as_float(hi));
+}
+
+// floor(a / d) for 0 <= a < 2^20 and a small divisor d, from inv = 1.f / d:
+// a + 0.5 is at least 0.5 / d away from a multiple of d, far above the
+// float product's rounding
+__device__ __forceinline__ int div_small(int a, float inv) {
+  return __float2int_rz((a + 0.5f) * inv);
+}
+
+// split on the integer units (conv_ring.cuh, conv_dw.cu): cvt.rna.tf32.f32
+// rounds to the nearest TF32 value, ties away from zero, which is adding
+// half of the 13 dropped bits' unit to the magnitude and dropping them,
+// the same bits for every finite value, at a fraction of the conversion's
+// cost, whose throughput set the time of a stage's split (conv_ring.cuh)
+// and of B2's per-step path.
+__device__ __forceinline__ uint32_t tf32_bits(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+// hi and lo of the 3xTF32 split. The add carries a NaN of a large payload
+// (the card's own is 0x7fffffff) into the sign bit, so a NaN's hi may be
+// +-0; its lo, the rounding of a - hi, a NaN that the card's arithmetic
+// makes 0x7fffffff, is clamped first to 0x7fffefff (signed min: finite
+// and negative values pass unchanged), which rounds to the NaN 0x7fffe000.
+// So a NaN stays a NaN in the lo products, and an infinity gives a NaN lo,
+// as the conversion's did; one integer min more than the plain rounding.
+__device__ __forceinline__ void split_bits(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(a);
+  const int r = __float_as_int(a - __uint_as_float(hi));
+  lo = static_cast<uint32_t>(min(r, 0x7fffefff) + 0x1000) & 0xffffe000u;
 }
 
 // d += a * b, m16n8k8, TF32 operands, FP32 accumulator

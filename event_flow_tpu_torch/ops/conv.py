@@ -56,39 +56,54 @@ is not quantized (conv.py:332-372). An int8 CUDA tensor launches K1-s8
 or raises; the float K1 refuses it.
 
 K1 source note: replaces the Pallas im2col strip matmul ``_conv_fwd``
-(conv_pallas.py:113-136). On the H100 it is an implicit GEMM on the
-tensor cores (``mma.sync`` m16n8k8, TF32 operands split hi + lo, three
-products into an FP32 accumulator: "3xTF32", within f32's 1e-5 where one
-TF32 pass is not; tests/test_torch_precision.py): one block per 8 x 32
-output tile and up to 32 output channels, the halo tile and the weights
-of up to 32 input channels staged at once with ``cp.async`` into
-pixel-major, bank-padded shared memory, no im2col matrix anywhere, and y
-written from the MMA fragments as 32 contiguous bytes per quad of lanes.
-It runs the 1x1 prediction heads (32 -> 2; the U-Net's 256, 128, 64 and
-32 -> 2), every stride-1 conv of RecEVFlowNet (the ConvGRU gates up to
-1024 -> 1024, where it is slower than cuDNN: PERF.md) and, in training,
-every dx (32 -> 32 at k = 3; 2 -> 32 at k = 1 for the head's), about
-34 MB and 2.4 GFLOP per dx call at 8 x 128 x 128: bound by bytes, which
-the coalesced epilogue and the asynchronous 16-byte staging address.
-Deterministic: every output is a fixed sequence of MMAs.
+(conv_pallas.py:113-136), for the forward conv and for dx. On the H100
+it is an implicit GEMM on the tensor cores (``mma.sync`` m16n8k8, TF32
+operands split hi + lo, three products into an FP32 accumulator:
+"3xTF32", within f32's 1e-5 where one TF32 pass is not;
+tests/test_torch_precision.py) on the persistent mainloop of
+``csrc/conv_ring.cuh``, shared with K2 rec under the model axis: tiles of
+256 output pixels that span images where the maps are small (four 8 x 8
+images a tile), channel groups of 8, 16 or 32, a persistent walk of the
+items, each pass's halo by TMA on an mbarrier ring while the previous
+pass multiplies, the weights of a group staged once where they fit, each
+float32 value split once; K split over a thread-block cluster only at
+serving's deep single-image maps (256+ input channels, 12 x 15) whose
+items no group makes fill the SMs. The plan is
+:func:`~.conv_plan.k1_plan`'s; it keeps the one-process mainloop's
+one-image tile (``csrc/conv_tile.cuh``, one block an 8 x 32 tile, each
+pass staged, then multiplied) where that measured faster: maps without
+16-byte pixel rows, which TMA cannot stage (the decoders' 130, 258 and
+514 channels, the heads' dx from 2), and the 1 x 1 heads of up to 64
+input channels. It runs the 1x1 prediction heads (32 -> 2;
+the U-Net's 256, 128, 64 and 32 -> 2), every stride-1 conv of
+RecEVFlowNet (the ConvGRU gates up to 1024 -> 1024 on 8 x 8 x 8, 9.66
+GFLOP: bound by operations) and, in training, every dx (32 -> 32 at k =
+3, about 34 MB and 2.4 GFLOP at 8 x 128 x 128: bound by bytes).
+Deterministic: every output is a fixed sequence of MMAs and adds, and
+wherever K is not split the sequence of the one-process mainloop
+(``csrc/conv_tile.cuh``, K2's), so y is bitwise the same as there.
 
 B2 source note (details in ``csrc/conv_dw.cu``): replaces the Pallas
 ``_conv_dw`` (conv_pallas.py:139-185), an im2col(x)^T g matmul whose sum
 over the B*H*W pixels the TPU carries from one grid step to the next. On
 the H100 it is an implicit GEMM on the tensor cores in 3xTF32 as K1's:
 M = (tap, input channel) rows read straight from a halo tile of x, N =
-output channels, K = pixels, no im2col matrix; halo and g tiles staged
-with ``cp.async`` into two buffers, so the next tile loads while this
-one multiplies; a tile whose x is all TF32 values (spikes, event counts)
-skips the product of x's zero lo part. A block owns up to 288 x 32 of
-the output and a chunk of 128-pixel tiles; the pixels are split over
-chunks only as far as the card needs to be filled (the FireNet shapes),
-never where the output already gives enough blocks (the U-Net's), and a
-second launch adds the chunks' OIHW partials in a fixed order, so the
-result is OIHW with no copy and bitwise repeatable. Bound by bytes at
-the training recipe: 33.6 MB of x and g, 10.0 us at 3.35 TB/s (2.42
-GFLOP, 4.9 us at the TF32 peak); on the card the MMA passes set its pace
-(``PERF.md``).
+output channels, K = pixels, no im2col matrix; pixel tiles of 128 that
+span images (two 8 x 8 images a tile); a persistent grid whose blocks
+walk items (an output tile of up to 288 x 32 over a chunk of pixel
+tiles) through one ring of staging buffers on mbarriers, fed by TMA
+(``cp.async`` where x's pixel rows are not whole 16-byte rows), so the
+next item's tiles load during this item's MMAs and epilogue; a tile whose x is
+all TF32 values (spikes, event counts) skips the product of x's zero lo
+part. The pixels are split over chunks only as far as the card needs to
+be filled (the FireNet shapes, the decoders'), into no more items than
+one round of blocks, never where the output already gives enough items
+(the U-Net's deep maps and the gates'), and a second launch adds the
+chunks' OIHW partials in a fixed order, so the result is OIHW with no
+copy and bitwise repeatable. The plan is :func:`~.conv_plan.b2_plan`'s.
+Bound by bytes at the training recipe: 33.6 MB of x and g, 10.0 us at
+3.35 TB/s (2.42 GFLOP, 4.9 us at the TF32 peak); by operations at the
+gates (``PERF.md``).
 """
 
 import functools
@@ -98,6 +113,7 @@ import torch.nn.functional as F
 
 from . import native
 from .quant import conv_quant, int8_operands, quantize_operands
+from .conv_plan import b2_plan, k1_plan
 from .s8_plan import s8_plan, sm_count
 
 
@@ -318,17 +334,21 @@ def conv2d_dw_plain(x, g, k):
 
 def _conv_kernel(x, w):
     """Launch K1, its float32 or bfloat16 variant after x's element type:
-    y [B,H,W,Cout] = conv of x with the OIHW w of the same type."""
+    y [B,H,W,Cout] = conv of x with the OIHW w of the same type, on the
+    plan of :func:`~.conv_plan.k1_plan`."""
     k = _check_shapes(x, w)
     name = native.variant("conv2d_same", x.dtype)
     w2 = flatten_kernel(w)
     native.require_cuda(name, x.dtype, x, w2)
-    b, h, wd, _ = x.shape
+    b, h, wd, cin = x.shape
     cout = w.shape[0]
+    entry = getattr(native.library(), "evf_" + name)
+    plan = k1_plan(b, h, wd, cin, cout, k, x.element_size(),
+                   sm_count(x.device))
     y = torch.empty((b, h, wd, cout), device=x.device, dtype=x.dtype)
-    err = getattr(native.library(), "evf_" + name)(
-        x.data_ptr(), w2.data_ptr(), y.data_ptr(), b, h, wd, x.shape[3],
-        cout, k, native.stream_handle(x.device))
+    err = entry(x.data_ptr(), w2.data_ptr(), y.data_ptr(), b, h, wd, cin,
+                cout, k, plan.tw, plan.imgs, plan.co, plan.slices, plan.ns,
+                int(plan.resident), native.stream_handle(x.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1
     return y
@@ -338,7 +358,7 @@ def conv2d_dw_kernel(x, g, k):
     """Launch B2, its float32 or bfloat16 variant after x's element type:
     the weight gradient, OIHW [Cout, Cin, k, k] in that type, of x
     [B,H,W,Cin] and g [B,H,W,Cout], both contiguous, of one type, on one
-    CUDA device."""
+    CUDA device, on the plan of :func:`~.conv_plan.b2_plan`."""
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(f"conv2d_dw: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} must be NHWC of one image size")
@@ -352,18 +372,16 @@ def conv2d_dw_kernel(x, g, k):
         raise ValueError(f"conv2d_dw: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} must be nonempty and under 2^31 "
                          "elements each")
-    lib = native.library()
-    chunks = lib.evf_conv_dw_chunks(b, h, wd, cin, cout, k)
-    if chunks < 1:
-        raise ValueError(f"conv2d_dw: no launch for x {tuple(x.shape)}, g "
-                         f"{tuple(g.shape)}, k {k}")
+    entry = getattr(native.library(), native.variant("evf_conv_dw", x.dtype))
+    plan = b2_plan(b, h, wd, cin, cout, k, x.element_size(),
+                   sm_count(x.device))
     dw = torch.empty((cout, cin, k, k), device=x.device, dtype=x.dtype)
     # the chunks' float32 partial sums; unused where one chunk
-    part = (torch.empty((chunks, dw.numel()), device=x.device,
-                        dtype=torch.float32) if chunks > 1 else dw)
-    err = getattr(lib, native.variant("evf_conv_dw", x.dtype))(
-        x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd,
-        cin, cout, k, native.stream_handle(x.device))
+    part = (torch.empty((plan.chunks, dw.numel()), device=x.device,
+                        dtype=torch.float32) if plan.chunks > 1 else dw)
+    err = entry(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                b, h, wd, cin, cout, k, plan.tw, plan.imgs, plan.chunks,
+                plan.ns, native.stream_handle(x.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1
     return dw

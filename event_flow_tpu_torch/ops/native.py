@@ -61,12 +61,13 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "evf_conv2d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "evf_conv2d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P],
     "evf_fused_conv_lif": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "evf_scatter_add": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "evf_conv_dw_chunks": [_I, _I, _I, _I, _I, _I],
-    "evf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "evf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _P],
     "evf_fused_lif_bwd_slices": [_L, _I, _I],
     "evf_fused_lif_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                           _I, _I, _I, _F, _I, _P],

@@ -541,9 +541,6 @@ class _NoCard:
     def __init__(self):
         self.asked = []
 
-    def evf_conv_dw_chunks(self, *args):
-        return 1
-
     def evf_fused_lif_bwd_slices(self, *args):
         return 1
 

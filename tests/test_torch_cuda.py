@@ -26,12 +26,14 @@ from event_flow_tpu_torch.ops import native
 from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel, conv2d_dw_plain,
                                            conv2d_same, conv2d_same_plain,
                                            conv2d_strided)
+from event_flow_tpu_torch.ops.conv_plan import b2_plan, k1_plan
 from event_flow_tpu_torch.ops.fused_lif import (fused_conv_lif,
                                                 fused_conv_lif_plain,
                                                 fused_conv_lif_rec,
                                                 fused_conv_lif_rec_plain,
                                                 fused_lif_bwd_kernel,
                                                 fused_lif_bwd_plain)
+from event_flow_tpu_torch.ops.s8_plan import sm_count
 from event_flow_tpu_torch.ops.scatter import (scatter_add, scatter_add_kernel,
                                               scatter_add_plain)
 
@@ -1832,7 +1834,8 @@ def test_bf16_conv_dw_split_and_unsplit(dev, shape, chunked, inputs):
     bitwise equal. Largest error beyond one ulp measured: 0.0157 SUM_RTOL
     (32 -> 32, randn), 0.00672 (512 -> 512, randn), 0 on spikes."""
     b, h, w, cin, cout = shape
-    chunks = native.library().evf_conv_dw_chunks(b, h, w, cin, cout, 3)
+    chunks = b2_plan(b, h, w, cin, cout, 3, 2,
+                     sm_count(torch.device(dev))).chunks
     assert (chunks > 1) == chunked
     g = _gen()
     if inputs == "spikes":
@@ -2154,3 +2157,212 @@ def test_s8_mainloop_bitwise_at_path_and_edge_shapes(dev, kernel, shape,
             got = kern(*args, dtype=dtype)
             for a, r in zip(got, ref):
                 assert a.dtype == dtype and torch.equal(a, r)
+
+
+# K1 and B2 on their plans (ops/conv_plan.py; K1 on the persistent float
+# mainloop of csrc/conv_ring.cuh, or on the one-image tile of
+# csrc/conv_tile.cuh) in both types, each against its plain version and
+# run twice bitwise equal: the deep shapes of the gates and the U-Nets
+# (four 8 x 8 images a K1 tile, two a B2 tile; K split over a cluster at
+# serving's two 1 x 12 x 15 gates only), input channel counts whose pixel
+# rows are not whole 16-byte rows (2, 130, 258, 514, 1026: K1's one-image
+# tile, B2's thread copies instead of TMA), heads of 8 or fewer output
+# channels (a 1 x 1 head of 32 input channels on K1's one-image tile), k
+# 1, 3 and 5, B 1 and 8, maps smaller than a tile, and maps whose tiles
+# straddle two images (3 or 5 images, the last tile partly past B).
+CONV_PLAN_CASES = [
+    (8, 8, 8, 1024, 1024, 3, "randn"), (8, 8, 8, 1024, 512, 3, "randn"),
+    (1, 12, 15, 1024, 1024, 3, "randn"), (1, 12, 15, 1024, 512, 3, "randn"),
+    (8, 16, 16, 512, 1024, 3, "randn"), (8, 8, 8, 512, 512, 3, "spikes"),
+    (8, 16, 16, 1024, 256, 3, "spikes"), (8, 16, 16, 256, 2, 1, "spikes"),
+    (2, 12, 15, 2, 32, 3, "counts"), (2, 9, 13, 130, 64, 3, "flow"),
+    (1, 10, 12, 258, 40, 5, "flow"), (3, 8, 8, 514, 9, 3, "flow"),
+    (1, 6, 7, 1026, 7, 1, "flow"), (8, 4, 4, 64, 32, 3, "randn"),
+    (3, 8, 8, 32, 16, 5, "randn"), (5, 8, 16, 48, 24, 3, "randn"),
+    (2, 20, 36, 32, 2, 1, "spikes")]
+
+
+def _conv_plan_inputs(dev, case, dtype):
+    b, h, w, cin, cout, k, kind = case
+    g = _gen()
+    shape = (b, h, w, cin)
+    if kind == "randn":
+        x = 0.5 * torch.randn(shape, generator=g)
+    elif kind == "counts":
+        x = torch.poisson(torch.full(shape, 0.3), generator=g)
+    else:
+        x = (torch.rand(shape, generator=g) < 0.1).float()
+        if kind == "flow":
+            x[..., -2:] = torch.randn(shape[:3] + (2,), generator=g)
+    wt = (torch.rand((cout, cin, k, k), generator=g) * 2 - 1) * (
+        1 / (k * k * cin)) ** 0.5
+    gy = 1e-3 * torch.randn((b, h, w, cout), generator=g)
+    return (t.to(dev, dtype) for t in (x, wt, gy))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONV_PLAN_CASES)
+def test_conv_kernel_on_its_plan(dev, case, dtype):
+    """K1 against its plain version (float32: ATOL; bfloat16: one ulp plus
+    ATOL), one launch a call, twice bitwise equal."""
+    b, h, w, cin, cout, k, _ = case
+    x, wt, _ = _conv_plan_inputs(dev, case, dtype)
+    plan = k1_plan(b, h, w, cin, cout, k, x.element_size(),
+                   sm_count(torch.device(dev)))
+    if (b, h, w) == (1, 12, 15):  # the split path stays under test
+        assert plan.slices > 1, plan
+    name = native.variant("conv2d_same", dtype)
+    before = native.LAUNCHES[name]
+    y = conv2d_same(x, wt)
+    assert native.LAUNCHES[name] == before + 1
+    ref = conv2d_same_plain(x, wt)
+    if dtype == torch.bfloat16:
+        _bf16_close(y, ref, ATOL)
+    else:
+        torch.testing.assert_close(y, ref, atol=ATOL, rtol=1e-5)
+    assert torch.equal(y, conv2d_same(x, wt)), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONV_PLAN_CASES)
+def test_conv_dw_kernel_on_its_plan(dev, case, dtype):
+    """B2 against its plain version within SUM_RTOL of the largest |dw|
+    (bfloat16: plus one ulp), one launch a call, twice bitwise equal."""
+    b, h, w, cin, cout, k, _ = case
+    x, _, gy = _conv_plan_inputs(dev, case, dtype)
+    plan = b2_plan(b, h, w, cin, cout, k, x.element_size(),
+                   sm_count(torch.device(dev)))
+    name = native.variant("conv2d_dw", dtype)
+    before = native.LAUNCHES[name]
+    dw = conv2d_dw_kernel(x, gy, k)
+    assert native.LAUNCHES[name] == before + 1
+    assert dw.shape == (cout, cin, k, k) and dw.dtype == dtype
+    ref = conv2d_dw_plain(x, gy, k)
+    if dtype == torch.bfloat16:
+        _bf16_close(dw, ref, SUM_RTOL * float(ref.float().abs().max()))
+    else:
+        assert_close_to_max(dw, ref)
+    assert torch.equal(dw, conv2d_dw_kernel(x, gy, k)), plan
+
+
+def _with_nans(t, where):
+    """float32 ``t`` with the card's NaN (bits 0x7fffffff, whose rounding
+    to TF32 by adding half a unit would carry into the sign bit) at the
+    first index of ``where`` and -NaN (0xffffffff) at the second."""
+    t = t.clone()
+    bits = t.view(torch.int32)
+    bits[where[0]] = 0x7fffffff
+    bits[where[1]] = -1
+    return t
+
+
+def _window_nans(x, w, k):
+    """Where a same conv of x (NHWC) with w (OIHW) must be NaN: a NaN in
+    an output's k x k window of x, or in its channel's weights (a NaN
+    weight meets a padding zero as well, and NaN * 0 is NaN)."""
+    hit = torch.isnan(x).any(-1).double()[:, None]
+    win = torch.nn.functional.conv2d(hit, torch.ones(1, 1, k, k,
+                                                     dtype=torch.float64),
+                                     padding=k // 2)[:, 0] > 0.5
+    return win[..., None] | torch.isnan(w).flatten(1).any(1)
+
+
+def _finite_close(got, ref, mask, atol):
+    assert torch.equal(torch.isnan(got), mask)
+    torch.testing.assert_close(got[~mask].float(), ref[~mask].float(),
+                               atol=atol, rtol=1e-2 if got.dtype ==
+                               torch.bfloat16 else 1e-5)
+
+
+# (B, H, W, Cin, Cout): K1 on the ring and on the one-image tile (130
+# channels), B2 by TMA and by the threads' copies
+NAN_CASES = [(2, 8, 8, 64, 32), (2, 12, 15, 130, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("operand", ["x", "w"])
+@pytest.mark.parametrize("case", NAN_CASES)
+def test_conv_kernel_keeps_nans(dev, case, operand, dtype):
+    """A NaN or -NaN in K1's x or w (the card's bits) comes out NaN in
+    exactly the outputs whose sum over the zero-padded x reads it, as
+    IEEE products give it (some backends of the plain version skip the
+    padding's products, so the mask is worked out here), and the other
+    outputs stay close to the plain version."""
+    b, h, w, cin, cout = case
+    g = _gen()
+    x = 0.5 * torch.randn((b, h, w, cin), generator=g)
+    wt = (torch.rand((cout, cin, 3, 3), generator=g) * 2 - 1) * (
+        1 / (9 * cin)) ** 0.5
+    if operand == "x":
+        x = _with_nans(x, [(0, 3, 4, 5), (1, h - 1, 2, cin - 1)])
+    else:
+        wt = _with_nans(wt, [(3, 5, 1, 1), (cout - 1, cin - 1, 0, 2)])
+    plan = k1_plan(b, h, w, cin, cout, 3, 4 if dtype == torch.float32
+                   else 2, sm_count(torch.device(dev)))
+    assert plan.ring == (cin == 64)
+    x, wt = x.to(dev, dtype), wt.to(dev, dtype)
+    y = conv2d_same(x, wt)
+    mask = _window_nans(x.cpu().double(), wt.cpu().double(), 3).to(dev)
+    _finite_close(y, conv2d_same_plain(x, wt), mask, ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("operand", ["x", "g"])
+@pytest.mark.parametrize("case", NAN_CASES)
+def test_conv_dw_kernel_keeps_nans(dev, case, operand, dtype):
+    """A NaN or -NaN in B2's x or g comes out NaN in exactly the dw
+    entries that sum it (a NaN in g: its output channel's every entry; in
+    x: its input channel's taps that reach it from inside the map), and
+    the others stay close to the plain version."""
+    b, h, w, cin, cout = case
+    g = _gen()
+    x = 0.5 * torch.randn((b, h, w, cin), generator=g)
+    gy = 1e-3 * torch.randn((b, h, w, cout), generator=g)
+    if operand == "x":
+        x = _with_nans(x, [(0, 3, 4, 5), (1, h - 1, 2, cin - 1)])
+    else:
+        gy = _with_nans(gy, [(0, 2, 2, 3), (1, h - 1, w - 1, cout - 1)])
+    x, gy = x.to(dev, dtype), gy.to(dev, dtype)
+    dw = conv2d_dw_kernel(x, gy, 3)
+    reach = conv2d_dw_plain(torch.isnan(x).double().cpu(),
+                            torch.ones((b, h, w, 1), dtype=torch.float64),
+                            3)[0] > 0.5                  # [Cin, 3, 3]
+    mask = (reach[None] | torch.isnan(gy).flatten(0, 2).any(0).cpu()[
+        :, None, None, None]).to(dev)
+    ref = conv2d_dw_plain(x, gy, 3)
+    _finite_close(dw, ref, mask, SUM_RTOL * float(
+        ref[~mask].float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("operand", ["x", "w", "z_rec"])
+def test_fused_lif_rec_model_axis_keeps_nans(dev, operand, dtype):
+    """K2 rec with Crec != Cout (the ring): a NaN or -NaN in x, the
+    weights or z_rec gives v' NaN in exactly the outputs whose current
+    reads it, and the others stay close to the plain version."""
+    b, h, w, cin, cout, crec = 2, 9, 13, 32, 16, 32
+    g = _gen()
+    x = (torch.rand((b, h, w, cin), generator=g) < 0.3).float()
+    zr = (torch.rand((b, h, w, crec), generator=g) < 0.2).float()
+    wt = (torch.rand((cout, cin, 3, 3), generator=g) * 2 - 1) * cin ** -0.5
+    wr = (torch.rand((cout, crec, 3, 3), generator=g) * 2 - 1) * crec ** -0.5
+    if operand == "x":
+        x = _with_nans(x, [(0, 3, 4, 5), (1, h - 1, 2, cin - 1)])
+    elif operand == "w":
+        wt = _with_nans(wt, [(3, 5, 1, 1), (cout - 1, cin - 1, 0, 2)])
+    else:
+        zr = _with_nans(zr, [(0, 4, 6, 7), (1, 0, w - 1, crec - 1)])
+    thresh = 0.5 + 0.1 * torch.randn(cout, generator=g)
+    leak = torch.sigmoid(torch.randn(cout, generator=g))
+    v = thresh + 0.3 * torch.randn((b, h, w, cout), generator=g)
+    z = (torch.rand((b, h, w, cout), generator=g) < 0.1).float()
+    mask = _window_nans(torch.cat([x, zr], -1).double(),
+                        torch.cat([wt, wr], 1).double(), 3).to(dev)
+    x, zr, wt, wr, v, z = (t.to(dev, dtype) for t in (x, zr, wt, wr, v, z))
+    leak, thresh = leak.to(dev), thresh.to(dev)
+    with torch.no_grad():
+        vk, _ = fused_conv_lif_rec(x, wt, wr, v, z, zr, leak, thresh, 3,
+                                   True)
+        vp, _ = fused_conv_lif_rec_plain(x, wt, wr, v, z, zr, leak, thresh,
+                                         3, True)
+    _finite_close(vk, vp, mask, ATOL)
