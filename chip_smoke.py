@@ -15,7 +15,10 @@ exits non-zero without the final ``ok`` line:
               in its float32 instantiations; the int8 MMA (IMMA) alone in
               K1-s8 and K2-s8, and their persistent mainloop's TMA loads
               and stores (UTMALDG, UTMASTG), cp.async copies (LDGSTS) and
-              mbarrier operations (SYNCS)
+              mbarrier operations (SYNCS); the float ring's TMA,
+              cp.async, mbarrier and ldmatrix operations in K1's and K2's
+              instances, and K2's instances on it for every k, channel
+              group, reset and type
   3. kernels  each kernel against its plain PyTorch version (TF32 off) at
               the serving and the training shapes, with the median time of
               20 runs of each and its device time per call at the training
@@ -238,11 +241,16 @@ build phases and those alone, without the summary lines.
 
 Phase 3 also holds K2 at every shape of the U-Net's cells and K1 at its
 four prediction heads (64 to 1026 input channels, 12 x 15 to 180 x 240),
-with spike and dense randn inputs; K1 and B2 at the ConvGRU's deepest
-shapes (1024 -> 1024 and 1024 -> 512, at 8 x 8 x 8 and 1 x 12 x 15), at
-FireNet's ConvGRU gates (64 -> 64 and 64 -> 32 at 8 x 128 x 128) and at
-E2VID's deepest ConvLSTM gates (512 -> 1024 at 8 x 16 x 16), beside
-cuDNN's conv and weight gradient; B2 at every weight shape of the
+with spike and dense randn inputs; K2 on its plan (ops/conv_plan.py::
+k2_plan: the ring or the one-image tile, K split at serving's
+512-channel single images) at K2_SHAPES (the spiking U-Net's training
+and serving cells, LIFFireNet's) and K2_EDGES in both types and both
+resets, twice bitwise, with a NaN and state off a 16-byte boundary; K1
+and B2 at the ConvGRU's deepest shapes (1024 -> 1024 and 1024 -> 512, at
+8 x 8 x 8 and 1 x 12 x 15), at FireNet's ConvGRU gates (64 -> 64 and
+64 -> 32 at 8 x 128 x 128) and at E2VID's deepest ConvLSTM gates (512
+-> 1024 at 8 x 16 x 16), beside cuDNN's conv and weight gradient; B2 at
+every weight shape of the
 FireNet and U-Net training updates, against float64 as well, with its
 device time beside cuDNN's weight gradient; B4 at the five shapes of the
 U-Net's cells (32 to 512 channels), in both types, with L2 flushed
@@ -379,15 +387,20 @@ B4_NEED = {"f32": ("UBLKCP", "SYNCS", "LDG.E.128"), "bf16": ("LDG.E.128",)}
 S8_KERNELS = ("conv2d_same_s8_kernel", "fused_conv_lif_s8_kernel")
 S8_OPS = ("UTMALDG", "UTMASTG", "LDGSTS", "SYNCS", "ARRIVES", "LDSM")
 S8_NEED = ("UTMALDG", "UTMASTG", "LDGSTS", "SYNCS")
-# K2 rec with Crec != Cout and K1 on the persistent float mainloop
-# (csrc/conv_ring.cuh): its TMA halo loads, the cp.async copies of the
-# maps and weight rows TMA does not take, the ring's mbarriers, its
-# ldmatrix fragments; what every one of its instantiations must hold (its
-# MMAs are MMA_RULES')
+# K2 and K1 on the persistent float mainloop (csrc/conv_ring.cuh): its TMA
+# halo loads, the cp.async copies of the maps and weight rows TMA does not
+# take, the ring's mbarriers, its ldmatrix fragments; what every one of
+# its instantiations (K2's: ff and rec, every group, both resets, both
+# types) must hold (its MMAs are MMA_RULES')
 RING_KERNELS = ("fused_conv_lif_ring_kernel", "conv2d_same_kernel")
 # K1's kernels: on the ring, and on the one-image tile of conv_tile.cuh
 # where its plan keeps that (ops/conv_plan.py::k1_plan, ns 0)
 K1_KERNELS = ("conv2d_same_kernel", "conv2d_same_tile_kernel")
+# K2's kernels (ff and rec, f32 and bf16): on the one-image tile of
+# conv_tile.cuh where its plan keeps that (ops/conv_plan.py::k2_plan, ns
+# 0: x's or z_rec's pixel rows not 16-byte rows), else on the ring; K2's
+# time is the sum over both
+K2_KERNELS = ("fused_conv_lif_kernel", "fused_conv_lif_ring_kernel")
 RING_OPS = ("UTMALDG", "LDGSTS", "SYNCS", "ARRIVES", "LDSM")
 RING_NEED = ("UTMALDG", "LDGSTS", "SYNCS", "LDSM")
 # B2 (csrc/conv_dw.cu): its ring's TMA halo and g tiles, the cp.async
@@ -400,6 +413,11 @@ DW_NEED = ("UTMALDG", "LDGSTS", "SYNCS")
 def _is_k1(name):
     """Whether a device operation's name is one of K1's kernels."""
     return any(k in name for k in K1_KERNELS)
+
+
+def _is_k2(name):
+    """Whether a device operation's name is one of K2's kernels."""
+    return any(k in name for k in K2_KERNELS)
 
 
 def _opcode(line):
@@ -519,7 +537,26 @@ def sass_check(lib_path):
     b4_sass_check(sass)
     ops_sass_check(sass, S8_KERNELS, S8_OPS, S8_NEED)
     ops_sass_check(sass, RING_KERNELS, RING_OPS, RING_NEED)
+    k2_ring_sass_check(sass)
     ops_sass_check(sass, DW_KERNELS, DW_OPS, DW_NEED)
+
+
+def k2_ring_sass_check(sass):
+    """K2's instances on the ring in ``sass``: every k (1, 3, 5), channel
+    group (8, 16, 32), reset and type, each one kernel for ff and rec (the
+    recurrent segment is a run-time count of passes); their mangled names
+    carry the template arguments."""
+    import re
+
+    got = set(re.findall(r"fused_conv_lif_ring_kernelILi(\d)ELi(\d+)ELb([01])"
+                         r"E(f|13__nv_bfloat16)", sass))
+    want = {(k, co, hard, t) for k in "135" for co in ("8", "16", "32")
+            for hard in "01" for t in ("f", "13__nv_bfloat16")}
+    print(f"[sass] fused_conv_lif_ring_kernel (K2 ff and rec): "
+          f"{len(got & want)} of {len(want)} instances (k x group x reset x "
+          "type)")
+    if want - got:
+        fail(f"[sass] K2's ring instances missing: {sorted(want - got)}")
 
 
 def timed(fn, reps=REPS):
@@ -764,7 +801,7 @@ def kernels_forward(inp, out):
                 if not all(map(torch.equal, (vk, zk), run_k())):
                     fail(f"{label}: two runs differ")
                 t_k, t_p = timed(run_k), timed(run_p)
-                d_k, src_k = device_ms(run_k, "fused_conv_lif_kernel")
+                d_k, src_k = device_ms(run_k, K2_KERNELS)
                 d_p, src_p = device_ms(run_p)
                 npix = shape[0] * shape[1] * shape[2]
                 # x, v and z in (z_rec is z), v', z' out; the weights
@@ -872,7 +909,7 @@ def kernels_unet(inp, out):
                     "repeatable")
             if inputs == "spikes":
                 t_k, t_p = timed(run_k), timed(run_p)
-                d_k, src_k = device_ms(run_k, "fused_conv_lif_kernel")
+                d_k, src_k = device_ms(run_k, K2_KERNELS)
                 d_p, src_p = device_ms(run_p)
                 npix = h * w
                 nbytes = 4 * (npix * (cin + 4 * c)
@@ -908,6 +945,153 @@ def kernels_unet(inp, out):
                          f"device {d_p:.4f} [{src_p}]"
                          + (" SLOWER than plain" if d_k > d_p else ""))
             print(line)
+
+
+# K2's calls (ff and rec with Crec == Cout), (label, (B, H, W, Cin, Crec,
+# Cout)), Crec 0 for ff: the spiking U-Net's cells at TRAIN_SNNREC (B 8,
+# 128 x 128; per update: enc0-3 10 calls each, res 40, dec0-3 10 each),
+# its serving cells (UNET_K2), LIFFireNet's at TRAIN_SNN and at serving
+K2_SHAPES = (
+    ("U-Net enc0", (8, 64, 64, 64, 64, 64)),
+    ("U-Net enc1", (8, 32, 32, 128, 128, 128)),
+    ("U-Net enc2", (8, 16, 16, 256, 256, 256)),
+    ("U-Net enc3", (8, 8, 8, 512, 512, 512)),
+    ("U-Net res", (8, 8, 8, 512, 0, 512)),
+    ("U-Net dec0", (8, 16, 16, 1024, 0, 256)),
+    ("U-Net dec1", (8, 32, 32, 514, 0, 128)),
+    ("U-Net dec2", (8, 64, 64, 258, 0, 64)),
+    ("U-Net dec3", (8, 128, 128, 130, 0, 32)),
+    *(("U-Net serving", (1, h, w, cin, c if rec else 0, c))
+      for h, w, cin, c, rec in dict.fromkeys(UNET_K2)),
+    ("LIFFireNet", (8, 128, 128, 32, 0, 32)),
+    ("LIFFireNet", (8, 128, 128, 32, 32, 32)),
+    ("LIFFireNet head", (8, 128, 128, 2, 0, 32)),
+    ("LIFFireNet serving", (1, 180, 240, 32, 0, 32)),
+    ("LIFFireNet serving", (1, 180, 240, 32, 32, 32)),
+    ("LIFFireNet serving head", (1, 180, 240, 2, 0, 32)))
+# K2's edges on its plan (B, H, W, Cin, Crec, Cout, k): k 1 and 5, B not a
+# multiple of a tile's images, Cout not a multiple of 4 (the element-wise
+# epilogue) or of the group, a map smaller than one tile
+K2_EDGES = ((2, 12, 15, 32, 32, 32, 1), (3, 8, 8, 64, 0, 48, 5),
+            (3, 8, 8, 512, 512, 512, 3), (5, 8, 8, 64, 64, 64, 3),
+            (2, 9, 13, 32, 0, 6, 3), (2, 9, 13, 64, 0, 20, 3),
+            (2, 9, 13, 32, 24, 24, 3), (1, 5, 6, 32, 32, 32, 3))
+
+
+def k2_inputs(shape, dtype, k=3, hard=True):
+    """x, w, w_rec (None for ff), v, z, leak and thresh of a K2 call at
+    ``shape`` (B, H, W, Cin, Crec, Cout) from the shape's own seed, on the
+    card in ``dtype`` (leak and thresh float32): spikes at 10 % (event
+    counts at 2 channels), snn-init weights, v spread around the
+    threshold; z is z_rec in the recurrent cell."""
+    import hashlib
+
+    b, h, w, cin, crec, cout = shape
+    seed = int(hashlib.sha256(repr((shape, k)).encode()).hexdigest()[:8], 16)
+    inp = _Inputs(torch.device("cuda"))
+    inp.gen.manual_seed(seed)
+    x = (inp.counts((b, h, w, cin)) if cin == 2
+         else inp.spikes((b, h, w, cin)))
+    wt = inp.uniform((cout, cin, k, k), (1 / cin) ** 0.5)
+    wr = inp.uniform((cout, crec, k, k), (1 / crec) ** 0.5) if crec else None
+    leak, thresh = inp.neuron(cout)
+    v = thresh + 0.3 * inp.normal((b, h, w, cout))
+    z = inp.spikes((b, h, w, cout))
+    cast = [t.to(dtype) for t in (x, wt, v, z)]
+    return (cast[0], cast[1], None if wr is None else wr.to(dtype),
+            cast[2], cast[3], leak, thresh)
+
+
+def k2_work(shape, esize, k=3):
+    """(bytes, flop) a K2 call must move and do: x, v and z in (z_rec is
+    z), v' and z' out, the weights; 2 k*k (Cin + Crec) Cout products a
+    pixel."""
+    b, h, w, cin, crec, cout = shape
+    npix = b * h * w
+    return (esize * (npix * (cin + 4 * cout) + k * k * cout * (cin + crec)),
+            2 * npix * cout * k * k * (cin + crec))
+
+
+def kernels_k2(out):
+    """K2 ff and rec (Crec == Cout) on its plan (ops/conv_plan.py::k2_plan:
+    the ring wherever x's and z_rec's pixel rows are 16-byte rows, else the
+    one-image tile) in float32 and bfloat16, both resets, at every shape
+    of K2_SHAPES and K2_EDGES against its plain form (float32 v' within
+    ATOL, bfloat16 one ulp plus ATOL; spikes equal but near the
+    threshold), twice bitwise; a NaN in x comes out NaN, and v and z off
+    a 16-byte boundary give the aligned call's bits."""
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.ops.conv_plan import k2_plan
+    from event_flow_tpu_torch.ops.fused_lif import (
+        fused_conv_lif, fused_conv_lif_plain, fused_conv_lif_rec,
+        fused_conv_lif_rec_plain)
+    from event_flow_tpu_torch.ops.s8_plan import sm_count
+
+    def run(fn, fn_rec, x, wt, wr, v, z, leak, thresh, k, hard):
+        if wr is None:
+            return fn(x, wt, v, z, leak, thresh, k, hard)
+        return fn_rec(x, wt, wr, v, z, z, leak, thresh, k, hard)
+
+    cases = ([(shape, 3) for _, shape in dict.fromkeys(K2_SHAPES)]
+             + [(tuple(e[:6]), e[6]) for e in K2_EDGES])
+    routes = Counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, k in dict.fromkeys(cases):
+            b, h, w, cin, crec, cout = shape
+            name = native.variant("fused_conv_lif_rec" if crec
+                                  else "fused_conv_lif", dtype)
+            for hard in (True, False):
+                args = k2_inputs(shape, dtype, k)
+                plan = k2_plan(b, h, w, cin, crec, cout, k,
+                               args[0].element_size(), sm_count("cuda"))
+                label = (f"K2 {name} {b}x{h}x{w} {cin}"
+                         f"{f'+{crec}' if crec else ''}->{cout} k {k} "
+                         f"{'hard' if hard else 'soft'} on the "
+                         f"{'ring' if plan.ring else 'tile'}"
+                         f"{'' if plan.bitwise else ', K split'}")
+                vk, zk = run(fused_conv_lif, fused_conv_lif_rec, *args, k,
+                             hard)
+                vp, zp = run(fused_conv_lif_plain, fused_conv_lif_rec_plain,
+                             *args, k, hard)
+                if dtype == torch.float32:
+                    err = float((vk - vp).abs().max())
+                    if not err <= ATOL:
+                        fail(f"[kernels] {label}: max |err| of v' {err} > "
+                             f"{ATOL}")
+                    check_spikes(zk, zp, vp, args[-1], label)
+                else:
+                    err = float(bf16_close(vk, vp, label, ATOL))
+                if not all(map(torch.equal, (vk, zk), run(
+                        fused_conv_lif, fused_conv_lif_rec, *args, k,
+                        hard))):
+                    fail(f"[kernels] {label}: two runs differ")
+                _record(out, name, err)
+                routes[(str(dtype)[6:], "ring" if plan.ring else "tile",
+                        plan.slices)] += 1
+        # a NaN in x, and v, z off a 16-byte boundary, on the ring
+        x, wt, wr, v, z, leak, thresh = k2_inputs((3, 8, 8, 64, 64, 64),
+                                                  dtype)
+        x = x.clone()
+        x[0, 3, 4, 5] = float("nan")
+        vk, _ = fused_conv_lif_rec(x, wt, wr, v, z, z, leak, thresh, 3, True)
+        if not bool(torch.isnan(vk[0, 2:5, 3:6]).all()) or bool(
+                torch.isnan(vk[1:]).any()):
+            fail(f"[kernels] K2 {dtype}: a NaN in x does not reach exactly "
+                 "its window's v'")
+        x[0, 3, 4, 5] = 0.0
+        shift = [torch.cat([torch.zeros(2, device="cuda", dtype=dtype),
+                            t.flatten()])[2:].view(t.shape) for t in (v, z)]
+        if not all(map(torch.equal, fused_conv_lif_rec(
+                x, wt, wr, *shift, shift[1], leak, thresh, 3, True),
+                fused_conv_lif_rec(x, wt, wr, v, z, z, leak, thresh, 3,
+                                   True))):
+            fail(f"[kernels] K2 {dtype}: unaligned v and z change the bits")
+    print(f"[kernels] K2 on its plan at {len(dict.fromkeys(cases))} shapes "
+          "(K2_SHAPES, K2_EDGES), f32 and bf16, both resets: within the "
+          "plain forms' tolerance, twice bitwise; a NaN kept, unaligned "
+          "state bitwise; calls by (type, route, slices): "
+          + ", ".join(f"{t} {r} x{sl}: {n}"
+                      for (t, r, sl), n in sorted(routes.items())))
 
 
 def conv2d_library(x, w):
@@ -1506,7 +1690,7 @@ def kernels_bf16(inp, out):
             if (b, cin, hard) == (8, 32, True):
                 npix = b * h * w
                 timing, line = _timings(
-                    run_k, run_p, None, "fused_conv_lif_kernel",
+                    run_k, run_p, None, K2_KERNELS,
                     2 * (npix * (cin + 4 * c) + wt.numel()
                          + (wr.numel() if rec else 0)),
                     2 * npix * c * 9 * (cin + (c if rec else 0)))
@@ -1577,6 +1761,7 @@ def phase_kernels():
     out = {}
     kernels_forward(inp, out)
     kernels_unet(inp, out)
+    kernels_k2(out)
     kernels_dw(inp, out)
     kernels_gru(inp, out)
     kernels_backward(inp, out)
@@ -1666,22 +1851,25 @@ class ShapeLog:
     K2-s8 launch,
     as (B, H, W, Cin, Cout) and (B, H, W, Cin, Cout, recurrent), through
     the int8 wrappers' call of the plan (ops/s8_plan.py), which the
-    operators reach (:func:`s8_by_shape`); and of every K2 rec launch with
-    Crec != Cout, as (B, H, W, Cin, Cout, Crec)."""
+    operators reach (:func:`s8_by_shape`); and of every K2 launch, as (B,
+    H, W, Cin, Crec, Cout) with Crec 0 for ff, and of every K2 rec launch
+    with Crec != Cout, as (B, H, W, Cin, Cout, Crec)."""
 
     def __enter__(self):
         from event_flow_tpu_torch.ops import conv, fused_lif
 
         self.k1, self.b2, self.b4 = [], [], []
-        self.k1s8, self.k2s8, self.k2rec = [], [], []
+        self.k1s8, self.k2s8, self.k2rec, self.k2 = [], [], [], []
         self._saved = (conv.k1_plan, conv.conv2d_dw_kernel,
                        fused_lif.fused_lif_bwd_kernel)
         self._launch = fused_lif._launch
         launch = self._launch
 
         def k2_logged(name, x, w, v, z, *args, z_rec=None, w_rec=None):
-            if z_rec is not None and z_rec.shape[-1] != w.shape[0]:
-                self.k2rec.append((*x.shape, w.shape[0], z_rec.shape[-1]))
+            crec = 0 if z_rec is None else z_rec.shape[-1]
+            self.k2.append((*x.shape, crec, w.shape[0]))
+            if crec and crec != w.shape[0]:
+                self.k2rec.append((*x.shape, w.shape[0], crec))
             return launch(name, x, w, v, z, *args, z_rec=z_rec, w_rec=w_rec)
 
         fused_lif._launch = k2_logged
@@ -1777,23 +1965,26 @@ def int8_window_by_shape(tag, config, precision="float32"):
 
 
 def on_path_by_shape(events, log):
-    """{(kernel, shape): (calls, device ms)} of the K1, B2 and B4 launches
-    of a profiled run, each launch matched to its logged shape in launch
-    order (a B2 call with a pixel split, ops/conv_plan.py::b2_plan, is its
-    conv_dw kernel and then its chunk sum; a B4 call is one kernel); None
-    for a kernel whose device events do not match its log (a profiler
-    session can miss events)."""
+    """{(kernel, shape): (calls, device ms)} of the K1, B2, B4 and K2
+    launches of a profiled run, each launch matched to its logged shape in
+    launch order (a B2 call with a pixel split, ops/conv_plan.py::b2_plan,
+    is its conv_dw kernel and then its chunk sum; a B4 or K2 call is one
+    kernel); None for a kernel whose device events do not match its log
+    (a profiler session can miss events)."""
     from event_flow_tpu_torch.ops.conv_plan import b2_plan
     from event_flow_tpu_torch.ops.s8_plan import sm_count
 
     out = {}
-    b4 = [us for name, _, us in events if B4_KERNEL in name]
-    if len(b4) == len(log.b4):
-        for shape, us in zip(log.b4, b4):
-            n, t = out.get(("B4", shape), (0, 0.0))
-            out[("B4", shape)] = (n + 1, t + us / 1e3)
-    else:
-        out["B4"] = None
+    for key, us_of, shapes in (
+            ("B4", [us for name, _, us in events if B4_KERNEL in name],
+             log.b4),
+            ("K2", [us for name, _, us in events if _is_k2(name)], log.k2)):
+        if len(us_of) == len(shapes):
+            for shape, us in zip(shapes, us_of):
+                n, t = out.get((key, shape), (0, 0.0))
+                out[(key, shape)] = (n + 1, t + us / 1e3)
+        else:
+            out[key] = None
     k1 = [us for name, _, us in events if _is_k1(name)]
     dw = [us for name, _, us in events if "conv_dw_kernel" in name]
     sums = [us for name, _, us in events if "conv_dw_sum_kernel" in name]
@@ -1817,7 +2008,7 @@ def on_path_by_shape(events, log):
 
 
 def _print_on_path(tag, by_shape):
-    for key in ("K1", "B2", "B4"):
+    for key in ("K1", "B2", "B4", "K2"):
         if by_shape.get(key, 0) is None:
             print(f"[{tag}] {key} by shape on the path: not measured (the "
                   "profiler's events do not match the launch log)")
@@ -1827,6 +2018,10 @@ def _print_on_path(tag, by_shape):
         if kname == "B4":
             b, h, w, c, dtype = shape
             what = f"B4 {c} channels {dtype} @{b}x{h}x{w}"
+        elif kname == "K2":
+            b, h, w, cin, crec, cout = shape
+            what = (f"K2 {'rec' if crec else 'ff'} {cin}"
+                    f"{f'+{crec}' if crec else ''}->{cout} @{b}x{h}x{w}")
         else:
             b, h, w, cin, cout, k = shape
             what = f"{kname} {cin}->{cout} k {k} @{b}x{h}x{w}"
@@ -1843,7 +2038,7 @@ def update_parts(events):
         low = name.lower()
         key = ("K1" if _is_k1(name) else
                "B2" if "conv_dw_" in name else
-               "K2" if "fused_conv_lif_kernel" in name else
+               "K2" if _is_k2(name) else
                "B4" if B4_KERNEL in name else
                "K3" if "scatter_tile_kernel" in name else
                "concat" if "cat" in low and "array" in low else
@@ -2225,6 +2420,7 @@ def window_events(config, model, log=None, sequences=None):
     if log is not None:
         log.k1.clear()
         log.b2.clear()
+        log.k2.clear()
     return _device_events(window)
 
 
@@ -2240,11 +2436,11 @@ def window_parts(tag, wall_us, events, labelled=()):
         parts[key] = parts.get(key, 0.0) + us
     for name, _, us in events:
         low = name.lower()
-        if labelled and "fused_conv_lif_kernel" in name:
+        if labelled and _is_k2(name):
             continue
         key = ("int8 convs (K1-s8, K2-s8)" if "_s8_kernel" in name else
                "K1 convs" if _is_k1(name) else
-               "K2 cells" if "fused_conv_lif_kernel" in name else
+               "K2 cells" if _is_k2(name) else
                "K3 scatter" if "scatter_tile_kernel" in name else
                "interpolate" if "upsample" in low else
                "concat" if "cat" in low and "array" in low else
@@ -2273,7 +2469,7 @@ def _window_breakdown(config, model):
     if not events:
         window_parts("unet", wall_us, events)
         return
-    k2 = [e for e in events if "fused_conv_lif_kernel" in e[0]]
+    k2 = [e for e in events if _is_k2(e[0])]
     if len(k2) != len(UNET_K2):
         fail(f"{len(k2)} K2 launches in one window, expected {len(UNET_K2)}")
     window_parts("unet", wall_us, events, [
@@ -5274,7 +5470,7 @@ def kernels_int8(inp, out):
                         ("bf16 K2", lambda: _ff_kernel(
                             xbf, wbf, vbf, zbf, leak, thresh, 3, True, "",
                             1.0)))
-                print(_beside(label, [(n, fn, "fused_conv_lif_kernel")
+                print(_beside(label, [(n, fn, K2_KERNELS)
                                       for n, fn in runs]))
             print(f"[int8] {label}: bitwise its plain version, spike rate "
                   f"{float(zp.mean()):.4f}, repeatable; {line}")
@@ -5612,10 +5808,6 @@ TP_TURNS = 2
 TP_K2_SHAPE = (8, 128, 128, 32, 16, 32)
 TP_K2 = {torch.float32: "fused_conv_lif_rec@Cout16,Crec32",
          torch.bfloat16: "fused_conv_lif_rec_bf16@Cout16,Crec32"}
-# K2's kernels: the one-process routes on conv_tile.cuh, and K2 rec with
-# Crec != Cout on the persistent float mainloop of csrc/conv_ring.cuh
-K2_KERNEL = "fused_conv_lif_kernel"
-TP_K2_KERNEL = "fused_conv_lif_ring_kernel"
 # K2 rec with Crec != Cout at every shape the model axis gives it, (B, H,
 # W, Cin, Cout, Crec): LIFFireNet's cells (TRAIN_SNN) at mp 2 and 4, and
 # the spiking U-Net's four recurrent encoder cells (TRAIN_SNNREC) at mp 2,
@@ -5945,9 +6137,9 @@ def tp_k2_check(out):
         dt = str(dtype)[6:]
         for cell, shape in TP_K2_SHAPES:
             call = tp_k2_call(inp, shape, dtype)
-            warm, flushed, one, src = s8_times(call["run"], TP_K2_KERNEL,
+            warm, flushed, one, src = s8_times(call["run"], K2_KERNELS,
                                                flush)
-            whole_w, src_w = device_ms(call["whole"], K2_KERNEL)
+            whole_w, src_w = device_ms(call["whole"], K2_KERNELS)
             bound, by = least_ms(call["bytes"], call["flop"], call["peak"])
             parent = TP_K2_PARENT_MS.get((cell, dt))
             was = ("; parent " + ", ".join(f"{t:.4f}" for t in parent)

@@ -1,48 +1,51 @@
-// The persistent float mainloop of K1 (conv.cu) and of K2 rec where a
-// mesh's model axis splits the cell's output channels (Crec != Cout: this
-// rank's Cout of the cell's Crec, the input x and the recurrent input
-// z_rec over every channel), for sm_90a: an implicit GEMM on the tensor
-// cores, float32 operands in 3xTF32 (mma.sync m16n8k8) or bfloat16
-// operands (mma.sync m16n8k16), whose next pass loads by TMA during the
-// current pass's MMAs. Replaces event_flow_tpu/ops/conv_pallas.py::
-// _conv_fwd (K1: the forward conv and, with the kernel flipped and its
-// channels swapped, dx in _cp_bwd) and, as K2 does,
-// event_flow_tpu/ops/fused_lif_pallas.py::_fused_fwd under JAX's GSPMD
-// split of the cell (event_flow_tpu/parallel/mesh.py:45-58).
+// The persistent float mainloop of K1 (conv.cu) and of K2 (fused_lif.cu:
+// the feedforward cell, the recurrent one on one process, and the
+// recurrent one where a mesh's model axis splits the cell's output
+// channels, Crec != Cout: this rank's Cout of the cell's Crec, the input x
+// and the recurrent input z_rec over every channel), for sm_90a: an
+// implicit GEMM on the tensor cores, float32 operands in 3xTF32
+// (mma.sync m16n8k8) or bfloat16 operands (mma.sync m16n8k16), whose next
+// pass loads by TMA during the current pass's MMAs. Replaces
+// event_flow_tpu/ops/conv_pallas.py::_conv_fwd (K1: the forward conv and,
+// with the kernel flipped and its channels swapped, dx in _cp_bwd) and
+// event_flow_tpu/ops/fused_lif_pallas.py::_fused_fwd (K2), also under
+// JAX's GSPMD split of the cell (event_flow_tpu/parallel/mesh.py:45-58).
 //
 // What bounds it on the H100. K1 at the LIFFireNet dx (8 x 128 x 128, 32
 // -> 32, k 3) moves 34 MB, 10 us at 3.35 TB/s, for 2.4 GFLOP (three times
 // that in 3xTF32); at RecEVFlowNet's ConvGRU gate (8 x 8 x 8, 1024 ->
 // 1024) it does 9.66 GFLOP, 19.5 us at the TF32 peak (58.6 in 3xTF32), on
 // 512 output pixels, and at serving's 1 x 12 x 15 its 37.7 MB of weights
-// take 11.3 us. K2 rec at LIFFireNet's cells at mp 2 (Cin 32, Crec 32,
-// Cout 16) moves 67 MB (x and z_rec in, v, z in and v', z' out), 20 us,
-// for 2.4 GFLOP; bfloat16 half the bytes. One process's mainloop
-// (conv_tile.cuh, K2) stages a pass, then multiplies, one 8 x 32 tile of
-// one image a block, its weight rows restaged for every pass, with 32
-// output channels a block, and splits every float32 operand into TF32 hi
-// and lo at each of the 9 taps that read it; at an 8 x 8 map its tile is
-// a quarter full and 256 such tiles restage every weight. This one keeps
-// loads in flight, converts each value once and fills its tiles:
+// take 11.3 us. K2 at the spiking U-Net's 8 x 8 x 8 cells (512 -> 512, 512
+// recurrent) does 2.4 (4.8) GFLOP on 512 pixels, 4.9 (9.8) us at the TF32
+// peak, and at LIFFireNet's cells moves 84 MB (x, v, z in; v', z' out),
+// 25 us; bfloat16 half the bytes. The parent's K2 ran the one-process
+// mainloop (conv_tile.cuh), which stages a pass, then multiplies, one 8 x
+// 32 tile of one image a block, its weight rows restaged for every pass,
+// with 32 output channels a block, and splits every float32 operand into
+// TF32 hi and lo at each of the 9 taps that read it; at an 8 x 8 map its
+// tile is a quarter full and 256 such tiles restage every weight. This
+// one keeps loads in flight, converts each value once and fills its
+// tiles:
 //
 // - Work. The output is cut into tiles of TILE = 256 pixels, imgs images
 //   of th x tw each (tw 32, 16 or 8; imgs 1, 2, 4 or 8), so that the
 //   U-Net's and the gates' 8 x 8 maps fill a tile with 4 images, and into
 //   channel groups of CO output channels (8, 16 or 32); an item is one
-//   tile of one group, group-major. K1's tiles, groups and split are
-//   ops/conv_plan.py's (the fewest tiles that fit, the smaller halo on a
-//   tie; the group of the least estimated time); K2 rec's are plan_rec's
-//   below (one image a tile, groups of 16, or 8).
+//   tile of one group, group-major. The tiles, groups, split and ring are
+//   ops/conv_plan.py's (k1_plan, k2_plan: the fewest tiles that fit, the
+//   smaller halo on a tie; the group of the least estimated time), passed
+//   in as integers; an item's passes are x's, then z_rec's.
 // - A persistent grid: as many blocks (or clusters) as the occupancy API
 //   says fit (one per SM in float32, two in bfloat16), no more than the
 //   items, each walking a run of consecutive items, so its weights change
 //   rarely.
 // - Split K at serving's deep shapes (one image, 256 input channels or
-//   more) whose items cannot fill the card (K1 at 1 x 12 x 15): the passes
-//   of an item are split over the `slices` blocks of a thread-block
-//   cluster, and the first block adds the others' float32 fragments from
-//   their shared memory in rank order (a fixed order: bitwise repeatable,
-//   but not one process's sum order).
+//   more for K1, 512 for K2) whose items cannot fill the card (1 x 12 x
+//   15, 1 x 24 x 30): the passes of an item are split over the `slices`
+//   blocks of a thread-block cluster, and the first block adds the
+//   others' float32 fragments from their shared memory in rank order (a
+//   fixed order: bitwise repeatable, but not one process's sum order).
 // - A ring of up to NS stages on mbarriers. A step is one pass of 32 input
 //   channels of one item, x's passes, then z_rec's. Thread 0 issues a
 //   step's halo tile as one TMA copy (cp.async.bulk.tensor over the NHWC
@@ -70,13 +73,17 @@
 //   measured slower on the H100 although it halves A's shared-memory
 //   reads (PERF.md). bfloat16 taps read the landed stage itself.
 // - The epilogue. K1 stores y from the fragments, element pairs per lane
-//   (32 contiguous bytes a quad of lanes in float32). K2 rec: at an item's
-//   first pass each lane loads its v, z, leak and threshold (4 channels of
-//   one pixel per n8 tile, 16 float32 or 8 bfloat16 bytes) into
-//   registers; the epilogue swaps half of each accumulator fragment with
-//   the neighbouring lane so that each lane holds those 4 channels, and
-//   stores v' and z' as 16 (8) bytes a lane. Where Cout is not a multiple
-//   of 4 or a pointer not aligned, it reads and writes element by element.
+//   (32 contiguous bytes a quad of lanes in float32). K2: at an item's
+//   first pass each lane loads its v and z (4 channels of one pixel per
+//   n8 tile, 16 float32 or 8 bfloat16 bytes) into registers, leak and
+//   threshold in the epilogue; the epilogue swaps half of each
+//   accumulator fragment with the neighbouring lane so that each lane
+//   holds those 4 channels, and stores v' and z' as 16 (8) bytes a lane.
+//   Where Cout is not a multiple of 4 or a pointer not aligned, it reads
+//   and writes element by element. Pixels in an image past B load and
+//   store nothing. A group of 32
+//   needs about 190 registers a thread in bfloat16 too, so that instance
+//   runs one block a SM in either type.
 // - A warp whose pixels lie outside the map (below a map shorter than the
 //   tile, or in an image past B) skips the taps.
 //
@@ -95,8 +102,9 @@
 // operands) into a fresh fragment, in float32 the terms lo*hi, hi*lo,
 // hi*hi in that order, added to the FP32 accumulator on the CUDA cores;
 // the LIF update's expression (fused_lif.cu). So K1's y is bitwise the
-// one-process K1's wherever its plan does not split K, and K2 rec's v' and
-// z' bitwise the one-process cell's channels [r Cout, (r + 1) Cout).
+// one-process K1's, and K2's v' and z' the one-process K2's, wherever the
+// plan does not split K; K2 rec's v' and z' under the model axis are
+// bitwise the one-process cell's channels [r Cout, (r + 1) Cout).
 
 #pragma once
 
@@ -116,13 +124,16 @@ constexpr int MAX_SLICES = 4;    // blocks of a cluster splitting K
 // how a map's halo tile arrives
 enum Halo { kTma = 0, kCopy = 1 };
 
-// A call: K2 rec of one rank's channels (fused_lif.cu's arguments).
+// A call of K2 (fused_lif.cu's arguments; zr null for the feedforward
+// cell) with its plan (ops/conv_plan.py::k2_plan), whose fields are
+// ConvCall's below.
 struct Call {
   const void *x, *w2, *zr, *wr2, *v, *z;
   const float *leak, *thresh;
   void *v_out, *z_out;
   int B, H, W, Cin, Cout, Crec, K;
   bool hard;
+  int tw, imgs, co, slices, ns, resident;
 };
 
 cudaError_t launch_f32(const Call& c, cudaStream_t st);
@@ -600,11 +611,12 @@ struct Quad<bf16> {
 
 // The 4-channel epilogue's lane view: for m16 tile m and n8 tile n, the
 // lane holds pixel 16 m + lane / 4 + 8 (lane % 2) of its warp's 32 and
-// channels 8 n + 4 ((lane % 4) / 2) .. + 3 of the group.
+// channels 8 n + 4 ((lane % 4) / 2) .. + 3 of the group. Leak and
+// threshold are read in the epilogue (a few cached bytes), which keeps a
+// group of 32's float32 state within the registers without spilling.
 template <int CO, class T>
 struct State {
   typename Quad<T>::type v[MT][CO / 8], z[MT][CO / 8];
-  float4 leak[CO / 8], thresh[CO / 8];  // the lane's 4 channels of each n
 };
 
 // the NHWC index of the lane's first element of (m, n), or -1 outside
@@ -622,19 +634,11 @@ __device__ __forceinline__ long long quad_index(const Params& p,
   return pix * p.Cout + co;
 }
 
-// the lane's v, z, leak and threshold of the item, at its first pass
+// the lane's v and z of the item, at its first pass
 template <int CO, class T>
 __device__ __forceinline__ void load_state(const Params& p, const Tile& tl,
                                            State<CO, T>& s) {
   using Q = typename Quad<T>::type;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < CO / 8; ++n) {
-    const int co = tl.co0 + 8 * n + 4 * ((lane & 3) >> 1);
-    if (co >= p.Cout) continue;
-    s.leak[n] = *reinterpret_cast<const float4*>(p.leak + co);
-    s.thresh[n] = *reinterpret_cast<const float4*>(p.thresh + co);
-  }
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -679,7 +683,10 @@ __device__ __forceinline__ void epilogue(const Params& p, const Tile& tl,
         if (i < 0) continue;
         const float cur[4] = {odd ? r0 : a[0], odd ? r1 : a[1],
                               odd ? a[2] : r0, odd ? a[3] : r1};
-        const float4 l = s.leak[n], th = s.thresh[n];
+        const int co = tl.co0 + 8 * n + 4 * ((lane & 3) >> 1);
+        const float4 l = __ldg(reinterpret_cast<const float4*>(p.leak + co));
+        const float4 th =
+            __ldg(reinterpret_cast<const float4*>(p.thresh + co));
         const float ls[4] = {l.x, l.y, l.z, l.w};
         const float ts[4] = {th.x, th.y, th.z, th.w};
         float vv[4], zz[4], vn[4], zn[4];
@@ -784,7 +791,7 @@ __device__ __forceinline__ void run(const Params& p) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&p.map_x))
                    : "memory");
-    if (LIF && p.halo_zr == kTma)
+    if (LIF && p.Crec > 0 && p.halo_zr == kTma)
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&p.map_zr))
                    : "memory");
@@ -858,7 +865,7 @@ __device__ __forceinline__ void run(const Params& p) {
     // a warp whose pixels all lie outside the map (below a map shorter
     // than the tile, or in an image past B) multiplies nothing
     const bool busy = tl.b + first.img < p.B && tl.y0 + first.row < p.H;
-    const bool load = LIF && k == 0 && p.out4;
+    const bool load = LIF && k == 0 && p.out4 && rank == 0;
     if constexpr (F32) {
       unsigned char* work = smem + p.off_work;
       if (w_raw) {
@@ -989,35 +996,6 @@ int layout(Params& p, bool resident, int ns) {
   return off;
 }
 
-// K2 rec's plan of p's shape at CO within `budget` bytes of shared memory:
-// one image a tile, the tile width with the fewest tiles (the wider on a
-// tie) that fits, resident weights before streamed ones, the deepest ring;
-// returns its shared memory, or -1 where nothing fits.
-template <int K, int CO, class T>
-int plan_rec(Params& p, int budget) {
-  constexpr int NS_MAX = sizeof(T) == 4 ? 2 : NS;
-  int widths[3] = {32, 16, 8};
-  auto tiles = [&](int tw) {
-    return ((p.W + tw - 1) / tw) * ((p.H + TILE / tw - 1) / (TILE / tw));
-  };
-  for (int i = 1; i < 3; ++i)  // stable: the wider first on a tie
-    for (int j = i; j > 0 && tiles(widths[j]) < tiles(widths[j - 1]); --j) {
-      const int t = widths[j];
-      widths[j] = widths[j - 1];
-      widths[j - 1] = t;
-    }
-  p.slices = 1;
-  for (int tw : widths) {
-    set_tiles(p, tw, 1, CO);
-    for (bool resident : {true, false})
-      for (int ns = NS_MAX; ns >= 1; --ns) {
-        const int bytes = layout<K, CO, T>(p, resident, ns);
-        if (bytes <= budget) return bytes;
-      }
-  }
-  return -1;
-}
-
 // the map of an NHWC tensor of C elements of T a pixel, boxes of 32
 // channels over a tile's halo of imgs images, under TMA's swizzle of the
 // row's width
@@ -1082,16 +1060,28 @@ inline cudaError_t launch_grid(void (*kernel)(Params), Params& p, int smem,
   return cudaLaunchKernelEx(&cfg, kernel, p);
 }
 
+// K2: two blocks an SM in bfloat16 at groups of 8 and 16; one in float32,
+// whose planes take most of an SM's shared memory anyway, and at groups
+// of 32, whose LIF state (v and z of 4 channels per n8 tile and m16 tile)
+// takes too many registers for two
 template <int K, int CO, bool HARD, class T>
-__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 1 : 2)
+__global__ void __launch_bounds__(NT, sizeof(T) == 2 && CO < 32 ? 2 : 1)
     fused_conv_lif_ring_kernel(const __grid_constant__ Params p) {
   run<K, CO, HARD, T, true>(p);
 }
 
-// K2 rec with Crec != Cout at K and CO, where the plan fits; returns
-// cudaErrorInvalidValue where it does not.
+// Whether a plan's fields are ones the kernels take
+inline bool plan_ok(int tw, int imgs, int slices, int ns) {
+  return (tw == 8 || tw == 16 || tw == 32) &&
+         (imgs == 1 || imgs == 2 || imgs == 4 || imgs == 8) && slices >= 1 &&
+         slices <= MAX_SLICES && ns >= 1 && ns <= NS;
+}
+
+// K2 on the call's plan at K and CO; cudaErrorInvalidValue where the plan
+// is not one the kernel takes or its shared memory does not fit.
 template <int K, int CO, class T>
 cudaError_t launch_co(const Call& c, cudaStream_t st) {
+  if (!plan_ok(c.tw, c.imgs, c.slices, c.ns)) return cudaErrorInvalidValue;
   Params p = {};
   p.x = c.x;
   p.w2 = c.w2;
@@ -1108,21 +1098,30 @@ cudaError_t launch_co(const Call& c, cudaStream_t st) {
   p.W = c.W;
   p.Cin = c.Cin;
   p.Cout = c.Cout;
-  p.Crec = c.Crec;
+  p.Crec = c.zr ? c.Crec : 0;
   p.px = (c.Cin + CCH - 1) / CCH;
-  p.passes = p.px + (c.Crec + CCH - 1) / CCH;
-  int smem = -1;
-  if (sizeof(T) == 2) smem = plan_rec<K, CO, T>(p, HALF_SMEM);
-  if (smem < 0) smem = plan_rec<K, CO, T>(p, MAX_SMEM);
-  if (smem < 0) return cudaErrorInvalidValue;
-  const int sw = (1 << p.tw_shift) + K - 1, sh = p.th + K - 1;
+  p.passes = p.px + (p.Crec + CCH - 1) / CCH;
+  p.slices = c.slices;
+  if (c.slices > p.passes) return cudaErrorInvalidValue;
+  set_tiles(p, c.tw, c.imgs, CO);
+  if (p.th * c.tw < 32) return cudaErrorInvalidValue;  // a warp's 32 pixels
+  const int smem = layout<K, CO, T>(p, c.resident != 0, c.ns);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  const int sw = c.tw + K - 1, sh = p.th + K - 1;
   p.halo_x = encode_halo<T>(&p.map_x, c.x, p, c.Cin, sw, sh) ? kTma : kCopy;
-  p.halo_zr =
-      encode_halo<T>(&p.map_zr, c.zr, p, c.Crec, sw, sh) ? kTma : kCopy;
+  p.halo_zr = p.Crec == 0 ? p.halo_x
+              : encode_halo<T>(&p.map_zr, c.zr, p, p.Crec, sw, sh) ? kTma
+                                                                    : kCopy;
+  // the threads' copies meet the same channels past C at every step (one
+  // segment)
+  p.pads_zero = p.Crec == 0 && p.halo_x == kCopy &&
+                (p.passes == 1 || c.Cin % CCH == 0);
   p.step_x = copy_step<T>(c.x, c.Cin);
-  p.step_zr = copy_step<T>(c.zr, c.Crec);
   p.step_w = copy_step<T>(c.w2, c.Cout);
-  p.step_wr = copy_step<T>(c.wr2, c.Cout);
+  if (p.Crec > 0) {
+    p.step_zr = copy_step<T>(c.zr, p.Crec);
+    p.step_wr = copy_step<T>(c.wr2, c.Cout);
+  }
   const size_t quad = 4 * sizeof(T);
   p.out4 = c.Cout % 4 == 0 && aligned(c.v, quad) && aligned(c.z, quad) &&
            aligned(c.v_out, quad) && aligned(c.z_out, quad) &&
@@ -1132,15 +1131,15 @@ cudaError_t launch_co(const Call& c, cudaStream_t st) {
                      p, smem, st);
 }
 
-// K2 rec with Crec != Cout at K: channel groups of 8 where Cout <= 8, else
-// 16, or 8 where a group of 16 does not fit
+// K2 at K in the plan's channel group (8, 16 or 32)
 template <int K, class T>
 cudaError_t launch_k(const Call& c, cudaStream_t st) {
-  if (c.Cout > 8) {
-    const cudaError_t e = launch_co<K, 16, T>(c, st);
-    if (e != cudaErrorInvalidValue) return e;
+  switch (c.co) {
+    case 8: return launch_co<K, 8, T>(c, st);
+    case 16: return launch_co<K, 16, T>(c, st);
+    case 32: return launch_co<K, 32, T>(c, st);
+    default: return cudaErrorInvalidValue;
   }
-  return launch_co<K, 8, T>(c, st);
 }
 
 template <class T>
@@ -1159,10 +1158,7 @@ cudaError_t launch(const Call& c, cudaStream_t st) {
 template <int K, int CO, class T>
 cudaError_t launch_conv(void (*kernel)(Params), const ConvCall& c,
                         cudaStream_t st) {
-  if ((c.tw != 8 && c.tw != 16 && c.tw != 32) ||
-      (c.imgs != 1 && c.imgs != 2 && c.imgs != 4 && c.imgs != 8) ||
-      c.slices < 1 || c.slices > MAX_SLICES || c.ns < 1 || c.ns > NS)
-    return cudaErrorInvalidValue;
+  if (!plan_ok(c.tw, c.imgs, c.slices, c.ns)) return cudaErrorInvalidValue;
   Params p = {};
   p.x = c.x;
   p.w2 = c.w2;

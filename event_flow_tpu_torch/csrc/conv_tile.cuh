@@ -1,10 +1,12 @@
-// The one-process mainloop of K2 (fused_lif.cu, ff and rec with Crec ==
-// Cout): an implicit-GEMM NHWC convolution on Hopper's tensor cores, for
-// sm_90a, over float32 operands in 3xTF32 (mma.sync m16n8k8) or bfloat16
-// operands on the bf16 tensor cores (mma.sync m16n8k16, fragments from
-// ldmatrix). K1 and K2 rec with Crec != Cout run on the persistent float
-// mainloop of conv_ring.cuh, which keeps this one's sum order (accumulate
-// below) and so its bits; the int8 kernels K1-s8 and K2-s8 on their own
+// The one-process mainloop of K1 and K2 where their plans keep its
+// one-image tile (ops/conv_plan.py: x's or z_rec's pixel rows not whole
+// 16-byte rows, and K1's 1 x 1 heads of 64 input channels or fewer): an
+// implicit-GEMM NHWC convolution on Hopper's tensor cores, for sm_90a,
+// over float32 operands in 3xTF32 (mma.sync m16n8k8) or bfloat16 operands
+// on the bf16 tensor cores (mma.sync m16n8k16, fragments from ldmatrix).
+// Every other K1 and K2 call runs on the persistent float mainloop of
+// conv_ring.cuh, which keeps this one's sum order (accumulate below) and
+// so its bits; the int8 kernels K1-s8 and K2-s8 on their own
 // (conv_s8.cuh). All of them use the copies, ldmatrix and MMAs below.
 //
 // GEMM view of one block: M = an 8 x 32 tile of output pixels (one warp

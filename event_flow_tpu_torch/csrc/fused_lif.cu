@@ -6,19 +6,31 @@
 // applies the LIF update to the accumulator of the im2col strip matmul;
 // on bfloat16 operands it accumulates in float32, does the update in
 // float32 with leak and thresh kept float32, and writes bfloat16 v' and z'
-// (fused_lif_pallas.py:119-141). Here the mainloop is the one-process
-// mainloop of conv_tile.cuh: an implicit GEMM on the tensor cores (3xTF32,
-// or m16n8k16 bf16 MMAs on bfloat16) over halo tiles staged with cp.async.
-// The recurrent cell's current conv(x, w) + conv(z_rec, w_rec) is one
-// accumulator fed by two K segments (the concat trick of
+// (fused_lif_pallas.py:119-141). The call runs on the plan of
+// ops/conv_plan.py::k2_plan, passed in as integers: on the persistent
+// float mainloop of conv_ring.cuh (fused_lif_ring.cu,
+// fused_lif_ring_bf16.cu), an implicit GEMM on the tensor cores (3xTF32,
+// or m16n8k16 bf16 MMAs on bfloat16) over tiles of 256 pixels that span
+// images, each pass's halo arriving by TMA on an mbarrier ring during the
+// previous pass's MMAs, the weights loaded once per channel group, each
+// float32 value split into TF32 hi and lo once, v and z in registers
+// from an item's first pass, v' and z' stored as 16 bytes a lane; or,
+// where x's or z_rec's pixel rows are not whole 16-byte rows, which TMA
+// cannot stage (the U-Net decoders' 130 to 1026 channels,
+// LIFFireNet's 2-channel input), on the one-process mainloop of
+// conv_tile.cuh (fused_conv_lif_kernel below): one block per 8 x 32 tile
+// of one image, each pass staged by cp.async, then multiplied. Both keep
+// one process's sum order, so the route changes no bit; the plan splits K
+// over a cluster only at serving's single-image maps of 512 input
+// channels or more, and a plan the ring refuses raises. The recurrent
+// cell's current conv(x, w) + conv(z_rec, w_rec) is one accumulator fed
+// by two K segments (the concat trick of
 // event_flow_tpu/models/snn_cells.py::_fused_current), so no current
 // tensor is ever written. The recurrent segment reads z_rec with its own
 // channel count Crec: Cout on one process, every channel of the cell
 // where a mesh's model axis splits Cout (JAX's GSPMD gathers z for the
-// recurrent conv there, event_flow_tpu/parallel/mesh.py:45-58); that
-// route, Crec != Cout, runs on the persistent float mainloop of
-// conv_ring.cuh (fused_lif_ring.cu), whose next pass loads by TMA during
-// the current pass's MMAs, and is bitwise the one-process cell's channels.
+// recurrent conv there, event_flow_tpu/parallel/mesh.py:45-58), then
+// bitwise the one-process cell's channels.
 // The LIF epilogue runs on the accumulator in the MMA's fragment layout
 // and writes only v' and z':
 //
@@ -26,14 +38,14 @@
 //   soft reset:  v' = v*l + (1-l)*cur - z*th
 //   z' = (v' - th > 0)          (from the float32 v', before its rounding)
 //
-// What bounds it on the H100: at the training recipe (8 x 128 x 128, 32
-// channels, k = 3) a feedforward cell does 2.4 GFLOP (7.2 in 3xTF32,
-// 4.8 and 14.5 recurrent) and must move about 84 MB (x, v, z in; v', z'
-// out; 101 MB recurrent; half of each in bfloat16), which is bound by
-// bytes at 3.35 TB/s. So each quad of lanes reads and writes 32 (16)
-// contiguous bytes of v, z, v' and z' (element pairs per lane, whole
-// sectors), the halo and weights arrive by cp.async in one pass of all
-// 32 channels, and the arithmetic runs on the tensor cores.
+// What bounds it on the H100: at LIFFireNet's training recipe (8 x 128 x
+// 128, 32 channels, k = 3) a feedforward cell does 2.4 GFLOP (7.2 in
+// 3xTF32, 4.8 and 14.5 recurrent) and must move about 84 MB (x, v, z in;
+// v', z' out; z_rec is z; half of it in bfloat16), which is bound by
+// bytes at 3.35 TB/s; at the spiking U-Net's deep cells (512 channels on
+// 8 x 8 x 8) the operations, on a few hundred pixels, bound it. So v, z,
+// v' and z' move as whole 16-byte sectors, and the arithmetic runs on
+// the tensor cores, fed by tiles that the deep maps fill.
 //
 // K2-s8 (evf_fused_conv_lif_s8): the int8 variant for int8 serving,
 // JAX's XLA cell route under set_conv_quant("int8") (an int8 conv, then
@@ -129,12 +141,15 @@ __global__ void __launch_bounds__(NT, 2) fused_conv_lif_kernel(
       });
 }
 
+// a call and its plan (ops/conv_plan.py::k2_plan; ns 0: the one-image
+// tile)
 template <class T>
 struct Args {
   const T *x, *w2, *zr, *wr2, *v, *z;
   const float *leak, *thresh;
   T *v_out, *z_out;
   int B, H, W, Cin, Cout, Crec;
+  int tw, imgs, co, slices, ns, resident;
 };
 
 template <int K, int CO, bool HARD, bool REC, class T>
@@ -229,22 +244,31 @@ cudaError_t launch(const A& a, bool hard, cudaStream_t st) {
   return launch_co<K, 32>(a, hard, st);
 }
 
-// K2 rec with Crec != Cout (a rank's share of a cell under a mesh's model
-// axis) on conv_ring.cuh's mainloop; K2-s8's recurrent input is always its
-// own Cout channels
+// K2 on conv_ring.cuh's mainloop where its plan has ring stages; K2-s8
+// runs on its own (conv_s8.cuh)
 template <class T>
 ring::Call ring_call(const Args<T>& a, int K, bool hard) {
-  return {a.x,      a.w2,    a.zr,  a.wr2, a.v,    a.z,    a.leak,
-          a.thresh, a.v_out, a.z_out, a.B, a.H,    a.W,    a.Cin,
-          a.Cout,   a.Crec,  K,     hard};
+  return {a.x,     a.w2,    a.zr,   a.wr2, a.v,   a.z,   a.leak, a.thresh,
+          a.v_out, a.z_out, a.B,    a.H,   a.W,   a.Cin, a.Cout, a.Crec,
+          K,       hard,    a.tw,   a.imgs, a.co, a.slices, a.ns, a.resident};
 }
 template <class T>
 bool on_ring(const Args<T>& a) {
-  return a.zr != nullptr && a.Crec != a.Cout;
+  return a.ns > 0;
 }
 template <class T>
 bool on_ring(const ArgsS8<T>&) {
   return false;
+}
+// the one-image tile takes the plan's group only (8 where Cout <= 8, else
+// 32); K2-s8 has no such plan
+template <class T>
+bool tile_group(const Args<T>& a) {
+  return a.co == (a.Cout <= 8 ? 8 : 32);
+}
+template <class T>
+bool tile_group(const ArgsS8<T>&) {
+  return true;
 }
 inline cudaError_t launch_ring(const Args<float>& a, int K, bool hard,
                                cudaStream_t st) {
@@ -266,6 +290,8 @@ int fused_conv_lif(const A& a, int K, int hard_reset, void* stream) {
   cudaError_t e;
   if (on_ring(a)) {
     e = launch_ring(a, K, hard, st);
+  } else if (!tile_group(a)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     switch (K) {
       case 1: e = launch<1>(a, hard, st); break;
@@ -287,15 +313,21 @@ extern "C" {
 // [K*K*Crec, Cout]) when zr is not null], float32. leak and thresh are
 // [Cout], post-squash. Crec is Cout for a recurrent cell on one process;
 // under the model axis of a mesh zr is the spike map of every channel
-// and Cout this process's share. Returns the error of the shared-memory
-// attribute, or cudaGetLastError() after the launch.
+// and Cout this process's share. On the plan of ops/conv_plan.py::k2_plan
+// (tile width tw, imgs images a tile, channel groups of co, slices blocks
+// a cluster, ns ring stages or 0 for the one-image tile, weights resident
+// or not). Returns the error of the launch's setup, or cudaGetLastError()
+// after the launch.
 int evf_fused_conv_lif(const float* x, const float* w2, const float* zr,
                        const float* wr2, const float* v, const float* z,
                        const float* leak, const float* thresh, float* v_out,
                        float* z_out, int B, int H, int W, int Cin, int Cout,
-                       int Crec, int K, int hard_reset, void* stream) {
-  const Args<float> a{x, w2, zr, wr2, v, z, leak, thresh, v_out, z_out,
-                      B, H, W, Cin, Cout, Crec};
+                       int Crec, int K, int hard_reset, int tw, int imgs,
+                       int co, int slices, int ns, int resident,
+                       void* stream) {
+  const Args<float> a{x,     w2,    zr, wr2, v, z,   leak, thresh,
+                      v_out, z_out, B,  H,   W, Cin, Cout, Crec,
+                      tw,    imgs,  co, slices, ns, resident};
   return fused_conv_lif(a, K, hard_reset, stream);
 }
 
@@ -306,9 +338,11 @@ int evf_fused_conv_lif_bf16(const bf16* x, const bf16* w2, const bf16* zr,
                             const float* leak, const float* thresh,
                             bf16* v_out, bf16* z_out, int B, int H, int W,
                             int Cin, int Cout, int Crec, int K,
-                            int hard_reset, void* stream) {
-  const Args<bf16> a{x, w2, zr, wr2, v, z, leak, thresh, v_out, z_out,
-                     B, H, W, Cin, Cout, Crec};
+                            int hard_reset, int tw, int imgs, int co,
+                            int slices, int ns, int resident, void* stream) {
+  const Args<bf16> a{x,     w2,    zr, wr2, v, z,   leak, thresh,
+                     v_out, z_out, B,  H,   W, Cin, Cout, Crec,
+                     tw,    imgs,  co, slices, ns, resident};
   return fused_conv_lif(a, K, hard_reset, stream);
 }
 

@@ -1,7 +1,8 @@
-"""The work plans of the float conv kernels K1 and B2.
+"""The work plans of the float conv kernels K1, K2 and B2.
 
-K1 (``csrc/conv.cu`` on the persistent mainloop of ``csrc/conv_ring.cuh``)
-and B2 (``csrc/conv_dw.cu``) take their plan from here as a few integers;
+K1 (``csrc/conv.cu``) and K2 (``csrc/fused_lif.cu``), both on the
+persistent mainloop of ``csrc/conv_ring.cuh``, and B2
+(``csrc/conv_dw.cu``) take their plan from here as a few integers;
 each kernel derives the same indices from them, and lays out its shared
 memory as :func:`ring_smem` and :func:`b2_smem` do. Everything depends on
 the shape, the element size and the card's SM count, never on timing.
@@ -31,7 +32,7 @@ the shape, the element size and the card's SM count, never on timing.
   takes an SM (float32): the ``slices`` blocks of a thread-block cluster
   take passes ``[q * passes // slices, (q + 1) * passes // slices)`` and
   the first adds the others' float32 sums in rank order, bitwise
-  repeatable but not the parent's order (:attr:`K1Plan.bitwise`). Every
+  repeatable but not the parent's order (:attr:`ConvPlan.bitwise`). Every
   other shape keeps the one-process sum order: training's (a model
   axis's shard then computes its channels bitwise as the whole layer
   does, and an update follows the previous K1's trajectory), a small
@@ -50,6 +51,24 @@ the shape, the element size and the card's SM count, never on timing.
   mainloop (``csrc/conv_tile.cuh``): one block per 8 x 32 tile of one
   image and 32 output channels (8 where Cout <= 8), each pass staged by
   ``cp.async``, then multiplied; same sum order, same bits.
+
+**K2** (:func:`k2_plan`): conv(x) [+ conv(z_rec)], then the LIF update,
+on K1's plan with an item's passes x's, then z_rec's (one process's sum
+order), so v' and z' are bitwise the parent tree's K2 wherever K is not
+split. It differs from K1 in three places:
+
+- **The one-image tile** (:func:`_k2_tile_wins`) where x's or z_rec's
+  pixel rows are not whole 16-byte rows (the U-Net decoders' 130 to 1026
+  channels, LIFFireNet's 2-channel input), and at one process's
+  shallow, large calls (at most 4 passes on 32768 pixels or more, Cout a
+  multiple of 32: LIFFireNet's cells, the U-Net's first encoder in
+  training), where it measured faster; the parent's kernel and bits.
+- **Blocks a SM**: one in float32; in bfloat16 two for groups of 8 and 16
+  (within half an SM's shared memory), one for groups of 32, whose LIF
+  state in registers leaves no room for a second block.
+- **K split** only at serving's single images of 512 input channels or
+  more (1 x 12 x 15 512 -> 512, 1 x 24 x 30 1024 -> 256), never in
+  training.
 
 **B2** (:func:`b2_plan`):
 
@@ -74,8 +93,8 @@ import functools
 from typing import NamedTuple
 
 __all__ = ["RING_TILE", "RING_CCH", "RING_MAX_SMEM", "RING_HALF_SMEM",
-           "RING_MAX_SLICES", "B2_PIX", "K1Plan", "B2Plan", "k1_plan",
-           "b2_plan", "ring_smem", "tile_smem", "b2_smem"]
+           "RING_MAX_SLICES", "B2_PIX", "ConvPlan", "B2Plan", "k1_plan",
+           "k2_plan", "b2_plan", "ring_smem", "tile_smem", "b2_smem"]
 
 RING_TILE = 256           # output pixels per tile: 8 warps x 32 pixels
 RING_CCH = 32             # input channels per pass
@@ -88,6 +107,15 @@ DEEP_PASSES = 8           # passes (256 input channels) of a deep shape
 _NT, _MT = 256, 2         # threads of a block, m16 tiles of a warp
 K1_WIDTHS = (32, 16, 8)
 K1_IMGS = (1, 2, 4, 8)
+# K2's channel groups that run two blocks a SM in bfloat16 (the kernel's
+# launch bounds, csrc/conv_ring.cuh::fused_conv_lif_ring_kernel)
+K2_PAIRED_GROUPS = (16, 8)
+# K2 keeps the one-image tile at one process's shallow, large calls: at
+# most this many passes an item, on at least this many output pixels (128
+# full tiles of 8 x 32), Cout a multiple of the tile's 32 channels
+# (_k2_tile_wins)
+K2_SHALLOW_PASSES = 4
+K2_LARGE_PIXELS = 128 * RING_TILE
 
 B2_PIX = 128              # pixels per tile
 B2_NS = 4                 # staging buffers, at most
@@ -110,7 +138,9 @@ def _wstride(co):
     return 8 if co == 8 else co + 8
 
 
-class K1Plan(NamedTuple):
+class ConvPlan(NamedTuple):
+    """The plan of one K1 or K2 call."""
+
     b: int
     h: int
     w: int
@@ -130,6 +160,7 @@ class K1Plan(NamedTuple):
     ns: int           # ring stages; 0: the one-image tile, no ring
     resident: bool    # the group's weights stay in shared memory
     smem: int         # dynamic shared memory of a block
+    crec: int = 0     # K2: z_rec's channels (0: feedforward, and K1)
 
     @property
     def ring(self):
@@ -167,10 +198,18 @@ class K1Plan(NamedTuple):
         return range(q * self.passes // self.slices,
                      (q + 1) * self.passes // self.slices)
 
+    @property
+    def x_passes(self):
+        """The passes over x; z_rec's follow them."""
+        return _ceil(self.cin, RING_CCH)
+
     def pass_channels(self, p):
-        """Input channels [c0, c1) of pass ``p`` and its padded count."""
+        """Input channels [c0, c1) of pass ``p`` in its segment (x's, or
+        z_rec's after x's) and its padded count."""
+        c, p = (self.cin, p) if p < self.x_passes else (
+            self.crec, p - self.x_passes)
         c0 = p * RING_CCH
-        c1 = min(self.cin, c0 + RING_CCH)
+        c1 = min(c, c0 + RING_CCH)
         return c0, c1, _align(c1 - c0, 8)
 
 
@@ -263,25 +302,17 @@ def _k1_cost(co, esize, units, sms, passes_per_block):
     return _ceil(units, sms) * passes_per_block * (a + b * co // 8)
 
 
-@functools.lru_cache(maxsize=1024)
-def k1_plan(b, h, w, cin, cout, k, esize, sms):
-    """The plan of K1 on x [b, h, w, cin] into ``cout`` channels at kernel
-    size ``k`` for elements of ``esize`` bytes (4 float32, 2 bfloat16) on
-    a card with ``sms`` SMs."""
-    passes = _ceil(cin, RING_CCH)
-    if _tile_wins(cin, k, esize):
-        co = 8 if cout <= 8 else 32
-        return K1Plan(b, h, w, cin, cout, k, 32, 8, 1, _ceil(w, 32),
-                      _ceil(h, 8), b, co, _ceil(cout, co), passes, 1, 0,
-                      False, tile_smem(k, co, esize, cin))
+def _ring_plan(b, h, w, cout, k, esize, sms, passes, levels, deep):
+    """The ring's plan of a conv with ``passes`` passes of 32 input
+    channels an item (K1: x's; K2: x's, then z_rec's): (tw, th, imgs, co,
+    slices, ns, resident, smem), or None where nothing fits. ``levels``
+    are the (shared-memory budget, blocks a SM, channel groups) to try in
+    order: the first tile shape, then the first level, at which a group
+    fits. K may be split only where ``deep``."""
     cos = (8,) if cout <= 8 else (32, 16, 8)
-    # (budget, blocks a SM): first within half an SM where the kernel runs
-    # two blocks a SM (bfloat16, and float32 at k 1: conv.cu's bounds)
-    budgets = ((RING_HALF_SMEM, 2), (RING_MAX_SMEM, 1)) if (
-        esize == 2 or k == 1) else ((RING_MAX_SMEM, 1),)
     for tw, th, imgs in _k1_tiles(b, h, w, k):
         tiles = _tiles(b, h, w, tw, th, imgs)
-        for budget, per_sm in budgets:
+        for budget, per_sm, groups in levels:
             cap = sms * per_sm
             # (cost, co, slices, fit): the least cost, the wider group on
             # a tie; K split only at serving's deep single-image shapes
@@ -290,7 +321,8 @@ def k1_plan(b, h, w, cin, cout, k, esize, sms):
             # held at once), in one round
             best, most = None, 0
             for co in cos:
-                fit = _ring_fit(k, co, esize, tw, imgs, passes, 1, budget)
+                fit = (_ring_fit(k, co, esize, tw, imgs, passes, 1, budget)
+                       if co in groups else None)
                 if fit is None:
                     continue
                 items = tiles * _ceil(cout, co)
@@ -300,8 +332,10 @@ def k1_plan(b, h, w, cin, cout, k, esize, sms):
                     best = (cost, co, 1, fit)
             if best is None:
                 continue
-            if b == 1 and passes >= DEEP_PASSES and most < cap:
+            if deep and most < cap:
                 for co in cos:
+                    if co not in groups:
+                        continue
                     items = tiles * _ceil(cout, co)
                     for slices in range(2, min(RING_MAX_SLICES, passes,
                                                2 * per_sm) + 1):
@@ -319,11 +353,95 @@ def k1_plan(b, h, w, cin, cout, k, esize, sms):
             steps = _ceil(units, cap) * _ceil(passes, slices)
             resident, ns, smem = _ring_fit(k, co, esize, tw, imgs, passes,
                                            slices, budget, steps) or fit
-            return K1Plan(b, h, w, cin, cout, k, tw, th, imgs, _ceil(w, tw),
-                          _ceil(h, th), _ceil(b, imgs), co, _ceil(cout, co),
-                          passes, slices, ns, resident, smem)
-    raise ValueError(f"conv2d_same: no K1 plan fits x {(b, h, w, cin)}, "
-                     f"Cout {cout}, k {k}")
+            return tw, th, imgs, co, slices, ns, resident, smem
+    return None
+
+
+def _plan(b, h, w, cin, crec, cout, k, passes, ring):
+    """The ConvPlan of a ring plan (tw, th, imgs, co, slices, ns,
+    resident, smem)."""
+    tw, th, imgs, co, slices, ns, resident, smem = ring
+    return ConvPlan(b, h, w, cin, cout, k, tw, th, imgs, _ceil(w, tw),
+                    _ceil(h, th), _ceil(b, imgs), co, _ceil(cout, co),
+                    passes, slices, ns, resident, smem, crec)
+
+
+def _tile_plan(b, h, w, cin, crec, cout, k, esize, passes):
+    """The one-image tile's plan: one block per 8 x 32 tile of one image
+    and 32 output channels (8 where Cout <= 8), no ring."""
+    co = 8 if cout <= 8 else 32
+    return _plan(b, h, w, cin, crec, cout, k, passes,
+                 (32, 8, 1, co, 1, 0, False,
+                  tile_smem(k, co, esize, max(cin, crec))))
+
+
+@functools.lru_cache(maxsize=1024)
+def k1_plan(b, h, w, cin, cout, k, esize, sms):
+    """The plan of K1 on x [b, h, w, cin] into ``cout`` channels at kernel
+    size ``k`` for elements of ``esize`` bytes (4 float32, 2 bfloat16) on
+    a card with ``sms`` SMs."""
+    passes = _ceil(cin, RING_CCH)
+    if _tile_wins(cin, k, esize):
+        return _tile_plan(b, h, w, cin, 0, cout, k, esize, passes)
+    groups = (32, 16, 8)
+    # first within half an SM where the kernel runs two blocks a SM
+    # (bfloat16, and float32 at k 1: conv.cu's bounds)
+    levels = ((RING_HALF_SMEM, 2, groups), (RING_MAX_SMEM, 1, groups)) if (
+        esize == 2 or k == 1) else ((RING_MAX_SMEM, 1, groups),)
+    ring = _ring_plan(b, h, w, cout, k, esize, sms, passes, levels,
+                      b == 1 and passes >= DEEP_PASSES)
+    if ring is None:
+        raise ValueError(f"conv2d_same: no K1 plan fits x {(b, h, w, cin)}, "
+                         f"Cout {cout}, k {k}")
+    return _plan(b, h, w, cin, 0, cout, k, passes, ring)
+
+
+def _k2_tile_wins(b, h, w, cin, crec, cout, esize):
+    """Where K2 stays on the one-image tile, the parent's kernel and bits:
+    x's or z_rec's pixel rows not whole 16-byte rows, which TMA cannot
+    stage (the U-Net decoders' 130, 258, 514 and 1026 channels,
+    LIFFireNet's 2-channel input; there K1's ring lost to the tile,
+    :func:`_tile_wins`); and one process's shallow, large calls (Crec 0
+    or Cout; at most 4 passes an item, 32768 output pixels or more, whole
+    groups of 32 output channels: LIFFireNet's cells, the U-Net's
+    64-channel encoder in training), where the tile's blocks fill the
+    card two a SM and overlap one's staging with the other's MMAs, while
+    the ring's items, a few passes each, leave its split, state and
+    epilogue unhidden: there the ring measured 2-16 % slower in float32,
+    and 7-18 % in bfloat16 at LIFFireNet's serving map (H100, PERF.md).
+    The model axis's shares (Crec != Cout) stay on the ring, which fills
+    their groups of 8 or 16 where the tile's 32 would be half empty."""
+    if (cin * esize) % 16 != 0 or (crec * esize) % 16 != 0:
+        return True
+    return (crec in (0, cout) and cout % 32 == 0
+            and _ceil(cin, RING_CCH) + _ceil(crec, RING_CCH)
+            <= K2_SHALLOW_PASSES and b * h * w >= K2_LARGE_PIXELS)
+
+
+@functools.lru_cache(maxsize=1024)
+def k2_plan(b, h, w, cin, crec, cout, k, esize, sms):
+    """The plan of K2 on x [b, h, w, cin] and, where ``crec`` > 0, z_rec
+    [b, h, w, crec] (``crec`` 0: the feedforward cell) into ``cout``
+    channels at kernel size ``k`` for elements of ``esize`` bytes on a
+    card with ``sms`` SMs: K1's tiles, groups, split and ring over x's
+    passes, then z_rec's; one block a SM in float32, and in bfloat16 two
+    (within half an SM's shared memory) but at groups of 32, whose LIF
+    state in registers takes a block an SM (csrc/conv_ring.cuh)."""
+    passes = _ceil(cin, RING_CCH) + _ceil(crec, RING_CCH)
+    if _k2_tile_wins(b, h, w, cin, crec, cout, esize):
+        return _tile_plan(b, h, w, cin, crec, cout, k, esize, passes)
+    groups = (32, 16, 8)
+    levels = ((RING_HALF_SMEM, 2, K2_PAIRED_GROUPS),
+              (RING_MAX_SMEM, 1, groups)) if esize == 2 else (
+        (RING_MAX_SMEM, 1, groups),)
+    # K split only at serving's single-image cells of 512 input channels
+    # or more (1 x 12 x 15 512 -> 512, 1 x 24 x 30 1024 -> 256)
+    ring = _ring_plan(b, h, w, cout, k, esize, sms, passes, levels,
+                      b == 1 and _ceil(cin, RING_CCH) >= 2 * DEEP_PASSES)
+    if ring is None:
+        raise ValueError(f"fused_conv_lif: no K2 plan fits x "
+                         f"{(b, h, w, cin)}, Crec {crec}, Cout {cout}, k {k}")
+    return _plan(b, h, w, cin, crec, cout, k, passes, ring)
 
 
 class B2Plan(NamedTuple):

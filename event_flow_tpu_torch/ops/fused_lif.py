@@ -25,19 +25,25 @@ input ``z_rec`` keeps its conv gradient.
 
 K2 source note: replaces the Pallas kernel ``_fused_fwd``
 (fused_lif_pallas.py:119-195), one strip matmul per row block with the
-LIF update on the accumulator. On the H100 it shares K1's mainloop
-(``csrc/fused_lif.cu`` with ``csrc/conv_tile.cuh``): an implicit GEMM on
-the tensor cores in 3xTF32 over halo tiles staged with ``cp.async``, the
-recurrent segment as a second pass into the same accumulator, the LIF
-epilogue on the MMA fragments, reading v and z and writing only v' and z'
-as 32 contiguous bytes per quad of lanes. At the training recipe (8 x
-128 x 128 x 32) a cell does 2.4 GFLOP (4.8 recurrent) against about
-84 MB (101 MB), so on the tensor cores it is bound by bytes, and keeping
-the current out of device memory pays. Bitwise repeatable. The spiking
-U-Net's cells run 64 to 1026 input channels at 12 x 15 to 180 x 240:
-there the deep calls launch few blocks (32 at 512 channels, 12 x 15, for
-132 SMs), each walking 16 to 32 serial passes of 32 channels, and are
-slower than cuDNN's f32 conv (PERF.md section 6).
+LIF update on the accumulator. On the H100 it runs on the plan of
+:func:`~.conv_plan.k2_plan`: on the persistent float mainloop of
+``csrc/conv_ring.cuh`` that K1 shares (``csrc/fused_lif.cu``,
+``fused_lif_ring.cu``, ``fused_lif_ring_bf16.cu``), an implicit GEMM on
+the tensor cores in 3xTF32 over tiles of 256 pixels that span images
+(four 8 x 8 maps of the spiking U-Net's deep cells a tile), each pass's
+halo arriving by TMA during the previous pass's MMAs, the recurrent
+segment as further passes into the same accumulator, the LIF epilogue
+on the MMA fragments with v and z held in registers,
+reading v and z and writing only v' and z' as 16 bytes a lane; or, where
+x's or z_rec's pixel rows are not 16-byte rows (the decoders' 130 to 1026
+channels, LIFFireNet's 2-channel input), on the one-image tile of
+``csrc/conv_tile.cuh``. Both keep one process's sum order, so v' and z'
+do not depend on the route; only serving's single-image cells of 512
+input channels or more split K over a cluster. At the training recipe
+(8 x 128 x 128 x 32) a cell does 2.4 GFLOP (4.8 recurrent) against about
+84 MB, so it is bound by bytes and keeping the current out of device
+memory pays; at the U-Net's 8 x 8 x 8 x 512 cells by its operations.
+Bitwise repeatable.
 
 int8 serving (ops/quant.py): under ``quantized("int8")`` the public
 cells quantize x (with z_rec, under one scale, in the recurrent cell)
@@ -103,6 +109,7 @@ from . import native
 from .conv import (S8_MAX_TERMS, _check_s8, _check_shapes, _widened,
                    conv2d_same_plain, conv2d_same_s8_plain, conv_same_grads,
                    flatten_kernel, ohwi)
+from .conv_plan import k2_plan
 from .quant import conv_quant, int8_operands
 from .s8_plan import s8_plan, sm_count
 from .spike import get_spike_fn, surrogate
@@ -317,16 +324,19 @@ def _launch(name, x, w, v, z, leak, thresh, k, hard_reset, z_rec=None,
     native.require_cuda(name, x.dtype, *tensors)
     native.require_cuda(name, torch.float32, leak, thresh,
                         device=x.device)
-    v_out = torch.empty_like(v)
-    z_out = torch.empty_like(v)
     entry = getattr(native.library(), native.variant("evf_fused_conv_lif",
                                                      x.dtype))
+    plan = k2_plan(b, h, wd, cin, crec if rec else 0, cout, k,
+                   x.element_size(), sm_count(x.device))
+    v_out = torch.empty_like(v)
+    z_out = torch.empty_like(v)
     zr_ptr, wr_ptr = (t.data_ptr() for t in rec) if rec else (None, None)
     err = entry(
         x.data_ptr(), w2.data_ptr(), zr_ptr, wr_ptr, v.data_ptr(),
         z.data_ptr(), leak.data_ptr(), thresh.data_ptr(), v_out.data_ptr(),
         z_out.data_ptr(), b, h, wd, cin, cout, crec, k,
-        int(bool(hard_reset)), native.stream_handle(x.device))
+        int(bool(hard_reset)), plan.tw, plan.imgs, plan.co, plan.slices,
+        plan.ns, int(plan.resident), native.stream_handle(x.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1
     return v_out, z_out

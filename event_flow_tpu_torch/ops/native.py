@@ -64,7 +64,8 @@ _SIGNATURES = {
     "evf_conv2d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _P],
     "evf_fused_conv_lif": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _P],
     "evf_scatter_add": [_P, _P, _P, _I, _I, _I, _I, _P],
     "evf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _P],

@@ -2,7 +2,7 @@
 under the model axis, its int8 kernels, or whole training updates and a
 serving window.
 
-    python3 kernel_timing.py conv|rec|int8|paths [--root DIR] [--json PATH]
+    python3 kernel_timing.py conv|rec|k2|int8|paths [--root DIR] [--json PATH]
                              [--against JSON] [--library]
 
 Imports ``event_flow_tpu_torch`` from DIR (default: the directory of this
@@ -25,16 +25,24 @@ script's ``chip_smoke.py`` helpers:
   at ``TP_K2_SHAPES`` (LIFFireNet's cells and the spiking U-Net's
   recurrent encoder cells at mp 2 and 4), the inputs of
   ``chip_smoke.py::tp_k2_call``, beside one process's whole cell
-  (Crec == Cout) on the same inputs; the kernel's name is the tree's
-  (``fused_conv_lif_ring_kernel`` where it has ``csrc/conv_ring.cuh``).
+  (Crec == Cout) on the same inputs; K2's time on either of its
+  kernels (``chip_smoke.py::K2_KERNELS``).
+- ``k2``: K2 ff and rec (Crec == Cout: one process's cells, z_rec the
+  state's z), hard reset, in float32 and bfloat16 at ``chip_smoke.py``'s
+  ``K2_SHAPES`` (the spiking U-Net's cells in training and at serving,
+  LIFFireNet's at both), the inputs of ``chip_smoke.py::k2_inputs``; a
+  line says whether this tree's plan (``ops/conv_plan.py::k2_plan``) put
+  the call on the ring or on the one-image tile.
 - ``int8``: K1-s8 and K2-s8 (ff and rec) in both output types at
   ``K1_S8``, ``K2_S8`` and the int8 window's shapes (``UNET_K2``'s cells,
   ``UNET_K1``'s heads), the inputs of ``chip_smoke.py::s8_call``.
 - ``paths``: SpikingRecEVFlowNet's and RecEVFlowNet's training updates
   (``TRAIN_SNNREC``, ``TRAIN_ANNREC``) from their seeded inits, and
-  RecEVFlowNet's serving window (``ECD_RECEVFLOWNET`` over its synthetic
-  twin), float32: ms per update (median of 3 after one) or per window
-  (over 8 windows after a warm-up run), and torch.profiler over one more:
+  RecEVFlowNet's and SpikingRecEVFlowNet's serving windows
+  (``ECD_RECEVFLOWNET``, ``ECD_SPIKING_RECEVFLOWNET`` over their
+  synthetic twins), float32: ms per update (median of 3 after one) or
+  per window (over 8 windows after a warm-up run), and torch.profiler
+  over one more:
   device busy ms and K1's, B2's and K2's device ms
   (``chip_smoke.py::update_parts``).
 
@@ -48,7 +56,8 @@ peak, the larger (``chip_smoke.py::least_ms``). Each call's output is
 kept as a digest of its bytes; ``--against`` another tree's JSON line
 compares them wherever the outputs should be bitwise equal (K1 where this
 tree's plan, ``ops/conv_plan.py::k1_plan``, keeps the one-process sum
-order; every K2 rec and int8 call) and fails where they differ.
+order; K2 where its plan, ``k2_plan``, does; every K2 rec with Crec !=
+Cout and int8 call) and fails where they differ.
 
 Prints the card's name and power limit, a line per call, and one JSON
 line (also written to PATH). To compare two trees, run this script on
@@ -188,16 +197,13 @@ def conv_calls(cs, torch, flush, library):
             yield entry, line
 
 
-def rec_calls(cs, torch, flush, root):
-    ring = os.path.isfile(os.path.join(
-        root, "event_flow_tpu_torch", "csrc", "conv_ring.cuh"))
-    kernel = cs.TP_K2_KERNEL if ring else cs.K2_KERNEL
+def rec_calls(cs, torch, flush):
+    kernel = cs.K2_KERNELS
     inp = cs._Inputs(torch.device("cuda"))
     for label, shape in cs.TP_K2_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             call = cs.tp_k2_call(inp, shape, dtype)
-            whole_w, whole_f, _, _ = _times(cs, call["whole"], cs.K2_KERNEL,
-                                            flush)
+            whole_w, whole_f, _, _ = _times(cs, call["whole"], kernel, flush)
             bound, by = cs.least_ms(call["bytes"], call["flop"],
                                     call["peak"])
             entry, line = _entry(
@@ -207,6 +213,43 @@ def rec_calls(cs, torch, flush, root):
                 whole_warm_ms=whole_w, whole_flushed_ms=whole_f)
             yield entry, line + (f"; whole cell {whole_w:.4f} warm, "
                                  f"{whole_f:.4f} flushed")
+
+
+def k2_calls(cs, torch, flush):
+    from event_flow_tpu_torch.ops.fused_lif import (fused_conv_lif,
+                                                    fused_conv_lif_rec)
+
+    try:
+        from event_flow_tpu_torch.ops.conv_plan import k2_plan
+        from event_flow_tpu_torch.ops.s8_plan import sm_count
+    except ImportError:  # a tree from before K2's plan
+        k2_plan = None
+    for label, (b, h, w, cin, crec, cout) in cs.K2_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wt, wr, v, z, leak, thresh = cs.k2_inputs(
+                (b, h, w, cin, crec, cout), dtype)
+            if crec:
+                run = lambda: fused_conv_lif_rec(x, wt, wr, v, z, z, leak,
+                                                 thresh, 3, True)
+            else:
+                run = lambda: fused_conv_lif(x, wt, v, z, leak, thresh, 3,
+                                             True)
+            plan = None
+            if k2_plan is not None:
+                plan = k2_plan(b, h, w, cin, crec, cout, 3, x.element_size(),
+                               sm_count(x.device))
+            bound, by = cs.least_ms(*cs.k2_work(
+                (b, h, w, cin, crec, cout), x.element_size()),
+                cs.TF32_FLOPS if dtype == torch.float32 else cs.BF16_FLOPS)
+            route = ("" if plan is None else " ring" if plan.ring
+                     else " tile")
+            entry, line = _entry(
+                f"K2 {'rec' if crec else 'ff'} {str(dtype)[6:]} {b}x{h}x{w} "
+                f"{cin}->{cout} {label}",
+                *_times(cs, run, cs.K2_KERNELS, flush), bound, by,
+                digest=_digest(*run()),
+                bitwise=plan is not None and plan.bitwise)
+            yield entry, line + route
 
 
 def int8_calls(cs, torch, flush):
@@ -235,8 +278,9 @@ def int8_calls(cs, torch, flush):
 
 
 def path_calls(cs, torch):
-    from event_flow_tpu_torch.config import (ECD_RECEVFLOWNET, TRAIN_ANNREC,
-                                             TRAIN_SNNREC)
+    from event_flow_tpu_torch.config import (ECD_RECEVFLOWNET,
+                                             ECD_SPIKING_RECEVFLOWNET,
+                                             TRAIN_ANNREC, TRAIN_SNNREC)
     from event_flow_tpu_torch.data.stream import (SyntheticWindowStream,
                                                   synthetic_sequences)
     from event_flow_tpu_torch.eval_flow import evaluate
@@ -268,18 +312,19 @@ def path_calls(cs, torch):
                 lambda: cs._feed_update(trainer, stream))
         yield parts(f"{config['model']['name']} update", "update",
                     1e3 * statistics.median(seconds), events)
-    config = copy.deepcopy(ECD_RECEVFLOWNET)
-    sequences = synthetic_sequences(config, n_windows=4.0)
-    evaluate(config, "cuda", 0, sequences=sequences)
-    gpu = evaluate(config, "cuda", 0, sequences=sequences)
-    _, events = cs.window_events(config, gpu["model"])
-    yield parts(f"{config['model']['name']} serving window", "window",
-                1e3 * gpu["seconds"] / gpu["windows"], events)
+    for config in (ECD_RECEVFLOWNET, ECD_SPIKING_RECEVFLOWNET):
+        config = copy.deepcopy(config)
+        sequences = synthetic_sequences(config, n_windows=4.0)
+        evaluate(config, "cuda", 0, sequences=sequences)
+        gpu = evaluate(config, "cuda", 0, sequences=sequences)
+        _, events = cs.window_events(config, gpu["model"])
+        yield parts(f"{config['model']['name']} serving window", "window",
+                    1e3 * gpu["seconds"] / gpu["windows"], events)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("conv", "rec", "int8", "paths"))
+    ap.add_argument("what", choices=("conv", "rec", "k2", "int8", "paths"))
     ap.add_argument("--root", default=HERE,
                     help="the tree whose event_flow_tpu_torch is timed")
     ap.add_argument("--json", default="")
@@ -312,7 +357,8 @@ def main(argv=None):
     flush = torch.empty(cs.L2_FLUSH_BYTES // 4, device="cuda",
                         dtype=torch.int32)
     calls = {"conv": lambda: conv_calls(cs, torch, flush, args.library),
-             "rec": lambda: rec_calls(cs, torch, flush, root),
+             "rec": lambda: rec_calls(cs, torch, flush),
+             "k2": lambda: k2_calls(cs, torch, flush),
              "int8": lambda: int8_calls(cs, torch, flush),
              "paths": lambda: path_calls(cs, torch)}[args.what]()
     against = {}

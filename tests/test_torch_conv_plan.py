@@ -1,19 +1,27 @@
-"""The work plans of K1 and B2 (ops/conv_plan.py) cover every output
-element exactly once, keep K1's one-process sum order wherever they do
-not split K, fit their shared memory, and give the card's SMs work at the
-recurrent gates' shapes. Pure integer arithmetic on the CPU; the kernels
-derive the same indices from the plan's integers (csrc/conv_ring.cuh,
-csrc/conv_dw.cu) and the card tests hold them to their plain versions."""
+"""The work plans of K1, K2 and B2 (ops/conv_plan.py) cover every output
+element exactly once, keep K1's and K2's one-process sum order wherever
+they do not split K, fit their shared memory, and give the card's SMs
+work at the recurrent gates' shapes. Pure integer arithmetic on the CPU;
+the kernels derive the same indices from the plan's integers
+(csrc/conv_ring.cuh, csrc/conv_dw.cu) and the card tests hold them to
+their plain versions."""
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from event_flow_tpu_torch.ops.conv_plan import (B2_PIX, RING_CCH,
-                                                RING_HALF_SMEM,
+from event_flow_tpu_torch.ops.conv_plan import (B2_PIX, K2_PAIRED_GROUPS,
+                                                RING_CCH, RING_HALF_SMEM,
                                                 RING_MAX_SLICES,
                                                 RING_MAX_SMEM, RING_TILE,
-                                                b2_plan, k1_plan)
+                                                b2_plan, k1_plan, k2_plan,
+                                                ring_smem)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (needs the sys.path insert)
 
 SMS = 132  # the H100's SMs
 ESIZES = [4, 2]  # float32, bfloat16
@@ -264,7 +272,6 @@ def test_shape_log_sees_every_k1_and_b2_launch(monkeypatch):
     "not measured"; the log now hooks the wrapper's call of the plan. Run
     here on fake CUDA tensors through the function the operator holds,
     with a library whose entries return success and a card of 132 SMs."""
-    import chip_smoke
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from event_flow_tpu_torch.ops import conv, native
@@ -291,3 +298,191 @@ def test_shape_log_sees_every_k1_and_b2_launch(monkeypatch):
     assert log.k1 == [(2, 8, 8, 4, 6, 3)]
     assert log.b2 == [(2, 8, 8, 4, 6, 3, 4)]
     assert conv.k1_plan is k1_plan and conv._conv_kernel is held
+
+
+# K2's calls (B, H, W, Cin, Crec, Cout, k), Crec 0 for ff: every shape
+# chip_smoke.py holds K2 at on the card (K2_SHAPES: the spiking U-Net's
+# cells at the training recipe and at serving, UNET_K2, LIFFireNet's at
+# both; K2_EDGES: k 1 and 5, B not a multiple of a tile's images, Cout not
+# a multiple of 4 or of the group, a map smaller than one tile), the
+# model axis's Crec != Cout cells (TP_K2_SHAPES, TP_K2_EDGES: LIFFireNet
+# and the U-Net's encoders at mp 2 and 4, odd maps, channel counts off
+# 16-byte rows), and a 1 x 1 cell of 1026 channels
+K2_SHAPES = list(dict.fromkeys(
+    [(*shape, 3) for _, shape in chip_smoke.K2_SHAPES]
+    + [tuple(e) for e in chip_smoke.K2_EDGES]
+    + [(b, h, w, cin, crec, cout, 3)
+       for _, (b, h, w, cin, cout, crec) in chip_smoke.TP_K2_SHAPES]
+    + [(b, h, w, cin, crec, cout, k)
+       for b, h, w, cin, cout, crec, k in chip_smoke.TP_K2_EDGES]
+    + [(1, 6, 7, 1026, 0, 7, 1)]))
+
+
+def _on_ring(b, h, w, cin, crec, cout, esize):
+    """The route K2's plan takes: the ring, but for the one-image tile
+    where x's or z_rec's pixel rows are not whole 16-byte rows and at one
+    process's shallow, large calls (at most 4 passes, 32768 pixels or
+    more, Cout a multiple of 32)."""
+    shallow = (crec in (0, cout) and cout % 32 == 0
+               and -(-cin // 32) + -(-crec // 32) <= 4 and b * h * w >= 32768)
+    return (cin * esize) % 16 == 0 and (crec * esize) % 16 == 0 and (
+        not shallow)
+
+
+@pytest.mark.parametrize("esize", ESIZES)
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_plan_covers_every_output_once(shape, esize):
+    """K2's items cover every (b, y, x, co) of v' exactly once, tiles of
+    256 pixels with a warp's 32 in one image, and the clusters' walks and a
+    cluster's blocks split the items and the passes without overlap; the
+    ring (_on_ring), else the one-image tile of one block per 8 x 32 tile
+    and 32 output channels (8 where Cout <= 8)."""
+    b, h, w, cin, crec, cout, k = shape
+    plan = k2_plan(b, h, w, cin, crec, cout, k, esize, SMS)
+    assert plan.ring == _on_ring(b, h, w, cin, crec, cout, esize)
+    if not plan.ring:
+        assert (plan.tw, plan.th, plan.imgs, plan.slices) == (32, 8, 1, 1)
+        assert plan.co == (8 if cout <= 8 else 32)
+    assert plan.imgs * plan.th * plan.tw == RING_TILE
+    assert plan.th * plan.tw >= 32 and plan.tw in (8, 16, 32)
+    assert plan.co in ((8,) if cout <= 8 else (8, 16, 32))
+    seen = np.zeros((b, h, w, cout), np.int8)
+    for i in range(plan.items):
+        b0, y0, x0, co0 = plan.item(i)
+        seen[b0:b0 + plan.imgs, y0:y0 + plan.th, x0:x0 + plan.tw,
+             co0:co0 + plan.co] += 1
+    assert (seen == 1).all()
+    for n in sorted({1, 7, SMS, plan.items}):
+        assert _partitions([plan.cluster_items(c, n) for c in range(n)],
+                           plan.items)
+    assert 1 <= plan.slices <= min(RING_MAX_SLICES, plan.passes)
+    assert _partitions([plan.block_passes(q) for q in range(plan.slices)],
+                       plan.passes)
+
+
+@pytest.mark.parametrize("esize", ESIZES)
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_plan_keeps_the_one_process_order(shape, esize):
+    """K2's passes are x's 32-channel passes, then z_rec's, each padded to
+    the MMA's k of 8: the one-process cell's order (x's segment, then the
+    recurrent one, conv_tile.cuh::accumulate); where the plan claims
+    bitwise (no split) one block walks them all in order. K is split only
+    at serving's single images of 512 input channels or more."""
+    b, h, w, cin, crec, cout, k = shape
+    plan = k2_plan(b, h, w, cin, crec, cout, k, esize, SMS)
+    assert plan.crec == crec and plan.x_passes == -(-cin // RING_CCH)
+    assert plan.passes == plan.x_passes + -(-crec // RING_CCH)
+    for seg, c, passes in (("x", cin, range(plan.x_passes)),
+                           ("z_rec", crec, range(plan.x_passes,
+                                                 plan.passes))):
+        at = 0
+        for p in passes:
+            c0, c1, cpad = plan.pass_channels(p)
+            assert (c0, c1) == (at, min(c, at + RING_CCH)), seg
+            assert cpad == (c1 - c0 + 7) // 8 * 8
+            at = c1
+        assert at == c, seg
+    assert plan.bitwise == (plan.slices == 1)
+    assert plan.bitwise or (b == 1 and cin >= 512 and plan.ring), plan
+    if plan.bitwise:
+        assert list(plan.block_passes(0)) == list(range(plan.passes))
+
+
+@pytest.mark.parametrize("esize", ESIZES)
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_plans_fit_shared_memory(shape, esize):
+    """Each K2 plan fits one block's 227 KB, in bfloat16 half an SM's
+    wherever a group that runs two blocks a SM (K2_PAIRED_GROUPS) fits
+    there; a ring of 1 to 2 (float32) or 4 stages; the plan's bytes are
+    ring_smem's at its fields (the kernel's layout, held by hand below)."""
+    b, h, w, cin, crec, cout, k = shape
+    plan = k2_plan(b, h, w, cin, crec, cout, k, esize, SMS)
+    assert plan.smem <= RING_MAX_SMEM
+    if not plan.ring:
+        return
+    assert 1 <= plan.ns <= (2 if esize == 4 else 4)
+    assert plan.smem == ring_smem(k, plan.co, esize, plan.tw, plan.imgs,
+                                  plan.passes, plan.slices, plan.resident,
+                                  plan.ns)
+    if esize == 2 and plan.smem > RING_HALF_SMEM:
+        # one block a SM: no group that pairs fits half an SM's
+        assert all(ring_smem(k, co, esize, plan.tw, plan.imgs, plan.passes,
+                             1, False, 1) > RING_HALF_SMEM
+                   for co in K2_PAIRED_GROUPS if co <= max(8, cout))
+
+
+# K2 plans and their bytes worked out by hand from conv_ring.cuh::layout
+# (as HAND_K1 above): (B, H, W, Cin, Crec, Cout, k, esize), (tw, th, imgs,
+# co, slices, ns, resident), bytes
+HAND_K2 = [
+    # the U-Net's 512 rec cell at 8 x 8 x 8 in f32: 4 images of 8 x 8,
+    # groups of 8, 1 stage streamed: 1024 + 60416 (51200 halo + 9216
+    # weights) + 2 * 60416 (split)
+    ((8, 8, 8, 512, 512, 512, 3, 4), (8, 8, 4, 8, 1, 1, False), 182272),
+    # its bf16: 3 stages of 25600 halo + 4608 weights (5120 rounded)
+    ((8, 8, 8, 512, 512, 512, 3, 2), (8, 8, 4, 8, 1, 3, False), 93184),
+    # the 128 rec cell at 8 x 32 x 32 in f32: 16 x 16, groups of 16, 1
+    # stage streamed: 1024 + 60416 (41984, 18 x 18 x 128 rounded, + 18432
+    # weights) + 2 * 41984 + 2 * 18432 (split)
+    ((8, 32, 32, 128, 128, 128, 3, 4), (16, 16, 1, 16, 1, 1, False),
+     182272),
+    # serving's 64 rec cell in bf16: 8 x 32, groups of 16, 2 stages of
+    # 22528 (34 x 10 x 64 rounded) and the 4 passes' weights resident, 4 *
+    # 9 * 32 * 24 * 2
+    ((1, 90, 120, 64, 64, 64, 3, 2), (8, 32, 1, 16, 1, 2, True), 101376),
+    # serving's 512 ff cell in f32, split over 2 blocks: 1024 + 2 * 51200
+    # (41984 halo + 9216) + 2 * 51200 + 8192 of the cluster's sum
+    ((1, 12, 15, 512, 0, 512, 3, 4), (16, 16, 1, 8, 2, 2, False), 214016),
+]
+
+
+@pytest.mark.parametrize("case", HAND_K2)
+def test_k2_plan_bytes_match_the_kernels_layout(case):
+    (b, h, w, cin, crec, cout, k, esize), fields, smem = case
+    plan = k2_plan(b, h, w, cin, crec, cout, k, esize, SMS)
+    assert (plan.tw, plan.th, plan.imgs, plan.co, plan.slices, plan.ns,
+            plan.resident) == fields
+    assert plan.smem == smem
+
+
+@pytest.mark.parametrize("esize", ESIZES)
+@pytest.mark.parametrize("cin,crec", [(130, 0), (258, 0), (514, 0),
+                                      (1026, 0), (2, 0), (32, 5), (6, 6)])
+def test_k2_keeps_the_tile_off_16_byte_rows(cin, crec, esize):
+    """Where x's or z_rec's pixel rows are not whole 16-byte rows (the
+    U-Net decoders' 130 to 1026 channels, LIFFireNet's 2-channel input)
+    K2 keeps the parent's one-image tile, its kernel and its bits."""
+    plan = k2_plan(8, 32, 32, cin, crec, 32 if crec == 0 else crec, 3,
+                   esize, SMS)
+    assert not plan.ring and plan.ns == 0 and plan.bitwise
+    assert plan.smem <= RING_MAX_SMEM
+
+
+def test_k2_deep_maps_fill_their_tiles():
+    """The U-Net's 8 x 8 cells fill K2's 256-pixel tile with four images;
+    its 12 x 15 serving cells are one tile, split over a cluster."""
+    for esize in ESIZES:
+        for crec in (0, 512):
+            p = k2_plan(8, 8, 8, 512, crec, 512, 3, esize, SMS)
+            assert (p.tw, p.th, p.imgs, p.tiles, p.slices) == (8, 8, 4, 2, 1)
+            s = k2_plan(1, 12, 15, 512, crec, 512, 3, esize, SMS)
+            assert s.tiles == 1 and s.slices > 1
+            assert s.items * s.slices <= SMS * (
+                2 if esize == 2 and s.co in K2_PAIRED_GROUPS else 1)
+
+
+@pytest.mark.parametrize("esize", ESIZES)
+def test_k2_routes_at_the_path_shapes(esize):
+    """The spiking U-Net's cells of 128 channels and more (training and
+    serving) and its serving encoders, and every model-axis share, run on
+    the ring; LIFFireNet's cells and the U-Net's first encoder in training
+    (shallow, large: measured faster there, PERF.md) and the decoders
+    (130-1026 channels) on the one-image tile."""
+    tile = {("U-Net enc0", (8, 64, 64, 64, 64, 64))} | {
+        (label, shape) for label, shape in chip_smoke.K2_SHAPES
+        if label.startswith("LIFFireNet") or shape[3] % 16 == 2}
+    for label, (b, h, w, cin, crec, cout) in chip_smoke.K2_SHAPES:
+        plan = k2_plan(b, h, w, cin, crec, cout, 3, esize, SMS)
+        assert plan.ring == ((label, (b, h, w, cin, crec, cout)) not in tile)
+    for _, (b, h, w, cin, cout, crec) in chip_smoke.TP_K2_SHAPES:
+        assert k2_plan(b, h, w, cin, crec, cout, 3, esize, SMS).ring

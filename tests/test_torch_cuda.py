@@ -26,7 +26,7 @@ from event_flow_tpu_torch.ops import native
 from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel, conv2d_dw_plain,
                                            conv2d_same, conv2d_same_plain,
                                            conv2d_strided)
-from event_flow_tpu_torch.ops.conv_plan import b2_plan, k1_plan
+from event_flow_tpu_torch.ops.conv_plan import b2_plan, k1_plan, k2_plan
 from event_flow_tpu_torch.ops.fused_lif import (fused_conv_lif,
                                                 fused_conv_lif_plain,
                                                 fused_conv_lif_rec,
@@ -2364,5 +2364,169 @@ def test_fused_lif_rec_model_axis_keeps_nans(dev, operand, dtype):
         vk, _ = fused_conv_lif_rec(x, wt, wr, v, z, zr, leak, thresh, 3,
                                    True)
         vp, _ = fused_conv_lif_rec_plain(x, wt, wr, v, z, zr, leak, thresh,
+                                         3, True)
+    _finite_close(vk, vp, mask, ATOL)
+
+
+# K2 (ff, and rec with Crec == Cout) on its plan (ops/conv_plan.py::
+# k2_plan: the persistent float mainloop of csrc/conv_ring.cuh wherever x's
+# and z_rec's pixel rows are whole 16-byte rows, else the one-image tile
+# of csrc/conv_tile.cuh), (B, H, W, Cin, Crec, Cout, k; Crec 0: the
+# feedforward cell): the spiking U-Net's cells at the training recipe
+# (B 8 at 128 x 128) and at serving (every UNET_K2 shape; K split at its
+# 1 x 12 x 15 and 1 x 24 x 30 cells of 512 input channels or more),
+# LIFFireNet's cells at both, and edges: k 1 and 5, B not a multiple of
+# a tile's images (3 and 5 images of 8 x 8), Cout not a multiple of 4 (the
+# element-wise epilogue) or of the channel group, maps smaller than a tile
+K2_PLAN_CASES = [
+    (8, 64, 64, 64, 64, 64, 3), (8, 32, 32, 128, 128, 128, 3),
+    (8, 16, 16, 256, 256, 256, 3), (8, 8, 8, 512, 512, 512, 3),
+    (8, 8, 8, 512, 0, 512, 3), (8, 16, 16, 1024, 0, 256, 3),
+    (8, 32, 32, 514, 0, 128, 3), (8, 64, 64, 258, 0, 64, 3),
+    (8, 128, 128, 130, 0, 32, 3),
+    (1, 90, 120, 64, 64, 64, 3), (1, 45, 60, 128, 128, 128, 3),
+    (1, 23, 30, 256, 256, 256, 3), (1, 12, 15, 512, 512, 512, 3),
+    (1, 12, 15, 512, 0, 512, 3), (1, 24, 30, 1024, 0, 256, 3),
+    (1, 46, 60, 514, 0, 128, 3), (1, 90, 120, 258, 0, 64, 3),
+    (1, 180, 240, 130, 0, 32, 3),
+    (8, 128, 128, 32, 0, 32, 3), (8, 128, 128, 32, 32, 32, 3),
+    (8, 128, 128, 2, 0, 32, 3), (1, 180, 240, 32, 0, 32, 3),
+    (1, 180, 240, 32, 32, 32, 3), (1, 180, 240, 2, 0, 32, 3),
+    (2, 12, 15, 32, 32, 32, 1), (3, 8, 8, 64, 0, 48, 5),
+    (3, 8, 8, 512, 512, 512, 3), (5, 8, 8, 64, 64, 64, 3),
+    (2, 9, 13, 32, 0, 6, 3), (2, 9, 13, 64, 0, 20, 3),
+    (2, 9, 13, 32, 24, 24, 3), (1, 5, 6, 32, 32, 32, 3)]
+
+
+def _k2_case(dev, case, dtype, unaligned=False):
+    """x, w, w_rec (None for ff), v, z, leak, thresh of a K2 case: spikes
+    at 10 % (event counts at 2 channels), snn-init weights, v spread
+    around the threshold; with ``unaligned`` v and z start two elements
+    past a 16-byte boundary."""
+    b, h, w, cin, crec, cout, k = case
+    g = _gen()
+    x = (torch.rand((b, h, w, cin), generator=g) < 0.1).float()
+    if cin == 2:
+        x = torch.poisson(torch.full((b, h, w, cin), 0.3), generator=g)
+    wt = (torch.rand((cout, cin, k, k), generator=g) * 2 - 1) * cin ** -0.5
+    wr = ((torch.rand((cout, crec, k, k), generator=g) * 2 - 1)
+          * crec ** -0.5) if crec else None
+    thresh = 0.8 + 0.1 * torch.randn(cout, generator=g)
+    leak = torch.sigmoid(-4 + 0.1 * torch.randn(cout, generator=g))
+    v = thresh + 0.3 * torch.randn((b, h, w, cout), generator=g)
+    z = (torch.rand((b, h, w, cout), generator=g) < 0.1).float()
+    x, wt, v, z = (t.to(dev, dtype) for t in (x, wt, v, z))
+    if unaligned:
+        v, z = (torch.cat([torch.zeros(2, device=dev, dtype=dtype),
+                           t.flatten()])[2:].view(t.shape) for t in (v, z))
+        assert v.data_ptr() % 16 and z.data_ptr() % 16
+    return (x, wt, None if wr is None else wr.to(dev, dtype), v, z,
+            leak.to(dev), thresh.to(dev))
+
+
+def _k2_run(fn, fn_rec, x, wt, wr, v, z, leak, thresh, k, hard):
+    if wr is None:
+        return fn(x, wt, v, z, leak, thresh, k, hard)
+    return fn_rec(x, wt, wr, v, z, z, leak, thresh, k, hard)
+
+
+def _k2_hold(vk, zk, vp, zp, thresh, dtype):
+    """v' within ATOL of the plain form (bfloat16: one ulp plus ATOL),
+    spikes equal away from the threshold."""
+    if dtype == torch.bfloat16:
+        _bf16_close(vk, vp, ATOL)
+    else:
+        torch.testing.assert_close(vk, vp, atol=ATOL, rtol=0)
+    flips = zk != zp
+    near = ((vp.float() - thresh).abs()
+            < NEAR + 1e-2 * (dtype != torch.float32))
+    assert not (flips & ~near).any()
+    assert float(flips.float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hard", [True, False])
+@pytest.mark.parametrize("case", K2_PLAN_CASES)
+def test_fused_lif_kernel_on_its_plan(dev, case, hard, dtype):
+    """K2 on its plan (the ring wherever x's and z_rec's pixel rows are
+    16-byte rows but at one process's shallow, large calls; K split only
+    at serving's 512-channel single images) against its plain form, one
+    launch a call, twice bitwise equal."""
+    b, h, w, cin, crec, cout, k = case
+    x, wt, wr, v, z, leak, thresh = _k2_case(dev, case, dtype)
+    esize = x.element_size()
+    plan = k2_plan(b, h, w, cin, crec, cout, k, esize,
+                   sm_count(torch.device(dev)))
+    shallow = (crec in (0, cout) and cout % 32 == 0 and b * h * w >= 32768
+               and -(-cin // 32) + -(-crec // 32) <= 4)
+    assert plan.ring == ((cin * esize) % 16 == 0
+                         and (crec * esize) % 16 == 0 and not shallow), plan
+    assert plan.bitwise == (not (b == 1 and cin >= 512 and plan.ring)), plan
+    name = native.variant("fused_conv_lif_rec" if crec else "fused_conv_lif",
+                          dtype)
+    before = native.LAUNCHES[name]
+    with torch.no_grad():
+        vk, zk = _k2_run(fused_conv_lif, fused_conv_lif_rec, x, wt, wr, v, z,
+                         leak, thresh, k, hard)
+        assert native.LAUNCHES[name] == before + 1
+        vp, zp = _k2_run(fused_conv_lif_plain, fused_conv_lif_rec_plain, x,
+                         wt, wr, v, z, leak, thresh, k, hard)
+        _k2_hold(vk, zk, vp, zp, thresh, dtype)
+        assert all(map(torch.equal, (vk, zk), _k2_run(
+            fused_conv_lif, fused_conv_lif_rec, x, wt, wr, v, z, leak,
+            thresh, k, hard))), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 9, 13, 32, 0, 32, 3),
+                                  (3, 8, 8, 64, 64, 64, 3)])
+def test_fused_lif_kernel_unaligned_state(dev, case, dtype):
+    """K2 on the ring with v and z off a 16-byte boundary (the element-wise
+    epilogue) against its plain form, bitwise the aligned call."""
+    x, wt, wr, v, z, leak, thresh = _k2_case(dev, case, dtype, True)
+    _, _, _, va, za, _, _ = _k2_case(dev, case, dtype)
+    with torch.no_grad():
+        vk, zk = _k2_run(fused_conv_lif, fused_conv_lif_rec, x, wt, wr, v, z,
+                         leak, thresh, case[-1], True)
+        vp, zp = _k2_run(fused_conv_lif_plain, fused_conv_lif_rec_plain, x,
+                         wt, wr, v, z, leak, thresh, case[-1], True)
+        va_k, za_k = _k2_run(fused_conv_lif, fused_conv_lif_rec, x, wt, wr,
+                             va, za, leak, thresh, case[-1], True)
+    _k2_hold(vk, zk, vp, zp, thresh, dtype)
+    assert torch.equal(vk, va_k) and torch.equal(zk, za_k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("operand", ["x", "w", "z_rec"])
+def test_fused_lif_kernel_on_the_ring_keeps_nans(dev, operand, dtype):
+    """K2 rec with Crec == Cout on the ring (four 8 x 8 images a tile): a
+    NaN or -NaN in x, the weights or z_rec gives v' NaN in exactly the
+    outputs whose current reads it, and the others stay close to the plain
+    form."""
+    b, h, w, cin, c = 3, 8, 8, 64, 32
+    g = _gen()
+    x = (torch.rand((b, h, w, cin), generator=g) < 0.3).float()
+    zr = (torch.rand((b, h, w, c), generator=g) < 0.2).float()
+    wt = (torch.rand((c, cin, 3, 3), generator=g) * 2 - 1) * cin ** -0.5
+    wr = (torch.rand((c, c, 3, 3), generator=g) * 2 - 1) * c ** -0.5
+    if operand == "x":
+        x = _with_nans(x, [(0, 3, 4, 5), (2, h - 1, 2, cin - 1)])
+    elif operand == "w":
+        wt = _with_nans(wt, [(3, 5, 1, 1), (c - 1, cin - 1, 0, 2)])
+    else:
+        zr = _with_nans(zr, [(0, 4, 6, 7), (1, 0, w - 1, c - 1)])
+    thresh = 0.5 + 0.1 * torch.randn(c, generator=g)
+    leak = torch.sigmoid(torch.randn(c, generator=g))
+    v = thresh + 0.3 * torch.randn((b, h, w, c), generator=g)
+    mask = _window_nans(torch.cat([x, zr], -1).double(),
+                        torch.cat([wt, wr], 1).double(), 3).to(dev)
+    x, zr, wt, wr, v = (t.to(dev, dtype) for t in (x, zr, wt, wr, v))
+    leak, thresh = leak.to(dev), thresh.to(dev)
+    assert k2_plan(b, h, w, cin, c, c, 3, x.element_size(),
+                   sm_count(torch.device(dev))).ring
+    with torch.no_grad():
+        vk, _ = fused_conv_lif_rec(x, wt, wr, v, zr, zr, leak, thresh, 3,
+                                   True)
+        vp, _ = fused_conv_lif_rec_plain(x, wt, wr, v, zr, zr, leak, thresh,
                                          3, True)
     _finite_close(vk, vp, mask, ATOL)
