@@ -1094,6 +1094,119 @@ def kernels_k2(out):
                       for (t, r, sl), n in sorted(routes.items())))
 
 
+# the U-Nets' decoder calls (B, H, W, Cin, Cout): RecEVFlowNet's K1 and the
+# spiking U-Net's K2 feedforward cell at serving and in training
+DECODER_SHAPES = ((1, 46, 60, 514, 128), (1, 90, 120, 258, 64),
+                  (1, 180, 240, 130, 32), (8, 32, 32, 514, 128),
+                  (8, 64, 64, 258, 64), (8, 128, 128, 130, 32))
+
+
+def padded_view(x, fill=float("nan")):
+    """x as the upsampling gives a decoder its input (ops/resize.py): the
+    [..., :C] view of a buffer of whole 16-byte pixel rows, here with
+    ``fill`` in the pad, which no kernel may read."""
+    from event_flow_tpu_torch.ops.native import channel_stride
+
+    c = x.shape[-1]
+    buf = torch.full((*x.shape[:-1], channel_stride(c, x.element_size())),
+                     fill, dtype=x.dtype, device=x.device)
+    view = buf[..., :c]
+    view.copy_(x)
+    return view
+
+
+def kernels_decoders(out):
+    """K1, K2 (feedforward, hard reset) and B2 at DECODER_SHAPES on the
+    padded view with NaN in the pad, in float32 and bfloat16: through
+    ShapeLog, each call's x at the padded stride and its plan's route (the
+    ring but at float32 training's 258 and 130 channels); against the
+    plain forms on the contiguous map (float32 ATOL, bfloat16 one ulp plus
+    ATOL; spikes equal but near the threshold); twice bitwise; bitwise the
+    contiguous map's call (the one-image tile, the parent's route)
+    wherever the plan does not split K, B2 bitwise always; device ms warm,
+    the padded view against the contiguous map."""
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel,
+                                               conv2d_same,
+                                               conv2d_same_plain)
+    from event_flow_tpu_torch.ops.fused_lif import (fused_conv_lif,
+                                                    fused_conv_lif_plain)
+
+    routes = Counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, w, cin, cout in DECODER_SHAPES:
+            t = str(dtype)[6:]
+            x, wt, _, v, z, leak, thresh = k2_inputs(
+                (b, h, w, cin, 0, cout), dtype)
+            # the flow's channels
+            x[..., -2:] = torch.randn(x.shape[:3] + (2,),
+                                      device="cuda").to(dtype)
+            xp = padded_view(x)
+            calls = {
+                "K1": (lambda xi: conv2d_same(xi, wt),
+                       lambda: conv2d_same_plain(x, wt), K1_KERNELS),
+                "K2": (lambda xi: fused_conv_lif(xi, wt, v, z, leak, thresh,
+                                                 3, True),
+                       lambda: fused_conv_lif_plain(x, wt, v, z, leak,
+                                                    thresh, 3, True),
+                       K2_KERNELS)}
+            for kernel, (fn, plain, names) in calls.items():
+                label = (f"[kernels] decoder {kernel} {t} {b}x{h}x{w} "
+                         f"{cin}->{cout}")
+                with ShapeLog() as log:
+                    got = fn(xp)
+                (cs, _, plan), = (log.k1_plans if kernel == "K1"
+                                  else log.k2_plans)
+                if cs != xp.stride(2):
+                    fail(f"{label}: x reached the plan at stride {cs}, not "
+                         f"{xp.stride(2)}")
+                want_ring = dtype == torch.bfloat16 or b == 1 or cin == 514
+                if plan.ring != want_ring:
+                    fail(f"{label}: planned on the "
+                         f"{'ring' if plan.ring else 'tile'}")
+                got = got if isinstance(got, tuple) else (got,)
+                ref = plain()
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                if dtype == torch.float32:
+                    err = float((got[0] - ref[0]).abs().max())
+                    if not err <= ATOL:
+                        fail(f"{label}: max |err| {err} > {ATOL}")
+                else:
+                    err = float(bf16_close(got[0], ref[0], label, ATOL))
+                if kernel == "K2" and dtype == torch.float32:
+                    check_spikes(got[1], ref[1], ref[0], thresh, label)
+                again = fn(xp)
+                again = again if isinstance(again, tuple) else (again,)
+                tile = fn(x)
+                tile = tile if isinstance(tile, tuple) else (tile,)
+                if not all(map(torch.equal, got, again)):
+                    fail(f"{label}: two runs differ")
+                if plan.bitwise and not all(map(torch.equal, got, tile)):
+                    fail(f"{label}: not bitwise the contiguous map's call")
+                _record(out, native.variant(
+                    "conv2d_same" if kernel == "K1" else "fused_conv_lif",
+                    dtype), err)
+                ms_p = device_ms(lambda: fn(xp), names)[0]
+                ms_c = device_ms(lambda: fn(x), names)[0]
+                route = "ring" if plan.ring else "tile"
+                routes[(kernel, t, route, plan.slices)] += 1
+                split = ", K split" if plan.slices > 1 else ""
+                print(f"{label}: {route}{split}, max |err| {err:.3g}; device "
+                      f"{ms_p:.4f} ms warm, contiguous (the tile) "
+                      f"{ms_c:.4f}")
+            if b > 1:
+                g = 1e-3 * torch.randn((b, h, w, cout),
+                                       device="cuda").to(dtype)
+                if not torch.equal(conv2d_dw_kernel(xp, g, 3),
+                                   conv2d_dw_kernel(x, g, 3)):
+                    fail(f"[kernels] decoder B2 {t} {b}x{h}x{w} {cin}: the "
+                         "padded view changes the bits")
+    print("[kernels] decoders on the padded view, calls by (kernel, type, "
+          "route, slices): " + ", ".join(
+              f"{k} {t} {r} x{sl}: {n}"
+              for (k, t, r, sl), n in sorted(routes.items())))
+
+
 def conv2d_library(x, w):
     """cuDNN's conv in one call, K1's yardstick (never used by the port):
     the NHWC x seen as channels-last NCHW; TF32 off."""
@@ -1762,6 +1875,7 @@ def phase_kernels():
     kernels_forward(inp, out)
     kernels_unet(inp, out)
     kernels_k2(out)
+    kernels_decoders(out)
     kernels_dw(inp, out)
     kernels_gru(inp, out)
     kernels_backward(inp, out)
@@ -1859,6 +1973,9 @@ class ShapeLog:
         from event_flow_tpu_torch.ops import conv, fused_lif
 
         self.k1, self.b2, self.b4 = [], [], []
+        # each K1 and K2 launch's x pixel stride, element size and plan,
+        # in launch order
+        self.k1_plans, self.k2_plans = [], []
         self.k1s8, self.k2s8, self.k2rec, self.k2 = [], [], [], []
         self._saved = (conv.k1_plan, conv.conv2d_dw_kernel,
                        fused_lif.fused_lif_bwd_kernel)
@@ -1888,9 +2005,12 @@ class ShapeLog:
 
         # K1 through its wrapper's call of the plan, as the s8 kernels:
         # the operator evflow::conv2d_same holds the wrapper itself
-        def k1_logged(b, h, w, cin, cout, k, esize, sms):
+        def k1_logged(b, h, w, cin, cout, k, esize, sms, cs=0,
+                      aligned=True):
+            plan = k1(b, h, w, cin, cout, k, esize, sms, cs, aligned)
             self.k1.append((b, h, w, cin, cout, k))
-            return k1(b, h, w, cin, cout, k, esize, sms)
+            self.k1_plans.append((cs or cin, esize, plan))
+            return plan
 
         def b2_logged(x, g, k):
             self.b2.append((*x.shape, g.shape[3], k, x.element_size()))
@@ -1900,6 +2020,15 @@ class ShapeLog:
             self.b4.append((*v.shape, str(v.dtype).replace("torch.", "")))
             return b4(v, *args)
 
+        def k2_plan_logged(b, h, w, cin, crec, cout, k, esize, sms, cs=0,
+                           aligned=True):
+            plan = self._k2_plan(b, h, w, cin, crec, cout, k, esize, sms, cs,
+                                 aligned)
+            self.k2_plans.append((cs or cin, esize, plan))
+            return plan
+
+        self._k2_plan = fused_lif.k2_plan
+        fused_lif.k2_plan = k2_plan_logged
         conv.k1_plan, conv.conv2d_dw_kernel = k1_logged, b2_logged
         fused_lif.fused_lif_bwd_kernel = b4_logged
         return self
@@ -1911,6 +2040,7 @@ class ShapeLog:
          fused_lif.fused_lif_bwd_kernel) = self._saved
         conv.s8_plan, fused_lif.s8_plan = self._plans
         fused_lif._launch = self._launch
+        fused_lif.k2_plan = self._k2_plan
 
 
 def s8_by_shape(events, log):
@@ -2148,6 +2278,14 @@ def train_phase(tag, config, expected, precision="float32"):
             f"{key} {ms:.3f}" for key, ms in sorted(
                 parts.items(), key=lambda kv: -kv[1])))
         _print_on_path(tag, on_path_by_shape(events, log))
+        if name.endswith("RecEVFlowNet"):
+            # 3 decoders with an upsampled input a window, each on the
+            # ring but for float32's 258 and 130 channels
+            calls, ring = decoder_routes(tag, log)
+            want = (3 * t, (3 if precision == "bfloat16" else 1) * t)
+            if (calls, ring) != want:
+                fail(f"[{tag}] decoder calls with padded x (all, on the "
+                     f"ring) {(calls, ring)} != {want}")
     else:
         parts = None
         print(f"[{tag}] device busy share: not measured (the profiler saw "
@@ -2418,10 +2556,49 @@ def window_events(config, model, log=None, sequences=None):
     for _ in range(3):
         window()
     if log is not None:
-        log.k1.clear()
-        log.b2.clear()
-        log.k2.clear()
+        for logged in (log.k1, log.b2, log.k2, log.k1_plans, log.k2_plans):
+            logged.clear()
     return _device_events(window)
+
+
+# the U-Nets' decoder inputs at base 32 (models/unet.py::_schedule): the
+# bilinear x2 upsampling of the concat of the 2-channel flow, the previous
+# decoder's output and the skip, 514, 258 and 130 channels
+DECODER_CIN = (514, 258, 130)
+
+
+def decoder_routes(tag, log):
+    """The decoders' K1 and K2 calls in a ShapeLog's run: each x must reach
+    its wrapper as the upsampling's padded view (pixel stride
+    ops/native.py::channel_stride, no copy on the way), so that its plan
+    is the one at that stride (ops/conv_plan.py: the ring but for float32
+    training's 258 and 130 channels). Prints the calls by kernel, shape
+    and route; fails where a decoder's x arrived at another stride.
+    Returns (calls, calls on the ring)."""
+    from event_flow_tpu_torch.ops.native import channel_stride
+
+    seen = {}
+    for kernel, plans in (("K1", log.k1_plans), ("K2", log.k2_plans)):
+        for cs, esize, plan in plans:
+            if plan.cin not in DECODER_CIN or plan.crec or plan.k != 3:
+                continue
+            want = channel_stride(plan.cin, esize)
+            if cs != want:
+                fail(f"[{tag}] a decoder's {kernel} x ({plan.b}x{plan.h}x"
+                     f"{plan.w}x{plan.cin}) arrived at pixel stride {cs}, "
+                     f"not the padded {want}: a copy on the way")
+            key = (kernel, plan.b, plan.h, plan.w, plan.cin, plan.cout,
+                   "ring" if plan.ring else "tile", plan.slices, esize)
+            seen[key] = seen.get(key, 0) + 1
+    for (kernel, b, h, w, cin, cout, route, slices, esize), n in sorted(
+            seen.items()):
+        split = f", K split over {slices}" if slices > 1 else ""
+        print(f"[{tag}] decoder {kernel} {cin}->{cout} @{b}x{h}x{w} "
+              f"({'bf16' if esize == 2 else 'f32'}): {n} calls on the "
+              f"{route}{split}, x at the padded stride")
+    calls = sum(seen.values())
+    ring = sum(n for key, n in seen.items() if key[6] == "ring")
+    return calls, ring
 
 
 def window_parts(tag, wall_us, events, labelled=()):
@@ -2465,7 +2642,12 @@ def window_parts(tag, wall_us, events, labelled=()):
 def _window_breakdown(config, model):
     """One steady window of the U-Net serving path: device ms by part, the
     K2 calls labelled by shape in launch order, and the busy share."""
-    wall_us, events = window_events(config, model)
+    with ShapeLog() as log:
+        wall_us, events = window_events(config, model, log)
+    calls, ring = decoder_routes("unet", log)
+    if calls != 3 or ring != 3:
+        fail(f"[unet] {calls} decoder K2 calls with padded x in a window, "
+             f"{ring} on the ring; expected 3, all on the ring")
     if not events:
         window_parts("unet", wall_us, events)
         return
@@ -2742,6 +2924,12 @@ def serve_phase(tag, config, k1, k2=0, sequences=None, warm_up=True,
             wall_us, events = window_events(config, gpu["model"], log)
         window_parts(tag, wall_us, events)
         _print_on_path(tag, on_path_by_shape(events, log))
+        if name.endswith("RecEVFlowNet"):
+            calls, ring = decoder_routes(tag, log)
+            if calls != 3 or ring != 3:
+                fail(f"[{tag}] {calls} decoder K1 calls with padded x in a "
+                     f"window, {ring} on the ring; expected 3, all on the "
+                     "ring")
     if flips:
         check_forced(tag, logs["cuda"], logs["cpu"])
     else:

@@ -17,8 +17,11 @@
 // written from the MMA fragments as element pairs. The tiles, channel
 // groups, split and ring come from ops/conv_plan.py::k1_plan, which keeps
 // the one-process mainloop's one-image tile (conv2d_same_tile_kernel)
-// where the ring measured slower: maps without 16-byte pixel rows and the
-// shallow 1 x 1 heads.
+// where the ring measured slower: maps whose pixel stride is not a whole
+// 16-byte row, the shallow 1 x 1 heads and float32 calls of many passes
+// whose one-image tiles fill the card. x's pixels may lie Cs >= Cin
+// elements apart: the U-Net decoders' inputs come as views of a buffer
+// padded to whole 16-byte rows (ops/resize.py), which TMA stages.
 //
 // What bounds it on the H100: at the LIFFireNet dx (8 x 128 x 128, 32 ->
 // 32, k 3) a call moves about 34 MB (17 MB in bfloat16) for 2.4 GFLOP
@@ -54,6 +57,8 @@
 // torch operations (ops/quant.py), which move more bytes than the conv
 // (PERF.md).
 
+#include <numeric>
+
 #include "conv_ring.cuh"
 #include "conv_s8.cuh"
 
@@ -74,17 +79,19 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 || K == 1 ? 2 : 1)
 // K1 on the one-process mainloop of conv_tile.cuh (K2's): one block per
 // 8 x 32 tile of one image and CO output channels, each pass staged by
 // cp.async, then multiplied. The plan takes it (ns 0) where the ring
-// loses: maps whose pixel rows are not whole 16-byte rows (the decoders'
-// 130, 258 and 514 channels, the heads' dx from 2), which TMA cannot
-// stage and the ring's thread copies staged more slowly, and the 1 x 1
-// heads of 64 input channels or fewer, one or two passes a tile behind
-// the ring's fixed costs. Same sum order as the ring's, so the same bits.
+// loses: maps whose pixel stride is not a whole 16-byte row (the heads'
+// dx from 2, a decoder input that was not padded), which TMA cannot stage
+// and the ring's thread copies staged more slowly; float32 training's
+// padded decoder maps of 258 and 130 channels, whose tiles fill the card
+// two blocks an SM; and the 1 x 1 heads of 64 input channels or fewer,
+// one or two passes a tile behind the ring's fixed costs. Same sum order
+// as the ring's, so the same bits.
 template <int K, int CO, class T>
 __global__ void __launch_bounds__(NT, 2)
     conv2d_same_tile_kernel(const T* __restrict__ x,
                             const T* __restrict__ w2, T* __restrict__ y,
-                            int H, int W, int Cin, int Cout, int cpad_max,
-                            Steps steps) {
+                            int H, int W, int Cin, int Xs, int Cout,
+                            int cpad_max, Steps steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   int y0, x0;
@@ -92,8 +99,8 @@ __global__ void __launch_bounds__(NT, 2)
   const int b = blockIdx.z;
   const int co0 = blockIdx.y * CO;
   float acc[MT][CO / 8][4] = {};
-  accumulate<K, CO, T>(smem, acc, x, Cin, w2, Cout, b, H, W, y0, x0, co0,
-                       cpad_max, steps.x, steps.w);
+  accumulate<K, CO, T>(smem, acc, x, Cin, Xs, w2, Cout, b, H, W, y0, x0,
+                       co0, cpad_max, steps.x, steps.w);
   for_each_pair<CO>(acc, H, W, Cout, b, y0, x0, co0,
                     [&](size_t i, int co, float a0, float a1) {
                       if (steps.out2) {
@@ -114,11 +121,12 @@ cudaError_t launch_tile(const ring::ConvCall& c, cudaStream_t st) {
   const T* x = static_cast<const T*>(c.x);
   const T* w2 = static_cast<const T*>(c.w2);
   T* y = static_cast<T*>(c.y);
-  const Steps steps{copy_step<T>(x, c.Cin), copy_step<T>(w2, c.Cout), 0, 0,
+  const Steps steps{copy_step<T>(x, std::gcd(c.Cin, c.Cs)),
+                    copy_step<T>(w2, c.Cout), 0, 0,
                     c.Cout % 2 == 0 && aligned(y, 2 * sizeof(T))};
   conv2d_same_tile_kernel<K, CO, T>
       <<<grid_for(c.B, c.H, c.W, c.Cout, CO), NT, smem, st>>>(
-          x, w2, y, c.H, c.W, c.Cin, c.Cout, cpad, steps);
+          x, w2, y, c.H, c.W, c.Cin, c.Cs, c.Cout, cpad, steps);
   return cudaSuccess;
 }
 
@@ -127,6 +135,7 @@ cudaError_t launch_tile(const ring::ConvCall& c, cudaStream_t st) {
 // Cout <= 8, else 32)
 template <int K, class T>
 cudaError_t launch_k1(const ring::ConvCall& c, cudaStream_t st) {
+  if (c.Cs < c.Cin) return cudaErrorInvalidValue;
   if (c.ns == 0)
     return c.co == 8 ? launch_tile<K, 8, T>(c, st)
                      : c.co == 32 ? launch_tile<K, 32, T>(c, st)
@@ -211,26 +220,29 @@ int conv2d_same(int K, int Cout, A... args) {
 extern "C" {
 
 // y [B,H,W,Cout] = conv of x [B,H,W,Cin] with w2 [K*K*Cin, Cout], float32,
-// on the plan of ops/conv_plan.py::k1_plan (tile width tw, imgs images a
-// tile, channel groups of co, slices blocks a cluster, ns ring stages or
-// 0 for the one-image tile, weights resident or not). Returns the error of the launch's setup, or
-// cudaGetLastError() after the launch.
+// x's pixels Cs >= Cin elements apart (its rows and images packed over
+// them: a channel-padded map) and y contiguous, on the plan of
+// ops/conv_plan.py::k1_plan (tile width tw, imgs images a tile, channel
+// groups of co, slices blocks a cluster, ns ring stages or 0 for the
+// one-image tile, weights resident or not). Returns the error of the
+// launch's setup, or cudaGetLastError() after the launch.
 int evf_conv2d_same(const float* x, const float* w2, float* y, int B, int H,
-                    int W, int Cin, int Cout, int K, int tw, int imgs,
-                    int co, int slices, int ns, int resident, void* stream) {
-  const ring::ConvCall c{x,  w2, y,    B,      H,  W,       Cin, Cout,
-                         K,  tw, imgs, co, slices, ns, resident};
+                    int W, int Cin, int Cs, int Cout, int K, int tw,
+                    int imgs, int co, int slices, int ns, int resident,
+                    void* stream) {
+  const ring::ConvCall c{x, w2, y,  B,    H,  W,      Cin, Cs,
+                         Cout, K, tw, imgs, co, slices, ns, resident};
   return conv2d_same_float<float>(c, static_cast<cudaStream_t>(stream));
 }
 
 // The same in bfloat16: x, w2 and y bfloat16, the sum in float32 rounded
 // once to y.
 int evf_conv2d_same_bf16(const bf16* x, const bf16* w2, bf16* y, int B,
-                         int H, int W, int Cin, int Cout, int K, int tw,
-                         int imgs, int co, int slices, int ns, int resident,
-                         void* stream) {
-  const ring::ConvCall c{x,  w2, y,    B,      H,  W,       Cin, Cout,
-                         K,  tw, imgs, co, slices, ns, resident};
+                         int H, int W, int Cin, int Cs, int Cout, int K,
+                         int tw, int imgs, int co, int slices, int ns,
+                         int resident, void* stream) {
+  const ring::ConvCall c{x, w2, y,  B,    H,  W,      Cin, Cs,
+                         Cout, K, tw, imgs, co, slices, ns, resident};
   return conv2d_same_float<bf16>(c, static_cast<cudaStream_t>(stream));
 }
 

@@ -38,9 +38,11 @@
 //   box (channels x w x h x images) as wide as the padded pixel stride
 //   below, so the hardware lays the pixels out at that stride (the
 //   channels past the block are read and never multiplied; the border,
-//   the images past B and the channels past C are zero-filled); where a
-//   map's pixel rows are not whole 16-byte rows (2, 130, 258, 514
-//   channels) or a pointer is not 16-byte aligned, the threads copy it by
+//   the images past B and the channels past C are zero-filled; x's pixels
+//   may lie Cs >= Cin elements apart, as the decoders' padded inputs do,
+//   ops/resize.py); where a map's pixel stride is not a whole 16-byte row
+//   (2 channels, or 130, 258, 514 unpadded) or a pointer is not 16-byte
+//   aligned, the threads copy it by
 //   cp.async (16 bytes where the channel count allows, else 8 or 4, a
 //   synchronous store for an odd bfloat16 count) onto the same barrier.
 //   The ring runs across items, so the next item's first tiles load during
@@ -103,6 +105,7 @@
 // no faster.
 
 #include <algorithm>
+#include <numeric>
 
 #include "conv_s8.cuh"  // occupancy, align_up; conv_tile.cuh's copies, MMAs
 
@@ -173,6 +176,7 @@ struct Geo {
   int stage_bytes;               // bytes of a staging buffer
   int out_alias;                 // the epilogue's tile in a read buffer
   int off_out;                   // else its byte offset
+  int Xs;                        // elements between x's pixels (>= Cin)
 };
 
 // The kernel's parameters: the TMA maps of x (boxes of a whole input
@@ -318,7 +322,7 @@ __device__ __forceinline__ void stage(const Params& p, T* s, uint64_t* bar,
       const bool ok = b < geo.B && gy >= 0 && gy < geo.H && gx >= 0 &&
                       gx < geo.W;
       const T* src = ok ? x + (((size_t)b * geo.H + gy) * geo.W + gx) *
-                                  geo.Cin + it.c0 + ci
+                                  geo.Xs + it.c0 + ci
                         : x;
       copy(s + q * cs + ci, src, ok, step_x);
     }
@@ -776,19 +780,20 @@ int make_geo(Geo& geo, int B, int H, int W, int Cin, int Cout, int tw,
   return smem <= MAX_SMEM ? smem : -1;
 }
 
-// The map of an NHWC tensor of C elements of T a pixel for boxes of `box`
-// elements a pixel over (w, h) pixels of `imgs` images; false where TMA
-// does not take it (rows that are not whole 16-byte rows, an unaligned
-// pointer).
+// The map of an NHWC tensor of C elements of T a pixel, its pixels Cs
+// elements apart, for boxes of `box` elements a pixel over (w, h) pixels
+// of `imgs` images; false where TMA does not take it (a pixel stride that
+// is not a whole 16-byte row, an unaligned pointer).
 template <class T>
 bool encode_box(CUtensorMap* map, const void* base, const Geo& geo, int C,
-                int box, int w, int h) {
+                int Cs, int box, int w, int h) {
   const cuuint64_t dims[4] = {(cuuint64_t)C * sizeof(T), (cuuint64_t)geo.W,
                               (cuuint64_t)geo.H, (cuuint64_t)geo.B};
   const cuuint32_t boxes[4] = {(cuuint32_t)(box * sizeof(T)), (cuuint32_t)w,
                                (cuuint32_t)h, (cuuint32_t)geo.imgs};
-  return (C * sizeof(T)) % 16 == 0 && (box * sizeof(T)) % 16 == 0 &&
-         evf::s8::encode(map, base, 4, dims, boxes, 0);
+  return (Cs * sizeof(T)) % 16 == 0 && (box * sizeof(T)) % 16 == 0 &&
+         evf::s8::encode(map, base, 4, dims, (cuuint64_t)Cs * sizeof(T),
+                         boxes, 0);
 }
 
 // blocks of kernel the card holds at once at `threads` and smem bytes,
@@ -828,7 +833,7 @@ inline cudaError_t block_capacity(const void* kernel, int threads, int smem,
 
 template <int K, int NT, class T>
 int run(const T* x, const T* g, float* part, T* out, int B, int H, int W,
-        int Cin, int Cout, int tw, int imgs, int chunks, int ns,
+        int Cin, int Cs, int Cout, int tw, int imgs, int chunks, int ns,
         cudaStream_t st) {
   constexpr int CB = cblock<K>();
   Params p = {};
@@ -838,19 +843,20 @@ int run(const T* x, const T* g, float* part, T* out, int B, int H, int W,
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   p.x = x;
   p.g = g;
-  geo.vec_x = copy_step<T>(x, Cin);
+  geo.Xs = Cs;
+  geo.vec_x = copy_step<T>(x, std::gcd(Cin, Cs));
   geo.vec_g = copy_step<T>(g, Cout);
   // the halo boxes of a whole block and of the last one where narrower;
   // g's box of the output tile's columns
   const int sw = tw + K - 1, sh = geo.th + K - 1;
   const int last = Cin - (geo.cblocks - 1) * CB;
-  geo.x_tma = encode_box<T>(&p.map_x, x, geo, Cin,
+  geo.x_tma = encode_box<T>(&p.map_x, x, geo, Cin, Cs,
                             halo_stride<T>(std::min(CB, Cin)), sw, sh) &&
               (last == CB || Cin < CB ||
-               encode_box<T>(&p.map_xl, x, geo, Cin, halo_stride<T>(last),
-                             sw, sh));
-  geo.g_tma = encode_box<T>(&p.map_g, g, geo, Cout, evf::wstride<8 * NT>(),
-                            tw, geo.th);
+               encode_box<T>(&p.map_xl, x, geo, Cin, Cs,
+                             halo_stride<T>(last), sw, sh));
+  geo.g_tma = encode_box<T>(&p.map_g, g, geo, Cout, Cout,
+                            evf::wstride<8 * NT>(), tw, geo.th);
   const int threads = 32 * geo.wm * geo.wk;
   // the persistent grid: the items, or as many blocks as the card holds
   auto launch = [&](auto* kernel, void* dst) {
@@ -874,35 +880,35 @@ int run(const T* x, const T* g, float* part, T* out, int B, int H, int W,
 
 template <int K, class T>
 int run_k(const T* x, const T* g, float* part, T* out, int B, int H, int W,
-          int Cin, int Cout, int tw, int imgs, int chunks, int ns,
+          int Cin, int Cs, int Cout, int tw, int imgs, int chunks, int ns,
           cudaStream_t st) {
   if (Cout <= 8)
-    return run<K, 1, T>(x, g, part, out, B, H, W, Cin, Cout, tw, imgs,
+    return run<K, 1, T>(x, g, part, out, B, H, W, Cin, Cs, Cout, tw, imgs,
                         chunks, ns, st);
-  return run<K, 4, T>(x, g, part, out, B, H, W, Cin, Cout, tw, imgs, chunks,
-                      ns, st);
+  return run<K, 4, T>(x, g, part, out, B, H, W, Cin, Cs, Cout, tw, imgs,
+                      chunks, ns, st);
 }
 
-bool valid(int B, int H, int W, int Cin, int Cout) {
-  return B > 0 && H > 0 && W > 0 && Cin > 0 && Cout > 0;
+bool valid(int B, int H, int W, int Cin, int Cs, int Cout) {
+  return B > 0 && H > 0 && W > 0 && Cin > 0 && Cs >= Cin && Cout > 0;
 }
 
 template <class T>
 int conv_dw(const T* x, const T* g, float* part, T* dw, int B, int H, int W,
-            int Cin, int Cout, int K, int tw, int imgs, int chunks, int ns,
-            void* stream) {
-  if (!valid(B, H, W, Cin, Cout))
+            int Cin, int Cs, int Cout, int K, int tw, int imgs, int chunks,
+            int ns, void* stream) {
+  if (!valid(B, H, W, Cin, Cs, Cout))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
     case 1:
-      return run_k<1, T>(x, g, part, dw, B, H, W, Cin, Cout, tw, imgs,
+      return run_k<1, T>(x, g, part, dw, B, H, W, Cin, Cs, Cout, tw, imgs,
                          chunks, ns, st);
     case 3:
-      return run_k<3, T>(x, g, part, dw, B, H, W, Cin, Cout, tw, imgs,
+      return run_k<3, T>(x, g, part, dw, B, H, W, Cin, Cs, Cout, tw, imgs,
                          chunks, ns, st);
     case 5:
-      return run_k<5, T>(x, g, part, dw, B, H, W, Cin, Cout, tw, imgs,
+      return run_k<5, T>(x, g, part, dw, B, H, W, Cin, Cs, Cout, tw, imgs,
                          chunks, ns, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -912,25 +918,26 @@ int conv_dw(const T* x, const T* g, float* part, T* dw, int B, int H, int W,
 
 extern "C" {
 
-// dw [Cout, Cin, K, K] (OIHW) = the weight gradient of x [B,H,W,Cin] and
-// g [B,H,W,Cout], float32, on the plan of ops/conv_plan.py::b2_plan
+// dw [Cout, Cin, K, K] (OIHW) = the weight gradient of x [B,H,W,Cin], its
+// pixels Cs >= Cin elements apart (a channel-padded map), and g
+// [B,H,W,Cout], float32, on the plan of ops/conv_plan.py::b2_plan
 // (pixel tile width tw, imgs images a tile, chunks of the pixel split, ns
 // staging buffers); part is a float32 [chunks, Cout*Cin*K*K] scratch
 // where chunks > 1 (unused at 1). Returns the first CUDA error of the
 // launches, or 0.
 int evf_conv_dw(const float* x, const float* g, float* part, float* dw,
-                int B, int H, int W, int Cin, int Cout, int K, int tw,
-                int imgs, int chunks, int ns, void* stream) {
-  return conv_dw<float>(x, g, part, dw, B, H, W, Cin, Cout, K, tw, imgs,
+                int B, int H, int W, int Cin, int Cs, int Cout, int K,
+                int tw, int imgs, int chunks, int ns, void* stream) {
+  return conv_dw<float>(x, g, part, dw, B, H, W, Cin, Cs, Cout, K, tw, imgs,
                         chunks, ns, stream);
 }
 
 // The same with x, g and dw bfloat16: the sum in float32 rounded once to
 // dw; part stays float32.
 int evf_conv_dw_bf16(const bf16* x, const bf16* g, float* part, bf16* dw,
-                     int B, int H, int W, int Cin, int Cout, int K, int tw,
-                     int imgs, int chunks, int ns, void* stream) {
-  return conv_dw<bf16>(x, g, part, dw, B, H, W, Cin, Cout, K, tw, imgs,
+                     int B, int H, int W, int Cin, int Cs, int Cout, int K,
+                     int tw, int imgs, int chunks, int ns, void* stream) {
+  return conv_dw<bf16>(x, g, part, dw, B, H, W, Cin, Cs, Cout, K, tw, imgs,
                        chunks, ns, stream);
 }
 

@@ -53,10 +53,18 @@
 //   whose origin sits at (-p, -p) of every image, 128-byte float32 or
 //   64-byte bfloat16 pixel rows under TMA's swizzle of that width; the
 //   hardware zero-fills the border, which is each image's padding, the
-//   images past B and the channels past C); where a map's pixel rows are
-//   not whole 16-byte rows (2, 5, 130 channels) or a pointer is not 16-byte
-//   aligned, the threads copy the halo with cp.async into the same layout.
-//   Both complete on the stage's mbarrier.
+//   images past B and the channels past C). x's pixels may lie Cs >= C
+//   elements apart (a map whose channels are padded to whole 16-byte rows:
+//   the U-Net decoders' inputs, ops/resize.py); TMA reads C channels of
+//   each and zero-fills the rest of the box, so the pad is never read.
+//   Where a contiguous map's pixel rows are not whole 16-byte rows (2, 5,
+//   130 channels) or a pointer is not 16-byte aligned, the threads copy
+//   the halo with cp.async into the same layout. Both complete on the
+//   stage's mbarrier. The thread copies take contiguous maps only: a
+//   padded map that TMA cannot stage is refused (the plan puts it on the
+//   one-image tile, whose copies take the stride), since reading a stride
+//   there changed the code the compiler made of the whole loop and cost
+//   the TMA path 5 % at K1's bfloat16 deep maps on the H100 (PERF.md).
 // - Weights once per channel group: the group's rows of every pass stay in
 //   shared memory, reloaded where the group changes; where they do not
 //   fit (the deep cells and gates) each stage carries its pass's rows.
@@ -131,7 +139,7 @@ struct Call {
   const void *x, *w2, *zr, *wr2, *v, *z;
   const float *leak, *thresh;
   void *v_out, *z_out;
-  int B, H, W, Cin, Cout, Crec, K;
+  int B, H, W, Cin, Cs, Cout, Crec, K;  // Cs: x's pixel stride
   bool hard;
   int tw, imgs, co, slices, ns, resident;
 };
@@ -139,13 +147,14 @@ struct Call {
 cudaError_t launch_f32(const Call& c, cudaStream_t st);
 cudaError_t launch_bf16(const Call& c, cudaStream_t st);
 
-// A call of K1 (conv.cu) with its plan (ops/conv_plan.py::k1_plan): tile
-// width tw and images imgs of a tile, channel group co, blocks per cluster
-// slices, ring stages ns, weights resident or streamed.
+// A call of K1 (conv.cu) with its plan (ops/conv_plan.py::k1_plan): x's
+// pixel stride Cs (>= Cin), tile width tw and images imgs of a tile,
+// channel group co, blocks per cluster slices, ring stages ns, weights
+// resident or streamed.
 struct ConvCall {
   const void *x, *w2;
   void* y;
-  int B, H, W, Cin, Cout, K;
+  int B, H, W, Cin, Cs, Cout, K;
   int tw, imgs, co, slices, ns, resident;
 };
 
@@ -996,18 +1005,20 @@ int layout(Params& p, bool resident, int ns) {
   return off;
 }
 
-// the map of an NHWC tensor of C elements of T a pixel, boxes of 32
-// channels over a tile's halo of imgs images, under TMA's swizzle of the
-// row's width
+// the map of an NHWC tensor of C elements of T a pixel, its pixels Cs
+// elements apart, boxes of 32 channels over a tile's halo of imgs images,
+// under TMA's swizzle of the row's width; false where the pixel stride is
+// not a whole 16-byte row (or the pointer not 16-byte aligned)
 template <class T>
 bool encode_halo(CUtensorMap* map, const void* base, const Params& p, int C,
-                 int sw, int sh) {
+                 int Cs, int sw, int sh) {
   const cuuint64_t dims[4] = {(cuuint64_t)C * sizeof(T), (cuuint64_t)p.W,
                               (cuuint64_t)p.H, (cuuint64_t)p.B};
   const cuuint32_t box[4] = {(cuuint32_t)Lay<T>::ROW, (cuuint32_t)sw,
                              (cuuint32_t)sh, (cuuint32_t)p.imgs};
-  return (C * sizeof(T)) % 16 == 0 &&
-         s8::encode(map, base, 4, dims, box, Lay<T>::ROW);
+  return (Cs * sizeof(T)) % 16 == 0 &&
+         s8::encode(map, base, 4, dims, (cuuint64_t)Cs * sizeof(T), box,
+                    Lay<T>::ROW);
 }
 
 // Launch `kernel` on p (planned, laid out at smem bytes): size the
@@ -1102,15 +1113,18 @@ cudaError_t launch_co(const Call& c, cudaStream_t st) {
   p.px = (c.Cin + CCH - 1) / CCH;
   p.passes = p.px + (p.Crec + CCH - 1) / CCH;
   p.slices = c.slices;
-  if (c.slices > p.passes) return cudaErrorInvalidValue;
+  if (c.slices > p.passes || c.Cs < c.Cin) return cudaErrorInvalidValue;
   set_tiles(p, c.tw, c.imgs, CO);
   if (p.th * c.tw < 32) return cudaErrorInvalidValue;  // a warp's 32 pixels
   const int smem = layout<K, CO, T>(p, c.resident != 0, c.ns);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const int sw = c.tw + K - 1, sh = p.th + K - 1;
-  p.halo_x = encode_halo<T>(&p.map_x, c.x, p, c.Cin, sw, sh) ? kTma : kCopy;
-  p.halo_zr = p.Crec == 0 ? p.halo_x
-              : encode_halo<T>(&p.map_zr, c.zr, p, p.Crec, sw, sh) ? kTma
+  p.halo_x =
+      encode_halo<T>(&p.map_x, c.x, p, c.Cin, c.Cs, sw, sh) ? kTma : kCopy;
+  if (p.halo_x == kCopy && c.Cs != c.Cin) return cudaErrorInvalidValue;
+  p.halo_zr =
+      p.Crec == 0 ? p.halo_x
+      : encode_halo<T>(&p.map_zr, c.zr, p, p.Crec, p.Crec, sw, sh) ? kTma
                                                                     : kCopy;
   // the threads' copies meet the same channels past C at every step (one
   // segment)
@@ -1171,13 +1185,15 @@ cudaError_t launch_conv(void (*kernel)(Params), const ConvCall& c,
   p.px = (c.Cin + CCH - 1) / CCH;
   p.passes = p.px;
   p.slices = c.slices;
-  if (c.slices > p.passes) return cudaErrorInvalidValue;
+  if (c.slices > p.passes || c.Cs < c.Cin) return cudaErrorInvalidValue;
   set_tiles(p, c.tw, c.imgs, CO);
   if (p.th * c.tw < 32) return cudaErrorInvalidValue;  // a warp's 32 pixels
   const int smem = layout<K, CO, T>(p, c.resident != 0, c.ns);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const int sw = c.tw + K - 1, sh = p.th + K - 1;
-  p.halo_x = encode_halo<T>(&p.map_x, c.x, p, c.Cin, sw, sh) ? kTma : kCopy;
+  p.halo_x =
+      encode_halo<T>(&p.map_x, c.x, p, c.Cin, c.Cs, sw, sh) ? kTma : kCopy;
+  if (p.halo_x == kCopy && c.Cs != c.Cin) return cudaErrorInvalidValue;
   p.halo_zr = p.halo_x;
   // the threads' copies meet the same channels past C at every step
   p.pads_zero = p.halo_x == kCopy && (p.passes == 1 || c.Cin % CCH == 0);

@@ -834,16 +834,19 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A map of a byte tensor of `rank` dimensions (innermost first) with
-// `box`, under the swizzle of `swz_bytes` (0: none); false where the
-// encoder refuses it.
+// A map of a byte tensor of `rank` dimensions (innermost first) whose
+// rows of dims[0] bytes lie `pitch` bytes apart (pitch >= dims[0]: an
+// NHWC map's pixel stride, wider than its channels' bytes where the
+// channels are padded; the boxes zero-fill past dims[0]), the outer
+// dimensions packed over the rows, with `box`, under the swizzle of
+// `swz_bytes` (0: none); false where the encoder refuses it.
 inline bool encode(CUtensorMap* map, const void* base, int rank,
-                   const cuuint64_t* dims, const cuuint32_t* box,
-                   int swz_bytes) {
+                   const cuuint64_t* dims, cuuint64_t pitch,
+                   const cuuint32_t* box, int swz_bytes) {
   const EncodeTiled fn = encoder();
-  if (!fn || !aligned(base, 16)) return false;
+  if (!fn || !aligned(base, 16) || pitch < dims[0]) return false;
   cuuint64_t strides[3];
-  cuuint64_t s = dims[0];
+  cuuint64_t s = pitch;
   for (int i = 0; i < rank - 1; ++i) {
     strides[i] = s;
     if (s % 16) return false;
@@ -869,7 +872,7 @@ inline bool encode_nhwc(CUtensorMap* map, const void* base, const Params& p,
                               (cuuint64_t)p.H, (cuuint64_t)p.B};
   const cuuint32_t box[4] = {(cuuint32_t)bx, (cuuint32_t)tw, (cuuint32_t)th,
                              1};
-  return encode(map, base, 4, dims, box, swz);
+  return encode(map, base, 4, dims, (cuuint64_t)cbytes, box, swz);
 }
 
 // Lay out the dynamic shared memory of p's plan with nvz state buffers

@@ -1,6 +1,7 @@
 // The one-process mainloop of K1 and K2 where their plans keep its
-// one-image tile (ops/conv_plan.py: x's or z_rec's pixel rows not whole
-// 16-byte rows, and K1's 1 x 1 heads of 64 input channels or fewer): an
+// one-image tile (ops/conv_plan.py: x's or z_rec's pixel stride not a
+// whole 16-byte row, float32 calls of many passes whose tiles fill the
+// card, and K1's 1 x 1 heads of 64 input channels or fewer): an
 // implicit-GEMM NHWC convolution on Hopper's tensor cores, for sm_90a,
 // over float32 operands in 3xTF32 (mma.sync m16n8k8) or bfloat16 operands
 // on the bf16 tensor cores (mma.sync m16n8k16, fragments from ldmatrix).
@@ -315,13 +316,15 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
       : "r"(smem_addr(p)));
 }
 
-// Copy the halo tile of channels [c0, c0 + cpad) of src and the matching
-// weight rows into shared memory, zero outside the image and past C and
-// Cout; returns when the whole block's copies have landed.
+// Copy the halo tile of channels [c0, c0 + cpad) of src (pixels ps >= C
+// elements apart) and the matching weight rows into shared memory, zero
+// outside the image and past C and Cout; returns when the whole block's
+// copies have landed.
 template <int K, int CO, class T>
 __device__ __forceinline__ void stage(T* s_in, T* s_w,
                                       const T* __restrict__ src, int C,
-                                      const T* __restrict__ w2, int Cout,
+                                      int ps, const T* __restrict__ w2,
+                                      int Cout,
                                       int b, int H, int W, int y0, int x0,
                                       int co0, int c0, int cpad, int step_x,
                                       int step_w) {
@@ -340,7 +343,7 @@ __device__ __forceinline__ void stage(T* s_in, T* s_w,
     const int gx = x0 + p % SW - P;
     const int c = c0 + ci;
     const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < C;
-    const T* g = ok ? src + (((size_t)b * H + gy) * W + gx) * C + c : src;
+    const T* g = ok ? src + (((size_t)b * H + gy) * W + gx) * ps + c : src;
     copy(s_in + p * cs + ci, g, ok, step_x);
   }
   // weights: rows (tap, ci) of the pass, CO columns from co0
@@ -425,15 +428,16 @@ __device__ __forceinline__ void taps_bf16(float (&acc)[MT][CO / 8][4],
   }
 }
 
-// acc += the conv of src [B,H,W,C] with w2 [K*K*C, Cout] ((dy, dx, c) row
-// order) over this block's tile, output channels co0 .. co0 + CO. smem
-// holds passes of up to cpad_max channels. Every thread must call it.
+// acc += the conv of src [B,H,W,C] (pixels ps >= C elements apart) with
+// w2 [K*K*C, Cout] ((dy, dx, c) row order) over this block's tile, output
+// channels co0 .. co0 + CO. smem holds passes of up to cpad_max channels.
+// Every thread must call it.
 // acc[m][n] is the m16n8 fragment of output pixels x0 + 16m + (0..15) of
 // row y0 + warp, channels co0 + 8n + (0..7).
 template <int K, int CO, class T>
 __device__ __forceinline__ void accumulate(
     T* smem, float (&acc)[MT][CO / 8][4], const T* __restrict__ src, int C,
-    const T* __restrict__ w2, int Cout, int b, int H, int W, int y0, int x0,
+    int ps, const T* __restrict__ w2, int Cout, int b, int H, int W, int y0, int x0,
     int co0, int cpad_max, int step_x, int step_w) {
   constexpr int SW = TW + K - 1;
   constexpr int WS = wstride<CO>();
@@ -443,8 +447,8 @@ __device__ __forceinline__ void accumulate(
     const int cpad = pass_pad(C, c0);
     const int cs = halo_stride<T>(cpad);
     __syncthreads();  // the previous pass has finished reading the tiles
-    stage<K, CO, T>(s_in, s_w, src, C, w2, Cout, b, H, W, y0, x0, co0, c0,
-                    cpad, step_x, step_w);
+    stage<K, CO, T>(s_in, s_w, src, C, ps, w2, Cout, b, H, W, y0, x0, co0,
+                    c0, cpad, step_x, step_w);
     if constexpr (sizeof(T) == 2) {
       taps_bf16<K, CO>(acc, s_in, s_w, cpad, cs);
     } else {

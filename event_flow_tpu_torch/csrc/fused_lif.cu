@@ -15,11 +15,15 @@
 // previous pass's MMAs, the weights loaded once per channel group, each
 // float32 value split into TF32 hi and lo once, v and z in registers
 // from an item's first pass, v' and z' stored as 16 bytes a lane; or,
-// where x's or z_rec's pixel rows are not whole 16-byte rows, which TMA
-// cannot stage (the U-Net decoders' 130 to 1026 channels,
-// LIFFireNet's 2-channel input), on the one-process mainloop of
-// conv_tile.cuh (fused_conv_lif_kernel below): one block per 8 x 32 tile
-// of one image, each pass staged by cp.async, then multiplied. Both keep
+// where x's or z_rec's pixel stride is not a whole 16-byte row, which TMA
+// cannot stage (LIFFireNet's 2-channel input, a decoder input that was
+// not padded), and at calls where the tile measured faster (one
+// process's shallow, large cells; float32 training's padded decoder maps
+// of 258 and 130 channels), on the one-process mainloop of conv_tile.cuh
+// (fused_conv_lif_kernel below): one block per 8 x 32 tile of one image,
+// each pass staged by cp.async, then multiplied. x's pixels may lie Cs >=
+// Cin elements apart (the decoders' inputs, views of a buffer padded to
+// whole 16-byte rows by ops/resize.py, on the ring by TMA). Both keep
 // one process's sum order, so the route changes no bit; the plan splits K
 // over a cluster only at serving's single-image maps of 512 input
 // channels or more, and a plan the ring refuses raises. The recurrent
@@ -79,6 +83,8 @@
 // and torch's bfloat16 operations do; v, z, v' and z' are bfloat16, so
 // the state moves half the bytes. v' and z' are bitwise the plain form's.
 
+#include <numeric>
+
 #include "conv_ring.cuh"
 #include "conv_s8.cuh"
 
@@ -93,7 +99,7 @@ __global__ void __launch_bounds__(NT, 2) fused_conv_lif_kernel(
     const T* __restrict__ v, const T* __restrict__ z,
     const float* __restrict__ leak, const float* __restrict__ thresh,
     T* __restrict__ v_out, T* __restrict__ z_out, int H, int W, int Cin,
-    int Cout, int Crec, int cpad_max, Steps steps) {
+    int Xs, int Cout, int Crec, int cpad_max, Steps steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   int y0, x0;
@@ -101,11 +107,11 @@ __global__ void __launch_bounds__(NT, 2) fused_conv_lif_kernel(
   const int b = blockIdx.z;
   const int co0 = blockIdx.y * CO;
   float acc[MT][CO / 8][4] = {};
-  accumulate<K, CO, T>(smem, acc, x, Cin, w2, Cout, b, H, W, y0, x0, co0,
-                       cpad_max, steps.x, steps.w);
+  accumulate<K, CO, T>(smem, acc, x, Cin, Xs, w2, Cout, b, H, W, y0, x0,
+                       co0, cpad_max, steps.x, steps.w);
   if constexpr (REC)
-    accumulate<K, CO, T>(smem, acc, zr, Crec, wr2, Cout, b, H, W, y0, x0,
-                         co0, cpad_max, steps.r, steps.wr);
+    accumulate<K, CO, T>(smem, acc, zr, Crec, Crec, wr2, Cout, b, H, W, y0,
+                         x0, co0, cpad_max, steps.r, steps.wr);
   // same expression order as the JAX cells
   auto lif = [](float vv, float zz, float l, float th, float cur, float& vn,
                 float& zn) {
@@ -141,19 +147,20 @@ __global__ void __launch_bounds__(NT, 2) fused_conv_lif_kernel(
       });
 }
 
-// a call and its plan (ops/conv_plan.py::k2_plan; ns 0: the one-image
-// tile)
+// a call (x's pixels Cs >= Cin elements apart) and its plan
+// (ops/conv_plan.py::k2_plan; ns 0: the one-image tile)
 template <class T>
 struct Args {
   const T *x, *w2, *zr, *wr2, *v, *z;
   const float *leak, *thresh;
   T *v_out, *z_out;
-  int B, H, W, Cin, Cout, Crec;
+  int B, H, W, Cin, Cs, Cout, Crec;
   int tw, imgs, co, slices, ns, resident;
 };
 
 template <int K, int CO, bool HARD, bool REC, class T>
 cudaError_t launch_inst(const Args<T>& a, cudaStream_t st) {
+  if (a.Cs < a.Cin) return cudaErrorInvalidValue;
   auto kernel = fused_conv_lif_kernel<K, CO, HARD, REC, T>;
   const cudaError_t e = allow_smem(kernel, smem_bytes<K, CO, T>(CCH));
   if (e != cudaSuccess) return e;
@@ -164,14 +171,14 @@ cudaError_t launch_inst(const Args<T>& a, cudaStream_t st) {
                     aligned(a.z, pair) && aligned(a.leak, 8) &&
                     aligned(a.thresh, 8) && aligned(a.v_out, pair) &&
                     aligned(a.z_out, pair);
-  const Steps steps{copy_step<T>(a.x, a.Cin),
+  const Steps steps{copy_step<T>(a.x, std::gcd(a.Cin, a.Cs)),
                     copy_step<T>(a.w2, a.Cout),
                     REC ? copy_step<T>(a.zr, a.Crec) : 0,
                     REC ? copy_step<T>(a.wr2, a.Cout) : 0, out2};
   kernel<<<grid_for(a.B, a.H, a.W, a.Cout, CO), NT,
            smem_bytes<K, CO, T>(cpad), st>>>(
       a.x, a.w2, a.zr, a.wr2, a.v, a.z, a.leak, a.thresh, a.v_out, a.z_out,
-      a.H, a.W, a.Cin, a.Cout, a.Crec, cpad, steps);
+      a.H, a.W, a.Cin, a.Cs, a.Cout, a.Crec, cpad, steps);
   return cudaSuccess;
 }
 
@@ -248,9 +255,11 @@ cudaError_t launch(const A& a, bool hard, cudaStream_t st) {
 // runs on its own (conv_s8.cuh)
 template <class T>
 ring::Call ring_call(const Args<T>& a, int K, bool hard) {
-  return {a.x,     a.w2,    a.zr,   a.wr2, a.v,   a.z,   a.leak, a.thresh,
-          a.v_out, a.z_out, a.B,    a.H,   a.W,   a.Cin, a.Cout, a.Crec,
-          K,       hard,    a.tw,   a.imgs, a.co, a.slices, a.ns, a.resident};
+  return {a.x,     a.w2,    a.zr,    a.wr2,   a.v,    a.z,
+          a.leak,  a.thresh, a.v_out, a.z_out, a.B,    a.H,
+          a.W,     a.Cin,   a.Cs,    a.Cout,  a.Crec, K,
+          hard,    a.tw,    a.imgs,  a.co,    a.slices, a.ns,
+          a.resident};
 }
 template <class T>
 bool on_ring(const Args<T>& a) {
@@ -310,24 +319,25 @@ extern "C" {
 
 // (v_out, z_out) [B,H,W,Cout] = LIF update of (v, z) driven by
 // conv(x [B,H,W,Cin], w2 [K*K*Cin, Cout]) [+ conv(zr [B,H,W,Crec], wr2
-// [K*K*Crec, Cout]) when zr is not null], float32. leak and thresh are
-// [Cout], post-squash. Crec is Cout for a recurrent cell on one process;
-// under the model axis of a mesh zr is the spike map of every channel
-// and Cout this process's share. On the plan of ops/conv_plan.py::k2_plan
-// (tile width tw, imgs images a tile, channel groups of co, slices blocks
-// a cluster, ns ring stages or 0 for the one-image tile, weights resident
-// or not). Returns the error of the launch's setup, or cudaGetLastError()
-// after the launch.
+// [K*K*Crec, Cout]) when zr is not null], float32; x's pixels Cs >= Cin
+// elements apart (a channel-padded map), the others contiguous. leak and
+// thresh are [Cout], post-squash. Crec is Cout for a recurrent cell on one
+// process; under the model axis of a mesh zr is the spike map of every
+// channel and Cout this process's share. On the plan of
+// ops/conv_plan.py::k2_plan (tile width tw, imgs images a tile, channel
+// groups of co, slices blocks a cluster, ns ring stages or 0 for the
+// one-image tile, weights resident or not). Returns the error of the
+// launch's setup, or cudaGetLastError() after the launch.
 int evf_fused_conv_lif(const float* x, const float* w2, const float* zr,
                        const float* wr2, const float* v, const float* z,
                        const float* leak, const float* thresh, float* v_out,
-                       float* z_out, int B, int H, int W, int Cin, int Cout,
-                       int Crec, int K, int hard_reset, int tw, int imgs,
-                       int co, int slices, int ns, int resident,
+                       float* z_out, int B, int H, int W, int Cin, int Cs,
+                       int Cout, int Crec, int K, int hard_reset, int tw,
+                       int imgs, int co, int slices, int ns, int resident,
                        void* stream) {
-  const Args<float> a{x,     w2,    zr, wr2, v, z,   leak, thresh,
-                      v_out, z_out, B,  H,   W, Cin, Cout, Crec,
-                      tw,    imgs,  co, slices, ns, resident};
+  const Args<float> a{x,     w2,    zr, wr2, v,  z,    leak,   thresh,
+                      v_out, z_out, B,  H,   W,  Cin,  Cs,     Cout,
+                      Crec,  tw,    imgs, co, slices, ns, resident};
   return fused_conv_lif(a, K, hard_reset, stream);
 }
 
@@ -337,12 +347,12 @@ int evf_fused_conv_lif_bf16(const bf16* x, const bf16* w2, const bf16* zr,
                             const bf16* wr2, const bf16* v, const bf16* z,
                             const float* leak, const float* thresh,
                             bf16* v_out, bf16* z_out, int B, int H, int W,
-                            int Cin, int Cout, int Crec, int K,
+                            int Cin, int Cs, int Cout, int Crec, int K,
                             int hard_reset, int tw, int imgs, int co,
                             int slices, int ns, int resident, void* stream) {
-  const Args<bf16> a{x,     w2,    zr, wr2, v, z,   leak, thresh,
-                     v_out, z_out, B,  H,   W, Cin, Cout, Crec,
-                     tw,    imgs,  co, slices, ns, resident};
+  const Args<bf16> a{x,     w2,    zr, wr2, v,  z,    leak,   thresh,
+                     v_out, z_out, B,  H,   W,  Cin,  Cs,     Cout,
+                     Crec,  tw,    imgs, co, slices, ns, resident};
   return fused_conv_lif(a, K, hard_reset, stream);
 }
 

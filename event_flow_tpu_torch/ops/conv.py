@@ -71,10 +71,15 @@ serving's deep single-image maps (256+ input channels, 12 x 15) whose
 items no group makes fill the SMs. The plan is
 :func:`~.conv_plan.k1_plan`'s; it keeps the one-process mainloop's
 one-image tile (``csrc/conv_tile.cuh``, one block an 8 x 32 tile, each
-pass staged, then multiplied) where that measured faster: maps without
-16-byte pixel rows, which TMA cannot stage (the decoders' 130, 258 and
-514 channels, the heads' dx from 2), and the 1 x 1 heads of up to 64
-input channels. It runs the 1x1 prediction heads (32 -> 2;
+pass staged, then multiplied) where that measured faster: maps whose
+pixel stride is not a whole 16-byte row, which TMA cannot stage (the
+heads' dx from 2), the 1 x 1 heads of up to 64 input channels, and
+float32 calls of many passes whose tiles fill the card (training's
+decoders of 258 and 130 channels). x may be a channel-padded view: the
+decoders' inputs (130, 258 and 514 channels) come from the upsampling
+(ops/resize.py) as views of buffers of whole 16-byte pixel rows, which
+K1 and B2 read in place (:func:`~.native.require_dense_channels`) and
+TMA stages. It runs the 1x1 prediction heads (32 -> 2;
 the U-Net's 256, 128, 64 and 32 -> 2), every stride-1 conv of
 RecEVFlowNet (the ConvGRU gates up to 1024 -> 1024 on 8 x 8 x 8, 9.66
 GFLOP: bound by operations) and, in training, every dx (32 -> 32 at k =
@@ -92,7 +97,7 @@ output channels, K = pixels, no im2col matrix; pixel tiles of 128 that
 span images (two 8 x 8 images a tile); a persistent grid whose blocks
 walk items (an output tile of up to 288 x 32 over a chunk of pixel
 tiles) through one ring of staging buffers on mbarriers, fed by TMA
-(``cp.async`` where x's pixel rows are not whole 16-byte rows), so the
+(``cp.async`` where x's pixel stride is not a whole 16-byte row), so the
 next item's tiles load during this item's MMAs and epilogue; a tile whose x is
 all TF32 values (spikes, event counts) skips the product of x's zero lo
 part. The pixels are split over chunks only as far as the card needs to
@@ -335,20 +340,21 @@ def conv2d_dw_plain(x, g, k):
 def _conv_kernel(x, w):
     """Launch K1, its float32 or bfloat16 variant after x's element type:
     y [B,H,W,Cout] = conv of x with the OIHW w of the same type, on the
-    plan of :func:`~.conv_plan.k1_plan`."""
+    plan of :func:`~.conv_plan.k1_plan`. x may be a channel-padded view
+    (:func:`~.native.require_dense_channels`), read in place."""
     k = _check_shapes(x, w)
     name = native.variant("conv2d_same", x.dtype)
     w2 = flatten_kernel(w)
-    native.require_cuda(name, x.dtype, x, w2)
+    cs = native.require_cuda(name, x.dtype, w2, dense=x)
     b, h, wd, cin = x.shape
     cout = w.shape[0]
     entry = getattr(native.library(), "evf_" + name)
     plan = k1_plan(b, h, wd, cin, cout, k, x.element_size(),
-                   sm_count(x.device))
+                   sm_count(x.device), cs, x.data_ptr() % 16 == 0)
     y = torch.empty((b, h, wd, cout), device=x.device, dtype=x.dtype)
     err = entry(x.data_ptr(), w2.data_ptr(), y.data_ptr(), b, h, wd, cin,
-                cout, k, plan.tw, plan.imgs, plan.co, plan.slices, plan.ns,
-                int(plan.resident), native.stream_handle(x.device))
+                cs, cout, k, plan.tw, plan.imgs, plan.co, plan.slices,
+                plan.ns, int(plan.resident), native.stream_handle(x.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1
     return y
@@ -357,15 +363,17 @@ def _conv_kernel(x, w):
 def conv2d_dw_kernel(x, g, k):
     """Launch B2, its float32 or bfloat16 variant after x's element type:
     the weight gradient, OIHW [Cout, Cin, k, k] in that type, of x
-    [B,H,W,Cin] and g [B,H,W,Cout], both contiguous, of one type, on one
-    CUDA device, on the plan of :func:`~.conv_plan.b2_plan`."""
+    [B,H,W,Cin] (dense channels: contiguous, or a channel-padded view,
+    :func:`~.native.require_dense_channels`) and contiguous g [B,H,W,Cout],
+    of one type, on one CUDA device, on the plan of
+    :func:`~.conv_plan.b2_plan`."""
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(f"conv2d_dw: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} must be NHWC of one image size")
     if k not in (1, 3, 5):
         raise ValueError(f"conv2d_dw: k must be 1, 3 or 5, got {k}")
     name = native.variant("conv2d_dw", x.dtype)
-    native.require_cuda(name, x.dtype, x, g)
+    cs = native.require_cuda(name, x.dtype, g, dense=x)
     b, h, wd, cin = x.shape
     cout = g.shape[3]
     if min(b, h, wd, cin, cout) < 1 or max(x.numel(), g.numel()) >= 2 ** 31:
@@ -380,7 +388,7 @@ def conv2d_dw_kernel(x, g, k):
     part = (torch.empty((plan.chunks, dw.numel()), device=x.device,
                         dtype=torch.float32) if plan.chunks > 1 else dw)
     err = entry(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                b, h, wd, cin, cout, k, plan.tw, plan.imgs, plan.chunks,
+                b, h, wd, cin, cs, cout, k, plan.tw, plan.imgs, plan.chunks,
                 plan.ns, native.stream_handle(x.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1

@@ -45,12 +45,18 @@ the shape, the element size and the card's SM count, never on timing.
 - **The persistent walk.** The kernel launches ``n`` clusters, the items
   or as many as the card holds at once if fewer, and cluster ``c`` takes
   the consecutive items ``[c * items // n, (c + 1) * items // n)``.
+- **x's pixel stride** ``cs`` (>= Cin): the decoders' inputs come as
+  views of buffers padded to whole 16-byte pixel rows (ops/resize.py),
+  which TMA stages; the plans decide by the stride, not the channels.
 - **The one-image tile** (:func:`_tile_wins`, ``ns`` 0): where x's pixel
-  rows are not whole 16-byte rows, which TMA cannot stage, and at the 1 x
-  1 heads of up to 64 input channels, the plan keeps the one-process
-  mainloop (``csrc/conv_tile.cuh``): one block per 8 x 32 tile of one
-  image and 32 output channels (8 where Cout <= 8), each pass staged by
-  ``cp.async``, then multiplied; same sum order, same bits.
+  stride is not a whole 16-byte row, which TMA cannot stage, at the 1 x
+  1 heads of up to 64 input channels, and at float32 calls of more than
+  4 passes whose one-image tiles fill the card (:func:`_tile_fills`:
+  training's padded decoders of 258 and 130 channels), the plan keeps
+  the one-process mainloop (``csrc/conv_tile.cuh``): one block per 8 x
+  32 tile of one image and 32 output channels (8 where Cout <= 8), each
+  pass staged by ``cp.async``, then multiplied; same sum order, same
+  bits.
 
 **K2** (:func:`k2_plan`): conv(x) [+ conv(z_rec)], then the LIF update,
 on K1's plan with an item's passes x's, then z_rec's (one process's sum
@@ -58,17 +64,24 @@ order), so v' and z' are bitwise the parent tree's K2 wherever K is not
 split. It differs from K1 in three places:
 
 - **The one-image tile** (:func:`_k2_tile_wins`) where x's or z_rec's
-  pixel rows are not whole 16-byte rows (the U-Net decoders' 130 to 1026
-  channels, LIFFireNet's 2-channel input), and at one process's
-  shallow, large calls (at most 4 passes on 32768 pixels or more, Cout a
-  multiple of 32: LIFFireNet's cells, the U-Net's first encoder in
-  training), where it measured faster; the parent's kernel and bits.
+  pixel stride is not a whole 16-byte row (LIFFireNet's 2-channel input,
+  an unpadded decoder input), at one process's shallow, large calls (at
+  most 4 passes on 32768 pixels or more, Cout a multiple of 32:
+  LIFFireNet's cells, the U-Net's first encoder in training), and, as
+  K1's, at float32 calls of more than 4 passes whose tiles fill the card
+  (training's padded decoders of 258 and 130 channels), where it measured
+  faster; the parent's kernel and bits.
 - **Blocks a SM**: one in float32; in bfloat16 two for groups of 8 and 16
   (within half an SM's shared memory), one for groups of 32, whose LIF
-  state in registers leaves no room for a second block.
+  state in registers leaves no room for a second block; a feedforward
+  cell whose last pass is partial (the decoders') takes one block a SM
+  first, where groups of 32 measured faster.
 - **K split** only at serving's single images of 512 input channels or
-  more (1 x 12 x 15 512 -> 512, 1 x 24 x 30 1024 -> 256), never in
-  training.
+  more (1 x 12 x 15 512 -> 512, 1 x 24 x 30 1024 -> 256, the decoder's 1
+  x 46 x 60 514 -> 128 in bfloat16), never in training. K1 splits at
+  serving's deep maps whose items no group makes fill the card, in one
+  round, and, where a group's items do fill it (the decoders' 1 x 46 x
+  60 and 1 x 90 x 120), wherever the estimated cost is lower.
 
 **B2** (:func:`b2_plan`):
 
@@ -247,14 +260,30 @@ def tile_smem(k, co, esize, cin):
                     + k * k * cpad * _wstride(co))
 
 
-def _tile_wins(cin, k, esize):
-    """Where K1 stays on the one-image tile: x's pixel rows not whole
+def _tile_fills(b, h, w, cout, sms):
+    """Whether the one-image tile's blocks (8 x 32 pixels of one image, 32
+    output channels) are whole tiles of the map and fill one and a half
+    blocks an SM: there its two blocks a SM overlap one's staging with the
+    other's MMAs."""
+    blocks = b * _ceil(h, 8) * _ceil(w, 32) * _ceil(cout, 32)
+    return h >= 8 and w >= 32 and 2 * blocks >= 3 * sms
+
+
+def _tile_wins(b, h, w, cin, cout, k, esize, cs, sms):
+    """Where K1 stays on the one-image tile: x's pixel stride not whole
     16-byte rows (TMA cannot stage them, and the ring's thread copies ran
-    1.2-1.9x the tile's time at the decoders' 130, 258 and 514 channels),
-    and the 1 x 1 heads of up to 64 input channels (one or two passes an
-    item, behind the ring's fixed costs: 1.05-1.7x the tile's time); H100,
-    PERF.md."""
-    return (cin * esize) % 16 != 0 or (k == 1 and cin <= 2 * RING_CCH)
+    1.2-1.9x the tile's time at the decoders' 130, 258 and 514 channels
+    unpadded); the 1 x 1 heads of up to 64 input channels (one or two
+    passes an item, behind the ring's fixed costs: 1.05-1.7x the tile's
+    time); and float32 calls of more than 4 passes whose tile fills the
+    card (:func:`_tile_fills`: the decoders' padded 8 x 64 x 64 258 -> 64
+    and 8 x 128 x 128 130 -> 32 in training, where the ring, one block a
+    SM, ran 1.02-1.07x the tile's time, while at 8 x 32 x 32 514 -> 128
+    and at serving's single images it ran 0.41-0.82x); H100, PERF.md."""
+    if (cs * esize) % 16 != 0 or (k == 1 and cin <= 2 * RING_CCH):
+        return True
+    return (esize == 4 and _ceil(cin, RING_CCH) > K2_SHALLOW_PASSES
+            and _tile_fills(b, h, w, cout, sms))
 
 
 def _ring_fit(k, co, esize, tw, imgs, passes, slices, budget, steps=None):
@@ -315,10 +344,11 @@ def _ring_plan(b, h, w, cout, k, esize, sms, passes, levels, deep):
         for budget, per_sm, groups in levels:
             cap = sms * per_sm
             # (cost, co, slices, fit): the least cost, the wider group on
-            # a tie; K split only at serving's deep single-image shapes
-            # whose items no group makes fill the card, over at most 2
-            # blocks where a block fills an SM (a cluster of more is not
-            # held at once), in one round
+            # a tie; K split only at serving's deep single-image shapes,
+            # over at most 2 blocks where a block fills an SM (a cluster
+            # of more is not held at once): where no group's items fill
+            # the card, in one round; where one's do (the decoders' 1 x 46
+            # x 60 and 1 x 90 x 120), wherever it costs less
             best, most = None, 0
             for co in cos:
                 fit = (_ring_fit(k, co, esize, tw, imgs, passes, 1, budget)
@@ -332,7 +362,7 @@ def _ring_plan(b, h, w, cout, k, esize, sms, passes, levels, deep):
                     best = (cost, co, 1, fit)
             if best is None:
                 continue
-            if deep and most < cap:
+            if deep:
                 for co in cos:
                     if co not in groups:
                         continue
@@ -341,7 +371,8 @@ def _ring_plan(b, h, w, cout, k, esize, sms, passes, levels, deep):
                                                2 * per_sm) + 1):
                         fit = _ring_fit(k, co, esize, tw, imgs, passes,
                                         slices, budget)
-                        if fit is None or items * slices > cap:
+                        if fit is None or (most < cap
+                                           and items * slices > cap):
                             continue
                         cost = _k1_cost(co, esize, items * slices, sms,
                                         _ceil(passes, slices))
@@ -376,12 +407,17 @@ def _tile_plan(b, h, w, cin, crec, cout, k, esize, passes):
 
 
 @functools.lru_cache(maxsize=1024)
-def k1_plan(b, h, w, cin, cout, k, esize, sms):
-    """The plan of K1 on x [b, h, w, cin] into ``cout`` channels at kernel
+def k1_plan(b, h, w, cin, cout, k, esize, sms, cs=0, aligned=True):
+    """The plan of K1 on x [b, h, w, cin], its pixels ``cs`` elements
+    apart (0: ``cin``, contiguous), into ``cout`` channels at kernel
     size ``k`` for elements of ``esize`` bytes (4 float32, 2 bfloat16) on
-    a card with ``sms`` SMs."""
+    a card with ``sms`` SMs. ``aligned``: x's pointer is 16-byte aligned;
+    a padded x that is not, which TMA cannot stage, takes the one-image
+    tile (the ring's thread copies take contiguous maps only)."""
     passes = _ceil(cin, RING_CCH)
-    if _tile_wins(cin, k, esize):
+    cs = cs or cin
+    if (_tile_wins(b, h, w, cin, cout, k, esize, cs, sms)
+            or (cs != cin and not aligned)):
         return _tile_plan(b, h, w, cin, 0, cout, k, esize, passes)
     groups = (32, 16, 8)
     # first within half an SM where the kernel runs two blocks a SM
@@ -396,7 +432,7 @@ def k1_plan(b, h, w, cin, cout, k, esize, sms):
     return _plan(b, h, w, cin, 0, cout, k, passes, ring)
 
 
-def _k2_tile_wins(b, h, w, cin, crec, cout, esize):
+def _k2_tile_wins(b, h, w, cin, crec, cout, esize, cs, sms):
     """Where K2 stays on the one-image tile, the parent's kernel and bits:
     x's or z_rec's pixel rows not whole 16-byte rows, which TMA cannot
     stage (the U-Net decoders' 130, 258, 514 and 1026 channels,
@@ -410,29 +446,45 @@ def _k2_tile_wins(b, h, w, cin, crec, cout, esize):
     epilogue unhidden: there the ring measured 2-16 % slower in float32,
     and 7-18 % in bfloat16 at LIFFireNet's serving map (H100, PERF.md).
     The model axis's shares (Crec != Cout) stay on the ring, which fills
-    their groups of 8 or 16 where the tile's 32 would be half empty."""
-    if (cin * esize) % 16 != 0 or (crec * esize) % 16 != 0:
+    their groups of 8 or 16 where the tile's 32 would be half empty. And,
+    as K1's (:func:`_tile_wins`), float32 calls of more than 4 passes
+    whose tile fills the card (the decoders' padded 8 x 64 x 64 258 -> 64
+    and 8 x 128 x 128 130 -> 32 in training: the ring 1.07-1.17x the
+    tile's time)."""
+    if (cs * esize) % 16 != 0 or (crec * esize) % 16 != 0:
         return True
-    return (crec in (0, cout) and cout % 32 == 0
-            and _ceil(cin, RING_CCH) + _ceil(crec, RING_CCH)
-            <= K2_SHALLOW_PASSES and b * h * w >= K2_LARGE_PIXELS)
+    if crec not in (0, cout):
+        return False
+    passes = _ceil(cin, RING_CCH) + _ceil(crec, RING_CCH)
+    if passes <= K2_SHALLOW_PASSES:
+        return cout % 32 == 0 and b * h * w >= K2_LARGE_PIXELS
+    return esize == 4 and _tile_fills(b, h, w, cout, sms)
 
 
 @functools.lru_cache(maxsize=1024)
-def k2_plan(b, h, w, cin, crec, cout, k, esize, sms):
-    """The plan of K2 on x [b, h, w, cin] and, where ``crec`` > 0, z_rec
-    [b, h, w, crec] (``crec`` 0: the feedforward cell) into ``cout``
+def k2_plan(b, h, w, cin, crec, cout, k, esize, sms, cs=0, aligned=True):
+    """The plan of K2 on x [b, h, w, cin], its pixels ``cs`` elements
+    apart (0: ``cin``; ``aligned`` as :func:`k1_plan`'s), and, where
+    ``crec`` > 0, z_rec [b, h, w, crec]
+    (``crec`` 0: the feedforward cell) into ``cout``
     channels at kernel size ``k`` for elements of ``esize`` bytes on a
     card with ``sms`` SMs: K1's tiles, groups, split and ring over x's
     passes, then z_rec's; one block a SM in float32, and in bfloat16 two
     (within half an SM's shared memory) but at groups of 32, whose LIF
     state in registers takes a block an SM (csrc/conv_ring.cuh)."""
     passes = _ceil(cin, RING_CCH) + _ceil(crec, RING_CCH)
-    if _k2_tile_wins(b, h, w, cin, crec, cout, esize):
+    cs = cs or cin
+    if (_k2_tile_wins(b, h, w, cin, crec, cout, esize, cs, sms)
+            or (cs != cin and not aligned)):
         return _tile_plan(b, h, w, cin, crec, cout, k, esize, passes)
     groups = (32, 16, 8)
+    # bfloat16: two blocks a SM at groups of 8 and 16 first, but for a
+    # feedforward cell whose last pass is partial (the decoders' 514, 258
+    # and 130 channels), where one block a SM at groups of 32 measured
+    # 1.06-1.13x faster than the pair at groups of 16
+    paired = esize == 2 and not (crec == 0 and cin % RING_CCH)
     levels = ((RING_HALF_SMEM, 2, K2_PAIRED_GROUPS),
-              (RING_MAX_SMEM, 1, groups)) if esize == 2 else (
+              (RING_MAX_SMEM, 1, groups)) if paired else (
         (RING_MAX_SMEM, 1, groups),)
     # K split only at serving's single-image cells of 512 input channels
     # or more (1 x 12 x 15 512 -> 512, 1 x 24 x 30 1024 -> 256)

@@ -35,9 +35,12 @@ halo arriving by TMA during the previous pass's MMAs, the recurrent
 segment as further passes into the same accumulator, the LIF epilogue
 on the MMA fragments with v and z held in registers,
 reading v and z and writing only v' and z' as 16 bytes a lane; or, where
-x's or z_rec's pixel rows are not 16-byte rows (the decoders' 130 to 1026
-channels, LIFFireNet's 2-channel input), on the one-image tile of
-``csrc/conv_tile.cuh``. Both keep one process's sum order, so v' and z'
+x's or z_rec's pixel stride is not a whole 16-byte row (LIFFireNet's
+2-channel input), at one process's shallow, large cells and at float32
+training's decoders of 258 and 130 channels, on the one-image tile of
+``csrc/conv_tile.cuh``. x may be a channel-padded view (the decoders'
+inputs from ops/resize.py, read in place). Both keep one process's sum
+order, so v' and z'
 do not depend on the route; only serving's single-image cells of 512
 input channels or more split K over a cluster. At the training recipe
 (8 x 128 x 128 x 32) a cell does 2.4 GFLOP (4.8 recurrent) against about
@@ -307,7 +310,7 @@ def _launch(name, x, w, v, z, leak, thresh, k, hard_reset, z_rec=None,
     thresh = thresh.reshape(-1).contiguous()
     if leak.numel() != cout or thresh.numel() != cout:
         raise ValueError(f"{name}: leak and thresh need {cout} channels")
-    tensors = [x, w2, v, z]
+    tensors = [w2, v, z]
     rec = ()
     crec = cout
     if z_rec is not None:
@@ -321,20 +324,21 @@ def _launch(name, x, w, v, z, leak, thresh, k, hard_reset, z_rec=None,
         rec = (z_rec, flatten_kernel(w_rec))
         tensors += rec
     name = native.variant(name, x.dtype)
-    native.require_cuda(name, x.dtype, *tensors)
+    cs = native.require_cuda(name, x.dtype, *tensors, dense=x)
     native.require_cuda(name, torch.float32, leak, thresh,
                         device=x.device)
     entry = getattr(native.library(), native.variant("evf_fused_conv_lif",
                                                      x.dtype))
     plan = k2_plan(b, h, wd, cin, crec if rec else 0, cout, k,
-                   x.element_size(), sm_count(x.device))
+                   x.element_size(), sm_count(x.device), cs,
+                   x.data_ptr() % 16 == 0)
     v_out = torch.empty_like(v)
     z_out = torch.empty_like(v)
     zr_ptr, wr_ptr = (t.data_ptr() for t in rec) if rec else (None, None)
     err = entry(
         x.data_ptr(), w2.data_ptr(), zr_ptr, wr_ptr, v.data_ptr(),
         z.data_ptr(), leak.data_ptr(), thresh.data_ptr(), v_out.data_ptr(),
-        z_out.data_ptr(), b, h, wd, cin, cout, crec, k,
+        z_out.data_ptr(), b, h, wd, cin, cs, cout, crec, k,
         int(bool(hard_reset)), plan.tw, plan.imgs, plan.co, plan.slices,
         plan.ns, int(plan.resident), native.stream_handle(x.device))
     native.check(err, name)

@@ -38,8 +38,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "library", "build_library",
-           "check", "stream_handle", "require_cuda", "variant", "find_nvcc",
-           "CSRC", "define_op"]
+           "check", "stream_handle", "require_cuda", "require_dense_channels",
+           "channel_stride", "variant", "find_nvcc", "CSRC", "define_op"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -61,13 +61,13 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "evf_conv2d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "evf_conv2d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _P],
     "evf_fused_conv_lif": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _P],
     "evf_scatter_add": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "evf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "evf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _P],
     "evf_fused_lif_bwd_slices": [_L, _I, _I],
     "evf_fused_lif_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
@@ -245,9 +245,45 @@ def beyond_bf16_ulp(got, ref, atol=0.0):
     return (got.float() - ref.float()).abs() > bf16_ulp(got, ref) + atol
 
 
-def require_cuda(name, dtype, *tensors, device=None):
+def channel_stride(c, esize):
+    """``c`` channels rounded up to whole 16-byte pixel rows of
+    ``esize``-byte elements: the pixel stride at which TMA stages an NHWC
+    map (514 -> 516 in float32, 520 in bfloat16)."""
+    per = 16 // esize
+    return -(-c // per) * per
+
+
+def require_dense_channels(name, x):
+    """The pixel stride Cs of x [B, H, W, C] where its channels are dense
+    and its pixels, rows and images packed over Cs >= C elements: strides
+    (H W Cs, W Cs, Cs, 1) wherever a dimension has more than one element
+    (a contiguous map, Cs = C, or the ``[..., :C]`` view of a [B, H, W,
+    Cs] buffer, which ops/resize.py::upsample2x_bilinear returns). The K1,
+    K2 and B2 wrappers take x so, without a copy; any other layout
+    raises."""
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be NHWC, got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    sb, sh, sw, sc = x.stride()
+    cs = sw if w > 1 else sh if h > 1 else sb if b > 1 else c
+    dense = ((c == 1 or sc == 1) and cs >= c
+             and all(n == 1 or st == want for n, st, want in (
+                 (w, sw, cs), (h, sh, w * cs), (b, sb, h * w * cs))))
+    if not dense:
+        raise ValueError(f"{name}: x's channels must be dense and its "
+                         f"pixels packed over a stride of at least {c} "
+                         f"elements, got strides {tuple(x.stride())} for "
+                         f"shape {tuple(x.shape)}")
+    return cs
+
+
+def require_cuda(name, dtype, *tensors, device=None, dense=None):
     """Wrapper precondition: every tensor is a contiguous tensor of
-    ``dtype`` on the same CUDA device (``device`` where given)."""
+    ``dtype`` on the same CUDA device (``device`` where given), and so is
+    ``dense`` where given, except that it need only have dense channels
+    (:func:`require_dense_channels`); returns its pixel stride then."""
+    if dense is not None:
+        tensors = (dense, *tensors)
     dev = tensors[0].device if device is None else device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -255,5 +291,6 @@ def require_cuda(name, dtype, *tensors, device=None):
                              f"device, got {t.device} and {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
+        if t is not dense and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    return None if dense is None else require_dense_channels(name, dense)

@@ -20,6 +20,24 @@ Pallas in JAX, so all three are plain PyTorch here:
   than its largest entry off the CPU's, with the forward right
   (ROADMAP.md section 3); on the copy it agrees with the CPU.
 
+The upsampling's output is the decoders' conv input (models/cells.py
+``UpsampleConvLayer``, models/snn_cells.py ``SpikingUpsampleConvLayer``):
+it is written into a [B, 2H, 2W, Cs] buffer, Cs the channels rounded up
+to whole 16-byte pixel rows (ops/native.py::channel_stride: 514, 258 and
+130 channels to 516, 260 and 132 in float32, 520, 264 and 136 in
+bfloat16), and returned as the ``[..., :C]`` view, whose values are
+bitwise the contiguous result's. K1, K2 and B2 read that view in place,
+and at such a stride TMA stages its pixels (csrc/conv_ring.cuh); the pad
+channels are never read, so they stay uninitialised. On the card the pad
+is added to the input, a quarter of the output's bytes, and the
+interpolation writes the padded map itself: torch's CUDA kernel for
+channels-last maps of 16 channels or more computes each output element
+on its own, from the same four inputs and weights whatever the channel
+count (the card test ``test_padded_upsample_bitwise_on_the_card`` holds
+it); on the CPU, whose kernel vectorizes over the channels, the
+interpolated map is copied into the buffer. Where C is already whole
+rows the result is the contiguous map, as before.
+
 No backward here does a matrix product, so torch's TF32 flags do not
 reach them. The bilinear upsampling has its own backward
 (:class:`_Upsample2xBilinear`): torch's CUDA ``upsample_bilinear2d_backward``
@@ -31,6 +49,8 @@ own window (a gather, no atomics), so it repeats and the flag allows it.
 
 import torch
 import torch.nn.functional as F
+
+from .native import channel_stride
 
 __all__ = ["upsample2x_bilinear", "upsample2x_bilinear_grad",
            "resize_nearest", "avg_pool"]
@@ -69,15 +89,38 @@ def upsample2x_bilinear_grad(g):
     return _grad_axis(_grad_axis(g, 2), 1).contiguous()
 
 
+def _padded(y):
+    """y [B, H, W, C] as the ``[..., :C]`` view of a [B, H, W, Cs] buffer
+    whose pixels are whole 16-byte rows (y itself where they are); the pad
+    channels uninitialised."""
+    cs = channel_stride(y.shape[-1], y.element_size())
+    if cs == y.shape[-1]:
+        return y
+    out = y.new_empty((*y.shape[:-1], cs))[..., :y.shape[-1]]
+    return out.copy_(y)
+
+
+def _upsample(x):
+    h, w = x.shape[1:3]
+    return _nhwc(F.interpolate(_nchw(x), size=(2 * h, 2 * w),
+                               mode="bilinear", align_corners=False))
+
+
 class _Upsample2xBilinear(torch.autograd.Function):
-    """Forward: torch's bilinear interpolation (a gather). Backward: the
-    fixed-order stencil of :func:`upsample2x_bilinear_grad`."""
+    """Forward: torch's bilinear interpolation (a gather) into a
+    channel-padded buffer: on the card of a padded copy of x (16 channels
+    or more), else copied (:func:`_padded`). Backward: the fixed-order
+    stencil of :func:`upsample2x_bilinear_grad`."""
 
     @staticmethod
     def forward(ctx, x):
-        h, w = x.shape[1:3]
-        return _nhwc(F.interpolate(_nchw(x), size=(2 * h, 2 * w),
-                                   mode="bilinear", align_corners=False))
+        c = x.shape[-1]
+        cs = channel_stride(c, x.element_size())
+        if x.device.type != "cuda" or cs == c or c < 16:
+            return _padded(_upsample(x))
+        xp = x.new_empty((*x.shape[:-1], cs))
+        xp[..., :c] = x
+        return _upsample(xp)[..., :c]
 
     @staticmethod
     def backward(ctx, g):
@@ -86,7 +129,8 @@ class _Upsample2xBilinear(torch.autograd.Function):
 
 def upsample2x_bilinear(x):
     """[B, H, W, C] -> [B, 2H, 2W, C], bilinear, align_corners=False,
-    with a backward that repeats bitwise."""
+    with a backward that repeats bitwise; the result's pixels lie
+    ``channel_stride(C, element size)`` elements apart (:func:`_padded`)."""
     return _Upsample2xBilinear.apply(x)
 
 

@@ -18,7 +18,10 @@ script's ``chip_smoke.py`` helpers:
   514 -> 128, 1 x 90 x 120 258 -> 64, 1 x 180 x 240 130 -> 32; K1) and the
   LIFFireNet shapes (``B2_FIRENET``, B2; K1's dx 32 -> 32 k 3, the head
   32 -> 2 and its dx 2 -> 32 at k 1 at B 8 x 128 x 128, the head at
-  serving's 1 x 180 x 240). With ``--library``, cuDNN's conv or weight
+  serving's 1 x 180 x 240); a decoder's x (the "flow" rows) is the
+  tree's upsampled map (where the tree pads it, the [..., :C] view of a
+  buffer of whole 16-byte pixel rows, its pad NaN; cuDNN takes it
+  contiguous). With ``--library``, cuDNN's conv or weight
   gradient on the same inputs (TF32 off; in bfloat16 cuDNN's bfloat16
   call), L2 warm: the yardstick, which no tree of the port calls.
 - ``rec``: K2 rec (``fused_conv_lif_rec``, hard reset) with Crec != Cout
@@ -30,9 +33,10 @@ script's ``chip_smoke.py`` helpers:
 - ``k2``: K2 ff and rec (Crec == Cout: one process's cells, z_rec the
   state's z), hard reset, in float32 and bfloat16 at ``chip_smoke.py``'s
   ``K2_SHAPES`` (the spiking U-Net's cells in training and at serving,
-  LIFFireNet's at both), the inputs of ``chip_smoke.py::k2_inputs``; a
-  line says whether this tree's plan (``ops/conv_plan.py::k2_plan``) put
-  the call on the ring or on the one-image tile.
+  LIFFireNet's at both), the inputs of ``chip_smoke.py::k2_inputs`` (a
+  decoder's x padded as in ``conv``); a line says whether this tree's
+  plan (``ops/conv_plan.py::k2_plan``) put the call on the ring or on
+  the one-image tile.
 - ``int8``: K1-s8 and K2-s8 (ff and rec) in both output types at
   ``K1_S8``, ``K2_S8`` and the int8 window's shapes (``UNET_K2``'s cells,
   ``UNET_K1``'s heads), the inputs of ``chip_smoke.py::s8_call``.
@@ -112,8 +116,19 @@ def _conv_rows(cs):
     return rows
 
 
-def _conv_inputs(torch, row, dtype):
-    """x, w and g of a row from its own seed, on the card in dtype."""
+def _padded(cs, x):
+    """x as the decoders' input reaches K1, K2 and B2 in a tree whose
+    upsampling pads the channels (``chip_smoke.py::padded_view``, NaN in
+    the pad); x itself in a tree before that."""
+    from event_flow_tpu_torch.ops import native
+
+    return cs.padded_view(x) if hasattr(native, "channel_stride") else x
+
+
+def _conv_inputs(cs, torch, row, dtype):
+    """x, w and g of a row from its own seed, on the card in dtype; a
+    decoder's x ("flow") as the tree's upsampling gives it
+    (:func:`_padded`)."""
     _, b, h, w, cin, cout, k, kind = row
     seed = int(hashlib.sha256(repr(row[1:]).encode()).hexdigest()[:8], 16)
     gen = torch.Generator().manual_seed(seed)
@@ -129,7 +144,8 @@ def _conv_inputs(torch, row, dtype):
     wt = (torch.rand((cout, cin, k, k), generator=gen) * 2 - 1) * (
         1 / (k * k * cin)) ** 0.5
     g = 1e-3 * torch.randn((b, h, w, cout), generator=gen)
-    return (t.to("cuda", dtype) for t in (x, wt, g))
+    x, wt, g = (t.to("cuda", dtype) for t in (x, wt, g))
+    return (_padded(cs, x) if kind == "flow" else x), wt, g
 
 
 def _times(cs, run, names, flush):
@@ -142,6 +158,11 @@ def _times(cs, run, names, flush):
     warm, src_w = cs.device_ms(run, names)
     flushed, src_f = cs.device_ms(cold, names)
     return warm, flushed, cs.timed(run), (src_w, src_f)
+
+
+def _stride(x):
+    """(x's pixel stride,) where it is not x's channel count, else ()."""
+    return (x.stride(2),) if x.stride(2) != x.shape[-1] else ()
 
 
 def _entry(label, warm, flushed, one, src, bound, by, **more):
@@ -164,22 +185,23 @@ def conv_calls(cs, torch, flush, library):
     for row in _conv_rows(cs):
         kernel, b, h, w, cin, cout, k, kind = row
         for dtype in (torch.float32, torch.bfloat16):
-            x, wt, g = _conv_inputs(torch, row, dtype)
+            x, wt, g = _conv_inputs(cs, torch, row, dtype)
+            xc = x.contiguous()  # cuDNN's input
             npix = b * h * w
             if kernel == "K1":
                 run = lambda: conv2d_same(x, wt)
-                lib = lambda: cs.conv2d_library(x, wt)
+                lib = lambda: cs.conv2d_library(xc, wt)
                 names = cs.K1_KERNELS
             else:
                 run = lambda: conv2d_dw_kernel(x, g, k)
-                lib = lambda: cs.conv2d_dw_library(x, g, k)
+                lib = lambda: cs.conv2d_dw_library(xc, g, k)
                 # its kernels and, with a pixel split, the chunk sum
                 # (chunk_sum_kernel in trees before the plan)
                 names = ("conv_dw_", "chunk_sum_kernel")
             bitwise = False
             if kernel == "K1" and k1_plan is not None:
                 bitwise = k1_plan(b, h, w, cin, cout, k, x.element_size(),
-                                  sm_count(x.device)).bitwise
+                                  sm_count(x.device), *_stride(x)).bitwise
             bound, by = cs.least_ms(
                 x.element_size() * (npix * (cin + cout) + wt.numel()),
                 2 * npix * cout * cin * k * k,
@@ -228,6 +250,8 @@ def k2_calls(cs, torch, flush):
         for dtype in (torch.float32, torch.bfloat16):
             x, wt, wr, v, z, leak, thresh = cs.k2_inputs(
                 (b, h, w, cin, crec, cout), dtype)
+            if label.startswith("U-Net") and cin % 16 == 2:
+                x = _padded(cs, x)  # a decoder's upsampled input
             if crec:
                 run = lambda: fused_conv_lif_rec(x, wt, wr, v, z, z, leak,
                                                  thresh, 3, True)
@@ -237,7 +261,7 @@ def k2_calls(cs, torch, flush):
             plan = None
             if k2_plan is not None:
                 plan = k2_plan(b, h, w, cin, crec, cout, 3, x.element_size(),
-                               sm_count(x.device))
+                               sm_count(x.device), *_stride(x))
             bound, by = cs.least_ms(*cs.k2_work(
                 (b, h, w, cin, crec, cout), x.element_size()),
                 cs.TF32_FLOPS if dtype == torch.float32 else cs.BF16_FLOPS)

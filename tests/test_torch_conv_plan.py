@@ -486,3 +486,89 @@ def test_k2_routes_at_the_path_shapes(esize):
         assert plan.ring == ((label, (b, h, w, cin, crec, cout)) not in tile)
     for _, (b, h, w, cin, cout, crec) in chip_smoke.TP_K2_SHAPES:
         assert k2_plan(b, h, w, cin, crec, cout, 3, esize, SMS).ring
+
+
+# The U-Net decoders' calls (B, H, W, Cin, Cout), RecEVFlowNet's K1 and the
+# spiking U-Net's K2 feedforward cell, at serving and in training, and
+# each plan's route at the pixel stride of the upsampling's padded view
+# (ops/resize.py: whole 16-byte rows) by element size: (K1 slices, K2
+# slices), 0 for the one-image tile. The ring everywhere but float32
+# training's 258 and 130 channels (the tile measured faster there,
+# conv_plan.py::_tile_fills); K split at serving's 1 x 90 x 120 (K1,
+# float32) and 1 x 46 x 60 (bfloat16).
+DECODER_ROUTES = {
+    (1, 46, 60, 514, 128): {4: (1, 1), 2: (2, 2)},
+    (1, 90, 120, 258, 64): {4: (2, 1), 2: (1, 1)},
+    (1, 180, 240, 130, 32): {4: (1, 1), 2: (1, 1)},
+    (8, 32, 32, 514, 128): {4: (1, 1), 2: (1, 1)},
+    (8, 64, 64, 258, 64): {4: (0, 0), 2: (1, 1)},
+    (8, 128, 128, 130, 32): {4: (0, 0), 2: (1, 1)},
+}
+
+
+@pytest.mark.parametrize("esize", ESIZES)
+@pytest.mark.parametrize("case", sorted(DECODER_ROUTES))
+def test_decoders_route_by_stride(case, esize):
+    """The contiguous decoder map (pixel rows off 16-byte rows) keeps K1's
+    and K2's one-image tile; at the padded stride each plan takes its
+    route above, covers every output once, fits its shared memory (the
+    ring's bytes ring_smem's, the tile's the one-image tile's), walks the
+    passes in the one-process order and claims bitwise exactly where it
+    does not split K. bfloat16 K2 takes groups of 32 there, one block a
+    SM."""
+    from event_flow_tpu_torch.ops.conv_plan import tile_smem
+    from event_flow_tpu_torch.ops.native import channel_stride
+
+    b, h, w, cin, cout = case
+    cs = channel_stride(cin, esize)
+    assert cs != cin and cs * esize % 16 == 0
+    for slices, plan, flat in zip(
+            DECODER_ROUTES[case][esize],
+            (k1_plan(b, h, w, cin, cout, 3, esize, SMS, cs),
+             k2_plan(b, h, w, cin, 0, cout, 3, esize, SMS, cs)),
+            (k1_plan(b, h, w, cin, cout, 3, esize, SMS),
+             k2_plan(b, h, w, cin, 0, cout, 3, esize, SMS))):
+        assert not flat.ring and flat.bitwise
+        assert plan.ring == (slices > 0), plan
+        assert plan.slices == max(slices, 1) and plan.bitwise == (
+            plan.slices == 1)
+        assert plan.passes == -(-cin // RING_CCH)
+        if plan.ring:
+            assert plan.smem == ring_smem(3, plan.co, esize, plan.tw,
+                                          plan.imgs, plan.passes,
+                                          plan.slices, plan.resident,
+                                          plan.ns) <= RING_MAX_SMEM
+        else:
+            assert plan.smem == tile_smem(3, plan.co, esize, cin)
+        seen = np.zeros((b, h, w, cout), np.int8)
+        for i in range(plan.items):
+            b0, y0, x0, co0 = plan.item(i)
+            seen[b0:b0 + plan.imgs, y0:y0 + plan.th, x0:x0 + plan.tw,
+                 co0:co0 + plan.co] += 1
+        assert (seen == 1).all()
+        assert _partitions([plan.block_passes(q)
+                            for q in range(plan.slices)], plan.passes)
+    k2 = k2_plan(b, h, w, cin, 0, cout, 3, esize, SMS, cs)
+    if esize == 2:
+        assert k2.co == 32, k2
+
+
+def test_stride_moves_only_the_padded_maps():
+    """A plan at a stride equal to the channel count is the contiguous
+    map's plan, and a pixel stride off 16-byte rows keeps the tile, as
+    does a padded map at a pointer off 16 bytes."""
+    for shape in ((8, 8, 8, 1024, 1024), (8, 32, 32, 514, 128),
+                  (1, 46, 60, 514, 128)):
+        b, h, w, cin, cout = shape
+        for esize in ESIZES:
+            assert k1_plan(b, h, w, cin, cout, 3, esize, SMS, cin) == \
+                k1_plan(b, h, w, cin, cout, 3, esize, SMS)
+            assert k2_plan(b, h, w, cin, 0, cout, 3, esize, SMS, cin) == \
+                k2_plan(b, h, w, cin, 0, cout, 3, esize, SMS)
+    assert not k1_plan(8, 32, 32, 514, 128, 3, 4, SMS, 515).ring
+    assert not k2_plan(8, 32, 32, 514, 0, 128, 3, 2, SMS, 517).ring
+    # a padded view at a pointer off 16 bytes: the tile, whose copies take
+    # the stride (the ring's thread copies take contiguous maps only)
+    assert not k1_plan(8, 32, 32, 514, 128, 3, 4, SMS, 516, False).ring
+    assert not k2_plan(8, 32, 32, 514, 0, 128, 3, 2, SMS, 520, False).ring
+    assert k1_plan(8, 8, 8, 512, 512, 3, 4, SMS, 0, False).ring

@@ -2530,3 +2530,182 @@ def test_fused_lif_kernel_on_the_ring_keeps_nans(dev, operand, dtype):
         vp, _ = fused_conv_lif_rec_plain(x, wt, wr, v, zr, zr, leak, thresh,
                                          3, True)
     _finite_close(vk, vp, mask, ATOL)
+
+
+# The U-Net decoders' inputs as ops/resize.py::upsample2x_bilinear writes
+# them: the [..., :C] view of a buffer of whole 16-byte pixel rows (514,
+# 258 and 130 channels at 516, 260, 132 in float32 and 520, 264, 136 in
+# bfloat16), which K1, K2 and B2 read in place and TMA stages. The decoder
+# shapes (B, H, W, Cin, Cout): RecEVFlowNet's and the spiking U-Net's at
+# serving (kernel_timing.py::SERVING_DECODERS) and in training
+# (chip_smoke.py's B2_UNET and K2_SHAPES).
+DECODERS = [(1, 46, 60, 514, 128), (1, 90, 120, 258, 64),
+            (1, 180, 240, 130, 32), (8, 32, 32, 514, 128),
+            (8, 64, 64, 258, 64), (8, 128, 128, 130, 32)]
+
+
+def _padded(x, fill=float("nan")):
+    """x as the [..., :C] view of a buffer of whole 16-byte pixel rows,
+    the pad holding ``fill``."""
+    c = x.shape[-1]
+    buf = torch.full((*x.shape[:-1], native.channel_stride(
+        c, x.element_size())), fill, dtype=x.dtype, device=x.device)
+    view = buf[..., :c]
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [2, 5, 16, 17, 31, 130, 258, 514, 1026])
+def test_padded_upsample_bitwise_on_the_card(dev, c, dtype):
+    """The upsampling on the card (the pad added to the input where C >= 16,
+    else the result copied into the padded buffer) bitwise torch's
+    interpolation of the contiguous map, at its padded stride; its
+    gradient the fixed-order stencil's."""
+    from event_flow_tpu_torch.ops.resize import (upsample2x_bilinear,
+                                                 upsample2x_bilinear_grad)
+
+    g = _gen()
+    for shape in ((2, 5, 7), (1, 23, 30), (8, 16, 16)):
+        x = torch.randn((*shape, c), generator=g).to(dev, dtype)
+        y = upsample2x_bilinear(x)
+        cs = native.channel_stride(c, x.element_size())
+        h, w = 2 * shape[1], 2 * shape[2]
+        assert y.stride() == (h * w * cs, w * cs, cs, 1)
+        ref = torch.nn.functional.interpolate(
+            x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+            align_corners=False).permute(0, 2, 3, 1)
+        assert torch.equal(y, ref), (shape, c)
+    xg = x.detach().requires_grad_()
+    gy = torch.randn(y.shape, generator=g).to(dev, dtype)
+    (gx,) = torch.autograd.grad(upsample2x_bilinear(xg), xg, gy)
+    assert torch.equal(gx, upsample2x_bilinear_grad(gy))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODERS)
+def test_decoder_kernels_on_padded_views(dev, case, dtype):
+    """K1 and K2 (the feedforward cell) on a NaN-padded view at the
+    decoders' shapes, on their plans (ops/conv_plan.py), against their
+    plain forms on the contiguous map (float32 ATOL, bfloat16 one ulp plus
+    ATOL; spikes equal away from the threshold), one launch a call;
+    bitwise the contiguous map's call (the one-image tile) wherever the
+    plan does not split K; in training B2 on the view bitwise B2 on the
+    contiguous map."""
+    b, h, w, cin, cout = case
+    sms = sm_count(torch.device(dev))
+    x, wt, gy = _conv_plan_inputs(dev, (b, h, w, cin, cout, 3, "flow"),
+                                  dtype)
+    xp = _padded(x)
+    cs = xp.stride(2)
+    plan = k1_plan(b, h, w, cin, cout, 3, x.element_size(), sms, cs)
+    assert plan.ring == (dtype == torch.bfloat16 or b == 1
+                         or cin == 514), plan
+    name = native.variant("conv2d_same", dtype)
+    before = native.LAUNCHES[name]
+    y = conv2d_same(xp, wt)
+    assert native.LAUNCHES[name] == before + 1
+    ref = conv2d_same_plain(x, wt)
+    if dtype == torch.bfloat16:
+        _bf16_close(y, ref, ATOL)
+    else:
+        torch.testing.assert_close(y, ref, atol=ATOL, rtol=1e-5)
+    if plan.bitwise:
+        assert torch.equal(y, conv2d_same(x, wt)), plan
+    if b > 1:
+        assert torch.equal(conv2d_dw_kernel(xp, gy, 3),
+                           conv2d_dw_kernel(x, gy, 3))
+    xk, wk, _, v, z, leak, thresh = _k2_case(
+        dev, (b, h, w, cin, 0, cout, 3), dtype)
+    xkp = _padded(xk)
+    plan = k2_plan(b, h, w, cin, 0, cout, 3, x.element_size(), sms, cs)
+    assert plan.ring == (dtype == torch.bfloat16 or b == 1
+                         or cin == 514), plan
+    name = native.variant("fused_conv_lif", dtype)
+    before = native.LAUNCHES[name]
+    with torch.no_grad():
+        vk, zk = fused_conv_lif(xkp, wk, v, z, leak, thresh, 3, True)
+        assert native.LAUNCHES[name] == before + 1
+        vp, zp = fused_conv_lif_plain(xk, wk, v, z, leak, thresh, 3, True)
+        _k2_hold(vk, zk, vp, zp, thresh, dtype)
+        if plan.bitwise:
+            vt, zt = fused_conv_lif(xk, wk, v, z, leak, thresh, 3, True)
+            assert torch.equal(vk, vt) and torch.equal(zk, zt), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_padded_view_keeps_nans_inside_c(dev, kernel, dtype):
+    """On the ring over a padded view (NaN in every pad channel) a NaN or
+    -NaN inside C comes out NaN in exactly the outputs whose sum reads it,
+    and the others stay close to the plain form: the pad is never read."""
+    b, h, w, cin, cout = 2, 12, 15, 130, 16
+    g = _gen()
+    x = (torch.rand((b, h, w, cin), generator=g) < 0.3).float()
+    x = _with_nans(x, [(0, 3, 4, 5), (1, h - 1, 2, cin - 1)])
+    wt = (torch.rand((cout, cin, 3, 3), generator=g) * 2 - 1) * cin ** -0.5
+    mask = _window_nans(x.double(), wt.double(), 3).to(dev)
+    x, wt = x.to(dev, dtype), wt.to(dev, dtype)
+    xp = _padded(x)
+    sms = sm_count(torch.device(dev))
+    if kernel == "K1":
+        assert k1_plan(b, h, w, cin, cout, 3, x.element_size(), sms,
+                       xp.stride(2)).ring
+        _finite_close(conv2d_same(xp, wt), conv2d_same_plain(x, wt), mask,
+                      ATOL)
+        return
+    assert k2_plan(b, h, w, cin, 0, cout, 3, x.element_size(), sms,
+                   xp.stride(2)).ring
+    thresh = (0.5 + 0.1 * torch.randn(cout, generator=g)).to(dev)
+    leak = torch.sigmoid(torch.randn(cout, generator=g)).to(dev)
+    v = (0.3 * torch.randn((b, h, w, cout), generator=g)).to(dev, dtype)
+    z = torch.zeros_like(v)
+    with torch.no_grad():
+        vk, _ = fused_conv_lif(xp, wt, v, z, leak, thresh, 3, True)
+        vp, _ = fused_conv_lif_plain(x, wt, v, z, leak, thresh, 3, True)
+    _finite_close(vk, vp, mask, ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_padded_view_takes_the_tile(dev, dtype, monkeypatch):
+    """A padded view whose pointer is off 16 bytes (TMA cannot stage it)
+    goes to the one-image tile, whose copies take its stride, and matches
+    the plain form; the aligned view's call is bitwise the same (no K
+    split at this shape). Forced onto the ring, whose thread copies take
+    contiguous maps only, K1 refuses it with a CUDA error."""
+    from event_flow_tpu_torch.ops import conv as t_conv
+
+    b, h, w, cin, cout = 2, 12, 40, 130, 16
+    x, wt, _ = _conv_plan_inputs(dev, (b, h, w, cin, cout, 3, "flow"), dtype)
+    buf = torch.full((b, h, w, native.channel_stride(cin, x.element_size())),
+                     float("nan"), dtype=dtype, device=dev)
+    view = buf[..., 1:cin + 1]
+    view.copy_(x)
+    assert view.data_ptr() % 16 and view.stride(2) == buf.shape[-1]
+    sms = sm_count(torch.device(dev))
+    assert not k1_plan(b, h, w, cin, cout, 3, x.element_size(), sms,
+                       view.stride(2), False).ring
+    y = conv2d_same(view, wt)
+    ref = conv2d_same_plain(x, wt)
+    if dtype == torch.bfloat16:
+        _bf16_close(y, ref, ATOL)
+    else:
+        torch.testing.assert_close(y, ref, atol=ATOL, rtol=1e-5)
+    assert torch.equal(y, conv2d_same(_padded(x), wt))
+    ring = k1_plan(b, h, w, cin, cout, 3, x.element_size(), sms,
+                   view.stride(2))
+    assert ring.ring
+    with monkeypatch.context() as m:
+        m.setattr(t_conv, "k1_plan", lambda *args: ring)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            conv2d_same(view, wt)
+    xk, wk, _, v, z, leak, thresh = _k2_case(
+        dev, (b, h, w, cin, 0, cout, 3), dtype)
+    view.copy_(xk)
+    with torch.no_grad():
+        vk, zk = fused_conv_lif(view, wk, v, z, leak, thresh, 3, True)
+        vp, zp = fused_conv_lif_plain(xk, wk, v, z, leak, thresh, 3, True)
+        _k2_hold(vk, zk, vp, zp, thresh, dtype)
+        va, za = fused_conv_lif(_padded(xk), wk, v, z, leak, thresh, 3,
+                                True)
+    assert torch.equal(vk, va) and torch.equal(zk, za)
