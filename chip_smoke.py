@@ -18,14 +18,18 @@ exits non-zero without the final ``ok`` line:
               mbarrier operations (SYNCS); the float ring's TMA,
               cp.async, mbarrier and ldmatrix operations in K1's and K2's
               instances, and K2's instances on it for every k, channel
-              group, reset and type
+              group, reset and type; the warpgroup MMA (HGMMA) alone, with
+              TMA loads, mbarriers and ldmatrix, in bf16 K1 and B2 on the
+              wgmma route (csrc/conv_wgmma.cuh)
   3. kernels  each kernel against its plain PyTorch version (TF32 off) at
               the serving and the training shapes, with the median time of
               20 runs of each and its device time per call at the training
               shape (torch.profiler, or CUDA events around 20 back-to-back
               calls when the profiler sees no device events, with GB/s,
               TFLOP/s and the share of its bound); every kernel also runs
-              twice and must be bitwise equal
+              twice and must be bitwise equal; bf16 K1 and B2 on the wgmma
+              route at every deep shape and its edges beside cuDNN's bf16
+              calls (kernels_wgmma)
   4. slice    the LIFFireNet serving path (configs/eval_ECD.yml with the
               model block of configs/train_SNN.yml, seeded init, the
               in-memory synthetic stream) on the card, its launch counts,
@@ -276,6 +280,7 @@ Crec != Cout entries phase 21's sharded updates alone). Imports
 nothing of JAX.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -369,6 +374,10 @@ MMA_RULES = {
                  "fused_conv_lif_ring_kernel")},
     **{k: {"s8": ("IMMA", ("HMMA",))}
        for k in ("conv2d_same_s8_kernel", "fused_conv_lif_s8_kernel")},
+    # bfloat16 K1 and B2 on the wgmma route (csrc/conv_wgmma.cuh): the
+    # warpgroup MMA only, no mma.sync
+    **{k: {"bf16": ("HGMMA", ("HMMA", "TF32", "IMMA"))}
+       for k in ("conv2d_same_wgmma_kernel", "conv_dw_wgmma_kernel")},
 }
 # B4's instantiations: the bulk copies into its ring and the mbarrier
 # operations they complete on, 128-bit loads from device memory, and its
@@ -393,9 +402,11 @@ S8_NEED = ("UTMALDG", "UTMASTG", "LDGSTS", "SYNCS")
 # its instantiations (K2's: ff and rec, every group, both resets, both
 # types) must hold (its MMAs are MMA_RULES')
 RING_KERNELS = ("fused_conv_lif_ring_kernel", "conv2d_same_kernel")
-# K1's kernels: on the ring, and on the one-image tile of conv_tile.cuh
-# where its plan keeps that (ops/conv_plan.py::k1_plan, ns 0)
-K1_KERNELS = ("conv2d_same_kernel", "conv2d_same_tile_kernel")
+# K1's kernels: on the ring, on the one-image tile of conv_tile.cuh where
+# its plan keeps that (ops/conv_plan.py::k1_plan, ns 0), and bfloat16 on
+# the wgmma route with the sum of its slices (csrc/conv_wgmma.cu)
+K1_WGMMA = ("conv2d_same_wgmma_kernel", "conv2d_same_wgmma_sum_kernel")
+K1_KERNELS = ("conv2d_same_kernel", "conv2d_same_tile_kernel") + K1_WGMMA
 # K2's kernels (ff and rec, f32 and bf16): on the one-image tile of
 # conv_tile.cuh where its plan keeps that (ops/conv_plan.py::k2_plan, ns
 # 0: x's or z_rec's pixel rows not 16-byte rows), else on the ring; K2's
@@ -408,11 +419,34 @@ RING_NEED = ("UTMALDG", "LDGSTS", "SYNCS", "LDSM")
 DW_KERNELS = ("conv_dw_kernel",)
 DW_OPS = ("UTMALDG", "LDGSTS", "SYNCS", "ARRIVES")
 DW_NEED = ("UTMALDG", "LDGSTS", "SYNCS")
+# bfloat16 K1 and B2 on the wgmma route (csrc/conv_wgmma.cuh): TMA loads
+# into mbarrier rings, ldmatrix for A, the warpgroup MMA; every
+# instantiation holds each (and, by MMA_RULES, no HMMA)
+WGMMA_KERNELS = ("conv2d_same_wgmma_kernel", "conv_dw_wgmma_kernel")
+WGMMA_OPS = ("UTMALDG", "SYNCS", "LDSM", "HGMMA", "HMMA")
+WGMMA_NEED = ("UTMALDG", "SYNCS", "LDSM", "HGMMA")
+# the launch counts of the wgmma route's kernels and the bfloat16 kernel
+# whose calls they take at the deep maps: a path's expected counts name K1
+# and B2 whole (:func:`folded`)
+WGMMA_OF = {"conv2d_same_wgmma_bf16": "conv2d_same_bf16",
+            "conv2d_dw_wgmma_bf16": "conv2d_dw_bf16"}
 
 
 def _is_k1(name):
     """Whether a device operation's name is one of K1's kernels."""
     return any(k in name for k in K1_KERNELS)
+
+
+def folded(counts):
+    """Launch counts with the wgmma route's K1 and B2 (WGMMA_OF) counted
+    as bfloat16 K1 and B2: what a path's expected counts, which follow its
+    calls and not the plans' routes, name."""
+    out = dict(counts)
+    for k, into in WGMMA_OF.items():
+        n = out.pop(k, 0)
+        if n:
+            out[into] = out.get(into, 0) + n
+    return out
 
 
 def _is_k2(name):
@@ -504,8 +538,9 @@ def sass_check(lib_path):
     MMA_RULES holds its type's MMA and none that the rule forbids; prints
     the count of each MMA opcode per kernel and type. Then B4's
     (b4_sass_check), and the copies and barriers of the int8 mainloop
-    (S8_NEED), of the float mainloop of K1 and K2 rec (RING_NEED) and of
-    B2's ring (DW_NEED)."""
+    (S8_NEED), of the float mainloop of K1 and K2 rec (RING_NEED), of
+    B2's ring (DW_NEED) and of the wgmma route's K1 and B2
+    (WGMMA_NEED)."""
     sass = _sass(lib_path)
     functions, ops = [], None
     for line in sass.splitlines():
@@ -515,7 +550,8 @@ def sass_check(lib_path):
             ops = Counter() if kernel else None
             if kernel:
                 functions.append(((kernel, _mma_kind(kernel, name)), ops))
-        elif ops is not None and _opcode(line).startswith(("HMMA", "IMMA")):
+        elif ops is not None and _opcode(line).startswith(("HMMA", "IMMA",
+                                                             "HGMMA")):
             ops[_opcode(line)] += 1
     totals = {}
     for (kernel, kind), ops in functions:
@@ -539,6 +575,7 @@ def sass_check(lib_path):
     ops_sass_check(sass, RING_KERNELS, RING_OPS, RING_NEED)
     k2_ring_sass_check(sass)
     ops_sass_check(sass, DW_KERNELS, DW_OPS, DW_NEED)
+    ops_sass_check(sass, WGMMA_KERNELS, WGMMA_OPS, WGMMA_NEED)
 
 
 def k2_ring_sass_check(sass):
@@ -1366,7 +1403,7 @@ def kernels_gru(inp, out):
                     fail(f"K1 {cell} {shape}: max |err| {err} > {ATOL}")
             if not torch.equal(y, conv2d_same(x, wt)):
                 fail(f"K1{tag} {cell} {shape}: two runs differ")
-            _record(out, "conv2d_same" + tag.replace(" ", "_"), err)
+            _record(out, route_name("conv2d_same", x, cout), err)
             dw = conv2d_dw_kernel(x, g, 3)
             dw_ref = conv2d_dw_plain(x, g, 3)
             if bf:
@@ -1377,7 +1414,7 @@ def kernels_gru(inp, out):
                 err_dw = check_sum(dw, dw_ref, f"B2 {cell} {shape}")
             if not torch.equal(dw, conv2d_dw_kernel(x, g, 3)):
                 fail(f"B2{tag} {cell} {shape}: two runs differ")
-            _record(out, "conv2d_dw" + tag.replace(" ", "_"), err_dw)
+            _record(out, route_name("conv2d_dw", x, cout), err_dw)
             npix = b * h * w
             flop = 2 * npix * cout * cin * 9
             esize = x.element_size()
@@ -1401,6 +1438,149 @@ def kernels_gru(inp, out):
                       + (f" SLOWER than cuDNN by {d_k / d_l:.2f}x"
                          if d_k > d_l else
                          f", kernel faster by {d_l / d_k:.2f}x"))
+
+
+def route_name(kernel, x, cout, k=3):
+    """The launch count's name of K1 (``conv2d_same``) or B2
+    (``conv2d_dw``) on a contiguous x into cout channels: its wgmma
+    route's where the plan takes it (ops/conv_plan.py::wgmma_route), else
+    x's type's variant."""
+    from event_flow_tpu_torch.ops.conv_plan import wgmma_route
+    from event_flow_tpu_torch.ops.native import variant
+
+    if wgmma_route(x.shape[3], cout, k, x.element_size()):
+        return kernel + "_wgmma_bf16"
+    return variant(kernel, x.dtype)
+
+
+# the wgmma route's edges (B, H, W, Cin, Cout): images past B in tiles of
+# two 8 x 8 images, Cout off K1's groups of 128 and B2's 64; tiles that
+# overhang a 9 x 11 map at 5 images, 576 input channels and 72 outputs
+WGMMA_EDGES = ((3, 8, 8, 512, 200), (5, 9, 11, 576, 72))
+
+
+def wgmma_shapes():
+    """(B, H, W, Cin, Cout) of every shape of GATE_SHAPES, UNET_K1 and
+    B2_UNET that bfloat16 K1 and B2 run on the wgmma route
+    (ops/conv_plan.py::wgmma_route; none of UNET_K1's 1 x 1 heads), then
+    WGMMA_EDGES."""
+    from event_flow_tpu_torch.ops.conv_plan import wgmma_route
+
+    rows = [(b, h, w, cin, cout, 3) for _, b, h, w, cin, cout in GATE_SHAPES]
+    rows += [(1, h, w, cin, 2, 1) for h, w, cin in UNET_K1]
+    rows += [(b, h, w, cin, cout, k) for b, h, w, cin, cout, k, _ in B2_UNET]
+    deep = [r[:5] for r in rows if wgmma_route(r[3], r[4], r[5], 2)]
+    return list(dict.fromkeys(deep)) + list(WGMMA_EDGES)
+
+
+def kernels_wgmma(inp, out):
+    """bfloat16 K1 and B2 on the wgmma route (csrc/conv_wgmma.cu) at every
+    shape of wgmma_shapes, spikes and dense randn: launched on the route,
+    within one bf16 ulp plus ATOL (B2: plus SUM_RTOL of the largest |dw|)
+    of their plain versions, run twice bitwise equal; a NaN in x reaches
+    the outputs the plain version's does (inside a map and on the last
+    pixel of a tile that overhangs it); K1 of either half of the output
+    channels (a model-axis shard) bitwise the whole layer's; at every deep
+    shape each kernel's device ms beside cuDNN's bf16 conv or wgrad and
+    the share of its bound; the JSON's timing at the spiking U-Net's 8 x 8
+    x 8 512 -> 512 (80 K1 and 40 B2 calls an update)."""
+    from event_flow_tpu_torch.ops import native
+    from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel,
+                                               conv2d_dw_plain, conv2d_same,
+                                               conv2d_same_plain)
+
+    bf = torch.bfloat16
+    launched = {"conv2d_same_wgmma_bf16": 1, "conv2d_dw_wgmma_bf16": 1}
+    for b, h, w, cin, cout in wgmma_shapes():
+        shape = f"{b}x{h}x{w} {cin}->{cout} k=3"
+        edge = (b, h, w, cin, cout) in WGMMA_EDGES
+        for kind in ("spikes", "randn"):
+            x = (inp.spikes((b, h, w, cin)) if kind == "spikes"
+                 else inp.normal((b, h, w, cin), 0.5)).to(bf)
+            wt = inp.uniform((cout, cin, 3, 3), (1 / (9 * cin)) ** 0.5).to(bf)
+            g = inp.normal((b, h, w, cout), 1e-3).to(bf)
+            native.reset_launch_counts()
+            y = conv2d_same(x, wt)
+            dw = conv2d_dw_kernel(x, g, 3)
+            counts = {k: n for k, n in launch_counts().items() if n}
+            if counts != launched:
+                fail(f"wgmma {shape}: launches {counts} != {launched}")
+            y_ref = conv2d_same_plain(x, wt)
+            dw_ref = conv2d_dw_plain(x, g, 3)
+            err = bf16_close(y, y_ref, f"K1 wgmma {shape} {kind}", ATOL)
+            err_dw = bf16_close(dw, dw_ref, f"B2 wgmma {shape} {kind}",
+                                SUM_RTOL * float(dw_ref.float().abs().max()))
+            if not (torch.equal(y, conv2d_same(x, wt))
+                    and torch.equal(dw, conv2d_dw_kernel(x, g, 3))):
+                fail(f"wgmma {shape} {kind}: two runs differ")
+            line = (f"[kernels] K1/B2 wgmma {shape} {kind}: max|err| "
+                    f"{err:.3g} / {err_dw:.3g}, repeatable")
+            timing = {}
+            npix = b * h * w
+            nbytes = 2 * (npix * (cin + cout) + wt.numel())
+            flop = 2 * npix * cout * cin * 9
+            if kind == "randn" and not edge:
+                for label, run_k, run_l, kname in (
+                        ("K1", lambda: conv2d_same(x, wt),
+                         lambda: conv2d_library(x, wt), K1_WGMMA),
+                        ("B2", lambda: conv2d_dw_kernel(x, g, 3),
+                         lambda: conv2d_dw_library(x, g, 3),
+                         ("conv_dw_wgmma",))):
+                    d_k, src_k = device_ms(run_k, kname)
+                    d_l, src_l = device_ms(run_l)
+                    b_ms, b_by = least_ms(nbytes, flop, BF16_FLOPS)
+                    line += (f"; {label} device {d_k:.4f} ms [{src_k}], "
+                             f"{b_ms / d_k:.3f} of its bound {b_ms:.4f} ms "
+                             f"({b_by}), cuDNN bf16 {d_l:.4f} [{src_l}]"
+                             + (f", SLOWER than cuDNN by {d_k / d_l:.2f}x"
+                                if d_k > d_l else
+                                f", faster by {d_l / d_k:.2f}x"))
+            if (b, h, w, cin, cout, kind) == (8, 8, 8, 512, 512, "spikes"):
+                for key, run_k, run_p, run_l, kname in (
+                        ("K1", lambda: conv2d_same(x, wt),
+                         lambda: conv2d_same_plain(x, wt),
+                         lambda: conv2d_library(x, wt), K1_WGMMA),
+                        ("B2", lambda: conv2d_dw_kernel(x, g, 3),
+                         lambda: conv2d_dw_plain(x, g, 3),
+                         lambda: conv2d_dw_library(x, g, 3),
+                         ("conv_dw_wgmma",))):
+                    timing[key], timed_line = _timings(
+                        run_k, run_p, run_l, kname, nbytes, flop)
+                    line += f"; {key} for the JSON: {timed_line}"
+            print(line)
+            _record(out, "conv2d_same_wgmma_bf16", err, timing.get("K1"),
+                    BF16_FLOPS)
+            _record(out, "conv2d_dw_wgmma_bf16", err_dw, timing.get("B2"),
+                    BF16_FLOPS)
+    # a NaN in x: inside the 8 x 8 x 8 maps, and on the last pixel of
+    # serving's 12 x 15, which the last B2 tile overhangs
+    for b, h, w, cin, cout in ((8, 8, 8, 512, 512), (1, 12, 15, 1024, 512)):
+        x = inp.normal((b, h, w, cin), 0.5).to(bf)
+        x[b - 1, h - 1, w - 1, 5] = float("nan")
+        x[0, h // 2, w // 2, cin - 1] = float("nan")
+        wt = inp.uniform((cout, cin, 3, 3), (1 / (9 * cin)) ** 0.5).to(bf)
+        g = inp.normal((b, h, w, cout), 1e-3).to(bf)
+        for label, got, ref in (
+                ("K1", conv2d_same(x, wt), conv2d_same_plain(x, wt)),
+                ("B2", conv2d_dw_kernel(x, g, 3), conv2d_dw_plain(x, g, 3))):
+            if not torch.equal(got.isnan(), ref.isnan()):
+                fail(f"{label} wgmma {b}x{h}x{w}: NaN at {int(got.isnan().sum())}"
+                     f" outputs, the plain version's at "
+                     f"{int(ref.isnan().sum())}")
+        print(f"[kernels] K1/B2 wgmma {b}x{h}x{w} {cin}->{cout}: two NaN in "
+              "x reach the outputs the plain versions' do")
+    # a model-axis shard: either half of the output channels bitwise the
+    # whole layer's
+    x = inp.normal((8, 8, 8, 1024), 0.5).to(bf)
+    wt = inp.uniform((1024, 1024, 3, 3), (1 / 9216) ** 0.5).to(bf)
+    y = conv2d_same(x, wt)
+    for r in range(2):
+        part = conv2d_same(x, wt[512 * r:512 * (r + 1)].contiguous())
+        if not torch.equal(part, y[..., 512 * r:512 * (r + 1)]):
+            fail(f"K1 wgmma 8x8x8 1024->512: shard {r} differs from the "
+                 "whole layer's channels")
+    print("[kernels] K1 wgmma 8x8x8 1024->1024: each half of the output "
+          "channels (a model-axis shard of 2) bitwise the whole layer's")
 
 
 # device memory written between calls so that the next finds L2 (50 MB)
@@ -1762,7 +1942,8 @@ def kernels_bf16(inp, out):
                 2 * (npix * (cin + cout) + wt.numel()),
                 2 * npix * cout * k * k * cin)
         print(f"[kernels] {label}: max|err| {err:.3g}, repeatable; {line}")
-        _record(out, "conv2d_same_bf16", err, timing, BF16_FLOPS)
+        _record(out, route_name("conv2d_same", x, cout, k), err, timing,
+                BF16_FLOPS)
 
     for b, h, w, cin, c, rec in K2_BF16:
         shape = (b, h, w)
@@ -1865,7 +2046,8 @@ def kernels_bf16(inp, out):
                 2 * (npix * (cin + cout) + cout * cin * k * k),
                 2 * npix * cout * cin * k * k)
         print(f"[kernels] {label}: max|err| {err:.3g}, repeatable; {line}")
-        _record(out, "conv2d_dw_bf16", err, timing if cin == 32 else None,
+        _record(out, route_name("conv2d_dw", x, cout, k), err,
+                timing if cin == 32 else None,
                 BF16_FLOPS)
 
 
@@ -1878,6 +2060,7 @@ def phase_kernels():
     kernels_decoders(out)
     kernels_dw(inp, out)
     kernels_gru(inp, out)
+    kernels_wgmma(inp, out)
     kernels_backward(inp, out)
     kernels_scatter(inp, out)
     kernels_bf16(inp, out)
@@ -1974,11 +2157,11 @@ class ShapeLog:
 
         self.k1, self.b2, self.b4 = [], [], []
         # each K1 and K2 launch's x pixel stride, element size and plan,
-        # in launch order
-        self.k1_plans, self.k2_plans = [], []
+        # and each B2 launch's plan, in launch order
+        self.k1_plans, self.k2_plans, self.b2_plans = [], [], []
         self.k1s8, self.k2s8, self.k2rec, self.k2 = [], [], [], []
         self._saved = (conv.k1_plan, conv.conv2d_dw_kernel,
-                       fused_lif.fused_lif_bwd_kernel)
+                       fused_lif.fused_lif_bwd_kernel, conv.b2_plan)
         self._launch = fused_lif._launch
         launch = self._launch
 
@@ -1991,7 +2174,7 @@ class ShapeLog:
 
         fused_lif._launch = k2_logged
         self._plans = (conv.s8_plan, fused_lif.s8_plan)
-        k1, b2, b4 = self._saved
+        k1, b2, b4, b2_plan = self._saved
 
         def k1s8_logged(b, h, w, cin, crec, cout, sms):
             self.k1s8.append((b, h, w, cin, cout))
@@ -2016,6 +2199,11 @@ class ShapeLog:
             self.b2.append((*x.shape, g.shape[3], k, x.element_size()))
             return b2(x, g, k)
 
+        def b2_plan_logged(*args):
+            plan = b2_plan(*args)
+            self.b2_plans.append(plan)
+            return plan
+
         def b4_logged(v, *args):
             self.b4.append((*v.shape, str(v.dtype).replace("torch.", "")))
             return b4(v, *args)
@@ -2030,6 +2218,7 @@ class ShapeLog:
         self._k2_plan = fused_lif.k2_plan
         fused_lif.k2_plan = k2_plan_logged
         conv.k1_plan, conv.conv2d_dw_kernel = k1_logged, b2_logged
+        conv.b2_plan = b2_plan_logged
         fused_lif.fused_lif_bwd_kernel = b4_logged
         return self
 
@@ -2037,7 +2226,7 @@ class ShapeLog:
         from event_flow_tpu_torch.ops import conv, fused_lif
 
         (conv.k1_plan, conv.conv2d_dw_kernel,
-         fused_lif.fused_lif_bwd_kernel) = self._saved
+         fused_lif.fused_lif_bwd_kernel, conv.b2_plan) = self._saved
         conv.s8_plan, fused_lif.s8_plan = self._plans
         fused_lif._launch = self._launch
         fused_lif.k2_plan = self._k2_plan
@@ -2097,13 +2286,11 @@ def int8_window_by_shape(tag, config, precision="float32"):
 def on_path_by_shape(events, log):
     """{(kernel, shape): (calls, device ms)} of the K1, B2, B4 and K2
     launches of a profiled run, each launch matched to its logged shape in
-    launch order (a B2 call with a pixel split, ops/conv_plan.py::b2_plan,
-    is its conv_dw kernel and then its chunk sum; a B4 or K2 call is one
-    kernel); None for a kernel whose device events do not match its log
-    (a profiler session can miss events)."""
-    from event_flow_tpu_torch.ops.conv_plan import b2_plan
-    from event_flow_tpu_torch.ops.s8_plan import sm_count
-
+    launch order (a B2 call whose logged plan, ops/conv_plan.py::b2_plan,
+    splits the pixels is its conv_dw kernel and then its chunk sum, a K1
+    call on the wgmma route with slices its kernel and then the slices'
+    sum; a B4 or K2 call is one kernel); None for a kernel whose device
+    events do not match its log (a profiler session can miss events)."""
     out = {}
     for key, us_of, shapes in (
             ("B4", [us for name, _, us in events if B4_KERNEL in name],
@@ -2115,13 +2302,20 @@ def on_path_by_shape(events, log):
                 out[(key, shape)] = (n + 1, t + us / 1e3)
         else:
             out[key] = None
-    k1 = [us for name, _, us in events if _is_k1(name)]
-    dw = [us for name, _, us in events if "conv_dw_kernel" in name]
-    sums = [us for name, _, us in events if "conv_dw_sum_kernel" in name]
-    split = [b2_plan(*shape, esize, sm_count("cuda")).chunks > 1
-             for *shape, esize in log.b2]
-    if len(k1) == len(log.k1):
-        for shape, us in zip(log.k1, k1):
+    k1 = [us for name, _, us in events
+          if _is_k1(name) and "wgmma_sum" not in name]
+    k1_sums = [us for name, _, us in events
+               if "conv2d_same_wgmma_sum_kernel" in name]
+    k1_split = [plan.wgmma and plan.slices > 1 for *_, plan in log.k1_plans]
+    dw = [us for name, _, us in events
+          if "conv_dw_kernel" in name or "conv_dw_wgmma_kernel" in name]
+    sums = [us for name, _, us in events if "conv_dw_sum_kernel" in name
+            or "conv_dw_wgmma_sum_kernel" in name]
+    split = [plan.chunks > 1 for plan in log.b2_plans]
+    if len(k1) == len(log.k1) and len(k1_sums) == sum(k1_split):
+        k1_sums = iter(k1_sums)
+        for shape, us, has_sum in zip(log.k1, k1, k1_split):
+            us += next(k1_sums) if has_sum else 0.0
             n, t = out.get(("K1", shape), (0, 0.0))
             out[("K1", shape)] = (n + 1, t + us / 1e3)
     else:
@@ -2244,7 +2438,7 @@ def train_phase(tag, config, expected, precision="float32"):
 
     u = len(losses)
     want = expected(t, u)
-    if counts != want:
+    if folded(counts) != want:
         fail(f"{name}: train launch counts {counts} != expected {want}")
     if not all(torch.isfinite(torch.tensor(v)) for v in [first] + losses):
         fail(f"{name}: non-finite training loss: {[first] + losses}")
@@ -2376,7 +2570,8 @@ def parity_phase(tag, config, lockstep=False, precision="float32",
     losses within 2e-7 and cuDNN's strided gradients within 7e-7 of
     float64 (on an NVIDIA H100 80GB HBM3, 700.00 W), a relu kink, so the
     gradients are held at update 1, as for the other models. ``rtol``:
-    the losses' and the gradients' tolerances."""
+    the losses' and the gradients' tolerances. Returns the largest loss
+    gap, the largest gradient gap and every parameter's gradient gap."""
     from event_flow_tpu_torch.data.stream import SyntheticWindowStream
     from event_flow_tpu_torch.models.state import map_state
     from event_flow_tpu_torch.ops import native
@@ -2422,6 +2617,15 @@ def parity_phase(tag, config, lockstep=False, precision="float32",
     print(f"[{tag}] update 1 gradients, {len(grads['cpu'])} tensors: "
           f"largest ||g_gpu - g_cpu|| / ||g_cpu|| {worst[1]:.3g} "
           f"({worst[0]})")
+    return (max(abs(a - r) / abs(r) for a, r in zip(losses["cuda"],
+                                                    losses["cpu"])),
+            worst[1], {n: _rel_gap(grads["cuda"][n], g)
+                       for n, g in grads["cpu"].items()})
+
+
+def _rel_gap(got, ref):
+    """||got - ref|| / ||ref||."""
+    return float((got - ref).norm() / ref.norm().clamp(min=1e-30))
 
 
 def _hold_to_cpu(name, gpu_losses, cpu_losses, gpu_grads, cpu_grads,
@@ -2437,8 +2641,7 @@ def _hold_to_cpu(name, gpu_losses, cpu_losses, gpu_grads, cpu_grads,
              "parameters")
     worst = ("", 0.0)
     for pname, ref in cpu_grads.items():
-        rel = float((gpu_grads[pname] - ref).norm()
-                    / ref.norm().clamp(min=1e-30))
+        rel = _rel_gap(gpu_grads[pname], ref)
         if not rel <= grad_rtol:
             fail(f"{name} update 1 gradient of {pname}: rel gap {rel} > "
                  f"{grad_rtol}")
@@ -2556,7 +2759,8 @@ def window_events(config, model, log=None, sequences=None):
     for _ in range(3):
         window()
     if log is not None:
-        for logged in (log.k1, log.b2, log.k2, log.k1_plans, log.k2_plans):
+        for logged in (log.k1, log.b2, log.k2, log.k1_plans, log.k2_plans,
+                       log.b2_plans):
             logged.clear()
     return _device_events(window)
 
@@ -5188,7 +5392,7 @@ def bf16_serve(tag, config, n, per_window, quantize=None):
         "conv2d_same", "fused_conv_lif", "fused_conv_lif_rec", "scatter_add",
         "conv2d_dw", "fused_lif_bwd")}
     want = s8_counts(want, "_s8_bf16") if quantize else bf16_counts(want)
-    if counts != want:
+    if folded(counts) != want:
         fail(f"[{tag}] {name} {kind} engine launches {counts} != {want}")
     gaps = [float((g - c).norm() / c.norm().clamp(min=1e-30))
             for g, c in zip(flows["cuda"], flows["cpu"])]
@@ -5283,16 +5487,22 @@ def phase_bf16():
     update of bf16 and f32 in turns, the parity at B 2, 64 x 64, T 3 with
     the CPU port in bf16 (each update from the card's state); one bf16
     update of SpikingRecEVFlowNet at TRAIN_SNNREC run twice bitwise with
-    exact launches; bf16 serving of ECD_LIFFIRENET and
-    ECD_SPIKING_RECEVFLOWNET (bf16_serve); and train(..., precision=
+    exact launches; bf16 serving of ECD_LIFFIRENET,
+    ECD_SPIKING_RECEVFLOWNET and ECD_RECEVFLOWNET (bf16_serve); the
+    parity of both U-Nets' bf16 updates with the CPU port (their deep
+    maps' K1 and B2 on the wgmma route; RecEVFlowNet's held beside how
+    far another sum order moves it on the CPU, annunet_bf16_parity);
+    and train(..., precision=
     "bfloat16", profile=True), the CLI's --bf16 --profile, for 3 updates
     with its trace summarised. Returns the launch counts of its paths."""
     import glob
     import tempfile
 
     from event_flow_tpu_torch.config import (ECD_LIFFIRENET,
+                                             ECD_RECEVFLOWNET,
                                              ECD_SPIKING_RECEVFLOWNET,
-                                             TRAIN_SNN, TRAIN_SNNREC)
+                                             TRAIN_ANNREC, TRAIN_SNN,
+                                             TRAIN_SNNREC)
     from event_flow_tpu_torch.ops import native
     from event_flow_tpu_torch.train_flow import train
 
@@ -5313,8 +5523,10 @@ def phase_bf16():
         trainer, _, loss, counts = update_twice(f"{tag}-unet", TRAIN_SNNREC,
                                                 "bfloat16")
     want = bf16_counts(unet_update(trainer.t_windows, 1))
-    if counts != want:
-        fail(f"[{tag}-unet] launches {counts} != {want}")
+    if folded(counts) != want or not all(counts.get(k)
+                                         for k in WGMMA_OF):
+        fail(f"[{tag}-unet] launches {counts} != {want} (the wgmma "
+             "route's counted as bf16 K1 and B2, and both launched)")
     print(f"[{tag}-unet] SpikingRecEVFlowNet bf16 update at TRAIN_SNNREC: "
           f"launches {counts}")
     paths.append(counts)
@@ -5328,6 +5540,16 @@ def phase_bf16():
                             BF16_SERVE_WINDOWS[1],
                             {"fused_conv_lif": 8, "fused_conv_lif_rec": 4,
                              "conv2d_same": 4, "scatter_add": 1}))
+    # the U-Nets whose deep maps' bf16 K1 and B2 run on the wgmma route:
+    # RecEVFlowNet's serving (its gates at 1 x 12 x 15) and both updates
+    # against the CPU port, each update from the card's state
+    paths.append(bf16_serve(f"{tag}-annunet",
+                            copy.deepcopy(ECD_RECEVFLOWNET),
+                            BF16_SERVE_WINDOWS[1],
+                            {"conv2d_same": 20, "scatter_add": 1}))
+    parity_phase(f"{tag}-unet", TRAIN_SNNREC, lockstep=True,
+                 precision="bfloat16", rtol=(BF16_LOSS_RTOL, BF16_GRAD_RTOL))
+    annunet_bf16_parity(f"{tag}-annunet", TRAIN_ANNREC)
 
     with tempfile.TemporaryDirectory() as root, torch.enable_grad():
         native.reset_launch_counts()
@@ -5348,6 +5570,76 @@ def phase_bf16():
     paths.append(counts)
     print(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
     return paths
+
+
+# RecEVFlowNet's bf16 update is held to the CPU at ANNUNET_BF16_SLACK x
+# how far the CPU's own update moves when K1's and B2's sums run in
+# float64 instead of float32 (sum_order_witness), where that exceeds
+# BF16_LOSS_RTOL and BF16_GRAD_RTOL: a value one bf16 ulp off flips relu
+# decisions and gates that its dense maps carry through every layer, so
+# no other sum order meets those tolerances (ROADMAP.md section 3). On
+# the CPU that change moved its update-1 loss by 2.6e-4 and its gradients
+# by up to 0.10 (the spiking U-Net's by about 1e-3); on an NVIDIA H100
+# 80GB HBM3, 700.00 W the card's update 1 was 1.13e-4 and 0.096 from the
+# CPU's with K1 and B2 on the wgmma route, 9.6e-5 and 0.123 on their
+# mma.sync kernels.
+ANNUNET_BF16_SLACK = 2.0
+
+
+def sum_order_witness(config):
+    """How far ``config``'s bf16 update 1 at parity_config's size, from its
+    seeded init, moves on the CPU when K1's and B2's sums run in float64
+    instead of float32, each output rounded once to bfloat16 either way:
+    (the loss's relative gap, {parameter: ||g64 - g32|| / ||g32||})."""
+    from event_flow_tpu_torch.data.stream import SyntheticWindowStream
+    from event_flow_tpu_torch.ops import conv
+    from event_flow_tpu_torch.train.loop import Trainer
+
+    cfg = parity_config(config)
+
+    def update1():
+        with torch.enable_grad():
+            trainer = Trainer(cfg, "cpu", precision="bfloat16")
+            loss = _feed_update(trainer, SyntheticWindowStream(cfg))
+        return loss, _grads(trainer.model)
+
+    loss32, g32 = update1()
+    saved = conv._conv, conv._dw
+    conv._conv = lambda x, w: conv.conv2d_same_plain(
+        x.double(), w.double()).to(x.dtype)
+    conv._dw = lambda x, g, k: conv.conv2d_dw_plain(
+        x.double(), g.double(), k).to(x.dtype)
+    try:
+        loss64, g64 = update1()
+    finally:
+        conv._conv, conv._dw = saved
+    return (abs(loss64 - loss32) / abs(loss32),
+            {n: _rel_gap(g64[n], g) for n, g in g32.items()})
+
+
+def annunet_bf16_parity(tag, config):
+    """``config``'s bf16 update (RecEVFlowNet) against the CPU port, each
+    update from the card's state (parity_phase), its deep maps' K1 and B2
+    on the wgmma route: every loss within the larger of BF16_LOSS_RTOL and
+    ANNUNET_BF16_SLACK x the witness's loss move (sum_order_witness), every
+    gradient within the larger of BF16_GRAD_RTOL and ANNUNET_BF16_SLACK x
+    its largest gradient move."""
+    loss_move, moves = sum_order_witness(config)
+    worst = max(moves.items(), key=lambda kv: kv[1])
+    print(f"[{tag}] witness: on the CPU, K1's and B2's sums in float64 "
+          f"instead of float32 move the bf16 update 1's loss by "
+          f"{loss_move:.3g} and its gradients by up to {worst[1]:.3g} "
+          f"({worst[0]}); {sum(m > BF16_GRAD_RTOL for m in moves.values())} "
+          f"of {len(moves)} by more than {BF16_GRAD_RTOL}")
+    rtol = (max(BF16_LOSS_RTOL, ANNUNET_BF16_SLACK * loss_move),
+            max(BF16_GRAD_RTOL, ANNUNET_BF16_SLACK * worst[1]))
+    loss_gap, grad_gap, gaps = parity_phase(
+        tag, config, lockstep=True, precision="bfloat16", rtol=rtol)
+    print(f"[{tag}] bf16 update against the CPU, K1 and B2 on the wgmma "
+          f"route: largest loss gap {loss_gap:.3g}, gradient gap "
+          f"{grad_gap:.3g} (held to {rtol[0]:.3g} and {rtol[1]:.3g}); "
+          f"{sum(g > BF16_GRAD_RTOL for g in gaps.values())} of "
+          f"{len(gaps)} gradients beyond {BF16_GRAD_RTOL}")
 
 
 # [int8]: K1-s8 shapes (B, H, W, Cin, Cout, k, x): LIFFireNet's convs at
@@ -6414,7 +6706,7 @@ def _tp_check_runs(tag, label, dims, name, recipe, precision, ranks, root,
         if precision == "bfloat16":
             want = bf16_counts(want)
         for rank, rr in enumerate(runs):
-            if rr[u]["launches"] != want:
+            if folded(rr[u]["launches"]) != want:
                 fail(f"[{tag}] {label} {name} rank {rank} update {u + 1} "
                      f"launches {rr[u]['launches']} != {want}")
         if len({rr[u]["loss"] for rr in runs}) != 1:
@@ -6589,6 +6881,11 @@ KERNELS = (
      "event_flow_tpu/ops/conv_pallas.py:170"),
     ("fused_lif_bwd_bf16", "event_flow_tpu_torch/csrc/fused_lif_bwd.cu",
      "event_flow_tpu/ops/fused_lif_pallas.py:258"),
+    # bfloat16 K1 and B2 at the deep maps (ops/conv_plan.py::wgmma_route)
+    ("conv2d_same_wgmma_bf16", "event_flow_tpu_torch/csrc/conv_wgmma.cu",
+     "event_flow_tpu/ops/conv_pallas.py:121"),
+    ("conv2d_dw_wgmma_bf16", "event_flow_tpu_torch/csrc/conv_wgmma.cu",
+     "event_flow_tpu/ops/conv_pallas.py:170"),
     # no Pallas kernel: JAX's int8 conv is XLA's (models/conv.py:93-141)
     ("conv2d_same_s8", "event_flow_tpu_torch/csrc/conv.cu",
      "event_flow_tpu/models/conv.py:93"),
@@ -6614,7 +6911,7 @@ KERNELS = (
 
 PARTS = {"kernels": phase_kernels, "annunet": phase_annunet,
          "unet-train": phase_unet_train, "int8": phase_int8, "tp": phase_tp,
-         "tp-nccl": phase_tp_nccl}
+         "tp-nccl": phase_tp_nccl, "bf16": phase_bf16}
 
 
 def main(argv=None):

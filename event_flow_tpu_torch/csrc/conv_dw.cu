@@ -101,23 +101,27 @@
 // without the staging, the MMAs or the epilogue put a third of the deep
 // maps' time in the threads' staging instructions, which TMA now takes
 // over, and showed mma.sync's rate alone at a fifth of the bf16 peak
-// (PERF.md). A variant with wgmma (g pre-split in shared memory as B) was
-// no faster.
+// (PERF.md). A float32 variant with TF32 wgmma (g pre-split in shared
+// memory as B) was no faster at LIFFireNet's 32 -> 32; bfloat16 B2 at the
+// deep maps (512 input channels or more) runs on bf16 wgmma instead, in
+// conv_wgmma.cu (ops/conv_plan.py::wgmma_route), faster there (PERF.md).
 
 #include <algorithm>
 #include <numeric>
 
-#include "conv_s8.cuh"  // occupancy, align_up; conv_tile.cuh's copies, MMAs
+#include "conv_s8.cuh"  // align_up; conv_tile.cuh's copies, MMAs, occupancy
 
 namespace {
 
 using evf::aligned;
 using evf::bf16;
+using evf::block_capacity;
 using evf::copy;
 using evf::copy_step;
 using evf::div_small;
 using evf::ldsm_x2_t;
 using evf::ldsm_x4_t;
+using evf::MAX_SMEM;
 using evf::mma;
 using evf::mma_bf16;
 using evf::put;
@@ -128,7 +132,6 @@ constexpr int MW = 3;         // m16 tiles per warp
 constexpr int MAX_WARPS = 8;
 constexpr int NS_MAX = 4;     // staging buffers of the ring, at most
 constexpr int SUM_THREADS = 256;
-constexpr int MAX_SMEM = 232448;
 
 template <int K>
 __host__ __device__ constexpr int cblock() { return K == 5 ? 8 : 32; }
@@ -794,41 +797,6 @@ bool encode_box(CUtensorMap* map, const void* base, const Geo& geo, int C,
   return (Cs * sizeof(T)) % 16 == 0 && (box * sizeof(T)) % 16 == 0 &&
          evf::s8::encode(map, base, 4, dims, (cuuint64_t)Cs * sizeof(T),
                          boxes, 0);
-}
-
-// blocks of kernel the card holds at once at `threads` and smem bytes,
-// cached per kernel, shape of launch and device
-inline cudaError_t block_capacity(const void* kernel, int threads, int smem,
-                                  int* out) {
-  struct Entry {
-    const void* kernel;
-    int threads, smem, dev, cap;
-  };
-  static Entry cache[256];
-  static int used = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  for (int i = 0; i < used; ++i)
-    if (cache[i].kernel == kernel && cache[i].threads == threads &&
-        cache[i].smem == smem && cache[i].dev == dev) {
-      *out = cache[i].cap;
-      return cudaSuccess;
-    }
-  int per_sm = 0, sms = 0;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           MAX_SMEM);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  if (used < 256) cache[used++] = {kernel, threads, smem, dev, per_sm * sms};
-  *out = per_sm * sms;
-  return cudaSuccess;
 }
 
 template <int K, int NT, class T>

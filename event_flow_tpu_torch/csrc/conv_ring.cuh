@@ -112,7 +112,10 @@
 // the LIF update's expression (fused_lif.cu). So K1's y is bitwise the
 // one-process K1's, and K2's v' and z' the one-process K2's, wherever the
 // plan does not split K; K2 rec's v' and z' under the model axis are
-// bitwise the one-process cell's channels [r Cout, (r + 1) Cout).
+// bitwise the one-process cell's channels [r Cout, (r + 1) Cout). bfloat16
+// K1 at the deep maps does not run here: ops/conv_plan.py::wgmma_route
+// sends it to the warpgroup-MMA mainloop of conv_wgmma.cuh, whose sums run
+// in the tensor core's own fixed order (float32 K1 stays here, bitwise).
 
 #pragma once
 
@@ -124,7 +127,6 @@ namespace ring {
 constexpr int TILE = 256;        // output pixels per tile: 8 warps x 32
 constexpr int NS = 4;            // stages of the ring, at most
 constexpr int ALIGN = 1024;      // a swizzle pattern's span
-constexpr int MAX_SMEM = 232448;  // dynamic shared memory of one block
 // two blocks per SM: 228 KB less 1 KB reserved per block, halved
 constexpr int HALF_SMEM = 115712;
 constexpr int MAX_SLICES = 4;    // blocks of a cluster splitting K

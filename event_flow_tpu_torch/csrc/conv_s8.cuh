@@ -90,7 +90,6 @@ namespace s8 {
 constexpr int TILE = NT * MT * 16 / 32;  // output pixels per tile: 256
 constexpr int NS = 4;                    // stages of the ring, at most
 constexpr int PIX = 32;        // bytes of a staged halo pixel or weight row
-constexpr int MAX_SMEM = 232448;  // dynamic shared memory of one block
 constexpr int MAX_SLICES = 8;     // blocks of a cluster (portable)
 constexpr int MAX_DEVICES = 64;
 constexpr int ALIGN = 1024;       // a swizzle pattern's span

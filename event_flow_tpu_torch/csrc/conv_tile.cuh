@@ -92,6 +92,7 @@ constexpr int TW = 32;         // output columns per block
 constexpr int NT = 32 * TH;    // threads per block
 constexpr int MT = TW / 16;    // m16 tiles per warp
 constexpr int CCH = 32;        // input channels staged per pass, at most
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory of one block
 
 // elements per cp.async of each operand, and whether the epilogue moves
 // element pairs
@@ -542,6 +543,43 @@ cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Blocks of kernel the card holds at once at `threads` a block and smem
+// bytes of dynamic shared memory (the kernel allowed MAX_SMEM first),
+// cached per kernel, shape of launch and device: the persistent grids
+// of B2 and of the wgmma route.
+inline cudaError_t block_capacity(const void* kernel, int threads, int smem,
+                                  int* out) {
+  struct Entry {
+    const void* kernel;
+    int threads, smem, dev, cap;
+  };
+  static Entry cache[256];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].kernel == kernel && cache[i].threads == threads &&
+        cache[i].smem == smem && cache[i].dev == dev) {
+      *out = cache[i].cap;
+      return cudaSuccess;
+    }
+  int per_sm = 0, sms = 0;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           MAX_SMEM);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (used < 256) cache[used++] = {kernel, threads, smem, dev, per_sm * sms};
+  *out = per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace evf

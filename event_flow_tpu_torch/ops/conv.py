@@ -86,7 +86,15 @@ GFLOP: bound by operations) and, in training, every dx (32 -> 32 at k =
 3, about 34 MB and 2.4 GFLOP at 8 x 128 x 128: bound by bytes).
 Deterministic: every output is a fixed sequence of MMAs and adds, and
 wherever K is not split the sequence of the one-process mainloop
-(``csrc/conv_tile.cuh``, K2's), so y is bitwise the same as there.
+(``csrc/conv_tile.cuh``, K2's), so y is bitwise the same as there. In
+bfloat16 at the deep maps (k 3, 512 input channels or more;
+:func:`~.conv_plan.wgmma_route`) K1 and B2 run instead on Hopper's
+warpgroup MMA (``csrc/conv_wgmma.cuh``: ``wgmma`` with A from registers,
+B from shared memory, the float32 sum of a unit kept in the tensor core's
+registers, K1's weights as OHWI, the slices' or chunks' partials added in
+a fixed order), where the ``mma.sync`` mainloops ran 1.8-4.9x cuDNN's
+bf16 time: repeatable, within one bf16 ulp of the plain versions, not
+bitwise the ``mma.sync`` route.
 
 B2 source note (details in ``csrc/conv_dw.cu``): replaces the Pallas
 ``_conv_dw`` (conv_pallas.py:139-185), an im2col(x)^T g matmul whose sum
@@ -118,7 +126,7 @@ import torch.nn.functional as F
 
 from . import native
 from .quant import conv_quant, int8_operands, quantize_operands
-from .conv_plan import b2_plan, k1_plan
+from .conv_plan import b2_plan, k1_plan, wgmma_route
 from .s8_plan import s8_plan, sm_count
 
 
@@ -340,21 +348,43 @@ def conv2d_dw_plain(x, g, k):
 def _conv_kernel(x, w):
     """Launch K1, its float32 or bfloat16 variant after x's element type:
     y [B,H,W,Cout] = conv of x with the OIHW w of the same type, on the
-    plan of :func:`~.conv_plan.k1_plan`. x may be a channel-padded view
+    plan of :func:`~.conv_plan.k1_plan` (bfloat16 at the deep maps on its
+    wgmma route, with the weights OHWI, [Cout][k][k][Cin], the K-major
+    operand that TMA stages, and the slices' float32 partials in a
+    scratch). x may be a channel-padded view
     (:func:`~.native.require_dense_channels`), read in place."""
     k = _check_shapes(x, w)
     name = native.variant("conv2d_same", x.dtype)
-    w2 = flatten_kernel(w)
-    cs = native.require_cuda(name, x.dtype, w2, dense=x)
+    cs = native.require_cuda(name, x.dtype, dense=x)
     b, h, wd, cin = x.shape
     cout = w.shape[0]
+    aligned = x.data_ptr() % 16 == 0
+    # the route picks the C entry, which is asked for before the card's SM
+    # count is read; k1_plan follows the same rule
+    wgmma = wgmma_route(cin, cout, k, x.element_size(), cs, aligned)
+    if wgmma:
+        name = "conv2d_same_wgmma_bf16"
+        w2 = w.permute(0, 2, 3, 1).reshape(cout, -1)  # OHWI, one copy
+    else:
+        w2 = flatten_kernel(w)
+    native.require_cuda(name, x.dtype, w2, device=x.device)
     entry = getattr(native.library(), "evf_" + name)
     plan = k1_plan(b, h, wd, cin, cout, k, x.element_size(),
-                   sm_count(x.device), cs, x.data_ptr() % 16 == 0)
+                   sm_count(x.device), cs, aligned)
     y = torch.empty((b, h, wd, cout), device=x.device, dtype=x.dtype)
-    err = entry(x.data_ptr(), w2.data_ptr(), y.data_ptr(), b, h, wd, cin,
-                cs, cout, k, plan.tw, plan.imgs, plan.co, plan.slices,
-                plan.ns, int(plan.resident), native.stream_handle(x.device))
+    if wgmma:
+        part = (torch.empty((plan.slices, y.numel()), device=x.device,
+                            dtype=torch.float32)
+                if plan.slices > 1 else None)
+        err = entry(x.data_ptr(), w2.data_ptr(), y.data_ptr(),
+                    None if part is None else part.data_ptr(), b, h, wd,
+                    cin, cs, cout, k, plan.tw, plan.imgs, plan.slices,
+                    plan.ns, native.stream_handle(x.device))
+    else:
+        err = entry(x.data_ptr(), w2.data_ptr(), y.data_ptr(), b, h, wd,
+                    cin, cs, cout, k, plan.tw, plan.imgs, plan.co,
+                    plan.slices, plan.ns, int(plan.resident),
+                    native.stream_handle(x.device))
     native.check(err, name)
     native.LAUNCHES[name] += 1
     return y
@@ -366,7 +396,8 @@ def conv2d_dw_kernel(x, g, k):
     [B,H,W,Cin] (dense channels: contiguous, or a channel-padded view,
     :func:`~.native.require_dense_channels`) and contiguous g [B,H,W,Cout],
     of one type, on one CUDA device, on the plan of
-    :func:`~.conv_plan.b2_plan`."""
+    :func:`~.conv_plan.b2_plan` (bfloat16 at the deep maps on its wgmma
+    route, ``csrc/conv_wgmma.cu``)."""
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(f"conv2d_dw: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} must be NHWC of one image size")
@@ -380,9 +411,14 @@ def conv2d_dw_kernel(x, g, k):
         raise ValueError(f"conv2d_dw: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} must be nonempty and under 2^31 "
                          "elements each")
-    entry = getattr(native.library(), native.variant("evf_conv_dw", x.dtype))
+    # x's and g's TMA maps need 16-byte aligned pointers on the wgmma route
+    aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+    if wgmma_route(cin, cout, k, x.element_size(), cs, aligned):
+        name = "conv2d_dw_wgmma_bf16"  # the deep maps; b2_plan follows
+    entry = getattr(native.library(), "evf_" + name.replace("conv2d_dw",
+                                                            "conv_dw"))
     plan = b2_plan(b, h, wd, cin, cout, k, x.element_size(),
-                   sm_count(x.device))
+                   sm_count(x.device), cs, aligned)
     dw = torch.empty((cout, cin, k, k), device=x.device, dtype=x.dtype)
     # the chunks' float32 partial sums; unused where one chunk
     part = (torch.empty((plan.chunks, dw.numel()), device=x.device,

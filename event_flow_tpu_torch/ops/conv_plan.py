@@ -21,7 +21,8 @@ the shape, the element size and the card's SM count, never on timing.
   Cout <= 8). Item ``i`` is tile ``i % tiles`` of group ``i // tiles``.
 - **Passes** of 32 input channels (``RING_CCH``), each padded to the
   MMA's k, the taps in order within a pass: the one-process mainloop's sum
-  order, so that y is bitwise the parent tree's where K is not split.
+  order, so that y is bitwise the one-process K1's where K is not split
+  (float32 everywhere; bfloat16 off the wgmma route below).
 - **The card.** The group is the one with the least estimated time
   (:func:`_k1_cost`): the busiest SM's items (the items over the SMs)
   times an item's passes times the shared-memory reads of a pass, which
@@ -33,10 +34,9 @@ the shape, the element size and the card's SM count, never on timing.
   take passes ``[q * passes // slices, (q + 1) * passes // slices)`` and
   the first adds the others' float32 sums in rank order, bitwise
   repeatable but not the parent's order (:attr:`ConvPlan.bitwise`). Every
-  other shape keeps the one-process sum order: training's (a model
-  axis's shard then computes its channels bitwise as the whole layer
-  does, and an update follows the previous K1's trajectory), a small
-  batch's maps, the shallow heads.
+  other shape off the wgmma route keeps the one-process sum order:
+  training's (a model axis's shard then computes its channels bitwise as
+  the whole layer does), a small batch's maps, the shallow heads.
 - **The ring.** Resident weights (the group's rows of every pass of the
   block) before streamed ones (each stage carries its pass's rows), the
   deepest ring (float32 2 stages, bfloat16 4) that fits; first within
@@ -57,6 +57,36 @@ the shape, the element size and the card's SM count, never on timing.
   32 tile of one image and 32 output channels (8 where Cout <= 8), each
   pass staged by ``cp.async``, then multiplied; same sum order, same
   bits.
+
+**The wgmma route** (:func:`wgmma_route`): bfloat16 K1 and B2 at k 3 on
+the deep maps (512 input channels or more in whole 64-channel blocks, 64
+output channels or more in whole 16-byte rows: RecEVFlowNet's and
+E2VID's gates, the spiking U-Net's 8 x 8 x 8 512-channel cells and 8 x
+16 x 16 1024 -> 256 decoder, serving's 1 x 12 x 15 gates) run on the
+warpgroup-MMA mainloop of ``csrc/conv_wgmma.cuh``, where the mma.sync
+mainloops ran 1.8-4.9x cuDNN's bf16 time (PERF.md). Its sums run in the
+tensor core's own fixed order: bitwise repeatable, not the one-process
+order (:attr:`ConvPlan.bitwise` is False there).
+
+- **K1** (:func:`_wg_k1_plan`, ``ConvPlan.wgmma``): tiles of ``WG_TILE`` =
+  128 output pixels that span images (:func:`_wg_tiles`: the fewest, the
+  smaller halo, the wider), channel groups of ``WG_K1_BN`` = 128 (``co``),
+  passes of ``WG_CH`` = 64 input channels, the passes split into
+  ``slices`` from the shape without Cout (:func:`_wg_slices`: the tiles
+  times the slices a quarter of the SMs or more, a power of two, at most
+  8), so a model-axis shard of Cout / mp channels runs the whole layer's
+  instructions for its channels, the same bits. A unit is a
+  tile of a group over a slice; the slices' float32 partials are added in
+  slice order by a second launch. ``ns`` is the weight ring's stages
+  (boxes of 64 x 128, 16 KB), the deepest that fits beside the two halo
+  stages.
+- **B2** (:func:`_wg_b2_plan`, ``B2Plan.wgmma``): b2_plan's pixel tiles of
+  128, output tiles of 64 input channels (all 9 taps) x 64 output
+  channels, chunks of 8 or more pixel tiles only where the output tiles
+  are fewer than the SMs (one block a SM; so Cin 1024 x Cout 512 keeps
+  its 128 output tiles, 97 % of 132 SMs, where its 4 or 2 pixel tiles
+  make no chunk of 8), ``ns`` ring stages of a halo and a g box beside
+  the epilogue's tile, the deepest that fits, at most ``WG_DW_NS``.
 
 **K2** (:func:`k2_plan`): conv(x) [+ conv(z_rec)], then the LIF update,
 on K1's plan with an item's passes x's, then z_rec's (one process's sum
@@ -107,7 +137,9 @@ from typing import NamedTuple
 
 __all__ = ["RING_TILE", "RING_CCH", "RING_MAX_SMEM", "RING_HALF_SMEM",
            "RING_MAX_SLICES", "B2_PIX", "ConvPlan", "B2Plan", "k1_plan",
-           "k2_plan", "b2_plan", "ring_smem", "tile_smem", "b2_smem"]
+           "k2_plan", "b2_plan", "ring_smem", "tile_smem", "b2_smem",
+           "WG_TILE", "WG_CH", "WG_K1_BN", "WG_DW_BN", "wgmma_route",
+           "wg_k1_smem", "wg_b2_smem"]
 
 RING_TILE = 256           # output pixels per tile: 8 warps x 32 pixels
 RING_CCH = 32             # input channels per pass
@@ -135,6 +167,22 @@ B2_NS = 4                 # staging buffers, at most
 B2_WIDTHS = (32, 16, 8)
 B2_IMGS = (1, 2, 4, 8, 16)
 _B2_MW, _B2_MAX_WARPS = 3, 8
+
+# the wgmma route (csrc/conv_wgmma.cuh)
+WG_TILE = 128             # pixels a tile: K1's M, B2's pixels a stage
+WG_CH = 64                # input channels a pass or a B2 output tile
+WG_K1_BN = 128            # K1's output channels a unit
+WG_DW_BN = 64             # B2's output channels a unit
+WG_MIN_CIN = 512          # the deep maps' input channels, at least
+WG_ROW = 128              # bytes of a staged pixel or weight row
+WG_BARS = 1024            # bytes of mbarriers before the stages
+WG_HS = 2                 # K1's halo stages
+WG_BOX = 16384            # bytes of a K1 weight box or a B2 g box
+WG_MAX_STAGES = 12
+WG_K1_SLICES = 8          # K1's slices of the passes, at most
+WG_DW_NS = 6              # B2's ring stages, at most
+WG_DW_CHUNK_TILES = 8     # B2's pixel tiles a chunk, at least
+WG_DW_THREADS = 384       # three consumer warpgroups
 
 
 def _ceil(a, b):
@@ -174,6 +222,8 @@ class ConvPlan(NamedTuple):
     resident: bool    # the group's weights stay in shared memory
     smem: int         # dynamic shared memory of a block
     crec: int = 0     # K2: z_rec's channels (0: feedforward, and K1)
+    wgmma: bool = False  # K1 on the wgmma route: co 128, passes of 64,
+                         # ns the weight ring's stages
 
     @property
     def ring(self):
@@ -191,8 +241,19 @@ class ConvPlan(NamedTuple):
 
     @property
     def bitwise(self):
-        """Whether each output's sum runs in the one-process order."""
-        return self.slices == 1
+        """Whether each output's sum runs in the one-process order (never
+        on the wgmma route, whose sums run in the tensor core's order)."""
+        return self.slices == 1 and not self.wgmma
+
+    @property
+    def units(self):
+        """The work units: an item over one block's (slice's) passes."""
+        return self.items * self.slices
+
+    @property
+    def cch(self):
+        """Input channels a pass."""
+        return WG_CH if self.wgmma else RING_CCH
 
     def item(self, i):
         """(b0, y0, x0, co0) of item ``i``: its tile's first image and
@@ -214,15 +275,15 @@ class ConvPlan(NamedTuple):
     @property
     def x_passes(self):
         """The passes over x; z_rec's follow them."""
-        return _ceil(self.cin, RING_CCH)
+        return _ceil(self.cin, self.cch)
 
     def pass_channels(self, p):
         """Input channels [c0, c1) of pass ``p`` in its segment (x's, or
         z_rec's after x's) and its padded count."""
         c, p = (self.cin, p) if p < self.x_passes else (
             self.crec, p - self.x_passes)
-        c0 = p * RING_CCH
-        c1 = min(c, c0 + RING_CCH)
+        c0 = p * self.cch
+        c1 = min(c, c0 + self.cch)
         return c0, c1, _align(c1 - c0, 8)
 
 
@@ -406,6 +467,83 @@ def _tile_plan(b, h, w, cin, crec, cout, k, esize, passes):
                   tile_smem(k, co, esize, max(cin, crec))))
 
 
+def wgmma_route(cin, cout, k, esize, cs=0, aligned=True):
+    """Whether bfloat16 K1 or B2 of ``cin`` -> ``cout`` channels at kernel
+    size ``k`` (x's pixels ``cs`` elements apart, 0: ``cin``; ``aligned``:
+    x's pointer, and B2's g's, 16-byte aligned) runs on the wgmma route: k 3, the deep
+    maps' 512 input channels or more in whole 64-channel blocks, 64 output
+    channels or more in whole 16-byte rows (g's TMA boxes), rows TMA can
+    stage. The rule is the shape's, so a model-axis shard (Cout / mp of at
+    least 64) takes the route with its whole layer."""
+    cs = cs or cin
+    return (esize == 2 and k == 3 and cin >= WG_MIN_CIN and cin % WG_CH == 0
+            and cout >= WG_DW_BN and cout % 8 == 0
+            and (cs * esize) % 16 == 0 and aligned)
+
+
+def _wg_halo(tw, th, imgs, k):
+    """Bytes of a 128-pixel tile's halo of 64 bfloat16 channels, from a
+    swizzle atom (conv_wgmma.cuh::halo_bytes)."""
+    return _align(imgs * (th + k - 1) * (tw + k - 1) * WG_ROW, 1024)
+
+
+def wg_k1_smem(tw, imgs, k, ns):
+    """Dynamic shared memory of K1's wgmma block (conv_wgmma.cu's layout):
+    the mbarriers, two halo stages and ns weight boxes of 16 KB."""
+    th = WG_TILE // (tw * imgs)
+    return WG_BARS + WG_HS * _wg_halo(tw, th, imgs, k) + ns * WG_BOX
+
+
+def wg_b2_smem(tw, imgs, k, ns):
+    """Dynamic shared memory of B2's wgmma block: the mbarriers, ns stages
+    of a halo and a g box of 16 KB, and the epilogue's tile: 64 rows (an
+    output channel each) of 64 x 9 (input channel, tap) bfloat16 values
+    and 16 bytes (or 32 of float32 values and 16 bytes)."""
+    th = WG_TILE // (tw * imgs)
+    return (WG_BARS + ns * (_wg_halo(tw, th, imgs, k) + WG_BOX)
+            + WG_DW_BN * (WG_CH * 9 + 8) * 2)
+
+
+def _wg_tiles(b, h, w, k):
+    """The wgmma route's K1 tile (tw, th, imgs) of 128 pixels: the fewest
+    tiles, then the smaller halo, then the wider."""
+    shapes = []
+    for tw in K1_WIDTHS:
+        for imgs in B2_IMGS:
+            if tw * imgs <= WG_TILE and (imgs == 1 or imgs <= b):
+                th = WG_TILE // (tw * imgs)
+                shapes.append((_tiles(b, h, w, tw, th, imgs),
+                               imgs * (th + k - 1) * (tw + k - 1), -tw, imgs,
+                               tw, th))
+    _, _, _, imgs, tw, th = min(shapes)
+    return tw, th, imgs
+
+
+def _wg_slices(tiles, passes, sms):
+    """K1's slices of the passes on the wgmma route, from the shape without
+    Cout: the tiles times the slices a quarter of the SMs or more (so that
+    Cout 512's four channel groups of 128 fill the card), rounded up to a
+    power of two, at most WG_K1_SLICES and the passes. 8 x 8 x 8: 4 tiles,
+    8 slices; 8 x 16 x 16: 16 tiles, 4; serving's 1 x 12 x 15: 2 tiles, 8,
+    the cap, which leaves Cout 512 64 units: 16 slices there ran 1.13x
+    faster at Cout 512 but 1.33x slower at Cout 1024 (PERF.md,
+    ``kernel_timing.py plans``)."""
+    want = _ceil(sms, 4 * tiles)
+    return max(1, min(passes, WG_K1_SLICES, 1 << (want - 1).bit_length()))
+
+
+def _wg_k1_plan(b, h, w, cin, cout, k, sms):
+    tw, th, imgs = _wg_tiles(b, h, w, k)
+    passes = _ceil(cin, WG_CH)
+    slices = _wg_slices(_tiles(b, h, w, tw, th, imgs), passes, sms)
+    ns = min(WG_MAX_STAGES, (RING_MAX_SMEM - wg_k1_smem(tw, imgs, k, 0))
+             // WG_BOX)
+    return ConvPlan(b, h, w, cin, cout, k, tw, th, imgs, _ceil(w, tw),
+                    _ceil(h, th), _ceil(b, imgs), WG_K1_BN,
+                    _ceil(cout, WG_K1_BN), passes, slices, ns, False,
+                    wg_k1_smem(tw, imgs, k, ns), 0, True)
+
+
 @functools.lru_cache(maxsize=1024)
 def k1_plan(b, h, w, cin, cout, k, esize, sms, cs=0, aligned=True):
     """The plan of K1 on x [b, h, w, cin], its pixels ``cs`` elements
@@ -413,7 +551,10 @@ def k1_plan(b, h, w, cin, cout, k, esize, sms, cs=0, aligned=True):
     size ``k`` for elements of ``esize`` bytes (4 float32, 2 bfloat16) on
     a card with ``sms`` SMs. ``aligned``: x's pointer is 16-byte aligned;
     a padded x that is not, which TMA cannot stage, takes the one-image
-    tile (the ring's thread copies take contiguous maps only)."""
+    tile (the ring's thread copies take contiguous maps only). bfloat16 at
+    the deep maps takes the wgmma route (:func:`wgmma_route`)."""
+    if wgmma_route(cin, cout, k, esize, cs, aligned):
+        return _wg_k1_plan(b, h, w, cin, cout, k, sms)
     passes = _ceil(cin, RING_CCH)
     cs = cs or cin
     if (_tile_wins(b, h, w, cin, cout, k, esize, cs, sms)
@@ -518,6 +659,7 @@ class B2Plan(NamedTuple):
     ns: int           # staging buffers
     threads: int      # 32 x warps along the rows x warps along the pixels
     smem: int
+    wgmma: bool = False  # on the wgmma route: cb 64, bn 64, 384 threads
 
     @property
     def ntiles(self):
@@ -574,11 +716,36 @@ def b2_smem(k, cin, cout, esize, tw, imgs, ns):
     return 128 + ns * stage + (0 if out <= stage else out)
 
 
+def _wg_b2_plan(b, h, w, cin, cout, k, sms, tw, th, imgs, ntiles):
+    """B2 on the wgmma route at b2_plan's pixel tile: output tiles of 64 x
+    64 channels (all taps), three warpgroups, and the pixels split into
+    chunks only where the output tiles are fewer than the SMs (one block a
+    SM) and a chunk keeps WG_DW_CHUNK_TILES pixel tiles or more: a chunk's
+    float32 partials and their sum cost more than they give on fewer
+    (PERF.md, ``kernel_timing.py plans``). The deepest ring that fits, at
+    most WG_DW_NS."""
+    cblocks, coblocks = _ceil(cin, WG_CH), _ceil(cout, WG_DW_BN)
+    out_tiles = cblocks * coblocks
+    chunks = 1 if out_tiles >= sms else max(1, min(
+        sms // out_tiles, ntiles // WG_DW_CHUNK_TILES))
+    per_chunk = _ceil(ntiles, chunks)
+    chunks = _ceil(ntiles, per_chunk)
+    stage = wg_b2_smem(tw, imgs, k, 1) - wg_b2_smem(tw, imgs, k, 0)
+    ns = min(WG_DW_NS, (RING_MAX_SMEM - wg_b2_smem(tw, imgs, k, 0))
+             // stage)
+    return B2Plan(b, h, w, cin, cout, k, tw, th, imgs, _ceil(w, tw),
+                  _ceil(h, th), _ceil(b, imgs), WG_CH, WG_DW_BN, cblocks,
+                  coblocks, per_chunk, chunks, ns, WG_DW_THREADS,
+                  wg_b2_smem(tw, imgs, k, ns), True)
+
+
 @functools.lru_cache(maxsize=1024)
-def b2_plan(b, h, w, cin, cout, k, esize, sms):
-    """The plan of B2 on x [b, h, w, cin] and g [b, h, w, cout] at kernel
-    size ``k`` for elements of ``esize`` bytes on a card with ``sms``
-    SMs."""
+def b2_plan(b, h, w, cin, cout, k, esize, sms, cs=0, aligned=True):
+    """The plan of B2 on x [b, h, w, cin] (its pixels ``cs`` elements
+    apart, 0: ``cin``) and g [b, h, w, cout] at kernel size ``k`` for
+    elements of ``esize`` bytes on a card with ``sms`` SMs; bfloat16 at
+    the deep maps on the wgmma route (:func:`wgmma_route`; ``aligned``: x's
+    and g's pointers 16-byte aligned, as its TMA maps need)."""
     shapes = []
     for tw in B2_WIDTHS:
         for imgs in B2_IMGS:
@@ -588,6 +755,8 @@ def b2_plan(b, h, w, cin, cout, k, esize, sms):
                 shapes.append((_tiles(b, h, w, tw, th, imgs), -tw, halo,
                                imgs, tw, th))
     ntiles, _, _, imgs, tw, th = min(shapes)
+    if wgmma_route(cin, cout, k, esize, cs, aligned):
+        return _wg_b2_plan(b, h, w, cin, cout, k, sms, tw, th, imgs, ntiles)
     cb_max = 8 if k == 5 else 32
     bn = 8 if cout <= 8 else 32
     cblocks, coblocks = _ceil(cin, cb_max), _ceil(cout, bn)

@@ -13,7 +13,9 @@ that its main path went through the kernels. The bfloat16 variants of K1,
 K2, B2 and B4 count under their own names (``conv2d_same_bf16``, ...),
 and so do the int8 variants of K1 and K2 (``conv2d_same_s8``,
 ``fused_conv_lif_s8``, ``fused_conv_lif_rec_s8``) and their bfloat16
-variants (``conv2d_same_s8_bf16``, ...). A wrapper takes the
+variants (``conv2d_same_s8_bf16``, ...); bfloat16 K1 and B2 on the wgmma
+route (ops/conv_plan.py::wgmma_route) as ``conv2d_same_wgmma_bf16`` and
+``conv2d_dw_wgmma_bf16``. A wrapper takes the
 element types :func:`require_cuda` allows it and raises on any other: a
 bfloat16 tensor launches a bfloat16 kernel, never a float32 one, and an
 int8 tensor only an int8 one.
@@ -54,7 +56,8 @@ LAUNCHES = {"conv2d_same": 0, "fused_conv_lif": 0, "fused_conv_lif_rec": 0,
             "fused_lif_bwd_bf16": 0, "conv2d_same_s8": 0,
             "fused_conv_lif_s8": 0, "fused_conv_lif_rec_s8": 0,
             "conv2d_same_s8_bf16": 0, "fused_conv_lif_s8_bf16": 0,
-            "fused_conv_lif_rec_s8_bf16": 0}
+            "fused_conv_lif_rec_s8_bf16": 0, "conv2d_same_wgmma_bf16": 0,
+            "conv2d_dw_wgmma_bf16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,12 +79,15 @@ _SIGNATURES = {
                            _P],
     "evf_fused_conv_lif_s8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "evf_conv2d_same_wgmma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _P],
 }
 # the bfloat16 entries take the float32 ones' arguments
 for _name in ("evf_conv2d_same", "evf_fused_conv_lif", "evf_conv_dw",
               "evf_fused_lif_bwd", "evf_conv2d_same_s8",
               "evf_fused_conv_lif_s8"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
+_SIGNATURES["evf_conv_dw_wgmma_bf16"] = _SIGNATURES["evf_conv_dw"]
 
 _lib = None
 build_seconds = None  # wall time of the build (or of the cache hit)

@@ -1,9 +1,11 @@
 """Device times of one tree of the port: its float conv kernels, K2 rec
 under the model axis, its int8 kernels, or whole training updates and a
-serving window.
+serving window; and the evidence behind the bfloat16 wgmma route's plans
+and accuracy.
 
-    python3 kernel_timing.py conv|rec|k2|int8|paths [--root DIR] [--json PATH]
-                             [--against JSON] [--library]
+    python3 kernel_timing.py conv|rec|k2|int8|paths|plans|accuracy
+                             [--root DIR] [--json PATH] [--against JSON]
+                             [--library]
 
 Imports ``event_flow_tpu_torch`` from DIR (default: the directory of this
 script), builds its kernels and, on one CUDA card, times with this
@@ -41,14 +43,23 @@ script's ``chip_smoke.py`` helpers:
   ``K1_S8``, ``K2_S8`` and the int8 window's shapes (``UNET_K2``'s cells,
   ``UNET_K1``'s heads), the inputs of ``chip_smoke.py::s8_call``.
 - ``paths``: SpikingRecEVFlowNet's and RecEVFlowNet's training updates
-  (``TRAIN_SNNREC``, ``TRAIN_ANNREC``) from their seeded inits, and
-  RecEVFlowNet's and SpikingRecEVFlowNet's serving windows
-  (``ECD_RECEVFLOWNET``, ``ECD_SPIKING_RECEVFLOWNET`` over their
-  synthetic twins), float32: ms per update (median of 3 after one) or
-  per window (over 8 windows after a warm-up run), and torch.profiler
-  over one more:
+  (``TRAIN_SNNREC``, ``TRAIN_ANNREC``) from their seeded inits in
+  float32 and bfloat16, RecEVFlowNet's and SpikingRecEVFlowNet's serving
+  windows (``ECD_RECEVFLOWNET``, ``ECD_SPIKING_RECEVFLOWNET`` over their
+  synthetic twins) through ``evaluate`` in float32, and through the
+  streaming engine (``InferenceEngine``, no metrics) in float32 and
+  bfloat16: ms per update (median of 3 after one) or per window (over 8
+  windows after a warm-up), and torch.profiler over one more:
   device busy ms and K1's, B2's and K2's device ms
   (``chip_smoke.py::update_parts``).
+- ``plans``: bfloat16 K1 and B2 on the wgmma route (``csrc/conv_wgmma.cuh``)
+  at ``K1_SLICES`` and ``B2_CHUNKS``: the tree's plan
+  (``ops/conv_plan.py``) and each other count of K1's slices of the passes
+  or B2's pixel chunks, device ms warm (the kernel and its sum), in turns.
+- ``accuracy``: bfloat16 K1 and B2 at ``ACCURACY_SHAPES`` on the wgmma
+  route, on their mma.sync kernels and as the plain version, against
+  float64: mean |error|, the error's bias toward |y|, the share of
+  outputs off the plain version's.
 
 For each kernel call: device ms per call with L2 warm (torch.profiler
 over 20 back-to-back calls on the same inputs, the kernel's own events:
@@ -60,8 +71,10 @@ peak, the larger (``chip_smoke.py::least_ms``). Each call's output is
 kept as a digest of its bytes; ``--against`` another tree's JSON line
 compares them wherever the outputs should be bitwise equal (K1 where this
 tree's plan, ``ops/conv_plan.py::k1_plan``, keeps the one-process sum
-order; K2 where its plan, ``k2_plan``, does; every K2 rec with Crec !=
-Cout and int8 call) and fails where they differ.
+order; B2 off the bfloat16 wgmma route, ``b2_plan``; K2 where its plan,
+``k2_plan``, keeps the order; every K2 rec with Crec != Cout and int8
+call; never the wgmma route's K1 and B2, whose sums run in the tensor
+core's order) and fails where they differ.
 
 Prints the card's name and power limit, a line per call, and one JSON
 line (also written to PATH). To compare two trees, run this script on
@@ -178,7 +191,7 @@ def conv_calls(cs, torch, flush, library):
     from event_flow_tpu_torch.ops.conv import conv2d_dw_kernel, conv2d_same
 
     try:
-        from event_flow_tpu_torch.ops.conv_plan import k1_plan
+        from event_flow_tpu_torch.ops.conv_plan import b2_plan, k1_plan
         from event_flow_tpu_torch.ops.s8_plan import sm_count
     except ImportError:  # a tree from before the plan
         k1_plan = None
@@ -198,10 +211,17 @@ def conv_calls(cs, torch, flush, library):
                 # its kernels and, with a pixel split, the chunk sum
                 # (chunk_sum_kernel in trees before the plan)
                 names = ("conv_dw_", "chunk_sum_kernel")
+            # bitwise the other tree's where the plan keeps the one-process
+            # order (K1) or B2's kernel and order, off the wgmma route,
+            # whose sums run in the tensor core's order
             bitwise = False
             if kernel == "K1" and k1_plan is not None:
                 bitwise = k1_plan(b, h, w, cin, cout, k, x.element_size(),
                                   sm_count(x.device), *_stride(x)).bitwise
+            elif k1_plan is not None:
+                bitwise = not getattr(b2_plan(
+                    b, h, w, cin, cout, k, x.element_size(),
+                    sm_count(x.device)), "wgmma", False)
             bound, by = cs.least_ms(
                 x.element_size() * (npix * (cin + cout) + wt.numel()),
                 2 * npix * cout * cin * k * k,
@@ -307,7 +327,9 @@ def path_calls(cs, torch):
                                              TRAIN_ANNREC, TRAIN_SNNREC)
     from event_flow_tpu_torch.data.stream import (SyntheticWindowStream,
                                                   synthetic_sequences)
+    from event_flow_tpu_torch.eval.predict import InferenceEngine
     from event_flow_tpu_torch.eval_flow import evaluate
+    from event_flow_tpu_torch.models.registry import build_model
     from event_flow_tpu_torch.train.loop import Trainer
 
     def parts(label, per, wall_ms, events):
@@ -320,22 +342,24 @@ def path_calls(cs, torch):
                        f"{entry['B2_ms']:.3f}, K2 {entry['K2_ms']:.3f})")
 
     for config in (TRAIN_SNNREC, TRAIN_ANNREC):
-        config = copy.deepcopy(config)
-        with torch.enable_grad():
-            trainer = Trainer(config, "cuda")
-            stream = SyntheticWindowStream(config)
-            cs._feed_update(trainer, stream)
-            seconds = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
+        for precision in ("float32", "bfloat16"):
+            config = copy.deepcopy(config)
+            with torch.enable_grad():
+                trainer = Trainer(config, "cuda", precision=precision)
+                stream = SyntheticWindowStream(config)
                 cs._feed_update(trainer, stream)
-                torch.cuda.synchronize()
-                seconds.append(time.perf_counter() - t0)
-            _, events = cs._device_events(
-                lambda: cs._feed_update(trainer, stream))
-        yield parts(f"{config['model']['name']} update", "update",
-                    1e3 * statistics.median(seconds), events)
+                seconds = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    cs._feed_update(trainer, stream)
+                    torch.cuda.synchronize()
+                    seconds.append(time.perf_counter() - t0)
+                _, events = cs._device_events(
+                    lambda: cs._feed_update(trainer, stream))
+            yield parts(f"{config['model']['name']} update"
+                        + ("" if precision == "float32" else " bfloat16"),
+                        "update", 1e3 * statistics.median(seconds), events)
     for config in (ECD_RECEVFLOWNET, ECD_SPIKING_RECEVFLOWNET):
         config = copy.deepcopy(config)
         sequences = synthetic_sequences(config, n_windows=4.0)
@@ -344,11 +368,152 @@ def path_calls(cs, torch):
         _, events = cs.window_events(config, gpu["model"])
         yield parts(f"{config['model']['name']} serving window", "window",
                     1e3 * gpu["seconds"] / gpu["windows"], events)
+    # the streaming engine's windows (no metrics) in both types: the
+    # bfloat16 policy serves through InferenceEngine(precision=)
+    for config in (ECD_RECEVFLOWNET, ECD_SPIKING_RECEVFLOWNET):
+        config = copy.deepcopy(config)
+        ev, va = cs.engine_windows(config, 10)
+        ev, va = ev.cuda(), va.cuda()
+        for precision in ("float32", "bfloat16"):
+            engine = InferenceEngine(config, build_model(config, "cuda"),
+                                     "cuda", precision=precision)
+            for i in range(2):
+                engine.step(ev[i], va[i])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(2, 10):
+                engine.step(ev[i], va[i])
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 8
+            _, events = cs._device_events(lambda: engine.step(ev[2], va[2]))
+            yield parts(f"{config['model']['name']} engine window "
+                        f"{precision}", "window", wall, events)
+
+
+# plans: (B, H, W, Cin, Cout) of bfloat16 K1 and B2 on the wgmma route and
+# the K1 slices or B2 chunks timed beside this tree's plan
+K1_SLICES = {(8, 8, 8, 512, 512): (4, 8), (8, 8, 8, 1024, 1024): (4, 8, 16),
+             (8, 8, 8, 1024, 512): (4, 8, 16),
+             (8, 16, 16, 1024, 256): (2, 3, 4),
+             (8, 16, 16, 512, 1024): (1, 2, 4),
+             (1, 12, 15, 1024, 1024): (4, 8, 16),
+             (1, 12, 15, 1024, 512): (4, 8, 16)}
+B2_CHUNKS = {(8, 8, 8, 512, 512): (1, 2), (8, 8, 8, 1024, 512): (1, 2),
+             (8, 16, 16, 1024, 256): (1, 2), (8, 16, 16, 512, 1024): (1, 2),
+             (1, 12, 15, 1024, 512): (1, 2)}
+# accuracy: the shapes whose K1 and B2 are held to float64 on either route
+ACCURACY_SHAPES = ((8, 8, 8, 512, 512), (8, 8, 8, 1024, 1024),
+                   (8, 16, 16, 1024, 256))
+
+
+def plan_calls(cs, torch):
+    """K1's slices and B2's pixel chunks on the wgmma route: the plan of
+    ops/conv_plan.py and each variant (the plan ``_replace``d through
+    ops.conv's k1_plan / b2_plan, no rebuild), device ms warm of the
+    kernel and its sum, the variants in turns (each twice)."""
+    from event_flow_tpu_torch.ops import conv
+    from event_flow_tpu_torch.ops.s8_plan import sm_count
+
+    real_k1, real_b2 = conv.k1_plan, conv.b2_plan
+    sms = sm_count("cuda")
+
+    def k1_with(slices):
+        return lambda *a: real_k1(*a)._replace(slices=slices)
+
+    def b2_with(chunks):
+        def plan(*a):
+            p = real_b2(*a)
+            per = -(-p.ntiles // chunks)
+            return p._replace(per_chunk=per, chunks=-(-p.ntiles // per))
+        return plan
+
+    try:
+        for kernel, table in (("K1", K1_SLICES), ("B2", B2_CHUNKS)):
+            for shape, opts in table.items():
+                b, h, w, cin, cout = shape
+                x, wt, g = _conv_inputs(
+                    cs, torch, (kernel, b, h, w, cin, cout, 3, "randn"),
+                    torch.bfloat16)
+                if kernel == "K1":
+                    mine = real_k1(*shape, 3, 2, sms).slices
+                    run, names = (lambda: conv.conv2d_same(x, wt)), \
+                        cs.K1_WGMMA
+                else:
+                    mine = real_b2(*shape, 3, 2, sms).chunks
+                    run, names = (lambda: conv.conv2d_dw_kernel(x, g, 3)), \
+                        ("conv_dw_wgmma",)
+                what = "slices" if kernel == "K1" else "chunks"
+                opts = sorted(set(opts) | {mine})
+                times = {o: [] for o in opts}
+                for o in opts + opts[::-1]:
+                    if kernel == "K1":
+                        conv.k1_plan = k1_with(o)
+                    else:
+                        conv.b2_plan = b2_with(o)
+                    times[o].append(cs.device_ms(run, names)[0])
+                    conv.k1_plan, conv.b2_plan = real_k1, real_b2
+                label = (f"{kernel} bfloat16 {b}x{h}x{w} {cin}->{cout} "
+                         f"{what}")
+                yield (dict(label=label, plan=mine,
+                            warm_ms={str(o): t for o, t in times.items()}),
+                       f"{label} (plan {mine}): " + "; ".join(
+                           f"{o} " + "/".join(f"{t:.4f}" for t in ts)
+                           for o, ts in times.items()))
+    finally:
+        conv.k1_plan, conv.b2_plan = real_k1, real_b2
+
+
+def accuracy_calls(cs, torch):
+    """bfloat16 K1 and B2 at ACCURACY_SHAPES on the wgmma route, on their
+    mma.sync kernels (ops/conv_plan.py::wgmma_route off) and as the plain
+    version, against float64: mean |error|, the signed error toward |y|
+    over mean |y| (a bias), and the share of outputs off the plain
+    version's."""
+    from event_flow_tpu_torch.ops import conv, conv_plan
+
+    def errors(y, y64, y_plain):
+        e = y.double() - y64
+        return dict(mean_abs=float(e.abs().mean()),
+                    bias=float((e * torch.sign(y64)).mean()
+                               / y64.abs().mean()),
+                    off_plain=float((y != y_plain).float().mean()))
+
+    route = conv_plan.wgmma_route
+    for shape in ACCURACY_SHAPES:
+        b, h, w, cin, cout = shape
+        x, wt, g = _conv_inputs(cs, torch, ("K1", b, h, w, cin, cout, 3,
+                                            "randn"), torch.bfloat16)
+        y64 = conv.conv2d_same_plain(x.double(), wt.double())
+        d64 = conv.conv2d_dw_plain(x.double(), g.double(), 3)
+        plain = (conv.conv2d_same_plain(x, wt), conv.conv2d_dw_plain(x, g, 3))
+        runs = {"wgmma": (conv.conv2d_same(x, wt),
+                          conv.conv2d_dw_kernel(x, g, 3))}
+        conv_plan.wgmma_route = conv.wgmma_route = lambda *a, **k: False
+        conv_plan.k1_plan.cache_clear()
+        conv_plan.b2_plan.cache_clear()
+        try:
+            runs["mma.sync"] = (conv.conv2d_same(x, wt),
+                                conv.conv2d_dw_kernel(x, g, 3))
+        finally:
+            conv_plan.wgmma_route = conv.wgmma_route = route
+            conv_plan.k1_plan.cache_clear()
+            conv_plan.b2_plan.cache_clear()
+        runs["plain"] = plain
+        for name, (y, dw) in runs.items():
+            k1, b2 = errors(y, y64, plain[0]), errors(dw, d64, plain[1])
+            label = f"bfloat16 {b}x{h}x{w} {cin}->{cout} {name}"
+            yield (dict(label=label, K1=k1, B2=b2),
+                   f"{label}: " + " | ".join(
+                       f"{kname} mean |err| {e['mean_abs']:.3e}, toward |y| "
+                       f"{e['bias']:+.2e}, off the plain version "
+                       f"{e['off_plain']:.4f}"
+                       for kname, e in (("K1", k1), ("B2", b2))))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("conv", "rec", "k2", "int8", "paths"))
+    ap.add_argument("what", choices=("conv", "rec", "k2", "int8", "paths",
+                                     "plans", "accuracy"))
     ap.add_argument("--root", default=HERE,
                     help="the tree whose event_flow_tpu_torch is timed")
     ap.add_argument("--json", default="")
@@ -384,7 +549,9 @@ def main(argv=None):
              "rec": lambda: rec_calls(cs, torch, flush),
              "k2": lambda: k2_calls(cs, torch, flush),
              "int8": lambda: int8_calls(cs, torch, flush),
-             "paths": lambda: path_calls(cs, torch)}[args.what]()
+             "paths": lambda: path_calls(cs, torch),
+             "plans": lambda: plan_calls(cs, torch),
+             "accuracy": lambda: accuracy_calls(cs, torch)}[args.what]()
     against = {}
     if args.against:
         with open(args.against) as f:

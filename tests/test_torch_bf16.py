@@ -551,7 +551,9 @@ class _NoCard:
 
 def _fake_cuda_calls():
     """Each kernel wrapper on bfloat16 fake CUDA tensors (K1, B2, K2
-    feedforward and recurrent, B4) with the C entry it must ask for."""
+    feedforward and recurrent, B4; K1 and B2 also at a deep map of the
+    wgmma route, ops/conv_plan.py::wgmma_route) with the C entry it must
+    ask for."""
     def cuda(shape, dtype=BF16):
         return torch.zeros(shape, dtype=dtype, device="cuda")
 
@@ -560,9 +562,14 @@ def _fake_cuda_calls():
     v, z = cuda((1, 8, 8, 6)), cuda((1, 8, 8, 6))
     wr = cuda((6, 6, 3, 3))
     leak, thresh = cuda((6,), torch.float32), cuda((6,), torch.float32)
+    xd, gd = cuda((1, 8, 8, 512)), cuda((1, 8, 8, 64))
+    wd = cuda((64, 512, 3, 3))
     return [
         ("evf_conv2d_same_bf16", lambda: t_conv._conv_kernel(x, w)),
         ("evf_conv_dw_bf16", lambda: t_conv.conv2d_dw_kernel(x, g, 3)),
+        ("evf_conv2d_same_wgmma_bf16", lambda: t_conv._conv_kernel(xd, wd)),
+        ("evf_conv_dw_wgmma_bf16",
+         lambda: t_conv.conv2d_dw_kernel(xd, gd, 3)),
         ("evf_fused_conv_lif_bf16", lambda: t_lif._ff_kernel(
             x, w, v, z, leak, thresh, 3, True, "arctanspike", 10.0)),
         ("evf_fused_conv_lif_bf16", lambda: t_lif._rec_kernel(

@@ -1,7 +1,9 @@
 """The work plans of K1, K2 and B2 (ops/conv_plan.py) cover every output
 element exactly once, keep K1's and K2's one-process sum order wherever
-they do not split K, fit their shared memory, and give the card's SMs
-work at the recurrent gates' shapes. Pure integer arithmetic on the CPU;
+they do not split K and are off the wgmma route (bfloat16 K1 and B2 at the
+deep maps, whose K order and split come from the shape without Cout), fit
+their shared memory, and give the card's SMs work at the recurrent gates'
+shapes. Pure integer arithmetic on the CPU;
 the kernels derive the same indices from the plan's integers
 (csrc/conv_ring.cuh, csrc/conv_dw.cu) and the card tests hold them to
 their plain versions."""
@@ -17,8 +19,11 @@ from event_flow_tpu_torch.ops.conv_plan import (B2_PIX, K2_PAIRED_GROUPS,
                                                 RING_CCH, RING_HALF_SMEM,
                                                 RING_MAX_SLICES,
                                                 RING_MAX_SMEM, RING_TILE,
+                                                WG_CH, WG_DW_BN, WG_K1_BN,
+                                                WG_K1_SLICES, WG_TILE,
                                                 b2_plan, k1_plan, k2_plan,
-                                                ring_smem)
+                                                ring_smem, wg_b2_smem,
+                                                wg_k1_smem, wgmma_route)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (needs the sys.path insert)
@@ -44,7 +49,10 @@ SHAPES = GATE_SHAPES + [
     (1, 46, 60, 514, 128, 3), (2, 20, 21, 5, 7, 3), (2, 12, 15, 2, 32, 3),
     (2, 9, 13, 130, 64, 3), (1, 10, 12, 258, 40, 5), (3, 8, 8, 514, 9, 3),
     (1, 6, 7, 1026, 7, 1), (8, 4, 4, 64, 32, 3), (3, 8, 8, 32, 16, 5),
-    (5, 8, 16, 48, 24, 3)]
+    (5, 8, 16, 48, 24, 3),
+    # the wgmma route's edges (chip_smoke.py::WGMMA_EDGES): images past B,
+    # Cout off the groups, tiles overhanging the map
+    (3, 8, 8, 512, 200, 3), (5, 9, 11, 576, 72, 3)]
 
 
 @pytest.fixture(autouse=True)
@@ -66,13 +74,22 @@ def _partitions(ranges, n):
 def test_k1_plan_covers_every_output_once(shape, esize):
     """Every (b, y, x, co) of y lies in exactly one item's tile and group;
     a tile is 256 pixels, imgs images of th x tw, with a warp's 32 pixels
-    in one image; the clusters' walks split the items without overlap,
-    and the blocks of a cluster its passes."""
+    in one image (on the wgmma route 128 pixels, groups of 128 channels);
+    the clusters' walks split the items without overlap, and the blocks of
+    a cluster (the wgmma route's slices) its passes."""
     b, h, w, cin, cout, k = shape
     plan = k1_plan(b, h, w, cin, cout, k, esize, SMS)
-    assert plan.imgs * plan.th * plan.tw == RING_TILE
-    assert plan.th * plan.tw >= 32 and plan.tw in (8, 16, 32)
-    assert plan.co in ((8,) if cout <= 8 else (8, 16, 32))
+    if plan.wgmma:
+        assert plan.imgs * plan.th * plan.tw == WG_TILE
+        assert plan.tw in (8, 16, 32) and plan.co == WG_K1_BN
+        assert plan.passes == -(-cin // WG_CH)
+        assert 1 <= plan.slices <= min(WG_K1_SLICES, plan.passes)
+        assert plan.units == plan.items * plan.slices
+    else:
+        assert plan.imgs * plan.th * plan.tw == RING_TILE
+        assert plan.th * plan.tw >= 32 and plan.tw in (8, 16, 32)
+        assert plan.co in ((8,) if cout <= 8 else (8, 16, 32))
+        assert 1 <= plan.slices <= min(RING_MAX_SLICES, plan.passes)
     seen = np.zeros((b, h, w, cout), np.int8)
     for i in range(plan.items):
         b0, y0, x0, co0 = plan.item(i)
@@ -82,7 +99,6 @@ def test_k1_plan_covers_every_output_once(shape, esize):
     for n in sorted({1, 7, SMS, plan.items}):
         assert _partitions([plan.cluster_items(c, n) for c in range(n)],
                            plan.items)
-    assert 1 <= plan.slices <= min(RING_MAX_SLICES, plan.passes)
     assert _partitions([plan.block_passes(q) for q in range(plan.slices)],
                        plan.passes)
 
@@ -90,20 +106,29 @@ def test_k1_plan_covers_every_output_once(shape, esize):
 @pytest.mark.parametrize("esize", ESIZES)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_k1_plan_keeps_the_one_process_order(shape, esize):
-    """Wherever the plan claims bitwise (no split of K), one block walks
-    every pass of an item in order, passes of 32 input channels each padded
-    to the MMA's k of 8 (conv_tile.cuh::pass_pad), as the one-process
-    mainloop did; the taps run in order inside a pass in both mainloops."""
+    """Off the wgmma route, wherever the plan claims bitwise (no split of
+    K), one block walks every pass of an item in order, passes of 32 input
+    channels each padded to the MMA's k of 8 (conv_tile.cuh::pass_pad), as
+    the one-process mainloop did; the taps run in order inside a pass in
+    both mainloops. On the wgmma route (bfloat16 at the deep maps) the
+    plan claims no such order: its passes are 64 channels, its sums the
+    tensor core's, in an order and split that depend on the shape without
+    Cout."""
     b, h, w, cin, cout, k = shape
     plan = k1_plan(b, h, w, cin, cout, k, esize, SMS)
-    assert plan.passes == -(-cin // RING_CCH)
+    cch = WG_CH if plan.wgmma else RING_CCH
+    assert plan.passes == -(-cin // cch)
     c = 0
     for p in range(plan.passes):
         c0, c1, cpad = plan.pass_channels(p)
-        assert (c0, c1) == (c, min(cin, c + RING_CCH))
+        assert (c0, c1) == (c, min(cin, c + cch))
         assert cpad == (c1 - c0 + 7) // 8 * 8
         c = c1
     assert c == cin
+    assert plan.wgmma == wgmma_route(cin, cout, k, esize)
+    if plan.wgmma:
+        assert not plan.bitwise and esize == 2
+        return
     assert plan.bitwise == (plan.slices == 1)
     if plan.bitwise:
         assert list(plan.block_passes(0)) == list(range(plan.passes))
@@ -122,12 +147,23 @@ def test_plans_fit_shared_memory(shape, esize):
     b, h, w, cin, cout, k = shape
     k1 = k1_plan(b, h, w, cin, cout, k, esize, SMS)
     assert k1.smem <= RING_MAX_SMEM
-    if k1.ring:
+    if k1.wgmma:
+        # two halo stages and 2 to 12 weight boxes, one block a SM
+        assert 2 <= k1.ns <= 12
+        assert k1.smem == wg_k1_smem(k1.tw, k1.imgs, k, k1.ns)
+    elif k1.ring:
         assert 1 <= k1.ns <= (2 if esize == 4 else 4)
     else:
         assert (k1.tw, k1.th, k1.imgs, k1.slices) == (32, 8, 1, 1)
         assert k1.co == (8 if cout <= 8 else 32)
     b2 = b2_plan(b, h, w, cin, cout, k, esize, SMS)
+    if b2.wgmma:
+        # one block a SM: three warpgroups
+        assert b2.threads == 384 and 2 <= b2.ns <= 6
+        assert b2.smem == wg_b2_smem(b2.tw, b2.imgs, k, b2.ns)
+        assert b2.smem <= RING_MAX_SMEM
+        assert (b2.cb, b2.bn) == (WG_CH, WG_DW_BN)
+        return
     assert b2.smem <= RING_MAX_SMEM and 2 <= b2.ns <= 4
     if b2.ns > 2:
         assert b2.smem <= RING_HALF_SMEM
@@ -152,8 +188,12 @@ HAND_K1 = [
     # the f32 gate: 4 images of 8 x 8, groups of 16, 1 stage streamed:
     # 1024 + 69632 (51200 halo + 18432 weights) + 2 * 69632 (split)
     ((8, 8, 8, 1024, 1024, 3, 4), (8, 8, 4, 16, 1, 1, False), 209920),
-    # its bf16: 2 stages of 25600 halo + 14336 weights (13824 rounded)
-    ((8, 8, 8, 1024, 1024, 3, 2), (8, 8, 4, 16, 1, 2, False), 80896),
+    # its bf16 on the wgmma route (csrc/conv_wgmma.cu: 1024 bytes of
+    # mbarriers, two halo stages of 2 x 10 x 10 pixels of 128 bytes, 25600,
+    # and ns weight boxes of 128 rows of 128 bytes, 16384): tiles of two
+    # 8 x 8 images, groups of 128, 8 slices, 11 boxes: 1024 + 51200 +
+    # 180224
+    ((8, 8, 8, 1024, 1024, 3, 2), (8, 8, 2, 128, 8, 11, False), 232448),
     # serving's f32 gate split over 2 blocks: 1024 + 60416 (41984 halo +
     # 18432) + 2 * 60416 + 16384 of the cluster's sum
     ((1, 12, 15, 1024, 1024, 3, 4), (16, 16, 1, 16, 2, 1, False), 198656),
@@ -168,6 +208,11 @@ HAND_B2 = [
     # the f32 512 -> 512 on 8 x 8: 2 images of 8 x 8, halo 2*10*10*40*4 =
     # 32000, g 128*40*4 = 20480, two buffers of 52480
     ((8, 8, 8, 512, 512, 3, 4), (8, 8, 2, 2), 105088),
+    # its bf16 on the wgmma route (csrc/conv_wgmma.cu: 1024 bytes of
+    # mbarriers, ns stages of the halo, 2 x 10 x 10 pixels of 128 bytes,
+    # and a g box of 128 pixels of 128 bytes, then the epilogue's 64 rows
+    # of 576 bfloat16 values and 16 bytes): 3 stages of 41984, 74752
+    ((8, 8, 8, 512, 512, 3, 2), (8, 8, 2, 3), 201728),
     # the bf16 head 32 -> 2 at k 1: 4 buffers of 4*32*40*2 + 128*8*2
     ((8, 128, 128, 32, 2, 1, 2), (32, 4, 1, 4), 49280),
 ]
@@ -190,14 +235,19 @@ def test_plan_bytes_match_the_kernels_layout(case):
 
 
 def test_deep_maps_fill_their_tiles():
-    """The 8 x 8 maps fill K1's 256-pixel tile with four images and B2's
-    128-pixel tile with two, and serving's 12 x 15 is one K1 tile."""
+    """The 8 x 8 maps fill K1's 256-pixel tile with four images (its
+    bfloat16 wgmma route's 128-pixel tile with two) and B2's 128-pixel
+    tile with two, and serving's 12 x 15 is one K1 tile (two of 16 x 8 on
+    the wgmma route)."""
     for esize in ESIZES:
         k1 = k1_plan(8, 8, 8, 1024, 1024, 3, esize, SMS)
-        assert (k1.tw, k1.th, k1.imgs, k1.tiles) == (8, 8, 4, 2)
+        assert (k1.tw, k1.th, k1.imgs, k1.tiles) == (
+            (8, 8, 4, 2) if esize == 4 else (8, 8, 2, 4))
         b2 = b2_plan(8, 8, 8, 512, 512, 3, esize, SMS)
         assert (b2.tw, b2.th, b2.imgs, b2.ntiles) == (8, 8, 2, 4)
-        assert k1_plan(1, 12, 15, 1024, 1024, 3, esize, SMS).tiles == 1
+        serving = k1_plan(1, 12, 15, 1024, 1024, 3, esize, SMS)
+        assert (serving.tiles, serving.tw) == ((1, 16) if esize == 4
+                                               else (2, 16))
 
 
 @pytest.mark.parametrize("esize", ESIZES)
@@ -230,6 +280,15 @@ def test_b2_plan_covers_every_output_and_pixel(shape, esize):
                            plan.items)
 
 
+# the gate whose K1 on the wgmma route leaves SMs idle, (B, H, W, Cin, Cout):
+# serving's 1024 -> 512 at 2 tiles x 4 groups x 8 slices. Its slices are
+# serving's 1024 -> 1024 gate's (the K order comes from the shape without
+# Cout, for the model axis's bits). On the H100 16 slices, which give this
+# gate 128 units, ran 1.13x faster here and 1.33x slower at 1024 -> 1024
+# (PERF.md)
+WG_K1_SHORT = {(1, 12, 15, 1024, 512): 64}
+
+
 @pytest.mark.parametrize("esize", ESIZES)
 @pytest.mark.parametrize("shape", GATE_SHAPES)
 def test_gate_shapes_fill_the_card(shape, esize):
@@ -241,13 +300,35 @@ def test_gate_shapes_fill_the_card(shape, esize):
     split: on the H100 the 132-or-more plans there (groups of 8 where 16
     give 128 items, or a split over 3 blocks) measured 1.5-2x slower, and
     a split off serving's single-image maps would leave the one-process
-    sum order (PERF.md)."""
+    sum order (PERF.md).
+
+    On the bfloat16 wgmma route (one block a SM) K1's slices come from
+    the shape without Cout and are summed by a second launch, not in a
+    cluster, so no round of co-resident blocks bounds them; serving's
+    1024 -> 512 gate alone has fewer units (WG_K1_SHORT), its slices being
+    those of serving's 1024 -> 1024 gate. B2's items there are its output
+    tiles of 64 x 64 channels, split into pixel chunks only where the SMs
+    outnumber them twice or more: a split of the gates' 128 output tiles
+    (Cin 1024 x Cout 512 or 512 x 1024, 97 % of the SMs) puts twice the
+    items in two rounds of one block a SM, plus the partials' sum, and ran
+    1.6-2.4x slower (the plan's measured rule, PERF.md, ``kernel_timing.py
+    plans``), so there the items are 96 % of the SMs or more."""
     b, h, w, cin, cout, k = shape
-    assert b2_plan(b, h, w, cin, cout, k, esize, SMS).items >= SMS
+    b2 = b2_plan(b, h, w, cin, cout, k, esize, SMS)
     k1 = k1_plan(b, h, w, cin, cout, k, esize, SMS)
     units = k1.items * k1.slices
-    assert units >= 0.96 * SMS, k1
-    if k1.slices > 1:
+    if k1.wgmma and (b, h, w, cin, cout) in WG_K1_SHORT:
+        assert units == WG_K1_SHORT[(b, h, w, cin, cout)], k1
+    else:
+        assert units >= 0.96 * SMS, k1
+    if b2.wgmma:
+        out_tiles = b2.cblocks * b2.coblocks
+        assert b2.items >= SMS or (
+            b2.chunks == 1 and 2 * out_tiles > SMS
+            and out_tiles >= 0.96 * SMS), b2
+    else:
+        assert b2.items >= SMS
+    if k1.slices > 1 and not k1.wgmma:
         cap = SMS * (2 if (esize == 2 or k == 1)
                      and k1.smem <= RING_HALF_SMEM else 1)
         assert b == 1 and units <= cap, k1
@@ -264,6 +345,67 @@ def test_plans_depend_on_the_shape_alone():
         8, 128, 128, 32, 32, 3, 4, SMS).chunks
 
 
+# PERF.md's deep rows of bfloat16 K1 and B2 (B, H, W, Cin, Cout), where the
+# mma.sync mainloops ran 1.8-4.9x cuDNN's bf16 time
+DEEP_ROWS = [(1, 12, 15, 1024, 1024), (8, 8, 8, 1024, 1024),
+             (8, 8, 8, 1024, 512), (8, 16, 16, 1024, 256),
+             (8, 8, 8, 512, 512)]
+
+
+def _path_shapes():
+    """(B, H, W, Cin, Cout, k) of every K1 and B2 shape chip_smoke.py holds
+    at: the gates, the U-Nets' same convs in training and the heads."""
+    rows = [(b, h, w, cin, cout, 3)
+            for _, b, h, w, cin, cout in chip_smoke.GATE_SHAPES]
+    rows += [(b, h, w, cin, cout, k)
+             for b, h, w, cin, cout, k, _ in chip_smoke.B2_UNET]
+    rows += [(1, h, w, cin, 2, 1) for h, w, cin in chip_smoke.UNET_K1]
+    return list(dict.fromkeys(rows))
+
+
+@pytest.mark.parametrize("esize", ESIZES)
+@pytest.mark.parametrize("shape", _path_shapes())
+def test_wgmma_route_at_the_path_shapes(shape, esize):
+    """bfloat16 K1 and B2 at the deep maps (k 3, 512 input channels or more
+    in 64-channel blocks) run on the wgmma route, every deep row of
+    PERF.md's tables among them; float32 never does, nor do the shallower
+    maps, the decoders' 514 and 258 channels or the heads."""
+    b, h, w, cin, cout, k = shape
+    deep = esize == 2 and k == 3 and cin >= 512 and cin % 64 == 0
+    assert k1_plan(b, h, w, cin, cout, k, esize, SMS).wgmma == deep
+    assert b2_plan(b, h, w, cin, cout, k, esize, SMS).wgmma == deep
+    if (b, h, w, cin, cout) in DEEP_ROWS:
+        assert deep == (esize == 2)
+
+
+@pytest.mark.parametrize("shape", DEEP_ROWS + [
+    (8, 16, 16, 512, 1024), (1, 12, 15, 1024, 512), (3, 8, 8, 512, 200)])
+def test_wgmma_k_order_does_not_depend_on_cout(shape):
+    """K1's tiles, passes and their slices on the wgmma route come from the
+    shape without Cout, and its groups are 128 channels: a model-axis
+    shard of Cout / 2 or Cout / 4 (64 or more) runs the whole layer's
+    units for its channels, in the same order, so its y is the whole
+    layer's channels bitwise (the card tests hold it)."""
+    b, h, w, cin, cout = shape
+    whole = k1_plan(b, h, w, cin, cout, 3, 2, SMS)
+    assert whole.wgmma
+    for mp in (2, 4):
+        if cout // mp < 64 or cout % (mp * 8):
+            continue
+        shard = k1_plan(b, h, w, cin, cout // mp, 3, 2, SMS)
+        assert shard.wgmma and shard.co == whole.co == WG_K1_BN
+        assert ((shard.tw, shard.th, shard.imgs, shard.tiles, shard.passes,
+                 shard.slices, shard.ns) ==
+                (whole.tw, whole.th, whole.imgs, whole.tiles, whole.passes,
+                 whole.slices, whole.ns))
+        for q in range(whole.slices):
+            assert shard.block_passes(q) == whole.block_passes(q)
+        # item i of the shard is item i of the whole layer where the
+        # shard's groups end
+        for i in range(shard.items):
+            assert shard.item(i) == whole.item(i)
+
+
 def test_shape_log_sees_every_k1_and_b2_launch(monkeypatch):
     """chip_smoke.py's ShapeLog logs each K1 and B2 launch with its shape.
     The operator evflow::conv2d_same holds K1's wrapper function itself
@@ -271,7 +413,9 @@ def test_shape_log_sees_every_k1_and_b2_launch(monkeypatch):
     wrapper saw no K1 launch and the profiled updates' K1 by shape read
     "not measured"; the log now hooks the wrapper's call of the plan. Run
     here on fake CUDA tensors through the function the operator holds,
-    with a library whose entries return success and a card of 132 SMs."""
+    with a library whose entries return success and a card of 132 SMs;
+    then at a bfloat16 deep map, whose K1 and B2 launch on the wgmma route
+    (counted as such) and are logged with their plans."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from event_flow_tpu_torch.ops import conv, native
@@ -293,11 +437,25 @@ def test_shape_log_sees_every_k1_and_b2_launch(monkeypatch):
             with chip_smoke.ShapeLog() as log:
                 held(x, w)
                 conv._dw(x, g, 3)
+            bf = torch.bfloat16
+            xd = torch.zeros((8, 8, 8, 512), device="cuda", dtype=bf)
+            gd = torch.zeros((8, 8, 8, 256), device="cuda", dtype=bf)
+            wd = torch.zeros((256, 512, 3, 3), device="cuda", dtype=bf)
+            native.reset_launch_counts()
+            with chip_smoke.ShapeLog() as deep:
+                held(xd, wd)
+                conv._dw(xd, gd, 3)
+            wgmma = {k: n for k, n in native.LAUNCHES.items() if n}
     finally:
         native.LAUNCHES.update(counts)
     assert log.k1 == [(2, 8, 8, 4, 6, 3)]
     assert log.b2 == [(2, 8, 8, 4, 6, 3, 4)]
     assert conv.k1_plan is k1_plan and conv._conv_kernel is held
+    assert deep.k1 == [(8, 8, 8, 512, 256, 3)]
+    assert deep.b2 == [(8, 8, 8, 512, 256, 3, 2)]
+    (cs, esize, plan), = deep.k1_plans
+    assert (cs, esize, plan.wgmma) == (512, 2, True)
+    assert wgmma == {"conv2d_same_wgmma_bf16": 1, "conv2d_dw_wgmma_bf16": 1}
 
 
 # K2's calls (B, H, W, Cin, Crec, Cout, k), Crec 0 for ff: every shape

@@ -26,7 +26,8 @@ from event_flow_tpu_torch.ops import native
 from event_flow_tpu_torch.ops.conv import (conv2d_dw_kernel, conv2d_dw_plain,
                                            conv2d_same, conv2d_same_plain,
                                            conv2d_strided)
-from event_flow_tpu_torch.ops.conv_plan import b2_plan, k1_plan, k2_plan
+from event_flow_tpu_torch.ops.conv_plan import (b2_plan, k1_plan, k2_plan,
+                                                wgmma_route)
 from event_flow_tpu_torch.ops.fused_lif import (fused_conv_lif,
                                                 fused_conv_lif_plain,
                                                 fused_conv_lif_rec,
@@ -1520,6 +1521,15 @@ def _bf16_close(got, ref, atol):
     assert not native.beyond_bf16_ulp(got, ref, atol).any()
 
 
+def _route(kernel, x, cout, k):
+    """The launch count K1 (``conv2d_same``) or B2 (``conv2d_dw``) on a
+    contiguous x adds to: the wgmma route's at the bfloat16 deep maps
+    (ops/conv_plan.py::wgmma_route), else x's type's variant."""
+    if wgmma_route(x.shape[3], cout, k, x.element_size()):
+        return kernel + "_wgmma_bf16"
+    return native.variant(kernel, x.dtype)
+
+
 @pytest.mark.parametrize("shape,cout,k,inputs", BF16_CONV)
 def test_bf16_conv_kernels_match_plain(dev, shape, cout, k, inputs):
     """K1 and B2 on bfloat16 x, w and g: their bfloat16 variants launch
@@ -1537,9 +1547,11 @@ def test_bf16_conv_kernels_match_plain(dev, shape, cout, k, inputs):
     before = dict(native.LAUNCHES)
     y = conv2d_same(x, w)
     dw = conv2d_dw_kernel(x, gy, k)
-    assert native.LAUNCHES["conv2d_same_bf16"] == before[
-        "conv2d_same_bf16"] + 1
-    assert native.LAUNCHES["conv2d_dw_bf16"] == before["conv2d_dw_bf16"] + 1
+    # the deep maps' K1 and B2 count under the wgmma route's names
+    k1, b2 = (_route(kernel, x, cout, k) for kernel in ("conv2d_same",
+                                                       "conv2d_dw"))
+    assert native.LAUNCHES[k1] == before[k1] + 1
+    assert native.LAUNCHES[b2] == before[b2] + 1
     assert native.LAUNCHES["conv2d_same"] == before["conv2d_same"]
     assert native.LAUNCHES["conv2d_dw"] == before["conv2d_dw"]
     _bf16_close(y, conv2d_same_plain(x, w), ATOL)
@@ -2211,7 +2223,8 @@ def test_conv_kernel_on_its_plan(dev, case, dtype):
                    sm_count(torch.device(dev)))
     if (b, h, w) == (1, 12, 15):  # the split path stays under test
         assert plan.slices > 1, plan
-    name = native.variant("conv2d_same", dtype)
+    name = _route("conv2d_same", x, cout, k)
+    assert plan.wgmma == name.endswith("wgmma_bf16")
     before = native.LAUNCHES[name]
     y = conv2d_same(x, wt)
     assert native.LAUNCHES[name] == before + 1
@@ -2232,7 +2245,8 @@ def test_conv_dw_kernel_on_its_plan(dev, case, dtype):
     x, _, gy = _conv_plan_inputs(dev, case, dtype)
     plan = b2_plan(b, h, w, cin, cout, k, x.element_size(),
                    sm_count(torch.device(dev)))
-    name = native.variant("conv2d_dw", dtype)
+    name = _route("conv2d_dw", x, cout, k)
+    assert plan.wgmma == name.endswith("wgmma_bf16")
     before = native.LAUNCHES[name]
     dw = conv2d_dw_kernel(x, gy, k)
     assert native.LAUNCHES[name] == before + 1
@@ -2243,6 +2257,98 @@ def test_conv_dw_kernel_on_its_plan(dev, case, dtype):
     else:
         assert_close_to_max(dw, ref)
     assert torch.equal(dw, conv2d_dw_kernel(x, gy, k)), plan
+
+
+# bfloat16 K1 and B2 on the wgmma route (csrc/conv_wgmma.cuh), (B, H, W,
+# Cin, Cout): every deep shape of chip_smoke.py's GATE_SHAPES and B2_UNET
+# (UNET_K1's heads are 1 x 1, off the route), then images past B in tiles
+# of two 8 x 8 images with Cout off K1's groups of 128 and B2's 64, and
+# tiles overhanging a 9 x 11 map at 5 images and 576 channels
+WGMMA_CASES = [(8, 8, 8, 1024, 1024), (8, 8, 8, 1024, 512),
+               (1, 12, 15, 1024, 1024), (1, 12, 15, 1024, 512),
+               (8, 16, 16, 512, 1024), (8, 8, 8, 512, 512),
+               (8, 16, 16, 1024, 256), (3, 8, 8, 512, 200),
+               (5, 9, 11, 576, 72)]
+
+
+@pytest.mark.parametrize("kind", ["spikes", "randn"])
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_wgmma_kernels_match_plain(dev, case, kind):
+    """K1 and B2 on the wgmma route: one launch each under their own
+    counts, within one bf16 ulp plus ATOL (B2: plus SUM_RTOL of the
+    largest |dw|) of their plain versions, twice bitwise equal."""
+    b, h, w, cin, cout = case
+    x, wt, gy = _conv_plan_inputs(dev, (b, h, w, cin, cout, 3, kind),
+                                  torch.bfloat16)
+    sms = sm_count(torch.device(dev))
+    assert k1_plan(b, h, w, cin, cout, 3, 2, sms).wgmma
+    assert b2_plan(b, h, w, cin, cout, 3, 2, sms).wgmma
+    before = dict(native.LAUNCHES)
+    y = conv2d_same(x, wt)
+    dw = conv2d_dw_kernel(x, gy, 3)
+    moved = {k: n - before[k] for k, n in native.LAUNCHES.items()
+             if n != before[k]}
+    assert moved == {"conv2d_same_wgmma_bf16": 1, "conv2d_dw_wgmma_bf16": 1}
+    _bf16_close(y, conv2d_same_plain(x, wt), ATOL)
+    ref = conv2d_dw_plain(x, gy, 3)
+    _bf16_close(dw, ref, SUM_RTOL * float(ref.float().abs().max()))
+    assert torch.equal(y, conv2d_same(x, wt))
+    assert torch.equal(dw, conv2d_dw_kernel(x, gy, 3))
+
+
+@pytest.mark.parametrize("mp", [2, 4])
+@pytest.mark.parametrize("case", [(8, 8, 8, 1024, 1024),
+                                  (1, 12, 15, 1024, 512)])
+def test_wgmma_k1_model_axis_shard_bitwise(dev, case, mp):
+    """K1 on the wgmma route of a model-axis shard (Cout / mp of the
+    layer's output channels) is the whole layer's channels bitwise: its
+    tiles, passes and slices come from the shape without Cout."""
+    b, h, w, cin, cout = case
+    x, wt, _ = _conv_plan_inputs(dev, (b, h, w, cin, cout, 3, "randn"),
+                                 torch.bfloat16)
+    y = conv2d_same(x, wt)
+    n = cout // mp
+    for r in range(mp):
+        part = conv2d_same(x, wt[r * n:(r + 1) * n].contiguous())
+        assert torch.equal(part, y[..., r * n:(r + 1) * n]), r
+
+
+def _off_16_bytes(t):
+    """A contiguous copy of t whose pointer is 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("what", ["x", "g"])
+def test_wgmma_route_leaves_misaligned_maps(dev, what):
+    """At a bfloat16 deep map (8 x 8 x 8, 512 -> 512) an x (K1 and B2) or
+    a g (B2) whose pointer is off 16 bytes, which the wgmma route's TMA
+    maps cannot take, leaves the route: K1 and B2 launch their mma.sync
+    kernels and match their plain versions."""
+    b, h, w, cin, cout = 8, 8, 8, 512, 512
+    x, wt, gy = _conv_plan_inputs(dev, (b, h, w, cin, cout, 3, "randn"),
+                                  torch.bfloat16)
+    sms = sm_count(torch.device(dev))
+    assert b2_plan(b, h, w, cin, cout, 3, 2, sms).wgmma
+    assert not b2_plan(b, h, w, cin, cout, 3, 2, sms, cin, False).wgmma
+    assert not k1_plan(b, h, w, cin, cout, 3, 2, sms, cin, False).wgmma
+    xs = _off_16_bytes(x) if what == "x" else x
+    gs = _off_16_bytes(gy) if what == "g" else gy
+    before = dict(native.LAUNCHES)
+    dw = conv2d_dw_kernel(xs, gs, 3)
+    y = conv2d_same(xs, wt)
+    moved = {k: n - before[k] for k, n in native.LAUNCHES.items()
+             if n != before[k]}
+    assert moved == ({"conv2d_same_bf16": 1, "conv2d_dw_bf16": 1}
+                     if what == "x" else
+                     {"conv2d_same_wgmma_bf16": 1, "conv2d_dw_bf16": 1})
+    ref = conv2d_dw_plain(x, gy, 3)
+    _bf16_close(dw, ref, SUM_RTOL * float(ref.float().abs().max()))
+    _bf16_close(y, conv2d_same_plain(x, wt), ATOL)
 
 
 def _with_nans(t, where):
@@ -2275,8 +2381,11 @@ def _finite_close(got, ref, mask, atol):
 
 
 # (B, H, W, Cin, Cout): K1 on the ring and on the one-image tile (130
-# channels), B2 by TMA and by the threads' copies
-NAN_CASES = [(2, 8, 8, 64, 32), (2, 12, 15, 130, 16)]
+# channels), B2 by TMA and by the threads' copies; in bfloat16 both on the
+# wgmma route at 512 channels, on 12 x 15 maps, whose last tiles overhang
+# them
+NAN_CASES = [(2, 8, 8, 64, 32), (2, 12, 15, 130, 16),
+             (2, 12, 15, 512, 200)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -2299,7 +2408,8 @@ def test_conv_kernel_keeps_nans(dev, case, operand, dtype):
         wt = _with_nans(wt, [(3, 5, 1, 1), (cout - 1, cin - 1, 0, 2)])
     plan = k1_plan(b, h, w, cin, cout, 3, 4 if dtype == torch.float32
                    else 2, sm_count(torch.device(dev)))
-    assert plan.ring == (cin == 64)
+    assert plan.ring == (cin != 130)
+    assert plan.wgmma == (cin == 512 and dtype == torch.bfloat16)
     x, wt = x.to(dev, dtype), wt.to(dev, dtype)
     y = conv2d_same(x, wt)
     mask = _window_nans(x.cpu().double(), wt.cpu().double(), 3).to(dev)
@@ -2322,6 +2432,9 @@ def test_conv_dw_kernel_keeps_nans(dev, case, operand, dtype):
         x = _with_nans(x, [(0, 3, 4, 5), (1, h - 1, 2, cin - 1)])
     else:
         gy = _with_nans(gy, [(0, 2, 2, 3), (1, h - 1, w - 1, cout - 1)])
+    assert b2_plan(b, h, w, cin, cout, 3, 4 if dtype == torch.float32
+                   else 2, sm_count(torch.device(dev))).wgmma == (
+        cin == 512 and dtype == torch.bfloat16)
     x, gy = x.to(dev, dtype), gy.to(dev, dtype)
     dw = conv2d_dw_kernel(x, gy, 3)
     reach = conv2d_dw_plain(torch.isnan(x).double().cpu(),
